@@ -1,0 +1,128 @@
+"""Architecture dispatch for packing (port of smoothquant_tpu/models/
+registry.py:57-197, pack_model for the llama family)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from smoothquant_tpu_torch.kernels.pack import fold_input_perm, pack_linear
+from smoothquant_tpu_torch.models import llama
+from smoothquant_tpu_torch.quant.config import QuantConfig
+
+_ARCHES = {"llama": llama}
+
+
+def get_arch(name: str):
+    try:
+        return _ARCHES[name]
+    except KeyError:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported (ported: {sorted(_ARCHES)})"
+        ) from None
+
+
+def _get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set_path(tree, path, value):
+    if not path:
+        return value
+    new = dict(tree)
+    new[path[0]] = _set_path(tree[path[0]], path[1:], value)
+    return new
+
+
+def pack_model(
+    arch: str,
+    params: dict,
+    cfg,
+    qcfg: QuantConfig,
+    input_feat: Optional[dict] = None,
+    act_scales: Optional[dict] = None,
+    compute_dtype=None,
+    nibble: bool = False,
+    lm_head_qcfg: Optional[QuantConfig] = None,
+    align_k_groups: int = 1,
+    align_o: int = 1,
+    fuse: bool = False,
+    fold_perms: bool = False,
+    shared_residual_basis: bool = False,
+    identity_keys: tuple = (),
+) -> dict:
+    """Replace every quantizable linear with a PackedLinear.
+
+    input_feat: salience importance vectors; act_scales: per-channel
+    absmax (the static sort key).  Both keyed by HF module names.  The
+    options mean what they mean in the JAX package's pack_model; packing
+    runs on the device the weights live on.
+    """
+    mod = get_arch(arch)
+    if not fuse:
+        raise NotImplementedError("the port packs fused qkv / gate_up trees")
+    compute_dtype = compute_dtype or cfg.torch_dtype
+    params = mod.fuse_projections(params, cfg)
+    listing = mod.quantizable_linears_fused(cfg)
+    rs_paths: dict = {}
+    shared_imp = shared_absmax = None
+    if shared_residual_basis:
+        rs_paths = {tuple(p): key for p, key in mod.residual_consumers(cfg)}
+        keys = set(rs_paths.values())
+        if input_feat is not None:
+            shared_imp = np.sum([np.asarray(input_feat[k]) for k in keys], axis=0)
+        if act_scales is not None:
+            shared_absmax = np.max([np.asarray(act_scales[k]) for k in keys], axis=0)
+        elif shared_imp is not None:
+            shared_absmax = shared_imp
+        else:
+            raise ValueError("shared_residual_basis needs input_feat or "
+                             "act_scales to define the shared layout")
+    fold_map = {}
+    if fold_perms:
+        fold_map = {tuple(c): prods for c, prods in mod.perm_fold_pairs(cfg)}
+        listing = sorted(listing, key=lambda t: 0 if tuple(t[0]) in fold_map else 1)
+
+    shared_perm = None
+    for path, key, _qo in listing:
+        lin = _get_path(params, path)
+        imp = None if input_feat is None else np.asarray(input_feat[key])
+        absmax = None if act_scales is None else np.asarray(act_scales[key])
+        if tuple(path) in rs_paths:
+            imp = shared_imp if shared_imp is not None else imp
+            absmax = shared_absmax
+        identity = nibble and any(sub in key for sub in identity_keys)
+        packed = pack_linear(lin, qcfg, importance=imp, act_absmax=absmax,
+                             compute_dtype=compute_dtype, nibble=nibble,
+                             identity=identity, align_k_groups=align_k_groups,
+                             align_o=align_o)
+        if tuple(path) in rs_paths:
+            packed = dataclasses.replace(
+                packed, meta=dataclasses.replace(packed.meta, pre_permuted=True))
+            perm = packed.perm.cpu().numpy()
+            if shared_perm is None:
+                shared_perm = perm
+            elif not np.array_equal(shared_perm, perm):
+                raise RuntimeError("shared-basis consumers diverged in layout")
+        for prod_path, n_splits in fold_map.get(tuple(path), ()):
+            packed, prod_lin = fold_input_perm(packed, _get_path(params, prod_path),
+                                               n_splits)
+            params = _set_path(params, prod_path, prod_lin)
+        params = _set_path(params, path, packed)
+    if lm_head_qcfg is not None and isinstance(params.get("lm_head"), dict):
+        params = dict(params)
+        lm = params["lm_head"]
+        if shared_perm is not None:
+            take = torch.as_tensor(shared_perm, device=lm["weight"].device)
+            lm = {"weight": lm["weight"].index_select(1, take),
+                  "bias": lm.get("bias")}
+        params["lm_head"] = pack_linear(lm, lm_head_qcfg,
+                                        compute_dtype=compute_dtype)
+    if shared_perm is not None:
+        params = mod.apply_shared_residual_basis(params, cfg, shared_perm)
+    return params

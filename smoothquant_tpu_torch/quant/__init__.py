@@ -1,0 +1,3 @@
+from smoothquant_tpu_torch.quant.config import QuantConfig, w4a4_group
+
+__all__ = ["QuantConfig", "w4a4_group"]

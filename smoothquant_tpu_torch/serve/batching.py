@@ -1,0 +1,248 @@
+"""Continuous batching over a stacked S-major int8 KV pool (port of
+smoothquant_tpu/serve/batching.py:31-411, the per-slot stacked path).
+
+  * a fixed pool of `max_batch` slots with (L, B) per-slot cache positions;
+  * same-bucket admissions share one batched prefill on the per-layer tree,
+    whose cache rows are scattered into the pool (cropped at max_len);
+  * rotary uses each slot's TRUE sequence position (seq_pos), the cache row
+    its POOL position (pool_pos / the device pos) — they differ after a
+    bucketed prefill;
+  * padded and dead cache positions stay masked by the key-validity mask;
+  * step() decodes one token, step_chunk(k) k tokens with the argmax on
+    the device and one host fetch per chunk.
+
+Prefill runs the lm_head on each row's last true position only: per-token
+activation quantization makes every row's logits independent of the
+others, so the first tokens equal those of the JAX batcher, which gathers
+them from the full (rows, S, V) logits.
+
+Deliberate divergence: step() asserts that an active slot's pool position
+lies inside the cache before marking it valid (the JAX batcher indexes the
+host mask unchecked there).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from smoothquant_tpu_torch._device import resolve_device
+from smoothquant_tpu_torch.models.common import SMajorQuantKVCache
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray              # (S,) int
+    max_new_tokens: int = 32
+    eos_token_id: Optional[int] = None
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"prompt length {n} exceeds largest bucket")
+
+
+class ContinuousBatcher:
+    def __init__(self, model_mod, params, cfg, *, max_batch: int = 4,
+                 max_len: int = 512, quant_kv: bool = False,
+                 prefill_params=None, smajor: bool = False, device="cuda"):
+        if not (quant_kv and smajor):
+            raise NotImplementedError("only the S-major int8 pool is ported")
+        if "stacked" not in params.get("layers", {}):
+            raise NotImplementedError("decode serves a stacked tree")
+        self.mod, self.params, self.cfg = model_mod, params, cfg
+        self.prefill_params = params if prefill_params is None else prefill_params
+        if "stacked" in self.prefill_params.get("layers", {}):
+            raise NotImplementedError("prefill runs on the per-layer tree")
+        self.device = resolve_device(device)
+        self.max_batch, self.max_len = max_batch, max_len
+        self.caches = model_mod.stacked_caches(cfg, max_batch, max_len,
+                                               device=self.device)
+        self.key_valid = np.zeros((max_batch, max_len), bool)
+        self.seq_pos = np.zeros(max_batch, np.int64)   # true sequence lengths
+        # host mirror of the per-slot device cache positions: every decode
+        # step advances every slot (dead ones too); admission resets a slot
+        self.pool_pos = np.zeros(max_batch, np.int64)
+        self.slot_req: list[Optional[Request]] = [None] * max_batch
+        self.queue: list[Request] = []
+        self._steps = 0
+
+    def _to_dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    # ------------------------------------------------------------ device
+
+    @torch.no_grad()
+    def _prefill(self, ids: np.ndarray, lens: np.ndarray):
+        """First generated token of each row and the rows' stacked cache."""
+        cfg = self.cfg
+        rows, bucket = ids.shape
+        batch = SMajorQuantKVCache.create(rows, bucket, cfg.num_key_value_heads,
+                                          cfg.head_dim, self.device,
+                                          n_layers=cfg.num_hidden_layers)
+        layer_caches = [batch.layer(i) for i in range(cfg.num_hidden_layers)]
+        h, _ = self.mod.forward_hidden(self.prefill_params, self._to_dev(ids),
+                                       cfg, caches=layer_caches)
+        idx = self._to_dev(np.clip(lens - 1, 0, bucket - 1))
+        last = h[torch.arange(rows, device=self.device), idx]
+        logits = self.mod.lm_head_logits(self.prefill_params, last[:, None], cfg)
+        first = torch.argmax(logits[:, 0], dim=-1)
+        return first.cpu().numpy(), batch
+
+    def _scatter(self, batch: SMajorQuantKVCache, row: int, slot: int,
+                 new_pos: int) -> None:
+        """Copy prefill row `row` into pool slot `slot` (cropped at max_len)."""
+        pool = self.caches
+        n = min(batch.k_q.shape[2], self.max_len)
+        pool.k_q[:, slot, :n] = batch.k_q[:, row, :n]
+        pool.v_q[:, slot, :n] = batch.v_q[:, row, :n]
+        pool.k_scale[:, slot, :, :n] = batch.k_scale[:, row, :, :n]
+        pool.v_scale[:, slot, :, :n] = batch.v_scale[:, row, :, :n]
+        pool.pos[:, slot] = new_pos
+
+    def _decode(self, tok: torch.Tensor, positions: torch.Tensor,
+                key_valid: torch.Tensor) -> torch.Tensor:
+        h, self.caches = self.mod.forward_hidden(
+            self.params, tok[:, None], self.cfg, caches=self.caches,
+            positions=positions[:, None], attn_mask=key_valid)
+        logits = self.mod.lm_head_logits(self.params, h, self.cfg)
+        return torch.argmax(logits[:, -1], dim=-1)
+
+    # ------------------------------------------------------------ API
+
+    def submit(self, req: Request) -> None:
+        if len(req.prompt) + req.max_new_tokens > self.max_len:
+            raise ValueError("request exceeds max_len")
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        free = [s for s in range(self.max_batch) if self.slot_req[s] is None]
+        # same-bucket admissions share one prefill; each pass starts from
+        # the queue head, so no bucket starves
+        while free and self.queue:
+            head_bucket = _bucket(len(self.queue[0].prompt))
+            batch: list[Request] = []
+            rest: list[Request] = []
+            for req in self.queue:
+                if len(batch) < len(free) and _bucket(len(req.prompt)) == head_bucket:
+                    batch.append(req)
+                else:
+                    rest.append(req)
+            self.queue = rest
+            n_rows = 1
+            while n_rows < len(batch):
+                n_rows *= 2
+            ids = np.zeros((n_rows, head_bucket), np.int64)
+            lens = np.ones((n_rows,), np.int64)
+            for i, req in enumerate(batch):
+                ids[i, : len(req.prompt)] = req.prompt
+                lens[i] = len(req.prompt)
+            first_toks, kv_batch = self._prefill(ids, lens)
+            for i, req in enumerate(batch):
+                slot = free.pop(0)
+                s_true = len(req.prompt)
+                self._scatter(kv_batch, i, slot, s_true)
+                self.key_valid[slot, :] = False
+                self.key_valid[slot, :s_true] = True
+                self.seq_pos[slot] = s_true
+                self.pool_pos[slot] = s_true
+                self.slot_req[slot] = req
+                self._emit(slot, int(first_toks[i]))
+
+    def _emit(self, slot: int, token: int) -> None:
+        req = self.slot_req[slot]
+        req.generated.append(token)
+        if token == req.eos_token_id or len(req.generated) >= req.max_new_tokens:
+            req.done = True
+            self.slot_req[slot] = None
+            self.key_valid[slot, :] = False
+            self.seq_pos[slot] = 0
+
+    def _active_tokens(self):
+        active = [s for s in range(self.max_batch) if self.slot_req[s] is not None]
+        tok = np.zeros(self.max_batch, np.int64)
+        for s in active:
+            tok[s] = self.slot_req[s].generated[-1]
+        return active, tok
+
+    @torch.no_grad()
+    def step(self) -> list[Request]:
+        """Admit queued requests, run one decode step, return finished."""
+        self._admit()
+        active, tok = self._active_tokens()
+        if not active:
+            return []
+        for s in active:
+            assert self.pool_pos[s] < self.max_len, "active slot past the cache"
+            self.key_valid[s, self.pool_pos[s]] = True
+        next_tok = self._decode(self._to_dev(tok), self._to_dev(self.seq_pos),
+                                self._to_dev(self.key_valid))
+        self._steps += 1
+        next_np = next_tok.cpu().numpy()
+        self.pool_pos += 1
+        finished = []
+        for s in active:
+            self.seq_pos[s] += 1
+            req = self.slot_req[s]
+            self._emit(s, int(next_np[s]))
+            if req.done:
+                finished.append(req)
+        return finished
+
+    @torch.no_grad()
+    def step_chunk(self, k: int) -> list[Request]:
+        """Admit, then decode k tokens with the argmax on the device and one
+        host fetch; emits what k calls of step() would under greedy."""
+        if k == 1:
+            return self.step()
+        self._admit()
+        active, tok = self._active_tokens()
+        if not active:
+            return []
+        tok_d = self._to_dev(tok)
+        positions = self._to_dev(self.seq_pos)
+        key_valid = self._to_dev(self.key_valid)
+        cols = torch.arange(self.max_len, device=self.device)[None, :]
+        toks = []
+        for _ in range(k):
+            # the incoming token's pool row becomes valid for every slot; a
+            # dead slot's row past the cache simply matches no column
+            key_valid |= cols == self.caches.pos[0][:, None]
+            tok_d = self._decode(tok_d, positions, key_valid)
+            toks.append(tok_d)
+            positions = positions + 1
+        self._steps += k
+        toks = torch.stack(toks).cpu().numpy()          # (k, B)
+        for s in range(self.max_batch):
+            lo = min(int(self.pool_pos[s]), self.max_len)
+            hi = min(lo + k, self.max_len)
+            self.key_valid[s, lo:hi] = True
+        self.pool_pos += k
+        for s in active:
+            self.seq_pos[s] += k
+        finished = []
+        for s in active:
+            req = self.slot_req[s]
+            for t in range(k):
+                self._emit(s, int(toks[t, s]))
+                if req.done:
+                    finished.append(req)
+                    break
+        return finished
+
+    def run_to_completion(self, max_steps: int = 10_000,
+                          chunk: int = 1) -> list[Request]:
+        done = []
+        for _ in range(max_steps):
+            done.extend(self.step_chunk(chunk) if chunk > 1 else self.step())
+            if not self.queue and all(r is None for r in self.slot_req):
+                break
+        return done

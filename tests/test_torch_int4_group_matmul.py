@@ -1,0 +1,189 @@
+"""K1 (int4_group_matmul_stacked_rawx) and K6 (int4_group_matmul) plain
+PyTorch versions vs the JAX Pallas kernels in interpret mode, plus the
+real_quant_linear dispatch that reaches them.  Tolerance rtol=atol=2e-4:
+both sides accumulate the same exact integer group products in f32, in
+different orders."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smoothquant_tpu.kernels import pack as jpack
+from smoothquant_tpu.kernels import real_linear as jreal
+from smoothquant_tpu.kernels.int4_group_matmul import (
+    int4_group_matmul as j_gmm,
+    int4_group_matmul_stacked_rawx as j_rawx,
+)
+from smoothquant_tpu.quant.config import w4a4_group as jw4a4_group
+from smoothquant_tpu_torch.kernels import pack as tpack
+from smoothquant_tpu_torch.kernels import real_linear as treal
+from smoothquant_tpu_torch.kernels.int4_group_matmul import (
+    int4_group_matmul,
+    int4_group_matmul_stacked_rawx,
+)
+from smoothquant_tpu_torch.utils.convert import packed_from_numpy
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+N, C, O, GS, L = 4, 200, 96, 16, 2
+EPS = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _to_torch(jp):
+    d = {f: None if getattr(jp, f) is None else np.asarray(getattr(jp, f))
+         for f in ("w_qt", "w_scales_t", "w_sal_t", "bias", "perm", "ns_mask")}
+    d["meta"] = dataclasses.asdict(jp.meta)
+    return packed_from_numpy(d, "cpu")
+
+
+def _packs(identity: bool, scale_dtype: str, stacked: bool, seed=0):
+    """JAX pack(s) of an (O, C) linear — stacked over L layers or one —
+    and the port's converted twin."""
+    rng = np.random.default_rng(seed)
+    cfg = dataclasses.replace(jw4a4_group(group_size=GS, salient_prop=0.05),
+                              scale_dtype=scale_dtype)
+    imp = rng.uniform(0.1, 1.0, size=(C,))
+    packs = []
+    for _ in range(L if stacked else 1):
+        w = rng.normal(size=(O, C)).astype(np.float32) * C ** -0.5
+        w[:, 5] *= 15.0
+        packs.append(jpack.pack_linear(
+            {"weight": jnp.asarray(w), "bias": None}, cfg, importance=imp,
+            compute_dtype=jnp.float32, nibble=True, align_k_groups=8,
+            align_o=128, identity=identity))
+    jp = (jax.tree.map(lambda *xs: jnp.stack(xs), *packs) if stacked
+          else packs[0])
+    return jp, _to_torch(jp)
+
+
+def _x(seed=1, n=N):
+    x = np.random.default_rng(seed).normal(size=(n, C)).astype(np.float32)
+    x[:, 7] *= 12.0
+    return x
+
+
+MODES = ["rms", "raw", "mask"]
+
+
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", MODES)
+def test_rawx_plain_matches_jax(mode, scale_dtype):
+    """K1 in its three modes: fused RMSNorm (qkv / gate_up), raw pre-permuted
+    tail-salient (down_proj), and the identity layout's 0/1 mask with a
+    pre-gathered x_sal (o_proj)."""
+    jp, tp = _packs(identity=mode == "mask", scale_dtype=scale_dtype,
+                    stacked=True)
+    x = _x()
+    m = tp.meta
+    common = dict(group_size=m.group_size, act_bits=m.act_bits,
+                  num_salient=m.num_salient)
+    x_sal = norm = None
+    if mode == "rms":
+        norm = np.random.default_rng(2).uniform(0.5, 1.5, size=(L, C)).astype(
+            np.float32)
+    elif mode == "mask":
+        norm = np.asarray(jp.ns_mask)
+        sal_idx = np.asarray(jp.perm)[1, C - m.num_salient:]
+        x_sal = np.zeros((N, m.k_s), np.float32)
+        x_sal[:, :m.num_salient] = x[:, sal_idx]
+    kind = {"rms": "rms", "raw": None, "mask": "mask"}[mode]
+    ref = j_rawx(jnp.ones((1,), jnp.int32), jnp.asarray(x),
+                 None if norm is None else jnp.asarray(norm), jp.w_qt,
+                 jp.w_scales_t, jp.w_sal_t,
+                 None if x_sal is None else jnp.asarray(x_sal),
+                 eps=EPS, norm_kind=kind or "rms", interpret=True, **common)
+    got = int4_group_matmul_stacked_rawx(
+        1, _t(x), None if norm is None else _t(norm), tp.w_qt, tp.w_scales_t,
+        tp.w_sal_t, None if x_sal is None else _t(x_sal), eps=EPS,
+        norm_kind=kind, **common)
+    assert got.shape == (N, tp.w_qt.shape[-1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+def test_gmm_plain_matches_jax(scale_dtype):
+    """K6 on activations quantized by quantize_activations_packed_int."""
+    jp, tp = _packs(identity=False, scale_dtype=scale_dtype, stacked=False)
+    xp = _x(n=37)[:, np.asarray(jp.perm)]
+    jq = jax.jit(lambda v: jpack.quantize_activations_packed_int(v, jp.meta))(
+        jnp.asarray(xp))
+    tq = tpack.quantize_activations_packed_int(_t(xp), tp.meta)
+    ref = j_gmm(*jq[:2], jp.w_qt, jp.w_scales_t, jq[2], jp.w_sal_t,
+                group_size=GS, interpret=True)
+    got = int4_group_matmul(*tq[:2], tp.w_qt, tp.w_scales_t, tq[2], tp.w_sal_t,
+                            group_size=GS, out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("identity", [False, True])
+def test_real_quant_linear_per_layer_matches_jax(identity):
+    """The prefill dispatch: permuted or identity nibble pack → K6, output
+    sliced back from the align_o padding."""
+    jp, tp = _packs(identity=identity, scale_dtype="float32", stacked=False)
+    x = _x(n=9)
+    ref = jax.jit(lambda v: jreal.real_quant_linear(jp, v, interpret=True))(
+        jnp.asarray(x))
+    got = treal.real_quant_linear(tp, _t(x))
+    assert got.shape == (9, O)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_real_quant_linear_stacked_matches_jax(mode):
+    """The decode dispatch with layer_idx: pre-permuted + fused RMSNorm,
+    pre-permuted raw, and identity (x_sal gathered by the dispatch)."""
+    jp, tp = _packs(identity=mode == "mask", scale_dtype="bfloat16",
+                    stacked=True)
+    if mode != "mask":
+        mark = lambda p: dataclasses.replace(
+            p, meta=dataclasses.replace(p.meta, pre_permuted=True))
+        jp, tp = mark(jp), mark(tp)
+    x = _x()
+    rows = np.random.default_rng(3).uniform(0.5, 1.5, size=(L, C)).astype(
+        np.float32)
+    jnorm = (jnp.asarray(rows)[:, None, :], EPS, "rms") if mode == "rms" else None
+    tnorm = (_t(rows), EPS, "rms") if mode == "rms" else None
+    ref = jax.jit(lambda v: jreal.real_quant_linear(
+        jp, v, layer_idx=jnp.int32(1), norm=jnorm, interpret=True))(jnp.asarray(x))
+    got = treal.real_quant_linear(tp, _t(x), layer_idx=1, norm=tnorm)
+    assert got.shape == (N, O)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_int8_lm_head_matches_jax():
+    """The per-channel int8 identity lm_head: per-token quantize, one int8
+    product, per-token × per-column epilogue."""
+    from smoothquant_tpu.quant.config import QuantConfig as JQ
+    from smoothquant_tpu_torch.quant.config import QuantConfig as TQ
+
+    rng = np.random.default_rng(4)
+    w = rng.normal(size=(256, 64)).astype(np.float32) * 0.125
+    kw = dict(weight_quant="per_channel", act_quant="per_token", quant_bits=8)
+    jp = jpack.pack_linear({"weight": jnp.asarray(w), "bias": None}, JQ(**kw),
+                           compute_dtype=jnp.float32)
+    tp = tpack.pack_linear({"weight": _t(w), "bias": None}, TQ(**kw),
+                           compute_dtype=torch.float32)
+    x = rng.normal(size=(3, 64)).astype(np.float32)
+    ref = jax.jit(lambda v: jreal.real_quant_linear(jp, v))(jnp.asarray(x))
+    got = treal.real_quant_linear(tp, _t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_unported_branches_raise():
+    _, tp = _packs(identity=False, scale_dtype="float32", stacked=True)
+    with pytest.raises(NotImplementedError):   # not pre-permuted, no gather
+        treal.real_quant_linear(tp, _t(_x()), layer_idx=0)
+    big = torch.zeros((33, C))
+    tp = dataclasses.replace(tp, meta=dataclasses.replace(tp.meta,
+                                                          pre_permuted=True))
+    with pytest.raises(NotImplementedError):   # decode takes few rows
+        treal.real_quant_linear(tp, big, layer_idx=0)
