@@ -33,12 +33,14 @@
 //
 // K6 replaces int4_group_matmul (pallas_call at :950): the same inner
 // product on activations that are already quantized, at prefill N (up to
-// rows·bucket = 1024).  It is tiled 64×64 over (N, O) with 256 threads and
-// 4×4 outputs a thread; each group pair stages the int8 activation tiles
-// and the nibble-unpacked, K-packed weight tile in shared memory (rows
-// padded to 17 words against bank conflicts) and runs __dp4a.  At N=1024
-// the int ops, not the bytes, bound it; dp4a runs far below the int8
-// tensor-core peak — mma/wgmma tiles are later work.
+// rows·bucket = 1024), where the int8 operations, not the bytes, bound it.
+// It runs them on the int8 tensor cores (mma.sync m16n8k32): 64×64 output
+// tiles, 4 warps of 32×32; each group pair stages the int8 activation rows
+// and the nibble-unpacked, K-packed weight columns in shared memory (rows
+// padded to 17 words, so fragment loads hit 32 distinct banks), one mma
+// chain per half gives the group's int32 product and the (p − 8Σx)·s_x·s_w
+// epilogue folds it into f32 accumulators seeded by the salient fp dot.
+// Loads are not overlapped with the mma (no cp.async / TMA pipeline yet).
 #include "common.cuh"
 
 namespace {
@@ -270,11 +272,24 @@ __global__ void rawx_reduce_kernel(const float* __restrict__ part, T* __restrict
 }
 
 // ---------------------------------------------------------------- K6
-constexpr int GM_BM = 64, GM_BN = 64, GM_THREADS = 256;
+constexpr int GM_BM = 64, GM_BN = 64, GM_THREADS = 128;  // 4 warps, 32×32 each
 constexpr int GM_MAX_GS = 64;               // group size the smem tiles hold
 constexpr int GM_WORDS = GM_MAX_GS / 4 + 1; // padded row stride (words)
 constexpr int GM_SAL_K = 32;
 
+// D = A·B + D on the int8 tensor cores: A 16×32 row-major, B 32×8
+// column-major, D 16×8 int32 (PTX mma.m16n8k32 fragment layout).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4], const int (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Thread (warp, lane) owns acc[mt][nt][e] at tile row
+// wm + 16·mt + lane/4 + 8·(e/2) and tile column wn + 8·nt + 2·(lane%4) + e%2
+// (the mma accumulator layout).
 template <typename S, typename T>
 __global__ void __launch_bounds__(GM_THREADS)
 gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
@@ -288,15 +303,18 @@ gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   __shared__ float xs_tile[GM_BM][GM_SAL_K + 1];
   __shared__ float ws_tile[GM_SAL_K][GM_BN];
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int n0 = blockIdx.y * GM_BM, o0 = blockIdx.x * GM_BN;
-  const int half = kk / 2, G = kk / gs, g_half = G / 2, words = gs / 4;
-  float acc[4][4];
+  const int G = kk / gs, g_half = G / 2, words = gs / 4;
+  float acc[2][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
 
   // salient fp dot seeds the accumulator (f32 sums of compute-dtype values)
   for (int j0 = 0; j0 < k_s; j0 += GM_SAL_K) {
@@ -313,28 +331,49 @@ gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < GM_SAL_K; ++j) {
+      float xv[2][2], wv[4][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float xv = xs_tile[ty + 16 * i][j];
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int jc = 0; jc < 4; ++jc) acc[i][jc] = fmaf(xv, ws_tile[j][tx + 16 * jc], acc[i][jc]);
-      }
+        for (int h = 0; h < 2; ++h) xv[mt][h] = xs_tile[wm + 16 * mt + gid + 8 * h][j];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) wv[nt][h] = ws_tile[j][wn + 8 * nt + 2 * tig + h];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mt][nt][e] = fmaf(xv[mt][e >> 1], wv[nt][e & 1], acc[mt][nt][e]);
     }
     __syncthreads();
   }
 
+  const int half = kk / 2;
   for (int g = 0; g < g_half; ++g) {
-    // activation tiles: rows n0.., lo channels g*gs.., hi channels half+g*gs..
-    for (int e = tid; e < GM_BM * words; e += GM_THREADS) {
-      const int r = e / words, wd = e % words;
-      const int n = n0 + r;
-      int lo = 0, hi = 0;
-      if (n < N) {
-        lo = *reinterpret_cast<const int*>(xq + (size_t)n * kk + g * gs + wd * 4);
-        hi = *reinterpret_cast<const int*>(xq + (size_t)n * kk + half + g * gs + wd * 4);
+    // activation tiles: rows n0.., lo channels g*gs.., hi channels
+    // half+g*gs..; a fixed trip count so every load is issued up front
+    constexpr int X_ITEMS = GM_BM * (GM_MAX_GS / 4) / GM_THREADS;
+    int lo[X_ITEMS], hi[X_ITEMS];
+#pragma unroll
+    for (int i = 0; i < X_ITEMS; ++i) {
+      const int e = tid + i * GM_THREADS;
+      const int r = e / words, wd = e % words, n = n0 + r;
+      lo[i] = hi[i] = 0;
+      if (e < GM_BM * words && n < N) {
+        lo[i] = *reinterpret_cast<const int*>(xq + (size_t)n * kk + g * gs + wd * 4);
+        hi[i] = *reinterpret_cast<const int*>(xq + (size_t)n * kk + half + g * gs + wd * 4);
       }
-      x_lo[r][wd] = lo;
-      x_hi[r][wd] = hi;
+    }
+#pragma unroll
+    for (int i = 0; i < X_ITEMS; ++i) {
+      const int e = tid + i * GM_THREADS;
+      if (e < GM_BM * words) {
+        x_lo[e / words][e % words] = lo[i];
+        x_hi[e / words][e % words] = hi[i];
+      }
     }
     if (tid < GM_BM) {
       const int n = n0 + tid;
@@ -346,7 +385,8 @@ gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
       sw_hi[c] = o < O ? to_f<S>(ws[(size_t)(g + g_half) * O + o]) : 0.0f;
     }
     // weight tile: 4 packed rows x 4 columns per item, transposed to one
-    // K-packed word per column, split into biased lo/hi nibble words
+    // K-packed word per column (the column-major B operand), split into
+    // biased lo/hi nibble words
     for (int e = tid; e < words * (GM_BN / 4); e += GM_THREADS) {
       const int q = e / (GM_BN / 4), cq = e % (GM_BN / 4);
       const int o = o0 + cq * 4;
@@ -374,50 +414,77 @@ gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
       if (tid < GM_BM) sum_lo[r] = s; else sum_hi[r] = s;
     }
     __syncthreads();
-    int p_lo[4][4], p_hi[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int hf = 0; hf < 2; ++hf) {
+      const int(*xt)[GM_WORDS] = hf ? x_hi : x_lo;
+      const int(*wt)[GM_WORDS] = hf ? w_hi : w_lo;
+      const int* sum = hf ? sum_hi : sum_lo;
+      const float* sx = hf ? sx_hi : sx_lo;
+      const float* sw = hf ? sw_hi : sw_lo;
+      int p[2][4][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p_lo[i][j] = p_hi[i][j] = 0;
-    for (int wd = 0; wd < words; ++wd) {
-      int xl[4], xh[4], wl[4], wh[4];
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        xl[i] = x_lo[ty + 16 * i][wd];
-        xh[i] = x_hi[ty + 16 * i][wd];
-        wl[i] = w_lo[tx + 16 * i][wd];
-        wh[i] = w_hi[tx + 16 * i][wd];
-      }
+        for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int e = 0; e < 4; ++e) p[mt][nt][e] = 0;
+      for (int kw = 0; kw < words; kw += 8) {  // one 32-byte k step
+        const bool full = kw + 4 < words;      // a 16-byte tail zero-fills
+        int a[2][4], b[4][2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          p_lo[i][j] = __dp4a(wl[j], xl[i], p_lo[i][j]);
-          p_hi[i][j] = __dp4a(wh[j], xh[i], p_hi[i][j]);
+        for (int mt = 0; mt < 2; ++mt) {
+          const int r = wm + 16 * mt + gid;
+          a[mt][0] = xt[r][kw + tig];
+          a[mt][1] = xt[r + 8][kw + tig];
+          a[mt][2] = full ? xt[r][kw + 4 + tig] : 0;
+          a[mt][3] = full ? xt[r + 8][kw + 4 + tig] : 0;
         }
-    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
+        for (int nt = 0; nt < 4; ++nt) {
+          const int c = wn + 8 * nt + gid;
+          b[nt][0] = wt[c][kw + tig];
+          b[nt][1] = full ? wt[c][kw + 4 + tig] : 0;
+        }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        acc[i][j] += ((float)(p_lo[i][j] - 8 * sum_lo[r]) * sx_lo[r]) * sw_lo[c];
-        acc[i][j] += ((float)(p_hi[i][j] - 8 * sum_hi[r]) * sx_hi[r]) * sw_hi[c];
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_s8(p[mt][nt], a[mt], b[nt]);
       }
+      float row_sx[2][2], col_sw[4][2];
+      int row_sum[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm + 16 * mt + gid + 8 * h;
+          row_sx[mt][h] = sx[r];
+          row_sum[mt][h] = 8 * sum[r];
+        }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) col_sw[nt][h] = sw[wn + 8 * nt + 2 * tig + h];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mt][nt][e] += ((float)(p[mt][nt][e] - row_sum[mt][e >> 1]) *
+                               row_sx[mt][e >> 1]) * col_sw[nt][e & 1];
     }
     __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= N) continue;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + tx + 16 * j;
-      if (o < O) out[(size_t)n * O + o] = from_f<T>(acc[i][j]);
-    }
-  }
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + wm + 16 * mt + gid + 8 * (e >> 1);
+        const int o = o0 + wn + 8 * nt + 2 * tig + (e & 1);
+        if (n < N && o < O) out[(size_t)n * O + o] = from_f<T>(acc[mt][nt][e]);
+      }
 }
 
 template <typename T>
@@ -519,7 +586,7 @@ SQ_EXPORT int sq_int4_gmm(const void* xq, const void* xs, const void* w, const v
                           const void* xsal, const void* wsal, void* out, int N, int O,
                           int kk, int gs, int k_s, int s_dt, int x_dt, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (gs > GM_MAX_GS || gs % 4) return (int)cudaErrorInvalidValue;
+  if (gs > GM_MAX_GS || gs % 16) return (int)cudaErrorInvalidValue;
   if (s_dt == DT_BF16 && x_dt == DT_BF16)
     launch_gmm<__nv_bfloat16, __nv_bfloat16>(xq, xs, w, ws, xsal, wsal, out, N, O, kk, gs,
                                              k_s, st);

@@ -236,8 +236,9 @@ def int4_group_matmul(
     half, o = w_packed.shape
     k_s = w_sal_t.shape[0]
     dt = out_dtype or x_sal.dtype
-    if kk != 2 * half or half % group_size or group_size > 64 or group_size % 4:
-        raise ValueError("K6 needs K = 2·(K/2), whole groups per half, gs ≤ 64")
+    if kk != 2 * half or half % group_size or group_size > 64 or group_size % 16:
+        raise ValueError("K6 needs K = 2·(K/2), whole groups per half and a "
+                         "group size that is a multiple of 16, at most 64")
     if o % 4:
         raise ValueError("K6 needs O % 4 == 0")
     if dt != w_sal_t.dtype:
