@@ -34,15 +34,14 @@ LAUNCHES: Counter = Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures (argtypes) of the exported entry points; every pointer and
-# the stream go as c_void_p so ctypes never cuts them to 32 bits
+# C signatures (argtypes, restype) of the exported entry points; every
+# pointer and the stream go as c_void_p so ctypes never cuts them to 32 bits
 _SIGNATURES = {
-    "sq_rawx_prep": [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P],
-    "sq_rawx_main": [_P] * 8 + [_I] * 8 + [_I, _I, _P],
-    "sq_rawx_reduce": [_P, _P, _I, _I, _I, _I, _P],
-    "sq_int4_gmm": [_P] * 7 + [_I] * 5 + [_I, _I, _P],
-    "sq_write_cache_smajor": [_P] * 9 + [_I] * 5 + [_I, _P],
-    "sq_decode_attn_smajor": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    "sq_rawx_workspace_bytes": ([_I] * 5, ctypes.c_longlong),
+    "sq_rawx": ([_P] * 8 + [_I] * 10 + [_F, _F, _I, _I, _P], _I),
+    "sq_int4_gmm": ([_P] * 7 + [_I] * 5 + [_I, _I, _P], _I),
+    "sq_write_cache_smajor": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),
+    "sq_decode_attn_smajor": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
 }
 
 _lib = None
@@ -119,10 +118,10 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
+            for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype
             _lib = handle
     return _lib
 

@@ -7,8 +7,8 @@
 // bytes per weight element (nibbles + bf16 group scales) plus the bf16
 // salient block, against 2·N int ops per element.  The design spends
 // nothing on the activations beyond one tiny pre-pass and spreads the
-// weight stream over every SM:
-//   * sq_rawx_prep (a block per token row and 8 groups, a warp per group,
+// weight stream over every SM, in three launches behind one entry, sq_rawx:
+//   * rawx_prep_kernel (a block per token row and 8 groups, a warp per group,
 //     plus a block per row for the salient slice) does the optional RMSNorm
 //     or 0/1 channel mask, the tail-mode salient split and the per-(row,
 //     group) activation quantize ONCE (scale = max(absmax,1e-5)·(1/qmax),
@@ -17,7 +17,7 @@
 //     and the salient activations rounded to the compute dtype.  (The TPU
 //     kernel quantized at j == 0 into VMEM scratch; here one pre-pass
 //     serves every O-tile instead of each block redoing it.)
-//   * sq_rawx_main is split over O (4 columns a lane, 512 a block) and over
+//   * rawx_main_kernel is split over O (4 columns a lane, 512 a block) and over
 //     K (group pairs, plus 64-row slices of the salient block), so a
 //     Llama-2-7B decode linear launches 250-500 blocks.  Each lane loads
 //     the 32-bit words of 16 packed rows of its 4 columns before using
@@ -27,7 +27,7 @@
 //     low/high nibbles (channel r and r + K/2) and feeds __dp4a; the +8
 //     bias leaves the int32 sum as −8·Σx_q per group.  The epilogue is
 //     (p − 8Σx)·s_x·s_w in f32.  Each split writes its own f32 partial.
-//   * sq_rawx_reduce sums the salient partials, then the group partials in
+//   * rawx_reduce_kernel sums the salient partials, then the group partials in
 //     K order (the TPU kernel seeded its accumulator with the salient dot
 //     and added groups in order), and casts to the output dtype.
 //
@@ -50,6 +50,7 @@ constexpr int RAWX_COLS = 4;           // output columns per lane
 constexpr int RAWX_MAX_N = 8;          // token rows the decode kernel takes
 constexpr int SAL_ROWS = 64;           // salient rows per K-split
 constexpr int RAWX_PF = 4;             // 4-row steps loaded ahead per lane
+constexpr int RAWX_TARGET_BLOCKS = 528;  // ~4 main-kernel blocks per SM (132 SMs)
 constexpr int PREP_WARPS = 8;          // groups per pre-pass block
 constexpr int PREP_MAX_PER_LANE = 4;   // group size <= 128
 
@@ -527,57 +528,84 @@ void launch_gmm(const void* xq, const void* xs, const void* w, const void* ws,
       (const T*)wsal, (T*)out, N, O, kk, gs, k_s);
 }
 
+// K1's split of the work and its workspace (int8 codes | f32 group scales |
+// int32 code sums | f32 salient activations | f32 partials, 256-B aligned).
+struct RawxPlan {
+  int gps, n_int, n_sal;
+  size_t xq, xs, xsum, xsal, part, bytes;
+};
+
+RawxPlan rawx_plan(int N, int O, int kk, int gs, int k_s) {
+  RawxPlan p;
+  const int g_half = kk / gs / 2;
+  const int cols_per_block = RAWX_WARPS * 32 * RAWX_COLS;
+  const int o_blocks = (O + cols_per_block - 1) / cols_per_block;
+  const int splits = RAWX_TARGET_BLOCKS / o_blocks > 1 ? RAWX_TARGET_BLOCKS / o_blocks : 1;
+  p.gps = (g_half + splits - 1) / splits > 1 ? (g_half + splits - 1) / splits : 1;
+  p.n_int = (g_half + p.gps - 1) / p.gps;
+  p.n_sal = (k_s + SAL_ROWS - 1) / SAL_ROWS;
+  const size_t G = (size_t)(kk / gs);
+  auto up = [](size_t v) { return (v + 255) & ~(size_t)255; };
+  size_t off = 0;
+  p.xq = off;   off = up(off + (size_t)N * kk);
+  p.xs = off;   off = up(off + (size_t)N * G * sizeof(float));
+  p.xsum = off; off = up(off + (size_t)N * G * sizeof(int));
+  p.xsal = off; off = up(off + (size_t)N * k_s * sizeof(float));
+  p.part = off; off = up(off + (size_t)(p.n_int + p.n_sal) * N * O * sizeof(float));
+  p.bytes = off;
+  return p;
+}
+
 }  // namespace
 
-// K1 step 1: norm / mask + salient split + per-group quantize (one block a row).
-SQ_EXPORT int sq_rawx_prep(const void* x, const void* nw, const void* x_sal, void* xq,
-                           void* xs, void* xsum, void* xsal, int N, int C, int kk, int gs,
-                           int k_ns_raw, int n_sal, int k_s, int mode, int need_mask,
-                           float eps, float inv_qmax, int x_dt, void* stream) {
+// Bytes of device workspace sq_rawx needs for these shapes.
+SQ_EXPORT long long sq_rawx_workspace_bytes(int N, int O, int kk, int gs, int k_s) {
+  return (long long)rawx_plan(N, O, kk, gs, k_s).bytes;
+}
+
+// K1: pre-pass (norm / mask, salient split, per-group quantize), split-K /
+// split-O nibble dp4a products into f32 partials, fixed-order reduce.
+SQ_EXPORT int sq_rawx(const void* x, const void* nw, const void* x_sal, const void* w,
+                      const void* ws, const void* wsal, void* workspace, void* out, int N,
+                      int C, int O, int kk, int gs, int k_ns_raw, int n_sal, int k_s,
+                      int mode, int need_mask, float eps, float inv_qmax, int s_dt, int x_dt,
+                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (gs > 32 * PREP_MAX_PER_LANE) return (int)cudaErrorInvalidValue;
+  if (N > RAWX_MAX_N || gs > 32 * PREP_MAX_PER_LANE || gs % 4)
+    return (int)cudaErrorInvalidValue;
+  const RawxPlan p = rawx_plan(N, O, kk, gs, k_s);
+  char* base = static_cast<char*>(workspace);
+  void *xq = base + p.xq, *xs = base + p.xs, *xsum = base + p.xsum, *xsal = base + p.xsal,
+       *part = base + p.part;
   if (x_dt == DT_BF16)
     launch_prep<__nv_bfloat16>(x, nw, x_sal, xq, xs, xsum, xsal, N, C, kk, gs, k_ns_raw,
                                n_sal, k_s, mode, need_mask, eps, inv_qmax, st);
   else
     launch_prep<float>(x, nw, x_sal, xq, xs, xsum, xsal, N, C, kk, gs, k_ns_raw, n_sal,
                        k_s, mode, need_mask, eps, inv_qmax, st);
-  return (int)cudaGetLastError();
-}
-
-// K1 step 2: split-K / split-O nibble dp4a products into f32 partials.
-SQ_EXPORT int sq_rawx_main(const void* xq, const void* xs, const void* xsum,
-                           const void* xsal, const void* w, const void* ws, const void* wsal,
-                           void* part, int N, int O, int kk, int gs, int k_s, int gps,
-                           int n_int, int n_sal_splits, int s_dt, int x_dt, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (N > RAWX_MAX_N) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   if (s_dt == DT_BF16 && x_dt == DT_BF16)
     launch_main<__nv_bfloat16, __nv_bfloat16>(xq, xs, xsum, xsal, w, ws, wsal, part, N, O,
-                                              kk, gs, k_s, gps, n_int, n_sal_splits, st);
+                                              kk, gs, k_s, p.gps, p.n_int, p.n_sal, st);
   else if (s_dt == DT_BF16)
     launch_main<__nv_bfloat16, float>(xq, xs, xsum, xsal, w, ws, wsal, part, N, O, kk, gs,
-                                      k_s, gps, n_int, n_sal_splits, st);
+                                      k_s, p.gps, p.n_int, p.n_sal, st);
   else if (x_dt == DT_BF16)
     launch_main<float, __nv_bfloat16>(xq, xs, xsum, xsal, w, ws, wsal, part, N, O, kk, gs,
-                                      k_s, gps, n_int, n_sal_splits, st);
+                                      k_s, p.gps, p.n_int, p.n_sal, st);
   else
-    launch_main<float, float>(xq, xs, xsum, xsal, w, ws, wsal, part, N, O, kk, gs, k_s, gps,
-                              n_int, n_sal_splits, st);
-  return (int)cudaGetLastError();
-}
-
-// K1 step 3: fixed-order sum of the partials, cast to the output dtype.
-SQ_EXPORT int sq_rawx_reduce(const void* part, void* out, int NO, int n_int,
-                             int n_sal_splits, int x_dt, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int threads = 256, blocks = (NO + threads - 1) / threads;
+    launch_main<float, float>(xq, xs, xsum, xsal, w, ws, wsal, part, N, O, kk, gs, k_s,
+                              p.gps, p.n_int, p.n_sal, st);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int NO = N * O, threads = 256, blocks = (NO + threads - 1) / threads;
   if (x_dt == DT_BF16)
     rawx_reduce_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const float*)part, (__nv_bfloat16*)out, NO, n_int, n_sal_splits);
+        (const float*)part, (__nv_bfloat16*)out, NO, p.n_int, p.n_sal);
   else
     rawx_reduce_kernel<float><<<blocks, threads, 0, st>>>((const float*)part, (float*)out,
-                                                          NO, n_int, n_sal_splits);
+                                                          NO, p.n_int, p.n_sal);
   return (int)cudaGetLastError();
 }
 

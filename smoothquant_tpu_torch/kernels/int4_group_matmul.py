@@ -18,6 +18,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -26,9 +27,12 @@ from smoothquant_tpu_torch.kernels import _build
 from smoothquant_tpu_torch.quant.core import compute_scale, f32_reciprocal
 
 RAWX_MAX_N = 8          # token rows the CUDA decode kernel takes
-_RAWX_COLS_PER_BLOCK = 512
-_SAL_ROWS = 64
-_TARGET_BLOCKS = 528    # ~4 blocks per SM on a 132-SM H100
+
+
+@functools.lru_cache(maxsize=64)
+def _rawx_workspace_bytes(n: int, o: int, kk: int, gs: int, k_s: int) -> int:
+    """Device workspace of one K1 call (the C side plans its split)."""
+    return _build.lib().sq_rawx_workspace_bytes(n, o, kk, gs, k_s)
 
 
 def _unpack_biased(w_packed: torch.Tensor) -> torch.Tensor:
@@ -148,7 +152,6 @@ def int4_group_matmul_stacked_rawx(
     n, c = x_raw.shape
     l_num, half, o = w_packed.shape
     kk, k_s = 2 * half, w_sal_t.shape[1]
-    g_total = kk // group_size
     if n > RAWX_MAX_N:
         raise NotImplementedError(f"decode kernel takes N <= {RAWX_MAX_N}")
     if (out_dtype or x_raw.dtype) != x_raw.dtype or w_sal_t.dtype != x_raw.dtype:
@@ -170,33 +173,18 @@ def int4_group_matmul_stacked_rawx(
     dev = x_raw.device
     _build.check_operands(dev, norm_w=norm_w if nk else None, x_sal=x_sal,
                           w_packed=w_packed, w_scales_t=w_scales_t, w_sal_t=w_sal_t)
-    xq = torch.empty((n, kk), dtype=torch.int8, device=dev)
-    xs = torch.empty((n, g_total), dtype=torch.float32, device=dev)
-    xsum = torch.empty((n, g_total), dtype=torch.int32, device=dev)
-    xsal = torch.empty((n, k_s), dtype=torch.float32, device=dev)
-    g_half = g_total // 2
-    o_blocks = -(-o // _RAWX_COLS_PER_BLOCK)
-    gps = max(1, -(-g_half // max(1, _TARGET_BLOCKS // o_blocks)))
-    n_int = -(-g_half // gps)
-    n_sal = -(-k_s // _SAL_ROWS)
-    part = torch.empty((n_int + n_sal, n, o), dtype=torch.float32, device=dev)
+    workspace = torch.empty(_rawx_workspace_bytes(n, o, kk, group_size, k_s),
+                            dtype=torch.uint8, device=dev)
     out = torch.empty((n, o), dtype=x_raw.dtype, device=dev)
-    lib, st, xdt = _build.lib(), _build.stream_ptr(x_raw), _build.dt_code(x_raw)
-    _build.check(lib.sq_rawx_prep(
+    _build.check(_build.lib().sq_rawx(
         x_raw.data_ptr(), None if nk is None else norm_w[layer_idx].data_ptr(),
-        None if x_sal is None else x_sal.data_ptr(), xq.data_ptr(),
-        xs.data_ptr(), xsum.data_ptr(), xsal.data_ptr(), n, c, kk, group_size,
+        None if x_sal is None else x_sal.data_ptr(), w_packed[layer_idx].data_ptr(),
+        w_scales_t[layer_idx].data_ptr(), w_sal_t[layer_idx].data_ptr(),
+        workspace.data_ptr(), out.data_ptr(), n, c, o, kk, group_size,
         c - num_salient, num_salient, k_s, mode,
         int(x_sal is None and kk > c - num_salient), float(eps),
-        f32_reciprocal(2 ** (act_bits - 1) - 1), xdt, st), "sq_rawx_prep")
-    _build.check(lib.sq_rawx_main(
-        xq.data_ptr(), xs.data_ptr(), xsum.data_ptr(), xsal.data_ptr(),
-        w_packed[layer_idx].data_ptr(), w_scales_t[layer_idx].data_ptr(),
-        w_sal_t[layer_idx].data_ptr(), part.data_ptr(), n, o, kk, group_size,
-        k_s, gps, n_int, n_sal, _build.dt_code(w_scales_t), xdt, st),
-        "sq_rawx_main")
-    _build.check(lib.sq_rawx_reduce(part.data_ptr(), out.data_ptr(), n * o,
-                                    n_int, n_sal, xdt, st), "sq_rawx_reduce")
+        f32_reciprocal(2 ** (act_bits - 1) - 1), _build.dt_code(w_scales_t),
+        _build.dt_code(x_raw), _build.stream_ptr(x_raw)), "sq_rawx")
     _build.LAUNCHES["int4_group_matmul_stacked_rawx"] += 1
     return out
 

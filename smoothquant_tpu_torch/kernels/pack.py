@@ -81,7 +81,8 @@ class PackedLinear:
 def stack_packed(items: list) -> PackedLinear:
     """Stack per-layer packs along a new leading L axis (one copy)."""
     m0 = items[0].meta
-    assert all(p.meta == m0 for p in items), "non-uniform layer layouts"
+    if any(p.meta != m0 for p in items):
+        raise ValueError("stacked layers must share one packed layout")
 
     def st(name):
         vals = [getattr(p, name) for p in items]

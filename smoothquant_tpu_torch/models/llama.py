@@ -169,19 +169,17 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask):
     # the JAX kernel casts the norm rows to the activation dtype, then f32
     norm_in = st["input_layernorm"]["weight"].to(x.dtype).float()
     norm_post = st["post_attention_layernorm"]["weight"].to(x.dtype).float()
-    fuse_qkv = can_fuse_norm(sa["qkv_proj"])
-    fuse_gu = can_fuse_norm(mlp["gate_up_proj"])
-
-    def normed_linear(lin, x, rows, i):
-        if rows is None:
-            raise NotImplementedError("stacked decode fuses the RMSNorm")
-        return call_linear(lin, x, layer_idx=i, norm=(rows, eps, "rms"))
+    # q-rotary tables in the activation dtype (apply_rotary's cast, once)
+    cos_q, sin_q = cos.to(x.dtype), sin.to(x.dtype)
+    if not (can_fuse_norm(sa["qkv_proj"]) and can_fuse_norm(mlp["gate_up_proj"])):
+        raise NotImplementedError("stacked decode fuses the RMSNorm into qkv and "
+                                  "gate_up (pre-permuted per-group nibble packs)")
 
     for i in range(cfg.num_hidden_layers):
         residual = x
-        qkv = normed_linear(sa["qkv_proj"], x, norm_in if fuse_qkv else None, i)
+        qkv = call_linear(sa["qkv_proj"], x, layer_idx=i, norm=(norm_in, eps, "rms"))
         q, k, v = torch.split(qkv, [nh * d, n_kv * d, n_kv * d], dim=-1)
-        q = apply_rotary(q.reshape(b, s, nh, d), cos, sin)
+        q = apply_rotary(q.reshape(b, s, nh, d), cos_q, sin_q)
         caches, pos_i = stacked_cache_append_fused(
             caches, i, k.reshape(b, s, n_kv, d), v.reshape(b, s, n_kv, d),
             cos, sin)
@@ -190,13 +188,13 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask):
         x = residual + call_linear(sa["o_proj"], a.reshape(b, s, nh * d),
                                    layer_idx=i)
         residual = x
-        gu = normed_linear(mlp["gate_up_proj"], x,
-                           norm_post if fuse_gu else None, i)
-        gate, up = gu.chunk(2, dim=-1)
+        gate, up = call_linear(mlp["gate_up_proj"], x, layer_idx=i,
+                               norm=(norm_post, eps, "rms")).chunk(2, dim=-1)
         down = call_linear(mlp["down_proj"], torch.nn.functional.silu(gate) * up,
                            layer_idx=i)
-        caches.pos[i] += s
         x = residual + down
+    # every layer read its own position above; advance them all at once
+    caches.pos += s
     return x, caches
 
 
