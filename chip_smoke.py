@@ -278,7 +278,7 @@ def check_write_cache(cfg, dev, gen):
     k = torch.randn((MAX_BATCH, h, d), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((MAX_BATCH, h, d), generator=gen, device=dev).to(torch.bfloat16)
     cos, sin = rotary_cos_sin(pos.long()[:, None], d)
-    a, b = _random_cache(cfg, dev, gen), None
+    a = _random_cache(cfg, dev, gen)
     b = type(a)(a.k_q.clone(), a.v_q.clone(), a.k_scale.clone(), a.v_scale.clone(), a.pos)
     bufs = lambda c: (c.k_q, c.v_q, c.k_scale, c.v_scale)
     last = cfg.num_hidden_layers - 1
@@ -331,7 +331,8 @@ def check_decode_attention(cfg, dev, gen):
     kd = [deq(c.k_q[i], c.k_scale[i]) for i in range(n_lib)]
     vd = [deq(c.v_q[i], c.v_scale[i]) for i in range(n_lib)]
     valid = (bias == 0)[:, None, None, :]
-    n_bytes, ops = roofline.decode_attn_cost(MAX_BATCH, h, n_kv, MAX_LEN, d)
+    n_bytes, ops = roofline.decode_attn_cost(MAX_BATCH, h, n_kv, MAX_LEN, d,
+                                             n_valid=int(valid.sum()))
     b_ms, b_by = roofline.bound_ms(n_bytes, ops)
     row = dict(
         kernel="decode_attention_smajor_stacked", shape=[MAX_BATCH, h, n_kv, MAX_LEN, d],

@@ -8,7 +8,7 @@ K2  write_quant_cache_smajor — port of smoothquant_tpu/kernels/
     Unlike the JAX function (which returns new buffers through
     input_output_aliases) this one UPDATES THE CACHE TENSORS IN PLACE.
 K3  decode_attention_smajor_stacked — port of :169 (pallas_call :213).
-    scores = q·k·sm_scale·k_scale + bias, f32 softmax, p·v_scale rounded
+    scores = q·k·(1/√D)·k_scale + bias, f32 softmax, p·v_scale rounded
     to bf16, PV, GQA; a fully masked row outputs 0.
 
 Layout (as the JAX package): values (L, B, S, H_kv·D) int8, scales
@@ -18,8 +18,6 @@ kernel or raises.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
@@ -122,15 +120,13 @@ def write_quant_cache_smajor(
 
 
 def decode_attention_smajor_plain(layer_idx: int, q, k_sm, v_sm, bias,
-                                  k_scale, v_scale, *,
-                                  sm_scale: Optional[float] = None):
+                                  k_scale, v_scale):
     """Plain PyTorch K3 (same arguments as the wrapper)."""
     b, h, d = q.shape
     s, hd = k_sm.shape[2], k_sm.shape[3]
     n_kv = hd // d
     rep = h // n_kv
-    if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
+    sm_scale = 1.0 / (d ** 0.5)
     k = k_sm[layer_idx].reshape(b, s, n_kv, d).float()   # int8 -> exact
     v = v_sm[layer_idx].reshape(b, s, n_kv, d).float()
     qf = q.float().reshape(b, n_kv, rep, d)
@@ -153,14 +149,12 @@ def decode_attention_smajor_stacked(
     bias: torch.Tensor,       # (B, S) f32 additive mask
     k_scale: torch.Tensor,    # (L, B, H_kv, S) f32
     v_scale: torch.Tensor,
-    *,
-    sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """(B, H, D) attention of layer `layer_idx` over the S-major cache."""
+    """(B, H, D) attention of layer `layer_idx` over the S-major cache,
+    softmax scale 1/sqrt(D)."""
     if q.device.type == "cpu":
         return decode_attention_smajor_plain(layer_idx, q, k_sm, v_sm, bias,
-                                             k_scale, v_scale,
-                                             sm_scale=sm_scale)
+                                             k_scale, v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     b, h, d = q.shape
@@ -173,8 +167,6 @@ def decode_attention_smajor_stacked(
     if smem > 227 * 1024:
         raise ValueError(f"K3 score rows and partials need {smem} B of shared memory")
     _check_cache(q.device, k_sm, v_sm, k_scale, v_scale)
-    if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
     q = q.contiguous()
     bias = bias.float().contiguous()
     if bias.shape != (b, s):
@@ -184,7 +176,7 @@ def decode_attention_smajor_stacked(
     _build.check(_build.lib().sq_decode_attn_smajor(
         q.data_ptr(), k_sm[layer_idx].data_ptr(), v_sm[layer_idx].data_ptr(),
         k_scale[layer_idx].data_ptr(), v_scale[layer_idx].data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, h, n_kv, s, d, float(sm_scale),
+        bias.data_ptr(), out.data_ptr(), b, h, n_kv, s, d, 1.0 / (d ** 0.5),
         _build.dt_code(q), _build.stream_ptr(q)), "sq_decode_attn_smajor")
     _build.LAUNCHES["decode_attention_smajor_stacked"] += 1
     return out

@@ -58,38 +58,36 @@ __global__ void write_cache_kernel(const T* __restrict__ k_new, const T* __restr
   int p = pos[b];
   p = p < 0 ? 0 : (p > S - 1 ? S - 1 : p);
   const int hd = H * D;
-  {
-    for (int which = 0; which < 2; ++which) {
-      const T* src = (which == 0 ? k_new : v_new) + ((size_t)b * H + h) * D;
-      const bool rot = which == 0 && rotary;
-      float vals[MAX_D_PER_LANE];
-      float absmax = 0.0f;
+  for (int which = 0; which < 2; ++which) {
+    const T* src = (which == 0 ? k_new : v_new) + ((size_t)b * H + h) * D;
+    const bool rot = which == 0 && rotary;
+    float vals[MAX_D_PER_LANE];
+    float absmax = 0.0f;
 #pragma unroll
-      for (int t = 0; t < MAX_D_PER_LANE; ++t) {
-        const int d = lane + 32 * t;
-        float x = 0.0f;
-        if (d < D) {
-          x = to_f<T>(src[d]);
-          if (rot) {
-            const float partner =
-                d < D / 2 ? -to_f<T>(src[d + D / 2]) : to_f<T>(src[d - D / 2]);
-            x = __fadd_rn(__fmul_rn(x, cos_t[(size_t)b * D + d]),
-                          __fmul_rn(partner, sin_t[(size_t)b * D + d]));
-          }
+    for (int t = 0; t < MAX_D_PER_LANE; ++t) {
+      const int d = lane + 32 * t;
+      float x = 0.0f;
+      if (d < D) {
+        x = to_f<T>(src[d]);
+        if (rot) {
+          const float partner =
+              d < D / 2 ? -to_f<T>(src[d + D / 2]) : to_f<T>(src[d - D / 2]);
+          x = __fadd_rn(__fmul_rn(x, cos_t[(size_t)b * D + d]),
+                        __fmul_rn(partner, sin_t[(size_t)b * D + d]));
         }
-        vals[t] = x;
-        absmax = fmaxf(absmax, fabsf(x));
       }
-      absmax = warp_max(absmax);
-      const float scale = fmaxf(absmax, 1e-8f) * (1.0f / 127.0f);
-      int8_t* dst = (which == 0 ? kq : vq) + ((size_t)b * S + p) * hd + (size_t)h * D;
-#pragma unroll
-      for (int t = 0; t < MAX_D_PER_LANE; ++t) {
-        const int d = lane + 32 * t;
-        if (d < D) dst[d] = (int8_t)(int)rintf(vals[t] / scale);
-      }
-      if (lane == 0) (which == 0 ? ks : vs)[((size_t)b * H + h) * S + p] = scale;
+      vals[t] = x;
+      absmax = fmaxf(absmax, fabsf(x));
     }
+    absmax = warp_max(absmax);
+    const float scale = fmaxf(absmax, 1e-8f) * (1.0f / 127.0f);
+    int8_t* dst = (which == 0 ? kq : vq) + ((size_t)b * S + p) * hd + (size_t)h * D;
+#pragma unroll
+    for (int t = 0; t < MAX_D_PER_LANE; ++t) {
+      const int d = lane + 32 * t;
+      if (d < D) dst[d] = (int8_t)(int)rintf(vals[t] / scale);
+    }
+    if (lane == 0) (which == 0 ? ks : vs)[((size_t)b * H + h) * S + p] = scale;
   }
 }
 

@@ -1,7 +1,7 @@
 """Real-quantized linear forward (port of smoothquant_tpu/kernels/
 real_linear.py:70-125,200-479 — the branches the W4A4 serving path takes).
 
-  stacked (layer_idx given), nibble, per-group recipe, N <= 32:
+  stacked (layer_idx given), nibble, per-group recipe, N <= RAWX_MAX_N:
     * fused RMSNorm (qkv, gate_up over the shared residual basis) → K1 "rms"
     * pre-permuted input, no norm (down_proj)                     → K1 raw
     * identity layout (o_proj): 0/1 ns_mask + k_s-wide salient

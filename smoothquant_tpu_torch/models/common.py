@@ -136,8 +136,8 @@ def _per_batch(x):
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal_offset=0, scale: Optional[float] = None,
-              valid_len=None, attn_mask: Optional[torch.Tensor] = None):
+              causal_offset=0, valid_len=None,
+              attn_mask: Optional[torch.Tensor] = None):
     """Einsum attention with causal masking and GQA (common.py:550-575).
 
     q: (B, Sq, H, D); k/v: (B, H_kv, Sk, D).  Scores and softmax in f32,
@@ -147,9 +147,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if n_kv != nh:
         k = k.repeat_interleave(nh // n_kv, dim=1)
         v = v.repeat_interleave(nh // n_kv, dim=1)
-    if scale is None:
-        scale = 1.0 / (d ** 0.5)
-    scores = torch.einsum("bqhd,bhkd->bhqk", q.float(), k.float()) * scale
+    scores = torch.einsum("bqhd,bhkd->bhqk", q.float(), k.float()) * (1.0 / d ** 0.5)
     qi = torch.arange(sq, device=q.device).reshape(1, 1, sq, 1)
     kj = torch.arange(sk, device=q.device).reshape(1, 1, 1, sk)
     mask = kj <= qi + _per_batch(causal_offset).to(q.device)
@@ -175,11 +173,10 @@ def cached_attention(q: torch.Tensor, cache, *, causal_offset,
 
 def decode_bias(pos_i: torch.Tensor, b: int, s_max: int,
                 attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """(B, S_max) additive f32 bias for single-token decode: 0 where the key
-    position is < pos_i + 1 (and attn_mask allows it), -1e30 elsewhere."""
-    pos_i = torch.as_tensor(pos_i)
-    if pos_i.ndim == 1:
-        pos_i = pos_i[:, None]
+    """(..., B, S_max) additive f32 bias for single-token decode: 0 where
+    the key position is < pos_i + 1 (and attn_mask allows it), -1e30
+    elsewhere.  pos_i is a scalar, (B,) per slot, or (L, B) per layer."""
+    pos_i = torch.as_tensor(pos_i)[..., None]
     col = torch.arange(s_max, device=pos_i.device)[None, :].expand(b, s_max)
     ok = col < pos_i + 1
     if attn_mask is not None:
@@ -189,26 +186,22 @@ def decode_bias(pos_i: torch.Tensor, b: int, s_max: int,
 
 def stacked_cache_append_fused(cache: SMajorQuantKVCache, i: int,
                                k_new: torch.Tensor, v_new: torch.Tensor,
-                               cos, sin, rotate_k: bool = True):
+                               cos, sin):
     """K2 on layer i of a stacked S-major cache: rotary-k, int8 quantize
     and the in-place row write at each slot's position.  k_new/v_new
-    (B, 1, H_kv, D), k PRE-rotary.  Returns (cache, pos_i)."""
+    (B, 1, H_kv, D), k PRE-rotary."""
     if not isinstance(cache, SMajorQuantKVCache):
         raise NotImplementedError("only the S-major int8 cache is ported")
     b, _, h, d = k_new.shape
-    pos_i = cache.pos[i]
-    write_quant_cache_smajor(i, pos_i, k_new.reshape(b, h, d),
+    write_quant_cache_smajor(i, cache.pos[i], k_new.reshape(b, h, d),
                              v_new.reshape(b, h, d), cos, sin, cache.k_q,
-                             cache.v_q, cache.k_scale, cache.v_scale,
-                             rotary=rotate_k)
-    return cache, pos_i
+                             cache.v_q, cache.k_scale, cache.v_scale)
+    return cache
 
 
 def stacked_smajor_attention(cache: SMajorQuantKVCache, i: int,
-                             q_bhd: torch.Tensor, bias: torch.Tensor,
-                             sm_scale: Optional[float] = None):
+                             q_bhd: torch.Tensor, bias: torch.Tensor):
     """K3: layer-i decode attention over the stacked S-major cache.
     q_bhd (B, H, D) post-rotary → (B, H, D)."""
     return decode_attention_smajor_stacked(
-        i, q_bhd, cache.k_q, cache.v_q, bias, cache.k_scale, cache.v_scale,
-        sm_scale=sm_scale)
+        i, q_bhd, cache.k_q, cache.v_q, bias, cache.k_scale, cache.v_scale)

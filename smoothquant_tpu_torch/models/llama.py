@@ -174,17 +174,19 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask):
     if not (can_fuse_norm(sa["qkv_proj"]) and can_fuse_norm(mlp["gate_up_proj"])):
         raise NotImplementedError("stacked decode fuses the RMSNorm into qkv and "
                                   "gate_up (pre-permuted per-group nibble packs)")
+    # every layer's bias from its own position, in one pass: the positions
+    # advance only after the layer loop
+    bias = decode_bias(caches.pos, b, s_max, attn_mask)     # (L, B, S_max)
 
     for i in range(cfg.num_hidden_layers):
         residual = x
         qkv = call_linear(sa["qkv_proj"], x, layer_idx=i, norm=(norm_in, eps, "rms"))
         q, k, v = torch.split(qkv, [nh * d, n_kv * d, n_kv * d], dim=-1)
         q = apply_rotary(q.reshape(b, s, nh, d), cos_q, sin_q)
-        caches, pos_i = stacked_cache_append_fused(
+        caches = stacked_cache_append_fused(
             caches, i, k.reshape(b, s, n_kv, d), v.reshape(b, s, n_kv, d),
             cos, sin)
-        bias = decode_bias(pos_i, b, s_max, attn_mask)
-        a = stacked_smajor_attention(caches, i, q[:, 0], bias)
+        a = stacked_smajor_attention(caches, i, q[:, 0], bias[i])
         x = residual + call_linear(sa["o_proj"], a.reshape(b, s, nh * d),
                                    layer_idx=i)
         residual = x

@@ -58,13 +58,15 @@ def write_cache_cost(b, h, d, *, x_bytes=2):
     return n_bytes, {"f32": 6 * b * h * d}
 
 
-def decode_attn_cost(b, h, n_kv, s, d, *, x_bytes=2):
-    """K3 over one layer: q, the whole int8 cache slice and its scales
-    (the kernel reads every position; masking is data, not skipped work),
-    the (B, S) bias, out."""
-    n_bytes = (2 * b * h * d * x_bytes + 2 * b * s * n_kv * d
-               + 2 * b * n_kv * s * 4 + b * s * 4)
-    return n_bytes, {"bf16": 4 * b * h * s * d}
+def decode_attn_cost(b, h, n_kv, s, d, *, n_valid=None, x_bytes=2):
+    """K3 over one layer: q, the (B, S) bias, out, and the int8 k/v rows
+    and scales of the n_valid (slot, position) pairs the bias leaves
+    unmasked (all B·S by default): a masked position adds exactly 0, so
+    the least work skips it, though the kernel reads every position."""
+    n_valid = b * s if n_valid is None else n_valid
+    n_bytes = (2 * b * h * d * x_bytes + b * s * 4
+               + n_valid * 2 * n_kv * (d + 4))
+    return n_bytes, {"bf16": 4 * h * n_valid * d}
 
 
 def llama_pack_shapes(cfg, group_size=64, salient_prop=0.05, align_k_groups=8,
