@@ -4,23 +4,40 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the port's kernels from
-   csrc/ with nvcc (sm_90a) and prints ptxas' register / spill summary.
+   csrc/ with nvcc (sm_90a, one process per source) and prints ptxas'
+   register / spill summary.
 2. Builds the full-width 32-layer Llama-2-7B from a seeded generator on the
    card and packs it with the serving recipe (W4A4 g64, 5 % salient, bf16
    scales, fused qkv / gate_up over a shared residual basis, identity
    o_proj, int8 lm_head), then stacks the decode tree.
-3. Holds every kernel against its plain PyTorch version at the serving
-   path's shapes (one JSON line per kernel and shape): K1 in its three
-   modes at the four decode linears (N = 4), K6 at the four prefill linears
-   (N = 1024), K2 and K3 at B = 4, S = 512.  Times come from CUDA events
-   around launches queued behind a busy-wait, so they are device time.
+3. Holds every kernel against its plain PyTorch version at the main paths'
+   shapes (one JSON line per kernel and shape): K1 in its three modes at
+   the four decode linears (N = 4), K6 at the four prefill linears
+   (N = 1024), K2 and K3 at B = 4, S = 512, K11 over bf16 and int8
+   head-major caches at B = 4, S = 512; after the promoted tree is built,
+   K4 at its four prefill linears and the lm_head (N = 1024); after the
+   bf16 tree is built, K13 at the four decode linears (N = 4).  Times come
+   from CUDA events around launches queued behind a busy-wait, so they are
+   device time.
 4. Checks the kernel path against the plain path (the CPU) on a small
-   model: prefill and one decode step, logits within tolerance.
+   model, f32 and bf16: the S-major prefill and one stacked decode step;
+   a promoted prefill over head-major int8 caches and one Generator decode
+   step; one stacked bf16-baseline decode step.
 5. Serves requests through ContinuousBatcher(max_batch=4, max_len=512,
-   quant_kv=True, smajor=True) with the launch counts reset just before and
-   read just after, and fails unless every kernel launched as often as the
-   path implies.  Prints serving, prefill and decode rates.
-6. Prints the `kernels` JSON line, then the `ok` line as the last line.
+   quant_kv=True, smajor=True) prefilling on the nibble tree.
+6. Promotes a plain nibble pack of the same weights to int8
+   (promote_model_int8): a 1024-token prompt through the 32-layer promoted
+   tree with no cache (prefill tokens/s), the Generator (4 prompts of 200
+   tokens, 32 new, promoted prefill, nibble decode over int8 head-major
+   caches), and the serving run again with the promoted prefill twin.
+7. The bf16 baseline: pack_fp_decode + stack_layers of the same weights,
+   decoded at B = 4, cache 512, from position 448 over a bf16 head-major
+   cache, and the W4A4 stacked tree over the S-major cache at the same
+   point, taking turns window by window; vs_bf16 is the bf16 ms/step over
+   the W4A4 one, by host clock and by device busy time.
+Every path runs with the launch counts reset just before it and read just
+after, and fails unless each kernel launched as often as the path implies.
+8. Prints the `kernels` JSON line, the card line, then the `ok` line last.
 
 Exits non-zero on any failure; without CUDA, or without the port package
 beside it, it exits non-zero and prints no result.
@@ -34,6 +51,8 @@ import time
 
 SEED = 0
 MAX_BATCH, MAX_LEN, PREFILL_N = 4, 512, 1024
+DECODE_POS = 448             # the bench's aligned decode position (bench.py:179-180)
+GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 200, 32, 256
 
 
 def _die(msg: str) -> None:
@@ -87,33 +106,61 @@ def _close(name, got, ref, rel):
 # ---------------------------------------------------------------- model
 
 
-def build_model(cfg, dev, seed, group_size=64, align_o=2048):
-    """Random Llama packed with the serving recipe: (per-layer tree,
-    stacked decode tree)."""
+def _recipe(cfg, seed, group_size):
+    """(W4A4 recipe, int8 lm_head recipe, salience vectors) of the bench."""
     import dataclasses
 
     import numpy as np
-    import torch
 
     from smoothquant_tpu_torch.models import llama
-    from smoothquant_tpu_torch.models.registry import pack_model
     from smoothquant_tpu_torch.quant.config import QuantConfig, w4a4_group
 
     qcfg = dataclasses.replace(w4a4_group(group_size=group_size, salient_prop=0.05),
                                scale_dtype="bfloat16")
     head = QuantConfig(weight_quant="per_channel", act_quant="per_token",
                        quant_bits=8)
-    gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
     feat = {key: rng.uniform(0.1, 1.0, size=(
         cfg.intermediate_size if "down_proj" in key else cfg.hidden_size,))
         for _, key, _ in llama.quantizable_linears(cfg)}
+    return qcfg, head, feat
+
+
+def build_model(cfg, dev, seed, group_size=64, align_o=2048):
+    """Random Llama and its serving packs: (fp params, per-layer tree,
+    stacked decode tree)."""
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.registry import pack_model
+
+    qcfg, head, feat = _recipe(cfg, seed, group_size)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fp = llama.init_params(gen, cfg, dev)
     packed = pack_model(
-        "llama", llama.init_params(gen, cfg, dev), cfg, qcfg, input_feat=feat,
-        nibble=True, lm_head_qcfg=head, align_k_groups=8, align_o=align_o,
-        fuse=True, fold_perms=True, shared_residual_basis=True,
-        identity_keys=("o_proj",))
-    return packed, llama.stack_layers(packed, cfg)
+        "llama", fp, cfg, qcfg, input_feat=feat, nibble=True, lm_head_qcfg=head,
+        align_k_groups=8, align_o=align_o, fuse=True, fold_perms=True,
+        shared_residual_basis=True, identity_keys=("o_proj",))
+    return fp, packed, llama.stack_layers(packed, cfg)
+
+
+def build_promoted(fp, cfg, seed, group_size=64):
+    """The prefill twin, as bench.py:266-312 builds it: a plain fused nibble
+    pack of the same weights (no shared basis, fold or identity layout,
+    which promote_int8 refuses), promoted to int8 per column."""
+    from smoothquant_tpu_torch.kernels.pack import promote_model_int8
+    from smoothquant_tpu_torch.models.registry import pack_model
+
+    qcfg, head, feat = _recipe(cfg, seed, group_size)
+    return promote_model_int8(pack_model("llama", fp, cfg, qcfg, input_feat=feat,
+                                         nibble=True, lm_head_qcfg=head, fuse=True))
+
+
+def build_bf16(fp, cfg):
+    """The bf16 baseline tree: pack_fp_decode + stack_layers (one copy)."""
+    from smoothquant_tpu_torch.models import llama
+
+    return llama.stack_layers(llama.pack_fp_decode(fp, cfg), cfg)
 
 
 def tree_to(node, dev):
@@ -141,6 +188,15 @@ SOURCES = {
     "decode_attention_smajor_stacked": (
         "smoothquant_tpu_torch/kernels/csrc/attn_smajor.cu",
         "smoothquant_tpu/kernels/attn_smajor.py:213"),
+    "int8_prefill_matmul": (
+        "smoothquant_tpu_torch/kernels/csrc/int8_prefill.cu",
+        "smoothquant_tpu/kernels/int8_prefill.py:282"),
+    "decode_attention_stacked": (
+        "smoothquant_tpu_torch/kernels/csrc/decode_attention.cu",
+        "smoothquant_tpu/kernels/decode_attention.py:306"),
+    "fp_matmul_stacked": (
+        "smoothquant_tpu_torch/kernels/csrc/fp_matmul.cu",
+        "smoothquant_tpu/kernels/fp_matmul.py:77"),
 }
 
 
@@ -350,67 +406,326 @@ def check_decode_attention(cfg, dev, gen):
     return [row]
 
 
+def _prefill_sites(tree, cfg):
+    """(site, per-layer packs) of the four prefill linears of a per-layer tree."""
+    layers = [tree["layers"][str(i)] for i in range(cfg.num_hidden_layers)]
+    return [(site, [lp[grp][name] for lp in layers]) for site, grp, name in (
+        ("qkv", "self_attn", "qkv_proj"), ("o", "self_attn", "o_proj"),
+        ("gate_up", "mlp", "gate_up_proj"), ("down", "mlp", "down_proj"))]
+
+
+def check_int8_prefill(promoted, cfg, dev, gen):
+    """K4 vs plain at the promoted tree's four prefill linears and its
+    lm_head, N = 1024 rows of the identity prologue; the yardstick is
+    torch._int_mm plus the f32 epilogue (and a bf16 matmul for the salient
+    part)."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int8_prefill as k4
+    from smoothquant_tpu_torch.kernels.real_linear import identity_int8_quantize
+    from smoothquant_tpu_torch.utils import roofline
+
+    rows = []
+    for site, lins in _prefill_sites(promoted, cfg) + [("lm_head", [promoted["lm_head"]])]:
+        m = lins[0].meta
+        x = torch.randn((PREFILL_N, m.in_features), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        x_q, sx, x_sal, _ = identity_int8_quantize(lins[0], x)
+        n_l = len(lins)
+        args = lambda i: (x_q, sx, lins[i % n_l].w_qt,
+                          lins[i % n_l].w_scales_t.float().reshape(1, -1), x_sal,
+                          lins[i % n_l].w_sal_t[:x_sal.shape[1]])
+        got = k4.int8_prefill_matmul(*args(0))
+        ref = k4.int8_prefill_matmul_plain(*args(0))
+        torch.cuda.synchronize()
+        err = _close(f"K4 {site}", got, ref, 1e-2)
+
+        def library(i):
+            a = args(i)
+            y = k4.int_mm(a[0], a[2]).float() * a[1] * a[3]
+            if a[4].shape[1]:
+                y = y + torch.matmul(a[4], a[5]).float()
+            return y.to(torch.bfloat16)
+
+        o, k_s = lins[0].w_qt.shape[1], x_sal.shape[1]
+        n_bytes, ops = roofline.int8_prefill_cost(PREFILL_N, m.in_features, o, k_s)
+        b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        rows.append(dict(
+            kernel="int8_prefill_matmul", site=site, shape=[PREFILL_N, m.in_features, o, k_s],
+            max_err=err, kernel_ms=device_ms(lambda i: k4.int8_prefill_matmul(*args(i)), 8),
+            plain_ms=device_ms(lambda i: k4.int8_prefill_matmul_plain(*args(i)), 2, reps=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(library, 8),
+            library="torch._int_mm + f32 epilogue (+ bf16 salient matmul), yardstick only"))
+        emit(rows[-1])
+    return rows
+
+
+def check_fp_matmul(bf16, dev, gen):
+    """K13 vs plain at the bf16 tree's four decode linears (N = 4)."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import fp_matmul as k13
+    from smoothquant_tpu_torch.utils import roofline
+
+    st = bf16["layers"]["stacked"]
+    rows = []
+    for site, w in (("qkv", st["self_attn"]["qkv_proj"]["weight_t"]),
+                    ("o", st["self_attn"]["o_proj"]["weight_t"]),
+                    ("gate_up", st["mlp"]["gate_up_proj"]["weight_t"]),
+                    ("down", st["mlp"]["down_proj"]["weight_t"])):
+        n_layers, kk, o = w.shape
+        x = torch.randn((MAX_BATCH, kk), generator=gen, device=dev).to(w.dtype)
+        got = k13.fp_matmul_stacked(n_layers - 1, x, w)
+        ref = k13.fp_matmul_stacked_plain(n_layers - 1, x, w)
+        torch.cuda.synchronize()
+        err = _close(f"K13 {site}", got, ref, 1e-2)
+        n_bytes, ops = roofline.fp_matmul_cost(MAX_BATCH, kk, o)
+        b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        rows.append(dict(
+            kernel="fp_matmul_stacked", site=site, shape=[MAX_BATCH, kk, o], max_err=err,
+            kernel_ms=device_ms(lambda i: k13.fp_matmul_stacked(i % n_layers, x, w), n_layers),
+            plain_ms=device_ms(lambda i: k13.fp_matmul_stacked_plain(i % n_layers, x, w), 4,
+                               reps=3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=device_ms(lambda i: torch.matmul(x, w[i % n_layers]), n_layers),
+            library="torch.matmul bf16 (N, K) @ (K, O), yardstick only"))
+        emit(rows[-1])
+    return rows
+
+
+def check_decode_attention_hm(cfg, dev, gen):
+    """K11 vs plain over random stacked head-major caches, bf16 and int8,
+    with ragged valid lengths (as K3's phase); SDPA over the (dequantized)
+    bf16 cache as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+    from smoothquant_tpu_torch.models.common import KVCache, QuantKVCache, decode_bias
+    from smoothquant_tpu_torch.utils import roofline
+
+    h, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    n_layers = cfg.num_hidden_layers
+    pos = torch.tensor([100, 300, MAX_LEN - 1, 50], device=dev)
+    bias = decode_bias(pos, MAX_BATCH, MAX_LEN, None)
+    valid = (bias == 0)[:, None, None, :]
+    q = torch.randn((MAX_BATCH, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    rows = []
+    for body in ("bf16", "int8"):
+        if body == "bf16":
+            c = KVCache.create(MAX_BATCH, MAX_LEN, n_kv, d, torch.bfloat16, dev,
+                               n_layers=n_layers)
+            for t in (c.k, c.v):
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+            bufs = (c.k, c.v)
+            lib_kv = lambda i: (c.k[i], c.v[i])
+        else:
+            c = QuantKVCache.create(MAX_BATCH, MAX_LEN, n_kv, d, device=dev,
+                                    n_layers=n_layers)
+            for t in (c.k_q, c.v_q):
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev,
+                                      dtype=torch.int8))
+            for t in (c.k_scale, c.v_scale):
+                t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02 + 0.005)
+            bufs = (c.k_q, c.v_q, c.k_scale, c.v_scale)
+            deq = lambda qv, sc: (qv.float() * sc[..., None]).to(torch.bfloat16)
+            n_lib = min(4, n_layers)
+            kd = [deq(c.k_q[i], c.k_scale[i]) for i in range(n_lib)]
+            vd = [deq(c.v_q[i], c.v_scale[i]) for i in range(n_lib)]
+            lib_kv = lambda i: (kd[i % n_lib], vd[i % n_lib])
+        k_, v_ = bufs[:2]
+        scales = bufs[2:]
+        args = lambda i: (i, q, k_, v_, bias, *scales)
+        got = k11.decode_attention_stacked(*args(n_layers - 1))
+        ref = k11.decode_attention_stacked_plain(*args(n_layers - 1))
+        torch.cuda.synchronize()
+        err = _close(f"K11 {body}", got, ref, 1e-2)
+        n_bytes, ops = roofline.decode_attn_cost(
+            MAX_BATCH, h, n_kv, MAX_LEN, d, n_valid=int(valid.sum()),
+            value_bytes=2 if body == "bf16" else 1, scale_bytes=0 if body == "bf16" else 4)
+        b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        rows.append(dict(
+            kernel="decode_attention_stacked", site=body,
+            shape=[MAX_BATCH, h, n_kv, MAX_LEN, d], max_err=err,
+            kernel_ms=device_ms(lambda i: k11.decode_attention_stacked(*args(i % n_layers)),
+                                n_layers),
+            plain_ms=device_ms(lambda i: k11.decode_attention_stacked_plain(
+                *args(i % n_layers)), 4, reps=3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=device_ms(lambda i: F.scaled_dot_product_attention(
+                q[:, :, None], *lib_kv(i % n_layers), attn_mask=valid), 16),
+            library="scaled_dot_product_attention over the (dequantized) bf16 cache, "
+                    "yardstick only"))
+        emit(rows[-1])
+        del c, bufs
+    return rows
+
+
 # ---------------------------------------------------------------- end to end
+
+
+def check_no_fallback(dev):
+    """On CUDA tensors a wrapper launches its kernel or raises: shapes and
+    options the new kernels do not take raise instead of running a plain
+    version."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+    from smoothquant_tpu_torch.kernels import fp_matmul as k13
+    from smoothquant_tpu_torch.kernels import int8_prefill as k4
+
+    z8 = torch.zeros((64, 64), dtype=torch.int8, device=dev)
+    one = torch.ones((64, 1), device=dev)
+    no_sal = (torch.zeros((64, 0), device=dev), torch.zeros((0, 64), device=dev))
+    cases = {  # name: (call, the exception it must raise)
+        "K4 weight not K-major": (lambda: k4.int8_prefill_matmul(
+            z8, one, z8, one.t(), *no_sal), ValueError),
+        "K4 raw-x mode": (lambda: k4.int8_prefill_matmul(
+            z8, one, z8.t().contiguous().t(), one.t(), *no_sal, one.t()),
+            NotImplementedError),
+        "K11 head_dim 96": (lambda: k11.decode_attention(
+            torch.zeros((1, 4, 96), device=dev), torch.zeros((1, 4, 128, 96), device=dev),
+            torch.zeros((1, 4, 128, 96), device=dev), torch.zeros((1, 128), device=dev)),
+            ValueError),
+        "K11 ALiBi": (lambda: k11.decode_attention(
+            torch.zeros((1, 4, 64), device=dev), torch.zeros((1, 4, 128, 64), device=dev),
+            torch.zeros((1, 4, 128, 64), device=dev), torch.zeros((1, 128), device=dev),
+            alibi_slopes=torch.ones(4, device=dev)), NotImplementedError),
+        "K13 nine rows": (lambda: k13.fp_matmul_stacked(
+            0, torch.zeros((9, 64), device=dev), torch.zeros((1, 64, 64), device=dev)),
+            ValueError),
+    }
+    raised = {}
+    for name, (fn, expected) in cases.items():
+        try:
+            fn()
+        except expected as e:
+            raised[name] = f"{type(e).__name__}: {e}"[:100]
+            continue
+        raise AssertionError(f"{name}: the wrapper ran instead of raising")
+    return raised
 
 
 def reference_check(dev):
     """Kernel path (card) vs plain path (CPU) on a small model with the
-    same weights: logits of a batched prefill and of one stacked decode
-    step, f32 and bf16."""
+    same weights, f32 and bf16, logits compared:
+      * smajor: a batched prefill into S-major caches and one stacked
+        decode step (K6, K1, K2, K3);
+      * generator: a 256-row prefill on the promoted tree over head-major
+        int8 caches and one decode step on the per-layer nibble tree (K4,
+        K6, K11);
+      * bf16_baseline: one stacked pack_fp_decode step over a stacked fp
+        head-major cache (K13, K11).
+    Tolerances, relative to the largest logit: 2e-2 in f32 and 5e-2 in bf16
+    for the S-major path (PR 1's), 1e-3 / 2e-2 for the unquantized bf16
+    baseline (f32 sums in another order).  The generator path's 256-row
+    prefill quantizes every row's activations to int8 per token, and the
+    last-bit differences of another sum order move a few codes across a
+    rounding edge, which attention spreads to later rows (bf16 activations
+    round coarser, so more codes move); its logits are held to 5e-2 (f32)
+    and 1.5e-1 (bf16) of their norm instead — a wrong kernel misses by
+    their whole norm."""
     import dataclasses
 
     import torch
 
     from smoothquant_tpu_torch.models import llama
-    from smoothquant_tpu_torch.models.common import SMajorQuantKVCache
+    from smoothquant_tpu_torch.models.common import KVCache, QuantKVCache, SMajorQuantKVCache
 
     out = {}
-    for dtype_name, rel in (("float32", 2e-2), ("bfloat16", 5e-2)):
+    for dtype_name, tol in (
+            ("float32", {"smajor": 2e-2, "generator": 5e-2, "bf16_baseline": 1e-3}),
+            ("bfloat16", {"smajor": 5e-2, "generator": 1.5e-1, "bf16_baseline": 2e-2})):
         cfg = dataclasses.replace(
             llama.LlamaConfig.tiny(), hidden_size=512, intermediate_size=512,
             num_attention_heads=8, num_key_value_heads=8, num_hidden_layers=2,
             dtype=dtype_name)
-        packed, stacked = build_model(cfg, "cpu", SEED, group_size=16, align_o=256)
+        n_l, n_kv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+        fp, packed, stacked = build_model(cfg, "cpu", SEED, group_size=16, align_o=256)
+        promoted = build_promoted(fp, cfg, SEED, group_size=16)
+        bf16 = build_bf16(fp, cfg)
         gen = torch.Generator().manual_seed(SEED + 1)
         prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+        long_prompt = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
         logits = {}
         for name, d in (("plain", "cpu"), ("kernel", dev)):
             p, s = tree_to(packed, d), tree_to(stacked, d)
-            cache = SMajorQuantKVCache.create(2, 128, cfg.num_key_value_heads,
-                                              cfg.head_dim, d,
-                                              n_layers=cfg.num_hidden_layers)
+            cache = SMajorQuantKVCache.create(2, 128, n_kv, hd, d, n_layers=n_l)
             h, _ = llama.forward_hidden(p, prompt.to(d), cfg, caches=[
-                cache.layer(i) for i in range(cfg.num_hidden_layers)])
+                cache.layer(i) for i in range(n_l)])
             pre = llama.lm_head_logits(p, h[:, -1:], cfg)
             cache.pos[:] = prompt.shape[1]
             mask = torch.zeros((2, 128), dtype=torch.bool, device=d)
             mask[:, :prompt.shape[1] + 1] = True
             step, _ = llama.forward(s, prompt[:, -1:].to(d), cfg, caches=cache,
                                     attn_mask=mask)
-            logits[name] = torch.cat([pre, step], dim=1).cpu()
-        got, ref = logits["kernel"], logits["plain"]
-        if not (torch.isfinite(got).all() and got.shape == (2, 2, cfg.vocab_size)):
-            raise AssertionError("reference check: non-finite or misshapen logits")
-        out[dtype_name] = dict(
-            max_abs_err=_close(f"reference check {dtype_name}", got, ref, rel),
-            tolerance_rel_to_max=rel,
-            argmax_agree=float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
+            qc = [QuantKVCache.create(2, 256, n_kv, hd, device=d) for _ in range(n_l)]
+            g_pre, qc = llama.forward(tree_to(promoted, d), long_prompt.to(d), cfg, caches=qc)
+            g_step, _ = llama.forward(p, long_prompt[:, -1:].to(d), cfg, caches=qc)
+            fc = KVCache.create(2, 128, n_kv, hd, cfg.torch_dtype, d, n_layers=n_l)
+            llama.forward(tree_to(fp, d), prompt.to(d), cfg, caches=[
+                KVCache(fc.k[i], fc.v[i], 0) for i in range(n_l)])
+            fc.pos[:] = prompt.shape[1]
+            b_step, _ = llama.forward(tree_to(bf16, d), prompt[:, -1:].to(d), cfg, caches=fc)
+            logits[name] = {"smajor": torch.cat([pre, step], dim=1),
+                            "generator": torch.cat([g_pre[:, -1:], g_step], dim=1),
+                            "bf16_baseline": b_step}
+            logits[name] = {k: v.cpu() for k, v in logits[name].items()}
+        res = {}
+        for part, ref in logits["plain"].items():
+            got = logits["kernel"][part]
+            if not (torch.isfinite(got).all() and got.shape == ref.shape
+                    and got.shape[-1] == cfg.vocab_size):
+                raise AssertionError(f"reference check {part}: non-finite or misshapen logits")
+            name = f"reference check {dtype_name} {part}"
+            res[part] = dict(argmax_agree=float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
+            if part == "generator":
+                rel_norm = float((got.float() - ref.float()).norm() / ref.float().norm())
+                if not rel_norm <= tol[part]:
+                    raise AssertionError(f"{name}: relative norm error {rel_norm} > {tol[part]}")
+                res[part].update(rel_norm_err=rel_norm, tolerance_rel_norm=tol[part],
+                                 max_abs_err=(got.float() - ref.float()).abs().max().item())
+            else:
+                res[part].update(max_abs_err=_close(name, got, ref, tol[part]),
+                                 tolerance_rel_to_max=tol[part])
+        out[dtype_name] = res
     return out
 
 
-def serve(packed, stacked, cfg, dev):
-    """Serve requests through the batcher; return metrics and launches."""
-    import numpy as np
+def _path_launches(fn):
+    """Run fn with the launch counts reset just before and read just after:
+    (fn's result, the launches of this run)."""
     import torch
 
     from smoothquant_tpu_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, dict(_build.LAUNCHES)
+
+
+def _check_launches(path, launches, expect):
+    if launches != expect:
+        raise AssertionError(f"{path}: launch counts {launches} != expected {expect}")
+
+
+def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool):
+    """Serve requests through the batcher, prefilling on `prefill_tree` (the
+    nibble tree, or its promoted int8 twin); return metrics and the
+    launches of the measured run, checked against what the path implies."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.kernels.real_linear import PREFILL_KERNEL_MIN_TOKENS
     from smoothquant_tpu_torch.models import llama
     from smoothquant_tpu_torch.serve.batching import ContinuousBatcher, Request
 
     batcher = ContinuousBatcher(llama, stacked, cfg, max_batch=MAX_BATCH,
                                 max_len=MAX_LEN, quant_kv=True,
-                                prefill_params=packed, smajor=True, device=dev)
-    prefill = {"calls": 0, "tokens": 0, "s": 0.0}
+                                prefill_params=prefill_tree, smajor=True, device=dev)
+    prefill = {"rows": [], "tokens": 0, "s": 0.0}
     inner = batcher._prefill
 
     def timed_prefill(ids, lens):
@@ -418,7 +733,7 @@ def serve(packed, stacked, cfg, dev):
         r = inner(ids, lens)
         torch.cuda.synchronize()
         prefill["s"] += time.perf_counter() - t0
-        prefill["calls"] += 1
+        prefill["rows"].append(ids.shape[0] * ids.shape[1])
         prefill["tokens"] += int(np.minimum(lens, ids.shape[1]).sum())
         return r
 
@@ -438,14 +753,11 @@ def serve(packed, stacked, cfg, dev):
     reqs = make(8, 0, 32)
     for r in reqs:
         batcher.submit(r)
-    prefill.update(calls=0, tokens=0, s=0.0)
+    prefill.update(rows=[], tokens=0, s=0.0)
     steps0 = batcher._steps
-    _build.reset_launches()
     t0 = time.perf_counter()
-    batcher.run_to_completion(chunk=8)
-    torch.cuda.synchronize()
+    _, launches = _path_launches(lambda: batcher.run_to_completion(chunk=8))
     wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
     steps = batcher._steps - steps0
     toks = [t for r in reqs for t in r.generated]
     if not (all(r.done and len(r.generated) == 32 for r in reqs)
@@ -454,43 +766,51 @@ def serve(packed, stacked, cfg, dev):
     n_l = cfg.num_hidden_layers
     expect = {"int4_group_matmul_stacked_rawx": 4 * n_l * steps,
               "write_quant_cache_smajor": n_l * steps,
-              "decode_attention_smajor_stacked": n_l * steps,
-              "int4_group_matmul": 4 * n_l * prefill["calls"]}
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches} != expected {expect}")
-
-    steady = make(4, 2000, 64)                     # decode-only window
-    for r in steady:
-        batcher.submit(r)
-    batcher.step_chunk(8)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(4):
-        batcher.step_chunk(8)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t1
-    trace = profile_decode(batcher, 4)
-    batcher.run_to_completion(chunk=8)
-    return dict(
+              "decode_attention_smajor_stacked": n_l * steps}
+    if promoted:
+        # K4 runs the prefill linears of rows × bucket >= 256; the lm_head
+        # sees each row's last position only
+        k4 = 4 * n_l * sum(n >= PREFILL_KERNEL_MIN_TOKENS for n in prefill["rows"])
+        if k4:
+            expect["int8_prefill_matmul"] = k4
+    else:
+        expect["int4_group_matmul"] = 4 * n_l * len(prefill["rows"])
+    _check_launches("serving", launches, expect)
+    metrics = dict(
+        prefill_tree="promoted int8" if promoted else "nibble",
         requests=len(reqs), generated_tokens=len(toks), decode_steps=steps,
-        prefill_calls=prefill["calls"], serving_wall_s=wall,
+        prefill_rows=prefill["rows"], serving_wall_s=wall,
         serving_tokens_per_s=len(toks) / wall,
-        prefill_tokens_per_s=prefill["tokens"] / prefill["s"],
-        decode_ms_per_step=1e3 * decode_s / 32,
-        decode_tokens_per_s=32 * MAX_BATCH / decode_s, decode_trace=trace), launches
+        prefill_tokens_per_s=prefill["tokens"] / prefill["s"])
+    if not promoted:
+        steady = make(4, 2000, 64)                 # decode-only window
+        for r in steady:
+            batcher.submit(r)
+        batcher.step_chunk(8)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(4):
+            batcher.step_chunk(8)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+        metrics.update(decode_ms_per_step=1e3 * decode_s / 32,
+                       decode_tokens_per_s=32 * MAX_BATCH / decode_s,
+                       decode_trace=profile(lambda: batcher.step_chunk(4), 4))
+    batcher.run_to_completion(chunk=8)
+    return metrics, launches
 
 
-def profile_decode(batcher, k: int) -> dict:
-    """Device time of k decode steps (all slots active) under
-    torch.profiler: busy ms per step, the idle share of the wall time, and
-    the kernels that take the most device time."""
+def profile(fn, steps: int) -> dict:
+    """Device time of fn (`steps` decode steps) under torch.profiler: busy
+    ms per step, the idle share of the wall time, and the kernels that take
+    the most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        batcher.step_chunk(k)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict = {}
@@ -498,15 +818,129 @@ def profile_decode(batcher, k: int) -> dict:
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(steps=k, wall_ms_per_step=1e3 * wall / k, busy_ms_per_step=busy_ms / k,
-                idle_share=1.0 - busy_ms / (1e3 * wall),
-                top_ms_per_step=[[name[:60], us / 1e3 / k] for name, us in top])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(steps=steps, wall_ms_per_step=1e3 * wall / steps,
+                busy_ms_per_step=busy_ms / steps, idle_share=1.0 - busy_ms / (1e3 * wall),
+                top_ms_per_step=[[name[:60], us / 1e3 / steps] for name, us in top])
+
+
+def aligned_decoder(tree, cache, cfg, dev, path: str, expect_per_step: dict):
+    """A decode step of B = 4 rows over a stacked cache filled to the
+    bench's aligned position: warmed up, its launches checked; returns
+    (step(n), the launches of one step)."""
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+
+    tok = torch.randint(0, cfg.vocab_size, (MAX_BATCH, 1), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+
+    @torch.no_grad()
+    def step(n=1):
+        nonlocal tok
+        for _ in range(n):
+            h, _ = llama.forward_hidden(tree, tok, cfg, caches=cache)
+            tok = torch.argmax(llama.lm_head_logits(tree, h, cfg)[:, -1], dim=-1)[:, None]
+        if not (0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size):
+            raise AssertionError(f"{path}: token out of range")
+
+    step(2)                                        # warm-up
+    _, launches = _path_launches(step)
+    _check_launches(path, launches, expect_per_step)
+    return step, launches
+
+
+def decode_windows(steps: dict, n_windows=3, window=8) -> dict:
+    """ms/step of each decoder over `window` steps, the decoders taking
+    turns window by window (host clock, which moves between runs of one
+    tree), then each one's device busy time under torch.profiler."""
+    import torch
+
+    out = {name: {"windows_ms_per_step": []} for name in steps}
+    for _ in range(n_windows):
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(window)
+            torch.cuda.synchronize()
+            out[name]["windows_ms_per_step"].append(1e3 * (time.perf_counter() - t0) / window)
+    for name, step in steps.items():
+        ms = statistics.median(out[name]["windows_ms_per_step"])
+        trace = profile(lambda: step(4), 4)
+        out[name].update(ms_per_step=ms, tokens_per_s=MAX_BATCH * 1e3 / ms,
+                         busy_ms_per_step=trace["busy_ms_per_step"], trace=trace)
+    return out
+
+
+def full_prefill(promoted, cfg, dev):
+    """One 1024-token prompt through the promoted tree with no cache,
+    logits for every position (bench.py:256-331): tokens/s, launches, and
+    one prefill under torch.profiler."""
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+
+    ids = torch.randint(0, cfg.vocab_size, (1, PREFILL_N), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 11))
+    run = torch.no_grad()(lambda: llama.forward(promoted, ids, cfg)[0])
+    logits = run()                                 # warm-up
+    logits, launches = _path_launches(run)
+    _check_launches("full-model prefill", launches,
+                    {"int8_prefill_matmul": 4 * cfg.num_hidden_layers + 1})
+    if not (logits.shape == (1, PREFILL_N, cfg.vocab_size) and torch.isfinite(logits).all()):
+        raise AssertionError("full-model prefill: non-finite or misshapen logits")
+    del logits
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    s = statistics.median(times)
+    return dict(tokens=PREFILL_N, layers=cfg.num_hidden_layers, ms=1e3 * s,
+                prefill_tokens_per_s=PREFILL_N / s, runs_ms=[1e3 * t for t in times],
+                trace=profile(run, 1)), launches
+
+
+def generator(packed, promoted, cfg, dev):
+    """The Generator: 4 prompts of 200 tokens, 32 new, prefill on the
+    promoted tree, decode on the per-layer nibble tree over head-major int8
+    caches; tokens/s and the launches checked."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.serve.generate import GenerationConfig, Generator
+
+    gen = Generator(llama, packed, cfg, max_len=GEN_MAX_LEN, quant_kv=True,
+                    prefill_params=promoted, device=dev)
+    prompts = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size,
+                                                       size=(MAX_BATCH, GEN_PROMPT))
+    gen.generate(prompts[:, :16], GenerationConfig(max_new_tokens=2))    # warm-up
+    t0 = time.perf_counter()
+    out, launches = _path_launches(
+        lambda: gen.generate(prompts, GenerationConfig(max_new_tokens=GEN_NEW)))
+    wall = time.perf_counter() - t0
+    n_l, steps = cfg.num_hidden_layers, GEN_NEW - 1
+    # the prefill's lm_head runs on all 800 rows (K4); decode's on 4 (_int_mm)
+    _check_launches("generator", launches, {
+        "int8_prefill_matmul": 4 * n_l + 1, "int4_group_matmul": 4 * n_l * steps,
+        "decode_attention_stacked": n_l * steps})
+    new = out[:, GEN_PROMPT:]
+    if not (out.shape == (MAX_BATCH, GEN_PROMPT + GEN_NEW)
+            and (out[:, :GEN_PROMPT] == prompts).all()
+            and ((0 <= new) & (new < cfg.vocab_size)).all()):
+        raise AssertionError("generator: misshapen output or token out of range")
+    return dict(batch=MAX_BATCH, prompt=GEN_PROMPT, new_tokens=GEN_NEW, wall_s=wall,
+                tokens_per_s=MAX_BATCH * GEN_NEW / wall), launches
 
 
 def kernels_line(rows, launches):
-    """One entry per kernel: K1 and K6 sum their four call sites (one
-    layer's worth of work), the errors are the largest seen."""
+    """One entry per kernel: the call sites of one layer's worth of work
+    summed (K1, K6, K4 with the lm_head, K13; K11 its bf16 and int8
+    bodies), the errors the largest seen; launches are the main paths'
+    runs summed."""
     out = []
     for name, (src, replaces) in SOURCES.items():
         rs = [r for r in rows if r["kernel"] == name]
@@ -524,6 +958,96 @@ def kernels_line(rows, launches):
     return {"kernels": out}
 
 
+def run(dev, cfg, card: str) -> dict:
+    """Every phase on `dev` at the size of `cfg`; returns the kernels line."""
+    from collections import Counter
+
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.utils import roofline
+
+    n_l = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    fp, packed, stacked = build_model(cfg, dev, SEED)
+    torch.cuda.synchronize()
+    emit({"phase": "model", "seconds": time.perf_counter() - t0, "layers": n_l,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
+          "decode_step_bytes": roofline.llama_decode_step_bytes(cfg)})
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows = (check_rawx(stacked, dev, gen) + check_gmm(packed, cfg, dev, gen)
+            + check_write_cache(cfg, dev, gen) + check_decode_attention(cfg, dev, gen)
+            + check_decode_attention_hm(cfg, dev, gen))
+
+    emit({"phase": "no_fallback", "raised": check_no_fallback(dev)})
+    emit({"phase": "reference_check", **reference_check(dev)})
+
+    launches = Counter()
+    metrics, used = serve(packed, stacked, cfg, dev, promoted=False)
+    launches.update(used)
+    emit({"phase": "serving", "card": card, **metrics, "launches": used})
+
+    w4a4_cache = llama.stacked_caches(cfg, MAX_BATCH, MAX_LEN, pos=DECODE_POS, device=dev)
+    w4a4_step, used = aligned_decoder(
+        stacked, w4a4_cache, cfg, dev, "w4a4 decode step",
+        {"int4_group_matmul_stacked_rawx": 4 * n_l, "write_quant_cache_smajor": n_l,
+         "decode_attention_smajor_stacked": n_l})
+    launches.update(used)
+
+    t0 = time.perf_counter()
+    promoted = build_promoted(fp, cfg, SEED)
+    torch.cuda.synchronize()
+    emit({"phase": "promoted_model", "seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    rows += check_int8_prefill(promoted, cfg, dev, gen)
+
+    pf, used = full_prefill(promoted, cfg, dev)
+    launches.update(used)
+    emit({"phase": "prefill", "card": card, "tree": "promoted int8", **pf, "launches": used})
+
+    g, used = generator(packed, promoted, cfg, dev)
+    launches.update(used)
+    emit({"phase": "generator", "card": card, **g, "launches": used})
+
+    metrics, used = serve(promoted, stacked, cfg, dev, promoted=True)
+    launches.update(used)
+    emit({"phase": "serving", "card": card, **metrics, "launches": used})
+
+    del promoted, packed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bf16 = build_bf16(fp, cfg)
+    del fp
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    emit({"phase": "bf16_model", "seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
+          "decode_step_bytes": roofline.llama_bf16_decode_step_bytes(cfg)})
+    rows += check_fp_matmul(bf16, dev, gen)
+
+    bf16_cache = llama.stacked_caches(cfg, MAX_BATCH, MAX_LEN, torch.bfloat16, pos=DECODE_POS,
+                                      quant_kv=False, smajor=False, device=dev)
+    bf16_step, used = aligned_decoder(
+        bf16, bf16_cache, cfg, dev, "bf16 decode step",
+        {"fp_matmul_stacked": 4 * n_l, "decode_attention_stacked": n_l})
+    launches.update(used)
+    dec = decode_windows({"w4a4": w4a4_step, "bf16": bf16_step})
+    for name, cache in (("w4a4", w4a4_cache), ("bf16", bf16_cache)):
+        emit({"phase": f"{name}_decode", "card": card, "batch": MAX_BATCH, "cache": MAX_LEN,
+              "positions": [DECODE_POS, int(cache.pos.flatten()[0])], **dec[name]})
+    w, b = dec["w4a4"], dec["bf16"]
+    emit({"phase": "vs_bf16", "card": card,
+          "host_clock": b["ms_per_step"] / w["ms_per_step"],
+          "host_clock_windows": [bw / ww for bw, ww in zip(b["windows_ms_per_step"],
+                                                           w["windows_ms_per_step"])],
+          "device_busy": b["busy_ms_per_step"] / w["busy_ms_per_step"],
+          "bound": (roofline.llama_bf16_decode_step_bytes(cfg)["bound_ms"]
+                    / roofline.llama_decode_step_bytes(cfg)["bound_ms"])})
+
+    return kernels_line(rows, launches)
+
+
 def main() -> int:
     try:
         import torch
@@ -534,7 +1058,6 @@ def main() -> int:
     try:
         from smoothquant_tpu_torch.kernels import _build
         from smoothquant_tpu_torch.models import llama
-        from smoothquant_tpu_torch.utils import roofline
     except ImportError as e:
         _die(f"the port package is not importable beside this script: {e}")
 
@@ -550,25 +1073,8 @@ def main() -> int:
            if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptx})
 
-    cfg = llama.LlamaConfig.llama2_7b()
-    t0 = time.perf_counter()
-    packed, stacked = build_model(cfg, dev, SEED)
-    torch.cuda.synchronize()
-    emit({"phase": "model", "seconds": time.perf_counter() - t0,
-          "layers": cfg.num_hidden_layers,
-          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
-          "decode_step_bytes": roofline.llama_decode_step_bytes(cfg)})
-
-    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    rows = (check_rawx(stacked, dev, gen) + check_gmm(packed, cfg, dev, gen)
-            + check_write_cache(cfg, dev, gen) + check_decode_attention(cfg, dev, gen))
-
-    emit({"phase": "reference_check", **reference_check(dev)})
-
-    metrics, launches = serve(packed, stacked, cfg, dev)
-    emit({"phase": "serving", "card": card, **metrics, "launches": launches})
-
-    emit(kernels_line(rows, launches))
+    emit(run(dev, llama.LlamaConfig.llama2_7b(), card))
+    print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -42,6 +42,10 @@ _SIGNATURES = {
     "sq_int4_gmm": ([_P] * 7 + [_I] * 5 + [_I, _I, _P], _I),
     "sq_write_cache_smajor": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),
     "sq_decode_attn_smajor": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
+    "sq_int8_prefill": ([_P] * 7 + [_I] * 4 + [_I, _I, _P], _I),
+    "sq_decode_attn": ([_P] * 7 + [_I] * 6 + [_F, _I, _I, _P], _I),
+    "sq_fp_matmul_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
+    "sq_fp_matmul": ([_P] * 4 + [_I] * 3 + [_I, _P], _I),
 }
 
 _lib = None

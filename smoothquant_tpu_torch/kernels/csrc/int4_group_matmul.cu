@@ -278,16 +278,6 @@ constexpr int GM_MAX_GS = 64;               // group size the smem tiles hold
 constexpr int GM_WORDS = GM_MAX_GS / 4 + 1; // padded row stride (words)
 constexpr int GM_SAL_K = 32;
 
-// D = A·B + D on the int8 tensor cores: A 16×32 row-major, B 32×8
-// column-major, D 16×8 int32 (PTX mma.m16n8k32 fragment layout).
-__device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4], const int (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Thread (warp, lane) owns acc[mt][nt][e] at tile row
 // wm + 16·mt + lane/4 + 8·(e/2) and tile column wn + 8·nt + 2·(lane%4) + e%2
 // (the mma accumulator layout).

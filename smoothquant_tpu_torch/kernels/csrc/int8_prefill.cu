@@ -1,0 +1,318 @@
+// Prefill int8 matmul with the scale epilogue and the salient dot fused (K4).
+//
+// Replaces smoothquant_tpu/kernels/int8_prefill.py int8_prefill_matmul
+// (pallas_call at :282), pre-quantized mode:
+//     out[n,o] = s_x[n]·s_w[o]·Σ_k x8[n,k]·w8[k,o] + Σ_s x_sal[n,s]·w_sal[s,o]
+// At prefill N (1024 rows) every weight byte is reused N times, so the int8
+// operations bound it (2·N·K·O at 1979 TOP/s; ~0.05 ms for the 4096→12288
+// qkv), not the bytes.  The design keeps the int8 tensor cores fed:
+//   * 128×128 output tiles, 8 warps of 64×32, int32 accumulators in
+//     registers across all of K (mma.sync m16n8k32.s8), so the accumulator
+//     never touches memory; at most 128 registers a thread, so two blocks
+//     share an SM;
+//   * the weight arrives K-major — (O, K) storage, which is what the port's
+//     identity-int8 packs hold behind their (K, O) view — so the x rows and
+//     the weight columns are both 64-byte runs per k step: both stream into
+//     shared memory by cp.async 16-byte copies, three stages deep, with the
+//     16-byte chunks of row r stored at chunk ^ ((r >> 1) & 3), which keeps
+//     the fragment loads on 32 distinct banks;
+//   * the epilogue computes fma(acc·s_x, s_w, salient) in f32 — the JAX
+//     operation order (int8_prefill.py:66-74) with the multiply-add XLA
+//     fuses — and writes the tile once.
+//     The salient dot runs first, on the bf16 tensor cores (m16n8k16, f32
+//     accumulators; the (k_s, O) salient block is transposed into k-pairs
+//     while it is staged) or, for f32 operands, as f32 FMAs, and its tile
+//     waits in shared memory (64 KB) while the int8 loop runs.
+// Rows past N and columns past O are zero-filled and not stored; K and k_s
+// must be multiples of 16 and O of 8 (the wrapper pads other shapes).
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 128, BN = 128, BK = 64;   // tile rows, columns, k bytes per stage
+constexpr int THREADS = 256;                 // 8 warps: 2 along rows × 4 along columns
+constexpr int STAGES = 3;
+constexpr int TILE_WORDS = BM * BK / 4;      // one operand tile: 128 rows × 16 words
+
+// word `word` (0..15) of tile row `row`, 16-byte chunks swizzled
+__device__ __forceinline__ int swz(int row, int word) {
+  return row * 16 + ((((word >> 2) ^ (row >> 1)) & 3) << 2) + (word & 3);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 128 rows × 64 bytes of a row-major byte matrix (rows r0.., bytes k0.., row
+// stride ld) into a swizzled tile; rows >= n_rows and bytes >= k_bytes read 0
+__device__ __forceinline__ void load_tile(uint32_t* tile, const void* src, int r0, int n_rows,
+                                          int k0, int k_bytes, size_t ld, int tid) {
+  const char* base = static_cast<const char*>(src);
+#pragma unroll
+  for (int i = 0; i < BM * 4 / THREADS; ++i) {
+    const int e = tid + i * THREADS;
+    const int r = e >> 2, c = e & 3;
+    const int row = r0 + r, kb = k0 + c * 16;
+    const bool ok = row < n_rows && kb < k_bytes;
+    cp_async16(tile + swz(r, c * 4), ok ? base + (size_t)row * ld + kb : base, ok);
+  }
+}
+
+// A fragments (rows base.. base+15) and B fragments (columns base..base+7)
+// of one k step (words kw..kw+7) from a swizzled tile
+__device__ __forceinline__ void frag_a(int (&a)[4], const uint32_t* t, int base, int kw, int gid,
+                                       int tig) {
+  a[0] = (int)t[swz(base + gid, kw + tig)];
+  a[1] = (int)t[swz(base + gid + 8, kw + tig)];
+  a[2] = (int)t[swz(base + gid, kw + 4 + tig)];
+  a[3] = (int)t[swz(base + gid + 8, kw + 4 + tig)];
+}
+__device__ __forceinline__ void frag_b(int (&b)[2], const uint32_t* t, int base, int kw, int gid,
+                                       int tig) {
+  b[0] = (int)t[swz(base + gid, kw + tig)];
+  b[1] = (int)t[swz(base + gid, kw + 4 + tig)];
+}
+
+struct Tile {
+  int tid, gid, tig, wm, wn, n0, o0;
+};
+
+// (row, column) of the 128×128 f32 salient tile in shared memory; column
+// pairs XOR-swizzled by row so a warp's float2 stores spread over the banks
+__device__ __forceinline__ int sal_idx(int r, int c) { return r * BN + (c ^ ((r & 3) << 3)); }
+
+// Σ_s x_sal[n,s]·w_sal[s,o] for the block's tile into sal (f32), staged
+// through the first A and B tiles.
+template <typename TS>
+__device__ void salient_dot(float (&sal)[4][4][4], const TS* __restrict__ xsal,
+                            const TS* __restrict__ wsal, uint32_t* at, uint32_t* bt, int N, int O,
+                            int ks, const Tile& T) {
+  if constexpr (std::is_same<TS, float>::value) {
+    float* wt = reinterpret_cast<float*>(bt);  // [16 k][128 columns]
+    for (int j0 = 0; j0 < ks; j0 += 16) {
+      load_tile(at, xsal, T.n0, N, 4 * j0, 4 * ks, (size_t)4 * ks, T.tid);
+      cp_async_commit();
+#pragma unroll
+      for (int i = 0; i < 16 * BN / THREADS; ++i) {
+        const int e = T.tid + i * THREADS;
+        const int k = e >> 7, c = e & 127, o = T.o0 + c;
+        wt[e] = (j0 + k < ks && o < O) ? wsal[(size_t)(j0 + k) * O + o] : 0.0f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll 4
+      for (int j = 0; j < 16; ++j) {
+        float xv[4][2], wv[4][2];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            xv[mt][h] = __uint_as_float(at[swz(T.wm + 16 * mt + T.gid + 8 * h, j)]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) wv[nt][h] = wt[j * BN + T.wn + 8 * nt + 2 * T.tig + h];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sal[mt][nt][e] = fmaf(xv[mt][e >> 1], wv[nt][e & 1], sal[mt][nt][e]);
+      }
+      __syncthreads();
+    }
+  } else {
+    for (int j0 = 0; j0 < ks; j0 += 32) {
+      load_tile(at, xsal, T.n0, N, 2 * j0, 2 * ks, (size_t)2 * ks, T.tid);
+      cp_async_commit();
+      // rows j0..j0+31 of the (ks, O) block → [column][k-pair word]
+#pragma unroll
+      for (int i = 0; i < 16 * (BN / 2) / THREADS; ++i) {
+        const int e = T.tid + i * THREADS;
+        const int cp = e & 63, kp = e >> 6;
+        const int o = T.o0 + 2 * cp, k = j0 + 2 * kp;
+        uint32_t r0 = 0u, r1 = 0u;
+        if (o < O) {
+          if (k < ks) r0 = __ldg(reinterpret_cast<const uint32_t*>(wsal + (size_t)k * O + o));
+          if (k + 1 < ks)
+            r1 = __ldg(reinterpret_cast<const uint32_t*>(wsal + (size_t)(k + 1) * O + o));
+        }
+        bt[swz(2 * cp, kp)] = __byte_perm(r0, r1, 0x5410);
+        bt[swz(2 * cp + 1, kp)] = __byte_perm(r0, r1, 0x7632);
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int kw = 0; kw < 16; kw += 8) {
+        int a[4][4], b[4][2];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) frag_a(a[mt], at, T.wm + 16 * mt, kw, T.gid, T.tig);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) frag_b(b[nt], bt, T.wn + 8 * nt, kw, T.gid, T.tig);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(sal[mt][nt], a[mt], b[nt]);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <typename TS, typename TO>
+__global__ void __launch_bounds__(THREADS, 2)
+int8_prefill_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+                    const int8_t* __restrict__ w_ok, const float* __restrict__ sw,
+                    const TS* __restrict__ xsal, const TS* __restrict__ wsal, TO* __restrict__ out,
+                    int N, int K, int O, int ks) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* a_tiles = smem;
+  uint32_t* b_tiles = smem + STAGES * TILE_WORDS;
+  Tile T;
+  T.tid = threadIdx.x;
+  const int lane = T.tid & 31, warp = T.tid >> 5;
+  T.gid = lane >> 2;
+  T.tig = lane & 3;
+  T.wm = (warp >> 2) * 64;
+  T.wn = (warp & 3) * 32;
+  T.n0 = blockIdx.y * BM;
+  T.o0 = blockIdx.x * BN;
+
+  // the salient tile's dot first, parked in shared memory (sal_s) so the
+  // main loop holds only the int32 accumulators
+  float* sal_s = reinterpret_cast<float*>(smem + 2 * STAGES * TILE_WORDS);
+  if (ks > 0) {
+    float sal[4][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sal[mt][nt][e] = 0.0f;
+    salient_dot<TS>(sal, xsal, wsal, a_tiles, b_tiles, N, O, ks, T);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int r = T.wm + 16 * mt + T.gid + 8 * h, c = T.wn + 8 * nt + 2 * T.tig;
+          *reinterpret_cast<float2*>(sal_s + sal_idx(r, c)) =
+              make_float2(sal[mt][nt][2 * h], sal[mt][nt][2 * h + 1]);
+        }
+  }
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+
+  const int nk = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) {
+      load_tile(a_tiles + s * TILE_WORDS, xq, T.n0, N, s * BK, K, (size_t)K, T.tid);
+      load_tile(b_tiles + s * TILE_WORDS, w_ok, T.o0, O, s * BK, K, (size_t)K, T.tid);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage kt landed; every warp is done with stage kt - 1
+    const int pf = kt + STAGES - 1;
+    if (pf < nk) {
+      const int buf = pf % STAGES;
+      load_tile(a_tiles + buf * TILE_WORDS, xq, T.n0, N, pf * BK, K, (size_t)K, T.tid);
+      load_tile(b_tiles + buf * TILE_WORDS, w_ok, T.o0, O, pf * BK, K, (size_t)K, T.tid);
+    }
+    cp_async_commit();
+    const uint32_t* at = a_tiles + (kt % STAGES) * TILE_WORDS;
+    const uint32_t* bt = b_tiles + (kt % STAGES) * TILE_WORDS;
+#pragma unroll
+    for (int kw = 0; kw < 16; kw += 8) {
+      int a[4][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) frag_a(a[mt], at, T.wm + 16 * mt, kw, T.gid, T.tig);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) frag_b(b[nt], bt, T.wn + 8 * nt, kw, T.gid, T.tig);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: fma(acc · s_x, s_w, salient) in f32, written once
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = T.n0 + T.wm + 16 * mt + T.gid + 8 * h;
+      if (n >= N) continue;
+      const float sxn = sx[n];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int o = T.o0 + T.wn + 8 * nt + 2 * T.tig + c;
+          if (o >= O) continue;
+          const int e = 2 * h + c;
+          const int c_in = T.wn + 8 * nt + 2 * T.tig + c;
+          const float sal = ks > 0 ? sal_s[sal_idx(T.wm + 16 * mt + T.gid + 8 * h, c_in)] : 0.0f;
+          const float y = __fmul_rn((float)acc[mt][nt][e], sxn);
+          out[(size_t)n * O + o] = from_f<TO>(__fmaf_rn(y, sw[o], sal));
+        }
+    }
+}
+
+template <typename TS, typename TO>
+int launch(const void* xq, const void* sx, const void* w_ok, const void* sw, const void* xsal,
+           const void* wsal, void* out, int N, int K, int O, int ks, cudaStream_t st) {
+  const dim3 grid((O + BN - 1) / BN, (N + BM - 1) / BM);
+  // the operand ring (48 KB) and, with salient channels, the f32 salient
+  // tile (64 KB): two blocks fit an SM's 228 KB
+  const size_t smem = (2 * STAGES * TILE_WORDS + (ks > 0 ? BM * BN : 0)) * sizeof(uint32_t);
+  auto kern = int8_prefill_kernel<TS, TO>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, THREADS, smem, st>>>(
+      (const int8_t*)xq, (const float*)sx, (const int8_t*)w_ok, (const float*)sw,
+      (const TS*)xsal, (const TS*)wsal, (TO*)out, N, K, O, ks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K4: out (N, O) = (x8 · w8)·s_x·s_w + x_sal · w_sal.  w_ok is the weight
+// stored K-major, (O, K); sal_dt / out_dt: 0 float32, 1 bfloat16.
+SQ_EXPORT int sq_int8_prefill(const void* xq, const void* sx, const void* w_ok, const void* sw,
+                              const void* xsal, const void* wsal, void* out, int N, int K, int O,
+                              int ks, int sal_dt, int out_dt, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (K % 16 || ks % 16 || O % 8 || N < 1) return (int)cudaErrorInvalidValue;
+  if (sal_dt == DT_BF16 && out_dt == DT_BF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(xq, sx, w_ok, sw, xsal, wsal, out, N, K, O, ks,
+                                                st);
+  if (sal_dt == DT_BF16)
+    return launch<__nv_bfloat16, float>(xq, sx, w_ok, sw, xsal, wsal, out, N, K, O, ks, st);
+  if (out_dt == DT_BF16)
+    return launch<float, __nv_bfloat16>(xq, sx, w_ok, sw, xsal, wsal, out, N, K, O, ks, st);
+  return launch<float, float>(xq, sx, w_ok, sw, xsal, wsal, out, N, K, O, ks, st);
+}

@@ -1,0 +1,173 @@
+"""Single-query decode attention over a head-major KV cache (K11), with its
+plain PyTorch version.
+
+K11 decode_attention_stacked — port of smoothquant_tpu/kernels/
+    decode_attention.py:218 (pallas_call :306), and the per-layer wrapper
+    decode_attention (:351), which runs the same kernel on a one-layer
+    stack.  Caches (L, B, H_kv, S, D) in q's dtype, bf16 / f32 (the fp
+    body), or int8 with (L, B, H_kv, S) f32 scales (the int8 body); a
+    (B, S) additive f32 bias carries validity.  Numerics
+    (decode_attention.py:44-130): scores = q·k in f32 × 1/√D [× k_scale]
+    + bias; the TPU kernel's online softmax
+    over tiles of _pick_tile_s(S) positions, the running max guarded at
+    NEG_INF/2; p [× v_scale] rounded to the value dtype (bf16 for the int8
+    cache) before PV; the denominator guarded at 0, so a fully masked row
+    gives 0.
+
+ALiBi slopes (Bloom) and int8_dots (the opt-in int8 BMMs) are on no path
+of the port and raise; no caller sets another softmax scale than 1/√D.  CUDA source: csrc/decode_attention.cu.  A wrapper
+runs the plain version only for CPU tensors; for CUDA tensors it launches
+the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from smoothquant_tpu_torch.kernels import _build
+
+NEG_INF = -1e30
+_WARPS = 16            # warps per block (csrc/decode_attention.cu WARPS)
+_MAX_REP = 8
+_SMEM_LIMIT = 227 * 1024
+
+
+def _pick_tile_s(s: int) -> Optional[int]:
+    for ts in (512, 256, 128):
+        if s % ts == 0:
+            return ts
+    return None
+
+
+def supported(s: int, n_heads: int, n_kv: int, head_dim: int) -> bool:
+    """Shapes the JAX kernel tiles (decode_attention.py:342-346)."""
+    return (_pick_tile_s(s) is not None and n_heads % n_kv == 0
+            and head_dim % 64 == 0)
+
+
+def _check_options(alibi_slopes, int8_dots):
+    if alibi_slopes is not None:
+        raise NotImplementedError("ALiBi slopes (Bloom) are not ported to K11")
+    if int8_dots:
+        raise NotImplementedError("K11's int8_dots mode is not ported")
+
+
+def decode_attention_stacked_plain(layer_idx: int, q, k, v, bias, k_scale=None,
+                                   v_scale=None):
+    """Plain PyTorch K11 (same arguments as the wrapper): the TPU kernel's
+    tile-by-tile online softmax."""
+    b, h, d = q.shape
+    n_kv, s = k.shape[2], k.shape[3]
+    rep = h // n_kv
+    ts = _pick_tile_s(s)
+    if ts is None:
+        raise ValueError(f"cache length {s} not tileable")
+    sm_scale = 1.0 / math.sqrt(d)
+    quant = k_scale is not None
+    kl, vl = k[layer_idx], v[layer_idx]
+    v_dt = torch.bfloat16 if quant else v.dtype
+    qf = q.float().reshape(b, n_kv, rep, d)
+    m = l_sum = acc = None
+    for t in range(s // ts):
+        sl = slice(t * ts, (t + 1) * ts)
+        sc = torch.einsum("bgrd,bgsd->bgrs", qf, kl[:, :, sl].float()) * sm_scale
+        if quant:
+            sc = sc * k_scale[layer_idx][:, :, None, sl]
+        sc = sc + bias[:, None, None, sl].float()
+        m_cur = sc.amax(dim=-1, keepdim=True)
+        m_new = m_cur if t == 0 else torch.maximum(m, m_cur)
+        m_safe = torch.clamp_min(m_new, NEG_INF / 2)
+        p = torch.exp(sc - m_safe)
+        p_sum = p.sum(dim=-1, keepdim=True)
+        alpha = None if t == 0 else torch.exp(m - m_safe)
+        l_sum = p_sum if t == 0 else l_sum * alpha + p_sum
+        if quant:
+            p = p * v_scale[layer_idx][:, :, None, sl]
+        pv = torch.einsum("bgrs,bgsd->bgrd", p.to(v_dt).float(), vl[:, :, sl].float())
+        acc = pv if t == 0 else acc * alpha + pv
+        m = m_new
+    denom = torch.where(l_sum > 0.0, l_sum, torch.ones_like(l_sum))
+    return (acc / denom).reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_stacked(
+    layer_idx: int,
+    q: torch.Tensor,          # (B, H, D) this layer's queries
+    k: torch.Tensor,          # (L, B, H_kv, S, D) every layer
+    v: torch.Tensor,
+    bias: torch.Tensor,       # (B, S) f32 additive mask
+    k_scale: Optional[torch.Tensor] = None,   # (L, B, H_kv, S) when k is int8
+    v_scale: Optional[torch.Tensor] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    *,
+    int8_dots: bool = False,
+) -> torch.Tensor:
+    """(B, H, D) attention of layer `layer_idx` in q's dtype."""
+    _check_options(alibi_slopes, int8_dots)
+    if q.device.type == "cpu":
+        return decode_attention_stacked_plain(layer_idx, q, k, v, bias, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {q.device}")
+    b, h, d = q.shape
+    _, b2, n_kv, s, d2 = k.shape
+    ts = _pick_tile_s(s)
+    rep = h // max(n_kv, 1)
+    if (b2 != b or d2 != d or v.shape != k.shape or ts is None or h % n_kv
+            or rep > _MAX_REP or d not in (64, 128, 256)):
+        raise ValueError(f"K11 does not take q {tuple(q.shape)} over cache "
+                         f"{tuple(k.shape)} (S tileable by 128, GQA rep <= 8, "
+                         "D in 64/128/256)")
+    smem = (rep * s + _WARPS * rep * d + rep * (s // ts)) * 4
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"K11 score rows and partials need {smem} B of shared memory")
+    quant = k.dtype == torch.int8
+    if quant != (k_scale is not None) or v.dtype != k.dtype:
+        raise TypeError("an int8 cache comes with its scales, an fp cache without")
+    if not quant and k.dtype != q.dtype:
+        raise TypeError(f"K11 takes an fp cache in q's dtype ({q.dtype}), not {k.dtype}")
+    q = q.contiguous()
+    bias = bias.float().contiguous()
+    if bias.shape != (b, s):
+        raise ValueError(f"bias {tuple(bias.shape)} != {(b, s)}")
+    if quant:
+        for t in (k_scale, v_scale):
+            if t.dtype != torch.float32 or t.shape != k.shape[:4]:
+                raise TypeError("cache scales are (L, B, H_kv, S) float32")
+    _build.check_operands(q.device, k=k, v=v, bias=bias, k_scale=k_scale,
+                          v_scale=v_scale)
+    out = torch.empty_like(q)
+    scale_ptr = (lambda t: t[layer_idx].data_ptr()) if quant else (lambda t: None)
+    _build.check(_build.lib().sq_decode_attn(
+        q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(),
+        scale_ptr(k_scale), scale_ptr(v_scale), bias.data_ptr(), out.data_ptr(),
+        b, h, n_kv, s, d, ts, 1.0 / math.sqrt(d), _build.dt_code(q), int(quant),
+        _build.stream_ptr(q)),
+        "sq_decode_attn")
+    _build.LAUNCHES["decode_attention_stacked"] += 1
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,          # (B, H, D)
+    k: torch.Tensor,          # (B, H_kv, S, D) bf16 / f32, or int8
+    v: torch.Tensor,
+    bias: torch.Tensor,       # (B, S) f32 additive mask
+    k_scale: Optional[torch.Tensor] = None,   # (B, H_kv, S) f32 when int8
+    v_scale: Optional[torch.Tensor] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    *,
+    int8_dots: bool = False,
+) -> torch.Tensor:
+    """(B, H, D) attention over one layer's cache: the stacked kernel on a
+    one-layer stack (views, nothing copied)."""
+    b, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or h % k.shape[1] or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} does not fit cache {tuple(k.shape)}")
+    return decode_attention_stacked(
+        0, q, k[None], v[None], bias,
+        None if k_scale is None else k_scale[None],
+        None if v_scale is None else v_scale[None],
+        alibi_slopes, int8_dots=int8_dots)

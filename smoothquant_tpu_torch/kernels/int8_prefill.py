@@ -1,0 +1,119 @@
+"""Prefill int8 matmul with the scale epilogue and salient dot fused (K4),
+with its plain PyTorch version.
+
+K4  int8_prefill_matmul — port of smoothquant_tpu/kernels/int8_prefill.py:175
+    (pallas_call :282), pre-quantized mode:
+        out[n, o] = s_x[n]·s_w[o]·Σ_k x8[n, k]·w8[k, o] + Σ_s x_sal[n, s]·w_sal[s, o]
+    with the int32 sum exact, the salient dot summed in f32 and the
+    epilogue fma((acc·s_x), s_w, salient) in f32, as XLA fuses it.  The raw-x mode (ns_mask given: quantize
+    inside the kernel) is on no path of the port and raises.
+
+The weight is read K-major: the wrapper takes the (K, O) weight the JAX
+package's signature names, but its storage must be (O, K) — `k_major(w)`
+makes such a tensor (kernels/pack.py); the port's identity-int8 packs
+hold their weights so.
+CUDA source: csrc/int8_prefill.cu.  A wrapper runs the plain version only
+for CPU tensors; for CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from smoothquant_tpu_torch.kernels import _build
+from smoothquant_tpu_torch.quant.core import fma_f32
+
+INT_MM_MIN_ROWS = 32   # torch._int_mm's CUDA path refuses M <= 16 rows
+
+
+def int_mm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact int8 × int8 → int32 product (torch._int_mm, rows padded to its
+    minimum)."""
+    n = x_q.shape[0]
+    if n < INT_MM_MIN_ROWS:
+        x_q = torch.nn.functional.pad(x_q, (0, 0, 0, INT_MM_MIN_ROWS - n))
+    return torch._int_mm(x_q, w_q)[:n]
+
+
+def scale_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw_t: torch.Tensor,
+                   sal: torch.Tensor = None) -> torch.Tensor:
+    """acc·s_x·s_w (+ sal) in f32: (acc·s_x)·s_w, fused with the salient
+    add into one multiply-add as XLA compiles the JAX epilogue
+    (int8_prefill.py:66-74, real_linear.py:118-124)."""
+    y = acc.float() * sx.float()
+    if sal is None:
+        return y * sw_t.float()
+    return fma_f32(y, sw_t.float(), sal.float())
+
+
+def int8_prefill_matmul_plain(x_q, sx, w_qt, sw_t, x_sal, w_sal_t, *,
+                              out_dtype=torch.bfloat16):
+    """Plain PyTorch K4 (same arguments as the wrapper)."""
+    sal = x_sal.float() @ w_sal_t.float() if x_sal.shape[1] else None
+    return scale_epilogue(int_mm(x_q, w_qt), sx, sw_t, sal).to(out_dtype)
+
+
+def _pad_last(t: torch.Tensor, m: int) -> torch.Tensor:
+    pad = -t.shape[-1] % m
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
+
+
+def int8_prefill_matmul(
+    x_q: torch.Tensor,        # (N, K) int8 quantized activations
+    sx: torch.Tensor,         # (N, 1) f32 per-token scales
+    w_qt: torch.Tensor,       # (K, O) int8 per-column quantized weight
+    sw_t: torch.Tensor,       # (1, O) f32 per-column scales
+    x_sal: torch.Tensor,      # (N, K_s) salient activations (bf16 / f32)
+    w_sal_t: torch.Tensor,    # (K_s, O) salient weight columns, x_sal's dtype
+    ns_mask: Optional[torch.Tensor] = None,
+    *,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """(N, O) prefill int8 matmul with the fused epilogue."""
+    if ns_mask is not None:
+        raise NotImplementedError("K4's raw-x mode (in-kernel quantize) is not ported")
+    if x_q.device.type == "cpu":
+        return int8_prefill_matmul_plain(x_q, sx, w_qt, sw_t, x_sal, w_sal_t,
+                                         out_dtype=out_dtype)
+    if x_q.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x_q.device}")
+    n, kk = x_q.shape
+    o = w_qt.shape[1]
+    k_s = x_sal.shape[1]
+    if (x_q.dtype != torch.int8 or w_qt.dtype != torch.int8 or w_qt.shape[0] != kk
+            or sx.shape != (n, 1) or sw_t.shape != (1, o) or w_sal_t.shape != (k_s, o)
+            or x_sal.shape[0] != n):
+        raise TypeError("K4 operand shapes or dtypes do not match")
+    if x_sal.dtype != w_sal_t.dtype:
+        raise TypeError("x_sal and w_sal_t must share a dtype")
+    if not w_qt.t().is_contiguous():
+        raise ValueError("K4 reads the weight K-major: pass k_major(w_qt)")
+    w_ok = w_qt.t()                                   # (O, K) storage
+    x_q = x_q.contiguous()
+    sx = sx.float().reshape(n).contiguous()
+    sw = sw_t.float().reshape(o).contiguous()
+    x_sal, w_sal_t = x_sal.contiguous(), w_sal_t.contiguous()
+    # the kernel takes K and K_s in 16s and O in 8s; other shapes pad with
+    # zeros (zero rows and columns add nothing; padded columns are cut)
+    if kk % 16:
+        x_q, w_ok = _pad_last(x_q, 16), _pad_last(w_ok, 16)
+    if k_s % 16:
+        x_sal = _pad_last(x_sal, 16)
+        w_sal_t = _pad_last(w_sal_t.t(), 16).t().contiguous()
+    o_pad = -(-o // 8) * 8
+    if o_pad != o:
+        w_ok = torch.nn.functional.pad(w_ok, (0, 0, 0, o_pad - o))
+        sw = torch.nn.functional.pad(sw, (0, o_pad - o))
+        w_sal_t = _pad_last(w_sal_t, 8)
+    _build.check_operands(x_q.device, sx=sx, w_ok=w_ok, sw=sw, x_sal=x_sal,
+                          w_sal_t=w_sal_t)
+    out = torch.empty((n, o_pad), dtype=out_dtype, device=x_q.device)
+    _build.check(_build.lib().sq_int8_prefill(
+        x_q.data_ptr(), sx.data_ptr(), w_ok.data_ptr(), sw.data_ptr(),
+        x_sal.data_ptr(), w_sal_t.data_ptr(), out.data_ptr(), n, x_q.shape[1],
+        o_pad, x_sal.shape[1], _build.dt_code(w_sal_t), _build.dt_code(out),
+        _build.stream_ptr(x_q)), "sq_int8_prefill")
+    _build.LAUNCHES["int8_prefill_matmul"] += 1
+    return out if o_pad == o else out[:, :o]

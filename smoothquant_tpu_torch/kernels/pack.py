@@ -118,6 +118,13 @@ def unpack_nibbles_to_int8(w_qt: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-2)
 
 
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """The (K, O) matrix w as a view of (O, K) contiguous storage: the
+    layout the prefill int8 kernel (K4) reads.  Identity-int8 packs hold
+    their weights so; shape and values stay those of the JAX package."""
+    return w.t().contiguous().t()
+
+
 def _pad_o(t: torch.Tensor, o_pad: int) -> torch.Tensor:
     o = t.shape[-1]
     return t if o_pad == o else torch.nn.functional.pad(t, (0, o_pad - o))
@@ -209,6 +216,7 @@ def pack_linear(
             and cfg.effective_act_bits == 8
             and np.array_equal(perm, np.arange(c))):
         layout = "identity"
+        w_qt = k_major(w_qt)
 
     bias = params.get("bias")
     return PackedLinear(
@@ -332,6 +340,81 @@ def permute_output_columns(packed: PackedLinear, idx) -> PackedLinear:
         w_scales_t=gather_o(packed.w_scales_t),
         w_sal_t=gather_o(packed.w_sal_t),
         bias=None if packed.bias is None else packed.bias.index_select(0, take))
+
+
+def _rows_in_perm_order(packed: PackedLinear) -> bool:
+    """True when w_qt's rows follow packed.perm — what the JAX promotion
+    assumes when it scatters them back by perm (pack.py:477-478)."""
+    m = packed.meta
+    if m.layout != "identity":
+        return True
+    ident = torch.arange(m.in_features, device=packed.perm.device)
+    return bool(torch.equal(packed.perm.to(torch.int64), ident))
+
+
+def promote_int8(packed: PackedLinear) -> PackedLinear:
+    """Re-express an int4-group pack as int8 per output column in ORIGINAL
+    channel order (pack.py:465-524): the prefill recipe, one full-depth int8
+    product with a per-token × per-column epilogue (K4), salient channels
+    masked out of the int operand and riding the fp side path.
+
+    Numerics mirror the jitted _promote_device: the W4 weight dequantized in
+    f32, scale = max(column absmax, 1e-8)·(1/127 in f32), codes round(wf /
+    scale) half to even, rows scattered back by perm.  The weight is stored
+    K-major (k_major), the layout K4 reads.
+
+    Raises NotImplementedError for the packs the JAX promotion gets wrong:
+    an input that arrives pre-permuted (the shared residual basis, or a
+    permutation folded into its producer by fold_input_perm — both set
+    meta.pre_permuted) and an identity layout whose rows do not follow
+    perm.  Their promoted forward would take activations in one channel
+    order against weights scattered into another.
+    """
+    m = packed.meta
+    if packed.w_qt.ndim != 2:
+        raise NotImplementedError("promote_int8 takes per-layer packs, not stacks")
+    if m.pre_permuted:
+        raise NotImplementedError(
+            "promote_int8 of a pre-permuted pack (shared residual basis or a "
+            "folded input permutation): the promoted rows would land in the "
+            "original channel order while the input arrives permuted")
+    if not _rows_in_perm_order(packed):
+        raise NotImplementedError(
+            "promote_int8 of an identity-layout pack: its rows are already in "
+            "original order, and scattering them by perm misplaces them")
+    w_qt = unpack_nibbles_to_int8(packed.w_qt) if m.nibble else packed.w_qt
+    k_ns, o = w_qt.shape
+    k_ns_raw = m.in_features - m.num_salient
+    gs = m.group_size
+    wf = (w_qt.float().reshape(k_ns // gs, gs, o)
+          * packed.w_scales_t.float()[:, None, :]).reshape(k_ns, o)
+    absmax = wf.abs().amax(dim=0, keepdim=True)
+    scale = torch.clamp_min(absmax, 1e-8) * core.f32_reciprocal(127.0)
+    q8 = torch.round(wf / scale).to(torch.int8)
+    del wf
+    perm = packed.perm
+    q8_orig = torch.zeros((m.in_features, o), dtype=torch.int8, device=q8.device)
+    q8_orig[perm[:k_ns_raw]] = q8[:k_ns_raw]
+    ns_mask = None
+    if m.num_salient:
+        ns_mask = torch.ones(m.in_features, dtype=torch.float32, device=q8.device)
+        ns_mask[perm[k_ns_raw:]] = 0.0
+    return PackedLinear(
+        w_qt=k_major(q8_orig), w_scales_t=scale, w_sal_t=packed.w_sal_t,
+        bias=packed.bias, perm=perm, ns_mask=ns_mask,
+        meta=dataclasses.replace(
+            m, nibble=False, group_size=m.in_features, k_ns=m.in_features,
+            act_quant="per_token", act_bits=8, layout="identity"))
+
+
+def promote_model_int8(params):
+    """promote_int8 over every PackedLinear of a per-layer packed tree: the
+    prefill twin of a nibble decode tree (pack.py:527-537)."""
+    if isinstance(params, PackedLinear):
+        return promote_int8(params)
+    if isinstance(params, dict):
+        return {k: promote_model_int8(v) for k, v in params.items()}
+    return params
 
 
 def quantize_activations_packed_int(x_perm: torch.Tensor, meta: PackedMeta):

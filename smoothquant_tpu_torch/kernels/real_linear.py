@@ -9,8 +9,9 @@ real_linear.py:70-125,200-479 — the branches the W4A4 serving path takes).
   per-layer nibble (prefill):
     * permuted → quantize_activations_packed_int + K6
     * identity → _identity_nibble_quantize + K6
-  identity int8, not nibble (the per-channel lm_head) → one int8 product
-    with a per-token × per-column scale epilogue (torch._int_mm, as the
+  identity int8, not nibble (promote_int8's prefill packs, the per-channel
+    lm_head) → masked per-token quantize, then K4 at >= 256 rows, else one
+    torch._int_mm product with the per-token × per-column epilogue (as the
     JAX package leaves it to an XLA int8 dot below 256 rows).
 
 Every other branch raises NotImplementedError: nothing detours silently.
@@ -22,6 +23,11 @@ from typing import Optional
 
 import torch
 
+from smoothquant_tpu_torch.kernels.int8_prefill import (
+    int8_prefill_matmul,
+    int_mm,
+    scale_epilogue,
+)
 from smoothquant_tpu_torch.kernels.int4_group_matmul import (
     RAWX_MAX_N,
     int4_group_matmul,
@@ -33,8 +39,10 @@ from smoothquant_tpu_torch.kernels.pack import (
 )
 from smoothquant_tpu_torch.quant import core
 
-# torch._int_mm's CUDA path has refused M <= 16 rows; decode rows are padded
-INT_MM_MIN_ROWS = 32
+# identity-int8 forward: below this many rows torch._int_mm plus the
+# epilogue runs instead of K4 (the JAX _PREFILL_KERNEL_MIN_TOKENS default;
+# the port reads no tuned.json)
+PREFILL_KERNEL_MIN_TOKENS = 256
 
 
 def _grouped(meta) -> bool:
@@ -51,22 +59,45 @@ def can_fuse_norm(packed) -> bool:
     return m.pre_permuted and m.nibble and m.layout != "identity" and _grouped(m)
 
 
-def _identity_int8_forward(packed: PackedLinear, x2d: torch.Tensor,
-                           out_dtype) -> torch.Tensor:
-    """Per-token int8 quantize, one int8×int8→int32 product, then
-    acc·s_x·s_w in f32 (real_linear.py:70-125, small-N branch)."""
+def identity_int8_quantize(packed: PackedLinear, x2d: torch.Tensor):
+    """The prologue of the identity-int8 forward (real_linear.py:81-104):
+    (x_q int8 (N, C), s_x f32 (N, 1), x_sal (N, k_s) and the salient block
+    (k_s, O) in the block's dtype; k_s = 0 without salient channels).  The
+    salient channels are masked out of the per-token int8 quantize and
+    gathered k_s wide."""
     meta = packed.meta
-    if meta.num_salient:
-        raise NotImplementedError("identity int8 pack with salient channels")
+    c = meta.in_features
     xf = x2d.float()
+    k_s = packed.w_sal_t.shape[0] if meta.num_salient else 0
+    x_sal = torch.zeros((x2d.shape[0], k_s), dtype=packed.w_sal_t.dtype, device=x2d.device)
+    if meta.num_salient:
+        sal_idx = packed.perm[c - meta.num_salient:]
+        ns = packed.ns_mask
+        if ns is None:
+            ns = torch.ones(c, dtype=torch.float32, device=x2d.device)
+            ns[sal_idx] = 0.0
+        xf = xf * ns[None, :]
+        x_sal[:, :meta.num_salient] = x2d.index_select(1, sal_idx).to(x_sal.dtype)
     sx = core.compute_scale(xf.abs().amax(dim=-1, keepdim=True), 8)
     x_q = torch.round(xf / sx).to(torch.int8)
-    n = x_q.shape[0]
-    if n < INT_MM_MIN_ROWS:
-        x_q = torch.nn.functional.pad(x_q, (0, 0, 0, INT_MM_MIN_ROWS - n))
-    acc = torch._int_mm(x_q, packed.w_qt)[:n]
-    y = acc.float() * sx * packed.w_scales_t.float().reshape(1, -1)
-    return y.to(out_dtype)
+    return x_q, sx, x_sal, packed.w_sal_t[:k_s]
+
+
+def _identity_int8_forward(packed: PackedLinear, x2d: torch.Tensor,
+                           out_dtype) -> torch.Tensor:
+    """promote_int8's identity layout and the per-channel int8 lm_head
+    (real_linear.py:70-125): the masked per-token int8 quantize, then ONE
+    full-depth int8 product with the acc·s_x·s_w epilogue and the salient
+    dot — K4 at PREFILL_KERNEL_MIN_TOKENS rows and above, below them
+    torch._int_mm, the f32 epilogue and a matmul for the salient part (the
+    JAX package leaves that case to XLA dots outside any Pallas kernel)."""
+    x_q, sx, x_sal, w_sal_t = identity_int8_quantize(packed, x2d)
+    sw_t = packed.w_scales_t.float().reshape(1, -1)
+    if x2d.shape[0] >= PREFILL_KERNEL_MIN_TOKENS:
+        return int8_prefill_matmul(x_q, sx, packed.w_qt, sw_t, x_sal, w_sal_t,
+                                   out_dtype=out_dtype)
+    sal = torch.matmul(x_sal, w_sal_t) if x_sal.shape[1] else None
+    return scale_epilogue(int_mm(x_q, packed.w_qt), sx, sw_t, sal).to(out_dtype)
 
 
 def _identity_nibble_quantize(packed: PackedLinear, x2d: torch.Tensor,

@@ -1,11 +1,16 @@
 """Shared model building blocks (port of smoothquant_tpu/models/common.py,
-the parts the W4A4 serving path uses).
+the parts the W4A4 serving path, the bf16 decode baseline and the
+Generator use).
 
-  call_linear, rms_norm, rotary_cos_sin,
-  apply_rotary, SMajorQuantKVCache (create / update / read), the einsum
-  attention and cached_attention's S-major branch (:470-609), decode_bias
-  (:820-838), the S-major branch of stacked_cache_append_fused (:785-799)
-  and stacked_smajor_attention (:841-854).
+  call_linear (packed, transposed-fp "weight_t" and plain fp linears,
+  :109-223), rms_norm, rotary_cos_sin, apply_rotary, the head-major
+  KVCache / QuantKVCache (:281-387) and SMajorQuantKVCache (create /
+  update / read), the einsum attention (:550-575), cached_attention
+  (:583-655; the decode kernel K11 for the int8 head-major cache),
+  prefetch_tree_capable (:672-732), stacked_cache_append (:735-775),
+  stacked_cache_append_fused (:778-817; the head-major int8 writer K10 is
+  not ported), decode_bias (:820-838), stacked_smajor_attention (:841-854)
+  and stacked_flash_attention (:857-875).
 
 Caches are updated IN PLACE (the JAX functions return new buffers); the
 objects are returned all the same so call sites read like the reference.
@@ -24,20 +29,45 @@ from smoothquant_tpu_torch.kernels.attn_smajor import (
     quantize_rows_int8,
     write_quant_cache_smajor,
 )
+from smoothquant_tpu_torch.kernels import decode_attention as k11
+from smoothquant_tpu_torch.kernels.fp_matmul import fp_matmul_stacked
 from smoothquant_tpu_torch.kernels.pack import PackedLinear
 from smoothquant_tpu_torch.kernels.real_linear import real_quant_linear
-from smoothquant_tpu_torch.quant.core import f32_reciprocal
+from smoothquant_tpu_torch.quant.core import f32_reciprocal, fma_f32
 
 NEG_INF = -1e9   # einsum attention mask value (common.py:29)
 
 
 def call_linear(params, x: torch.Tensor, layer_idx: Optional[int] = None,
                 norm: Optional[tuple] = None) -> torch.Tensor:
-    """A quantizable linear call site (packed linears only; the recipe
-    travels in the pack's meta, so no forward context is needed)."""
-    if not isinstance(params, PackedLinear):
-        raise NotImplementedError("only packed (real-kernel) linears are ported")
-    return real_quant_linear(params, x, layer_idx=layer_idx, norm=norm)
+    """A linear call site (common.py:109-223; the recipe of a packed linear
+    travels in its meta, so no forward context is needed).
+
+    A transposed-fp {"weight_t", "bias"} dict (llama.pack_fp_decode) runs
+    K13 on layer layer_idx of its (L, K, O) stack, or one matmul when it is
+    not stacked; a PackedLinear runs real_quant_linear; a plain {"weight",
+    "bias"} dict x @ W.T + b in x's dtype."""
+    if isinstance(params, dict) and "weight_t" in params:
+        if norm is not None:
+            raise NotImplementedError("norm fusion is a packed-linear path")
+        x2d = x.reshape(-1, x.shape[-1])
+        bias = params.get("bias")
+        if layer_idx is not None:
+            y = fp_matmul_stacked(layer_idx, x2d, params["weight_t"])
+            bias = None if bias is None else bias[layer_idx]
+        else:
+            y = torch.matmul(x2d, params["weight_t"].to(x.dtype))
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
+    if isinstance(params, PackedLinear):
+        return real_quant_linear(params, x, layer_idx=layer_idx, norm=norm)
+    if layer_idx is not None or norm is not None:
+        raise NotImplementedError("plain fp linears take no layer index or norm")
+    y = torch.matmul(x, params["weight"].t().to(x.dtype))
+    if params.get("bias") is not None:
+        y = y + params["bias"].to(x.dtype)
+    return y
 
 
 def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -63,7 +93,104 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
     cos = cos[:, :, None, :].to(x.dtype)
     sin = sin[:, :, None, :].to(x.dtype)
+    if x.dtype == torch.float32:
+        # jitted XLA fuses the f32 form into fma(x, cos, rotated·sin)
+        return fma_f32(x, cos, rotated * sin)
     return x * cos + rotated * sin
+
+
+def _write_rows(buf: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """buf[:, :, pos:pos+Sq] = new for a per-layer head-major buffer, in
+    place; like jax.lax.dynamic_update_slice, a start past the end is
+    clamped so the rows fit."""
+    if not isinstance(pos, int):
+        raise NotImplementedError("per-layer caches hold one int position")
+    sq = new.shape[2]
+    buf.narrow(2, min(max(pos, 0), buf.shape[2] - sq), sq).copy_(new)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """fp decode cache k/v (B, H_kv, S, D), head-major (common.py:281-322),
+    with an int fill position; the stacked form (n_layers given) carries a
+    leading L axis and (L,) aligned or, per_slot, (L, B) positions.
+    Updated IN PLACE."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: Union[int, torch.Tensor]
+
+    @classmethod
+    def create(cls, batch: int, max_len: int, n_kv_heads: int, head_dim: int,
+               dtype, device, per_slot: bool = False,
+               n_layers: Optional[int] = None, pos: int = 0):
+        lead = () if n_layers is None else (n_layers,)
+        shape = lead + (batch, n_kv_heads, max_len, head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=_initial_pos(batch, n_layers, per_slot, pos, device))
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
+        """Append k/v (B, Sq, H_kv, D) at pos."""
+        _write_rows(self.k, k_new.transpose(1, 2).to(self.k.dtype), self.pos)
+        _write_rows(self.v, v_new.transpose(1, 2).to(self.v.dtype), self.pos)
+        return dataclasses.replace(self, pos=self.pos + k_new.shape[1])
+
+    def read(self):
+        """(B, H_kv, S, D) key / value views."""
+        return self.k, self.v
+
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """int8 decode cache (common.py:325-387): k_q/v_q (B, H_kv, S, D) int8
+    with per-(slot, head, position) f32 scales (B, H_kv, S), max(absmax,
+    1e-8)/127 as jitted JAX computes it.  pos and the stacked form as
+    KVCache.  Updated IN PLACE."""
+
+    k_q: torch.Tensor
+    v_q: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    pos: Union[int, torch.Tensor]
+
+    @classmethod
+    def create(cls, batch: int, max_len: int, n_kv_heads: int, head_dim: int,
+               dtype=None, device="cpu", per_slot: bool = False,
+               n_layers: Optional[int] = None, pos: int = 0):
+        del dtype  # storage is int8; read() dequantizes to bf16
+        lead = () if n_layers is None else (n_layers,)
+        shape = lead + (batch, n_kv_heads, max_len, head_dim)
+        z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+        return cls(k_q=z(shape, torch.int8), v_q=z(shape, torch.int8),
+                   k_scale=z(shape[:-1], torch.float32),
+                   v_scale=z(shape[:-1], torch.float32),
+                   pos=_initial_pos(batch, n_layers, per_slot, pos, device))
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor) -> "QuantKVCache":
+        """Quantize and append k/v (B, Sq, H_kv, D) at pos."""
+        for new, q_buf, s_buf in ((k_new, self.k_q, self.k_scale),
+                                  (v_new, self.v_q, self.v_scale)):
+            q, sc = quantize_rows_int8(new.transpose(1, 2))   # (B,H,Sq,D), (B,H,Sq)
+            _write_rows(q_buf, q, self.pos)
+            _write_rows(s_buf, sc, self.pos)
+        return dataclasses.replace(self, pos=self.pos + k_new.shape[1])
+
+    def read(self):
+        """(B, H_kv, S, D) dequantized bf16 views (the einsum path)."""
+        def deq(q, sc):
+            return (q.float() * sc[..., None]).to(torch.bfloat16)
+
+        return deq(self.k_q, self.k_scale), deq(self.v_q, self.v_scale)
+
+
+def _initial_pos(batch, n_layers, per_slot, pos, device):
+    if n_layers is None:
+        if per_slot:
+            raise ValueError("per-slot positions are a stacked-cache form")
+        return pos
+    shape = (n_layers, batch) if per_slot else (n_layers,)
+    return torch.full(shape, pos, dtype=torch.int32, device=device)
 
 
 @dataclasses.dataclass
@@ -156,17 +283,35 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if attn_mask is not None:
         mask = mask & attn_mask[:, None, None, :].bool()
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    # jax.nn.softmax's form: exp(s - max) divided by its sum
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
     out = torch.einsum("bhqk,bhkd->bqhd", probs.float(), v.float())
     return out.to(v.dtype).to(q.dtype)
 
 
 def cached_attention(q: torch.Tensor, cache, *, causal_offset,
                      attn_mask: Optional[torch.Tensor] = None):
-    """Attention over an updated S-major cache: the einsum over its
-    dequantized view (common.py:603-609)."""
-    if not isinstance(cache, SMajorQuantKVCache):
-        raise NotImplementedError("only the S-major int8 cache is ported")
+    """Attention over an already-updated per-layer cache (common.py:583-655):
+    a single query over the int8 head-major cache runs K11 with validity
+    folded into a (B, S) bias; everything else (prefill, the fp cache, the
+    S-major cache) is the einsum over the cache's (dequantized) view, as the
+    JAX package's default mode chooses."""
+    quant = isinstance(cache, QuantKVCache)
+    if not isinstance(cache, (SMajorQuantKVCache, KVCache, QuantKVCache)):
+        raise NotImplementedError(f"cache type {type(cache).__name__}")
+    if quant and q.shape[1] == 1:
+        b, _, nh, d = q.shape
+        n_kv, s = cache.k_q.shape[1], cache.k_q.shape[2]
+        if k11.supported(s, nh, n_kv, d):
+            valid = torch.as_tensor(cache.pos, device=q.device).expand(b)
+            ok = torch.arange(s, device=q.device)[None, :] < valid[:, None]
+            if attn_mask is not None:
+                ok = ok & attn_mask.bool()
+            bias = torch.where(ok, 0.0, k11.NEG_INF).to(torch.float32)
+            out = k11.decode_attention(q[:, 0], cache.k_q, cache.v_q, bias,
+                                       cache.k_scale, cache.v_scale)
+            return out[:, None]
     return attention(q, *cache.read(), causal_offset=causal_offset,
                      valid_len=cache.pos, attn_mask=attn_mask)
 
@@ -184,19 +329,71 @@ def decode_bias(pos_i: torch.Tensor, b: int, s_max: int,
     return torch.where(ok, 0.0, ATTN_NEG_INF).to(torch.float32)
 
 
-def stacked_cache_append_fused(cache: SMajorQuantKVCache, i: int,
-                               k_new: torch.Tensor, v_new: torch.Tensor,
-                               cos, sin):
-    """K2 on layer i of a stacked S-major cache: rotary-k, int8 quantize
-    and the in-place row write at each slot's position.  k_new/v_new
-    (B, 1, H_kv, D), k PRE-rotary."""
-    if not isinstance(cache, SMajorQuantKVCache):
-        raise NotImplementedError("only the S-major int8 cache is ported")
-    b, _, h, d = k_new.shape
-    write_quant_cache_smajor(i, cache.pos[i], k_new.reshape(b, h, d),
-                             v_new.reshape(b, h, d), cos, sin, cache.k_q,
-                             cache.v_q, cache.k_scale, cache.v_scale)
+def prefetch_tree_capable(stacked, caches, s: int) -> bool:
+    """The gate of the stacked single-token decode (common.py:672-732):
+    one token, a stacked cache with (L,) or (L, B) positions, and every
+    projection a transposed-fp "weight_t" dict whose K is a multiple of 8
+    and O of 128, or a tile-aligned nibble PackedLinear."""
+    if s != 1 or caches is None or not isinstance(getattr(caches, "pos", None),
+                                                   torch.Tensor):
+        return False
+    if caches.pos.ndim not in (1, 2) or not isinstance(stacked, dict):
+        return False
+    qp = stacked.get("self_attn", {}).get("qkv_proj")
+
+    def leaves(node):
+        if isinstance(node, PackedLinear) or (isinstance(node, dict)
+                                              and "weight_t" in node):
+            yield node
+        elif isinstance(node, dict):
+            for v in node.values():
+                yield from leaves(v)
+
+    if isinstance(qp, dict) and "weight_t" in qp:
+        return all(isinstance(lin, dict) and lin["weight_t"].shape[1] % 8 == 0
+                   and lin["weight_t"].shape[2] % 128 == 0 for lin in leaves(stacked))
+    if isinstance(qp, PackedLinear) and qp.meta.nibble:
+        return all(isinstance(lin, PackedLinear) and lin.meta.nibble
+                   and (lin.meta.k_ns // (2 * lin.meta.group_size)) % 8 == 0
+                   and lin.w_qt.shape[-1] % 256 == 0 for lin in leaves(stacked))
+    return False
+
+
+def stacked_cache_append(cache: KVCache, i: int, k_new: torch.Tensor,
+                         v_new: torch.Tensor) -> KVCache:
+    """Write one decode position's k/v (B, 1, H_kv, D) into layer i of a
+    stacked fp cache at each row's position (common.py:735-775), in place;
+    positions past the cache clamp to its last row as dynamic_update_slice
+    does.  The positions advance after the layer loop."""
+    pos_i = cache.pos[i]
+    s_max = cache.k.shape[3]
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        new = new[:, 0].to(buf.dtype)                      # (B, H_kv, D)
+        rows = torch.clamp(pos_i.to(torch.int64), 0, s_max - 1)
+        if rows.ndim == 0:
+            buf[i, :, :, rows] = new
+        else:
+            buf[i, torch.arange(new.shape[0], device=new.device), :, rows] = new
     return cache
+
+
+def stacked_cache_append_fused(cache, i: int, k_new: torch.Tensor,
+                               v_new: torch.Tensor, cos, sin):
+    """Layer i's cache write in the stacked decode (common.py:778-817).
+    k_new/v_new (B, 1, H_kv, D), k PRE-rotary.  The S-major int8 cache runs
+    K2 (rotary-k, int8 quantize, in-place row write at each slot's
+    position); an fp cache takes apply_rotary and stacked_cache_append."""
+    if isinstance(cache, SMajorQuantKVCache):
+        b, _, h, d = k_new.shape
+        write_quant_cache_smajor(i, cache.pos[i], k_new.reshape(b, h, d),
+                                 v_new.reshape(b, h, d), cos, sin, cache.k_q,
+                                 cache.v_q, cache.k_scale, cache.v_scale)
+        return cache
+    if isinstance(cache, KVCache):
+        return stacked_cache_append(cache, i, apply_rotary(k_new, cos, sin), v_new)
+    raise NotImplementedError(
+        "the head-major int8 cache writer (K10, write_quant_cache_stacked) is "
+        "not ported")
 
 
 def stacked_smajor_attention(cache: SMajorQuantKVCache, i: int,
@@ -205,3 +402,13 @@ def stacked_smajor_attention(cache: SMajorQuantKVCache, i: int,
     q_bhd (B, H, D) post-rotary → (B, H, D)."""
     return decode_attention_smajor_stacked(
         i, q_bhd, cache.k_q, cache.v_q, bias, cache.k_scale, cache.v_scale)
+
+
+def stacked_flash_attention(cache, i: int, q_bhd: torch.Tensor,
+                            bias: torch.Tensor):
+    """K11: layer-i decode attention over a stacked head-major cache, fp or
+    int8 (common.py:857-875).  q_bhd (B, H, D) post-rotary → (B, H, D)."""
+    if isinstance(cache, QuantKVCache):
+        return k11.decode_attention_stacked(i, q_bhd, cache.k_q, cache.v_q, bias,
+                                            cache.k_scale, cache.v_scale)
+    return k11.decode_attention_stacked(i, q_bhd, cache.k, cache.v, bias)

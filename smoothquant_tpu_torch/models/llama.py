@@ -1,14 +1,18 @@
 """Llama-family decoder (port of smoothquant_tpu/models/llama.py, the parts
-the W4A4 serving path uses).
+the W4A4 serving path, the bf16 decode baseline and the Generator use).
 
 Params are nested dicts of tensors with PackedLinear leaves after packing,
 as in the JAX package.  forward is split into forward_hidden (embedding →
 decoder layers → final norm) and lm_head_logits, so a caller that needs
 only some positions' logits (the batcher's prefill) runs the lm_head on
-those rows alone.  A stacked tree (stack_layers) decodes one token through
-a per-layer Python loop that hands the layer index to the kernels — the
+those rows alone.  The per-layer forward runs with no cache (the full-model
+prefill) or over per-layer KVCache / QuantKVCache / SMajorQuantKVCache
+lists.  A stacked tree (stack_layers) decodes one token through a
+per-layer Python loop that hands the layer index to the kernels — the
 counterpart of the JAX lax.scan over scalar-prefetch kernels
-(_prefetch_scan_decode, llama.py:288-490, S-major branch :427-432).
+(_prefetch_scan_decode, llama.py:288-490): a packed tree over the stacked
+S-major int8 cache (:427-432), or a pack_fp_decode tree over a stacked
+head-major fp cache (the "off" branch, :443-448).
 """
 
 from __future__ import annotations
@@ -27,14 +31,19 @@ from smoothquant_tpu_torch.kernels.pack import (
 )
 from smoothquant_tpu_torch.kernels.real_linear import can_fuse_norm
 from smoothquant_tpu_torch.models.common import (
+    KVCache,
+    QuantKVCache,
     SMajorQuantKVCache,
     apply_rotary,
+    attention,
     cached_attention,
     call_linear,
     decode_bias,
+    prefetch_tree_capable,
     rms_norm,
     rotary_cos_sin,
     stacked_cache_append_fused,
+    stacked_flash_attention,
     stacked_smajor_attention,
 )
 
@@ -134,64 +143,97 @@ def init_params(gen: torch.Generator, cfg: LlamaConfig, device="cuda") -> dict:
 
 def _decoder_layer(lp: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
                    cache, attn_mask):
+    """One layer (llama.py:164-228); fused or separate projections; with no
+    cache the attention is the causal einsum over this call's k / v."""
     b, s, _ = x.shape
     nh, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     residual = x
     hidden = rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps)
     sa = lp["self_attn"]
-    qkv = call_linear(sa["qkv_proj"], hidden)
-    q, k, v = torch.split(qkv, [nh * d, n_kv * d, n_kv * d], dim=-1)
+    if "qkv_proj" in sa:
+        qkv = call_linear(sa["qkv_proj"], hidden)
+        q, k, v = torch.split(qkv, [nh * d, n_kv * d, n_kv * d], dim=-1)
+    else:
+        q, k, v = (call_linear(sa[p], hidden) for p in ("q_proj", "k_proj", "v_proj"))
     q = apply_rotary(q.reshape(b, s, nh, d), cos, sin)
     k = apply_rotary(k.reshape(b, s, n_kv, d), cos, sin)
     v = v.reshape(b, s, n_kv, d)
-    offset = cache.pos
-    cache = cache.update(k, v)
-    attn = cached_attention(q, cache, causal_offset=offset, attn_mask=attn_mask)
+    if cache is not None:
+        offset = cache.pos
+        cache = cache.update(k, v)
+        attn = cached_attention(q, cache, causal_offset=offset, attn_mask=attn_mask)
+    else:
+        attn = attention(q, k.transpose(1, 2), v.transpose(1, 2), attn_mask=attn_mask)
     x = residual + call_linear(sa["o_proj"], attn.reshape(b, s, nh * d))
     residual = x
     hidden = rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
-    gate, up = call_linear(lp["mlp"]["gate_up_proj"], hidden).chunk(2, dim=-1)
-    down = call_linear(lp["mlp"]["down_proj"], torch.nn.functional.silu(gate) * up)
+    mlp = lp["mlp"]
+    if "gate_up_proj" in mlp:
+        gate, up = call_linear(mlp["gate_up_proj"], hidden).chunk(2, dim=-1)
+    else:
+        gate, up = (call_linear(mlp[p], hidden) for p in ("gate_proj", "up_proj"))
+    down = call_linear(mlp["down_proj"], torch.nn.functional.silu(gate) * up)
     return residual + down, cache
 
 
 def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask):
-    """Single-token decode over a stacked packed tree and stacked S-major
-    cache: per layer, K1 (qkv, RMSNorm fused) → q-rotary → K2 (k-rotary,
-    quantize, row write) → K3 → K1 (o_proj, identity) → K1 (gate_up,
-    RMSNorm fused) → SiLU·up → K1 (down_proj)."""
+    """Single-token decode over a stacked tree, per layer:
+      packed tree, S-major int8 cache: K1 (qkv, RMSNorm fused) → q-rotary →
+        K2 (k-rotary, quantize, row write) → K3 → K1 (o_proj) → K1 (gate_up,
+        RMSNorm fused) → SiLU·up → K1 (down_proj);
+      pack_fp_decode tree, head-major fp cache: RMSNorm → K13 (qkv) →
+        rotary → fp row write → K11 → K13 (o) → RMSNorm → K13 (gate_up) →
+        SiLU·up → K13 (down)."""
     st = params["layers"]["stacked"]
     sa, mlp = st["self_attn"], st["mlp"]
     b, s, _ = x.shape
     nh, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    s_max = caches.k_q.shape[2]
     eps = cfg.rms_norm_eps
-    # the JAX kernel casts the norm rows to the activation dtype, then f32
-    norm_in = st["input_layernorm"]["weight"].to(x.dtype).float()
-    norm_post = st["post_attention_layernorm"]["weight"].to(x.dtype).float()
-    # q-rotary tables in the activation dtype (apply_rotary's cast, once)
-    cos_q, sin_q = cos.to(x.dtype), sin.to(x.dtype)
-    if not (can_fuse_norm(sa["qkv_proj"]) and can_fuse_norm(mlp["gate_up_proj"])):
+    smajor = isinstance(caches, SMajorQuantKVCache)
+    if smajor:
+        s_max = caches.k_q.shape[2]
+    elif isinstance(caches, KVCache):
+        s_max = caches.k.shape[3]
+    else:
+        raise NotImplementedError(
+            "stacked decode over the head-major int8 cache needs its writer "
+            "(K10) and the virtual-tile attention (K12), which are not ported")
+    fp_tree = not isinstance(sa["qkv_proj"], PackedLinear)
+    fuse_norm = (not fp_tree and can_fuse_norm(sa["qkv_proj"])
+                 and can_fuse_norm(mlp["gate_up_proj"]))
+    if not (fp_tree or fuse_norm):
         raise NotImplementedError("stacked decode fuses the RMSNorm into qkv and "
                                   "gate_up (pre-permuted per-group nibble packs)")
+    norms = ("input_layernorm", "post_attention_layernorm")
+    # fused: the JAX kernel casts the norm rows to the activation dtype, then f32
+    rows = {n: st[n]["weight"].to(x.dtype).float() for n in norms} if fuse_norm else {}
+    # q-rotary tables in the activation dtype (apply_rotary's cast, once)
+    cos_q, sin_q = cos.to(x.dtype), sin.to(x.dtype)
     # every layer's bias from its own position, in one pass: the positions
-    # advance only after the layer loop
-    bias = decode_bias(caches.pos, b, s_max, attn_mask)     # (L, B, S_max)
+    # advance only after the layer loop; aligned (L,) positions serve every row
+    pos = caches.pos if caches.pos.ndim == 2 else caches.pos[:, None].expand(-1, b)
+    bias = decode_bias(pos, b, s_max, attn_mask)            # (L, B, S_max)
+    attend = stacked_smajor_attention if smajor else stacked_flash_attention
+
+    def normed_linear(lin, inp, i, norm):
+        if fuse_norm:
+            return call_linear(lin, inp, layer_idx=i, norm=(rows[norm], eps, "rms"))
+        hidden = rms_norm({"weight": st[norm]["weight"][i]}, inp, eps)
+        return call_linear(lin, hidden, layer_idx=i)
 
     for i in range(cfg.num_hidden_layers):
         residual = x
-        qkv = call_linear(sa["qkv_proj"], x, layer_idx=i, norm=(norm_in, eps, "rms"))
+        qkv = normed_linear(sa["qkv_proj"], x, i, norms[0])
         q, k, v = torch.split(qkv, [nh * d, n_kv * d, n_kv * d], dim=-1)
         q = apply_rotary(q.reshape(b, s, nh, d), cos_q, sin_q)
         caches = stacked_cache_append_fused(
             caches, i, k.reshape(b, s, n_kv, d), v.reshape(b, s, n_kv, d),
             cos, sin)
-        a = stacked_smajor_attention(caches, i, q[:, 0], bias[i])
+        a = attend(caches, i, q[:, 0], bias[i])
         x = residual + call_linear(sa["o_proj"], a.reshape(b, s, nh * d),
                                    layer_idx=i)
         residual = x
-        gate, up = call_linear(mlp["gate_up_proj"], x, layer_idx=i,
-                               norm=(norm_post, eps, "rms")).chunk(2, dim=-1)
+        gate, up = normed_linear(mlp["gate_up_proj"], x, i, norms[1]).chunk(2, dim=-1)
         down = call_linear(mlp["down_proj"], torch.nn.functional.silu(gate) * up,
                            layer_idx=i)
         x = residual + down
@@ -205,43 +247,51 @@ def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
                    attn_mask: Optional[torch.Tensor] = None):
     """Final-normed hidden states (B, S, H) and the updated caches.
 
-    caches: a list of per-layer SMajorQuantKVCache (prefill over a per-
-    layer tree) or one stacked cache (single-token decode over a stacked
-    tree).  positions default to each cache's fill position + arange(S)."""
-    if caches is None:
-        raise NotImplementedError("the ported forward runs over a KV cache")
+    caches: None (no cache: the full-model prefill), a list of per-layer
+    caches, or one stacked cache (single-token decode over a stacked tree).
+    positions default to each cache's fill position + arange(S)."""
     b, s = input_ids.shape
     stacked = "stacked" in params["layers"]
     x = params["embed_tokens"]["weight"][input_ids]
     if positions is None:
-        start = caches.pos[0] if stacked else torch.as_tensor(caches[0].pos)
-        start = start.to(device=x.device, dtype=torch.int64)
+        if caches is None:
+            start = torch.zeros((), dtype=torch.int64, device=x.device)
+        else:
+            start = caches.pos[0] if stacked else torch.as_tensor(caches[0].pos)
+            start = start.to(device=x.device, dtype=torch.int64)
         if start.ndim == 1:
             start = start[:, None]
         positions = start + torch.arange(s, device=x.device)[None, :]
     cos, sin = rotary_cos_sin(positions.reshape(-1, s), cfg.head_dim,
                               cfg.rope_theta)
     if stacked:
-        if s != 1 or not isinstance(caches, SMajorQuantKVCache):
+        if not prefetch_tree_capable(params["layers"]["stacked"], caches, s):
             raise NotImplementedError(
-                "stacked trees decode one token over a stacked S-major cache")
+                "stacked trees decode one token over a stacked cache, every "
+                "projection tile-aligned (prefetch_tree_capable)")
         x, caches = _stacked_decode(params, x, cfg, caches, cos, sin, attn_mask)
     else:
-        new_caches = []
+        new_caches = None if caches is None else []
         for i in range(cfg.num_hidden_layers):
             x, c = _decoder_layer(params["layers"][str(i)], x, cfg, cos, sin,
-                                  caches[i], attn_mask)
-            new_caches.append(c)
+                                  None if caches is None else caches[i], attn_mask)
+            if new_caches is not None:
+                new_caches.append(c)
         caches = new_caches
     return rms_norm(params["norm"], x, cfg.rms_norm_eps), caches
 
 
 def lm_head_logits(params: dict, h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """f32 logits of final-normed hidden states (the packed lm_head)."""
+    """f32 logits of final-normed hidden states (llama.py:589-599): the
+    packed lm_head, or an fp {"weight"} one by torch.matmul in h's dtype
+    (the JAX einsum keeps bf16 products in f32; here a bf16 product is
+    rounded to bf16 before the cast)."""
     lm = params.get("lm_head")
-    if cfg.tie_word_embeddings or not isinstance(lm, PackedLinear):
-        raise NotImplementedError("only a packed, untied lm_head is ported")
-    return call_linear(lm, h).float()
+    if cfg.tie_word_embeddings or lm is None:
+        raise NotImplementedError("tied embeddings are not ported")
+    if isinstance(lm, PackedLinear):
+        return call_linear(lm, h).float()
+    return torch.matmul(h, lm["weight"].t().to(h.dtype)).float()
 
 
 def forward(params, input_ids, cfg, caches=None, positions=None, attn_mask=None):
@@ -271,16 +321,23 @@ def stack_layers(params: dict, cfg: LlamaConfig) -> dict:
     return out
 
 
-def stacked_caches(cfg: LlamaConfig, batch: int, max_len: int, *,
-                   quant_kv: bool = True, smajor: bool = True,
-                   device="cuda") -> SMajorQuantKVCache:
-    """A stacked int8 S-major cache with (L, B) per-slot positions (the
-    only stacked cache ported)."""
-    if not (quant_kv and smajor):
-        raise NotImplementedError("only the S-major int8 cache is ported")
-    return SMajorQuantKVCache.create(batch, max_len, cfg.num_key_value_heads,
-                                     cfg.head_dim, resolve_device(device),
-                                     n_layers=cfg.num_hidden_layers)
+def stacked_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype=None, *,
+                   pos: int = 0, quant_kv: bool = True, smajor: bool = True,
+                   per_slot: bool = False, device="cuda"):
+    """A stacked decode cache, leading L axis on every field
+    (llama.py:249-285): the S-major int8 cache (always (L, B) per-slot
+    positions), or a head-major int8 QuantKVCache or fp KVCache in `dtype`
+    with (L,) aligned or, per_slot, (L, B) positions."""
+    dev = resolve_device(device)
+    n_l, n_kv, d = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    if quant_kv and smajor:
+        return SMajorQuantKVCache.create(batch, max_len, n_kv, d, dev,
+                                         n_layers=n_l, pos=pos)
+    if smajor:
+        raise ValueError("the S-major layout is int8-only (quant_kv=True)")
+    cls = QuantKVCache if quant_kv else KVCache
+    return cls.create(batch, max_len, n_kv, d, dtype or cfg.torch_dtype, dev,
+                      per_slot=per_slot, n_layers=n_l, pos=pos)
 
 
 def fuse_projections(params: dict, cfg: LlamaConfig) -> dict:
@@ -304,6 +361,31 @@ def fuse_projections(params: dict, cfg: LlamaConfig) -> dict:
             sa["qkv_proj"] = cat([sa.pop(p) for p in ("q_proj", "k_proj", "v_proj")])
         if "gate_proj" in mlp:
             mlp["gate_up_proj"] = cat([mlp.pop(p) for p in ("gate_proj", "up_proj")])
+        lp["self_attn"], lp["mlp"] = sa, mlp
+        new_layers[str(i)] = lp
+    out = dict(params)
+    out["layers"] = new_layers
+    return out
+
+
+def pack_fp_decode(params: dict, cfg: LlamaConfig) -> dict:
+    """An UNQUANTIZED tree for the stacked decode (llama.py:704-729): fused
+    q/k/v and gate/up, every projection transposed to (K, O) under
+    "weight_t", so call_linear routes it to K13 once stack_layers has
+    stacked it — the bf16 baseline the W4A4 decode is measured against.
+    The transposes are views; stack_layers makes the (L, K, O) copy."""
+    params = fuse_projections(params, cfg)
+
+    def tr(lin):
+        return {"weight_t": lin["weight"].t(), "bias": lin.get("bias")}
+
+    new_layers = {}
+    for i in range(cfg.num_hidden_layers):
+        lp = dict(params["layers"][str(i)])
+        sa, mlp = dict(lp["self_attn"]), dict(lp["mlp"])
+        for node, name in ((sa, "qkv_proj"), (sa, "o_proj"), (mlp, "gate_up_proj"),
+                           (mlp, "down_proj")):
+            node[name] = tr(node[name])
         lp["self_attn"], lp["mlp"] = sa, mlp
         new_layers[str(i)] = lp
     out = dict(params)

@@ -28,6 +28,13 @@ def f32_reciprocal(v: float) -> float:
     return float(np.float32(1.0) / np.float32(v))
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c in float32 with ONE rounding — the fused multiply-add XLA
+    compiles jitted f32 `a * b + c` chains to (the rotary, the int8
+    epilogue).  float64 holds the product of two float32 values exactly."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def compute_scale(absmax: torch.Tensor, n_bits: int,
                   exact_division: bool = False) -> torch.Tensor:
     """scale = clamp(absmax, 1e-5) / q_max, in float32."""

@@ -2,8 +2,11 @@
 smoothquant_tpu/serve/batching.py:31-411, the per-slot stacked path).
 
   * a fixed pool of `max_batch` slots with (L, B) per-slot cache positions;
-  * same-bucket admissions share one batched prefill on the per-layer tree,
-    whose cache rows are scattered into the pool (cropped at max_len);
+  * same-bucket admissions share one batched prefill on the per-layer
+    prefill tree — the nibble tree, or its int8 twin (promote_model_int8 of
+    a plain pack of the same weights, batching.py:52-56,124-140), whose
+    linears run K4 at >= 256 rows × bucket — and the prefill's cache rows
+    are scattered into the pool (cropped at max_len);
   * rotary uses each slot's TRUE sequence position (seq_pos), the cache row
     its POOL position (pool_pos / the device pos) — they differ after a
     bucketed prefill;
@@ -61,7 +64,7 @@ class ContinuousBatcher:
         self.mod, self.params, self.cfg = model_mod, params, cfg
         self.prefill_params = params if prefill_params is None else prefill_params
         if "stacked" in self.prefill_params.get("layers", {}):
-            raise NotImplementedError("prefill runs on the per-layer tree")
+            raise NotImplementedError("prefill runs on a per-layer tree")
         self.device = resolve_device(device)
         self.max_batch, self.max_len = max_batch, max_len
         self.caches = model_mod.stacked_caches(cfg, max_batch, max_len,

@@ -1,0 +1,103 @@
+"""Generation: prefill, then one decode step per token, over per-layer
+head-major KV caches (port of smoothquant_tpu/serve/generate.py:22-130).
+
+The prompt is prefilled on `prefill_params` (for example
+promote_model_int8 of a plain nibble pack, whose int8 layout runs K4) and
+every later token is decoded on `params` (the nibble tree, K6), over one
+KVCache or QuantKVCache per layer (the int8 cache's single-token attention
+runs K11).  Sampling happens on the device; only the (B,) token ids reach
+the host each step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from smoothquant_tpu_torch._device import resolve_device
+from smoothquant_tpu_torch.models.common import KVCache, QuantKVCache
+
+
+@dataclasses.dataclass
+class GenerationConfig:
+    max_new_tokens: int = 64
+    temperature: float = 0.0  # 0 → greedy
+    eos_token_id: Optional[int] = None
+    seed: int = 0
+
+
+def sample_token(logits: torch.Tensor, temperature: float,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """logits (B, V) → token ids (B,): argmax at temperature 0, else a draw
+    from softmax(logits / temperature) with the given torch.Generator (the
+    JAX package's categorical draw with a PRNG key; the two give different
+    numbers from one seed)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+class Generator:
+    """Batch generation on top of a model module (needs forward, and a cfg
+    with num_hidden_layers, num_key_value_heads, head_dim, dtype)."""
+
+    def __init__(self, model_mod, params, cfg, *, max_len: int = 2048,
+                 quant_kv: bool = False, prefill_params=None, device="cuda"):
+        """prefill_params: an optional second per-layer tree used ONLY for
+        the prompt prefill — e.g. promote_model_int8 of a plain nibble pack
+        of the same weights — while decode keeps `params`."""
+        self.mod, self.params, self.cfg = model_mod, params, cfg
+        self.prefill_params = params if prefill_params is None else prefill_params
+        for tree in (self.params, self.prefill_params):
+            if "stacked" in tree.get("layers", {}):
+                raise NotImplementedError("the Generator runs per-layer trees")
+        self.device = resolve_device(device)
+        self.max_len = max_len
+        self._cache_cls = QuantKVCache if quant_kv else KVCache
+
+    def _new_caches(self, batch: int) -> list:
+        cfg = self.cfg
+        return [self._cache_cls.create(batch, self.max_len, cfg.num_key_value_heads,
+                                       cfg.head_dim, cfg.torch_dtype, self.device)
+                for _ in range(cfg.num_hidden_layers)]
+
+    @torch.no_grad()
+    def _step(self, params, ids: torch.Tensor, caches, temperature, rng):
+        logits, caches = self.mod.forward(params, ids, self.cfg, caches=caches)
+        return sample_token(logits[:, -1, :], temperature, rng), caches
+
+    def generate(self, prompt_ids: np.ndarray, gen: GenerationConfig) -> np.ndarray:
+        """prompt_ids (B, S) → (B, S + new) ids; after an EOS a row repeats
+        EOS, and generation stops once every row has produced one."""
+        prompt_ids = np.atleast_2d(np.asarray(prompt_ids))
+        b, s = prompt_ids.shape
+        if s + gen.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt({s}) + max_new_tokens({gen.max_new_tokens}) exceeds "
+                f"max_len({self.max_len})")
+        rng = None
+        if gen.temperature > 0.0:
+            rng = torch.Generator(device=self.device).manual_seed(gen.seed)
+        caches = self._new_caches(b)
+        tok, caches = self._step(self.prefill_params,
+                                 torch.as_tensor(prompt_ids, device=self.device),
+                                 caches, gen.temperature, rng)
+        out = [prompt_ids]
+        done = np.zeros(b, bool)
+        for step in range(gen.max_new_tokens):
+            tok_np = tok.cpu().numpy()
+            if gen.eos_token_id is not None:
+                tok_np = np.where(done, gen.eos_token_id, tok_np)
+                done |= tok_np == gen.eos_token_id
+            out.append(tok_np[:, None])
+            if step + 1 == gen.max_new_tokens or (
+                    gen.eos_token_id is not None and done.all()):
+                break
+            tok, caches = self._step(self.params,
+                                     torch.as_tensor(tok_np[:, None], device=self.device),
+                                     caches, gen.temperature, rng)
+        return np.concatenate(out, axis=1)

@@ -4,8 +4,12 @@ PackedLinear leaves).
 The input is a nested dict of numpy arrays (the JAX tree flattened by the
 caller, so the port never sees a JAX type).  A packed linear is a dict
 holding its fields (w_qt, w_scales_t, w_sal_t, bias, perm, ns_mask) and
-its PackedMeta as a plain dict under "meta".  bfloat16 arrays may arrive
-as any numpy dtype named "bfloat16".
+its PackedMeta as a plain dict under "meta"; an identity-int8 pack
+(promote_int8's, or the per-channel lm_head) gets its weight stored
+K-major (kernels/pack.k_major), as the port's own packs hold it.  Plain
+and transposed-fp ("weight_t", llama.pack_fp_decode) linears are dicts of
+arrays and convert leaf by leaf.  bfloat16 arrays may arrive as any numpy
+dtype named "bfloat16".
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import numpy as np
 import torch
 
 from smoothquant_tpu_torch._device import resolve_device
-from smoothquant_tpu_torch.kernels.pack import PackedLinear, PackedMeta
+from smoothquant_tpu_torch.kernels.pack import PackedLinear, PackedMeta, k_major
 
 _FIELDS = ("w_qt", "w_scales_t", "w_sal_t", "bias", "perm", "ns_mask")
 _META_FIELDS = {f.name for f in dataclasses.fields(PackedMeta)}
@@ -41,7 +45,10 @@ def packed_from_numpy(d: dict, device) -> PackedLinear:
     t = {f: None if d.get(f) is None else tensor_from_numpy(d[f], device)
          for f in _FIELDS}
     t["perm"] = t["perm"].to(torch.int64)
-    return PackedLinear(meta=PackedMeta(**meta), **t)
+    meta = PackedMeta(**meta)
+    if meta.layout == "identity" and not meta.nibble:
+        t["w_qt"] = k_major(t["w_qt"])
+    return PackedLinear(meta=meta, **t)
 
 
 def params_from_numpy(tree, device="cuda"):

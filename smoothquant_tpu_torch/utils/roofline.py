@@ -6,7 +6,7 @@ once, each output written once) / HBM rate and (operations / the peak rate
 of their type).  Peaks: NVIDIA's H100 SXM data sheet, dense, at the full
 700 W power limit.
 
-    python -m smoothquant_tpu_torch.utils.roofline    # the Llama-2-7B bench step
+    python -m smoothquant_tpu_torch.utils.roofline    # the Llama-2-7B W4A4 and bf16 steps
 """
 
 from __future__ import annotations
@@ -58,15 +58,31 @@ def write_cache_cost(b, h, d, *, x_bytes=2):
     return n_bytes, {"f32": 6 * b * h * d}
 
 
-def decode_attn_cost(b, h, n_kv, s, d, *, n_valid=None, x_bytes=2):
-    """K3 over one layer: q, the (B, S) bias, out, and the int8 k/v rows
-    and scales of the n_valid (slot, position) pairs the bias leaves
-    unmasked (all B·S by default): a masked position adds exactly 0, so
-    the least work skips it, though the kernel reads every position."""
+def decode_attn_cost(b, h, n_kv, s, d, *, n_valid=None, x_bytes=2,
+                     value_bytes=1, scale_bytes=4):
+    """K3 / K11 over one layer: q, the (B, S) bias, out, and the k/v rows
+    (value_bytes per element: 1 for the int8 cache, 2 for bf16) and their
+    scales (scale_bytes: 4 for the int8 cache, 0 for an fp one) of the
+    n_valid (slot, position) pairs the bias leaves unmasked (all B·S by
+    default): a masked position adds exactly 0, so the least work skips it."""
     n_valid = b * s if n_valid is None else n_valid
     n_bytes = (2 * b * h * d * x_bytes + b * s * 4
-               + n_valid * 2 * n_kv * (d + 4))
+               + n_valid * 2 * n_kv * (d * value_bytes + scale_bytes))
     return n_bytes, {"bf16": 4 * h * n_valid * d}
+
+
+def int8_prefill_cost(n, kk, o, k_s, *, sal_bytes=2, out_bytes=2):
+    """K4: x8 (N, K), the int8 weight (K, O), s_x (N) and s_w (O) f32, the
+    salient x (N, k_s) and block (k_s, O), out (N, O); int8 and bf16
+    operations."""
+    n_bytes = (n * kk + kk * o + 4 * (n + o) + (n + o) * k_s * sal_bytes
+               + n * o * out_bytes)
+    return n_bytes, {"int8": 2 * n * kk * o, "bf16": 2 * n * k_s * o}
+
+
+def fp_matmul_cost(n, kk, o, *, x_bytes=2):
+    """K13: x (N, K), one layer's weight slab (K, O), out (N, O)."""
+    return (n * kk + kk * o + n * o) * x_bytes, {"bf16": 2 * n * kk * o}
 
 
 def llama_pack_shapes(cfg, group_size=64, salient_prop=0.05, align_k_groups=8,
@@ -109,7 +125,26 @@ def llama_decode_step_bytes(cfg, batch=4, max_len=512, group_size=64,
             "bound_ms": bound_ms(total, {})[0]}
 
 
+def llama_bf16_decode_step_bytes(cfg, batch=4, max_len=512, w_bytes=2,
+                                 kv_bytes=2) -> dict:
+    """Bytes one step of the bf16 decode baseline must stream: every
+    projection weight of every layer, the bf16 KV cache (a full cache, as
+    llama_decode_step_bytes counts it) and the bf16 lm_head."""
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    per_linear = {"qkv": h * (h + 2 * kv) * w_bytes, "o": h * h * w_bytes,
+                  "gate_up": h * 2 * inter * w_bytes, "down": inter * h * w_bytes}
+    layer_w = sum(per_linear.values())
+    layer_kv = 2 * batch * max_len * kv * kv_bytes
+    lm_head = cfg.vocab_size * h * w_bytes
+    total = cfg.num_hidden_layers * (layer_w + layer_kv) + lm_head
+    return {"per_linear": per_linear, "layer_weights": layer_w, "layer_kv": layer_kv,
+            "lm_head": lm_head, "total": total, "bound_ms": bound_ms(total, {})[0]}
+
+
 if __name__ == "__main__":
     from smoothquant_tpu_torch.models.llama import LlamaConfig
 
-    print(json.dumps(llama_decode_step_bytes(LlamaConfig.llama2_7b()), indent=1))
+    cfg = LlamaConfig.llama2_7b()
+    print(json.dumps({"w4a4": llama_decode_step_bytes(cfg),
+                      "bf16": llama_bf16_decode_step_bytes(cfg)}, indent=1))
