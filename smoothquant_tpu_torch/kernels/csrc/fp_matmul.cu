@@ -7,12 +7,14 @@
 // bf16, 0.12 ms at 3.35 TB/s).  The wrapper hands the layer's slab of the
 // (L, K, O) stack by pointer — nothing is copied — and the kernel spreads
 // the stream over every SM:
-//   * fp_matmul_kernel: a block covers 256 columns and one K-split; each
-//     lane loads 16 bytes (8 bf16 columns) of a row and accumulates all N
-//     rows in f32 registers; its loads run in groups of FM_UNROLL rows held
-//     in two register buffers, so one group's loads are in flight while the
-//     other's FMAs run; the 8 warps take interleaved rows and are summed in
-//     warp order through shared memory into an f32 partial per split;
+//   * fp_matmul_kernel: a block covers 256 columns and one K-split; it
+//     first stages its slice of x in shared memory as f32 (a row's FMAs
+//     would otherwise wait on N global loads of x); each lane loads 16
+//     bytes (8 bf16 columns) of a weight row and accumulates all N rows in
+//     f32 registers; its loads run in groups of FM_UNROLL rows held in two
+//     register buffers, so one group's loads are in flight while the
+//     other's FMAs run; the 8 warps take interleaved rows and are summed
+//     in warp order through shared memory into an f32 partial per split;
 //   * fp_reduce_kernel adds the splits in order and casts to the output
 //     dtype.
 #include "common.cuh"
@@ -25,6 +27,8 @@ constexpr int FM_BLOCK_COLS = 32 * FM_COLS;
 constexpr int FM_UNROLL = 4;     // rows per load group (two groups in flight)
 constexpr int FM_MAX_N = 8;
 constexpr int FM_TARGET_BLOCKS = 264;  // ~2 blocks per SM (132 SMs)
+constexpr int FM_X_BYTES = 32 * 1024;  // the staged x slice (rows · NT · 4 bytes) at most:
+                                       // with `red` it stays under the 48 KB default
 
 // 8 consecutive columns of one weight row, raw (16 bytes of bf16, 32 of f32)
 template <typename T>
@@ -44,10 +48,16 @@ __global__ void __launch_bounds__(32 * FM_WARPS)
 fp_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w, float* __restrict__ part, int N,
                  int K, int O, int rows_per_split) {
   __shared__ float red[FM_WARPS][FM_BLOCK_COLS];
+  extern __shared__ float xs[];  // (k_hi - k_lo, NT): this split's x, f32
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int col0 = blockIdx.x * FM_BLOCK_COLS + lane * FM_COLS;
   const int k_lo = blockIdx.y * rows_per_split;
   const int k_hi = min(K, k_lo + rows_per_split);
+  for (int e = threadIdx.x; e < (k_hi - k_lo) * NT; e += blockDim.x) {
+    const int k = k_lo + e / NT, n = e % NT;
+    xs[e] = n < N ? to_f<T>(x[(size_t)n * K + k]) : 0.0f;
+  }
+  __syncthreads();
   // this warp's rows: k_lo + warp + FM_WARPS·j, j < n_j
   const int n_j = k_hi - k_lo - warp > 0 ? (k_hi - k_lo - warp + FM_WARPS - 1) / FM_WARPS : 0;
   float acc[NT][FM_COLS];
@@ -65,7 +75,7 @@ fp_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w, float* __rest
 #pragma unroll
     for (int u = 0; u < FM_UNROLL; ++u) {
       if (j0 + u >= n_j) break;
-      const int k = k_lo + warp + FM_WARPS * (j0 + u);
+      const float* xk = xs + (warp + FM_WARPS * (j0 + u)) * NT;
       const T* e = reinterpret_cast<const T*>(r[u].v);
       float wv[FM_COLS];
 #pragma unroll
@@ -73,7 +83,7 @@ fp_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w, float* __rest
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         if (n >= N) break;
-        const float xv = to_f<T>(x[(size_t)n * K + k]);
+        const float xv = xk[n];
 #pragma unroll
         for (int c = 0; c < FM_COLS; ++c) acc[n][c] = fmaf(xv, wv[c], acc[n][c]);
       }
@@ -123,29 +133,34 @@ __global__ void fp_reduce_kernel(const float* __restrict__ part, T* __restrict__
 
 struct Plan {
   int splits, rows;
+  size_t smem;
 };
 
-Plan plan(int K, int O) {
+Plan plan(int N, int K, int O) {
   const int col_blocks = (O + FM_BLOCK_COLS - 1) / FM_BLOCK_COLS;
+  const int nt = N <= 4 ? 4 : FM_MAX_N;
+  const int max_rows = FM_X_BYTES / (nt * (int)sizeof(float));
   int splits = FM_TARGET_BLOCKS / col_blocks;
   const int max_splits = K / (FM_WARPS * FM_UNROLL) > 0 ? K / (FM_WARPS * FM_UNROLL) : 1;
   splits = splits < 1 ? 1 : (splits > max_splits ? max_splits : splits);
+  if ((K + splits - 1) / splits > max_rows) splits = (K + max_rows - 1) / max_rows;
   Plan p;
   p.rows = (K + splits - 1) / splits;
   p.splits = (K + p.rows - 1) / p.rows;
+  p.smem = (size_t)p.rows * nt * sizeof(float);
   return p;
 }
 
 template <typename T>
 int launch(const void* x, const void* w, void* workspace, void* out, int N, int K, int O,
            cudaStream_t st) {
-  const Plan p = plan(K, O);
+  const Plan p = plan(N, K, O);
   const dim3 grid((O + FM_BLOCK_COLS - 1) / FM_BLOCK_COLS, p.splits);
   if (N <= 4)
-    fp_matmul_kernel<T, 4><<<grid, 32 * FM_WARPS, 0, st>>>((const T*)x, (const T*)w,
-                                                          (float*)workspace, N, K, O, p.rows);
+    fp_matmul_kernel<T, 4><<<grid, 32 * FM_WARPS, p.smem, st>>>(
+        (const T*)x, (const T*)w, (float*)workspace, N, K, O, p.rows);
   else
-    fp_matmul_kernel<T, FM_MAX_N><<<grid, 32 * FM_WARPS, 0, st>>>(
+    fp_matmul_kernel<T, FM_MAX_N><<<grid, 32 * FM_WARPS, p.smem, st>>>(
         (const T*)x, (const T*)w, (float*)workspace, N, K, O, p.rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -159,7 +174,7 @@ int launch(const void* x, const void* w, void* workspace, void* out, int N, int 
 
 // Bytes of f32 partials sq_fp_matmul needs for these shapes.
 SQ_EXPORT long long sq_fp_matmul_workspace_bytes(int N, int K, int O) {
-  return (long long)plan(K, O).splits * N * O * (long long)sizeof(float);
+  return (long long)plan(N, K, O).splits * N * O * (long long)sizeof(float);
 }
 
 // K13: out (N, O) = x (N, K) · w (K, O), one layer's slab.  dt: the dtype
