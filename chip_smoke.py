@@ -617,7 +617,7 @@ def reference_check(dev):
       * bf16_baseline: one stacked pack_fp_decode step over a stacked fp
         head-major cache (K13, K11).
     Tolerances, relative to the largest logit: 2e-2 in f32 and 5e-2 in bf16
-    for the S-major path (PR 1's), 1e-3 / 2e-2 for the unquantized bf16
+    for the S-major path, 1e-3 / 2e-2 for the unquantized bf16
     baseline (f32 sums in another order).  The generator path's 256-row
     prefill quantizes every row's activations to int8 per token, and the
     last-bit differences of another sum order move a few codes across a
