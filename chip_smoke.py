@@ -6,6 +6,22 @@
 1. Prints the card's name and power limit, builds the port's kernels from
    csrc/ with nvcc (sm_90a, one process per source) and prints ptxas'
    register / spill summary.
+The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
+2048, random bf16 weights from seed 0):
+   a. the export pipeline of export_int8_model.py:48-76 on the card:
+      calibration on 8 random 512-token sequences (the one cut: the CLI
+      takes 512), smooth_lm (α = 0.5), static scales, opt_int8.from_float;
+   b. K15a at the six linears (2048 and 4 rows), K15b at QKᵀ and PV
+      (prefill S = 512, decode over a 1024-position cache) and K16 (2048
+      and 4 rows) against their plain versions: f32 outputs within 1e-6 of
+      the largest magnitude, int8 outputs identical or off by one code in
+      under 1e-4 of the elements;
+   c. the kernel path against the plain path (the CPU) on a small int8 OPT;
+   d. the int8 logits against the smoothed fp model's on a 512-token
+      prompt; the int8 prefill of 4 × 512 tokens beside the bf16 fp
+      forward; the Generator over int8 caches (4 prompts of 512, 32 new,
+      max_len 1024) with its decode ms/step and launches per step.
+Then the Llama-2-7B paths:
 2. Builds the full-width 32-layer Llama-2-7B from a seeded generator on the
    card and packs it with the serving recipe (W4A4 g64, 5 % salient, bf16
    scales, fused qkv / gate_up over a shared residual basis, identity
@@ -37,7 +53,8 @@
    the W4A4 one, by host clock and by device busy time.
 Every path runs with the launch counts reset just before it and read just
 after, and fails unless each kernel launched as often as the path implies.
-8. Prints the `kernels` JSON line, the card line, then the `ok` line last.
+8. Prints the `kernels` JSON line (all ten kernels), the card line, then
+   the `ok` line last.
 
 Exits non-zero on any failure; without CUDA, or without the port package
 beside it, it exits non-zero and prints no result.
@@ -53,6 +70,11 @@ SEED = 0
 MAX_BATCH, MAX_LEN, PREFILL_N = 4, 512, 1024
 DECODE_POS = 448             # the bench's aligned decode position (bench.py:179-180)
 GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 200, 32, 256
+# the real-INT8 OPT path: calibration on 8 of the export CLI's 512 samples
+# (export_int8_model.py:20), 512-token sequences; 4 prompts of 512, 32 new
+# tokens over int8 caches of 1024 positions
+CALIB_SAMPLES, CALIB_LEN = 8, 512
+OPT_BATCH, OPT_PROMPT, OPT_NEW, OPT_MAX_LEN = 4, 512, 32, 1024
 
 
 def _die(msg: str) -> None:
@@ -101,6 +123,17 @@ def _close(name, got, ref, rel):
     if not err <= tol:
         raise AssertionError(f"{name}: max_abs_err {err} > tolerance {tol}")
     return err
+
+
+def _codes_close(name, got, ref, max_share=1e-4):
+    """int8 outputs: identical, or off by one code in under max_share of the
+    elements; returns (max |diff|, the count of codes that differ)."""
+    d = (got.int() - ref.int()).abs()
+    err, n_diff = int(d.max()), int((d != 0).sum())
+    if err > 1 or n_diff >= max_share * d.numel():
+        raise AssertionError(f"{name}: {n_diff} of {d.numel()} codes differ, "
+                             f"by up to {err}")
+    return err, n_diff
 
 
 # ---------------------------------------------------------------- model
@@ -197,6 +230,15 @@ SOURCES = {
     "fp_matmul_stacked": (
         "smoothquant_tpu_torch/kernels/csrc/fp_matmul.cu",
         "smoothquant_tpu/kernels/fp_matmul.py:77"),
+    "int8_linear": (
+        "smoothquant_tpu_torch/kernels/csrc/int8.cu",
+        "smoothquant_tpu/kernels/int8.py:105"),
+    "int8_bmm": (
+        "smoothquant_tpu_torch/kernels/csrc/int8.cu",
+        "smoothquant_tpu/kernels/int8.py:162"),
+    "norm_quant": (
+        "smoothquant_tpu_torch/kernels/csrc/norm_quant.cu",
+        "smoothquant_tpu/kernels/norm_quant.py:61"),
 }
 
 
@@ -561,6 +603,169 @@ def check_decode_attention_hm(cfg, dev, gen):
     return rows
 
 
+# ---------------------------------------------------------------- OPT kernels
+
+OPT_LINEARS = (  # (site, Int8OPTLayerParams field, ReLU, int8 output)
+    ("q", "q_proj", False, True), ("k", "k_proj", False, True),
+    ("v", "v_proj", False, True), ("out", "out_proj", False, False),
+    ("fc1", "fc1", True, True), ("fc2", "fc2", False, False))
+
+
+def _i8_like_acts(shape, gen, dev, spread=30.0):
+    """int8 activations of a calibrated spread (|x| ~ spread, clipped)."""
+    import torch
+
+    x = torch.randn(shape, generator=gen, device=dev) * spread
+    return torch.round(x).clamp(-127, 127).to(torch.int8)
+
+
+def _compare(name, got, ref):
+    """f32 outputs within 1e-6 of the largest magnitude; int8 outputs
+    identical or off by one code in under 1e-4 of them.  (max error, the
+    count of elements that differ)."""
+    import torch
+
+    if got.dtype == torch.int8:
+        return _codes_close(name, got, ref)
+    return _close(name, got, ref, 1e-6), int((got != ref).sum())
+
+
+def check_int8_linear(int8_tree, dev, gen):
+    """K15a vs plain at the six linears of the int8 OPT, prefill (4 × 512
+    rows) and decode (4 rows), each site cycling through every layer's
+    weight; the yardstick is torch._int_mm plus the f32 epilogue."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int8 as k15
+    from smoothquant_tpu_torch.kernels.int8_prefill import int_mm
+    from smoothquant_tpu_torch.utils import roofline
+
+    layers = int8_tree["int8_layers"]
+    n_l = len(layers)
+    rows = []
+    for n in (OPT_BATCH * OPT_PROMPT, OPT_BATCH):
+        for site, field, relu, to_int8 in OPT_LINEARS:
+            lins = [getattr(lp, field) for lp in layers]
+            o, kk = lins[0].w_q.shape
+            x = _i8_like_acts((n, kk), gen, dev)
+            out_dtype = torch.int8 if to_int8 else torch.float32
+            kw = dict(relu=relu, out_dtype=out_dtype)
+            args = lambda i: (x, lins[i % n_l].w_q, lins[i % n_l].alpha, lins[i % n_l].bias)
+            got = k15.int8_linear(*args(0), **kw)
+            ref = k15.int8_linear_plain(*args(0), **kw)
+            torch.cuda.synchronize()
+            err, n_diff = _compare(f"K15a {site} N={n}", got, ref)
+
+            def library(i):
+                a = args(i)
+                y = int_mm(a[0], a[1].t()).float() * a[2] + a[3]
+                if relu:
+                    y = y.clamp_min(0.0)
+                return torch.round(y).clamp(-127, 127).to(torch.int8) if to_int8 else y
+
+            n_bytes, ops = roofline.int8_linear_cost(n, o, kk, out_bytes=1 if to_int8 else 4)
+            b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+            rows.append(dict(
+                kernel="int8_linear", site=f"{site}@{n}", shape=[n, kk, o],
+                out=str(out_dtype).replace("torch.", ""), max_err=err, n_diff=n_diff,
+                kernel_ms=device_ms(lambda i: k15.int8_linear(*args(i), **kw), n_l),
+                plain_ms=device_ms(lambda i: k15.int8_linear_plain(*args(i), **kw), 2,
+                                   reps=3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(library, n_l),
+                library="torch._int_mm + f32 epilogue, yardstick only"))
+            emit(rows[-1])
+    return rows
+
+
+def check_int8_bmm(int8_tree, cfg, dev, gen):
+    """K15b vs plain at the attention products of the int8 OPT: QKᵀ (f32
+    out) and PV (int8 out, v in its (Sk, d) layout) at the no-cache prefill
+    (S = 512) and at decode (one query over a 1024-position cache); the
+    yardstick is a bf16 torch.bmm on the same values."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int8 as k15
+    from smoothquant_tpu_torch.utils import roofline
+
+    sc = int8_tree["int8_layers"][0].scales
+    alpha_qk = sc["q_output_scale"] * sc["k_output_scale"]
+    alpha_pv = (1.0 / 127.0) * sc["v_output_scale"] / sc["out_input_scale"]
+    bh, d = OPT_BATCH * cfg.num_attention_heads, cfg.head_dim
+    n_buf = 4                    # distinct operands, so the timing does not sit in L2
+    rows = []
+    for phase, sq, sk in (("prefill", OPT_PROMPT, OPT_PROMPT), ("decode", 1, OPT_MAX_LEN)):
+        q = [_i8_like_acts((bh, sq, d), gen, dev) for _ in range(n_buf)]
+        k = [_i8_like_acts((bh, sk, d), gen, dev) for _ in range(n_buf)]
+        v = [_i8_like_acts((bh, sk, d), gen, dev) for _ in range(n_buf)]
+        logits = torch.randn((bh, sq, sk), generator=gen, device=dev) * 3
+        probs8 = torch.round(torch.softmax(logits, dim=-1) * 127).to(torch.int8)
+        del logits
+        for site, a, b, alpha, out_dtype, b_kn in (
+                ("qk", q, k, alpha_qk, torch.float32, False),
+                ("pv", [probs8] * n_buf, v, alpha_pv, torch.int8, True)):
+            args = lambda i: (a[i % n_buf], b[i % n_buf], alpha)
+            kw = dict(out_dtype=out_dtype, b_kn=b_kn)
+            got = k15.int8_bmm(*args(0), **kw)
+            ref = k15.int8_bmm_plain(*args(0), **kw)
+            torch.cuda.synchronize()
+            err, n_diff = _compare(f"K15b {site} {phase}", got, ref)
+            a16 = [t.to(torch.bfloat16) for t in a[:2]]
+            b16 = [(t if b_kn else t.transpose(1, 2)).to(torch.bfloat16) for t in b[:2]]
+            m, kk = a[0].shape[1:]
+            n = b[0].shape[2] if b_kn else b[0].shape[1]
+            n_bytes, ops = roofline.int8_bmm_cost(bh, m, n, kk,
+                                                  out_bytes=1 if b_kn else 4)
+            b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+            rows.append(dict(
+                kernel="int8_bmm", site=f"{site}@{phase}", shape=[bh, m, n, kk],
+                out=str(out_dtype).replace("torch.", ""), max_err=err, n_diff=n_diff,
+                kernel_ms=device_ms(lambda i: k15.int8_bmm(*args(i), **kw), 8),
+                plain_ms=device_ms(lambda i: k15.int8_bmm_plain(*args(i), **kw), 2, reps=3),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=device_ms(lambda i: torch.bmm(a16[i % 2], b16[i % 2]), 8),
+                library="torch.bmm bf16 on the same values, yardstick only"))
+            emit(rows[-1])
+            del a16, b16
+    return rows
+
+
+def check_norm_quant(int8_tree, cfg, dev, gen):
+    """K16 vs plain: the f32 residual stream's LayerNorm → int8 at the
+    prefill (4 × 512 rows) and decode (4 rows), C = hidden, each layer's
+    γ / β and static scale; the yardstick is F.layer_norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from smoothquant_tpu_torch.kernels import norm_quant as k16
+    from smoothquant_tpu_torch.utils import roofline
+
+    layers = int8_tree["int8_layers"]
+    n_l, c, eps = len(layers), cfg.hidden_size, cfg.layer_norm_eps
+    rows = []
+    for n in (OPT_BATCH * OPT_PROMPT, OPT_BATCH):
+        xs = [torch.randn((n, c), generator=gen, device=dev) * 2 + 0.3 for _ in range(4)]
+        args = lambda i: (xs[i % 4], layers[i % n_l].ln_attn_gamma, layers[i % n_l].ln_attn_beta,
+                          layers[i % n_l].scales["attn_input_scale"])
+        got = k16.layer_norm_q(*args(0), eps=eps)
+        ref = k16.norm_quant_plain(*args(0), eps=eps)
+        torch.cuda.synchronize()
+        err, n_diff = _compare(f"K16 N={n}", got, ref)
+        g32 = [lp.ln_attn_gamma.float() for lp in layers]
+        b32 = [lp.ln_attn_beta.float() for lp in layers]
+        n_bytes, ops = roofline.norm_quant_cost(n, c, x_bytes=4)
+        b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        rows.append(dict(
+            kernel="norm_quant", site=f"ln@{n}", shape=[n, c], max_err=err, n_diff=n_diff,
+            kernel_ms=device_ms(lambda i: k16.layer_norm_q(*args(i), eps=eps), n_l),
+            plain_ms=device_ms(lambda i: k16.norm_quant_plain(*args(i), eps=eps), 4, reps=3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=device_ms(lambda i: F.layer_norm(xs[i % 4], (c,), g32[i % n_l],
+                                                        b32[i % n_l], eps), n_l),
+            library="F.layer_norm f32 (no quantize), yardstick only"))
+        emit(rows[-1])
+    return rows
+
+
 # ---------------------------------------------------------------- end to end
 
 
@@ -572,7 +777,9 @@ def check_no_fallback(dev):
 
     from smoothquant_tpu_torch.kernels import decode_attention as k11
     from smoothquant_tpu_torch.kernels import fp_matmul as k13
+    from smoothquant_tpu_torch.kernels import int8 as k15
     from smoothquant_tpu_torch.kernels import int8_prefill as k4
+    from smoothquant_tpu_torch.kernels import norm_quant as k16
 
     z8 = torch.zeros((64, 64), dtype=torch.int8, device=dev)
     one = torch.ones((64, 1), device=dev)
@@ -594,6 +801,17 @@ def check_no_fallback(dev):
         "K13 nine rows": (lambda: k13.fp_matmul_stacked(
             0, torch.zeros((9, 64), device=dev), torch.zeros((1, 64, 64), device=dev)),
             ValueError),
+        "K15a float32 x": (lambda: k15.int8_linear(torch.zeros((4, 64), device=dev), z8, 1.0),
+                           TypeError),
+        "K15a bf16 out": (lambda: k15.int8_linear(z8, z8, 1.0, out_dtype=torch.bfloat16),
+                          TypeError),
+        "K15b K mismatch": (lambda: k15.int8_bmm(z8[None], z8[None, :, :32], 1.0),
+                            ValueError),
+        "K16 C = 100": (lambda: k16.layer_norm_q(torch.zeros((4, 100), device=dev),
+                                                 *(torch.ones(100, device=dev),) * 2, 1.0),
+                        ValueError),
+        "K16 int8 x": (lambda: k16.layer_norm_q(z8, *(torch.ones(64, device=dev),) * 2, 1.0),
+                       TypeError),
     }
     raised = {}
     for name, (fn, expected) in cases.items():
@@ -936,11 +1154,288 @@ def generator(packed, promoted, cfg, dev):
                 tokens_per_s=MAX_BATCH * GEN_NEW / wall), launches
 
 
+# ---------------------------------------------------------------- OPT path
+
+
+def _opt_per_forward(cfg) -> dict:
+    """Kernel launches of one int8 OPT forward: per layer two K16, six K15a
+    and two K15b (the glue between them is plain PyTorch)."""
+    n_l = cfg.num_hidden_layers
+    return {"norm_quant": 2 * n_l, "int8_linear": 6 * n_l, "int8_bmm": 2 * n_l}
+
+
+def export_opt(cfg, dev, n_samples, seq_len):
+    """The export pipeline of export_int8_model.py:48-76 on a random OPT
+    built on `dev` from SEED: calibration (per-channel absmax) → smooth_lm
+    (α = 0.5) → static per-tensor absmax → the seven scales a layer →
+    opt_int8.from_float.  Returns (smoothed fp params, int8 params, timings)."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import opt, opt_int8
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.models.registry import smooth_lm
+    from smoothquant_tpu_torch.quant import calibrate as cal
+
+    t = {}
+    t0 = time.perf_counter()
+    fp = opt.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    stream = np.random.default_rng(SEED + 21).integers(0, cfg.vocab_size,
+                                                       size=n_samples * seq_len)
+    batches = [torch.as_tensor(b, device=dev)
+               for b in cal.make_calib_batches(stream, n_samples, seq_len)]
+
+    def fwd(p, ids, col):
+        opt.forward(p, ids, cfg, ctx=ForwardContext(taps=col))
+
+    torch.cuda.synchronize()
+    t["init_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    act_scales = cal.get_act_scales(fwd, fp, batches)
+    t["act_scales_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smoothed = smooth_lm("opt", fp, cfg, act_scales, alpha=0.5)
+    del fp
+    act_dict = cal.get_static_act_dict(fwd, smoothed, batches)
+    scales = cal.get_static_decoder_layer_scales_opt(act_dict, cfg.num_hidden_layers)
+    t["smooth_static_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    int8 = opt_int8.from_float(smoothed, cfg, scales)
+    torch.cuda.synchronize()
+    t["from_float_s"] = time.perf_counter() - t0
+    t["calib_samples"], t["calib_len"] = len(batches), seq_len
+    return smoothed, int8, t
+
+
+def opt_int8_to(tree, dev):
+    """An int8 OPT tree (opt_int8.from_float's) on `dev`."""
+    import dataclasses
+
+    from smoothquant_tpu_torch.models.opt_int8 import Int8Linear
+
+    def to(node):
+        if isinstance(node, Int8Linear):
+            return dataclasses.replace(node, w_q=node.w_q.to(dev), bias=node.bias.to(dev))
+        return node.to(dev) if hasattr(node, "to") else node
+
+    out = tree_to({k: v for k, v in tree.items() if k != "int8_layers"}, dev)
+    out["int8_layers"] = [dataclasses.replace(lp, **{f.name: to(getattr(lp, f.name))
+                                                     for f in dataclasses.fields(lp)})
+                          for lp in tree["int8_layers"]]
+    return out
+
+
+def opt_reference_check(dev):
+    """The int8 OPT's kernel path (card) vs its plain path (CPU) on a small
+    model exported once on the CPU (hidden 512, 8 heads of 64, 2 layers),
+    from bf16 and from f32 weights: a 48-token prefill of two rows into
+    int8 caches, then one decode step, logits compared.  The kernels are
+    exact against their plain versions but for K16's rare one-code moves,
+    and the glue's exp differs in the last bit between the CPU and the
+    card; a moved code spreads through attention, so the logits are held
+    to 5e-2 of their norm — a wrong kernel misses by the whole norm."""
+    import dataclasses
+
+    import torch
+
+    from smoothquant_tpu_torch.models import opt, opt_int8
+    from smoothquant_tpu_torch.models.common import KVCache
+
+    out = {}
+    for dtype_name in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(opt.OPTConfig.tiny(vocab_size=512), hidden_size=512,
+                                  ffn_dim=1024, num_attention_heads=8, dtype=dtype_name)
+        _, int8, _ = export_opt(cfg, "cpu", 2, 64)
+        gen = torch.Generator().manual_seed(SEED + 31)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen)
+        logits = {}
+        for name, d in (("plain", "cpu"), ("kernel", dev)):
+            tree = opt_int8_to(int8, d)
+            caches = [KVCache.create(2, 64, cfg.num_attention_heads, cfg.head_dim,
+                                     torch.int8, d) for _ in range(cfg.num_hidden_layers)]
+            pre, caches = opt_int8.forward(tree, prompt.to(d), cfg, caches=caches)
+            step, _ = opt_int8.forward(tree, prompt[:, -1:].to(d), cfg, caches=caches)
+            logits[name] = torch.cat([pre[:, -1:], step], dim=1).cpu()
+        got, ref = logits["kernel"], logits["plain"]
+        if not (torch.isfinite(got).all() and got.shape == ref.shape == (2, 2, cfg.vocab_size)):
+            raise AssertionError("OPT reference check: non-finite or misshapen logits")
+        rel = float((got - ref).norm() / ref.norm())
+        if not rel <= 5e-2:
+            raise AssertionError(f"OPT reference check {dtype_name}: relative norm error "
+                                 f"{rel} > 5e-2")
+        out[dtype_name] = dict(rel_norm_err=rel, tolerance_rel_norm=5e-2,
+                               argmax_agree=float((got.argmax(-1) == ref.argmax(-1))
+                                                  .float().mean()))
+    return out
+
+
+def opt_accuracy(smoothed, int8, cfg, dev):
+    """The reference demo's check: the int8 model's logits against the
+    smoothed fp model's on one prompt of OPT_PROMPT tokens — top-1
+    agreement and relative norm error of the logits — and the same on the
+    prompt's first 32 tokens.  (With random weights attention is nearly
+    uniform, so over S keys p ≈ 1/S and round(p·127) is mostly 0 at S =
+    512: the int8 probabilities of the reference's design lose it.)"""
+    import torch
+
+    from smoothquant_tpu_torch.models import opt, opt_int8
+
+    ids = torch.randint(0, cfg.vocab_size, (1, OPT_PROMPT), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 13))
+    out = {}
+    for s in (OPT_PROMPT, 32):
+        with torch.no_grad():
+            fp = opt.forward(smoothed, ids[:, :s], cfg)[0]
+            q, launches = _path_launches(lambda: opt_int8.forward(int8, ids[:, :s], cfg)[0])
+        _check_launches("int8 OPT forward", launches, _opt_per_forward(cfg))
+        if not (q.shape == fp.shape == (1, s, cfg.vocab_size)
+                and torch.isfinite(q).all() and torch.isfinite(fp).all()):
+            raise AssertionError("int8 OPT forward: non-finite or misshapen logits")
+        out[f"tokens_{s}"] = dict(
+            top1_agree=float((q.argmax(-1) == fp.argmax(-1)).float().mean()),
+            rel_norm_err=float((q - fp).norm() / fp.norm()))
+    return out
+
+
+def opt_prefill(smoothed, int8, cfg, dev):
+    """The int8 prefill of OPT_BATCH × OPT_PROMPT tokens with no cache
+    (tokens/s by host clock, device busy share under the profiler), and the
+    bf16 fp forward of the same batch as the yardstick."""
+    import torch
+
+    from smoothquant_tpu_torch.models import opt, opt_int8
+
+    ids = torch.randint(0, cfg.vocab_size, (OPT_BATCH, OPT_PROMPT), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 17))
+    runs = {"int8": torch.no_grad()(lambda: opt_int8.forward(int8, ids, cfg)[0]),
+            "fp_bf16": torch.no_grad()(lambda: opt.forward(smoothed, ids, cfg)[0])}
+    runs["int8"]()                                       # warm-up
+    logits, launches = _path_launches(runs["int8"])
+    _check_launches("int8 OPT prefill", launches, _opt_per_forward(cfg))
+    if not (logits.shape == (OPT_BATCH, OPT_PROMPT, cfg.vocab_size)
+            and torch.isfinite(logits).all()):
+        raise AssertionError("int8 OPT prefill: non-finite or misshapen logits")
+    del logits
+    out = {}
+    for name, run in runs.items():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        s = statistics.median(times)
+        trace = profile(run, 1)
+        out[name] = dict(ms=1e3 * s, runs_ms=[1e3 * t for t in times],
+                         tokens_per_s=OPT_BATCH * OPT_PROMPT / s,
+                         busy_share=1.0 - trace["idle_share"], trace=trace)
+    return dict(batch=OPT_BATCH, prompt=OPT_PROMPT, layers=cfg.num_hidden_layers,
+                **out), launches
+
+
+def opt_generator(int8, cfg, dev):
+    """Generator(kv_dtype=int8) over the int8 OPT: OPT_BATCH prompts of
+    OPT_PROMPT tokens, OPT_NEW new, caches of OPT_MAX_LEN; tokens/s of the
+    whole generate call, then decode ms/step of the Generator's own step by
+    host clock over windows and by device busy time, and one step's
+    launches."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import opt_int8
+    from smoothquant_tpu_torch.serve.generate import GenerationConfig, Generator
+    from smoothquant_tpu_torch.utils import roofline
+
+    g = Generator(opt_int8, int8, cfg, kv_dtype=torch.int8, max_len=OPT_MAX_LEN, device=dev)
+    prompts = np.random.default_rng(SEED + 19).integers(0, cfg.vocab_size,
+                                                        size=(OPT_BATCH, OPT_PROMPT))
+    g.generate(prompts[:, :16], GenerationConfig(max_new_tokens=2))       # warm-up
+    t0 = time.perf_counter()
+    out, launches = _path_launches(
+        lambda: g.generate(prompts, GenerationConfig(max_new_tokens=OPT_NEW)))
+    wall = time.perf_counter() - t0
+    _check_launches("int8 OPT generator", launches,
+                    {k: v * OPT_NEW for k, v in _opt_per_forward(cfg).items()})
+    new = out[:, OPT_PROMPT:]
+    if not (out.shape == (OPT_BATCH, OPT_PROMPT + OPT_NEW)
+            and (out[:, :OPT_PROMPT] == prompts).all()
+            and ((0 <= new) & (new < cfg.vocab_size)).all()):
+        raise AssertionError("int8 OPT generator: misshapen output or token out of range")
+
+    caches = g._new_caches(OPT_BATCH)
+    tok, caches = g._step(g.params, torch.as_tensor(prompts, device=dev), caches, 0.0, None)
+
+    def step(n=1):
+        nonlocal tok, caches
+        for _ in range(n):
+            tok, caches = g._step(g.params, tok[:, None], caches, 0.0, None)
+
+    step(2)                                                               # warm-up
+    _, per_step = _path_launches(step)
+    _check_launches("int8 OPT decode step", per_step, _opt_per_forward(cfg))
+    windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(8)
+        torch.cuda.synchronize()
+        windows.append(1e3 * (time.perf_counter() - t1) / 8)
+    trace = profile(lambda: step(4), 4)
+    ms = statistics.median(windows)
+    bound = roofline.opt_int8_decode_step_bytes(cfg, OPT_BATCH, OPT_MAX_LEN)
+    return dict(batch=OPT_BATCH, prompt=OPT_PROMPT, new_tokens=OPT_NEW,
+                max_len=OPT_MAX_LEN, generate_wall_s=wall,
+                generate_tokens_per_s=OPT_BATCH * OPT_NEW / wall,
+                decode_ms_per_step=ms, decode_windows_ms_per_step=windows,
+                decode_tokens_per_s=OPT_BATCH * 1e3 / ms,
+                busy_ms_per_step=trace["busy_ms_per_step"], trace=trace,
+                launches_per_step=per_step, step_bytes=bound["total"],
+                step_bound_ms=bound["bound_ms"],
+                position_after=int(caches[0].pos)), launches
+
+
+def run_opt(dev, cfg, card: str):
+    """The real-INT8 OPT path at the size of `cfg`: export, the kernel
+    phases at its shapes, the accuracy check, the int8 prefill and the
+    Generator.  Returns (kernel rows, the main path's launches)."""
+    from collections import Counter
+
+    import torch
+
+    from smoothquant_tpu_torch.utils import roofline
+
+    t0 = time.perf_counter()
+    smoothed, int8, timings = export_opt(cfg, dev, CALIB_SAMPLES, CALIB_LEN)
+    emit({"phase": "opt_export", "seconds": time.perf_counter() - t0, **timings,
+          "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
+          "decode_step_bytes": roofline.opt_int8_decode_step_bytes(cfg, OPT_BATCH,
+                                                                   OPT_MAX_LEN)})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    rows = (check_int8_linear(int8, dev, gen) + check_int8_bmm(int8, cfg, dev, gen)
+            + check_norm_quant(int8, cfg, dev, gen))
+    emit({"phase": "opt_reference_check", **opt_reference_check(dev)})
+    emit({"phase": "opt_accuracy", "card": card, **opt_accuracy(smoothed, int8, cfg, dev)})
+
+    launches = Counter()
+    pf, used = opt_prefill(smoothed, int8, cfg, dev)
+    launches.update(used)
+    emit({"phase": "opt_prefill", "card": card, **pf, "launches": used})
+    del smoothed
+    torch.cuda.empty_cache()
+    g, used = opt_generator(int8, cfg, dev)
+    launches.update(used)
+    emit({"phase": "opt_generator", "card": card, **g, "launches": used})
+    return rows, launches
+
+
 def kernels_line(rows, launches):
     """One entry per kernel: the call sites of one layer's worth of work
     summed (K1, K6, K4 with the lm_head, K13; K11 its bf16 and int8
-    bodies), the errors the largest seen; launches are the main paths'
-    runs summed."""
+    bodies; K15a its six linears, K15b its two products and K16 its
+    LayerNorm, each at the prefill and at the decode size), the errors the
+    largest seen; launches are the main paths' runs summed."""
     out = []
     for name, (src, replaces) in SOURCES.items():
         rs = [r for r in rows if r["kernel"] == name]
@@ -958,8 +1453,9 @@ def kernels_line(rows, launches):
     return {"kernels": out}
 
 
-def run(dev, cfg, card: str) -> dict:
-    """Every phase on `dev` at the size of `cfg`; returns the kernels line."""
+def run(dev, cfg, card: str):
+    """Every Llama phase on `dev` at the size of `cfg`; returns (kernel rows,
+    the main paths' launches)."""
     from collections import Counter
 
     import torch
@@ -1036,6 +1532,14 @@ def run(dev, cfg, card: str) -> dict:
     for name, cache in (("w4a4", w4a4_cache), ("bf16", bf16_cache)):
         emit({"phase": f"{name}_decode", "card": card, "batch": MAX_BATCH, "cache": MAX_LEN,
               "positions": [DECODE_POS, int(cache.pos.flatten()[0])], **dec[name]})
+    from smoothquant_tpu_torch.models.common import unembed
+
+    lm = bf16["lm_head"]["weight"]
+    h = torch.randn((MAX_BATCH, 1, cfg.hidden_size), generator=gen, device=dev).to(lm.dtype)
+    emit({"phase": "fp_lm_head", "card": card, "shape": [MAX_BATCH, *lm.shape],
+          "f32_unembed_ms": device_ms(lambda i: unembed(h, lm), 8),
+          "bf16_matmul_ms": device_ms(lambda i: torch.matmul(h, lm.t()).float(), 8),
+          "bf16_step_busy_ms": dec["bf16"]["busy_ms_per_step"]})
     w, b = dec["w4a4"], dec["bf16"]
     emit({"phase": "vs_bf16", "card": card,
           "host_clock": b["ms_per_step"] / w["ms_per_step"],
@@ -1045,7 +1549,7 @@ def run(dev, cfg, card: str) -> dict:
           "bound": (roofline.llama_bf16_decode_step_bytes(cfg)["bound_ms"]
                     / roofline.llama_decode_step_bytes(cfg)["bound_ms"])})
 
-    return kernels_line(rows, launches)
+    return rows, launches
 
 
 def main() -> int:
@@ -1057,7 +1561,7 @@ def main() -> int:
         _die("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     try:
         from smoothquant_tpu_torch.kernels import _build
-        from smoothquant_tpu_torch.models import llama
+        from smoothquant_tpu_torch.models import llama, opt
     except ImportError as e:
         _die(f"the port package is not importable beside this script: {e}")
 
@@ -1073,7 +1577,10 @@ def main() -> int:
            if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptx})
 
-    emit(run(dev, llama.LlamaConfig.llama2_7b(), card))
+    rows, launches = run_opt(dev, opt.OPTConfig.opt_1_3b(), card)
+    torch.cuda.empty_cache()
+    more_rows, more = run(dev, llama.LlamaConfig.llama2_7b(), card)
+    emit(kernels_line(rows + more_rows, launches + more))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "sq_decode_attn": ([_P] * 7 + [_I] * 6 + [_F, _I, _I, _P], _I),
     "sq_fp_matmul_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
     "sq_fp_matmul": ([_P] * 4 + [_I] * 3 + [_I, _P], _I),
+    "sq_int8_gemm": ([_P] * 4 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
+    "sq_norm_quant": ([_P] * 4 + [_I] * 2 + [_F] * 2 + [_I] * 2 + [_P], _I),
 }
 
 _lib = None

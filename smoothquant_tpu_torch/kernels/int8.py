@@ -1,0 +1,160 @@
+"""Static-scale INT8 GEMMs of the real-INT8 OPT path (K15a, K15b), with
+their plain PyTorch versions.
+
+K15a  int8_linear — port of smoothquant_tpu/kernels/int8.py:68 (pallas_call
+      :105): x (N, K) int8 · w (O, K) int8ᵀ → int32 acc, exact; then
+      y = fma(f32(acc), α, bias) with one rounding (the multiply-add jitted
+      XLA fuses the JAX epilogue into), optional ReLU, and out f32, or int8
+      as round-half-even(y) clipped to ±127.
+K15b  int8_bmm — port of smoothquant_tpu/kernels/int8.py:145 (pallas_call
+      :162): a (B, M, K) int8 · b int8 contracted on K → acc·α in f32; out
+      f32, or int8 as above.  b is (B, N, K) as the JAX signature has it, or
+      with b_kn=True (B, K, N): the PV product then reads the (Sk, d) value
+      cache as it lies, where the JAX code hands it over transposed (a copy
+      of the cache).  The JAX wrapper's padding (M, N to 32, K to 128) adds
+      only zeros; the kernels compute the same sums without it.
+
+Both run one CUDA source, csrc/int8.cu: M ≤ 8 rows take a weight-streaming
+kernel (no padded row tiles), more rows the mma.sync s8 tile kernel.  A
+wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.  K and (with b_kn) N are zero-padded to 16s
+where they are not (zeros add nothing).
+
+The plain versions take the int32 sums exactly as f64 matmuls (|acc| ≤
+127²·K < 2^53) and the fused multiply-add as quant.core.fma_f32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from smoothquant_tpu_torch.kernels import _build
+from smoothquant_tpu_torch.quant.core import fma_f32
+
+OUT_CODES = {torch.float32: 0, torch.int8: 2}
+
+
+def _alpha(alpha) -> float:
+    """α as the float32 value the JAX code casts it to (jnp.asarray(α, f32))."""
+    return float(np.float32(float(alpha)))
+
+
+def _requant(y: torch.Tensor, out_dtype) -> torch.Tensor:
+    if out_dtype == torch.int8:
+        return torch.round(y).clamp(-127, 127).to(torch.int8)
+    return y.to(out_dtype)
+
+
+def _exact_acc(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """a @ b_t of int8 operands as f32(int32 sum): the f64 product is the
+    exact integer, and its cast rounds as int32 → f32 does."""
+    return torch.matmul(a.double(), b_t.double()).float()
+
+
+def int8_linear_plain(x, w, alpha, bias=None, *, relu=False, out_dtype=torch.float32):
+    """Plain PyTorch K15a (same arguments as the wrapper)."""
+    acc = _exact_acc(x, w.t())
+    al = torch.tensor(_alpha(alpha), dtype=torch.float32, device=x.device)
+    b = (torch.zeros(w.shape[0], dtype=torch.float32, device=x.device)
+         if bias is None else bias.float())
+    y = fma_f32(acc, al, b)
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return _requant(y, out_dtype)
+
+
+def int8_bmm_plain(a, b, alpha, *, out_dtype=torch.float32, b_kn=False):
+    """Plain PyTorch K15b (same arguments as the wrapper)."""
+    acc = _exact_acc(a, b if b_kn else b.transpose(1, 2))
+    return _requant(acc * torch.tensor(_alpha(alpha), dtype=torch.float32,
+                                       device=a.device), out_dtype)
+
+
+def _pad_dim(t: torch.Tensor, dim: int, m: int) -> torch.Tensor:
+    pad = -t.shape[dim] % m
+    if not pad:
+        return t
+    widths = [0, 0] * (t.ndim - 1 - dim % t.ndim) + [0, pad]
+    return torch.nn.functional.pad(t, widths)
+
+
+def _gemm(a, b, bias, alpha, relu, b_kn, out_dtype, name):
+    """Launch the shared kernel on a (B, M, K) and b (B, N, K) / (B, K, N)."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"{name} takes int8 operands, got {a.dtype} and {b.dtype}")
+    if out_dtype not in OUT_CODES:
+        raise TypeError(f"{name} writes float32 or int8, not {out_dtype}")
+    batch, m, kk = a.shape
+    n = b.shape[2] if b_kn else b.shape[1]
+    if b.shape[0] != batch or (b.shape[1] if b_kn else b.shape[2]) != kk:
+        raise ValueError(f"{name}: operand shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} do not contract")
+    if bias is not None and (bias.shape != (n,) or bias.dtype != torch.float32):
+        raise TypeError(f"{name}: bias must be float32 ({n},)")
+    if min(batch, m, n, kk) == 0:
+        raise ValueError(f"{name}: empty operand")
+    # rows of 16 bytes: K (and, for a (K, N) operand, N) zero-padded to 16s;
+    # the kernels load 16-byte words from the base pointers
+    a, b = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+            else t.contiguous().clone() for t in (a, b))
+    a = _pad_dim(a, 2, 16)
+    n_pad = n
+    if b_kn:
+        b = _pad_dim(_pad_dim(b, 1, 16), 2, 16)
+        n_pad = b.shape[2]
+    else:
+        b = _pad_dim(b, 2, 16)
+    _build.check_operands(a.device, a=a, b=b, bias=bias)
+    out = torch.empty((batch, m, n_pad), dtype=out_dtype, device=a.device)
+    _build.check(_build.lib().sq_int8_gemm(
+        a.data_ptr(), b.data_ptr(), 0 if bias is None else bias.data_ptr(),
+        out.data_ptr(), batch, m, n_pad, a.shape[2], _alpha(alpha), int(relu),
+        int(b_kn), OUT_CODES[out_dtype], _build.stream_ptr(a)), "sq_int8_gemm")
+    _build.LAUNCHES[name] += 1
+    return out if n_pad == n else out[..., :n]
+
+
+def int8_linear(
+    x: torch.Tensor,                 # (N, K) int8
+    w: torch.Tensor,                 # (O, K) int8
+    alpha,                           # f32 scalar: s_x·s_w [/ s_y for int8 out]
+    bias: Optional[torch.Tensor] = None,  # (O,) f32 in the output domain
+    *,
+    relu: bool = False,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """(N, O) static-scale int8 linear (K15a)."""
+    if x.device.type == "cpu":
+        return int8_linear_plain(x, w, alpha, bias, relu=relu, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    if x.ndim != 2 or w.ndim != 2:
+        raise ValueError("int8_linear takes x (N, K) and w (O, K)")
+    return _gemm(x[None], w[None], bias, alpha, relu, False, out_dtype, "int8_linear")[0]
+
+
+def int8_bmm(
+    a: torch.Tensor,                 # (B, M, K) int8
+    b: torch.Tensor,                 # (B, N, K) int8, or (B, K, N) with b_kn
+    alpha,                           # f32 scalar
+    *,
+    out_dtype=torch.float32,
+    b_kn: bool = False,
+) -> torch.Tensor:
+    """(B, M, N) batched int8 product with the α epilogue (K15b)."""
+    if a.device.type == "cpu":
+        return int8_bmm_plain(a, b, alpha, out_dtype=out_dtype, b_kn=b_kn)
+    if a.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {a.device}")
+    if a.ndim != 3 or b.ndim != 3:
+        raise ValueError("int8_bmm takes a (B, M, K) and b (B, N, K) / (B, K, N)")
+    return _gemm(a, b, None, alpha, False, b_kn, out_dtype, "int8_bmm")
+
+
+def quantize_to_int8(x: torch.Tensor, scale) -> torch.Tensor:
+    """round(x / scale) saturated to ±127 with a static scale
+    (int8.py:183-187); plain tensor code, as in the JAX package."""
+    return torch.round(x.float() / scale).clamp(-127, 127).to(torch.int8)

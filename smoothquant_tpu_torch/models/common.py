@@ -2,8 +2,10 @@
 the parts the W4A4 serving path, the bf16 decode baseline and the
 Generator use).
 
-  call_linear (packed, transposed-fp "weight_t" and plain fp linears,
-  :109-223), rms_norm, rotary_cos_sin, apply_rotary, the head-major
+  ForwardContext (its calibration taps, :32-47), call_linear (packed,
+  transposed-fp "weight_t" and plain fp linears, with the taps,
+  :109-223), rms_norm, layer_norm (:242-251), to_head_major (:578-580),
+  unembed (:658-662), rotary_cos_sin, apply_rotary, the head-major
   KVCache / QuantKVCache (:281-387) and SMajorQuantKVCache (create /
   update / read), the einsum attention (:550-575), cached_attention
   (:583-655; the decode kernel K11 for the int8 head-major cache),
@@ -38,15 +40,38 @@ from smoothquant_tpu_torch.quant.core import f32_reciprocal, fma_f32
 NEG_INF = -1e9   # einsum attention mask value (common.py:29)
 
 
-def call_linear(params, x: torch.Tensor, layer_idx: Optional[int] = None,
+@dataclasses.dataclass
+class ForwardContext:
+    """Per-call context of a forward pass (common.py:32-47), the calibration
+    part: with `taps` set, every linear call site reports its input and
+    output to the collector (quant.calibrate.TapCollector)."""
+
+    taps: Optional[object] = None
+
+
+def call_linear(params, x: torch.Tensor, name: Optional[str] = None,
+                ctx: Optional[ForwardContext] = None, *,
+                layer_idx: Optional[int] = None,
                 norm: Optional[tuple] = None) -> torch.Tensor:
     """A linear call site (common.py:109-223; the recipe of a packed linear
-    travels in its meta, so no forward context is needed).
+    travels in its meta).  `name` is the HF-style module path the
+    calibration statistics are keyed by; with ctx.taps set the site
+    reports its input and output to the collector.
 
     A transposed-fp {"weight_t", "bias"} dict (llama.pack_fp_decode) runs
     K13 on layer layer_idx of its (L, K, O) stack, or one matmul when it is
     not stacked; a PackedLinear runs real_quant_linear; a plain {"weight",
     "bias"} dict x @ W.T + b in x's dtype."""
+    taps = None if ctx is None else ctx.taps
+    if taps is not None:
+        taps.tap_input(name, x)
+    y = _linear(params, x, layer_idx, norm)
+    if taps is not None:
+        taps.tap_output(name, y)
+    return y
+
+
+def _linear(params, x, layer_idx, norm):
     if isinstance(params, dict) and "weight_t" in params:
         if norm is not None:
             raise NotImplementedError("norm fusion is a packed-linear path")
@@ -75,6 +100,32 @@ def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     ms = (xf * xf).sum(dim=-1, keepdim=True) * f32_reciprocal(x.shape[-1])
     y = xf * torch.rsqrt(ms + eps)
     return (y * params["weight"].float()).to(x.dtype)
+
+
+def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (common.py:242-251): two-pass mean and variance,
+    then ·weight and +bias as two roundings, as the JAX code runs eagerly."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["weight"].float()
+    if params.get("bias") is not None:
+        y = y + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def to_head_major(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) → (B, H, S, D) view for the no-cache attention path."""
+    return x.transpose(1, 2)
+
+
+def unembed(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
+    """(..., H) @ (V, H)ᵀ → f32 logits (common.py:658-662): the embedding
+    cast to x's dtype, the products accumulated in f32 from the operands'
+    values as the einsum with preferred_element_type=f32 takes them (the
+    upcast of bf16 operands is exact)."""
+    return torch.matmul(x.float(), embedding.to(x.dtype).float().t())
 
 
 def rotary_cos_sin(positions: torch.Tensor, head_dim: int,
@@ -264,17 +315,21 @@ def _per_batch(x):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal_offset=0, valid_len=None,
-              attn_mask: Optional[torch.Tensor] = None):
+              attn_mask: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None):
     """Einsum attention with causal masking and GQA (common.py:550-575).
 
     q: (B, Sq, H, D); k/v: (B, H_kv, Sk, D).  Scores and softmax in f32,
-    probabilities cast to v's dtype before PV."""
+    probabilities cast to v's dtype before PV.  scale defaults to 1/√D
+    (OPT scales q itself and passes 1.0)."""
     b, sq, nh, d = q.shape
     n_kv, sk = k.shape[1], k.shape[2]
     if n_kv != nh:
         k = k.repeat_interleave(nh // n_kv, dim=1)
         v = v.repeat_interleave(nh // n_kv, dim=1)
-    scores = torch.einsum("bqhd,bhkd->bhqk", q.float(), k.float()) * (1.0 / d ** 0.5)
+    if scale is None:
+        scale = 1.0 / d ** 0.5
+    scores = torch.einsum("bqhd,bhkd->bhqk", q.float(), k.float()) * scale
     qi = torch.arange(sq, device=q.device).reshape(1, 1, sq, 1)
     kj = torch.arange(sk, device=q.device).reshape(1, 1, 1, sk)
     mask = kj <= qi + _per_batch(causal_offset).to(q.device)
@@ -291,16 +346,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def cached_attention(q: torch.Tensor, cache, *, causal_offset,
-                     attn_mask: Optional[torch.Tensor] = None):
+                     attn_mask: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None):
     """Attention over an already-updated per-layer cache (common.py:583-655):
     a single query over the int8 head-major cache runs K11 with validity
     folded into a (B, S) bias; everything else (prefill, the fp cache, the
     S-major cache) is the einsum over the cache's (dequantized) view, as the
-    JAX package's default mode chooses."""
+    JAX package's default mode chooses.  K11's `sm_scale` option is not
+    ported, so a query with another scale than 1/√D takes the einsum too."""
     quant = isinstance(cache, QuantKVCache)
     if not isinstance(cache, (SMajorQuantKVCache, KVCache, QuantKVCache)):
         raise NotImplementedError(f"cache type {type(cache).__name__}")
-    if quant and q.shape[1] == 1:
+    if quant and q.shape[1] == 1 and scale is None:
         b, _, nh, d = q.shape
         n_kv, s = cache.k_q.shape[1], cache.k_q.shape[2]
         if k11.supported(s, nh, n_kv, d):
@@ -313,7 +370,7 @@ def cached_attention(q: torch.Tensor, cache, *, causal_offset,
                                        cache.k_scale, cache.v_scale)
             return out[:, None]
     return attention(q, *cache.read(), causal_offset=causal_offset,
-                     valid_len=cache.pos, attn_mask=attn_mask)
+                     valid_len=cache.pos, attn_mask=attn_mask, scale=scale)
 
 
 def decode_bias(pos_i: torch.Tensor, b: int, s_max: int,

@@ -45,6 +45,7 @@ from smoothquant_tpu_torch.models.common import (
     stacked_cache_append_fused,
     stacked_flash_attention,
     stacked_smajor_attention,
+    unembed,
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -283,15 +284,14 @@ def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
 
 def lm_head_logits(params: dict, h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     """f32 logits of final-normed hidden states (llama.py:589-599): the
-    packed lm_head, or an fp {"weight"} one by torch.matmul in h's dtype
-    (the JAX einsum keeps bf16 products in f32; here a bf16 product is
-    rounded to bf16 before the cast)."""
+    packed lm_head, or an fp {"weight"} one through unembed, whose products
+    accumulate in f32 as the JAX einsum's do."""
     lm = params.get("lm_head")
     if cfg.tie_word_embeddings or lm is None:
         raise NotImplementedError("tied embeddings are not ported")
     if isinstance(lm, PackedLinear):
         return call_linear(lm, h).float()
-    return torch.matmul(h, lm["weight"].t().to(h.dtype)).float()
+    return unembed(h, lm["weight"])
 
 
 def forward(params, input_ids, cfg, caches=None, positions=None, attn_mask=None):

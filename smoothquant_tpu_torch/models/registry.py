@@ -1,5 +1,6 @@
-"""Architecture dispatch for packing (port of smoothquant_tpu/models/
-registry.py:57-197, pack_model for the llama family)."""
+"""Architecture dispatch (port of smoothquant_tpu/models/registry.py):
+smooth_lm for any registered architecture (:51-55), pack_model for the
+llama family (:57-197)."""
 
 from __future__ import annotations
 
@@ -10,10 +11,11 @@ import numpy as np
 import torch
 
 from smoothquant_tpu_torch.kernels.pack import fold_input_perm, pack_linear
-from smoothquant_tpu_torch.models import llama
+from smoothquant_tpu_torch.models import llama, opt
 from smoothquant_tpu_torch.quant.config import QuantConfig
+from smoothquant_tpu_torch.quant.smooth import _get_path, _set_path, smooth_model
 
-_ARCHES = {"llama": llama}
+_ARCHES = {"llama": llama, "opt": opt}
 
 
 def get_arch(name: str):
@@ -25,18 +27,10 @@ def get_arch(name: str):
         ) from None
 
 
-def _get_path(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
-
-
-def _set_path(tree, path, value):
-    if not path:
-        return value
-    new = dict(tree)
-    new[path[0]] = _set_path(tree[path[0]], path[1:], value)
-    return new
+def smooth_lm(arch: str, params: dict, cfg, act_scales: dict,
+              alpha: float = 0.5) -> dict:
+    """SmoothQuant smoothing for any registered architecture."""
+    return smooth_model(params, get_arch(arch).smoothing_map(cfg), act_scales, alpha)
 
 
 def pack_model(

@@ -5,8 +5,9 @@ The prompt is prefilled on `prefill_params` (for example
 promote_model_int8 of a plain nibble pack, whose int8 layout runs K4) and
 every later token is decoded on `params` (the nibble tree, K6), over one
 KVCache or QuantKVCache per layer (the int8 cache's single-token attention
-runs K11).  Sampling happens on the device; only the (B,) token ids reach
-the host each step.
+runs K11), or, with kv_dtype=torch.int8, over int8 KVCaches for the
+real-INT8 OPT (models.opt_int8).  Sampling happens on the device; only the
+(B,) token ids reach the host each step.
 """
 
 from __future__ import annotations
@@ -43,13 +44,16 @@ def sample_token(logits: torch.Tensor, temperature: float,
 
 class Generator:
     """Batch generation on top of a model module (needs forward, and a cfg
-    with num_hidden_layers, num_key_value_heads, head_dim, dtype)."""
+    with num_hidden_layers, num_attention_heads (num_key_value_heads where
+    it differs), head_dim, dtype)."""
 
-    def __init__(self, model_mod, params, cfg, *, max_len: int = 2048,
+    def __init__(self, model_mod, params, cfg, *, kv_dtype=None, max_len: int = 2048,
                  quant_kv: bool = False, prefill_params=None, device="cuda"):
         """prefill_params: an optional second per-layer tree used ONLY for
         the prompt prefill — e.g. promote_model_int8 of a plain nibble pack
-        of the same weights — while decode keeps `params`."""
+        of the same weights — while decode keeps `params`.  kv_dtype: the
+        KVCache dtype, cfg's by default; torch.int8 holds the raw static-
+        scale int8 k / v of models.opt_int8 (generate.py:45,66-68)."""
         self.mod, self.params, self.cfg = model_mod, params, cfg
         self.prefill_params = params if prefill_params is None else prefill_params
         for tree in (self.params, self.prefill_params):
@@ -58,11 +62,13 @@ class Generator:
         self.device = resolve_device(device)
         self.max_len = max_len
         self._cache_cls = QuantKVCache if quant_kv else KVCache
+        self.kv_dtype = kv_dtype or cfg.torch_dtype
+        self._n_kv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
 
     def _new_caches(self, batch: int) -> list:
         cfg = self.cfg
-        return [self._cache_cls.create(batch, self.max_len, cfg.num_key_value_heads,
-                                       cfg.head_dim, cfg.torch_dtype, self.device)
+        return [self._cache_cls.create(batch, self.max_len, self._n_kv, cfg.head_dim,
+                                       self.kv_dtype, self.device)
                 for _ in range(cfg.num_hidden_layers)]
 
     @torch.no_grad()

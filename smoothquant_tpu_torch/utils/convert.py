@@ -8,8 +8,9 @@ its PackedMeta as a plain dict under "meta"; an identity-int8 pack
 (promote_int8's, or the per-channel lm_head) gets its weight stored
 K-major (kernels/pack.k_major), as the port's own packs hold it.  Plain
 and transposed-fp ("weight_t", llama.pack_fp_decode) linears are dicts of
-arrays and convert leaf by leaf.  bfloat16 arrays may arrive as any numpy
-dtype named "bfloat16".
+arrays and convert leaf by leaf — the fp OPT tree among them.  The real-INT8
+OPT tree (opt_int8.from_float's) converts by int8_opt_from_numpy.  bfloat16
+arrays may arrive as any numpy dtype named "bfloat16".
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from smoothquant_tpu_torch._device import resolve_device
 from smoothquant_tpu_torch.kernels.pack import PackedLinear, PackedMeta, k_major
+from smoothquant_tpu_torch.models.opt_int8 import Int8Linear, Int8OPTLayerParams
 
 _FIELDS = ("w_qt", "w_scales_t", "w_sal_t", "bias", "perm", "ns_mask")
 _META_FIELDS = {f.name for f in dataclasses.fields(PackedMeta)}
@@ -65,3 +67,33 @@ def params_from_numpy(tree, device="cuda"):
         return tensor_from_numpy(node, dev)
 
     return walk(tree)
+
+
+def int8_opt_from_numpy(tree: dict, device="cuda") -> dict:
+    """Convert the JAX package's Int8 OPT tree (opt_int8.from_float): its fp
+    entries leaf by leaf, each of "int8_layers" — an Int8OPTLayerParams, or
+    a dict of its fields, with numpy leaves — into the port's, the scales
+    and each Int8Linear's alpha as Python floats."""
+    dev = resolve_device(device)
+
+    def field(node, name):
+        return node[name] if isinstance(node, dict) else getattr(node, name)
+
+    def t(a):
+        return tensor_from_numpy(a, dev)
+
+    def lin(node):
+        return Int8Linear(w_q=t(field(node, "w_q")), bias=t(field(node, "bias")).float(),
+                          alpha=float(np.asarray(field(node, "alpha"))))
+
+    layers = []
+    for lp in tree["int8_layers"]:
+        kw = {f: t(field(lp, f)) for f in ("ln_attn_gamma", "ln_attn_beta",
+                                           "ln_fc_gamma", "ln_fc_beta")}
+        kw.update({p: lin(field(lp, p)) for p in ("q_proj", "k_proj", "v_proj",
+                                                  "out_proj", "fc1", "fc2")})
+        scales = {k: float(np.asarray(v)) for k, v in field(lp, "scales").items()}
+        layers.append(Int8OPTLayerParams(scales=scales, **kw))
+    out = params_from_numpy({k: v for k, v in tree.items() if k != "int8_layers"}, dev)
+    out["int8_layers"] = layers
+    return out

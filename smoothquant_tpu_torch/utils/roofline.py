@@ -1,12 +1,12 @@
 """Least-time bounds on an NVIDIA H100 for the port's kernels and for one
-decode step of the packed Llama.
+decode step of the packed Llama, the bf16 Llama and the int8 OPT.
 
 A bound is the larger of (bytes the function must move: each input read
 once, each output written once) / HBM rate and (operations / the peak rate
 of their type).  Peaks: NVIDIA's H100 SXM data sheet, dense, at the full
 700 W power limit.
 
-    python -m smoothquant_tpu_torch.utils.roofline    # the Llama-2-7B W4A4 and bf16 steps
+    python -m smoothquant_tpu_torch.utils.roofline    # Llama-2-7B W4A4 / bf16, OPT-1.3B int8
 """
 
 from __future__ import annotations
@@ -85,6 +85,42 @@ def fp_matmul_cost(n, kk, o, *, x_bytes=2):
     return (n * kk + kk * o + n * o) * x_bytes, {"bf16": 2 * n * kk * o}
 
 
+def int8_linear_cost(n, o, kk, *, out_bytes=4, bias=True):
+    """K15a (smoothquant_tpu/utils/roofline.py:72): x (N, K) and w (O, K)
+    int8, the f32 bias (O,), out (N, O) f32 or int8."""
+    return (n * kk + o * kk + (4 * o if bias else 0) + n * o * out_bytes,
+            {"int8": 2 * n * o * kk})
+
+
+def int8_bmm_cost(batch, m, n, kk, *, out_bytes=4):
+    """K15b: a (B, M, K) and b (B, N, K) int8, out (B, M, N) f32 or int8."""
+    return (batch * (m * kk + n * kk + m * n * out_bytes),
+            {"int8": 2 * batch * m * n * kk})
+
+
+def norm_quant_cost(n, c, *, x_bytes=4):
+    """K16: x (N, C), γ and β (C,) f32, out (N, C) int8; about eight f32
+    operations an element (two sums, centre, square, scale, fma, quantize)."""
+    return n * c * x_bytes + 2 * c * 4 + n * c, {"f32": 8 * n * c}
+
+
+def opt_int8_decode_step_bytes(cfg, batch=4, max_len=1024, emb_bytes=2) -> dict:
+    """Bytes one int8 OPT decode step must stream, as the JAX path runs it:
+    every layer's int8 weights (q, k, v, out, fc1, fc2), f32 biases and
+    LayerNorm rows, the WHOLE int8 k / v cache of every layer (the path
+    masks it rather than cutting it to the filled length), and the bf16
+    embedding matrix of the tied unembedding."""
+    h, ffn = cfg.hidden_size, cfg.ffn_dim
+    per_linear = {"q": h * h, "k": h * h, "v": h * h, "out": h * h,
+                  "fc1": h * ffn, "fc2": ffn * h}
+    layer_w = sum(per_linear.values()) + 4 * (5 * h + ffn) + 4 * 4 * h
+    layer_kv = 2 * batch * max_len * h
+    emb = cfg.vocab_size * cfg.embed_dim * emb_bytes
+    total = cfg.num_hidden_layers * (layer_w + layer_kv) + emb
+    return {"per_linear": per_linear, "layer_weights": layer_w, "layer_kv": layer_kv,
+            "embedding": emb, "total": total, "bound_ms": bound_ms(total, {})[0]}
+
+
 def llama_pack_shapes(cfg, group_size=64, salient_prop=0.05, align_k_groups=8,
                       align_o=2048):
     """(C, O_pad, kk, k_s) of the four packed linears that pack_model builds
@@ -144,7 +180,10 @@ def llama_bf16_decode_step_bytes(cfg, batch=4, max_len=512, w_bytes=2,
 
 if __name__ == "__main__":
     from smoothquant_tpu_torch.models.llama import LlamaConfig
+    from smoothquant_tpu_torch.models.opt import OPTConfig
 
     cfg = LlamaConfig.llama2_7b()
     print(json.dumps({"w4a4": llama_decode_step_bytes(cfg),
-                      "bf16": llama_bf16_decode_step_bytes(cfg)}, indent=1))
+                      "bf16": llama_bf16_decode_step_bytes(cfg),
+                      "opt_1_3b_int8": opt_int8_decode_step_bytes(OPTConfig.opt_1_3b())},
+                     indent=1))

@@ -27,3 +27,52 @@ def test_chip_smoke_fails_without_cuda(alone, tmp_path):
     assert run.returncode != 0
     assert run.stdout == ""
     assert "cuda" in run.stderr.lower()
+
+
+def test_opt_path_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's OPT phases end to end on the CPU at a small size: the
+    export, the K15a / K15b / K16 phases (the wrappers take their plain
+    versions here), the reference check, the accuracy check, the prefill
+    and the Generator; timing and the launch checks are stubbed (nothing
+    launches on the CPU), the launch counts each phase expects recorded."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.models.opt import OPTConfig
+
+    for name, value in dict(CALIB_SAMPLES=2, CALIB_LEN=32, OPT_BATCH=2, OPT_PROMPT=40,
+                            OPT_NEW=4, OPT_MAX_LEN=128).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
+    monkeypatch.setattr(cs, "profile", lambda fn, steps: (
+        fn(), {"idle_share": 0.5, "busy_ms_per_step": 0.0})[1])
+    expected = {}
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda path, launches, expect: expected.setdefault(path, expect))
+    printed = []
+    monkeypatch.setattr(cs, "emit", printed.append)
+
+    cfg = dataclasses.replace(OPTConfig.tiny(vocab_size=512), hidden_size=128, ffn_dim=256,
+                              num_attention_heads=2)
+    rows, launches = cs.run_opt(torch.device("cpu"), cfg, "card")
+    assert sum(launches.values()) == 0
+    by_kernel = {}
+    for r in rows:
+        by_kernel.setdefault(r["kernel"], []).append(r["site"])
+        assert r["max_err"] == 0 and r["n_diff"] == 0
+    assert len(by_kernel["int8_linear"]) == 12 and len(by_kernel["int8_bmm"]) == 4
+    assert len(by_kernel["norm_quant"]) == 2
+    per_forward = {"norm_quant": 4, "int8_linear": 12, "int8_bmm": 4}
+    assert expected["int8 OPT prefill"] == per_forward
+    assert expected["int8 OPT decode step"] == per_forward
+    assert expected["int8 OPT generator"] == {k: 4 * v for k, v in per_forward.items()}
+    phases = {p["phase"]: p for p in printed if "phase" in p}
+    assert phases["opt_reference_check"]["float32"]["rel_norm_err"] < 5e-2
+    # prompt, two warm-up steps, the counted step, three windows of 8, the profile
+    assert phases["opt_generator"]["position_after"] == 40 + 2 + 1 + 3 * 8 + 4
+    for s in ("tokens_40", "tokens_32"):
+        assert 0.0 <= phases["opt_accuracy"][s]["top1_agree"] <= 1.0

@@ -165,3 +165,25 @@ def test_stacked_gate(model):
     with pytest.raises(NotImplementedError, match="K10"):
         tllama.forward(m["tstacked"], torch.zeros((2, 1), dtype=torch.int64), m["tcfg"],
                        caches=qst)
+
+
+def test_fp_lm_head_logits_accumulate_in_f32():
+    """A bf16 Llama with a dict lm_head: the logits are the bf16 products
+    summed in f32, as the JAX einsum with preferred_element_type=f32 takes
+    them (llama.py:596-598) — not a bf16 product rounded to bf16 and cast.
+    No decoder layers, so both packages hand the lm_head the same bf16
+    hidden states (embedding → RMSNorm)."""
+    jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), num_hidden_layers=0,
+                               dtype="bfloat16")
+    tcfg = tllama.LlamaConfig(**{f.name: getattr(jcfg, f.name)
+                                 for f in dataclasses.fields(tllama.LlamaConfig)})
+    params = jllama.init_params(jax.random.PRNGKey(3), jcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    ids = np.random.default_rng(5).integers(0, jcfg.vocab_size, size=(2, 7))
+    ref = np.asarray(jax.jit(lambda p, i: jllama.forward(p, i, jcfg)[0])(
+        params, jnp.asarray(ids)))
+    got, _ = tllama.forward(tparams, torch.from_numpy(ids), tcfg)
+    assert got.dtype == torch.float32
+    _close(got, ref)
+    rounded = got.to(torch.bfloat16).float()
+    assert (got != rounded).float().mean() > 0.5     # f32 logits, not bf16 ones
