@@ -28,17 +28,20 @@ Then the Llama-2-7B paths:
    o_proj, int8 lm_head), then stacks the decode tree.
 3. Holds every kernel against its plain PyTorch version at the main paths'
    shapes (one JSON line per kernel and shape): K1 in its three modes at
-   the four decode linears (N = 4), K6 at the four prefill linears
-   (N = 1024), K2 and K3 at B = 4, S = 512, K11 over bf16 and int8
-   head-major caches at B = 4, S = 512; after the promoted tree is built,
-   K4 at its four prefill linears and the lm_head (N = 1024); after the
-   bf16 tree is built, K13 at the four decode linears (N = 4).  Times come
-   from CUDA events around launches queued behind a busy-wait, so they are
-   device time.
+   the four decode linears (N = 4, and 16 and 32), K6 at the four prefill
+   linears (N = 1024), K2 and K3 at B = 4, S = 512, K11 over bf16 and int8
+   head-major caches at B = 4, S = 512, K7a at qkv / gate_up / down and K5
+   at the four decode linears (N = 64; K5 in both input modes), K10 at
+   B = 64, S = 512 (per-slot positions, one past the end, then a scalar
+   one); after the promoted tree is built, K4 at its four prefill linears
+   and the lm_head (N = 1024); after the bf16 tree is built, K13 at the
+   four decode linears (N = 4).  Times come from CUDA events around
+   launches queued behind a busy-wait, so they are device time.
 4. Checks the kernel path against the plain path (the CPU) on a small
    model, f32 and bf16: the S-major prefill and one stacked decode step;
    a promoted prefill over head-major int8 caches and one Generator decode
-   step; one stacked bf16-baseline decode step.
+   step; one stacked bf16-baseline decode step; one stacked decode step
+   of 40 and of 16 rows over a head-major per-slot int8 pool.
 5. Serves requests through ContinuousBatcher(max_batch=4, max_len=512,
    quant_kv=True, smajor=True) prefilling on the nibble tree.
 6. Promotes a plain nibble pack of the same weights to int8
@@ -46,6 +49,14 @@ Then the Llama-2-7B paths:
    tree with no cache (prefill tokens/s), the Generator (4 prompts of 200
    tokens, 32 new, promoted prefill, nibble decode over int8 head-major
    caches), and the serving run again with the promoted prefill twin.
+   The 64-slot slice: ContinuousBatcher(max_batch=64, max_len=512,
+   quant_kv=True) at its default head-major pool with the promoted twin, a
+   warm wave, then 96 requests (100-240 prompt tokens, 32 new, chunk 8):
+   tokens/s, decode ms/step and device busy share of a steady window,
+   launches per step (K7a 96, K5 128, K10 32, K11 32, K1 none); then B = 64
+   decode from position 448 over the head-major and the S-major pool with
+   the same tree, window by window (K10 + K11 against K2 + K3), and a few
+   steps at B = 32 over the head-major pool (K1 at 128 a step).
 7. The bf16 baseline: pack_fp_decode + stack_layers of the same weights,
    decoded at B = 4, cache 512, from position 448 over a bf16 head-major
    cache, and the W4A4 stacked tree over the S-major cache at the same
@@ -53,8 +64,8 @@ Then the Llama-2-7B paths:
    the W4A4 one, by host clock and by device busy time.
 Every path runs with the launch counts reset just before it and read just
 after, and fails unless each kernel launched as often as the path implies.
-8. Prints the `kernels` JSON line (all ten kernels), the card line, then
-   the `ok` line last.
+8. Prints the `kernels` JSON line (all thirteen kernels), the card line,
+   then the `ok` line last.
 
 Exits non-zero on any failure; without CUDA, or without the port package
 beside it, it exits non-zero and prints no result.
@@ -68,6 +79,9 @@ import time
 
 SEED = 0
 MAX_BATCH, MAX_LEN, PREFILL_N = 4, 512, 1024
+# the 64-slot serving slice: the batcher's default head-major int8 pool, 96
+# requests; K1's largest row count (above it the linears take K7a + K5)
+SLOT_BATCH, SLOT_REQUESTS, MID_BATCH = 64, 96, 32
 DECODE_POS = 448             # the bench's aligned decode position (bench.py:179-180)
 GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 200, 32, 256
 # the real-INT8 OPT path: calibration on 8 of the export CLI's 512 samples
@@ -215,6 +229,15 @@ SOURCES = {
     "int4_group_matmul": (
         "smoothquant_tpu_torch/kernels/csrc/int4_group_matmul.cu",
         "smoothquant_tpu/kernels/int4_group_matmul.py:950"),
+    "int4_group_matmul_stacked": (
+        "smoothquant_tpu_torch/kernels/csrc/int4_group_matmul.cu",
+        "smoothquant_tpu/kernels/int4_group_matmul.py:807"),
+    "quantize_acts_grouped_t": (
+        "smoothquant_tpu_torch/kernels/csrc/act_prep.cu",
+        "smoothquant_tpu/kernels/act_prep.py:66"),
+    "write_quant_cache_stacked": (
+        "smoothquant_tpu_torch/kernels/csrc/cache_write.cu",
+        "smoothquant_tpu/kernels/cache_write.py:114"),
     "write_quant_cache_smajor": (
         "smoothquant_tpu_torch/kernels/csrc/attn_smajor.cu",
         "smoothquant_tpu/kernels/attn_smajor.py:340"),
@@ -248,8 +271,9 @@ def _sites(st):
             ("gate_up", mlp["gate_up_proj"], "rms"), ("down", mlp["down_proj"], None))
 
 
-def check_rawx(stacked, dev, gen):
-    """K1 vs plain at the four decode linears of the stacked tree (N=4)."""
+def check_rawx(stacked, dev, gen, n=MAX_BATCH):
+    """K1 vs plain at the four decode linears of the stacked tree, N rows
+    (4, the B = 4 paths; 16 and 32, the row-split grid)."""
     import torch
 
     from smoothquant_tpu_torch.kernels import int4_group_matmul as k1
@@ -261,7 +285,7 @@ def check_rawx(stacked, dev, gen):
         m = lin.meta
         n_layers, half, o = lin.w_qt.shape
         c = m.in_features
-        x = torch.randn((MAX_BATCH, c), generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
         norm = None
         x_sal = [None] * n_layers
         if mode == "rms":
@@ -280,13 +304,14 @@ def check_rawx(stacked, dev, gen):
         err = _close(f"K1 {site}", got, ref, 1e-2)
         w_lib = [torch.randn((c, o), generator=gen, device=dev).to(torch.bfloat16)
                  for _ in range(4)]
-        n_bytes, ops = roofline.rawx_cost(MAX_BATCH, c, o, 2 * half, m.group_size,
+        n_bytes, ops = roofline.rawx_cost(n, c, o, 2 * half, m.group_size,
                                           lin.w_sal_t.shape[1], norm=mode is not None,
                                           x_sal_external=mode == "mask")
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         rows.append(dict(
-            kernel="int4_group_matmul_stacked_rawx", site=site, mode=mode or "raw",
-            shape=[MAX_BATCH, c, o], max_err=err,
+            kernel="int4_group_matmul_stacked_rawx",
+            site=site if n == MAX_BATCH else f"{site}@{n}", mode=mode or "raw",
+            shape=[n, c, o], max_err=err, in_sum=n == MAX_BATCH,
             kernel_ms=device_ms(lambda i: k1.int4_group_matmul_stacked_rawx(*args(i), **kw),
                                 n_layers),
             plain_ms=device_ms(lambda i: k1.rawx_plain(*args(i), **kw), 4, reps=3),
@@ -603,6 +628,171 @@ def check_decode_attention_hm(cfg, dev, gen):
     return rows
 
 
+def _scale_ulps(name, got, ref, max_ulps=1):
+    """f32 scales: within max_ulps units in the last place (positive
+    floats order like their bit patterns); returns the largest distance."""
+    import torch
+
+    d = int((got.float().view(torch.int32) - ref.float().view(torch.int32)).abs().max())
+    if d > max_ulps:
+        raise AssertionError(f"{name}: scales {d} ulps apart")
+    return d
+
+
+def check_act_prep(stacked, dev, gen):
+    """K7a vs plain at the three sites that quantize through it at N > 32
+    (qkv and gate_up after their RMSNorm, down_proj), SLOT_BATCH rows of
+    bf16 with the k_ns tail zero as the path pads it: codes identical or
+    off by one in under 1e-4 of them, scales within one ulp.  No single
+    PyTorch call computes it."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import act_prep as k7
+    from smoothquant_tpu_torch.utils import roofline
+
+    n = SLOT_BATCH
+    rows = []
+    for site, lin, mode in _sites(stacked["layers"]["stacked"]):
+        if mode == "mask":
+            continue
+        m = lin.meta
+        k_ns_raw = m.in_features - m.num_salient
+        xs = [torch.nn.functional.pad(
+            torch.randn((n, k_ns_raw), generator=gen, device=dev) * (1 + 4 * i),
+            (0, m.k_ns - k_ns_raw)).to(torch.bfloat16) for i in range(4)]
+        kw = dict(group_size=m.group_size, act_bits=m.act_bits)
+        got = k7.quantize_acts_grouped_t(xs[0], **kw)
+        ref = k7.quantize_acts_grouped_t_plain(xs[0], **kw)
+        torch.cuda.synchronize()
+        err, n_diff = _codes_close(f"K7a {site}", got[0], ref[0])
+        ulps = _scale_ulps(f"K7a {site}", got[1], ref[1])
+        n_bytes, ops = roofline.act_quant_cost(n, m.k_ns, m.group_size)
+        b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        rows.append(dict(
+            kernel="quantize_acts_grouped_t", site=site, shape=[n, m.k_ns], max_err=err,
+            n_diff=n_diff, scale_ulps=ulps,
+            kernel_ms=device_ms(lambda i: k7.quantize_acts_grouped_t(xs[i % 4], **kw), 16),
+            plain_ms=device_ms(lambda i: k7.quantize_acts_grouped_t_plain(xs[i % 4], **kw), 4,
+                               reps=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, library=None))
+        emit(rows[-1])
+    return rows
+
+
+def check_gmm_stacked(stacked, dev, gen):
+    """K5 vs plain at the four decode linears, N = SLOT_BATCH, each in the
+    input mode the path gives it (K7a's layout; row-major codes at o_proj)
+    and qkv once more with row-major codes: the f32 instantiation within
+    1e-5 of the largest magnitude, the path's bf16 one within 1e-2 (one
+    bf16 rounding of sums taken in another order).  Yardstick: a bf16
+    torch.matmul at the same shape."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int4_group_matmul as k5
+    from smoothquant_tpu_torch.kernels.int4_group_matmul import _row_major
+    from smoothquant_tpu_torch.kernels.real_linear import many_rows_operands
+    from smoothquant_tpu_torch.utils import roofline
+
+    n = SLOT_BATCH
+    rows = []
+    cases = [(site, lin, False) for site, lin, _ in _sites(stacked["layers"]["stacked"])]
+    cases.append(("qkv", cases[0][1], True))
+    for site, lin, to_rows in cases:
+        m = lin.meta
+        n_layers, half, o = lin.w_qt.shape
+        c, k_s, last = m.in_features, lin.w_sal_t.shape[1], n_layers - 1
+        x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+        x_q, x_s, x_sal, pre = many_rows_operands(lin, x, last)
+        if to_rows:
+            x_q, x_s = (t.contiguous() for t in _row_major(x_q, x_s, pre))
+            pre = None
+        kw = dict(group_size=m.group_size, pre_laid=pre)
+        one = lambda t: t[last:last + 1]
+        f32 = (x_q, x_s, one(lin.w_qt), one(lin.w_scales_t), x_sal.float(),
+               one(lin.w_sal_t).float())
+        got = k5.int4_group_matmul_stacked(0, *f32, out_dtype=torch.float32, **kw)
+        ref = k5.int4_group_matmul_stacked_plain(0, *f32, out_dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        err = _close(f"K5 {site} f32", got, ref, 1e-5)
+        args = lambda i: (i % n_layers, x_q, x_s, lin.w_qt, lin.w_scales_t, x_sal, lin.w_sal_t)
+        kwb = dict(kw, out_dtype=torch.bfloat16)
+        got = k5.int4_group_matmul_stacked(*args(last), **kwb)
+        ref = k5.int4_group_matmul_stacked_plain(*args(last), **kwb)
+        torch.cuda.synchronize()
+        err_bf16 = _close(f"K5 {site} bf16", got, ref, 1e-2)
+        w_lib = [torch.randn((c, o), generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(4)]
+        n_bytes, ops = roofline.gmm_cost(n, o, 2 * half, m.group_size, k_s)
+        b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        rows.append(dict(
+            kernel="int4_group_matmul_stacked", site=f"{site}@rows" if to_rows else site,
+            mode="rows" if pre is None else "pre_laid", shape=[n, c, o], max_err=err,
+            max_err_bf16=err_bf16, in_sum=not to_rows,
+            kernel_ms=device_ms(lambda i: k5.int4_group_matmul_stacked(*args(i), **kwb),
+                                n_layers),
+            plain_ms=device_ms(lambda i: k5.int4_group_matmul_stacked_plain(*args(i), **kwb),
+                               2, reps=3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=device_ms(lambda i: x @ w_lib[i % 4], 16),
+            library="torch.matmul bf16 (N, C) @ (C, O), yardstick only"))
+        del w_lib
+        emit(rows[-1])
+    return rows
+
+
+def check_write_cache_hm(cfg, dev, gen):
+    """K10 vs plain at B = SLOT_BATCH, S = MAX_LEN: per-slot positions
+    (one past the end, the last row, the first), then one scalar position;
+    codes identical or off by one in under 1e-4, scales within one ulp,
+    every other row untouched."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import cache_write as k10
+    from smoothquant_tpu_torch.models.common import QuantKVCache, rotary_cos_sin
+    from smoothquant_tpu_torch.utils import roofline
+
+    b, h, d = SLOT_BATCH, cfg.num_key_value_heads, cfg.head_dim
+    n_l = 2
+    c = QuantKVCache.create(b, MAX_LEN, h, d, device=dev, per_slot=True, n_layers=n_l)
+    for t in (c.k_q, c.v_q):
+        t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev, dtype=torch.int8))
+    for t in (c.k_scale, c.v_scale):
+        t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02 + 0.005)
+    pos = torch.randint(0, MAX_LEN, (b,), generator=gen, device=dev, dtype=torch.int32)
+    pos[:3] = torch.tensor([MAX_LEN + 88, MAX_LEN - 1, 0], device=dev)
+    k = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    bufs = lambda x: (x.k_q, x.v_q, x.k_scale, x.v_scale)
+    errs, ulps = [], []
+    for p in (pos, torch.tensor(200, device=dev, dtype=torch.int32)):
+        cos, sin = rotary_cos_sin(p.long().reshape(-1, 1), d)
+        a = QuantKVCache(*(t.clone() for t in bufs(c)), c.pos)
+        ref = QuantKVCache(*(t.clone() for t in bufs(c)), c.pos)
+        k10.write_quant_cache_stacked(n_l - 1, p, k, v, cos, sin, *bufs(a))
+        k10.write_quant_cache_stacked_plain(n_l - 1, p, k, v, cos, sin, *bufs(ref))
+        torch.cuda.synchronize()
+        for name, x, y in zip(("k_q", "v_q"), bufs(a)[:2], bufs(ref)[:2]):
+            errs.append(_codes_close(f"K10 {name}", x, y)[0])
+        for name, x, y in zip(("k_scale", "v_scale"), bufs(a)[2:], bufs(ref)[2:]):
+            ulps.append(_scale_ulps(f"K10 {name}", x, y))
+        if not torch.equal(a.k_q[0], c.k_q[0]):
+            raise AssertionError("K10 wrote outside its layer")
+        del a, ref
+    cos, sin = rotary_cos_sin(pos.long()[:, None], d)
+    n_bytes, ops = roofline.write_cache_cost(b, h, d)
+    b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+    row = dict(
+        kernel="write_quant_cache_stacked", shape=[b, h, d, MAX_LEN], max_err=max(errs),
+        scale_ulps=max(ulps),
+        kernel_ms=device_ms(lambda i: k10.write_quant_cache_stacked(
+            i % n_l, pos, k, v, cos, sin, *bufs(c)), 16),
+        plain_ms=device_ms(lambda i: k10.write_quant_cache_stacked_plain(
+            i % n_l, pos, k, v, cos, sin, *bufs(c)), 8, reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library=None)
+    emit(row)
+    return [row]
+
+
 # ---------------------------------------------------------------- OPT kernels
 
 OPT_LINEARS = (  # (site, Int8OPTLayerParams field, ReLU, int8 output)
@@ -775,13 +965,19 @@ def check_no_fallback(dev):
     version."""
     import torch
 
+    from smoothquant_tpu_torch.kernels import act_prep as k7
+    from smoothquant_tpu_torch.kernels import cache_write as k10
     from smoothquant_tpu_torch.kernels import decode_attention as k11
     from smoothquant_tpu_torch.kernels import fp_matmul as k13
+    from smoothquant_tpu_torch.kernels import int4_group_matmul as k1
     from smoothquant_tpu_torch.kernels import int8 as k15
     from smoothquant_tpu_torch.kernels import int8_prefill as k4
     from smoothquant_tpu_torch.kernels import norm_quant as k16
 
     z8 = torch.zeros((64, 64), dtype=torch.int8, device=dev)
+    w4 = torch.zeros((1, 128, 256), dtype=torch.int8, device=dev)      # K = 256
+    f32 = lambda *shape: torch.zeros(shape, device=dev)
+    kv = (f32(2, 4, 64),) * 2 + (f32(2, 1, 64),) * 2
     one = torch.ones((64, 1), device=dev)
     no_sal = (torch.zeros((64, 0), device=dev), torch.zeros((0, 64), device=dev))
     cases = {  # name: (call, the exception it must raise)
@@ -812,6 +1008,20 @@ def check_no_fallback(dev):
                         ValueError),
         "K16 int8 x": (lambda: k16.layer_norm_q(z8, *(torch.ones(64, device=dev),) * 2, 1.0),
                        TypeError),
+        "K1 33 rows": (lambda: k1.int4_group_matmul_stacked_rawx(
+            0, f32(33, 256), None, w4, f32(1, 4, 256), f32(1, 0, 256), group_size=64,
+            act_bits=4, num_salient=0, norm_kind=None), NotImplementedError),
+        "K5 group size 128": (lambda: k1.int4_group_matmul_stacked(
+            0, z8[:, :1].expand(64, 256).contiguous(), f32(64, 2), w4, f32(1, 2, 256),
+            f32(64, 0), f32(1, 0, 256), group_size=128), ValueError),
+        "K5 float codes": (lambda: k1.int4_group_matmul_stacked(
+            0, f32(4, 8, 64), f32(4, 8), w4, f32(1, 4, 256), f32(8, 0), f32(1, 0, 256),
+            group_size=64, pre_laid=8), TypeError),
+        "K7a group size 256": (lambda: k7.quantize_acts_grouped_t(
+            f32(8, 512), group_size=256, act_bits=4), ValueError),
+        "K10 float cache": (lambda: k10.write_quant_cache_stacked(
+            0, torch.zeros(2, dtype=torch.int32, device=dev), *kv, f32(1, 2, 4, 8, 64),
+            f32(1, 2, 4, 8, 64), f32(1, 2, 4, 8), f32(1, 2, 4, 8)), TypeError),
     }
     raised = {}
     for name, (fn, expected) in cases.items():
@@ -833,7 +1043,10 @@ def reference_check(dev):
         int8 caches and one decode step on the per-layer nibble tree (K4,
         K6, K11);
       * bf16_baseline: one stacked pack_fp_decode step over a stacked fp
-        head-major cache (K13, K11).
+        head-major cache (K13, K11);
+      * head_major_b40 / head_major_b16: one stacked decode step of 40 and
+        16 rows over a random head-major int8 pool with per-slot positions
+        and a key mask (K7a + K5, or K1; K10, K11).
     Tolerances, relative to the largest logit: 2e-2 in f32 and 5e-2 in bf16
     for the S-major path, 1e-3 / 2e-2 for the unquantized bf16
     baseline (f32 sums in another order).  The generator path's 256-row
@@ -842,7 +1055,9 @@ def reference_check(dev):
     rounding edge, which attention spreads to later rows (bf16 activations
     round coarser, so more codes move); its logits are held to 5e-2 (f32)
     and 1.5e-1 (bf16) of their norm instead — a wrong kernel misses by
-    their whole norm."""
+    their whole norm.  So are the head-major steps: at 40 and 16 rows a
+    per-token int4 code on a rounding edge moves a row's logits (2 of 40
+    rows by up to 0.17 between the plain path and the JAX package)."""
     import dataclasses
 
     import torch
@@ -852,8 +1067,10 @@ def reference_check(dev):
 
     out = {}
     for dtype_name, tol in (
-            ("float32", {"smajor": 2e-2, "generator": 5e-2, "bf16_baseline": 1e-3}),
-            ("bfloat16", {"smajor": 5e-2, "generator": 1.5e-1, "bf16_baseline": 2e-2})):
+            ("float32", {"smajor": 2e-2, "generator": 5e-2, "bf16_baseline": 1e-3,
+                         "head_major_b40": 5e-2, "head_major_b16": 5e-2}),
+            ("bfloat16", {"smajor": 5e-2, "generator": 1.5e-1, "bf16_baseline": 2e-2,
+                          "head_major_b40": 1.5e-1, "head_major_b16": 1.5e-1})):
         cfg = dataclasses.replace(
             llama.LlamaConfig.tiny(), hidden_size=512, intermediate_size=512,
             num_attention_heads=8, num_key_value_heads=8, num_hidden_layers=2,
@@ -865,6 +1082,7 @@ def reference_check(dev):
         gen = torch.Generator().manual_seed(SEED + 1)
         prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
         long_prompt = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
+        pools = {b: _random_pool(cfg, b, 128, gen) for b in (40, 16)}
         logits = {}
         for name, d in (("plain", "cpu"), ("kernel", dev)):
             p, s = tree_to(packed, d), tree_to(stacked, d)
@@ -888,6 +1106,11 @@ def reference_check(dev):
             logits[name] = {"smajor": torch.cat([pre, step], dim=1),
                             "generator": torch.cat([g_pre[:, -1:], g_step], dim=1),
                             "bf16_baseline": b_step}
+            for b, (pool, tok, pos, mask) in pools.items():
+                hm = QuantKVCache(*(t.clone().to(d) for t in pool), pos.clone().to(d))
+                logits[name][f"head_major_b{b}"], _ = llama.forward(
+                    s, tok.to(d), cfg, caches=hm, positions=pos[0, :, None].to(d),
+                    attn_mask=mask.to(d))
             logits[name] = {k: v.cpu() for k, v in logits[name].items()}
         res = {}
         for part, ref in logits["plain"].items():
@@ -897,7 +1120,7 @@ def reference_check(dev):
                 raise AssertionError(f"reference check {part}: non-finite or misshapen logits")
             name = f"reference check {dtype_name} {part}"
             res[part] = dict(argmax_agree=float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
-            if part == "generator":
+            if part == "generator" or part.startswith("head_major"):
                 rel_norm = float((got.float() - ref.float()).norm() / ref.float().norm())
                 if not rel_norm <= tol[part]:
                     raise AssertionError(f"{name}: relative norm error {rel_norm} > {tol[part]}")
@@ -908,6 +1131,22 @@ def reference_check(dev):
                                  tolerance_rel_to_max=tol[part])
         out[dtype_name] = res
     return out
+
+
+def _random_pool(cfg, b, s, gen):
+    """A stacked head-major int8 pool of random codes and scales on the CPU,
+    with ragged per-slot positions, a key mask with holes and a token per
+    slot: ((k_q, v_q, k_scale, v_scale), tok, (L, B) pos, mask)."""
+    import torch
+
+    shape = (cfg.num_hidden_layers, b, cfg.num_key_value_heads, s, cfg.head_dim)
+    vals = [torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(shape[:4], generator=gen) * 0.015 + 0.005 for _ in range(2)]
+    pos = torch.randint(2, s - 8, (b,), generator=gen, dtype=torch.int32)
+    mask = (torch.arange(s)[None, :] <= pos[:, None]) & (torch.rand((b, s), generator=gen) > 0.1)
+    mask[torch.arange(b), pos.long()] = True
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen)
+    return (*vals, *scales), tok, pos[None].expand(cfg.num_hidden_layers, b).contiguous(), mask
 
 
 def _path_launches(fn):
@@ -929,10 +1168,30 @@ def _check_launches(path, launches, expect):
         raise AssertionError(f"{path}: launch counts {launches} != expected {expect}")
 
 
-def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool):
-    """Serve requests through the batcher, prefilling on `prefill_tree` (the
-    nibble tree, or its promoted int8 twin); return metrics and the
-    launches of the measured run, checked against what the path implies."""
+def step_launches(cfg, batch, smajor):
+    """Kernel launches of one stacked W4A4 decode step of `batch` rows: the
+    four linears a layer on K1 up to MID_BATCH rows, above on K7a (qkv,
+    gate_up, down) and K5; the cache write and attention K2 + K3 over the
+    S-major pool, K10 + K11 over the head-major one."""
+    n_l = cfg.num_hidden_layers
+    out = ({"int4_group_matmul_stacked_rawx": 4 * n_l} if batch <= MID_BATCH else
+           {"quantize_acts_grouped_t": 3 * n_l, "int4_group_matmul_stacked": 4 * n_l})
+    if smajor:
+        out.update(write_quant_cache_smajor=n_l, decode_attention_smajor_stacked=n_l)
+    else:
+        out.update(write_quant_cache_stacked=n_l, decode_attention_stacked=n_l)
+    return out
+
+
+def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool, batch=MAX_BATCH,
+          smajor=True, n_requests=8, decode_window=None):
+    """Serve requests through ContinuousBatcher(max_batch=batch, quant_kv=True,
+    smajor), prefilling on `prefill_tree` (the nibble tree, or its promoted
+    int8 twin): a warm wave, then n_requests of 100-240 prompt tokens and 32
+    new, chunk 8.  Returns metrics and the launches of the measured run,
+    checked against what the path implies; with decode_window (default: the
+    nibble prefill), also decode ms/step over a steady decode-only window and
+    its device busy time."""
     import numpy as np
     import torch
 
@@ -940,9 +1199,9 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool):
     from smoothquant_tpu_torch.models import llama
     from smoothquant_tpu_torch.serve.batching import ContinuousBatcher, Request
 
-    batcher = ContinuousBatcher(llama, stacked, cfg, max_batch=MAX_BATCH,
+    batcher = ContinuousBatcher(llama, stacked, cfg, max_batch=batch,
                                 max_len=MAX_LEN, quant_kv=True,
-                                prefill_params=prefill_tree, smajor=True, device=dev)
+                                prefill_params=prefill_tree, smajor=smajor, device=dev)
     prefill = {"rows": [], "tokens": 0, "s": 0.0}
     inner = batcher._prefill
 
@@ -963,12 +1222,12 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool):
             0, cfg.vocab_size, size=(int(rng.integers(100, 240)),)),
             max_new_tokens=new) for i in range(n)]
 
-    for r in make(4, 1000, 8):                     # warm-up wave
+    for r in make(batch, 1000, 8):                 # warm-up wave
         batcher.submit(r)
     batcher.run_to_completion(chunk=8)
     torch.cuda.synchronize()
 
-    reqs = make(8, 0, 32)
+    reqs = make(n_requests, 0, 32)
     for r in reqs:
         batcher.submit(r)
     prefill.update(rows=[], tokens=0, s=0.0)
@@ -982,9 +1241,8 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool):
             and all(0 <= t < cfg.vocab_size for t in toks)):
         raise AssertionError("serving: unfinished request or token out of range")
     n_l = cfg.num_hidden_layers
-    expect = {"int4_group_matmul_stacked_rawx": 4 * n_l * steps,
-              "write_quant_cache_smajor": n_l * steps,
-              "decode_attention_smajor_stacked": n_l * steps}
+    per_step = step_launches(cfg, batch, smajor)
+    expect = {k: v * steps for k, v in per_step.items()}
     if promoted:
         # K4 runs the prefill linears of rows × bucket >= 256; the lm_head
         # sees each row's last position only
@@ -996,12 +1254,13 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool):
     _check_launches("serving", launches, expect)
     metrics = dict(
         prefill_tree="promoted int8" if promoted else "nibble",
+        pool="S-major" if smajor else "head-major", max_batch=batch,
         requests=len(reqs), generated_tokens=len(toks), decode_steps=steps,
-        prefill_rows=prefill["rows"], serving_wall_s=wall,
+        launches_per_step=per_step, prefill_rows=prefill["rows"], serving_wall_s=wall,
         serving_tokens_per_s=len(toks) / wall,
         prefill_tokens_per_s=prefill["tokens"] / prefill["s"])
-    if not promoted:
-        steady = make(4, 2000, 64)                 # decode-only window
+    if decode_window if decode_window is not None else not promoted:
+        steady = make(batch, 2000, 64)             # decode-only window
         for r in steady:
             batcher.submit(r)
         batcher.step_chunk(8)
@@ -1011,9 +1270,10 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool):
             batcher.step_chunk(8)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t1
+        trace = profile(lambda: batcher.step_chunk(4), 4)
         metrics.update(decode_ms_per_step=1e3 * decode_s / 32,
-                       decode_tokens_per_s=32 * MAX_BATCH / decode_s,
-                       decode_trace=profile(lambda: batcher.step_chunk(4), 4))
+                       decode_tokens_per_s=32 * batch / decode_s,
+                       busy_share=1.0 - trace["idle_share"], decode_trace=trace)
     batcher.run_to_completion(chunk=8)
     return metrics, launches
 
@@ -1043,14 +1303,15 @@ def profile(fn, steps: int) -> dict:
 
 
 def aligned_decoder(tree, cache, cfg, dev, path: str, expect_per_step: dict):
-    """A decode step of B = 4 rows over a stacked cache filled to the
-    bench's aligned position: warmed up, its launches checked; returns
+    """A decode step of the cache's B rows over a stacked cache filled to
+    the bench's aligned position: warmed up, its launches checked; returns
     (step(n), the launches of one step)."""
     import torch
 
     from smoothquant_tpu_torch.models import llama
 
-    tok = torch.randint(0, cfg.vocab_size, (MAX_BATCH, 1), device=dev,
+    b = (cache.k if hasattr(cache, "k") else cache.k_q).shape[1]
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(SEED + 5))
 
     @torch.no_grad()
@@ -1068,7 +1329,7 @@ def aligned_decoder(tree, cache, cfg, dev, path: str, expect_per_step: dict):
     return step, launches
 
 
-def decode_windows(steps: dict, n_windows=3, window=8) -> dict:
+def decode_windows(steps: dict, n_windows=3, window=8, batch=MAX_BATCH) -> dict:
     """ms/step of each decoder over `window` steps, the decoders taking
     turns window by window (host clock, which moves between runs of one
     tree), then each one's device busy time under torch.profiler."""
@@ -1085,9 +1346,58 @@ def decode_windows(steps: dict, n_windows=3, window=8) -> dict:
     for name, step in steps.items():
         ms = statistics.median(out[name]["windows_ms_per_step"])
         trace = profile(lambda: step(4), 4)
-        out[name].update(ms_per_step=ms, tokens_per_s=MAX_BATCH * 1e3 / ms,
+        out[name].update(ms_per_step=ms, tokens_per_s=batch * 1e3 / ms,
                          busy_ms_per_step=trace["busy_ms_per_step"], trace=trace)
     return out
+
+
+def slot_decode(stacked, cfg, dev, card):
+    """B = SLOT_BATCH decode steps from DECODE_POS with the same tree over
+    the head-major pool (per-slot positions: K10 + K11) and the S-major one
+    (K2 + K3), taking turns window by window; then a few steps of
+    MID_BATCH rows over the head-major pool, whose linears take K1.  Each
+    pool is freed before the next is made.  Returns the launches of the
+    counted steps."""
+    from collections import Counter
+
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+
+    launches = Counter()
+    steps = {}
+    caches = {}
+    for name, smajor in (("head_major", False), ("s_major", True)):
+        caches[name] = llama.stacked_caches(cfg, SLOT_BATCH, MAX_LEN, pos=DECODE_POS,
+                                            smajor=smajor, per_slot=True, device=dev)
+        steps[name], used = aligned_decoder(
+            stacked, caches[name], cfg, dev, f"{name} decode step B={SLOT_BATCH}",
+            step_launches(cfg, SLOT_BATCH, smajor))
+        launches.update(used)
+    dec = decode_windows(steps, batch=SLOT_BATCH)
+    for name, cache in caches.items():
+        emit({"phase": f"slot_{name}_decode", "card": card, "batch": SLOT_BATCH,
+              "cache": MAX_LEN, "positions": [DECODE_POS, int(cache.pos.flatten()[0])],
+              **dec[name]})
+    emit({"phase": "slot_head_major_vs_s_major", "card": card,
+          "host_clock": dec["head_major"]["ms_per_step"] / dec["s_major"]["ms_per_step"],
+          "device_busy": (dec["head_major"]["busy_ms_per_step"]
+                          / dec["s_major"]["busy_ms_per_step"])})
+    del steps, caches, dec
+    torch.cuda.empty_cache()
+    mid = llama.stacked_caches(cfg, MID_BATCH, MAX_LEN, pos=DECODE_POS, smajor=False,
+                               per_slot=True, device=dev)
+    step, used = aligned_decoder(stacked, mid, cfg, dev, f"head-major decode step "
+                                 f"B={MID_BATCH}", step_launches(cfg, MID_BATCH, False))
+    launches.update(used)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(4)
+    torch.cuda.synchronize()
+    emit({"phase": "mid_decode", "card": card, "batch": MID_BATCH, "cache": MAX_LEN,
+          "ms_per_step": 1e3 * (time.perf_counter() - t0) / 4, "launches_per_step": used,
+          "positions": [DECODE_POS, int(mid.pos.flatten()[0])]})
+    return launches
 
 
 def full_prefill(promoted, cfg, dev):
@@ -1432,24 +1742,27 @@ def run_opt(dev, cfg, card: str):
 
 def kernels_line(rows, launches):
     """One entry per kernel: the call sites of one layer's worth of work
-    summed (K1, K6, K4 with the lm_head, K13; K11 its bf16 and int8
-    bodies; K15a its six linears, K15b its two products and K16 its
-    LayerNorm, each at the prefill and at the decode size), the errors the
+    summed (K1 at N = 4, K5, K6, K4 with the lm_head, K13, K7a's three
+    sites; K11 its bf16 and int8 bodies; K15a its six linears, K15b its two
+    products and K16 its LayerNorm, each at the prefill and at the decode
+    size; rows marked in_sum=False — K1 at 16 and 32 rows, K5's extra
+    row-major qkv — are reported on their own lines only), the errors the
     largest seen; launches are the main paths' runs summed."""
     out = []
     for name, (src, replaces) in SOURCES.items():
-        rs = [r for r in rows if r["kernel"] == name]
+        every = [r for r in rows if r["kernel"] == name]
+        rs = [r for r in every if r.get("in_sum", True)]
         lib = [r["library_ms"] for r in rs]
         bound = sum(r["bound_ms"] for r in rs)
         out.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches.get(name, 0),
-            max_abs_err=max(r["max_err"] for r in rs),
+            max_abs_err=max(r["max_err"] for r in every),
             ms=sum(r["kernel_ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
             bound_ms=bound,
             bound_by=max(rs, key=lambda r: r["bound_ms"])["bound_by"],
             library_ms=None if None in lib else sum(lib),
-            sites=[r.get("site", "all") for r in rs]))
+            sites=[r.get("site", "all") for r in every]))
     return {"kernels": out}
 
 
@@ -1475,6 +1788,10 @@ def run(dev, cfg, card: str):
     rows = (check_rawx(stacked, dev, gen) + check_gmm(packed, cfg, dev, gen)
             + check_write_cache(cfg, dev, gen) + check_decode_attention(cfg, dev, gen)
             + check_decode_attention_hm(cfg, dev, gen))
+    for n in (16, MID_BATCH):
+        rows += check_rawx(stacked, dev, gen, n)
+    rows += (check_act_prep(stacked, dev, gen) + check_gmm_stacked(stacked, dev, gen)
+             + check_write_cache_hm(cfg, dev, gen))
 
     emit({"phase": "no_fallback", "raised": check_no_fallback(dev)})
     emit({"phase": "reference_check", **reference_check(dev)})
@@ -1485,10 +1802,8 @@ def run(dev, cfg, card: str):
     emit({"phase": "serving", "card": card, **metrics, "launches": used})
 
     w4a4_cache = llama.stacked_caches(cfg, MAX_BATCH, MAX_LEN, pos=DECODE_POS, device=dev)
-    w4a4_step, used = aligned_decoder(
-        stacked, w4a4_cache, cfg, dev, "w4a4 decode step",
-        {"int4_group_matmul_stacked_rawx": 4 * n_l, "write_quant_cache_smajor": n_l,
-         "decode_attention_smajor_stacked": n_l})
+    w4a4_step, used = aligned_decoder(stacked, w4a4_cache, cfg, dev, "w4a4 decode step",
+                                      step_launches(cfg, MAX_BATCH, True))
     launches.update(used)
 
     t0 = time.perf_counter()
@@ -1510,8 +1825,16 @@ def run(dev, cfg, card: str):
     launches.update(used)
     emit({"phase": "serving", "card": card, **metrics, "launches": used})
 
-    del promoted, packed
+    del packed
     torch.cuda.empty_cache()
+    metrics, used = serve(promoted, stacked, cfg, dev, promoted=True, batch=SLOT_BATCH,
+                          smajor=False, n_requests=SLOT_REQUESTS, decode_window=True)
+    launches.update(used)
+    emit({"phase": "slot_serving", "card": card, **metrics, "launches": used,
+          "decode_step_bytes": roofline.llama_decode_step_bytes(cfg, batch=SLOT_BATCH)})
+    del promoted
+    torch.cuda.empty_cache()
+    launches.update(slot_decode(stacked, cfg, dev, card))
     t0 = time.perf_counter()
     bf16 = build_bf16(fp, cfg)
     del fp

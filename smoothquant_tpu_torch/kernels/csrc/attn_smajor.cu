@@ -10,10 +10,9 @@
 // write_quant_cache_smajor (pallas_call at :340).  It moves a few KB per
 // call (B·H_kv·D values in, the same count of int8 bytes out), so launch
 // latency, not bytes or operations, bounds it.  A block per batch row and
-// 8 kv heads, a warp per head (k, then v): rotary on k in f32 (lane-half rotate,
-// rounded multiplies and add kept separate so the compiler cannot contract
-// them into an FMA), per-head absmax, scale = max(absmax,1e-8)·(1/127), round
-// half to even, and an IN-PLACE write of row min(pos[b], S-1) — the
+// 8 kv heads, a warp per head (k, then v): warp_quantize_kv (kv_quant.cuh,
+// shared with K10) with the rounded rotary products kept apart, as the
+// Pallas body rounds them, and an IN-PLACE write of row min(pos[b], S-1) — the
 // position is read from a device tensor and clamped on the device, because
 // the batcher keeps advancing dead slots past the cache length.
 //
@@ -33,7 +32,7 @@
 // With the whole score row in shared memory the max is exact, which is what
 // the TPU kernel's online softmax computes at S ≤ 512 (one 512-wide tile).
 // Split-S flash decoding is later work.
-#include "common.cuh"
+#include "kv_quant.cuh"
 
 namespace {
 
@@ -42,7 +41,6 @@ constexpr int ATTN_WARPS = 16;
 constexpr int ATTN_THREADS = 32 * ATTN_WARPS;
 constexpr int UNROLL = 4;          // cache rows each warp has in flight
 constexpr int MAX_REP = 8;
-constexpr int MAX_D_PER_LANE = 8;  // head_dim <= 256
 
 template <typename T>
 __global__ void write_cache_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
@@ -52,43 +50,16 @@ __global__ void write_cache_kernel(const T* __restrict__ k_new, const T* __restr
                                    int8_t* __restrict__ vq, float* __restrict__ ks,
                                    float* __restrict__ vs, int S, int H, int D, int rotary) {
   const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
   const int h = blockIdx.y * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (h >= H) return;
   int p = pos[b];
   p = p < 0 ? 0 : (p > S - 1 ? S - 1 : p);
-  const int hd = H * D;
-  for (int which = 0; which < 2; ++which) {
-    const T* src = (which == 0 ? k_new : v_new) + ((size_t)b * H + h) * D;
-    const bool rot = which == 0 && rotary;
-    float vals[MAX_D_PER_LANE];
-    float absmax = 0.0f;
-#pragma unroll
-    for (int t = 0; t < MAX_D_PER_LANE; ++t) {
-      const int d = lane + 32 * t;
-      float x = 0.0f;
-      if (d < D) {
-        x = to_f<T>(src[d]);
-        if (rot) {
-          const float partner =
-              d < D / 2 ? -to_f<T>(src[d + D / 2]) : to_f<T>(src[d - D / 2]);
-          x = __fadd_rn(__fmul_rn(x, cos_t[(size_t)b * D + d]),
-                        __fmul_rn(partner, sin_t[(size_t)b * D + d]));
-        }
-      }
-      vals[t] = x;
-      absmax = fmaxf(absmax, fabsf(x));
-    }
-    absmax = warp_max(absmax);
-    const float scale = fmaxf(absmax, 1e-8f) * (1.0f / 127.0f);
-    int8_t* dst = (which == 0 ? kq : vq) + ((size_t)b * S + p) * hd + (size_t)h * D;
-#pragma unroll
-    for (int t = 0; t < MAX_D_PER_LANE; ++t) {
-      const int d = lane + 32 * t;
-      if (d < D) dst[d] = (int8_t)(int)rintf(vals[t] / scale);
-    }
-    if (lane == 0) (which == 0 ? ks : vs)[((size_t)b * H + h) * S + p] = scale;
-  }
+  const size_t row = ((size_t)b * S + p) * H * D + (size_t)h * D;
+  const size_t sc = ((size_t)b * H + h) * S + p;
+  const size_t src = ((size_t)b * H + h) * D;
+  warp_quantize_kv<T, false>(k_new + src, D, rotary != 0, cos_t + (size_t)b * D,
+                             sin_t + (size_t)b * D, kq + row, ks + sc);
+  warp_quantize_kv<T, false>(v_new + src, D, false, nullptr, nullptr, vq + row, vs + sc);
 }
 
 // K3 for head_dim = 32·DPL: lane l of a warp owns dims [l·DPL, l·DPL+DPL).
@@ -252,7 +223,7 @@ SQ_EXPORT int sq_write_cache_smajor(const void* k_new, const void* v_new, const 
                                     void* ks, void* vs, int B, int S, int H, int D,
                                     int rotary, int x_dt, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D > 32 * MAX_D_PER_LANE) return (int)cudaErrorInvalidValue;
+  if (D > 32 * KVQ_MAX_D_PER_LANE) return (int)cudaErrorInvalidValue;
   const int warps = H < 8 ? H : 8;
   const dim3 grid(B, (H + warps - 1) / warps);
   if (x_dt == DT_BF16)

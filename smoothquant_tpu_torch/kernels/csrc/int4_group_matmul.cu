@@ -1,31 +1,36 @@
-// W4A4 group matmul kernels for Hopper: the decode linear (K1) and the
-// prefill linear (K6).
+// W4A4 group matmul kernels for Hopper: the decode linear (K1), the
+// prefill linear (K6) and the stacked linear on quantized activations (K5).
 //
 // K1 replaces smoothquant_tpu/kernels/int4_group_matmul.py
-// int4_group_matmul_stacked_rawx (pallas_call at :649).  At decode N (the
-// batch, 4) it is bound by the bytes of the layer's packed weight: ~0.56
-// bytes per weight element (nibbles + bf16 group scales) plus the bf16
-// salient block, against 2·N int ops per element.  The design spends
-// nothing on the activations beyond one tiny pre-pass and spreads the
-// weight stream over every SM, in three launches behind one entry, sq_rawx:
+// int4_group_matmul_stacked_rawx (pallas_call at :649), at N <= 32 token
+// rows.  At decode N (the batch) it is bound by the bytes of the layer's
+// packed weight: ~0.56 bytes per weight element (nibbles + bf16 group
+// scales) plus the bf16 salient block, against 2·N int ops per element.
+// The design spends nothing on the activations beyond one tiny pre-pass and
+// spreads the weight stream over every SM, in three launches behind one
+// entry, sq_rawx:
 //   * rawx_prep_kernel (a block per token row and 8 groups, a warp per group,
 //     plus a block per row for the salient slice) does the optional RMSNorm
 //     or 0/1 channel mask, the tail-mode salient split and the per-(row,
-//     group) activation quantize ONCE (scale = max(absmax,1e-5)·(1/qmax),
-//     the f32 reciprocal multiply XLA compiles the JAX division to; round
-//     half to even), writing int8 codes, f32 scales, int32 code sums
-//     and the salient activations rounded to the compute dtype.  (The TPU
-//     kernel quantized at j == 0 into VMEM scratch; here one pre-pass
-//     serves every O-tile instead of each block redoing it.)
+//     group) activation quantize ONCE (group_quant.cuh, shared with K7a:
+//     scale = max(absmax,1e-5)·(1/qmax), the f32 reciprocal multiply XLA
+//     compiles the JAX division to; round half to even), writing int8 codes,
+//     f32 scales, int32 code sums and the salient activations rounded to the
+//     compute dtype.  (The TPU kernel quantized at j == 0 into VMEM scratch;
+//     here one pre-pass serves every O-tile instead of each block redoing it.)
 //   * rawx_main_kernel is split over O (4 columns a lane, 512 a block) and over
 //     K (group pairs, plus 64-row slices of the salient block), so a
 //     Llama-2-7B decode linear launches 250-500 blocks.  Each lane loads
 //     the 32-bit words of 16 packed rows of its 4 columns before using
-//     any (loads in flight are what a bandwidth-bound kernel needs),
-//     its accumulators sized for N <= 4 or N <= 8; it transposes bytes
-//     with __byte_perm into one K-packed word per column, masks the biased
-//     low/high nibbles (channel r and r + K/2) and feeds __dp4a; the +8
-//     bias leaves the int32 sum as −8·Σx_q per group.  The epilogue is
+//     any (loads in flight are what a bandwidth-bound kernel needs), its
+//     accumulators sized for 4 or 8 token rows; above 8 rows the grid also
+//     splits the rows into chunks of 8, the chunk varying fastest so the
+//     blocks reading one weight tile run together and L2 serves all but the
+//     first (the weight streams from DRAM about once; registers, not the
+//     weight, are what a 32-row accumulator would not fit).  It transposes
+//     bytes with __byte_perm into one K-packed word per column, masks the
+//     biased low/high nibbles (channel r and r + K/2) and feeds __dp4a; the
+//     +8 bias leaves the int32 sum as −8·Σx_q per group.  The epilogue is
 //     (p − 8Σx)·s_x·s_w in f32.  Each split writes its own f32 partial.
 //   * rawx_reduce_kernel sums the salient partials, then the group partials in
 //     K order (the TPU kernel seeded its accumulator with the salient dot
@@ -41,18 +46,29 @@
 // chain per half gives the group's int32 product and the (p − 8Σx)·s_x·s_w
 // epilogue folds it into f32 accumulators seeded by the salient fp dot.
 // Loads are not overlapped with the mma (no cp.async / TMA pipeline yet).
-#include "common.cuh"
+//
+// K5 replaces int4_group_matmul_stacked (pallas_call at :807): layer i of a
+// stacked (L, K/2, O) pack on quantized activations, the decode linears of
+// 33+ token rows (K7a's pre-laid (G, N_pad, gs) codes, or (N, K) row-major
+// ones from the identity layout's quantize).  At N = 64 it is still bound by
+// the weight's bytes (2·64 int ops per ~0.56-byte element, ~230 ops a byte
+// against the card's ~590), so it is K6's tile kernel with strided
+// activation addressing, on the layer's base pointers, its f32 result cast
+// to the output dtype, and a split over the group pairs (f32 partials, then
+// the fixed-order reduce) where the 64-wide O-tiles alone give fewer than
+// ~6 blocks per SM (every decode linear at N = 64).
+#include "group_quant.cuh"
 
 namespace {
 
 constexpr int RAWX_WARPS = 4;          // warps per main-kernel block
 constexpr int RAWX_COLS = 4;           // output columns per lane
-constexpr int RAWX_MAX_N = 8;          // token rows the decode kernel takes
+constexpr int RAWX_MAX_N = 32;         // token rows the decode linear takes
+constexpr int RAWX_CHUNK = 8;          // token rows a main-kernel block holds
 constexpr int SAL_ROWS = 64;           // salient rows per K-split
 constexpr int RAWX_PF = 4;             // 4-row steps loaded ahead per lane
 constexpr int RAWX_TARGET_BLOCKS = 528;  // ~4 main-kernel blocks per SM (132 SMs)
 constexpr int PREP_WARPS = 8;          // groups per pre-pass block
-constexpr int PREP_MAX_PER_LANE = 4;   // group size <= 128
 
 // K1 pre-pass.  Grid (N, ceil(G / PREP_WARPS) + 1): block (n, y < last)
 // quantizes groups y·PREP_WARPS .. (one warp a group, its values held in
@@ -77,6 +93,9 @@ rawx_prep_kernel(const T* __restrict__ x, const float* __restrict__ nw,
       ss += v * v;
     }
     ss = block_reduce<false>(ss, scratch);
+    // rsqrtf: a correctly rounded 1/√v here moved int4 codes against the
+    // plain version's torch.rsqrt run on the card (torch's CPU rsqrt is
+    // neither of the two, so no choice matches both devices)
     r = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.0f / (float)C), eps));
   }
   const int G = kk / gs;
@@ -97,10 +116,9 @@ rawx_prep_kernel(const T* __restrict__ x, const float* __restrict__ nw,
   }
   const int g = blockIdx.y * PREP_WARPS + warp;
   if (g >= G) return;
-  float y[PREP_MAX_PER_LANE];
-  float absmax = 0.0f;
+  float y[GQ_PER_LANE];
 #pragma unroll
-  for (int t = 0; t < PREP_MAX_PER_LANE; ++t) {
+  for (int t = 0; t < GQ_PER_LANE; ++t) {
     const int i = lane + 32 * t;
     const int col = g * gs + i;
     float v = 0.0f;
@@ -111,18 +129,16 @@ rawx_prep_kernel(const T* __restrict__ x, const float* __restrict__ nw,
       if (need_mask && col >= k_ns_raw) v = 0.0f;
     }
     y[t] = v;
-    absmax = fmaxf(absmax, fabsf(v));
   }
-  absmax = warp_max(absmax);
-  const float scale = fmaxf(absmax, 1e-5f) * inv_qmax;
+  int q[GQ_PER_LANE];
+  const float scale = warp_quantize_group(y, inv_qmax, q);
   int s = 0;
 #pragma unroll
-  for (int t = 0; t < PREP_MAX_PER_LANE; ++t) {
+  for (int t = 0; t < GQ_PER_LANE; ++t) {
     const int i = lane + 32 * t;
     if (i < gs) {
-      const int q = (int)rintf(y[t] / scale);
-      xq[(size_t)n * kk + g * gs + i] = (int8_t)q;
-      s += q;
+      xq[(size_t)n * kk + g * gs + i] = (int8_t)q[t];
+      s += q[t];
     }
   }
   s = (int)warp_sum((float)s);  // |s| <= 127*gs: exact in f32
@@ -145,19 +161,29 @@ __device__ __forceinline__ void transpose4(uint32_t w0, uint32_t w1, uint32_t w2
   out[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-// NT: token rows the accumulators hold (4 or 8; N <= NT).  Each lane
-// loads the weight words of RAWX_PF 4-row steps before using any, so a
-// warp keeps RAWX_PF·4 row reads in flight.
+// NT: token rows the accumulators hold (4, or RAWX_CHUNK = 8).  Above NT
+// rows the grid splits the rows into n_chunks chunks of NT, the chunk index
+// varying fastest in blockIdx.x, so the blocks that read the same weight
+// tile run side by side and the tile comes from DRAM once (L2 serves the
+// other chunks).  Each lane loads the weight words of RAWX_PF 4-row steps
+// before using any, so a warp keeps RAWX_PF·4 row reads in flight.
 template <int NT, typename S, typename T>
 __global__ void __launch_bounds__(RAWX_WARPS * 32)
 rawx_main_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
                  const int* __restrict__ xsum, const float* __restrict__ xsal,
                  const int8_t* __restrict__ w, const S* __restrict__ ws,
                  const T* __restrict__ wsal, float* __restrict__ part, int N, int O, int kk,
-                 int gs, int k_s, int gps, int n_int_splits) {
+                 int gs, int k_s, int gps, int n_int_splits, int n_chunks) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col0 = (blockIdx.x * RAWX_WARPS + warp) * 32 * RAWX_COLS + lane * RAWX_COLS;
+  const int ob = blockIdx.x / n_chunks;
+  const int n0 = (blockIdx.x % n_chunks) * NT;   // this block's first token row
+  const int nr = min(NT, N - n0);                // and its row count
+  const int col0 = (ob * RAWX_WARPS + warp) * 32 * RAWX_COLS + lane * RAWX_COLS;
   const int split = blockIdx.y;
+  xq += (size_t)n0 * kk;
+  xs += (size_t)n0 * (kk / gs);
+  xsum += (size_t)n0 * (kk / gs);
+  xsal += (size_t)n0 * k_s;
   const int half = kk / 2;
   const int G = kk / gs;
   const int g_half = G / 2;
@@ -196,7 +222,7 @@ rawx_main_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
           transpose4(wv[u][0], wv[u][1], wv[u][2], wv[u][3], cw);
 #pragma unroll
           for (int n = 0; n < NT; ++n) {
-            if (n >= N) break;
+            if (n >= nr) break;
             const int xlo = __ldg(reinterpret_cast<const int*>(xq + (size_t)n * kk + r0 + rr));
             const int xhi =
                 __ldg(reinterpret_cast<const int*>(xq + (size_t)n * kk + half + r0 + rr));
@@ -216,7 +242,7 @@ rawx_main_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
       }
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        if (n >= N) break;
+        if (n >= nr) break;
         const float sx_lo = xs[(size_t)n * G + g];
         const float sx_hi = xs[(size_t)n * G + g + g_half];
         const int s_lo = xsum[(size_t)n * G + g];
@@ -244,7 +270,7 @@ rawx_main_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
         if (jb + u >= j1) break;
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          if (n >= N) break;
+          if (n >= nr) break;
           const float xv = xsal[(size_t)n * k_s + jb + u];
 #pragma unroll
           for (int c = 0; c < RAWX_COLS; ++c) acc[n][c] = fmaf(xv, wv[u][c], acc[n][c]);
@@ -254,8 +280,8 @@ rawx_main_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   }
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
-    if (n >= N) break;
-    float* dst = part + ((size_t)split * N + n) * O + col0;
+    if (n >= nr) break;
+    float* dst = part + ((size_t)split * N + n0 + n) * O + col0;
 #pragma unroll
     for (int c = 0; c < RAWX_COLS; ++c) dst[c] = acc[n][c];
   }
@@ -277,16 +303,27 @@ constexpr int GM_BM = 64, GM_BN = 64, GM_THREADS = 128;  // 4 warps, 32×32 each
 constexpr int GM_MAX_GS = 64;               // group size the smem tiles hold
 constexpr int GM_WORDS = GM_MAX_GS / 4 + 1; // padded row stride (words)
 constexpr int GM_SAL_K = 32;
+constexpr int GM_TARGET_BLOCKS = 792;       // K5: ~6 blocks per SM (smem allows 6)
 
 // Thread (warp, lane) owns acc[mt][nt][e] at tile row
 // wm + 16·mt + lane/4 + 8·(e/2) and tile column wn + 8·nt + 2·(lane%4) + e%2
 // (the mma accumulator layout).
+//
+// Shared by K6 and K5.  Code (n, channel g·gs + i) lies at
+// xq[n·x_rs + g·x_gs + i] and its group scale at xs[n·s_rs + g·s_gs]: (N, K)
+// row-major codes with (N, G) scales (x_rs = K, x_gs = gs, s_rs = G,
+// s_gs = 1), or K7a's pre-laid (G, N_pad, gs) / (G, N_pad) (x_rs = gs,
+// x_gs = N_pad·gs, s_rs = 1, s_gs = N_pad).  blockIdx.z splits the group
+// pairs gps at a time; with one split the block writes out in T, with more
+// each split writes its f32 partial (the salient dot seeds split 0) and
+// rawx_reduce_kernel adds them in split order.
 template <typename S, typename T>
 __global__ void __launch_bounds__(GM_THREADS)
 gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
            const int8_t* __restrict__ w, const S* __restrict__ ws,
            const T* __restrict__ xsal, const T* __restrict__ wsal, T* __restrict__ out,
-           int N, int O, int kk, int gs, int k_s) {
+           float* __restrict__ part, int N, int O, int kk, int gs, int k_s, int x_rs,
+           int x_gs, int s_rs, int s_gs, int gps) {
   __shared__ int x_lo[GM_BM][GM_WORDS], x_hi[GM_BM][GM_WORDS];
   __shared__ int w_lo[GM_BN][GM_WORDS], w_hi[GM_BN][GM_WORDS];
   __shared__ int sum_lo[GM_BM], sum_hi[GM_BM];
@@ -299,6 +336,7 @@ gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int n0 = blockIdx.y * GM_BM, o0 = blockIdx.x * GM_BN;
   const int G = kk / gs, g_half = G / 2, words = gs / 4;
+  const int split = blockIdx.z;
   float acc[2][4][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -308,7 +346,7 @@ gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
 
   // salient fp dot seeds the accumulator (f32 sums of compute-dtype values)
-  for (int j0 = 0; j0 < k_s; j0 += GM_SAL_K) {
+  for (int j0 = 0; split == 0 && j0 < k_s; j0 += GM_SAL_K) {
     for (int e = tid; e < GM_BM * GM_SAL_K; e += GM_THREADS) {
       const int r = e / GM_SAL_K, j = e % GM_SAL_K;
       const int n = n0 + r, jj = j0 + j;
@@ -342,8 +380,8 @@ gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
     __syncthreads();
   }
 
-  const int half = kk / 2;
-  for (int g = 0; g < g_half; ++g) {
+  const int g_end = min(g_half, (split + 1) * gps);
+  for (int g = split * gps; g < g_end; ++g) {
     // activation tiles: rows n0.., lo channels g*gs.., hi channels
     // half+g*gs..; a fixed trip count so every load is issued up front
     constexpr int X_ITEMS = GM_BM * (GM_MAX_GS / 4) / GM_THREADS;
@@ -354,8 +392,9 @@ gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
       const int r = e / words, wd = e % words, n = n0 + r;
       lo[i] = hi[i] = 0;
       if (e < GM_BM * words && n < N) {
-        lo[i] = *reinterpret_cast<const int*>(xq + (size_t)n * kk + g * gs + wd * 4);
-        hi[i] = *reinterpret_cast<const int*>(xq + (size_t)n * kk + half + g * gs + wd * 4);
+        const int8_t* xr = xq + (size_t)n * x_rs + wd * 4;
+        lo[i] = *reinterpret_cast<const int*>(xr + (size_t)g * x_gs);
+        hi[i] = *reinterpret_cast<const int*>(xr + (size_t)(g + g_half) * x_gs);
       }
     }
 #pragma unroll
@@ -368,8 +407,8 @@ gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
     }
     if (tid < GM_BM) {
       const int n = n0 + tid;
-      sx_lo[tid] = n < N ? xs[(size_t)n * G + g] : 0.0f;
-      sx_hi[tid] = n < N ? xs[(size_t)n * G + g + g_half] : 0.0f;
+      sx_lo[tid] = n < N ? xs[(size_t)n * s_rs + (size_t)g * s_gs] : 0.0f;
+      sx_hi[tid] = n < N ? xs[(size_t)n * s_rs + (size_t)(g + g_half) * s_gs] : 0.0f;
     } else if (tid < GM_BM + GM_BN) {
       const int c = tid - GM_BM, o = o0 + c;
       sw_lo[c] = o < O ? to_f<S>(ws[(size_t)g * O + o]) : 0.0f;
@@ -474,7 +513,11 @@ gmm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
       for (int e = 0; e < 4; ++e) {
         const int n = n0 + wm + 16 * mt + gid + 8 * (e >> 1);
         const int o = o0 + wn + 8 * nt + 2 * tig + (e & 1);
-        if (n < N && o < O) out[(size_t)n * O + o] = from_f<T>(acc[mt][nt][e]);
+        if (n >= N || o >= O) continue;
+        if (gridDim.z == 1)
+          out[(size_t)n * O + o] = from_f<T>(acc[mt][nt][e]);
+        else
+          part[((size_t)split * N + n) * O + o] = acc[mt][nt][e];
       }
 }
 
@@ -489,33 +532,72 @@ void launch_prep(const void* x, const void* nw, const void* x_sal, void* xq, voi
       (float*)xsal, C, kk, gs, k_ns_raw, n_sal, k_s, mode, need_mask, eps, inv_qmax);
 }
 
+// Rows a main-kernel block holds (4, or RAWX_CHUNK above 4) and their chunks.
+int rawx_nt(int N) { return N <= 4 ? 4 : RAWX_CHUNK; }
+int rawx_chunks(int N) { return (N + rawx_nt(N) - 1) / rawx_nt(N); }
+
 template <typename S, typename T>
 void launch_main(const void* xq, const void* xs, const void* xsum, const void* xsal,
                  const void* w, const void* ws, const void* wsal, void* part, int N, int O,
                  int kk, int gs, int k_s, int gps, int n_int, int n_sal_splits,
                  cudaStream_t st) {
   const int cols_per_block = RAWX_WARPS * 32 * RAWX_COLS;
-  dim3 grid((O + cols_per_block - 1) / cols_per_block, n_int + n_sal_splits);
+  const int chunks = rawx_chunks(N);
+  dim3 grid((O + cols_per_block - 1) / cols_per_block * chunks, n_int + n_sal_splits);
   if (N <= 4)
     rawx_main_kernel<4, S, T><<<grid, RAWX_WARPS * 32, 0, st>>>(
         (const int8_t*)xq, (const float*)xs, (const int*)xsum, (const float*)xsal,
         (const int8_t*)w, (const S*)ws, (const T*)wsal, (float*)part, N, O, kk, gs, k_s,
-        gps, n_int);
+        gps, n_int, chunks);
   else
-    rawx_main_kernel<RAWX_MAX_N, S, T><<<grid, RAWX_WARPS * 32, 0, st>>>(
+    rawx_main_kernel<RAWX_CHUNK, S, T><<<grid, RAWX_WARPS * 32, 0, st>>>(
         (const int8_t*)xq, (const float*)xs, (const int*)xsum, (const float*)xsal,
         (const int8_t*)w, (const S*)ws, (const T*)wsal, (float*)part, N, O, kk, gs, k_s,
-        gps, n_int);
+        gps, n_int, chunks);
 }
 
+struct GmmArgs {
+  const void *xq, *xs, *w, *ws, *xsal, *wsal;
+  void *out, *part;
+  int N, O, kk, gs, k_s, x_rs, x_gs, s_rs, s_gs, gps, n_split;
+};
+
 template <typename S, typename T>
-void launch_gmm(const void* xq, const void* xs, const void* w, const void* ws,
-                const void* xsal, const void* wsal, void* out, int N, int O, int kk, int gs,
-                int k_s, cudaStream_t st) {
-  dim3 grid((O + GM_BN - 1) / GM_BN, (N + GM_BM - 1) / GM_BM);
+int launch_gmm(const GmmArgs& a, cudaStream_t st) {
+  dim3 grid((a.O + GM_BN - 1) / GM_BN, (a.N + GM_BM - 1) / GM_BM, a.n_split);
   gmm_kernel<S, T><<<grid, GM_THREADS, 0, st>>>(
-      (const int8_t*)xq, (const float*)xs, (const int8_t*)w, (const S*)ws, (const T*)xsal,
-      (const T*)wsal, (T*)out, N, O, kk, gs, k_s);
+      (const int8_t*)a.xq, (const float*)a.xs, (const int8_t*)a.w, (const S*)a.ws,
+      (const T*)a.xsal, (const T*)a.wsal, (T*)a.out, (float*)a.part, a.N, a.O, a.kk, a.gs,
+      a.k_s, a.x_rs, a.x_gs, a.s_rs, a.s_gs, a.gps);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_split == 1) return (int)e;
+  const int NO = a.N * a.O, threads = 256;
+  rawx_reduce_kernel<T><<<(NO + threads - 1) / threads, threads, 0, st>>>(
+      (const float*)a.part, (T*)a.out, NO, a.n_split, 0);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_gmm(const GmmArgs& a, int s_dt, cudaStream_t st) {
+  return s_dt == DT_BF16 ? launch_gmm<__nv_bfloat16, T>(a, st) : launch_gmm<float, T>(a, st);
+}
+
+// K5's split of the group pairs, gps a split: enough blocks for ~6 per SM
+// (132 SMs; the 35.6 KB of shared memory a block allows 6) when the O- and
+// N-tiles alone do not give them.  A block waits on each group pair's loads
+// before its mma (no pipeline yet), so blocks in flight are what hides the
+// latency: at 2 a SM the first build read 13.7× its byte bound.
+struct GmmPlan {
+  int gps, n_split;
+};
+
+GmmPlan gmm_plan(int N, int O, int kk, int gs) {
+  const int g_half = kk / gs / 2;
+  const int tiles = ((O + GM_BN - 1) / GM_BN) * ((N + GM_BM - 1) / GM_BM);
+  int splits = (GM_TARGET_BLOCKS + tiles - 1) / tiles;
+  splits = splits < 1 ? 1 : (splits > g_half ? g_half : splits);
+  const int gps = (g_half + splits - 1) / splits;
+  return {gps, (g_half + gps - 1) / gps};
 }
 
 // K1's split of the work and its workspace (int8 codes | f32 group scales |
@@ -529,8 +611,12 @@ RawxPlan rawx_plan(int N, int O, int kk, int gs, int k_s) {
   RawxPlan p;
   const int g_half = kk / gs / 2;
   const int cols_per_block = RAWX_WARPS * 32 * RAWX_COLS;
-  const int o_blocks = (O + cols_per_block - 1) / cols_per_block;
-  const int splits = RAWX_TARGET_BLOCKS / o_blocks > 1 ? RAWX_TARGET_BLOCKS / o_blocks : 1;
+  const int o_blocks = (O + cols_per_block - 1) / cols_per_block * rawx_chunks(N);
+  int splits = RAWX_TARGET_BLOCKS / o_blocks > 1 ? RAWX_TARGET_BLOCKS / o_blocks : 1;
+  // the f32 partials grow with N: above 8 rows keep their bytes (written
+  // and read once) under about half the weight's
+  const int cap = kk / (16 * N) > 2 ? kk / (16 * N) : 2;
+  if (N > RAWX_CHUNK && splits > cap) splits = cap;
   p.gps = (g_half + splits - 1) / splits > 1 ? (g_half + splits - 1) / splits : 1;
   p.n_int = (g_half + p.gps - 1) / p.gps;
   p.n_sal = (k_s + SAL_ROWS - 1) / SAL_ROWS;
@@ -561,7 +647,7 @@ SQ_EXPORT int sq_rawx(const void* x, const void* nw, const void* x_sal, const vo
                       int mode, int need_mask, float eps, float inv_qmax, int s_dt, int x_dt,
                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (N > RAWX_MAX_N || gs > 32 * PREP_MAX_PER_LANE || gs % 4)
+  if (N > RAWX_MAX_N || gs > 32 * GQ_PER_LANE || gs % 4)
     return (int)cudaErrorInvalidValue;
   const RawxPlan p = rawx_plan(N, O, kk, gs, k_s);
   char* base = static_cast<char*>(workspace);
@@ -599,20 +685,46 @@ SQ_EXPORT int sq_rawx(const void* x, const void* nw, const void* x_sal, const vo
   return (int)cudaGetLastError();
 }
 
-// K6: tiled int4 group matmul on pre-quantized activations.
+// K6: tiled int4 group matmul on pre-quantized (N, K) activations.
 SQ_EXPORT int sq_int4_gmm(const void* xq, const void* xs, const void* w, const void* ws,
                           const void* xsal, const void* wsal, void* out, int N, int O,
                           int kk, int gs, int k_s, int s_dt, int x_dt, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (gs > GM_MAX_GS || gs % 16) return (int)cudaErrorInvalidValue;
-  if (s_dt == DT_BF16 && x_dt == DT_BF16)
-    launch_gmm<__nv_bfloat16, __nv_bfloat16>(xq, xs, w, ws, xsal, wsal, out, N, O, kk, gs,
-                                             k_s, st);
-  else if (s_dt == DT_BF16)
-    launch_gmm<__nv_bfloat16, float>(xq, xs, w, ws, xsal, wsal, out, N, O, kk, gs, k_s, st);
-  else if (x_dt == DT_BF16)
-    launch_gmm<float, __nv_bfloat16>(xq, xs, w, ws, xsal, wsal, out, N, O, kk, gs, k_s, st);
-  else
-    launch_gmm<float, float>(xq, xs, w, ws, xsal, wsal, out, N, O, kk, gs, k_s, st);
-  return (int)cudaGetLastError();
+  const int G = kk / gs;
+  const GmmArgs a{xq, xs, w, ws, xsal, wsal, out, nullptr, N, O, kk, gs, k_s,
+                  kk, gs, G, 1, G / 2, 1};
+  return x_dt == DT_BF16 ? dispatch_gmm<__nv_bfloat16>(a, s_dt, st)
+                         : dispatch_gmm<float>(a, s_dt, st);
+}
+
+// Bytes of f32 partials sq_int4_gmm_stacked needs for these shapes (0 when
+// the tiles alone fill the card and no split is made).
+SQ_EXPORT long long sq_gmm_stacked_workspace_bytes(int N, int O, int kk, int gs) {
+  const int n_split = gmm_plan(N, O, kk, gs).n_split;
+  return n_split == 1 ? 0 : (long long)n_split * N * O * (long long)sizeof(float);
+}
+
+// K5: one layer of a stacked int4 group matmul on quantized activations,
+// row-major (pre_laid = 0: xq (N, K), xs (N, G)) or K7a's layout
+// (pre_laid = N_pad: xq (G, N_pad, gs), xs (G, N_pad)); out (N, O) in the
+// output dtype, from f32 sums seeded by the salient dot.
+SQ_EXPORT int sq_int4_gmm_stacked(const void* xq, const void* xs, const void* w,
+                                  const void* ws, const void* xsal, const void* wsal,
+                                  void* workspace, void* out, int N, int O, int kk, int gs,
+                                  int k_s, int pre_laid, int s_dt, int x_dt, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (gs > GM_MAX_GS || gs % 16 || (pre_laid && pre_laid < N)) return (int)cudaErrorInvalidValue;
+  const int G = kk / gs;
+  const GmmPlan p = gmm_plan(N, O, kk, gs);
+  GmmArgs a{xq, xs, w, ws, xsal, wsal, out, workspace, N, O, kk, gs, k_s,
+            kk, gs, G, 1, p.gps, p.n_split};
+  if (pre_laid) {
+    a.x_rs = gs;
+    a.x_gs = pre_laid * gs;
+    a.s_rs = 1;
+    a.s_gs = pre_laid;
+  }
+  return x_dt == DT_BF16 ? dispatch_gmm<__nv_bfloat16>(a, s_dt, st)
+                         : dispatch_gmm<float>(a, s_dt, st);
 }

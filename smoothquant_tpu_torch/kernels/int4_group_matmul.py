@@ -1,4 +1,5 @@
-"""W4A4 group matmuls over split-half nibble packs: K1 (decode) and K6
+"""W4A4 group matmuls over split-half nibble packs: K1 (decode, up to 32
+rows), K5 (stacked decode on quantized activations, 33+ rows) and K6
 (prefill), each with its plain PyTorch version.
 
 K1  int4_group_matmul_stacked_rawx — port of smoothquant_tpu/kernels/
@@ -8,6 +9,12 @@ K1  int4_group_matmul_stacked_rawx — port of smoothquant_tpu/kernels/
     pre-gathered x_sal), per-(row, group) activation quantize
     max(absmax, 1e-5)/qmax with round half to even, biased-nibble unpack and
     Σ_g s_x·s_w·(x_q·w_u − 8·Σx_q) + x_sal·w_sal.
+K5  int4_group_matmul_stacked — port of :679 (pallas_call :807).  Layer
+    `layer_idx` of a stacked pack on activations already quantized, either
+    row-major (N, K) codes with (N, G) scales or, pre_laid = N, K7a's
+    (G, N_pad, gs) codes with (G, N_pad) scales: f32 sums seeded by the
+    salient dot, then ((p − 8·Σx)·s_x)·s_w for group g and g + G/2 in turn,
+    cast to out_dtype.
 K6  int4_group_matmul — port of :841 (pallas_call :950).  The same inner
     product on activations that are already quantized (prefill).
 
@@ -26,7 +33,7 @@ import torch
 from smoothquant_tpu_torch.kernels import _build
 from smoothquant_tpu_torch.quant.core import compute_scale, f32_reciprocal
 
-RAWX_MAX_N = 8          # token rows the CUDA decode kernel takes
+RAWX_MAX_N = 32         # token rows K1 takes (the JAX rawx branch's gate)
 
 
 @functools.lru_cache(maxsize=64)
@@ -186,6 +193,102 @@ def int4_group_matmul_stacked_rawx(
         f32_reciprocal(2 ** (act_bits - 1) - 1), _build.dt_code(w_scales_t),
         _build.dt_code(x_raw), _build.stream_ptr(x_raw)), "sq_rawx")
     _build.LAUNCHES["int4_group_matmul_stacked_rawx"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K5
+
+
+@functools.lru_cache(maxsize=64)
+def _gmm_stacked_workspace_bytes(n: int, o: int, kk: int, gs: int) -> int:
+    """Bytes of K5's f32 split partials (the C side plans the split)."""
+    return _build.lib().sq_gmm_stacked_workspace_bytes(n, o, kk, gs)
+
+
+def _row_major(x_q, x_scales, pre_laid: Optional[int]):
+    """K5's activations as (N, K) int8 codes and (N, G) f32 scales."""
+    if pre_laid is None:
+        return x_q, x_scales
+    g, _, gs = x_q.shape
+    return (x_q[:, :pre_laid].permute(1, 0, 2).reshape(pre_laid, g * gs),
+            x_scales[:, :pre_laid].t())
+
+
+def int4_group_matmul_stacked_plain(layer_idx: int, x_q, x_scales, w_packed,
+                                    w_scales_t, x_sal, w_sal_t, *,
+                                    group_size: int, out_dtype=torch.float32,
+                                    pre_laid: Optional[int] = None):
+    """Plain PyTorch K5 (same arguments as the wrapper): the salient dot plus
+    the group terms added in K order (the TPU kernel seeds its f32 sum with
+    the salient dot and interleaves group g and g + G/2: another order)."""
+    x_q, x_scales = _row_major(x_q, x_scales, pre_laid)
+    acc = _group_terms(x_q, x_scales, w_packed[layer_idx], w_scales_t[layer_idx],
+                       group_size)
+    if w_sal_t.shape[1]:
+        acc = x_sal.float() @ w_sal_t[layer_idx].float() + acc
+    return acc.to(out_dtype)
+
+
+def int4_group_matmul_stacked(
+    layer_idx: int,
+    x_q: torch.Tensor,        # (N, K) int8, or pre_laid: (G, N_pad, gs) int8
+    x_scales: torch.Tensor,   # (N, G) f32, or pre_laid: (G, N_pad) f32
+    w_packed: torch.Tensor,   # (L, K/2, O) int8 nibble bytes
+    w_scales_t: torch.Tensor, # (L, G, O) f32 or bf16
+    x_sal: torch.Tensor,      # (N, k_s) compute dtype
+    w_sal_t: torch.Tensor,    # (L, k_s, O) compute dtype
+    *,
+    group_size: int,
+    out_dtype=torch.float32,
+    pre_laid: Optional[int] = None,   # the true N of K7a's layout
+) -> torch.Tensor:
+    """Layer `layer_idx` of a stacked int4 group matmul → (N, O) out_dtype."""
+    if x_q.device.type == "cpu":
+        return int4_group_matmul_stacked_plain(
+            layer_idx, x_q, x_scales, w_packed, w_scales_t, x_sal, w_sal_t,
+            group_size=group_size, out_dtype=out_dtype, pre_laid=pre_laid)
+    if x_q.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x_q.device}")
+    l_num, half, o = w_packed.shape
+    kk, k_s = 2 * half, w_sal_t.shape[1]
+    g = kk // group_size
+    if pre_laid is not None:
+        n = pre_laid
+        n_pad = x_q.shape[1]
+        x_shape, s_shape = (g, n_pad, group_size), (g, n_pad)
+    else:
+        n = x_q.shape[0]
+        n_pad = 0
+        x_shape, s_shape = (n, kk), (n, g)
+    if half % group_size or group_size > 64 or group_size % 16:
+        raise ValueError("K5 needs whole groups per half and a group size that is "
+                         "a multiple of 16, at most 64")
+    if o % 4:
+        raise ValueError("K5 needs O % 4 == 0")
+    if (x_q.dtype != torch.int8 or w_packed.dtype != torch.int8
+            or tuple(x_q.shape) != x_shape or tuple(x_scales.shape) != s_shape
+            or x_scales.dtype != torch.float32 or (pre_laid is not None and n > n_pad)
+            or w_scales_t.shape != (l_num, g, o)):
+        raise TypeError("K5 operand shapes or dtypes do not match: int8 codes "
+                        f"{x_shape}, f32 scales {s_shape}")
+    if x_sal.shape != (n, k_s) or x_sal.dtype != w_sal_t.dtype:
+        raise TypeError(f"x_sal must be ({n}, {k_s}) in the salient block's dtype")
+    if out_dtype != w_sal_t.dtype:
+        raise TypeError("K5 computes in the salient (compute) dtype, out included")
+    dev = x_q.device
+    x_q, x_scales, x_sal = x_q.contiguous(), x_scales.contiguous(), x_sal.contiguous()
+    _build.check_operands(dev, x_scales=x_scales, w_packed=w_packed,
+                          w_scales_t=w_scales_t, x_sal=x_sal, w_sal_t=w_sal_t)
+    workspace = torch.empty(_gmm_stacked_workspace_bytes(n, o, kk, group_size),
+                            dtype=torch.uint8, device=dev)
+    out = torch.empty((n, o), dtype=out_dtype, device=dev)
+    _build.check(_build.lib().sq_int4_gmm_stacked(
+        x_q.data_ptr(), x_scales.data_ptr(), w_packed[layer_idx].data_ptr(),
+        w_scales_t[layer_idx].data_ptr(), x_sal.data_ptr(),
+        w_sal_t[layer_idx].data_ptr(), workspace.data_ptr(), out.data_ptr(), n, o,
+        kk, group_size, k_s, n_pad, _build.dt_code(w_scales_t), _build.dt_code(w_sal_t),
+        _build.stream_ptr(x_q)), "sq_int4_gmm_stacked")
+    _build.LAUNCHES["int4_group_matmul_stacked"] += 1
     return out
 
 

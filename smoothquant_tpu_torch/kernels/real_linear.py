@@ -1,11 +1,15 @@
 """Real-quantized linear forward (port of smoothquant_tpu/kernels/
 real_linear.py:70-125,200-479 — the branches the W4A4 serving path takes).
 
-  stacked (layer_idx given), nibble, per-group recipe, N <= RAWX_MAX_N:
+  stacked (layer_idx given), nibble, per-group recipe, N <= RAWX_MAX_N (32):
     * fused RMSNorm (qkv, gate_up over the shared residual basis) → K1 "rms"
     * pre-permuted input, no norm (down_proj)                     → K1 raw
     * identity layout (o_proj): 0/1 ns_mask + k_s-wide salient
       gather                                                     → K1 "mask"
+  the same call sites at N > 32 (real_linear.py:320-331,351-386):
+    * pre-permuted input: RMSNorm rounded to x's dtype first (qkv,
+      gate_up), salient tail split, K7a into K5's layout     → K7a + K5
+    * identity layout: _identity_nibble_quantize             → K5 row-major
   per-layer nibble (prefill):
     * permuted → quantize_activations_packed_int + K6
     * identity → _identity_nibble_quantize + K6
@@ -28,9 +32,11 @@ from smoothquant_tpu_torch.kernels.int8_prefill import (
     int_mm,
     scale_epilogue,
 )
+from smoothquant_tpu_torch.kernels.act_prep import quantize_acts_grouped_t
 from smoothquant_tpu_torch.kernels.int4_group_matmul import (
     RAWX_MAX_N,
     int4_group_matmul,
+    int4_group_matmul_stacked,
     int4_group_matmul_stacked_rawx,
 )
 from smoothquant_tpu_torch.kernels.pack import (
@@ -124,6 +130,37 @@ def _salient_gather(packed: PackedLinear, x2d: torch.Tensor, perm_row):
     return x_sal
 
 
+def many_rows_operands(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
+                       norm: Optional[tuple] = None):
+    """K5's operands for the stacked decode linear at N > 32 rows
+    (real_linear.py:320-331,351-386): (x_q, x_scales, x_sal, pre_laid).
+    The identity layout quantizes in original channel order into row-major
+    codes (pre_laid None); a pre-permuted input takes the preceding RMSNorm
+    first — as models/common.rms_norm computes it, rounded to x's dtype,
+    not K1's in-kernel f32 — then the salient tail split and K7a."""
+    meta = packed.meta
+    if meta.layout == "identity":
+        if norm is not None:
+            raise NotImplementedError("identity layout call sites fuse no norm")
+        return (*_identity_nibble_quantize(packed, x2d, packed.perm[layer_idx],
+                                           packed.ns_mask[layer_idx]), None)
+    if not meta.pre_permuted:
+        raise NotImplementedError("stacked decode needs pre-permuted input")
+    if norm is not None:
+        from smoothquant_tpu_torch.models.common import rms_norm
+
+        norm_rows, eps, kind = norm
+        if kind != "rms":
+            raise NotImplementedError(f"norm kind {kind!r}")
+        x2d = rms_norm({"weight": norm_rows[layer_idx]}, x2d, eps)
+    k_ns_raw = meta.in_features - meta.num_salient
+    x_ns = torch.nn.functional.pad(x2d[:, :k_ns_raw], (0, meta.k_ns - k_ns_raw))
+    x3, xs_t = quantize_acts_grouped_t(x_ns, group_size=meta.group_size,
+                                       act_bits=meta.act_bits)
+    x_sal = torch.nn.functional.pad(x2d[:, k_ns_raw:], (0, meta.k_s - meta.num_salient))
+    return x3, xs_t, x_sal, x2d.shape[0]
+
+
 def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
                     norm: Optional[tuple], out_dtype) -> torch.Tensor:
     meta = packed.meta
@@ -131,8 +168,11 @@ def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
         raise NotImplementedError(
             "stacked decode takes nibble packs with a per-group recipe")
     if x2d.shape[0] > RAWX_MAX_N:
-        raise NotImplementedError(
-            f"stacked decode takes at most {RAWX_MAX_N} token rows")
+        x_q, x_scales, x_sal, pre_laid = many_rows_operands(packed, x2d, layer_idx, norm)
+        return int4_group_matmul_stacked(
+            layer_idx, x_q, x_scales, packed.w_qt, packed.w_scales_t, x_sal,
+            packed.w_sal_t.to(x2d.dtype), group_size=meta.group_size,
+            out_dtype=out_dtype, pre_laid=pre_laid)
     common = dict(group_size=meta.group_size, act_bits=meta.act_bits,
                   num_salient=meta.num_salient, out_dtype=out_dtype)
     w_sal = packed.w_sal_t.to(x2d.dtype)
@@ -168,9 +208,9 @@ def real_quant_linear(
     """y = act_q(x) @ W_q^T + bias with true int-weight storage.
 
     layer_idx selects the layer of a stacked pack (every tensor carries a
-    leading L axis).  norm fuses the preceding RMSNorm into K1; its rows
-    must already be rounded to x's dtype (the JAX kernel casts them so)
-    and held in f32.
+    leading L axis).  norm fuses the preceding RMSNorm into K1 (up to 32
+    rows; above, it runs first); its rows must already be rounded to x's
+    dtype (the JAX kernel casts them so) and held in f32.
     """
     meta = packed.meta
     shape = x.shape

@@ -10,9 +10,9 @@ Generator use).
   update / read), the einsum attention (:550-575), cached_attention
   (:583-655; the decode kernel K11 for the int8 head-major cache),
   prefetch_tree_capable (:672-732), stacked_cache_append (:735-775),
-  stacked_cache_append_fused (:778-817; the head-major int8 writer K10 is
-  not ported), decode_bias (:820-838), stacked_smajor_attention (:841-854)
-  and stacked_flash_attention (:857-875).
+  stacked_cache_append_fused (:778-817: K2 for the S-major cache, K10 for
+  the head-major int8 one), decode_bias (:820-838), stacked_smajor_attention
+  (:841-854) and stacked_flash_attention (:857-875).
 
 Caches are updated IN PLACE (the JAX functions return new buffers); the
 objects are returned all the same so call sites read like the reference.
@@ -31,7 +31,9 @@ from smoothquant_tpu_torch.kernels.attn_smajor import (
     quantize_rows_int8,
     write_quant_cache_smajor,
 )
+from smoothquant_tpu_torch._device import resolve_device
 from smoothquant_tpu_torch.kernels import decode_attention as k11
+from smoothquant_tpu_torch.kernels.cache_write import write_quant_cache_stacked
 from smoothquant_tpu_torch.kernels.fp_matmul import fp_matmul_stacked
 from smoothquant_tpu_torch.kernels.pack import PackedLinear
 from smoothquant_tpu_torch.kernels.real_linear import real_quant_linear
@@ -207,9 +209,10 @@ class QuantKVCache:
 
     @classmethod
     def create(cls, batch: int, max_len: int, n_kv_heads: int, head_dim: int,
-               dtype=None, device="cpu", per_slot: bool = False,
+               dtype=None, device="cuda", per_slot: bool = False,
                n_layers: Optional[int] = None, pos: int = 0):
         del dtype  # storage is int8; read() dequantizes to bf16
+        device = resolve_device(device)
         lead = () if n_layers is None else (n_layers,)
         shape = lead + (batch, n_kv_heads, max_len, head_dim)
         z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
@@ -438,19 +441,19 @@ def stacked_cache_append_fused(cache, i: int, k_new: torch.Tensor,
                                v_new: torch.Tensor, cos, sin):
     """Layer i's cache write in the stacked decode (common.py:778-817).
     k_new/v_new (B, 1, H_kv, D), k PRE-rotary.  The S-major int8 cache runs
-    K2 (rotary-k, int8 quantize, in-place row write at each slot's
-    position); an fp cache takes apply_rotary and stacked_cache_append."""
-    if isinstance(cache, SMajorQuantKVCache):
-        b, _, h, d = k_new.shape
-        write_quant_cache_smajor(i, cache.pos[i], k_new.reshape(b, h, d),
-                                 v_new.reshape(b, h, d), cos, sin, cache.k_q,
-                                 cache.v_q, cache.k_scale, cache.v_scale)
+    K2 and the head-major int8 cache K10 (rotary-k, int8 quantize, in-place
+    row write at each slot's position, or the aligned one); an fp cache
+    takes apply_rotary and stacked_cache_append."""
+    b, _, h, d = k_new.shape
+    if isinstance(cache, (SMajorQuantKVCache, QuantKVCache)):
+        write = (write_quant_cache_smajor if isinstance(cache, SMajorQuantKVCache)
+                 else write_quant_cache_stacked)
+        write(i, cache.pos[i], k_new.reshape(b, h, d), v_new.reshape(b, h, d), cos,
+              sin, cache.k_q, cache.v_q, cache.k_scale, cache.v_scale)
         return cache
     if isinstance(cache, KVCache):
         return stacked_cache_append(cache, i, apply_rotary(k_new, cos, sin), v_new)
-    raise NotImplementedError(
-        "the head-major int8 cache writer (K10, write_quant_cache_stacked) is "
-        "not ported")
+    raise NotImplementedError(f"cache type {type(cache).__name__}")
 
 
 def stacked_smajor_attention(cache: SMajorQuantKVCache, i: int,

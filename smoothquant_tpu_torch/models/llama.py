@@ -11,8 +11,12 @@ lists.  A stacked tree (stack_layers) decodes one token through a
 per-layer Python loop that hands the layer index to the kernels — the
 counterpart of the JAX lax.scan over scalar-prefetch kernels
 (_prefetch_scan_decode, llama.py:288-490): a packed tree over the stacked
-S-major int8 cache (:427-432), or a pack_fp_decode tree over a stacked
-head-major fp cache (the "off" branch, :443-448).
+S-major int8 cache (:427-432), a packed tree over the stacked head-major
+int8 cache with per-slot positions or a key mask (the "off" branch,
+:351-356,443-448), or a pack_fp_decode tree over a stacked head-major fp
+cache (the same branch).  The aligned head-major int8 decode ((L,)
+positions, no mask) takes the virtual-tile attention (K12), not ported: it
+raises.
 """
 
 from __future__ import annotations
@@ -182,9 +186,13 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask):
       packed tree, S-major int8 cache: K1 (qkv, RMSNorm fused) → q-rotary →
         K2 (k-rotary, quantize, row write) → K3 → K1 (o_proj) → K1 (gate_up,
         RMSNorm fused) → SiLU·up → K1 (down_proj);
+      packed tree, head-major int8 cache (per-slot positions or a mask): the
+        same with K10 and K11 in place of K2 and K3;
       pack_fp_decode tree, head-major fp cache: RMSNorm → K13 (qkv) →
         rotary → fp row write → K11 → K13 (o) → RMSNorm → K13 (gate_up) →
-        SiLU·up → K13 (down)."""
+        SiLU·up → K13 (down).
+    Up to 32 rows the packed linears run K1; above, the RMSNorm runs first
+    and K7a + K5 take them (real_linear)."""
     st = params["layers"]["stacked"]
     sa, mlp = st["self_attn"], st["mlp"]
     b, s, _ = x.shape
@@ -195,10 +203,17 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask):
         s_max = caches.k_q.shape[2]
     elif isinstance(caches, KVCache):
         s_max = caches.k.shape[3]
+    elif isinstance(caches, QuantKVCache):
+        if caches.pos.ndim == 1 and attn_mask is None:
+            # llama.py:351-356: aligned positions and no mask take the
+            # virtual-tile attention, whose f32 order (the new position
+            # folded in last) K10 + K11 do not reproduce
+            raise NotImplementedError(
+                "the aligned stacked head-major int8 decode runs the virtual-tile "
+                "attention (K12, attn_fused.py:293), which is not ported")
+        s_max = caches.k_q.shape[3]
     else:
-        raise NotImplementedError(
-            "stacked decode over the head-major int8 cache needs its writer "
-            "(K10) and the virtual-tile attention (K12), which are not ported")
+        raise NotImplementedError(f"cache type {type(caches).__name__}")
     fp_tree = not isinstance(sa["qkv_proj"], PackedLinear)
     fuse_norm = (not fp_tree and can_fuse_norm(sa["qkv_proj"])
                  and can_fuse_norm(mlp["gate_up_proj"]))

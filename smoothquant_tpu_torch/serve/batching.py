@@ -1,7 +1,10 @@
-"""Continuous batching over a stacked S-major int8 KV pool (port of
+"""Continuous batching over a stacked int8 KV pool (port of
 smoothquant_tpu/serve/batching.py:31-411, the per-slot stacked path).
 
-  * a fixed pool of `max_batch` slots with (L, B) per-slot cache positions;
+  * a fixed pool of `max_batch` slots with (L, B) per-slot cache positions:
+    the head-major QuantKVCache (quant_kv=True, the default smajor=False,
+    batching.py:91-97), whose decode runs K10 + K11, or the S-major one
+    (smajor=True), K2 + K3; the fp pool (quant_kv=False) is not ported;
   * same-bucket admissions share one batched prefill on the per-layer
     prefill tree — the nibble tree, or its int8 twin (promote_model_int8 of
     a plain pack of the same weights, batching.py:52-56,124-140), whose
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from smoothquant_tpu_torch._device import resolve_device
-from smoothquant_tpu_torch.models.common import SMajorQuantKVCache
+from smoothquant_tpu_torch.models.common import QuantKVCache, SMajorQuantKVCache
 
 
 @dataclasses.dataclass
@@ -57,8 +60,8 @@ class ContinuousBatcher:
     def __init__(self, model_mod, params, cfg, *, max_batch: int = 4,
                  max_len: int = 512, quant_kv: bool = False,
                  prefill_params=None, smajor: bool = False, device="cuda"):
-        if not (quant_kv and smajor):
-            raise NotImplementedError("only the S-major int8 pool is ported")
+        if not quant_kv:
+            raise NotImplementedError("the fp pool (quant_kv=False) is not ported")
         if "stacked" not in params.get("layers", {}):
             raise NotImplementedError("decode serves a stacked tree")
         self.mod, self.params, self.cfg = model_mod, params, cfg
@@ -67,8 +70,9 @@ class ContinuousBatcher:
             raise NotImplementedError("prefill runs on a per-layer tree")
         self.device = resolve_device(device)
         self.max_batch, self.max_len = max_batch, max_len
-        self.caches = model_mod.stacked_caches(cfg, max_batch, max_len,
-                                               device=self.device)
+        self.smajor = smajor
+        self.caches = model_mod.stacked_caches(cfg, max_batch, max_len, smajor=smajor,
+                                               per_slot=True, device=self.device)
         self.key_valid = np.zeros((max_batch, max_len), bool)
         self.seq_pos = np.zeros(max_batch, np.int64)   # true sequence lengths
         # host mirror of the per-slot device cache positions: every decode
@@ -85,13 +89,22 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def _prefill(self, ids: np.ndarray, lens: np.ndarray):
-        """First generated token of each row and the rows' stacked cache."""
+        """First generated token of each row and the rows' stacked cache:
+        the prefill writes per-layer caches that are views of one stacked
+        cache (batching.py:133-137 creates per-layer caches and stacks
+        them; here the stack exists first and needs no copy)."""
         cfg = self.cfg
         rows, bucket = ids.shape
-        batch = SMajorQuantKVCache.create(rows, bucket, cfg.num_key_value_heads,
-                                          cfg.head_dim, self.device,
-                                          n_layers=cfg.num_hidden_layers)
-        layer_caches = [batch.layer(i) for i in range(cfg.num_hidden_layers)]
+        n_l, n_kv, d = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+        if self.smajor:
+            batch = SMajorQuantKVCache.create(rows, bucket, n_kv, d, self.device,
+                                              n_layers=n_l)
+            layer_caches = [batch.layer(i) for i in range(n_l)]
+        else:
+            batch = QuantKVCache.create(rows, bucket, n_kv, d, device=self.device,
+                                        n_layers=n_l)
+            layer_caches = [QuantKVCache(batch.k_q[i], batch.v_q[i], batch.k_scale[i],
+                                         batch.v_scale[i], 0) for i in range(n_l)]
         h, _ = self.mod.forward_hidden(self.prefill_params, self._to_dev(ids),
                                        cfg, caches=layer_caches)
         idx = self._to_dev(np.clip(lens - 1, 0, bucket - 1))
@@ -100,15 +113,16 @@ class ContinuousBatcher:
         first = torch.argmax(logits[:, 0], dim=-1)
         return first.cpu().numpy(), batch
 
-    def _scatter(self, batch: SMajorQuantKVCache, row: int, slot: int,
-                 new_pos: int) -> None:
-        """Copy prefill row `row` into pool slot `slot` (cropped at max_len)."""
+    def _scatter(self, batch, row: int, slot: int, new_pos: int) -> None:
+        """Copy prefill row `row` into pool slot `slot`, cropped at max_len on
+        the S axis of each field (batching.py:156-179): axis 2 of the S-major
+        values, axis 3 of the head-major values and of every scale tensor."""
         pool = self.caches
-        n = min(batch.k_q.shape[2], self.max_len)
-        pool.k_q[:, slot, :n] = batch.k_q[:, row, :n]
-        pool.v_q[:, slot, :n] = batch.v_q[:, row, :n]
-        pool.k_scale[:, slot, :, :n] = batch.k_scale[:, row, :, :n]
-        pool.v_scale[:, slot, :, :n] = batch.v_scale[:, row, :, :n]
+        for name in ("k_q", "v_q", "k_scale", "v_scale"):
+            src, dst = getattr(batch, name)[:, row], getattr(pool, name)[:, slot]
+            s_axis = 1 if (self.smajor and name in ("k_q", "v_q")) else 2
+            n = min(src.shape[s_axis], self.max_len)
+            dst.narrow(s_axis, 0, n).copy_(src.narrow(s_axis, 0, n))
         pool.pos[:, slot] = new_pos
 
     def _decode(self, tok: torch.Tensor, positions: torch.Tensor,

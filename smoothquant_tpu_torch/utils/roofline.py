@@ -6,7 +6,7 @@ once, each output written once) / HBM rate and (operations / the peak rate
 of their type).  Peaks: NVIDIA's H100 SXM data sheet, dense, at the full
 700 W power limit.
 
-    python -m smoothquant_tpu_torch.utils.roofline    # Llama-2-7B W4A4 / bf16, OPT-1.3B int8
+    python -m smoothquant_tpu_torch.utils.roofline    # Llama-2-7B W4A4 (B = 4 and 64) / bf16, OPT-1.3B int8
 """
 
 from __future__ import annotations
@@ -43,17 +43,26 @@ def rawx_cost(n, c, o, kk, gs, k_s, *, x_bytes=2, scale_bytes=2, norm=True,
 
 
 def gmm_cost(n, o, kk, gs, k_s, *, x_bytes=2, scale_bytes=2):
-    """K6: x_q (N, kk) int8, x_scales (N, G) f32, nibble weights, scales,
-    x_sal (N, k_s), salient block, out (N, O)."""
+    """K6, and K5 on one layer: x_q (N, kk) int8, x_scales (N, G) f32,
+    nibble weights, scales, x_sal (N, k_s), salient block, out (N, O)."""
     g = kk // gs
     b = (n * kk + n * g * 4 + kk // 2 * o + g * o * scale_bytes
          + n * k_s * x_bytes + k_s * o * x_bytes + n * o * x_bytes)
     return b, {"int8": 2 * n * o * kk, "bf16": 2 * n * o * k_s}
 
 
+def act_quant_cost(n, k_ns, gs, *, x_bytes=2):
+    """K7a: x_ns (N, k_ns) in, x3 (G, N_pad, gs) int8 and xs_t (G, N_pad)
+    f32 out; about three f32 operations an element (|x| and max, divide,
+    round)."""
+    n_pad = max(8, -(-n // 8) * 8)
+    return (n * k_ns * x_bytes + n_pad * k_ns + k_ns // gs * n_pad * 4,
+            {"f32": 3 * n * k_ns})
+
+
 def write_cache_cost(b, h, d, *, x_bytes=2):
-    """K2: k, v (B, H, D), cos/sin (B, D) f32, positions; one int8 row and
-    one f32 scale per (b, head) for k and for v."""
+    """K2 and K10: k, v (B, H, D), cos/sin (B, D) f32, positions; one int8
+    row and one f32 scale per (b, head) for k and for v."""
     n_bytes = 2 * b * h * d * x_bytes + 2 * b * d * 4 + b * 4 + 2 * (b * h * d + b * h * 4)
     return n_bytes, {"f32": 6 * b * h * d}
 
@@ -184,6 +193,7 @@ if __name__ == "__main__":
 
     cfg = LlamaConfig.llama2_7b()
     print(json.dumps({"w4a4": llama_decode_step_bytes(cfg),
+                      "w4a4_b64": llama_decode_step_bytes(cfg, batch=64),
                       "bf16": llama_bf16_decode_step_bytes(cfg),
                       "opt_1_3b_int8": opt_int8_decode_step_bytes(OPTConfig.opt_1_3b())},
                      indent=1))

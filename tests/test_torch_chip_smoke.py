@@ -76,3 +76,73 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
     assert phases["opt_generator"]["position_after"] == 40 + 2 + 1 + 3 * 8 + 4
     for s in ("tokens_40", "tokens_32"):
         assert 0.0 <= phases["opt_accuracy"][s]["top1_agree"] <= 1.0
+
+
+def test_slot_path_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's phases of the 64-slot slice on the CPU at a small size
+    (40 slots, 44 requests, 2 layers of hidden 512): the K1 phases at 16
+    and 32 rows, K7a, K5 and K10 (the wrappers take their plain versions
+    here), serving over the head-major pool with the promoted twin, and the
+    B = 40 / B = 32 decode steps; timing and the launch checks are stubbed,
+    the launch counts each path expects recorded."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.models.llama import LlamaConfig
+
+    monkeypatch.setattr(cs, "SLOT_BATCH", 40)
+    monkeypatch.setattr(cs, "SLOT_REQUESTS", 44)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
+    monkeypatch.setattr(cs, "profile", lambda fn, steps: (
+        fn(), {"idle_share": 0.5, "busy_ms_per_step": 1.0})[1])
+    expected = {}
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda path, launches, expect: expected.setdefault(path, expect))
+    printed = []
+    monkeypatch.setattr(cs, "emit", printed.append)
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=512), hidden_size=512,
+                              intermediate_size=1024, num_attention_heads=4,
+                              num_key_value_heads=4, dtype="bfloat16")
+    cpu = torch.device("cpu")
+    fp, _, stacked = cs.build_model(cfg, cpu, cs.SEED)
+    promoted = cs.build_promoted(fp, cfg, cs.SEED)
+    gen = torch.Generator().manual_seed(1)
+    rows = (cs.check_rawx(stacked, cpu, gen, 16) + cs.check_rawx(stacked, cpu, gen, 32)
+            + cs.check_act_prep(stacked, cpu, gen) + cs.check_gmm_stacked(stacked, cpu, gen)
+            + cs.check_write_cache_hm(cfg, cpu, gen))
+    kinds = {}
+    for r in rows:
+        kinds.setdefault(r["kernel"], []).append(r.get("site"))
+        assert r["max_err"] == 0
+    assert len(kinds["int4_group_matmul_stacked_rawx"]) == 8
+    assert kinds["quantize_acts_grouped_t"] == ["qkv", "gate_up", "down"]
+    assert kinds["int4_group_matmul_stacked"] == ["qkv", "o", "gate_up", "down", "qkv@rows"]
+    assert len(kinds["write_quant_cache_stacked"]) == 1
+
+    metrics, launches = cs.serve(promoted, stacked, cfg, cpu, promoted=True, batch=40,
+                                 smajor=False, n_requests=44, decode_window=True)
+    assert sum(launches.values()) == 0
+    per_step = {"quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8,
+                "write_quant_cache_stacked": 2, "decode_attention_stacked": 2}
+    assert metrics["launches_per_step"] == per_step and metrics["pool"] == "head-major"
+    steps = metrics["decode_steps"]
+    assert steps >= 64                        # 44 requests of 32 tokens through 40 slots
+    assert {k: v for k, v in expected["serving"].items() if k != "int8_prefill_matmul"} == {
+        k: v * steps for k, v in per_step.items()}
+    assert metrics["generated_tokens"] == 44 * 32
+
+    cs.slot_decode(stacked, cfg, cpu, "card")
+    assert expected["head_major decode step B=40"] == per_step
+    assert expected["s_major decode step B=40"] == {
+        "quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8,
+        "write_quant_cache_smajor": 2, "decode_attention_smajor_stacked": 2}
+    assert expected["head-major decode step B=32"] == {
+        "int4_group_matmul_stacked_rawx": 8, "write_quant_cache_stacked": 2,
+        "decode_attention_stacked": 2}
+    phases = {p["phase"]: p for p in printed if "phase" in p}
+    # position 448, two warm-up steps and the counted one, three windows of 8, the profile
+    assert phases["slot_head_major_decode"]["positions"] == [448, 448 + 3 + 24 + 4]

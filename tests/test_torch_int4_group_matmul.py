@@ -1,8 +1,9 @@
-"""K1 (int4_group_matmul_stacked_rawx) and K6 (int4_group_matmul) plain
-PyTorch versions vs the JAX Pallas kernels in interpret mode, plus the
-real_quant_linear dispatch that reaches them.  Tolerance rtol=atol=2e-4:
-both sides accumulate the same exact integer group products in f32, in
-different orders."""
+"""K1 (int4_group_matmul_stacked_rawx), K5 (int4_group_matmul_stacked) and
+K6 (int4_group_matmul) plain PyTorch versions vs the JAX Pallas kernels in
+interpret mode, plus the real_quant_linear dispatch that reaches them.
+Tolerance rtol=atol=2e-4: both sides accumulate the same exact integer
+group products in f32, in different orders (K5: within 1e-5 of the
+output's norm)."""
 
 import dataclasses
 
@@ -14,15 +15,19 @@ import torch
 
 from smoothquant_tpu.kernels import pack as jpack
 from smoothquant_tpu.kernels import real_linear as jreal
+from smoothquant_tpu.kernels.act_prep import quantize_acts_grouped_t as j_quant_t
 from smoothquant_tpu.kernels.int4_group_matmul import (
     int4_group_matmul as j_gmm,
+    int4_group_matmul_stacked as j_stacked,
     int4_group_matmul_stacked_rawx as j_rawx,
 )
 from smoothquant_tpu.quant.config import w4a4_group as jw4a4_group
 from smoothquant_tpu_torch.kernels import pack as tpack
 from smoothquant_tpu_torch.kernels import real_linear as treal
+from smoothquant_tpu_torch.kernels.act_prep import quantize_acts_grouped_t
 from smoothquant_tpu_torch.kernels.int4_group_matmul import (
     int4_group_matmul,
+    int4_group_matmul_stacked,
     int4_group_matmul_stacked_rawx,
 )
 from smoothquant_tpu_torch.utils.convert import packed_from_numpy
@@ -45,11 +50,12 @@ def _to_torch(jp):
     return packed_from_numpy(d, "cpu")
 
 
-def _packs(identity: bool, scale_dtype: str, stacked: bool, seed=0):
+def _packs(identity: bool, scale_dtype: str, stacked: bool, seed=0,
+           salient_prop=0.05):
     """JAX pack(s) of an (O, C) linear — stacked over L layers or one —
     and the port's converted twin."""
     rng = np.random.default_rng(seed)
-    cfg = dataclasses.replace(jw4a4_group(group_size=GS, salient_prop=0.05),
+    cfg = dataclasses.replace(jw4a4_group(group_size=GS, salient_prop=salient_prop),
                               scale_dtype=scale_dtype)
     imp = rng.uniform(0.1, 1.0, size=(C,))
     packs = []
@@ -74,15 +80,10 @@ def _x(seed=1, n=N):
 MODES = ["rms", "raw", "mask"]
 
 
-@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", MODES)
-def test_rawx_plain_matches_jax(mode, scale_dtype):
-    """K1 in its three modes: fused RMSNorm (qkv / gate_up), raw pre-permuted
-    tail-salient (down_proj), and the identity layout's 0/1 mask with a
-    pre-gathered x_sal (o_proj)."""
+def _rawx_case(mode, scale_dtype, n, seed):
     jp, tp = _packs(identity=mode == "mask", scale_dtype=scale_dtype,
                     stacked=True)
-    x = _x()
+    x = _x(seed=seed, n=n)
     m = tp.meta
     common = dict(group_size=m.group_size, act_bits=m.act_bits,
                   num_salient=m.num_salient)
@@ -93,7 +94,7 @@ def test_rawx_plain_matches_jax(mode, scale_dtype):
     elif mode == "mask":
         norm = np.asarray(jp.ns_mask)
         sal_idx = np.asarray(jp.perm)[1, C - m.num_salient:]
-        x_sal = np.zeros((N, m.k_s), np.float32)
+        x_sal = np.zeros((n, m.k_s), np.float32)
         x_sal[:, :m.num_salient] = x[:, sal_idx]
     kind = {"rms": "rms", "raw": None, "mask": "mask"}[mode]
     ref = j_rawx(jnp.ones((1,), jnp.int32), jnp.asarray(x),
@@ -105,8 +106,62 @@ def test_rawx_plain_matches_jax(mode, scale_dtype):
         1, _t(x), None if norm is None else _t(norm), tp.w_qt, tp.w_scales_t,
         tp.w_sal_t, None if x_sal is None else _t(x_sal), eps=EPS,
         norm_kind=kind, **common)
-    assert got.shape == (N, tp.w_qt.shape[-1])
+    assert got.shape == (n, tp.w_qt.shape[-1])
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", MODES)
+def test_rawx_plain_matches_jax(mode, scale_dtype):
+    """K1 in its three modes: fused RMSNorm (qkv / gate_up), raw pre-permuted
+    tail-salient (down_proj), and the identity layout's 0/1 mask with a
+    pre-gathered x_sal (o_proj)."""
+    _rawx_case(mode, scale_dtype, N, seed=1)
+
+
+@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("mode", MODES)
+def test_rawx_plain_many_rows_matches_jax(mode, n):
+    """K1 at 16 and 32 token rows (the JAX rawx branch's gate), each mode."""
+    _rawx_case(mode, "bfloat16", n, seed=n)
+
+
+@pytest.mark.parametrize("salient", [True, False])
+@pytest.mark.parametrize("layout", ["pre_laid", "rows"])
+def test_stacked_gmm_plain_matches_jax(layout, salient):
+    """K5 on layer 1 of 2 at 40 rows: K7a's (G, N_pad, gs) layout or (N, K)
+    row-major codes, with and without salient channels; f32 out within 1e-5
+    of the output's norm (the same exact group products, summed in f32 in
+    another order)."""
+    jp, tp = _packs(identity=False, scale_dtype="bfloat16", stacked=True,
+                    salient_prop=0.05 if salient else 0.0)
+    m = tp.meta
+    n = 40
+    x = _x(seed=6, n=n)
+    k_ns_raw = C - m.num_salient
+    x_ns = np.zeros((n, m.k_ns), np.float32)
+    x_ns[:, :k_ns_raw] = x[:, :k_ns_raw]
+    x_sal = np.zeros((n, m.k_s), np.float32)
+    x_sal[:, :m.num_salient] = x[:, k_ns_raw:]
+    if layout == "pre_laid":
+        jx = j_quant_t(jnp.asarray(x_ns), group_size=GS, act_bits=m.act_bits,
+                       interpret=True)
+        tx = quantize_acts_grouped_t(_t(x_ns), group_size=GS, act_bits=m.act_bits)
+        pre = n
+    else:
+        jx = jax.jit(lambda v: jreal._identity_nibble_quantize(
+            jp, v, jnp.arange(C), jnp.ones((C,)))[:2])(jnp.asarray(x))
+        tx = treal._identity_nibble_quantize(tp, _t(x), torch.arange(C),
+                                             torch.ones(C))[:2]
+        pre = None
+    ref = jax.jit(lambda a, b, c: j_stacked(
+        jnp.ones((1,), jnp.int32), a, b, jp.w_qt, jp.w_scales_t, c, jp.w_sal_t,
+        group_size=GS, interpret=True, pre_laid=pre))(*jx, jnp.asarray(x_sal))
+    got = int4_group_matmul_stacked(1, *tx, tp.w_qt, tp.w_scales_t, _t(x_sal),
+                                    tp.w_sal_t, group_size=GS, pre_laid=pre)
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape == (n, tp.w_qt.shape[-1]) and got.dtype == torch.float32
+    assert np.linalg.norm(got.numpy() - ref) <= 1e-5 * np.linalg.norm(ref)
 
 
 @pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
@@ -137,17 +192,14 @@ def test_real_quant_linear_per_layer_matches_jax(identity):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_real_quant_linear_stacked_matches_jax(mode):
-    """The decode dispatch with layer_idx: pre-permuted + fused RMSNorm,
-    pre-permuted raw, and identity (x_sal gathered by the dispatch)."""
+def _stacked_dispatch_case(mode, n, seed):
     jp, tp = _packs(identity=mode == "mask", scale_dtype="bfloat16",
                     stacked=True)
     if mode != "mask":
         mark = lambda p: dataclasses.replace(
             p, meta=dataclasses.replace(p.meta, pre_permuted=True))
         jp, tp = mark(jp), mark(tp)
-    x = _x()
+    x = _x(seed=seed, n=n)
     rows = np.random.default_rng(3).uniform(0.5, 1.5, size=(L, C)).astype(
         np.float32)
     jnorm = (jnp.asarray(rows)[:, None, :], EPS, "rms") if mode == "rms" else None
@@ -155,8 +207,22 @@ def test_real_quant_linear_stacked_matches_jax(mode):
     ref = jax.jit(lambda v: jreal.real_quant_linear(
         jp, v, layer_idx=jnp.int32(1), norm=jnorm, interpret=True))(jnp.asarray(x))
     got = treal.real_quant_linear(tp, _t(x), layer_idx=1, norm=tnorm)
-    assert got.shape == (N, O)
+    assert got.shape == (n, O)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_real_quant_linear_stacked_matches_jax(mode):
+    """The decode dispatch with layer_idx: pre-permuted + fused RMSNorm,
+    pre-permuted raw, and identity (x_sal gathered by the dispatch)."""
+    _stacked_dispatch_case(mode, N, seed=1)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_real_quant_linear_stacked_many_rows_matches_jax(mode):
+    """The decode dispatch at 40 rows: RMSNorm rounded to x's dtype, K7a and
+    K5 for the pre-permuted packs, the identity quantize and K5 for o_proj."""
+    _stacked_dispatch_case(mode, 40, seed=8)
 
 
 def test_int8_lm_head_matches_jax():
@@ -180,10 +246,10 @@ def test_int8_lm_head_matches_jax():
 
 def test_unported_branches_raise():
     _, tp = _packs(identity=False, scale_dtype="float32", stacked=True)
-    with pytest.raises(NotImplementedError):   # not pre-permuted, no gather
-        treal.real_quant_linear(tp, _t(_x()), layer_idx=0)
-    big = torch.zeros((33, C))
-    tp = dataclasses.replace(tp, meta=dataclasses.replace(tp.meta,
-                                                          pre_permuted=True))
-    with pytest.raises(NotImplementedError):   # decode takes few rows
-        treal.real_quant_linear(tp, big, layer_idx=0)
+    for n in (N, 33):                          # K1's rows and K5's
+        with pytest.raises(NotImplementedError):   # not pre-permuted, no gather
+            treal.real_quant_linear(tp, _t(_x(n=n)), layer_idx=0)
+    _, ti = _packs(identity=True, scale_dtype="float32", stacked=True)
+    with pytest.raises(NotImplementedError):   # identity call sites fuse no norm
+        treal.real_quant_linear(ti, torch.zeros((33, C)), layer_idx=0,
+                                norm=(torch.ones((L, C)), EPS, "rms"))
