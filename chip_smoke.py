@@ -33,17 +33,29 @@ Then the Llama-2-7B paths:
    head-major caches at B = 4, S = 512, K7a at qkv / gate_up / down and K5
    at the four decode linears (N = 64; K5 in both input modes), K10 at
    B = 64, S = 512 (per-slot positions, one past the end, then a scalar
-   one); after the promoted tree is built, K4 at its four prefill linears
-   and the lm_head (N = 1024); after the bf16 tree is built, K13 at the
-   four decode linears (N = 4).  Times come from CUDA events around
-   launches queued behind a busy-wait, so they are device time.
+   one); K12 over random head-major int8 caches of 512 positions from
+   position 448: its flat body at B = 4 and B = 64, its write body at
+   B = 4 (rows and scales identical to K10's), its stacked body at B = 4
+   over 8 of the 32 heads' worth of kv heads (Meta-Llama-3-8B's attention
+   shape); K14 at the serving pack's gate_up + down, N = 4 and 8; after the
+   promoted tree is built, K4 at its four prefill linears and the lm_head
+   (N = 1024); after the bf16 tree is built, K13 at the four decode linears
+   (N = 4).  Times come from CUDA events around launches queued behind a
+   busy-wait, so they are device time.
 4. Checks the kernel path against the plain path (the CPU) on a small
    model, f32 and bf16: the S-major prefill and one stacked decode step;
    a promoted prefill over head-major int8 caches and one Generator decode
    step; one stacked bf16-baseline decode step; one stacked decode step
-   of 40 and of 16 rows over a head-major per-slot int8 pool.
+   of 40 and of 16 rows over a head-major per-slot int8 pool; one aligned
+   head-major decode step in each ForwardContext composition (fuse_attn
+   "auto", "fused", "off", "auto" with fuse_mlp), and "auto" on a GQA twin.
 5. Serves requests through ContinuousBatcher(max_batch=4, max_len=512,
-   quant_kv=True, smajor=True) prefilling on the nibble tree.
+   quant_kv=True, smajor=True) prefilling on the nibble tree.  Then the
+   aligned stacked head-major int8 decode at B = 4 from position 448 in
+   its four compositions ("auto": K1 128, K12 32, K10 32 a step; "fused":
+   K1 128, K12 32; "off": K1 128, K10 32, K11 32; "auto" + fuse_mlp: K1 64,
+   K14 32, K12 32, K10 32), window by window with the S-major W4A4 step:
+   ms/step, device busy, idle share, launches per step.
 6. Promotes a plain nibble pack of the same weights to int8
    (promote_model_int8): a 1024-token prompt through the 32-layer promoted
    tree with no cache (prefill tokens/s), the Generator (4 prompts of 200
@@ -55,8 +67,10 @@ Then the Llama-2-7B paths:
    tokens/s, decode ms/step and device busy share of a steady window,
    launches per step (K7a 96, K5 128, K10 32, K11 32, K1 none); then B = 64
    decode from position 448 over the head-major and the S-major pool with
-   the same tree, window by window (K10 + K11 against K2 + K3), and a few
-   steps at B = 32 over the head-major pool (K1 at 128 a step).
+   the same tree and over the aligned head-major cache in "auto", window
+   by window (K10 + K11 and K12 + K10 against K2 + K3; the aligned step
+   launches K7a 96, K5 128, K12 32, K10 32), and a few steps at B = 32
+   over the head-major pool (K1 at 128 a step).
 7. The bf16 baseline: pack_fp_decode + stack_layers of the same weights,
    decoded at B = 4, cache 512, from position 448 over a bf16 head-major
    cache, and the W4A4 stacked tree over the S-major cache at the same
@@ -64,7 +78,7 @@ Then the Llama-2-7B paths:
    the W4A4 one, by host clock and by device busy time.
 Every path runs with the launch counts reset just before it and read just
 after, and fails unless each kernel launched as often as the path implies.
-8. Prints the `kernels` JSON line (all thirteen kernels), the card line,
+8. Prints the `kernels` JSON line (all fifteen kernels), the card line,
    then the `ok` line last.
 
 Exits non-zero on any failure; without CUDA, or without the port package
@@ -83,6 +97,13 @@ MAX_BATCH, MAX_LEN, PREFILL_N = 4, 512, 1024
 # requests; K1's largest row count (above it the linears take K7a + K5)
 SLOT_BATCH, SLOT_REQUESTS, MID_BATCH = 64, 96, 32
 DECODE_POS = 448             # the bench's aligned decode position (bench.py:179-180)
+# K12's stacked body: Meta-Llama-3-8B's attention shape (config.json: 32
+# query heads over 8 kv heads), as a share of the model's heads
+GQA_SHARE = 4
+# the aligned head-major decode's compositions: (name, fuse_attn, fuse_mlp)
+COMPOSITIONS = (("auto", "auto", False), ("fused", "fused", False), ("off", "off", False),
+                ("auto_mlp", "auto", True))
+ALIGNED_ROWS = 8             # the reference check's aligned steps: K14's largest N
 GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 200, 32, 256
 # the real-INT8 OPT path: calibration on 8 of the export CLI's 512 samples
 # (export_int8_model.py:20), 512-token sequences; 4 prompts of 512, 32 new
@@ -262,6 +283,12 @@ SOURCES = {
     "norm_quant": (
         "smoothquant_tpu_torch/kernels/csrc/norm_quant.cu",
         "smoothquant_tpu/kernels/norm_quant.py:61"),
+    "fused_attn": (
+        "smoothquant_tpu_torch/kernels/csrc/attn_fused.cu",
+        "smoothquant_tpu/kernels/attn_fused.py:345"),
+    "mlp_swiglu_fused_stacked": (
+        "smoothquant_tpu_torch/kernels/csrc/mlp_fused.cu",
+        "smoothquant_tpu/kernels/mlp_fused.py:534"),
 }
 
 
@@ -793,6 +820,174 @@ def check_write_cache_hm(cfg, dev, gen):
     return [row]
 
 
+def _random_hm_cache(b, n_kv, d, n_l, dev, gen):
+    """A stacked head-major int8 cache of random codes and scales, (L,)
+    aligned positions."""
+    import torch
+
+    from smoothquant_tpu_torch.models.common import QuantKVCache
+
+    c = QuantKVCache.create(b, MAX_LEN, n_kv, d, device=dev, n_layers=n_l, pos=DECODE_POS)
+    for t in (c.k_q, c.v_q):
+        t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev, dtype=torch.int8))
+    for t in (c.k_scale, c.v_scale):
+        t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02 + 0.005)
+    return c
+
+
+def check_fused_attn(cfg, dev, gen):
+    """K12 vs plain over random stacked head-major int8 caches of MAX_LEN
+    positions at aligned position DECODE_POS: the flat body (MHA, the
+    model's heads) at B = MAX_BATCH and B = SLOT_BATCH, the write body at
+    B = MAX_BATCH (its rows and scales identical to K10's from the same
+    k / v, and to the plain version's), the stacked body at B = MAX_BATCH
+    over a quarter of the heads as kv heads (GQA_SHARE).  bf16 attention
+    within 1e-2 of the largest magnitude (p is rounded to bf16 before PV on
+    both sides; sums in another order).  Yardstick: SDPA over the
+    dequantized bf16 cache, the same positions valid."""
+    import torch
+    import torch.nn.functional as F
+
+    from smoothquant_tpu_torch.kernels import attn_fused as k12
+    from smoothquant_tpu_torch.kernels import cache_write as k10
+    from smoothquant_tpu_torch.models.common import rotary_cos_sin
+    from smoothquant_tpu_torch.utils import roofline
+
+    h, d = cfg.num_attention_heads, cfg.head_dim
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    cos, sin = rotary_cos_sin(pos.long().reshape(1, 1), d)
+    bufs = lambda c: (c.k_q, c.v_q, c.k_scale, c.v_scale)
+    clone = lambda c: type(c)(*(t.clone() for t in bufs(c)), c.pos)
+    rows = []
+    for body, b, n_kv in (("flat", MAX_BATCH, h), ("flat", SLOT_BATCH, h),
+                          ("write", MAX_BATCH, h), ("gqa", MAX_BATCH, max(1, h // GQA_SHARE))):
+        n_l = cfg.num_hidden_layers if b == MAX_BATCH else 2
+        c = _random_hm_cache(b, n_kv, d, n_l, dev, gen)
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((b, n_kv, d), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, n_kv, d), generator=gen, device=dev).to(torch.bfloat16)
+        flat, write = body == "flat", body == "write"
+        if flat:
+            q = q.reshape(b, 1, h * d)
+            fn = k12.fused_virtual_attn_flat
+        else:
+            fn = k12.fused_rope_write_attn_stacked if write else k12.fused_virtual_attn_stacked
+        args = lambda i, c=c: (i, pos, q, k, v, cos, sin, *bufs(c))
+        last = n_l - 1
+        ref_c = clone(c) if write else c
+        got_c = clone(c) if write else c
+        got = fn(*args(last, got_c))
+        ref = k12.fused_attn_plain(*args(last, ref_c), flat=flat, write_cache=write)
+        row = dict(kernel="fused_attn", site=body if b == MAX_BATCH else f"{body}@{b}",
+                   shape=[b, h, n_kv, MAX_LEN, d], pos=DECODE_POS, in_sum=flat and b == MAX_BATCH)
+        if write:
+            k10_c = clone(c)
+            k10.write_quant_cache_stacked(last, pos, k, v, cos, sin, *bufs(k10_c))
+            torch.cuda.synchronize()
+            for name, x, y, z in zip(("k_q", "v_q", "k_scale", "v_scale"), bufs(got_c),
+                                     bufs(k10_c), bufs(ref_c)):
+                if not (torch.equal(x, y) and torch.equal(x, z)):
+                    raise AssertionError(f"K12 write body: {name} differs from K10's or the "
+                                         "plain version's")
+            row["cache_identical_to_k10"] = True
+            del k10_c, ref_c
+        torch.cuda.synchronize()
+        row["max_err"] = _close(f"K12 {body} B={b}", got, ref, 1e-2)
+        n_lib = min(4, n_l)
+        valid = (torch.arange(MAX_LEN, device=dev) <= DECODE_POS)[None, None, None, :]
+
+        def deq(qv, sc):
+            x = (qv.float() * sc[..., None]).to(torch.bfloat16)
+            return x.repeat_interleave(h // n_kv, dim=1)
+
+        kd = [deq(c.k_q[i], c.k_scale[i]) for i in range(n_lib)]
+        vd = [deq(c.v_q[i], c.v_scale[i]) for i in range(n_lib)]
+        q4 = q.reshape(b, h, 1, d)
+        n_bytes, ops = roofline.fused_attn_cost(b, h, n_kv, MAX_LEN, d, DECODE_POS, write=write)
+        b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        row.update(
+            kernel_ms=device_ms(lambda i: fn(*args(i % n_l, got_c)), n_l),
+            plain_ms=device_ms(lambda i: k12.fused_attn_plain(
+                *args(i % n_l, got_c), flat=flat, write_cache=write), 4, reps=3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=device_ms(lambda i: F.scaled_dot_product_attention(
+                q4, kd[i % n_lib], vd[i % n_lib], attn_mask=valid), 16),
+            library="scaled_dot_product_attention over the dequantized bf16 cache, "
+                    "yardstick only")
+        rows.append(row)
+        emit(row)
+        del c, got_c, kd, vd
+    return rows
+
+
+def check_mlp_fused(stacked, dev, gen):
+    """K14 vs plain at the serving pack's gate_up + down with the RMSNorm
+    fused, N = MAX_BATCH and 8 rows (its largest): the bf16 output within
+    1e-2 of the largest magnitude (K1's bound; the same chain twice).
+    Yardsticks: the two bf16 torch.matmuls with SiLU·up between them
+    (library_ms), and the unfused path's K1 pair with SiLU·up between them
+    (unfused_ms); grid_blocks is the cooperative grid the card holds."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import _build
+    from smoothquant_tpu_torch.kernels import int4_group_matmul as k1
+    from smoothquant_tpu_torch.kernels import mlp_fused as k14
+    from smoothquant_tpu_torch.utils import roofline
+
+    st = stacked["layers"]["stacked"]
+    gu, dn = st["mlp"]["gate_up_proj"], st["mlp"]["down_proj"]
+    n_l, half1, o1 = gu.w_qt.shape
+    _, half2, o2 = dn.w_qt.shape
+    c, inter, gs = gu.meta.in_features, dn.meta.in_features, gu.meta.group_size
+    kw = dict(group_size=gs, act_bits=gu.meta.act_bits, n_sal1=gu.meta.num_salient,
+              n_sal2=dn.meta.num_salient, gu_out_true=gu.meta.out_features,
+              dn_out_true=dn.meta.out_features, eps=1e-5)
+    norm = (torch.rand((n_l, c), generator=gen, device=dev) + 0.5).to(torch.bfloat16).float()
+    w1 = torch.randn((c, 2 * inter), generator=gen, device=dev).to(torch.bfloat16)
+    w2 = torch.randn((inter, c), generator=gen, device=dev).to(torch.bfloat16)
+    k1_kw = dict(group_size=gs, act_bits=gu.meta.act_bits)
+    rows = []
+    for n in (MAX_BATCH, 8):
+        x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+        args = lambda i: (i % n_l, x, norm[i % n_l], gu.w_qt, gu.w_scales_t, gu.w_sal_t,
+                          dn.w_qt, dn.w_scales_t, dn.w_sal_t)
+        got = k14.mlp_swiglu_fused_stacked(*args(n_l - 1), **kw)
+        ref = k14.mlp_swiglu_fused_stacked_plain(*args(n_l - 1), **kw)
+        torch.cuda.synchronize()
+        err = _close(f"K14 N={n}", got, ref, 1e-2)
+
+        def unfused(i):
+            y = k1.int4_group_matmul_stacked_rawx(
+                i % n_l, x, norm, gu.w_qt, gu.w_scales_t, gu.w_sal_t, eps=1e-5,
+                num_salient=gu.meta.num_salient, norm_kind="rms", **k1_kw)
+            hid = torch.nn.functional.silu(y[:, :inter]) * y[:, inter:2 * inter]
+            return k1.int4_group_matmul_stacked_rawx(
+                i % n_l, hid, None, dn.w_qt, dn.w_scales_t, dn.w_sal_t,
+                num_salient=dn.meta.num_salient, norm_kind=None, **k1_kw)
+
+        def library(i):
+            y = x @ w1
+            return (torch.nn.functional.silu(y[:, :inter]) * y[:, inter:]) @ w2
+
+        n_bytes, ops = roofline.mlp_fused_cost(n, c, o1, 2 * half1, gu.w_sal_t.shape[1], o2,
+                                               2 * half2, dn.w_sal_t.shape[1], gs)
+        b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        rows.append(dict(
+            kernel="mlp_swiglu_fused_stacked", site="mlp" if n == MAX_BATCH else f"mlp@{n}",
+            shape=[n, c, o1, inter, o2], max_err=err, in_sum=n == MAX_BATCH,
+            grid_blocks=(_build.lib().sq_mlp_fused_grid_blocks(
+                n, _build.dt_code(gu.w_scales_t), _build.dt_code(x)) if x.is_cuda else None),
+            kernel_ms=device_ms(lambda i: k14.mlp_swiglu_fused_stacked(*args(i), **kw), n_l),
+            plain_ms=device_ms(lambda i: k14.mlp_swiglu_fused_stacked_plain(*args(i), **kw),
+                               4, reps=3),
+            unfused_ms=device_ms(unfused, n_l),
+            bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(library, 16),
+            library="two bf16 torch.matmuls with SiLU·up between them, yardstick only"))
+        emit(rows[-1])
+    del w1, w2
+    return rows
+
+
 # ---------------------------------------------------------------- OPT kernels
 
 OPT_LINEARS = (  # (site, Int8OPTLayerParams field, ReLU, int8 output)
@@ -966,12 +1161,14 @@ def check_no_fallback(dev):
     import torch
 
     from smoothquant_tpu_torch.kernels import act_prep as k7
+    from smoothquant_tpu_torch.kernels import attn_fused as k12
     from smoothquant_tpu_torch.kernels import cache_write as k10
     from smoothquant_tpu_torch.kernels import decode_attention as k11
     from smoothquant_tpu_torch.kernels import fp_matmul as k13
     from smoothquant_tpu_torch.kernels import int4_group_matmul as k1
     from smoothquant_tpu_torch.kernels import int8 as k15
     from smoothquant_tpu_torch.kernels import int8_prefill as k4
+    from smoothquant_tpu_torch.kernels import mlp_fused as k14
     from smoothquant_tpu_torch.kernels import norm_quant as k16
 
     z8 = torch.zeros((64, 64), dtype=torch.int8, device=dev)
@@ -1022,6 +1219,15 @@ def check_no_fallback(dev):
         "K10 float cache": (lambda: k10.write_quant_cache_stacked(
             0, torch.zeros(2, dtype=torch.int32, device=dev), *kv, f32(1, 2, 4, 8, 64),
             f32(1, 2, 4, 8, 64), f32(1, 2, 4, 8), f32(1, 2, 4, 8)), TypeError),
+        "K12 S = 100": (lambda: k12.fused_virtual_attn_stacked(
+            0, 5, f32(2, 4, 64), *kv, torch.zeros((1, 2, 4, 100, 64), dtype=torch.int8,
+                                                  device=dev),
+            torch.zeros((1, 2, 4, 100, 64), dtype=torch.int8, device=dev), f32(1, 2, 4, 100),
+            f32(1, 2, 4, 100)), ValueError),
+        "K14 nine rows": (lambda: k14.mlp_swiglu_fused_stacked(
+            0, f32(9, 256), None, w4, f32(1, 4, 256), f32(1, 0, 256), w4, f32(1, 4, 256),
+            f32(1, 0, 256), group_size=64, act_bits=4, n_sal1=0, n_sal2=0, gu_out_true=256,
+            dn_out_true=256), NotImplementedError),
     }
     raised = {}
     for name, (fn, expected) in cases.items():
@@ -1046,7 +1252,12 @@ def reference_check(dev):
         head-major cache (K13, K11);
       * head_major_b40 / head_major_b16: one stacked decode step of 40 and
         16 rows over a random head-major int8 pool with per-slot positions
-        and a key mask (K7a + K5, or K1; K10, K11).
+        and a key mask (K7a + K5, or K1; K10, K11);
+      * aligned_<composition>: one stacked decode step of ALIGNED_ROWS rows
+        over a random head-major int8 cache at aligned (L,) positions in each of
+        COMPOSITIONS (K1 with K12's flat body + K10, K12's write body, K10 +
+        K11, K14 + K12 + K10), and aligned_auto_gqa: "auto" on a GQA twin
+        of the model (4 kv heads: K12's stacked body).
     Tolerances, relative to the largest logit: 2e-2 in f32 and 5e-2 in bf16
     for the S-major path, 1e-3 / 2e-2 for the unquantized bf16
     baseline (f32 sums in another order).  The generator path's 256-row
@@ -1055,22 +1266,35 @@ def reference_check(dev):
     rounding edge, which attention spreads to later rows (bf16 activations
     round coarser, so more codes move); its logits are held to 5e-2 (f32)
     and 1.5e-1 (bf16) of their norm instead — a wrong kernel misses by
-    their whole norm.  So are the head-major steps: at 40 and 16 rows a
-    per-token int4 code on a rounding edge moves a row's logits (2 of 40
-    rows by up to 0.17 between the plain path and the JAX package)."""
+    their whole norm.  So are the head-major and aligned steps: at 40 and
+    16 rows a per-token int4 code on a rounding edge moves a row's logits
+    (2 of 40 rows by up to 0.17 between the plain path and the JAX
+    package).  The aligned steps (ALIGNED_ROWS rows) are held to 1e-2 of
+    the norm in f32 (they read 1e-7 to 2e-6 on the H100) and 2.5e-1 in
+    bf16: there K1's in-kernel RMSNorm (rsqrtf) moves codes in most rows,
+    and the steps read 0.09 ("off", which runs no kernel of K12 or K14) to
+    0.17 (the GQA twin) of the norm, beside head_major_b16's 0.13."""
     import dataclasses
 
     import torch
 
     from smoothquant_tpu_torch.models import llama
-    from smoothquant_tpu_torch.models.common import KVCache, QuantKVCache, SMajorQuantKVCache
+    from smoothquant_tpu_torch.models.common import (
+        ForwardContext,
+        KVCache,
+        QuantKVCache,
+        SMajorQuantKVCache,
+    )
 
-    out = {}
+    out, failed = {}, []
+    aligned = [f"aligned_{name}" for name, _, _ in COMPOSITIONS] + ["aligned_auto_gqa"]
     for dtype_name, tol in (
             ("float32", {"smajor": 2e-2, "generator": 5e-2, "bf16_baseline": 1e-3,
-                         "head_major_b40": 5e-2, "head_major_b16": 5e-2}),
+                         "head_major_b40": 5e-2, "head_major_b16": 5e-2,
+                         **{a: 1e-2 for a in aligned}}),
             ("bfloat16", {"smajor": 5e-2, "generator": 1.5e-1, "bf16_baseline": 2e-2,
-                          "head_major_b40": 1.5e-1, "head_major_b16": 1.5e-1})):
+                          "head_major_b40": 1.5e-1, "head_major_b16": 1.5e-1,
+                          **{a: 2.5e-1 for a in aligned}})):
         cfg = dataclasses.replace(
             llama.LlamaConfig.tiny(), hidden_size=512, intermediate_size=512,
             num_attention_heads=8, num_key_value_heads=8, num_hidden_layers=2,
@@ -1079,10 +1303,14 @@ def reference_check(dev):
         fp, packed, stacked = build_model(cfg, "cpu", SEED, group_size=16, align_o=256)
         promoted = build_promoted(fp, cfg, SEED, group_size=16)
         bf16 = build_bf16(fp, cfg)
+        gqa_cfg = dataclasses.replace(cfg, num_key_value_heads=4)
+        gqa = build_model(gqa_cfg, "cpu", SEED, group_size=16, align_o=256)[2]
         gen = torch.Generator().manual_seed(SEED + 1)
         prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
         long_prompt = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
         pools = {b: _random_pool(cfg, b, 128, gen) for b in (40, 16)}
+        aligned_pools = {m: _random_pool(c, ALIGNED_ROWS, 128, gen)
+                         for m, c in (("mha", cfg), ("gqa", gqa_cfg))}
         logits = {}
         for name, d in (("plain", "cpu"), ("kernel", dev)):
             p, s = tree_to(packed, d), tree_to(stacked, d)
@@ -1111,8 +1339,17 @@ def reference_check(dev):
                 logits[name][f"head_major_b{b}"], _ = llama.forward(
                     s, tok.to(d), cfg, caches=hm, positions=pos[0, :, None].to(d),
                     attn_mask=mask.to(d))
+            for part, model, (fuse_attn, fuse_mlp) in (
+                    [(f"aligned_{n}", "mha", (fa, fm)) for n, fa, fm in COMPOSITIONS]
+                    + [("aligned_auto_gqa", "gqa", ("auto", False))]):
+                pool, tok, pos, _ = aligned_pools[model]
+                hm = QuantKVCache(*(t.clone().to(d) for t in pool), pos[:, 0].clone().to(d))
+                tree, c = (s, cfg) if model == "mha" else (tree_to(gqa, d), gqa_cfg)
+                logits[name][part], _ = llama.forward(
+                    tree, tok.to(d), c, caches=hm,
+                    ctx=ForwardContext(fuse_attn=fuse_attn, fuse_mlp=fuse_mlp))
             logits[name] = {k: v.cpu() for k, v in logits[name].items()}
-        res = {}
+        res = out[dtype_name] = {}
         for part, ref in logits["plain"].items():
             got = logits["kernel"][part]
             if not (torch.isfinite(got).all() and got.shape == ref.shape
@@ -1120,16 +1357,21 @@ def reference_check(dev):
                 raise AssertionError(f"reference check {part}: non-finite or misshapen logits")
             name = f"reference check {dtype_name} {part}"
             res[part] = dict(argmax_agree=float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
-            if part == "generator" or part.startswith("head_major"):
+            if part == "generator" or part.startswith(("head_major", "aligned")):
                 rel_norm = float((got.float() - ref.float()).norm() / ref.float().norm())
-                if not rel_norm <= tol[part]:
-                    raise AssertionError(f"{name}: relative norm error {rel_norm} > {tol[part]}")
                 res[part].update(rel_norm_err=rel_norm, tolerance_rel_norm=tol[part],
                                  max_abs_err=(got.float() - ref.float()).abs().max().item())
+                if not rel_norm <= tol[part]:
+                    failed.append(f"{name}: relative norm error {rel_norm} > {tol[part]}")
             else:
-                res[part].update(max_abs_err=_close(name, got, ref, tol[part]),
-                                 tolerance_rel_to_max=tol[part])
-        out[dtype_name] = res
+                try:
+                    res[part].update(max_abs_err=_close(name, got, ref, tol[part]),
+                                     tolerance_rel_to_max=tol[part])
+                except AssertionError as e:
+                    failed.append(str(e))
+    if failed:
+        emit({"phase": "reference_check", "failed": failed, **out})
+        raise AssertionError("; ".join(failed))
     return out
 
 
@@ -1168,18 +1410,28 @@ def _check_launches(path, launches, expect):
         raise AssertionError(f"{path}: launch counts {launches} != expected {expect}")
 
 
-def step_launches(cfg, batch, smajor):
+def step_launches(cfg, batch, attn, fuse_mlp=False):
     """Kernel launches of one stacked W4A4 decode step of `batch` rows: the
-    four linears a layer on K1 up to MID_BATCH rows, above on K7a (qkv,
-    gate_up, down) and K5; the cache write and attention K2 + K3 over the
-    S-major pool, K10 + K11 over the head-major one."""
+    four linears a layer on K1 up to MID_BATCH rows (two of them and K14
+    with fuse_mlp), above on K7a (qkv, gate_up, down) and K5; the cache
+    write and attention by `attn`: "smajor" K2 + K3 over the S-major pool,
+    "off" K10 + K11 over the head-major one, "auto" K12 + K10 and "fused"
+    K12 alone over the aligned head-major cache."""
     n_l = cfg.num_hidden_layers
-    out = ({"int4_group_matmul_stacked_rawx": 4 * n_l} if batch <= MID_BATCH else
-           {"quantize_acts_grouped_t": 3 * n_l, "int4_group_matmul_stacked": 4 * n_l})
-    if smajor:
-        out.update(write_quant_cache_smajor=n_l, decode_attention_smajor_stacked=n_l)
+    if batch <= MID_BATCH:
+        out = {"int4_group_matmul_stacked_rawx": (2 if fuse_mlp else 4) * n_l}
     else:
+        out = {"quantize_acts_grouped_t": 3 * n_l, "int4_group_matmul_stacked": 4 * n_l}
+    if fuse_mlp:
+        out["mlp_swiglu_fused_stacked"] = n_l
+    if attn == "smajor":
+        out.update(write_quant_cache_smajor=n_l, decode_attention_smajor_stacked=n_l)
+    elif attn == "off":
         out.update(write_quant_cache_stacked=n_l, decode_attention_stacked=n_l)
+    else:
+        out["fused_attn"] = n_l
+        if attn == "auto":
+            out["write_quant_cache_stacked"] = n_l
     return out
 
 
@@ -1241,7 +1493,7 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool, batch=MAX_BATCH,
             and all(0 <= t < cfg.vocab_size for t in toks)):
         raise AssertionError("serving: unfinished request or token out of range")
     n_l = cfg.num_hidden_layers
-    per_step = step_launches(cfg, batch, smajor)
+    per_step = step_launches(cfg, batch, "smajor" if smajor else "off")
     expect = {k: v * steps for k, v in per_step.items()}
     if promoted:
         # K4 runs the prefill linears of rows × bucket >= 256; the lm_head
@@ -1302,10 +1554,10 @@ def profile(fn, steps: int) -> dict:
                 top_ms_per_step=[[name[:60], us / 1e3 / steps] for name, us in top])
 
 
-def aligned_decoder(tree, cache, cfg, dev, path: str, expect_per_step: dict):
+def aligned_decoder(tree, cache, cfg, dev, path: str, expect_per_step: dict, ctx=None):
     """A decode step of the cache's B rows over a stacked cache filled to
-    the bench's aligned position: warmed up, its launches checked; returns
-    (step(n), the launches of one step)."""
+    the bench's aligned position (in the composition ctx names): warmed up,
+    its launches checked; returns (step(n), the launches of one step)."""
     import torch
 
     from smoothquant_tpu_torch.models import llama
@@ -1318,7 +1570,7 @@ def aligned_decoder(tree, cache, cfg, dev, path: str, expect_per_step: dict):
     def step(n=1):
         nonlocal tok
         for _ in range(n):
-            h, _ = llama.forward_hidden(tree, tok, cfg, caches=cache)
+            h, _ = llama.forward_hidden(tree, tok, cfg, caches=cache, ctx=ctx)
             tok = torch.argmax(llama.lm_head_logits(tree, h, cfg)[:, -1], dim=-1)[:, None]
         if not (0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size):
             raise AssertionError(f"{path}: token out of range")
@@ -1353,42 +1605,47 @@ def decode_windows(steps: dict, n_windows=3, window=8, batch=MAX_BATCH) -> dict:
 
 def slot_decode(stacked, cfg, dev, card):
     """B = SLOT_BATCH decode steps from DECODE_POS with the same tree over
-    the head-major pool (per-slot positions: K10 + K11) and the S-major one
-    (K2 + K3), taking turns window by window; then a few steps of
-    MID_BATCH rows over the head-major pool, whose linears take K1.  Each
-    pool is freed before the next is made.  Returns the launches of the
-    counted steps."""
+    the head-major pool (per-slot positions: K10 + K11), the S-major one
+    (K2 + K3) and the aligned head-major cache ((L,) positions, fuse_attn
+    "auto": K12's flat body + K10), taking turns window by window; then a
+    few steps of MID_BATCH rows over the head-major pool, whose linears take
+    K1.  The caches are freed before the next is made.  Returns the
+    launches of the counted steps."""
     from collections import Counter
 
     import torch
 
     from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.common import ForwardContext
 
     launches = Counter()
     steps = {}
     caches = {}
-    for name, smajor in (("head_major", False), ("s_major", True)):
+    for name, smajor, attn in (("head_major", False, "off"), ("s_major", True, "smajor"),
+                               ("aligned_head_major", False, "auto")):
         caches[name] = llama.stacked_caches(cfg, SLOT_BATCH, MAX_LEN, pos=DECODE_POS,
-                                            smajor=smajor, per_slot=True, device=dev)
+                                            quant_kv=True, smajor=smajor,
+                                            per_slot=attn != "auto", device=dev)
         steps[name], used = aligned_decoder(
             stacked, caches[name], cfg, dev, f"{name} decode step B={SLOT_BATCH}",
-            step_launches(cfg, SLOT_BATCH, smajor))
+            step_launches(cfg, SLOT_BATCH, attn), ctx=ForwardContext(fuse_attn="auto"))
         launches.update(used)
     dec = decode_windows(steps, batch=SLOT_BATCH)
     for name, cache in caches.items():
         emit({"phase": f"slot_{name}_decode", "card": card, "batch": SLOT_BATCH,
               "cache": MAX_LEN, "positions": [DECODE_POS, int(cache.pos.flatten()[0])],
               **dec[name]})
-    emit({"phase": "slot_head_major_vs_s_major", "card": card,
-          "host_clock": dec["head_major"]["ms_per_step"] / dec["s_major"]["ms_per_step"],
-          "device_busy": (dec["head_major"]["busy_ms_per_step"]
-                          / dec["s_major"]["busy_ms_per_step"])})
+    for name in ("head_major", "aligned_head_major"):
+        emit({"phase": f"slot_{name}_vs_s_major", "card": card,
+              "host_clock": dec[name]["ms_per_step"] / dec["s_major"]["ms_per_step"],
+              "device_busy": (dec[name]["busy_ms_per_step"]
+                              / dec["s_major"]["busy_ms_per_step"])})
     del steps, caches, dec
     torch.cuda.empty_cache()
-    mid = llama.stacked_caches(cfg, MID_BATCH, MAX_LEN, pos=DECODE_POS, smajor=False,
-                               per_slot=True, device=dev)
+    mid = llama.stacked_caches(cfg, MID_BATCH, MAX_LEN, pos=DECODE_POS, quant_kv=True,
+                               smajor=False, per_slot=True, device=dev)
     step, used = aligned_decoder(stacked, mid, cfg, dev, f"head-major decode step "
-                                 f"B={MID_BATCH}", step_launches(cfg, MID_BATCH, False))
+                                 f"B={MID_BATCH}", step_launches(cfg, MID_BATCH, "off"))
     launches.update(used)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1397,6 +1654,47 @@ def slot_decode(stacked, cfg, dev, card):
     emit({"phase": "mid_decode", "card": card, "batch": MID_BATCH, "cache": MAX_LEN,
           "ms_per_step": 1e3 * (time.perf_counter() - t0) / 4, "launches_per_step": used,
           "positions": [DECODE_POS, int(mid.pos.flatten()[0])]})
+    return launches
+
+
+def aligned_decode(stacked, w4a4_step, cfg, dev, card):
+    """The aligned stacked head-major int8 decode at B = MAX_BATCH from
+    DECODE_POS in each of COMPOSITIONS ("auto": K12's flat body + K10;
+    "fused": K12's write body; "off": K10 + K11; "auto" with fuse_mlp: K14
+    in place of the MLP's two K1 launches and SiLU·up), taking turns window
+    by window with the S-major W4A4 step (K2 + K3): ms/step by host clock,
+    device busy ms, idle share and launches per step of each; then each
+    composition against "off".  Returns the launches of the counted steps."""
+    from collections import Counter
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.common import ForwardContext
+
+    launches = Counter()
+    steps = {"s_major": w4a4_step}
+    caches, per_step = {}, {}
+    for name, fuse_attn, fuse_mlp in COMPOSITIONS:
+        caches[name] = llama.stacked_caches(cfg, MAX_BATCH, MAX_LEN, pos=DECODE_POS,
+                                            quant_kv=True, smajor=False, device=dev)
+        steps[name], per_step[name] = aligned_decoder(
+            stacked, caches[name], cfg, dev, f"aligned {name} decode step",
+            step_launches(cfg, MAX_BATCH, fuse_attn, fuse_mlp),
+            ctx=ForwardContext(fuse_attn=fuse_attn, fuse_mlp=fuse_mlp))
+        launches.update(per_step[name])
+    dec = decode_windows(steps)
+    for name, cache in caches.items():
+        emit({"phase": f"aligned_{name}_decode", "card": card, "batch": MAX_BATCH,
+              "cache": MAX_LEN, "positions": [DECODE_POS, int(cache.pos.flatten()[0])],
+              "launches_per_step": per_step[name], **dec[name]})
+    off = dec["off"]
+    emit({"phase": "aligned_vs_off", "card": card, "s_major": {
+        "ms_per_step": dec["s_major"]["ms_per_step"],
+        "busy_ms_per_step": dec["s_major"]["busy_ms_per_step"],
+        "idle_share": dec["s_major"]["trace"]["idle_share"]}, **{name: {
+            "launches_per_step": sum(per_step[name].values()),
+            "host_clock_vs_off": dec[name]["ms_per_step"] / off["ms_per_step"],
+            "device_busy_vs_off": dec[name]["busy_ms_per_step"] / off["busy_ms_per_step"],
+            "idle_share": dec[name]["trace"]["idle_share"]} for name in caches}})
     return launches
 
 
@@ -1745,9 +2043,11 @@ def kernels_line(rows, launches):
     summed (K1 at N = 4, K5, K6, K4 with the lm_head, K13, K7a's three
     sites; K11 its bf16 and int8 bodies; K15a its six linears, K15b its two
     products and K16 its LayerNorm, each at the prefill and at the decode
-    size; rows marked in_sum=False — K1 at 16 and 32 rows, K5's extra
-    row-major qkv — are reported on their own lines only), the errors the
-    largest seen; launches are the main paths' runs summed."""
+    size; K12 its flat body at B = 4, K14 at N = 4; rows marked
+    in_sum=False — K1 at 16 and 32 rows, K5's extra row-major qkv, K12's
+    other bodies and B = 64, K14 at 8 rows — are reported on their own
+    lines only), the errors the largest seen; launches are the main paths'
+    runs summed."""
     out = []
     for name, (src, replaces) in SOURCES.items():
         every = [r for r in rows if r["kernel"] == name]
@@ -1791,7 +2091,8 @@ def run(dev, cfg, card: str):
     for n in (16, MID_BATCH):
         rows += check_rawx(stacked, dev, gen, n)
     rows += (check_act_prep(stacked, dev, gen) + check_gmm_stacked(stacked, dev, gen)
-             + check_write_cache_hm(cfg, dev, gen))
+             + check_write_cache_hm(cfg, dev, gen) + check_fused_attn(cfg, dev, gen)
+             + check_mlp_fused(stacked, dev, gen))
 
     emit({"phase": "no_fallback", "raised": check_no_fallback(dev)})
     emit({"phase": "reference_check", **reference_check(dev)})
@@ -1801,10 +2102,12 @@ def run(dev, cfg, card: str):
     launches.update(used)
     emit({"phase": "serving", "card": card, **metrics, "launches": used})
 
-    w4a4_cache = llama.stacked_caches(cfg, MAX_BATCH, MAX_LEN, pos=DECODE_POS, device=dev)
+    w4a4_cache = llama.stacked_caches(cfg, MAX_BATCH, MAX_LEN, pos=DECODE_POS, quant_kv=True,
+                                      smajor=True, device=dev)
     w4a4_step, used = aligned_decoder(stacked, w4a4_cache, cfg, dev, "w4a4 decode step",
-                                      step_launches(cfg, MAX_BATCH, True))
+                                      step_launches(cfg, MAX_BATCH, "smajor"))
     launches.update(used)
+    launches.update(aligned_decode(stacked, w4a4_step, cfg, dev, card))
 
     t0 = time.perf_counter()
     promoted = build_promoted(fp, cfg, SEED)

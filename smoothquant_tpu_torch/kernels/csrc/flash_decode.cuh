@@ -1,0 +1,214 @@
+// Single-query flash decode over one (slot, kv head) of a head-major
+// cache: the device code K11 (decode_attention.cu) and K12 (attn_fused.cu)
+// share.  One block of WARPS warps serves the rep = H / H_kv query heads of
+// its kv head, so every cache byte is read once; a lane holds DPL
+// consecutive elements of a row (a warp reads a row whole).  A position
+// whose additive bias is at or below SKIP_AT is neither loaded nor
+// multiplied: its probability is exactly 0 either way.  The phases:
+//   flash_scores    scores = (q·k)·sm_scale [·k_scale] + bias in f32, one
+//                   warp per position, UNROLL rows loaded before any is used,
+//                   kept in shared memory (rep·S floats);
+//   flash_softmax   the TPU kernel's online softmax over tiles of ts
+//                   positions, reproduced tile by tile: running max guarded
+//                   at NEG_INF/2, the rescale α = exp(m_prev − m_safe),
+//                   l = l·α + Σp, and p [·v_scale] rounded to the value
+//                   dtype TV before PV, as the TPU kernel rounds it;
+//   flash_pv        each warp sums p·v over its positions tile by tile
+//                   (rescaling by α between tiles) into a (rep, D) partial;
+//                   the caller adds the WARPS partials in warp order.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+constexpr float FLASH_NEG_INF = -1e30f;
+constexpr float FLASH_SKIP_AT = -1e29f;  // bias at or below: the position contributes 0
+constexpr int FLASH_WARPS = 16;
+constexpr int FLASH_THREADS = 32 * FLASH_WARPS;
+constexpr int FLASH_UNROLL = 4;
+constexpr int FLASH_MAX_REP = 8;
+constexpr int FLASH_MAX_TILES = 64;
+
+// DPL consecutive elements of TC at p, as floats, in 16/8/4/2-byte loads
+template <typename TC, int DPL>
+__device__ __forceinline__ void load_vals(const TC* __restrict__ p, float (&f)[DPL]) {
+  constexpr int BYTES = DPL * (int)sizeof(TC);
+  static_assert(BYTES >= 2 && (BYTES & (BYTES - 1)) == 0, "row slice must be a power of two");
+  alignas(16) unsigned char buf[BYTES];
+  if constexpr (BYTES >= 16) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i)
+      reinterpret_cast<uint4*>(buf)[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+  } else if constexpr (BYTES == 8) {
+    *reinterpret_cast<uint2*>(buf) = __ldg(reinterpret_cast<const uint2*>(p));
+  } else if constexpr (BYTES == 4) {
+    *reinterpret_cast<unsigned int*>(buf) = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    *reinterpret_cast<unsigned short*>(buf) = __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  const TC* e = reinterpret_cast<const TC*>(buf);
+#pragma unroll
+  for (int t = 0; t < DPL; ++t) f[t] = to_f<TC>(e[t]);
+}
+
+// Phase 1.  qv: the lane's slice of the rep query rows (f32 values of the
+// query dtype); k_base: the head's row 0 plus the lane's offset; bias(s):
+// the additive bias of position s; sc: (rep, S) scores.
+template <typename TC, bool QUANT, int DPL, typename Bias>
+__device__ __forceinline__ void flash_scores(const float (&qv)[FLASH_MAX_REP][DPL],
+                                             const TC* __restrict__ k_base,
+                                             const float* __restrict__ ks_row, Bias bias,
+                                             float* sc, int rep, int S, float sm_scale) {
+  constexpr int D = 32 * DPL;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int s0 = warp; s0 < S; s0 += FLASH_WARPS * FLASH_UNROLL) {
+    float kr[FLASH_UNROLL][DPL];
+    float bs[FLASH_UNROLL];
+#pragma unroll
+    for (int u = 0; u < FLASH_UNROLL; ++u) {
+      const int s = s0 + u * FLASH_WARPS;
+      bs[u] = s < S ? bias(s) : FLASH_NEG_INF;
+      if (bs[u] > FLASH_SKIP_AT) {
+        load_vals<TC, DPL>(k_base + (size_t)s * D, kr[u]);
+      } else {
+#pragma unroll
+        for (int t = 0; t < DPL; ++t) kr[u][t] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < FLASH_UNROLL; ++u) {
+      const int s = s0 + u * FLASH_WARPS;
+      if (s >= S) break;
+      const float k_scale = QUANT && bs[u] > FLASH_SKIP_AT ? ks_row[s] : 1.0f;
+#pragma unroll
+      for (int r = 0; r < FLASH_MAX_REP; ++r) {
+        if (r >= rep) break;
+        if (bs[u] <= FLASH_SKIP_AT) {
+          if (lane == 0) sc[r * S + s] = bs[u];
+          continue;
+        }
+        float dot = 0.0f;
+#pragma unroll
+        for (int t = 0; t < DPL; ++t) dot = fmaf(qv[r][t], kr[u][t], dot);
+        dot = warp_sum(dot);
+        float x = __fmul_rn(dot, sm_scale);
+        if (QUANT) x = __fmul_rn(x, k_scale);
+        if (lane == 0) sc[r * S + s] = __fadd_rn(x, bs[u]);
+      }
+    }
+  }
+}
+
+// Phase 2, after a __syncthreads: rewrites sc as the rounded p, alpha (rep,
+// n_tiles) as each tile's rescale, and the running max and sum of each row
+// into m_out / l_out (thread 0 writes them).
+template <typename TV, bool QUANT>
+__device__ __forceinline__ void flash_softmax(float* sc, const float* __restrict__ vs_row,
+                                              float* alpha, float* m_out, float* l_out,
+                                              int rep, int S, int ts, float* scratch) {
+  const int n_tiles = S / ts;
+  for (int r = 0; r < rep; ++r) {
+    float m_run = 0.0f, l_run = 0.0f;
+    for (int t = 0; t < n_tiles; ++t) {
+      float* row = sc + r * S + t * ts;
+      float m = -INFINITY;
+      for (int s = threadIdx.x; s < ts; s += blockDim.x) m = fmaxf(m, row[s]);
+      m = block_reduce<true>(m, scratch);
+      const float m_new = t == 0 ? m : fmaxf(m_run, m);
+      const float m_safe = fmaxf(m_new, FLASH_NEG_INF / 2);
+      const float a = t == 0 ? 0.0f : expf(m_run - m_safe);
+      float l = 0.0f;
+      for (int s = threadIdx.x; s < ts; s += blockDim.x) {
+        const float p = expf(row[s] - m_safe);
+        l += p;
+        row[s] = round_to<TV>(QUANT ? p * vs_row[t * ts + s] : p);
+      }
+      l = block_reduce<false>(l, scratch);
+      l_run = t == 0 ? l : __fadd_rn(__fmul_rn(l_run, a), l);
+      m_run = m_new;
+      if (threadIdx.x == 0) alpha[r * n_tiles + t] = a;
+    }
+    if (threadIdx.x == 0) {
+      m_out[r] = m_run;
+      l_out[r] = l_run;
+    }
+  }
+}
+
+// Phase 3, after a __syncthreads: the warp's p·v partial (rep, D) into
+// part[warp], each row scaled by post[r] at the end when post is given.
+template <typename TC, int DPL, typename Bias>
+__device__ __forceinline__ void flash_pv(const float* sc, const float* alpha,
+                                         const float* post, const TC* __restrict__ v_base,
+                                         Bias bias, float* part, int rep, int S, int ts) {
+  constexpr int D = 32 * DPL;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_tiles = S / ts;
+  float acc[FLASH_MAX_REP][DPL];
+#pragma unroll
+  for (int r = 0; r < FLASH_MAX_REP; ++r)
+#pragma unroll
+    for (int t = 0; t < DPL; ++t) acc[r][t] = 0.0f;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0) {
+#pragma unroll
+      for (int r = 0; r < FLASH_MAX_REP; ++r) {
+        if (r >= rep) break;
+        const float a = alpha[r * n_tiles + t];
+#pragma unroll
+        for (int d = 0; d < DPL; ++d) acc[r][d] *= a;
+      }
+    }
+    const int s_end = (t + 1) * ts;
+    for (int s0 = t * ts + warp; s0 < s_end; s0 += FLASH_WARPS * FLASH_UNROLL) {
+      float vr[FLASH_UNROLL][DPL];
+      bool live[FLASH_UNROLL];
+#pragma unroll
+      for (int u = 0; u < FLASH_UNROLL; ++u) {
+        const int s = s0 + u * FLASH_WARPS;
+        live[u] = s < s_end && bias(s) > FLASH_SKIP_AT;
+        if (live[u]) {
+          load_vals<TC, DPL>(v_base + (size_t)s * D, vr[u]);
+        } else {
+#pragma unroll
+          for (int d = 0; d < DPL; ++d) vr[u][d] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < FLASH_UNROLL; ++u) {
+        if (!live[u]) continue;
+        const int s = s0 + u * FLASH_WARPS;
+#pragma unroll
+        for (int r = 0; r < FLASH_MAX_REP; ++r) {
+          if (r >= rep) break;
+          const float p = sc[r * S + s];
+#pragma unroll
+          for (int d = 0; d < DPL; ++d) acc[r][d] = fmaf(p, vr[u][d], acc[r][d]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < FLASH_MAX_REP; ++r) {
+    if (r >= rep) break;
+    const float a = post != nullptr ? post[r] : 1.0f;
+#pragma unroll
+    for (int d = 0; d < DPL; ++d)
+      part[(warp * rep + r) * D + lane * DPL + d] = post != nullptr ? acc[r][d] * a : acc[r][d];
+  }
+}
+
+// Shared memory of the three phases: (rep, S) scores, (WARPS, rep, D)
+// partials, (rep, n_tiles) rescales.
+inline size_t flash_smem_bytes(int rep, int S, int D, int ts) {
+  return ((size_t)rep * S + (size_t)FLASH_WARPS * rep * D + (size_t)rep * (S / ts)) *
+         sizeof(float);
+}
+
+inline bool flash_shape_ok(int H, int Hkv, int S, int ts) {
+  return !(H % Hkv || H / Hkv > FLASH_MAX_REP || ts < FLASH_WARPS * FLASH_UNROLL ||
+           ts % (FLASH_WARPS * FLASH_UNROLL) || S % ts || S / ts > FLASH_MAX_TILES);
+}
+
+}  // namespace

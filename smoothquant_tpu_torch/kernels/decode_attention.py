@@ -55,27 +55,25 @@ def _check_options(alibi_slopes, int8_dots):
         raise NotImplementedError("K11's int8_dots mode is not ported")
 
 
-def decode_attention_stacked_plain(layer_idx: int, q, k, v, bias, k_scale=None,
-                                   v_scale=None):
-    """Plain PyTorch K11 (same arguments as the wrapper): the TPU kernel's
-    tile-by-tile online softmax."""
-    b, h, d = q.shape
-    n_kv, s = k.shape[2], k.shape[3]
-    rep = h // n_kv
+def online_softmax_tiles(qf, kl, vl, bias, ks=None, vs=None):
+    """The TPU kernel's tile-by-tile online softmax of single queries over
+    one layer's head-major cache: qf (B, H_kv, rep, D) f32, kl / vl
+    (B, H_kv, S, D), bias (B, S), ks / vs (B, H_kv, S) scales of an int8
+    cache.  Returns the running max m, sum l (B, H_kv, rep, 1) and
+    numerator acc (B, H_kv, rep, D) after the last tile (K11 and K12)."""
+    s, d = kl.shape[2], kl.shape[3]
     ts = _pick_tile_s(s)
     if ts is None:
         raise ValueError(f"cache length {s} not tileable")
     sm_scale = 1.0 / math.sqrt(d)
-    quant = k_scale is not None
-    kl, vl = k[layer_idx], v[layer_idx]
-    v_dt = torch.bfloat16 if quant else v.dtype
-    qf = q.float().reshape(b, n_kv, rep, d)
+    quant = ks is not None
+    v_dt = torch.bfloat16 if quant else vl.dtype
     m = l_sum = acc = None
     for t in range(s // ts):
         sl = slice(t * ts, (t + 1) * ts)
         sc = torch.einsum("bgrd,bgsd->bgrs", qf, kl[:, :, sl].float()) * sm_scale
         if quant:
-            sc = sc * k_scale[layer_idx][:, :, None, sl]
+            sc = sc * ks[:, :, None, sl]
         sc = sc + bias[:, None, None, sl].float()
         m_cur = sc.amax(dim=-1, keepdim=True)
         m_new = m_cur if t == 0 else torch.maximum(m, m_cur)
@@ -85,10 +83,22 @@ def decode_attention_stacked_plain(layer_idx: int, q, k, v, bias, k_scale=None,
         alpha = None if t == 0 else torch.exp(m - m_safe)
         l_sum = p_sum if t == 0 else l_sum * alpha + p_sum
         if quant:
-            p = p * v_scale[layer_idx][:, :, None, sl]
+            p = p * vs[:, :, None, sl]
         pv = torch.einsum("bgrs,bgsd->bgrd", p.to(v_dt).float(), vl[:, :, sl].float())
         acc = pv if t == 0 else acc * alpha + pv
         m = m_new
+    return m, l_sum, acc
+
+
+def decode_attention_stacked_plain(layer_idx: int, q, k, v, bias, k_scale=None,
+                                   v_scale=None):
+    """Plain PyTorch K11 (same arguments as the wrapper): the TPU kernel's
+    tile-by-tile online softmax."""
+    b, h, d = q.shape
+    n_kv = k.shape[2]
+    qf = q.float().reshape(b, n_kv, h // n_kv, d)
+    scales = (() if k_scale is None else (k_scale[layer_idx], v_scale[layer_idx]))
+    _, l_sum, acc = online_softmax_tiles(qf, k[layer_idx], v[layer_idx], bias, *scales)
     denom = torch.where(l_sum > 0.0, l_sum, torch.ones_like(l_sum))
     return (acc / denom).reshape(b, h, d).to(q.dtype)
 

@@ -13,6 +13,8 @@ real_linear.py:70-125,200-479 — the branches the W4A4 serving path takes).
   per-layer nibble (prefill):
     * permuted → quantize_activations_packed_int + K6
     * identity → _identity_nibble_quantize + K6
+  the whole MLP of a stacked decode layer at N <= 8 (ForwardContext.fuse_mlp,
+    real_linear.py:148-197)                                     → K14
   identity int8, not nibble (promote_int8's prefill packs, the per-channel
     lm_head) → masked per-token quantize, then K4 at >= 256 rows, else one
     torch._int_mm product with the per-token × per-column epilogue (as the
@@ -33,6 +35,10 @@ from smoothquant_tpu_torch.kernels.int8_prefill import (
     scale_epilogue,
 )
 from smoothquant_tpu_torch.kernels.act_prep import quantize_acts_grouped_t
+from smoothquant_tpu_torch.kernels.mlp_fused import (
+    mlp_fused_supported,
+    mlp_swiglu_fused_stacked,
+)
 from smoothquant_tpu_torch.kernels.int4_group_matmul import (
     RAWX_MAX_N,
     int4_group_matmul,
@@ -63,6 +69,45 @@ def can_fuse_norm(packed) -> bool:
         return False
     m = packed.meta
     return m.pre_permuted and m.nibble and m.layout != "identity" and _grouped(m)
+
+
+def can_fuse_mlp(gu, dn, n_tokens: int) -> bool:
+    """gate_up + SwiGLU + down run as one K14 launch (real_linear.py:148-161):
+    both stacked nibble packs with matching per-group recipes, gate_up's
+    rows pre-permuted into down's packed order, at most 8 token rows, a
+    bias-free gate_up."""
+    if not (isinstance(gu, PackedLinear) and isinstance(dn, PackedLinear)):
+        return False
+    if gu.bias is not None or gu.w_qt.ndim != 3 or dn.w_qt.ndim != 3:
+        return False
+    return mlp_fused_supported(gu.meta, dn.meta, n_tokens)
+
+
+def real_mlp_fused(gu: PackedLinear, dn: PackedLinear, x: torch.Tensor, *,
+                   layer_idx: int, norm: Optional[tuple] = None,
+                   out_dtype=None) -> torch.Tensor:
+    """down(silu(gate(x)) · up(x)) of layer `layer_idx` in one K14 call
+    (real_linear.py:164-197); norm = (the layer's (C,) RMSNorm row, eps,
+    "rms").  The salient blocks are cast to x's dtype, as the JAX wrapper
+    casts them."""
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1])
+    norm_row, eps = None, 0.0
+    if norm is not None:
+        norm_row, n_eps, kind = norm
+        if kind != "rms" or not can_fuse_norm(gu):
+            raise NotImplementedError("K14 fuses an RMSNorm into a pre-permuted gate_up")
+        norm_row = norm_row.to(x.dtype)
+        eps = float(n_eps)
+    y = mlp_swiglu_fused_stacked(
+        layer_idx, x2d, norm_row, gu.w_qt, gu.w_scales_t, gu.w_sal_t.to(x.dtype),
+        dn.w_qt, dn.w_scales_t, dn.w_sal_t.to(x.dtype), group_size=gu.meta.group_size,
+        act_bits=gu.meta.act_bits, n_sal1=gu.meta.num_salient, n_sal2=dn.meta.num_salient,
+        gu_out_true=gu.meta.out_features, dn_out_true=dn.meta.out_features, eps=eps,
+        out_dtype=out_dtype or x.dtype)
+    if dn.bias is not None:
+        y = y + dn.bias[layer_idx].to(y.dtype)
+    return y.reshape(*shape[:-1], y.shape[-1])
 
 
 def identity_int8_quantize(packed: PackedLinear, x2d: torch.Tensor):

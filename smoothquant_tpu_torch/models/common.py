@@ -44,11 +44,28 @@ NEG_INF = -1e9   # einsum attention mask value (common.py:29)
 
 @dataclasses.dataclass
 class ForwardContext:
-    """Per-call context of a forward pass (common.py:32-47), the calibration
-    part: with `taps` set, every linear call site reports its input and
-    output to the collector (quant.calibrate.TapCollector)."""
+    """Per-call context of a forward pass (common.py:32-106), the parts the
+    port runs: with `taps` set, every linear call site reports its input
+    and output to the collector (quant.calibrate.TapCollector).
+
+    fuse_attn chooses the attention of the stacked decode over an aligned
+    head-major int8 cache ((L,) positions, no mask; common.py:85-98):
+      "auto"   the virtual-tile attention (K12) over the OLD cache, flat
+               pre-rotary q for MHA or rotated q for GQA, then the cache
+               writer (K10);
+      "fused"  K12's body that also writes the row; no K10;
+      "off"    K10, then K11 over the (B, S) bias (the new position inside
+               its S-tile, where K12 folds it in last: an f32 reordering).
+    fuse_mlp (opt-in, common.py:99-106) runs gate_up, SiLU·up and down_proj
+    of that decode as one K14 launch where can_fuse_mlp holds (N <= 8)."""
 
     taps: Optional[object] = None
+    fuse_attn: str = "auto"
+    fuse_mlp: bool = False
+
+    def __post_init__(self):
+        if self.fuse_attn not in ("auto", "fused", "off"):
+            raise ValueError(f"fuse_attn {self.fuse_attn!r}: 'auto', 'fused' or 'off'")
 
 
 def call_linear(params, x: torch.Tensor, name: Optional[str] = None,

@@ -13,10 +13,11 @@ counterpart of the JAX lax.scan over scalar-prefetch kernels
 (_prefetch_scan_decode, llama.py:288-490): a packed tree over the stacked
 S-major int8 cache (:427-432), a packed tree over the stacked head-major
 int8 cache with per-slot positions or a key mask (the "off" branch,
-:351-356,443-448), or a pack_fp_decode tree over a stacked head-major fp
-cache (the same branch).  The aligned head-major int8 decode ((L,)
-positions, no mask) takes the virtual-tile attention (K12), not ported: it
-raises.
+:351-356,443-448), the same tree over that cache with aligned (L,)
+positions and no mask (the virtual-tile attention K12 in the composition
+ForwardContext.fuse_attn names, :346-366,407-442, and the fused MLP K14
+with fuse_mlp), or a pack_fp_decode tree over a stacked head-major fp
+cache (the "off" branch).
 """
 
 from __future__ import annotations
@@ -33,8 +34,14 @@ from smoothquant_tpu_torch.kernels.pack import (
     permute_output_columns,
     stack_packed,
 )
-from smoothquant_tpu_torch.kernels.real_linear import can_fuse_norm
+from smoothquant_tpu_torch.kernels.attn_fused import (
+    fused_rope_write_attn_stacked,
+    fused_virtual_attn_flat,
+    fused_virtual_attn_stacked,
+)
+from smoothquant_tpu_torch.kernels.real_linear import can_fuse_mlp, can_fuse_norm, real_mlp_fused
 from smoothquant_tpu_torch.models.common import (
+    ForwardContext,
     KVCache,
     QuantKVCache,
     SMajorQuantKVCache,
@@ -181,37 +188,39 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
     return residual + down, cache
 
 
-def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask):
-    """Single-token decode over a stacked tree, per layer:
+def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
+                    ctx: Optional[ForwardContext]):
+    """Single-token decode over a stacked tree (llama.py:288-490), per layer:
       packed tree, S-major int8 cache: K1 (qkv, RMSNorm fused) → q-rotary →
         K2 (k-rotary, quantize, row write) → K3 → K1 (o_proj) → K1 (gate_up,
         RMSNorm fused) → SiLU·up → K1 (down_proj);
-      packed tree, head-major int8 cache (per-slot positions or a mask): the
-        same with K10 and K11 in place of K2 and K3;
+      packed tree, head-major int8 cache with aligned (L,) positions and no
+        mask, the attention ctx.fuse_attn names (llama.py:346-366,407-448):
+        "auto" K12's flat body on pre-rotary q for MHA, or q-rotary and K12's
+        stacked body for GQA, then K10; "fused" q-rotary and K12's write
+        body; "off" as the next case;
+      packed tree, head-major int8 cache with per-slot positions or a mask
+        ("off"): K10 and K11 in place of K2 and K3;
       pack_fp_decode tree, head-major fp cache: RMSNorm → K13 (qkv) →
         rotary → fp row write → K11 → K13 (o) → RMSNorm → K13 (gate_up) →
         SiLU·up → K13 (down).
     Up to 32 rows the packed linears run K1; above, the RMSNorm runs first
-    and K7a + K5 take them (real_linear)."""
+    and K7a + K5 take them (real_linear).  ctx.fuse_mlp runs gate_up,
+    SiLU·up and down_proj as one K14 launch where can_fuse_mlp holds (N <=
+    8; llama.py:327-334,455-462)."""
     st = params["layers"]["stacked"]
     sa, mlp = st["self_attn"], st["mlp"]
     b, s, _ = x.shape
     nh, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
-    smajor = isinstance(caches, SMajorQuantKVCache)
-    if smajor:
-        s_max = caches.k_q.shape[2]
+    if isinstance(caches, SMajorQuantKVCache):
+        s_max, mode = caches.k_q.shape[2], "smajor"
     elif isinstance(caches, KVCache):
-        s_max = caches.k.shape[3]
+        s_max, mode = caches.k.shape[3], "off"
     elif isinstance(caches, QuantKVCache):
-        if caches.pos.ndim == 1 and attn_mask is None:
-            # llama.py:351-356: aligned positions and no mask take the
-            # virtual-tile attention, whose f32 order (the new position
-            # folded in last) K10 + K11 do not reproduce
-            raise NotImplementedError(
-                "the aligned stacked head-major int8 decode runs the virtual-tile "
-                "attention (K12, attn_fused.py:293), which is not ported")
         s_max = caches.k_q.shape[3]
+        aligned = caches.pos.ndim == 1 and attn_mask is None
+        mode = (ctx.fuse_attn if ctx is not None else "auto") if aligned else "off"
     else:
         raise NotImplementedError(f"cache type {type(caches).__name__}")
     fp_tree = not isinstance(sa["qkv_proj"], PackedLinear)
@@ -220,16 +229,21 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask):
     if not (fp_tree or fuse_norm):
         raise NotImplementedError("stacked decode fuses the RMSNorm into qkv and "
                                   "gate_up (pre-permuted per-group nibble packs)")
+    fuse_mlp = (fuse_norm and ctx is not None and ctx.fuse_mlp
+                and can_fuse_mlp(mlp["gate_up_proj"], mlp["down_proj"], b * s))
     norms = ("input_layernorm", "post_attention_layernorm")
     # fused: the JAX kernel casts the norm rows to the activation dtype, then f32
     rows = {n: st[n]["weight"].to(x.dtype).float() for n in norms} if fuse_norm else {}
     # q-rotary tables in the activation dtype (apply_rotary's cast, once)
     cos_q, sin_q = cos.to(x.dtype), sin.to(x.dtype)
-    # every layer's bias from its own position, in one pass: the positions
-    # advance only after the layer loop; aligned (L,) positions serve every row
-    pos = caches.pos if caches.pos.ndim == 2 else caches.pos[:, None].expand(-1, b)
-    bias = decode_bias(pos, b, s_max, attn_mask)            # (L, B, S_max)
-    attend = stacked_smajor_attention if smajor else stacked_flash_attention
+    bias = None
+    if mode in ("smajor", "off"):
+        # every layer's bias from its own position, in one pass: the positions
+        # advance only after the layer loop; aligned (L,) positions serve every row
+        pos = caches.pos if caches.pos.ndim == 2 else caches.pos[:, None].expand(-1, b)
+        bias = decode_bias(pos, b, s_max, attn_mask)          # (L, B, S_max)
+    attend = stacked_smajor_attention if mode == "smajor" else stacked_flash_attention
+    flat = mode == "auto" and nh == n_kv
 
     def normed_linear(lin, inp, i, norm):
         if fuse_norm:
@@ -241,17 +255,30 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask):
         residual = x
         qkv = normed_linear(sa["qkv_proj"], x, i, norms[0])
         q, k, v = torch.split(qkv, [nh * d, n_kv * d, n_kv * d], dim=-1)
-        q = apply_rotary(q.reshape(b, s, nh, d), cos_q, sin_q)
-        caches = stacked_cache_append_fused(
-            caches, i, k.reshape(b, s, n_kv, d), v.reshape(b, s, n_kv, d),
-            cos, sin)
-        a = attend(caches, i, q[:, 0], bias[i])
-        x = residual + call_linear(sa["o_proj"], a.reshape(b, s, nh * d),
-                                   layer_idx=i)
+        k, v = k.reshape(b, s, n_kv, d), v.reshape(b, s, n_kv, d)
+        if not flat:
+            q = apply_rotary(q.reshape(b, s, nh, d), cos_q, sin_q)[:, 0]   # (B, H, D)
+        if mode in ("auto", "fused"):
+            # K12 reads the OLD cache at this layer's aligned position
+            # (llama.py:407-442); "auto" writes the row with K10 after it
+            k12 = (fused_virtual_attn_flat if flat else fused_virtual_attn_stacked
+                   if mode == "auto" else fused_rope_write_attn_stacked)
+            a = k12(i, caches.pos[i], q, k[:, 0], v[:, 0], cos, sin, caches.k_q,
+                    caches.v_q, caches.k_scale, caches.v_scale)
+            if mode == "auto":
+                stacked_cache_append_fused(caches, i, k, v, cos, sin)
+        else:
+            caches = stacked_cache_append_fused(caches, i, k, v, cos, sin)
+            a = attend(caches, i, q, bias[i])
+        x = residual + call_linear(sa["o_proj"], a.reshape(b, s, nh * d), layer_idx=i)
         residual = x
-        gate, up = normed_linear(mlp["gate_up_proj"], x, i, norms[1]).chunk(2, dim=-1)
-        down = call_linear(mlp["down_proj"], torch.nn.functional.silu(gate) * up,
-                           layer_idx=i)
+        if fuse_mlp:
+            down = real_mlp_fused(mlp["gate_up_proj"], mlp["down_proj"], x, layer_idx=i,
+                                  norm=(st[norms[1]]["weight"][i], eps, "rms"))
+        else:
+            gate, up = normed_linear(mlp["gate_up_proj"], x, i, norms[1]).chunk(2, dim=-1)
+            down = call_linear(mlp["down_proj"], torch.nn.functional.silu(gate) * up,
+                               layer_idx=i)
         x = residual + down
     # every layer read its own position above; advance them all at once
     caches.pos += s
@@ -260,12 +287,14 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask):
 
 def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
                    caches=None, positions: Optional[torch.Tensor] = None,
-                   attn_mask: Optional[torch.Tensor] = None):
+                   attn_mask: Optional[torch.Tensor] = None, *,
+                   ctx: Optional[ForwardContext] = None):
     """Final-normed hidden states (B, S, H) and the updated caches.
 
     caches: None (no cache: the full-model prefill), a list of per-layer
     caches, or one stacked cache (single-token decode over a stacked tree).
-    positions default to each cache's fill position + arange(S)."""
+    positions default to each cache's fill position + arange(S).  ctx's
+    fuse_attn / fuse_mlp choose the stacked decode's composition."""
     b, s = input_ids.shape
     stacked = "stacked" in params["layers"]
     x = params["embed_tokens"]["weight"][input_ids]
@@ -285,7 +314,7 @@ def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
             raise NotImplementedError(
                 "stacked trees decode one token over a stacked cache, every "
                 "projection tile-aligned (prefetch_tree_capable)")
-        x, caches = _stacked_decode(params, x, cfg, caches, cos, sin, attn_mask)
+        x, caches = _stacked_decode(params, x, cfg, caches, cos, sin, attn_mask, ctx)
     else:
         new_caches = None if caches is None else []
         for i in range(cfg.num_hidden_layers):
@@ -309,9 +338,11 @@ def lm_head_logits(params: dict, h: torch.Tensor, cfg: LlamaConfig) -> torch.Ten
     return unembed(h, lm["weight"])
 
 
-def forward(params, input_ids, cfg, caches=None, positions=None, attn_mask=None):
+def forward(params, input_ids, cfg, caches=None, positions=None, attn_mask=None, *,
+            ctx: Optional[ForwardContext] = None):
     """(logits f32 (B, S, V), updated caches)."""
-    h, caches = forward_hidden(params, input_ids, cfg, caches, positions, attn_mask)
+    h, caches = forward_hidden(params, input_ids, cfg, caches, positions, attn_mask,
+                               ctx=ctx)
     return lm_head_logits(params, h, cfg), caches
 
 
@@ -337,12 +368,13 @@ def stack_layers(params: dict, cfg: LlamaConfig) -> dict:
 
 
 def stacked_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype=None, *,
-                   pos: int = 0, quant_kv: bool = True, smajor: bool = True,
+                   pos: int = 0, quant_kv: bool = False, smajor: bool = False,
                    per_slot: bool = False, device="cuda"):
     """A stacked decode cache, leading L axis on every field
-    (llama.py:249-285): the S-major int8 cache (always (L, B) per-slot
-    positions), or a head-major int8 QuantKVCache or fp KVCache in `dtype`
-    with (L,) aligned or, per_slot, (L, B) positions."""
+    (llama.py:249-285, with its defaults: a head-major fp cache): the
+    S-major int8 cache (always (L, B) per-slot positions), or a head-major
+    int8 QuantKVCache or fp KVCache in `dtype` (default cfg's) with (L,)
+    aligned or, per_slot, (L, B) positions."""
     dev = resolve_device(device)
     n_l, n_kv, d = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
     if quant_kv and smajor:

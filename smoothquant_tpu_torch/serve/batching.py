@@ -71,8 +71,9 @@ class ContinuousBatcher:
         self.device = resolve_device(device)
         self.max_batch, self.max_len = max_batch, max_len
         self.smajor = smajor
-        self.caches = model_mod.stacked_caches(cfg, max_batch, max_len, smajor=smajor,
-                                               per_slot=True, device=self.device)
+        self.caches = model_mod.stacked_caches(cfg, max_batch, max_len, quant_kv=True,
+                                               smajor=smajor, per_slot=True,
+                                               device=self.device)
         self.key_valid = np.zeros((max_batch, max_len), bool)
         self.seq_pos = np.zeros(max_batch, np.int64)   # true sequence lengths
         # host mirror of the per-slot device cache positions: every decode

@@ -80,6 +80,34 @@ def decode_attn_cost(b, h, n_kv, s, d, *, n_valid=None, x_bytes=2,
     return n_bytes, {"bf16": 4 * h * n_valid * d}
 
 
+def fused_attn_cost(b, h, n_kv, s, d, pos, *, x_bytes=2, write=False):
+    """K12 over one layer at aligned position pos: q and out (B, H, D), the
+    new k / v (B, H_kv, D), the (B, D) f32 rotary tables and the position,
+    the int8 k / v rows and f32 scales of the min(pos, S) positions below
+    pos in every (slot, kv head) — the columns from pos on are masked and
+    never read — and, for the write body, the row and scale it writes.
+    Operations: q·k and p·v over those positions and the new one."""
+    n_valid = b * min(pos, s)
+    row = 2 * b * n_kv * (d + 4)
+    n_bytes = (2 * b * h * d * x_bytes + 2 * b * n_kv * d * x_bytes + 2 * b * d * 4 + 4
+               + n_valid * 2 * n_kv * (d + 4) + (row if write else 0))
+    return n_bytes, {"bf16": 4 * h * (n_valid + b) * d}
+
+
+def mlp_fused_cost(n, c, o1, kk1, k_s1, o2, kk2, k_s2, gs, *, x_bytes=2, scale_bytes=2,
+                   norm=True):
+    """K14 for one layer: rawx_cost of gate_up and of down combined, without
+    the activations between them (they stay on the chip): x (N, C), the
+    norm row, both linears' nibbles, group scales and salient blocks, out
+    (N, O2)."""
+    n_bytes = (n * c * x_bytes + (c * 4 if norm else 0)
+               + kk1 // 2 * o1 + kk1 // gs * o1 * scale_bytes + k_s1 * o1 * x_bytes
+               + kk2 // 2 * o2 + kk2 // gs * o2 * scale_bytes + k_s2 * o2 * x_bytes
+               + n * o2 * x_bytes)
+    return n_bytes, {"int8": 2 * n * (o1 * kk1 + o2 * kk2),
+                     "bf16": 2 * n * (o1 * k_s1 + o2 * k_s2)}
+
+
 def int8_prefill_cost(n, kk, o, k_s, *, sal_bytes=2, out_bytes=2):
     """K4: x8 (N, K), the int8 weight (K, O), s_x (N) and s_w (O) f32, the
     salient x (N, k_s) and block (k_s, O), out (N, O); int8 and bf16

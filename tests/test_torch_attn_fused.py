@@ -1,0 +1,139 @@
+"""K12, the virtual-tile decode attention: the port's plain PyTorch version
+of its three bodies against the JAX Pallas kernel (jitted, interpret mode)
+on the same numpy inputs, as tests/test_attn_fused.py builds them.
+
+The write body's cache bytes and scales are bit-exact (the same rotary fma
+and reciprocal-multiply quantize as K10).  The attention folds the new
+position in last on both sides; what is left is another f32 summation
+order (the einsum's dots and tile sums against XLA's).  Each probability
+is rounded to bf16 before PV, as the TPU kernel rounds it, and a last-bit
+difference in a score can put one on the other side of a bf16 rounding
+edge: one bf16 ulp of one position's weight, up to 1.3e-4 of the output's
+largest magnitude in these cases.  So the f32 attention is held to 2.5e-4
+of that magnitude, eight times inside the 2e-3 the JAX tests allow between
+K12 and the unfused composition, and bf16 queries to one bf16 rounding."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smoothquant_tpu.kernels import attn_fused as jaf
+from smoothquant_tpu_torch.kernels import attn_fused as taf
+from smoothquant_tpu_torch.kernels import cache_write as tcw
+
+torch.set_num_threads(1)
+
+L, S, D = 3, 128, 128
+F32_TOL = 2.5e-4
+
+
+def _inputs(b, h, n_kv, seed=0):
+    rng = np.random.default_rng(seed)
+    return dict(
+        q=rng.normal(size=(b, h, D)).astype(np.float32),
+        k_new=rng.normal(size=(b, n_kv, D)).astype(np.float32),
+        v_new=rng.normal(size=(b, n_kv, D)).astype(np.float32),
+        cos=rng.uniform(-1, 1, size=(b, 1, D)).astype(np.float32),
+        sin=rng.uniform(-1, 1, size=(b, 1, D)).astype(np.float32),
+        k_q=rng.integers(-127, 128, size=(L, b, n_kv, S, D)).astype(np.int8),
+        v_q=rng.integers(-127, 128, size=(L, b, n_kv, S, D)).astype(np.int8),
+        ks=rng.uniform(0.005, 0.02, size=(L, b, n_kv, S)).astype(np.float32),
+        vs=rng.uniform(0.005, 0.02, size=(L, b, n_kv, S)).astype(np.float32))
+
+
+_JDT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(inp, dt):
+    """(JAX args, port args) of the same values; q / k / v in dtype dt."""
+    jdt, tdt = _JDT[dt]
+    names = ("q", "k_new", "v_new", "cos", "sin", "k_q", "v_q", "ks", "vs")
+    j = [jnp.asarray(inp[n]).astype(jdt) if n in ("q", "k_new", "v_new") else
+         jnp.asarray(inp[n]) for n in names]
+    t = [torch.from_numpy(inp[n].copy()).to(tdt) if n in ("q", "k_new", "v_new") else
+         torch.from_numpy(inp[n].copy()) for n in names]
+    return j, t
+
+
+def _check_attn(got, ref, dt):
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    got = got.float().numpy()
+    assert got.shape == ref.shape
+    if dt == "float32":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=F32_TOL * np.abs(ref).max())
+    else:   # one bf16 rounding of the output apart at most
+        np.testing.assert_allclose(got, ref, rtol=2.0 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rotary", [True, False])
+@pytest.mark.parametrize("pos", [0, 9, 127])
+@pytest.mark.parametrize("h,n_kv", [(4, 4), (8, 2)])
+def test_stacked_bodies_match_jax(h, n_kv, pos, rotary, dt):
+    """The stacked body (no write) and the write body: attention within the
+    stated tolerance, the written row and scale bit-exact, every other
+    position and layer untouched."""
+    assert taf.fused_attn_supported(S, h, n_kv, D) == jaf.fused_attn_supported(S, h, n_kv, D)
+    inp = _inputs(2, h, n_kv, seed=pos + 7 * h)
+    j, t = _both(inp, dt)
+    ref = jaf.fused_virtual_attn_stacked(1, pos, *j, rotary=rotary, interpret=True)
+    got = taf.fused_virtual_attn_stacked(1, pos, *t, rotary=rotary)
+    _check_attn(got, ref, dt)
+    assert got.dtype == _JDT[dt][1]
+
+    ref_w = jaf.fused_rope_write_attn_stacked(1, pos, *j, rotary=rotary, interpret=True)
+    before = [x.clone() for x in t[5:]]
+    got_w = taf.fused_rope_write_attn_stacked(1, pos, *t, rotary=rotary)
+    _check_attn(got_w, ref_w[0], dt)
+    for name, g, r, b0 in zip(("k_q", "v_q", "ks", "vs"), t[5:], ref_w[1:], before):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
+        changed = (g != b0).reshape(L, 2, n_kv, S, -1).any(-1).any(1).any(1)   # (L, S)
+        assert not changed[0].any() and not changed[2].any()          # layer isolation
+        assert not changed[1][torch.arange(S) != pos].any()
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rotary", [True, False])
+@pytest.mark.parametrize("pos", [0, 9, 127])
+def test_flat_body_matches_jax(pos, rotary, dt):
+    """The flat body (MHA): PRE-rotary flat q, the rotary in f32 rounded to
+    q's dtype before the dot, flat output."""
+    b, h = 2, 4
+    inp = _inputs(b, h, h, seed=11 + pos)
+    j, t = _both(inp, dt)
+    j[0] = j[0].reshape(b, 1, h * D)
+    t[0] = t[0].reshape(b, 1, h * D)
+    ref = jaf.fused_virtual_attn_flat(2, pos, *j, rotary=rotary, interpret=True)
+    got = taf.fused_virtual_attn_flat(2, pos, *t, rotary=rotary)
+    assert got.shape == (b, 1, h * D)
+    _check_attn(got, ref, dt)
+
+
+def test_virtual_row_is_k10s_row():
+    """The write body writes what K10 writes from the same k / v at the
+    same position (one code, one scale per (slot, kv head))."""
+    inp = _inputs(3, 8, 2, seed=5)
+    _, t = _both(inp, "bfloat16")
+    t10 = [x.clone() for x in t]
+    taf.fused_rope_write_attn_stacked(0, 40, *t)
+    tcw.write_quant_cache_stacked(0, torch.tensor(40, dtype=torch.int32), *t10[1:])
+    for a, b in zip(t[5:], t10[5:]):
+        assert torch.equal(a, b)
+
+
+def test_layer_selection_and_options():
+    """Each layer index reads its own layer; the options the port leaves
+    out raise."""
+    inp = _inputs(2, 4, 4, seed=3)
+    j, t = _both(inp, "float32")
+    for i in range(L):
+        ref = jaf.fused_virtual_attn_stacked(i, 50, *j, interpret=True)
+        _check_attn(taf.fused_virtual_attn_stacked(i, 50, *t), ref, "float32")
+    with pytest.raises(NotImplementedError, match="int8_dots"):
+        taf.fused_virtual_attn_stacked(0, 5, *t, int8_dots=True)
+    with pytest.raises(NotImplementedError, match="scale"):
+        taf.fused_virtual_attn_stacked(0, 5, *t, sm_scale=0.5)
+    assert not taf.fused_attn_supported(100, 4, 4, D)
+    assert not taf.fused_attn_supported(S, 6, 4, D)

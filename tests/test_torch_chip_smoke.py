@@ -12,6 +12,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_cuda(alone, tmp_path):
@@ -140,9 +142,76 @@ def test_slot_path_rehearsal_on_cpu(monkeypatch):
     assert expected["s_major decode step B=40"] == {
         "quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8,
         "write_quant_cache_smajor": 2, "decode_attention_smajor_stacked": 2}
+    assert expected["aligned_head_major decode step B=40"] == {
+        "quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8, "fused_attn": 2,
+        "write_quant_cache_stacked": 2}
     assert expected["head-major decode step B=32"] == {
         "int4_group_matmul_stacked_rawx": 8, "write_quant_cache_stacked": 2,
         "decode_attention_stacked": 2}
     phases = {p["phase"]: p for p in printed if "phase" in p}
     # position 448, two warm-up steps and the counted one, three windows of 8, the profile
     assert phases["slot_head_major_decode"]["positions"] == [448, 448 + 3 + 24 + 4]
+    assert phases["slot_aligned_head_major_decode"]["positions"] == [448, 448 + 3 + 24 + 4]
+    assert "device_busy" in phases["slot_aligned_head_major_vs_s_major"]
+
+
+def test_aligned_path_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's phases of the aligned head-major slice on the CPU at a
+    small size (2 layers of hidden 512, 4 heads of 128, B = 4, 8 rows in
+    place of 64): K12's three bodies (the write body's rows identical to
+    K10's) and K14 at 4 and 8 rows (the wrappers take their plain versions
+    here), then the B = 4 decode in the four compositions beside the
+    S-major step; timing and the launch checks are stubbed, the launch
+    counts each composition expects recorded."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.models import llama
+
+    monkeypatch.setattr(cs, "SLOT_BATCH", 8)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
+    monkeypatch.setattr(cs, "profile", lambda fn, steps: (
+        fn(), {"idle_share": 0.5, "busy_ms_per_step": 1.0})[1])
+    expected = {}
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda path, launches, expect: expected.setdefault(path, expect))
+    printed = []
+    monkeypatch.setattr(cs, "emit", printed.append)
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=512), hidden_size=512,
+                              intermediate_size=1024, num_attention_heads=4,
+                              num_key_value_heads=4, dtype="bfloat16")
+    cpu = torch.device("cpu")
+    _, _, stacked = cs.build_model(cfg, cpu, cs.SEED)
+    gen = torch.Generator().manual_seed(1)
+    rows = cs.check_fused_attn(cfg, cpu, gen) + cs.check_mlp_fused(stacked, cpu, gen)
+    assert [(r["kernel"], r["site"]) for r in rows] == [
+        ("fused_attn", "flat"), ("fused_attn", "flat@8"), ("fused_attn", "write"),
+        ("fused_attn", "gqa"), ("mlp_swiglu_fused_stacked", "mlp"),
+        ("mlp_swiglu_fused_stacked", "mlp@8")]
+    assert all(r["max_err"] == 0 for r in rows)
+    assert rows[2]["cache_identical_to_k10"] and rows[3]["shape"][2] == 1
+    assert [r["in_sum"] for r in rows] == [True, False, False, False, True, False]
+
+    cache = llama.stacked_caches(cfg, cs.MAX_BATCH, cs.MAX_LEN, pos=cs.DECODE_POS,
+                                 quant_kv=True, smajor=True, device=cpu)
+    step, _ = cs.aligned_decoder(stacked, cache, cfg, cpu, "w4a4 decode step",
+                                 cs.step_launches(cfg, cs.MAX_BATCH, "smajor"))
+    launches = cs.aligned_decode(stacked, step, cfg, cpu, "card")
+    assert sum(launches.values()) == 0
+    assert expected["aligned auto decode step"] == {
+        "int4_group_matmul_stacked_rawx": 8, "fused_attn": 2, "write_quant_cache_stacked": 2}
+    assert expected["aligned fused decode step"] == {
+        "int4_group_matmul_stacked_rawx": 8, "fused_attn": 2}
+    assert expected["aligned off decode step"] == {
+        "int4_group_matmul_stacked_rawx": 8, "write_quant_cache_stacked": 2,
+        "decode_attention_stacked": 2}
+    assert expected["aligned auto_mlp decode step"] == {
+        "int4_group_matmul_stacked_rawx": 4, "mlp_swiglu_fused_stacked": 2, "fused_attn": 2,
+        "write_quant_cache_stacked": 2}
+    phases = {p["phase"]: p for p in printed if "phase" in p}
+    for name in ("auto", "fused", "off", "auto_mlp"):
+        assert phases[f"aligned_{name}_decode"]["positions"] == [448, 448 + 3 + 24 + 4]
+    assert set(phases["aligned_vs_off"]) >= {"s_major", "auto", "fused", "off", "auto_mlp"}

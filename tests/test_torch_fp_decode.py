@@ -147,7 +147,9 @@ def test_no_cache_forward_matches_jax(model):
 
 def test_stacked_gate(model):
     """A stacked tree decodes only one token over a stacked cache whose
-    projections tile (prefetch_tree_capable); otherwise it raises."""
+    projections tile (prefetch_tree_capable); otherwise it raises.  Over a
+    head-major int8 cache at aligned positions it decodes as the JAX
+    package does."""
     m = model
     tst = tllama.stacked_caches(m["tcfg"], 2, MAX_LEN, torch.float32, quant_kv=False,
                                 smajor=False, device="cpu")
@@ -160,13 +162,36 @@ def test_stacked_gate(model):
     with pytest.raises(NotImplementedError, match="stacked"):
         tllama.forward(m["tstacked"], torch.zeros((2, 3), dtype=torch.int64), m["tcfg"],
                        caches=tst)
-    qst = tllama.stacked_caches(m["tcfg"], 2, MAX_LEN, quant_kv=True, smajor=False,
+    # aligned positions over a head-major int8 cache: the virtual-tile
+    # attention (K12's stacked body for this GQA model) then K10, as the JAX
+    # package runs it; K12 rounds each probability to bf16 before PV, and a
+    # score that rounds apart can flip one (one bf16 ulp of one position's
+    # weight), so the logits are held to 2.5e-4 of their largest magnitude
+    jcfg, tcfg = m["jcfg"], m["tcfg"]
+    rng = np.random.default_rng(12)
+    shape = (jcfg.num_hidden_layers, 2, jcfg.num_key_value_heads, MAX_LEN, jcfg.head_dim)
+    pool = dict(k_q=rng.integers(-127, 128, size=shape).astype(np.int8),
+                v_q=rng.integers(-127, 128, size=shape).astype(np.int8),
+                k_scale=rng.uniform(0.005, 0.02, size=shape[:4]).astype(np.float32),
+                v_scale=rng.uniform(0.005, 0.02, size=shape[:4]).astype(np.float32))
+    jq = jllama.stacked_caches(jcfg, 2, MAX_LEN, jnp.float32, pos=9, quant_kv=True)
+    jq = jq._replace(**{k: jnp.asarray(v) for k, v in pool.items()})
+    qst = tllama.stacked_caches(tcfg, 2, MAX_LEN, quant_kv=True, smajor=False, pos=9,
                                 device="cpu")
-    # aligned positions over the head-major int8 cache: the virtual-tile
-    # attention (K12), not ported
-    with pytest.raises(NotImplementedError, match="K12"):
-        tllama.forward(m["tstacked"], torch.zeros((2, 1), dtype=torch.int64), m["tcfg"],
-                       caches=qst)
+    for k, v in pool.items():
+        getattr(qst, k).copy_(torch.from_numpy(v))
+    tok = np.array([[3], [11]])
+    ref, ref_c = jax.jit(lambda p, t, c: jllama.forward(p, t, jcfg, ctx=JCtx(interpret=True),
+                                                        caches=c))(
+        m["jstacked"], jnp.asarray(tok), jq)
+    got, got_c = tllama.forward(m["tstacked"], torch.from_numpy(tok), tcfg, caches=qst)
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2.5e-4 * np.abs(ref).max())
+    for k in ("k_q", "v_q", "pos"):
+        np.testing.assert_array_equal(getattr(got_c, k).numpy(), np.asarray(getattr(ref_c, k)))
+    for k in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(getattr(got_c, k).numpy(), np.asarray(getattr(ref_c, k)),
+                                   rtol=1e-6, atol=0)
 
 
 def test_fp_lm_head_logits_accumulate_in_f32():

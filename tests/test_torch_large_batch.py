@@ -59,8 +59,8 @@ def test_head_major_decode_step_matches_jax(models, batch):  # noqa: F811
         m["stacked"], jnp.asarray(tok), jst, jnp.asarray(slot_pos)[:, None],
         jnp.asarray(mask))
 
-    tst = tllama.stacked_caches(tcfg, batch, MAX_LEN, smajor=False, per_slot=True,
-                                device="cpu")
+    tst = tllama.stacked_caches(tcfg, batch, MAX_LEN, quant_kv=True, smajor=False,
+                                per_slot=True, device="cpu")
     for name, v in pool.items():
         getattr(tst, name).copy_(torch.from_numpy(v))
     tst.pos[:] = torch.from_numpy(slot_pos)
@@ -117,15 +117,43 @@ def test_batcher_head_major_pool_tokens_identical_to_jax(models):  # noqa: F811
 
 
 def test_aligned_head_major_decode_raises_naming_k12(models):  # noqa: F811
-    """(L,) aligned positions and no mask take the virtual-tile attention in
-    the JAX package, which is not ported: the port raises, it does not take
-    K10 + K11 instead."""
+    """(L,) aligned positions and no mask over the head-major int8 pool take
+    the virtual-tile attention (K12's stacked body for this GQA model, then
+    K10) in the JAX package, and now in the port too: one decode step over
+    a random pool at position 5 against the JAX package.  As in the
+    per-slot test above, a per-token int4 code on a rounding edge may move
+    a row, so every row is held to 10 % of its norm with the same greedy
+    token, and the rows that did not move to 2e-4; the written codes and
+    the positions are identical."""
     m = models
-    cache = tllama.stacked_caches(m["tcfg"], 2, MAX_LEN, smajor=False, pos=5, device="cpu")
-    assert cache.pos.shape == (m["tcfg"].num_hidden_layers,)
-    with pytest.raises(NotImplementedError, match="K12"):
-        tllama.forward(m["t_stacked"], torch.zeros((2, 1), dtype=torch.long), m["tcfg"],
-                       caches=cache)
+    jcfg, tcfg = m["jcfg"], m["tcfg"]
+    n_l, n_kv, d = jcfg.num_hidden_layers, jcfg.num_key_value_heads, jcfg.head_dim
+    rng = np.random.default_rng(55)
+    shape = (n_l, 2, n_kv, MAX_LEN, d)
+    pool = dict(k_q=rng.integers(-127, 128, size=shape).astype(np.int8),
+                v_q=rng.integers(-127, 128, size=shape).astype(np.int8),
+                k_scale=rng.uniform(0.005, 0.02, size=shape[:4]).astype(np.float32),
+                v_scale=rng.uniform(0.005, 0.02, size=shape[:4]).astype(np.float32))
+    tok = rng.integers(0, jcfg.vocab_size, size=(2, 1))
+    jst = jllama.stacked_caches(jcfg, 2, MAX_LEN, jnp.float32, pos=5, quant_kv=True)
+    jst = jst._replace(**{k: jnp.asarray(v) for k, v in pool.items()})
+    ctx = JCtx(quant=m["qcfg"], compute="auto", interpret=True)
+    ref, ref_c = jax.jit(lambda p, ids, c: jllama.forward(p, ids, jcfg, ctx=ctx, caches=c))(
+        m["stacked"], jnp.asarray(tok), jst)
+    cache = tllama.stacked_caches(tcfg, 2, MAX_LEN, quant_kv=True, smajor=False, pos=5,
+                                  device="cpu")
+    assert cache.pos.shape == (n_l,)
+    for name, v in pool.items():
+        getattr(cache, name).copy_(torch.from_numpy(v))
+    got, got_c = tllama.forward(m["t_stacked"], torch.from_numpy(tok), tcfg, caches=cache)
+    got, ref = got.numpy()[:, 0], np.asarray(ref)[:, 0]
+    rel = np.linalg.norm(got - ref, axis=-1) / np.linalg.norm(ref, axis=-1)
+    assert rel.max() <= 0.1
+    assert (got.argmax(-1) == ref.argmax(-1)).all()
+    assert np.all(np.abs(got - ref) <= 2e-4 + 2e-4 * np.abs(ref), axis=-1).any()
+    for name in ("k_q", "v_q", "pos"):
+        np.testing.assert_array_equal(getattr(got_c, name).numpy(),
+                                      np.asarray(getattr(ref_c, name)))
 
 
 def test_quant_cache_and_batcher_ask_for_the_card(models):  # noqa: F811

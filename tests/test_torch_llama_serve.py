@@ -160,7 +160,7 @@ def test_entry_points_raise_without_cuda(models):
     with pytest.raises(RuntimeError, match="CUDA"):
         tllama.init_layer_params(torch.Generator(), m["tcfg"])
     with pytest.raises(RuntimeError, match="CUDA"):
-        tllama.stacked_caches(m["tcfg"], 2, MAX_LEN)
+        tllama.stacked_caches(m["tcfg"], 2, MAX_LEN, quant_kv=True, smajor=True)
 
 
 def test_package_import_needs_no_gpu_toolchain():
