@@ -71,14 +71,29 @@ Then the Llama-2-7B paths:
    by window (K10 + K11 and K12 + K10 against K2 + K3; the aligned step
    launches K7a 96, K5 128, K12 32, K10 32), and a few steps at B = 32
    over the head-major pool (K1 at 128 a step).
-7. The bf16 baseline: pack_fp_decode + stack_layers of the same weights,
+   The identity-int8 forward's switch (PREFILL_KERNEL_MIN_TOKENS) is timed
+   on both sides, K4 against torch._int_mm, at 4 to 1024 rows.
+7. The README quick start on the same fp weights: calibration
+   (get_act_scales, get_calib_feat) on 4 random sequences of 512 tokens
+   (the one cut: the JAX CLI takes 512), smooth_lm (α = 0.85), pack_model
+   with its defaults (per-layer int8-container packs, W4A4 g64, 5 %
+   salient); K8 at layer 0's q / gate / down (N = 4 and 64, both bodies)
+   and at single-group packs (G = 1, N = 4 and 512), K9's four bodies at
+   N = 512 and 2048; real_quant_linear timed in "int" (K8) and "dequant"
+   (K9) at N = 4 to 2048 on gate_proj and down_proj (the crossover that
+   INT_PATH_MAX_TOKENS holds); then Generator(quant_kv=True), 4 prompts of
+   512 tokens and 32 new: prefill tokens/s, decode ms/step (host clock and
+   device busy), launches (K8 7·L and K11 L a decode step, the prefill's
+   7·L on K9 above the crossover, else a second prefill forced to
+   "dequant"), and the packed logits against the fp model's.
+8. The bf16 baseline: pack_fp_decode + stack_layers of the same weights,
    decoded at B = 4, cache 512, from position 448 over a bf16 head-major
    cache, and the W4A4 stacked tree over the S-major cache at the same
    point, taking turns window by window; vs_bf16 is the bf16 ms/step over
    the W4A4 one, by host clock and by device busy time.
 Every path runs with the launch counts reset just before it and read just
 after, and fails unless each kernel launched as often as the path implies.
-8. Prints the `kernels` JSON line (all fifteen kernels), the card line,
+9. Prints the `kernels` JSON line (all seventeen kernels), the card line,
    then the `ok` line last.
 
 Exits non-zero on any failure; without CUDA, or without the port package
@@ -110,6 +125,16 @@ GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 200, 32, 256
 # tokens over int8 caches of 1024 positions
 CALIB_SAMPLES, CALIB_LEN = 8, 512
 OPT_BATCH, OPT_PROMPT, OPT_NEW, OPT_MAX_LEN = 4, 512, 32, 1024
+# the README quick start on Llama-2-7B: calibration on 4 random sequences of
+# 512 tokens (the one cut: the JAX CLI takes 512 samples,
+# cli/generate_act_scales.py:18-19), smooth_lm at α = 0.85, the default
+# pack; the Generator over 4 prompts of 512 tokens, 32 new; the rows at
+# which the int (K8) and dequant (K9) paths are timed against each other
+QS_SAMPLES, QS_LEN, QS_ALPHA = 4, 512, 0.85
+QS_BATCH, QS_PROMPT, QS_NEW = 4, 512, 32
+QS_MAX_LEN = 640             # the caches' length: a multiple of 128, so K11 tiles it
+QS_PROFILE_NEW = 4           # tokens of the profiled generate (decode busy time)
+CROSSOVER_N = (4, 16, 64, 128, 256, 512, 1024, 2048)
 
 
 def _die(msg: str) -> None:
@@ -117,7 +142,13 @@ def _die(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries t_s, the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -289,6 +320,12 @@ SOURCES = {
     "mlp_swiglu_fused_stacked": (
         "smoothquant_tpu_torch/kernels/csrc/mlp_fused.cu",
         "smoothquant_tpu/kernels/mlp_fused.py:534"),
+    "int_group_matmul": (
+        "smoothquant_tpu_torch/kernels/csrc/int_group_matmul.cu",
+        "smoothquant_tpu/kernels/int_group_matmul.py:157"),
+    "dual_path_matmul": (
+        "smoothquant_tpu_torch/kernels/csrc/quant_matmul.cu",
+        "smoothquant_tpu/kernels/quant_matmul.py:248"),
 }
 
 
@@ -1151,6 +1188,372 @@ def check_norm_quant(int8_tree, cfg, dev, gen):
     return rows
 
 
+# ---------------------------------------------------------------- quick start
+
+
+def quickstart_recipe():
+    """The README quick start's recipe: W4A4 g64, 5 % salient channels."""
+    from smoothquant_tpu_torch.quant.config import w4a4_group
+
+    return w4a4_group(group_size=64, salient_prop=0.05)
+
+
+def build_quickstart(fp, cfg, dev, n_samples=QS_SAMPLES, seq_len=QS_LEN):
+    """The README quick start on `dev` from the fp tree: calibration
+    (get_act_scales, get_calib_feat over the tapped per-layer forward, on
+    n_samples random sequences of seq_len tokens), smooth_lm (α = QS_ALPHA),
+    pack_model with its defaults (per-layer int8-container packs).  Returns
+    (packed tree, seconds of each step)."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.models.registry import pack_model, smooth_lm
+    from smoothquant_tpu_torch.quant.calibrate import get_act_scales, get_calib_feat
+
+    rng = np.random.default_rng(SEED + 31)
+    batches = [rng.integers(0, cfg.vocab_size, size=(1, seq_len)) for _ in range(n_samples)]
+
+    def fwd(p, ids, col):
+        return llama.forward(p, torch.as_tensor(ids, device=dev), cfg,
+                             ctx=ForwardContext(taps=col))
+
+    seconds = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return r
+
+    scales = timed("act_scales", lambda: get_act_scales(fwd, fp, batches))
+    feat = timed("calib_feat", lambda: get_calib_feat(fwd, fp, batches))
+    smoothed = timed("smooth_lm", lambda: smooth_lm("llama", fp, cfg, scales, alpha=QS_ALPHA))
+    packed = timed("pack_model", lambda: pack_model("llama", smoothed, cfg, quickstart_recipe(),
+                                                    input_feat=feat, act_scales=scales))
+    return packed, seconds
+
+
+def single_group_packs(fp):
+    """Single-group (G = 1) int8-container packs of layer 0's gate_proj and
+    down_proj, per-channel int4 weights: gate under per-token int8
+    activations with 5 % salient channels (one group of 3892), down under
+    per-token int4 ones with none (one group of all 11008; int8 ones
+    without salient channels would make the identity-int8 layout, K4's)."""
+    import numpy as np
+
+    from smoothquant_tpu_torch.kernels.pack import pack_linear
+    from smoothquant_tpu_torch.quant.config import QuantConfig
+
+    mlp = fp["layers"]["0"]["mlp"]
+    out = {}
+    for site, lin, prop, bits in (("gate_g1", mlp["gate_proj"], 0.05, 8),
+                                  ("down_g1", mlp["down_proj"], 0.0, 4)):
+        c = lin["weight"].shape[1]
+        qcfg = QuantConfig(weight_quant="per_channel", act_quant="per_token", quant_bits=4,
+                           act_bits=bits, salient_prop=prop)
+        imp = np.random.default_rng(SEED + c).uniform(0.1, 1.0, size=(c,))
+        out[site] = pack_linear(lin, qcfg, importance=imp)
+    return out
+
+
+def _qs_sites(packed):
+    lp = packed["layers"]["0"]
+    return {"q": lp["self_attn"]["q_proj"], "gate": lp["mlp"]["gate_proj"],
+            "down": lp["mlp"]["down_proj"]}
+
+
+def _no_salient(lin):
+    """The pack with its salient block cut away (the kernels' no-salient bodies)."""
+    import dataclasses
+
+    return dataclasses.replace(lin, w_sal_t=lin.w_sal_t[:0])
+
+
+def check_int_group_matmul(packed, single, dev, gen):
+    """K8 vs plain, both bodies, at layer 0's q / gate / down of the quick
+    start's pack (k_ns 3904 or 10496, k_s 256 or 640), N = 4 and 64, and at
+    the single-group packs (G = 1, K 3892 with salient and 11008 without),
+    N = 4 and 512; bf16 activations and output.  At the kernels line's
+    sites (q / gate / down with the salient block, N = 4) also the plain
+    version's time and a bf16 torch.matmul of the same (N, C, O)."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int_group_matmul as k8
+    from smoothquant_tpu_torch.kernels.pack import quantize_activations_packed_int
+    from smoothquant_tpu_torch.utils import roofline
+
+    cases = [(site, lin, n, sal) for site, lin in _qs_sites(packed).items()
+             for n in (4, 64) for sal in (True, False)]
+    cases += [(site, lin, n, lin.meta.num_salient > 0) for site, lin in single.items()
+              for n in (4, 512)]
+    rows = []
+    for site, lin, n, sal in cases:
+        if not sal:
+            lin = _no_salient(lin)
+        m = lin.meta
+        c, o = m.in_features, m.out_features
+        x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+        x_q, x_s, x_sal = quantize_activations_packed_int(x, m)
+        w_sal = lin.w_sal_t.to(torch.bfloat16)
+        x_sal = x_sal[:, :w_sal.shape[0]]
+        kw = dict(group_size=m.group_size, out_dtype=torch.bfloat16)
+        args = (x_q, x_s, lin.w_qt, lin.w_scales_t, x_sal, w_sal)
+        got = k8.int_group_matmul(*args, **kw)
+        ref = k8.int_group_matmul_plain(*args, **kw)
+        torch.cuda.synchronize()
+        name = f"{site}{'' if sal else '_nosal'}@{n}"
+        err = _close(f"K8 {name}", got, ref, 1e-2)
+        n_bytes, ops = roofline.int_group_matmul_cost(n, o, m.k_ns, m.group_size,
+                                                      w_sal.shape[0])
+        b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        in_sum = sal and n == 4 and site in ("q", "gate", "down")
+        rows.append(dict(
+            kernel="int_group_matmul", site=name, shape=[n, c, o, m.k_ns, m.group_size,
+                                                        w_sal.shape[0]],
+            max_err=err, in_sum=in_sum, bound_ms=b_ms, bound_by=b_by,
+            kernel_ms=device_ms(lambda i: k8.int_group_matmul(*args, **kw), 8, reps=3)))
+        if in_sum:   # the yardsticks of the kernels line's sites
+            w_lib = torch.randn((c, o), generator=gen, device=dev).to(torch.bfloat16)
+            rows[-1].update(
+                plain_ms=device_ms(lambda i: k8.int_group_matmul_plain(*args, **kw), 2,
+                                   reps=3),
+                library_ms=device_ms(lambda i: x @ w_lib, 8, reps=3),
+                library="torch.matmul bf16 (N, C) @ (C, O), yardstick only")
+            del w_lib
+        emit(rows[-1])
+    return rows
+
+
+def check_dual_path_matmul(packed, single, dev, gen):
+    """K9's four bodies vs plain at N = 512 and 2048: grouped with and
+    without the salient block (layer 0's gate_proj of the quick start's
+    pack), single group with it (gate, G = 1) and without (down, G = 1);
+    bf16.  At the kernels line's site (grouped, N = 2048) also the plain
+    version's time and two yardsticks: a bf16 torch.matmul of the same
+    (N, C, O), and torch.matmul over the weight dequantized once (plus the
+    salient dot)."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import quant_matmul as k9
+    from smoothquant_tpu_torch.kernels.pack import quantize_activations_packed
+    from smoothquant_tpu_torch.utils import roofline
+
+    gate = _qs_sites(packed)["gate"]
+    cases = [("grouped", gate), ("grouped_nosal", _no_salient(gate)),
+             ("colscale", single["gate_g1"]), ("colscale_nosal", single["down_g1"])]
+    rows = []
+    for body, lin in cases:
+        m = lin.meta
+        c, o = m.in_features, m.out_features
+        w_sal = lin.w_sal_t.to(torch.bfloat16)
+        w_deq = None
+        for n in (512, 2048):
+            x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+            x_ns, x_sal = quantize_activations_packed(x, m)
+            x_sal = x_sal[:, :w_sal.shape[0]]
+            kw = dict(group_size=m.group_size, out_dtype=torch.bfloat16)
+            args = (x_ns, x_sal, lin.w_qt, lin.w_scales_t, w_sal)
+            got = k9.dual_path_matmul(*args, **kw)
+            ref = k9.dual_path_matmul_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = _close(f"K9 {body}@{n}", got, ref, 1e-2)
+            if w_deq is None:
+                s = lin.w_scales_t.float()
+                if s.shape[0] > 1:
+                    s = s.repeat_interleave(m.group_size, dim=0)
+                w_deq = (lin.w_qt.float() * s).to(torch.bfloat16)
+            n_bytes, ops = roofline.dual_path_matmul_cost(n, o, m.k_ns, m.group_size,
+                                                          w_sal.shape[0])
+            b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+            in_sum = body == "grouped" and n == 2048
+            rows.append(dict(
+                kernel="dual_path_matmul", site=f"{body}@{n}",
+                shape=[n, c, o, m.k_ns, m.group_size, w_sal.shape[0]], max_err=err,
+                in_sum=in_sum, bound_ms=b_ms, bound_by=b_by,
+                kernel_ms=device_ms(lambda i: k9.dual_path_matmul(*args, **kw), 4, reps=3)))
+            if in_sum:   # the yardsticks of the kernels line's site
+                w_lib = torch.randn((c, o), generator=gen, device=dev).to(torch.bfloat16)
+
+                def deq_once(i):
+                    y = x_ns @ w_deq
+                    return y + x_sal @ w_sal if w_sal.shape[0] else y
+
+                rows[-1].update(
+                    plain_ms=device_ms(lambda i: k9.dual_path_matmul_plain(*args, **kw), 2,
+                                       reps=3),
+                    library_ms=device_ms(lambda i: x @ w_lib, 4, reps=3),
+                    library="torch.matmul bf16 (N, C) @ (C, O), yardstick only",
+                    dequant_once_ms=device_ms(deq_once, 4, reps=3))
+                del w_lib
+            emit(rows[-1])
+        del w_deq
+    return rows
+
+
+def int_path_crossover(packed, dev, gen):
+    """real_quant_linear on layer 0's gate_proj (4096 → 11008) and down_proj
+    (11008 → 4096) of the quick start's pack in "int" (K8) and "dequant"
+    (K9) mode, activation prep included, at each of CROSSOVER_N rows; the
+    smallest N from which the dequant path wins on both (None: the int path
+    wins at every N measured)."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels.real_linear import real_quant_linear
+
+    sites = {k: v for k, v in _qs_sites(packed).items() if k != "q"}
+    times = {site: {} for site in sites}
+    for n in CROSSOVER_N:
+        for site, lin in sites.items():
+            x = torch.randn((n, lin.meta.in_features), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            times[site][n] = {mode: device_ms(
+                lambda i: real_quant_linear(lin, x, compute=mode), 4, reps=2)
+                for mode in ("int", "dequant")}
+    wins = [n for n in CROSSOVER_N
+            if all(t[n]["dequant"] < t[n]["int"] for t in times.values())]
+    above = [n for n in CROSSOVER_N if all(w in wins for w in CROSSOVER_N if w >= n)]
+    return dict(rows=list(CROSSOVER_N), ms=times, dequant_wins_at=wins,
+                dequant_wins_from=above[0] if above else None)
+
+
+def prefill_kernel_crossover(promoted, cfg, dev, gen):
+    """The identity-int8 forward's two sides — K4, or torch._int_mm with the
+    f32 epilogue — after the shared prologue, at layer 0's gate_up (4096 →
+    22016) and down (11008 → 4096) of the promoted tree and N of 4 to 1024;
+    the smallest N from which K4 wins on both, and from which it wins on
+    the two together."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import real_linear
+
+    def side(lin, x, k4: bool):
+        """The identity-int8 forward with its switch set to one side."""
+        saved = real_linear.PREFILL_KERNEL_MIN_TOKENS
+        real_linear.PREFILL_KERNEL_MIN_TOKENS = 0 if k4 else x.shape[0] + 1
+        try:
+            return real_linear._identity_int8_forward(lin, x, torch.bfloat16)
+        finally:
+            real_linear.PREFILL_KERNEL_MIN_TOKENS = saved
+
+    lp = promoted["layers"]["0"]
+    sites = {"gate_up": lp["mlp"]["gate_up_proj"], "down": lp["mlp"]["down_proj"]}
+    rows = [n for n in CROSSOVER_N if n <= PREFILL_N]
+    times = {site: {} for site in sites}
+    for n in rows:
+        for site, lin in sites.items():
+            x = torch.randn((n, lin.meta.in_features), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            times[site][n] = {name: device_ms(lambda i: side(lin, x, k4), 4, reps=2)
+                              for name, k4 in (("k4", True), ("int_mm", False))}
+    wins = [n for n in rows if all(t[n]["k4"] < t[n]["int_mm"] for t in times.values())]
+    above = [n for n in rows if all(w in wins for w in rows if w >= n)]
+    total = lambda n, side: sum(t[n][side] for t in times.values())
+    sum_wins = [n for n in rows if total(n, "k4") < total(n, "int_mm")]
+    sum_above = [n for n in rows if all(w in sum_wins for w in rows if w >= n)]
+    return dict(rows=rows, ms=times, k4_wins_at=wins, k4_wins_from=above[0] if above else None,
+                k4_sum_wins_from=sum_above[0] if sum_above else None)
+
+
+def quickstart_launches(meta, n_layers: int, rows: int, steps: int = 0) -> dict:
+    """Kernel launches over the quick start's per-layer pack (its recipe in
+    `meta`): with steps = 0 a prefill of `rows` rows, whose seven linears a
+    layer take K8 or K9 as real_linear picks them for its rows; otherwise
+    `steps` decode steps of `rows` rows, their linears picked the same way
+    and K11 once a layer a step."""
+    from smoothquant_tpu_torch.kernels.real_linear import choose_compute
+
+    kernel = {"int": "int_group_matmul",
+              "dequant": "dual_path_matmul"}[choose_compute(meta, rows)]
+    if not steps:
+        return {kernel: 7 * n_layers}
+    return {kernel: 7 * n_layers * steps, "decode_attention_stacked": n_layers * steps}
+
+
+def quickstart(fp, packed, cfg, dev, card):
+    """The quick start's serving end: Generator(quant_kv=True) over the
+    packed tree, QS_BATCH prompts of QS_PROMPT random tokens and QS_NEW new
+    ones over per-layer int8 caches.  Prefill tokens/s (a prefill-only
+    run), decode ms/step by host clock and by device busy time (a full run
+    less the prefill-only one, under torch.profiler), launches (K8 7·L and
+    K11 L a decode step; the prefill's 7·L on K8 or K9 as the crossover
+    puts its QS_BATCH·QS_PROMPT rows).  When those rows stay on the int
+    path, a no-cache prefill forced to "dequant" keeps K9 on the path.
+    Also the packed model's logits against the fp model's on one prompt
+    (top-1 agreement, relative norm error).  Returns (metrics, launches)."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.kernels.real_linear import choose_compute
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.serve.generate import GenerationConfig, Generator
+
+    n_l, steps, rows = cfg.num_hidden_layers, QS_NEW - 1, QS_BATCH * QS_PROMPT
+    meta = _qs_sites(packed)["q"].meta
+    prompts = np.random.default_rng(SEED + 37).integers(0, cfg.vocab_size,
+                                                        size=(QS_BATCH, QS_PROMPT))
+    gen = Generator(llama, packed, cfg, max_len=QS_MAX_LEN, quant_kv=True, device=dev)
+    gen.generate(prompts[:, :16], GenerationConfig(max_new_tokens=2))      # warm-up
+
+    def run(new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.generate(prompts, GenerationConfig(max_new_tokens=new))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    prefill_s = statistics.median(run(1)[1] for _ in range(3))
+    (out, wall), launches = _path_launches(lambda: run(QS_NEW))
+    expect = Counter(quickstart_launches(meta, n_l, rows))
+    expect.update(quickstart_launches(meta, n_l, QS_BATCH, steps))
+    _check_launches("quick start generator", launches, dict(expect))
+    new = out[:, QS_PROMPT:]
+    if not (out.shape == (QS_BATCH, QS_PROMPT + QS_NEW) and (out[:, :QS_PROMPT] == prompts).all()
+            and ((0 <= new) & (new < cfg.vocab_size)).all()):
+        raise AssertionError("quick start generator: misshapen output or token out of range")
+    # device time: a run of QS_PROFILE_NEW tokens less the prefill-only one
+    # (a short window: the profiler's own cost grows with the events)
+    busy_short = profile(lambda: run(QS_PROFILE_NEW), 1)
+    busy_prefill = profile(lambda: run(1), 1)
+    res = dict(batch=QS_BATCH, prompt=QS_PROMPT, new_tokens=QS_NEW,
+               prefill_compute=choose_compute(meta, rows), prefill_ms=1e3 * prefill_s,
+               prefill_tokens_per_s=rows / prefill_s,
+               decode_ms_per_step=1e3 * (wall - prefill_s) / steps,
+               decode_busy_ms_per_step=(busy_short["busy_ms_per_step"]
+                                        - busy_prefill["busy_ms_per_step"]) / (QS_PROFILE_NEW - 1),
+               wall_s=wall, tokens_per_s=QS_BATCH * QS_NEW / wall, launches=launches,
+               launches_per_decode_step=quickstart_launches(meta, n_l, QS_BATCH, 1),
+               prefill_trace=busy_prefill, trace=busy_short)
+    ids = torch.as_tensor(prompts, device=dev)
+    if res["prefill_compute"] != "dequant":
+        fwd = torch.no_grad()(lambda: llama.forward(
+            packed, ids, cfg, ctx=ForwardContext(compute="dequant"))[0])
+        fwd()                                                    # warm-up
+        _, used = _path_launches(fwd)
+        _check_launches("quick start dequant prefill", used, {"dual_path_matmul": 7 * n_l})
+        launches = dict(Counter(launches) + Counter(used))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd()
+        torch.cuda.synchronize()
+        res["dequant_prefill"] = dict(ms=1e3 * (time.perf_counter() - t0), launches=used)
+    with torch.no_grad():
+        q_logits = llama.forward(packed, ids[:1], cfg)[0][0]
+        f_logits = llama.forward(fp, ids[:1], cfg)[0][0]
+    if not (torch.isfinite(q_logits).all() and q_logits.shape == (QS_PROMPT, cfg.vocab_size)):
+        raise AssertionError("quick start: non-finite or misshapen logits")
+    res["vs_fp"] = dict(
+        top1_agree=float((q_logits.argmax(-1) == f_logits.argmax(-1)).float().mean()),
+        rel_norm_err=float((q_logits - f_logits).norm() / f_logits.norm()))
+    return res, launches
+
+
 # ---------------------------------------------------------------- end to end
 
 
@@ -1168,8 +1571,10 @@ def check_no_fallback(dev):
     from smoothquant_tpu_torch.kernels import int4_group_matmul as k1
     from smoothquant_tpu_torch.kernels import int8 as k15
     from smoothquant_tpu_torch.kernels import int8_prefill as k4
+    from smoothquant_tpu_torch.kernels import int_group_matmul as k8
     from smoothquant_tpu_torch.kernels import mlp_fused as k14
     from smoothquant_tpu_torch.kernels import norm_quant as k16
+    from smoothquant_tpu_torch.kernels import quant_matmul as k9
 
     z8 = torch.zeros((64, 64), dtype=torch.int8, device=dev)
     w4 = torch.zeros((1, 128, 256), dtype=torch.int8, device=dev)      # K = 256
@@ -1228,6 +1633,27 @@ def check_no_fallback(dev):
             0, f32(9, 256), None, w4, f32(1, 4, 256), f32(1, 0, 256), w4, f32(1, 4, 256),
             f32(1, 0, 256), group_size=64, act_bits=4, n_sal1=0, n_sal2=0, gu_out_true=256,
             dn_out_true=256), NotImplementedError),
+        "K8 group size 24": (lambda: k8.int_group_matmul(
+            z8[:4, :48].contiguous(), f32(4, 2), z8[:48], f32(2, 64), f32(4, 0), f32(0, 64),
+            group_size=24), ValueError),
+        "K8 O = 6": (lambda: k8.int_group_matmul(
+            z8[:4], f32(4, 1), z8[:, :6].contiguous(), f32(1, 6), f32(4, 0), f32(0, 6),
+            group_size=64), ValueError),
+        "K8 float codes": (lambda: k8.int_group_matmul(
+            f32(4, 64), f32(4, 1), z8, f32(1, 64), f32(4, 0), f32(0, 64), group_size=64),
+            TypeError),
+        "K9 float16 x": (lambda: k9.dual_path_matmul(
+            f32(4, 64).half(), f32(4, 0).half(), z8, f32(1, 64), f32(0, 64).half(),
+            group_size=64, out_dtype=torch.float16), TypeError),
+        "K9 bf16 out of f32 x": (lambda: k9.dual_path_matmul(
+            f32(4, 64), f32(4, 0), z8, f32(2, 64), f32(0, 64), group_size=32,
+            out_dtype=torch.bfloat16), TypeError),
+        "K9 O = 12": (lambda: k9.dual_path_matmul(
+            f32(4, 64), f32(4, 0), z8[:, :12].contiguous(), f32(1, 12), f32(0, 12),
+            group_size=64), ValueError),
+        "K9 odd group size": (lambda: k9.dual_path_matmul(
+            f32(4, 63), f32(4, 0), z8[:63], f32(21, 64), f32(0, 64), group_size=3),
+            ValueError),
     }
     raised = {}
     for name, (fn, expected) in cases.items():
@@ -1257,7 +1683,14 @@ def reference_check(dev):
         over a random head-major int8 cache at aligned (L,) positions in each of
         COMPOSITIONS (K1 with K12's flat body + K10, K12's write body, K10 +
         K11, K14 + K12 + K10), and aligned_auto_gqa: "auto" on a GQA twin
-        of the model (4 kv heads: K12's stacked body).
+        of the model (4 kv heads: K12's stacked body);
+      * per_layer_<compute>: pack_model's default tree (per-layer
+        int8-container linears, 4-bit g64 weights, 5 % salient) under
+        8-bit per-group activations (W4A8) over per-layer head-major int8
+        caches, a 256-row prefill and one decode step in
+        ForwardContext(compute=) "int" (K8), "dequant" (K9) and "auto" (K8
+        or K9 by the crossover), with K11 in the step; the kernel path's
+        launches checked.
     Tolerances, relative to the largest logit: 2e-2 in f32 and 5e-2 in bf16
     for the S-major path, 1e-3 / 2e-2 for the unquantized bf16
     baseline (f32 sums in another order).  The generator path's 256-row
@@ -1270,11 +1703,21 @@ def reference_check(dev):
     16 rows a per-token int4 code on a rounding edge moves a row's logits
     (2 of 40 rows by up to 0.17 between the plain path and the JAX
     package).  The aligned steps (ALIGNED_ROWS rows) are held to 1e-2 of
-    the norm in f32 (they read 1e-7 to 2e-6 on the H100) and 2.5e-1 in
-    bf16: there K1's in-kernel RMSNorm (rsqrtf) moves codes in most rows,
-    and the steps read 0.09 ("off", which runs no kernel of K12 or K14) to
-    0.17 (the GQA twin) of the norm, beside head_major_b16's 0.13."""
+    the norm in f32 (they read 1e-7 to 2e-6 on the H100) and 1e-1 in bf16:
+    with one RMSNorm rule on both devices (quant.core.rms_factor: Σx² in
+    f64, 1/√v correctly rounded) "auto", "fused" and "off" read 0 and the
+    K14 and GQA steps 0.04 and 0.06 (bf16 roundings of f32 sums taken in
+    another order); before it, K1's rsqrtf and the two devices' torch sums
+    moved codes in most rows (0.09-0.17).  The
+    per-layer parts quantize every row's activations per group, 256 rows
+    of them: on the CPU, noise of 2e-7 on every linear's f32 output (another
+    sum order) moves their logits 0.008-0.010 of the norm under W4A8 and
+    0.07-0.13 under the quick start's W4A4 (one bf16 ulp in 2 % of the
+    outputs: 0.025 and 0.29), so the W4A8 recipe, which runs the same K8
+    and K9, is the one this check can hold: to 5e-2 (f32) and 1e-1 (bf16)
+    of the norm."""
     import dataclasses
+    from collections import Counter
 
     import torch
 
@@ -1285,16 +1728,19 @@ def reference_check(dev):
         QuantKVCache,
         SMajorQuantKVCache,
     )
+    from smoothquant_tpu_torch.models.registry import pack_model
+    from smoothquant_tpu_torch.quant.config import w4a8_group
 
     out, failed = {}, []
     aligned = [f"aligned_{name}" for name, _, _ in COMPOSITIONS] + ["aligned_auto_gqa"]
+    per_layer = [f"per_layer_{c}" for c in ("int", "dequant", "auto")]
     for dtype_name, tol in (
             ("float32", {"smajor": 2e-2, "generator": 5e-2, "bf16_baseline": 1e-3,
                          "head_major_b40": 5e-2, "head_major_b16": 5e-2,
-                         **{a: 1e-2 for a in aligned}}),
+                         **{a: 1e-2 for a in aligned}, **{p: 5e-2 for p in per_layer}}),
             ("bfloat16", {"smajor": 5e-2, "generator": 1.5e-1, "bf16_baseline": 2e-2,
                           "head_major_b40": 1.5e-1, "head_major_b16": 1.5e-1,
-                          **{a: 2.5e-1 for a in aligned}})):
+                          **{a: 1e-1 for a in aligned}, **{p: 1e-1 for p in per_layer}})):
         cfg = dataclasses.replace(
             llama.LlamaConfig.tiny(), hidden_size=512, intermediate_size=512,
             num_attention_heads=8, num_key_value_heads=8, num_hidden_layers=2,
@@ -1305,6 +1751,9 @@ def reference_check(dev):
         bf16 = build_bf16(fp, cfg)
         gqa_cfg = dataclasses.replace(cfg, num_key_value_heads=4)
         gqa = build_model(gqa_cfg, "cpu", SEED, group_size=16, align_o=256)[2]
+        qs = pack_model("llama", fp, cfg, w4a8_group(group_size=64, salient_prop=0.05),
+                        input_feat=_recipe(cfg, SEED, 64)[2])
+        qs_meta = qs["layers"]["0"]["self_attn"]["q_proj"].meta
         gen = torch.Generator().manual_seed(SEED + 1)
         prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
         long_prompt = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
@@ -1348,6 +1797,29 @@ def reference_check(dev):
                 logits[name][part], _ = llama.forward(
                     tree, tok.to(d), c, caches=hm,
                     ctx=ForwardContext(fuse_attn=fuse_attn, fuse_mlp=fuse_mlp))
+            q_tree = tree_to(qs, d)
+            for compute in ("int", "dequant", "auto"):
+                ctx = ForwardContext(compute=compute)
+
+                def per_layer_run():
+                    qc = [QuantKVCache.create(2, 256, n_kv, hd, device=d) for _ in range(n_l)]
+                    pre, qc = llama.forward(q_tree, long_prompt.to(d), cfg, caches=qc, ctx=ctx)
+                    step, _ = llama.forward(q_tree, long_prompt[:, -1:].to(d), cfg, caches=qc,
+                                            ctx=ctx)
+                    return torch.cat([pre, step], dim=1)
+
+                part = f"per_layer_{compute}"
+                if name == "plain":
+                    logits[name][part] = per_layer_run()
+                    continue
+                logits[name][part], used = _path_launches(per_layer_run)
+                if compute == "auto":
+                    expect = Counter(quickstart_launches(qs_meta, n_l, long_prompt.numel()))
+                    expect.update(quickstart_launches(qs_meta, n_l, 2, 1))
+                else:   # a forced mode runs its kernel at every row count
+                    kern = {"int": "int_group_matmul", "dequant": "dual_path_matmul"}[compute]
+                    expect = Counter({kern: 14 * n_l, "decode_attention_stacked": n_l})
+                _check_launches(f"reference check {part}", used, dict(expect))
             logits[name] = {k: v.cpu() for k, v in logits[name].items()}
         res = out[dtype_name] = {}
         for part, ref in logits["plain"].items():
@@ -1357,7 +1829,7 @@ def reference_check(dev):
                 raise AssertionError(f"reference check {part}: non-finite or misshapen logits")
             name = f"reference check {dtype_name} {part}"
             res[part] = dict(argmax_agree=float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
-            if part == "generator" or part.startswith(("head_major", "aligned")):
+            if part == "generator" or part.startswith(("head_major", "aligned", "per_layer")):
                 rel_norm = float((got.float() - ref.float()).norm() / ref.float().norm())
                 res[part].update(rel_norm_err=rel_norm, tolerance_rel_norm=tol[part],
                                  max_abs_err=(got.float() - ref.float()).abs().max().item())
@@ -2043,11 +2515,13 @@ def kernels_line(rows, launches):
     summed (K1 at N = 4, K5, K6, K4 with the lm_head, K13, K7a's three
     sites; K11 its bf16 and int8 bodies; K15a its six linears, K15b its two
     products and K16 its LayerNorm, each at the prefill and at the decode
-    size; K12 its flat body at B = 4, K14 at N = 4; rows marked
-    in_sum=False — K1 at 16 and 32 rows, K5's extra row-major qkv, K12's
-    other bodies and B = 64, K14 at 8 rows — are reported on their own
-    lines only), the errors the largest seen; launches are the main paths'
-    runs summed."""
+    size; K12 its flat body at B = 4, K14 at N = 4; K8 its q, gate and down
+    sites with the salient block at N = 4, K9 its grouped body at gate_proj,
+    N = 2048; rows marked in_sum=False — K1 at 16 and 32 rows, K5's extra
+    row-major qkv, K12's other bodies and B = 64, K14 at 8 rows, K8's and
+    K9's other bodies and row counts — are reported on their own lines
+    only), the errors the largest seen; launches are the main paths' runs
+    summed."""
     out = []
     for name, (src, replaces) in SOURCES.items():
         every = [r for r in rows if r["kernel"] == name]
@@ -2073,6 +2547,10 @@ def run(dev, cfg, card: str):
 
     import torch
 
+    from smoothquant_tpu_torch.kernels.real_linear import (
+        INT_PATH_MAX_TOKENS,
+        PREFILL_KERNEL_MIN_TOKENS,
+    )
     from smoothquant_tpu_torch.models import llama
     from smoothquant_tpu_torch.utils import roofline
 
@@ -2115,6 +2593,9 @@ def run(dev, cfg, card: str):
     emit({"phase": "promoted_model", "seconds": time.perf_counter() - t0,
           "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
     rows += check_int8_prefill(promoted, cfg, dev, gen)
+    emit({"phase": "prefill_kernel_crossover", "card": card,
+          "prefill_kernel_min_tokens": PREFILL_KERNEL_MIN_TOKENS,
+          **prefill_kernel_crossover(promoted, cfg, dev, gen)})
 
     pf, used = full_prefill(promoted, cfg, dev)
     launches.update(used)
@@ -2138,6 +2619,28 @@ def run(dev, cfg, card: str):
     del promoted
     torch.cuda.empty_cache()
     launches.update(slot_decode(stacked, cfg, dev, card))
+
+    t0 = time.perf_counter()
+    qs_packed, seconds = build_quickstart(fp, cfg, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "quickstart_model", "seconds": time.perf_counter() - t0, **seconds,
+          "calibration": [QS_SAMPLES, QS_LEN], "alpha": QS_ALPHA,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    t0 = time.perf_counter()
+    single = single_group_packs(fp)
+    rows += (check_int_group_matmul(qs_packed, single, dev, gen)
+             + check_dual_path_matmul(qs_packed, single, dev, gen))
+    del single
+    t1 = time.perf_counter()
+    emit({"phase": "int_path_crossover", "card": card,
+          "int_path_max_tokens": INT_PATH_MAX_TOKENS, "kernel_phases_seconds": t1 - t0,
+          **int_path_crossover(qs_packed, dev, gen), "seconds": time.perf_counter() - t1})
+    t0 = time.perf_counter()
+    metrics, used = quickstart(fp, qs_packed, cfg, dev, card)
+    launches.update(used)
+    emit({"phase": "quickstart", "card": card, "seconds": time.perf_counter() - t0, **metrics})
+    del qs_packed
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     bf16 = build_bf16(fp, cfg)
     del fp

@@ -129,7 +129,7 @@ template <int NT, typename S, typename T>
 __global__ void __launch_bounds__(MLP_THREADS)
 mlp_fused_kernel(MlpArgs a, RawxPlan p1, RawxPlan p2, size_t off2, size_t off_h) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ float scratch[32];
+  __shared__ double scratch[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gw = blockIdx.x * MLP_WARPS + warp, n_gw = gridDim.x * MLP_WARPS;
   const int N = a.N, gs = a.gs;

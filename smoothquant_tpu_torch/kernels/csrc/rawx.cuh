@@ -38,20 +38,23 @@ __device__ __forceinline__ void rawx_prep_item(
     const T* __restrict__ x_sal_ext, int8_t* __restrict__ xq, float* __restrict__ xs,
     int* __restrict__ xsum, float* __restrict__ xsal, int C, int kk, int gs, int k_ns_raw,
     int n_sal, int k_s, int mode, int need_mask, float eps, float inv_qmax,
-    float* scratch) {
+    double* scratch) {
   const T* xr = x + (size_t)n * C;
   float r = 1.0f;
-  if (mode == 1) {  // RMSNorm factor over the true C channels, in f32
-    float ss = 0.0f;
+  if (mode == 1) {  // RMSNorm factor over the true C channels
+    // Σx² in f64 (exact squares), rounded to f32 once: then its value does
+    // not depend on the order of the sum, and the plain version and
+    // models.common.rms_norm, which sum the same way, agree with it on the
+    // CPU and on the card.  1/√v: the square root and the reciprocal each
+    // correctly rounded, as IEEE fixes them on both devices (rsqrtf, like
+    // torch.rsqrt, is approximate and differs between them).
+    double ss = 0.0;
     for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      const float v = to_f<T>(xr[c]);
+      const double v = to_f<T>(xr[c]);
       ss += v * v;
     }
-    ss = block_reduce<false>(ss, scratch);
-    // rsqrtf: a correctly rounded 1/√v here moved int4 codes against the
-    // plain version's torch.rsqrt run on the card (torch's CPU rsqrt is
-    // neither of the two, so no choice matches both devices)
-    r = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.0f / (float)C), eps));
+    ss = block_sum_f64(ss, scratch);
+    r = __frcp_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(__double2float_rn(ss), 1.0f / (float)C), eps)));
   }
   const int G = kk / gs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

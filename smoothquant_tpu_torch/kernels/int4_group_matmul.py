@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 
 from smoothquant_tpu_torch.kernels import _build
-from smoothquant_tpu_torch.quant.core import compute_scale, f32_reciprocal
+from smoothquant_tpu_torch.quant.core import compute_scale, f32_reciprocal, rms_factor
 
 RAWX_MAX_N = 32         # token rows K1 takes (the JAX rawx branch's gate)
 
@@ -80,8 +80,7 @@ def rawx_quantize_plain(x_raw, norm_row, x_sal, *, kk: int, k_s: int,
     xf = torch.nn.functional.pad(x_raw.float(), (0, p - c))
     r = None
     if norm_kind == "rms":
-        r = torch.rsqrt((xf * xf).sum(dim=1, keepdim=True) * f32_reciprocal(c)
-                        + eps)
+        r = rms_factor(xf[:, :c], eps)
     nw = None
     if norm_kind is not None:
         nw = torch.nn.functional.pad(norm_row.float(), (0, p - c))

@@ -417,6 +417,35 @@ def promote_model_int8(params):
     return params
 
 
+def _salient_block(x_perm: torch.Tensor, meta: PackedMeta) -> torch.Tensor:
+    """The permuted tail's salient channels, zero-padded to k_s, in x's dtype."""
+    k_ns_raw = meta.in_features - meta.num_salient
+    x_sal = torch.zeros((x_perm.shape[0], meta.k_s), dtype=x_perm.dtype,
+                        device=x_perm.device)
+    if meta.num_salient:
+        x_sal[:, :meta.num_salient] = x_perm[:, k_ns_raw:]
+    return x_sal
+
+
+def quantize_activations_packed(x_perm: torch.Tensor, meta: PackedMeta):
+    """(x_ns Q-DQ'd (N, k_ns) in x's dtype, x_sal (N, k_s)) for the dequant
+    kernel from a PERMUTED activation (pack.py:625-656): the non-salient
+    channels zero-padded to k_ns and quantized at meta.act_quant
+    granularity (contiguous groups: the permutation already sorted them)."""
+    k_ns_raw = meta.in_features - meta.num_salient
+    x_ns = x_perm[:, :k_ns_raw]
+    if meta.k_ns != k_ns_raw:
+        x_ns = torch.nn.functional.pad(x_ns, (0, meta.k_ns - k_ns_raw))
+    if meta.act_quant == "per_token":
+        x_ns_q = core.quantize_activation_per_token_absmax(x_ns, meta.act_bits)
+    elif meta.act_quant == "per_tensor":
+        x_ns_q = core.quantize_activation_per_tensor_absmax(x_ns, meta.act_bits)
+    else:
+        x_ns_q = core.quantize_activation_per_group_absmax(x_ns, meta.act_bits,
+                                                           meta.act_group_size)
+    return x_ns_q, _salient_block(x_perm, meta)
+
+
 def quantize_activations_packed_int(x_perm: torch.Tensor, meta: PackedMeta):
     """(x_q int8 (N, k_ns), x_scales f32 (N, G), x_sal (N, k_s)) for the
     int kernel from a PERMUTED activation (pack.py:659-707)."""
@@ -442,8 +471,4 @@ def quantize_activations_packed_int(x_perm: torch.Tensor, meta: PackedMeta):
                 f"({meta.act_group_size} != {meta.group_size})")
         x_q, x_scales = core.quantize_groups_int(xf, meta.act_bits,
                                                  meta.group_size)
-    x_sal = torch.zeros((n, meta.k_s), dtype=x_perm.dtype,
-                        device=x_perm.device)
-    if meta.num_salient:
-        x_sal[:, :meta.num_salient] = x_perm[:, k_ns_raw:]
-    return x_q, x_scales.float().contiguous(), x_sal
+    return x_q, x_scales.float().contiguous(), _salient_block(x_perm, meta)

@@ -1,5 +1,5 @@
 """Real-quantized linear forward (port of smoothquant_tpu/kernels/
-real_linear.py:70-125,200-479 — the branches the W4A4 serving path takes).
+real_linear.py:70-133,200-479).
 
   stacked (layer_idx given), nibble, per-group recipe, N <= RAWX_MAX_N (32):
     * fused RMSNorm (qkv, gate_up over the shared residual basis) → K1 "rms"
@@ -10,15 +10,28 @@ real_linear.py:70-125,200-479 — the branches the W4A4 serving path takes).
     * pre-permuted input: RMSNorm rounded to x's dtype first (qkv,
       gate_up), salient tail split, K7a into K5's layout     → K7a + K5
     * identity layout: _identity_nibble_quantize             → K5 row-major
-  per-layer nibble (prefill):
-    * permuted → quantize_activations_packed_int + K6
-    * identity → _identity_nibble_quantize + K6
   the whole MLP of a stacked decode layer at N <= 8 (ForwardContext.fuse_mlp,
     real_linear.py:148-197)                                     → K14
-  identity int8, not nibble (promote_int8's prefill packs, the per-channel
-    lm_head) → masked per-token quantize, then K4 at >= 256 rows, else one
-    torch._int_mm product with the per-token × per-column epilogue (as the
-    JAX package leaves it to an XLA int8 dot below 256 rows).
+  per-layer (real_linear.py:400-470):
+    * identity int8, not nibble (promote_int8's prefill packs, the
+      per-channel lm_head) → masked per-token quantize, then K4 at >= 256
+      rows, else one torch._int_mm product with the per-token × per-column
+      epilogue (as the JAX package leaves it to an XLA int8 dot below 256
+      rows);
+    * identity nibble → _identity_nibble_quantize + K6;
+    * permuted (the input gathered by perm unless pre-permuted), with
+      `compute` choosing the kernel:
+        nibble → always "int": quantize_activations_packed_int + K6 (per-
+          group, per-token or per-tensor recipes, the latter two on
+          broadcast scales);
+        int8 container, "int" → quantize_activations_packed_int + K8;
+        int8 container, "dequant" → quantize_activations_packed (Q-DQ) +
+          K9;
+        "auto" → "int" for a single-group recipe at any token count, or a
+          grouped one up to INT_PATH_MAX_TOKENS rows, else "dequant" — and
+          "dequant" whenever the int path cannot take the recipe (act_bits
+          > 8, or activation groups unlike the weight's), where forcing
+          "int" raises ValueError.
 
 Every other branch raises NotImplementedError: nothing detours silently.
 """
@@ -45,16 +58,57 @@ from smoothquant_tpu_torch.kernels.int4_group_matmul import (
     int4_group_matmul_stacked,
     int4_group_matmul_stacked_rawx,
 )
+from smoothquant_tpu_torch.kernels.int_group_matmul import int_group_matmul
 from smoothquant_tpu_torch.kernels.pack import (
     PackedLinear,
+    quantize_activations_packed,
     quantize_activations_packed_int,
 )
+from smoothquant_tpu_torch.kernels.quant_matmul import dual_path_matmul
 from smoothquant_tpu_torch.quant import core
 
-# identity-int8 forward: below this many rows torch._int_mm plus the
-# epilogue runs instead of K4 (the JAX _PREFILL_KERNEL_MIN_TOKENS default;
-# the port reads no tuned.json)
+# identity-int8 forward: from this many rows K4, below them torch._int_mm
+# plus the epilogue.  Measured by chip_smoke.py's prefill_kernel_crossover
+# (NVIDIA H100 80GB HBM3, 700 W): at Llama-2-7B's promoted gate_up and down
+# together K4 wins from 256 rows (0.486 against 0.615 ms) and not at 128
+# (0.396 against 0.389); gate_up alone from 4 rows, down alone only at 1024.
 PREFILL_KERNEL_MIN_TOKENS = 256
+# per-layer int8-container packs of a grouped recipe, compute="auto": up to
+# this many rows the int path (K8), above it the dequant path (K9).
+# Measured by chip_smoke.py's int_path_crossover (NVIDIA H100 80GB HBM3,
+# 700 W; real_quant_linear with its activation prep, the quick start's
+# W4A4 g64 pack): the dequant path wins on both gate_proj and down_proj from
+# 512 rows (gate 0.521 against 0.858 ms, down 0.640 against 0.828), the int
+# path on down up to 256 (0.466 against 0.567 ms).
+INT_PATH_MAX_TOKENS = 256
+COMPUTE_CHOICES = ("auto", "int", "dequant")
+
+
+def _int_path_supported(meta) -> bool:
+    """The int path's recipes (real_linear.py:128-133): activation codes that
+    fit int8, with one scale per weight group (per-token, per-tensor, or
+    activation groups equal to the weight's)."""
+    if meta.act_bits > 8:
+        return False
+    if meta.act_quant in ("per_token", "per_tensor"):
+        return True
+    return meta.act_group_size == meta.group_size
+
+
+def choose_compute(meta, n_tokens: int, compute: str = "auto") -> str:
+    """The kernel path a permuted pack takes (real_linear.py:432-445)."""
+    if meta.nibble:
+        compute = "int"   # nibble storage is only consumable by the int path
+    elif compute == "auto":
+        if not _int_path_supported(meta):
+            compute = "dequant"
+        elif meta.group_size >= meta.k_ns:
+            compute = "int"   # one full-depth int8 contraction wins at any N
+        else:
+            compute = "int" if n_tokens <= INT_PATH_MAX_TOKENS else "dequant"
+    if compute == "int" and not _int_path_supported(meta):
+        raise ValueError("int compute path unsupported for this recipe")
+    return compute
 
 
 def _grouped(meta) -> bool:
@@ -242,21 +296,51 @@ def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
         eps=float(eps), norm_kind="rms", **common)
 
 
+def _per_layer_linear(packed: PackedLinear, x2d: torch.Tensor, compute: str,
+                      out_dtype) -> torch.Tensor:
+    """The per-layer branches (real_linear.py:400-470)."""
+    meta = packed.meta
+    if meta.layout == "identity" and not meta.nibble:
+        return _identity_int8_forward(packed, x2d, out_dtype)
+    w_sal = packed.w_sal_t.to(x2d.dtype)
+    # the activation preps return x_sal (and the Q-DQ'd x_ns) in x's dtype
+    if meta.layout == "identity":
+        x_q, x_scales, x_sal = _identity_nibble_quantize(packed, x2d, packed.perm,
+                                                         packed.ns_mask)
+        return int4_group_matmul(x_q, x_scales, packed.w_qt, packed.w_scales_t, x_sal,
+                                 w_sal, group_size=meta.group_size, out_dtype=out_dtype)
+    x_perm = x2d if meta.pre_permuted else x2d.index_select(1, packed.perm)
+    if choose_compute(meta, x2d.shape[0], compute) == "int":
+        x_q, x_scales, x_sal = quantize_activations_packed_int(x_perm, meta)
+        kernel = int4_group_matmul if meta.nibble else int_group_matmul
+        return kernel(x_q, x_scales, packed.w_qt, packed.w_scales_t, x_sal, w_sal,
+                      group_size=meta.group_size, out_dtype=out_dtype)
+    x_ns_q, x_sal = quantize_activations_packed(x_perm, meta)
+    return dual_path_matmul(x_ns_q, x_sal, packed.w_qt, packed.w_scales_t, w_sal,
+                            group_size=meta.group_size, out_dtype=out_dtype)
+
+
 def real_quant_linear(
     packed: PackedLinear,
     x: torch.Tensor,
     *,
+    compute: str = "auto",
     out_dtype=None,
     layer_idx: Optional[int] = None,
     norm: Optional[tuple] = None,  # ((L, C) f32 rows, eps, "rms")
 ) -> torch.Tensor:
     """y = act_q(x) @ W_q^T + bias with true int-weight storage.
 
-    layer_idx selects the layer of a stacked pack (every tensor carries a
-    leading L axis).  norm fuses the preceding RMSNorm into K1 (up to 32
-    rows; above, it runs first); its rows must already be rounded to x's
-    dtype (the JAX kernel casts them so) and held in f32.
+    compute ("auto", "int" or "dequant") picks the kernel of a per-layer
+    int8-container pack (module docstring); nibble and identity packs and
+    the stacked paths take the one kernel they have.  layer_idx selects the
+    layer of a stacked pack (every tensor carries a leading L axis).  norm
+    fuses the preceding RMSNorm into K1 (up to 32 rows; above, it runs
+    first); its rows must already be rounded to x's dtype (the JAX kernel
+    casts them so) and held in f32.
     """
+    if compute not in COMPUTE_CHOICES:
+        raise ValueError(f"compute {compute!r}: one of {COMPUTE_CHOICES}")
     meta = packed.meta
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
@@ -268,25 +352,7 @@ def real_quant_linear(
         if norm is not None:
             raise NotImplementedError("norm fusion is a stacked-decode path")
         bias = packed.bias
-        if meta.layout == "identity" and not meta.nibble:
-            y = _identity_int8_forward(packed, x2d, out_dtype)
-        elif not meta.nibble:
-            raise NotImplementedError("int8-container group packs")
-        else:
-            if not _grouped(meta):
-                raise NotImplementedError("nibble packs need a per-group recipe")
-            if meta.layout == "identity":
-                x_q, x_scales, x_sal = _identity_nibble_quantize(
-                    packed, x2d, packed.perm, packed.ns_mask)
-            else:
-                x_perm = (x2d if meta.pre_permuted
-                          else x2d.index_select(1, packed.perm))
-                x_q, x_scales, x_sal = quantize_activations_packed_int(
-                    x_perm, meta)
-            y = int4_group_matmul(
-                x_q, x_scales, packed.w_qt, packed.w_scales_t,
-                x_sal.to(x.dtype), packed.w_sal_t.to(x.dtype),
-                group_size=meta.group_size, out_dtype=out_dtype)
+        y = _per_layer_linear(packed, x2d, compute, out_dtype)
     if y.shape[-1] > meta.out_features:
         y = y[:, :meta.out_features]
     if bias is not None:

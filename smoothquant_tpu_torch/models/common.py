@@ -2,17 +2,18 @@
 the parts the W4A4 serving path, the bf16 decode baseline and the
 Generator use).
 
-  ForwardContext (its calibration taps, :32-47), call_linear (packed,
-  transposed-fp "weight_t" and plain fp linears, with the taps,
-  :109-223), rms_norm, layer_norm (:242-251), to_head_major (:578-580),
-  unembed (:658-662), rotary_cos_sin, apply_rotary, the head-major
-  KVCache / QuantKVCache (:281-387) and SMajorQuantKVCache (create /
-  update / read), the einsum attention (:550-575), cached_attention
-  (:583-655; the decode kernel K11 for the int8 head-major cache),
-  prefetch_tree_capable (:672-732), stacked_cache_append (:735-775),
-  stacked_cache_append_fused (:778-817: K2 for the S-major cache, K10 for
-  the head-major int8 one), decode_bias (:820-838), stacked_smajor_attention
-  (:841-854) and stacked_flash_attention (:857-875).
+  ForwardContext (its calibration taps, quant and compute, :32-47),
+  call_linear (packed, transposed-fp "weight_t" and plain fp linears, with
+  the taps, :109-223), maybe_quantize_output (:226-239), rms_norm,
+  layer_norm (:242-251), to_head_major (:578-580), unembed (:658-662),
+  rotary_cos_sin, apply_rotary, the head-major KVCache / QuantKVCache
+  (:281-387) and SMajorQuantKVCache (create / update / read), the einsum
+  attention (:550-575), cached_attention (:583-655; the decode kernel K11
+  for the int8 head-major cache), prefetch_tree_capable (:672-732),
+  stacked_cache_append (:735-775), stacked_cache_append_fused (:778-817:
+  K2 for the S-major cache, K10 for the head-major int8 one), decode_bias
+  (:820-838), stacked_smajor_attention (:841-854) and
+  stacked_flash_attention (:857-875).
 
 Caches are updated IN PLACE (the JAX functions return new buffers); the
 objects are returned all the same so call sites read like the reference.
@@ -36,8 +37,9 @@ from smoothquant_tpu_torch.kernels import decode_attention as k11
 from smoothquant_tpu_torch.kernels.cache_write import write_quant_cache_stacked
 from smoothquant_tpu_torch.kernels.fp_matmul import fp_matmul_stacked
 from smoothquant_tpu_torch.kernels.pack import PackedLinear
-from smoothquant_tpu_torch.kernels.real_linear import real_quant_linear
-from smoothquant_tpu_torch.quant.core import f32_reciprocal, fma_f32
+from smoothquant_tpu_torch.kernels.real_linear import COMPUTE_CHOICES, real_quant_linear
+from smoothquant_tpu_torch.quant.config import QuantConfig
+from smoothquant_tpu_torch.quant.core import fma_f32, rms_factor
 
 NEG_INF = -1e9   # einsum attention mask value (common.py:29)
 
@@ -47,6 +49,13 @@ class ForwardContext:
     """Per-call context of a forward pass (common.py:32-106), the parts the
     port runs: with `taps` set, every linear call site reports its input
     and output to the collector (quant.calibrate.TapCollector).
+
+    compute picks the kernel of a per-layer int8-container pack
+    (real_linear.real_quant_linear): "int" (K8), "dequant" (K9) or "auto"
+    (by recipe and token count).  quant is the recipe of the simulated
+    path, which is not ported: with it set, a plain fp linear raises, and so
+    does a q/k/v projection when its quantize_bmm_input asks to quantize the
+    output; packed linears carry their recipe in their meta and ignore it.
 
     fuse_attn chooses the attention of the stacked decode over an aligned
     head-major int8 cache ((L,) positions, no mask; common.py:85-98):
@@ -59,17 +68,21 @@ class ForwardContext:
     fuse_mlp (opt-in, common.py:99-106) runs gate_up, SiLU·up and down_proj
     of that decode as one K14 launch where can_fuse_mlp holds (N <= 8)."""
 
+    quant: Optional[QuantConfig] = None
     taps: Optional[object] = None
+    compute: str = "auto"
     fuse_attn: str = "auto"
     fuse_mlp: bool = False
 
     def __post_init__(self):
+        if self.compute not in COMPUTE_CHOICES:
+            raise ValueError(f"compute {self.compute!r}: one of {COMPUTE_CHOICES}")
         if self.fuse_attn not in ("auto", "fused", "off"):
             raise ValueError(f"fuse_attn {self.fuse_attn!r}: 'auto', 'fused' or 'off'")
 
 
 def call_linear(params, x: torch.Tensor, name: Optional[str] = None,
-                ctx: Optional[ForwardContext] = None, *,
+                ctx: Optional[ForwardContext] = None, quantize_output: bool = False, *,
                 layer_idx: Optional[int] = None,
                 norm: Optional[tuple] = None) -> torch.Tensor:
     """A linear call site (common.py:109-223; the recipe of a packed linear
@@ -79,18 +92,35 @@ def call_linear(params, x: torch.Tensor, name: Optional[str] = None,
 
     A transposed-fp {"weight_t", "bias"} dict (llama.pack_fp_decode) runs
     K13 on layer layer_idx of its (L, K, O) stack, or one matmul when it is
-    not stacked; a PackedLinear runs real_quant_linear; a plain {"weight",
-    "bias"} dict x @ W.T + b in x's dtype."""
+    not stacked; a PackedLinear runs real_quant_linear with ctx.compute; a
+    plain {"weight", "bias"} dict x @ W.T + b in x's dtype.  quantize_output
+    marks the q/k/v projections, whose outputs ctx.quant's
+    quantize_bmm_input would quantize (maybe_quantize_output)."""
     taps = None if ctx is None else ctx.taps
     if taps is not None:
         taps.tap_input(name, x)
-    y = _linear(params, x, layer_idx, norm)
+    if (ctx is not None and ctx.quant is not None and not isinstance(params, PackedLinear)
+            and not (isinstance(params, dict) and "weight_t" in params)):
+        raise NotImplementedError("ForwardContext.quant on an fp linear is the simulated "
+                                  "(fake-quant) path, which is not ported")
+    y = _linear(params, x, layer_idx, norm, "auto" if ctx is None else ctx.compute)
+    if quantize_output:
+        y = maybe_quantize_output(y, ctx)
     if taps is not None:
         taps.tap_output(name, y)
     return y
 
 
-def _linear(params, x, layer_idx, norm):
+def maybe_quantize_output(y: torch.Tensor, ctx: Optional[ForwardContext]) -> torch.Tensor:
+    """A projection output under ctx.quant.quantize_bmm_input (common.py:
+    226-239): the simulated BMM-input quantization is not ported, so that
+    recipe raises; every other context leaves y as it is."""
+    if ctx is not None and ctx.quant is not None and ctx.quant.quantize_bmm_input:
+        raise NotImplementedError("quantize_bmm_input (quantized BMM inputs) is not ported")
+    return y
+
+
+def _linear(params, x, layer_idx, norm, compute):
     if isinstance(params, dict) and "weight_t" in params:
         if norm is not None:
             raise NotImplementedError("norm fusion is a packed-linear path")
@@ -105,7 +135,7 @@ def _linear(params, x, layer_idx, norm):
             y = y + bias.to(y.dtype)
         return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
     if isinstance(params, PackedLinear):
-        return real_quant_linear(params, x, layer_idx=layer_idx, norm=norm)
+        return real_quant_linear(params, x, compute=compute, layer_idx=layer_idx, norm=norm)
     if layer_idx is not None or norm is not None:
         raise NotImplementedError("plain fp linears take no layer index or norm")
     y = torch.matmul(x, params["weight"].t().to(x.dtype))
@@ -115,9 +145,11 @@ def _linear(params, x, layer_idx, norm):
 
 
 def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32, cast to x's dtype, its factor by quant.core.rms_factor:
+    the rule K1's pre-pass and K14 take, the same bits on the CPU and the
+    card."""
     xf = x.float()
-    ms = (xf * xf).sum(dim=-1, keepdim=True) * f32_reciprocal(x.shape[-1])
-    y = xf * torch.rsqrt(ms + eps)
+    y = xf * rms_factor(xf, eps)
     return (y * params["weight"].float()).to(x.dtype)
 
 

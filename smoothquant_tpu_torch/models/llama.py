@@ -2,7 +2,11 @@
 the W4A4 serving path, the bf16 decode baseline and the Generator use).
 
 Params are nested dicts of tensors with PackedLinear leaves after packing,
-as in the JAX package.  forward is split into forward_hidden (embedding →
+as in the JAX package.  The per-layer forward hands a ForwardContext to
+every call site, named by its HF module path (model.layers.{i}.mlp.
+gate_proj, ...): the calibration taps read the fp tree through it, and its
+`compute` reaches the packed one; smoothing_map pairs each norm with the
+linears it feeds.  forward is split into forward_hidden (embedding →
 decoder layers → final norm) and lm_head_logits, so a caller that needs
 only some positions' logits (the batcher's prefill) runs the lm_head on
 those rows alone.  The per-layer forward runs with no cache (the full-model
@@ -50,6 +54,7 @@ from smoothquant_tpu_torch.models.common import (
     cached_attention,
     call_linear,
     decode_bias,
+    maybe_quantize_output,
     prefetch_tree_capable,
     rms_norm,
     rotary_cos_sin,
@@ -153,9 +158,10 @@ def init_params(gen: torch.Generator, cfg: LlamaConfig, device="cuda") -> dict:
 # ---------------------------------------------------------------- forward
 
 
-def _decoder_layer(lp: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
-                   cache, attn_mask):
-    """One layer (llama.py:164-228); fused or separate projections; with no
+def _decoder_layer(lp: dict, x: torch.Tensor, cfg: LlamaConfig, layer_name: str, cos, sin,
+                   ctx: Optional[ForwardContext], cache, attn_mask):
+    """One layer (llama.py:164-228); fused or separate projections, each
+    call site named by its HF module path for the calibration taps; with no
     cache the attention is the causal einsum over this call's k / v."""
     b, s, _ = x.shape
     nh, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -163,10 +169,12 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
     hidden = rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps)
     sa = lp["self_attn"]
     if "qkv_proj" in sa:
-        qkv = call_linear(sa["qkv_proj"], hidden)
-        q, k, v = torch.split(qkv, [nh * d, n_kv * d, n_kv * d], dim=-1)
+        qkv = call_linear(sa["qkv_proj"], hidden, f"{layer_name}.self_attn.qkv_proj", ctx)
+        q, k, v = (maybe_quantize_output(t, ctx) for t in
+                   torch.split(qkv, [nh * d, n_kv * d, n_kv * d], dim=-1))
     else:
-        q, k, v = (call_linear(sa[p], hidden) for p in ("q_proj", "k_proj", "v_proj"))
+        q, k, v = (call_linear(sa[p], hidden, f"{layer_name}.self_attn.{p}", ctx, True)
+                   for p in ("q_proj", "k_proj", "v_proj"))
     q = apply_rotary(q.reshape(b, s, nh, d), cos, sin)
     k = apply_rotary(k.reshape(b, s, n_kv, d), cos, sin)
     v = v.reshape(b, s, n_kv, d)
@@ -176,15 +184,19 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: LlamaConfig, cos, sin,
         attn = cached_attention(q, cache, causal_offset=offset, attn_mask=attn_mask)
     else:
         attn = attention(q, k.transpose(1, 2), v.transpose(1, 2), attn_mask=attn_mask)
-    x = residual + call_linear(sa["o_proj"], attn.reshape(b, s, nh * d))
+    x = residual + call_linear(sa["o_proj"], attn.reshape(b, s, nh * d),
+                               f"{layer_name}.self_attn.o_proj", ctx)
     residual = x
     hidden = rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
     mlp = lp["mlp"]
     if "gate_up_proj" in mlp:
-        gate, up = call_linear(mlp["gate_up_proj"], hidden).chunk(2, dim=-1)
+        gate, up = call_linear(mlp["gate_up_proj"], hidden, f"{layer_name}.mlp.gate_up_proj",
+                               ctx).chunk(2, dim=-1)
     else:
-        gate, up = (call_linear(mlp[p], hidden) for p in ("gate_proj", "up_proj"))
-    down = call_linear(mlp["down_proj"], torch.nn.functional.silu(gate) * up)
+        gate, up = (call_linear(mlp[p], hidden, f"{layer_name}.mlp.{p}", ctx)
+                    for p in ("gate_proj", "up_proj"))
+    down = call_linear(mlp["down_proj"], torch.nn.functional.silu(gate) * up,
+                       f"{layer_name}.mlp.down_proj", ctx)
     return residual + down, cache
 
 
@@ -294,7 +306,8 @@ def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
     caches: None (no cache: the full-model prefill), a list of per-layer
     caches, or one stacked cache (single-token decode over a stacked tree).
     positions default to each cache's fill position + arange(S).  ctx's
-    fuse_attn / fuse_mlp choose the stacked decode's composition."""
+    fuse_attn / fuse_mlp choose the stacked decode's composition; on the
+    per-layer path its taps, compute and quant reach every call site."""
     b, s = input_ids.shape
     stacked = "stacked" in params["layers"]
     x = params["embed_tokens"]["weight"][input_ids]
@@ -318,23 +331,25 @@ def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
     else:
         new_caches = None if caches is None else []
         for i in range(cfg.num_hidden_layers):
-            x, c = _decoder_layer(params["layers"][str(i)], x, cfg, cos, sin,
-                                  None if caches is None else caches[i], attn_mask)
+            x, c = _decoder_layer(params["layers"][str(i)], x, cfg, f"model.layers.{i}",
+                                  cos, sin, ctx, None if caches is None else caches[i],
+                                  attn_mask)
             if new_caches is not None:
                 new_caches.append(c)
         caches = new_caches
     return rms_norm(params["norm"], x, cfg.rms_norm_eps), caches
 
 
-def lm_head_logits(params: dict, h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def lm_head_logits(params: dict, h: torch.Tensor, cfg: LlamaConfig,
+                   ctx: Optional[ForwardContext] = None) -> torch.Tensor:
     """f32 logits of final-normed hidden states (llama.py:589-599): the
-    packed lm_head, or an fp {"weight"} one through unembed, whose products
-    accumulate in f32 as the JAX einsum's do."""
+    packed lm_head (call site "lm_head"), or an fp {"weight"} one through
+    unembed, whose products accumulate in f32 as the JAX einsum's do."""
     lm = params.get("lm_head")
     if cfg.tie_word_embeddings or lm is None:
         raise NotImplementedError("tied embeddings are not ported")
     if isinstance(lm, PackedLinear):
-        return call_linear(lm, h).float()
+        return call_linear(lm, h, "lm_head", ctx).float()
     return unembed(h, lm["weight"])
 
 
@@ -343,7 +358,7 @@ def forward(params, input_ids, cfg, caches=None, positions=None, attn_mask=None,
     """(logits f32 (B, S, V), updated caches)."""
     h, caches = forward_hidden(params, input_ids, cfg, caches, positions, attn_mask,
                                ctx=ctx)
-    return lm_head_logits(params, h, cfg), caches
+    return lm_head_logits(params, h, cfg, ctx), caches
 
 
 # ---------------------------------------------------------------- trees
@@ -484,6 +499,23 @@ def perm_fold_pairs(cfg: LlamaConfig):
     return [(("layers", str(i), "mlp", "down_proj"),
              [(("layers", str(i), "mlp", "gate_up_proj"), 2)])
             for i in range(cfg.num_hidden_layers)]
+
+
+def smoothing_map(cfg: LlamaConfig):
+    """smooth_lm's Llama pairs (llama.py:773-797): input_layernorm → q/k/v
+    (scales key: q_proj's input), post_attention_layernorm → gate/up (scales
+    key: gate_proj's input).  o_proj and down_proj read the outputs of
+    attention and SiLU·up, not of a norm: they stay unsmoothed."""
+    pairs = []
+    for i in range(cfg.num_hidden_layers):
+        li, pre = ("layers", str(i)), f"model.layers.{i}"
+        pairs.append((li + ("input_layernorm",),
+                      [li + ("self_attn", p) for p in ("q_proj", "k_proj", "v_proj")],
+                      f"{pre}.self_attn.q_proj"))
+        pairs.append((li + ("post_attention_layernorm",),
+                      [li + ("mlp", p) for p in ("gate_proj", "up_proj")],
+                      f"{pre}.mlp.gate_proj"))
+    return pairs
 
 
 def quantizable_linears(cfg: LlamaConfig):

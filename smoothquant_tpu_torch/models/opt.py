@@ -127,7 +127,7 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: OPTConfig, layer_name: str,
     residual = x
     hidden = layer_norm(lp["self_attn_layer_norm"], x, eps) if pre else x
     sa = lp["self_attn"]
-    q, k, v = (call_linear(sa[p], hidden, f"{layer_name}.self_attn.{p}", ctx)
+    q, k, v = (call_linear(sa[p], hidden, f"{layer_name}.self_attn.{p}", ctx, True)
                for p in ("q_proj", "k_proj", "v_proj"))
     q = (q * (d ** -0.5)).reshape(b, s, nh, d)
     k = k.reshape(b, s, nh, d)

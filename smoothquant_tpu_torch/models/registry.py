@@ -1,6 +1,9 @@
 """Architecture dispatch (port of smoothquant_tpu/models/registry.py):
-smooth_lm for any registered architecture (:51-55), pack_model for the
-llama family (:57-197)."""
+smooth_lm for any registered architecture (:51-55) and pack_model
+(:57-197) — the default per-layer tree (fuse=False: every projection its
+own pack, the README quick start's path) or, for Llama, the fused qkv /
+gate_up tree with the shared residual basis, folded permutations and
+identity layouts of the serving pack."""
 
 from __future__ import annotations
 
@@ -54,15 +57,21 @@ def pack_model(
 
     input_feat: salience importance vectors; act_scales: per-channel
     absmax (the static sort key).  Both keyed by HF module names.  The
-    options mean what they mean in the JAX package's pack_model; packing
-    runs on the device the weights live on.
+    options mean what they mean in the JAX package's pack_model (its
+    defaults: per-layer int8-container packs, which real_quant_linear runs
+    on K8 or K9); packing runs on the device the weights live on.
     """
     mod = get_arch(arch)
-    if not fuse:
-        raise NotImplementedError("the port packs fused qkv / gate_up trees")
     compute_dtype = compute_dtype or cfg.torch_dtype
-    params = mod.fuse_projections(params, cfg)
-    listing = mod.quantizable_linears_fused(cfg)
+    if fuse:
+        params = mod.fuse_projections(params, cfg)
+        listing = mod.quantizable_linears_fused(cfg)
+    else:
+        if shared_residual_basis or fold_perms:
+            raise NotImplementedError(
+                "shared_residual_basis and fold_perms are ported for fused trees only "
+                "(the unfused residual_consumers / perm_fold_pairs are not)")
+        listing = mod.quantizable_linears(cfg)
     rs_paths: dict = {}
     shared_imp = shared_absmax = None
     if shared_residual_basis:

@@ -78,3 +78,12 @@ def w4a4_group(group_size: int = 128, salient_prop: float = 0.0,
         salient_prop=salient_prop, quant_bits=4, group_size=group_size,
     )
 
+
+def w4a8_group(group_size: int = 128, salient_prop: float = 0.0,
+               quantize_bmm_input: bool = False) -> QuantConfig:
+    """W4A8: 4-bit group weights, 8-bit activations (config.py:101-108)."""
+    return QuantConfig(
+        weight_quant="per_group", act_quant="per_group",
+        quantize_bmm_input=quantize_bmm_input,
+        salient_prop=salient_prop, quant_bits=4, act_bits=8, group_size=group_size,
+    )

@@ -1,5 +1,6 @@
-"""Integer quantize primitives used by packing and the int path
-(port of smoothquant_tpu/quant/core.py:47-56,112-129,215-230).
+"""Integer quantize primitives used by packing and the int path, and the
+activation Q-DQ quantizers of the dequant path (port of
+smoothquant_tpu/quant/core.py:47-66,82-100,112-129,166-192,215-230).
 
 Symmetric, no zero point: scale = max(absmax, 1e-5) / q_max in float32,
 round half to even (torch.round, like jnp.round).
@@ -35,6 +36,18 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+def rms_factor(xf: torch.Tensor, eps: float) -> torch.Tensor:
+    """1/√(mean(x²) + eps) of each row of a float32 (..., C) tensor, by the
+    rule K1's pre-pass and K14 take on the card: Σx² in float64 (exact
+    squares), rounded to float32 once — so its value does not depend on the
+    order of the sum, and the CPU, the card's torch ops and the kernels
+    agree — times the f32 reciprocal of C, plus eps, then the square root
+    and the reciprocal, each correctly rounded (torch.rsqrt is approximate
+    and differs between devices)."""
+    ss = (xf.double() * xf.double()).sum(dim=-1, keepdim=True).float()
+    return torch.reciprocal(torch.sqrt(ss * f32_reciprocal(xf.shape[-1]) + eps))
+
+
 def compute_scale(absmax: torch.Tensor, n_bits: int,
                   exact_division: bool = False) -> torch.Tensor:
     """scale = clamp(absmax, 1e-5) / q_max, in float32."""
@@ -42,6 +55,40 @@ def compute_scale(absmax: torch.Tensor, n_bits: int,
     if exact_division:
         return a / qmax(n_bits)
     return a * f32_reciprocal(qmax(n_bits))
+
+
+def qdq(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric quantize-dequantize with a broadcastable f32 scale:
+    round(x / scale)·scale in float32 (the division exact, as it is for a
+    tensor divisor under jit), cast back to x's dtype (core.py:59-62)."""
+    return (torch.round(x.float() / scale) * scale).to(x.dtype)
+
+
+def quantize_activation_per_token_absmax(t: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """One scale per token, a row of the flattened (N, C) view (core.py:166-170)."""
+    t2d = t.reshape(-1, t.shape[-1])
+    absmax = t2d.float().abs().amax(dim=-1, keepdim=True)
+    return qdq(t2d, compute_scale(absmax, n_bits)).reshape(t.shape)
+
+
+def quantize_activation_per_tensor_absmax(t: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """One scale over the whole activation (core.py:173-177)."""
+    return qdq(t, compute_scale(t.float().abs().amax(), n_bits))
+
+
+def quantize_activation_per_group_absmax(t: torch.Tensor, n_bits: int,
+                                         group_size: int = 128) -> torch.Tensor:
+    """Per-(token, channel-group) scales, the channel axis zero-padded to
+    whole groups and cut back after the Q-DQ (core.py:82-90,180-185)."""
+    shape = t.shape
+    t2d = t.reshape(-1, shape[-1])
+    n, c = t2d.shape
+    g = -(-c // group_size)
+    if g * group_size != c:
+        t2d = torch.nn.functional.pad(t2d, (0, g * group_size - c))
+    tg = t2d.reshape(n, g, group_size)
+    out = qdq(tg, compute_scale(tg.float().abs().amax(dim=-1, keepdim=True), n_bits))
+    return out.reshape(n, g * group_size)[:, :c].reshape(shape)
 
 
 def sort_key(x2d: torch.Tensor, strategy: str = "max") -> torch.Tensor:

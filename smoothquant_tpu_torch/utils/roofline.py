@@ -51,6 +51,34 @@ def gmm_cost(n, o, kk, gs, k_s, *, x_bytes=2, scale_bytes=2):
     return b, {"int8": 2 * n * o * kk, "bf16": 2 * n * o * k_s}
 
 
+def int_group_matmul_cost(n, o, kk, gs, k_s, *, x_bytes=2, scale_bytes=4, out_bytes=2):
+    """K8, counted as the JAX CostEstimate counts it (int_group_matmul.py:
+    167-173) at the unpadded shapes: x_q (N, K) and the weight (K, O) int8,
+    x_scales (N, G) and w_scales (G, O), x_sal (N, k_s) and the salient block
+    (k_s, O), out (N, O); int8 operations for the groups, bf16 (x_bytes 2)
+    or f32 ones for the salient dot."""
+    g = max(kk // gs, 1)
+    n_bytes = (n * kk + o * kk + n * g * 4 + o * g * scale_bytes
+               + (n + o) * k_s * x_bytes + n * o * out_bytes)
+    return n_bytes, {"int8": 2 * n * o * kk, _fp_kind(x_bytes): 2 * n * o * k_s}
+
+
+def dual_path_matmul_cost(n, o, k_ns, gs, k_s, *, x_bytes=2, scale_bytes=4, out_bytes=2):
+    """K9, counted as the JAX CostEstimate counts it (quant_matmul.py:237-243)
+    at the unpadded shapes: x_ns (N, K_ns) and x_sal (N, k_s) in the compute
+    dtype, the int8 weight (K_ns, O), its scales (max(K_ns // gs, 1), O),
+    the salient block (k_s, O), out (N, O); every product in the compute
+    dtype (bf16 on the tensor cores, f32 on the CUDA cores)."""
+    g = max(k_ns // gs, 1)
+    n_bytes = (n * (k_ns + k_s) * x_bytes + o * k_ns + o * g * scale_bytes
+               + o * k_s * x_bytes + n * o * out_bytes)
+    return n_bytes, {_fp_kind(x_bytes): 2 * n * o * (k_ns + k_s)}
+
+
+def _fp_kind(x_bytes: int) -> str:
+    return "bf16" if x_bytes == 2 else "f32"
+
+
 def act_quant_cost(n, k_ns, gs, *, x_bytes=2):
     """K7a: x_ns (N, k_ns) in, x3 (G, N_pad, gs) int8 and xs_t (G, N_pad)
     f32 out; about three f32 operations an element (|x| and max, divide,

@@ -215,3 +215,79 @@ def test_aligned_path_rehearsal_on_cpu(monkeypatch):
     for name in ("auto", "fused", "off", "auto_mlp"):
         assert phases[f"aligned_{name}_decode"]["positions"] == [448, 448 + 3 + 24 + 4]
     assert set(phases["aligned_vs_off"]) >= {"s_major", "auto", "fused", "off", "auto_mlp"}
+
+
+def test_quickstart_path_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's phases of the README quick start on the CPU at a small
+    size (2 layers of hidden 512, bf16; calibration on 2 sequences of 32,
+    2 prompts of 40 and 4 new tokens): calibration → smooth_lm →
+    pack_model, the K8 and K9 phases (the wrappers take their plain
+    versions here), the int / dequant and K4 / _int_mm crossovers, and the
+    Generator with its dequant prefill; timing and the launch checks are
+    stubbed, the launch counts each path expects recorded."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.kernels.real_linear import INT_PATH_MAX_TOKENS
+    from smoothquant_tpu_torch.models import llama
+
+    for name, value in dict(QS_SAMPLES=2, QS_LEN=32, QS_BATCH=2, QS_PROMPT=40, QS_NEW=4,
+                            CROSSOVER_N=(4, 16, 64)).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
+    monkeypatch.setattr(cs, "profile", lambda fn, steps: (
+        fn(), {"idle_share": 0.5, "busy_ms_per_step": 1.0})[1])
+    expected = {}
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda path, launches, expect: expected.setdefault(path, expect))
+    printed = []
+    monkeypatch.setattr(cs, "emit", printed.append)
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=512), hidden_size=512,
+                              intermediate_size=1024, num_attention_heads=4,
+                              num_key_value_heads=4, dtype="bfloat16")
+    cpu = torch.device("cpu")
+    fp = llama.init_params(torch.Generator().manual_seed(0), cfg, cpu)
+    packed, seconds = cs.build_quickstart(fp, cfg, cpu, n_samples=2, seq_len=32)
+    assert set(seconds) == {"act_scales", "calib_feat", "smooth_lm", "pack_model"}
+    q = packed["layers"]["0"]["self_attn"]["q_proj"]
+    assert not q.meta.nibble and q.meta.group_size == 64 and q.meta.num_salient == 25
+    # smoothing moved the q/k/v inputs' norm; o_proj stayed an unsmoothed pack
+    assert not torch.equal(packed["layers"]["0"]["input_layernorm"]["weight"],
+                           fp["layers"]["0"]["input_layernorm"]["weight"])
+
+    single = cs.single_group_packs(fp)
+    assert [p.meta.k_ns // p.meta.group_size for p in single.values()] == [1, 1]
+    assert all(p.meta.layout == "permuted" for p in single.values())
+    gen = torch.Generator().manual_seed(1)
+    rows = (cs.check_int_group_matmul(packed, single, cpu, gen)
+            + cs.check_dual_path_matmul(packed, single, cpu, gen))
+    assert all(r["max_err"] == 0 for r in rows)
+    k8 = [r["site"] for r in rows if r["kernel"] == "int_group_matmul"]
+    k9 = [r["site"] for r in rows if r["kernel"] == "dual_path_matmul"]
+    assert len(k8) == 16 and "down_nosal@64" in k8 and "gate_g1@512" in k8
+    assert k9 == [f"{b}@{n}" for b in ("grouped", "grouped_nosal", "colscale",
+                                       "colscale_nosal") for n in (512, 2048)]
+    assert sum(r["in_sum"] for r in rows) == 4
+
+    cross = cs.int_path_crossover(packed, cpu, gen)
+    assert cross["rows"] == [4, 16, 64] and set(cross["ms"]) == {"gate", "down"}
+    promoted = cs.build_promoted(fp, cfg, cs.SEED)
+    k4 = cs.prefill_kernel_crossover(promoted, cfg, cpu, gen)
+    assert set(k4["ms"]["down"][64]) == {"k4", "int_mm"}
+
+    metrics, launches = cs.quickstart(fp, packed, cfg, cpu, "card")
+    assert sum(launches.values()) == 0
+    n_l = cfg.num_hidden_layers
+    assert 2 * 40 <= INT_PATH_MAX_TOKENS       # so the prefill stays on K8 here
+    assert expected["quick start generator"] == {
+        "int_group_matmul": 7 * n_l * 4, "decode_attention_stacked": n_l * 3}
+    assert expected["quick start dequant prefill"] == {"dual_path_matmul": 7 * n_l}
+    assert metrics["prefill_compute"] == "int" and "dequant_prefill" in metrics
+    assert 0.0 <= metrics["vs_fp"]["top1_agree"] <= 1.0
+    assert metrics["launches_per_decode_step"] == {"int_group_matmul": 7 * n_l,
+                                                   "decode_attention_stacked": n_l}
