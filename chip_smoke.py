@@ -41,7 +41,9 @@ Then the Llama-2-7B paths:
    promoted tree is built, K4 at its four prefill linears and the lm_head
    (N = 1024); after the bf16 tree is built, K13 at the four decode linears
    (N = 4).  Times come from CUDA events around launches queued behind a
-   busy-wait, so they are device time.
+   busy-wait, so they are device time.  K8 and K9 are also held to their
+   plain versions over every group layout, dtype and ragged row count they
+   take (kernel_variants).
 4. Checks the kernel path against the plain path (the CPU) on a small
    model, f32 and bf16: the S-major prefill and one stacked decode step;
    a promoted prefill over head-major int8 caches and one Generator decode
@@ -1557,6 +1559,66 @@ def quickstart(fp, packed, cfg, dev, card):
 # ---------------------------------------------------------------- end to end
 
 
+def check_kernel_variants(dev):
+    """K8 and K9 against their plain versions off the main paths' shapes:
+    every group layout K8 takes (pairs of 16- and 32-channel groups, an odd
+    group count, 48-channel groups, two 64-channel halves of 128-channel
+    groups, one group over a ragged K), f32 and bf16 scales and outputs;
+    K9's grouped and single-group bodies at group sizes 16 to 128, bf16 and
+    f32 (its CUDA-core body); 1, 5 and 130 rows (ragged tiles).  Tolerance:
+    1e-5 of the largest output in f32 (sum order), 1e-2 in bf16 (one
+    rounding).  Returns the largest relative error of each kernel."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int_group_matmul as k8
+    from smoothquant_tpu_torch.kernels import quant_matmul as k9
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    o, k_s = 200, 128
+
+    def rnd(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def codes(*shape, q=7):
+        return torch.randint(-q, q + 1, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    worst = {"int_group_matmul": 0.0, "dual_path_matmul": 0.0}
+    for gs, k in ((16, 16 * 9), (32, 32 * 6), (48, 48 * 4), (64, 64 * 5), (128, 128 * 3),
+                  (1100, 1100)):
+        g = k // gs
+        for n in (1, 5, 130):
+            for s_dt, out_dt in ((torch.float32, torch.float32),
+                                 (torch.bfloat16, torch.bfloat16)):
+                for sal in (k_s, 0):
+                    args = (codes(n, k), rnd(n, g, lo=0.01, hi=0.2), codes(k, o),
+                            rnd(g, o, lo=0.01, hi=0.2).to(s_dt), rnd(n, sal).to(out_dt),
+                            rnd(sal, o).to(out_dt))
+                    kw = dict(group_size=gs, out_dtype=out_dt)
+                    got = k8.int_group_matmul(*args, **kw)
+                    ref = k8.int_group_matmul_plain(*args, **kw)
+                    tol = 1e-5 if out_dt == torch.float32 else 1e-2
+                    err = _close(f"K8 gs={gs} k={k} n={n} {out_dt} sal={sal}", got, ref, tol)
+                    worst["int_group_matmul"] = max(worst["int_group_matmul"],
+                                                    err / ref.float().abs().max().item())
+    for gs, k in ((16, 16 * 8), (32, 32 * 6), (128, 128 * 3), (None, 1000)):
+        for n in (1, 5, 130):
+            for dt in (torch.float32, torch.bfloat16):
+                for sal in (k_s, 0):
+                    g = 1 if gs is None else k // gs
+                    w = codes(k, o, q=7 if gs else 127)
+                    args = (rnd(n, k).to(dt), rnd(n, sal).to(dt), w,
+                            rnd(g, o, lo=0.001, hi=0.05), rnd(sal, o).to(dt))
+                    kw = dict(group_size=gs or k, out_dtype=dt)
+                    got = k9.dual_path_matmul(*args, **kw)
+                    ref = k9.dual_path_matmul_plain(*args, **kw)
+                    tol = 1e-5 if dt == torch.float32 else 1e-2
+                    err = _close(f"K9 gs={gs} k={k} n={n} {dt} sal={sal}", got, ref, tol)
+                    worst["dual_path_matmul"] = max(worst["dual_path_matmul"],
+                                                    err / ref.float().abs().max().item())
+    torch.cuda.synchronize()
+    return worst
+
+
 def check_no_fallback(dev):
     """On CUDA tensors a wrapper launches its kernel or raises: shapes and
     options the new kernels do not take raise instead of running a plain
@@ -2573,6 +2635,7 @@ def run(dev, cfg, card: str):
              + check_mlp_fused(stacked, dev, gen))
 
     emit({"phase": "no_fallback", "raised": check_no_fallback(dev)})
+    emit({"phase": "kernel_variants", "max_rel_err": check_kernel_variants(dev)})
     emit({"phase": "reference_check", **reference_check(dev)})
 
     launches = Counter()

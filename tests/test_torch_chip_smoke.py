@@ -221,9 +221,9 @@ def test_quickstart_path_rehearsal_on_cpu(monkeypatch):
     """chip_smoke's phases of the README quick start on the CPU at a small
     size (2 layers of hidden 512, bf16; calibration on 2 sequences of 32,
     2 prompts of 40 and 4 new tokens): calibration → smooth_lm →
-    pack_model, the K8 and K9 phases (the wrappers take their plain
-    versions here), the int / dequant and K4 / _int_mm crossovers, and the
-    Generator with its dequant prefill; timing and the launch checks are
+    pack_model, the K8 and K9 phases and their variant sweep (the wrappers
+    take their plain versions here), the int / dequant and K4 / _int_mm
+    crossovers, and the Generator with its dequant prefill; timing and the launch checks are
     stubbed, the launch counts each path expects recorded."""
     import dataclasses
 
@@ -274,6 +274,7 @@ def test_quickstart_path_rehearsal_on_cpu(monkeypatch):
                                        "colscale_nosal") for n in (512, 2048)]
     assert sum(r["in_sum"] for r in rows) == 4
 
+    assert cs.check_kernel_variants(cpu) == {"int_group_matmul": 0.0, "dual_path_matmul": 0.0}
     cross = cs.int_path_crossover(packed, cpu, gen)
     assert cross["rows"] == [4, 16, 64] and set(cross["ms"]) == {"gate", "down"}
     promoted = cs.build_promoted(fp, cfg, cs.SEED)
