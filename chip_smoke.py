@@ -136,6 +136,15 @@ QS_SAMPLES, QS_LEN, QS_ALPHA = 4, 512, 0.85
 QS_BATCH, QS_PROMPT, QS_NEW = 4, 512, 32
 QS_MAX_LEN = 640             # the caches' length: a multiple of 128, so K11 tiles it
 QS_PROFILE_NEW = 4           # tokens of the profiled generate (decode busy time)
+# the reference check's per-layer parts, by recipe: (prompt rows a sequence,
+# compute modes, relative-norm bound in f32 and in bf16).  W4A8 over more
+# rows than INT_PATH_MAX_TOKENS takes "auto" through K9 at prefill and K8 at
+# decode; W4A4, the quick start's recipe, at the rows where last-bit noise
+# moves no int4 code (tests/test_torch_chip_smoke.py holds both choices).
+PER_LAYER_PARTS = {
+    "w4a8": (129, ("int", "dequant", "auto"), {"float32": 5e-2, "bfloat16": 1e-1}),
+    "w4a4": (12, ("int", "dequant"), {"float32": 1e-2, "bfloat16": 1e-1}),
+}
 CROSSOVER_N = (4, 16, 64, 128, 256, 512, 1024, 2048)
 
 
@@ -1275,6 +1284,14 @@ def _no_salient(lin):
     return dataclasses.replace(lin, w_sal_t=lin.w_sal_t[:0])
 
 
+def _true_widths(m, sal: bool):
+    """(non-salient, salient) channels a packed linear's function needs: its
+    true widths, without the pack's padding to whole groups and to 128
+    salient rows (roofline costs count these)."""
+    k_s = m.num_salient if sal else 0
+    return m.in_features - m.num_salient, k_s
+
+
 def check_int_group_matmul(packed, single, dev, gen):
     """K8 vs plain, both bodies, at layer 0's q / gate / down of the quick
     start's pack (k_ns 3904 or 10496, k_s 256 or 640), N = 4 and 64, and at
@@ -1309,8 +1326,8 @@ def check_int_group_matmul(packed, single, dev, gen):
         torch.cuda.synchronize()
         name = f"{site}{'' if sal else '_nosal'}@{n}"
         err = _close(f"K8 {name}", got, ref, 1e-2)
-        n_bytes, ops = roofline.int_group_matmul_cost(n, o, m.k_ns, m.group_size,
-                                                      w_sal.shape[0])
+        k_ns, k_s = _true_widths(m, sal)
+        n_bytes, ops = roofline.int_group_matmul_cost(n, o, k_ns, m.group_size, k_s)
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         in_sum = sal and n == 4 and site in ("q", "gate", "down")
         rows.append(dict(
@@ -1368,8 +1385,8 @@ def check_dual_path_matmul(packed, single, dev, gen):
                 if s.shape[0] > 1:
                     s = s.repeat_interleave(m.group_size, dim=0)
                 w_deq = (lin.w_qt.float() * s).to(torch.bfloat16)
-            n_bytes, ops = roofline.dual_path_matmul_cost(n, o, m.k_ns, m.group_size,
-                                                          w_sal.shape[0])
+            k_ns, k_s = _true_widths(m, w_sal.shape[0] > 0)
+            n_bytes, ops = roofline.dual_path_matmul_cost(n, o, k_ns, m.group_size, k_s)
             b_ms, b_by = roofline.bound_ms(n_bytes, ops)
             in_sum = body == "grouped" and n == 2048
             rows.append(dict(
@@ -1746,13 +1763,14 @@ def reference_check(dev):
         COMPOSITIONS (K1 with K12's flat body + K10, K12's write body, K10 +
         K11, K14 + K12 + K10), and aligned_auto_gqa: "auto" on a GQA twin
         of the model (4 kv heads: K12's stacked body);
-      * per_layer_<compute>: pack_model's default tree (per-layer
-        int8-container linears, 4-bit g64 weights, 5 % salient) under
-        8-bit per-group activations (W4A8) over per-layer head-major int8
-        caches, a 256-row prefill and one decode step in
-        ForwardContext(compute=) "int" (K8), "dequant" (K9) and "auto" (K8
-        or K9 by the crossover), with K11 in the step; the kernel path's
-        launches checked.
+      * per_layer_<recipe>_<compute>: pack_model's default tree (per-layer
+        int8-container linears, 4-bit g64 weights, 5 % salient) over
+        per-layer head-major int8 caches, a prefill and one decode step in
+        ForwardContext(compute=) "int" (K8), "dequant" (K9) and "auto" (K9
+        at prefill, K8 at decode), with K11 in the step; the kernel path's
+        launches checked.  Under 8-bit per-group activations (W4A8) over
+        2 × 129 rows, and under the quick start's W4A4 over 2 × 12
+        (PER_LAYER_PARTS).
     Tolerances, relative to the largest logit: 2e-2 in f32 and 5e-2 in bf16
     for the S-major path, 1e-3 / 2e-2 for the unquantized bf16
     baseline (f32 sums in another order).  The generator path's 256-row
@@ -1771,13 +1789,16 @@ def reference_check(dev):
     K14 and GQA steps 0.04 and 0.06 (bf16 roundings of f32 sums taken in
     another order); before it, K1's rsqrtf and the two devices' torch sums
     moved codes in most rows (0.09-0.17).  The
-    per-layer parts quantize every row's activations per group, 256 rows
-    of them: on the CPU, noise of 2e-7 on every linear's f32 output (another
-    sum order) moves their logits 0.008-0.010 of the norm under W4A8 and
-    0.07-0.13 under the quick start's W4A4 (one bf16 ulp in 2 % of the
-    outputs: 0.025 and 0.29), so the W4A8 recipe, which runs the same K8
-    and K9, is the one this check can hold: to 5e-2 (f32) and 1e-1 (bf16)
-    of the norm."""
+    per-layer parts quantize every row's activations per group.  Under
+    W4A4 over 2 × 129 rows, noise of 2e-7 on every linear's f32 output
+    (another sum order) moves a couple of int4 codes in the first layer;
+    attention spreads them to thousands in the second, and the logits move
+    0.12-0.13 of their norm.  Over 2 × 12 rows the same noise moves no
+    code (5e-7), and under W4A8 over 2 × 129 rows, whose codes step 18×
+    finer, 0.008-0.009 (tests/test_torch_chip_smoke.py,
+    test_per_layer_parts_under_last_bit_noise).  So W4A4 is held to 1e-2
+    in f32 at 2 × 12 rows, W4A8 to 5e-2 at 2 × 129, both to 1e-1 in bf16,
+    whose roundings of f32 sums taken in another order move more codes."""
     import dataclasses
     from collections import Counter
 
@@ -1791,18 +1812,21 @@ def reference_check(dev):
         SMajorQuantKVCache,
     )
     from smoothquant_tpu_torch.models.registry import pack_model
-    from smoothquant_tpu_torch.quant.config import w4a8_group
+    from smoothquant_tpu_torch.quant.config import w4a4_group, w4a8_group
 
     out, failed = {}, []
     aligned = [f"aligned_{name}" for name, _, _ in COMPOSITIONS] + ["aligned_auto_gqa"]
-    per_layer = [f"per_layer_{c}" for c in ("int", "dequant", "auto")]
+    per_layer = {f"per_layer_{r}_{c}": tol for r, (_, modes, tol) in PER_LAYER_PARTS.items()
+                 for c in modes}
     for dtype_name, tol in (
             ("float32", {"smajor": 2e-2, "generator": 5e-2, "bf16_baseline": 1e-3,
                          "head_major_b40": 5e-2, "head_major_b16": 5e-2,
-                         **{a: 1e-2 for a in aligned}, **{p: 5e-2 for p in per_layer}}),
+                         **{a: 1e-2 for a in aligned},
+                         **{p: t["float32"] for p, t in per_layer.items()}}),
             ("bfloat16", {"smajor": 5e-2, "generator": 1.5e-1, "bf16_baseline": 2e-2,
                           "head_major_b40": 1.5e-1, "head_major_b16": 1.5e-1,
-                          **{a: 1e-1 for a in aligned}, **{p: 1e-1 for p in per_layer}})):
+                          **{a: 1e-1 for a in aligned},
+                          **{p: t["bfloat16"] for p, t in per_layer.items()}})):
         cfg = dataclasses.replace(
             llama.LlamaConfig.tiny(), hidden_size=512, intermediate_size=512,
             num_attention_heads=8, num_key_value_heads=8, num_hidden_layers=2,
@@ -1813,15 +1837,18 @@ def reference_check(dev):
         bf16 = build_bf16(fp, cfg)
         gqa_cfg = dataclasses.replace(cfg, num_key_value_heads=4)
         gqa = build_model(gqa_cfg, "cpu", SEED, group_size=16, align_o=256)[2]
-        qs = pack_model("llama", fp, cfg, w4a8_group(group_size=64, salient_prop=0.05),
-                        input_feat=_recipe(cfg, SEED, 64)[2])
-        qs_meta = qs["layers"]["0"]["self_attn"]["q_proj"].meta
+        feat = _recipe(cfg, SEED, 64)[2]
+        qs = {r: pack_model("llama", fp, cfg, recipe(group_size=64, salient_prop=0.05),
+                            input_feat=feat)
+              for r, recipe in (("w4a8", w4a8_group), ("w4a4", w4a4_group))}
         gen = torch.Generator().manual_seed(SEED + 1)
         prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
         long_prompt = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
         pools = {b: _random_pool(cfg, b, 128, gen) for b in (40, 16)}
         aligned_pools = {m: _random_pool(c, ALIGNED_ROWS, 128, gen)
                          for m, c in (("mha", cfg), ("gqa", gqa_cfg))}
+        per_layer_prompts = {r: torch.randint(0, cfg.vocab_size, (2, rows), generator=gen)
+                             for r, (rows, _, _) in PER_LAYER_PARTS.items()}
         logits = {}
         for name, d in (("plain", "cpu"), ("kernel", dev)):
             p, s = tree_to(packed, d), tree_to(stacked, d)
@@ -1859,29 +1886,30 @@ def reference_check(dev):
                 logits[name][part], _ = llama.forward(
                     tree, tok.to(d), c, caches=hm,
                     ctx=ForwardContext(fuse_attn=fuse_attn, fuse_mlp=fuse_mlp))
-            q_tree = tree_to(qs, d)
-            for compute in ("int", "dequant", "auto"):
-                ctx = ForwardContext(compute=compute)
+            for recipe, (_, modes, _) in PER_LAYER_PARTS.items():
+                q_tree, q_prompt = tree_to(qs[recipe], d), per_layer_prompts[recipe].to(d)
+                for compute in modes:
+                    ctx = ForwardContext(compute=compute)
 
-                def per_layer_run():
-                    qc = [QuantKVCache.create(2, 256, n_kv, hd, device=d) for _ in range(n_l)]
-                    pre, qc = llama.forward(q_tree, long_prompt.to(d), cfg, caches=qc, ctx=ctx)
-                    step, _ = llama.forward(q_tree, long_prompt[:, -1:].to(d), cfg, caches=qc,
-                                            ctx=ctx)
-                    return torch.cat([pre, step], dim=1)
+                    def per_layer_run():
+                        qc = [QuantKVCache.create(2, 256, n_kv, hd, device=d) for _ in range(n_l)]
+                        pre, qc = llama.forward(q_tree, q_prompt, cfg, caches=qc, ctx=ctx)
+                        step, _ = llama.forward(q_tree, q_prompt[:, -1:], cfg, caches=qc, ctx=ctx)
+                        return torch.cat([pre, step], dim=1)
 
-                part = f"per_layer_{compute}"
-                if name == "plain":
-                    logits[name][part] = per_layer_run()
-                    continue
-                logits[name][part], used = _path_launches(per_layer_run)
-                if compute == "auto":
-                    expect = Counter(quickstart_launches(qs_meta, n_l, long_prompt.numel()))
-                    expect.update(quickstart_launches(qs_meta, n_l, 2, 1))
-                else:   # a forced mode runs its kernel at every row count
-                    kern = {"int": "int_group_matmul", "dequant": "dual_path_matmul"}[compute]
-                    expect = Counter({kern: 14 * n_l, "decode_attention_stacked": n_l})
-                _check_launches(f"reference check {part}", used, dict(expect))
+                    part = f"per_layer_{recipe}_{compute}"
+                    if name == "plain":
+                        logits[name][part] = per_layer_run()
+                        continue
+                    logits[name][part], used = _path_launches(per_layer_run)
+                    if compute == "auto":
+                        meta = qs[recipe]["layers"]["0"]["self_attn"]["q_proj"].meta
+                        expect = Counter(quickstart_launches(meta, n_l, q_prompt.numel()))
+                        expect.update(quickstart_launches(meta, n_l, 2, 1))
+                    else:   # a forced mode runs its kernel at every row count
+                        kern = {"int": "int_group_matmul", "dequant": "dual_path_matmul"}[compute]
+                        expect = Counter({kern: 14 * n_l, "decode_attention_stacked": n_l})
+                    _check_launches(f"reference check {part}", used, dict(expect))
             logits[name] = {k: v.cpu() for k, v in logits[name].items()}
         res = out[dtype_name] = {}
         for part, ref in logits["plain"].items():
@@ -2572,6 +2600,32 @@ def run_opt(dev, cfg, card: str):
     return rows, launches
 
 
+def rms_norm_rule_cost(h, cfg, dev):
+    """common.rms_norm on one decode step's rows (Σx² in f64, as the fused
+    kernels take it on the card) against the same norm with an f32 Σx² and
+    torch.rsqrt, timed only: device ms of each, and what the f64 rule adds
+    to a step of the per-layer or stacked bf16 path (two norms a layer and
+    the final one)."""
+    import torch
+
+    from smoothquant_tpu_torch.models.common import rms_norm
+    from smoothquant_tpu_torch.quant.core import f32_reciprocal
+
+    norm = {"weight": torch.ones(cfg.hidden_size, dtype=h.dtype, device=dev)}
+    eps = cfg.rms_norm_eps
+
+    def f32_rsqrt(i):
+        xf = h.float()
+        ms = (xf * xf).sum(dim=-1, keepdim=True) * f32_reciprocal(xf.shape[-1])
+        return (xf * torch.rsqrt(ms + eps) * norm["weight"].float()).to(h.dtype)
+
+    f64 = device_ms(lambda i: rms_norm(norm, h, eps), 64)
+    f32 = device_ms(f32_rsqrt, 64)
+    per_step = 2 * cfg.num_hidden_layers + 1
+    return {"shape": list(h.shape), "f64_sum_ms": f64, "f32_rsqrt_ms": f32,
+            "norms_per_step": per_step, "step_cost_ms": per_step * (f64 - f32)}
+
+
 def kernels_line(rows, launches):
     """One entry per kernel: the call sites of one layer's worth of work
     summed (K1 at N = 4, K5, K6, K4 with the lm_head, K13, K7a's three
@@ -2731,6 +2785,8 @@ def run(dev, cfg, card: str):
     emit({"phase": "fp_lm_head", "card": card, "shape": [MAX_BATCH, *lm.shape],
           "f32_unembed_ms": device_ms(lambda i: unembed(h, lm), 8),
           "bf16_matmul_ms": device_ms(lambda i: torch.matmul(h, lm.t()).float(), 8),
+          "bf16_step_busy_ms": dec["bf16"]["busy_ms_per_step"]})
+    emit({"phase": "rms_norm_rule", "card": card, **rms_norm_rule_cost(h, cfg, dev),
           "bf16_step_busy_ms": dec["bf16"]["busy_ms_per_step"]})
     w, b = dec["w4a4"], dec["bf16"]
     emit({"phase": "vs_bf16", "card": card,

@@ -44,7 +44,8 @@ def rms_factor(xf: torch.Tensor, eps: float) -> torch.Tensor:
     agree — times the f32 reciprocal of C, plus eps, then the square root
     and the reciprocal, each correctly rounded (torch.rsqrt is approximate
     and differs between devices)."""
-    ss = (xf.double() * xf.double()).sum(dim=-1, keepdim=True).float()
+    xd = xf.double()
+    ss = (xd * xd).sum(dim=-1, keepdim=True).float()
     return torch.reciprocal(torch.sqrt(ss * f32_reciprocal(xf.shape[-1]) + eps))
 
 

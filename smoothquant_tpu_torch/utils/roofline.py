@@ -56,8 +56,9 @@ def int_group_matmul_cost(n, o, kk, gs, k_s, *, x_bytes=2, scale_bytes=4, out_by
     167-173) at the unpadded shapes: x_q (N, K) and the weight (K, O) int8,
     x_scales (N, G) and w_scales (G, O), x_sal (N, k_s) and the salient block
     (k_s, O), out (N, O); int8 operations for the groups, bf16 (x_bytes 2)
-    or f32 ones for the salient dot."""
-    g = max(kk // gs, 1)
+    or f32 ones for the salient dot.  kk and k_s are the true widths (the
+    pack pads both); the scales count the groups kk reaches."""
+    g = -(-kk // gs)
     n_bytes = (n * kk + o * kk + n * g * 4 + o * g * scale_bytes
                + (n + o) * k_s * x_bytes + n * o * out_bytes)
     return n_bytes, {"int8": 2 * n * o * kk, _fp_kind(x_bytes): 2 * n * o * k_s}
@@ -68,8 +69,10 @@ def dual_path_matmul_cost(n, o, k_ns, gs, k_s, *, x_bytes=2, scale_bytes=4, out_
     at the unpadded shapes: x_ns (N, K_ns) and x_sal (N, k_s) in the compute
     dtype, the int8 weight (K_ns, O), its scales (max(K_ns // gs, 1), O),
     the salient block (k_s, O), out (N, O); every product in the compute
-    dtype (bf16 on the tensor cores, f32 on the CUDA cores)."""
-    g = max(k_ns // gs, 1)
+    dtype (bf16 on the tensor cores, f32 on the CUDA cores).  k_ns and k_s
+    are the true widths (the pack pads both); the scales count the groups
+    k_ns reaches."""
+    g = -(-k_ns // gs)
     n_bytes = (n * (k_ns + k_s) * x_bytes + o * k_ns + o * g * scale_bytes
                + o * k_s * x_bytes + n * o * out_bytes)
     return n_bytes, {_fp_kind(x_bytes): 2 * n * o * (k_ns + k_s)}

@@ -240,3 +240,25 @@ def test_params_from_numpy_carries_int8_container_packs():
     assert tp.w_qt.is_contiguous()
     np.testing.assert_array_equal(tp.w_qt.numpy(), np.asarray(jp.w_qt))
     np.testing.assert_array_equal(tp.w_scales_t.numpy(), np.asarray(jp.w_scales_t))
+
+
+@pytest.mark.parametrize("kernel", ["int_group_matmul", "dual_path_matmul"])
+def test_roofline_costs_count_true_widths(kernel):
+    """K8's and K9's roofline costs at a Llama-2-7B gate_proj of the quick
+    start's pack (4096 → 11008, 5 % salient: 204 salient and 3892 other
+    channels, g64), counted by hand at the true widths: 61 scale groups
+    (3892 reaches into the 61st), none of the pack's padding to 3904 and to
+    256 salient rows."""
+    from smoothquant_tpu_torch.utils import roofline
+
+    n, o, k_ns, gs, k_s = 4, 11008, 3892, 64, 204
+    cost = getattr(roofline, f"{kernel}_cost")
+    n_bytes, ops = cost(n, o, k_ns, gs, k_s)
+    if kernel == "int_group_matmul":
+        assert n_bytes == (n * k_ns + o * k_ns + n * 61 * 4 + o * 61 * 4
+                           + (n + o) * k_s * 2 + n * o * 2)
+        assert ops == {"int8": 2 * n * o * k_ns, "bf16": 2 * n * o * k_s}
+    else:
+        assert n_bytes == (n * (k_ns + k_s) * 2 + o * k_ns + o * 61 * 4
+                           + o * k_s * 2 + n * o * 2)
+        assert ops == {"bf16": 2 * n * o * (k_ns + k_s)}
