@@ -93,10 +93,35 @@ Then the Llama-2-7B paths:
    cache, and the W4A4 stacked tree over the S-major cache at the same
    point, taking turns window by window; vs_bf16 is the bf16 ms/step over
    the W4A4 one, by host clock and by device busy time.
+9. The Bloom path at BLOOM-7b1 width and depth (bloom_7b1(): 30 layers,
+   hidden 4096, 32 heads of 128, vocab 250880, tied embeddings; random
+   bf16 weights from seed 0), after the Llama trees are freed:
+   a. K11's ALiBi body against its plain version at B = 4 over 640
+      positions and B = 64 over 512, bf16 and int8 bodies; K7b at the
+      pack's C = 4096 and 16384 inputs (g64, 5 % salient) at 1, 4, 5 and
+      130 rows with and without its RMSNorm; K4's raw-x mode against its
+      pre-quantized mode on the same bytes, bit for bit, at (1024,
+      4096→11008) with 5 % salient channels, at N = 333 and at one K step;
+   b. the reference check: a small Bloom's kernel path (card) against its
+      plain path (CPU), per-layer and stacked decode over fp and int8
+      caches, and the stacked step against the per-layer one on the card;
+   c. calibration on 4 random 512-token sequences (the one cut, as the
+      quick start's), smooth_lm("bloom", α = 0.5), pack_model("bloom",
+      W4A4 g64, 5 % salient, nibble, k groups aligned to 8, O to 256);
+   d. the Generator over per-layer int8 caches of 640 (4 prompts of 512,
+      32 new: K6 at the 2048-row prefill, K6 and K11's ALiBi body a decode
+      step), the tied unembedding's device time, the packed logits against
+      the fp model's;
+   e. stack_layers of the pack: K7b + K5 against K1 on its layer 0, then
+      the stacked decode over a stacked head-major int8 cache from
+      position 448 at B = 4 (the input gathered, K1, K10 with rotary off,
+      K11's ALiBi body) and B = 64 (K7a + K5 in place of K1), three
+      windows of 8 steps each, beside the decode byte bound.
 Every path runs with the launch counts reset just before it and read just
 after, and fails unless each kernel launched as often as the path implies.
-9. Prints the `kernels` JSON line (all seventeen kernels), the card line,
-   then the `ok` line last.
+10. Prints the `kernels` JSON line (all eighteen kernels, K4's raw-x and
+   K11's ALiBi bodies named by their sites and counted apart), the card
+   line, then the `ok` line last.
 
 Exits non-zero on any failure; without CUDA, or without the port package
 beside it, it exits non-zero and prints no result.
@@ -146,6 +171,19 @@ PER_LAYER_PARTS = {
     "w4a4": (12, ("int", "dequant"), {"float32": 1e-2, "bfloat16": 1e-1}),
 }
 CROSSOVER_N = (4, 16, 64, 128, 256, 512, 1024, 2048)
+# the Bloom path at BLOOM-7b1 width and depth: calibration on 4 random
+# sequences of 512 tokens (the one cut, as the quick start's), smooth_lm at
+# SmoothQuant's α = 0.5; the Generator over 4 prompts of 512, 32 new, int8
+# caches of 640 (a multiple of 128, so K11 tiles it); the stacked decode at
+# B = 4 and 64 over MAX_LEN positions from DECODE_POS
+BLOOM_SAMPLES, BLOOM_LEN, BLOOM_ALPHA = 4, 512, 0.5
+BLOOM_BATCH, BLOOM_PROMPT, BLOOM_NEW, BLOOM_MAX_LEN = 4, 512, 32, 640
+BLOOM_SLOT_BATCH = 64
+BLOOM_PACK = dict(nibble=True, align_k_groups=8, align_o=256)   # the stacked decode's layout
+# K4's raw-x mode against its pre-quantized mode: (site, (N, K, O)) — Llama-2-7B's
+# promoted gate_proj at the prefill's rows (timed), a ragged N, one K step
+K4_RAWX_CASES = (("gate@1024", (PREFILL_N, 4096, 11008)), ("ragged@333", (333, 4096, 11008)),
+                 ("one_k_step", (256, 64, 512)))
 
 
 def _die(msg: str) -> None:
@@ -298,6 +336,9 @@ SOURCES = {
     "quantize_acts_grouped_t": (
         "smoothquant_tpu_torch/kernels/csrc/act_prep.cu",
         "smoothquant_tpu/kernels/act_prep.py:66"),
+    "norm_quantize_acts_t": (
+        "smoothquant_tpu_torch/kernels/csrc/act_prep.cu",
+        "smoothquant_tpu/kernels/act_prep.py:182"),
     "write_quant_cache_stacked": (
         "smoothquant_tpu_torch/kernels/csrc/cache_write.cu",
         "smoothquant_tpu/kernels/cache_write.py:114"),
@@ -1638,8 +1679,9 @@ def check_kernel_variants(dev):
 
 def check_no_fallback(dev):
     """On CUDA tensors a wrapper launches its kernel or raises: shapes and
-    options the new kernels do not take raise instead of running a plain
-    version."""
+    options the kernels do not take raise instead of running a plain
+    version.  K11's ALiBi body and K4's raw-x mode run (their phases);
+    what they still refuse, and int8_dots (K11, K12), raises here."""
     import torch
 
     from smoothquant_tpu_torch.kernels import act_prep as k7
@@ -1664,17 +1706,31 @@ def check_no_fallback(dev):
     cases = {  # name: (call, the exception it must raise)
         "K4 weight not K-major": (lambda: k4.int8_prefill_matmul(
             z8, one, z8, one.t(), *no_sal), ValueError),
-        "K4 raw-x mode": (lambda: k4.int8_prefill_matmul(
-            z8, one, z8.t().contiguous().t(), one.t(), *no_sal, one.t()),
-            NotImplementedError),
+        "K4 raw-x with int8 codes": (lambda: k4.int8_prefill_matmul(
+            z8, one, z8.t().contiguous().t(), one.t(), *no_sal, one.t()), TypeError),
+        "K4 raw-x mask not (1, K)": (lambda: k4.int8_prefill_matmul(
+            f32(64, 64), one, z8.t().contiguous().t(), one.t(), *no_sal, one.t()[:, :32]),
+            ValueError),
         "K11 head_dim 96": (lambda: k11.decode_attention(
             torch.zeros((1, 4, 96), device=dev), torch.zeros((1, 4, 128, 96), device=dev),
             torch.zeros((1, 4, 128, 96), device=dev), torch.zeros((1, 128), device=dev)),
             ValueError),
-        "K11 ALiBi": (lambda: k11.decode_attention(
-            torch.zeros((1, 4, 64), device=dev), torch.zeros((1, 4, 128, 64), device=dev),
-            torch.zeros((1, 4, 128, 64), device=dev), torch.zeros((1, 128), device=dev),
-            alibi_slopes=torch.ones(4, device=dev)), NotImplementedError),
+        "K11 ALiBi over GQA": (lambda: k11.decode_attention(
+            torch.zeros((1, 4, 64), device=dev), torch.zeros((1, 2, 128, 64), device=dev),
+            torch.zeros((1, 2, 128, 64), device=dev), torch.zeros((1, 128), device=dev),
+            alibi_slopes=torch.ones(4, device=dev)), ValueError),
+        "K11 int8_dots": (lambda: k11.decode_attention(
+            torch.zeros((1, 4, 64), device=dev), *(torch.zeros((1, 4, 128, 64), device=dev,
+                                                              dtype=torch.int8),) * 2,
+            torch.zeros((1, 128), device=dev), *(torch.ones((1, 4, 128), device=dev),) * 2,
+            int8_dots=True), NotImplementedError),
+        "K12 int8_dots": (lambda: k12.fused_virtual_attn_stacked(
+            0, 5, f32(2, 4, 64), *kv, *(torch.zeros((1, 2, 4, 128, 64), dtype=torch.int8,
+                                                   device=dev),) * 2,
+            f32(1, 2, 4, 128), f32(1, 2, 4, 128), int8_dots=True), NotImplementedError),
+        "K7b group size 256": (lambda: k7.norm_quantize_acts_t(
+            f32(8, 512), torch.ones(512, device=dev), group_size=256, act_bits=4, k_ns=512,
+            num_salient=0, k_s=0, eps=1e-5), ValueError),
         "K13 nine rows": (lambda: k13.fp_matmul_stacked(
             0, torch.zeros((9, 64), device=dev), torch.zeros((1, 64, 64), device=dev)),
             ValueError),
@@ -2600,6 +2656,598 @@ def run_opt(dev, cfg, card: str):
     return rows, launches
 
 
+# ---------------------------------------------------------------- Bloom path
+
+
+def bloom_7b1():
+    """BLOOM-7b1 at its published widths and depth (bigscience/bloom-7b1
+    config.json: n_embed 4096, n_layer 30, n_head 32, vocab 250880,
+    layer_norm_epsilon 1e-5, tied embeddings); nothing cut."""
+    from smoothquant_tpu_torch.models.bloom import BloomConfig
+
+    return BloomConfig(hidden_size=4096, num_hidden_layers=30, num_attention_heads=32)
+
+
+def bloom_recipe():
+    """The Bloom path's pack: W4A4 g64, 5 % salient channels (f32 scales)."""
+    from smoothquant_tpu_torch.quant.config import w4a4_group
+
+    return w4a4_group(group_size=64, salient_prop=0.05)
+
+
+def _launched(key, fn):
+    """fn() — a wrapper call that must add exactly one launch to `key`."""
+    from smoothquant_tpu_torch.kernels import _build
+
+    before = _build.LAUNCHES[key]
+    out = fn()
+    if _build.LAUNCHES[key] != before + 1:
+        raise AssertionError(f"{key}: the counter moved {_build.LAUNCHES[key] - before}, not 1")
+    return out
+
+
+def build_bloom(cfg, dev, n_samples=BLOOM_SAMPLES, seq_len=BLOOM_LEN):
+    """The Bloom path's model on `dev`: random fp weights (seed SEED), the
+    calibration taps (get_act_scales, get_calib_feat on n_samples random
+    sequences of seq_len tokens), smooth_lm("bloom", α = BLOOM_ALPHA) and
+    pack_model("bloom", bloom_recipe(), nibble, k groups aligned to 8, O to
+    256).  Returns (fp tree, packed tree, seconds of each step)."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import bloom
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.models.registry import pack_model, smooth_lm
+    from smoothquant_tpu_torch.quant.calibrate import get_act_scales, get_calib_feat
+
+    seconds = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return r
+
+    fp = timed("init", lambda: bloom.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                                                 cfg, dev))
+    rng = np.random.default_rng(SEED + 43)
+    batches = [rng.integers(0, cfg.vocab_size, size=(1, seq_len)) for _ in range(n_samples)]
+
+    def fwd(p, ids, col):
+        return bloom.forward(p, torch.as_tensor(ids, device=dev), cfg,
+                             ctx=ForwardContext(taps=col))
+
+    scales = timed("act_scales", lambda: get_act_scales(fwd, fp, batches))
+    feat = timed("calib_feat", lambda: get_calib_feat(fwd, fp, batches))
+    smoothed = timed("smooth_lm", lambda: smooth_lm("bloom", fp, cfg, scales, alpha=BLOOM_ALPHA))
+    packed = timed("pack_model", lambda: pack_model(
+        "bloom", smoothed, cfg, bloom_recipe(), input_feat=feat, act_scales=scales,
+        **BLOOM_PACK))
+    return fp, packed, seconds
+
+
+def bloom_step_launches(cfg, batch):
+    """Kernel launches of one stacked Bloom decode step of `batch` rows: the
+    four linears a layer (their input gathered) on K1 up to MID_BATCH rows,
+    above on K7a + K5; K10 (rotary off) and K11's ALiBi body a layer."""
+    n_l = cfg.num_hidden_layers
+    if batch <= MID_BATCH:
+        out = {"int4_group_matmul_stacked_rawx": 4 * n_l}
+    else:
+        out = {"quantize_acts_grouped_t": 4 * n_l, "int4_group_matmul_stacked": 4 * n_l}
+    out.update(write_quant_cache_stacked=n_l, decode_attention_stacked_alibi=n_l)
+    return out
+
+
+def check_decode_attention_alibi(cfg, dev, gen):
+    """K11's ALiBi body vs its plain version at the Bloom path's shapes:
+    B = BLOOM_BATCH over BLOOM_MAX_LEN positions (five 128-wide tiles) and
+    B = BLOOM_SLOT_BATCH over MAX_LEN, the bf16 and the int8 body, slopes of
+    the model's heads, positions near the end (where slope·position is
+    largest: ~0.7 × 639 for head 0).  Tolerance 1e-2 of the largest output
+    (a bf16 output; the q·k sums in another order move the ~450-sized
+    scores by an ulp of their magnitude).  Yardstick: SDPA over the
+    (dequantized) bf16 cache with the slope term and validity as its
+    additive float mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+    from smoothquant_tpu_torch.models import bloom
+    from smoothquant_tpu_torch.models.common import KVCache, QuantKVCache, decode_bias
+    from smoothquant_tpu_torch.utils import roofline
+
+    h, d, n_l = cfg.num_attention_heads, cfg.head_dim, 4
+    slopes = torch.as_tensor(bloom.alibi_slopes(h), device=dev)
+    rows = []
+    for b, s in ((BLOOM_BATCH, BLOOM_MAX_LEN), (BLOOM_SLOT_BATCH, MAX_LEN)):
+        pos = torch.randint(s - 64, s, (b,), generator=gen, device=dev)
+        pos[0] = s - 1
+        bias = decode_bias(pos, b, s, None)
+        valid = (bias == 0)[:, None, None, :]
+        alibi = slopes[None, :, None, None] * torch.arange(s, device=dev).float()
+        lib_mask = torch.where(valid, alibi, float("-inf")).to(torch.bfloat16)
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        for body in ("bf16", "int8"):
+            if body == "bf16":
+                c = KVCache.create(b, s, h, d, torch.bfloat16, dev, n_layers=n_l)
+                for t in (c.k, c.v):
+                    t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+                bufs = (c.k, c.v)
+                lib_kv = lambda i: (c.k[i % 2], c.v[i % 2])
+            else:
+                c = QuantKVCache.create(b, s, h, d, device=dev, n_layers=n_l)
+                for t in (c.k_q, c.v_q):
+                    t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev,
+                                          dtype=torch.int8))
+                for t in (c.k_scale, c.v_scale):
+                    t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02 + 0.005)
+                bufs = (c.k_q, c.v_q, c.k_scale, c.v_scale)
+                deq = [(c.k_q[i].float() * c.k_scale[i][..., None]).to(torch.bfloat16)
+                       for i in range(2)]
+                deqv = [(c.v_q[i].float() * c.v_scale[i][..., None]).to(torch.bfloat16)
+                        for i in range(2)]
+                lib_kv = lambda i: (deq[i % 2], deqv[i % 2])
+            k_, v_ = bufs[:2]
+            scales = bufs[2:] if body == "int8" else (None, None)
+            args = lambda i: (i, q, k_, v_, bias, *scales, slopes)
+            got = _launched("decode_attention_stacked_alibi",
+                            lambda: k11.decode_attention_stacked(*args(n_l - 1)))
+            ref = k11.decode_attention_stacked_plain(*args(n_l - 1))
+            torch.cuda.synchronize()
+            err = _close(f"K11 alibi {body} B={b}", got, ref, 1e-2)
+            n_bytes, ops = roofline.decode_attn_cost(
+                b, h, h, s, d, n_valid=int(valid.sum()), value_bytes=2 if body == "bf16" else 1,
+                scale_bytes=0 if body == "bf16" else 4)
+            b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+            rows.append(dict(
+                kernel="decode_attention_stacked", site=f"alibi_{body}@B{b}", in_sum=False,
+                shape=[b, h, h, s, d], max_err=err,
+                max_rel_err=err / ref.float().abs().max().item(), check_launches=1,
+                kernel_ms=device_ms(lambda i: k11.decode_attention_stacked(*args(i % n_l)),
+                                    n_l),
+                plain_ms=device_ms(lambda i: k11.decode_attention_stacked_plain(
+                    *args(i % n_l)), 4, reps=3),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=device_ms(lambda i: F.scaled_dot_product_attention(
+                    q[:, :, None], *lib_kv(i), attn_mask=lib_mask), 16),
+                library="scaled_dot_product_attention over the (dequantized) bf16 cache, "
+                        "the slope term and validity as its float mask; yardstick only"))
+            emit(rows[-1])
+            del c, bufs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_norm_quantize_acts(cfg, dev, gen):
+    """K7b vs its plain version at the widths of the Bloom pack's
+    query_key_value (C = hidden) and dense_4h_to_h (C = 4·hidden) inputs,
+    g64, 5 % salient, k_ns and k_s as the pack pads them; 1, 4, 5 and 130
+    rows of bf16; the RMSNorm and no norm.  Codes identical or off by one
+    in under 1e-4 of them, scales within one ulp, the salient block within
+    a bf16 rounding.  Times at 4 rows (the sum) and 130; no single PyTorch
+    call computes it."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import act_prep as k7
+    from smoothquant_tpu_torch.utils import roofline
+
+    rows = []
+    shapes = roofline.bloom_pack_shapes(cfg)
+    for site in ("query_key_value", "dense_4h_to_h"):
+        c, _, _, kk, _, k_s, n_sal = shapes[site]
+        w = (torch.rand(c, generator=gen, device=dev) * 0.5 + 0.75)
+        for n in (1, 4, 5, 130):
+            xs = [(torch.randn((n, c), generator=gen, device=dev) * (1 + 3 * i)).to(torch.bfloat16)
+                  for i in range(4)]
+            for kind in ("rms", None):
+                kw = dict(group_size=64, act_bits=4, k_ns=kk, num_salient=n_sal, k_s=k_s,
+                          eps=cfg.layer_norm_epsilon, norm_kind=kind, sal_dtype=torch.bfloat16)
+                got = _launched("norm_quantize_acts_t",
+                                lambda: k7.norm_quantize_acts_t(xs[0], w, **kw))
+                ref = k7.norm_quantize_acts_t_plain(xs[0], w, **kw)
+                torch.cuda.synchronize()
+                name = f"K7b {site} N={n} {kind}"
+                err, n_diff = _codes_close(name, got[0], ref[0])
+                ulps = _scale_ulps(name, got[1], ref[1])
+                sal_err = _close(name + " x_sal", got[2], ref[2], 1e-2)
+                in_sum = n == 4 and kind == "rms"
+                row = dict(kernel="norm_quantize_acts_t", site=f"{site}@{n}_{kind or 'none'}",
+                           in_sum=in_sum, shape=[n, c, kk, k_s], max_err=err, n_diff=n_diff,
+                           scale_ulps=ulps, sal_err=sal_err, check_launches=1,
+                           library_ms=None, library=None)
+                if in_sum or n == 130:
+                    n_bytes, ops = roofline.norm_quant_acts_cost(n, c, kk, 64, k_s)
+                    row["bound_ms"], row["bound_by"] = roofline.bound_ms(n_bytes, ops)
+                    row["kernel_ms"] = device_ms(
+                        lambda i: k7.norm_quantize_acts_t(xs[i % 4], w, **kw), 16)
+                    row["plain_ms"] = device_ms(
+                        lambda i: k7.norm_quantize_acts_t_plain(xs[i % 4], w, **kw), 4, reps=3)
+                rows.append(row)
+                emit(row)
+    return rows
+
+
+def check_k7b_k5_vs_k1(stacked, cfg, dev, gen, n=BLOOM_BATCH):
+    """K7b followed by K5 against K1 on layer 0 of the stacked Bloom tree
+    (query_key_value and dense_h_to_4h), both fusing an RMSNorm of the same
+    row into the same `n` rows of f32 activations in the pack's channel
+    order, the salient block in f32: the same codes by the same factor
+    rule, so the outputs agree within f32 sums taken in another order
+    (1e-5 of the largest).  A check of K7b's layout feeding K5; off every
+    path."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import act_prep as k7
+    from smoothquant_tpu_torch.kernels import int4_group_matmul as k1
+
+    st = stacked["layers"]["stacked"]
+    out = {}
+    for site, lin in (("query_key_value", st["self_attention"]["query_key_value"]),
+                      ("dense_h_to_4h", st["mlp"]["dense_h_to_4h"])):
+        m = lin.meta
+        c = m.in_features
+        x = torch.randn((n, c), generator=gen, device=dev) * 2
+        nw = (torch.rand((1, c), generator=gen, device=dev) + 0.5).to(torch.bfloat16).float()
+        w_qt, w_sc, w_sal = lin.w_qt[:1], lin.w_scales_t[:1], lin.w_sal_t[:1].float()
+        eps = cfg.layer_norm_epsilon
+        fused = k1.int4_group_matmul_stacked_rawx(
+            0, x, nw, w_qt, w_sc, w_sal, group_size=m.group_size, act_bits=m.act_bits,
+            num_salient=m.num_salient, eps=eps, norm_kind="rms", out_dtype=torch.float32)
+        x3, xs_t, x_sal = _launched("norm_quantize_acts_t", lambda: k7.norm_quantize_acts_t(
+            x, nw[0], group_size=m.group_size, act_bits=m.act_bits, k_ns=m.k_ns,
+            num_salient=m.num_salient, k_s=m.k_s, eps=eps, norm_kind="rms",
+            sal_dtype=torch.float32))
+        two = k1.int4_group_matmul_stacked(0, x3, xs_t, w_qt, w_sc, x_sal[:n], w_sal,
+                                           group_size=m.group_size, out_dtype=torch.float32,
+                                           pre_laid=n)
+        torch.cuda.synchronize()
+        err = _close(f"K7b + K5 vs K1 {site}", two, fused, 1e-5)
+        out[site] = dict(rows=n, max_err=err, max_rel_err=err / fused.abs().max().item())
+    return out
+
+
+def check_int8_prefill_rawx(dev, gen):
+    """K4's raw-x mode against its pre-quantized mode on the same bytes —
+    the codes quantize_raw_x gives (the torch prologue) — bit for bit, and
+    against its plain version (1e-2 of the largest bf16 output): at
+    (1024, 4096→11008), Llama-2-7B's promoted gate_proj shape, with 5 %
+    salient channels masked out of the int8 part and carried in bf16, at a
+    ragged N of 333, and at a single K step (K = 64).  Times at 1024 rows:
+    the kernel, its plain version, the pre-quantized mode with the torch
+    prologue, and torch._int_mm with the prologue, epilogue and salient
+    matmul (the yardstick)."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int8_prefill as k4
+    from smoothquant_tpu_torch.kernels.pack import k_major
+    from smoothquant_tpu_torch.quant.core import compute_scale
+    from smoothquant_tpu_torch.utils import roofline
+
+    rows = []
+    for site, (n, kk, o) in K4_RAWX_CASES:
+        n_sal = int(0.05 * kk)
+        sal_idx = torch.randperm(kk, generator=gen, device=dev)[:n_sal]
+        mask = torch.ones((1, kk), device=dev)
+        mask[0, sal_idx] = 0.0
+        x = (torch.randn((n, kk), generator=gen, device=dev) * 2).to(torch.bfloat16)
+        x_sal = x[:, sal_idx].contiguous()
+        sx = compute_scale((x.float() * mask).abs().amax(dim=-1, keepdim=True), 8)
+        w = k_major(torch.randint(-127, 128, (kk, o), generator=gen, device=dev,
+                                  dtype=torch.int8))
+        sw = torch.rand((1, o), generator=gen, device=dev) * 0.01 + 0.001
+        w_sal = (torch.randn((n_sal, o), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+        rest = (sx, w, sw, x_sal, w_sal)
+        raw = _launched("int8_prefill_matmul_rawx",
+                        lambda: k4.int8_prefill_matmul(x, *rest, mask))
+        pre = k4.int8_prefill_matmul(k4.quantize_raw_x(x, mask, sx), *rest)
+        ref = k4.int8_prefill_matmul_plain(x, *rest, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(raw, pre):
+            n_diff = int((raw != pre).sum())
+            raise AssertionError(f"K4 raw-x {site}: {n_diff} outputs differ from the "
+                                 "pre-quantized mode's")
+        err = _close(f"K4 raw-x {site}", raw, ref, 1e-2)
+        row = dict(kernel="int8_prefill_matmul", site=f"raw_x_{site}", in_sum=False,
+                   shape=[n, kk, o, n_sal], max_err=err, identical_to_prequantized=True,
+                   check_launches=1)
+        if site == K4_RAWX_CASES[0][0]:
+            def library(i):
+                xq = k4.quantize_raw_x(x, mask, sx)
+                return k4.scale_epilogue(k4.int_mm(xq, w), sx, sw,
+                                         torch.matmul(x_sal, w_sal)).to(torch.bfloat16)
+
+            n_bytes, ops = roofline.int8_prefill_rawx_cost(n, kk, o, n_sal, n_masked=n_sal)
+            row.update(
+                kernel_ms=device_ms(lambda i: k4.int8_prefill_matmul(x, *rest, mask), 8),
+                plain_ms=device_ms(lambda i: k4.int8_prefill_matmul_plain(x, *rest, mask), 2,
+                                   reps=3),
+                prequantized_with_prologue_ms=device_ms(lambda i: k4.int8_prefill_matmul(
+                    k4.quantize_raw_x(x, mask, sx), *rest), 8),
+                library_ms=device_ms(library, 8),
+                library="quantize_raw_x + torch._int_mm + the f32 epilogue + the salient "
+                        "matmul; yardstick only",
+                **dict(zip(("bound_ms", "bound_by"), roofline.bound_ms(n_bytes, ops))))
+        rows.append(row)
+        emit(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bloom_generator(packed, fp, cfg, dev, card):
+    """Generator(quant_kv=True) over the packed per-layer Bloom tree,
+    BLOOM_BATCH prompts of BLOOM_PROMPT random tokens and BLOOM_NEW new
+    ones over per-layer int8 caches of BLOOM_MAX_LEN: prefill tokens/s (a
+    prefill-only run), decode ms/step by host clock and by device busy time
+    (a run of QS_PROFILE_NEW tokens less the prefill-only one), launches (K6
+    4·L at the prefill; K6 4·L and K11's ALiBi body L a decode step), the
+    tied unembedding's device time at BLOOM_BATCH rows beside the step, and
+    the packed logits against the fp model's on one prompt.  Returns
+    (metrics, launches)."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import bloom
+    from smoothquant_tpu_torch.models.common import unembed
+    from smoothquant_tpu_torch.serve.generate import GenerationConfig, Generator
+
+    n_l, steps = cfg.num_hidden_layers, BLOOM_NEW - 1
+    prompts = np.random.default_rng(SEED + 47).integers(0, cfg.vocab_size,
+                                                        size=(BLOOM_BATCH, BLOOM_PROMPT))
+    gen = Generator(bloom, packed, cfg, max_len=BLOOM_MAX_LEN, quant_kv=True, device=dev)
+    gen.generate(prompts[:, :16], GenerationConfig(max_new_tokens=2))      # warm-up
+
+    def run(new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.generate(prompts, GenerationConfig(max_new_tokens=new))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    prefill_s = statistics.median(run(1)[1] for _ in range(3))
+    (out, wall), launches = _path_launches(lambda: run(BLOOM_NEW))
+    _check_launches("bloom generator", launches, {
+        "int4_group_matmul": 4 * n_l * (1 + steps),
+        "decode_attention_stacked_alibi": n_l * steps})
+    new = out[:, BLOOM_PROMPT:]
+    if not (out.shape == (BLOOM_BATCH, BLOOM_PROMPT + BLOOM_NEW)
+            and (out[:, :BLOOM_PROMPT] == prompts).all()
+            and ((0 <= new) & (new < cfg.vocab_size)).all()):
+        raise AssertionError("bloom generator: misshapen output or token out of range")
+    busy_short = profile(lambda: run(QS_PROFILE_NEW), 1)
+    busy_prefill = profile(lambda: run(1), 1)
+    emb = packed["word_embeddings"]["weight"]
+    h = torch.randn((BLOOM_BATCH, 1, cfg.hidden_size), device=dev).to(emb.dtype)
+    res = dict(batch=BLOOM_BATCH, prompt=BLOOM_PROMPT, new_tokens=BLOOM_NEW,
+               max_len=BLOOM_MAX_LEN, prefill_ms=1e3 * prefill_s,
+               prefill_tokens_per_s=BLOOM_BATCH * BLOOM_PROMPT / prefill_s,
+               decode_ms_per_step=1e3 * (wall - prefill_s) / steps,
+               decode_busy_ms_per_step=(busy_short["busy_ms_per_step"]
+                                        - busy_prefill["busy_ms_per_step"]) / (QS_PROFILE_NEW - 1),
+               wall_s=wall, launches=launches,
+               launches_per_decode_step={"int4_group_matmul": 4 * n_l,
+                                         "decode_attention_stacked_alibi": n_l},
+               unembed_ms=device_ms(lambda i: unembed(h, emb), 8),
+               prefill_trace=busy_prefill, trace=busy_short)
+    ids = torch.as_tensor(prompts[:1], device=dev)
+    with torch.no_grad():
+        q_logits = bloom.forward(packed, ids, cfg)[0][0]
+        f_logits = bloom.forward(fp, ids, cfg)[0][0]
+    if not (torch.isfinite(q_logits).all() and q_logits.shape == (BLOOM_PROMPT, cfg.vocab_size)):
+        raise AssertionError("bloom: non-finite or misshapen logits")
+    res["vs_fp"] = dict(
+        top1_agree=float((q_logits.argmax(-1) == f_logits.argmax(-1)).float().mean()),
+        rel_norm_err=float((q_logits - f_logits).norm() / f_logits.norm()))
+    return res, launches
+
+
+def bloom_decoder(tree, cache, cfg, dev, path: str, expect_per_step: dict):
+    """A stacked Bloom decode step of the cache's B rows (greedy, its own
+    tokens fed back): warmed up, its launches checked; returns (step(n),
+    the launches of one step)."""
+    import torch
+
+    from smoothquant_tpu_torch.models import bloom
+
+    b = cache.k_q.shape[1]
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+
+    @torch.no_grad()
+    def step(n=1):
+        nonlocal tok
+        for _ in range(n):
+            logits, _ = bloom.forward(tree, tok, cfg, caches=cache)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        if not (0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size):
+            raise AssertionError(f"{path}: token out of range")
+
+    step(2)                                        # warm-up
+    _, launches = _path_launches(step)
+    _check_launches(path, launches, expect_per_step)
+    return step, launches
+
+
+def bloom_stacked_decode(stacked, cfg, dev, card):
+    """stack_layers' Bloom tree over a stacked head-major int8 cache of
+    MAX_LEN positions from DECODE_POS: B = BLOOM_BATCH (K1 over the gathered
+    input, K10 with rotary off, K11's ALiBi body) and B = BLOOM_SLOT_BATCH
+    (K7a + K5 in place of K1), each in three windows of 8 steps: ms/step by
+    host clock and device busy time, launches per step, memory and the
+    decode byte bound.  Returns the launches of the counted steps."""
+    from collections import Counter
+
+    import torch
+
+    from smoothquant_tpu_torch.models import bloom
+    from smoothquant_tpu_torch.utils import roofline
+
+    launches = Counter()
+    for b in (BLOOM_BATCH, BLOOM_SLOT_BATCH):
+        cache = bloom.stacked_caches(cfg, b, MAX_LEN, pos=DECODE_POS, quant_kv=True, device=dev)
+        step, used = bloom_decoder(stacked, cache, cfg, dev, f"bloom decode step B={b}",
+                                   bloom_step_launches(cfg, b))
+        launches.update(used)
+        dec = decode_windows({"step": step}, batch=b)["step"]
+        emit({"phase": f"bloom_decode_b{b}", "card": card, "batch": b, "cache": MAX_LEN,
+              "positions": [DECODE_POS, int(cache.pos[0])], "launches_per_step": used,
+              "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
+              "decode_step_bytes": roofline.bloom_decode_step_bytes(cfg, batch=b,
+                                                                    max_len=MAX_LEN),
+              **dec})
+        del cache, step
+        torch.cuda.empty_cache()
+    return launches
+
+
+def bloom_reference_check(dev):
+    """Kernel path (card) vs plain path (CPU) on a small Bloom (2 layers,
+    hidden 256, 4 heads of 64, vocab 256; W4A4 g16, 5 % salient, the
+    nibble pack of the path), f32 and bf16, from one 5-token prefill into
+    per-layer caches of 128: one decode step through the per-layer tree
+    (K6; K11's ALiBi body over the int8 cache, the einsum over the fp one)
+    and through stack_layers' tree over the stacked copy of those caches
+    (the input gathered, K1; K10 with rotary off over the int8 cache; K11's
+    ALiBi body over both), each part's logits compared (per_layer_*: the
+    prefill's last position and the step; stacked_*: the step), and on the
+    card the stacked step against the per-layer one, as the JAX package's
+    test_bloom_prefetch_matches_per_layer holds it.  Bounds, relative to
+    the logits' norm: 1e-2 in f32 and 1e-1 in bf16 kernel against plain
+    (the W4A4 per-layer parts' bounds, PER_LAYER_PARTS: per-group int4
+    activation codes over a few rows, which another f32 sum order can move
+    only on a rounding edge); stacked against per-layer on the card 2e-4 in
+    f32 (the same codes, sums in another order) and 1.5e-1 in bf16, the
+    Llama generator part's bf16 bound: over the fp cache the per-layer step
+    takes the einsum and the stacked one K11, which round the
+    probabilities to bf16 before and after normalizing them, and the bf16
+    attention outputs that move move int4 codes downstream (0.091 on an
+    NVIDIA H100 80GB HBM3 at 700 W; over the int8 cache both take K11 and
+    read 0)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import bloom
+    from smoothquant_tpu_torch.models.common import KVCache, QuantKVCache
+    from smoothquant_tpu_torch.models.registry import pack_model
+    from smoothquant_tpu_torch.quant.config import w4a4_group
+
+    out, failed = {}, []
+    for dtype_name, tol, pair_tol in (("float32", 1e-2, 2e-4), ("bfloat16", 1e-1, 1.5e-1)):
+        cfg = bloom.BloomConfig(vocab_size=256, hidden_size=256, num_hidden_layers=2,
+                                num_attention_heads=4, dtype=dtype_name)
+        n_l, nh, hd = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim
+        fp = bloom.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+        rng = np.random.default_rng(SEED)
+        feat = {key: rng.uniform(0.1, 1.0, size=(4 * cfg.hidden_size if "4h_to_h" in key
+                                                 else cfg.hidden_size,))
+                for _, key, _ in bloom.quantizable_linears(cfg)}
+        packed = pack_model("bloom", fp, cfg, w4a4_group(group_size=16, salient_prop=0.05),
+                            input_feat=feat, **BLOOM_PACK)
+        stacked = bloom.stack_layers(packed, cfg)
+        gen = torch.Generator().manual_seed(SEED + 1)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 5), generator=gen)
+        tok = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+        logits = {}
+        for name, d in (("plain", "cpu"), ("kernel", dev)):
+            p, s = tree_to(packed, d), tree_to(stacked, d)
+            logits[name] = {}
+            for kind, cls in (("fp", KVCache), ("int8", QuantKVCache)):
+                caches = [cls.create(2, 128, nh, hd, cfg.torch_dtype, d) for _ in range(n_l)]
+                pre, caches = bloom.forward(p, prompt.to(d), cfg, caches=caches)
+                st = bloom.stacked_caches(cfg, 2, 128, pos=prompt.shape[1],
+                                          quant_kv=kind == "int8", device=d)
+                fields = ("k_q", "v_q", "k_scale", "v_scale") if kind == "int8" else ("k", "v")
+                for i, c in enumerate(caches):
+                    for f in fields:
+                        getattr(st, f)[i].copy_(getattr(c, f))
+                step, _ = bloom.forward(p, tok.to(d), cfg, caches=caches)
+                expect = {"int4_group_matmul_stacked_rawx": 4 * n_l,
+                          "decode_attention_stacked_alibi": n_l}
+                if kind == "int8":
+                    expect["write_quant_cache_stacked"] = n_l
+                if name == "kernel":
+                    (s_step, _), used = _path_launches(
+                        lambda: bloom.forward(s, tok.to(d), cfg, caches=st))
+                    _check_launches(f"bloom reference check stacked_{kind}", used, expect)
+                else:
+                    s_step, _ = bloom.forward(s, tok.to(d), cfg, caches=st)
+                logits[name][f"per_layer_{kind}"] = torch.cat([pre[:, -1:], step], dim=1).cpu()
+                logits[name][f"stacked_{kind}"] = s_step.cpu()
+        res = out[dtype_name] = {}
+
+        def rel(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm())
+
+        for part, ref in logits["plain"].items():
+            got = logits["kernel"][part]
+            if not (torch.isfinite(got).all() and got.shape == ref.shape):
+                raise AssertionError(f"bloom reference check {part}: non-finite or misshapen")
+            res[part] = dict(rel_norm_err=rel(got, ref), tolerance_rel_norm=tol,
+                             argmax_agree=float((got.argmax(-1) == ref.argmax(-1))
+                                                .float().mean()))
+            if not res[part]["rel_norm_err"] <= tol:
+                failed.append(f"bloom reference check {dtype_name} {part}: "
+                              f"{res[part]['rel_norm_err']} > {tol}")
+        for kind in ("fp", "int8"):
+            r = rel(logits["kernel"][f"stacked_{kind}"],
+                    logits["kernel"][f"per_layer_{kind}"][:, -1:])
+            res[f"stacked_vs_per_layer_{kind}"] = dict(rel_norm_err=r,
+                                                       tolerance_rel_norm=pair_tol)
+            if not r <= pair_tol:
+                failed.append(f"bloom reference check {dtype_name} stacked vs per-layer "
+                              f"{kind}: {r} > {pair_tol}")
+    if failed:
+        emit({"phase": "bloom_reference_check", "failed": failed, **out})
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def run_bloom(dev, cfg, card: str):
+    """Every Bloom phase on `dev` at the size of `cfg`: the kernel checks of
+    this slice (K11's ALiBi body, K7b, K4's raw-x mode), the model build
+    (calibration, smooth_lm, the nibble pack), the Generator, the stacked
+    decode at B = 4 and 64, K7b + K5 against K1 on the stacked layer, and
+    the small-model reference check.  Returns (kernel rows, the main paths'
+    launches)."""
+    from collections import Counter
+
+    import torch
+
+    from smoothquant_tpu_torch.models import bloom
+    from smoothquant_tpu_torch.utils import roofline
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    rows = (check_decode_attention_alibi(cfg, dev, gen) + check_norm_quantize_acts(cfg, dev, gen)
+            + check_int8_prefill_rawx(dev, gen))
+    emit({"phase": "bloom_reference_check", **bloom_reference_check(dev)})
+
+    t0 = time.perf_counter()
+    fp, packed, seconds = build_bloom(cfg, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "bloom_model", "seconds": time.perf_counter() - t0, **seconds,
+          "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+          "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size,
+          "calibration": [BLOOM_SAMPLES, BLOOM_LEN], "alpha": BLOOM_ALPHA,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
+          "decode_step_bytes": roofline.bloom_decode_step_bytes(cfg)})
+    launches = Counter()
+    metrics, used = bloom_generator(packed, fp, cfg, dev, card)
+    launches.update(used)
+    emit({"phase": "bloom_generator", "card": card, **metrics})
+    del fp
+    torch.cuda.empty_cache()
+    stacked = bloom.stack_layers(packed, cfg)
+    del packed
+    torch.cuda.empty_cache()
+    emit({"phase": "k7b_k5_vs_k1", **check_k7b_k5_vs_k1(stacked, cfg, dev, gen)})
+    launches.update(bloom_stacked_decode(stacked, cfg, dev, card))
+    return rows, launches
+
+
 def rms_norm_rule_cost(h, cfg, dev):
     """common.rms_norm on one decode step's rows (Σx² in f64, as the fused
     kernels take it on the card) against the same norm with an f32 Σx² and
@@ -2626,6 +3274,12 @@ def rms_norm_rule_cost(h, cfg, dev):
             "norms_per_step": per_step, "step_cost_ms": per_step * (f64 - f32)}
 
 
+# the launch counters of a kernel's other bodies (each wrapper counts a
+# launch once, under the body it ran)
+BODY_COUNTERS = {"decode_attention_stacked": {"alibi": "decode_attention_stacked_alibi"},
+                 "int8_prefill_matmul": {"raw_x": "int8_prefill_matmul_rawx"}}
+
+
 def kernels_line(rows, launches):
     """One entry per kernel: the call sites of one layer's worth of work
     summed (K1 at N = 4, K5, K6, K4 with the lm_head, K13, K7a's three
@@ -2633,20 +3287,27 @@ def kernels_line(rows, launches):
     products and K16 its LayerNorm, each at the prefill and at the decode
     size; K12 its flat body at B = 4, K14 at N = 4; K8 its q, gate and down
     sites with the salient block at N = 4, K9 its grouped body at gate_proj,
-    N = 2048; rows marked in_sum=False — K1 at 16 and 32 rows, K5's extra
-    row-major qkv, K12's other bodies and B = 64, K14 at 8 rows, K8's and
-    K9's other bodies and row counts — are reported on their own lines
-    only), the errors the largest seen; launches are the main paths' runs
-    summed."""
+    N = 2048; K7b at Bloom's two widths, 4 rows, with its RMSNorm; rows
+    marked in_sum=False — K1 at 16 and 32 rows, K5's extra row-major qkv,
+    K12's other bodies and B = 64, K14 at 8 rows, K8's and K9's other
+    bodies and row counts, K11's ALiBi body, K4's raw-x mode, K7b's other
+    row counts — are reported on their own lines only), the errors the
+    largest seen; launches are the main paths' runs summed over every body
+    (launches_by_body splits them; check_launches counts the checks'
+    launches, which the main paths' counts leave out)."""
     out = []
     for name, (src, replaces) in SOURCES.items():
         every = [r for r in rows if r["kernel"] == name]
         rs = [r for r in every if r.get("in_sum", True)]
         lib = [r["library_ms"] for r in rs]
         bound = sum(r["bound_ms"] for r in rs)
+        by_body = {"default": launches.get(name, 0),
+                   **{body: launches.get(key, 0)
+                      for body, key in BODY_COUNTERS.get(name, {}).items()}}
         out.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches.get(name, 0),
+            launches=sum(by_body.values()), launches_by_body=by_body,
+            check_launches=sum(r.get("check_launches", 0) for r in every),
             max_abs_err=max(r["max_err"] for r in every),
             ms=sum(r["kernel_ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
             bound_ms=bound,
@@ -2828,7 +3489,9 @@ def main() -> int:
     rows, launches = run_opt(dev, opt.OPTConfig.opt_1_3b(), card)
     torch.cuda.empty_cache()
     more_rows, more = run(dev, llama.LlamaConfig.llama2_7b(), card)
-    emit(kernels_line(rows + more_rows, launches + more))
+    torch.cuda.empty_cache()
+    bloom_rows, bloom_launches = run_bloom(dev, bloom_7b1(), card)
+    emit(kernels_line(rows + more_rows + bloom_rows, launches + more + bloom_launches))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -46,11 +46,13 @@ _SIGNATURES = {
     "sq_gmm_stacked_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
     "sq_int4_gmm_stacked": ([_P] * 8 + [_I] * 6 + [_I, _I, _P], _I),
     "sq_quantize_grouped_t": ([_P] * 3 + [_I] * 4 + [_F, _I, _P], _I),
+    "sq_norm_quantize_t": ([_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
     "sq_write_cache_hm": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),
     "sq_write_cache_smajor": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),
     "sq_decode_attn_smajor": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
     "sq_int8_prefill": ([_P] * 7 + [_I] * 4 + [_I, _I, _P], _I),
-    "sq_decode_attn": ([_P] * 7 + [_I] * 6 + [_F, _I, _I, _P], _I),
+    "sq_int8_prefill_rawx": ([_P] * 8 + [_I] * 4 + [_I, _I, _P], _I),
+    "sq_decode_attn": ([_P] * 8 + [_I] * 6 + [_F, _I, _I, _P], _I),
     "sq_fp_matmul_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
     "sq_fp_matmul": ([_P] * 4 + [_I] * 3 + [_I, _P], _I),
     "sq_int8_gemm": ([_P] * 4 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),

@@ -6,7 +6,10 @@
 // package: k/v (B, H_kv, S, D) in the query's dtype (bf16 / f32), or int8
 // with (B, H_kv, S) f32 scales; the wrapper passes pointers already offset
 // to one layer.  A
-// (B, S) additive bias carries validity.
+// (B, S) additive bias carries validity.  The ALiBi body (Bloom; the JAX
+// kernel's _alibi_row, :133-139): with (H,) f32 slopes given (MHA only), the
+// score of position s gains slope_h·s after the k_scale product and before
+// the bias, in f32 with each operation rounded as the TPU kernel rounds it.
 //
 // Bound: the bytes of the cache positions the bias leaves unmasked (each
 // adds exactly 0 otherwise), ~2·S·D bytes per (b, kv head) for bf16.  One
@@ -24,8 +27,8 @@ template <typename TQ, typename TC, typename TV, bool QUANT, int DPL>
 __global__ void __launch_bounds__(FLASH_THREADS)
 decode_attn_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* __restrict__ v,
                    const float* __restrict__ ks, const float* __restrict__ vs,
-                   const float* __restrict__ bias, TQ* __restrict__ out, int H, int Hkv, int S,
-                   int ts, float sm_scale) {
+                   const float* __restrict__ bias, const float* __restrict__ slopes,
+                   TQ* __restrict__ out, int H, int Hkv, int S, int ts, float sm_scale) {
   constexpr int D = 32 * DPL;
   extern __shared__ float smem[];
   const int rep = H / Hkv;
@@ -51,7 +54,8 @@ decode_attn_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC*
                          : 0.0f;
 
   flash_scores<TC, QUANT, DPL>(qv, k + head * S * D + lane * DPL, ks_row, bias_at, sc, rep, S,
-                               sm_scale);
+                               sm_scale, slopes != nullptr,
+                               slopes != nullptr ? slopes[kvh] : 0.0f);
   __syncthreads();
   flash_softmax<TV, QUANT>(sc, vs_row, alpha, m_run, l_run, rep, S, ts, scratch);
   __syncthreads();
@@ -69,8 +73,8 @@ decode_attn_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC*
 
 template <typename TQ, typename TC, typename TV, bool QUANT, int DPL>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           const void* bias, void* out, int B, int H, int Hkv, int S, int ts, float sm_scale,
-           cudaStream_t st) {
+           const void* bias, const void* slopes, void* out, int B, int H, int Hkv, int S, int ts,
+           float sm_scale, cudaStream_t st) {
   const size_t smem = flash_smem_bytes(H / Hkv, S, 32 * DPL, ts);
   auto kern = decode_attn_kernel<TQ, TC, TV, QUANT, DPL>;
   if (smem > 48 * 1024) {
@@ -80,24 +84,25 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   }
   kern<<<dim3(B, Hkv), FLASH_THREADS, smem, st>>>((const TQ*)q, (const TC*)k, (const TC*)v,
                                            (const float*)ks, (const float*)vs, (const float*)bias,
-                                           (TQ*)out, H, Hkv, S, ts, sm_scale);
+                                           (const float*)slopes, (TQ*)out, H, Hkv, S, ts,
+                                           sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TC, typename TV, bool QUANT>
 int by_dim(int D, const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           const void* bias, void* out, int B, int H, int Hkv, int S, int ts, float sm_scale,
-           cudaStream_t st) {
+           const void* bias, const void* slopes, void* out, int B, int H, int Hkv, int S, int ts,
+           float sm_scale, cudaStream_t st) {
   switch (D) {
     case 64:
-      return launch<TQ, TC, TV, QUANT, 2>(q, k, v, ks, vs, bias, out, B, H, Hkv, S, ts, sm_scale,
-                                          st);
+      return launch<TQ, TC, TV, QUANT, 2>(q, k, v, ks, vs, bias, slopes, out, B, H, Hkv, S,
+                                          ts, sm_scale, st);
     case 128:
-      return launch<TQ, TC, TV, QUANT, 4>(q, k, v, ks, vs, bias, out, B, H, Hkv, S, ts, sm_scale,
-                                          st);
+      return launch<TQ, TC, TV, QUANT, 4>(q, k, v, ks, vs, bias, slopes, out, B, H, Hkv, S,
+                                          ts, sm_scale, st);
     case 256:
-      return launch<TQ, TC, TV, QUANT, 8>(q, k, v, ks, vs, bias, out, B, H, Hkv, S, ts, sm_scale,
-                                          st);
+      return launch<TQ, TC, TV, QUANT, 8>(q, k, v, ks, vs, bias, slopes, out, B, H, Hkv, S,
+                                          ts, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -107,24 +112,25 @@ int by_dim(int D, const void* q, const void* k, const void* v, const void* ks, c
 
 // K11: one layer of single-query attention over a head-major cache.
 // q_dt: 0 float32, 1 bfloat16; an fp cache holds q's dtype; with quant the
-// cache is int8 and ks / vs are its (B, H_kv, S) scales.
+// cache is int8 and ks / vs are its (B, H_kv, S) scales; slopes, when not
+// null, the (H,) ALiBi slopes (H == H_kv).
 SQ_EXPORT int sq_decode_attn(const void* q, const void* k, const void* v, const void* ks,
-                             const void* vs, const void* bias, void* out, int B, int H, int Hkv,
-                             int S, int D, int ts, float sm_scale, int q_dt, int quant,
-                             void* stream) {
+                             const void* vs, const void* bias, const void* slopes, void* out,
+                             int B, int H, int Hkv, int S, int D, int ts, float sm_scale, int q_dt,
+                             int quant, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!flash_shape_ok(H, Hkv, S, ts))
+  if (!flash_shape_ok(H, Hkv, S, ts) || (slopes != nullptr && H != Hkv))
     return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   if (quant && q_dt == DT_BF16)
-    return by_dim<bf16, int8_t, bf16, true>(D, q, k, v, ks, vs, bias, out, B, H, Hkv, S, ts,
-                                            sm_scale, st);
+    return by_dim<bf16, int8_t, bf16, true>(D, q, k, v, ks, vs, bias, slopes, out, B, H, Hkv, S,
+                                            ts, sm_scale, st);
   if (quant)
-    return by_dim<float, int8_t, bf16, true>(D, q, k, v, ks, vs, bias, out, B, H, Hkv, S, ts,
-                                             sm_scale, st);
+    return by_dim<float, int8_t, bf16, true>(D, q, k, v, ks, vs, bias, slopes, out, B, H, Hkv, S,
+                                             ts, sm_scale, st);
   if (q_dt == DT_BF16)
-    return by_dim<bf16, bf16, bf16, false>(D, q, k, v, ks, vs, bias, out, B, H, Hkv, S, ts,
-                                           sm_scale, st);
-  return by_dim<float, float, float, false>(D, q, k, v, ks, vs, bias, out, B, H, Hkv, S, ts,
-                                            sm_scale, st);
+    return by_dim<bf16, bf16, bf16, false>(D, q, k, v, ks, vs, bias, slopes, out, B, H, Hkv, S,
+                                           ts, sm_scale, st);
+  return by_dim<float, float, float, false>(D, q, k, v, ks, vs, bias, slopes, out, B, H, Hkv, S,
+                                            ts, sm_scale, st);
 }

@@ -5,9 +5,11 @@
 // consecutive elements of a row (a warp reads a row whole).  A position
 // whose additive bias is at or below SKIP_AT is neither loaded nor
 // multiplied: its probability is exactly 0 either way.  The phases:
-//   flash_scores    scores = (q·k)·sm_scale [·k_scale] + bias in f32, one
-//                   warp per position, UNROLL rows loaded before any is used,
-//                   kept in shared memory (rep·S floats);
+//   flash_scores    scores = (q·k)·sm_scale [·k_scale] [+ slope·s] + bias in
+//                   f32 (slope·s: K11's ALiBi term at the key's absolute
+//                   position s, MHA only), one warp per position, UNROLL
+//                   rows loaded before any is used, kept in shared memory
+//                   (rep·S floats);
 //   flash_softmax   the TPU kernel's online softmax over tiles of ts
 //                   positions, reproduced tile by tile: running max guarded
 //                   at NEG_INF/2, the rescale α = exp(m_prev − m_safe),
@@ -54,12 +56,14 @@ __device__ __forceinline__ void load_vals(const TC* __restrict__ p, float (&f)[D
 
 // Phase 1.  qv: the lane's slice of the rep query rows (f32 values of the
 // query dtype); k_base: the head's row 0 plus the lane's offset; bias(s):
-// the additive bias of position s; sc: (rep, S) scores.
+// the additive bias of position s; sc: (rep, S) scores; with alibi, the
+// head's slope times the position is added before the bias (rep = 1).
 template <typename TC, bool QUANT, int DPL, typename Bias>
 __device__ __forceinline__ void flash_scores(const float (&qv)[FLASH_MAX_REP][DPL],
                                              const TC* __restrict__ k_base,
                                              const float* __restrict__ ks_row, Bias bias,
-                                             float* sc, int rep, int S, float sm_scale) {
+                                             float* sc, int rep, int S, float sm_scale,
+                                             bool alibi = false, float slope = 0.0f) {
   constexpr int D = 32 * DPL;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int s0 = warp; s0 < S; s0 += FLASH_WARPS * FLASH_UNROLL) {
@@ -94,6 +98,7 @@ __device__ __forceinline__ void flash_scores(const float (&qv)[FLASH_MAX_REP][DP
         dot = warp_sum(dot);
         float x = __fmul_rn(dot, sm_scale);
         if (QUANT) x = __fmul_rn(x, k_scale);
+        if (alibi) x = __fadd_rn(x, __fmul_rn(slope, (float)s));
         if (lane == 0) sc[r * S + s] = __fadd_rn(x, bs[u]);
       }
     }

@@ -41,21 +41,7 @@ __device__ __forceinline__ void rawx_prep_item(
     double* scratch) {
   const T* xr = x + (size_t)n * C;
   float r = 1.0f;
-  if (mode == 1) {  // RMSNorm factor over the true C channels
-    // Σx² in f64 (exact squares), rounded to f32 once: then its value does
-    // not depend on the order of the sum, and the plain version and
-    // models.common.rms_norm, which sum the same way, agree with it on the
-    // CPU and on the card.  1/√v: the square root and the reciprocal each
-    // correctly rounded, as IEEE fixes them on both devices (rsqrtf, like
-    // torch.rsqrt, is approximate and differs between them).
-    double ss = 0.0;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      const double v = to_f<T>(xr[c]);
-      ss += v * v;
-    }
-    ss = block_sum_f64(ss, scratch);
-    r = __frcp_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(__double2float_rn(ss), 1.0f / (float)C), eps)));
-  }
+  if (mode == 1) r = row_rms_factor<T>(xr, C, eps, scratch);  // over the true C channels
   const int G = kk / gs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (y == n_y - 1) {  // the salient activations

@@ -6,18 +6,22 @@ K11 decode_attention_stacked — port of smoothquant_tpu/kernels/
     decode_attention (:351), which runs the same kernel on a one-layer
     stack.  Caches (L, B, H_kv, S, D) in q's dtype, bf16 / f32 (the fp
     body), or int8 with (L, B, H_kv, S) f32 scales (the int8 body); a
-    (B, S) additive f32 bias carries validity.  Numerics
-    (decode_attention.py:44-130): scores = q·k in f32 × 1/√D [× k_scale]
-    + bias; the TPU kernel's online softmax
-    over tiles of _pick_tile_s(S) positions, the running max guarded at
-    NEG_INF/2; p [× v_scale] rounded to the value dtype (bf16 for the int8
-    cache) before PV; the denominator guarded at 0, so a fully masked row
-    gives 0.
+    (B, S) additive f32 bias carries validity; q and out (B, H, D) in q's
+    dtype.  Numerics (decode_attention.py:44-130): scores = q·k in f32 ×
+    1/√D [× k_scale] [+ slope_h · key_pos] + bias; the TPU kernel's online
+    softmax over tiles of _pick_tile_s(S) positions, the running max
+    guarded at NEG_INF/2; p [× v_scale] rounded to the value dtype (bf16 for
+    the int8 cache) before PV; the denominator guarded at 0, so a fully
+    masked row gives 0.
 
-ALiBi slopes (Bloom) and int8_dots (the opt-in int8 BMMs) are on no path
-of the port and raise; no caller sets another softmax scale than 1/√D.  CUDA source: csrc/decode_attention.cu.  A wrapper
-runs the plain version only for CPU tensors; for CUDA tensors it launches
-the kernel or raises.
+The ALiBi body (Bloom; _alibi_row :133-139, added at :85-86): (H,) f32
+slopes, MHA only (the JAX kernel asserts rep == 1, :276), the term
+slope_h · f32(key position) with the ABSOLUTE position of the key, added
+after the k_scale product and before the bias, in both bodies.
+int8_dots (the opt-in int8 BMMs) has no caller in the port and raises; no
+caller sets another softmax scale than 1/√D.  CUDA source:
+csrc/decode_attention.cu.  A wrapper runs the plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -48,19 +52,24 @@ def supported(s: int, n_heads: int, n_kv: int, head_dim: int) -> bool:
             and head_dim % 64 == 0)
 
 
-def _check_options(alibi_slopes, int8_dots):
-    if alibi_slopes is not None:
-        raise NotImplementedError("ALiBi slopes (Bloom) are not ported to K11")
+def _check_options(h: int, n_kv: int, alibi_slopes, int8_dots):
     if int8_dots:
         raise NotImplementedError("K11's int8_dots mode is not ported")
+    if alibi_slopes is not None:
+        if h != n_kv:
+            raise ValueError("ALiBi slopes are per query head: MHA only "
+                             f"({h} heads over {n_kv} kv heads)")
+        if tuple(alibi_slopes.shape) != (h,):
+            raise ValueError(f"ALiBi slopes {tuple(alibi_slopes.shape)} != ({h},)")
 
 
-def online_softmax_tiles(qf, kl, vl, bias, ks=None, vs=None):
+def online_softmax_tiles(qf, kl, vl, bias, ks=None, vs=None, slopes=None):
     """The TPU kernel's tile-by-tile online softmax of single queries over
     one layer's head-major cache: qf (B, H_kv, rep, D) f32, kl / vl
     (B, H_kv, S, D), bias (B, S), ks / vs (B, H_kv, S) scales of an int8
-    cache.  Returns the running max m, sum l (B, H_kv, rep, 1) and
-    numerator acc (B, H_kv, rep, D) after the last tile (K11 and K12)."""
+    cache, slopes (H_kv,) the ALiBi slopes (rep = 1).  Returns the running
+    max m, sum l (B, H_kv, rep, 1) and numerator acc (B, H_kv, rep, D)
+    after the last tile (K11 and K12)."""
     s, d = kl.shape[2], kl.shape[3]
     ts = _pick_tile_s(s)
     if ts is None:
@@ -68,12 +77,15 @@ def online_softmax_tiles(qf, kl, vl, bias, ks=None, vs=None):
     sm_scale = 1.0 / math.sqrt(d)
     quant = ks is not None
     v_dt = torch.bfloat16 if quant else vl.dtype
+    key_pos = torch.arange(s, device=qf.device).float()
     m = l_sum = acc = None
     for t in range(s // ts):
         sl = slice(t * ts, (t + 1) * ts)
         sc = torch.einsum("bgrd,bgsd->bgrs", qf, kl[:, :, sl].float()) * sm_scale
         if quant:
             sc = sc * ks[:, :, None, sl]
+        if slopes is not None:
+            sc = sc + slopes.float()[None, :, None, None] * key_pos[sl]
         sc = sc + bias[:, None, None, sl].float()
         m_cur = sc.amax(dim=-1, keepdim=True)
         m_new = m_cur if t == 0 else torch.maximum(m, m_cur)
@@ -91,14 +103,15 @@ def online_softmax_tiles(qf, kl, vl, bias, ks=None, vs=None):
 
 
 def decode_attention_stacked_plain(layer_idx: int, q, k, v, bias, k_scale=None,
-                                   v_scale=None):
+                                   v_scale=None, alibi_slopes=None):
     """Plain PyTorch K11 (same arguments as the wrapper): the TPU kernel's
     tile-by-tile online softmax."""
     b, h, d = q.shape
     n_kv = k.shape[2]
     qf = q.float().reshape(b, n_kv, h // n_kv, d)
-    scales = (() if k_scale is None else (k_scale[layer_idx], v_scale[layer_idx]))
-    _, l_sum, acc = online_softmax_tiles(qf, k[layer_idx], v[layer_idx], bias, *scales)
+    scales = ((None, None) if k_scale is None else (k_scale[layer_idx], v_scale[layer_idx]))
+    _, l_sum, acc = online_softmax_tiles(qf, k[layer_idx], v[layer_idx], bias, *scales,
+                                         slopes=alibi_slopes)
     denom = torch.where(l_sum > 0.0, l_sum, torch.ones_like(l_sum))
     return (acc / denom).reshape(b, h, d).to(q.dtype)
 
@@ -116,9 +129,10 @@ def decode_attention_stacked(
     int8_dots: bool = False,
 ) -> torch.Tensor:
     """(B, H, D) attention of layer `layer_idx` in q's dtype."""
-    _check_options(alibi_slopes, int8_dots)
+    _check_options(q.shape[1], k.shape[2], alibi_slopes, int8_dots)
     if q.device.type == "cpu":
-        return decode_attention_stacked_plain(layer_idx, q, k, v, bias, k_scale, v_scale)
+        return decode_attention_stacked_plain(layer_idx, q, k, v, bias, k_scale, v_scale,
+                                              alibi_slopes)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     b, h, d = q.shape
@@ -146,17 +160,21 @@ def decode_attention_stacked(
         for t in (k_scale, v_scale):
             if t.dtype != torch.float32 or t.shape != k.shape[:4]:
                 raise TypeError("cache scales are (L, B, H_kv, S) float32")
+    if alibi_slopes is not None:
+        alibi_slopes = alibi_slopes.float().contiguous()
     _build.check_operands(q.device, k=k, v=v, bias=bias, k_scale=k_scale,
-                          v_scale=v_scale)
+                          v_scale=v_scale, alibi_slopes=alibi_slopes)
     out = torch.empty_like(q)
     scale_ptr = (lambda t: t[layer_idx].data_ptr()) if quant else (lambda t: None)
     _build.check(_build.lib().sq_decode_attn(
         q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(),
-        scale_ptr(k_scale), scale_ptr(v_scale), bias.data_ptr(), out.data_ptr(),
+        scale_ptr(k_scale), scale_ptr(v_scale), bias.data_ptr(),
+        None if alibi_slopes is None else alibi_slopes.data_ptr(), out.data_ptr(),
         b, h, n_kv, s, d, ts, 1.0 / math.sqrt(d), _build.dt_code(q), int(quant),
         _build.stream_ptr(q)),
         "sq_decode_attn")
-    _build.LAUNCHES["decode_attention_stacked"] += 1
+    _build.LAUNCHES["decode_attention_stacked" if alibi_slopes is None
+                    else "decode_attention_stacked_alibi"] += 1
     return out
 
 

@@ -4,11 +4,13 @@ real_linear.py:70-133,200-479).
   stacked (layer_idx given), nibble, per-group recipe, N <= RAWX_MAX_N (32):
     * fused RMSNorm (qkv, gate_up over the shared residual basis) → K1 "rms"
     * pre-permuted input, no norm (down_proj)                     → K1 raw
+    * input in the original channel order (Bloom's packs): gathered by
+      perm[layer_idx] first (real_linear.py:268-272), no norm    → K1 raw
     * identity layout (o_proj): 0/1 ns_mask + k_s-wide salient
       gather                                                     → K1 "mask"
   the same call sites at N > 32 (real_linear.py:320-331,351-386):
-    * pre-permuted input: RMSNorm rounded to x's dtype first (qkv,
-      gate_up), salient tail split, K7a into K5's layout     → K7a + K5
+    * pre-permuted or gathered input: RMSNorm rounded to x's dtype first
+      (qkv, gate_up), salient tail split, K7a into K5's layout  → K7a + K5
     * identity layout: _identity_nibble_quantize             → K5 row-major
   the whole MLP of a stacked decode layer at N <= 8 (ForwardContext.fuse_mlp,
     real_linear.py:148-197)                                     → K14
@@ -236,15 +238,14 @@ def many_rows_operands(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
     The identity layout quantizes in original channel order into row-major
     codes (pre_laid None); a pre-permuted input takes the preceding RMSNorm
     first — as models/common.rms_norm computes it, rounded to x's dtype,
-    not K1's in-kernel f32 — then the salient tail split and K7a."""
+    not K1's in-kernel f32 — then the salient tail split and K7a; x2d is
+    in the pack's channel order (pre-permuted, or gathered by the caller)."""
     meta = packed.meta
     if meta.layout == "identity":
         if norm is not None:
             raise NotImplementedError("identity layout call sites fuse no norm")
         return (*_identity_nibble_quantize(packed, x2d, packed.perm[layer_idx],
                                            packed.ns_mask[layer_idx]), None)
-    if not meta.pre_permuted:
-        raise NotImplementedError("stacked decode needs pre-permuted input")
     if norm is not None:
         from smoothquant_tpu_torch.models.common import rms_norm
 
@@ -266,6 +267,12 @@ def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
     if not (meta.nibble and _grouped(meta) and meta.act_bits <= 8):
         raise NotImplementedError(
             "stacked decode takes nibble packs with a per-group recipe")
+    if meta.layout != "identity" and not meta.pre_permuted:
+        # input in the original channel order: gather it into the pack's
+        # (real_linear.py:268-272; one index_select a call, as in JAX)
+        if norm is not None:
+            raise NotImplementedError("a fused norm needs pre-permuted input")
+        x2d = x2d.index_select(1, packed.perm[layer_idx])
     if x2d.shape[0] > RAWX_MAX_N:
         x_q, x_scales, x_sal, pre_laid = many_rows_operands(packed, x2d, layer_idx, norm)
         return int4_group_matmul_stacked(
@@ -282,8 +289,6 @@ def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
         return int4_group_matmul_stacked_rawx(
             layer_idx, x2d, packed.ns_mask, packed.w_qt, packed.w_scales_t,
             w_sal, x_sal, norm_kind="mask", **common)
-    if not meta.pre_permuted:
-        raise NotImplementedError("stacked decode needs pre-permuted input")
     if norm is None:
         return int4_group_matmul_stacked_rawx(
             layer_idx, x2d, None, packed.w_qt, packed.w_scales_t, w_sal,

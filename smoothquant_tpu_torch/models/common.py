@@ -8,12 +8,14 @@ Generator use).
   layer_norm (:242-251), to_head_major (:578-580), unembed (:658-662),
   rotary_cos_sin, apply_rotary, the head-major KVCache / QuantKVCache
   (:281-387) and SMajorQuantKVCache (create / update / read), the einsum
-  attention (:550-575), cached_attention (:583-655; the decode kernel K11
-  for the int8 head-major cache), prefetch_tree_capable (:672-732),
+  attention (:550-575; with ALiBi slopes, also Bloom's _alibi_attention,
+  models/bloom.py:99-127), cached_attention (:583-655; the decode kernel
+  K11 for the int8 head-major cache), prefetch_tree_capable (:672-732),
   stacked_cache_append (:735-775), stacked_cache_append_fused (:778-817:
-  K2 for the S-major cache, K10 for the head-major int8 one), decode_bias
-  (:820-838), stacked_smajor_attention (:841-854) and
-  stacked_flash_attention (:857-875).
+  K2 for the S-major cache, K10 for the head-major int8 one, k rotated or,
+  for a non-rotary architecture, not), decode_bias (:820-838),
+  stacked_smajor_attention (:841-854) and stacked_flash_attention
+  (:857-875, with Bloom's ALiBi slopes).
 
 Caches are updated IN PLACE (the JAX functions return new buffers); the
 objects are returned all the same so call sites read like the reference.
@@ -36,7 +38,7 @@ from smoothquant_tpu_torch._device import resolve_device
 from smoothquant_tpu_torch.kernels import decode_attention as k11
 from smoothquant_tpu_torch.kernels.cache_write import write_quant_cache_stacked
 from smoothquant_tpu_torch.kernels.fp_matmul import fp_matmul_stacked
-from smoothquant_tpu_torch.kernels.pack import PackedLinear
+from smoothquant_tpu_torch.kernels.pack import PackedLinear, stack_packed
 from smoothquant_tpu_torch.kernels.real_linear import COMPUTE_CHOICES, real_quant_linear
 from smoothquant_tpu_torch.quant.config import QuantConfig
 from smoothquant_tpu_torch.quant.core import fma_f32, rms_factor
@@ -368,12 +370,16 @@ def _per_batch(x):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal_offset=0, valid_len=None,
               attn_mask: Optional[torch.Tensor] = None,
-              scale: Optional[float] = None):
+              scale: Optional[float] = None,
+              alibi_slopes: Optional[torch.Tensor] = None):
     """Einsum attention with causal masking and GQA (common.py:550-575).
 
     q: (B, Sq, H, D); k/v: (B, H_kv, Sk, D).  Scores and softmax in f32,
     probabilities cast to v's dtype before PV.  scale defaults to 1/√D
-    (OPT scales q itself and passes 1.0)."""
+    (OPT scales q itself and passes 1.0).  alibi_slopes (H,): Bloom's
+    score += slope_h · j at key position j, before the mask
+    (bloom.py:99-127: slope·j equals HF's slope·(j − i) up to a per-row
+    constant that the softmax cancels)."""
     b, sq, nh, d = q.shape
     n_kv, sk = k.shape[1], k.shape[2]
     if n_kv != nh:
@@ -384,6 +390,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.einsum("bqhd,bhkd->bhqk", q.float(), k.float()) * scale
     qi = torch.arange(sq, device=q.device).reshape(1, 1, sq, 1)
     kj = torch.arange(sk, device=q.device).reshape(1, 1, 1, sk)
+    if alibi_slopes is not None:
+        scores = scores + alibi_slopes.float().reshape(1, nh, 1, 1) * kj.float()
     mask = kj <= qi + _per_batch(causal_offset).to(q.device)
     if valid_len is not None:
         mask = mask & (kj < _per_batch(valid_len).to(q.device))
@@ -442,13 +450,15 @@ def prefetch_tree_capable(stacked, caches, s: int) -> bool:
     """The gate of the stacked single-token decode (common.py:672-732):
     one token, a stacked cache with (L,) or (L, B) positions, and every
     projection a transposed-fp "weight_t" dict whose K is a multiple of 8
-    and O of 128, or a tile-aligned nibble PackedLinear."""
+    and O of 128, or a tile-aligned nibble PackedLinear.  The fused qkv is
+    Llama's self_attn.qkv_proj or Bloom's self_attention.query_key_value."""
     if s != 1 or caches is None or not isinstance(getattr(caches, "pos", None),
                                                    torch.Tensor):
         return False
     if caches.pos.ndim not in (1, 2) or not isinstance(stacked, dict):
         return False
-    qp = stacked.get("self_attn", {}).get("qkv_proj")
+    sa = stacked.get("self_attn", stacked.get("self_attention", {}))
+    qp = sa.get("qkv_proj", sa.get("query_key_value"))
 
     def leaves(node):
         if isinstance(node, PackedLinear) or (isinstance(node, dict)
@@ -466,6 +476,26 @@ def prefetch_tree_capable(stacked, caches, s: int) -> bool:
                    and (lin.meta.k_ns // (2 * lin.meta.group_size)) % 8 == 0
                    and lin.w_qt.shape[-1] % 256 == 0 for lin in leaves(stacked))
     return False
+
+
+def stack_layer_trees(params: dict, n_layers: int) -> dict:
+    """params with its per-layer trees "0" .. n_layers − 1 stacked along a
+    leading L axis under layers["stacked"] (one copy; PackedLinear leaves by
+    stack_packed) — the stack_layers of every family."""
+    layer_list = [params["layers"][str(i)] for i in range(n_layers)]
+
+    def st(*nodes):
+        if isinstance(nodes[0], PackedLinear):
+            return stack_packed(list(nodes))
+        if isinstance(nodes[0], dict):
+            return {k: st(*(n[k] for n in nodes)) for k in nodes[0]}
+        if nodes[0] is None:
+            return None
+        return torch.stack(nodes)
+
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = {"stacked": st(*layer_list)}
+    return out
 
 
 def stacked_cache_append(cache: KVCache, i: int, k_new: torch.Tensor,
@@ -487,21 +517,27 @@ def stacked_cache_append(cache: KVCache, i: int, k_new: torch.Tensor,
 
 
 def stacked_cache_append_fused(cache, i: int, k_new: torch.Tensor,
-                               v_new: torch.Tensor, cos, sin):
+                               v_new: torch.Tensor, cos, sin, rotate_k: bool = True):
     """Layer i's cache write in the stacked decode (common.py:778-817).
-    k_new/v_new (B, 1, H_kv, D), k PRE-rotary.  The S-major int8 cache runs
-    K2 and the head-major int8 cache K10 (rotary-k, int8 quantize, in-place
-    row write at each slot's position, or the aligned one); an fp cache
-    takes apply_rotary and stacked_cache_append."""
+    k_new/v_new (B, 1, H_kv, D), k PRE-rotary when rotate_k.  The S-major
+    int8 cache runs K2 and the head-major int8 cache K10 (rotary-k, int8
+    quantize, in-place row write at each slot's position, or the aligned
+    one); an fp cache takes apply_rotary and stacked_cache_append.  A
+    non-rotary architecture (Bloom) passes rotate_k=False and no tables:
+    the writers run with rotary off over zero tables, which they ignore."""
     b, _, h, d = k_new.shape
     if isinstance(cache, (SMajorQuantKVCache, QuantKVCache)):
         write = (write_quant_cache_smajor if isinstance(cache, SMajorQuantKVCache)
                  else write_quant_cache_stacked)
+        if cos is None:
+            cos = sin = torch.zeros((b, 1, d), dtype=torch.float32, device=k_new.device)
         write(i, cache.pos[i], k_new.reshape(b, h, d), v_new.reshape(b, h, d), cos,
-              sin, cache.k_q, cache.v_q, cache.k_scale, cache.v_scale)
+              sin, cache.k_q, cache.v_q, cache.k_scale, cache.v_scale, rotary=rotate_k)
         return cache
     if isinstance(cache, KVCache):
-        return stacked_cache_append(cache, i, apply_rotary(k_new, cos, sin), v_new)
+        if rotate_k:
+            k_new = apply_rotary(k_new, cos, sin)
+        return stacked_cache_append(cache, i, k_new, v_new)
     raise NotImplementedError(f"cache type {type(cache).__name__}")
 
 
@@ -514,10 +550,12 @@ def stacked_smajor_attention(cache: SMajorQuantKVCache, i: int,
 
 
 def stacked_flash_attention(cache, i: int, q_bhd: torch.Tensor,
-                            bias: torch.Tensor):
+                            bias: torch.Tensor, alibi_slopes: Optional[torch.Tensor] = None):
     """K11: layer-i decode attention over a stacked head-major cache, fp or
-    int8 (common.py:857-875).  q_bhd (B, H, D) post-rotary → (B, H, D)."""
+    int8 (common.py:857-875).  q_bhd (B, H, D) post-rotary → (B, H, D);
+    alibi_slopes (H,): Bloom's per-head ALiBi term, added in the kernel."""
     if isinstance(cache, QuantKVCache):
         return k11.decode_attention_stacked(i, q_bhd, cache.k_q, cache.v_q, bias,
-                                            cache.k_scale, cache.v_scale)
-    return k11.decode_attention_stacked(i, q_bhd, cache.k, cache.v, bias)
+                                            cache.k_scale, cache.v_scale, alibi_slopes)
+    return k11.decode_attention_stacked(i, q_bhd, cache.k, cache.v, bias,
+                                        alibi_slopes=alibi_slopes)

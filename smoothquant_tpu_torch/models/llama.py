@@ -33,11 +33,7 @@ import numpy as np
 import torch
 
 from smoothquant_tpu_torch._device import resolve_device
-from smoothquant_tpu_torch.kernels.pack import (
-    PackedLinear,
-    permute_output_columns,
-    stack_packed,
-)
+from smoothquant_tpu_torch.kernels.pack import PackedLinear, permute_output_columns
 from smoothquant_tpu_torch.kernels.attn_fused import (
     fused_rope_write_attn_stacked,
     fused_virtual_attn_flat,
@@ -58,6 +54,7 @@ from smoothquant_tpu_torch.models.common import (
     prefetch_tree_capable,
     rms_norm,
     rotary_cos_sin,
+    stack_layer_trees,
     stacked_cache_append_fused,
     stacked_flash_attention,
     stacked_smajor_attention,
@@ -366,20 +363,7 @@ def forward(params, input_ids, cfg, caches=None, positions=None, attn_mask=None,
 
 def stack_layers(params: dict, cfg: LlamaConfig) -> dict:
     """Stack the per-layer trees along a leading L axis (one copy)."""
-    layer_list = [params["layers"][str(i)] for i in range(cfg.num_hidden_layers)]
-
-    def st(*nodes):
-        if isinstance(nodes[0], PackedLinear):
-            return stack_packed(list(nodes))
-        if isinstance(nodes[0], dict):
-            return {k: st(*(n[k] for n in nodes)) for k in nodes[0]}
-        if nodes[0] is None:
-            return None
-        return torch.stack(nodes)
-
-    out = {k: v for k, v in params.items() if k != "layers"}
-    out["layers"] = {"stacked": st(*layer_list)}
-    return out
+    return stack_layer_trees(params, cfg.num_hidden_layers)
 
 
 def stacked_caches(cfg: LlamaConfig, batch: int, max_len: int, dtype=None, *,

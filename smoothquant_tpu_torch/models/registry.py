@@ -1,9 +1,9 @@
 """Architecture dispatch (port of smoothquant_tpu/models/registry.py):
-smooth_lm for any registered architecture (:51-55) and pack_model
-(:57-197) — the default per-layer tree (fuse=False: every projection its
-own pack, the README quick start's path) or, for Llama, the fused qkv /
-gate_up tree with the shared residual basis, folded permutations and
-identity layouts of the serving pack."""
+smooth_lm for any registered architecture (:51-55; llama, opt, bloom) and
+pack_model (:57-197) — the default per-layer tree (fuse=False: every
+projection its own pack, the README quick start's path and Bloom's) or,
+for Llama, the fused qkv / gate_up tree with the shared residual basis,
+folded permutations and identity layouts of the serving pack."""
 
 from __future__ import annotations
 
@@ -14,11 +14,11 @@ import numpy as np
 import torch
 
 from smoothquant_tpu_torch.kernels.pack import fold_input_perm, pack_linear
-from smoothquant_tpu_torch.models import llama, opt
+from smoothquant_tpu_torch.models import bloom, llama, opt
 from smoothquant_tpu_torch.quant.config import QuantConfig
 from smoothquant_tpu_torch.quant.smooth import _get_path, _set_path, smooth_model
 
-_ARCHES = {"llama": llama, "opt": opt}
+_ARCHES = {"llama": llama, "opt": opt, "bloom": bloom}
 
 
 def get_arch(name: str):

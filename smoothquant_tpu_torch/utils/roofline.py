@@ -1,12 +1,14 @@
 """Least-time bounds on an NVIDIA H100 for the port's kernels and for one
-decode step of the packed Llama, the bf16 Llama and the int8 OPT.
+decode step of the packed Llama, the bf16 Llama, the int8 OPT and the
+packed Bloom.
 
 A bound is the larger of (bytes the function must move: each input read
 once, each output written once) / HBM rate and (operations / the peak rate
 of their type).  Peaks: NVIDIA's H100 SXM data sheet, dense, at the full
 700 W power limit.
 
-    python -m smoothquant_tpu_torch.utils.roofline    # Llama-2-7B W4A4 (B = 4 and 64) / bf16, OPT-1.3B int8
+    python -m smoothquant_tpu_torch.utils.roofline
+    # Llama-2-7B W4A4 (B = 4 and 64) / bf16, OPT-1.3B int8, BLOOM-7b1 W4A4 (B = 4 and 64)
 """
 
 from __future__ import annotations
@@ -91,6 +93,16 @@ def act_quant_cost(n, k_ns, gs, *, x_bytes=2):
             {"f32": 3 * n * k_ns})
 
 
+def norm_quant_acts_cost(n, c, k_ns, gs, k_s, *, x_bytes=2, sal_bytes=2):
+    """K7b: x (N, C), the f32 norm row (C,) in; x3 (G, N_pad, gs) int8,
+    xs_t (G, N_pad) f32 and x_sal (N_pad, k_s) out; about five f32
+    operations an element (the square and sum, two products, |y| and max,
+    divide, round — the rows' norm sums counted once)."""
+    n_pad = max(8, -(-n // 8) * 8)
+    return (n * c * x_bytes + c * 4 + n_pad * k_ns + k_ns // gs * n_pad * 4
+            + n_pad * k_s * sal_bytes, {"f32": 5 * n * c})
+
+
 def write_cache_cost(b, h, d, *, x_bytes=2):
     """K2 and K10: k, v (B, H, D), cos/sin (B, D) f32, positions; one int8
     row and one f32 scale per (b, head) for k and for v."""
@@ -146,6 +158,20 @@ def int8_prefill_cost(n, kk, o, k_s, *, sal_bytes=2, out_bytes=2):
     n_bytes = (n * kk + kk * o + 4 * (n + o) + (n + o) * k_s * sal_bytes
                + n * o * out_bytes)
     return n_bytes, {"int8": 2 * n * kk * o, "bf16": 2 * n * k_s * o}
+
+
+def int8_prefill_rawx_cost(n, kk, o, k_s, *, n_masked=0, x_bytes=2, out_bytes=2):
+    """K4's raw-x mode: the f32 mask (K,), the raw x and the int8 weight rows
+    of the K − n_masked channels the mask keeps (a masked channel adds
+    exactly 0, so the least work reads neither its x column nor its weight
+    row), s_x and s_w, the salient x (N, k_s) and block (k_s, O) in x's
+    dtype, out (N, O); int8 and salient-dtype operations, and the
+    quantize's three f32 operations an element."""
+    k_int = kk - n_masked
+    n_bytes = (kk * 4 + n * k_int * x_bytes + k_int * o + 4 * (n + o)
+               + (n + o) * k_s * x_bytes + n * o * out_bytes)
+    return n_bytes, {"int8": 2 * n * k_int * o, _fp_kind(x_bytes): 2 * n * k_s * o,
+                     "f32": 3 * n * k_int}
 
 
 def fp_matmul_cost(n, kk, o, *, x_bytes=2):
@@ -246,13 +272,57 @@ def llama_bf16_decode_step_bytes(cfg, batch=4, max_len=512, w_bytes=2,
             "lm_head": lm_head, "total": total, "bound_ms": bound_ms(total, {})[0]}
 
 
+def bloom_pack_shapes(cfg, group_size=64, salient_prop=0.05, align_k_groups=8, align_o=256):
+    """(C, O, O_pad, kk, k_ns_true, k_s, n_sal) of Bloom's four packed
+    linears, as pack_model builds them per layer (no identity layout)."""
+    h = cfg.hidden_size
+    step = 2 * group_size * align_k_groups
+
+    def shape(c, o):
+        k = max(1, int(salient_prop * c)) if salient_prop > 0 else 0
+        kk = _ceil_to(_ceil_to(max(c - k, 1), group_size), step)
+        return c, o, _ceil_to(o, align_o), kk, c - k, _ceil_to(k, 128) if k else 0, k
+
+    return {"query_key_value": shape(h, 3 * h), "dense": shape(h, h),
+            "dense_h_to_4h": shape(h, 4 * h), "dense_4h_to_h": shape(4 * h, h)}
+
+
+def bloom_decode_step_bytes(cfg, batch=4, max_len=512, group_size=64, salient_prop=0.05,
+                            align_k_groups=8, align_o=256, scale_bytes=4, act_bytes=2,
+                            emb_bytes=2) -> dict:
+    """Bytes one decode step of the packed Bloom must stream: every packed
+    linear's nibbles, group scales and salient block (at the true widths:
+    k_ns and num_salient, the pack pads both) and its bias, the LayerNorm
+    rows, the int8 k / v cache of every layer with its f32 scales (the whole
+    cache, as the Llama bound counts it), and the tied bf16 word embeddings
+    the unembedding reads (vocab × hidden, every step)."""
+    per_linear = {}
+    for name, (c, o, _o_pad, _kk, k_ns, _k_s, n_sal) in bloom_pack_shapes(
+            cfg, group_size, salient_prop, align_k_groups, align_o).items():
+        per_linear[name] = {
+            "nibbles": k_ns * o // 2, "scales": -(-k_ns // group_size) * o * scale_bytes,
+            "salient": n_sal * o * act_bytes, "bias": o * act_bytes}
+    h = cfg.hidden_size
+    layer_w = sum(sum(v.values()) for v in per_linear.values()) + 4 * h * act_bytes
+    kv = 2 * batch * max_len * h + 2 * batch * cfg.num_attention_heads * max_len * 4
+    embedding = cfg.vocab_size * h * emb_bytes
+    total = cfg.num_hidden_layers * (layer_w + kv) + embedding + 2 * h * act_bytes
+    return {"per_linear": per_linear, "layer_weights": layer_w, "layer_kv": kv,
+            "embedding": embedding, "total": total, "bound_ms": bound_ms(total, {})[0]}
+
+
 if __name__ == "__main__":
+    from smoothquant_tpu_torch.models.bloom import BloomConfig
     from smoothquant_tpu_torch.models.llama import LlamaConfig
     from smoothquant_tpu_torch.models.opt import OPTConfig
 
     cfg = LlamaConfig.llama2_7b()
+    # BLOOM-7b1 (bigscience/bloom-7b1 config.json: hidden 4096, 30 layers, 32 heads)
+    bloom_7b1 = BloomConfig(hidden_size=4096, num_hidden_layers=30, num_attention_heads=32)
     print(json.dumps({"w4a4": llama_decode_step_bytes(cfg),
                       "w4a4_b64": llama_decode_step_bytes(cfg, batch=64),
                       "bf16": llama_bf16_decode_step_bytes(cfg),
-                      "opt_1_3b_int8": opt_int8_decode_step_bytes(OPTConfig.opt_1_3b())},
+                      "opt_1_3b_int8": opt_int8_decode_step_bytes(OPTConfig.opt_1_3b()),
+                      "bloom_7b1_w4a4": bloom_decode_step_bytes(bloom_7b1),
+                      "bloom_7b1_w4a4_b64": bloom_decode_step_bytes(bloom_7b1, batch=64)},
                      indent=1))

@@ -387,3 +387,86 @@ def test_per_layer_parts_under_last_bit_noise(recipe, rows, compute, monkeypatch
     first = next(m for m in moved if m)
     assert first <= 16 and max(moved) >= 100 * first, moved
     assert rel > bound["float32"], rel
+
+
+def test_bloom_path_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's Bloom phases end to end on the CPU at a small size (2
+    layers of hidden 256, 4 heads of 64, vocab 512, bf16; calibration on 2
+    sequences of 32; 2 prompts of 40 and 4 new tokens over caches of 256;
+    B = 4 and 8 in place of 64; K4's raw-x cases cut to small shapes): the
+    K11 ALiBi, K7b and K4 raw-x phases (the wrappers take their plain
+    versions here), the reference check (both paths on the CPU: every part
+    reads 0), the build, the Generator, K7b + K5 against K1 and the stacked
+    decode; timing and the launch checks are stubbed, the launch counts each
+    path expects recorded."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.models.bloom import BloomConfig
+
+    for name, value in dict(BLOOM_SAMPLES=2, BLOOM_LEN=32, BLOOM_BATCH=2, BLOOM_PROMPT=40,
+                            BLOOM_NEW=4, BLOOM_MAX_LEN=256, BLOOM_SLOT_BATCH=40,
+                            K4_RAWX_CASES=(("gate@64", (64, 512, 384)), ("ragged@33", (33, 512, 384)),
+                                           ("one_k_step", (16, 64, 128)))).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
+    monkeypatch.setattr(cs, "profile", lambda fn, steps: (
+        fn(), {"idle_share": 0.5, "busy_ms_per_step": 1.0})[1])
+    monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
+    expected = {}
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda path, launches, expect: expected.setdefault(path, expect))
+    printed = []
+    monkeypatch.setattr(cs, "emit", printed.append)
+
+    cfg = BloomConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                      num_attention_heads=4, dtype="bfloat16")
+    rows, launches = cs.run_bloom(torch.device("cpu"), cfg, "card")
+    assert sum(launches.values()) == 0
+    sites = {}
+    for r in rows:
+        sites.setdefault(r["kernel"], []).append(r["site"])
+        assert r["max_err"] == 0
+    assert sites["decode_attention_stacked"] == [
+        "alibi_bf16@B2", "alibi_int8@B2", "alibi_bf16@B40", "alibi_int8@B40"]
+    assert len(sites["norm_quantize_acts_t"]) == 16
+    assert sites["int8_prefill_matmul"] == ["raw_x_gate@64", "raw_x_ragged@33",
+                                            "raw_x_one_k_step"]
+    assert all(r["identical_to_prequantized"] for r in rows if r["kernel"] == "int8_prefill_matmul")
+    k7b = [r for r in rows if r["kernel"] == "norm_quantize_acts_t"]
+    assert [r["site"] for r in k7b if r["in_sum"]] == ["query_key_value@4_rms",
+                                                       "dense_4h_to_h@4_rms"]
+    assert all(r["n_diff"] == 0 and r["scale_ulps"] == 0 for r in k7b)
+
+    n_l = 2
+    assert expected["bloom generator"] == {"int4_group_matmul": 4 * n_l * 4,
+                                           "decode_attention_stacked_alibi": n_l * 3}
+    assert expected["bloom decode step B=2"] == {
+        "int4_group_matmul_stacked_rawx": 4 * n_l, "write_quant_cache_stacked": n_l,
+        "decode_attention_stacked_alibi": n_l}
+    assert expected["bloom decode step B=40"] == {
+        "quantize_acts_grouped_t": 4 * n_l, "int4_group_matmul_stacked": 4 * n_l,
+        "write_quant_cache_stacked": n_l, "decode_attention_stacked_alibi": n_l}
+    assert expected["bloom reference check stacked_int8"] == {
+        "int4_group_matmul_stacked_rawx": 4 * n_l, "decode_attention_stacked_alibi": n_l,
+        "write_quant_cache_stacked": n_l}
+    phases = {p["phase"]: p for p in printed if "phase" in p}
+    for dtype_name in ("float32", "bfloat16"):
+        parts = phases["bloom_reference_check"][dtype_name]
+        assert set(parts) == {"per_layer_fp", "stacked_fp", "per_layer_int8", "stacked_int8",
+                              "stacked_vs_per_layer_fp", "stacked_vs_per_layer_int8"}
+        for part, r in parts.items():   # kernel against plain: both plain here
+            assert r["rel_norm_err"] == 0 if not part.startswith("stacked_vs") else (
+                r["rel_norm_err"] <= r["tolerance_rel_norm"]), (dtype_name, part, r)
+    assert set(phases["bloom_model"]) >= {"act_scales", "calib_feat", "smooth_lm", "pack_model"}
+    g = phases["bloom_generator"]
+    assert 0.0 <= g["vs_fp"]["top1_agree"] <= 1.0 and g["launches_per_decode_step"] == {
+        "int4_group_matmul": 4 * n_l, "decode_attention_stacked_alibi": n_l}
+    k5_k1 = {k: v for k, v in phases["k7b_k5_vs_k1"].items() if k != "phase"}
+    assert set(k5_k1) == {"query_key_value", "dense_h_to_4h"}
+    assert max(r["max_rel_err"] for r in k5_k1.values()) < 1e-5
+    for b in (2, 40):
+        # position 448, two warm-up steps and the counted one, three windows of 8, the profile
+        assert phases[f"bloom_decode_b{b}"]["positions"] == [448, 448 + 3 + 24 + 4]

@@ -195,7 +195,7 @@ def test_real_quant_linear_per_layer_matches_jax(identity):
 def _stacked_dispatch_case(mode, n, seed):
     jp, tp = _packs(identity=mode == "mask", scale_dtype="bfloat16",
                     stacked=True)
-    if mode != "mask":
+    if mode in ("rms", "raw"):
         mark = lambda p: dataclasses.replace(
             p, meta=dataclasses.replace(p.meta, pre_permuted=True))
         jp, tp = mark(jp), mark(tp)
@@ -211,17 +211,24 @@ def _stacked_dispatch_case(mode, n, seed):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("mode", MODES)
+# "gather": a pack whose input arrives in the original channel order (Bloom's),
+# gathered by perm[layer_idx] before K1 or K7a + K5 (real_linear.py:268-272)
+DISPATCH_MODES = MODES + ["gather"]
+
+
+@pytest.mark.parametrize("mode", DISPATCH_MODES)
 def test_real_quant_linear_stacked_matches_jax(mode):
     """The decode dispatch with layer_idx: pre-permuted + fused RMSNorm,
-    pre-permuted raw, and identity (x_sal gathered by the dispatch)."""
+    pre-permuted raw, identity (x_sal gathered by the dispatch), and the
+    input gathered into the pack's order."""
     _stacked_dispatch_case(mode, N, seed=1)
 
 
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", DISPATCH_MODES)
 def test_real_quant_linear_stacked_many_rows_matches_jax(mode):
     """The decode dispatch at 40 rows: RMSNorm rounded to x's dtype, K7a and
-    K5 for the pre-permuted packs, the identity quantize and K5 for o_proj."""
+    K5 for the pre-permuted and gathered packs, the identity quantize and K5
+    for o_proj."""
     _stacked_dispatch_case(mode, 40, seed=8)
 
 
@@ -247,8 +254,9 @@ def test_int8_lm_head_matches_jax():
 def test_unported_branches_raise():
     _, tp = _packs(identity=False, scale_dtype="float32", stacked=True)
     for n in (N, 33):                          # K1's rows and K5's
-        with pytest.raises(NotImplementedError):   # not pre-permuted, no gather
-            treal.real_quant_linear(tp, _t(_x(n=n)), layer_idx=0)
+        with pytest.raises(NotImplementedError):   # a fused norm on gathered input
+            treal.real_quant_linear(tp, _t(_x(n=n)), layer_idx=0,
+                                    norm=(torch.ones((L, C)), EPS, "rms"))
     _, ti = _packs(identity=True, scale_dtype="float32", stacked=True)
     with pytest.raises(NotImplementedError):   # identity call sites fuse no norm
         treal.real_quant_linear(ti, torch.zeros((33, C)), layer_idx=0,

@@ -35,6 +35,11 @@ torch.set_num_threads(1)
 BF16_ULP = 2.0 ** -7
 
 
+def _t(a):
+    """A JAX or numpy array as an f32 tensor (bf16 values are exact in f32)."""
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
 def _np(t):
     if isinstance(t, torch.Tensor):
         return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
@@ -197,12 +202,57 @@ def test_k4_plain_matches_jax(n, kk, o, k_s, sal_dt, out_dt):
                                atol=1e-5 * np.abs(_np(ref)).max())
 
 
+@pytest.mark.parametrize("n,kk,o,k_s,tile_k,dt", [
+    (100, 512, 300, 128, 0, "float32"),     # tests/test_int8_prefill.py's cases
+    (64, 1024, 256, 0, 256, "float32"),     # several K steps in JAX
+    (37, 200, 72, 16, 0, "bfloat16"),       # ragged N, K % 16, bf16 raw x
+])
+def test_k4_raw_x_mode_matches_jax(n, kk, o, k_s, tile_k, dt):
+    """The raw-x mode (ns_mask given: the masked per-token quantize inside
+    the kernel) against JAX's: its int8 codes bit for bit, the output at
+    f32 rounding (the salient dot sums in another order); and against the
+    pre-quantized mode on the codes quantize_raw_x gives: bit for bit."""
+    rng = np.random.default_rng(7 + n)
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dt]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dt]
+    x = jnp.asarray(rng.normal(size=(n, kk)), jdt)
+    mask = (rng.random(kk) > 0.1).astype(np.float32)
+    x_main = x.astype(jnp.float32) * jnp.asarray(mask)[None, :]
+    sx = jnp.maximum(jnp.max(jnp.abs(x_main), axis=-1, keepdims=True), 1e-5) / 127.0
+    w = rng.integers(-127, 128, size=(kk, o)).astype(np.int8)
+    sw = rng.uniform(0.001, 0.02, size=(1, o)).astype(np.float32)
+    x_sal = jnp.asarray(rng.normal(size=(n, k_s)), jdt)
+    w_sal = jnp.asarray(rng.normal(size=(k_s, o)), jdt)
+    ref = j_k4(x, sx, jnp.asarray(w), jnp.asarray(sw), x_sal, w_sal,
+               jnp.asarray(mask).reshape(1, -1), out_dtype=jnp.float32, interpret=True,
+               tile_k=tile_k)
+    tx, tsx, tmask = _t(x).to(tdt), _t(sx), torch.from_numpy(mask).reshape(1, -1)
+    args = (tsx, tpack.k_major(torch.from_numpy(w)), torch.from_numpy(sw),
+            _t(x_sal).to(tdt), _t(w_sal).to(tdt))
+    got = k4.int8_prefill_matmul(tx, *args, tmask, out_dtype=torch.float32)
+    assert got.shape == (n, o)
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+    codes = k4.quantize_raw_x(tx, tmask, tsx)
+    np.testing.assert_array_equal(codes.numpy(),
+                                  np.asarray(jnp.round(x_main / sx).astype(jnp.int8)))
+    pre = k4.int8_prefill_matmul(codes, *args, out_dtype=torch.float32)
+    np.testing.assert_array_equal(got.numpy(), pre.numpy())
+
+
 def test_k4_raw_x_mode_raises():
+    """What the raw-x mode still refuses, on any device (the JAX wrapper
+    asserts the first two): int8 codes with a mask, raw fp activations
+    without one, and a mask that is not (1, K)."""
     z = torch.zeros((4, 16), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="raw-x"):
-        k4.int8_prefill_matmul(z, torch.ones(4, 1), tpack.k_major(torch.zeros(16, 8, dtype=torch.int8)),
-                               torch.ones(1, 8), torch.zeros(4, 0), torch.zeros(0, 8),
-                               torch.ones(1, 16))
+    rest = (torch.ones(4, 1), tpack.k_major(torch.zeros(16, 8, dtype=torch.int8)),
+            torch.ones(1, 8), torch.zeros(4, 0), torch.zeros(0, 8))
+    with pytest.raises(TypeError, match="raw fp activations"):
+        k4.int8_prefill_matmul(z, *rest, torch.ones(1, 16))
+    with pytest.raises(TypeError, match="raw fp activations"):
+        k4.int8_prefill_matmul(z.float(), *rest)
+    with pytest.raises(ValueError, match="ns_mask"):
+        k4.int8_prefill_matmul(z.float(), *rest, torch.ones(1, 8))
 
 
 @pytest.mark.parametrize("n", [40, 260])
