@@ -2856,8 +2856,9 @@ def check_norm_quantize_acts(cfg, dev, gen):
                 in_sum = n == 4 and kind == "rms"
                 row = dict(kernel="norm_quantize_acts_t", site=f"{site}@{n}_{kind or 'none'}",
                            in_sum=in_sum, shape=[n, c, kk, k_s], max_err=err, n_diff=n_diff,
-                           scale_ulps=ulps, sal_err=sal_err, check_launches=1,
-                           library_ms=None, library=None)
+                           scale_ulps=ulps, sal_err=sal_err,
+                           sal_rel_err=sal_err / max(ref[2].float().abs().max().item(), 1e-30),
+                           check_launches=1, library_ms=None, library=None)
                 if in_sum or n == 130:
                     n_bytes, ops = roofline.norm_quant_acts_cost(n, c, kk, 64, k_s)
                     row["bound_ms"], row["bound_by"] = roofline.bound_ms(n_bytes, ops)
@@ -2951,8 +2952,9 @@ def check_int8_prefill_rawx(dev, gen):
                                  "pre-quantized mode's")
         err = _close(f"K4 raw-x {site}", raw, ref, 1e-2)
         row = dict(kernel="int8_prefill_matmul", site=f"raw_x_{site}", in_sum=False,
-                   shape=[n, kk, o, n_sal], max_err=err, identical_to_prequantized=True,
-                   check_launches=1)
+                   shape=[n, kk, o, n_sal], max_err=err,
+                   max_rel_err=err / ref.float().abs().max().item(),
+                   identical_to_prequantized=True, check_launches=1)
         if site == K4_RAWX_CASES[0][0]:
             def library(i):
                 xq = k4.quantize_raw_x(x, mask, sx)
