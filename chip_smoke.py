@@ -104,15 +104,20 @@ Then the Llama-2-7B paths:
       4096→11008) with 5 % salient channels, at N = 333 and at one K step;
    b. the reference check: a small Bloom's kernel path (card) against its
       plain path (CPU), per-layer and stacked decode over fp and int8
-      caches, and the stacked step against the per-layer one on the card;
+      caches, and the stacked step against the per-layer one on the card,
+      each within BLOOM_REF_TOL, and a control (one weight code moved by
+      one step) that must read above the kernel-against-plain bound;
    c. calibration on 4 random 512-token sequences (the one cut, as the
       quick start's), smooth_lm("bloom", α = 0.5), pack_model("bloom",
       W4A4 g64, 5 % salient, nibble, k groups aligned to 8, O to 256);
    d. the Generator over per-layer int8 caches of 640 (4 prompts of 512,
       32 new: K6 at the 2048-row prefill, K6 and K11's ALiBi body a decode
       step), the tied unembedding's device time, the packed logits against
-      the fp model's;
-   e. stack_layers of the pack: K7b + K5 against K1 on its layer 0, then
+      the fp model's; K6 against its plain version on the pack's four
+      linears at 2048 and 4 rows, the input gathered;
+   e. stack_layers of the pack: K1 at 4 rows and K7a + K5 at 64 against
+      their plain versions on its four linears, the input gathered; K10
+      with rotary off at B = 4 and 64; K7b + K5 against K1 on layer 0; then
       the stacked decode over a stacked head-major int8 cache from
       position 448 at B = 4 (the input gathered, K1, K10 with rotary off,
       K11's ALiBi body) and B = 64 (K7a + K5 in place of K1), three
@@ -182,6 +187,11 @@ BLOOM_SLOT_BATCH = 64
 BLOOM_PACK = dict(nibble=True, align_k_groups=8, align_o=256)   # the stacked decode's layout
 # K4's raw-x mode against its pre-quantized mode: (site, (N, K, O)) — Llama-2-7B's
 # promoted gate_proj at the prefill's rows (timed), a ragged N, one K step
+# the small-Bloom reference check's bounds on the logits' relative norm
+# error, by dtype: (kernel path against plain, stacked step against
+# per-layer over the fp cache, the same over the int8 cache) — see
+# bloom_reference_check for the readings they were set from
+BLOOM_REF_TOL = {"float32": (1e-5, 2e-4, 1e-6), "bfloat16": (1e-5, 1.5e-1, 1e-6)}
 K4_RAWX_CASES = (("gate@1024", (PREFILL_N, 4096, 11008)), ("ragged@333", (333, 4096, 11008)),
                  ("one_k_step", (256, 64, 512)))
 
@@ -381,15 +391,27 @@ SOURCES = {
 }
 
 
-def _sites(st):
-    sa, mlp = st["self_attn"], st["mlp"]
+def _sites(layer):
+    """(site, linear, mode) of one layer's four linears, per-layer or
+    stacked: Llama's (mode "rms", the RMSNorm fused in; "mask", the identity
+    layout; None, a pre-permuted input) or Bloom's, named bloom_* (mode
+    "gather": the input in the original channel order, gathered by the
+    layer's perm first, as the path does; no norm fuses)."""
+    if "self_attention" in layer:
+        sa, mlp = layer["self_attention"], layer["mlp"]
+        return tuple((f"bloom_{name}", lin, "gather") for name, lin in (
+            ("qkv", sa["query_key_value"]), ("dense", sa["dense"]),
+            ("h_to_4h", mlp["dense_h_to_4h"]), ("4h_to_h", mlp["dense_4h_to_h"])))
+    sa, mlp = layer["self_attn"], layer["mlp"]
     return (("qkv", sa["qkv_proj"], "rms"), ("o", sa["o_proj"], "mask"),
             ("gate_up", mlp["gate_up_proj"], "rms"), ("down", mlp["down_proj"], None))
 
 
 def check_rawx(stacked, dev, gen, n=MAX_BATCH):
     """K1 vs plain at the four decode linears of the stacked tree, N rows
-    (4, the B = 4 paths; 16 and 32, the row-split grid)."""
+    (Llama: 4, the B = 4 paths; 16 and 32, the row-split grid; Bloom: 4,
+    each layer's input gathered by its perm).  Bloom's rows stay out of
+    the kernels line's sums."""
     import torch
 
     from smoothquant_tpu_torch.kernels import int4_group_matmul as k1
@@ -403,6 +425,7 @@ def check_rawx(stacked, dev, gen, n=MAX_BATCH):
         c = m.in_features
         x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
         norm = None
+        x_in = [x] * n_layers
         x_sal = [None] * n_layers
         if mode == "rms":
             norm = (torch.rand((n_layers, c), generator=gen, device=dev) + 0.5
@@ -410,10 +433,13 @@ def check_rawx(stacked, dev, gen, n=MAX_BATCH):
         elif mode == "mask":
             norm = lin.ns_mask
             x_sal = [_salient_gather(lin, x, lin.perm[i]) for i in range(n_layers)]
+        elif mode == "gather":
+            x_in = [x.index_select(1, lin.perm[i]) for i in range(n_layers)]
+        kernel_mode = None if mode == "gather" else mode
         kw = dict(group_size=m.group_size, act_bits=m.act_bits,
-                  num_salient=m.num_salient, eps=1e-5, norm_kind=mode)
-        args = lambda i: (i % n_layers, x, norm, lin.w_qt, lin.w_scales_t, lin.w_sal_t,
-                          x_sal[i % n_layers])
+                  num_salient=m.num_salient, eps=1e-5, norm_kind=kernel_mode)
+        args = lambda i: (i % n_layers, x_in[i % n_layers], norm, lin.w_qt, lin.w_scales_t,
+                          lin.w_sal_t, x_sal[i % n_layers])
         got = k1.int4_group_matmul_stacked_rawx(*args(3), **kw)
         ref = k1.rawx_plain(*args(3), **kw)
         torch.cuda.synchronize()
@@ -421,13 +447,13 @@ def check_rawx(stacked, dev, gen, n=MAX_BATCH):
         w_lib = [torch.randn((c, o), generator=gen, device=dev).to(torch.bfloat16)
                  for _ in range(4)]
         n_bytes, ops = roofline.rawx_cost(n, c, o, 2 * half, m.group_size,
-                                          lin.w_sal_t.shape[1], norm=mode is not None,
+                                          lin.w_sal_t.shape[1], norm=kernel_mode is not None,
                                           x_sal_external=mode == "mask")
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         rows.append(dict(
             kernel="int4_group_matmul_stacked_rawx",
             site=site if n == MAX_BATCH else f"{site}@{n}", mode=mode or "raw",
-            shape=[n, c, o], max_err=err, in_sum=n == MAX_BATCH,
+            shape=[n, c, o], max_err=err, in_sum=n == MAX_BATCH and mode != "gather",
             kernel_ms=device_ms(lambda i: k1.int4_group_matmul_stacked_rawx(*args(i), **kw),
                                 n_layers),
             plain_ms=device_ms(lambda i: k1.rawx_plain(*args(i), **kw), 4, reps=3),
@@ -439,8 +465,11 @@ def check_rawx(stacked, dev, gen, n=MAX_BATCH):
     return rows
 
 
-def check_gmm(packed, cfg, dev, gen):
-    """K6 vs plain at the four prefill linears of the per-layer tree."""
+def check_gmm(packed, cfg, dev, gen, n=PREFILL_N):
+    """K6 vs plain at the four linears of the per-layer tree, N rows (Llama:
+    the prefill's 1024; Bloom: the Generator's prefill and decode rows, the
+    input gathered by the layer's perm as the path does, out of the kernels
+    line's sums)."""
     import torch
 
     from smoothquant_tpu_torch.kernels import int4_group_matmul as k6
@@ -450,13 +479,12 @@ def check_gmm(packed, cfg, dev, gen):
 
     n_layers = cfg.num_hidden_layers
     rows = []
-    for site_i, site in enumerate(("qkv", "o", "gate_up", "down")):
-        lins = [_sites({"self_attn": packed["layers"][str(i)]["self_attn"],
-                        "mlp": packed["layers"][str(i)]["mlp"]})[site_i][1]
-                for i in range(n_layers)]
+    for site_i, (site, _, _) in enumerate(_sites(packed["layers"]["0"])):
+        lins = [_sites(packed["layers"][str(i)])[site_i][1] for i in range(n_layers)]
         m = lins[0].meta
-        x = torch.randn((PREFILL_N, m.in_features), generator=gen,
-                        device=dev).to(torch.bfloat16)
+        x = torch.randn((n, m.in_features), generator=gen, device=dev).to(torch.bfloat16)
+        if m.layout != "identity" and not m.pre_permuted:
+            x = x.index_select(1, lins[0].perm)
         if m.layout == "identity":
             xq = _identity_nibble_quantize(lins[0], x, lins[0].perm, lins[0].ns_mask)
         else:
@@ -473,11 +501,12 @@ def check_gmm(packed, cfg, dev, gen):
         c = m.in_features
         w_lib = [torch.randn((c, o), generator=gen, device=dev).to(torch.bfloat16)
                  for _ in range(2)]
-        n_bytes, ops = roofline.gmm_cost(PREFILL_N, o, 2 * half, m.group_size,
+        n_bytes, ops = roofline.gmm_cost(n, o, 2 * half, m.group_size,
                                          lins[0].w_sal_t.shape[0])
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         rows.append(dict(
-            kernel="int4_group_matmul", site=site, shape=[PREFILL_N, c, o], max_err=err,
+            kernel="int4_group_matmul", site=site if n == PREFILL_N else f"{site}@{n}",
+            shape=[n, c, o], max_err=err, in_sum=not site.startswith("bloom_"),
             kernel_ms=device_ms(lambda i: k6.int4_group_matmul(*args(i), **kw), 8),
             plain_ms=device_ms(lambda i: k6.int4_group_matmul_plain(*args(i), **kw), 2,
                                reps=3),
@@ -755,27 +784,34 @@ def _scale_ulps(name, got, ref, max_ulps=1):
     return d
 
 
-def check_act_prep(stacked, dev, gen):
-    """K7a vs plain at the three sites that quantize through it at N > 32
-    (qkv and gate_up after their RMSNorm, down_proj), SLOT_BATCH rows of
-    bf16 with the k_ns tail zero as the path pads it: codes identical or
-    off by one in under 1e-4 of them, scales within one ulp.  No single
-    PyTorch call computes it."""
+def check_act_prep(stacked, dev, gen, n=None):
+    """K7a vs plain at the sites that quantize through it at N > 32 (Llama:
+    qkv and gate_up after their RMSNorm, down_proj; Bloom: all four, the
+    input gathered by the last layer's perm, out of the kernels line's
+    sums), N rows of bf16 with the k_ns tail zero as the path pads it: codes
+    identical or off by one in under 1e-4 of them, scales within one ulp.
+    No single PyTorch call computes it."""
     import torch
 
     from smoothquant_tpu_torch.kernels import act_prep as k7
     from smoothquant_tpu_torch.utils import roofline
 
-    n = SLOT_BATCH
+    n = SLOT_BATCH if n is None else n
     rows = []
     for site, lin, mode in _sites(stacked["layers"]["stacked"]):
         if mode == "mask":
             continue
         m = lin.meta
         k_ns_raw = m.in_features - m.num_salient
-        xs = [torch.nn.functional.pad(
-            torch.randn((n, k_ns_raw), generator=gen, device=dev) * (1 + 4 * i),
-            (0, m.k_ns - k_ns_raw)).to(torch.bfloat16) for i in range(4)]
+
+        def ns_part(i):
+            if mode != "gather":
+                return torch.randn((n, k_ns_raw), generator=gen, device=dev) * (1 + 4 * i)
+            x = torch.randn((n, m.in_features), generator=gen, device=dev) * (1 + 4 * i)
+            return x.index_select(1, lin.perm[-1])[:, :k_ns_raw]
+
+        xs = [torch.nn.functional.pad(ns_part(i), (0, m.k_ns - k_ns_raw)).to(torch.bfloat16)
+              for i in range(4)]
         kw = dict(group_size=m.group_size, act_bits=m.act_bits)
         got = k7.quantize_acts_grouped_t(xs[0], **kw)
         ref = k7.quantize_acts_grouped_t_plain(xs[0], **kw)
@@ -786,7 +822,7 @@ def check_act_prep(stacked, dev, gen):
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         rows.append(dict(
             kernel="quantize_acts_grouped_t", site=site, shape=[n, m.k_ns], max_err=err,
-            n_diff=n_diff, scale_ulps=ulps,
+            n_diff=n_diff, scale_ulps=ulps, in_sum=mode != "gather",
             kernel_ms=device_ms(lambda i: k7.quantize_acts_grouped_t(xs[i % 4], **kw), 16),
             plain_ms=device_ms(lambda i: k7.quantize_acts_grouped_t_plain(xs[i % 4], **kw), 4,
                                reps=3),
@@ -795,10 +831,12 @@ def check_act_prep(stacked, dev, gen):
     return rows
 
 
-def check_gmm_stacked(stacked, dev, gen):
-    """K5 vs plain at the four decode linears, N = SLOT_BATCH, each in the
-    input mode the path gives it (K7a's layout; row-major codes at o_proj)
-    and qkv once more with row-major codes: the f32 instantiation within
+def check_gmm_stacked(stacked, dev, gen, n=None):
+    """K5 vs plain at the four decode linears, N rows, each in the input
+    mode the path gives it (K7a's layout; row-major codes at Llama's o_proj;
+    Bloom's input gathered by the last layer's perm first, its rows out of
+    the kernels line's sums) and Llama's qkv once more with row-major
+    codes: the f32 instantiation within
     1e-5 of the largest magnitude, the path's bf16 one within 1e-2 (one
     bf16 rounding of sums taken in another order).  Yardstick: a bf16
     torch.matmul at the same shape."""
@@ -809,16 +847,20 @@ def check_gmm_stacked(stacked, dev, gen):
     from smoothquant_tpu_torch.kernels.real_linear import many_rows_operands
     from smoothquant_tpu_torch.utils import roofline
 
-    n = SLOT_BATCH
+    n = SLOT_BATCH if n is None else n
     rows = []
-    cases = [(site, lin, False) for site, lin, _ in _sites(stacked["layers"]["stacked"])]
-    cases.append(("qkv", cases[0][1], True))
+    sites = _sites(stacked["layers"]["stacked"])
+    bloom = sites[0][2] == "gather"
+    cases = [(site, lin, False) for site, lin, _ in sites]
+    if not bloom:
+        cases.append(("qkv", cases[0][1], True))
     for site, lin, to_rows in cases:
         m = lin.meta
         n_layers, half, o = lin.w_qt.shape
         c, k_s, last = m.in_features, lin.w_sal_t.shape[1], n_layers - 1
         x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
-        x_q, x_s, x_sal, pre = many_rows_operands(lin, x, last)
+        x_in = x.index_select(1, lin.perm[last]) if bloom else x
+        x_q, x_s, x_sal, pre = many_rows_operands(lin, x_in, last)
         if to_rows:
             x_q, x_s = (t.contiguous() for t in _row_major(x_q, x_s, pre))
             pre = None
@@ -843,7 +885,7 @@ def check_gmm_stacked(stacked, dev, gen):
         rows.append(dict(
             kernel="int4_group_matmul_stacked", site=f"{site}@rows" if to_rows else site,
             mode="rows" if pre is None else "pre_laid", shape=[n, c, o], max_err=err,
-            max_err_bf16=err_bf16, in_sum=not to_rows,
+            max_err_bf16=err_bf16, in_sum=not (to_rows or bloom),
             kernel_ms=device_ms(lambda i: k5.int4_group_matmul_stacked(*args(i), **kwb),
                                 n_layers),
             plain_ms=device_ms(lambda i: k5.int4_group_matmul_stacked_plain(*args(i), **kwb),
@@ -856,36 +898,39 @@ def check_gmm_stacked(stacked, dev, gen):
     return rows
 
 
-def check_write_cache_hm(cfg, dev, gen):
-    """K10 vs plain at B = SLOT_BATCH, S = MAX_LEN: per-slot positions
-    (one past the end, the last row, the first), then one scalar position;
-    codes identical or off by one in under 1e-4, scales within one ulp,
-    every other row untouched."""
+def check_write_cache_hm(dev, gen, b, h, d, rotary=True, site=None):
+    """K10 vs plain at B slots of H heads of D, S = MAX_LEN: per-slot
+    positions (one past the end, the last row, the first), then one scalar
+    position; codes identical or off by one in under 1e-4, scales within
+    one ulp, every other row untouched.  rotary=False (Bloom's body) takes
+    no tables; a named site stays out of the kernels line's sums."""
     import torch
 
     from smoothquant_tpu_torch.kernels import cache_write as k10
     from smoothquant_tpu_torch.models.common import QuantKVCache, rotary_cos_sin
     from smoothquant_tpu_torch.utils import roofline
 
-    b, h, d = SLOT_BATCH, cfg.num_key_value_heads, cfg.head_dim
     n_l = 2
+    tables = lambda p: (rotary_cos_sin(p.long().reshape(-1, 1), d) if rotary
+                        else (None, None))
     c = QuantKVCache.create(b, MAX_LEN, h, d, device=dev, per_slot=True, n_layers=n_l)
     for t in (c.k_q, c.v_q):
         t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev, dtype=torch.int8))
     for t in (c.k_scale, c.v_scale):
         t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02 + 0.005)
     pos = torch.randint(0, MAX_LEN, (b,), generator=gen, device=dev, dtype=torch.int32)
-    pos[:3] = torch.tensor([MAX_LEN + 88, MAX_LEN - 1, 0], device=dev)
+    pos[:3] = torch.tensor([MAX_LEN + 88, MAX_LEN - 1, 0], device=dev)[:b]
     k = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
     bufs = lambda x: (x.k_q, x.v_q, x.k_scale, x.v_scale)
     errs, ulps = [], []
     for p in (pos, torch.tensor(200, device=dev, dtype=torch.int32)):
-        cos, sin = rotary_cos_sin(p.long().reshape(-1, 1), d)
+        cos, sin = tables(p)
         a = QuantKVCache(*(t.clone() for t in bufs(c)), c.pos)
         ref = QuantKVCache(*(t.clone() for t in bufs(c)), c.pos)
-        k10.write_quant_cache_stacked(n_l - 1, p, k, v, cos, sin, *bufs(a))
-        k10.write_quant_cache_stacked_plain(n_l - 1, p, k, v, cos, sin, *bufs(ref))
+        k10.write_quant_cache_stacked(n_l - 1, p, k, v, cos, sin, *bufs(a), rotary=rotary)
+        k10.write_quant_cache_stacked_plain(n_l - 1, p, k, v, cos, sin, *bufs(ref),
+                                            rotary=rotary)
         torch.cuda.synchronize()
         for name, x, y in zip(("k_q", "v_q"), bufs(a)[:2], bufs(ref)[:2]):
             errs.append(_codes_close(f"K10 {name}", x, y)[0])
@@ -894,17 +939,19 @@ def check_write_cache_hm(cfg, dev, gen):
         if not torch.equal(a.k_q[0], c.k_q[0]):
             raise AssertionError("K10 wrote outside its layer")
         del a, ref
-    cos, sin = rotary_cos_sin(pos.long()[:, None], d)
-    n_bytes, ops = roofline.write_cache_cost(b, h, d)
+    cos, sin = tables(pos)
+    n_bytes, ops = roofline.write_cache_cost(b, h, d, rotary=rotary)
     b_ms, b_by = roofline.bound_ms(n_bytes, ops)
     row = dict(
         kernel="write_quant_cache_stacked", shape=[b, h, d, MAX_LEN], max_err=max(errs),
-        scale_ulps=max(ulps),
+        scale_ulps=max(ulps), rotary=rotary,
         kernel_ms=device_ms(lambda i: k10.write_quant_cache_stacked(
-            i % n_l, pos, k, v, cos, sin, *bufs(c)), 16),
+            i % n_l, pos, k, v, cos, sin, *bufs(c), rotary=rotary), 16),
         plain_ms=device_ms(lambda i: k10.write_quant_cache_stacked_plain(
-            i % n_l, pos, k, v, cos, sin, *bufs(c)), 8, reps=3),
+            i % n_l, pos, k, v, cos, sin, *bufs(c), rotary=rotary), 8, reps=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library=None)
+    if site is not None:
+        row.update(site=site, in_sum=False)
     emit(row)
     return [row]
 
@@ -3104,6 +3151,20 @@ def bloom_stacked_decode(stacked, cfg, dev, card):
     return launches
 
 
+def _one_code_moved(packed, layer: str, block: str, site: str):
+    """A copy of the per-layer tree whose one linear has its first int4
+    weight code moved by one step (the low nibble of its first byte, XOR
+    1); every other tensor shared."""
+    import dataclasses
+
+    lin = packed["layers"][layer][block][site]
+    w = lin.w_qt.clone()
+    w.view(-1)[0] ^= 1
+    blk = {**packed["layers"][layer][block], site: dataclasses.replace(lin, w_qt=w)}
+    lay = {**packed["layers"][layer], block: blk}
+    return {**packed, "layers": {**packed["layers"], layer: lay}}
+
+
 def bloom_reference_check(dev):
     """Kernel path (card) vs plain path (CPU) on a small Bloom (2 layers,
     hidden 256, 4 heads of 64, vocab 256; W4A4 g16, 5 % salient, the
@@ -3115,18 +3176,20 @@ def bloom_reference_check(dev):
     ALiBi body over both), each part's logits compared (per_layer_*: the
     prefill's last position and the step; stacked_*: the step), and on the
     card the stacked step against the per-layer one, as the JAX package's
-    test_bloom_prefetch_matches_per_layer holds it.  Bounds, relative to
-    the logits' norm: 1e-2 in f32 and 1e-1 in bf16 kernel against plain
-    (the W4A4 per-layer parts' bounds, PER_LAYER_PARTS: per-group int4
-    activation codes over a few rows, which another f32 sum order can move
-    only on a rounding edge); stacked against per-layer on the card 2e-4 in
-    f32 (the same codes, sums in another order) and 1.5e-1 in bf16, the
-    Llama generator part's bf16 bound: over the fp cache the per-layer step
-    takes the einsum and the stacked one K11, which round the
-    probabilities to bf16 before and after normalizing them, and the bf16
-    attention outputs that move move int4 codes downstream (0.091 on an
-    NVIDIA H100 80GB HBM3 at 700 W; over the int8 cache both take K11 and
-    read 0)."""
+    test_bloom_prefetch_matches_per_layer holds it.  Bounds (BLOOM_REF_TOL),
+    relative to the logits' norm, from this check's readings on an NVIDIA
+    H100 80GB HBM3 at 700 W: kernel against plain 1e-5 in both dtypes (it
+    reads 6.5e-8 to 2.3e-7); stacked against per-layer over the fp cache
+    2e-4 in f32 (the JAX test's bound; it reads 1.9e-7) and 1.5e-1 in bf16
+    (it reads 0.091: the per-layer step takes the einsum and the stacked
+    one K11, which round the probabilities to bf16 before and after
+    normalizing them, and the bf16 attention outputs that move move int4
+    codes downstream); over the int8 cache 1e-6 (both steps take K11 on
+    the same codes: 1.9e-7 in f32, 0 in bf16).  The control: the kernel
+    path's per-layer int8 run with one int4 weight code of layer 1's
+    dense moved by one step (the smallest fault the CPU run of the plain
+    path found: 3.0e-4 in f32, 5.2e-4 in bf16) must read above the
+    kernel-against-plain bound, or the check fails."""
     import dataclasses
 
     import numpy as np
@@ -3137,8 +3200,17 @@ def bloom_reference_check(dev):
     from smoothquant_tpu_torch.models.registry import pack_model
     from smoothquant_tpu_torch.quant.config import w4a4_group
 
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def per_layer_int8(p, d):
+        caches = [QuantKVCache.create(2, 128, nh, hd, cfg.torch_dtype, d) for _ in range(n_l)]
+        pre, caches = bloom.forward(p, prompt.to(d), cfg, caches=caches)
+        step, _ = bloom.forward(p, tok.to(d), cfg, caches=caches)
+        return torch.cat([pre[:, -1:], step], dim=1).cpu()
+
     out, failed = {}, []
-    for dtype_name, tol, pair_tol in (("float32", 1e-2, 2e-4), ("bfloat16", 1e-1, 1.5e-1)):
+    for dtype_name, (tol, fp_pair_tol, int8_pair_tol) in BLOOM_REF_TOL.items():
         cfg = bloom.BloomConfig(vocab_size=256, hidden_size=256, num_hidden_layers=2,
                                 num_attention_heads=4, dtype=dtype_name)
         n_l, nh, hd = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim
@@ -3180,10 +3252,6 @@ def bloom_reference_check(dev):
                 logits[name][f"per_layer_{kind}"] = torch.cat([pre[:, -1:], step], dim=1).cpu()
                 logits[name][f"stacked_{kind}"] = s_step.cpu()
         res = out[dtype_name] = {}
-
-        def rel(a, b):
-            return float((a.float() - b.float()).norm() / b.float().norm())
-
         for part, ref in logits["plain"].items():
             got = logits["kernel"][part]
             if not (torch.isfinite(got).all() and got.shape == ref.shape):
@@ -3194,7 +3262,7 @@ def bloom_reference_check(dev):
             if not res[part]["rel_norm_err"] <= tol:
                 failed.append(f"bloom reference check {dtype_name} {part}: "
                               f"{res[part]['rel_norm_err']} > {tol}")
-        for kind in ("fp", "int8"):
+        for kind, pair_tol in (("fp", fp_pair_tol), ("int8", int8_pair_tol)):
             r = rel(logits["kernel"][f"stacked_{kind}"],
                     logits["kernel"][f"per_layer_{kind}"][:, -1:])
             res[f"stacked_vs_per_layer_{kind}"] = dict(rel_norm_err=r,
@@ -3202,6 +3270,13 @@ def bloom_reference_check(dev):
             if not r <= pair_tol:
                 failed.append(f"bloom reference check {dtype_name} stacked vs per-layer "
                               f"{kind}: {r} > {pair_tol}")
+        ctrl = rel(per_layer_int8(tree_to(_one_code_moved(packed, "1", "self_attention",
+                                                          "dense"), dev), dev),
+                   logits["plain"]["per_layer_int8"])
+        res["control_one_code_moved"] = dict(rel_norm_err=ctrl, must_exceed=tol)
+        if not ctrl > tol:
+            failed.append(f"bloom reference check {dtype_name}: one code moved reads {ctrl}, "
+                          f"within the bound {tol}")
     if failed:
         emit({"phase": "bloom_reference_check", "failed": failed, **out})
         raise AssertionError("; ".join(failed))
@@ -3210,11 +3285,15 @@ def bloom_reference_check(dev):
 
 def run_bloom(dev, cfg, card: str):
     """Every Bloom phase on `dev` at the size of `cfg`: the kernel checks of
-    this slice (K11's ALiBi body, K7b, K4's raw-x mode), the model build
-    (calibration, smooth_lm, the nibble pack), the Generator, the stacked
-    decode at B = 4 and 64, K7b + K5 against K1 on the stacked layer, and
-    the small-model reference check.  Returns (kernel rows, the main paths'
-    launches)."""
+    this slice (K11's ALiBi body, K7b, K4's raw-x mode), the small-model
+    reference check, the model build (calibration, smooth_lm, the nibble
+    pack), the Generator, each kernel of the path against its plain version
+    on the Bloom trees' own linears (K6 at the Generator's prefill and
+    decode rows on the per-layer pack; K1 at BLOOM_BATCH rows and K7a + K5
+    at BLOOM_SLOT_BATCH on the stacked layer, the input gathered; K10 with
+    rotary off at both batches), K7b + K5 against K1 on the stacked layer,
+    and the stacked decode at B = 4 and 64.  Returns (kernel rows, the main
+    paths' launches)."""
     from collections import Counter
 
     import torch
@@ -3242,8 +3321,17 @@ def run_bloom(dev, cfg, card: str):
     emit({"phase": "bloom_generator", "card": card, **metrics})
     del fp
     torch.cuda.empty_cache()
+    for n in (BLOOM_BATCH * BLOOM_PROMPT, BLOOM_BATCH):
+        rows += check_gmm(packed, cfg, dev, gen, n)
     stacked = bloom.stack_layers(packed, cfg)
     del packed
+    torch.cuda.empty_cache()
+    rows += (check_rawx(stacked, dev, gen, BLOOM_BATCH)
+             + check_act_prep(stacked, dev, gen, BLOOM_SLOT_BATCH)
+             + check_gmm_stacked(stacked, dev, gen, BLOOM_SLOT_BATCH))
+    for b in (BLOOM_BATCH, BLOOM_SLOT_BATCH):
+        rows += check_write_cache_hm(dev, gen, b, cfg.num_attention_heads, cfg.head_dim,
+                                     rotary=False, site=f"bloom_rotary_off@B{b}")
     torch.cuda.empty_cache()
     emit({"phase": "k7b_k5_vs_k1", **check_k7b_k5_vs_k1(stacked, cfg, dev, gen)})
     launches.update(bloom_stacked_decode(stacked, cfg, dev, card))
@@ -3290,7 +3378,8 @@ def kernels_line(rows, launches):
     size; K12 its flat body at B = 4, K14 at N = 4; K8 its q, gate and down
     sites with the salient block at N = 4, K9 its grouped body at gate_proj,
     N = 2048; K7b at Bloom's two widths, 4 rows, with its RMSNorm; rows
-    marked in_sum=False — K1 at 16 and 32 rows, K5's extra row-major qkv,
+    marked in_sum=False — Bloom's rows of K1, K5, K6, K7a and K10 (its
+    rotary-off body), K1 at 16 and 32 rows, K5's extra row-major qkv,
     K12's other bodies and B = 64, K14 at 8 rows, K8's and K9's other
     bodies and row counts, K11's ALiBi body, K4's raw-x mode, K7b's other
     row counts — are reported on their own lines only), the errors the
@@ -3348,7 +3437,8 @@ def run(dev, cfg, card: str):
     for n in (16, MID_BATCH):
         rows += check_rawx(stacked, dev, gen, n)
     rows += (check_act_prep(stacked, dev, gen) + check_gmm_stacked(stacked, dev, gen)
-             + check_write_cache_hm(cfg, dev, gen) + check_fused_attn(cfg, dev, gen)
+             + check_write_cache_hm(dev, gen, SLOT_BATCH, cfg.num_key_value_heads, cfg.head_dim)
+             + check_fused_attn(cfg, dev, gen)
              + check_mlp_fused(stacked, dev, gen))
 
     emit({"phase": "no_fallback", "raised": check_no_fallback(dev)})

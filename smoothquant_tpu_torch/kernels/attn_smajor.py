@@ -52,6 +52,24 @@ def _check_cache(device, k_sm, v_sm, k_scale, v_scale):
                           v_scale=v_scale)
 
 
+def _check_tables(cos, sin, rotary: bool) -> None:
+    if rotary and (cos is None or sin is None):
+        raise ValueError("rotary=True needs the cos and sin tables")
+
+
+def _tables(cos, sin, b: int, d: int, rotary: bool):
+    """The kernel's (B, D) f32 rotary tables — one row per slot, an aligned
+    decode's one row broadcast — or (None, None) with rotary off."""
+    _check_tables(cos, sin, rotary)
+    if not rotary:
+        return None, None
+    return tuple(t.float().reshape(-1, d).expand(b, d).contiguous() for t in (cos, sin))
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 # ---------------------------------------------------------------- K2
 
 
@@ -59,6 +77,7 @@ def write_quant_cache_smajor_plain(layer_idx: int, pos, k_new, v_new, cos, sin,
                                    k_sm, v_sm, k_scale, v_scale, *,
                                    rotary: bool = True) -> None:
     """Plain PyTorch K2 (same arguments as the wrapper), in place."""
+    _check_tables(cos, sin, rotary)
     b, h, d = k_new.shape
     s = k_sm.shape[2]
     rows = torch.clamp(pos.to(torch.int64), 0, s - 1)
@@ -77,8 +96,8 @@ def write_quant_cache_smajor(
     pos: torch.Tensor,        # (B,) int: each slot's write position
     k_new: torch.Tensor,      # (B, H_kv, D) PRE-rotary keys
     v_new: torch.Tensor,      # (B, H_kv, D)
-    cos: torch.Tensor,        # (B, 1, D) f32
-    sin: torch.Tensor,
+    cos,                      # (B, 1, D) f32; None with rotary=False
+    sin,
     k_sm: torch.Tensor,       # (L, B, S, H_kv·D) int8, updated in place
     v_sm: torch.Tensor,
     k_scale: torch.Tensor,    # (L, B, H_kv, S) f32, updated in place
@@ -102,12 +121,11 @@ def write_quant_cache_smajor(
     if v_new.dtype != k_new.dtype:
         raise TypeError("k_new and v_new must share a dtype")
     pos32 = pos.to(torch.int32).reshape(b).contiguous()
-    cos = cos.float().reshape(b, d).contiguous()
-    sin = sin.float().reshape(b, d).contiguous()
+    cos, sin = _tables(cos, sin, b, d, rotary)
     k_new, v_new = k_new.contiguous(), v_new.contiguous()
     _build.check_operands(k_new.device, pos=pos32, cos=cos, sin=sin, v_new=v_new)
     _build.check(_build.lib().sq_write_cache_smajor(
-        k_new.data_ptr(), v_new.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), _ptr(cos), _ptr(sin),
         pos32.data_ptr(), k_sm[layer_idx].data_ptr(),
         v_sm[layer_idx].data_ptr(), k_scale[layer_idx].data_ptr(),
         v_scale[layer_idx].data_ptr(), b, s, h, d, int(rotary),

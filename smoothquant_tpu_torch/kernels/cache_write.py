@@ -8,6 +8,7 @@ K10 write_quant_cache_stacked — port of smoothquant_tpu/kernels/
     scalar, or (B,) per slot) clamped to S − 1: rotary on k in f32 as jitted
     XLA fuses it, fma(x, cos, rot(x)·sin), then scale = max(absmax, 1e-8)/127
     (the reciprocal multiply) and codes round(x / scale) half to even.
+    rotary=False (Bloom) skips the rotary and takes no tables (None).
     Unlike the JAX function (which returns new buffers through
     input_output_aliases) this one UPDATES THE CACHE TENSORS IN PLACE.
 
@@ -21,7 +22,13 @@ from __future__ import annotations
 import torch
 
 from smoothquant_tpu_torch.kernels import _build
-from smoothquant_tpu_torch.kernels.attn_smajor import _rot_half, quantize_rows_int8
+from smoothquant_tpu_torch.kernels.attn_smajor import (
+    _check_tables,
+    _ptr,
+    _rot_half,
+    _tables,
+    quantize_rows_int8,
+)
 from smoothquant_tpu_torch.quant.core import fma_f32
 
 
@@ -35,6 +42,7 @@ def write_quant_cache_stacked_plain(layer_idx: int, pos, k_new, v_new, cos, sin,
                                     k_q, v_q, k_scale, v_scale, *,
                                     rotary: bool = True) -> None:
     """Plain PyTorch K10 (same arguments as the wrapper), in place."""
+    _check_tables(cos, sin, rotary)
     b = k_new.shape[0]
     rows = _rows(pos, b, k_q.shape[3], k_new.device)
     bi = torch.arange(b, device=k_new.device)
@@ -52,8 +60,8 @@ def write_quant_cache_stacked(
     pos,                      # () or (B,) int tensor: each slot's write position
     k_new: torch.Tensor,      # (B, H_kv, D) PRE-rotary keys
     v_new: torch.Tensor,      # (B, H_kv, D)
-    cos: torch.Tensor,        # (B or 1, 1, D) f32 rotary tables at each slot's position
-    sin: torch.Tensor,
+    cos,                      # (B or 1, 1, D) f32 rotary tables at each slot's position;
+    sin,                      #   None with rotary=False (the kernel reads no table)
     k_q: torch.Tensor,        # (L, B, H_kv, S, D) int8, updated in place
     v_q: torch.Tensor,
     k_scale: torch.Tensor,    # (L, B, H_kv, S) f32, updated in place
@@ -82,14 +90,12 @@ def write_quant_cache_stacked(
         raise TypeError("k_new and v_new must share a dtype and shape")
     pos32 = torch.as_tensor(pos, device=k_new.device).to(torch.int32).reshape(-1)
     pos32 = pos32.expand(b).contiguous()
-    # (B or 1, 1, D) tables: one row per slot (an aligned decode shares one)
-    cos = cos.float().reshape(-1, d).expand(b, d).contiguous()
-    sin = sin.float().reshape(-1, d).expand(b, d).contiguous()
+    cos, sin = _tables(cos, sin, b, d, rotary)
     k_new, v_new = k_new.contiguous(), v_new.contiguous()
     _build.check_operands(k_new.device, pos=pos32, cos=cos, sin=sin, v_new=v_new,
                           k_q=k_q, v_q=v_q, k_scale=k_scale, v_scale=v_scale)
     _build.check(_build.lib().sq_write_cache_hm(
-        k_new.data_ptr(), v_new.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), _ptr(cos), _ptr(sin),
         pos32.data_ptr(), k_q[layer_idx].data_ptr(), v_q[layer_idx].data_ptr(),
         k_scale[layer_idx].data_ptr(), v_scale[layer_idx].data_ptr(), b, s, h, d,
         int(rotary), _build.dt_code(k_new), _build.stream_ptr(k_new)),

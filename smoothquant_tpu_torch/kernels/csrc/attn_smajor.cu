@@ -57,8 +57,10 @@ __global__ void write_cache_kernel(const T* __restrict__ k_new, const T* __restr
   const size_t row = ((size_t)b * S + p) * H * D + (size_t)h * D;
   const size_t sc = ((size_t)b * H + h) * S + p;
   const size_t src = ((size_t)b * H + h) * D;
-  warp_quantize_kv<T, false>(k_new + src, D, rotary != 0, cos_t + (size_t)b * D,
-                             sin_t + (size_t)b * D, kq + row, ks + sc);
+  // with rotary off the tables may be null: no row of them is formed or read
+  warp_quantize_kv<T, false>(k_new + src, D, rotary != 0,
+                             rotary ? cos_t + (size_t)b * D : nullptr,
+                             rotary ? sin_t + (size_t)b * D : nullptr, kq + row, ks + sc);
   warp_quantize_kv<T, false>(v_new + src, D, false, nullptr, nullptr, vq + row, vs + sc);
 }
 

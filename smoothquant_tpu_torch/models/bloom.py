@@ -183,14 +183,13 @@ def stack_layers(params: dict, cfg: BloomConfig) -> dict:
 
 
 def stacked_caches(cfg: BloomConfig, batch: int, max_len: int, dtype=None, *,
-                   pos: int = 0, quant_kv: bool = False, per_slot: bool = False,
-                   device="cuda"):
+                   pos: int = 0, quant_kv: bool = False, device="cuda"):
     """A stacked head-major decode cache, leading L axis on every field
     (bloom.py:216-234): the int8 QuantKVCache, or an fp KVCache in `dtype`
-    (default cfg's), with (L,) aligned or, per_slot, (L, B) positions."""
+    (default cfg's), with (L,) aligned positions."""
     cls = QuantKVCache if quant_kv else KVCache
     return cls.create(batch, max_len, cfg.num_attention_heads, cfg.head_dim,
-                      dtype or cfg.torch_dtype, resolve_device(device), per_slot=per_slot,
+                      dtype or cfg.torch_dtype, resolve_device(device),
                       n_layers=cfg.num_hidden_layers, pos=pos)
 
 
@@ -211,8 +210,7 @@ def _prefetch_scan_decode(params: dict, x: torch.Tensor, cfg: BloomConfig, cache
     nh, d = cfg.num_attention_heads, cfg.head_dim
     eps = cfg.layer_norm_epsilon
     s_max = (caches.k_q if isinstance(caches, QuantKVCache) else caches.k).shape[3]
-    pos = caches.pos if caches.pos.ndim == 2 else caches.pos[:, None].expand(-1, b)
-    bias = decode_bias(pos, b, s_max, attn_mask)                   # (L, B, S_max)
+    bias = decode_bias(caches.pos[:, None].expand(-1, b), b, s_max, attn_mask)  # (L, B, S_max)
     for i in range(cfg.num_hidden_layers):
         residual = x
         hidden = layer_norm(_norm_at(st["input_layernorm"], i), x, eps)
@@ -233,10 +231,11 @@ def _prefetch_capable(params: dict, cfg: BloomConfig, ctx: Optional[ForwardConte
                       caches, s: int) -> bool:
     """The stacked decode's gate (bloom.py:298-310): prefetch_tree_capable
     (one token, every projection tile-aligned), a head-major cache (the
-    S-major one takes no slopes), no taps, and shapes K11 tiles."""
+    S-major one takes no slopes) with the (L,) aligned positions
+    stacked_caches builds, no taps, and shapes K11 tiles."""
     if ctx is not None and ctx.taps is not None:
         return False
-    if not isinstance(caches, (KVCache, QuantKVCache)):
+    if not isinstance(caches, (KVCache, QuantKVCache)) or caches.pos.ndim != 1:
         return False
     if not prefetch_tree_capable(params["layers"].get("stacked"), caches, s):
         return False

@@ -523,14 +523,12 @@ def stacked_cache_append_fused(cache, i: int, k_new: torch.Tensor,
     int8 cache runs K2 and the head-major int8 cache K10 (rotary-k, int8
     quantize, in-place row write at each slot's position, or the aligned
     one); an fp cache takes apply_rotary and stacked_cache_append.  A
-    non-rotary architecture (Bloom) passes rotate_k=False and no tables:
-    the writers run with rotary off over zero tables, which they ignore."""
+    non-rotary architecture (Bloom) passes rotate_k=False and no tables
+    (JAX passes dummy ones): the writers run with rotary off and read none."""
     b, _, h, d = k_new.shape
     if isinstance(cache, (SMajorQuantKVCache, QuantKVCache)):
         write = (write_quant_cache_smajor if isinstance(cache, SMajorQuantKVCache)
                  else write_quant_cache_stacked)
-        if cos is None:
-            cos = sin = torch.zeros((b, 1, d), dtype=torch.float32, device=k_new.device)
         write(i, cache.pos[i], k_new.reshape(b, h, d), v_new.reshape(b, h, d), cos,
               sin, cache.k_q, cache.v_q, cache.k_scale, cache.v_scale, rotary=rotate_k)
         return cache

@@ -103,11 +103,13 @@ def norm_quant_acts_cost(n, c, k_ns, gs, k_s, *, x_bytes=2, sal_bytes=2):
             + n_pad * k_s * sal_bytes, {"f32": 5 * n * c})
 
 
-def write_cache_cost(b, h, d, *, x_bytes=2):
-    """K2 and K10: k, v (B, H, D), cos/sin (B, D) f32, positions; one int8
-    row and one f32 scale per (b, head) for k and for v."""
-    n_bytes = 2 * b * h * d * x_bytes + 2 * b * d * 4 + b * 4 + 2 * (b * h * d + b * h * 4)
-    return n_bytes, {"f32": 6 * b * h * d}
+def write_cache_cost(b, h, d, *, x_bytes=2, rotary=True):
+    """K2 and K10: k, v (B, H, D), cos/sin (B, D) f32 (with rotary),
+    positions; one int8 row and one f32 scale per (b, head) for k and for
+    v.  The rotary's two f32 operations an element of k go with its tables."""
+    tables = 2 * b * d * 4 if rotary else 0
+    n_bytes = 2 * b * h * d * x_bytes + tables + b * 4 + 2 * (b * h * d + b * h * 4)
+    return n_bytes, {"f32": (6 if rotary else 4) * b * h * d}
 
 
 def decode_attn_cost(b, h, n_kv, s, d, *, n_valid=None, x_bytes=2,

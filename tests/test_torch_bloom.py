@@ -290,6 +290,24 @@ def test_stacked_gate_respects_unsupported_shapes(bloom):
         tbloom.forward(tp, torch.tensor([[3]]), tcfg, caches=caches)
 
 
+def test_stacked_gate_declines_per_slot_positions(bloom):
+    """The stacked decode takes the (L,) aligned positions stacked_caches
+    builds (as the JAX bloom.stacked_caches does); a cache with (L, B)
+    per-slot positions is declined and the forward raises."""
+    b = bloom
+    tcfg = b["tcfg"]
+    stacked = tbloom.stack_layers(b["t_packed"], tcfg)
+    aligned = tbloom.stacked_caches(tcfg, 2, CACHE_LEN, quant_kv=True, pos=5, device="cpu")
+    assert aligned.pos.shape == (2,)
+    assert tbloom._prefetch_capable(stacked, tcfg, None, aligned, 1)
+    per_slot = QuantKVCache.create(2, CACHE_LEN, tcfg.num_attention_heads, tcfg.head_dim,
+                                   device="cpu", per_slot=True, n_layers=2, pos=5)
+    assert per_slot.pos.shape == (2, 2)
+    assert not tbloom._prefetch_capable(stacked, tcfg, None, per_slot, 1)
+    with pytest.raises(NotImplementedError, match="_prefetch_capable"):
+        tbloom.forward(stacked, torch.tensor([[3], [4]]), tcfg, caches=per_slot)
+
+
 def test_generator_tokens_identical_to_jax(bloom):
     """6 greedy tokens over per-layer int8 caches: the prefill on K6, each
     decode step on K6 and K11 with the slopes."""

@@ -75,3 +75,28 @@ def test_bf16_keys_match_jax():
                               *got)
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("per_slot", [True, False])
+def test_rotary_off_takes_no_tables(per_slot):
+    """A non-rotary architecture (Bloom) passes no tables with rotary=False:
+    the same bytes as the JAX kernel over its dummy zero tables; with
+    rotary=True the missing tables raise."""
+    rng = np.random.default_rng(11 + int(per_slot))
+    k_new = rng.normal(size=(B, H, D)).astype(np.float32)
+    v_new = rng.normal(size=(B, H, D)).astype(np.float32)
+    kq = rng.integers(-127, 128, size=(L, B, H, S, D)).astype(np.int8)
+    ks = rng.uniform(0.01, 0.02, size=(L, B, H, S)).astype(np.float32)
+    pos = np.array([3, 0, S - 1, S + 6, 17], np.int32) if per_slot else np.int32(9)
+    zero = jnp.zeros((B, 1, D), jnp.float32)
+    ref = j_write(jnp.int32(0), jnp.asarray(pos), jnp.asarray(k_new), jnp.asarray(v_new),
+                  zero, zero, jnp.asarray(kq), jnp.asarray(kq), jnp.asarray(ks),
+                  jnp.asarray(ks), rotary=False, interpret=True)
+    got = [_t(a) for a in (kq, kq, ks, ks)]
+    write_quant_cache_stacked(0, torch.as_tensor(pos), _t(k_new), _t(v_new), None, None,
+                              *got, rotary=False)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    with pytest.raises(ValueError, match="cos and sin"):
+        write_quant_cache_stacked(0, torch.as_tensor(pos), _t(k_new), _t(v_new), None, None,
+                                  *got)
