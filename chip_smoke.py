@@ -5,7 +5,9 @@
 
 1. Prints the card's name and power limit, builds the port's kernels from
    csrc/ with nvcc (sm_90a, one process per source) and prints ptxas'
-   register / spill summary.
+   register / spill summary; holds the SASS of K6's and K9's wgmma bodies
+   to IGMMA / HGMMA and K6's to no I2F (cuobjdump); reads the SM clock
+   the per-group scaling floors take.
 The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
 2048, random bf16 weights from seed 0):
    a. the export pipeline of export_int8_model.py:48-76 on the card:
@@ -43,7 +45,9 @@ Then the Llama-2-7B paths:
    (N = 4).  Times come from CUDA events around launches queued behind a
    busy-wait, so they are device time.  K8 and K9 are also held to their
    plain versions over every group layout, dtype and ragged row count they
-   take (kernel_variants).
+   take (kernel_variants), K6 and K9 over the edges of their wgmma bodies
+   and the shapes their rules send elsewhere (wg_edges).  Each K6 and K9
+   row carries its time before their redesign (BEFORE_MS).
 4. Checks the kernel path against the plain path (the CPU) on a small
    model, f32 and bf16: the S-major prefill and one stacked decode step;
    a promoted prefill over head-major int8 caches and one Generator decode
@@ -124,9 +128,10 @@ Then the Llama-2-7B paths:
       windows of 8 steps each, beside the decode byte bound.
 Every path runs with the launch counts reset just before it and read just
 after, and fails unless each kernel launched as often as the path implies.
-10. Prints the `kernels` JSON line (all eighteen kernels, K4's raw-x and
-   K11's ALiBi bodies named by their sites and counted apart), the card
-   line, then the `ok` line last.
+10. Prints each K5, K6 and K8 row's per-group scaling floor beside its
+   bound (scaling_floors), the `kernels` JSON line (all eighteen kernels,
+   K4's raw-x and K11's ALiBi bodies named by their sites and counted
+   apart), the card line, then the `ok` line last.
 
 Exits non-zero on any failure; without CUDA, or without the port package
 beside it, it exits non-zero and prints no result.
@@ -194,6 +199,25 @@ BLOOM_PACK = dict(nibble=True, align_k_groups=8, align_o=256)   # the stacked de
 BLOOM_REF_TOL = {"float32": (1e-5, 2e-4, 1e-6), "bfloat16": (1e-5, 1.5e-1, 1e-6)}
 K4_RAWX_CASES = (("gate@1024", (PREFILL_N, 4096, 11008)), ("ragged@333", (333, 4096, 11008)),
                  ("one_k_step", (256, 64, 512)))
+# device ms of K6's and K9's check rows before their redesign, and of K5's
+# and K8's (which kept their tiles): the final run of chip_smoke.py before
+# the change (NVIDIA H100 80GB HBM3, 700 W), printed beside each new reading
+BEFORE_MS = {
+    "int4_group_matmul": {
+        "qkv": 1.1468, "o": 0.3819, "gate_up": 2.1223, "down": 1.0099,
+        "bloom_qkv@2048": 2.2502, "bloom_dense@2048": 0.7548, "bloom_h_to_4h@2048": 2.9801,
+        "bloom_4h_to_h@2048": 2.8932, "bloom_qkv@4": 0.1485, "bloom_dense@4": 0.1287,
+        "bloom_h_to_4h@4": 0.1471, "bloom_4h_to_h@4": 0.4888},
+    "dual_path_matmul": {
+        "grouped@512": 0.4256, "grouped@2048": 1.4074, "grouped_nosal@512": 0.3981,
+        "grouped_nosal@2048": 1.3255, "colscale@512": 0.4748, "colscale@2048": 1.6998,
+        "colscale_nosal@512": 0.3861, "colscale_nosal@2048": 1.5301},
+    "int4_group_matmul_stacked": {
+        "qkv": 0.101, "o": 0.0632, "gate_up": 0.1673, "down": 0.1445, "qkv@rows": 0.1004,
+        "bloom_qkv": 0.1005, "bloom_dense": 0.0628, "bloom_h_to_4h": 0.1312,
+        "bloom_4h_to_h": 0.1973},
+    "int_group_matmul": {"q@4": 0.0436, "gate@4": 0.0975, "down@4": 0.1273},
+}
 
 
 def _die(msg: str) -> None:
@@ -215,6 +239,20 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (MHz), which the per-group scaling floor
+    takes."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.splitlines()[0])
+
+
+def _before(kernel, site):
+    """This check row's device ms before the redesign (BEFORE_MS), or None."""
+    return BEFORE_MS.get(kernel, {}).get(site)
 
 
 # ---------------------------------------------------------------- timing
@@ -504,9 +542,12 @@ def check_gmm(packed, cfg, dev, gen, n=PREFILL_N):
         n_bytes, ops = roofline.gmm_cost(n, o, 2 * half, m.group_size,
                                          lins[0].w_sal_t.shape[0])
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        name = site if n == PREFILL_N else f"{site}@{n}"
         rows.append(dict(
-            kernel="int4_group_matmul", site=site if n == PREFILL_N else f"{site}@{n}",
-            shape=[n, c, o], max_err=err, in_sum=not site.startswith("bloom_"),
+            kernel="int4_group_matmul", site=name, body=k6.gmm_body(o, m.group_size, x_sal.dtype),
+            shape=[n, c, o], scalings=[n, o, 2 * half, m.group_size],
+            before_ms=_before("int4_group_matmul", name),
+            max_err=err, in_sum=not site.startswith("bloom_"),
             kernel_ms=device_ms(lambda i: k6.int4_group_matmul(*args(i), **kw), 8),
             plain_ms=device_ms(lambda i: k6.int4_group_matmul_plain(*args(i), **kw), 2,
                                reps=3),
@@ -882,9 +923,12 @@ def check_gmm_stacked(stacked, dev, gen, n=None):
                  for _ in range(4)]
         n_bytes, ops = roofline.gmm_cost(n, o, 2 * half, m.group_size, k_s)
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        name = f"{site}@rows" if to_rows else site
         rows.append(dict(
-            kernel="int4_group_matmul_stacked", site=f"{site}@rows" if to_rows else site,
-            mode="rows" if pre is None else "pre_laid", shape=[n, c, o], max_err=err,
+            kernel="int4_group_matmul_stacked", site=name,
+            mode="rows" if pre is None else "pre_laid", shape=[n, c, o],
+            scalings=[n, o, 2 * half, m.group_size],
+            before_ms=_before("int4_group_matmul_stacked", name), max_err=err,
             max_err_bf16=err_bf16, in_sum=not (to_rows or bloom),
             kernel_ms=device_ms(lambda i: k5.int4_group_matmul_stacked(*args(i), **kwb),
                                 n_layers),
@@ -1421,6 +1465,7 @@ def check_int_group_matmul(packed, single, dev, gen):
         rows.append(dict(
             kernel="int_group_matmul", site=name, shape=[n, c, o, m.k_ns, m.group_size,
                                                         w_sal.shape[0]],
+            scalings=[n, o, k_ns, m.group_size], before_ms=_before("int_group_matmul", name),
             max_err=err, in_sum=in_sum, bound_ms=b_ms, bound_by=b_by,
             kernel_ms=device_ms(lambda i: k8.int_group_matmul(*args, **kw), 8, reps=3)))
         if in_sum:   # the yardsticks of the kernels line's sites
@@ -1479,7 +1524,8 @@ def check_dual_path_matmul(packed, single, dev, gen):
             in_sum = body == "grouped" and n == 2048
             rows.append(dict(
                 kernel="dual_path_matmul", site=f"{body}@{n}",
-                shape=[n, c, o, m.k_ns, m.group_size, w_sal.shape[0]], max_err=err,
+                shape=[n, c, o, m.k_ns, m.group_size, w_sal.shape[0]],
+                before_ms=_before("dual_path_matmul", f"{body}@{n}"), max_err=err,
                 in_sum=in_sum, bound_ms=b_ms, bound_by=b_by,
                 kernel_ms=device_ms(lambda i: k9.dual_path_matmul(*args, **kw), 4, reps=3)))
             if in_sum:   # the yardsticks of the kernels line's site
@@ -1724,6 +1770,131 @@ def check_kernel_variants(dev):
     return worst
 
 
+def check_wg_edges(dev):
+    """The wgmma bodies of K6 and K9 (and the bodies their shape rules still
+    send shapes to) against their plain versions at the edges: 1, 65 and 333
+    rows (ragged row tiles), O a multiple of the 128-column tile, O = 336
+    (a ragged column tile, whole 16-byte weight rows: TMA) and O = 200 (K6:
+    the tiles body; K9: the weight rows by cp.async), group sizes 32 and 64
+    (K6; 48, the tiles body) and 32, 64 and one group (K9), with and without
+    a salient block (40 columns, padded to a stage, or 128), f32 and bf16
+    scales; bf16 outputs (the wgmma bodies) and f32 ones (K6's tiles, K9's
+    CUDA-core body).  Tolerance: 1e-2 of the largest output in bf16 (one
+    rounding), 1e-5 in f32 (sum order).  Returns the largest relative error
+    of each (kernel, body)."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int4_group_matmul as k6
+    from smoothquant_tpu_torch.kernels import quant_matmul as k9
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+
+    def rnd(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def codes(*shape, q=7):
+        return torch.randint(-q, q + 1, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    worst = {}
+
+    def hold(name, kernel, body, got, ref, dt):
+        tol = 1e-5 if dt == torch.float32 else 1e-2
+        err = _close(name, got, ref, tol)
+        key = f"{kernel}/{body}"
+        worst[key] = max(worst.get(key, 0.0), err / ref.float().abs().max().item())
+
+    for n in (1, 65, 333):
+        for gs, kk, o in ((64, 512, 384), (32, 768, 336), (64, 512, 200), (48, 384, 128)):
+            for k_s in (0, 40, 128):
+                for s_dt in (torch.float32, torch.bfloat16):
+                    for dt in (torch.bfloat16, torch.float32):
+                        args = (codes(n, kk), rnd(n, kk // gs, lo=0.01, hi=0.2),
+                                torch.randint(-128, 128, (kk // 2, o), generator=gen,
+                                              device=dev, dtype=torch.int8),
+                                rnd(kk // gs, o, lo=0.01, hi=0.2).to(s_dt), rnd(n, k_s).to(dt),
+                                rnd(k_s, o).to(dt))
+                        got = k6.int4_group_matmul(*args, group_size=gs)
+                        ref = k6.int4_group_matmul_plain(*args, group_size=gs)
+                        hold(f"K6 n={n} gs={gs} o={o} k_s={k_s} {s_dt} {dt}",
+                             "int4_group_matmul", k6.gmm_body(o, gs, dt), got, ref, dt)
+        for gs, k, o in ((64, 384, 384), (32, 256, 336), (None, 1000, 384), (64, 384, 200)):
+            for k_s in (0, 128):
+                for s_dt in (torch.float32, torch.bfloat16):
+                    for dt in (torch.bfloat16, torch.float32):
+                        g = 1 if gs is None else k // gs
+                        args = (rnd(n, k).to(dt), rnd(n, k_s).to(dt),
+                                codes(k, o, q=7 if gs else 127),
+                                rnd(g, o, lo=0.001, hi=0.05).to(s_dt), rnd(k_s, o).to(dt))
+                        kw = dict(group_size=gs or k, out_dtype=dt)
+                        got = k9.dual_path_matmul(*args, **kw)
+                        ref = k9.dual_path_matmul_plain(*args, **kw)
+                        body = k9.dual_path_body(dt)
+                        if body == "wgmma" and o % 16:
+                            body = "wgmma, weight by cp.async"
+                        hold(f"K9 n={n} gs={gs} o={o} k_s={k_s} {s_dt} {dt}",
+                             "dual_path_matmul", body, got, ref, dt)
+    torch.cuda.synchronize()
+    return worst
+
+
+def sass_check():
+    """What the build made of the wgmma bodies: per kernel, the IGMMA /
+    HGMMA instructions of its main loop and any I2F (int → float through the
+    conversion unit, which K6's per-group scaling is written to avoid) in
+    `cuobjdump -sass`, and ptxas' register, spill and serialization notes.
+    Fails unless each K6 body issues IGMMA and has no I2F and each K9 body
+    issues HGMMA (spills and serialization notes are reported, not held)."""
+    import os
+    import re
+    import shutil
+
+    from smoothquant_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.build()], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0]
+        kind = ("K6" if "wg_gmm_kernel" in name else
+                "K9" if "dual_path_wg_kernel" in name else None)
+        if kind is None:
+            continue
+        ops = {op: len(re.findall(r"\b" + op + r"\b", fn)) for op in ("IGMMA", "HGMMA", "I2F")}
+        if (kind == "K6" and (ops["IGMMA"] == 0 or ops["I2F"])) or (
+                kind == "K9" and ops["HGMMA"] == 0):
+            raise AssertionError(f"{kind} {name}: SASS {ops}")
+        short = name[name.find("wg_gmm_kernel" if kind == "K6" else "dual_path_wg_kernel"):]
+        out[f"{kind} {short[:60]}"] = ops
+    log = _build.build_log.splitlines()
+    notes = {}
+    for i, ln in enumerate(log):
+        if "Compiling entry" in ln and ("wg_gmm_kernel" in ln or "dual_path_wg_kernel" in ln):
+            block = " ".join(log[i:i + 4])
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            notes[re.search(r"(wg_gmm_kernel|dual_path_wg_kernel)\w{0,40}", ln).group(0)] = [
+                int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None]
+    serialized = sum(1 for ln in log if "serialized" in ln)
+    if not out:
+        raise AssertionError("the build holds no wgmma body")
+    return {"sass": out, "registers_spills": notes, "ptxas_serialized_notes": serialized}
+
+
+def add_scaling_floors(rows, clock_mhz):
+    """Each K5, K6 and K8 row's per-group scaling floor beside its bound
+    (roofline.group_scaling_floor_ms at the card's highest SM clock)."""
+    from smoothquant_tpu_torch.utils import roofline
+
+    for r in rows:
+        if "scalings" in r:
+            r["scaling_floor_ms"] = roofline.group_scaling_floor_ms(*r["scalings"], clock_mhz)
+    return [dict(kernel=r["kernel"], site=r["site"], ms=r["kernel_ms"], before_ms=r["before_ms"],
+                 bound_ms=r["bound_ms"], scaling_floor_ms=r["scaling_floor_ms"])
+            for r in rows if "scalings" in r]
+
+
 def check_no_fallback(dev):
     """On CUDA tensors a wrapper launches its kernel or raises: shapes and
     options the kernels do not take raise instead of running a plain
@@ -1836,6 +2007,9 @@ def check_no_fallback(dev):
         "K9 odd group size": (lambda: k9.dual_path_matmul(
             f32(4, 63), f32(4, 0), z8[:63], f32(21, 64), f32(0, 64), group_size=3),
             ValueError),
+        "K9 bf16 group size 2, f32 scales": (lambda: k9.dual_path_matmul(
+            f32(4, 64).bfloat16(), f32(4, 0).bfloat16(), z8, f32(32, 64), f32(0, 64).bfloat16(),
+            group_size=2, out_dtype=torch.bfloat16), ValueError),
     }
     raised = {}
     for name, (fn, expected) in cases.items():
@@ -3404,6 +3578,10 @@ def kernels_line(rows, launches):
             bound_ms=bound,
             bound_by=max(rs, key=lambda r: r["bound_ms"])["bound_by"],
             library_ms=None if None in lib else sum(lib),
+            **({"scaling_floor_ms": sum(r["scaling_floor_ms"] for r in rs)}
+               if rs and "scaling_floor_ms" in rs[0] else {}),
+            **({"before_ms": sum(r["before_ms"] for r in rs)}
+               if rs and all(r.get("before_ms") is not None for r in rs) else {}),
             sites=[r.get("site", "all") for r in every]))
     return {"kernels": out}
 
@@ -3443,6 +3621,7 @@ def run(dev, cfg, card: str):
 
     emit({"phase": "no_fallback", "raised": check_no_fallback(dev)})
     emit({"phase": "kernel_variants", "max_rel_err": check_kernel_variants(dev)})
+    emit({"phase": "wg_edges", "max_rel_err": check_wg_edges(dev)})
     emit({"phase": "reference_check", **reference_check(dev)})
 
     launches = Counter()
@@ -3577,13 +3756,18 @@ def main() -> int:
     ptx = [ln.strip() for ln in _build.build_log.splitlines()
            if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptx})
+    emit({"phase": "sass", **sass_check()})
+    clock = sm_clock_mhz()
 
     rows, launches = run_opt(dev, opt.OPTConfig.opt_1_3b(), card)
     torch.cuda.empty_cache()
     more_rows, more = run(dev, llama.LlamaConfig.llama2_7b(), card)
     torch.cuda.empty_cache()
     bloom_rows, bloom_launches = run_bloom(dev, bloom_7b1(), card)
-    emit(kernels_line(rows + more_rows + bloom_rows, launches + more + bloom_launches))
+    rows = rows + more_rows + bloom_rows
+    emit({"phase": "scaling_floors", "card": card, "sm_clock_mhz": clock,
+          "rows": add_scaling_floors(rows, clock)})
+    emit(kernels_line(rows, launches + more + bloom_launches))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

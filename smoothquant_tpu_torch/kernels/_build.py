@@ -40,6 +40,7 @@ _SIGNATURES = {
     "sq_rawx_workspace_bytes": ([_I] * 5, ctypes.c_longlong),
     "sq_rawx": ([_P] * 8 + [_I] * 10 + [_F, _F, _I, _I, _P], _I),
     "sq_int4_gmm": ([_P] * 7 + [_I] * 5 + [_I, _I, _P], _I),
+    "sq_int4_gmm_wg": ([_P] * 7 + [_I] * 5 + [_I, _P], _I),
     "sq_int_gmm_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
     "sq_int_gmm": ([_P] * 8 + [_I] * 6 + [_I, _I, _P], _I),
     "sq_dual_path": ([_P] * 6 + [_I] * 7 + [_I, _I, _P], _I),
@@ -161,6 +162,12 @@ def check_operands(device: torch.device, **tensors) -> None:
             raise ValueError(f"{name} is on {t.device}, the kernel runs on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def aligned(t: torch.Tensor, align: int = 16) -> torch.Tensor:
+    """t, or a copy of it that starts `align`-byte aligned (the kernels'
+    vector, cp.async and TMA copies need it; a slice may start anywhere)."""
+    return t if t.data_ptr() % align == 0 else t.clone()
 
 
 def stream_ptr(t: torch.Tensor) -> int:

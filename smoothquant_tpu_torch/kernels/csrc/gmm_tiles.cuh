@@ -1,5 +1,6 @@
-// The int8 tensor-core group-matmul tile kernel shared by K5, K6
-// (int4_group_matmul.cu) and K8 (int_group_matmul.cu): 64×64 output tiles,
+// The int8 tensor-core group-matmul tile kernel shared by K5 and K8
+// (int4_group_matmul.cu, int_group_matmul.cu), and by K6 for the shapes
+// its wgmma body (wg_gmm_kernel) does not take: 64×64 output tiles,
 // 4 warps of 32×32, mma.sync m16n8k32 on operand tiles staged in shared
 // memory (rows padded to 17 words, so fragment loads hit 32 distinct
 // banks), an int32 partial per group scaled into f32 accumulators seeded by

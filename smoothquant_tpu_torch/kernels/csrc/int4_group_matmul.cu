@@ -37,16 +37,41 @@
 //     and added groups in order), and casts to the output dtype.
 //
 // K6 replaces int4_group_matmul (pallas_call at :950): the same inner
-// product on activations that are already quantized, at prefill N (up to
-// rows·bucket = 1024), where the int8 operations, not the bytes, bound it.
-// It runs them on the int8 tensor cores (mma.sync m16n8k32): 64×64 output
-// tiles, 4 warps of 32×32; each group pair stages the int8 activation rows
-// and the nibble-unpacked, K-packed weight columns in shared memory (rows
-// padded to 17 words, so fragment loads hit 32 distinct banks), one mma
-// chain per half gives the group's int32 product and the (p − 8Σx)·s_x·s_w
-// epilogue folds it into f32 accumulators seeded by the salient fp dot.
-// Loads are not overlapped with the mma (no cp.async / TMA pipeline yet).
-// The tile kernel lives in gmm_tiles.cuh, shared with K8's int8 containers.
+// product on activations that are already quantized.  At prefill N the int8
+// products (2·N·K·O at 1979 TOP/s: 0.24 ms for Llama-2-7B's four linears at
+// 1024 rows) are not what bounds it: each output element takes one scaling
+// a group, acc += ((p − 8Σx)·s_x)·s_w, on the CUDA cores, N·O·G of them
+// (roofline.group_scaling_floor_ms: ~0.3 ms at three f32-pipe instructions
+// each).  An int → float conversion per scaling (I2F, ~16 a clock an SM)
+// alone would cost ~0.8 ms, so the body converts with no I2F: one integer
+// add puts p − 8Σx under the exponent of 1.5·2^23 (the row's term
+// 0x4B400000 − 8Σx, made once per row and group), one subtract of 1.5·2^23
+// gives its exact f32 value (|p − 8Σx| < 2^22), then a multiply and an fma.
+// Two bodies, picked by shape alone (int4_group_matmul.py gmm_body):
+//   * wg_gmm_kernel (bf16, group size 32 or 64, O % 16 == 0; every row
+//     count): a warp-specialized wgmma kernel.  128 × 128 output tiles;
+//     two consumer warpgroups (64 rows each) run wgmma.mma_async
+//     m64n128k32 s8 into an s32 accumulator a group and scale it into the
+//     f32 one, the salient block (bf16 m64n128k16) seeding it first; two
+//     producer warpgroups copy each stage (a group pair: the two x tiles as
+//     they lie, K-major, the raw nibble rows, the scales) by TMA into a ring
+//     of four slots on mbarriers, and transform the nibble weight a stage
+//     ahead: unpack lo / hi nibbles (& 0x0F, >> 4), byte-transpose four rows
+//     × four columns with __byte_perm and write the two K-major int8 tiles
+//     s8 wgmma needs (there is no transpose for 8-bit B), plus the rows' Σx
+//     terms and the f32 column scales.  Named barriers hand each stage over
+//     and back; setmaxnreg gives each consumer thread 160 registers for its
+//     f32 and s32 accumulators (128; at the 128 a thread of 512 has at
+//     launch, ptxas spilled them and serialized the wgmma).  A second s32
+//     set, to scale one group while the next one's wgmma runs, would not
+//     fit beside two producer warpgroups, so the two consumers' wgmma and
+//     scaling interleave instead.  The weight keeps its (K/2, O) storage.
+//     chip_smoke.py's sass
+//     phase holds the build to IGMMA in every K6 wgmma kernel and no I2F in
+//     any of them (the H100 build: 0).
+//   * gmm_kernel (gmm_tiles.cuh, every other shape: f32, group sizes 16
+//     and 48, O % 16 != 0): 64×64 mma.sync tiles, shared with K5 and K8.
+// Times beside the bound and the floor: PERF.md §6.
 //
 // K5 replaces int4_group_matmul_stacked (pallas_call at :807): layer i of a
 // stacked (L, K/2, O) pack on quantized activations, the decode linears of
@@ -59,6 +84,7 @@
 // the fixed-order reduce) where the 64-wide O-tiles alone give fewer than
 // ~6 blocks per SM (every decode linear at N = 64).
 #include "gmm_tiles.cuh"
+#include "wg_gemm.cuh"
 
 namespace {
 
@@ -129,6 +155,309 @@ void launch_main(const void* xq, const void* xs, const void* xsum, const void* x
 }
 
 
+// ---------------------------------------------------------------- K6, wgmma body
+// Four warpgroups: two consumers (64 output rows each) run the wgmma and
+// the per-group scaling; two producers copy the stages in (TMA) and rewrite
+// each stage's nibble weight into the K-major tiles wgmma reads, a stage
+// ahead.  setmaxnreg moves registers from producers to consumers
+// (W6_CONSUMER_REGS).  A slot of the ring: the A tiles (a
+// pair's x lo at 0 and hi at 128·GS, rows of GS bytes; or a salient stage's
+// 64 bf16 columns), the raw B rows (GS nibble rows of 128 bytes, or 64
+// salient bf16 rows in two halves; all SWIZZLE_128B), the pair's row scales
+// and code-sum terms (lo then hi), its two column-scale rows as copied and
+// in f32.  The slots' mbarriers sit past the two Bt buffers.
+constexpr int W6_XA = 0, W6_RAW = 16384, W6_SX = 32768, W6_CS = 33792, W6_SW = 34816;
+constexpr int W6_SWF = 35840, W6_SLOT = 36864;
+constexpr int W6_BT = WG_STAGES * W6_SLOT, W6_BAR = W6_BT + 2 * WG_BT_BYTES;
+constexpr int W6_SMEM = W6_BAR + 8 * WG_STAGES;
+constexpr int W6_THREADS = 4 * 128, W6_PRODUCER = 256;   // the producers' first thread
+// registers a consumer and a producer thread hold after setmaxnreg (128 each
+// at launch): the consumers' f32 and s32 accumulators take 128
+constexpr int W6_CONSUMER_REGS = 160, W6_PRODUCER_REGS = 96;
+constexpr int W6_FULL = 1, W6_EMPTY = 3;   // named barriers: Bt buffer b ready / free (+ b)
+
+struct W6Args {
+  const int8_t* xq;
+  const float* xs;
+  int N, O, kk, ks;
+};
+
+struct W6Maps {   // x_q (N, kk), x_sal (N, ks), w_sal (ks, O), w (kk/2, O), w_scales (G, O)
+  CUtensorMap xq, xsal, wsal, w, ws;
+};
+
+// Stage t into its slot, by the producers (pt: their thread, 0-255):
+// salient stages (t < n_sal) take 64 columns of x_sal and 64 rows of w_sal;
+// stage n_sal + g the group pair (g, g + G/2): the x tiles, the raw nibble
+// rows g·GS.., the column scales (all by TMA, from thread 0) and the f32 row
+// scales (a column of x_scales: cp.async, one a thread).  Each producer
+// thread then reports its copies to the slot's mbarrier.
+template <typename S, int GS>
+__device__ __forceinline__ void w6_load(const W6Args& a, const W6Maps& m, char* smem, int t,
+                                        int n_sal, int n0, int o0, int pt) {
+  const int slot = t % WG_STAGES;
+  const uint32_t s = smem_u32(smem + slot * W6_SLOT);
+  const uint32_t bar = smem_u32(smem + W6_BAR + 8 * slot);
+  const int G = a.kk / GS;
+  if (pt == 0) {
+    if (t < n_sal) {
+      mbar_expect_tx(bar, WG_BM * 128 + 2 * WG_RAW16_HALF);
+      tma_2d(s + W6_XA, m.xsal, bar, t * WG_KB, n0);
+      tma_2d(s + W6_RAW, m.wsal, bar, o0, t * WG_KB);
+      tma_2d(s + W6_RAW + WG_RAW16_HALF, m.wsal, bar, o0 + 64, t * WG_KB);
+    } else {
+      const int g = t - n_sal;
+      mbar_expect_tx(bar, 2 * WG_BM * GS + GS * WG_BN + 2 * WG_BN * (int)sizeof(S));
+      tma_2d(s + W6_XA, m.xq, bar, g * GS, n0);
+      tma_2d(s + W6_XA + WG_BM * GS, m.xq, bar, a.kk / 2 + g * GS, n0);
+      tma_2d(s + W6_RAW, m.w, bar, o0, g * GS);
+      tma_2d(s + W6_SW, m.ws, bar, o0, g);
+      tma_2d(s + W6_SW + WG_BN * (int)sizeof(S), m.ws, bar, o0, g + G / 2);
+    }
+  }
+  if (t >= n_sal) {
+    const int g = t - n_sal, h = pt >> 7, n = n0 + (pt & 127);
+    const bool ok = n < a.N;
+    cp4(s + W6_SX + pt * 4, ok ? a.xs + (size_t)n * G + g + h * (G / 2) : a.xs, ok);
+  }
+  cp_async_arrive(bar);
+}
+
+// Stage t's B into a Bt buffer, by the producers: salient rows as bf16
+// pairs; a pair's nibble rows unpacked (lo & 0x0F, hi >> 4), byte-transposed
+// four rows × four columns at a time (each lane builds its rotated column's
+// word from the four row words with byte permutes) and written K-major (lo
+// at 0, hi at 128·GS, SBO 8·GS); the pair's per-row terms 0x4B400000 − 8·Σx
+// and its column scales in f32 (one a thread), so the consumers' scaling
+// loads them as they use them.
+template <typename S, int GS>
+__device__ __forceinline__ void w6_transform(char* bt, char* slot, int t, int n_sal,
+                                             const WgLane& l, int pt) {
+  if (t < n_sal) {
+    wg_transform_b16<256>(bt, slot + W6_RAW, l);
+    return;
+  }
+  const char* raw = slot + W6_RAW;
+#pragma unroll
+  for (int i = 0; i < GS / 32; ++i) {   // 32 column quads × GS / 4 units over 256 threads
+    const int kq = l.u0 + 8 * i, r = 4 * kq;
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(raw + wg_sw128(r, 4 * l.cq));
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(raw + wg_sw128(r + 1, 4 * l.cq));
+    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(raw + wg_sw128(r + 2, 4 * l.cq));
+    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(raw + wg_sw128(r + 3, 4 * l.cq));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = l.c[j];
+      const uint32_t sel = c | ((c + 4) << 4);   // byte c of the first word, then of the second
+      const uint32_t cw = __byte_perm(__byte_perm(w0, w1, sel), __byte_perm(w2, w3, sel), 0x5410);
+      char* d = bt + wg_kmajor_off(4 * l.cq + c, kq, 8 * GS);
+      *reinterpret_cast<uint32_t*>(d) = cw & 0x0F0F0F0Fu;
+      *reinterpret_cast<uint32_t*>(d + WG_BM * GS) = (cw >> 4) & 0x0F0F0F0Fu;
+    }
+  }
+  // Σx of row pt % 128 of tile pt / 128: the +8 bias of the nibbles leaves
+  // p − 8Σx in each product; the magic bias makes its f32 one add.  The
+  // swizzle only permutes 16-byte chunks within a row.
+  const char* xr = slot + W6_XA + pt * GS;   // tile hi follows tile lo's 128 rows
+  int sum = 0;
+#pragma unroll
+  for (int c = 0; c < GS / 16; ++c) {
+    const int4 v = *reinterpret_cast<const int4*>(xr + c * 16);
+    sum = __dp4a(v.x, 0x01010101, sum);
+    sum = __dp4a(v.y, 0x01010101, sum);
+    sum = __dp4a(v.z, 0x01010101, sum);
+    sum = __dp4a(v.w, 0x01010101, sum);
+  }
+  reinterpret_cast<int*>(slot + W6_CS)[pt] = 0x4B400000 - 8 * sum;
+  reinterpret_cast<float*>(slot + W6_SWF)[pt] = to_f<S>(reinterpret_cast<const S*>(slot + W6_SW)[pt]);
+}
+
+// p (64 × 128 per warpgroup) = one group's int8 product: the swizzled x
+// tile at `a` (this warpgroup's rows) · the Bt tile at `b`, GS / 32 k32 steps
+template <int GS>
+__device__ __forceinline__ void w6_mma_group(int (&p)[64], uint32_t a, uint32_t b) {
+  wg_arrive();
+#pragma unroll
+  for (int s = 0; s < GS / 32; ++s)
+    wgmma_s8(p, wg_desc(a + s * 32, 16, 8 * GS, wg_swizzle_layout(GS)),
+             wg_desc(b + s * 256, 128, 8 * GS), s > 0);
+  wg_commit();
+}
+
+// acc += ((p − 8Σx)·s_x)·s_w for the group of half h of the pair in `slot`,
+// with no int → float conversion: p + (0x4B400000 − 8Σx) is the f32 bit
+// pattern of 1.5·2^23 + (p − 8Σx) (|p − 8Σx| < 2^22), so one integer add and
+// one subtract give the exact f32 value, then a multiply and an fma.
+__device__ __forceinline__ void w6_scale(float (&acc)[64], const int (&p)[64], const char* slot,
+                                         int h, int row, int lane) {
+  const float* sx = reinterpret_cast<const float*>(slot + W6_SX) + h * WG_BM;
+  const int* cs = reinterpret_cast<const int*>(slot + W6_CS) + h * WG_BM;
+  const float* sw = reinterpret_cast<const float*>(slot + W6_SWF) + h * WG_BN + 2 * (lane & 3);
+  const float sx0 = sx[row], sx1 = sx[row + 8];
+  const int c0 = cs[row], c1 = cs[row + 8];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float2 w = load2_f(sw + 8 * i);
+    float* d = acc + 4 * i;
+    const int* q = p + 4 * i;
+    d[0] = __fmaf_rn(__fmul_rn(__fsub_rn(__int_as_float(q[0] + c0), WG_MAGIC), sx0), w.x, d[0]);
+    d[1] = __fmaf_rn(__fmul_rn(__fsub_rn(__int_as_float(q[1] + c0), WG_MAGIC), sx0), w.y, d[1]);
+    d[2] = __fmaf_rn(__fmul_rn(__fsub_rn(__int_as_float(q[2] + c1), WG_MAGIC), sx1), w.x, d[2]);
+    d[3] = __fmaf_rn(__fmul_rn(__fsub_rn(__int_as_float(q[3] + c1), WG_MAGIC), sx1), w.y, d[3]);
+  }
+}
+
+// The producers: stage t + 2's copies start once the consumers have freed
+// stage t − 2 (its slot and Bt buffer), then stage t is transformed into Bt
+// buffer t % 2 and handed over.  The consumers free stage s when they are
+// done with it, and signal only the stages the producers wait for.
+template <typename S, int GS>
+__device__ __forceinline__ void w6_producer(const W6Args& a, const W6Maps& m, char* smem, int T,
+                                            int n_sal, int n0, int o0, int pt) {
+  const WgLane l = wg_lane(pt);
+  if (pt == 0) {
+    tma_prefetch(m.xq);
+    tma_prefetch(m.w);
+    tma_prefetch(m.ws);
+    if (n_sal) {
+      tma_prefetch(m.xsal);
+      tma_prefetch(m.wsal);
+    }
+  }
+  for (int s = 0; s < 2 && s < T; ++s) w6_load<S, GS>(a, m, smem, s, n_sal, n0, o0, pt);
+  for (int t = 0; t < T; ++t) {
+    if (t >= 2) named_sync<W6_THREADS>(W6_EMPTY + (t & 1));
+    if (t + 2 < T) w6_load<S, GS>(a, m, smem, t + 2, n_sal, n0, o0, pt);
+    mbar_wait(smem_u32(smem + W6_BAR + 8 * (t % WG_STAGES)), (t / WG_STAGES) & 1);
+    w6_transform<S, GS>(smem + W6_BT + (t & 1) * WG_BT_BYTES, smem + (t % WG_STAGES) * W6_SLOT,
+                        t, n_sal, l, pt);
+    fence_async_smem();
+    named_arrive<W6_THREADS>(W6_FULL + (t & 1));
+  }
+}
+
+// The consumers: ks / 64 salient stages (their wgmma seeds the f32
+// accumulator), then the G/2 group pairs, each group's int8 product into
+// one s32 accumulator and scaled into the f32 one.  The producers'
+// transform of the next stage runs beside them.  (Staggering the two
+// consumers, so that the tensor cores run one's product while the other
+// scales, measured no faster on the H100: the scaling's issue slots, shared
+// with the producers, bound a stage, not the product.)
+template <typename S, int GS>
+__device__ __forceinline__ void w6_consumer(const W6Args& a, char* smem, int T, int n_sal,
+                                            int n0, int o0, int tid,
+                                            __nv_bfloat16* __restrict__ out) {
+  const int wg = tid >> 7, lane = tid & 31;
+  const int row = 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);   // this thread's first acc row
+  const uint32_t bt_u = smem_u32(smem + W6_BT);
+  float acc[64];
+  int p[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_sal; ++t) {
+    named_sync<W6_THREADS>(W6_FULL + (t & 1));
+    wg_mma_bf16(acc, smem_u32(smem + (t % WG_STAGES) * W6_SLOT) + W6_XA + wg * 64 * 128,
+                bt_u + (t & 1) * WG_BT_BYTES);
+    wg_wait<0>();
+    wg_fence_regs(acc);
+    if (t <= T - 3) named_arrive<W6_THREADS>(W6_EMPTY + (t & 1));
+  }
+  for (int t = n_sal; t < T; ++t) {
+    named_sync<W6_THREADS>(W6_FULL + (t & 1));
+    const char* slot = smem + (t % WG_STAGES) * W6_SLOT;
+    const uint32_t a_u = smem_u32(slot) + W6_XA + wg * 64 * GS;
+    const uint32_t b_u = bt_u + (t & 1) * WG_BT_BYTES;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      w6_mma_group<GS>(p, a_u + h * WG_BM * GS, b_u + h * WG_BM * GS);
+      wg_wait<0>();
+      wg_fence_regs(p);
+      w6_scale(acc, p, slot, h, row, lane);
+    }
+    if (t <= T - 3) named_arrive<W6_THREADS>(W6_EMPTY + (t & 1));
+  }
+
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int o = o0 + 8 * i + 2 * (lane & 3);
+    if (o >= a.O) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + row + 8 * h;
+      if (n < a.N)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)n * a.O + o) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+    }
+  }
+}
+
+template <typename S, int GS>
+__global__ void __launch_bounds__(W6_THREADS, 1)
+wg_gmm_kernel(const W6Args a, const __grid_constant__ W6Maps m, __nv_bfloat16* __restrict__ out) {
+  extern __shared__ __align__(1024) char smem[];
+  const int tid = threadIdx.x;
+  int n0, o0;
+  wg_tile<WG_BM>(n0, o0);
+  const int n_sal = a.ks / WG_KB, T = n_sal + a.kk / GS / 2;
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) mbar_init(smem_u32(smem + W6_BAR + 8 * s), 1 + 256);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid >= W6_PRODUCER) {
+    regs_dec<W6_PRODUCER_REGS>();
+    w6_producer<S, GS>(a, m, smem, T, n_sal, n0, o0, tid - W6_PRODUCER);
+  } else {
+    regs_inc<W6_CONSUMER_REGS>();
+    w6_consumer<S, GS>(a, smem, T, n_sal, n0, o0, tid, out);
+  }
+}
+
+// The five maps of one call (the nibble weight and the scales change with
+// the layer, x with the call): false where a base or stride breaks TMA's
+// 16-byte rules
+template <typename S, int GS>
+bool w6_maps(W6Maps& m, const void* xq, const void* xsal, const void* wsal, const void* w,
+             const void* ws, int N, int O, int kk, int ks) {
+  constexpr CUtensorMapDataType sdt =
+      sizeof(S) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle xsw =
+      GS == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  bool ok = wg_map(&m.xq, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kk, N, kk, GS, WG_BM, xsw) &&
+            wg_map(&m.w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O, kk / 2, O, WG_BN, GS,
+                   CU_TENSOR_MAP_SWIZZLE_128B) &&
+            wg_map(&m.ws, ws, sdt, sizeof(S), O, kk / GS, O, WG_BN, 1,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (ok && ks > 0)
+    ok = wg_map(&m.xsal, xsal, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ks, N, ks, WG_KB, WG_BM,
+                CU_TENSOR_MAP_SWIZZLE_128B) &&
+         wg_map(&m.wsal, wsal, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, O, ks, O, 64, WG_KB,
+                CU_TENSOR_MAP_SWIZZLE_128B);
+  return ok;
+}
+
+template <typename S, int GS>
+int launch_wg_gmm(const W6Args& a, const void* xsal, const void* wsal, const void* w,
+                  const void* ws, void* out, cudaStream_t st) {
+  static const cudaError_t attr =
+      wg_kernel_ready(wg_gmm_kernel<S, GS>, W6_SMEM, 65536 / W6_THREADS);
+  if (attr != cudaSuccess) return (int)attr;
+  W6Maps m = {};
+  if (!w6_maps<S, GS>(m, a.xq, xsal, wsal, w, ws, a.N, a.O, a.kk, a.ks))
+    return (int)cudaErrorInvalidValue;
+  wg_gmm_kernel<S, GS><<<wg_grid(a.N, a.O, WG_BM), W6_THREADS, W6_SMEM, st>>>(
+      a, m, static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int dispatch_wg_gmm(const W6Args& a, int gs, const void* xsal, const void* wsal, const void* w,
+                    const void* ws, void* out, cudaStream_t st) {
+  return gs == 32 ? launch_wg_gmm<S, 32>(a, xsal, wsal, w, ws, out, st)
+                  : launch_wg_gmm<S, 64>(a, xsal, wsal, w, ws, out, st);
+}
+
 }  // namespace
 
 // Bytes of device workspace sq_rawx needs for these shapes.
@@ -193,6 +522,19 @@ SQ_EXPORT int sq_int4_gmm(const void* xq, const void* xs, const void* w, const v
                   kk, gs, G, 1, G / 2, 1};
   return x_dt == DT_BF16 ? dispatch_gmm<true, __nv_bfloat16>(a, s_dt, st)
                          : dispatch_gmm<true, float>(a, s_dt, st);
+}
+
+// K6, wgmma body: bf16 x_sal / w_sal / out, group size 32 or 64, O % 16 == 0,
+// ks % 64 == 0; xq, xsal, w, ws and wsal 16-byte aligned (TMA's rules).
+SQ_EXPORT int sq_int4_gmm_wg(const void* xq, const void* xs, const void* w, const void* ws,
+                             const void* xsal, const void* wsal, void* out, int N, int O,
+                             int kk, int gs, int k_s, int s_dt, void* stream) {
+  if (N < 1 || (gs != 32 && gs != 64) || kk % (2 * gs) || O % 16 || k_s % WG_KB)
+    return (int)cudaErrorInvalidValue;
+  const W6Args a{(const int8_t*)xq, (const float*)xs, N, O, kk, k_s};
+  cudaStream_t st = (cudaStream_t)stream;
+  return s_dt == DT_BF16 ? dispatch_wg_gmm<__nv_bfloat16>(a, gs, xsal, wsal, w, ws, out, st)
+                         : dispatch_wg_gmm<float>(a, gs, xsal, wsal, w, ws, out, st);
 }
 
 // Bytes of f32 partials sq_int4_gmm_stacked needs for these shapes (0 when

@@ -15,242 +15,302 @@
 // crossover, so N is in the hundreds to thousands and every weight byte is
 // reused N times: the bf16 operations (2·N·K·O at 989 TFLOP/s; 0.19 ms for
 // a 2048-row Llama-2-7B gate_proj) bound it, not the one byte a weight
-// element it reads.  The bf16 body keeps the tensor cores fed and the
-// dequant off their path:
-//   * 128×128 output tiles, 8 warps of 64×32, mma.sync m16n8k16 with f32
-//     accumulators, k steps of 32;
-//   * each step's operands double-buffered in shared memory as k-pair words
-//     (rows padded to 20 words, so fragment loads hit 32 distinct banks),
-//     and the next step's global loads — x rows, the int8 weight rows and
-//     their group scales — issued into registers before this step's mma, so
-//     one barrier a step separates the two;
-//   * the weight dequantized once per block and step on the CUDA cores:
-//     int8 → f32 by one add (the byte in the mantissa of 2^23, no I2F),
-//     × the group scale, two values rounded to bf16 (nearest even, as
-//     astype) by one cvt.
+// element it reads.  The bf16 body (dual_path_wg_kernel) is a wgmma kernel
+// that keeps the dequantization beside the tensor cores' work:
+//   * output tiles of 256 × 128 (grouped; four warpgroups) or 128 × 128
+//     (single group; two, whose two accumulators fit their registers); each
+//     warpgroup runs wgmma.mma_async m64n128k16 bf16 on its 64 rows with f32
+//     accumulators, the salient stages first (into the same accumulator, or
+//     into a second one the epilogue joins with fma(acc, s[o], sal));
+//   * each 64-column stage — x_ns (K-major, as it lies: TMA, 128-byte
+//     swizzle, which the wgmma descriptor names), the raw int8 weight rows
+//     (TMA where O % 16 == 0, else cp.async) and the stage's group-scale
+//     rows — lands in a ring of three or four slots on mbarriers, copied
+//     two or three stages ahead;
+//   * while stage t's wgmma run, all threads dequantize stage t + 1 with the
+//     plain version's rule: int8 → f32 by a byte permute and one add (the
+//     byte in the mantissa of 2^23, no I2F), × the f32 group scale, rounded
+//     to bf16 to nearest even, written K-major as (k, k + 1) pairs; one
+//     barrier a stage.
+// A warp-specialized variant (consumer warpgroups on wgmma, two producer
+// warpgroups dequantizing) ran slower on the H100: with three consumers (a
+// fourth leaves a thread too few registers for the accumulator) its
+// producers bounded the stage.
+// chip_smoke.py's sass phase holds the build to HGMMA in every K9 wgmma
+// kernel.  Times beside the bound: PERF.md §6.
 //
 // f32 activations (the TPU tests' dtype) take a CUDA-core body — 64×64
 // tiles of f32 FMAs, never TF32, which would round the operands to 10 bits.
-#include "common.cuh"
+#include "wg_gemm.cuh"
 
 namespace {
 
 enum { SRC_T = 0, SRC_DEQ = 1, SRC_INT = 2 };  // B operand: T values, w_q·s, w_q
 
-// byte c of `word` as a signed int8, exactly, in f32: the byte with its sign
-// bit flipped sits in the mantissa of 2^23, so one add recovers it (no I2F)
-__device__ __forceinline__ float s8_to_f(uint32_t word, int c) {
-  const uint32_t u = ((word >> (8 * c)) & 0xFFu) ^ 0x80u;
-  return __fsub_rn(__uint_as_float(0x4B000000u | u), 8388736.0f);
-}
-
-// (bf16(lo), bf16(hi)), each rounded to nearest even, in one cvt
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // ------------------------------------------------------------ bf16 body
-constexpr int TB_M = 128, TB_N = 128, TB_K = 32, TB_THREADS = 256;
-constexpr int TB_W = TB_K / 2 + 4;       // k-pair words a tile row, padded
-constexpr int TB_TILE = TB_M * TB_W;     // words of one operand tile (A or B)
+// DqShape<WGS>: WGS warpgroups, a tile of 64·WGS × 128 outputs.  A slot of
+// the ring: the A stage (64 bf16 columns of x_ns or x_sal, one 128-byte
+// SWIZZLE_128B row per tile row), the raw B rows (64 int8 rows of 128 bytes,
+// SWIZZLE_128B, or of 144 bytes where cp.async copies them; or salient bf16
+// rows in two halves), the stage's group-scale rows.  The slots' mbarriers
+// sit past the two Bt buffers.  The grouped bodies take four warpgroups
+// (256-row tiles): the dequantization of a weight stage, which bounds a
+// 128-row tile, is then spread over twice the rows and sixteen warps, and
+// runs beside twice the tensor-core work.  The single-group bodies keep two
+// (their second accumulator would not fit 512 threads' registers).
+template <int WGS>
+struct DqShape {
+  static constexpr int THREADS = 128 * WGS, BM = 64 * WGS;
+  static constexpr int STAGES = WGS == 4 ? 3 : 4;
+  static constexpr int A = 0, RAW = BM * 128, SC = RAW + 16384, SLOT = SC + 9216;
+  static constexpr int BT = STAGES * SLOT, BAR = BT + 2 * WG_BT_BYTES, SMEM = BAR + 8 * STAGES;
+};
+constexpr int DQ_RAW8_LD = 144;     // a raw int8 row copied by cp.async (padded)
+constexpr int DQ_SC_BYTES = 9216;   // the slot's group-scale rows
 
-struct TbTile {
-  int tid, gid, tig, wm, wn, n0, o0;
+struct DqArgs {
+  const int8_t* w;
+  int N, O, K, x_ld, gs, ks;
+  int G;              // groups (grouped bodies)
+  uint32_t gs_magic;  // ceil(2^32 / gs): k / gs = umulhi(k, gs_magic) for the k that occur
+  int sc_rows;        // scale rows a stage's box holds: groups k0 / gs .. (k0 + 63) / gs
 };
 
-// One thread's share of a k step's global operands, held in registers
-// between the loads and the shared-memory stores: A row tid/2, 16 bf16 at
-// column (tid%2)·16; B rows 2·kp, 2·kp + 1 (kp = tid % 16) at 8 columns
-// cg·8 (cg = tid / 16) — 8 int8 bytes a row (in .x, .y) or 8 bf16 (SRC_T) —
-// and their 8 group scales (SRC_DEQ).
-struct TbRegs {
-  uint4 a[2];
-  uint4 b[2];
-  float s[8];
+struct DqMaps {   // x_ns (N, x_ld), x_sal (N, ks), w_sal (ks, O), w (K, O), scales (G, O)
+  CUtensorMap x, xsal, wsal, w, sc;
 };
 
-template <int SRC, typename S>
-__device__ __forceinline__ void tb_load(TbRegs& r, const __nv_bfloat16* __restrict__ A, int lda,
-                                        int N, const void* __restrict__ B,
-                                        const S* __restrict__ scales, int O, int k_rows, int k0,
-                                        int gs, const TbTile& t) {
-  const int ra = t.n0 + (t.tid >> 1);
-  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-  if (ra < N) {
-    const uint4* p = reinterpret_cast<const uint4*>(A + (size_t)ra * lda + k0 + (t.tid & 1) * 16);
-    r.a[0] = p[0];
-    r.a[1] = p[1];
-  } else {
-    r.a[0] = r.a[1] = z;
-  }
-  const int kp = t.tid & 15, o = t.o0 + (t.tid >> 4) * 8;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int k = k0 + 2 * kp + h;
-    r.b[h] = z;
-    if (o < O && k < k_rows) {
-      if constexpr (SRC == SRC_T) {
-        r.b[h] = __ldg(reinterpret_cast<const uint4*>(
-            static_cast<const __nv_bfloat16*>(B) + (size_t)k * O + o));
-      } else {
-        const uint2 v = __ldg(reinterpret_cast<const uint2*>(
-            static_cast<const int8_t*>(B) + (size_t)k * O + o));
-        r.b[h].x = v.x;
-        r.b[h].y = v.y;
-      }
+// the scale rows a grouped stage may need: groups k0 / gs .. (k0 + 63) / gs
+__host__ __device__ __forceinline__ int dq_scale_rows(int gs) { return 63 / gs + 2; }
+
+// Stage t into its slot: salient stages (t < n_sal) take 64 columns of x_sal
+// and 64 rows of w_sal; stage n_sal + j columns 64·j.. of x_ns, the int8
+// weight rows 64·j.. and (GROUPED) the scale rows of their groups — by TMA
+// from thread 0, the weight rows by cp.async where TMA cannot take them
+// (TMA_B false: O % 16 != 0).  Every thread then reports its copies to the
+// slot's mbarrier.
+template <int WGS, typename S, bool GROUPED, bool TMA_B>
+__device__ __forceinline__ void dq_load(const DqArgs& a, const DqMaps& m, char* smem, int t,
+                                        int n_sal, int n0, int o0, int tid) {
+  using D = DqShape<WGS>;
+  const int slot = t % D::STAGES;
+  const uint32_t s = smem_u32(smem + slot * D::SLOT);
+  const uint32_t bar = smem_u32(smem + D::BAR + 8 * slot);
+  const int k0 = (t - n_sal) * WG_KB;
+  if (tid == 0) {
+    if (t < n_sal) {
+      mbar_expect_tx(bar, D::BM * 128 + 2 * WG_RAW16_HALF);
+      tma_2d(s + D::A, m.xsal, bar, t * WG_KB, n0);
+      tma_2d(s + D::RAW, m.wsal, bar, o0, t * WG_KB);
+      tma_2d(s + D::RAW + WG_RAW16_HALF, m.wsal, bar, o0 + 64, t * WG_KB);
+    } else {
+      mbar_expect_tx(bar, D::BM * 128 + (TMA_B ? WG_KB * WG_BN : 0) +
+                              (GROUPED ? a.sc_rows * WG_BN * (int)sizeof(S) : 0));
+      tma_2d(s + D::A, m.x, bar, k0, n0);
+      if (TMA_B) tma_2d(s + D::RAW, m.w, bar, o0, k0);
+      if (GROUPED) tma_2d(s + D::SC, m.sc, bar, o0, (int)__umulhi(k0, a.gs_magic));
     }
   }
-  if constexpr (SRC == SRC_DEQ) {
-    const int k = k0 + 2 * kp;   // rows k and k + 1 share a group (gs even)
-    const S* sp = scales + (size_t)(k / gs) * O + o;
+  if (!TMA_B && t >= n_sal) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) r.s[c] = (o < O && k < k_rows) ? to_f<S>(sp[c]) : 0.0f;
+    for (int i = 0; i < 1024 / D::THREADS; ++i) {
+      const int e = tid + i * D::THREADS, q = e >> 4, c8 = e & 15;
+      const int k = k0 + q, o = o0 + 8 * c8;
+      const bool ok = k < a.K && o < a.O;
+      cp8(s + D::RAW + q * DQ_RAW8_LD + c8 * 8, ok ? a.w + (size_t)k * a.O + o : a.w, ok);
+    }
   }
+  cp_async_arrive(bar);
 }
 
-// The registers' operands into stage buffers sa / sb: A rows as they are
-// (k-pair words), B dequantized and rounded to bf16, pairs (k, k + 1) of a
-// column in one word.
-template <int SRC>
-__device__ __forceinline__ void tb_store(uint32_t* sa, uint32_t* sb, const TbRegs& r,
-                                         const TbTile& t) {
-  uint4* da = reinterpret_cast<uint4*>(sa + (t.tid >> 1) * TB_W + (t.tid & 1) * 8);
-  da[0] = r.a[0];
-  da[1] = r.a[1];
-  const int kp = t.tid & 15, c0 = (t.tid >> 4) * 8;
-  if constexpr (SRC == SRC_T) {
-    const uint32_t w0[4] = {r.b[0].x, r.b[0].y, r.b[0].z, r.b[0].w};
-    const uint32_t w1[4] = {r.b[1].x, r.b[1].y, r.b[1].z, r.b[1].w};
+// Stage t's B into a Bt buffer as bf16 pairs (k, k + 1) of a column: the
+// salient rows as they are; the int8 rows dequantized as the plain version
+// does, f32(w_q) (no I2F) × the f32 group scale (GROUPED), rounded to bf16 to
+// nearest even.  A lane's items share its four columns; rows ≥ K were
+// copied as zeros and take the last group's (finite) scale.
+template <int WGS, typename S, bool GROUPED, bool TMA_B>
+__device__ __forceinline__ void dq_transform(char* bt, const char* slot, int t, int n_sal,
+                                             const DqArgs& a, const WgLane& l) {
+  using D = DqShape<WGS>;
+  if (t < n_sal) {
+    wg_transform_b16<D::THREADS>(bt, slot + D::RAW, l);
+    return;
+  }
+  const int k0 = (t - n_sal) * WG_KB;
+  const char* raw = slot + D::RAW;
+  const S* sc = reinterpret_cast<const S*>(slot + D::SC) + 4 * l.cq;
+  const int g0 = GROUPED ? (int)__umulhi(k0, a.gs_magic) : 0;
+#pragma unroll
+  for (int i = 0; i < 1024 / D::THREADS; ++i) {
+    const int kp = l.u0 + D::THREADS / 32 * i, r = 2 * kp;
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(
+        raw + (TMA_B ? wg_sw128(r, 4 * l.cq) : r * DQ_RAW8_LD + 4 * l.cq));
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(
+        raw + (TMA_B ? wg_sw128(r + 1, 4 * l.cq) : (r + 1) * DQ_RAW8_LD + 4 * l.cq));
+    const uint32_t x0 = w0 ^ 0x80808080u, x1 = w1 ^ 0x80808080u;
+    int srow = 0;
+    if constexpr (GROUPED)   // rows k and k + 1 share a group (gs even)
+      srow = (min((int)__umulhi(k0 + r, a.gs_magic), a.G - 1) - g0) * WG_BN;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      sb[(c0 + 2 * j) * TB_W + kp] = __byte_perm(w0[j], w1[j], 0x5410);
-      sb[(c0 + 2 * j + 1) * TB_W + kp] = __byte_perm(w0[j], w1[j], 0x7632);
-    }
-  } else {
-    const uint32_t w0[2] = {r.b[0].x, r.b[0].y}, w1[2] = {r.b[1].x, r.b[1].y};
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float v0 = s8_to_f(w0[c >> 2], c & 3), v1 = s8_to_f(w1[c >> 2], c & 3);
-      if constexpr (SRC == SRC_DEQ) {
-        v0 = __fmul_rn(v0, r.s[c]);
-        v1 = __fmul_rn(v1, r.s[c]);
+      const int c = l.c[j];
+      const uint32_t sel = 0x7440 | c;   // byte c under 0x4B: s8_to_f's bit pattern
+      float v0 = __fsub_rn(__uint_as_float(__byte_perm(x0, 0x4B000000u, sel)), 8388736.0f);
+      float v1 = __fsub_rn(__uint_as_float(__byte_perm(x1, 0x4B000000u, sel)), 8388736.0f);
+      if constexpr (GROUPED) {
+        const float sv = to_f<S>(sc[srow + c]);
+        v0 = __fmul_rn(v0, sv);
+        v1 = __fmul_rn(v1, sv);
       }
-      sb[(c0 + c) * TB_W + kp] = bf16_pair(v0, v1);
+      *reinterpret_cast<uint32_t*>(bt + wg_kmajor_off(4 * l.cq + c, kp, WG_A16_SBO)) =
+          bf16_pair(v0, v1);
     }
   }
 }
 
-// acc += the warp's 64×32 share of one staged k step
-__device__ __forceinline__ void tb_mma(float (&acc)[4][4][4], const uint32_t* sa,
-                                       const uint32_t* sb, const TbTile& t) {
-#pragma unroll
-  for (int kw = 0; kw < TB_K / 2; kw += 8) {  // one k16 step: 8 pair words
-    int a[4][4], b[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int r = t.wm + 16 * mt + t.gid;
-      a[mt][0] = (int)sa[r * TB_W + kw + t.tig];
-      a[mt][1] = (int)sa[(r + 8) * TB_W + kw + t.tig];
-      a[mt][2] = (int)sa[r * TB_W + kw + 4 + t.tig];
-      a[mt][3] = (int)sa[(r + 8) * TB_W + kw + 4 + t.tig];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int c = t.wn + 8 * nt + t.gid;
-      b[nt][0] = (int)sb[c * TB_W + kw + t.tig];
-      b[nt][1] = (int)sb[c * TB_W + kw + 4 + t.tig];
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+// Iteration t: issue stage t's four k16 wgmma into d; while the tensor
+// cores run them, wait for stage t + 1's copies, dequantize it into the other
+// Bt buffer and start the copies of stage t + STAGES − 1 into the slot stage
+// t − 1 has freed; wait for the wgmma; one barrier.  That barrier is the
+// only one: it orders stage t's Bt and slot before their next writers, and
+// the slot's mbarrier orders the copies.
+template <int WGS, typename S, bool GROUPED, bool TMA_B>
+__device__ __forceinline__ void dq_step(float (&d)[64], const DqArgs& a, const DqMaps& m,
+                                        char* smem, int t, int T, int n_sal, int n0, int o0,
+                                        int tid, int wg, const WgLane& l) {
+  using D = DqShape<WGS>;
+  wg_mma_bf16(d, smem_u32(smem + (t % D::STAGES) * D::SLOT) + D::A + wg * 64 * 128,
+              smem_u32(smem + D::BT + (t & 1) * WG_BT_BYTES));
+  if (t + 1 < T) {
+    mbar_wait(smem_u32(smem + D::BAR + 8 * ((t + 1) % D::STAGES)), ((t + 1) / D::STAGES) & 1);
+    dq_transform<WGS, S, GROUPED, TMA_B>(smem + D::BT + ((t + 1) & 1) * WG_BT_BYTES,
+                                         smem + ((t + 1) % D::STAGES) * D::SLOT, t + 1, n_sal,
+                                         a, l);
   }
-}
-
-// acc += A (N, k_steps·32 bf16, row stride lda) · B (rows < k_rows, O
-// columns; SRC as above) for the block's tile: the k steps pipelined through
-// two stage buffers with one barrier a step.  Ends with a barrier, so the
-// buffers may be reused.
-template <int SRC, typename S>
-__device__ __forceinline__ void tb_gemm(float (&acc)[4][4][4], uint32_t* smem,
-                                        const __nv_bfloat16* __restrict__ A, int lda, int N,
-                                        const void* __restrict__ B, const S* __restrict__ scales,
-                                        int O, int k_rows, int k_steps, int gs, const TbTile& t) {
-  if (k_steps == 0) return;
-  TbRegs r;
-  tb_load<SRC, S>(r, A, lda, N, B, scales, O, k_rows, 0, gs, t);
-  tb_store<SRC>(smem, smem + TB_TILE, r, t);
+  fence_async_smem();
+  if (t + D::STAGES - 1 < T)
+    dq_load<WGS, S, GROUPED, TMA_B>(a, m, smem, t + D::STAGES - 1, n_sal, n0, o0, tid);
+  wg_wait<0>();
+  wg_fence_regs(d);
   __syncthreads();
-  for (int s = 0; s < k_steps; ++s) {
-    uint32_t* cur = smem + (s & 1) * 2 * TB_TILE;
-    uint32_t* nxt = smem + ((s + 1) & 1) * 2 * TB_TILE;
-    if (s + 1 < k_steps)
-      tb_load<SRC, S>(r, A, lda, N, B, scales, O, k_rows, (s + 1) * TB_K, gs, t);
-    tb_mma(acc, cur, cur + TB_TILE, t);
-    if (s + 1 < k_steps) tb_store<SRC>(nxt, nxt + TB_TILE, r, t);
-    __syncthreads();
-  }
 }
 
-__device__ __forceinline__ void zero4(float (&acc)[4][4][4]) {
+// Stages: ks / 64 salient stages, then x_ld / 64 of x_ns · w (dq_step).
+// GROUPED: everything into one f32 accumulator, seeded by the salient
+// stages; else x_sal · w_sal and x_ns · T(w_q) into two, joined by
+// out = fma(acc, s[o], sal).  No wgmma, commit or wait sits in a branch.
+template <int WGS, typename S, bool GROUPED, bool TMA_B>
+__global__ void __launch_bounds__(128 * WGS, 1)
+dual_path_wg_kernel(const DqArgs a, const __grid_constant__ DqMaps m,
+                    const S* __restrict__ scales, __nv_bfloat16* __restrict__ out) {
+  using D = DqShape<WGS>;
+  extern __shared__ __align__(1024) char smem[];
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int row = 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
+  int n0, o0;
+  wg_tile<D::BM>(n0, o0);
+  const int n_sal = a.ks / WG_KB, T = n_sal + a.x_ld / WG_KB;
+  const WgLane l = wg_lane(tid);
+  float acc[64], sal[64];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-}
+  for (int i = 0; i < 64; ++i) acc[i] = sal[i] = 0.0f;
 
-template <typename S, bool GROUPED>
-__global__ void __launch_bounds__(TB_THREADS)
-dual_path_bf16_kernel(const __nv_bfloat16* __restrict__ x_ns,
-                      const __nv_bfloat16* __restrict__ x_sal, const int8_t* __restrict__ w,
-                      const S* __restrict__ scales, const __nv_bfloat16* __restrict__ w_sal,
-                      __nv_bfloat16* __restrict__ out, int N, int O, int K, int x_ld, int gs,
-                      int ks) {
-  __shared__ __align__(16) uint32_t smem[4 * TB_TILE];
-  TbTile t;
-  t.tid = threadIdx.x;
-  const int lane = t.tid & 31, warp = t.tid >> 5;
-  t.gid = lane >> 2;
-  t.tig = lane & 3;
-  t.wm = (warp >> 2) * 64;
-  t.wn = (warp & 3) * 32;
-  t.n0 = blockIdx.y * TB_M;
-  t.o0 = blockIdx.x * TB_N;
-
-  float acc[4][4][4], sal[4][4][4];
-  zero4(acc);
-  if constexpr (GROUPED) {
-    // the salient product seeds the accumulator, the K steps add to it
-    tb_gemm<SRC_T, S>(acc, smem, x_sal, ks, N, w_sal, scales, O, ks, ks / TB_K, gs, t);
-    tb_gemm<SRC_DEQ, S>(acc, smem, x_ns, x_ld, N, w, scales, O, K, x_ld / TB_K, gs, t);
-  } else {
-    // x_ns·w_q, then apart x_sal·w_sal, added after the column scale
-    tb_gemm<SRC_INT, S>(acc, smem, x_ns, x_ld, N, w, scales, O, K, x_ld / TB_K, gs, t);
-    zero4(sal);
-    tb_gemm<SRC_T, S>(sal, smem, x_sal, ks, N, w_sal, scales, O, ks, ks / TB_K, gs, t);
+  if (tid == 0) {
+    for (int s = 0; s < D::STAGES; ++s) mbar_init(smem_u32(smem + D::BAR + 8 * s), 1 + D::THREADS);
+    mbar_init_fence();
+    tma_prefetch(m.x);
+    if (TMA_B) tma_prefetch(m.w);
+    if (GROUPED) tma_prefetch(m.sc);
   }
+  __syncthreads();
+  for (int s = 0; s < D::STAGES - 1 && s < T; ++s)
+    dq_load<WGS, S, GROUPED, TMA_B>(a, m, smem, s, n_sal, n0, o0, tid);
+  mbar_wait(smem_u32(smem + D::BAR), 0);
+  dq_transform<WGS, S, GROUPED, TMA_B>(smem + D::BT, smem, 0, n_sal, a, l);
+  fence_async_smem();
+  __syncthreads();
+
+  for (int t = 0; t < n_sal; ++t) {
+    if constexpr (GROUPED)
+      dq_step<WGS, S, GROUPED, TMA_B>(acc, a, m, smem, t, T, n_sal, n0, o0, tid, wg, l);
+    else
+      dq_step<WGS, S, GROUPED, TMA_B>(sal, a, m, smem, t, T, n_sal, n0, o0, tid, wg, l);
+  }
+  for (int t = n_sal; t < T; ++t)
+    dq_step<WGS, S, GROUPED, TMA_B>(acc, a, m, smem, t, T, n_sal, n0, o0, tid, wg, l);
+
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int i = 0; i < 16; ++i) {
+    const int o = o0 + 8 * i + 2 * (lane & 3);
+    if (o >= a.O) continue;
+    float2 s = make_float2(0.0f, 0.0f);
+    if constexpr (!GROUPED) s = load2_f(scales + o);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int n = t.n0 + t.wm + 16 * mt + t.gid + 8 * h;
-      if (n >= N) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int o = t.o0 + t.wn + 8 * nt + 2 * t.tig;
-        if (o >= O) continue;
-        float y0 = acc[mt][nt][2 * h], y1 = acc[mt][nt][2 * h + 1];
-        if constexpr (!GROUPED) {
-          y0 = __fmaf_rn(y0, to_f<S>(scales[o]), sal[mt][nt][2 * h]);
-          y1 = __fmaf_rn(y1, to_f<S>(scales[o + 1]), sal[mt][nt][2 * h + 1]);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)n * O + o) =
-            __floats2bfloat162_rn(y0, y1);
+      const int n = n0 + row + 8 * h;
+      if (n >= a.N) continue;
+      float y0 = acc[4 * i + 2 * h], y1 = acc[4 * i + 2 * h + 1];
+      if constexpr (!GROUPED) {
+        y0 = __fmaf_rn(y0, s.x, sal[4 * i + 2 * h]);
+        y1 = __fmaf_rn(y1, s.y, sal[4 * i + 2 * h + 1]);
       }
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)n * a.O + o) =
+          __floats2bfloat162_rn(y0, y1);
     }
+  }
+}
+
+template <int WGS, typename S, bool GROUPED, bool TMA_B>
+int launch_dual_path_wg(const DqArgs& a, const DqMaps& m, const void* scales, void* out,
+                        cudaStream_t st) {
+  using D = DqShape<WGS>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(dual_path_wg_kernel<WGS, S, GROUPED, TMA_B>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  dual_path_wg_kernel<WGS, S, GROUPED, TMA_B><<<wg_grid(a.N, a.O, D::BM), D::THREADS, D::SMEM, st>>>(
+      a, m, static_cast<const S*>(scales), static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The bf16 body: its maps, the weight by TMA where O % 16 == 0 and it is
+// 16-byte aligned, and the body for the group layout (256-row tiles for the
+// grouped bodies, 128-row ones for the single-group bodies).
+template <typename S>
+int launch_bf16(const void* x_ns, const void* x_sal, const void* w, const void* scales,
+                const void* w_sal, void* out, int N, int O, int K, int x_ld, int gs, int ks,
+                int grouped, cudaStream_t st) {
+  // k / gs as umulhi(k, ceil(2^32 / gs)) is exact while k·(magic·gs − 2^32) < 2^32
+  const uint32_t magic = grouped ? (uint32_t)((0x100000000ull + gs - 1) / gs) : 0u;
+  const int rows = grouped ? dq_scale_rows(gs) : 0;
+  if (grouped && ((uint64_t)x_ld * ((uint64_t)magic * gs - 0x100000000ull) >= 0x100000000ull ||
+                  rows * WG_BN * (int)sizeof(S) > DQ_SC_BYTES))
+    return (int)cudaErrorInvalidValue;
+  const DqArgs a{(const int8_t*)w, N, O, K, x_ld, gs, ks, grouped ? K / gs : 1, magic, rows};
+  const bool tma_b = O % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int bm = grouped ? DqShape<4>::BM : DqShape<2>::BM;
+  constexpr CUtensorMapDataType sdt =
+      sizeof(S) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  DqMaps m = {};
+  bool ok = wg_map(&m.x, x_ns, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x_ld, N, x_ld, WG_KB, bm,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (ok && ks > 0)
+    ok = wg_map(&m.xsal, x_sal, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ks, N, ks, WG_KB, bm,
+                CU_TENSOR_MAP_SWIZZLE_128B) &&
+         wg_map(&m.wsal, w_sal, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, O, ks, O, 64, WG_KB,
+                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (ok && tma_b)
+    ok = wg_map(&m.w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O, K, O, WG_BN, WG_KB,
+                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (ok && grouped)
+    ok = wg_map(&m.sc, scales, sdt, sizeof(S), O, K / gs, O, WG_BN, rows,
+                CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (grouped)
+    return tma_b ? launch_dual_path_wg<4, S, true, true>(a, m, scales, out, st)
+                 : launch_dual_path_wg<4, S, true, false>(a, m, scales, out, st);
+  return tma_b ? launch_dual_path_wg<2, S, false, true>(a, m, scales, out, st)
+               : launch_dual_path_wg<2, S, false, false>(a, m, scales, out, st);
 }
 
 // ------------------------------------------------------------- f32 body
@@ -398,20 +458,13 @@ template <typename S>
 int launch(const void* x_ns, const void* x_sal, const void* w, const void* scales,
            const void* w_sal, void* out, int N, int O, int K, int x_ld, int gs, int ks,
            int grouped, int x_dt, cudaStream_t st) {
-  if (x_dt == DT_BF16) {
-    const dim3 grid((O + TB_N - 1) / TB_N, (N + TB_M - 1) / TB_M);
-    auto kern = grouped ? dual_path_bf16_kernel<S, true> : dual_path_bf16_kernel<S, false>;
-    kern<<<grid, TB_THREADS, 0, st>>>(
-        (const __nv_bfloat16*)x_ns, (const __nv_bfloat16*)x_sal, (const int8_t*)w,
-        (const S*)scales, (const __nv_bfloat16*)w_sal, (__nv_bfloat16*)out, N, O, K, x_ld, gs,
-        ks);
-  } else {
-    const dim3 grid((O + DP_BN - 1) / DP_BN, (N + DP_BM - 1) / DP_BM);
-    auto kern = grouped ? dual_path_f32_kernel<S, true> : dual_path_f32_kernel<S, false>;
-    kern<<<grid, DP_THREADS, 0, st>>>((const float*)x_ns, (const float*)x_sal,
-                                      (const int8_t*)w, (const S*)scales, (const float*)w_sal,
-                                      (float*)out, N, O, K, x_ld, gs, ks);
-  }
+  if (x_dt == DT_BF16)
+    return launch_bf16<S>(x_ns, x_sal, w, scales, w_sal, out, N, O, K, x_ld, gs, ks, grouped, st);
+  const dim3 grid((O + DP_BN - 1) / DP_BN, (N + DP_BM - 1) / DP_BM);
+  auto kern = grouped ? dual_path_f32_kernel<S, true> : dual_path_f32_kernel<S, false>;
+  kern<<<grid, DP_THREADS, 0, st>>>((const float*)x_ns, (const float*)x_sal, (const int8_t*)w,
+                                    (const S*)scales, (const float*)w_sal, (float*)out, N, O,
+                                    K, x_ld, gs, ks);
   return (int)cudaGetLastError();
 }
 
@@ -426,7 +479,7 @@ SQ_EXPORT int sq_dual_path(const void* x_ns, const void* x_sal, const void* w,
                            int K, int x_ld, int gs, int ks, int grouped, int s_dt, int x_dt,
                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (N < 1 || O % 8 || x_ld % TB_K || x_ld < K || ks % TB_K ||
+  if (N < 1 || O % 8 || x_ld % WG_KB || x_ld < K || ks % WG_KB ||
       (grouped && (gs % 2 || K % gs)))
     return (int)cudaErrorInvalidValue;
   return s_dt == DT_BF16 ? launch<__nv_bfloat16>(x_ns, x_sal, w, scales, w_sal, out, N, O, K,

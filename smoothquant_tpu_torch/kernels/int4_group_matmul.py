@@ -16,7 +16,9 @@ K5  int4_group_matmul_stacked — port of :679 (pallas_call :807).  Layer
     salient dot, then ((p − 8·Σx)·s_x)·s_w for group g and g + G/2 in turn,
     cast to out_dtype.
 K6  int4_group_matmul — port of :841 (pallas_call :950).  The same inner
-    product on activations that are already quantized (prefill).
+    product on activations that are already quantized (prefill), in one of
+    two bodies picked by shape alone (gmm_body): the wgmma ring
+    (wg_gmm_kernel) or the mma.sync tiles K5 and K8 share (gmm_tiles.cuh).
 
 CUDA sources: csrc/int4_group_matmul.cu (the design notes live there).
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
@@ -304,6 +306,19 @@ def int4_group_matmul_plain(x_q, x_scales, w_packed, w_scales_t, x_sal,
     return acc.to(out_dtype or x_sal.dtype)
 
 
+def gmm_body(o: int, group_size: int, dtype) -> str:
+    """The body a CUDA call of K6 runs, by shape alone: "wgmma" (the
+    warp-specialized 128 x 128 tiles of wg_gmm_kernel: bf16 compute dtype,
+    whole s8 wgmma k steps in a group (group size 32 or 64), weight rows of
+    whole 16-byte runs for TMA (O % 16 == 0); at every row count, as it was
+    faster than the tiles at every one chip_smoke.py times, 4 rows included) or
+    "tiles" (gmm_kernel's 64 x 64 mma.sync tiles: every other shape K6 takes,
+    f32 and group sizes 16 and 48 included)."""
+    if dtype == torch.bfloat16 and group_size % 32 == 0 and o % 16 == 0:
+        return "wgmma"
+    return "tiles"
+
+
 def int4_group_matmul(
     x_q: torch.Tensor,        # (N, K) int8 quantized activations
     x_scales: torch.Tensor,   # (N, G) f32
@@ -343,11 +358,26 @@ def int4_group_matmul(
     _build.check_operands(x_q.device, x_scales=x_scales, w_packed=w_packed,
                           w_scales_t=w_scales_t, x_sal=x_sal, w_sal_t=w_sal_t)
     out = torch.empty((n, o), dtype=dt, device=x_q.device)
-    _build.check(_build.lib().sq_int4_gmm(
-        x_q.data_ptr(), x_scales.data_ptr(),
-        w_packed.data_ptr(), w_scales_t.data_ptr(), x_sal.data_ptr(),
-        w_sal_t.data_ptr(), out.data_ptr(), n, o, kk, group_size, k_s,
-        _build.dt_code(w_scales_t), _build.dt_code(out),
-        _build.stream_ptr(x_q)), "sq_int4_gmm")
+    if gmm_body(o, group_size, dt) == "wgmma":
+        # whole 64-column stages of the salient block (zero rows add
+        # nothing), every operand 16-byte aligned for TMA
+        pad = -k_s % 64
+        if pad:
+            x_sal = torch.nn.functional.pad(x_sal, (0, pad))
+            w_sal_t = torch.nn.functional.pad(w_sal_t, (0, 0, 0, pad))
+        x_q, x_sal, w_packed, w_scales_t, w_sal_t = (
+            _build.aligned(t) for t in (x_q, x_sal, w_packed, w_scales_t, w_sal_t))
+        _build.check(_build.lib().sq_int4_gmm_wg(
+            x_q.data_ptr(), x_scales.data_ptr(), w_packed.data_ptr(),
+            w_scales_t.data_ptr(), x_sal.data_ptr(), w_sal_t.data_ptr(), out.data_ptr(),
+            n, o, kk, group_size, k_s + pad, _build.dt_code(w_scales_t),
+            _build.stream_ptr(x_q)), "sq_int4_gmm_wg")
+    else:
+        _build.check(_build.lib().sq_int4_gmm(
+            x_q.data_ptr(), x_scales.data_ptr(),
+            w_packed.data_ptr(), w_scales_t.data_ptr(), x_sal.data_ptr(),
+            w_sal_t.data_ptr(), out.data_ptr(), n, o, kk, group_size, k_s,
+            _build.dt_code(w_scales_t), _build.dt_code(out),
+            _build.stream_ptr(x_q)), "sq_int4_gmm")
     _build.LAUNCHES["int4_group_matmul"] += 1
     return out

@@ -12,7 +12,9 @@ K9  dual_path_matmul — port of smoothquant_tpu/kernels/quant_matmul.py:159
     in f32 (jitted XLA fuses the single-group epilogue into one multiply-
     add).  x_ns arrives already Q-DQ'd (pack.quantize_activations_packed).
 
-CUDA source: csrc/quant_matmul.cu (the design notes live there).  A
+CUDA source: csrc/quant_matmul.cu (the design notes live there): a bf16
+body on the wgmma ring of csrc/wg_gemm.cuh, and a CUDA-core body for f32
+(dual_path_body picks by dtype).  A
 wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.
 """
@@ -24,7 +26,7 @@ import torch
 from smoothquant_tpu_torch.kernels import _build
 from smoothquant_tpu_torch.quant.core import fma_f32
 
-K_STEP = 32      # the kernel's k tile; it takes rows zero-padded to it
+K_STEP = 64      # the kernels' k stage; they take rows zero-padded to it
 
 
 def dual_path_matmul_plain(x_ns, x_sal, w_qt, w_scales_t, w_sal_t, *, group_size: int,
@@ -49,8 +51,11 @@ def _pad_cols(t: torch.Tensor, m: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def dual_path_body(dtype) -> str:
+    """The body a CUDA call of K9 runs, by the activation dtype alone:
+    "wgmma" (bf16: dual_path_wg_kernel, bf16 wgmma over a TMA ring) or
+    "fma" (f32: the CUDA-core body, never TF32)."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def dual_path_matmul(
@@ -78,6 +83,10 @@ def dual_path_matmul(
         raise ValueError("K9 needs K = G·group_size with an even group size")
     if o % 8:
         raise ValueError("K9 needs O % 8 == 0")
+    if (grouped and dual_path_body(x_ns.dtype) == "wgmma" and w_scales_t.dtype == torch.float32
+            and group_size < 4):
+        raise ValueError("K9's bf16 body holds the f32 scale rows of 64 weight rows: "
+                         "group size at least 4")
     dt = x_ns.dtype
     if dt not in _build.DT_CODE or out_dtype != dt or x_sal.dtype != dt or w_sal_t.dtype != dt:
         raise TypeError("K9 computes in the activation dtype (f32 or bf16): x_sal, w_sal "
@@ -87,11 +96,12 @@ def dual_path_matmul(
             or w_scales_t.dtype not in _build.DT_CODE):
         raise TypeError("K9 operand shapes or dtypes do not match")
     dev = x_ns.device
-    # the bf16 body reads x rows and the salient block 16 bytes at a time
-    x_ns, x_sal = (_aligned(_pad_cols(t.contiguous(), K_STEP)) for t in (x_ns, x_sal))
+    # whole 64-column stages, 16-byte aligned rows: the bf16 body reads them by TMA
+    x_ns, x_sal = (_build.aligned(_pad_cols(t.contiguous(), K_STEP)) for t in (x_ns, x_sal))
     if x_sal.shape[1] != k_s:
         w_sal_t = torch.nn.functional.pad(w_sal_t, (0, 0, 0, x_sal.shape[1] - k_s))
-    w_sal_t = _aligned(w_sal_t.contiguous())
+    w_sal_t = _build.aligned(w_sal_t.contiguous())
+    w_scales_t = _build.aligned(w_scales_t)   # the bf16 body reads it by TMA
     _build.check_operands(dev, x_sal=x_sal, w_qt=w_qt, w_scales_t=w_scales_t,
                           w_sal_t=w_sal_t)
     if w_qt.data_ptr() % 8:

@@ -79,10 +79,11 @@ PREFILL_KERNEL_MIN_TOKENS = 256
 # this many rows the int path (K8), above it the dequant path (K9).
 # Measured by chip_smoke.py's int_path_crossover (NVIDIA H100 80GB HBM3,
 # 700 W; real_quant_linear with its activation prep, the quick start's
-# W4A4 g64 pack): the dequant path wins on both gate_proj and down_proj from
-# 512 rows (gate 0.521 against 0.858 ms, down 0.640 against 0.828), the int
-# path on down up to 256 (0.466 against 0.567 ms).
-INT_PATH_MAX_TOKENS = 256
+# W4A4 g64 pack), with K9 on wgmma: the dequant path wins on both gate_proj
+# and down_proj from 256 rows (gate 0.165 against 0.439 ms, down 0.351
+# against 0.463), the int path on down up to 128 (0.260 against 0.311 ms).
+# (Before K9's redesign the crossover lay at 512 rows and this was 256.)
+INT_PATH_MAX_TOKENS = 128
 COMPUTE_CHOICES = ("auto", "int", "dequant")
 
 

@@ -53,6 +53,23 @@ def gmm_cost(n, o, kk, gs, k_s, *, x_bytes=2, scale_bytes=2):
     return b, {"int8": 2 * n * o * kk, "bf16": 2 * n * o * k_s}
 
 
+H100_SMS, H100_FP32_LANES = 132, 128    # SMs; f32 lanes an SM issues to a clock
+SCALING_INSTRS = 3                       # f32-pipe instructions a per-group scaling
+
+
+def group_scaling_floor_ms(n, o, kk, gs, sm_clock_mhz: float, *, sms=H100_SMS,
+                           lanes=H100_FP32_LANES) -> float:
+    """Least time in ms of the per-group scaling that K5, K6 and K8 run on
+    the CUDA cores: N·O·G scalings acc += ((p − 8Σx)·s_x)·s_w, each of
+    SCALING_INSTRS f32-pipe instructions with no int → float conversion (an
+    add of the magic number's bias is on the integer pipe), at sms × lanes
+    lanes a clock of sm_clock_mhz (`nvidia-smi --query-gpu=clocks.max.sm`).
+    Beside bound_ms, not in it: it is the floor of this algorithm, not of
+    the function."""
+    scalings = n * o * -(-kk // gs)
+    return 1e3 * scalings * SCALING_INSTRS / (sms * lanes * sm_clock_mhz * 1e6)
+
+
 def int_group_matmul_cost(n, o, kk, gs, k_s, *, x_bytes=2, scale_bytes=4, out_bytes=2):
     """K8, counted as the JAX CostEstimate counts it (int_group_matmul.py:
     167-173) at the unpadded shapes: x_q (N, K) and the weight (K, O) int8,

@@ -490,3 +490,37 @@ def test_bloom_path_rehearsal_on_cpu(monkeypatch):
     for b in (2, 40):
         # position 448, two warm-up steps and the counted one, three windows of 8, the profile
         assert phases[f"bloom_decode_b{b}"]["positions"] == [448, 448 + 3 + 24 + 4]
+
+
+def test_wgmma_edge_checks_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's edge checks of K6's and K9's bodies (check_wg_edges: 1,
+    65 and 333 rows, ragged column tiles, both weight-copy paths, group
+    sizes, salient blocks, scale and output dtypes) on the CPU, where the
+    wrappers take their plain versions: every case reads 0 and each body the
+    shape rules reach is named; and the per-group scaling floors it prints
+    beside K5's, K6's and K8's bounds."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    worst = cs.check_wg_edges(torch.device("cpu"))
+    assert worst == {"int4_group_matmul/wgmma": 0.0, "int4_group_matmul/tiles": 0.0,
+                     "dual_path_matmul/wgmma": 0.0, "dual_path_matmul/fma": 0.0,
+                     "dual_path_matmul/wgmma, weight by cp.async": 0.0}
+    rows = [dict(kernel="int4_group_matmul", site="qkv", kernel_ms=1.0, bound_ms=0.06,
+                 scalings=[1024, 12288, 3968, 64], before_ms=cs._before("int4_group_matmul",
+                                                                     "qkv")),
+            dict(kernel="fp_matmul_stacked", site="qkv", kernel_ms=0.1, bound_ms=0.05)]
+    floors = cs.add_scaling_floors(rows, 1980.0)
+    assert [f["site"] for f in floors] == ["qkv"] and floors[0]["before_ms"] == 1.1468
+    assert 0.069 < rows[0]["scaling_floor_ms"] < 0.071 and "scaling_floor_ms" not in rows[1]
+    one = dict(max_err=0.0, kernel_ms=0.1, plain_ms=1.0, bound_ms=0.01, bound_by="bytes",
+               library_ms=None)
+    line = cs.kernels_line([dict(rows[0], max_err=0.0, plain_ms=1.0, bound_by="operations",
+                                 library_ms=0.1)]
+                           + [dict(one, kernel=k) for k in cs.SOURCES if k != "int4_group_matmul"],
+                           {})
+    by = {k["name"]: k for k in line["kernels"]}
+    assert len(by) == 18 and "scaling_floor_ms" not in by["fp_matmul_stacked"]
+    assert by["int4_group_matmul"]["scaling_floor_ms"] == rows[0]["scaling_floor_ms"]
+    assert by["int4_group_matmul"]["before_ms"] == 1.1468

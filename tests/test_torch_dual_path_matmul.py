@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from smoothquant_tpu.kernels.quant_matmul import dual_path_matmul as j_dual
-from smoothquant_tpu_torch.kernels.quant_matmul import dual_path_matmul
+from smoothquant_tpu_torch.kernels.quant_matmul import dual_path_body, dual_path_matmul
 
 torch.set_num_threads(1)
 
@@ -69,3 +69,9 @@ def test_cuda_tensors_never_take_the_plain_version():
             ("x_ns", "x_sal", "w_qt", "w_scales_t", "w_sal_t")]
     with pytest.raises(RuntimeError):
         dual_path_matmul(*args, group_size=GS)
+
+
+@pytest.mark.parametrize("dtype, body", [(torch.bfloat16, "wgmma"), (torch.float32, "fma")])
+def test_dual_path_body_rule(dtype, body):
+    """K9's body on a CUDA tensor follows from the activation dtype alone."""
+    assert dual_path_body(dtype) == body

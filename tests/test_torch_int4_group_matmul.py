@@ -26,10 +26,12 @@ from smoothquant_tpu_torch.kernels import pack as tpack
 from smoothquant_tpu_torch.kernels import real_linear as treal
 from smoothquant_tpu_torch.kernels.act_prep import quantize_acts_grouped_t
 from smoothquant_tpu_torch.kernels.int4_group_matmul import (
+    gmm_body,
     int4_group_matmul,
     int4_group_matmul_stacked,
     int4_group_matmul_stacked_rawx,
 )
+from smoothquant_tpu_torch.utils import roofline
 from smoothquant_tpu_torch.utils.convert import packed_from_numpy
 
 torch.set_num_threads(1)
@@ -261,3 +263,28 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError):   # identity call sites fuse no norm
         treal.real_quant_linear(ti, torch.zeros((33, C)), layer_idx=0,
                                 norm=(torch.ones((L, C)), EPS, "rms"))
+
+
+@pytest.mark.parametrize("o, group_size, dtype, body", [
+    (12288, 64, torch.bfloat16, "wgmma"),    # Llama-2-7B's qkv, the main path
+    (4096, 32, torch.bfloat16, "wgmma"),
+    (336, 64, torch.bfloat16, "wgmma"),      # a ragged column tile, 16-byte weight rows
+    (200, 64, torch.bfloat16, "tiles"),      # weight rows TMA cannot take
+    (4096, 48, torch.bfloat16, "tiles"),     # no whole s8 wgmma k steps in a group
+    (4096, 16, torch.bfloat16, "tiles"),
+    (4096, 64, torch.float32, "tiles"),      # f32: the CUDA-core salient dot
+])
+def test_gmm_body_rule(o, group_size, dtype, body):
+    """K6's body on a CUDA tensor follows from the shape and dtype alone."""
+    assert gmm_body(o, group_size, dtype) == body
+
+
+def test_group_scaling_floor():
+    """N·O·G scalings of three f32-pipe instructions over 132 SMs × 128
+    lanes: Llama-2-7B's qkv at 1024 rows (62 groups) at 1980 MHz, and a
+    ragged K that counts the groups it reaches."""
+    ms = roofline.group_scaling_floor_ms(1024, 12288, 3968, 64, 1980.0)
+    assert ms == pytest.approx(1e3 * 1024 * 12288 * 62 * 3 / (132 * 128 * 1980e6))
+    assert 0.069 < ms < 0.071
+    assert roofline.group_scaling_floor_ms(4, 128, 100, 64, 1000.0) == pytest.approx(
+        1e3 * 4 * 128 * 2 * 3 / (132 * 128 * 1000e6))
