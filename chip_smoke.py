@@ -46,8 +46,7 @@ Then the Llama-2-7B paths:
    busy-wait, so they are device time.  K8 and K9 are also held to their
    plain versions over every group layout, dtype and ragged row count they
    take (kernel_variants), K6 and K9 over the edges of their wgmma bodies
-   and the shapes their rules send elsewhere (wg_edges).  Each K6 and K9
-   row carries its time before their redesign (BEFORE_MS).
+   and the shapes their rules send elsewhere (wg_edges).
 4. Checks the kernel path against the plain path (the CPU) on a small
    model, f32 and bf16: the S-major prefill and one stacked decode step;
    a promoted prefill over head-major int8 caches and one Generator decode
@@ -199,27 +198,6 @@ BLOOM_PACK = dict(nibble=True, align_k_groups=8, align_o=256)   # the stacked de
 BLOOM_REF_TOL = {"float32": (1e-5, 2e-4, 1e-6), "bfloat16": (1e-5, 1.5e-1, 1e-6)}
 K4_RAWX_CASES = (("gate@1024", (PREFILL_N, 4096, 11008)), ("ragged@333", (333, 4096, 11008)),
                  ("one_k_step", (256, 64, 512)))
-# device ms of K6's and K9's check rows before their redesign, and of K5's
-# and K8's (which kept their tiles): the final run of chip_smoke.py before
-# the change (NVIDIA H100 80GB HBM3, 700 W), printed beside each new reading
-BEFORE_MS = {
-    "int4_group_matmul": {
-        "qkv": 1.1468, "o": 0.3819, "gate_up": 2.1223, "down": 1.0099,
-        "bloom_qkv@2048": 2.2502, "bloom_dense@2048": 0.7548, "bloom_h_to_4h@2048": 2.9801,
-        "bloom_4h_to_h@2048": 2.8932, "bloom_qkv@4": 0.1485, "bloom_dense@4": 0.1287,
-        "bloom_h_to_4h@4": 0.1471, "bloom_4h_to_h@4": 0.4888},
-    "dual_path_matmul": {
-        "grouped@512": 0.4256, "grouped@2048": 1.4074, "grouped_nosal@512": 0.3981,
-        "grouped_nosal@2048": 1.3255, "colscale@512": 0.4748, "colscale@2048": 1.6998,
-        "colscale_nosal@512": 0.3861, "colscale_nosal@2048": 1.5301},
-    "int4_group_matmul_stacked": {
-        "qkv": 0.101, "o": 0.0632, "gate_up": 0.1673, "down": 0.1445, "qkv@rows": 0.1004,
-        "bloom_qkv": 0.1005, "bloom_dense": 0.0628, "bloom_h_to_4h": 0.1312,
-        "bloom_4h_to_h": 0.1973},
-    "int_group_matmul": {"q@4": 0.0436, "gate@4": 0.0975, "down@4": 0.1273},
-}
-
-
 def _die(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -248,11 +226,6 @@ def sm_clock_mhz() -> float:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return float(out.splitlines()[0])
-
-
-def _before(kernel, site):
-    """This check row's device ms before the redesign (BEFORE_MS), or None."""
-    return BEFORE_MS.get(kernel, {}).get(site)
 
 
 # ---------------------------------------------------------------- timing
@@ -546,7 +519,6 @@ def check_gmm(packed, cfg, dev, gen, n=PREFILL_N):
         rows.append(dict(
             kernel="int4_group_matmul", site=name, body=k6.gmm_body(o, m.group_size, x_sal.dtype),
             shape=[n, c, o], scalings=[n, o, 2 * half, m.group_size],
-            before_ms=_before("int4_group_matmul", name),
             max_err=err, in_sum=not site.startswith("bloom_"),
             kernel_ms=device_ms(lambda i: k6.int4_group_matmul(*args(i), **kw), 8),
             plain_ms=device_ms(lambda i: k6.int4_group_matmul_plain(*args(i), **kw), 2,
@@ -928,7 +900,7 @@ def check_gmm_stacked(stacked, dev, gen, n=None):
             kernel="int4_group_matmul_stacked", site=name,
             mode="rows" if pre is None else "pre_laid", shape=[n, c, o],
             scalings=[n, o, 2 * half, m.group_size],
-            before_ms=_before("int4_group_matmul_stacked", name), max_err=err,
+            max_err=err,
             max_err_bf16=err_bf16, in_sum=not (to_rows or bloom),
             kernel_ms=device_ms(lambda i: k5.int4_group_matmul_stacked(*args(i), **kwb),
                                 n_layers),
@@ -1465,7 +1437,7 @@ def check_int_group_matmul(packed, single, dev, gen):
         rows.append(dict(
             kernel="int_group_matmul", site=name, shape=[n, c, o, m.k_ns, m.group_size,
                                                         w_sal.shape[0]],
-            scalings=[n, o, k_ns, m.group_size], before_ms=_before("int_group_matmul", name),
+            scalings=[n, o, k_ns, m.group_size],
             max_err=err, in_sum=in_sum, bound_ms=b_ms, bound_by=b_by,
             kernel_ms=device_ms(lambda i: k8.int_group_matmul(*args, **kw), 8, reps=3)))
         if in_sum:   # the yardsticks of the kernels line's sites
@@ -1525,7 +1497,7 @@ def check_dual_path_matmul(packed, single, dev, gen):
             rows.append(dict(
                 kernel="dual_path_matmul", site=f"{body}@{n}",
                 shape=[n, c, o, m.k_ns, m.group_size, w_sal.shape[0]],
-                before_ms=_before("dual_path_matmul", f"{body}@{n}"), max_err=err,
+                max_err=err,
                 in_sum=in_sum, bound_ms=b_ms, bound_by=b_by,
                 kernel_ms=device_ms(lambda i: k9.dual_path_matmul(*args, **kw), 4, reps=3)))
             if in_sum:   # the yardsticks of the kernels line's site
@@ -1776,12 +1748,13 @@ def check_wg_edges(dev):
     rows (ragged row tiles), O a multiple of the 128-column tile, O = 336
     (a ragged column tile, whole 16-byte weight rows: TMA) and O = 200 (K6:
     the tiles body; K9: the weight rows by cp.async), group sizes 32 and 64
-    (K6; 48, the tiles body) and 32, 64 and one group (K9), with and without
-    a salient block (40 columns, padded to a stage, or 128), f32 and bf16
-    scales; bf16 outputs (the wgmma bodies) and f32 ones (K6's tiles, K9's
-    CUDA-core body).  Tolerance: 1e-2 of the largest output in bf16 (one
-    rounding), 1e-5 in f32 (sum order).  Returns the largest relative error
-    of each (kernel, body)."""
+    (K6; 48, the tiles body) and 2 (the most scale rows a stage holds), 32,
+    64 and one group (K9), with and without a salient block (40 columns,
+    padded to a stage, or 128), f32 and bf16 scales; bf16 outputs (the
+    wgmma bodies) and f32 ones (K6's tiles, K9's CUDA-core body).
+    Tolerance: 1e-2 of the largest output in bf16 (one rounding), 1e-5 in
+    f32 (sum order).  Returns the largest relative error of each (kernel,
+    body)."""
     import torch
 
     from smoothquant_tpu_torch.kernels import int4_group_matmul as k6
@@ -1817,7 +1790,8 @@ def check_wg_edges(dev):
                         ref = k6.int4_group_matmul_plain(*args, group_size=gs)
                         hold(f"K6 n={n} gs={gs} o={o} k_s={k_s} {s_dt} {dt}",
                              "int4_group_matmul", k6.gmm_body(o, gs, dt), got, ref, dt)
-        for gs, k, o in ((64, 384, 384), (32, 256, 336), (None, 1000, 384), (64, 384, 200)):
+        for gs, k, o in ((64, 384, 384), (32, 256, 336), (None, 1000, 384), (64, 384, 200),
+                         (2, 322, 384)):
             for k_s in (0, 128):
                 for s_dt in (torch.float32, torch.bfloat16):
                     for dt in (torch.bfloat16, torch.float32):
@@ -1835,6 +1809,67 @@ def check_wg_edges(dev):
                              "dual_path_matmul", body, got, ref, dt)
     torch.cuda.synchronize()
     return worst
+
+
+def host_us(fn, calls: int = 200, reps: int = 3) -> float:
+    """Least host µs one fn() call takes to return, over `reps` runs of
+    `calls` calls queued back to back (no synchronize between them, so the
+    card's time does not enter while the queue has room)."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return min(out)
+
+
+def k6_host_us(dev):
+    """Host µs per K6 call at a BLOOM-7b1 4h_to_h linear (K 16384 less 896
+    salient, O 4096, g64, bf16 scales) at 4 rows (the Generator's decode)
+    and 2048 (its prefill): the wrapper (its shape rule takes the wgmma
+    body), and each body's C entry called directly with the same operands —
+    the wgmma body's encodes its TMA tensor maps on every call, the tiles
+    body has none, so their difference bounds what the maps cost."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import _build
+    from smoothquant_tpu_torch.kernels import int4_group_matmul as k6
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 44)
+    kk, o, gs, k_s = 15616, 4096, 64, 896
+    w = torch.randint(-128, 128, (kk // 2, o), generator=gen, device=dev, dtype=torch.int8)
+    ws = (torch.rand((kk // gs, o), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    w_sal = torch.randn((k_s, o), generator=gen, device=dev).to(torch.bfloat16)
+    lib = _build.lib()
+    out = {}
+    for n in (4, 2048):
+        x_q = torch.randint(-7, 8, (n, kk), generator=gen, device=dev, dtype=torch.int8)
+        x_s = torch.rand((n, kk // gs), generator=gen, device=dev) * 0.1
+        x_sal = torch.randn((n, k_s), generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.empty((n, o), dtype=torch.bfloat16, device=dev)
+        ptrs = [t.data_ptr() for t in (x_q, x_s, w, ws, x_sal, w_sal, y)]
+        dt_s, st = _build.dt_code(ws), _build.stream_ptr(x_q)
+        rc = []
+
+        def wg():
+            rc.append(lib.sq_int4_gmm_wg(*ptrs, n, o, kk, gs, k_s, dt_s, st))
+
+        def tiles():
+            rc.append(lib.sq_int4_gmm(*ptrs, n, o, kk, gs, k_s, dt_s, _build.dt_code(y), st))
+
+        out[n] = {"body": k6.gmm_body(o, gs, torch.bfloat16),
+                  "wrapper": host_us(lambda: k6.int4_group_matmul(
+                      x_q, x_s, w, ws, x_sal, w_sal, group_size=gs)),
+                  "wgmma_entry": host_us(wg), "tiles_entry": host_us(tiles)}
+        for r in set(rc):
+            _build.check(r, "K6 host timing")
+    return out
 
 
 def sass_check():
@@ -1890,8 +1925,8 @@ def add_scaling_floors(rows, clock_mhz):
     for r in rows:
         if "scalings" in r:
             r["scaling_floor_ms"] = roofline.group_scaling_floor_ms(*r["scalings"], clock_mhz)
-    return [dict(kernel=r["kernel"], site=r["site"], ms=r["kernel_ms"], before_ms=r["before_ms"],
-                 bound_ms=r["bound_ms"], scaling_floor_ms=r["scaling_floor_ms"])
+    return [dict(kernel=r["kernel"], site=r["site"], ms=r["kernel_ms"], bound_ms=r["bound_ms"],
+                 scaling_floor_ms=r["scaling_floor_ms"])
             for r in rows if "scalings" in r]
 
 
@@ -2007,9 +2042,6 @@ def check_no_fallback(dev):
         "K9 odd group size": (lambda: k9.dual_path_matmul(
             f32(4, 63), f32(4, 0), z8[:63], f32(21, 64), f32(0, 64), group_size=3),
             ValueError),
-        "K9 bf16 group size 2, f32 scales": (lambda: k9.dual_path_matmul(
-            f32(4, 64).bfloat16(), f32(4, 0).bfloat16(), z8, f32(32, 64), f32(0, 64).bfloat16(),
-            group_size=2, out_dtype=torch.bfloat16), ValueError),
     }
     raised = {}
     for name, (fn, expected) in cases.items():
@@ -3578,10 +3610,6 @@ def kernels_line(rows, launches):
             bound_ms=bound,
             bound_by=max(rs, key=lambda r: r["bound_ms"])["bound_by"],
             library_ms=None if None in lib else sum(lib),
-            **({"scaling_floor_ms": sum(r["scaling_floor_ms"] for r in rs)}
-               if rs and "scaling_floor_ms" in rs[0] else {}),
-            **({"before_ms": sum(r["before_ms"] for r in rs)}
-               if rs and all(r.get("before_ms") is not None for r in rs) else {}),
             sites=[r.get("site", "all") for r in every]))
     return {"kernels": out}
 
@@ -3622,6 +3650,7 @@ def run(dev, cfg, card: str):
     emit({"phase": "no_fallback", "raised": check_no_fallback(dev)})
     emit({"phase": "kernel_variants", "max_rel_err": check_kernel_variants(dev)})
     emit({"phase": "wg_edges", "max_rel_err": check_wg_edges(dev)})
+    emit({"phase": "k6_host_us", "card": card, "us_per_call": k6_host_us(dev)})
     emit({"phase": "reference_check", **reference_check(dev)})
 
     launches = Counter()

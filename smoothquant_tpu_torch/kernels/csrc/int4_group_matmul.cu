@@ -64,8 +64,13 @@
 //     f32 and s32 accumulators (128; at the 128 a thread of 512 has at
 //     launch, ptxas spilled them and serialized the wgmma).  A second s32
 //     set, to scale one group while the next one's wgmma runs, would not
-//     fit beside two producer warpgroups, so the two consumers' wgmma and
-//     scaling interleave instead.  The weight keeps its (K/2, O) storage.
+//     fit beside two producer warpgroups; instead the two consumers take
+//     turns to issue (named barriers), so one's product runs on the tensor
+//     cores while the other scales.  scripts/wg_variants.py times the
+//     designs it did not take on the H100: the second s32 set beside one
+//     producer warpgroup of 40 registers (ptxas serializes its wgmma), and
+//     the consumers issuing without turns.  The weight keeps its (K/2, O)
+//     storage.
 //     chip_smoke.py's sass
 //     phase holds the build to IGMMA in every K6 wgmma kernel and no I2F in
 //     any of them (the H100 build: 0).
@@ -174,7 +179,9 @@ constexpr int W6_THREADS = 4 * 128, W6_PRODUCER = 256;   // the producers' first
 // registers a consumer and a producer thread hold after setmaxnreg (128 each
 // at launch): the consumers' f32 and s32 accumulators take 128
 constexpr int W6_CONSUMER_REGS = 160, W6_PRODUCER_REGS = 96;
-constexpr int W6_FULL = 1, W6_EMPTY = 3;   // named barriers: Bt buffer b ready / free (+ b)
+// named barriers: Bt buffer b ready (W6_FULL + b) / free (W6_EMPTY + b); consumer c's
+// turn to issue its wgmma (W6_TURN + c)
+constexpr int W6_FULL = 1, W6_EMPTY = 3, W6_TURN = 5;
 
 struct W6Args {
   const int8_t* xq;
@@ -338,11 +345,10 @@ __device__ __forceinline__ void w6_producer(const W6Args& a, const W6Maps& m, ch
 
 // The consumers: ks / 64 salient stages (their wgmma seeds the f32
 // accumulator), then the G/2 group pairs, each group's int8 product into
-// one s32 accumulator and scaled into the f32 one.  The producers'
-// transform of the next stage runs beside them.  (Staggering the two
-// consumers, so that the tensor cores run one's product while the other
-// scales, measured no faster on the H100: the scaling's issue slots, shared
-// with the producers, bound a stage, not the product.)
+// one s32 accumulator and scaled into the f32 one; the two consumers take
+// turns to issue (consumer 0 first), so the tensor cores run one's product
+// while the other scales.  The producers' transform of the next stage runs
+// beside them.
 template <typename S, int GS>
 __device__ __forceinline__ void w6_consumer(const W6Args& a, char* smem, int T, int n_sal,
                                             int n0, int o0, int tid,
@@ -363,6 +369,7 @@ __device__ __forceinline__ void w6_consumer(const W6Args& a, char* smem, int T, 
     wg_fence_regs(acc);
     if (t <= T - 3) named_arrive<W6_THREADS>(W6_EMPTY + (t & 1));
   }
+  if (wg == 1 && T > n_sal) named_arrive<256>(W6_TURN);   // consumer 0 issues first
   for (int t = n_sal; t < T; ++t) {
     named_sync<W6_THREADS>(W6_FULL + (t & 1));
     const char* slot = smem + (t % WG_STAGES) * W6_SLOT;
@@ -370,13 +377,16 @@ __device__ __forceinline__ void w6_consumer(const W6Args& a, char* smem, int T, 
     const uint32_t b_u = bt_u + (t & 1) * WG_BT_BYTES;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+      named_sync<256>(W6_TURN + wg);
       w6_mma_group<GS>(p, a_u + h * WG_BM * GS, b_u + h * WG_BM * GS);
+      named_arrive<256>(W6_TURN + (wg ^ 1));
       wg_wait<0>();
       wg_fence_regs(p);
       w6_scale(acc, p, slot, h, row, lane);
     }
     if (t <= T - 3) named_arrive<W6_THREADS>(W6_EMPTY + (t & 1));
   }
+  if (wg == 0 && T > n_sal) named_sync<256>(W6_TURN);   // consumer 1's last hand-over
 
 #pragma unroll
   for (int i = 0; i < 16; ++i) {

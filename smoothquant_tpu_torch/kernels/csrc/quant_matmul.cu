@@ -15,27 +15,28 @@
 // crossover, so N is in the hundreds to thousands and every weight byte is
 // reused N times: the bf16 operations (2·N·K·O at 989 TFLOP/s; 0.19 ms for
 // a 2048-row Llama-2-7B gate_proj) bound it, not the one byte a weight
-// element it reads.  The bf16 body (dual_path_wg_kernel) is a wgmma kernel
-// that keeps the dequantization beside the tensor cores' work:
-//   * output tiles of 256 × 128 (grouped; four warpgroups) or 128 × 128
-//     (single group; two, whose two accumulators fit their registers); each
-//     warpgroup runs wgmma.mma_async m64n128k16 bf16 on its 64 rows with f32
-//     accumulators, the salient stages first (into the same accumulator, or
-//     into a second one the epilogue joins with fma(acc, s[o], sal));
-//   * each 64-column stage — x_ns (K-major, as it lies: TMA, 128-byte
-//     swizzle, which the wgmma descriptor names), the raw int8 weight rows
-//     (TMA where O % 16 == 0, else cp.async) and the stage's group-scale
-//     rows — lands in a ring of three or four slots on mbarriers, copied
-//     two or three stages ahead;
-//   * while stage t's wgmma run, all threads dequantize stage t + 1 with the
-//     plain version's rule: int8 → f32 by a byte permute and one add (the
-//     byte in the mantissa of 2^23, no I2F), × the f32 group scale, rounded
-//     to bf16 to nearest even, written K-major as (k, k + 1) pairs; one
-//     barrier a stage.
-// A warp-specialized variant (consumer warpgroups on wgmma, two producer
-// warpgroups dequantizing) ran slower on the H100: with three consumers (a
-// fourth leaves a thread too few registers for the accumulator) its
-// producers bounded the stage.
+// element it reads.  The bf16 body (dual_path_wg_kernel) is a
+// warp-specialized wgmma kernel that keeps the dequantization off the
+// tensor cores' path:
+//   * output tiles of 192 × 128 (grouped; three consumer warpgroups) or
+//     128 × 128 (single group; two, whose two accumulators fit their
+//     registers); each consumer runs wgmma.mma_async m64n128k16 bf16 on its
+//     64 rows with f32 accumulators, the salient stages first (into the same
+//     accumulator, or into a second one the epilogue joins with
+//     fma(acc, s[o], sal)), and meets the producers only at named barriers;
+//   * two producer warpgroups copy each 64-column stage — x_ns (K-major, as
+//     it lies: TMA, 128-byte swizzle, which the wgmma descriptor names), the
+//     raw int8 weight rows (TMA where O % 16 == 0, else cp.async) and the
+//     stage's group-scale rows — into a ring of three slots on mbarriers, two
+//     stages ahead, and dequantize stage t + 1 while the consumers' wgmma run
+//     stage t, with the plain version's rule: int8 → f32 by a byte permute
+//     and one add (the byte in the mantissa of 2^23, no I2F), × the f32
+//     group scale, rounded to bf16 to nearest even, written K-major as
+//     (k, k + 1) pairs.
+// scripts/wg_variants.py times the designs it did not take on the H100:
+// every thread issuing wgmma and dequantizing (four warpgroups grouped,
+// one barrier a stage), and four consumers (ptxas cannot fit the
+// accumulator in 80 registers a thread).
 // chip_smoke.py's sass phase holds the build to HGMMA in every K9 wgmma
 // kernel.  Times beside the bound: PERF.md §6.
 //
@@ -48,25 +49,36 @@ namespace {
 enum { SRC_T = 0, SRC_DEQ = 1, SRC_INT = 2 };  // B operand: T values, w_q·s, w_q
 
 // ------------------------------------------------------------ bf16 body
-// DqShape<WGS>: WGS warpgroups, a tile of 64·WGS × 128 outputs.  A slot of
-// the ring: the A stage (64 bf16 columns of x_ns or x_sal, one 128-byte
-// SWIZZLE_128B row per tile row), the raw B rows (64 int8 rows of 128 bytes,
-// SWIZZLE_128B, or of 144 bytes where cp.async copies them; or salient bf16
-// rows in two halves), the stage's group-scale rows.  The slots' mbarriers
-// sit past the two Bt buffers.  The grouped bodies take four warpgroups
-// (256-row tiles): the dequantization of a weight stage, which bounds a
-// 128-row tile, is then spread over twice the rows and sixteen warps, and
-// runs beside twice the tensor-core work.  The single-group bodies keep two
-// (their second accumulator would not fit 512 threads' registers).
-template <int WGS>
-struct DqShape {
-  static constexpr int THREADS = 128 * WGS, BM = 64 * WGS;
-  static constexpr int STAGES = WGS == 4 ? 3 : 4;
-  static constexpr int A = 0, RAW = BM * 128, SC = RAW + 16384, SLOT = SC + 9216;
-  static constexpr int BT = STAGES * SLOT, BAR = BT + 2 * WG_BT_BYTES, SMEM = BAR + 8 * STAGES;
-};
+// DqShape<CWG>: CWG consumer warpgroups (64 output rows each) run the wgmma;
+// two producer warpgroups copy the stages in (TMA) and dequantize each
+// stage's weight into the K-major tile wgmma reads, a stage ahead.  The
+// grouped bodies take three consumers (192-row tiles: the dequantization of
+// a weight stage is paid once per 192 rows; a fourth consumer leaves ptxas
+// 80 registers a thread at launch, too few for the accumulator), the
+// single-group bodies two (whose second accumulator takes setmaxnreg's
+// registers from the producers).  A slot of the ring: the A stage (64 bf16
+// columns of x_ns or x_sal, one 128-byte SWIZZLE_128B row per tile row) and
+// the raw B rows (64 int8 rows of 128 bytes, SWIZZLE_128B, or of 144 bytes
+// where cp.async copies them; or salient bf16 rows in two halves),
+// 1024-byte aligned as the swizzle needs; past the slots, each slot's
+// group-scale rows (SCS), sized for the most a stage can need: 33 f32 rows
+// at group size 2.  The slots' mbarriers sit past the two Bt buffers.
 constexpr int DQ_RAW8_LD = 144;     // a raw int8 row copied by cp.async (padded)
-constexpr int DQ_SC_BYTES = 9216;   // the slot's group-scale rows
+constexpr int DQ_SC_BYTES = 16896;  // a slot's group-scale rows: (63 / 2 + 2) × 128 × 4
+template <int CWG>
+struct DqShape {
+  static constexpr int CONSUMERS = 128 * CWG, THREADS = CONSUMERS + 256, BM = 64 * CWG;
+  static constexpr int STAGES = 3;
+  static constexpr int REGS = (65536 / THREADS) & ~7;   // at launch
+  static constexpr int PRODUCER_REGS = 96;
+  static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) * 256 / CONSUMERS;
+  static constexpr int A = 0, RAW = BM * 128, SLOT = RAW + 16384;
+  static constexpr int SCS = STAGES * SLOT, BT = SCS + STAGES * DQ_SC_BYTES;
+  static constexpr int BAR = BT + 2 * WG_BT_BYTES, SMEM = BAR + 8 * STAGES;
+  static_assert(SMEM <= 227 * 1024, "the H100's shared memory per block");
+};
+// named barriers: Bt buffer b ready (DQ_FULL + b) / a stage of its parity consumed (DQ_EMPTY + b)
+constexpr int DQ_FULL = 1, DQ_EMPTY = 3;
 
 struct DqArgs {
   const int8_t* w;
@@ -83,21 +95,22 @@ struct DqMaps {   // x_ns (N, x_ld), x_sal (N, ks), w_sal (ks, O), w (K, O), sca
 // the scale rows a grouped stage may need: groups k0 / gs .. (k0 + 63) / gs
 __host__ __device__ __forceinline__ int dq_scale_rows(int gs) { return 63 / gs + 2; }
 
-// Stage t into its slot: salient stages (t < n_sal) take 64 columns of x_sal
-// and 64 rows of w_sal; stage n_sal + j columns 64·j.. of x_ns, the int8
-// weight rows 64·j.. and (GROUPED) the scale rows of their groups — by TMA
-// from thread 0, the weight rows by cp.async where TMA cannot take them
-// (TMA_B false: O % 16 != 0).  Every thread then reports its copies to the
+// Stage t into its slot, by the producers (pt: their thread, 0-255):
+// salient stages (t < n_sal) take 64 columns of x_sal and 64 rows of w_sal;
+// stage n_sal + j columns 64·j.. of x_ns, the int8 weight rows 64·j.. and
+// (GROUPED) the scale rows of their groups — by TMA from thread 0, the
+// weight rows by cp.async where TMA cannot take them (TMA_B false:
+// O % 16 != 0).  Each producer thread then reports its copies to the
 // slot's mbarrier.
-template <int WGS, typename S, bool GROUPED, bool TMA_B>
+template <int CWG, typename S, bool GROUPED, bool TMA_B>
 __device__ __forceinline__ void dq_load(const DqArgs& a, const DqMaps& m, char* smem, int t,
-                                        int n_sal, int n0, int o0, int tid) {
-  using D = DqShape<WGS>;
+                                        int n_sal, int n0, int o0, int pt) {
+  using D = DqShape<CWG>;
   const int slot = t % D::STAGES;
   const uint32_t s = smem_u32(smem + slot * D::SLOT);
   const uint32_t bar = smem_u32(smem + D::BAR + 8 * slot);
   const int k0 = (t - n_sal) * WG_KB;
-  if (tid == 0) {
+  if (pt == 0) {
     if (t < n_sal) {
       mbar_expect_tx(bar, D::BM * 128 + 2 * WG_RAW16_HALF);
       tma_2d(s + D::A, m.xsal, bar, t * WG_KB, n0);
@@ -108,13 +121,15 @@ __device__ __forceinline__ void dq_load(const DqArgs& a, const DqMaps& m, char* 
                               (GROUPED ? a.sc_rows * WG_BN * (int)sizeof(S) : 0));
       tma_2d(s + D::A, m.x, bar, k0, n0);
       if (TMA_B) tma_2d(s + D::RAW, m.w, bar, o0, k0);
-      if (GROUPED) tma_2d(s + D::SC, m.sc, bar, o0, (int)__umulhi(k0, a.gs_magic));
+      if (GROUPED)
+        tma_2d(smem_u32(smem + D::SCS + slot * DQ_SC_BYTES), m.sc, bar, o0,
+               (int)__umulhi(k0, a.gs_magic));
     }
   }
   if (!TMA_B && t >= n_sal) {
 #pragma unroll
-    for (int i = 0; i < 1024 / D::THREADS; ++i) {
-      const int e = tid + i * D::THREADS, q = e >> 4, c8 = e & 15;
+    for (int i = 0; i < 4; ++i) {
+      const int e = pt + i * 256, q = e >> 4, c8 = e & 15;
       const int k = k0 + q, o = o0 + 8 * c8;
       const bool ok = k < a.K && o < a.O;
       cp8(s + D::RAW + q * DQ_RAW8_LD + c8 * 8, ok ? a.w + (size_t)k * a.O + o : a.w, ok);
@@ -123,26 +138,28 @@ __device__ __forceinline__ void dq_load(const DqArgs& a, const DqMaps& m, char* 
   cp_async_arrive(bar);
 }
 
-// Stage t's B into a Bt buffer as bf16 pairs (k, k + 1) of a column: the
-// salient rows as they are; the int8 rows dequantized as the plain version
-// does, f32(w_q) (no I2F) × the f32 group scale (GROUPED), rounded to bf16 to
-// nearest even.  A lane's items share its four columns; rows ≥ K were
-// copied as zeros and take the last group's (finite) scale.
-template <int WGS, typename S, bool GROUPED, bool TMA_B>
-__device__ __forceinline__ void dq_transform(char* bt, const char* slot, int t, int n_sal,
+// Stage t's B into a Bt buffer as bf16 pairs (k, k + 1) of a column, by the
+// producers: the salient rows as they are; the int8 rows dequantized as the
+// plain version does, f32(w_q) (no I2F) × the f32 group scale (GROUPED),
+// rounded to bf16 to nearest even.  A lane's items share its four columns;
+// rows ≥ K were copied as zeros and take the last group's (finite) scale.
+template <int CWG, typename S, bool GROUPED, bool TMA_B>
+__device__ __forceinline__ void dq_transform(char* bt, const char* smem, int t, int n_sal,
                                              const DqArgs& a, const WgLane& l) {
-  using D = DqShape<WGS>;
+  using D = DqShape<CWG>;
+  const char* slot = smem + (t % D::STAGES) * D::SLOT;
   if (t < n_sal) {
-    wg_transform_b16<D::THREADS>(bt, slot + D::RAW, l);
+    wg_transform_b16<256>(bt, slot + D::RAW, l);
     return;
   }
   const int k0 = (t - n_sal) * WG_KB;
   const char* raw = slot + D::RAW;
-  const S* sc = reinterpret_cast<const S*>(slot + D::SC) + 4 * l.cq;
+  const S* sc =
+      reinterpret_cast<const S*>(smem + D::SCS + (t % D::STAGES) * DQ_SC_BYTES) + 4 * l.cq;
   const int g0 = GROUPED ? (int)__umulhi(k0, a.gs_magic) : 0;
 #pragma unroll
-  for (int i = 0; i < 1024 / D::THREADS; ++i) {
-    const int kp = l.u0 + D::THREADS / 32 * i, r = 2 * kp;
+  for (int i = 0; i < 4; ++i) {
+    const int kp = l.u0 + 8 * i, r = 2 * kp;
     const uint32_t w0 = *reinterpret_cast<const uint32_t*>(
         raw + (TMA_B ? wg_sw128(r, 4 * l.cq) : r * DQ_RAW8_LD + 4 * l.cq));
     const uint32_t w1 = *reinterpret_cast<const uint32_t*>(
@@ -168,76 +185,70 @@ __device__ __forceinline__ void dq_transform(char* bt, const char* slot, int t, 
   }
 }
 
-// Iteration t: issue stage t's four k16 wgmma into d; while the tensor
-// cores run them, wait for stage t + 1's copies, dequantize it into the other
-// Bt buffer and start the copies of stage t + STAGES − 1 into the slot stage
-// t − 1 has freed; wait for the wgmma; one barrier.  That barrier is the
-// only one: it orders stage t's Bt and slot before their next writers, and
-// the slot's mbarrier orders the copies.
-template <int WGS, typename S, bool GROUPED, bool TMA_B>
-__device__ __forceinline__ void dq_step(float (&d)[64], const DqArgs& a, const DqMaps& m,
-                                        char* smem, int t, int T, int n_sal, int n0, int o0,
-                                        int tid, int wg, const WgLane& l) {
-  using D = DqShape<WGS>;
-  wg_mma_bf16(d, smem_u32(smem + (t % D::STAGES) * D::SLOT) + D::A + wg * 64 * 128,
-              smem_u32(smem + D::BT + (t & 1) * WG_BT_BYTES));
-  if (t + 1 < T) {
-    mbar_wait(smem_u32(smem + D::BAR + 8 * ((t + 1) % D::STAGES)), ((t + 1) / D::STAGES) & 1);
-    dq_transform<WGS, S, GROUPED, TMA_B>(smem + D::BT + ((t + 1) & 1) * WG_BT_BYTES,
-                                         smem + ((t + 1) % D::STAGES) * D::SLOT, t + 1, n_sal,
-                                         a, l);
-  }
-  fence_async_smem();
-  if (t + D::STAGES - 1 < T)
-    dq_load<WGS, S, GROUPED, TMA_B>(a, m, smem, t + D::STAGES - 1, n_sal, n0, o0, tid);
-  wg_wait<0>();
-  wg_fence_regs(d);
-  __syncthreads();
-}
-
-// Stages: ks / 64 salient stages, then x_ld / 64 of x_ns · w (dq_step).
-// GROUPED: everything into one f32 accumulator, seeded by the salient
-// stages; else x_sal · w_sal and x_ns · T(w_q) into two, joined by
-// out = fma(acc, s[o], sal).  No wgmma, commit or wait sits in a branch.
-template <int WGS, typename S, bool GROUPED, bool TMA_B>
-__global__ void __launch_bounds__(128 * WGS, 1)
-dual_path_wg_kernel(const DqArgs a, const __grid_constant__ DqMaps m,
-                    const S* __restrict__ scales, __nv_bfloat16* __restrict__ out) {
-  using D = DqShape<WGS>;
-  extern __shared__ __align__(1024) char smem[];
-  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
-  const int row = 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
-  int n0, o0;
-  wg_tile<D::BM>(n0, o0);
-  const int n_sal = a.ks / WG_KB, T = n_sal + a.x_ld / WG_KB;
-  const WgLane l = wg_lane(tid);
-  float acc[64], sal[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = sal[i] = 0.0f;
-
-  if (tid == 0) {
-    for (int s = 0; s < D::STAGES; ++s) mbar_init(smem_u32(smem + D::BAR + 8 * s), 1 + D::THREADS);
-    mbar_init_fence();
+// The producers: stage t is dequantized into Bt buffer t % 2 and handed
+// over; then they wait for the consumers to release stage t − 1, whose Bt
+// buffer stage t + 1 takes and whose slot stage t + 2's copies take.  So the
+// dequantization of stage t runs beside the consumers' wgmma of stage t − 1.
+template <int CWG, typename S, bool GROUPED, bool TMA_B>
+__device__ __forceinline__ void dq_producer(const DqArgs& a, const DqMaps& m, char* smem, int T,
+                                            int n_sal, int n0, int o0, int pt) {
+  using D = DqShape<CWG>;
+  const WgLane l = wg_lane(pt);
+  if (pt == 0) {
     tma_prefetch(m.x);
     if (TMA_B) tma_prefetch(m.w);
     if (GROUPED) tma_prefetch(m.sc);
+    if (n_sal) {
+      tma_prefetch(m.xsal);
+      tma_prefetch(m.wsal);
+    }
   }
-  __syncthreads();
-  for (int s = 0; s < D::STAGES - 1 && s < T; ++s)
-    dq_load<WGS, S, GROUPED, TMA_B>(a, m, smem, s, n_sal, n0, o0, tid);
-  mbar_wait(smem_u32(smem + D::BAR), 0);
-  dq_transform<WGS, S, GROUPED, TMA_B>(smem + D::BT, smem, 0, n_sal, a, l);
-  fence_async_smem();
-  __syncthreads();
+  for (int s = 0; s < 2 && s < T; ++s)
+    dq_load<CWG, S, GROUPED, TMA_B>(a, m, smem, s, n_sal, n0, o0, pt);
+  for (int t = 0; t < T; ++t) {
+    mbar_wait(smem_u32(smem + D::BAR + 8 * (t % D::STAGES)), (t / D::STAGES) & 1);
+    dq_transform<CWG, S, GROUPED, TMA_B>(smem + D::BT + (t & 1) * WG_BT_BYTES, smem, t, n_sal,
+                                         a, l);
+    fence_async_smem();
+    named_arrive<D::THREADS>(DQ_FULL + (t & 1));
+    if (t >= 1 && t + 1 < T) named_sync<D::THREADS>(DQ_EMPTY + ((t - 1) & 1));
+    if (t + 2 < T) dq_load<CWG, S, GROUPED, TMA_B>(a, m, smem, t + 2, n_sal, n0, o0, pt);
+  }
+}
 
+// The consumers: stage t's four k16 wgmma into d once the producers hand it
+// over, then its release (only the stages the producers wait for: 0 .. T − 3).
+template <int CWG>
+__device__ __forceinline__ void dq_consume(float (&d)[64], char* smem, int t, int T, int wg) {
+  using D = DqShape<CWG>;
+  named_sync<D::THREADS>(DQ_FULL + (t & 1));
+  wg_mma_bf16(d, smem_u32(smem + (t % D::STAGES) * D::SLOT) + D::A + wg * 64 * 128,
+              smem_u32(smem + D::BT + (t & 1) * WG_BT_BYTES));
+  wg_wait<0>();
+  wg_fence_regs(d);
+  if (t <= T - 3) named_arrive<D::THREADS>(DQ_EMPTY + (t & 1));
+}
+
+// Stages: ks / 64 salient stages, then x_ld / 64 of x_ns · w.  GROUPED:
+// everything into one f32 accumulator, seeded by the salient stages; else
+// x_sal · w_sal and x_ns · T(w_q) into two, joined by out = fma(acc, s[o],
+// sal).  No wgmma, commit or wait sits in a branch.
+template <int CWG, typename S, bool GROUPED>
+__device__ __forceinline__ void dq_consumer(const DqArgs& a, const S* __restrict__ scales,
+                                            __nv_bfloat16* __restrict__ out, char* smem, int T,
+                                            int n_sal, int n0, int o0, int tid) {
+  const int wg = tid >> 7, lane = tid & 31;
+  const int row = 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
+  float acc[64], sal[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = sal[i] = 0.0f;
   for (int t = 0; t < n_sal; ++t) {
     if constexpr (GROUPED)
-      dq_step<WGS, S, GROUPED, TMA_B>(acc, a, m, smem, t, T, n_sal, n0, o0, tid, wg, l);
+      dq_consume<CWG>(acc, smem, t, T, wg);
     else
-      dq_step<WGS, S, GROUPED, TMA_B>(sal, a, m, smem, t, T, n_sal, n0, o0, tid, wg, l);
+      dq_consume<CWG>(sal, smem, t, T, wg);
   }
-  for (int t = n_sal; t < T; ++t)
-    dq_step<WGS, S, GROUPED, TMA_B>(acc, a, m, smem, t, T, n_sal, n0, o0, tid, wg, l);
+  for (int t = n_sal; t < T; ++t) dq_consume<CWG>(acc, smem, t, T, wg);
 
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -260,15 +271,40 @@ dual_path_wg_kernel(const DqArgs a, const __grid_constant__ DqMaps m,
   }
 }
 
-template <int WGS, typename S, bool GROUPED, bool TMA_B>
+template <int CWG, typename S, bool GROUPED, bool TMA_B>
+__global__ void __launch_bounds__(DqShape<CWG>::THREADS, 1)
+dual_path_wg_kernel(const DqArgs a, const __grid_constant__ DqMaps m,
+                    const S* __restrict__ scales, __nv_bfloat16* __restrict__ out) {
+  using D = DqShape<CWG>;
+  extern __shared__ __align__(1024) char smem[];
+  const int tid = threadIdx.x;
+  int n0, o0;
+  wg_tile<D::BM>(n0, o0);
+  const int n_sal = a.ks / WG_KB, T = n_sal + a.x_ld / WG_KB;
+  if (tid == 0) {
+    for (int s = 0; s < D::STAGES; ++s) mbar_init(smem_u32(smem + D::BAR + 8 * s), 1 + 256);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid >= D::CONSUMERS) {
+    regs_dec<D::PRODUCER_REGS>();
+    dq_producer<CWG, S, GROUPED, TMA_B>(a, m, smem, T, n_sal, n0, o0, tid - D::CONSUMERS);
+  } else {
+    regs_inc<D::CONSUMER_REGS>();
+    dq_consumer<CWG, S, GROUPED>(a, scales, out, smem, T, n_sal, n0, o0, tid);
+  }
+}
+
+template <int CWG, typename S, bool GROUPED, bool TMA_B>
 int launch_dual_path_wg(const DqArgs& a, const DqMaps& m, const void* scales, void* out,
                         cudaStream_t st) {
-  using D = DqShape<WGS>;
+  using D = DqShape<CWG>;
   static const cudaError_t attr =
-      cudaFuncSetAttribute(dual_path_wg_kernel<WGS, S, GROUPED, TMA_B>,
+      cudaFuncSetAttribute(dual_path_wg_kernel<CWG, S, GROUPED, TMA_B>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  dual_path_wg_kernel<WGS, S, GROUPED, TMA_B><<<wg_grid(a.N, a.O, D::BM), D::THREADS, D::SMEM, st>>>(
+  const dim3 grid = wg_grid(a.N, a.O, D::BM);
+  dual_path_wg_kernel<CWG, S, GROUPED, TMA_B><<<grid, D::THREADS, D::SMEM, st>>>(
       a, m, static_cast<const S*>(scales), static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
 }
@@ -288,7 +324,7 @@ int launch_bf16(const void* x_ns, const void* x_sal, const void* w, const void* 
     return (int)cudaErrorInvalidValue;
   const DqArgs a{(const int8_t*)w, N, O, K, x_ld, gs, ks, grouped ? K / gs : 1, magic, rows};
   const bool tma_b = O % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const int bm = grouped ? DqShape<4>::BM : DqShape<2>::BM;
+  const int bm = grouped ? DqShape<3>::BM : DqShape<2>::BM;
   constexpr CUtensorMapDataType sdt =
       sizeof(S) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   DqMaps m = {};
@@ -307,8 +343,8 @@ int launch_bf16(const void* x_ns, const void* x_sal, const void* w, const void* 
                 CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!ok) return (int)cudaErrorInvalidValue;
   if (grouped)
-    return tma_b ? launch_dual_path_wg<4, S, true, true>(a, m, scales, out, st)
-                 : launch_dual_path_wg<4, S, true, false>(a, m, scales, out, st);
+    return tma_b ? launch_dual_path_wg<3, S, true, true>(a, m, scales, out, st)
+                 : launch_dual_path_wg<3, S, true, false>(a, m, scales, out, st);
   return tma_b ? launch_dual_path_wg<2, S, false, true>(a, m, scales, out, st)
                : launch_dual_path_wg<2, S, false, false>(a, m, scales, out, st);
 }

@@ -83,10 +83,6 @@ def dual_path_matmul(
         raise ValueError("K9 needs K = G·group_size with an even group size")
     if o % 8:
         raise ValueError("K9 needs O % 8 == 0")
-    if (grouped and dual_path_body(x_ns.dtype) == "wgmma" and w_scales_t.dtype == torch.float32
-            and group_size < 4):
-        raise ValueError("K9's bf16 body holds the f32 scale rows of 64 weight rows: "
-                         "group size at least 4")
     dt = x_ns.dtype
     if dt not in _build.DT_CODE or out_dtype != dt or x_sal.dtype != dt or w_sal_t.dtype != dt:
         raise TypeError("K9 computes in the activation dtype (f32 or bf16): x_sal, w_sal "

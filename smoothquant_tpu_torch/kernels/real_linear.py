@@ -79,11 +79,12 @@ PREFILL_KERNEL_MIN_TOKENS = 256
 # this many rows the int path (K8), above it the dequant path (K9).
 # Measured by chip_smoke.py's int_path_crossover (NVIDIA H100 80GB HBM3,
 # 700 W; real_quant_linear with its activation prep, the quick start's
-# W4A4 g64 pack), with K9 on wgmma: the dequant path wins on both gate_proj
-# and down_proj from 256 rows (gate 0.165 against 0.439 ms, down 0.351
-# against 0.463), the int path on down up to 128 (0.260 against 0.311 ms).
-# (Before K9's redesign the crossover lay at 512 rows and this was 256.)
-INT_PATH_MAX_TOKENS = 128
+# W4A4 g64 pack), with K9's warp-specialized wgmma body: the dequant path
+# wins on both gate_proj and down_proj from 128 rows (gate 0.128 against
+# 0.246 ms, down 0.249 against 0.263), the int path on down up to 64 (0.213
+# against 0.231 ms).  (With K9's mma.sync body the crossover lay at 512 rows
+# and this was 256; with its first wgmma body at 256, and this was 128.)
+INT_PATH_MAX_TOKENS = 64
 COMPUTE_CHOICES = ("auto", "int", "dequant")
 
 

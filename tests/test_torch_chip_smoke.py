@@ -221,7 +221,7 @@ def test_aligned_path_rehearsal_on_cpu(monkeypatch):
 def test_quickstart_path_rehearsal_on_cpu(monkeypatch):
     """chip_smoke's phases of the README quick start on the CPU at a small
     size (2 layers of hidden 512, bf16; calibration on 2 sequences of 32,
-    2 prompts of 40 and 4 new tokens): calibration → smooth_lm →
+    2 prompts of 32 and 4 new tokens): calibration → smooth_lm →
     pack_model, the K8 and K9 phases and their variant sweep (the wrappers
     take their plain versions here), the int / dequant and K4 / _int_mm
     crossovers, and the Generator with its dequant prefill; timing and the launch checks are
@@ -233,7 +233,7 @@ def test_quickstart_path_rehearsal_on_cpu(monkeypatch):
     from smoothquant_tpu_torch.kernels.real_linear import INT_PATH_MAX_TOKENS
     from smoothquant_tpu_torch.models import llama
 
-    for name, value in dict(QS_SAMPLES=2, QS_LEN=32, QS_BATCH=2, QS_PROMPT=40, QS_NEW=4,
+    for name, value in dict(QS_SAMPLES=2, QS_LEN=32, QS_BATCH=2, QS_PROMPT=32, QS_NEW=4,
                             CROSSOVER_N=(4, 16, 64)).items():
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -285,7 +285,7 @@ def test_quickstart_path_rehearsal_on_cpu(monkeypatch):
     metrics, launches = cs.quickstart(fp, packed, cfg, cpu, "card")
     assert sum(launches.values()) == 0
     n_l = cfg.num_hidden_layers
-    assert 2 * 40 <= INT_PATH_MAX_TOKENS       # so the prefill stays on K8 here
+    assert 2 * 32 <= INT_PATH_MAX_TOKENS       # so the prefill stays on K8 here
     assert expected["quick start generator"] == {
         "int_group_matmul": 7 * n_l * 4, "decode_attention_stacked": n_l * 3}
     assert expected["quick start dequant prefill"] == {"dual_path_matmul": 7 * n_l}
@@ -508,11 +508,11 @@ def test_wgmma_edge_checks_rehearsal_on_cpu(monkeypatch):
                      "dual_path_matmul/wgmma": 0.0, "dual_path_matmul/fma": 0.0,
                      "dual_path_matmul/wgmma, weight by cp.async": 0.0}
     rows = [dict(kernel="int4_group_matmul", site="qkv", kernel_ms=1.0, bound_ms=0.06,
-                 scalings=[1024, 12288, 3968, 64], before_ms=cs._before("int4_group_matmul",
-                                                                     "qkv")),
+                 scalings=[1024, 12288, 3968, 64]),
             dict(kernel="fp_matmul_stacked", site="qkv", kernel_ms=0.1, bound_ms=0.05)]
     floors = cs.add_scaling_floors(rows, 1980.0)
-    assert [f["site"] for f in floors] == ["qkv"] and floors[0]["before_ms"] == 1.1468
+    assert [f["site"] for f in floors] == ["qkv"]
+    assert floors[0]["scaling_floor_ms"] == rows[0]["scaling_floor_ms"]
     assert 0.069 < rows[0]["scaling_floor_ms"] < 0.071 and "scaling_floor_ms" not in rows[1]
     one = dict(max_err=0.0, kernel_ms=0.1, plain_ms=1.0, bound_ms=0.01, bound_by="bytes",
                library_ms=None)
@@ -521,6 +521,7 @@ def test_wgmma_edge_checks_rehearsal_on_cpu(monkeypatch):
                            + [dict(one, kernel=k) for k in cs.SOURCES if k != "int4_group_matmul"],
                            {})
     by = {k["name"]: k for k in line["kernels"]}
-    assert len(by) == 18 and "scaling_floor_ms" not in by["fp_matmul_stacked"]
-    assert by["int4_group_matmul"]["scaling_floor_ms"] == rows[0]["scaling_floor_ms"]
-    assert by["int4_group_matmul"]["before_ms"] == 1.1468
+    assert len(by) == 18
+    # the kernels line holds measured numbers and bound_ms only: the floors
+    # stay on the scaling_floors line
+    assert all("scaling_floor_ms" not in k and "before_ms" not in k for k in by.values())
