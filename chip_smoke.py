@@ -6,7 +6,8 @@
 1. Prints the card's name and power limit, builds the port's kernels from
    csrc/ with nvcc (sm_90a, one process per source) and prints ptxas'
    register / spill summary; holds the SASS of K6's and K9's wgmma bodies
-   to IGMMA / HGMMA and K6's to no I2F (cuobjdump); reads the SM clock
+   to IGMMA / HGMMA, K6's and the stream body's (K5, K8) to no I2F, and
+   the stream body to TMA loads (cuobjdump); reads the SM clock
    the per-group scaling floors take.
 The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
 2048, random bf16 weights from seed 0):
@@ -33,7 +34,8 @@ Then the Llama-2-7B paths:
    the four decode linears (N = 4, and 16 and 32), K6 at the four prefill
    linears (N = 1024), K2 and K3 at B = 4, S = 512, K11 over bf16 and int8
    head-major caches at B = 4, S = 512, K7a at qkv / gate_up / down and K5
-   at the four decode linears (N = 64; K5 in both input modes), K10 at
+   at the four decode linears (N = 64 and 33; K5 in both input modes, the
+   tiles body timed beside the stream body), K10 at
    B = 64, S = 512 (per-slot positions, one past the end, then a scalar
    one); K12 over random head-major int8 caches of 512 positions from
    position 448: its flat body at B = 4 and B = 64, its write body at
@@ -46,7 +48,10 @@ Then the Llama-2-7B paths:
    busy-wait, so they are device time.  K8 and K9 are also held to their
    plain versions over every group layout, dtype and ragged row count they
    take (kernel_variants), K6 and K9 over the edges of their wgmma bodies
-   and the shapes their rules send elsewhere (wg_edges).
+   and the shapes their rules send elsewhere (wg_edges), K8 and K5 over
+   the edges of their stream body, each call made twice for identical
+   bits (stream_edges); K1 against K7b / K7a + K5 at 1-32 rows (k1_vs_k5,
+   which real_linear.K1_MAX_TOKENS follows).
 4. Checks the kernel path against the plain path (the CPU) on a small
    model, f32 and bf16: the S-major prefill and one stacked decode step;
    a promoted prefill over head-major int8 caches and one Generator decode
@@ -75,17 +80,21 @@ Then the Llama-2-7B paths:
    the same tree and over the aligned head-major cache in "auto", window
    by window (K10 + K11 and K12 + K10 against K2 + K3; the aligned step
    launches K7a 96, K5 128, K12 32, K10 32), and a few steps at B = 32
-   over the head-major pool (K1 at 128 a step).
+   over the head-major pool (K7b 64, K7a 32, K5 128 a step: above
+   K1_MAX_TOKENS rows the linears take K5 on activations made as K1 makes
+   them).
    The identity-int8 forward's switch (PREFILL_KERNEL_MIN_TOKENS) is timed
    on both sides, K4 against torch._int_mm, at 4 to 1024 rows.
 7. The README quick start on the same fp weights: calibration
    (get_act_scales, get_calib_feat) on 4 random sequences of 512 tokens
    (the one cut: the JAX CLI takes 512), smooth_lm (α = 0.85), pack_model
    with its defaults (per-layer int8-container packs, W4A4 g64, 5 %
-   salient); K8 at layer 0's q / gate / down (N = 4 and 64, both bodies)
-   and at single-group packs (G = 1, N = 4 and 512), K9's four bodies at
-   N = 512 and 2048; real_quant_linear timed in "int" (K8) and "dequant"
-   (K9) at N = 4 to 2048 on gate_proj and down_proj (the crossover that
+   salient); K8 at q / gate / down (N = 1, 4, 16 and 64, the stream body
+   with the tiles body timed beside it) and at single-group packs (G = 1,
+   N = 4 and 512), K9's four bodies at N = 512 and 2048, each call on the
+   next layer's weights (cold, as a decode step finds them);
+   real_quant_linear timed cold in "int" (K8) and "dequant" (K9) at N = 4
+   to 2048 on gate_proj and down_proj (the crossover that
    INT_PATH_MAX_TOKENS holds); then Generator(quant_kv=True), 4 prompts of
    512 tokens and 32 new: prefill tokens/s, decode ms/step (host clock and
    device busy), launches (K8 7·L and K11 L a decode step, the prefill's
@@ -145,7 +154,8 @@ import time
 SEED = 0
 MAX_BATCH, MAX_LEN, PREFILL_N = 4, 512, 1024
 # the 64-slot serving slice: the batcher's default head-major int8 pool, 96
-# requests; K1's largest row count (above it the linears take K7a + K5)
+# requests; the largest row count the JAX package's rawx branch takes (K1
+# up to real_linear.K1_MAX_TOKENS rows, above them K7b / K7a + K5)
 SLOT_BATCH, SLOT_REQUESTS, MID_BATCH = 64, 96, 32
 DECODE_POS = 448             # the bench's aligned decode position (bench.py:179-180)
 # K12's stacked body: Meta-Llama-3-8B's attention shape (config.json: 32
@@ -844,7 +854,7 @@ def check_act_prep(stacked, dev, gen, n=None):
     return rows
 
 
-def check_gmm_stacked(stacked, dev, gen, n=None):
+def check_gmm_stacked(stacked, dev, gen, n=None, main=True):
     """K5 vs plain at the four decode linears, N rows, each in the input
     mode the path gives it (K7a's layout; row-major codes at Llama's o_proj;
     Bloom's input gathered by the last layer's perm first, its rows out of
@@ -852,7 +862,8 @@ def check_gmm_stacked(stacked, dev, gen, n=None):
     codes: the f32 instantiation within
     1e-5 of the largest magnitude, the path's bf16 one within 1e-2 (one
     bf16 rounding of sums taken in another order).  Yardstick: a bf16
-    torch.matmul at the same shape."""
+    torch.matmul at the same shape.  main=False marks a call at another row
+    count (sites named `site@rows`, out of the sums, no yardsticks)."""
     import torch
 
     from smoothquant_tpu_torch.kernels import int4_group_matmul as k5
@@ -895,23 +906,83 @@ def check_gmm_stacked(stacked, dev, gen, n=None):
                  for _ in range(4)]
         n_bytes, ops = roofline.gmm_cost(n, o, 2 * half, m.group_size, k_s)
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
-        name = f"{site}@rows" if to_rows else site
+        name = (f"{site}@rows" if to_rows else site) + ("" if main else f"@{n}")
+        body = k5.stacked_body(n, o, m.group_size)
+        timed = lambda b: device_ms(
+            lambda i: k5.int4_group_matmul_stacked(*args(i), **kwb, body=b), n_layers)
         rows.append(dict(
-            kernel="int4_group_matmul_stacked", site=name,
+            kernel="int4_group_matmul_stacked", site=name, body=body,
             mode="rows" if pre is None else "pre_laid", shape=[n, c, o],
             scalings=[n, o, 2 * half, m.group_size],
             max_err=err,
-            max_err_bf16=err_bf16, in_sum=not (to_rows or bloom),
-            kernel_ms=device_ms(lambda i: k5.int4_group_matmul_stacked(*args(i), **kwb),
-                                n_layers),
-            plain_ms=device_ms(lambda i: k5.int4_group_matmul_stacked_plain(*args(i), **kwb),
-                               2, reps=3),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=device_ms(lambda i: x @ w_lib[i % 4], 16),
-            library="torch.matmul bf16 (N, C) @ (C, O), yardstick only"))
+            max_err_bf16=err_bf16, in_sum=main and not (to_rows or bloom),
+            kernel_ms=timed(body),
+            **({"tiles_ms": timed("tiles")} if body == "stream" else {}),
+            bound_ms=b_ms, bound_by=b_by))
+        if main:
+            rows[-1].update(
+                plain_ms=device_ms(
+                    lambda i: k5.int4_group_matmul_stacked_plain(*args(i), **kwb), 2, reps=3),
+                library_ms=device_ms(lambda i: x @ w_lib[i % 4], 16),
+                library="torch.matmul bf16 (N, C) @ (C, O), yardstick only")
         del w_lib
         emit(rows[-1])
     return rows
+
+
+def k1_vs_k5(stacked, dev, gen, rows=(1, 4, 8, 16, MID_BATCH)):
+    """The stacked decode linears' two routes at K1's row counts: K1
+    (RMSNorm, mask and quantize fused in) against the activations made as
+    K1 makes them (real_linear.k1_rows_operands: K7b for the fused-norm
+    sites, K7a or the identity layout's quantize for the others) then K5 on
+    its stream body, at Llama-2-7B's four sites, activation prep included,
+    each call on the next layer's weights.  Device ms per site and summed,
+    and the row counts at which the K5 route wins on the sum."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels.int4_group_matmul import (
+        int4_group_matmul_stacked,
+        int4_group_matmul_stacked_rawx,
+    )
+    from smoothquant_tpu_torch.kernels.real_linear import _salient_gather, k1_rows_operands
+
+    sites = _sites(stacked["layers"]["stacked"])
+    out = {}
+    for n in rows:
+        ms = {}
+        for site, lin, mode in sites:
+            m = lin.meta
+            n_layers = lin.w_qt.shape[0]
+            x = torch.randn((n, m.in_features), generator=gen, device=dev).to(torch.bfloat16)
+            norm = None
+            if mode == "rms":
+                norm = ((torch.rand((n_layers, m.in_features), generator=gen, device=dev) + 0.5
+                         ).to(torch.bfloat16).float(), 1e-5, "rms")
+            w_sal = lin.w_sal_t.to(torch.bfloat16)
+            kw1 = dict(group_size=m.group_size, act_bits=m.act_bits, num_salient=m.num_salient,
+                       out_dtype=torch.bfloat16)
+
+            def k1_route(i):
+                li = i % n_layers
+                if mode == "mask":
+                    return int4_group_matmul_stacked_rawx(
+                        li, x, lin.ns_mask, lin.w_qt, lin.w_scales_t, w_sal,
+                        _salient_gather(lin, x, lin.perm[li]), norm_kind="mask", **kw1)
+                return int4_group_matmul_stacked_rawx(
+                    li, x, norm[0] if norm else None, lin.w_qt, lin.w_scales_t, w_sal,
+                    eps=1e-5, norm_kind="rms" if norm else None, **kw1)
+
+            def k5_route(i):
+                x_q, x_s, x_sal, pre = k1_rows_operands(lin, x, i % n_layers, norm)
+                return int4_group_matmul_stacked(
+                    i % n_layers, x_q, x_s, lin.w_qt, lin.w_scales_t, x_sal, w_sal,
+                    group_size=m.group_size, out_dtype=torch.bfloat16, pre_laid=pre)
+
+            ms[site] = {"k1": device_ms(k1_route, n_layers, reps=3),
+                        "k5": device_ms(k5_route, n_layers, reps=3)}
+        out[n] = {"ms": ms, "sum": {r: sum(v[r] for v in ms.values()) for r in ("k1", "k5")}}
+    return {"rows": list(rows), "by_rows": out,
+            "k5_wins_at": [n for n in rows if out[n]["sum"]["k5"] < out[n]["sum"]["k1"]]}
 
 
 def check_write_cache_hm(dev, gen, b, h, d, rotary=True, site=None):
@@ -1375,10 +1446,26 @@ def single_group_packs(fp):
     return out
 
 
-def _qs_sites(packed):
-    lp = packed["layers"]["0"]
+def _qs_sites(packed, layer=0):
+    lp = packed["layers"][str(layer)]
     return {"q": lp["self_attn"]["q_proj"], "gate": lp["mlp"]["gate_proj"],
             "down": lp["mlp"]["down_proj"]}
+
+
+def _qs_layers(packed, site):
+    """The site's linear in every layer of the quick start's pack: a timed
+    call cycles over them, so each finds its weight cold in L2, as a decode
+    step that reads each layer once does."""
+    return [_qs_sites(packed, i)[site] for i in range(len(packed["layers"]))]
+
+
+def _bf16_weights(c, o, gen, dev, cold_bytes=150 * 2 ** 20):
+    """bf16 (C, O) weights for a timed yardstick to cycle over: enough of
+    them that together they pass the 50 MB L2, so each call reads cold."""
+    import torch
+
+    k = max(2, -(-cold_bytes // (2 * c * o)))
+    return [torch.randn((c, o), generator=gen, device=dev).to(torch.bfloat16) for _ in range(k)]
 
 
 def _no_salient(lin):
@@ -1397,36 +1484,44 @@ def _true_widths(m, sal: bool):
 
 
 def check_int_group_matmul(packed, single, dev, gen):
-    """K8 vs plain, both bodies, at layer 0's q / gate / down of the quick
-    start's pack (k_ns 3904 or 10496, k_s 256 or 640), N = 4 and 64, and at
-    the single-group packs (G = 1, K 3892 with salient and 11008 without),
-    N = 4 and 512; bf16 activations and output.  At the kernels line's
-    sites (q / gate / down with the salient block, N = 4) also the plain
-    version's time and a bf16 torch.matmul of the same (N, C, O)."""
+    """K8 vs plain at layer 0's q / gate / down of the quick start's pack
+    (k_ns 3904 or 10496, k_s 256 or 640) with the salient block at N = 1,
+    4, 16 and 64 and without it at 4 and 64, and at the single-group packs
+    (G = 1, K 3892 with salient and 11008 without), N = 4 and 512; bf16
+    activations and output.  Timed cold: each call takes the next layer's
+    weight of the same site (a decode step reads each layer's once).  Where
+    the shape rule picks the stream body, the tiles body is timed beside
+    it at the same shape (tiles_ms).  At the kernels line's sites (q /
+    gate / down with the salient block, N = 4) also the plain version's
+    time and a bf16 torch.matmul of the same (N, C, O) over weights cycled
+    past the L2."""
     import torch
 
     from smoothquant_tpu_torch.kernels import int_group_matmul as k8
     from smoothquant_tpu_torch.kernels.pack import quantize_activations_packed_int
     from smoothquant_tpu_torch.utils import roofline
 
-    cases = [(site, lin, n, sal) for site, lin in _qs_sites(packed).items()
-             for n in (4, 64) for sal in (True, False)]
-    cases += [(site, lin, n, lin.meta.num_salient > 0) for site, lin in single.items()
+    cases = [(site, _qs_layers(packed, site), n, sal) for site in ("q", "gate", "down")
+             for n, sal in ((1, True), (4, True), (4, False), (16, True), (64, True),
+                            (64, False))]
+    cases += [(site, [lin], n, lin.meta.num_salient > 0) for site, lin in single.items()
               for n in (4, 512)]
     rows = []
-    for site, lin, n, sal in cases:
+    for site, lins, n, sal in cases:
         if not sal:
-            lin = _no_salient(lin)
+            lins = [_no_salient(lin) for lin in lins]
+        lin = lins[0]
         m = lin.meta
         c, o = m.in_features, m.out_features
         x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
         x_q, x_s, x_sal = quantize_activations_packed_int(x, m)
-        w_sal = lin.w_sal_t.to(torch.bfloat16)
-        x_sal = x_sal[:, :w_sal.shape[0]]
+        w_sal = [t.w_sal_t.to(torch.bfloat16) for t in lins]
+        x_sal = x_sal[:, :w_sal[0].shape[0]]
         kw = dict(group_size=m.group_size, out_dtype=torch.bfloat16)
-        args = (x_q, x_s, lin.w_qt, lin.w_scales_t, x_sal, w_sal)
-        got = k8.int_group_matmul(*args, **kw)
-        ref = k8.int_group_matmul_plain(*args, **kw)
+        args = lambda i: (x_q, x_s, lins[i % len(lins)].w_qt, lins[i % len(lins)].w_scales_t,
+                          x_sal, w_sal[i % len(lins)])
+        got = k8.int_group_matmul(*args(0), **kw)
+        ref = k8.int_group_matmul_plain(*args(0), **kw)
         torch.cuda.synchronize()
         name = f"{site}{'' if sal else '_nosal'}@{n}"
         err = _close(f"K8 {name}", got, ref, 1e-2)
@@ -1434,19 +1529,26 @@ def check_int_group_matmul(packed, single, dev, gen):
         n_bytes, ops = roofline.int_group_matmul_cost(n, o, k_ns, m.group_size, k_s)
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         in_sum = sal and n == 4 and site in ("q", "gate", "down")
+        body = k8.int_gmm_body(n, o, m.k_ns, m.group_size)
+        timed = lambda b: device_ms(lambda i: k8.int_group_matmul(*args(i), **kw, body=b),
+                                    len(lins), reps=3)
         rows.append(dict(
-            kernel="int_group_matmul", site=name, shape=[n, c, o, m.k_ns, m.group_size,
-                                                        w_sal.shape[0]],
+            kernel="int_group_matmul", site=name, body=body,
+            shape=[n, c, o, m.k_ns, m.group_size, w_sal[0].shape[0]],
             scalings=[n, o, k_ns, m.group_size],
             max_err=err, in_sum=in_sum, bound_ms=b_ms, bound_by=b_by,
-            kernel_ms=device_ms(lambda i: k8.int_group_matmul(*args, **kw), 8, reps=3)))
+            kernel_ms=timed(body)))
+        if body == "stream":
+            rows[-1]["tiles_ms"] = timed("tiles")
         if in_sum:   # the yardsticks of the kernels line's sites
-            w_lib = torch.randn((c, o), generator=gen, device=dev).to(torch.bfloat16)
+            w_lib = _bf16_weights(c, o, gen, dev)
             rows[-1].update(
-                plain_ms=device_ms(lambda i: k8.int_group_matmul_plain(*args, **kw), 2,
+                plain_ms=device_ms(lambda i: k8.int_group_matmul_plain(*args(i), **kw), 2,
                                    reps=3),
-                library_ms=device_ms(lambda i: x @ w_lib, 8, reps=3),
-                library="torch.matmul bf16 (N, C) @ (C, O), yardstick only")
+                library_ms=device_ms(lambda i: x @ w_lib[i % len(w_lib)], 2 * len(w_lib),
+                                     reps=3),
+                library="torch.matmul bf16 (N, C) @ (C, O) over weights cycled past the L2, "
+                        "yardstick only")
             del w_lib
         emit(rows[-1])
     return rows
@@ -1466,11 +1568,12 @@ def check_dual_path_matmul(packed, single, dev, gen):
     from smoothquant_tpu_torch.kernels.pack import quantize_activations_packed
     from smoothquant_tpu_torch.utils import roofline
 
-    gate = _qs_sites(packed)["gate"]
-    cases = [("grouped", gate), ("grouped_nosal", _no_salient(gate)),
-             ("colscale", single["gate_g1"]), ("colscale_nosal", single["down_g1"])]
+    gates = _qs_layers(packed, "gate")
+    cases = [("grouped", gates), ("grouped_nosal", [_no_salient(g) for g in gates]),
+             ("colscale", [single["gate_g1"]]), ("colscale_nosal", [single["down_g1"]])]
     rows = []
-    for body, lin in cases:
+    for body, lins in cases:
+        lin = lins[0]
         m = lin.meta
         c, o = m.in_features, m.out_features
         w_sal = lin.w_sal_t.to(torch.bfloat16)
@@ -1481,6 +1584,10 @@ def check_dual_path_matmul(packed, single, dev, gen):
             x_sal = x_sal[:, :w_sal.shape[0]]
             kw = dict(group_size=m.group_size, out_dtype=torch.bfloat16)
             args = (x_ns, x_sal, lin.w_qt, lin.w_scales_t, w_sal)
+            # timed cold, as K8: the next layer's gate_proj each call
+            cyc = lambda i: (x_ns, x_sal, lins[i % len(lins)].w_qt,
+                             lins[i % len(lins)].w_scales_t,
+                             lins[i % len(lins)].w_sal_t.to(torch.bfloat16))
             got = k9.dual_path_matmul(*args, **kw)
             ref = k9.dual_path_matmul_plain(*args, **kw)
             torch.cuda.synchronize()
@@ -1499,9 +1606,10 @@ def check_dual_path_matmul(packed, single, dev, gen):
                 shape=[n, c, o, m.k_ns, m.group_size, w_sal.shape[0]],
                 max_err=err,
                 in_sum=in_sum, bound_ms=b_ms, bound_by=b_by,
-                kernel_ms=device_ms(lambda i: k9.dual_path_matmul(*args, **kw), 4, reps=3)))
+                kernel_ms=device_ms(lambda i: k9.dual_path_matmul(*cyc(i), **kw),
+                                    max(4, len(lins)), reps=3)))
             if in_sum:   # the yardsticks of the kernels line's site
-                w_lib = torch.randn((c, o), generator=gen, device=dev).to(torch.bfloat16)
+                w_lib = _bf16_weights(c, o, gen, dev)
 
                 def deq_once(i):
                     y = x_ns @ w_deq
@@ -1510,8 +1618,10 @@ def check_dual_path_matmul(packed, single, dev, gen):
                 rows[-1].update(
                     plain_ms=device_ms(lambda i: k9.dual_path_matmul_plain(*args, **kw), 2,
                                        reps=3),
-                    library_ms=device_ms(lambda i: x @ w_lib, 4, reps=3),
-                    library="torch.matmul bf16 (N, C) @ (C, O), yardstick only",
+                    library_ms=device_ms(lambda i: x @ w_lib[i % len(w_lib)],
+                                         2 * len(w_lib), reps=3),
+                    library="torch.matmul bf16 (N, C) @ (C, O) over weights cycled past the "
+                            "L2, yardstick only",
                     dequant_once_ms=device_ms(deq_once, 4, reps=3))
                 del w_lib
             emit(rows[-1])
@@ -1520,24 +1630,25 @@ def check_dual_path_matmul(packed, single, dev, gen):
 
 
 def int_path_crossover(packed, dev, gen):
-    """real_quant_linear on layer 0's gate_proj (4096 → 11008) and down_proj
-    (11008 → 4096) of the quick start's pack in "int" (K8) and "dequant"
-    (K9) mode, activation prep included, at each of CROSSOVER_N rows; the
-    smallest N from which the dequant path wins on both (None: the int path
-    wins at every N measured)."""
+    """real_quant_linear on gate_proj (4096 → 11008) and down_proj (11008 →
+    4096) of the quick start's pack in "int" (K8) and "dequant" (K9) mode,
+    activation prep included, at each of CROSSOVER_N rows, each call on the
+    next layer's linear (cold, as a forward finds them); the smallest N
+    from which the dequant path wins on both (None: the int path wins at
+    every N measured)."""
     import torch
 
     from smoothquant_tpu_torch.kernels.real_linear import real_quant_linear
 
-    sites = {k: v for k, v in _qs_sites(packed).items() if k != "q"}
+    sites = {site: _qs_layers(packed, site) for site in ("gate", "down")}
     times = {site: {} for site in sites}
     for n in CROSSOVER_N:
-        for site, lin in sites.items():
-            x = torch.randn((n, lin.meta.in_features), generator=gen,
+        for site, lins in sites.items():
+            x = torch.randn((n, lins[0].meta.in_features), generator=gen,
                             device=dev).to(torch.bfloat16)
             times[site][n] = {mode: device_ms(
-                lambda i: real_quant_linear(lin, x, compute=mode), 4, reps=2)
-                for mode in ("int", "dequant")}
+                lambda i: real_quant_linear(lins[i % len(lins)], x, compute=mode), len(lins),
+                reps=2) for mode in ("int", "dequant")}
     wins = [n for n in CROSSOVER_N
             if all(t[n]["dequant"] < t[n]["int"] for t in times.values())]
     above = [n for n in CROSSOVER_N if all(w in wins for w in CROSSOVER_N if w >= n)]
@@ -1811,6 +1922,84 @@ def check_wg_edges(dev):
     return worst
 
 
+def check_stream_edges(dev):
+    """The stream body K8 and K5 share (and the tiles body where their shape
+    rules send a shape) against the plain versions at the edges: 1, 4, 7
+    (a ragged n8 tile), 33 and 64 rows; O a multiple of the 128-column tile,
+    O = 336 (a ragged tile, whole 16-byte weight rows) and O = 200 (the
+    tiles body); group sizes 16, 32, 64 and 128 (K8) and 16, 32 and 64 (K5,
+    both input layouts); f32 and bf16 scales; f32 and bf16 outputs; with a
+    40-column salient block and without.  Tolerance: 1e-5 of the largest
+    output in f32 (sum order), 1e-2 in bf16 (one rounding).  Every stream
+    call is made twice and must give the same bits (the split's reduce is
+    in a fixed order).  Returns the largest relative error of each (kernel,
+    body) and the number of repeated calls."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int4_group_matmul as k5
+    from smoothquant_tpu_torch.kernels import int_group_matmul as k8
+    from smoothquant_tpu_torch.kernels.act_prep import quantize_acts_grouped_t
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+
+    def rnd(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def codes(*shape, q=7):
+        return torch.randint(-q, q + 1, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    worst, repeats = {}, 0
+
+    def hold(name, kernel, body, fn, ref, dt):
+        nonlocal repeats
+        got = fn()
+        if body == "stream":
+            again = fn()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two calls gave different bits")
+            repeats += 1
+        tol = 1e-5 if dt == torch.float32 else 1e-2
+        err = _close(name, got, ref, tol)
+        key = f"{kernel}/{body}"
+        worst[key] = max(worst.get(key, 0.0), err / ref.float().abs().max().item())
+
+    dtypes = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32))
+    for n in (1, 4, 7, 33, 64):
+        for gs, kk, o in ((16, 144, 384), (32, 192, 336), (64, 320, 384), (128, 384, 256),
+                          (64, 320, 200)):
+            for k_s in (0, 40):
+                for s_dt, dt in dtypes:
+                    args = (codes(n, kk, q=127), rnd(n, kk // gs, lo=0.01, hi=0.2),
+                            codes(kk, o, q=127), rnd(kk // gs, o, lo=0.01, hi=0.2).to(s_dt),
+                            rnd(n, k_s).to(dt), rnd(k_s, o).to(dt))
+                    kw = dict(group_size=gs, out_dtype=dt)
+                    hold(f"K8 n={n} gs={gs} o={o} k_s={k_s} {s_dt} {dt}", "int_group_matmul",
+                         k8.int_gmm_body(n, o, kk, gs), lambda: k8.int_group_matmul(*args, **kw),
+                         k8.int_group_matmul_plain(*args, **kw), dt)
+        for gs, kk, o in ((16, 256, 384), (32, 512, 336), (64, 512, 384), (64, 512, 200)):
+            for k_s in (0, 40):
+                for s_dt, dt in dtypes:
+                    for pre in (False, True):
+                        w = (torch.randint(-128, 128, (2, kk // 2, o), generator=gen, device=dev,
+                                           dtype=torch.int8),
+                             rnd(2, kk // gs, o, lo=0.01, hi=0.2).to(s_dt))
+                        if pre:
+                            xq, xs = quantize_acts_grouped_t(rnd(n, kk), group_size=gs,
+                                                             act_bits=4)
+                        else:
+                            xq, xs = codes(n, kk, q=8), rnd(n, kk // gs, lo=0.01, hi=0.2)
+                        args = (1, xq, xs, *w, rnd(n, k_s).to(dt), rnd(2, k_s, o).to(dt))
+                        kw = dict(group_size=gs, out_dtype=dt, pre_laid=n if pre else None)
+                        hold(f"K5 n={n} gs={gs} o={o} k_s={k_s} pre={pre} {s_dt} {dt}",
+                             "int4_group_matmul_stacked", k5.stacked_body(n, o, gs),
+                             lambda: k5.int4_group_matmul_stacked(*args, **kw),
+                             k5.int4_group_matmul_stacked_plain(*args, **kw), dt)
+    torch.cuda.synchronize()
+    return {"max_rel_err": worst, "repeated_calls_identical": repeats}
+
+
 def host_us(fn, calls: int = 200, reps: int = 3) -> float:
     """Least host µs one fn() call takes to return, over `reps` runs of
     `calls` calls queued back to back (no synchronize between them, so the
@@ -1873,12 +2062,16 @@ def k6_host_us(dev):
 
 
 def sass_check():
-    """What the build made of the wgmma bodies: per kernel, the IGMMA /
-    HGMMA instructions of its main loop and any I2F (int → float through the
-    conversion unit, which K6's per-group scaling is written to avoid) in
-    `cuobjdump -sass`, and ptxas' register, spill and serialization notes.
-    Fails unless each K6 body issues IGMMA and has no I2F and each K9 body
-    issues HGMMA (spills and serialization notes are reported, not held)."""
+    """What the build made of the wgmma bodies and of the stream body K8 and
+    K5 share: per kernel, the IGMMA / HGMMA instructions of its main loop
+    and any I2F (int → float through the conversion unit, which the
+    per-group scalings of K6 and the stream body are written to avoid) in
+    `cuobjdump -sass`, and ptxas' register, spill and serialization notes;
+    for the stream kernels, how the weight arrives: TMA copies (UTMALDG)
+    and 128-bit global loads (LDG.E.128).  Fails unless each K6 body issues
+    IGMMA and has no I2F, each K9 body issues HGMMA, and each stream kernel
+    has no I2F and loads by TMA (spills and serialization notes are
+    reported, not held)."""
     import os
     import re
     import shutil
@@ -1889,9 +2082,18 @@ def sass_check():
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", _build.build()], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    out = {}
+    out, stream = {}, {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
+        m = re.search(r"stream_gmm_kernelILb(\d)ELi(\d+)ELi(\d+)", name)
+        if m:
+            ops = {op: len(re.findall(r"\b" + op + r"\b", fn))
+                   for op in ("I2F", "UTMALDG", "IMMA", "HMMA")}
+            ops["LDG.E.128"] = len(re.findall(r"LDG\.E\.128\b", fn))
+            if ops["I2F"] or not ops["UTMALDG"]:
+                raise AssertionError(f"stream {name}: SASS {ops}")
+            stream[f"{'K5' if m.group(1) == '1' else 'K8'} gs={m.group(2)} nt={m.group(3)}"] = ops
+            continue
         kind = ("K6" if "wg_gmm_kernel" in name else
                 "K9" if "dual_path_wg_kernel" in name else None)
         if kind is None:
@@ -1905,16 +2107,19 @@ def sass_check():
     log = _build.build_log.splitlines()
     notes = {}
     for i, ln in enumerate(log):
-        if "Compiling entry" in ln and ("wg_gmm_kernel" in ln or "dual_path_wg_kernel" in ln):
+        if "Compiling entry" in ln and any(k in ln for k in (
+                "wg_gmm_kernel", "dual_path_wg_kernel", "stream_gmm_kernel")):
             block = " ".join(log[i:i + 4])
             regs = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores", block)
-            notes[re.search(r"(wg_gmm_kernel|dual_path_wg_kernel)\w{0,40}", ln).group(0)] = [
+            notes[re.search(r"(wg_gmm_kernel|dual_path_wg_kernel|stream_gmm_kernel)\w{0,40}",
+                            ln).group(0)] = [
                 int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None]
     serialized = sum(1 for ln in log if "serialized" in ln)
-    if not out:
-        raise AssertionError("the build holds no wgmma body")
-    return {"sass": out, "registers_spills": notes, "ptxas_serialized_notes": serialized}
+    if not out or not stream:
+        raise AssertionError("the build holds no wgmma body or no stream body")
+    return {"sass": out, "stream_sass": stream, "registers_spills": notes,
+            "ptxas_serialized_notes": serialized}
 
 
 def add_scaling_floors(rows, clock_mhz):
@@ -2027,6 +2232,16 @@ def check_no_fallback(dev):
         "K8 O = 6": (lambda: k8.int_group_matmul(
             z8[:4], f32(4, 1), z8[:, :6].contiguous(), f32(1, 6), f32(4, 0), f32(0, 6),
             group_size=64), ValueError),
+        "K8 stream body at O = 200": (lambda: k8.int_group_matmul(
+            z8[:4], f32(4, 2), torch.zeros((64, 200), dtype=torch.int8, device=dev),
+            f32(2, 200), f32(4, 0), f32(0, 200), group_size=32, body="stream"), ValueError),
+        "K8 stream body at 65 rows": (lambda: k8.int_group_matmul(
+            torch.zeros((65, 64), dtype=torch.int8, device=dev), f32(65, 2), z8, f32(2, 64),
+            f32(65, 0), f32(0, 64), group_size=32, body="stream"), ValueError),
+        "K5 stream body at 65 rows": (lambda: k1.int4_group_matmul_stacked(
+            0, torch.zeros((65, 256), dtype=torch.int8, device=dev), f32(65, 4), w4,
+            f32(1, 4, 256), f32(65, 0), f32(1, 0, 256), group_size=64, body="stream"),
+            ValueError),
         "K8 float codes": (lambda: k8.int_group_matmul(
             f32(4, 64), f32(4, 1), z8, f32(1, 64), f32(4, 0), f32(0, 64), group_size=64),
             TypeError),
@@ -2283,14 +2498,24 @@ def _check_launches(path, launches, expect):
 
 def step_launches(cfg, batch, attn, fuse_mlp=False):
     """Kernel launches of one stacked W4A4 decode step of `batch` rows: the
-    four linears a layer on K1 up to MID_BATCH rows (two of them and K14
-    with fuse_mlp), above on K7a (qkv, gate_up, down) and K5; the cache
-    write and attention by `attn`: "smajor" K2 + K3 over the S-major pool,
-    "off" K10 + K11 over the head-major one, "auto" K12 + K10 and "fused"
-    K12 alone over the aligned head-major cache."""
+    four linears a layer (two of them and K14 with fuse_mlp) on K1 up to
+    K1_MAX_TOKENS rows, up to RAWX_MAX_N on K7b (qkv, gate_up), K7a (down)
+    and K5, above on K7a (qkv, gate_up, down) and K5; the cache write and
+    attention by `attn`: "smajor" K2 + K3 over the S-major pool, "off" K10 +
+    K11 over the head-major one, "auto" K12 + K10 and "fused" K12 alone over
+    the aligned head-major cache."""
+    from smoothquant_tpu_torch.kernels.int4_group_matmul import RAWX_MAX_N
+    from smoothquant_tpu_torch.kernels.real_linear import K1_MAX_TOKENS
+
     n_l = cfg.num_hidden_layers
-    if batch <= MID_BATCH:
-        out = {"int4_group_matmul_stacked_rawx": (2 if fuse_mlp else 4) * n_l}
+    n_lin = 2 if fuse_mlp else 4
+    if batch <= K1_MAX_TOKENS:
+        out = {"int4_group_matmul_stacked_rawx": n_lin * n_l}
+    elif batch <= RAWX_MAX_N:
+        out = {"norm_quantize_acts_t": (1 if fuse_mlp else 2) * n_l,
+               "int4_group_matmul_stacked": n_lin * n_l}
+        if not fuse_mlp:
+            out["quantize_acts_grouped_t"] = n_l
     else:
         out = {"quantize_acts_grouped_t": 3 * n_l, "int4_group_matmul_stacked": 4 * n_l}
     if fuse_mlp:
@@ -2480,8 +2705,8 @@ def slot_decode(stacked, cfg, dev, card):
     (K2 + K3) and the aligned head-major cache ((L,) positions, fuse_attn
     "auto": K12's flat body + K10), taking turns window by window; then a
     few steps of MID_BATCH rows over the head-major pool, whose linears take
-    K1.  The caches are freed before the next is made.  Returns the
-    launches of the counted steps."""
+    K7b / K7a + K5 (K1's codes).  The caches are freed before the next is
+    made.  Returns the launches of the counted steps."""
     from collections import Counter
 
     import torch
@@ -2983,10 +3208,13 @@ def build_bloom(cfg, dev, n_samples=BLOOM_SAMPLES, seq_len=BLOOM_LEN):
 
 def bloom_step_launches(cfg, batch):
     """Kernel launches of one stacked Bloom decode step of `batch` rows: the
-    four linears a layer (their input gathered) on K1 up to MID_BATCH rows,
-    above on K7a + K5; K10 (rotary off) and K11's ALiBi body a layer."""
+    four linears a layer (their input gathered, no fused norm) on K1 up to
+    K1_MAX_TOKENS rows, above on K7a + K5; K10 (rotary off) and K11's ALiBi
+    body a layer."""
+    from smoothquant_tpu_torch.kernels.real_linear import K1_MAX_TOKENS
+
     n_l = cfg.num_hidden_layers
-    if batch <= MID_BATCH:
+    if batch <= K1_MAX_TOKENS:
         out = {"int4_group_matmul_stacked_rawx": 4 * n_l}
     else:
         out = {"quantize_acts_grouped_t": 4 * n_l, "int4_group_matmul_stacked": 4 * n_l}
@@ -3621,6 +3849,7 @@ def run(dev, cfg, card: str):
 
     import torch
 
+    from smoothquant_tpu_torch.kernels.int4_group_matmul import RAWX_MAX_N
     from smoothquant_tpu_torch.kernels.real_linear import (
         INT_PATH_MAX_TOKENS,
         PREFILL_KERNEL_MIN_TOKENS,
@@ -3643,6 +3872,7 @@ def run(dev, cfg, card: str):
     for n in (16, MID_BATCH):
         rows += check_rawx(stacked, dev, gen, n)
     rows += (check_act_prep(stacked, dev, gen) + check_gmm_stacked(stacked, dev, gen)
+             + check_gmm_stacked(stacked, dev, gen, n=33, main=False)
              + check_write_cache_hm(dev, gen, SLOT_BATCH, cfg.num_key_value_heads, cfg.head_dim)
              + check_fused_attn(cfg, dev, gen)
              + check_mlp_fused(stacked, dev, gen))
@@ -3650,6 +3880,9 @@ def run(dev, cfg, card: str):
     emit({"phase": "no_fallback", "raised": check_no_fallback(dev)})
     emit({"phase": "kernel_variants", "max_rel_err": check_kernel_variants(dev)})
     emit({"phase": "wg_edges", "max_rel_err": check_wg_edges(dev)})
+    emit({"phase": "stream_edges", **check_stream_edges(dev)})
+    emit({"phase": "k1_vs_k5", "card": card, "rawx_max_n": RAWX_MAX_N,
+          **k1_vs_k5(stacked, dev, gen)})
     emit({"phase": "k6_host_us", "card": card, "us_per_call": k6_host_us(dev)})
     emit({"phase": "reference_check", **reference_check(dev)})
 

@@ -43,9 +43,11 @@ _SIGNATURES = {
     "sq_int4_gmm_wg": ([_P] * 7 + [_I] * 5 + [_I, _P], _I),
     "sq_int_gmm_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
     "sq_int_gmm": ([_P] * 8 + [_I] * 6 + [_I, _I, _P], _I),
+    "sq_int_gmm_stream": ([_P] * 7 + [_I] * 10 + [_P], _I),
     "sq_dual_path": ([_P] * 6 + [_I] * 7 + [_I, _I, _P], _I),
     "sq_gmm_stacked_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
     "sq_int4_gmm_stacked": ([_P] * 8 + [_I] * 6 + [_I, _I, _P], _I),
+    "sq_int4_gmm_stacked_stream": ([_P] * 7 + [_I] * 10 + [_P], _I),
     "sq_quantize_grouped_t": ([_P] * 3 + [_I] * 4 + [_F, _I, _P], _I),
     "sq_norm_quantize_t": ([_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
     "sq_write_cache_hm": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),

@@ -17,8 +17,9 @@ K7b norm_quantize_acts_t — port of act_prep.py:127 (pallas_call :182).
     f64, 1/√v correctly rounded) — K1's pre-pass takes it too, so K7b → K5
     and K1 quantize the same values on the card; the JAX kernel takes
     XLA's rsqrt, which may put r an ulp away and move a code on a rounding
-    edge.  No module calls K7b (nor in the JAX package): it stands ported
-    beside K7a.
+    edge.  The stacked decode's fused-norm sites take K7b → K5 at 5-32
+    rows (real_linear.k1_rows_operands: K1's codes, on K5's stream body);
+    no module of the JAX package calls it.
 
 CUDA source: csrc/act_prep.cu.  The wrapper runs the plain version only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.

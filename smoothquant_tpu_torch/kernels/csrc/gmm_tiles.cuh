@@ -1,6 +1,13 @@
-// The int8 tensor-core group-matmul tile kernel shared by K5 and K8
-// (int4_group_matmul.cu, int_group_matmul.cu), and by K6 for the shapes
-// its wgmma body (wg_gmm_kernel) does not take: 64×64 output tiles,
+// The int8 tensor-core group-matmul tile kernel for the shapes the faster
+// bodies do not take: K8's and K5's beyond the stream body (stream_gmm.cuh:
+// more than 64 rows; K8's single group, whose int32 partial may pass the
+// 2^22 its exact conversion needs, and group sizes other than 16/32/64/128;
+// K5's group size 48; O % 16 != 0), and K6's beyond its wgmma body
+// (wg_gmm_kernel).  At the decode rows the stream body now takes, this
+// kernel read 7-11× its byte bound: a 64-row token tile at any N, one
+// unit's loads waited on before its mma, 4-byte weight loads, an I2F per
+// scaling, and split-K partials through device memory and a second launch.
+// Layout: 64×64 output tiles,
 // 4 warps of 32×32, mma.sync m16n8k32 on operand tiles staged in shared
 // memory (rows padded to 17 words, so fragment loads hit 32 distinct
 // banks), an int32 partial per group scaled into f32 accumulators seeded by

@@ -81,15 +81,23 @@
 // K5 replaces int4_group_matmul_stacked (pallas_call at :807): layer i of a
 // stacked (L, K/2, O) pack on quantized activations, the decode linears of
 // 33+ token rows (K7a's pre-laid (G, N_pad, gs) codes, or (N, K) row-major
-// ones from the identity layout's quantize).  At N = 64 it is still bound by
-// the weight's bytes (2·64 int ops per ~0.56-byte element, ~230 ops a byte
-// against the card's ~590), so it is K6's tile kernel with strided
-// activation addressing, on the layer's base pointers, its f32 result cast
-// to the output dtype, and a split over the group pairs (f32 partials, then
-// the fixed-order reduce) where the 64-wide O-tiles alone give fewer than
-// ~6 blocks per SM (every decode linear at N = 64).
+// ones from the identity layout's quantize).  At N = 64 it is bound by the
+// weight's bytes (2·64 int ops per ~0.56-byte element, ~230 ops a byte
+// against the card's ~590) with the per-group scaling (N·O·G of them) beside
+// them on the CUDA cores.  Two bodies, picked by shape alone
+// (int4_group_matmul.py stacked_body):
+//   * the stream body K8 shares (stream_gmm.cuh) at 1-64 rows, group size
+//     16, 32 or 64, O % 16 == 0: a stage is one group pair (gs packed rows
+//     by TMA, the two x tiles in either layout); each nibble b enters the
+//     int8 mma as 16·(b − 8) (one logic op on the transposed word), so the
+//     product needs no −8·Σx term and s_x/16 takes the ×16 back out; K
+//     split over a cluster, reduced in rank order through distributed
+//     shared memory;
+//   * gmm_kernel (gmm_tiles.cuh) for every other shape (more rows, group
+//     size 48, O % 16 != 0): K6's tile kernel with strided activation
+//     addressing, its split over the group pairs reduced by a second launch.
 #include "gmm_tiles.cuh"
-#include "wg_gemm.cuh"
+#include "stream_gmm.cuh"
 
 namespace {
 
@@ -468,6 +476,21 @@ int dispatch_wg_gmm(const W6Args& a, int gs, const void* xsal, const void* wsal,
                   : launch_wg_gmm<S, 64>(a, xsal, wsal, w, ws, out, st);
 }
 
+// K5's stream body at group size GS: the x map (row-major (N, kk) codes, or
+// K7a's (G, N_pad, GS) rows viewed as (G·N_pad, GS)) with the swizzle a row
+// of GS bytes takes, then the launch.
+template <int GS>
+int k5_stream(SgArgs& a, SgMaps& m, const void* xq, int kk, int pre_laid, cudaStream_t st) {
+  const int n_box = 8 * sg_tiles_for(a.N);
+  const bool ok =
+      pre_laid ? wg_map(&m.x, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, GS, (uint64_t)a.G * pre_laid,
+                        GS, GS, n_box, sg_swizzle<GS>())
+               : wg_map(&m.x, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kk, a.N, kk, GS, n_box,
+                        sg_swizzle<GS>());
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return sg_dispatch<true, GS>(a, m, st);
+}
+
 }  // namespace
 
 // Bytes of device workspace sq_rawx needs for these shapes.
@@ -576,4 +599,40 @@ SQ_EXPORT int sq_int4_gmm_stacked(const void* xq, const void* xs, const void* w,
   }
   return x_dt == DT_BF16 ? dispatch_gmm<true, __nv_bfloat16>(a, s_dt, st)
                          : dispatch_gmm<true, float>(a, s_dt, st);
+}
+
+// K5, stream body (stream_gmm.cuh): 1-64 rows, group size 16, 32 or 64,
+// O % 16 == 0; xq / xs row-major (pre_laid = 0) or K7a's layout (pre_laid =
+// N_pad); xsal (N, xsal_rs) and wsal (k_s, O) in the compute dtype (bf16:
+// xsal_rs a multiple of 8); every pointer 16-byte aligned (TMA).  A group
+// stage is one group pair (GS packed rows), a bf16 salient stage 32 rows.
+SQ_EXPORT int sq_int4_gmm_stacked_stream(const void* xq, const void* xs, const void* w,
+                                         const void* ws, const void* xsal, const void* wsal,
+                                         void* out, int N, int O, int kk, int gs, int k_s,
+                                         int xsal_rs, int pre_laid, int n_split, int s_dt,
+                                         int x_dt, void* stream) {
+  const int G = kk / gs, s_bf16 = s_dt == DT_BF16, t_bf16 = x_dt == DT_BF16;
+  const int n_grp = G / 2, n_sal = t_bf16 ? (k_s + 31) / 32 : 0;
+  if ((gs != 16 && gs != 32 && gs != 64) || kk % (2 * gs) || (pre_laid && pre_laid < N) ||
+      !sg_args_ok(N, O, k_s, xsal_rs, n_split, n_sal + n_grp, t_bf16))
+    return (int)cudaErrorInvalidValue;
+  SgArgs a{(const float*)xs, xsal, wsal, out, N, O, G, k_s, xsal_rs, G, 1, gs, 0, kk / 2, 0,
+           n_sal, n_grp, n_split, s_bf16, t_bf16};
+  if (pre_laid) {
+    a.s_rs = 1;
+    a.s_gs = pre_laid;
+    a.x_dx = 0;
+    a.x_dy = pre_laid;
+    a.x_hx = 0;
+    a.x_hy = G / 2 * pre_laid;
+  }
+  SgMaps m = {};
+  if (!sg_weight_map(&m.w, w, O, kk / 2, gs) ||
+      !sg_common_maps(m, ws, xsal, wsal, s_bf16, N, O, G, n_sal ? k_s : 0, xsal_rs,
+                      8 * sg_tiles_for(N), 32, 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return gs == 16 ? k5_stream<16>(a, m, xq, kk, pre_laid, st)
+         : gs == 32 ? k5_stream<32>(a, m, xq, kk, pre_laid, st)
+                    : k5_stream<64>(a, m, xq, kk, pre_laid, st);
 }

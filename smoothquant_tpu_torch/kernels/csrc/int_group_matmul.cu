@@ -19,18 +19,28 @@
 // never materialising a dequantized weight; K9 pays a dequant instead, and
 // real_linear's INT_PATH_MAX_TOKENS is where the two cross on the card.
 //
-// Design: K6's tile kernel (gmm_tiles.cuh) with NIBBLE = false — 64×64
-// output tiles, the int8 codes staged 128 channels a step into shared
-// memory, the (K, O) weight transposed four rows at a time into K-packed
-// column words, mma.sync m16n8k32 into an int32 partial per group, and the
-// epilogue acc = fma(f32(p)·s_x, s_w, acc) group by group in K order after
-// the salient dot, the TPU body's order.  Where the O- and N-tiles alone
-// leave the card underfilled (decode), the groups split across blocks
-// (gmm_plan), each split writing an f32 partial that a fixed-order reduce
-// sums: the f32 association then differs from the plain version's single
-// chain, a last-bit difference.  A single group (G = 1) never splits.  No
-// cp.async pipeline yet: blocks in flight hide the load latency.
+// Two bodies, picked by shape alone (int_group_matmul.py int_gmm_body):
+//   * the stream body (stream_gmm.cuh) at 1-64 rows — every call the "int"
+//     path makes up to INT_PATH_MAX_TOKENS — with G > 1 groups of 16, 32,
+//     64 or 128 channels and O % 16 == 0: the weight streamed by TMA through
+//     a ring of 128-row stages, byte-transposed in registers into mma.sync
+//     A fragments with the tokens on the n side, one int32 partial a group
+//     started at 0x4B400000 so f32(p) is one subtract (no I2F; the same bits
+//     as __int2float_rn), K split over a cluster and reduced through
+//     distributed shared memory in rank order.  The groups are folded in K
+//     order after the salient dot within each rank.
+//   * gmm_kernel (gmm_tiles.cuh) for every other shape: 64×64 output tiles,
+//     the codes staged 128 channels a step, the (K, O) weight transposed four
+//     rows at a time, mma.sync m16n8k32 into an int32 partial per group,
+//     acc = fma(f32(p)·s_x, s_w, acc) group by group in K order; where the
+//     O- and N-tiles alone leave the card underfilled the groups split
+//     across blocks (gmm_plan) into f32 partials that a fixed-order reduce
+//     sums.  A single group (G = 1) never splits and converts its partial,
+//     which may pass 2^22, with __int2float_rn.
+// Both take the f32 association the plan gives, a last-bit difference from
+// the plain version's single chain.  Times: PERF.md §6.
 #include "gmm_tiles.cuh"
+#include "stream_gmm.cuh"
 
 namespace {
 
@@ -64,4 +74,38 @@ SQ_EXPORT int sq_int_gmm(const void* xq, const void* xs, const void* w, const vo
                   x_rs, gs, G, 1, p.gps, p.n_split};
   return x_dt == DT_BF16 ? dispatch_gmm<false, __nv_bfloat16>(a, s_dt, st)
                          : dispatch_gmm<false, float>(a, s_dt, st);
+}
+
+// K8, stream body (stream_gmm.cuh): 1-64 rows, G > 1 groups of 16, 32, 64
+// or 128 channels, O % 16 == 0; xq (N, x_rs) codes, x_rs a multiple of 16;
+// xsal (N, xsal_rs) and wsal (k_s, O) in the output dtype (bf16: xsal_rs a
+// multiple of 8); every pointer 16-byte aligned (TMA).  n_split ranks (1, 2,
+// 4 or 8) take each 128-column tile's stages: 128 weight rows a group stage,
+// 64 salient rows a bf16 salient stage.
+SQ_EXPORT int sq_int_gmm_stream(const void* xq, const void* xs, const void* w, const void* ws,
+                                const void* xsal, const void* wsal, void* out, int N, int O,
+                                int kk, int gs, int k_s, int x_rs, int xsal_rs, int n_split,
+                                int s_dt, int x_dt, void* stream) {
+  const int G = kk / gs, s_bf16 = s_dt == DT_BF16, t_bf16 = x_dt == DT_BF16;
+  const int n_grp = (kk + 127) / 128, n_sal = t_bf16 ? (k_s + 63) / 64 : 0;
+  if ((gs != 16 && gs != 32 && gs != 64 && gs != 128) || G < 2 || G * gs != kk || x_rs % 16 ||
+      x_rs < kk || !sg_args_ok(N, O, k_s, xsal_rs, n_split, n_sal + n_grp, t_bf16))
+    return (int)cudaErrorInvalidValue;
+  const SgArgs a{(const float*)xs, xsal, wsal, out, N, O, G, k_s, xsal_rs, G, 1, 128, 0, 0, 0,
+                 n_sal, n_grp, n_split, s_bf16, t_bf16};
+  const int n_box = 8 * sg_tiles_for(N);
+  SgMaps m = {};
+  if (!sg_weight_map(&m.w, w, O, kk, 128) ||
+      !wg_map(&m.x, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kk, N, x_rs, 128, n_box,
+              CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !sg_common_maps(m, ws, xsal, wsal, s_bf16, N, O, G, n_sal ? k_s : 0, xsal_rs, n_box, 64,
+                      128 / gs))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (gs) {
+    case 16: return sg_dispatch<false, 16>(a, m, st);
+    case 32: return sg_dispatch<false, 32>(a, m, st);
+    case 64: return sg_dispatch<false, 64>(a, m, st);
+    default: return sg_dispatch<false, 128>(a, m, st);
+  }
 }

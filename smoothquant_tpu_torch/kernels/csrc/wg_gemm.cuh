@@ -341,11 +341,13 @@ cudaError_t wg_kernel_ready(K kernel, int smem, int regs) {
 
 // A 2-D map over a row-major (rows, cols) matrix of elements of `dt` (esize
 // bytes) with a row stride of ld elements, boxes of box_cols × box_rows,
-// zero fill past the edges.  Returns false where the encoder refuses it
-// (base not 16-byte aligned, ld · esize not a multiple of 16, ...).
+// zero fill past the edges, L2 fills of `promo`.  Returns false where the
+// encoder refuses it (base not 16-byte aligned, ld · esize not a multiple
+// of 16, ...).
 inline bool wg_map(CUtensorMap* m, const void* base, CUtensorMapDataType dt, int esize,
                    uint64_t cols, uint64_t rows, uint64_t ld, uint32_t box_cols,
-                   uint32_t box_rows, CUtensorMapSwizzle sw) {
+                   uint32_t box_rows, CUtensorMapSwizzle sw,
+                   CUtensorMapL2promotion promo = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   const WgEncodeTiled fn = wg_encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
@@ -353,8 +355,8 @@ inline bool wg_map(CUtensorMap* m, const void* base, CUtensorMapDataType dt, int
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t estr[2] = {1, 1};
   return fn(m, dt, 2, const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, promo, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -14,7 +14,9 @@ K5  int4_group_matmul_stacked — port of :679 (pallas_call :807).  Layer
     row-major (N, K) codes with (N, G) scales or, pre_laid = N, K7a's
     (G, N_pad, gs) codes with (G, N_pad) scales: f32 sums seeded by the
     salient dot, then ((p − 8·Σx)·s_x)·s_w for group g and g + G/2 in turn,
-    cast to out_dtype.
+    cast to out_dtype; in one of two bodies picked by shape alone
+    (stacked_body): the weight-streaming body K8 shares
+    (csrc/stream_gmm.cuh) or the mma.sync tiles (gmm_tiles.cuh).
 K6  int4_group_matmul — port of :841 (pallas_call :950).  The same inner
     product on activations that are already quantized (prefill), in one of
     two bodies picked by shape alone (gmm_body): the wgmma ring
@@ -32,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from smoothquant_tpu_torch.kernels import _build
+from smoothquant_tpu_torch.kernels import _build, stream_gmm
 from smoothquant_tpu_torch.quant.core import compute_scale, f32_reciprocal, rms_factor
 
 RAWX_MAX_N = 32         # token rows K1 takes (the JAX rawx branch's gate)
@@ -230,6 +232,21 @@ def int4_group_matmul_stacked_plain(layer_idx: int, x_q, x_scales, w_packed,
     return acc.to(out_dtype)
 
 
+STREAM_GROUPS = (16, 32, 64)   # group sizes of the stream body (one pair a stage)
+
+
+def stacked_body(n: int, o: int, group_size: int) -> str:
+    """The body a CUDA call of K5 runs, by shape alone: "stream" (the
+    weight-streaming body K8 shares: 1 to 64 rows — every stacked decode
+    linear above K1's 32 — group size 16, 32 or 64, weight rows of whole
+    16-byte runs for TMA, O % 16 == 0; both input layouts, f32 and bf16) or
+    "tiles" (gmm_kernel's 64 x 64 tiles: more rows, group size 48, O % 16
+    != 0)."""
+    if 1 <= n <= stream_gmm.MAX_ROWS and group_size in STREAM_GROUPS and o % 16 == 0:
+        return "stream"
+    return "tiles"
+
+
 def int4_group_matmul_stacked(
     layer_idx: int,
     x_q: torch.Tensor,        # (N, K) int8, or pre_laid: (G, N_pad, gs) int8
@@ -242,8 +259,10 @@ def int4_group_matmul_stacked(
     group_size: int,
     out_dtype=torch.float32,
     pre_laid: Optional[int] = None,   # the true N of K7a's layout
+    body: Optional[str] = None,       # None: stacked_body's pick; "stream" / "tiles" force one
 ) -> torch.Tensor:
-    """Layer `layer_idx` of a stacked int4 group matmul → (N, O) out_dtype."""
+    """Layer `layer_idx` of a stacked int4 group matmul → (N, O) out_dtype.
+    A forced body raises on a shape it does not take."""
     if x_q.device.type == "cpu":
         return int4_group_matmul_stacked_plain(
             layer_idx, x_q, x_scales, w_packed, w_scales_t, x_sal, w_sal_t,
@@ -276,10 +295,31 @@ def int4_group_matmul_stacked(
         raise TypeError(f"x_sal must be ({n}, {k_s}) in the salient block's dtype")
     if out_dtype != w_sal_t.dtype:
         raise TypeError("K5 computes in the salient (compute) dtype, out included")
+    rule = stacked_body(n, o, group_size)
+    body = rule if body is None else body
+    if body not in ("stream", "tiles") or (body == "stream" and rule != "stream"):
+        raise ValueError(f"K5's {body!r} body does not take N = {n}, O = {o}, "
+                         f"group size {group_size}")
     dev = x_q.device
     x_q, x_scales, x_sal = x_q.contiguous(), x_scales.contiguous(), x_sal.contiguous()
     _build.check_operands(dev, x_scales=x_scales, w_packed=w_packed,
                           w_scales_t=w_scales_t, x_sal=x_sal, w_sal_t=w_sal_t)
+    if body == "stream":
+        out = torch.empty((n, o), dtype=out_dtype, device=dev)
+        bf16 = out_dtype == torch.bfloat16
+        pad = -k_s % 8 if bf16 else 0    # x_sal rows of whole 16 bytes (TMA)
+        if pad:
+            x_sal = torch.nn.functional.pad(x_sal, (0, pad))
+        w, ws, w_sal = w_packed[layer_idx], w_scales_t[layer_idx], w_sal_t[layer_idx]
+        x_q, x_sal, w, ws, w_sal = (_build.aligned(t) for t in (x_q, x_sal, w, ws, w_sal))
+        n_split = stream_gmm.split(o, stream_gmm.k5_stages(kk, group_size, k_s, bf16))
+        _build.check(_build.lib().sq_int4_gmm_stacked_stream(
+            x_q.data_ptr(), x_scales.data_ptr(), w.data_ptr(), ws.data_ptr(),
+            x_sal.data_ptr(), w_sal.data_ptr(), out.data_ptr(), n, o, kk, group_size, k_s,
+            k_s + pad, n_pad, n_split, _build.dt_code(w_scales_t), _build.dt_code(w_sal_t),
+            _build.stream_ptr(x_q)), "sq_int4_gmm_stacked_stream")
+        _build.LAUNCHES["int4_group_matmul_stacked"] += 1
+        return out
     workspace = torch.empty(_gmm_stacked_workspace_bytes(n, o, kk, group_size),
                             dtype=torch.uint8, device=dev)
     out = torch.empty((n, o), dtype=out_dtype, device=dev)

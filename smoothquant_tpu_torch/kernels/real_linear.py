@@ -1,13 +1,19 @@
 """Real-quantized linear forward (port of smoothquant_tpu/kernels/
 real_linear.py:70-133,200-479).
 
-  stacked (layer_idx given), nibble, per-group recipe, N <= RAWX_MAX_N (32):
+  stacked (layer_idx given), nibble, per-group recipe, N <= K1_MAX_TOKENS (4):
     * fused RMSNorm (qkv, gate_up over the shared residual basis) → K1 "rms"
     * pre-permuted input, no norm (down_proj)                     → K1 raw
     * input in the original channel order (Bloom's packs): gathered by
       perm[layer_idx] first (real_linear.py:268-272), no norm    → K1 raw
     * identity layout (o_proj): 0/1 ns_mask + k_s-wide salient
       gather                                                     → K1 "mask"
+  the same call sites at 4 < N <= RAWX_MAX_N (32), activations made as K1
+    makes them (k1_rows_operands; the JAX package takes its rawx branch):
+    * fused RMSNorm (qkv, gate_up) in f32, salient split, into K5's
+      layout                                                     → K7b + K5
+    * pre-permuted or gathered input, no norm                    → K7a + K5
+    * identity layout: _identity_nibble_quantize             → K5 row-major
   the same call sites at N > 32 (real_linear.py:320-331,351-386):
     * pre-permuted or gathered input: RMSNorm rounded to x's dtype first
       (qkv, gate_up), salient tail split, K7a into K5's layout  → K7a + K5
@@ -49,7 +55,10 @@ from smoothquant_tpu_torch.kernels.int8_prefill import (
     int_mm,
     scale_epilogue,
 )
-from smoothquant_tpu_torch.kernels.act_prep import quantize_acts_grouped_t
+from smoothquant_tpu_torch.kernels.act_prep import (
+    norm_quantize_acts_t,
+    quantize_acts_grouped_t,
+)
 from smoothquant_tpu_torch.kernels.mlp_fused import (
     mlp_fused_supported,
     mlp_swiglu_fused_stacked,
@@ -85,6 +94,18 @@ PREFILL_KERNEL_MIN_TOKENS = 256
 # against 0.231 ms).  (With K9's mma.sync body the crossover lay at 512 rows
 # and this was 256; with its first wgmma body at 256, and this was 128.)
 INT_PATH_MAX_TOKENS = 64
+# stacked decode linears: up to this many rows K1, above it K5 (its stream
+# body) on activations made as K1 makes them, up to RAWX_MAX_N rows.
+# Measured by chip_smoke.py's k1_vs_k5 (NVIDIA H100 80GB HBM3, 700 W; a
+# Llama-2-7B layer's four sites, activation prep included, cold): K1 0.129,
+# 0.160, 0.277, 0.368, 0.606 ms against K5's route 0.139, 0.146, 0.146,
+# 0.155, 0.180 at 1, 4, 8, 16, 32 rows.  At 4 rows the route's 9 % lies
+# within the spread of K1's readings between phases (0.150-0.160) and adds
+# launches to a step that is host-bound (87 % idle), and K1's 4-row
+# accumulators end there (its 8-row ones take 0.277 at 8 rows), so K1 keeps
+# 1-4 rows.  (Before the stream body this boundary was RAWX_MAX_N, the JAX
+# rawx branch's gate.)
+K1_MAX_TOKENS = 4
 COMPUTE_CHOICES = ("auto", "int", "dequant")
 
 
@@ -263,6 +284,28 @@ def many_rows_operands(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
     return x3, xs_t, x_sal, x2d.shape[0]
 
 
+def k1_rows_operands(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
+                     norm: Optional[tuple] = None):
+    """K5's operands at K1's row counts (up to RAWX_MAX_N), made as K1 makes
+    its codes: a fused RMSNorm in f32 by K7b (the rule K1's pre-pass takes,
+    so the same codes, where many_rows_operands rounds the normed rows to
+    x's dtype first as the JAX many-rows branch does); the identity and
+    pre-permuted sites as many_rows_operands makes them (the same codes as
+    K1's mask and raw modes).  Returns (x_q, x_scales, x_sal, pre_laid)."""
+    if norm is None:
+        return many_rows_operands(packed, x2d, layer_idx)
+    meta = packed.meta
+    norm_rows, eps, kind = norm
+    if kind != "rms":
+        raise NotImplementedError(f"norm kind {kind!r}")
+    x3, xs_t, x_sal = norm_quantize_acts_t(
+        x2d, norm_rows[layer_idx], group_size=meta.group_size, act_bits=meta.act_bits,
+        k_ns=meta.k_ns, num_salient=meta.num_salient, k_s=meta.k_s, eps=float(eps),
+        norm_kind="rms", sal_dtype=x2d.dtype)
+    n = x2d.shape[0]
+    return x3, xs_t, x_sal[:n], n
+
+
 def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
                     norm: Optional[tuple], out_dtype) -> torch.Tensor:
     meta = packed.meta
@@ -275,8 +318,9 @@ def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
         if norm is not None:
             raise NotImplementedError("a fused norm needs pre-permuted input")
         x2d = x2d.index_select(1, packed.perm[layer_idx])
-    if x2d.shape[0] > RAWX_MAX_N:
-        x_q, x_scales, x_sal, pre_laid = many_rows_operands(packed, x2d, layer_idx, norm)
+    if x2d.shape[0] > K1_MAX_TOKENS:
+        prep = k1_rows_operands if x2d.shape[0] <= RAWX_MAX_N else many_rows_operands
+        x_q, x_scales, x_sal, pre_laid = prep(packed, x2d, layer_idx, norm)
         return int4_group_matmul_stacked(
             layer_idx, x_q, x_scales, packed.w_qt, packed.w_scales_t, x_sal,
             packed.w_sal_t.to(x2d.dtype), group_size=meta.group_size,

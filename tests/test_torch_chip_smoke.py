@@ -125,6 +125,10 @@ def test_slot_path_rehearsal_on_cpu(monkeypatch):
     assert kinds["quantize_acts_grouped_t"] == ["qkv", "gate_up", "down"]
     assert kinds["int4_group_matmul_stacked"] == ["qkv", "o", "gate_up", "down", "qkv@rows"]
     assert len(kinds["write_quant_cache_stacked"]) == 1
+    assert all("tiles_ms" in r for r in rows if r.get("body") == "stream")
+    routes = cs.k1_vs_k5(stacked, cpu, gen)
+    assert routes["rows"] == [1, 4, 8, 16, 32] and set(routes["by_rows"][32]["ms"]) == {
+        "qkv", "o", "gate_up", "down"}
 
     metrics, launches = cs.serve(promoted, stacked, cfg, cpu, promoted=True, batch=40,
                                  smajor=False, n_requests=44, decode_window=True)
@@ -146,8 +150,10 @@ def test_slot_path_rehearsal_on_cpu(monkeypatch):
     assert expected["aligned_head_major decode step B=40"] == {
         "quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8, "fused_attn": 2,
         "write_quant_cache_stacked": 2}
+    # above K1_MAX_TOKENS rows: K7b at the fused-norm sites, K7a at down, K5
     assert expected["head-major decode step B=32"] == {
-        "int4_group_matmul_stacked_rawx": 8, "write_quant_cache_stacked": 2,
+        "norm_quantize_acts_t": 4, "quantize_acts_grouped_t": 2,
+        "int4_group_matmul_stacked": 8, "write_quant_cache_stacked": 2,
         "decode_attention_stacked": 2}
     phases = {p["phase"]: p for p in printed if "phase" in p}
     # position 448, two warm-up steps and the counted one, three windows of 8, the profile
@@ -270,7 +276,10 @@ def test_quickstart_path_rehearsal_on_cpu(monkeypatch):
     assert all(r["max_err"] == 0 for r in rows)
     k8 = [r["site"] for r in rows if r["kernel"] == "int_group_matmul"]
     k9 = [r["site"] for r in rows if r["kernel"] == "dual_path_matmul"]
-    assert len(k8) == 16 and "down_nosal@64" in k8 and "gate_g1@512" in k8
+    assert len(k8) == 22 and "down_nosal@64" in k8 and "gate_g1@512" in k8
+    # the stream body's shapes are timed beside the tiles body's
+    stream = [r for r in rows if r.get("body") == "stream"]
+    assert stream and all("tiles_ms" in r for r in stream)
     assert k9 == [f"{b}@{n}" for b in ("grouped", "grouped_nosal", "colscale",
                                        "colscale_nosal") for n in (512, 2048)]
     assert sum(r["in_sum"] for r in rows) == 4
@@ -507,6 +516,14 @@ def test_wgmma_edge_checks_rehearsal_on_cpu(monkeypatch):
     assert worst == {"int4_group_matmul/wgmma": 0.0, "int4_group_matmul/tiles": 0.0,
                      "dual_path_matmul/wgmma": 0.0, "dual_path_matmul/fma": 0.0,
                      "dual_path_matmul/wgmma, weight by cp.async": 0.0}
+    # and the stream body K8 and K5 share, with the tiles body where the
+    # rules send a shape; every stream call is repeated and compared
+    edges = cs.check_stream_edges(torch.device("cpu"))
+    assert edges["max_rel_err"] == {"int_group_matmul/stream": 0.0,
+                                    "int_group_matmul/tiles": 0.0,
+                                    "int4_group_matmul_stacked/stream": 0.0,
+                                    "int4_group_matmul_stacked/tiles": 0.0}
+    assert edges["repeated_calls_identical"] == 5 * (4 * 2 * 4 + 3 * 2 * 4 * 2)
     rows = [dict(kernel="int4_group_matmul", site="qkv", kernel_ms=1.0, bound_ms=0.06,
                  scalings=[1024, 12288, 3968, 64]),
             dict(kernel="fp_matmul_stacked", site="qkv", kernel_ms=0.1, bound_ms=0.05)]

@@ -25,11 +25,13 @@ from smoothquant_tpu.quant.config import w4a4_group as jw4a4_group
 from smoothquant_tpu_torch.kernels import pack as tpack
 from smoothquant_tpu_torch.kernels import real_linear as treal
 from smoothquant_tpu_torch.kernels.act_prep import quantize_acts_grouped_t
+from smoothquant_tpu_torch.kernels import stream_gmm
 from smoothquant_tpu_torch.kernels.int4_group_matmul import (
     gmm_body,
     int4_group_matmul,
     int4_group_matmul_stacked,
     int4_group_matmul_stacked_rawx,
+    stacked_body,
 )
 from smoothquant_tpu_torch.utils import roofline
 from smoothquant_tpu_torch.utils.convert import packed_from_numpy
@@ -288,3 +290,56 @@ def test_group_scaling_floor():
     assert 0.069 < ms < 0.071
     assert roofline.group_scaling_floor_ms(4, 128, 100, 64, 1000.0) == pytest.approx(
         1e3 * 4 * 128 * 2 * 3 / (132 * 128 * 1000e6))
+
+
+@pytest.mark.parametrize("n, o, group_size, body", [
+    (64, 12288, 64, "stream"),   # Llama-2-7B's qkv at B = 64, the main path
+    (33, 22016, 64, "stream"),   # gate_up, K1's rows plus one
+    (64, 16384, 64, "stream"),   # BLOOM-7b1's dense_h_to_4h
+    (1, 336, 32, "stream"),      # a ragged column tile, 16-byte weight rows
+    (4, 384, 16, "stream"),
+    (65, 4096, 64, "tiles"),     # more rows than 8 n8 tiles
+    (64, 200, 64, "tiles"),      # weight rows TMA cannot take
+    (64, 4096, 48, "tiles"),
+])
+def test_stacked_body_rule(n, o, group_size, body):
+    """K5's body on a CUDA tensor follows from the shape alone."""
+    assert stacked_body(n, o, group_size) == body
+
+
+def test_k5_stage_counts():
+    """One group pair a K5 group stage, 32 salient rows a bf16 salient
+    stage (none in f32)."""
+    assert stream_gmm.k5_stages(3840, 64, 256, True) == 30 + 8
+    assert stream_gmm.k5_stages(3840, 64, 256, False) == 30
+    assert stream_gmm.k5_stages(10368, 64, 640, True) == 81 + 20
+
+
+@pytest.mark.parametrize("gs", [16, 32, 64])
+def test_nibble_operand_and_exact_f32(gs):
+    """The stream body's K5 arithmetic: each biased nibble b (0..15) of the
+    split-half bytes enters the int8 mma as 16·(b − 8), so the int32 product
+    is 16·(p − 8·Σx) of the plain version's biased product p; read through
+    the 0x4B400000 start as f32 less 1.5·2^23 it is bit-identical to
+    float(16·(p − 8Σx)) over K5's whole range (|p − 8Σx| <= gs·8·8, the
+    edges included), and times s_x/16 it gives the plain version's
+    (p − 8Σx)·s_x to the bit."""
+    rng = np.random.default_rng(gs)
+    x = rng.integers(-8, 8, size=(512, gs))
+    w = rng.integers(-128, 128, size=(gs, 64))
+    x[0], w[:, 0] = -8, 0x77          # lo and hi nibbles 7 (codes −1) ...
+    x[1], w[:, 1] = -8, -120          # ... and 8 / 8 (codes 0): the extremes
+    x[2], w[:, 2] = 7, 0x00           # nibbles 0 (codes −8)
+    wb = torch.from_numpy(w).to(torch.int8)
+    xt = torch.from_numpy(x).to(torch.int32)
+    for half in (0, 1):
+        b = ((wb.to(torch.int32) & 0xFF) >> (4 * half)) & 0xF
+        p = xt @ b - 8 * xt.sum(1, keepdim=True)               # the plain version's p − 8Σx
+        q = xt @ stream_gmm.nibble_s8(wb, half).to(torch.int32)  # the body's int32 product
+        assert torch.equal(q, 16 * p)
+        got = stream_gmm.exact_f32(q)
+        assert torch.equal(got.view(torch.int32), (16 * p).float().view(torch.int32))
+        sx = torch.from_numpy(rng.uniform(1e-3, 0.3, size=(512, 1)).astype(np.float32))
+        assert torch.equal(got * (sx * 0.0625), p.float() * sx)
+        assert p.abs().max().item() <= 64 * gs
+    assert (xt[2:3] @ (((wb[:, 2:3].to(torch.int32) & 0xF) - 8))).abs().item() == 56 * gs

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from smoothquant_tpu.kernels.int_group_matmul import int_group_matmul as j_igmm
+from smoothquant_tpu_torch.kernels import stream_gmm
 from smoothquant_tpu_torch.kernels.int_group_matmul import (
+    int_gmm_body,
     int_group_matmul,
     int_group_matmul_plain,
 )
@@ -117,3 +119,63 @@ def test_cuda_tensors_never_take_the_plain_version():
             ("x_q", "x_scales", "w_qt", "w_scales_t", "x_sal", "w_sal_t")]
     with pytest.raises(RuntimeError):
         int_group_matmul(*args, group_size=32)
+
+
+@pytest.mark.parametrize("n, o, kk, gs, body", [
+    (4, 4096, 3904, 64, "stream"),     # the quick start's q_proj at decode
+    (4, 11008, 3904, 64, "stream"),    # gate_proj
+    (1, 4096, 10496, 64, "stream"),    # down_proj, one row
+    (64, 4096, 10496, 64, "stream"),   # INT_PATH_MAX_TOKENS rows
+    (65, 4096, 10496, 64, "tiles"),    # more rows than 8 n8 tiles
+    (4, 336, 384, 128, "stream"),      # a ragged column tile, 16-byte weight rows
+    (4, 336, 144, 16, "stream"),
+    (4, 200, 384, 64, "tiles"),        # weight rows TMA cannot take
+    (4, 4096, 192, 48, "tiles"),       # groups that do not fill 128-row stages
+    (4, 4096, 3892, 3892, "tiles"),    # one group: |p| may pass 2^22
+])
+def test_int_gmm_body_rule(n, o, kk, gs, body):
+    """K8's body on a CUDA tensor follows from the shape alone."""
+    assert int_gmm_body(n, o, kk, gs) == body
+
+
+@pytest.mark.parametrize("o, stages, n_split", [
+    (4096, stream_gmm.k8_stages(3904, 256, True), 4),    # q_proj: 32 tiles x 4 ranks
+    (11008, stream_gmm.k8_stages(3904, 256, True), 1),   # gate_proj: 86 tiles
+    (4096, stream_gmm.k8_stages(10496, 640, True), 4),   # down_proj
+    (12288, stream_gmm.k5_stages(3840, 64, 256, True), 1),
+    (22016, stream_gmm.k5_stages(3840, 64, 256, True), 1),
+    (1024, 40, 8),                                       # 8 tiles x 8 ranks
+    (1024, 9, 4),                                        # each rank keeps two stages
+    (128, 1, 1),
+])
+def test_stream_split_plan(o, stages, n_split):
+    """The most cluster ranks that keep a call within one block an SM, each
+    rank streaming at least two stages."""
+    assert stream_gmm.split(o, stages) == n_split
+    tiles = -(-o // stream_gmm.TILE_COLS)
+    assert n_split in stream_gmm.SPLITS
+    assert n_split == 1 or (tiles * n_split <= stream_gmm.MAX_BLOCKS
+                            and stages >= stream_gmm.MIN_STAGES * n_split)
+    bigger = 2 * n_split
+    assert (bigger > max(stream_gmm.SPLITS) or tiles * bigger > stream_gmm.MAX_BLOCKS
+            or stages < stream_gmm.MIN_STAGES * bigger)
+
+
+def test_stream_stage_counts():
+    """128 weight rows a K8 group stage (the last may be ragged), 64 salient
+    rows a bf16 salient stage (none in f32: the CUDA cores take it)."""
+    assert stream_gmm.k8_stages(3904, 256, True) == 31 + 4
+    assert stream_gmm.k8_stages(3904, 256, False) == 31
+    assert stream_gmm.k8_stages(10496, 640, True) == 82 + 10
+
+
+@pytest.mark.parametrize("lo, hi", [(-2 ** 21, -2 ** 21 + 4096), (-4096, 4096),
+                                    (2 ** 21 - 4096, 2 ** 21)])
+def test_exact_f32_matches_int_to_float(lo, hi):
+    """The stream body's conversion (the accumulator started at 0x4B400000,
+    the bits read as f32, 1.5·2^23 subtracted) is bit-identical to
+    p.float() over K8's whole range, |p| <= gs·128·128 = 2^21 at
+    128-channel groups."""
+    p = torch.arange(lo, hi + 1, dtype=torch.int32)
+    got = stream_gmm.exact_f32(p)
+    assert torch.equal(got.view(torch.int32), p.float().view(torch.int32))

@@ -2,7 +2,8 @@
 tiny bench recipe of test_torch_generate.py (hidden 512, 8 heads of 64 over
 4 kv heads, 2 layers, f32; the shared-basis serving tree and the promoted
 prefill twin): one stacked decode step over the head-major per-slot int8
-pool at B = 40 (the linears take K7a + K5) and B = 16 (K1), the
+pool at B = 40 (the linears take K7a + K5) and B = 16 (K7b / K7a + K5 on
+K1's codes), the
 ContinuousBatcher at its default head-major pool with 40 slots, and the
 entry points that must raise."""
 
@@ -28,7 +29,7 @@ torch.set_num_threads(1)
 def test_head_major_decode_step_matches_jax(models, batch):  # noqa: F811
     """One decode token over the stacked tree and a random head-major int8
     pool (the same codes and scales on both sides), ragged per-slot
-    positions and a key mask with holes.  The linears' f32 sums (K1's, K5's,
+    positions and a key mask with holes.  The linears' f32 sums (K5's,
     the RMSNorm's) run in another order than XLA's, so a per-token int4 code
     on a rounding edge can land on the other side and move that row's
     logits (2 of 40 rows here, by up to 0.17): at least 90 % of the rows
@@ -89,7 +90,8 @@ def test_batcher_head_major_pool_tokens_identical_to_jax(models):  # noqa: F811
     """ContinuousBatcher(max_batch=40, quant_kv=True) at its default
     head-major pool, prefilling on the promoted twin, 48 requests so that
     slots are re-admitted: the same tokens as the JAX batcher, chunked
-    decode at 33-40 live slots (K7a + K5) and fewer (K1).  A per-token
+    decode at 33-40 live slots (K7a + K5), 5-32 (K7b / K7a + K5 on K1's
+    codes) and fewer (K1).  A per-token
     code on a rounding edge (see the decode-step test) can move a token:
     for these requests none does; other request seeds move 1-4 of ~150."""
     m = models
