@@ -54,6 +54,10 @@
 // The scale dtype is a template, so the scaling has no branch.  setmaxnreg
 // gives the consumer warpgroup 200 registers a thread (its f32 and s32
 // accumulators take 128 at NT = 8) and the producer one 56, two blocks an SM.
+// Where it stands (PERF.md §6): at a few rows the ring binds, within 1.6× of
+// the byte bound; at 64 rows the consumers' math binds (the scaling, the
+// transpose and the mma issue of eight n8 tiles take longer than the ring
+// alone), the next thing to cut.
 #pragma once
 
 #include "wg_gemm.cuh"
