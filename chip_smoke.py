@@ -6,8 +6,9 @@
 1. Prints the card's name and power limit, builds the port's kernels from
    csrc/ with nvcc (sm_90a, one process per source) and prints ptxas'
    register / spill summary; holds the SASS of K6's and K9's wgmma bodies
-   to IGMMA / HGMMA, K6's and the stream body's (K5, K8) to no I2F, and
-   the stream body to TMA loads (cuobjdump); reads the SM clock
+   to IGMMA / HGMMA, K6's, the stream body's (K5, K8), K11's split
+   kernels' and K15b's qk body's to no I2F, the stream body to TMA loads
+   and K11's split kernels to bulk copies (cuobjdump); reads the SM clock
    the per-group scaling floors take.
 The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
 2048, random bf16 weights from seed 0):
@@ -15,10 +16,12 @@ The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
       calibration on 8 random 512-token sequences (the one cut: the CLI
       takes 512), smooth_lm (α = 0.5), static scales, opt_int8.from_float;
    b. K15a at the six linears (2048 and 4 rows), K15b at QKᵀ and PV
-      (prefill S = 512, decode over a 1024-position cache) and K16 (2048
+      (prefill S = 512, decode over a 1024-position cache; bit for bit, the
+      body its shape takes and K15a's kernel timed beside) and K16 (2048
       and 4 rows) against their plain versions: f32 outputs within 1e-6 of
       the largest magnitude, int8 outputs identical or off by one code in
-      under 1e-4 of the elements;
+      under 1e-4 of the elements; K15b's bodies bit for bit at their edges
+      (k15b_edges);
    c. the kernel path against the plain path (the CPU) on a small int8 OPT;
    d. the int8 logits against the smoothed fp model's on a 512-token
       prompt; the int8 prefill of 4 × 512 tokens beside the bf16 fp
@@ -51,7 +54,11 @@ Then the Llama-2-7B paths:
    and the shapes their rules send elsewhere (wg_edges), K8 and K5 over
    the edges of their stream body, each call made twice for identical
    bits (stream_edges); K1 against K7b / K7a + K5 at 1-32 rows (k1_vs_k5,
-   which real_linear.K1_MAX_TOKENS follows).
+   which real_linear.K1_MAX_TOKENS follows).  K11 also over Llama's
+   per-slot int8 pool at B = 64 (positions 100-511), the flash body timed
+   beside the split body at each K11 shape, and the split body at its
+   edges (k11_edges: S, D, rep, both caches, ALiBi, masked slots, every
+   cluster size; one call repeated 400 times for identical bits).
 4. Checks the kernel path against the plain path (the CPU) on a small
    model, f32 and bf16: the S-major prefill and one stacked decode step;
    a promoted prefill over head-major int8 caches and one Generator decode
@@ -728,10 +735,14 @@ def check_fp_matmul(bf16, dev, gen):
     return rows
 
 
-def check_decode_attention_hm(cfg, dev, gen):
+def check_decode_attention_hm(cfg, dev, gen, b=MAX_BATCH, pos=None, bodies=("bf16", "int8"),
+                               main=True):
     """K11 vs plain over random stacked head-major caches, bf16 and int8,
-    with ragged valid lengths (as K3's phase); SDPA over the (dequantized)
-    bf16 cache as the yardstick."""
+    with ragged valid lengths (as K3's phase); the flash body timed beside
+    the split body the rule picks (kernel_ms / flash_ms); SDPA over the
+    (dequantized) bf16 cache as the yardstick.  With main=False (Llama's
+    per-slot int8 pool at B = 64, positions as the pool leaves them) the
+    rows stay out of the kernels line's sums."""
     import torch
     import torch.nn.functional as F
 
@@ -740,22 +751,22 @@ def check_decode_attention_hm(cfg, dev, gen):
     from smoothquant_tpu_torch.utils import roofline
 
     h, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    n_layers = cfg.num_hidden_layers
-    pos = torch.tensor([100, 300, MAX_LEN - 1, 50], device=dev)
-    bias = decode_bias(pos, MAX_BATCH, MAX_LEN, None)
+    n_layers = cfg.num_hidden_layers if main else min(4, cfg.num_hidden_layers)
+    pos = torch.tensor([100, 300, MAX_LEN - 1, 50], device=dev) if pos is None else pos
+    bias = decode_bias(pos, b, MAX_LEN, None)
     valid = (bias == 0)[:, None, None, :]
-    q = torch.randn((MAX_BATCH, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
     rows = []
-    for body in ("bf16", "int8"):
+    for body in bodies:
         if body == "bf16":
-            c = KVCache.create(MAX_BATCH, MAX_LEN, n_kv, d, torch.bfloat16, dev,
+            c = KVCache.create(b, MAX_LEN, n_kv, d, torch.bfloat16, dev,
                                n_layers=n_layers)
             for t in (c.k, c.v):
                 t.copy_(torch.randn(t.shape, generator=gen, device=dev))
             bufs = (c.k, c.v)
             lib_kv = lambda i: (c.k[i], c.v[i])
         else:
-            c = QuantKVCache.create(MAX_BATCH, MAX_LEN, n_kv, d, device=dev,
+            c = QuantKVCache.create(b, MAX_LEN, n_kv, d, device=dev,
                                     n_layers=n_layers)
             for t in (c.k_q, c.v_q):
                 t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev,
@@ -771,19 +782,26 @@ def check_decode_attention_hm(cfg, dev, gen):
         k_, v_ = bufs[:2]
         scales = bufs[2:]
         args = lambda i: (i, q, k_, v_, bias, *scales)
-        got = k11.decode_attention_stacked(*args(n_layers - 1))
+        got = _launched("decode_attention_stacked",
+                        lambda: k11.decode_attention_stacked(*args(n_layers - 1)))
         ref = k11.decode_attention_stacked_plain(*args(n_layers - 1))
+        flash = k11.decode_attention_stacked(*args(n_layers - 1), body="flash")
         torch.cuda.synchronize()
-        err = _close(f"K11 {body}", got, ref, 1e-2)
+        err = _close(f"K11 {body} B={b}", got, ref, 1e-2)
+        _close(f"K11 flash body {body} B={b}", flash, ref, 1e-2)
         n_bytes, ops = roofline.decode_attn_cost(
-            MAX_BATCH, h, n_kv, MAX_LEN, d, n_valid=int(valid.sum()),
+            b, h, n_kv, MAX_LEN, d, n_valid=int(valid.sum()),
             value_bytes=2 if body == "bf16" else 1, scale_bytes=0 if body == "bf16" else 4)
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         rows.append(dict(
-            kernel="decode_attention_stacked", site=body,
-            shape=[MAX_BATCH, h, n_kv, MAX_LEN, d], max_err=err,
+            kernel="decode_attention_stacked", site=body if main else f"{body}@B{b}",
+            in_sum=main, shape=[b, h, n_kv, MAX_LEN, d], max_err=err, check_launches=1,
+            max_rel_err=err / ref.float().abs().max().item(),
+            split=k11.split_ranks(b * n_kv, MAX_LEN),
             kernel_ms=device_ms(lambda i: k11.decode_attention_stacked(*args(i % n_layers)),
                                 n_layers),
+            flash_ms=device_ms(lambda i: k11.decode_attention_stacked(
+                *args(i % n_layers), body="flash"), n_layers),
             plain_ms=device_ms(lambda i: k11.decode_attention_stacked_plain(
                 *args(i % n_layers)), 4, reps=3),
             bound_ms=b_ms, bound_by=b_by,
@@ -1313,21 +1331,30 @@ def check_int8_bmm(int8_tree, cfg, dev, gen):
                 ("pv", [probs8] * n_buf, v, alpha_pv, torch.int8, True)):
             args = lambda i: (a[i % n_buf], b[i % n_buf], alpha)
             kw = dict(out_dtype=out_dtype, b_kn=b_kn)
-            got = k15.int8_bmm(*args(0), **kw)
-            ref = k15.int8_bmm_plain(*args(0), **kw)
-            torch.cuda.synchronize()
-            err, n_diff = _compare(f"K15b {site} {phase}", got, ref)
-            a16 = [t.to(torch.bfloat16) for t in a[:2]]
-            b16 = [(t if b_kn else t.transpose(1, 2)).to(torch.bfloat16) for t in b[:2]]
             m, kk = a[0].shape[1:]
             n = b[0].shape[2] if b_kn else b[0].shape[1]
+            body = k15.bmm_body(m, n, kk, b_kn, out_dtype)
+            old = "gemv" if m <= k15.MAX_GEMV_ROWS else "tiles"   # K15a's kernels
+            got = k15.int8_bmm(*args(0), **kw)
+            ref = k15.int8_bmm_plain(*args(0), **kw)
+            got_old = k15.int8_bmm(*args(0), **kw, body=old)
+            torch.cuda.synchronize()
+            err, n_diff = _compare(f"K15b {site} {phase}", got, ref)
+            if not (torch.equal(got, ref) and torch.equal(got_old, ref)):
+                raise AssertionError(f"K15b {site} {phase}: not bit-exact against the plain "
+                                     "version")
+            a16 = [t.to(torch.bfloat16) for t in a[:2]]
+            b16 = [(t if b_kn else t.transpose(1, 2)).to(torch.bfloat16) for t in b[:2]]
             n_bytes, ops = roofline.int8_bmm_cost(bh, m, n, kk,
                                                   out_bytes=1 if b_kn else 4)
             b_ms, b_by = roofline.bound_ms(n_bytes, ops)
             rows.append(dict(
                 kernel="int8_bmm", site=f"{site}@{phase}", shape=[bh, m, n, kk],
                 out=str(out_dtype).replace("torch.", ""), max_err=err, n_diff=n_diff,
+                body=body,
                 kernel_ms=device_ms(lambda i: k15.int8_bmm(*args(i), **kw), 8),
+                old_body=old,
+                old_ms=device_ms(lambda i: k15.int8_bmm(*args(i), **kw, body=old), 8),
                 plain_ms=device_ms(lambda i: k15.int8_bmm_plain(*args(i), **kw), 2, reps=3),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=device_ms(lambda i: torch.bmm(a16[i % 2], b16[i % 2]), 8),
@@ -1694,19 +1721,28 @@ def prefill_kernel_crossover(promoted, cfg, dev, gen):
                 k4_sum_wins_from=sum_above[0] if sum_above else None)
 
 
-def quickstart_launches(meta, n_layers: int, rows: int, steps: int = 0) -> dict:
+def k11_key(dtype, head_dim: int, s: int, rep: int = 1, alibi: bool = False) -> str:
+    """The launch counter of the K11 body a call takes (the split body for
+    bf16 queries, the flash body for f32 ones: decode_attention.attn_body)."""
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+
+    return k11.LAUNCH_KEYS[k11.attn_body(dtype, head_dim, s, rep), alibi]
+
+
+def quickstart_launches(meta, n_layers: int, rows: int, steps: int = 0,
+                        k11_counter: str = "decode_attention_stacked") -> dict:
     """Kernel launches over the quick start's per-layer pack (its recipe in
     `meta`): with steps = 0 a prefill of `rows` rows, whose seven linears a
     layer take K8 or K9 as real_linear picks them for its rows; otherwise
     `steps` decode steps of `rows` rows, their linears picked the same way
-    and K11 once a layer a step."""
+    and K11 once a layer a step (counted under `k11_counter`, the body's)."""
     from smoothquant_tpu_torch.kernels.real_linear import choose_compute
 
     kernel = {"int": "int_group_matmul",
               "dequant": "dual_path_matmul"}[choose_compute(meta, rows)]
     if not steps:
         return {kernel: 7 * n_layers}
-    return {kernel: 7 * n_layers * steps, "decode_attention_stacked": n_layers * steps}
+    return {kernel: 7 * n_layers * steps, k11_counter: n_layers * steps}
 
 
 def quickstart(fp, packed, cfg, dev, card):
@@ -2000,6 +2036,127 @@ def check_stream_edges(dev):
     return {"max_rel_err": worst, "repeated_calls_identical": repeats}
 
 
+def check_k11_edges(dev):
+    """K11's split body against the plain version at its edges: S = 128, 640
+    (five 128-wide softmax tiles) and 1024 (two of 512); D = 64 and 128; GQA
+    rep 1, 2, 4 and 8; bf16 and int8 caches; ALiBi on and off (MHA); in
+    every call a slot over the whole cache, a fully masked slot, a slot
+    with one valid position and one whose valid positions all lie in the
+    last tile; every cluster size the planner can pick (1, 2, 4, 8 ranks
+    where S chunks into them).  Tolerance 1e-2 of the largest output (as
+    the K11 phases).  Every call is made twice for identical bits, and one
+    (Llama's shape, int8, 8 ranks) 400 times.  Returns the largest relative
+    error, the cases and the repeated calls."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+    from smoothquant_tpu_torch.models import bloom
+    from smoothquant_tpu_torch.models.common import decode_bias
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+    worst, n_cases, repeats = 0.0, 0, 0
+    for s in (128, 640, 1024):
+        bias = decode_bias(torch.tensor([s - 1, 0, 0, s - 1], device=dev), 4, s, None)
+        bias[1] = -1e30                              # a fully masked slot
+        bias[3, : s - 20] = -1e30                    # valid only in the last tile
+        for d in (64, 128):
+            for rep, alibi in ((1, False), (1, True), (2, False), (4, False), (8, False)):
+                n_kv = 2 if rep == 8 else 4
+                h = n_kv * rep
+                q = torch.randn((4, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                slopes = (torch.as_tensor(bloom.alibi_slopes(h), device=dev) if alibi
+                          else None)
+                for kind in ("bf16", "int8"):
+                    shape = (1, 4, n_kv, s, d)
+                    if kind == "int8":
+                        kv = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                            dtype=torch.int8) for _ in range(2)]
+                        kv += [torch.rand(shape[:4], generator=gen, device=dev) * 0.02 + 0.005
+                               for _ in range(2)]
+                    else:
+                        kv = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                              for _ in range(2)] + [None, None]
+                    args = (0, q, *kv[:2], bias, *kv[2:], slopes)
+                    ref = k11.decode_attention_stacked_plain(*args)
+                    for c in k11.SPLITS:
+                        if not k11._split_fits(s, c):
+                            continue
+                        name = f"K11 edge S={s} D={d} rep={rep} alibi={alibi} {kind} ranks={c}"
+                        got = k11.decode_attention_stacked(*args, split=c)
+                        again = k11.decode_attention_stacked(*args, split=c)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{name}: two calls gave different bits")
+                        if got[1].abs().max().item() != 0:
+                            raise AssertionError(f"{name}: a fully masked slot is not 0")
+                        err = _close(name, got, ref, 1e-2)
+                        worst = max(worst, err / ref.float().abs().max().item())
+                        n_cases += 1
+                        repeats += 2
+    b, h, d, s = MAX_BATCH, 32, 128, MAX_LEN
+    shape = (1, b, h, s, d)
+    kv = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+          for _ in range(2)]
+    kv += [torch.rand(shape[:4], generator=gen, device=dev) * 0.02 + 0.005 for _ in range(2)]
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    bias = decode_bias(torch.tensor([100, 300, s - 1, 50], device=dev), b, s, None)
+    args = (0, q, *kv[:2], bias, *kv[2:])
+    first = k11.decode_attention_stacked(*args, split=8)
+    for _ in range(399):
+        if not torch.equal(k11.decode_attention_stacked(*args, split=8), first):
+            raise AssertionError("K11 split body: 400 calls did not give identical bits")
+    repeats += 400
+    return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats}
+
+
+def check_k15b_edges(dev):
+    """K15b's bodies against the plain version, bit for bit, at K = 64, 128,
+    256 and 512 (and 1024 for PV): QKᵀ-shaped products (b (N, K)) at ragged
+    M and N with f32 out (the qk body up to K = 256, K15a's tiles above)
+    and int8 out (tiles); PV-shaped ones (b (K, N)) at ragged M and N, f32
+    and int8 out (the pv body); one to eight query rows over (K, N) (the kn
+    GEMV at every rank count that splits K) and over (N, K) (the nk GEMV up
+    to K = 256, K15a's GEMV above).  Returns the cases per body."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int8 as k15
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    i8 = lambda *sh: torch.randint(-128, 128, sh, generator=gen, device=dev, dtype=torch.int8)
+    bodies = {}
+
+    def hold(a, b, b_kn, out, body=None, ranks=None):
+        kw = dict(out_dtype=out, b_kn=b_kn)
+        got = k15.int8_bmm(a, b, 0.0123, **kw, body=body, ranks=ranks)
+        ref = k15.int8_bmm_plain(a, b, 0.0123, **kw)
+        torch.cuda.synchronize()
+        m, kk = a.shape[1:]
+        n = b.shape[2] if b_kn else b.shape[1]
+        name = body or k15.bmm_body(m, n, kk, b_kn, out)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K15b {name} a {tuple(a.shape)} b {tuple(b.shape)} "
+                                 f"b_kn={b_kn} {out}: {int((got != ref).sum())} outputs differ")
+        bodies[name] = bodies.get(name, 0) + 1
+
+    for kk in (64, 128, 256, 512):
+        for m, n in ((9, 1), (130, 77), (257, 128), (128, 300)):
+            for out in (torch.float32, torch.int8):
+                hold(i8(3, m, kk), i8(3, n, kk), False, out)
+        for m, n in ((9, 16), (130, 64), (200, 80), (128, 128)):
+            for out in (torch.float32, torch.int8):
+                hold(i8(3, m, kk), i8(3, kk, n), True, out)
+        for m in (1, 3, 8):
+            for n in (16, 64, 80):
+                for c in k15.KN_SPLITS:
+                    if kk % (16 * c) == 0:
+                        hold(i8(3, m, kk), i8(3, kk, n), True, torch.int8, "kn_gemv", c)
+                hold(i8(3, m, kk), i8(3, kk, n), True, torch.float32)
+            hold(i8(3, m, kk), i8(3, 77, kk), False, torch.float32)
+    hold(i8(2, 130, 1024), i8(2, 1024, 64), True, torch.int8)
+    hold(i8(2, 1, 4096), i8(2, 4096, 64), True, torch.int8)
+    return bodies
+
+
 def host_us(fn, calls: int = 200, reps: int = 3) -> float:
     """Least host µs one fn() call takes to return, over `reps` runs of
     `calls` calls queued back to back (no synchronize between them, so the
@@ -2071,7 +2228,10 @@ def sass_check():
     and 128-bit global loads (LDG.E.128).  Fails unless each K6 body issues
     IGMMA and has no I2F, each K9 body issues HGMMA, and each stream kernel
     has no I2F and loads by TMA (spills and serialization notes are
-    reported, not held)."""
+    reported, not held); and unless each of K11's split kernels has no I2F
+    (its int8 bytes and ALiBi positions convert by the exact f32 add) and
+    copies by bulk copies (UBLKCP), and K15b's qk body has no I2F (its
+    accumulators convert by the same add)."""
     import os
     import re
     import shutil
@@ -2082,9 +2242,18 @@ def sass_check():
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", _build.build()], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    out, stream = {}, {}
+    out, stream, attn = {}, {}, {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
+        m = re.search(r"split_decode_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)", name)
+        if m or "qk_tile_kernel" in name:
+            ops = {op: len(re.findall(r"\b" + op + r"\b", fn)) for op in ("I2F", "UBLKCP", "IMMA")}
+            if ops["I2F"] or (m and not ops["UBLKCP"]) or (not m and not ops["IMMA"]):
+                raise AssertionError(f"{name}: SASS {ops}")
+            key = (f"K11 split {'int8' if m.group(1) == 'a' else 'bf16'} D={m.group(2)} "
+                   f"rep={m.group(3)}" if m else "K15b qk")
+            attn[key] = ops
+            continue
         m = re.search(r"stream_gmm_kernelILb(\d)ELi(\d+)ELi(\d+)", name)
         if m:
             ops = {op: len(re.findall(r"\b" + op + r"\b", fn))
@@ -2108,17 +2277,20 @@ def sass_check():
     notes = {}
     for i, ln in enumerate(log):
         if "Compiling entry" in ln and any(k in ln for k in (
-                "wg_gmm_kernel", "dual_path_wg_kernel", "stream_gmm_kernel")):
+                "wg_gmm_kernel", "dual_path_wg_kernel", "stream_gmm_kernel",
+                "split_decode_kernel", "qk_tile_kernel", "pv_tile_kernel", "kn_gemv_kernel")):
             block = " ".join(log[i:i + 4])
             regs = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores", block)
-            notes[re.search(r"(wg_gmm_kernel|dual_path_wg_kernel|stream_gmm_kernel)\w{0,40}",
-                            ln).group(0)] = [
+            notes[re.search(r"(wg_gmm_kernel|dual_path_wg_kernel|stream_gmm_kernel|"
+                            r"split_decode_kernel|qk_tile_kernel|pv_tile_kernel|kn_gemv_kernel)"
+                            r"\w{0,40}", ln).group(0)] = [
                 int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None]
     serialized = sum(1 for ln in log if "serialized" in ln)
-    if not out or not stream:
-        raise AssertionError("the build holds no wgmma body or no stream body")
-    return {"sass": out, "stream_sass": stream, "registers_spills": notes,
+    if not out or not stream or len(attn) != 17:
+        raise AssertionError("the build holds no wgmma body, no stream body or not K11's 16 "
+                             "split kernels and K15b's qk body")
+    return {"sass": out, "stream_sass": stream, "attn_sass": attn, "registers_spills": notes,
             "ptxas_serialized_notes": serialized}
 
 
@@ -2182,6 +2354,18 @@ def check_no_fallback(dev):
                                                               dtype=torch.int8),) * 2,
             torch.zeros((1, 128), device=dev), *(torch.ones((1, 4, 128), device=dev),) * 2,
             int8_dots=True), NotImplementedError),
+        "K11 split body for f32 queries": (lambda: k11.decode_attention_stacked(
+            0, torch.zeros((1, 4, 64), device=dev), *(torch.zeros((1, 1, 4, 128, 64),
+                                                                  device=dev),) * 2,
+            torch.zeros((1, 128), device=dev), body="split"), ValueError),
+        "K11 split body in 16 ranks": (lambda: k11.decode_attention_stacked(
+            0, torch.zeros((1, 4, 64), device=dev, dtype=torch.bfloat16),
+            *(torch.zeros((1, 1, 4, 512, 64), device=dev, dtype=torch.bfloat16),) * 2,
+            torch.zeros((1, 512), device=dev), split=16), ValueError),
+        "K11 split body at D = 256": (lambda: k11.decode_attention_stacked(
+            0, torch.zeros((1, 4, 256), device=dev, dtype=torch.bfloat16),
+            *(torch.zeros((1, 1, 4, 128, 256), device=dev, dtype=torch.bfloat16),) * 2,
+            torch.zeros((1, 128), device=dev), body="split"), ValueError),
         "K12 int8_dots": (lambda: k12.fused_virtual_attn_stacked(
             0, 5, f32(2, 4, 64), *kv, *(torch.zeros((1, 2, 4, 128, 64), dtype=torch.int8,
                                                    device=dev),) * 2,
@@ -2198,6 +2382,20 @@ def check_no_fallback(dev):
                           TypeError),
         "K15b K mismatch": (lambda: k15.int8_bmm(z8[None], z8[None, :, :32], 1.0),
                             ValueError),
+        "K15b qk body with int8 out": (lambda: k15.int8_bmm(
+            z8[None], z8[None], 1.0, out_dtype=torch.int8, body="qk"), ValueError),
+        "K15b qk body at K = 512": (lambda: k15.int8_bmm(
+            torch.zeros((1, 64, 512), dtype=torch.int8, device=dev),
+            torch.zeros((1, 64, 512), dtype=torch.int8, device=dev), 1.0, body="qk"),
+            ValueError),
+        "K15b pv body at K = 2048": (lambda: k15.int8_bmm(
+            torch.zeros((1, 64, 2048), dtype=torch.int8, device=dev),
+            torch.zeros((1, 2048, 64), dtype=torch.int8, device=dev), 1.0, b_kn=True,
+            body="pv"), ValueError),
+        "K15b kn GEMV at 9 rows": (lambda: k15.int8_bmm(
+            z8[None, :9], z8[None], 1.0, b_kn=True, body="kn_gemv"), ValueError),
+        "K15b kn GEMV in 16 ranks": (lambda: k15.int8_bmm(
+            z8[None, :1], z8[None], 1.0, b_kn=True, body="kn_gemv", ranks=16), ValueError),
         "K16 C = 100": (lambda: k16.layer_norm_q(torch.zeros((4, 100), device=dev),
                                                  *(torch.ones(100, device=dev),) * 2, 1.0),
                         ValueError),
@@ -2426,13 +2624,14 @@ def reference_check(dev):
                         logits[name][part] = per_layer_run()
                         continue
                     logits[name][part], used = _path_launches(per_layer_run)
+                    k11_counter = k11_key(cfg.torch_dtype, hd, 256)
                     if compute == "auto":
                         meta = qs[recipe]["layers"]["0"]["self_attn"]["q_proj"].meta
                         expect = Counter(quickstart_launches(meta, n_l, q_prompt.numel()))
-                        expect.update(quickstart_launches(meta, n_l, 2, 1))
+                        expect.update(quickstart_launches(meta, n_l, 2, 1, k11_counter))
                     else:   # a forced mode runs its kernel at every row count
                         kern = {"int": "int_group_matmul", "dequant": "dual_path_matmul"}[compute]
-                        expect = Counter({kern: 14 * n_l, "decode_attention_stacked": n_l})
+                        expect = Counter({kern: 14 * n_l, k11_counter: n_l})
                     _check_launches(f"reference check {part}", used, dict(expect))
             logits[name] = {k: v.cpu() for k, v in logits[name].items()}
         res = out[dtype_name] = {}
@@ -2861,11 +3060,22 @@ def generator(packed, promoted, cfg, dev):
 # ---------------------------------------------------------------- OPT path
 
 
-def _opt_per_forward(cfg) -> dict:
-    """Kernel launches of one int8 OPT forward: per layer two K16, six K15a
-    and two K15b (the glue between them is plain PyTorch)."""
-    n_l = cfg.num_hidden_layers
-    return {"norm_quant": 2 * n_l, "int8_linear": 6 * n_l, "int8_bmm": 2 * n_l}
+def _opt_per_forward(cfg, rows: int, keys: int) -> dict:
+    """Kernel launches of one int8 OPT forward of `rows` query rows over
+    `keys` key positions (the prompt, or a whole cache): per layer two K16,
+    six K15a and two K15b, QKᵀ and PV each counted under the body
+    int8.bmm_body takes for it (the glue between them is plain PyTorch)."""
+    from collections import Counter
+
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int8 as k15
+
+    n_l, d = cfg.num_hidden_layers, cfg.head_dim
+    out = Counter({"norm_quant": 2 * n_l, "int8_linear": 6 * n_l})
+    out[k15.BMM_LAUNCH_KEYS[k15.bmm_body(rows, keys, d, False, torch.float32)]] += n_l
+    out[k15.BMM_LAUNCH_KEYS[k15.bmm_body(rows, d, keys, True, torch.int8)]] += n_l
+    return dict(out)
 
 
 def export_opt(cfg, dev, n_samples, seq_len):
@@ -2991,7 +3201,7 @@ def opt_accuracy(smoothed, int8, cfg, dev):
         with torch.no_grad():
             fp = opt.forward(smoothed, ids[:, :s], cfg)[0]
             q, launches = _path_launches(lambda: opt_int8.forward(int8, ids[:, :s], cfg)[0])
-        _check_launches("int8 OPT forward", launches, _opt_per_forward(cfg))
+        _check_launches("int8 OPT forward", launches, _opt_per_forward(cfg, s, s))
         if not (q.shape == fp.shape == (1, s, cfg.vocab_size)
                 and torch.isfinite(q).all() and torch.isfinite(fp).all()):
             raise AssertionError("int8 OPT forward: non-finite or misshapen logits")
@@ -3015,7 +3225,7 @@ def opt_prefill(smoothed, int8, cfg, dev):
             "fp_bf16": torch.no_grad()(lambda: opt.forward(smoothed, ids, cfg)[0])}
     runs["int8"]()                                       # warm-up
     logits, launches = _path_launches(runs["int8"])
-    _check_launches("int8 OPT prefill", launches, _opt_per_forward(cfg))
+    _check_launches("int8 OPT prefill", launches, _opt_per_forward(cfg, OPT_PROMPT, OPT_PROMPT))
     if not (logits.shape == (OPT_BATCH, OPT_PROMPT, cfg.vocab_size)
             and torch.isfinite(logits).all()):
         raise AssertionError("int8 OPT prefill: non-finite or misshapen logits")
@@ -3044,6 +3254,8 @@ def opt_generator(int8, cfg, dev):
     whole generate call, then decode ms/step of the Generator's own step by
     host clock over windows and by device busy time, and one step's
     launches."""
+    from collections import Counter
+
     import numpy as np
     import torch
 
@@ -3059,8 +3271,10 @@ def opt_generator(int8, cfg, dev):
     out, launches = _path_launches(
         lambda: g.generate(prompts, GenerationConfig(max_new_tokens=OPT_NEW)))
     wall = time.perf_counter() - t0
-    _check_launches("int8 OPT generator", launches,
-                    {k: v * OPT_NEW for k, v in _opt_per_forward(cfg).items()})
+    expect = Counter(_opt_per_forward(cfg, OPT_PROMPT, OPT_MAX_LEN))
+    for k, v in _opt_per_forward(cfg, 1, OPT_MAX_LEN).items():
+        expect[k] += v * (OPT_NEW - 1)
+    _check_launches("int8 OPT generator", launches, dict(expect))
     new = out[:, OPT_PROMPT:]
     if not (out.shape == (OPT_BATCH, OPT_PROMPT + OPT_NEW)
             and (out[:, :OPT_PROMPT] == prompts).all()
@@ -3077,7 +3291,7 @@ def opt_generator(int8, cfg, dev):
 
     step(2)                                                               # warm-up
     _, per_step = _path_launches(step)
-    _check_launches("int8 OPT decode step", per_step, _opt_per_forward(cfg))
+    _check_launches("int8 OPT decode step", per_step, _opt_per_forward(cfg, 1, OPT_MAX_LEN))
     windows = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -3119,6 +3333,7 @@ def run_opt(dev, cfg, card: str):
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     rows = (check_int8_linear(int8, dev, gen) + check_int8_bmm(int8, cfg, dev, gen)
             + check_norm_quant(int8, cfg, dev, gen))
+    emit({"phase": "k15b_edges", "bit_exact_cases": check_k15b_edges(dev)})
     emit({"phase": "opt_reference_check", **opt_reference_check(dev)})
     emit({"phase": "opt_accuracy", "card": card, **opt_accuracy(smoothed, int8, cfg, dev)})
 
@@ -3283,12 +3498,18 @@ def check_decode_attention_alibi(cfg, dev, gen):
                 b, h, h, s, d, n_valid=int(valid.sum()), value_bytes=2 if body == "bf16" else 1,
                 scale_bytes=0 if body == "bf16" else 4)
             b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+            flash = k11.decode_attention_stacked(*args(n_l - 1), body="flash")
+            torch.cuda.synchronize()
+            _close(f"K11 alibi flash body {body} B={b}", flash, ref, 1e-2)
             rows.append(dict(
                 kernel="decode_attention_stacked", site=f"alibi_{body}@B{b}", in_sum=False,
                 shape=[b, h, h, s, d], max_err=err,
                 max_rel_err=err / ref.float().abs().max().item(), check_launches=1,
+                split=k11.split_ranks(b * h, s),
                 kernel_ms=device_ms(lambda i: k11.decode_attention_stacked(*args(i % n_l)),
                                     n_l),
+                flash_ms=device_ms(lambda i: k11.decode_attention_stacked(
+                    *args(i % n_l), body="flash"), n_l),
                 plain_ms=device_ms(lambda i: k11.decode_attention_stacked_plain(
                     *args(i % n_l)), 4, reps=3),
                 bound_ms=b_ms, bound_by=b_by,
@@ -3674,7 +3895,7 @@ def bloom_reference_check(dev):
                         getattr(st, f)[i].copy_(getattr(c, f))
                 step, _ = bloom.forward(p, tok.to(d), cfg, caches=caches)
                 expect = {"int4_group_matmul_stacked_rawx": 4 * n_l,
-                          "decode_attention_stacked_alibi": n_l}
+                          k11_key(cfg.torch_dtype, hd, 128, alibi=True): n_l}
                 if kind == "int8":
                     expect["write_quant_cache_stacked"] = n_l
                 if name == "kernel":
@@ -3800,7 +4021,11 @@ def rms_norm_rule_cost(h, cfg, dev):
 
 # the launch counters of a kernel's other bodies (each wrapper counts a
 # launch once, under the body it ran)
-BODY_COUNTERS = {"decode_attention_stacked": {"alibi": "decode_attention_stacked_alibi"},
+BODY_COUNTERS = {"decode_attention_stacked": {"alibi": "decode_attention_stacked_alibi",
+                                              "flash": "decode_attention_stacked_flash",
+                                              "flash_alibi": "decode_attention_stacked_flash_alibi"},
+                 "int8_bmm": {"qk": "int8_bmm_qk", "pv": "int8_bmm_pv",
+                              "kn_gemv": "int8_bmm_kn", "nk_gemv": "int8_bmm_nk"},
                  "int8_prefill_matmul": {"raw_x": "int8_prefill_matmul_rawx"}}
 
 
@@ -3868,7 +4093,10 @@ def run(dev, cfg, card: str):
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     rows = (check_rawx(stacked, dev, gen) + check_gmm(packed, cfg, dev, gen)
             + check_write_cache(cfg, dev, gen) + check_decode_attention(cfg, dev, gen)
-            + check_decode_attention_hm(cfg, dev, gen))
+            + check_decode_attention_hm(cfg, dev, gen)
+            + check_decode_attention_hm(
+                cfg, dev, gen, b=SLOT_BATCH, bodies=("int8",), main=False,
+                pos=torch.randint(100, MAX_LEN, (SLOT_BATCH,), generator=gen, device=dev)))
     for n in (16, MID_BATCH):
         rows += check_rawx(stacked, dev, gen, n)
     rows += (check_act_prep(stacked, dev, gen) + check_gmm_stacked(stacked, dev, gen)
@@ -3881,6 +4109,7 @@ def run(dev, cfg, card: str):
     emit({"phase": "kernel_variants", "max_rel_err": check_kernel_variants(dev)})
     emit({"phase": "wg_edges", "max_rel_err": check_wg_edges(dev)})
     emit({"phase": "stream_edges", **check_stream_edges(dev)})
+    emit({"phase": "k11_edges", **check_k11_edges(dev)})
     emit({"phase": "k1_vs_k5", "card": card, "rawx_max_n": RAWX_MAX_N,
           **k1_vs_k5(stacked, dev, gen)})
     emit({"phase": "k6_host_us", "card": card, "us_per_call": k6_host_us(dev)})

@@ -56,9 +56,11 @@ _SIGNATURES = {
     "sq_int8_prefill": ([_P] * 7 + [_I] * 4 + [_I, _I, _P], _I),
     "sq_int8_prefill_rawx": ([_P] * 8 + [_I] * 4 + [_I, _I, _P], _I),
     "sq_decode_attn": ([_P] * 8 + [_I] * 6 + [_F, _I, _I, _P], _I),
+    "sq_decode_attn_split": ([_P] * 8 + [_I] * 7 + [_F, _I, _P], _I),
     "sq_fp_matmul_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
     "sq_fp_matmul": ([_P] * 4 + [_I] * 3 + [_I, _P], _I),
     "sq_int8_gemm": ([_P] * 4 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
+    "sq_int8_bmm_attn": ([_P] * 3 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
     "sq_norm_quant": ([_P] * 4 + [_I] * 2 + [_F] * 2 + [_I] * 2 + [_P], _I),
     "sq_fused_attn": ([_P] * 11 + [_I] * 9 + [_F, _I, _P], _I),
     "sq_mlp_fused_workspace_bytes": ([_I] * 11, ctypes.c_longlong),

@@ -16,8 +16,13 @@
 // block of 16 warps per (b, kv head) runs the three phases of
 // flash_decode.cuh (shared with K12): the scores, the TPU kernel's online
 // softmax tile by tile, then p·v; the 16 partials are added in warp order
-// and divided by l (1 where l == 0: a fully masked row gives 0).
+// and divided by l (1 where l == 0: a fully masked row gives 0).  This
+// flash body takes only f32 queries and head_dim 256 on the paths; bf16
+// queries at head_dim 64 / 128 take the split-S cluster body of
+// split_decode.cuh (sq_decode_attn_split), the Python shape rule
+// decode_attention.attn_body choosing.
 #include "flash_decode.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -133,4 +138,42 @@ SQ_EXPORT int sq_decode_attn(const void* q, const void* k, const void* v, const 
                                            ts, sm_scale, st);
   return by_dim<float, float, float, false>(D, q, k, v, ks, vs, bias, slopes, out, B, H, Hkv, S,
                                             ts, sm_scale, st);
+}
+
+// K11's split-S body (split_decode.cuh): bf16 q (B, H, D), D 64 or 128; a
+// bf16 cache, or int8 (quant) with its (B, H_kv, S) f32 scales; slopes as
+// above; S split over (1 << lsplit) cluster ranks of S >> lsplit positions,
+// softmax tiles of ts positions.
+SQ_EXPORT int sq_decode_attn_split(const void* q, const void* k, const void* v, const void* ks,
+                                   const void* vs, const void* bias, const void* slopes,
+                                   void* out, int B, int H, int Hkv, int S, int D, int ts,
+                                   int lsplit, float sm_scale, int quant, void* stream) {
+  int lts = 0;
+  while ((1 << lts) < ts) ++lts;
+  const int chunk = S >> lsplit;
+  if (B < 1 || Hkv < 1 || H % Hkv || H / Hkv > 8 || (slopes != nullptr && H != Hkv) ||
+      lsplit < 0 || lsplit > 3 || (1 << lts) != ts || S % ts || S / ts > SD_MAX_TILES ||
+      (chunk << lsplit) != S || chunk % 16 || chunk > SD_MAX_CHUNK)
+    return (int)cudaErrorInvalidValue;
+  SdArgs a;
+  a.q = (const __nv_bfloat16*)q;
+  a.k = k;
+  a.v = v;
+  a.ks = (const float*)ks;
+  a.vs = (const float*)vs;
+  a.bias = (const float*)bias;
+  a.slopes = (const float*)slopes;
+  a.out = (__nv_bfloat16*)out;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.S = S;
+  a.rep = H / Hkv;
+  a.chunk = chunk;
+  a.lsplit = lsplit;
+  a.lts = lts;
+  a.n_tiles = S / ts;
+  a.sm_scale = sm_scale;
+  cudaStream_t st = (cudaStream_t)stream;
+  return quant ? sd_by_dim<int8_t, true>(D, a, B, st)
+               : sd_by_dim<__nv_bfloat16, false>(D, a, B, st);
 }

@@ -60,6 +60,7 @@
 // alone), the next thing to cut.
 #pragma once
 
+#include "cluster.cuh"
 #include "wg_gemm.cuh"
 
 namespace {
@@ -119,22 +120,6 @@ struct SgMaps {   // the weight, x codes, column scales, x_sal, w_sal
 __device__ __forceinline__ void sg_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
-__device__ __forceinline__ void sg_cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
-                   : "memory");
-}
-// f32 x4 at shared address `addr` of cluster rank `rank`
-__device__ __forceinline__ float4 sg_ld_rank(uint32_t addr, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote)
-               : "memory");
-  return v;
-}
-
 // byte offset of (row r, byte b) in a tile TMA wrote with rows of ROW bytes
 // and the swizzle that row width takes (128 / 64 / 32 bytes: the 16-byte
 // chunk index xor address bits 7-9 / 7-8 / 7; 16 bytes: none)

@@ -20,8 +20,14 @@ slope_h · f32(key position) with the ABSOLUTE position of the key, added
 after the k_scale product and before the bias, in both bodies.
 int8_dots (the opt-in int8 BMMs) has no caller in the port and raises; no
 caller sets another softmax scale than 1/√D.  CUDA source:
-csrc/decode_attention.cu.  A wrapper runs the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+csrc/decode_attention.cu, two bodies picked by a shape rule (attn_body):
+bf16 queries at D = 64 / 128 take the split-S cluster body
+(csrc/split_decode.cuh: the positions split over split_ranks(B·H_kv, S)
+cluster ranks, the tile maxima exchanged and the partials reduced in rank
+order through distributed shared memory), f32 queries and D = 256 the
+flash body (csrc/flash_decode.cuh, which K12 shares).  Each body counts its
+launches under its own key (LAUNCH_KEYS).  A wrapper runs the plain version
+only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -38,6 +44,19 @@ _WARPS = 16            # warps per block (csrc/decode_attention.cu WARPS)
 _MAX_REP = 8
 _SMEM_LIMIT = 227 * 1024
 
+# the split body (csrc/split_decode.cuh)
+SPLITS = (1, 2, 4, 8)          # cluster ranks a (slot, kv head) takes
+SPLIT_DIMS = (64, 128)
+SPLIT_MAX_CHUNK = 2048         # positions a rank holds at most (SD_MAX_CHUNK)
+SPLIT_MIN_CHUNK = 64           # two ring stages a rank at least
+SPLIT_MAX_CTAS = 4 * 132       # CTAs the planner fills the card with (4 an SM, measured)
+MAX_TILES = 64                 # softmax tiles of S (both bodies)
+# launch counter of each body, without / with ALiBi slopes
+LAUNCH_KEYS = {("split", False): "decode_attention_stacked",
+               ("split", True): "decode_attention_stacked_alibi",
+               ("flash", False): "decode_attention_stacked_flash",
+               ("flash", True): "decode_attention_stacked_flash_alibi"}
+
 
 def _pick_tile_s(s: int) -> Optional[int]:
     for ts in (512, 256, 128):
@@ -50,6 +69,37 @@ def supported(s: int, n_heads: int, n_kv: int, head_dim: int) -> bool:
     """Shapes the JAX kernel tiles (decode_attention.py:342-346)."""
     return (_pick_tile_s(s) is not None and n_heads % n_kv == 0
             and head_dim % 64 == 0)
+
+
+def attn_body(q_dtype, d: int, s: int, rep: int) -> str:
+    """K11's body for a call: "split" (the cluster body) for bf16 queries at
+    D = 64 / 128 over an S it can chunk, else "flash"."""
+    ts = _pick_tile_s(s)
+    if (q_dtype == torch.bfloat16 and d in SPLIT_DIMS and rep <= _MAX_REP
+            and ts is not None and s // ts <= MAX_TILES and _split_fits(s)):
+        return "split"
+    return "flash"
+
+
+def _split_fits(s: int, c: Optional[int] = None) -> bool:
+    """Whether c ranks (any of SPLITS when None) chunk S: whole multiples of
+    16 positions (the bulk copies' 16-byte rows of bias and scales), at most
+    SPLIT_MAX_CHUNK each."""
+    return any(r in SPLITS and s % (16 * r) == 0 and s // r <= SPLIT_MAX_CHUNK
+               for r in (SPLITS if c is None else (c,)))
+
+
+def split_ranks(heads: int, s: int) -> int:
+    """Cluster ranks of the split body for `heads` = B·H_kv (slot, kv head)
+    pairs over S positions: the most of SPLITS that keep heads × ranks within
+    SPLIT_MAX_CTAS and each rank at SPLIT_MIN_CHUNK positions or more (so
+    B = 4 over 512 takes 4 ranks a head and B = 64 one: PERF.md §6 has the
+    sweep); at least as many as keep a rank within SPLIT_MAX_CHUNK."""
+    fits = [c for c in SPLITS if _split_fits(s, c)]
+    if not fits:
+        raise ValueError(f"no split of S = {s} fits the split body")
+    within = [c for c in fits if heads * c <= SPLIT_MAX_CTAS and s // c >= SPLIT_MIN_CHUNK]
+    return max(within, default=min(fits))
 
 
 def _check_options(h: int, n_kv: int, alibi_slopes, int8_dots):
@@ -127,8 +177,13 @@ def decode_attention_stacked(
     alibi_slopes: Optional[torch.Tensor] = None,
     *,
     int8_dots: bool = False,
+    body: Optional[str] = None,
+    split: Optional[int] = None,
 ) -> torch.Tensor:
-    """(B, H, D) attention of layer `layer_idx` in q's dtype."""
+    """(B, H, D) attention of layer `layer_idx` in q's dtype.  `body`
+    ("split" / "flash") and `split` (the split body's ranks) override the
+    shape rules (attn_body, split_ranks) for measurements; a forced body or
+    split raises on a shape it does not take."""
     _check_options(q.shape[1], k.shape[2], alibi_slopes, int8_dots)
     if q.device.type == "cpu":
         return decode_attention_stacked_plain(layer_idx, q, k, v, bias, k_scale, v_scale,
@@ -144,9 +199,19 @@ def decode_attention_stacked(
         raise ValueError(f"K11 does not take q {tuple(q.shape)} over cache "
                          f"{tuple(k.shape)} (S tileable by 128, GQA rep <= 8, "
                          "D in 64/128/256)")
-    smem = (rep * s + _WARPS * rep * d + rep * (s // ts)) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"K11 score rows and partials need {smem} B of shared memory")
+    chosen = attn_body(q.dtype, d, s, rep) if body is None else body
+    if chosen == "split":
+        c = split_ranks(b * n_kv, s) if split is None else split
+        if (q.dtype != torch.bfloat16 or d not in SPLIT_DIMS or s // ts > MAX_TILES
+                or not _split_fits(s, c)):
+            raise ValueError(f"K11's split body does not take q {tuple(q.shape)} "
+                             f"({q.dtype}) over cache {tuple(k.shape)} in {c} ranks")
+    elif chosen == "flash":
+        smem = (rep * s + _WARPS * rep * d + rep * (s // ts)) * 4
+        if smem > _SMEM_LIMIT or s // ts > MAX_TILES:
+            raise ValueError(f"K11 score rows and partials need {smem} B of shared memory")
+    else:
+        raise ValueError(f"K11 has no body {chosen!r}")
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or v.dtype != k.dtype:
         raise TypeError("an int8 cache comes with its scales, an fp cache without")
@@ -166,15 +231,18 @@ def decode_attention_stacked(
                           v_scale=v_scale, alibi_slopes=alibi_slopes)
     out = torch.empty_like(q)
     scale_ptr = (lambda t: t[layer_idx].data_ptr()) if quant else (lambda t: None)
-    _build.check(_build.lib().sq_decode_attn(
-        q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(),
-        scale_ptr(k_scale), scale_ptr(v_scale), bias.data_ptr(),
-        None if alibi_slopes is None else alibi_slopes.data_ptr(), out.data_ptr(),
-        b, h, n_kv, s, d, ts, 1.0 / math.sqrt(d), _build.dt_code(q), int(quant),
-        _build.stream_ptr(q)),
-        "sq_decode_attn")
-    _build.LAUNCHES["decode_attention_stacked" if alibi_slopes is None
-                    else "decode_attention_stacked_alibi"] += 1
+    ptrs = (q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(),
+            scale_ptr(k_scale), scale_ptr(v_scale), bias.data_ptr(),
+            None if alibi_slopes is None else alibi_slopes.data_ptr(), out.data_ptr())
+    if chosen == "split":
+        _build.check(_build.lib().sq_decode_attn_split(
+            *ptrs, b, h, n_kv, s, d, ts, c.bit_length() - 1, 1.0 / math.sqrt(d), int(quant),
+            _build.stream_ptr(q)), "sq_decode_attn_split")
+    else:
+        _build.check(_build.lib().sq_decode_attn(
+            *ptrs, b, h, n_kv, s, d, ts, 1.0 / math.sqrt(d), _build.dt_code(q), int(quant),
+            _build.stream_ptr(q)), "sq_decode_attn")
+    _build.LAUNCHES[LAUNCH_KEYS[chosen, alibi_slopes is not None]] += 1
     return out
 
 

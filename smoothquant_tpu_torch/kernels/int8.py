@@ -14,11 +14,19 @@ K15b  int8_bmm — port of smoothquant_tpu/kernels/int8.py:145 (pallas_call
       of the cache).  The JAX wrapper's padding (M, N to 32, K to 128) adds
       only zeros; the kernels compute the same sums without it.
 
-Both run one CUDA source, csrc/int8.cu: M ≤ 8 rows take a weight-streaming
-kernel (no padded row tiles), more rows the mma.sync s8 tile kernel.  A
-wrapper runs the plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.  K and (with b_kn) N are zero-padded to 16s
-where they are not (zeros add nothing).
+Both run one CUDA source, csrc/int8.cu.  K15a: M ≤ 8 rows take a
+weight-streaming kernel (no padded row tiles), more rows the mma.sync s8
+tile kernel.  K15b picks a body by shape (bmm_body): the attention
+products take bodies of their own — "qk" (QKᵀ at more than 8 rows, K ≤ 256,
+f32 out: a persistent tile body that writes the logits at the store
+bandwidth), "pv" (b_kn at more than 8 rows, K ≤ 1024: 128 × 64 tiles, as
+wide as the head dimension), "kn_gemv" (b_kn at ≤ 8 rows: K split over a
+thread-block cluster) and "nk_gemv" (QKᵀ at ≤ 8 rows, K ≤ 256: a b row a
+thread) — and the rest the kernels K15a runs ("gemv", "tiles").  Each
+body counts its launches under its own key (BMM_LAUNCH_KEYS).  A wrapper
+runs the plain version only for CPU tensors; for CUDA tensors it launches
+the kernel or raises.  K and (with b_kn) N are zero-padded to 16s where
+they are not (zeros add nothing).
 
 The plain versions take the int32 sums exactly as f64 matmuls (|acc| ≤
 127²·K < 2^53) and the fused multiply-add as quant.core.fma_f32.
@@ -35,6 +43,41 @@ from smoothquant_tpu_torch.kernels import _build
 from smoothquant_tpu_torch.quant.core import fma_f32
 
 OUT_CODES = {torch.float32: 0, torch.int8: 2}
+
+MAX_GEMV_ROWS = 8          # rows the GEMVs take (csrc/int8.cu MAX_M)
+QK_MAX_K = 256             # the qk body's K: |acc| ≤ 127²·K < 2^22 takes the exact f32 add
+PV_MAX_K = 1024            # the pv body's K: the block's (K, 64) slice of b lands whole
+KN_MAX_ROWS = 4096         # k rows a rank of the kn GEMV stages at most
+KN_SPLITS = (1, 2, 4, 8)   # cluster ranks of the kn GEMV
+KN_MIN_ROWS = 256          # k rows a rank takes at least (four 16-byte loads a thread)
+KN_MAX_CTAS = 2 * 132      # CTAs the kn GEMV fills the card with (2 an SM, measured)
+NK_MAX_K = 256             # the nk GEMV's K: a b row in a thread's registers
+BMM_BODIES = {"qk": 0, "pv": 1, "kn_gemv": 2, "nk_gemv": 3}   # sq_int8_bmm_attn's codes
+# launch counter of each K15b body ("gemv" and "tiles" are K15a's kernels)
+BMM_LAUNCH_KEYS = {"qk": "int8_bmm_qk", "pv": "int8_bmm_pv", "kn_gemv": "int8_bmm_kn",
+                   "nk_gemv": "int8_bmm_nk", "gemv": "int8_bmm", "tiles": "int8_bmm"}
+
+
+def bmm_body(m: int, n: int, kk: int, b_kn: bool, out_dtype) -> str:
+    """K15b's body for a (B, M, K) · b call with N output columns (K and N
+    before padding): the first of K15b's own bodies that takes the shape,
+    else K15a's kernel for its row count."""
+    return next(body for body in ("qk", "pv", "kn_gemv", "nk_gemv", "gemv", "tiles")
+                if _takes(body, m, n, kk, b_kn, out_dtype, None))
+
+
+def kn_ranks(batch: int, n: int, kk: int) -> Optional[int]:
+    """Cluster ranks of the kn GEMV over K = kk (a multiple of 16): the most
+    of KN_SPLITS that keep a rank at KN_MIN_ROWS rows or more and the CTAs
+    within KN_MAX_CTAS (one query over OPT's 1024-position cache, 128
+    heads: 2 ranks, PERF.md §6), at least as many as keep a rank within
+    KN_MAX_ROWS; None where no split fits."""
+    fits = [c for c in KN_SPLITS if kk % (16 * c) == 0 and kk // c <= KN_MAX_ROWS]
+    if not fits:
+        return None
+    ctas = batch * -(-n // 64)
+    within = [c for c in fits if kk // c >= KN_MIN_ROWS and ctas * c <= KN_MAX_CTAS]
+    return max(within, default=min(fits))
 
 
 def _alpha(alpha) -> float:
@@ -81,8 +124,9 @@ def _pad_dim(t: torch.Tensor, dim: int, m: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, widths)
 
 
-def _gemm(a, b, bias, alpha, relu, b_kn, out_dtype, name):
-    """Launch the shared kernel on a (B, M, K) and b (B, N, K) / (B, K, N)."""
+def _gemm(a, b, bias, alpha, relu, b_kn, out_dtype, name, body="tiles", ranks=None):
+    """Launch on a (B, M, K) and b (B, N, K) / (B, K, N): the shared kernel
+    (body "tiles" / "gemv"), or one of K15b's (BMM_BODIES)."""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"{name} takes int8 operands, got {a.dtype} and {b.dtype}")
     if out_dtype not in OUT_CODES:
@@ -109,11 +153,19 @@ def _gemm(a, b, bias, alpha, relu, b_kn, out_dtype, name):
         b = _pad_dim(b, 2, 16)
     _build.check_operands(a.device, a=a, b=b, bias=bias)
     out = torch.empty((batch, m, n_pad), dtype=out_dtype, device=a.device)
-    _build.check(_build.lib().sq_int8_gemm(
-        a.data_ptr(), b.data_ptr(), 0 if bias is None else bias.data_ptr(),
-        out.data_ptr(), batch, m, n_pad, a.shape[2], _alpha(alpha), int(relu),
-        int(b_kn), OUT_CODES[out_dtype], _build.stream_ptr(a)), "sq_int8_gemm")
-    _build.LAUNCHES[name] += 1
+    if body in BMM_BODIES:
+        if body == "kn_gemv":
+            ranks = kn_ranks(batch, n_pad, a.shape[2]) if ranks is None else ranks
+        _build.check(_build.lib().sq_int8_bmm_attn(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, m, n_pad, a.shape[2],
+            _alpha(alpha), BMM_BODIES[body], ranks or 1, OUT_CODES[out_dtype],
+            _build.stream_ptr(a)), f"sq_int8_bmm_attn ({body})")
+    else:
+        _build.check(_build.lib().sq_int8_gemm(
+            a.data_ptr(), b.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            out.data_ptr(), batch, m, n_pad, a.shape[2], _alpha(alpha), int(relu),
+            int(b_kn), OUT_CODES[out_dtype], _build.stream_ptr(a)), "sq_int8_gemm")
+    _build.LAUNCHES[BMM_LAUNCH_KEYS[body] if name == "int8_bmm" else name] += 1
     return out if n_pad == n else out[..., :n]
 
 
@@ -143,15 +195,44 @@ def int8_bmm(
     *,
     out_dtype=torch.float32,
     b_kn: bool = False,
+    body: Optional[str] = None,
+    ranks: Optional[int] = None,
 ) -> torch.Tensor:
-    """(B, M, N) batched int8 product with the α epilogue (K15b)."""
+    """(B, M, N) batched int8 product with the α epilogue (K15b).  `body`
+    and `ranks` (the kn GEMV's split) override the shape rules (bmm_body,
+    kn_ranks) for measurements; a forced body raises on a shape it does not
+    take."""
     if a.device.type == "cpu":
         return int8_bmm_plain(a, b, alpha, out_dtype=out_dtype, b_kn=b_kn)
     if a.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {a.device}")
     if a.ndim != 3 or b.ndim != 3:
         raise ValueError("int8_bmm takes a (B, M, K) and b (B, N, K) / (B, K, N)")
-    return _gemm(a, b, None, alpha, False, b_kn, out_dtype, "int8_bmm")
+    m, kk = a.shape[1], a.shape[2]
+    n = b.shape[2] if b_kn else b.shape[1]
+    chosen = bmm_body(m, n, kk, b_kn, out_dtype) if body is None else body
+    if not _takes(chosen, m, n, kk, b_kn, out_dtype, ranks):
+        raise ValueError(f"K15b's {chosen!r} body does not take a {tuple(a.shape)} · b "
+                         f"{tuple(b.shape)} (b_kn={b_kn}, {out_dtype})")
+    return _gemm(a, b, None, alpha, False, b_kn, out_dtype, "int8_bmm", chosen, ranks)
+
+
+def _takes(body: str, m: int, n: int, kk: int, b_kn: bool, out_dtype, ranks) -> bool:
+    """Whether a K15b body takes the shape (the C entries' limits)."""
+    kk16 = -(-kk // 16) * 16
+    if body == "qk":
+        return m > MAX_GEMV_ROWS and not b_kn and kk16 <= QK_MAX_K and out_dtype == torch.float32
+    if body == "pv":
+        return m > MAX_GEMV_ROWS and b_kn and kk16 <= PV_MAX_K
+    if body == "kn_gemv":
+        c = kn_ranks(1, n, kk16) if ranks is None else ranks
+        return (m <= MAX_GEMV_ROWS and b_kn and c in KN_SPLITS and kk16 % (16 * c) == 0
+                and kk16 // c <= KN_MAX_ROWS)
+    if body == "nk_gemv":
+        return m <= MAX_GEMV_ROWS and not b_kn and kk16 <= NK_MAX_K
+    if body == "gemv":
+        return m <= MAX_GEMV_ROWS
+    return body == "tiles" and m > MAX_GEMV_ROWS
 
 
 def quantize_to_int8(x: torch.Tensor, scale) -> torch.Tensor:

@@ -68,10 +68,17 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
         assert r["max_err"] == 0 and r["n_diff"] == 0
     assert len(by_kernel["int8_linear"]) == 12 and len(by_kernel["int8_bmm"]) == 4
     assert len(by_kernel["norm_quant"]) == 2
-    per_forward = {"norm_quant": 4, "int8_linear": 12, "int8_bmm": 4}
-    assert expected["int8 OPT prefill"] == per_forward
-    assert expected["int8 OPT decode step"] == per_forward
-    assert expected["int8 OPT generator"] == {k: 4 * v for k, v in per_forward.items()}
+    # K15b's launches by body: QKᵀ and PV of a prefill on the qk and pv
+    # bodies, of one query over the cache on the nk and kn GEMVs
+    prefill = {"norm_quant": 4, "int8_linear": 12, "int8_bmm_qk": 2, "int8_bmm_pv": 2}
+    step = {"norm_quant": 4, "int8_linear": 12, "int8_bmm_nk": 2, "int8_bmm_kn": 2}
+    assert expected["int8 OPT prefill"] == prefill
+    assert expected["int8 OPT decode step"] == step
+    assert expected["int8 OPT generator"] == {
+        k: prefill.get(k, 0) + 3 * step.get(k, 0) for k in {*prefill, *step}}
+    assert [r["body"] for r in rows if r["kernel"] == "int8_bmm"] == [
+        "qk", "pv", "nk_gemv", "kn_gemv"]
+    assert all(r["old_body"] in ("tiles", "gemv") for r in rows if r["kernel"] == "int8_bmm")
     phases = {p["phase"]: p for p in printed if "phase" in p}
     assert phases["opt_reference_check"]["float32"]["rel_norm_err"] < 5e-2
     # prompt, two warm-up steps, the counted step, three windows of 8, the profile
@@ -324,14 +331,18 @@ def test_reference_check_rehearsal_on_cpu(monkeypatch):
             "per_layer_w4a4_int", "per_layer_w4a4_dequant"}
         assert all(r.get("rel_norm_err", r.get("max_abs_err")) == 0 for r in parts.values())
     n_l = 2
+    # the first expectation recorded is float32's: its K11 calls take the
+    # flash body (f32 queries), counted under their own key
+    k11 = cs.k11_key(torch.float32, 64, 256)
+    assert k11 == "decode_attention_stacked_flash"
+    assert cs.k11_key(torch.bfloat16, 64, 256) == "decode_attention_stacked"
     assert expected["reference check per_layer_w4a8_auto"] == {
-        "dual_path_matmul": 7 * n_l, "int_group_matmul": 7 * n_l,
-        "decode_attention_stacked": n_l}
+        "dual_path_matmul": 7 * n_l, "int_group_matmul": 7 * n_l, k11: n_l}
     for recipe in ("w4a8", "w4a4"):
         assert expected[f"reference check per_layer_{recipe}_int"] == {
-            "int_group_matmul": 14 * n_l, "decode_attention_stacked": n_l}
+            "int_group_matmul": 14 * n_l, k11: n_l}
         assert expected[f"reference check per_layer_{recipe}_dequant"] == {
-            "dual_path_matmul": 14 * n_l, "decode_attention_stacked": n_l}
+            "dual_path_matmul": 14 * n_l, k11: n_l}
 
 
 @pytest.mark.parametrize("recipe,rows,compute", [
@@ -471,8 +482,9 @@ def test_bloom_path_rehearsal_on_cpu(monkeypatch):
     assert expected["bloom decode step B=40"] == {
         "quantize_acts_grouped_t": 4 * n_l, "int4_group_matmul_stacked": 4 * n_l,
         "write_quant_cache_stacked": n_l, "decode_attention_stacked_alibi": n_l}
+    # the first expectation recorded is float32's: K11's flash ALiBi body
     assert expected["bloom reference check stacked_int8"] == {
-        "int4_group_matmul_stacked_rawx": 4 * n_l, "decode_attention_stacked_alibi": n_l,
+        "int4_group_matmul_stacked_rawx": 4 * n_l, "decode_attention_stacked_flash_alibi": n_l,
         "write_quant_cache_stacked": n_l}
     phases = {p["phase"]: p for p in printed if "phase" in p}
     for dtype_name in ("float32", "bfloat16"):
@@ -542,3 +554,54 @@ def test_wgmma_edge_checks_rehearsal_on_cpu(monkeypatch):
     # the kernels line holds measured numbers and bound_ms only: the floors
     # stay on the scaling_floors line
     assert all("scaling_floor_ms" not in k and "before_ms" not in k for k in by.values())
+
+
+def test_attn_edge_checks_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's edge checks of K11's split body (check_k11_edges: S =
+    128 / 640 / 1024, D = 64 / 128, rep 1-8, both caches, ALiBi, masked and
+    one-position slots, every cluster size) and of K15b's bodies
+    (check_k15b_edges: K = 64-512, ragged M and N, both outputs, every body
+    the rule reaches and every kn rank count) on the CPU, where the wrappers
+    take their plain versions: every case holds, each call repeats with
+    identical bits, and each body of the rule is named."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    edges = cs.check_k11_edges(torch.device("cpu"))
+    assert edges["max_rel_err"] == 0.0
+    assert edges["cases"] == 3 * 2 * 5 * 2 * 4
+    assert edges["repeated_calls_identical"] == 2 * edges["cases"] + 400
+    bodies = cs.check_k15b_edges(torch.device("cpu"))
+    assert set(bodies) == {"qk", "tiles", "pv", "kn_gemv", "nk_gemv", "gemv"}
+    assert bodies["qk"] == 3 * 4 and bodies["tiles"] == 4 * 4 + 4
+    assert bodies["pv"] == 4 * 8 + 1
+
+
+def test_k11_phases_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's K11 phase over the head-major caches on the CPU at a
+    small size: Llama's B = 4 rows (bf16, int8; in the kernels line's sum)
+    and the per-slot int8 pool's B = 64 row (out of it), each with the
+    split the planner picks and the flash body timed beside."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.models.llama import LlamaConfig
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
+    monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
+    monkeypatch.setattr(cs, "emit", lambda obj: None)
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=512), hidden_size=512,
+                              num_attention_heads=4, num_key_value_heads=4,
+                              num_hidden_layers=2)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(3)
+    rows = cs.check_decode_attention_hm(cfg, cpu, gen)
+    rows += cs.check_decode_attention_hm(
+        cfg, cpu, gen, b=64, bodies=("int8",), main=False,
+        pos=torch.randint(100, cs.MAX_LEN, (64,), generator=gen))
+    assert [(r["site"], r["in_sum"], r["split"]) for r in rows] == [
+        ("bf16", True, 8), ("int8", True, 8), ("int8@B64", False, 2)]
+    assert all(r["max_err"] == 0 and "flash_ms" in r for r in rows)

@@ -178,3 +178,124 @@ def test_decode_attention_options_and_support():
                  (512, 6, 4, 64)):
         assert k11.supported(*args) == jda.supported(*args)
     assert k11._pick_tile_s(768) == jda._pick_tile_s(768) == 256
+
+
+def test_split_body_shape_rules():
+    """K11's body rule (bf16 queries at D = 64 / 128 take the split body,
+    f32 queries and D = 256 the flash body) and the split planner's ranks at
+    the paths' shapes: B = 4 over 512 (128 heads) takes 4 ranks a head,
+    B = 64 (2048 heads) one; a rank holds at least 64 positions, at most
+    SPLIT_MAX_CHUNK."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert k11.attn_body(bf, 128, 512, 1) == "split"
+    assert k11.attn_body(bf, 64, 1024, 4) == "split"
+    assert k11.attn_body(bf, 128, 640, 8) == "split"
+    assert k11.attn_body(f32, 128, 512, 1) == "flash"
+    assert k11.attn_body(bf, 256, 512, 1) == "flash"
+    assert k11.attn_body(bf, 128, 100, 1) == "flash"            # not tileable
+    assert k11.attn_body(bf, 128, 32768, 1) == "flash"          # 8 ranks of 4096 positions
+    table = {  # (B·H_kv, S): ranks
+        (4 * 32, 512): 4, (4 * 32, 640): 4, (64 * 32, 512): 1, (32 * 32, 512): 1,
+        (16 * 32, 512): 1, (8 * 32, 512): 2, (4 * 32, 1024): 4, (4, 128): 2, (1, 128): 2,
+        (1, 16384): 8, (2048, 4096): 2, (2048, 8192): 4}
+    for (heads, s), ranks in table.items():
+        assert k11.split_ranks(heads, s) == ranks, (heads, s)
+    for c in k11.SPLITS:
+        assert k11._split_fits(640, c) == (c <= 8)
+    assert not k11._split_fits(384, 16)
+    assert k11._split_fits(384, 8)                              # 48 positions a rank
+    with pytest.raises(ValueError):
+        k11.split_ranks(4, 100)
+
+
+def _split_emulation(layer, q, k, v, bias, k_scale, v_scale, slopes, ranks):
+    """K11's split body written in PyTorch: the positions cut into `ranks`
+    contiguous chunks; each rank's scores and its per-tile maxima; the tile
+    maxima combined over the ranks that hold the tile; the TPU kernel's
+    running max, m_safe and rescales α scanned from them, and F_t = Π_{u>t}
+    α_u; each rank's p = exp(score − m_safe of its tile), l = Σ F_t·p and
+    p·v partial Σ F_t·bf16(p [·v_scale])·v over its unmasked positions; the
+    partials summed in rank order over their l summed in rank order."""
+    b, h, d = q.shape
+    kl, vl = k[layer], v[layer]
+    n_kv, s = kl.shape[1], kl.shape[2]
+    rep = h // n_kv
+    ts = k11._pick_tile_s(s)
+    n_tiles, chunk = s // ts, s // ranks
+    quant = k_scale is not None
+    v_dt = torch.bfloat16 if quant else vl.dtype
+    qf = q.float().reshape(b, n_kv, rep, d)
+    sc = torch.einsum("bgrd,bgsd->bgrs", qf, kl.float()) * (1.0 / np.sqrt(d))
+    if quant:
+        sc = sc * k_scale[layer][:, :, None, :]
+    if slopes is not None:
+        sc = sc + slopes.float()[None, :, None, None] * torch.arange(s).float()
+    sc = sc + bias[:, None, None, :]
+    tile_of = torch.arange(s) // ts
+    rank_of = torch.arange(s) // chunk
+    m_t = torch.full((b, n_kv, rep, n_tiles), -np.inf)
+    for j in range(ranks):                      # each rank publishes its tiles' maxima
+        for t in range(n_tiles):
+            sel = (rank_of == j) & (tile_of == t)
+            if sel.any():
+                m_t[..., t] = torch.maximum(m_t[..., t], sc[..., sel].amax(-1))
+    m_safe = torch.empty_like(m_t)
+    alpha = torch.zeros_like(m_t)
+    m_run = None
+    for t in range(n_tiles):
+        m_new = m_t[..., t] if t == 0 else torch.maximum(m_run, m_t[..., t])
+        m_safe[..., t] = torch.clamp_min(m_new, k11.NEG_INF / 2)
+        if t:
+            alpha[..., t] = torch.exp(m_run - m_safe[..., t])
+        m_run = m_new
+    f_t = torch.ones_like(m_t)
+    for t in range(n_tiles - 2, -1, -1):
+        f_t[..., t] = f_t[..., t + 1] * alpha[..., t + 1]
+    live = bias > -1e29
+    acc = torch.zeros((b, n_kv, rep, d))
+    l_sum = torch.zeros((b, n_kv, rep, 1))
+    for j in range(ranks):                      # each rank's partials, added in rank order
+        pos = torch.arange(j * chunk, (j + 1) * chunk)
+        f = f_t[..., tile_of[pos]]
+        p = torch.exp(sc[..., pos] - m_safe[..., tile_of[pos]])
+        l_sum = l_sum + (f * p).sum(-1, keepdim=True)
+        pv = p * v_scale[layer][:, :, None, pos] if quant else p
+        w = f * pv.to(v_dt).float() * live[:, None, None, pos]
+        acc = acc + torch.einsum("bgrs,bgsd->bgrd", w, vl[:, :, pos].float())
+    den = torch.where(l_sum > 0, l_sum, torch.ones_like(l_sum))
+    return (acc / den).reshape(b, h, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
+@pytest.mark.parametrize("s,alibi,kind", [(512, False, "bf16"), (512, False, "int8"),
+                                          (640, True, "int8"), (640, True, "bf16"),
+                                          (640, False, "int8")])
+def test_split_decomposition_matches_plain(ranks, s, alibi, kind):
+    """The split body's decomposition (per-rank chunks, tile maxima
+    exchanged into the prefix max, F_t-weighted partials combined in rank
+    order) against the plain version at chip_smoke's kernel tolerance (1e-2
+    of the largest bf16 output), over one 512-wide tile and five 128-wide
+    ones, with and without ALiBi: slots over the whole cache, over a few
+    positions, over the last tile only, and fully masked."""
+    rng = np.random.default_rng(100 + ranks)
+    b, d = 4, 128
+    h = n_kv = 8 if alibi else 4
+    if not alibi:
+        h = 8                                   # GQA rep 2
+    (k, v), (ks, vs) = _cache(rng, (2, b, n_kv, s, d), kind if kind == "int8" else "f32")
+    k, v = _t(k), _t(v)
+    if kind == "bf16":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    ks = None if ks is None else _t(ks)
+    vs = None if vs is None else _t(vs)
+    q = _t(rng.normal(size=(b, h, d)).astype(np.float32)).to(torch.bfloat16)
+    bias = decode_bias(torch.tensor([s - 1, 3, s - 1, s - 1]), b, s, None)
+    bias[2, : s - 40] = -1e30                   # only the last tile's positions
+    bias[3] = -1e30                             # a fully masked slot
+    slopes = _t(j_alibi_slopes(h)) if alibi else None
+    ref = k11.decode_attention_stacked_plain(1, q, k, v, bias, ks, vs, slopes)
+    got = _split_emulation(1, q, k, v, bias, ks, vs, slopes, ranks)
+    assert torch.isfinite(got).all()
+    assert got[3].abs().max() == 0
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item() + 1e-6

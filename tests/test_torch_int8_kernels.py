@@ -115,3 +115,86 @@ def test_wrappers_run_plain_on_cpu():
     k15.int8_bmm(x[None], x[None], 1.0)
     k16.layer_norm_q(torch.ones((4, 32)), torch.ones(32), torch.zeros(32), 0.1)
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+def test_int8_bmm_body_rules():
+    """K15b's body rule at the int8 OPT's attention products (OPT-1.3B,
+    head_dim 64): QKᵀ of a prefill takes the qk body (K ≤ 256, f32 out), PV
+    of a prefill the pv body (b_kn, K ≤ 1024), PV of one query over the
+    cache the kn GEMV, QKᵀ of one query the nk GEMV (K ≤ 256; above, K15a's
+    GEMV); the kn GEMV's ranks
+    keep a rank at 256 rows or more and the CTAs within two an SM."""
+    f32, i8 = torch.float32, torch.int8
+    table = {  # (M, N, K, b_kn, out): body
+        (512, 512, 64, False, f32): "qk", (512, 1024, 64, False, f32): "qk",
+        (512, 64, 512, True, i8): "pv", (512, 64, 1024, True, i8): "pv",
+        (1, 1024, 64, False, f32): "nk_gemv", (1, 64, 1024, True, i8): "kn_gemv",
+        (1, 77, 512, False, f32): "gemv", (8, 300, 256, False, i8): "nk_gemv",
+        (4, 64, 40, True, i8): "kn_gemv", (9, 512, 64, False, f32): "qk",
+        (512, 512, 64, False, i8): "tiles", (512, 512, 512, False, f32): "tiles",
+        (512, 64, 2048, True, i8): "tiles", (8, 64, 1024, True, f32): "kn_gemv",
+        (2, 64, 65536, True, i8): "gemv"}
+    for (m, n, kk, b_kn, out), body in table.items():
+        assert k15.bmm_body(m, n, kk, b_kn, out) == body, (m, n, kk, b_kn, out)
+        assert k15._takes(body, m, n, kk, b_kn, out, None)
+    ranks = {(128, 64, 1024): 2, (128, 64, 512): 2, (4, 64, 1024): 4, (1, 64, 48): 1,
+             (128, 64, 4096): 2, (512, 64, 8192): 2, (256, 64, 4096): 1,
+             (1, 64, 64 * 1024): None}
+    for args, c in ranks.items():
+        assert k15.kn_ranks(*args) == c, args
+    assert not k15._takes("qk", 512, 512, 64, False, i8, None)
+    assert not k15._takes("pv", 4, 64, 512, True, i8, None)
+    assert not k15._takes("kn_gemv", 1, 64, 1024, True, i8, 16)
+    assert not k15._takes("tiles", 4, 64, 64, False, f32, None)
+
+
+def test_int8_bmm_exact_f32_of_the_qk_body():
+    """The qk body's int32 → f32 without I2F: the accumulator seeded with
+    the bits of 1.5·2^23 and one f32 subtract give f32(acc) exactly over
+    the range K ≤ 256 reaches (|acc| ≤ 128²·256 = 2^22)."""
+    from smoothquant_tpu_torch.kernels.stream_gmm import exact_f32
+
+    lim = 128 * 128 * k15.QK_MAX_K
+    assert lim == 2 ** 22
+    p = torch.cat([torch.arange(-lim, -lim + 4096), torch.arange(-2048, 2048),
+                   torch.arange(lim - 4096, lim + 1),
+                   torch.from_numpy(np.random.default_rng(7).integers(-lim, lim, 10000))])
+    assert torch.equal(exact_f32(p), p.float())
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's __byte_perm(x, y, s): result byte i is byte (s >> 4i) & 7 of
+    the eight bytes y:x."""
+    src = (y << 32) | x
+    return sum(((src >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i) for i in range(4))
+
+
+def test_int8_bmm_byte_transpose_of_the_kn_bodies():
+    """The 4 × 4 byte transpose the pv body and the kn GEMV run on a (K, N)
+    operand (four row words in, four column words out), emulated with
+    __byte_perm's selectors: column j's word holds k rows 0-3 of column j."""
+    rng = np.random.default_rng(3)
+    for _ in range(50):
+        rows = rng.integers(0, 256, size=(4, 4), dtype=np.uint8)      # [k][column]
+        w = [int.from_bytes(rows[k].tobytes(), "little") for k in range(4)]
+        lo01, lo23 = _byte_perm(w[0], w[1], 0x5140), _byte_perm(w[2], w[3], 0x5140)
+        hi01, hi23 = _byte_perm(w[0], w[1], 0x7362), _byte_perm(w[2], w[3], 0x7362)
+        cols = [_byte_perm(lo01, lo23, 0x5410), _byte_perm(lo01, lo23, 0x7632),
+                _byte_perm(hi01, hi23, 0x5410), _byte_perm(hi01, hi23, 0x7632)]
+        for j in range(4):
+            assert cols[j].to_bytes(4, "little") == rows[:, j].tobytes()
+
+
+def test_int8_bmm_forced_body_on_cpu_runs_plain():
+    """A forced body on CPU tensors still takes the plain version (the
+    shape rule applies to CUDA tensors only), bit-exact at the qk, pv and
+    kn shapes."""
+    rng = np.random.default_rng(11)
+    for shape_a, shape_b, b_kn, out, body in (
+            ((2, 20, 64), (2, 30, 64), False, torch.float32, "qk"),
+            ((2, 1, 64), (2, 30, 64), False, torch.float32, "nk_gemv"),
+            ((2, 20, 48), (2, 48, 64), True, torch.int8, "pv"),
+            ((2, 1, 256), (2, 256, 64), True, torch.int8, "kn_gemv")):
+        a, b = torch.from_numpy(_i8(rng, shape_a)), torch.from_numpy(_i8(rng, shape_b))
+        got = k15.int8_bmm(a, b, 0.01, out_dtype=out, b_kn=b_kn, body=body)
+        assert torch.equal(got, k15.int8_bmm_plain(a, b, 0.01, out_dtype=out, b_kn=b_kn))
