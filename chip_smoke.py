@@ -6,10 +6,11 @@
 1. Prints the card's name and power limit, builds the port's kernels from
    csrc/ with nvcc (sm_90a, one process per source) and prints ptxas'
    register / spill summary; holds the SASS of K6's and K9's wgmma bodies
-   to IGMMA / HGMMA, K6's, the stream body's (K5, K8), K11's split
-   kernels' and K15b's qk body's to no I2F, the stream body to TMA loads
-   and K11's split kernels to bulk copies (cuobjdump); reads the SM clock
-   the per-group scaling floors take.
+   to IGMMA / HGMMA, K6's, the stream body's (K5, K8), the split
+   kernels' of K11, K3 and K12 and K15b's qk body's to no I2F, the stream
+   body and K3's split kernels to TMA loads and the other split kernels to
+   bulk copies (cuobjdump); reads the SM clock the per-group scaling floors
+   take.
 The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
 2048, random bf16 weights from seed 0):
    a. the export pipeline of export_int8_model.py:48-76 on the card:
@@ -35,13 +36,16 @@ Then the Llama-2-7B paths:
 3. Holds every kernel against its plain PyTorch version at the main paths'
    shapes (one JSON line per kernel and shape): K1 in its three modes at
    the four decode linears (N = 4, and 16 and 32), K6 at the four prefill
-   linears (N = 1024), K2 and K3 at B = 4, S = 512, K11 over bf16 and int8
+   linears (N = 1024), K2 at B = 4, S = 512, K3 at B = 4 over 512 ragged
+   positions, at B = 64 from DECODE_POS and at B = 4 over 1024 positions
+   (its flash body timed beside its split body), K11 over bf16 and int8
    head-major caches at B = 4, S = 512, K7a at qkv / gate_up / down and K5
    at the four decode linears (N = 64 and 33; K5 in both input modes, the
    tiles body timed beside the stream body), K10 at
    B = 64, S = 512 (per-slot positions, one past the end, then a scalar
    one); K12 over random head-major int8 caches of 512 positions from
-   position 448: its flat body at B = 4 and B = 64, its write body at
+   position 448 (its flash design timed beside its split body): its flat
+   body at B = 4 and B = 64, its write body at
    B = 4 (rows and scales identical to K10's), its stacked body at B = 4
    over 8 of the 32 heads' worth of kv heads (Meta-Llama-3-8B's attention
    shape); K14 at the serving pack's gate_up + down, N = 4 and 8; after the
@@ -58,7 +62,10 @@ Then the Llama-2-7B paths:
    per-slot int8 pool at B = 64 (positions 100-511), the flash body timed
    beside the split body at each K11 shape, and the split body at its
    edges (k11_edges: S, D, rep, both caches, ALiBi, masked slots, every
-   cluster size; one call repeated 400 times for identical bits).
+   cluster size; one call repeated 400 times for identical bits), and the
+   split bodies of K3 and K12 at theirs (k3_edges: S, D, rep, ragged and
+   masked slots; k12_edges: the three bodies, pos 0, 9 and S − 1, the write
+   body's cache; every cluster size, repeated calls identical).
 4. Checks the kernel path against the plain path (the CPU) on a small
    model, f32 and bf16: the S-major prefill and one stacked decode step;
    a promoted prefill over head-major int8 caches and one Generator decode
@@ -548,13 +555,15 @@ def check_gmm(packed, cfg, dev, gen, n=PREFILL_N):
     return rows
 
 
-def _random_cache(cfg, dev, gen):
+def _random_cache(cfg, dev, gen, b=MAX_BATCH, s=MAX_LEN, n_layers=None):
+    """A stacked S-major int8 cache of random codes and scales (every layer
+    of cfg's by default)."""
     import torch
 
     from smoothquant_tpu_torch.models.common import SMajorQuantKVCache
 
-    c = SMajorQuantKVCache.create(MAX_BATCH, MAX_LEN, cfg.num_key_value_heads,
-                                  cfg.head_dim, dev, n_layers=cfg.num_hidden_layers)
+    c = SMajorQuantKVCache.create(b, s, cfg.num_key_value_heads, cfg.head_dim, dev,
+                                  n_layers=n_layers or cfg.num_hidden_layers)
     for t in (c.k_q, c.v_q):
         t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev,
                               dtype=torch.int8))
@@ -600,52 +609,69 @@ def check_write_cache(cfg, dev, gen):
 
 
 def check_decode_attention(cfg, dev, gen):
-    """K3 vs plain over a random S-major cache with ragged valid lengths;
-    SDPA over the dequantized bf16 cache as the yardstick."""
+    """K3 vs plain over random S-major caches: B = 4 with ragged valid
+    lengths (the main row, in the kernels line's sums), B = SLOT_BATCH from
+    DECODE_POS (every slot a new row) and B = 4 over 2·MAX_LEN positions
+    (two 512-wide softmax tiles), within 1e-2 of the largest output; the
+    flash body timed beside the split body the rule picks (kernel_ms /
+    flash_ms); SDPA over the dequantized bf16 cache as the yardstick."""
     import torch
     import torch.nn.functional as F
 
     from smoothquant_tpu_torch.kernels import attn_smajor as ka
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
     from smoothquant_tpu_torch.models.common import decode_bias
     from smoothquant_tpu_torch.utils import roofline
 
     h, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    c = _random_cache(cfg, dev, gen)
-    pos = torch.tensor([100, 300, MAX_LEN - 1, 50], device=dev)
-    bias = decode_bias(pos, MAX_BATCH, MAX_LEN, None)
-    q = torch.randn((MAX_BATCH, h, d), generator=gen, device=dev).to(torch.bfloat16)
-    args = lambda i: (i, q, c.k_q, c.v_q, bias, c.k_scale, c.v_scale)
-    n_layers = cfg.num_hidden_layers
-    got = ka.decode_attention_smajor_stacked(*args(n_layers - 1))
-    ref = ka.decode_attention_smajor_plain(*args(n_layers - 1))
-    torch.cuda.synchronize()
-    err = _close("K3", got, ref, 1e-2)
+    rows = []
+    for site, b, s, pos, main in (
+            ("ragged", MAX_BATCH, MAX_LEN, [100, 300, MAX_LEN - 1, 50], True),
+            (f"new_row@B{SLOT_BATCH}", SLOT_BATCH, MAX_LEN, [DECODE_POS] * SLOT_BATCH, False),
+            (f"ragged@S{2 * MAX_LEN}", MAX_BATCH, 2 * MAX_LEN,
+             [100, MAX_LEN + 188, 2 * MAX_LEN - 1, 50], False)):
+        n_layers = cfg.num_hidden_layers if main else min(4, cfg.num_hidden_layers)
+        c = _random_cache(cfg, dev, gen, b, s, n_layers)
+        bias = decode_bias(torch.tensor(pos, device=dev), b, s, None)
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        args = lambda i, c=c, q=q, bias=bias: (i, q, c.k_q, c.v_q, bias, c.k_scale, c.v_scale)
+        design, ranks = k11.plan("K3", q.dtype, b * n_kv, s, d, h // n_kv)
+        got = _launched(ka.LAUNCH_KEYS[design],
+                        lambda: ka.decode_attention_smajor_stacked(*args(n_layers - 1)))
+        ref = ka.decode_attention_smajor_plain(*args(n_layers - 1))
+        flash = ka.decode_attention_smajor_stacked(*args(n_layers - 1), body="flash")
+        torch.cuda.synchronize()
+        err = _close(f"K3 {site}", got, ref, 1e-2)
+        _close(f"K3 flash body {site}", flash, ref, 1e-2)
 
-    def deq(qv, sc):
-        x = qv.reshape(MAX_BATCH, MAX_LEN, n_kv, d).transpose(1, 2).float()
-        return (x * sc[..., None]).to(torch.bfloat16)
+        def deq(qv, sc, b=b, s=s):
+            x = qv.reshape(b, s, n_kv, d).transpose(1, 2).float()
+            return (x * sc[..., None]).to(torch.bfloat16).repeat_interleave(h // n_kv, dim=1)
 
-    n_lib = min(4, n_layers)
-    kd = [deq(c.k_q[i], c.k_scale[i]) for i in range(n_lib)]
-    vd = [deq(c.v_q[i], c.v_scale[i]) for i in range(n_lib)]
-    valid = (bias == 0)[:, None, None, :]
-    n_bytes, ops = roofline.decode_attn_cost(MAX_BATCH, h, n_kv, MAX_LEN, d,
-                                             n_valid=int(valid.sum()))
-    b_ms, b_by = roofline.bound_ms(n_bytes, ops)
-    row = dict(
-        kernel="decode_attention_smajor_stacked", shape=[MAX_BATCH, h, n_kv, MAX_LEN, d],
-        max_err=err,
-        kernel_ms=device_ms(lambda i: ka.decode_attention_smajor_stacked(
-            *args(i % n_layers)), n_layers),
-        plain_ms=device_ms(lambda i: ka.decode_attention_smajor_plain(
-            *args(i % n_layers)), 8, reps=3),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=device_ms(lambda i: F.scaled_dot_product_attention(
-            q[:, :, None], kd[i % n_lib], vd[i % n_lib], attn_mask=valid), 16),
-        library="scaled_dot_product_attention over the dequantized bf16 cache, "
-                "yardstick only")
-    emit(row)
-    return [row]
+        n_lib = min(4, n_layers)
+        kd = [deq(c.k_q[i], c.k_scale[i]) for i in range(n_lib)]
+        vd = [deq(c.v_q[i], c.v_scale[i]) for i in range(n_lib)]
+        valid = (bias == 0)[:, None, None, :]
+        n_bytes, ops = roofline.decode_attn_cost(b, h, n_kv, s, d, n_valid=int(valid.sum()))
+        b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        rows.append(dict(
+            kernel="decode_attention_smajor_stacked", site=site, in_sum=main,
+            shape=[b, h, n_kv, s, d], max_err=err, check_launches=1,
+            max_rel_err=err / ref.float().abs().max().item(), split=ranks,
+            kernel_ms=device_ms(lambda i: ka.decode_attention_smajor_stacked(
+                *args(i % n_layers)), n_layers),
+            flash_ms=device_ms(lambda i: ka.decode_attention_smajor_stacked(
+                *args(i % n_layers), body="flash"), n_layers),
+            plain_ms=device_ms(lambda i: ka.decode_attention_smajor_plain(
+                *args(i % n_layers)), 4, reps=3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=device_ms(lambda i: F.scaled_dot_product_attention(
+                q[:, :, None], kd[i % n_lib], vd[i % n_lib], attn_mask=valid), 16),
+            library="scaled_dot_product_attention over the dequantized bf16 cache, "
+                    "yardstick only"))
+        emit(rows[-1])
+        del c, kd, vd
+    return rows
 
 
 def _prefill_sites(tree, cfg):
@@ -1084,13 +1110,15 @@ def check_fused_attn(cfg, dev, gen):
     k / v, and to the plain version's), the stacked body at B = MAX_BATCH
     over a quarter of the heads as kv heads (GQA_SHARE).  bf16 attention
     within 1e-2 of the largest magnitude (p is rounded to bf16 before PV on
-    both sides; sums in another order).  Yardstick: SDPA over the
-    dequantized bf16 cache, the same positions valid."""
+    both sides; sums in another order); the flash design timed beside the
+    split body the rule picks (kernel_ms / flash_ms).  Yardstick: SDPA over
+    the dequantized bf16 cache, the same positions valid."""
     import torch
     import torch.nn.functional as F
 
     from smoothquant_tpu_torch.kernels import attn_fused as k12
     from smoothquant_tpu_torch.kernels import cache_write as k10
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
     from smoothquant_tpu_torch.models.common import rotary_cos_sin
     from smoothquant_tpu_torch.utils import roofline
 
@@ -1117,23 +1145,28 @@ def check_fused_attn(cfg, dev, gen):
         last = n_l - 1
         ref_c = clone(c) if write else c
         got_c = clone(c) if write else c
-        got = fn(*args(last, got_c))
+        design, ranks = k11.plan("K12", q.dtype, b * n_kv, MAX_LEN, d, h // n_kv)
+        got = _launched(k12.LAUNCH_KEYS[design], lambda: fn(*args(last, got_c)))
         ref = k12.fused_attn_plain(*args(last, ref_c), flat=flat, write_cache=write)
+        flash_c = clone(c) if write else c
+        flash = fn(*args(last, flash_c), body="flash")
         row = dict(kernel="fused_attn", site=body if b == MAX_BATCH else f"{body}@{b}",
-                   shape=[b, h, n_kv, MAX_LEN, d], pos=DECODE_POS, in_sum=flat and b == MAX_BATCH)
+                   shape=[b, h, n_kv, MAX_LEN, d], pos=DECODE_POS, in_sum=flat and b == MAX_BATCH,
+                   check_launches=1, split=ranks)
         if write:
             k10_c = clone(c)
             k10.write_quant_cache_stacked(last, pos, k, v, cos, sin, *bufs(k10_c))
             torch.cuda.synchronize()
-            for name, x, y, z in zip(("k_q", "v_q", "k_scale", "v_scale"), bufs(got_c),
-                                     bufs(k10_c), bufs(ref_c)):
-                if not (torch.equal(x, y) and torch.equal(x, z)):
-                    raise AssertionError(f"K12 write body: {name} differs from K10's or the "
-                                         "plain version's")
+            for name, x, y, z, f in zip(("k_q", "v_q", "k_scale", "v_scale"), bufs(got_c),
+                                        bufs(k10_c), bufs(ref_c), bufs(flash_c)):
+                if not (torch.equal(x, y) and torch.equal(x, z) and torch.equal(x, f)):
+                    raise AssertionError(f"K12 write body: {name} differs from K10's, the "
+                                         "plain version's or the flash design's")
             row["cache_identical_to_k10"] = True
-            del k10_c, ref_c
+            del k10_c, ref_c, flash_c
         torch.cuda.synchronize()
         row["max_err"] = _close(f"K12 {body} B={b}", got, ref, 1e-2)
+        _close(f"K12 flash design {body} B={b}", flash, ref, 1e-2)
         n_lib = min(4, n_l)
         valid = (torch.arange(MAX_LEN, device=dev) <= DECODE_POS)[None, None, None, :]
 
@@ -1148,6 +1181,7 @@ def check_fused_attn(cfg, dev, gen):
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         row.update(
             kernel_ms=device_ms(lambda i: fn(*args(i % n_l, got_c)), n_l),
+            flash_ms=device_ms(lambda i: fn(*args(i % n_l, got_c), body="flash"), n_l),
             plain_ms=device_ms(lambda i: k12.fused_attn_plain(
                 *args(i % n_l, got_c), flat=flat, write_cache=write), 4, reps=3),
             bound_ms=b_ms, bound_by=b_by,
@@ -2109,6 +2143,149 @@ def check_k11_edges(dev):
     return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats}
 
 
+def check_k3_edges(dev):
+    """K3's split body against the plain version at its edges: S = 128, 640
+    (five 128-wide softmax tiles) and 1024 (two of 512); D = 64 and 128; GQA
+    rep 1, 2, 4 and 8; in every call a slot over the whole cache with
+    random holes, a fully masked slot, a slot with one valid position and
+    one whose valid positions all lie in the last tile; every cluster size
+    that chunks S.  Tolerance 1e-2 of the largest output (as the K3 phase).
+    Every call is made twice for identical bits, and one (Llama's shape, B =
+    4 over MAX_LEN, 4 ranks) 400 times.  Returns the largest relative error,
+    the cases and the repeated calls."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import attn_smajor as ka
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+    from smoothquant_tpu_torch.models.common import decode_bias
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+
+    def cache(b, s, n_kv, d):
+        shape = (1, b, s, n_kv * d)
+        kv = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+              for _ in range(2)]
+        return kv + [torch.rand((1, b, n_kv, s), generator=gen, device=dev) * 0.02 + 0.005
+                     for _ in range(2)]
+
+    worst, n_cases, repeats = 0.0, 0, 0
+    for s in (128, 640, 1024):
+        bias = decode_bias(torch.tensor([s - 1, 0, 0, s - 1], device=dev), 4, s, None)
+        bias[0, torch.rand(s, generator=gen, device=dev) < 0.2] = -1e30   # holes
+        bias[1] = -1e30                              # a fully masked slot
+        bias[3, : s - 20] = -1e30                    # valid only in the last tile
+        for d in (64, 128):
+            for rep in (1, 2, 4, 8):
+                n_kv = 2 if rep == 8 else 4
+                q = torch.randn((4, n_kv * rep, d), generator=gen, device=dev).to(torch.bfloat16)
+                kq, vq, ks, vs = cache(4, s, n_kv, d)
+                args = (0, q, kq, vq, bias, ks, vs)
+                ref = ka.decode_attention_smajor_plain(*args)
+                for c in k11.SPLITS:
+                    if not k11._split_fits(s, c):
+                        continue
+                    name = f"K3 edge S={s} D={d} rep={rep} ranks={c}"
+                    got = ka.decode_attention_smajor_stacked(*args, split=c)
+                    again = ka.decode_attention_smajor_stacked(*args, split=c)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{name}: two calls gave different bits")
+                    if got[1].abs().max().item() != 0:
+                        raise AssertionError(f"{name}: a fully masked slot is not 0")
+                    err = _close(name, got, ref, 1e-2)
+                    worst = max(worst, err / ref.float().abs().max().item())
+                    n_cases += 1
+                    repeats += 2
+    kq, vq, ks, vs = cache(MAX_BATCH, MAX_LEN, 32, 128)
+    q = torch.randn((MAX_BATCH, 32, 128), generator=gen, device=dev).to(torch.bfloat16)
+    bias = decode_bias(torch.tensor([100, 300, MAX_LEN - 1, 50], device=dev), MAX_BATCH,
+                       MAX_LEN, None)
+    args = (0, q, kq, vq, bias, ks, vs)
+    first = ka.decode_attention_smajor_stacked(*args, split=4)
+    for _ in range(399):
+        if not torch.equal(ka.decode_attention_smajor_stacked(*args, split=4), first):
+            raise AssertionError("K3 split body: 400 calls did not give identical bits")
+    repeats += 400
+    return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats}
+
+
+def check_k12_edges(dev):
+    """K12's split bodies against the plain version at their edges: S = 128,
+    640 and 1024; D = 64 and 128; the flat body (MHA), the stacked body at
+    rep 1, 2, 4 and 8 and the write body at rep 1 and 4; pos 0 (only the
+    new row), 9 (inside the first tile) and S − 1; one rotary row for every
+    slot, and at S = 640 a row a slot; every cluster size that chunks S.
+    Attention within 1e-2 of the largest output; the write
+    body's cache identical to the plain version's.  Every call is made
+    twice for identical bits, and one (Llama's flat body, B = 4 over
+    MAX_LEN at DECODE_POS, 4 ranks) 400 times.  Returns the largest
+    relative error, the cases and the repeated calls."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import attn_fused as k12
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+    from smoothquant_tpu_torch.models.common import rotary_cos_sin
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 48)
+    fns = {"flat": k12.fused_virtual_attn_flat, "stacked": k12.fused_virtual_attn_stacked,
+           "write": k12.fused_rope_write_attn_stacked}
+
+    def case(b, h, n_kv, s, d, pos, flat):
+        shape = (1, b, n_kv, s, d)
+        cache = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        cache += [torch.rand(shape[:4], generator=gen, device=dev) * 0.02 + 0.005
+                  for _ in range(2)]
+        new = [torch.randn((b, n_kv, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(2)]
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        if flat:
+            q = q.reshape(b, 1, h * d)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        # one rotary row for every slot, as the aligned decode passes them;
+        # at S = 640 a row a slot (the kernels' other table stride)
+        rows = torch.arange(b if s == 640 else 1, device=dev).reshape(-1, 1)
+        cos, sin = rotary_cos_sin(p.long() + rows, d)
+        return (0, p, q, *new, cos, sin), cache
+
+    worst, n_cases, repeats = 0.0, 0, 0
+    for s in (128, 640, 1024):
+        for d in (64, 128):
+            for body, rep in (("flat", 1), ("stacked", 1), ("stacked", 2), ("stacked", 4),
+                              ("stacked", 8), ("write", 1), ("write", 4)):
+                n_kv = 2 if rep == 8 else 4
+                for pos in (0, 9, s - 1):
+                    head, cache = case(2, n_kv * rep, n_kv, s, d, pos, body == "flat")
+                    ref_c = [t.clone() for t in cache]
+                    ref = k12.fused_attn_plain(*head, *ref_c, flat=body == "flat",
+                                               write_cache=body == "write")
+                    for c in k11.SPLITS:
+                        if not k11._split_fits(s, c):
+                            continue
+                        name = f"K12 edge {body} S={s} D={d} rep={rep} pos={pos} ranks={c}"
+                        got_c, again_c = [t.clone() for t in cache], [t.clone() for t in cache]
+                        got = fns[body](*head, *got_c, split=c)
+                        again = fns[body](*head, *again_c, split=c)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(got, again) and all(
+                                torch.equal(x, y) for x, y in zip(got_c, again_c))):
+                            raise AssertionError(f"{name}: two calls gave different bits")
+                        if not all(torch.equal(x, y) for x, y in zip(got_c, ref_c)):
+                            raise AssertionError(f"{name}: the cache differs from the plain "
+                                                 "version's")
+                        err = _close(name, got, ref, 1e-2)
+                        worst = max(worst, err / ref.float().abs().max().item())
+                        n_cases += 1
+                        repeats += 2
+    head, cache = case(MAX_BATCH, 32, 32, MAX_LEN, 128, DECODE_POS, True)
+    first = k12.fused_virtual_attn_flat(*head, *cache, split=4)
+    for _ in range(399):
+        if not torch.equal(k12.fused_virtual_attn_flat(*head, *cache, split=4), first):
+            raise AssertionError("K12 split body: 400 calls did not give identical bits")
+    repeats += 400
+    return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats}
+
+
 def check_k15b_edges(dev):
     """K15b's bodies against the plain version, bit for bit, at K = 64, 128,
     256 and 512 (and 1024 for PV): QKᵀ-shaped products (b (N, K)) at ragged
@@ -2218,6 +2395,10 @@ def k6_host_us(dev):
     return out
 
 
+# split_decode.cuh's modes (its MODE template), by the kernel each serves
+SPLIT_MODES = ("K11 split", "K3 split", "K12 stacked", "K12 flat", "K12 write")
+
+
 def sass_check():
     """What the build made of the wgmma bodies and of the stream body K8 and
     K5 share: per kernel, the IGMMA / HGMMA instructions of its main loop
@@ -2228,10 +2409,11 @@ def sass_check():
     and 128-bit global loads (LDG.E.128).  Fails unless each K6 body issues
     IGMMA and has no I2F, each K9 body issues HGMMA, and each stream kernel
     has no I2F and loads by TMA (spills and serialization notes are
-    reported, not held); and unless each of K11's split kernels has no I2F
-    (its int8 bytes and ALiBi positions convert by the exact f32 add) and
-    copies by bulk copies (UBLKCP), and K15b's qk body has no I2F (its
-    accumulators convert by the same add)."""
+    reported, not held); and unless each split kernel of K11, K3 and K12
+    has no I2F (int8 bytes and ALiBi positions convert by the exact f32 add)
+    and copies its rows by bulk copies (UBLKCP; K3's by TMA boxes, UTMALDG),
+    and K15b's qk body has no I2F (its accumulators convert by the same
+    add)."""
     import os
     import re
     import shutil
@@ -2245,13 +2427,17 @@ def sass_check():
     out, stream, attn = {}, {}, {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
-        m = re.search(r"split_decode_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)", name)
+        m = re.search(r"split_decode_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)ELb\dELi(\d)E",
+                      name)
         if m or "qk_tile_kernel" in name:
-            ops = {op: len(re.findall(r"\b" + op + r"\b", fn)) for op in ("I2F", "UBLKCP", "IMMA")}
-            if ops["I2F"] or (m and not ops["UBLKCP"]) or (not m and not ops["IMMA"]):
+            ops = {op: len(re.findall(r"\b" + op + r"\b", fn))
+                   for op in ("I2F", "UBLKCP", "UTMALDG", "IMMA")}
+            # K3's rows come as TMA boxes, every other mode's by bulk copies
+            rows_op = "UTMALDG" if m and m.group(4) == "1" else "UBLKCP"
+            if ops["I2F"] or (m and not ops[rows_op]) or (not m and not ops["IMMA"]):
                 raise AssertionError(f"{name}: SASS {ops}")
-            key = (f"K11 split {'int8' if m.group(1) == 'a' else 'bf16'} D={m.group(2)} "
-                   f"rep={m.group(3)}" if m else "K15b qk")
+            key = (f"{SPLIT_MODES[int(m.group(4))]} {'int8' if m.group(1) == 'a' else 'bf16'} "
+                   f"D={m.group(2)} rep={m.group(3)}" if m else "K15b qk")
             attn[key] = ops
             continue
         m = re.search(r"stream_gmm_kernelILb(\d)ELi(\d+)ELi(\d+)", name)
@@ -2287,9 +2473,9 @@ def sass_check():
                             r"\w{0,40}", ln).group(0)] = [
                 int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None]
     serialized = sum(1 for ln in log if "serialized" in ln)
-    if not out or not stream or len(attn) != 17:
-        raise AssertionError("the build holds no wgmma body, no stream body or not K11's 16 "
-                             "split kernels and K15b's qk body")
+    if not out or not stream or len(attn) != 43:
+        raise AssertionError("the build holds no wgmma body, no stream body or not the 42 "
+                             "split kernels (K11 16, K3 8, K12 18) and K15b's qk body")
     return {"sass": out, "stream_sass": stream, "attn_sass": attn, "registers_spills": notes,
             "ptxas_serialized_notes": serialized}
 
@@ -2311,11 +2497,14 @@ def check_no_fallback(dev):
     """On CUDA tensors a wrapper launches its kernel or raises: shapes and
     options the kernels do not take raise instead of running a plain
     version.  K11's ALiBi body and K4's raw-x mode run (their phases);
-    what they still refuse, and int8_dots (K11, K12), raises here."""
+    what they still refuse, and int8_dots (K11, K12), raises here, as does
+    each shape the split bodies of K11, K3 and K12 refuse when forced on
+    them."""
     import torch
 
     from smoothquant_tpu_torch.kernels import act_prep as k7
     from smoothquant_tpu_torch.kernels import attn_fused as k12
+    from smoothquant_tpu_torch.kernels import attn_smajor as k3
     from smoothquant_tpu_torch.kernels import cache_write as k10
     from smoothquant_tpu_torch.kernels import decode_attention as k11
     from smoothquant_tpu_torch.kernels import fp_matmul as k13
@@ -2330,7 +2519,12 @@ def check_no_fallback(dev):
     z8 = torch.zeros((64, 64), dtype=torch.int8, device=dev)
     w4 = torch.zeros((1, 128, 256), dtype=torch.int8, device=dev)      # K = 256
     f32 = lambda *shape: torch.zeros(shape, device=dev)
+    bf = lambda *shape: torch.zeros(shape, device=dev, dtype=torch.bfloat16)
     kv = (f32(2, 4, 64),) * 2 + (f32(2, 1, 64),) * 2
+    kv_bf = (bf(2, 4, 64),) * 2 + (f32(2, 1, 64),) * 2
+    hm8 = (torch.zeros((1, 2, 4, 128, 64), dtype=torch.int8, device=dev),) * 2
+    sm8 = lambda s, d: (torch.zeros((1, 1, s, 4 * d), dtype=torch.int8, device=dev),) * 2
+    sm_sc = lambda s: (f32(1, 1, 4, s),) * 2
     one = torch.ones((64, 1), device=dev)
     no_sal = (torch.zeros((64, 0), device=dev), torch.zeros((0, 64), device=dev))
     cases = {  # name: (call, the exception it must raise)
@@ -2366,6 +2560,25 @@ def check_no_fallback(dev):
             0, torch.zeros((1, 4, 256), device=dev, dtype=torch.bfloat16),
             *(torch.zeros((1, 1, 4, 128, 256), device=dev, dtype=torch.bfloat16),) * 2,
             torch.zeros((1, 128), device=dev), body="split"), ValueError),
+        "K3 split body for f32 queries": (lambda: k3.decode_attention_smajor_stacked(
+            0, f32(1, 4, 64), *sm8(128, 64), f32(1, 128), *sm_sc(128), body="split"),
+            ValueError),
+        "K3 split body at D = 256": (lambda: k3.decode_attention_smajor_stacked(
+            0, bf(1, 4, 256), *sm8(128, 256), f32(1, 128), *sm_sc(128), body="split"),
+            ValueError),
+        "K3 split body in 16 ranks": (lambda: k3.decode_attention_smajor_stacked(
+            0, bf(1, 4, 64), *sm8(512, 64), f32(1, 512), *sm_sc(512), split=16), ValueError),
+        "K3 S = 100": (lambda: k3.decode_attention_smajor_stacked(
+            0, bf(1, 4, 64), *sm8(100, 64), f32(1, 100), *sm_sc(100)), ValueError),
+        "K12 split body for f32 queries": (lambda: k12.fused_virtual_attn_stacked(
+            0, 5, f32(2, 4, 64), *kv, *hm8, f32(1, 2, 4, 128), f32(1, 2, 4, 128),
+            body="split"), ValueError),
+        "K12 split body in 16 ranks": (lambda: k12.fused_virtual_attn_stacked(
+            0, 5, bf(2, 4, 64), *kv_bf, *hm8, f32(1, 2, 4, 128), f32(1, 2, 4, 128), split=16),
+            ValueError),
+        "K12 flat body over GQA": (lambda: k12.fused_virtual_attn_flat(
+            0, 5, bf(2, 1, 8 * 64), *kv_bf, *hm8, f32(1, 2, 4, 128), f32(1, 2, 4, 128)),
+            ValueError),
         "K12 int8_dots": (lambda: k12.fused_virtual_attn_stacked(
             0, 5, f32(2, 4, 64), *kv, *(torch.zeros((1, 2, 4, 128, 64), dtype=torch.int8,
                                                    device=dev),) * 2,
@@ -2392,6 +2605,10 @@ def check_no_fallback(dev):
             torch.zeros((1, 64, 2048), dtype=torch.int8, device=dev),
             torch.zeros((1, 2048, 64), dtype=torch.int8, device=dev), 1.0, b_kn=True,
             body="pv"), ValueError),
+        "K15b nk GEMV at K = 512": (lambda: k15.int8_bmm(
+            torch.zeros((1, 1, 512), dtype=torch.int8, device=dev),
+            torch.zeros((1, 64, 512), dtype=torch.int8, device=dev), 1.0, body="nk_gemv"),
+            ValueError),
         "K15b kn GEMV at 9 rows": (lambda: k15.int8_bmm(
             z8[None, :9], z8[None], 1.0, b_kn=True, body="kn_gemv"), ValueError),
         "K15b kn GEMV in 16 ranks": (lambda: k15.int8_bmm(
@@ -4024,6 +4241,9 @@ def rms_norm_rule_cost(h, cfg, dev):
 BODY_COUNTERS = {"decode_attention_stacked": {"alibi": "decode_attention_stacked_alibi",
                                               "flash": "decode_attention_stacked_flash",
                                               "flash_alibi": "decode_attention_stacked_flash_alibi"},
+                 "decode_attention_smajor_stacked": {
+                     "flash": "decode_attention_smajor_stacked_flash"},
+                 "fused_attn": {"flash": "fused_attn_flash"},
                  "int8_bmm": {"qk": "int8_bmm_qk", "pv": "int8_bmm_pv",
                               "kn_gemv": "int8_bmm_kn", "nk_gemv": "int8_bmm_nk"},
                  "int8_prefill_matmul": {"raw_x": "int8_prefill_matmul_rawx"}}
@@ -4110,6 +4330,8 @@ def run(dev, cfg, card: str):
     emit({"phase": "wg_edges", "max_rel_err": check_wg_edges(dev)})
     emit({"phase": "stream_edges", **check_stream_edges(dev)})
     emit({"phase": "k11_edges", **check_k11_edges(dev)})
+    emit({"phase": "k3_edges", **check_k3_edges(dev)})
+    emit({"phase": "k12_edges", **check_k12_edges(dev)})
     emit({"phase": "k1_vs_k5", "card": card, "rawx_max_n": RAWX_MAX_N,
           **k1_vs_k5(stacked, dev, gen)})
     emit({"phase": "k6_host_us", "card": card, "us_per_call": k6_host_us(dev)})

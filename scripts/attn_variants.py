@@ -1,31 +1,36 @@
-"""Time variants of K11's split-S body (csrc/split_decode.cuh) and of K15b's
-attention bodies (csrc/int8.cu) against the committed ones, on one H100:
-each variant is the committed csrc/ with a few edits to one file, built
-into its own library beside the committed one (as scripts/stream_variants.py
-does for the stream body).
+"""Time variants of the split-S body (csrc/split_decode.cuh: K11, K3, K12)
+and of K15b's attention bodies (csrc/int8.cu) against the committed ones, on
+one H100: each variant is the committed csrc/ with a few edits to one file,
+built into its own library beside the committed one (as
+scripts/stream_variants.py does for the stream body).
 
     python3 scripts/attn_variants.py [names ...]   # from the repo root, one card
-    python3 scripts/attn_variants.py --splits      # K11's split body at each cluster size
+    python3 scripts/attn_variants.py --splits      # the split bodies at each cluster size
 
 Variants are of two kinds.  Ablations ("abl_*") take a piece of the work
 out, so the output is wrong by design and is not checked: their readings
 say what that piece costs at each shape.  Designs are held against the
-plain version (K11: 1e-2 of the largest output, chip_smoke's tolerance;
-K15b: bit for bit) and timed only where they hold.
+plain version (K11, K3, K12: 1e-2 of the largest output, chip_smoke's
+tolerance; K15b: bit for bit) and timed only where they hold.
 
-K11: abl_loads_only (the ring fills and drains, no scores, no p·v),
-abl_math_only (no row is loaded or waited for), abl_no_exchange (each rank
-takes its own tile maxima: no remote stores and no cluster barrier before
-the softmax), abl_no_stage_bound (every row of the chunk is copied, not
-only [lo, hi]); rows64 (64-position stages), slots8 / slots4 (ring
-depth), warps8_rows64 (8 warps, 64-position stages).  K15b:
+The split body (every mode, so K11, K3 and K12 alike): abl_loads_only (the
+ring fills and drains, no scores, no p·v), abl_math_only (no row is loaded
+or waited for), abl_no_exchange (each rank takes its own tile maxima: no
+remote stores and no cluster barrier before the softmax),
+abl_no_stage_bound (every row of the chunk is copied, not only the stages
+of [lo, hi]); rows64 (64-position stages), slots8 / slots4 (ring depth),
+warps8_rows64 (8 warps, 64-position stages).  K3's S-major copy schemes:
+k3_row_copies (one 1-D bulk copy of D bytes a row, only the rows of [lo,
+hi], in place of one 2-D TMA box a stage), k3_l2_256 / k3_l2_none (the
+boxes' L2 promotion, 256 bytes or none, in place of 128).  K15b:
 abl_qk_direct_store (the qk body's f32 tile written from the mma
 fragments, not staged), abl_qk_no_store (nothing written), qk_one_block
 (one persistent CTA an SM), qk_grid (one CTA a tile, no persistence),
 qk_plain_stores (write-back stores, not streaming ones), pv_stages3 /
-pv_stages6 (the pv body's ring depth), pv_tile_a_cta (one M tile a CTA).  The flash body (K11) and K15a's kernels (K15b's old bodies) are
-timed beside the committed bodies in every pass; `--splits` also times
-the kn GEMV at each rank count.
+pv_stages6 (the pv body's ring depth), pv_tile_a_cta (one M tile a CTA).
+The flash bodies (K11, K3, K12) and K15a's kernels (K15b's old bodies) are
+timed beside the committed bodies in every pass; `--splits` also times the
+kn GEMV at each rank count.
 
 Each reading is the device ms of one call (chip_smoke.device_ms), each call
 on the next of two layers / four operand sets (cold in L2), taken base,
@@ -43,20 +48,22 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-K11_SRC, K15_SRC = "split_decode.cuh", "int8.cu"
+K11_SRC, K3_SRC, K15_SRC = "split_decode.cuh", "attn_smajor.cu", "int8.cu"
+# the cases each source's variants are read at
+CASES_BY_SRC = {K11_SRC: ("k11", "k3", "k12"), K3_SRC: ("k3",), K15_SRC: ("k15",)}
 
-_SCORE_LIVE = ("      const bool live = i >= lo && i <= hi && bias_s[i] > FLASH_SKIP_AT;\n"
-               "      float kv[EPL];")
-_PV_LIVE = "      if (i >= lo && i <= hi && bias_s[i] > FLASH_SKIP_AT) {\n        float vv[EPL];"
+_SCORE_LIVE = "      const bool on = live(i);\n      float kv[EPL];"
+_PV_LIVE = "      if (live(i)) {\n        float vv[EPL];"
 _WAIT = "    mbar_wait(bar0 + 8 * (slot + 1), (g >> SD_LOG_SLOTS) & 1);\n"
 _QK_EPI = """          *reinterpret_cast<float2*>(stage + r * QK_LD + c) =
               make_float2(__fmul_rn(f0, p.alpha), __fmul_rn(f1, p.alpha));"""
+_L2_128 = "CU_TENSOR_MAP_L2_PROMOTION_L2_128B"   # K3's boxes' L2 promotion
 _QK_STORE = "    for (int r = warp; r < BM && m0 + r < p.M; r += THREADS / 32) {"
 
 VARIANTS = {
     # the ring alone: stages land and are freed, nothing is computed from them
     "abl_loads_only": (K11_SRC, [
-        (_SCORE_LIVE, "      const bool live = false;\n      float kv[EPL];"),
+        (_SCORE_LIVE, "      const bool on = false;\n      float kv[EPL];"),
         (_PV_LIVE, "      if (false) {\n        float vv[EPL];")]),
     # the math alone: nothing is copied and nothing waited for
     "abl_math_only": (K11_SRC, [
@@ -88,6 +95,20 @@ VARIANTS = {
                          ("constexpr int SD_LOG_SLOTS = 1;", "constexpr int SD_LOG_SLOTS = 3;")]),
     "slots4": (K11_SRC, [("constexpr int SD_SLOTS = 2; ", "constexpr int SD_SLOTS = 4; "),
                          ("constexpr int SD_LOG_SLOTS = 1;", "constexpr int SD_LOG_SLOTS = 2;")]),
+    # K3: one bulk copy a row of [lo, hi] (D bytes, rows H_kv·D apart), no tensor map
+    "k3_row_copies": (K11_SRC, [(
+        "      mbar_expect_tx(bar, STAGE);\n"
+        "      tma_2d(smem_u32(ring + slot * STAGE), is_k ? maps.k : maps.v, bar, kvh * ROWB,\n"
+        "             b * a.S + c0 + j * SD_ROWS);",
+        "      const int r0 = max(j * SD_ROWS, lo), r1 = min((j + 1) * SD_ROWS, hi + 1);\n"
+        "      mbar_expect_tx(bar, (r1 - r0) * ROWB);\n"
+        "      const unsigned char* src = static_cast<const unsigned char*>(is_k ? a.k : a.v) +\n"
+        "          ((size_t)b * a.S + c0) * a.Hkv * ROWB + (size_t)kvh * ROWB;\n"
+        "      for (int r = r0; r < r1; ++r)\n"
+        "        cl_bulk_g2s(smem_u32(ring + slot * STAGE + (r - j * SD_ROWS) * ROWB),\n"
+        "                    src + (size_t)r * a.Hkv * ROWB, ROWB, bar);")]),
+    "k3_l2_256": (K3_SRC, [(_L2_128, "CU_TENSOR_MAP_L2_PROMOTION_L2_256B", 2)]),
+    "k3_l2_none": (K3_SRC, [(_L2_128, "CU_TENSOR_MAP_L2_PROMOTION_NONE", 2)]),
     # the f32 tile written from the fragments (8-byte stores, 8 rows a warp store)
     "abl_qk_direct_store": (K15_SRC, [
         (_QK_EPI, "          int z_, m0_, n0_;\n          qk_coords(p, t, z_, m0_, n0_);\n"
@@ -153,8 +174,9 @@ def build(name):
 
 
 def _k11_case(dev, gen, b, s, quant, pos, alibi):
-    """(args(i), plain output of args(0)) of one K11 shape: Llama-2-7B's /
-    BLOOM-7b1's 32 heads of 128 over a two-layer stacked cache."""
+    """(call(i, body, split), plain output of call 0, the planned ranks) of
+    one K11 shape: Llama-2-7B's / BLOOM-7b1's 32 heads of 128 over a
+    two-layer stacked cache."""
     import torch
 
     from smoothquant_tpu_torch.kernels import decode_attention as k11
@@ -175,7 +197,9 @@ def _k11_case(dev, gen, b, s, quant, pos, alibi):
     bias = decode_bias(torch.as_tensor(pos, device=dev), b, s, None)
     slopes = torch.as_tensor(bloom.alibi_slopes(h), device=dev) if alibi else None
     args = lambda i: (i % n_l, q, *kv[:2], bias, *kv[2:], slopes)
-    return args, k11.decode_attention_stacked_plain(*args(0))
+    call = lambda i, body=None, split=None: k11.decode_attention_stacked(
+        *args(i), body=body, split=split)
+    return call, k11.decode_attention_stacked_plain(*args(0)), k11.split_ranks(b * h, s)
 
 
 def k11_cases(dev):
@@ -202,6 +226,75 @@ def k11_cases(dev):
     return out
 
 
+def k3_cases(dev):
+    """The K3 rows of chip_smoke (Llama-2-7B's 32 heads of 128 over a
+    two-layer S-major cache): B = 4 ragged (positions 100/300/511/50), B =
+    64 from position 448, B = 4 over 1024 positions."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import attn_smajor as k3
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+    from smoothquant_tpu_torch.models.common import decode_bias
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h, d, n_l = 32, 128, 2
+    out = {}
+    for name, b, s, pos in (("ragged@B4", 4, 512, [100, 300, 511, 50]),
+                            ("new_row@B64", 64, 512, [448] * 64),
+                            ("ragged@S1024", 4, 1024, [100, 700, 1023, 50])):
+        shape = (n_l, b, s, h * d)
+        kv = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+              for _ in range(2)]
+        sc = [torch.rand((n_l, b, h, s), generator=gen, device=dev) * 0.02 + 0.005
+              for _ in range(2)]
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        bias = decode_bias(torch.tensor(pos, device=dev), b, s, None)
+        args = lambda i, q=q, kv=kv, sc=sc, bias=bias: (i % n_l, q, *kv, bias, *sc)
+        call = lambda i, body=None, split=None, args=args: k3.decode_attention_smajor_stacked(
+            *args(i), body=body, split=split)
+        out[name] = (call, k3.decode_attention_smajor_plain(*args(0)), k11.split_ranks(b * h, s))
+    return out
+
+
+def k12_cases(dev):
+    """The K12 rows of chip_smoke (Llama-2-7B's 32 heads of 128 over a
+    two-layer head-major int8 cache of 512 at position 448): the flat body
+    at B = 4 and 64, the write body at B = 4, the stacked body at B = 4 over
+    8 kv heads (rep 4)."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import attn_fused as k12
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+    from smoothquant_tpu_torch.models.common import rotary_cos_sin
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h, d, s, n_l = 32, 128, 512, 2
+    pos = torch.tensor(448, dtype=torch.int32, device=dev)
+    cos, sin = rotary_cos_sin(pos.long().reshape(1, 1), d)
+    fns = {"flat": k12.fused_virtual_attn_flat, "stacked": k12.fused_virtual_attn_stacked,
+           "write": k12.fused_rope_write_attn_stacked}
+    out = {}
+    for name, body, b, n_kv in (("flat@B4", "flat", 4, 32), ("write@B4", "write", 4, 32),
+                                ("gqa@B4", "stacked", 4, 8), ("flat@B64", "flat", 64, 32)):
+        shape = (n_l, b, n_kv, s, d)
+        cache = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        cache += [torch.rand(shape[:4], generator=gen, device=dev) * 0.02 + 0.005
+                  for _ in range(2)]
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        if body == "flat":
+            q = q.reshape(b, 1, h * d)
+        new = [torch.randn((b, n_kv, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(2)]
+        args = lambda i, q=q, new=new, cache=cache: (i % n_l, pos, q, *new, cos, sin, *cache)
+        ref = k12.fused_attn_plain(*args(0)[:7], *[t.clone() for t in cache],
+                                   flat=body == "flat", write_cache=body == "write")
+        call = lambda i, body_=None, split=None, fn=fns[body], args=args: fn(
+            *args(i), body=body_, split=split)
+        out[name] = (call, ref, k11.split_ranks(b * n_kv, s))
+    return out
+
+
 def k15_cases(dev):
     """K15b's four sites of chip_smoke (OPT-1.3B: 4 × 32 heads of 64): QKᵀ
     and PV at the 512-token prefill and at one query over 1024 positions."""
@@ -221,8 +314,18 @@ def k15_cases(dev):
         b = [i8(*sb) for _ in range(n_buf)]
         kw = dict(out_dtype=dt, b_kn=b_kn)
         args = lambda i, a=a, b=b: (a[i % n_buf], b[i % n_buf], 0.0123)
-        out[name] = (args, kw, k15.int8_bmm_plain(*args(0), **kw))
+        call = lambda i, body=None, split=None, args=args, kw=kw: k15.int8_bmm(
+            *args(i), **kw, body=body, ranks=split)
+        out[name] = (call, k15.int8_bmm_plain(*args(0), **kw), None)
     return out
+
+
+def _old_body(kind, case):
+    """The body each kind's committed one replaced, timed beside it in the
+    base pass: the flash bodies, K15a's kernels."""
+    if kind != "k15":
+        return "flash"
+    return "gemv" if case.endswith("decode") else "tiles"
 
 
 def readings(dev, names):
@@ -232,71 +335,58 @@ def readings(dev, names):
 
     import chip_smoke as cs
     from smoothquant_tpu_torch.kernels import _build
-    from smoothquant_tpu_torch.kernels import decode_attention as k11
-    from smoothquant_tpu_torch.kernels import int8 as k15
 
-    k11c, k15c = k11_cases(dev), k15_cases(dev)
+    cases = {"k11": k11_cases(dev), "k3": k3_cases(dev), "k12": k12_cases(dev),
+             "k15": k15_cases(dev)}
     out = {}
     for name, lib in names:
         _build._lib = lib
-        kind = VARIANTS[name][0] if name in VARIANTS else None
-        for case, (args, ref) in k11c.items():
-            if kind == K15_SRC:
-                continue
-            for body in ("split",) + (("flash",) if name == "base" else ()):
-                r = out.setdefault((name if body == "split" else "flash", case),
-                                   {"err": None, "ms": []})
-                fn = lambda i, body=body: k11.decode_attention_stacked(*args(i), body=body)
-                got = fn(0)
-                torch.cuda.synchronize()
-                r["err"] = ((got.float() - ref.float()).abs().max()
-                            / ref.float().abs().max()).item()
-                held = name.startswith("abl_") or r["err"] <= 1e-2
-                r["ms"].append(cs.device_ms(fn, 8) if held else None)
-        for case, (args, kw, ref) in k15c.items():
-            if kind == K11_SRC:
-                continue
-            old = "gemv" if case.endswith("decode") else "tiles"
-            for body in (None,) + ((old,) if name == "base" else ()):
-                r = out.setdefault((name if body is None else f"k15a_{old}", case),
-                                   {"err": None, "ms": []})
-                fn = lambda i, body=body: k15.int8_bmm(*args(i), **kw, body=body)
-                got = fn(0)
-                torch.cuda.synchronize()
-                r["err"] = int((got != ref).sum())
-                held = name.startswith("abl_") or r["err"] == 0
-                r["ms"].append(cs.device_ms(fn, 8) if held else None)
+        kinds = CASES_BY_SRC[VARIANTS[name][0]] if name in VARIANTS else tuple(cases)
+        for kind in kinds:
+            for case, (call, ref, _) in cases[kind].items():
+                old = _old_body(kind, case)
+                for body in (None,) + ((old,) if name == "base" else ()):
+                    label = name if body is None else ("k15a_" + old if kind == "k15" else old)
+                    r = out.setdefault((label, f"{kind} {case}"), {"err": None, "ms": []})
+                    fn = lambda i, body=body, call=call: call(i, body)
+                    got = fn(0)
+                    torch.cuda.synchronize()
+                    if kind == "k15":
+                        r["err"] = int((got != ref).sum())
+                        held = r["err"] == 0
+                    else:
+                        r["err"] = ((got.float() - ref.float()).abs().max()
+                                    / ref.float().abs().max()).item()
+                        held = r["err"] <= 1e-2
+                    r["ms"].append(cs.device_ms(fn, 8)
+                                   if held or name.startswith("abl_") else None)
     return out
 
 
 def splits(dev) -> None:
-    """K11's split body at every cluster size of SPLITS for each case,
-    beside the size split_ranks plans; the kn GEMV (PV of one query) at
-    every rank count of KN_SPLITS, beside the count kn_ranks plans."""
+    """The split bodies of K11, K3 and K12 at every cluster size of SPLITS
+    for each case, beside the size split_ranks plans; the kn GEMV (PV of one
+    query) at every rank count of KN_SPLITS, beside the count kn_ranks
+    plans."""
     import chip_smoke as cs
     from smoothquant_tpu_torch.kernels import decode_attention as k11
     from smoothquant_tpu_torch.kernels import int8 as k15
 
-    args, kw, _ = k15_cases(dev)["pv@decode"]
-    a, b = args(0)[:2]
-    out = {}
-    for c in k15.KN_SPLITS:
-        out[c] = cs.device_ms(lambda i: k15.int8_bmm(*args(i), **kw, body="kn_gemv", ranks=c), 8)
-    print(json.dumps({"case": "pv@decode", "planned": k15.kn_ranks(a.shape[0], b.shape[2],
-                                                                   b.shape[1]),
+    call = k15_cases(dev)["pv@decode"][0]
+    out = {c: cs.device_ms(lambda i: call(i, "kn_gemv", c), 8) for c in k15.KN_SPLITS}
+    print(json.dumps({"case": "k15 pv@decode", "planned": k15.kn_ranks(128, 64, 1024),
                       "ms_by_ranks": out}), flush=True)
-
-    for case, (args, ref) in k11_cases(dev).items():
-        q, k = args(0)[1], args(0)[2]
-        out = {}
-        for c in k11.SPLITS:
-            try:
-                out[c] = cs.device_ms(lambda i: k11.decode_attention_stacked(*args(i), split=c), 8)
-            except ValueError as e:
-                out[c] = str(e)[:80]
-        print(json.dumps({"case": case, "planned": k11.split_ranks(q.shape[0] * k.shape[2],
-                                                                   k.shape[3]),
-                          "ms_by_split": out}), flush=True)
+    for kind, cases in (("k11", k11_cases(dev)), ("k3", k3_cases(dev)),
+                        ("k12", k12_cases(dev))):
+        for case, (call, _, planned) in cases.items():
+            out = {}
+            for c in k11.SPLITS:
+                try:
+                    out[c] = cs.device_ms(lambda i: call(i, None, c), 8)
+                except ValueError as e:
+                    out[c] = str(e)[:80]
+            print(json.dumps({"case": f"{kind} {case}", "planned": planned,
+                              "ms_by_split": out}), flush=True)
 
 
 def main(argv) -> int:

@@ -52,7 +52,8 @@ _SIGNATURES = {
     "sq_norm_quantize_t": ([_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
     "sq_write_cache_hm": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),
     "sq_write_cache_smajor": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),
-    "sq_decode_attn_smajor": ([_P] * 7 + [_I] * 5 + [_F, _I, _P], _I),
+    "sq_decode_attn_smajor": ([_P] * 7 + [_I] * 6 + [_F, _I, _P], _I),
+    "sq_decode_attn_smajor_split": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
     "sq_int8_prefill": ([_P] * 7 + [_I] * 4 + [_I, _I, _P], _I),
     "sq_int8_prefill_rawx": ([_P] * 8 + [_I] * 4 + [_I, _I, _P], _I),
     "sq_decode_attn": ([_P] * 8 + [_I] * 6 + [_F, _I, _I, _P], _I),
@@ -62,7 +63,8 @@ _SIGNATURES = {
     "sq_int8_gemm": ([_P] * 4 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
     "sq_int8_bmm_attn": ([_P] * 3 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
     "sq_norm_quant": ([_P] * 4 + [_I] * 2 + [_F] * 2 + [_I] * 2 + [_P], _I),
-    "sq_fused_attn": ([_P] * 11 + [_I] * 9 + [_F, _I, _P], _I),
+    "sq_fused_attn": ([_P] * 11 + [_I] * 10 + [_F, _I, _P], _I),
+    "sq_fused_attn_split": ([_P] * 11 + [_I] * 11 + [_F, _P], _I),
     "sq_mlp_fused_workspace_bytes": ([_I] * 11, ctypes.c_longlong),
     "sq_mlp_fused_grid_blocks": ([_I] * 3, _I),
     "sq_mlp_fused": ([_P] * 10 + [_I] * 13 + [_F, _F, _I, _I, _P], _I),

@@ -25,10 +25,15 @@ K12 — port of smoothquant_tpu/kernels/attn_fused.py _fused_attn_call
 
 int8_dots (the opt-in int8 BMMs) is on no path of the port and raises; no
 caller sets another softmax scale than 1/√D.  CUDA source:
-csrc/attn_fused.cu (its phases shared with K11 through
-csrc/flash_decode.cuh).  A wrapper runs the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.  One launch
-counter, "fused_attn", counts all three bodies.
+csrc/attn_fused.cu, two designs picked as K11's are (decode_attention.plan):
+bf16 queries at D = 64 / 128 take the split-S cluster body
+(csrc/split_decode.cuh: each rank's row range known from the scalar
+position, the virtual row folded into every rank's slice of the outputs),
+f32 queries and D = 256 the flash body (csrc/flash_decode.cuh's phases).
+A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.  The split design counts its launches of all
+three bodies under "fused_attn", the flash design under "fused_attn_flash"
+(LAUNCH_KEYS).
 """
 
 from __future__ import annotations
@@ -42,13 +47,14 @@ from smoothquant_tpu_torch.kernels import _build
 from smoothquant_tpu_torch.kernels.attn_smajor import _rot_half, quantize_rows_int8
 from smoothquant_tpu_torch.kernels.decode_attention import (
     NEG_INF,
-    _MAX_REP,
-    _SMEM_LIMIT,
-    _WARPS,
     _pick_tile_s,
     online_softmax_tiles,
+    plan,
 )
 from smoothquant_tpu_torch.quant.core import fma_f32
+
+# K12's launch counter of each design
+LAUNCH_KEYS = {"split": "fused_attn", "flash": "fused_attn_flash"}
 
 
 def fused_attn_supported(s: int, n_heads: int, n_kv: int, head_dim: int) -> bool:
@@ -113,7 +119,7 @@ def fused_attn_plain(layer_idx: int, pos, q, k_new, v_new, cos, sin, k_q, v_q, k
 
 
 def _fused_attn(layer_idx, pos, q, k_new, v_new, cos, sin, k_q, v_q, k_scale, v_scale, *,
-                rotary, flat, write_cache, sm_scale, int8_dots):
+                rotary, flat, write_cache, sm_scale, int8_dots, body, split):
     if int8_dots:
         raise NotImplementedError("K12's int8_dots mode is not ported")
     if sm_scale is not None and sm_scale != 1.0 / math.sqrt(k_q.shape[-1]):
@@ -129,17 +135,12 @@ def _fused_attn(layer_idx, pos, q, k_new, v_new, cos, sin, k_q, v_q, k_scale, v_
     _, b, n_kv, s, d = k_q.shape
     h = q.shape[-1] // d if flat else q.shape[1]
     want_q = (b, 1, h * d) if flat else (b, h, d)
-    ts = _pick_tile_s(s)
-    if (tuple(q.shape) != want_q or tuple(k_new.shape) != (b, n_kv, d) or ts is None
-            or h % n_kv or h // n_kv > _MAX_REP or d not in (64, 128, 256)
+    if (tuple(q.shape) != want_q or tuple(k_new.shape) != (b, n_kv, d) or h % n_kv
             or (flat and h != n_kv)):
         raise ValueError(f"K12 does not take q {tuple(q.shape)}, k {tuple(k_new.shape)} over "
-                         f"cache {tuple(k_q.shape)} (S tileable by 128, GQA rep <= 8, D in "
-                         "64/128/256, the flat body MHA only)")
-    rep = h // n_kv
-    smem = (rep * s + _WARPS * rep * d + rep * (s // ts)) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"K12 score rows and partials need {smem} B of shared memory")
+                         f"cache {tuple(k_q.shape)} (the flat body MHA only)")
+    chosen, c = plan("K12", q.dtype, b * n_kv, s, d, h // n_kv, body, split)
+    ts = _pick_tile_s(s)
     for t, dt in ((k_q, torch.int8), (v_q, torch.int8),
                   (k_scale, torch.float32), (v_scale, torch.float32)):
         if t.dtype != dt:
@@ -155,47 +156,64 @@ def _fused_attn(layer_idx, pos, q, k_new, v_new, cos, sin, k_q, v_q, k_scale, v_
     pos32 = pos32.to(torch.int32).reshape(1).contiguous()
     if cos is None:
         cos = sin = torch.zeros((1, 1, d), device=q.device)
-    cos, sin = (t.contiguous() for t in _tables(cos, sin, b, d))
+    # (B or 1, D) rows, one row read by every slot (stride 0): no expanded copy
+    cos, sin = (t.float().reshape(-1, d).contiguous() for t in (cos, sin))
+    if cos.shape[0] not in (1, b) or sin.shape != cos.shape:
+        raise ValueError(f"rotary tables of {cos.shape[0]} rows for {b} slots")
+    tab_stride = 0 if cos.shape[0] == 1 else d
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     _build.check_operands(q.device, k_new=k_new, v_new=v_new, cos=cos, sin=sin, pos=pos32,
                           k_q=k_q, v_q=v_q, k_scale=k_scale, v_scale=v_scale)
     out = torch.empty_like(q)
-    _build.check(_build.lib().sq_fused_attn(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        pos32.data_ptr(), k_q[layer_idx].data_ptr(), v_q[layer_idx].data_ptr(),
-        k_scale[layer_idx].data_ptr(), v_scale[layer_idx].data_ptr(), out.data_ptr(),
-        b, h, n_kv, s, d, ts, int(rotary), int(flat), int(write_cache),
-        1.0 / math.sqrt(d), _build.dt_code(q), _build.stream_ptr(q)), "sq_fused_attn")
-    _build.LAUNCHES["fused_attn"] += 1
+    ptrs = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            pos32.data_ptr(), k_q[layer_idx].data_ptr(), v_q[layer_idx].data_ptr(),
+            k_scale[layer_idx].data_ptr(), v_scale[layer_idx].data_ptr(), out.data_ptr())
+    if chosen == "split":
+        _build.check(_build.lib().sq_fused_attn_split(
+            *ptrs, b, h, n_kv, s, d, ts, c.bit_length() - 1, int(rotary), tab_stride, int(flat),
+            int(write_cache), 1.0 / math.sqrt(d), _build.stream_ptr(q)), "sq_fused_attn_split")
+    else:
+        _build.check(_build.lib().sq_fused_attn(
+            *ptrs, b, h, n_kv, s, d, ts, int(rotary), tab_stride, int(flat), int(write_cache),
+            1.0 / math.sqrt(d), _build.dt_code(q), _build.stream_ptr(q)), "sq_fused_attn")
+    _build.LAUNCHES[LAUNCH_KEYS[chosen]] += 1
     return out
 
 
 def fused_virtual_attn_flat(layer_idx: int, pos, q2d, k_new, v_new, cos, sin, k_q, v_q,
                             k_scale, v_scale, *, sm_scale: Optional[float] = None,
-                            rotary: bool = True, int8_dots: bool = False) -> torch.Tensor:
+                            rotary: bool = True, int8_dots: bool = False,
+                            body: Optional[str] = None,
+                            split: Optional[int] = None) -> torch.Tensor:
     """(B, 1, H·D) attention of layer `layer_idx` from PRE-rotary flat q
     (MHA only) over the old cache and the new position; no cache write."""
     return _fused_attn(layer_idx, pos, q2d, k_new, v_new, cos, sin, k_q, v_q, k_scale,
                        v_scale, rotary=rotary, flat=True, write_cache=False,
-                       sm_scale=sm_scale, int8_dots=int8_dots)
+                       sm_scale=sm_scale, int8_dots=int8_dots, body=body,
+                       split=split)
 
 
 def fused_virtual_attn_stacked(layer_idx: int, pos, q, k_new, v_new, cos, sin, k_q, v_q,
                                k_scale, v_scale, *, sm_scale: Optional[float] = None,
-                               rotary: bool = True, int8_dots: bool = False) -> torch.Tensor:
+                               rotary: bool = True, int8_dots: bool = False,
+                               body: Optional[str] = None,
+                               split: Optional[int] = None) -> torch.Tensor:
     """(B, H, D) attention of layer `layer_idx` from rotated q over the old
     cache and the new position; no cache write (the caller runs K10 after)."""
     return _fused_attn(layer_idx, pos, q, k_new, v_new, cos, sin, k_q, v_q, k_scale,
                        v_scale, rotary=rotary, flat=False, write_cache=False,
-                       sm_scale=sm_scale, int8_dots=int8_dots)
+                       sm_scale=sm_scale, int8_dots=int8_dots, body=body,
+                       split=split)
 
 
 def fused_rope_write_attn_stacked(layer_idx: int, pos, q, k_new, v_new, cos, sin, k_q, v_q,
                                   k_scale, v_scale, *, sm_scale: Optional[float] = None,
-                                  rotary: bool = True,
-                                  int8_dots: bool = False) -> torch.Tensor:
+                                  rotary: bool = True, int8_dots: bool = False,
+                                  body: Optional[str] = None,
+                                  split: Optional[int] = None) -> torch.Tensor:
     """fused_virtual_attn_stacked that also writes the new row and its
     scale at pos, in place; returns the (B, H, D) attention."""
     return _fused_attn(layer_idx, pos, q, k_new, v_new, cos, sin, k_q, v_q, k_scale,
                        v_scale, rotary=rotary, flat=False, write_cache=True,
-                       sm_scale=sm_scale, int8_dots=int8_dots)
+                       sm_scale=sm_scale, int8_dots=int8_dots, body=body,
+                       split=split)

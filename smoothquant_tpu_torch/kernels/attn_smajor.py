@@ -8,8 +8,14 @@ K2  write_quant_cache_smajor — port of smoothquant_tpu/kernels/
     Unlike the JAX function (which returns new buffers through
     input_output_aliases) this one UPDATES THE CACHE TENSORS IN PLACE.
 K3  decode_attention_smajor_stacked — port of :169 (pallas_call :213).
-    scores = q·k·(1/√D)·k_scale + bias, f32 softmax, p·v_scale rounded
-    to bf16, PV, GQA; a fully masked row outputs 0.
+    scores = q·k·(1/√D)·k_scale + bias, the TPU kernel's online softmax
+    over tiles of _pick_tile_s(S) positions (p against the running max of
+    its tile), p·v_scale rounded to bf16 there, PV, GQA; a fully masked row
+    outputs 0.  Two bodies, picked as K11's are (decode_attention.plan):
+    bf16 queries at D = 64 / 128 take the split-S cluster body
+    (csrc/split_decode.cuh, its rows by 2-D TMA boxes), f32 queries and
+    D = 256 the flash body (csrc/flash_decode.cuh); each counts its
+    launches under its own key (LAUNCH_KEYS).
 
 Layout (as the JAX package): values (L, B, S, H_kv·D) int8, scales
 (L, B, H_kv, S) f32.  CUDA source: csrc/attn_smajor.cu.  A wrapper runs
@@ -19,13 +25,22 @@ kernel or raises.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from smoothquant_tpu_torch.kernels import _build
+from smoothquant_tpu_torch.kernels.decode_attention import (
+    _pick_tile_s,
+    online_softmax_tiles,
+    plan,
+)
 from smoothquant_tpu_torch.quant.core import f32_reciprocal
 
 NEG_INF = -1e30
-_ATTN_WARPS = 16   # warps per K3 block (csrc/attn_smajor.cu ATTN_WARPS)
+# K3's launch counter of each body
+LAUNCH_KEYS = {"split": "decode_attention_smajor_stacked",
+               "flash": "decode_attention_smajor_stacked_flash"}
 
 
 def quantize_rows_int8(x: torch.Tensor):
@@ -139,22 +154,16 @@ def write_quant_cache_smajor(
 
 def decode_attention_smajor_plain(layer_idx: int, q, k_sm, v_sm, bias,
                                   k_scale, v_scale):
-    """Plain PyTorch K3 (same arguments as the wrapper)."""
+    """Plain PyTorch K3 (same arguments as the wrapper): the TPU kernel's
+    online softmax over tiles of _pick_tile_s(S) positions, on the S-major
+    layer viewed head-major ((B, S, H_kv, D) → (B, H_kv, S, D))."""
     b, h, d = q.shape
     s, hd = k_sm.shape[2], k_sm.shape[3]
     n_kv = hd // d
-    rep = h // n_kv
-    sm_scale = 1.0 / (d ** 0.5)
-    k = k_sm[layer_idx].reshape(b, s, n_kv, d).float()   # int8 -> exact
-    v = v_sm[layer_idx].reshape(b, s, n_kv, d).float()
-    qf = q.float().reshape(b, n_kv, rep, d)
-    scores = torch.einsum("bgrd,bsgd->bgrs", qf, k) * sm_scale
-    scores = scores * k_scale[layer_idx][:, :, None, :] + bias[:, None, None, :]
-    m_safe = torch.clamp_min(scores.amax(dim=-1, keepdim=True), NEG_INF / 2)
-    p = torch.exp(scores - m_safe)
-    l_sum = p.sum(dim=-1, keepdim=True)
-    p = (p * v_scale[layer_idx][:, :, None, :]).to(torch.bfloat16).float()
-    acc = torch.einsum("bgrs,bsgd->bgrd", p, v)
+    head_major = lambda t: t[layer_idx].reshape(b, s, n_kv, d).transpose(1, 2)
+    qf = q.float().reshape(b, n_kv, h // n_kv, d)
+    _, l_sum, acc = online_softmax_tiles(qf, head_major(k_sm), head_major(v_sm), bias,
+                                         k_scale[layer_idx], v_scale[layer_idx])
     denom = torch.where(l_sum > 0.0, l_sum, torch.ones_like(l_sum))
     return (acc / denom).reshape(b, h, d).to(q.dtype)
 
@@ -167,9 +176,14 @@ def decode_attention_smajor_stacked(
     bias: torch.Tensor,       # (B, S) f32 additive mask
     k_scale: torch.Tensor,    # (L, B, H_kv, S) f32
     v_scale: torch.Tensor,
+    *,
+    body: Optional[str] = None,
+    split: Optional[int] = None,
 ) -> torch.Tensor:
     """(B, H, D) attention of layer `layer_idx` over the S-major cache,
-    softmax scale 1/sqrt(D)."""
+    softmax scale 1/sqrt(D).  `body` ("split" / "flash") and `split` (the
+    split body's ranks) override the shape rules for measurements; a forced
+    body or split raises on a shape it does not take."""
     if q.device.type == "cpu":
         return decode_attention_smajor_plain(layer_idx, q, k_sm, v_sm, bias,
                                              k_scale, v_scale)
@@ -178,12 +192,9 @@ def decode_attention_smajor_stacked(
     b, h, d = q.shape
     _, b2, s, hd = k_sm.shape
     n_kv = hd // d
-    if b2 != b or hd % d or h % n_kv or h // n_kv > 8 or d not in (64, 128, 256):
-        raise ValueError(f"K3 does not take q {tuple(q.shape)} over cache "
-                         f"{tuple(k_sm.shape)} (GQA rep <= 8, D in 64/128/256)")
-    smem = (h // n_kv) * (s + _ATTN_WARPS * d) * 4
-    if smem > 227 * 1024:
-        raise ValueError(f"K3 score rows and partials need {smem} B of shared memory")
+    if b2 != b or hd % d or h % n_kv or v_sm.shape != k_sm.shape:
+        raise ValueError(f"K3 does not take q {tuple(q.shape)} over cache {tuple(k_sm.shape)}")
+    chosen, c = plan("K3", q.dtype, b * n_kv, s, d, h // n_kv, body, split)
     _check_cache(q.device, k_sm, v_sm, k_scale, v_scale)
     q = q.contiguous()
     bias = bias.float().contiguous()
@@ -191,10 +202,17 @@ def decode_attention_smajor_stacked(
         raise ValueError(f"bias {tuple(bias.shape)} != {(b, s)}")
     _build.check_operands(q.device, bias=bias)
     out = torch.empty_like(q)
-    _build.check(_build.lib().sq_decode_attn_smajor(
-        q.data_ptr(), k_sm[layer_idx].data_ptr(), v_sm[layer_idx].data_ptr(),
-        k_scale[layer_idx].data_ptr(), v_scale[layer_idx].data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, h, n_kv, s, d, 1.0 / (d ** 0.5),
-        _build.dt_code(q), _build.stream_ptr(q)), "sq_decode_attn_smajor")
-    _build.LAUNCHES["decode_attention_smajor_stacked"] += 1
+    ptrs = (q.data_ptr(), k_sm[layer_idx].data_ptr(), v_sm[layer_idx].data_ptr(),
+            k_scale[layer_idx].data_ptr(), v_scale[layer_idx].data_ptr(),
+            bias.data_ptr(), out.data_ptr())
+    ts = _pick_tile_s(s)
+    if chosen == "split":
+        _build.check(_build.lib().sq_decode_attn_smajor_split(
+            *ptrs, b, h, n_kv, s, d, ts, c.bit_length() - 1, 1.0 / (d ** 0.5),
+            _build.stream_ptr(q)), "sq_decode_attn_smajor_split")
+    else:
+        _build.check(_build.lib().sq_decode_attn_smajor(
+            *ptrs, b, h, n_kv, s, d, ts, 1.0 / (d ** 0.5), _build.dt_code(q),
+            _build.stream_ptr(q)), "sq_decode_attn_smajor")
+    _build.LAUNCHES[LAUNCH_KEYS[chosen]] += 1
     return out

@@ -18,18 +18,33 @@
 // The output (B, H, D) has the flat body's (B, 1, H·D) memory layout too.
 //
 // Bound: as K11, the bytes of the cache positions below pos (and their
-// scales).  The design is K11's (flash_decode.cuh): one block of 16 warps
-// per (slot, kv head), the mask computed from the scalar position (no bias
-// tensor), the masked positions never loaded; then the virtual step, the
-// online softmax's m, α, l, acc as attn_fused.py:114-152 folds it in:
+// scales).  Two designs, picked by a Python shape rule (attn_fused.
+// fused_body):
+//   split  bf16 queries at head_dim 64 / 128 (sq_fused_attn_split):
+//          split_decode.cuh in modes SD_VIRT / SD_VIRT_FLAT / SD_VIRT_WRITE —
+//          S split over a cluster of 1-8 CTAs a (slot, kv head), each rank's
+//          row range [0, pos − c0) known from the scalar at once (no bias
+//          staged: only the k and v scales), the rows streamed through a
+//          ring of bulk copies, tile maxima exchanged and partials reduced in
+//          rank order through distributed shared memory, then the virtual
+//          step folded into every rank's slice of the outputs, and the write
+//          body's row written by the rank whose chunk holds it;
+//   flash  f32 queries and head_dim 256 (sq_fused_attn, this file's
+//          kernel): K11's old design (flash_decode.cuh), one block of 16
+//          warps per (slot, kv head), the mask computed from the scalar
+//          position (no bias tensor), the masked positions never loaded;
+//          then the virtual step, the online softmax's m, α, l, acc as
+//          attn_fused.py:114-152 folds it in:
 //   s_v = (q·k_new)·sm_scale·k_scale_new,  m' = max(m, s_v),
 //   m_safe = max(m', NEG_INF/2),  α = exp(m − m_safe),  p = exp(s_v − m_safe),
 //   l' = l·α + p,  acc' = acc·α + bf16(p·v_scale_new)·v_new,
-// and out = acc' / l'.  The write body writes its row after every read of
-// the block: no other block reads (slot, kv head)'s rows, and the row at pos
-// is masked for attention in any case (its probability would be exactly 0).
+// and out = acc' / l'.  The flash write body writes its row after every read
+// of the block: no other block reads (slot, kv head)'s rows, and the row at
+// pos is masked for attention in any case (its probability would be exactly
+// 0).
 #include "flash_decode.cuh"
 #include "kv_quant.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -40,7 +55,7 @@ fused_attn_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
                   const float* __restrict__ sin_t, const int* __restrict__ pos_p,
                   int8_t* __restrict__ kq, int8_t* __restrict__ vq, float* __restrict__ ks,
                   float* __restrict__ vs, TQ* __restrict__ out, int H, int Hkv, int S, int ts,
-                  int rotary, float sm_scale) {
+                  int rotary, int tab_stride, float sm_scale) {
   constexpr int D = 32 * DPL;
   extern __shared__ float smem[];
   const int rep = H / Hkv;
@@ -56,8 +71,8 @@ fused_attn_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t head = (size_t)b * Hkv + kvh;
   const int pos = *pos_p;
-  const float* cos_row = cos_t + (size_t)b * D;
-  const float* sin_row = sin_t + (size_t)b * D;
+  const float* cos_row = cos_t + (size_t)b * tab_stride;
+  const float* sin_row = sin_t + (size_t)b * tab_stride;
 
   // the new position: K10's rotary + quantize, into shared memory
   if (warp == 0)
@@ -85,8 +100,8 @@ fused_attn_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
     }
 
   auto bias_at = [pos](int s) { return s < pos ? 0.0f : FLASH_NEG_INF; };
-  flash_scores<int8_t, true, DPL>(qv, kq + head * S * D + lane * DPL, ks + head * S, bias_at,
-                                  sc, rep, S, sm_scale);
+  flash_scores<int8_t, true, DPL>(qv, kq + head * S * D + lane * DPL, D, ks + head * S,
+                                  bias_at, sc, rep, S, sm_scale);
   __syncthreads();
   flash_softmax<__nv_bfloat16, true>(sc, vs + head * S, alpha, m_run, l_run, rep, S, ts,
                                      scratch);
@@ -115,8 +130,8 @@ fused_attn_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
     }
   }
   __syncthreads();
-  flash_pv<int8_t, DPL>(sc, alpha, a_v, vq + head * S * D + lane * DPL, bias_at, part, rep, S,
-                        ts);
+  flash_pv<int8_t, DPL>(sc, alpha, a_v, vq + head * S * D + lane * DPL, D, bias_at, part, rep,
+                        S, ts);
   __syncthreads();
   for (int e = threadIdx.x; e < rep * D; e += blockDim.x) {
     const int r = e / D, d = e % D;
@@ -142,7 +157,7 @@ fused_attn_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
 struct FusedAttnArgs {
   const void *q, *k_new, *v_new, *cos_t, *sin_t, *pos;
   void *kq, *vq, *ks, *vs, *out;
-  int B, H, Hkv, S, ts, rotary;
+  int B, H, Hkv, S, ts, rotary, tab_stride;
   float sm_scale;
 };
 
@@ -158,7 +173,7 @@ int launch_fused(const FusedAttnArgs& a, cudaStream_t st) {
   kern<<<dim3(a.B, a.Hkv), FLASH_THREADS, smem, st>>>(
       (const TQ*)a.q, (const TQ*)a.k_new, (const TQ*)a.v_new, (const float*)a.cos_t,
       (const float*)a.sin_t, (const int*)a.pos, (int8_t*)a.kq, (int8_t*)a.vq, (float*)a.ks,
-      (float*)a.vs, (TQ*)a.out, a.H, a.Hkv, a.S, a.ts, a.rotary, a.sm_scale);
+      (float*)a.vs, (TQ*)a.out, a.H, a.Hkv, a.S, a.ts, a.rotary, a.tab_stride, a.sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -187,19 +202,52 @@ int by_body(int D, int flat, int write, const FusedAttnArgs& a, cudaStream_t st)
 
 // K12: one layer of virtual-tile attention; kq / vq / ks / vs point at the
 // layer's (B, H_kv, S, D) int8 rows and (B, H_kv, S) f32 scales, pos at its
-// int32 position; cos / sin (B, D) f32.  flat: q pre-rotary (MHA only);
+// int32 position; cos / sin f32 rotary tables, rows tab_stride apart (0: one
+// row for every slot).  flat: q pre-rotary (MHA only);
 // write: also write the row at pos (not with flat).  q_dt: 0 float32, 1
 // bfloat16 (q, k_new, v_new and out share it).
 SQ_EXPORT int sq_fused_attn(const void* q, const void* k_new, const void* v_new,
                             const void* cos_t, const void* sin_t, const void* pos, void* kq,
                             void* vq, void* ks, void* vs, void* out, int B, int H, int Hkv,
-                            int S, int D, int ts, int rotary, int flat, int write,
-                            float sm_scale, int q_dt, void* stream) {
+                            int S, int D, int ts, int rotary, int tab_stride, int flat,
+                            int write, float sm_scale, int q_dt, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (!flash_shape_ok(H, Hkv, S, ts) || D > 32 * KVQ_MAX_D_PER_LANE || (flat && (write || H != Hkv)))
     return (int)cudaErrorInvalidValue;
   const FusedAttnArgs a{q, k_new, v_new, cos_t, sin_t, pos, kq, vq, ks, vs, out,
-                        B, H, Hkv, S, ts, rotary, sm_scale};
+                        B, H, Hkv, S, ts, rotary, tab_stride, sm_scale};
   return q_dt == DT_BF16 ? by_body<__nv_bfloat16>(D, flat, write, a, st)
                          : by_body<float>(D, flat, write, a, st);
+}
+
+// K12's split body (split_decode.cuh): bf16 q, k_new, v_new and out, D 64 or
+// 128; the layer's head-major int8 rows and f32 scales, the tables and
+// tab_stride as sq_fused_attn; S split over (1 << lsplit) cluster ranks,
+// softmax tiles of ts positions; rotary off: cos / sin unread.
+SQ_EXPORT int sq_fused_attn_split(const void* q, const void* k_new, const void* v_new,
+                                  const void* cos_t, const void* sin_t, const void* pos, void* kq,
+                                  void* vq, void* ks, void* vs, void* out, int B, int H, int Hkv,
+                                  int S, int D, int ts, int lsplit, int rotary, int tab_stride,
+                                  int flat, int write, float sm_scale, void* stream) {
+  SdArgs a = {};
+  if (!sd_plan(a, B, H, Hkv, S, ts, lsplit) || (flat && (write || H != Hkv)))
+    return (int)cudaErrorInvalidValue;
+  a.q = (const __nv_bfloat16*)q;
+  a.k = kq;
+  a.v = vq;
+  a.ks = (const float*)ks;
+  a.vs = (const float*)vs;
+  a.pos = (const int*)pos;
+  a.k_new = (const __nv_bfloat16*)k_new;
+  a.v_new = (const __nv_bfloat16*)v_new;
+  a.cos = rotary ? (const float*)cos_t : nullptr;
+  a.sin = rotary ? (const float*)sin_t : nullptr;
+  a.tab_stride = tab_stride;
+  a.out = (__nv_bfloat16*)out;
+  a.sm_scale = sm_scale;
+  const SdMaps maps = {};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (flat) return sd_by_dim<int8_t, true, SD_VIRT_FLAT>(D, a, maps, B, st);
+  if (write) return sd_by_dim<int8_t, true, SD_VIRT_WRITE>(D, a, maps, B, st);
+  return sd_by_dim<int8_t, true, SD_VIRT>(D, a, maps, B, st);
 }

@@ -1,8 +1,11 @@
-// Single-query flash decode over one (slot, kv head) of a head-major
-// cache: the device code K11 (decode_attention.cu) and K12 (attn_fused.cu)
-// share.  One block of WARPS warps serves the rep = H / H_kv query heads of
-// its kv head, so every cache byte is read once; a lane holds DPL
-// consecutive elements of a row (a warp reads a row whole).  A position
+// Single-query flash decode over one (slot, kv head) of a cache: the device
+// code K11 (decode_attention.cu), K12 (attn_fused.cu) and K3 (attn_smajor.cu)
+// share, for the shapes their split-S bodies (split_decode.cuh) do not take.
+// One block of WARPS warps serves the rep = H / H_kv query heads of its kv
+// head, so every cache byte is read once; a lane holds DPL consecutive
+// elements of a row (a warp reads a row whole).  A head's rows lie `stride`
+// elements apart: D in a head-major cache (B, H_kv, S, D), H_kv·D in the
+// S-major one (B, S, H_kv·D).  A position
 // whose additive bias is at or below SKIP_AT is neither loaded nor
 // multiplied: its probability is exactly 0 either way.  The phases:
 //   flash_scores    scores = (q·k)·sm_scale [·k_scale] [+ slope·s] + bias in
@@ -55,16 +58,16 @@ __device__ __forceinline__ void load_vals(const TC* __restrict__ p, float (&f)[D
 }
 
 // Phase 1.  qv: the lane's slice of the rep query rows (f32 values of the
-// query dtype); k_base: the head's row 0 plus the lane's offset; bias(s):
+// query dtype); k_base: the head's row 0 plus the lane's offset, rows
+// `stride` elements apart; bias(s):
 // the additive bias of position s; sc: (rep, S) scores; with alibi, the
 // head's slope times the position is added before the bias (rep = 1).
 template <typename TC, bool QUANT, int DPL, typename Bias>
 __device__ __forceinline__ void flash_scores(const float (&qv)[FLASH_MAX_REP][DPL],
-                                             const TC* __restrict__ k_base,
+                                             const TC* __restrict__ k_base, size_t stride,
                                              const float* __restrict__ ks_row, Bias bias,
                                              float* sc, int rep, int S, float sm_scale,
                                              bool alibi = false, float slope = 0.0f) {
-  constexpr int D = 32 * DPL;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int s0 = warp; s0 < S; s0 += FLASH_WARPS * FLASH_UNROLL) {
     float kr[FLASH_UNROLL][DPL];
@@ -74,7 +77,7 @@ __device__ __forceinline__ void flash_scores(const float (&qv)[FLASH_MAX_REP][DP
       const int s = s0 + u * FLASH_WARPS;
       bs[u] = s < S ? bias(s) : FLASH_NEG_INF;
       if (bs[u] > FLASH_SKIP_AT) {
-        load_vals<TC, DPL>(k_base + (size_t)s * D, kr[u]);
+        load_vals<TC, DPL>(k_base + (size_t)s * stride, kr[u]);
       } else {
 #pragma unroll
         for (int t = 0; t < DPL; ++t) kr[u][t] = 0.0f;
@@ -146,7 +149,8 @@ __device__ __forceinline__ void flash_softmax(float* sc, const float* __restrict
 template <typename TC, int DPL, typename Bias>
 __device__ __forceinline__ void flash_pv(const float* sc, const float* alpha,
                                          const float* post, const TC* __restrict__ v_base,
-                                         Bias bias, float* part, int rep, int S, int ts) {
+                                         size_t stride, Bias bias, float* part, int rep, int S,
+                                         int ts) {
   constexpr int D = 32 * DPL;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_tiles = S / ts;
@@ -174,7 +178,7 @@ __device__ __forceinline__ void flash_pv(const float* sc, const float* alpha,
         const int s = s0 + u * FLASH_WARPS;
         live[u] = s < s_end && bias(s) > FLASH_SKIP_AT;
         if (live[u]) {
-          load_vals<TC, DPL>(v_base + (size_t)s * D, vr[u]);
+          load_vals<TC, DPL>(v_base + (size_t)s * stride, vr[u]);
         } else {
 #pragma unroll
           for (int d = 0; d < DPL; ++d) vr[u][d] = 0.0f;
@@ -214,6 +218,101 @@ inline size_t flash_smem_bytes(int rep, int S, int D, int ts) {
 inline bool flash_shape_ok(int H, int Hkv, int S, int ts) {
   return !(H % Hkv || H / Hkv > FLASH_MAX_REP || ts < FLASH_WARPS * FLASH_UNROLL ||
            ts % (FLASH_WARPS * FLASH_UNROLL) || S % ts || S / ts > FLASH_MAX_TILES);
+}
+
+// The flash body of K11 and K3: one block a (slot, kv head), the three
+// phases, the WARPS partials added in warp order and divided by l (1 where
+// l == 0: a fully masked row gives 0).  TQ: query / output dtype; TC: cache
+// dtype (int8 when QUANT); TV: the dtype p is rounded to before PV; head_dim
+// = 32·DPL; SMAJOR: the S-major layout (rows H_kv·D apart), else head-major.
+// slopes, when not null, the (H,) ALiBi slopes (H == H_kv).
+template <typename TQ, typename TC, typename TV, bool QUANT, int DPL, bool SMAJOR>
+__global__ void __launch_bounds__(FLASH_THREADS)
+flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* __restrict__ v,
+                    const float* __restrict__ ks, const float* __restrict__ vs,
+                    const float* __restrict__ bias, const float* __restrict__ slopes,
+                    TQ* __restrict__ out, int H, int Hkv, int S, int ts, float sm_scale) {
+  constexpr int D = 32 * DPL;
+  extern __shared__ float smem[];
+  const int rep = H / Hkv;
+  float* sc = smem;                              // (rep, S) scores, then rounded p
+  float* part = sc + rep * S;                    // (WARPS, rep, D) PV partials
+  float* alpha = part + FLASH_WARPS * rep * D;   // (rep, n_tiles) tile rescale factors
+  __shared__ float scratch[32];
+  __shared__ float m_run[FLASH_MAX_REP], l_run[FLASH_MAX_REP];
+  const int b = blockIdx.x, kvh = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const size_t head = (size_t)b * Hkv + kvh;
+  const size_t stride = SMAJOR ? (size_t)Hkv * D : D;
+  const size_t row0 = (SMAJOR ? (size_t)b * S * Hkv * D + (size_t)kvh * D : head * S * D) +
+                      lane * DPL;
+  const float* ks_row = QUANT ? ks + head * S : nullptr;
+  const float* vs_row = QUANT ? vs + head * S : nullptr;
+  const float* bias_row = bias + (size_t)b * S;
+  auto bias_at = [bias_row](int s) { return bias_row[s]; };
+
+  float qv[FLASH_MAX_REP][DPL];
+#pragma unroll
+  for (int r = 0; r < FLASH_MAX_REP; ++r)
+#pragma unroll
+    for (int t = 0; t < DPL; ++t)
+      qv[r][t] = r < rep ? to_f<TQ>(q[((size_t)b * H + kvh * rep + r) * D + lane * DPL + t])
+                         : 0.0f;
+
+  flash_scores<TC, QUANT, DPL>(qv, k + row0, stride, ks_row, bias_at, sc, rep, S, sm_scale,
+                               slopes != nullptr, slopes != nullptr ? slopes[kvh] : 0.0f);
+  __syncthreads();
+  flash_softmax<TV, QUANT>(sc, vs_row, alpha, m_run, l_run, rep, S, ts, scratch);
+  __syncthreads();
+  flash_pv<TC, DPL>(sc, alpha, nullptr, v + row0, stride, bias_at, part, rep, S, ts);
+  __syncthreads();
+  for (int e = threadIdx.x; e < rep * D; e += blockDim.x) {
+    const int r = e / D, d = e % D;
+    float sum = 0.0f;
+    for (int w = 0; w < FLASH_WARPS; ++w) sum += part[(w * rep + r) * D + d];
+    const float denom = l_run[r] > 0.0f ? l_run[r] : 1.0f;
+    out[((size_t)b * H + kvh * rep + r) * D + d] = from_f<TQ>(sum / denom);
+  }
+}
+
+template <typename TQ, typename TC, typename TV, bool QUANT, int DPL, bool SMAJOR>
+int flash_decode_launch(const void* q, const void* k, const void* v, const void* ks,
+                        const void* vs, const void* bias, const void* slopes, void* out, int B,
+                        int H, int Hkv, int S, int ts, float sm_scale, cudaStream_t st) {
+  const size_t smem = flash_smem_bytes(H / Hkv, S, 32 * DPL, ts);
+  auto kern = flash_decode_kernel<TQ, TC, TV, QUANT, DPL, SMAJOR>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<dim3(B, Hkv), FLASH_THREADS, smem, st>>>((const TQ*)q, (const TC*)k, (const TC*)v,
+                                           (const float*)ks, (const float*)vs, (const float*)bias,
+                                           (const float*)slopes, (TQ*)out, H, Hkv, S, ts,
+                                           sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TQ, typename TC, typename TV, bool QUANT, bool SMAJOR>
+int flash_decode_by_dim(int D, const void* q, const void* k, const void* v, const void* ks,
+                        const void* vs, const void* bias, const void* slopes, void* out, int B,
+                        int H, int Hkv, int S, int ts, float sm_scale, cudaStream_t st) {
+  switch (D) {
+    case 64:
+      return flash_decode_launch<TQ, TC, TV, QUANT, 2, SMAJOR>(q, k, v, ks, vs, bias, slopes,
+                                                               out, B, H, Hkv, S, ts, sm_scale,
+                                                               st);
+    case 128:
+      return flash_decode_launch<TQ, TC, TV, QUANT, 4, SMAJOR>(q, k, v, ks, vs, bias, slopes,
+                                                               out, B, H, Hkv, S, ts, sm_scale,
+                                                               st);
+    case 256:
+      return flash_decode_launch<TQ, TC, TV, QUANT, 8, SMAJOR>(q, k, v, ks, vs, bias, slopes,
+                                                               out, B, H, Hkv, S, ts, sm_scale,
+                                                               st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -102,6 +102,35 @@ def split_ranks(heads: int, s: int) -> int:
     return max(within, default=min(fits))
 
 
+def plan(kernel: str, q_dtype, heads: int, s: int, d: int, rep: int,
+         body: Optional[str] = None, split: Optional[int] = None) -> tuple[str, int]:
+    """(body, cluster ranks) of a call of `kernel` (K11, K3, K12: each runs
+    the split body of split_decode.cuh or the flash body of flash_decode.cuh)
+    over `heads` = B·H_kv (slot, kv head) pairs of S positions at head_dim d,
+    rep query rows a kv head: the shape rules' (attn_body, split_ranks)
+    unless `body` / `split` force them (measurements).  The flash body takes
+    no ranks (0).  Raises ValueError on a shape the body does not take."""
+    ts = _pick_tile_s(s)
+    chosen = attn_body(q_dtype, d, s, rep) if body is None else body
+    if ts is None or rep > _MAX_REP or d not in (64, 128, 256):
+        raise ValueError(f"{kernel} does not take S = {s}, D = {d}, rep = {rep} (S "
+                         "tileable by 128, GQA rep <= 8, D in 64/128/256)")
+    if chosen == "split":
+        c = split_ranks(heads, s) if split is None else split
+        if (q_dtype != torch.bfloat16 or d not in SPLIT_DIMS or s // ts > MAX_TILES
+                or not _split_fits(s, c)):
+            raise ValueError(f"{kernel}'s split body does not take {q_dtype} queries at "
+                             f"D = {d} over S = {s} in {c} ranks")
+        return chosen, c
+    if chosen == "flash":
+        smem = (rep * s + _WARPS * rep * d + rep * (s // ts)) * 4
+        if smem > _SMEM_LIMIT or s // ts > MAX_TILES:
+            raise ValueError(f"{kernel}'s score rows and partials need {smem} B of shared "
+                             "memory")
+        return chosen, 0
+    raise ValueError(f"{kernel} has no body {chosen!r}")
+
+
 def _check_options(h: int, n_kv: int, alibi_slopes, int8_dots):
     if int8_dots:
         raise NotImplementedError("K11's int8_dots mode is not ported")
@@ -192,26 +221,10 @@ def decode_attention_stacked(
         raise RuntimeError(f"no kernel for device {q.device}")
     b, h, d = q.shape
     _, b2, n_kv, s, d2 = k.shape
+    if b2 != b or d2 != d or v.shape != k.shape or h % n_kv:
+        raise ValueError(f"K11 does not take q {tuple(q.shape)} over cache {tuple(k.shape)}")
+    chosen, c = plan("K11", q.dtype, b * n_kv, s, d, h // n_kv, body, split)
     ts = _pick_tile_s(s)
-    rep = h // max(n_kv, 1)
-    if (b2 != b or d2 != d or v.shape != k.shape or ts is None or h % n_kv
-            or rep > _MAX_REP or d not in (64, 128, 256)):
-        raise ValueError(f"K11 does not take q {tuple(q.shape)} over cache "
-                         f"{tuple(k.shape)} (S tileable by 128, GQA rep <= 8, "
-                         "D in 64/128/256)")
-    chosen = attn_body(q.dtype, d, s, rep) if body is None else body
-    if chosen == "split":
-        c = split_ranks(b * n_kv, s) if split is None else split
-        if (q.dtype != torch.bfloat16 or d not in SPLIT_DIMS or s // ts > MAX_TILES
-                or not _split_fits(s, c)):
-            raise ValueError(f"K11's split body does not take q {tuple(q.shape)} "
-                             f"({q.dtype}) over cache {tuple(k.shape)} in {c} ranks")
-    elif chosen == "flash":
-        smem = (rep * s + _WARPS * rep * d + rep * (s // ts)) * 4
-        if smem > _SMEM_LIMIT or s // ts > MAX_TILES:
-            raise ValueError(f"K11 score rows and partials need {smem} B of shared memory")
-    else:
-        raise ValueError(f"K11 has no body {chosen!r}")
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or v.dtype != k.dtype:
         raise TypeError("an int8 cache comes with its scales, an fp cache without")

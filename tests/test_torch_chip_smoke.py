@@ -188,6 +188,7 @@ def test_aligned_path_rehearsal_on_cpu(monkeypatch):
     monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
     monkeypatch.setattr(cs, "profile", lambda fn, steps: (
         fn(), {"idle_share": 0.5, "busy_ms_per_step": 1.0})[1])
+    monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
     expected = {}
     monkeypatch.setattr(cs, "_check_launches",
                         lambda path, launches, expect: expected.setdefault(path, expect))
@@ -207,6 +208,7 @@ def test_aligned_path_rehearsal_on_cpu(monkeypatch):
         ("mlp_swiglu_fused_stacked", "mlp@8")]
     assert all(r["max_err"] == 0 for r in rows)
     assert rows[2]["cache_identical_to_k10"] and rows[3]["shape"][2] == 1
+    assert all("flash_ms" in r and r["check_launches"] == 1 for r in rows[:4])
     assert [r["in_sum"] for r in rows] == [True, False, False, False, True, False]
 
     cache = llama.stacked_caches(cfg, cs.MAX_BATCH, cs.MAX_LEN, pos=cs.DECODE_POS,
@@ -605,3 +607,39 @@ def test_k11_phases_rehearsal_on_cpu(monkeypatch):
     assert [(r["site"], r["in_sum"], r["split"]) for r in rows] == [
         ("bf16", True, 8), ("int8", True, 8), ("int8@B64", False, 2)]
     assert all(r["max_err"] == 0 and "flash_ms" in r for r in rows)
+
+
+def test_k3_k12_phases_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's K3 phase (B = 4 ragged, in the kernels line's sum; B =
+    SLOT_BATCH from DECODE_POS and S = 2·MAX_LEN, out of it; each with the
+    split the planner picks and the flash body timed beside) and the edge
+    checks of K3's and K12's split bodies (check_k3_edges: S = 128 / 640 /
+    1024, D = 64 / 128, rep 1-8, holes, masked, one-position and last-tile
+    slots, every cluster size; check_k12_edges: the three bodies at pos 0,
+    9 and S − 1, the write body's cache against the plain version's) on the
+    CPU at a small size, where the wrappers take their plain versions:
+    every case holds and every call repeats with identical bits."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.models.llama import LlamaConfig
+
+    for name, value in dict(MAX_LEN=128, DECODE_POS=100, SLOT_BATCH=8).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
+    monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
+    monkeypatch.setattr(cs, "emit", lambda obj: None)
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=512), hidden_size=512,
+                              num_attention_heads=4, num_key_value_heads=4,
+                              num_hidden_layers=2)
+    cpu = torch.device("cpu")
+    rows = cs.check_decode_attention(cfg, cpu, torch.Generator().manual_seed(3))
+    assert [(r["site"], r["in_sum"], r["split"], r["shape"][3]) for r in rows] == [
+        ("ragged", True, 2, 128), ("new_row@B8", False, 2, 128), ("ragged@S256", False, 4, 256)]
+    assert all(r["max_err"] == 0 and "flash_ms" in r for r in rows)
+    for edges, cases in ((cs.check_k3_edges(cpu), 3 * 2 * 4 * 4),
+                         (cs.check_k12_edges(cpu), 3 * 2 * 7 * 3 * 4)):
+        assert edges["max_rel_err"] == 0.0 and edges["cases"] == cases
+        assert edges["repeated_calls_identical"] == 2 * cases + 400
