@@ -6,11 +6,11 @@
 1. Prints the card's name and power limit, builds the port's kernels from
    csrc/ with nvcc (sm_90a, one process per source) and prints ptxas'
    register / spill summary; holds the SASS of K6's and K9's wgmma bodies
-   to IGMMA / HGMMA, K6's, the stream body's (K5, K8), the split
-   kernels' of K11, K3 and K12 and K15b's qk body's to no I2F, the stream
-   body and K3's split kernels to TMA loads and the other split kernels to
-   bulk copies (cuobjdump); reads the SM clock the per-group scaling floors
-   take.
+   to IGMMA / HGMMA, K6's, the stream body's (K5, K8, K13's bf16 kind,
+   K1's raw-x kind), the split kernels' of K11, K3 and K12 and K15b's qk
+   body's to no I2F, the stream body and K3's split kernels to TMA loads
+   and the other split kernels to bulk copies (cuobjdump); reads the SM
+   clock the per-group scaling floors take.
 The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
 2048, random bf16 weights from seed 0):
    a. the export pipeline of export_int8_model.py:48-76 on the card:
@@ -35,7 +35,8 @@ Then the Llama-2-7B paths:
    o_proj, int8 lm_head), then stacks the decode tree.
 3. Holds every kernel against its plain PyTorch version at the main paths'
    shapes (one JSON line per kernel and shape): K1 in its three modes at
-   the four decode linears (N = 4, and 16 and 32), K6 at the four prefill
+   the four decode linears (N = 4, and 16 and 32; its stream body, the
+   dp4a body timed beside as old_body_ms), K6 at the four prefill
    linears (N = 1024), K2 at B = 4, S = 512, K3 at B = 4 over 512 ragged
    positions, at B = 64 from DECODE_POS and at B = 4 over 1024 positions
    (its flash body timed beside its split body), K11 over bf16 and int8
@@ -51,14 +52,18 @@ Then the Llama-2-7B paths:
    shape); K14 at the serving pack's gate_up + down, N = 4 and 8; after the
    promoted tree is built, K4 at its four prefill linears and the lm_head
    (N = 1024); after the bf16 tree is built, K13 at the four decode linears
-   (N = 4).  Times come from CUDA events around launches queued behind a
+   (N = 4; its stream body, the __ldg body timed beside as old_body_ms).  Times come from CUDA events around launches queued behind a
    busy-wait, so they are device time.  K8 and K9 are also held to their
    plain versions over every group layout, dtype and ragged row count they
    take (kernel_variants), K6 and K9 over the edges of their wgmma bodies
    and the shapes their rules send elsewhere (wg_edges), K8 and K5 over
    the edges of their stream body, each call made twice for identical
-   bits (stream_edges); K1 against K7b / K7a + K5 at 1-32 rows (k1_vs_k5,
-   which real_linear.K1_MAX_TOKENS follows).  K11 also over Llama's
+   bits (stream_edges), K13 and K1 at the edges of theirs (k13_edges: 1-8
+   rows, ragged K and O, both dtypes; k1_edges: 1-32 rows, ragged O, every
+   mode, both scale dtypes, group sizes 16 / 32 / 64, each stream call
+   repeated for identical bits and held bit for bit to K5's stream body on
+   the plain version's codes); K1 against K7b / K7a + K5 at 1-32 rows
+   (k1_vs_k5, which real_linear.K1_MAX_TOKENS follows).  K11 also over Llama's
    per-slot int8 pool at B = 64 (positions 100-511), the flash body timed
    beside the split body at each K11 shape, and the split body at its
    edges (k11_edges: S, D, rep, both caches, ALiBi, masked slots, every
@@ -444,9 +449,11 @@ def _sites(layer):
 
 def check_rawx(stacked, dev, gen, n=MAX_BATCH):
     """K1 vs plain at the four decode linears of the stacked tree, N rows
-    (Llama: 4, the B = 4 paths; 16 and 32, the row-split grid; Bloom: 4,
-    each layer's input gathered by its perm).  Bloom's rows stay out of
-    the kernels line's sums."""
+    (Llama: 4, the B = 4 paths; 16 and 32; Bloom: 4, each layer's input
+    gathered by its perm), on the body its rule picks (the stream body at
+    these shapes) with the __dp4a body timed beside it (old_body_ms), each
+    call on the next layer's weights.  Bloom's rows stay out of the kernels
+    line's sums."""
     import torch
 
     from smoothquant_tpu_torch.kernels import int4_group_matmul as k1
@@ -479,6 +486,7 @@ def check_rawx(stacked, dev, gen, n=MAX_BATCH):
         ref = k1.rawx_plain(*args(3), **kw)
         torch.cuda.synchronize()
         err = _close(f"K1 {site}", got, ref, 1e-2)
+        body = k1.rawx_body(n, c, o, 2 * half, m.group_size, lin.w_sal_t.shape[1], x.dtype)
         w_lib = [torch.randn((c, o), generator=gen, device=dev).to(torch.bfloat16)
                  for _ in range(4)]
         n_bytes, ops = roofline.rawx_cost(n, c, o, 2 * half, m.group_size,
@@ -487,10 +495,12 @@ def check_rawx(stacked, dev, gen, n=MAX_BATCH):
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         rows.append(dict(
             kernel="int4_group_matmul_stacked_rawx",
-            site=site if n == MAX_BATCH else f"{site}@{n}", mode=mode or "raw",
+            site=site if n == MAX_BATCH else f"{site}@{n}", mode=mode or "raw", body=body,
             shape=[n, c, o], max_err=err, in_sum=n == MAX_BATCH and mode != "gather",
             kernel_ms=device_ms(lambda i: k1.int4_group_matmul_stacked_rawx(*args(i), **kw),
                                 n_layers),
+            old_body_ms=device_ms(lambda i: k1.int4_group_matmul_stacked_rawx(
+                *args(i), **kw, body="dp4a"), n_layers),
             plain_ms=device_ms(lambda i: k1.rawx_plain(*args(i), **kw), 4, reps=3),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=device_ms(lambda i: x @ w_lib[i % 4], 16),
@@ -729,7 +739,9 @@ def check_int8_prefill(promoted, cfg, dev, gen):
 
 
 def check_fp_matmul(bf16, dev, gen):
-    """K13 vs plain at the bf16 tree's four decode linears (N = 4)."""
+    """K13 vs plain at the bf16 tree's four decode linears (N = 4), on the
+    body its rule picks (the stream body) with the __ldg body timed beside
+    it (old_body_ms), each call on the next layer's slab."""
     import torch
 
     from smoothquant_tpu_torch.kernels import fp_matmul as k13
@@ -751,7 +763,10 @@ def check_fp_matmul(bf16, dev, gen):
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         rows.append(dict(
             kernel="fp_matmul_stacked", site=site, shape=[MAX_BATCH, kk, o], max_err=err,
+            body=k13.fp_body(MAX_BATCH, kk, o, x.dtype),
             kernel_ms=device_ms(lambda i: k13.fp_matmul_stacked(i % n_layers, x, w), n_layers),
+            old_body_ms=device_ms(lambda i: k13.fp_matmul_stacked(i % n_layers, x, w, body="ldg"),
+                                  n_layers),
             plain_ms=device_ms(lambda i: k13.fp_matmul_stacked_plain(i % n_layers, x, w), 4,
                                reps=3),
             bound_ms=b_ms, bound_by=b_by,
@@ -976,24 +991,26 @@ def check_gmm_stacked(stacked, dev, gen, n=None, main=True):
 
 def k1_vs_k5(stacked, dev, gen, rows=(1, 4, 8, 16, MID_BATCH)):
     """The stacked decode linears' two routes at K1's row counts: K1
-    (RMSNorm, mask and quantize fused in) against the activations made as
-    K1 makes them (real_linear.k1_rows_operands: K7b for the fused-norm
-    sites, K7a or the identity layout's quantize for the others) then K5 on
-    its stream body, at Llama-2-7B's four sites, activation prep included,
-    each call on the next layer's weights.  Device ms per site and summed,
-    and the row counts at which the K5 route wins on the sum."""
+    (RMSNorm, mask and quantize fused in; on the body its rule picks, the
+    dp4a body timed beside) against the activations made as K1 makes them
+    (real_linear.k1_rows_operands: K7b for the fused-norm sites, K7a or the
+    identity layout's quantize for the others) then K5 on its stream body,
+    at Llama-2-7B's four sites, activation prep included, each call on the
+    next layer's weights.  Device ms per site and summed, K1's body per
+    site, and the row counts at which the K5 route wins on the sum."""
     import torch
 
     from smoothquant_tpu_torch.kernels.int4_group_matmul import (
         int4_group_matmul_stacked,
         int4_group_matmul_stacked_rawx,
+        rawx_body,
     )
     from smoothquant_tpu_torch.kernels.real_linear import _salient_gather, k1_rows_operands
 
     sites = _sites(stacked["layers"]["stacked"])
     out = {}
     for n in rows:
-        ms = {}
+        ms, bodies = {}, {}
         for site, lin, mode in sites:
             m = lin.meta
             n_layers = lin.w_qt.shape[0]
@@ -1006,15 +1023,16 @@ def k1_vs_k5(stacked, dev, gen, rows=(1, 4, 8, 16, MID_BATCH)):
             kw1 = dict(group_size=m.group_size, act_bits=m.act_bits, num_salient=m.num_salient,
                        out_dtype=torch.bfloat16)
 
-            def k1_route(i):
+            def k1_route(i, body=None):
                 li = i % n_layers
                 if mode == "mask":
                     return int4_group_matmul_stacked_rawx(
                         li, x, lin.ns_mask, lin.w_qt, lin.w_scales_t, w_sal,
-                        _salient_gather(lin, x, lin.perm[li]), norm_kind="mask", **kw1)
+                        _salient_gather(lin, x, lin.perm[li]), norm_kind="mask", body=body,
+                        **kw1)
                 return int4_group_matmul_stacked_rawx(
                     li, x, norm[0] if norm else None, lin.w_qt, lin.w_scales_t, w_sal,
-                    eps=1e-5, norm_kind="rms" if norm else None, **kw1)
+                    eps=1e-5, norm_kind="rms" if norm else None, body=body, **kw1)
 
             def k5_route(i):
                 x_q, x_s, x_sal, pre = k1_rows_operands(lin, x, i % n_layers, norm)
@@ -1023,8 +1041,12 @@ def k1_vs_k5(stacked, dev, gen, rows=(1, 4, 8, 16, MID_BATCH)):
                     group_size=m.group_size, out_dtype=torch.bfloat16, pre_laid=pre)
 
             ms[site] = {"k1": device_ms(k1_route, n_layers, reps=3),
+                        "k1_dp4a": device_ms(lambda i: k1_route(i, "dp4a"), n_layers, reps=3),
                         "k5": device_ms(k5_route, n_layers, reps=3)}
-        out[n] = {"ms": ms, "sum": {r: sum(v[r] for v in ms.values()) for r in ("k1", "k5")}}
+            bodies[site] = rawx_body(n, m.in_features, lin.w_qt.shape[2], 2 * lin.w_qt.shape[1],
+                                     m.group_size, lin.w_sal_t.shape[1], torch.bfloat16)
+        out[n] = {"ms": ms, "k1_body": bodies,
+                  "sum": {r: sum(v[r] for v in ms.values()) for r in ("k1", "k1_dp4a", "k5")}}
     return {"rows": list(rows), "by_rows": out,
             "k5_wins_at": [n for n in rows if out[n]["sum"]["k5"] < out[n]["sum"]["k1"]]}
 
@@ -1763,6 +1785,23 @@ def k11_key(dtype, head_dim: int, s: int, rep: int = 1, alibi: bool = False) -> 
     return k11.LAUNCH_KEYS[k11.attn_body(dtype, head_dim, s, rep), alibi]
 
 
+def rawx_launches(layer, n: int, dtype, n_layers: int) -> dict:
+    """K1's launches by body (the counter each takes) over a stacked layer's
+    four linears at n rows, one decode step of n_layers layers: the stream
+    body's under the kernel's name for bf16, the dp4a body's for f32."""
+    from collections import Counter
+
+    from smoothquant_tpu_torch.kernels import int4_group_matmul as k1
+
+    out = Counter()
+    for _, lin, _ in _sites(layer):
+        _, half, o = lin.w_qt.shape
+        body = k1.rawx_body(n, lin.meta.in_features, o, 2 * half, lin.meta.group_size,
+                            lin.w_sal_t.shape[1], dtype)
+        out[k1.RAWX_LAUNCH_KEYS[body]] += n_layers
+    return dict(out)
+
+
 def quickstart_launches(meta, n_layers: int, rows: int, steps: int = 0,
                         k11_counter: str = "decode_attention_stacked") -> dict:
     """Kernel launches over the quick start's per-layer pack (its recipe in
@@ -2068,6 +2107,137 @@ def check_stream_edges(dev):
                              k5.int4_group_matmul_stacked_plain(*args, **kw), dt)
     torch.cuda.synchronize()
     return {"max_rel_err": worst, "repeated_calls_identical": repeats}
+
+
+def check_k13_edges(dev):
+    """K13's bodies against the plain version at the stream body's edges: 1
+    to 8 rows (every padding of the n8 tile), O a multiple of the
+    128-column tile and ragged (200, 136: 8-column runs), K a multiple of
+    the 64-row stage and ragged (200, 72), split over 1 to 8 ranks as the
+    planner picks; bf16 (the stream body: one bf16 rounding of f32 sums
+    taken in another order, 1e-2 of the largest output) and f32 (the __ldg
+    body, 1e-5).  Every call is made twice and must give the same bits.
+    Returns the largest relative error of each body, the cases and the
+    repeated calls."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import fp_matmul as k13
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    worst, cases, repeats = {}, 0, 0
+    for n in (1, 2, 3, 4, 5, 7, 8):
+        for kk, o in ((256, 384), (200, 200), (4096, 1024), (72, 136), (1024, 4096)):
+            for dt in (torch.bfloat16, torch.float32):
+                x = (torch.rand((n, kk), generator=gen, device=dev) * 2 - 1).to(dt)
+                w = (torch.rand((2, kk, o), generator=gen, device=dev) * 2 - 1).to(dt)
+                body = k13.fp_body(n, kk, o, dt)
+                got = _launched(k13.LAUNCH_KEYS[body], lambda: k13.fp_matmul_stacked(1, x, w))
+                again = k13.fp_matmul_stacked(1, x, w)
+                ref = k13.fp_matmul_stacked_plain(1, x, w)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K13 n={n} K={kk} O={o} {dt}: two calls gave "
+                                         "different bits")
+                repeats += 1
+                err = _close(f"K13 n={n} K={kk} O={o} {dt}", got, ref,
+                             1e-2 if dt == torch.bfloat16 else 1e-5)
+                worst[body] = max(worst.get(body, 0.0), err / ref.float().abs().max().item())
+                cases += 1
+    return {"max_rel_err": worst, "cases": cases, "repeated_calls_identical": repeats}
+
+
+# K1's edge shapes: (group size, C, salient channels, K of the nibbles, k_s)
+K1_EDGE_SHAPES = ((64, 1000, 40, 1024, 48),   # tail split, the channels past k_ns_raw masked
+                  (32, 520, 8, 512, 8),       # one salient stage, no masked channel
+                  (16, 256, 0, 256, 0))       # no salient block
+
+
+def check_k1_edges(dev):
+    """K1's bodies against the plain version at the stream body's edges: 1
+    to 32 rows (1, 3, 4, 8, 9, 16, 17, 32: every n8 padding of one, two and
+    four tiles), O a multiple of the 128-column tile (384) and ragged (336;
+    200, which the dp4a body takes), every mode — "rms" (fused RMSNorm, the
+    tail salient split, the channels past k_ns_raw masked), "raw" (no norm),
+    "mask" (0/1 mask, external x_sal) — with bf16 and f32 group scales over
+    K1_EDGE_SHAPES (group sizes 64, 32, 16; with salient channels and
+    without); bf16 x (1e-2 of the largest output: one bf16 rounding of sums
+    in another order) and, at 4 rows, f32 x (the dp4a body, 1e-5).  Every
+    stream call is made twice (bit for bit) and held bit for bit to K5's
+    stream body on rawx_quantize_plain's codes, scales and salient
+    activations wherever the two split alike: the codes and scales the
+    stream body makes in shared memory are the plain version's exactly.
+    Returns the largest relative error of each body, the cases, the
+    repeated calls and the calls held to K5."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int4_group_matmul as k1
+    from smoothquant_tpu_torch.kernels import stream_gmm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 67)
+    worst, cases, repeats, held = {}, 0, 0, 0
+    for n in (1, 3, 4, 8, 9, 16, 17, 32):
+        for gs, c, n_sal, kk, k_s in K1_EDGE_SHAPES:
+            for o in (384, 336, 200):
+                for mode in ("rms", "raw", "mask"):
+                    for s_dt in (torch.bfloat16, torch.float32):
+                        for dt in ((torch.bfloat16, torch.float32) if n == 4 else
+                                   (torch.bfloat16,)):
+                            x = (torch.randn((n, c), generator=gen, device=dev) * 2).to(dt)
+                            x[:, 3] *= 20.0
+                            w = (torch.randint(-128, 128, (2, kk // 2, o), generator=gen,
+                                               device=dev, dtype=torch.int8),
+                                 (torch.rand((2, kk // gs, o), generator=gen, device=dev)
+                                  * 0.2 + 0.01).to(s_dt),
+                                 (torch.rand((2, k_s, o), generator=gen, device=dev)
+                                  * 2 - 1).to(dt))
+                            norm, x_sal = None, None
+                            if mode == "rms":
+                                norm = (torch.rand((2, c), generator=gen, device=dev)
+                                        + 0.5).to(torch.bfloat16).float()
+                            elif mode == "mask":
+                                norm = (torch.rand((2, c), generator=gen, device=dev)
+                                        > 0.1).float()
+                                x_sal = (torch.randn((n, k_s), generator=gen, device=dev)
+                                         ).to(dt)
+                            kw = dict(group_size=gs, act_bits=4, num_salient=n_sal, eps=1e-5,
+                                      norm_kind=None if mode == "raw" else mode)
+                            args = (1, x, norm, *w, x_sal)
+                            body = k1.rawx_body(n, c, o, kk, gs, k_s, dt)
+                            name = f"K1 n={n} gs={gs} o={o} {mode} {s_dt} {dt}"
+                            got = _launched(k1.RAWX_LAUNCH_KEYS[body],
+                                            lambda: k1.int4_group_matmul_stacked_rawx(*args, **kw))
+                            ref = k1.rawx_plain(*args, **kw)
+                            torch.cuda.synchronize()
+                            err = _close(name, got, ref, 1e-2 if dt == torch.bfloat16 else 1e-5)
+                            worst[body] = max(worst.get(body, 0.0),
+                                              err / ref.float().abs().max().item())
+                            cases += 1
+                            if body != "stream":
+                                continue
+                            again = k1.int4_group_matmul_stacked_rawx(*args, **kw)
+                            torch.cuda.synchronize()
+                            if not torch.equal(got, again):
+                                raise AssertionError(f"{name}: two calls gave different bits")
+                            repeats += 1
+                            stages = stream_gmm.k5_stages(kk, gs, k_s, True)
+                            if (stream_gmm.k1_split(o, stages, n, gs, -(-k_s // 32))
+                                    != stream_gmm.split(o, stages)):
+                                continue
+                            x_q, x_s, xs = k1.rawx_quantize_plain(
+                                x, None if norm is None else norm[1], x_sal, kk=kk, k_s=k_s,
+                                group_size=gs, act_bits=4, num_salient=n_sal, eps=1e-5,
+                                norm_kind=kw["norm_kind"], sal_dtype=dt)
+                            k5 = k1.int4_group_matmul_stacked(
+                                1, x_q, x_s, *w[:2], xs.to(dt), w[2], group_size=gs,
+                                out_dtype=dt, body="stream")
+                            torch.cuda.synchronize()
+                            if not torch.equal(got, k5):
+                                d = (got.float() - k5.float()).abs().max().item()
+                                raise AssertionError(f"{name}: differs from K5's stream body on "
+                                                     f"the plain codes by up to {d}")
+                            held += 1
+    return {"max_rel_err": worst, "cases": cases, "repeated_calls_identical": repeats,
+            "held_to_k5_bitwise": held}
 
 
 def check_k11_edges(dev):
@@ -2405,8 +2575,9 @@ def sass_check():
     and any I2F (int → float through the conversion unit, which the
     per-group scalings of K6 and the stream body are written to avoid) in
     `cuobjdump -sass`, and ptxas' register, spill and serialization notes;
-    for the stream kernels, how the weight arrives: TMA copies (UTMALDG)
-    and 128-bit global loads (LDG.E.128).  Fails unless each K6 body issues
+    for the stream kernels (K8's and K5's, K13's bf16 and K1's raw-x
+    kinds), how the weight arrives: TMA copies (UTMALDG) and 128-bit global
+    loads (LDG.E.128).  Fails unless each K6 body issues
     IGMMA and has no I2F, each K9 body issues HGMMA, and each stream kernel
     has no I2F and loads by TMA (spills and serialization notes are
     reported, not held); and unless each split kernel of K11, K3 and K12
@@ -2440,6 +2611,17 @@ def sass_check():
                    f"D={m.group(2)} rep={m.group(3)}" if m else "K15b qk")
             attn[key] = ops
             continue
+        m = (re.search(r"stream_rawx_kernelILi(\d+)ELi(\d+)E(13__nv_bfloat16|f)E", name)
+             or re.search(r"stream_bf16_kernelILi(\d+)E", name))
+        if m:
+            ops = {op: len(re.findall(r"\b" + op + r"\b", fn))
+                   for op in ("I2F", "UTMALDG", "IMMA", "HMMA")}
+            ops["LDG.E.128"] = len(re.findall(r"LDG\.E\.128\b", fn))
+            if ops["I2F"] or not ops["UTMALDG"]:
+                raise AssertionError(f"stream {name}: SASS {ops}")
+            stream[f"K1 gs={m.group(1)} nt={m.group(2)} {'f32' if m.group(3) == 'f' else 'bf16'}"
+                   f" scales" if "rawx" in name else f"K13 kb={m.group(1)}"] = ops
+            continue
         m = re.search(r"stream_gmm_kernelILb(\d)ELi(\d+)ELi(\d+)", name)
         if m:
             ops = {op: len(re.findall(r"\b" + op + r"\b", fn))
@@ -2464,18 +2646,23 @@ def sass_check():
     for i, ln in enumerate(log):
         if "Compiling entry" in ln and any(k in ln for k in (
                 "wg_gmm_kernel", "dual_path_wg_kernel", "stream_gmm_kernel",
+                "stream_bf16_kernel", "stream_rawx_kernel",
                 "split_decode_kernel", "qk_tile_kernel", "pv_tile_kernel", "kn_gemv_kernel")):
             block = " ".join(log[i:i + 4])
             regs = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores", block)
             notes[re.search(r"(wg_gmm_kernel|dual_path_wg_kernel|stream_gmm_kernel|"
+                            r"stream_bf16_kernel|stream_rawx_kernel|"
                             r"split_decode_kernel|qk_tile_kernel|pv_tile_kernel|kn_gemv_kernel)"
                             r"\w{0,40}", ln).group(0)] = [
                 int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None]
     serialized = sum(1 for ln in log if "serialized" in ln)
-    if not out or not stream or len(attn) != 43:
-        raise AssertionError("the build holds no wgmma body, no stream body or not the 42 "
-                             "split kernels (K11 16, K3 8, K12 18) and K15b's qk body")
+    n_k1 = sum(k.startswith("K1 ") for k in stream)
+    if (not out or not stream or len(attn) != 43 or n_k1 != 18
+            or not {"K13 kb=64", "K13 kb=32"} <= set(stream)):
+        raise AssertionError("the build holds no wgmma body, no stream body, not K13's and "
+                             "K1's 18 stream kernels or not the 42 split kernels (K11 16, K3 "
+                             "8, K12 18) and K15b's qk body")
     return {"sass": out, "stream_sass": stream, "attn_sass": attn, "registers_spills": notes,
             "ptxas_serialized_notes": serialized}
 
@@ -2498,8 +2685,8 @@ def check_no_fallback(dev):
     options the kernels do not take raise instead of running a plain
     version.  K11's ALiBi body and K4's raw-x mode run (their phases);
     what they still refuse, and int8_dots (K11, K12), raises here, as does
-    each shape the split bodies of K11, K3 and K12 refuse when forced on
-    them."""
+    each shape the split bodies of K11, K3 and K12 and the stream bodies of
+    K13 and K1 refuse when forced on them."""
     import torch
 
     from smoothquant_tpu_torch.kernels import act_prep as k7
@@ -2589,6 +2776,22 @@ def check_no_fallback(dev):
         "K13 nine rows": (lambda: k13.fp_matmul_stacked(
             0, torch.zeros((9, 64), device=dev), torch.zeros((1, 64, 64), device=dev)),
             ValueError),
+        "K13 stream body for f32 x": (lambda: k13.fp_matmul_stacked(
+            0, f32(4, 64), f32(1, 64, 64), body="stream"), ValueError),
+        "K13 stream body at K = 12": (lambda: k13.fp_matmul_stacked(
+            0, bf(4, 12), bf(1, 12, 64), body="stream"), ValueError),
+        "K13 unknown body": (lambda: k13.fp_matmul_stacked(
+            0, bf(4, 64), bf(1, 64, 64), body="tiles"), ValueError),
+        "K1 stream body for f32 x": (lambda: k1.int4_group_matmul_stacked_rawx(
+            0, f32(4, 256), None, w4, f32(1, 4, 256), f32(1, 0, 256), group_size=64,
+            act_bits=4, num_salient=0, norm_kind=None, body="stream"), ValueError),
+        "K1 stream body at group size 128": (lambda: k1.int4_group_matmul_stacked_rawx(
+            0, bf(4, 256), None, w4, bf(1, 2, 256), bf(1, 0, 256), group_size=128,
+            act_bits=4, num_salient=0, norm_kind=None, body="stream"), ValueError),
+        "K1 stream body at O = 200": (lambda: k1.int4_group_matmul_stacked_rawx(
+            0, bf(4, 256), None, torch.zeros((1, 128, 200), dtype=torch.int8, device=dev),
+            bf(1, 4, 200), bf(1, 0, 200), group_size=64, act_bits=4, num_salient=0,
+            norm_kind=None, body="stream"), ValueError),
         "K15a float32 x": (lambda: k15.int8_linear(torch.zeros((4, 64), device=dev), z8, 1.0),
                            TypeError),
         "K15a bf16 out": (lambda: k15.int8_linear(z8, z8, 1.0, out_dtype=torch.bfloat16),
@@ -4111,7 +4314,7 @@ def bloom_reference_check(dev):
                     for f in fields:
                         getattr(st, f)[i].copy_(getattr(c, f))
                 step, _ = bloom.forward(p, tok.to(d), cfg, caches=caches)
-                expect = {"int4_group_matmul_stacked_rawx": 4 * n_l,
+                expect = {**rawx_launches(stacked["layers"]["stacked"], 2, cfg.torch_dtype, n_l),
                           k11_key(cfg.torch_dtype, hd, 128, alibi=True): n_l}
                 if kind == "int8":
                     expect["write_quant_cache_stacked"] = n_l
@@ -4238,7 +4441,9 @@ def rms_norm_rule_cost(h, cfg, dev):
 
 # the launch counters of a kernel's other bodies (each wrapper counts a
 # launch once, under the body it ran)
-BODY_COUNTERS = {"decode_attention_stacked": {"alibi": "decode_attention_stacked_alibi",
+BODY_COUNTERS = {"fp_matmul_stacked": {"ldg": "fp_matmul_stacked_ldg"},
+                 "int4_group_matmul_stacked_rawx": {"dp4a": "int4_group_matmul_stacked_rawx_dp4a"},
+                 "decode_attention_stacked": {"alibi": "decode_attention_stacked_alibi",
                                               "flash": "decode_attention_stacked_flash",
                                               "flash_alibi": "decode_attention_stacked_flash_alibi"},
                  "decode_attention_smajor_stacked": {
@@ -4329,6 +4534,8 @@ def run(dev, cfg, card: str):
     emit({"phase": "kernel_variants", "max_rel_err": check_kernel_variants(dev)})
     emit({"phase": "wg_edges", "max_rel_err": check_wg_edges(dev)})
     emit({"phase": "stream_edges", **check_stream_edges(dev)})
+    emit({"phase": "k13_edges", **check_k13_edges(dev)})
+    emit({"phase": "k1_edges", **check_k1_edges(dev)})
     emit({"phase": "k11_edges", **check_k11_edges(dev)})
     emit({"phase": "k3_edges", **check_k3_edges(dev)})
     emit({"phase": "k12_edges", **check_k12_edges(dev)})

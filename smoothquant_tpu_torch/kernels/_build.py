@@ -39,6 +39,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "sq_rawx_workspace_bytes": ([_I] * 5, ctypes.c_longlong),
     "sq_rawx": ([_P] * 8 + [_I] * 10 + [_F, _F, _I, _I, _P], _I),
+    "sq_rawx_stream": ([_P] * 7 + [_I] * 10 + [_F, _F, _F, _I, _I, _P], _I),
     "sq_int4_gmm": ([_P] * 7 + [_I] * 5 + [_I, _I, _P], _I),
     "sq_int4_gmm_wg": ([_P] * 7 + [_I] * 5 + [_I, _P], _I),
     "sq_int_gmm_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "sq_decode_attn_split": ([_P] * 8 + [_I] * 7 + [_F, _I, _P], _I),
     "sq_fp_matmul_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
     "sq_fp_matmul": ([_P] * 4 + [_I] * 3 + [_I, _P], _I),
+    "sq_fp_matmul_stream": ([_P] * 3 + [_I] * 5 + [_P], _I),
     "sq_int8_gemm": ([_P] * 4 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
     "sq_int8_bmm_attn": ([_P] * 3 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
     "sq_norm_quant": ([_P] * 4 + [_I] * 2 + [_F] * 2 + [_I] * 2 + [_P], _I),

@@ -5,8 +5,16 @@
 // decode.  At decode N (<= 8 rows) it reads each weight element once for
 // 2·N flops, so the weight bytes bound it (405 MB per Llama-2-7B layer in
 // bf16, 0.12 ms at 3.35 TB/s).  The wrapper hands the layer's slab of the
-// (L, K, O) stack by pointer — nothing is copied — and the kernel spreads
-// the stream over every SM:
+// (L, K, O) stack by pointer — nothing is copied.  Two bodies, picked by
+// shape alone (fp_matmul.py fp_body):
+//   * bf16 x (every bf16 decode step): the weight-streaming body's bf16
+//     kind (stream_gmm.cuh stream_bf16_kernel) — a TMA ring of 64- or
+//     32-row stages on mbarriers, the slab's columns the M side of mma
+//     m16n8k16 by ldmatrix.trans, K split over a cluster and reduced in
+//     rank order through distributed shared memory: one launch, no partial
+//     through device memory.  Its loads alone take its whole time at the
+//     large sites (scripts/stream_variants.py k13_loads_only; PERF.md §6);
+//   * f32 x, the __ldg body, in two launches:
 //   * fp_matmul_kernel: a block covers 256 columns and one K-split; it
 //     first stages its slice of x in shared memory as f32 (a row's FMAs
 //     would otherwise wait on N global loads of x); each lane loads 16
@@ -17,7 +25,7 @@
 //     in warp order through shared memory into an f32 partial per split;
 //   * fp_reduce_kernel adds the splits in order and casts to the output
 //     dtype.
-#include "common.cuh"
+#include "stream_gmm.cuh"
 
 namespace {
 
@@ -185,4 +193,19 @@ SQ_EXPORT int sq_fp_matmul(const void* x, const void* w, void* workspace, void* 
   if (N < 1 || N > FM_MAX_N || O % FM_COLS) return (int)cudaErrorInvalidValue;
   if (dt == DT_BF16) return launch<__nv_bfloat16>(x, w, workspace, out, N, K, O, st);
   return launch<float>(x, w, workspace, out, N, K, O, st);
+}
+
+// K13, stream body (stream_gmm.cuh stream_bf16_kernel): bf16 x (N <= 8 rows,
+// K a multiple of 8) and slab (O a multiple of 8), every pointer 16-byte
+// aligned (TMA); stages of kb = 64 or 32 weight rows; the split over K in
+// n_split ranks (1, 2, 4 or 8, each with a stage at least).
+SQ_EXPORT int sq_fp_matmul_stream(const void* x, const void* w, void* out, int N, int K, int O,
+                                  int kb, int n_split, void* stream) {
+  if (N < 1 || N > FM_MAX_N || K < 8 || K % 8 || O < 8 || O % 8 || (kb != 64 && kb != 32) ||
+      (n_split != 1 && n_split != 2 && n_split != 4 && n_split != 8) ||
+      (K + kb - 1) / kb < n_split)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return kb == 64 ? sb_launch<64>(x, w, out, N, K, O, n_split, st)
+                  : sb_launch<32>(x, w, out, N, K, O, n_split, st);
 }

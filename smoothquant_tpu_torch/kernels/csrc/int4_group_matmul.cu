@@ -6,9 +6,15 @@
 // rows.  At decode N (the batch) it is bound by the bytes of the layer's
 // packed weight: ~0.56 bytes per weight element (nibbles + bf16 group
 // scales) plus the bf16 salient block, against 2·N int ops per element.
-// The design spends nothing on the activations beyond one tiny pre-pass and
-// spreads the weight stream over every SM, in three launches behind one
-// entry, sq_rawx:
+// Two bodies, picked by shape alone (int4_group_matmul.py rawx_body): bf16
+// x at 1-32 rows (every decode linear of the paths) takes one launch of the
+// weight-streaming body with the pre-pass folded in (stream_gmm.cuh
+// stream_rawx_kernel, sq_rawx_stream: each stage carries its raw x tiles by
+// TMA, three quantizer warps make its codes in shared memory ahead of the
+// consumers' mma); f32 x and the group sizes the ring lacks keep the
+// body below.  It spends nothing on the activations beyond one tiny
+// pre-pass and spreads the weight stream over every SM, in three launches
+// behind one entry, sq_rawx:
 //   * rawx_prep_kernel (a block per token row and 8 groups, a warp per group,
 //     plus a block per row for the salient slice) does the optional RMSNorm
 //     or 0/1 channel mask, the tail-mode salient split and the per-(row,
@@ -635,4 +641,42 @@ SQ_EXPORT int sq_int4_gmm_stacked_stream(const void* xq, const void* xs, const v
   return gs == 16 ? k5_stream<16>(a, m, xq, kk, pre_laid, st)
          : gs == 32 ? k5_stream<32>(a, m, xq, kk, pre_laid, st)
                     : k5_stream<64>(a, m, xq, kk, pre_laid, st);
+}
+
+// K1, stream body (stream_gmm.cuh stream_rawx_kernel): the pre-pass of
+// sq_rawx folded into one launch of the weight-streaming ring.  bf16 x (1-32
+// rows, C a multiple of 8), group size 16, 32 or 64, O a multiple of 16, bf16
+// w_sal and out, every pointer 16-byte aligned; inv_c = 1/C and inv_qmax =
+// 1/qmax in f32; the split over K in n_split ranks, each with a stage at
+// least and its salient tiles within a block's shared memory.
+SQ_EXPORT int sq_rawx_stream(const void* x, const void* nw, const void* x_sal, const void* w,
+                             const void* ws, const void* wsal, void* out, int N, int C, int O,
+                             int kk, int gs, int k_ns_raw, int n_sal, int k_s, int mode,
+                             int need_mask, float eps, float inv_c, float inv_qmax, int s_dt,
+                             int n_split, void* stream) {
+  const int G = kk / gs, n_grp = G / 2, n_sal_st = (k_s + 31) / 32;
+  if ((gs != 16 && gs != 32 && gs != 64) || kk < 2 * gs || kk % (2 * gs) || N < 1 ||
+      N > RAWX_MAX_N || C < 8 || C % 8 || O < 16 || O % 16 || (mode != 0) != (nw != nullptr) ||
+      mode < 0 || mode > 2 || (n_split != 1 && n_split != 2 && n_split != 4 && n_split != 8) ||
+      n_sal_st + n_grp < n_split)
+    return (int)cudaErrorInvalidValue;
+  const SrArgs a{(const __nv_bfloat16*)x, (const float*)nw, (const __nv_bfloat16*)x_sal, out,
+                 N, C, O, G, k_ns_raw, n_sal, k_s, mode, need_mask, eps, inv_c, inv_qmax,
+                 n_sal_st, n_grp, n_split};
+  const CUtensorMapDataType sdt =
+      s_dt == DT_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  SrMaps m = {};
+  if (!sg_weight_map(&m.w, w, O, kk / 2, gs) ||
+      !wg_map(&m.ws, ws, sdt, s_dt == DT_BF16 ? 2 : 4, O, G, O, SG_BO, 1,
+              CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      (k_s > 0 && !wg_map(&m.wsal, wsal, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, O, k_s, O, 64, 32,
+                          CU_TENSOR_MAP_SWIZZLE_128B, SG_W_PROMO)) ||
+      !wg_map(&m.x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, C, N, C, gs, 8 * sg_tiles_for(N),
+              CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      (mode != 0 && !wg_map(&m.nw, nw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, C, 1, C, gs, 1,
+                            CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return s_dt == DT_BF16 ? sr_dispatch<__nv_bfloat16>(a, m, gs, st)
+                         : sr_dispatch<float>(a, m, gs, st);
 }

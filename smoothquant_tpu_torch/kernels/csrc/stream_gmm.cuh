@@ -1,6 +1,9 @@
-// The weight-streaming group-matmul body shared by K8 (int_group_matmul.cu,
-// int8-container weights) and K5 (int4_group_matmul.cu, split-half nibble
-// weights), at the row counts decode runs: N <= 64 token rows.
+// The weight-streaming body of the decode row counts (N <= 64 token rows):
+// the group matmul K8 (int_group_matmul.cu, int8-container weights) and K5
+// (int4_group_matmul.cu, split-half nibble weights) share, and two more
+// weight kinds at the end of this file — K13's bf16 slab (fp_matmul.cu) and
+// K1's nibbles on raw, unquantized x (int4_group_matmul.cu) — on the same
+// ring, lane maps and cluster epilogue.
 //
 // What bounds these calls on the H100: the weight's bytes.  At N <= 64 each
 // weight byte takes at most 2·64 int8 operations (~230 a byte for nibbles),
@@ -558,6 +561,71 @@ __device__ __forceinline__ void sg_consume(float (&acc)[2][NT][4], const SgArgs&
   }
 }
 
+// A block's place in the grid: rank (its K range) within its tile's
+// cluster of 2^lg ranks along x, and the tile's first column.
+__device__ __forceinline__ void sg_place(int lg, int& rank, int& o0) {
+  rank = blockIdx.x & ((1 << lg) - 1);
+  o0 = (blockIdx.x >> lg) * SG_BO;
+}
+
+// The partial tile of a consumer lane's accumulators in the quad mapping
+// of sg_lane (column 4·gid + 2·mt + h of the warp is row gid + 8h of m16
+// tile mt): (N_BOX, SG_PART_LD) f32 at `part`, the ring's start.
+template <int NT>
+__device__ __forceinline__ void sg_store_partial(float* part, const float (&acc)[2][NT][4],
+                                                 const SgLane& l) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      *reinterpret_cast<float4*>(part + (8 * nt + 2 * l.tig + j) * SG_PART_LD + l.quad_b) =
+          make_float4(acc[0][nt][j], acc[0][nt][2 + j], acc[1][nt][j], acc[1][nt][2 + j]);
+}
+
+// The epilogue every stream kernel shares, after each rank wrote its
+// partial tile and passed a barrier (cluster-wide at n_split = cs > 1): this
+// rank's share of the tile's quads (row n, columns 4q ..) summed over the
+// ranks in rank order and stored in the output dtype (bf16 or f32) — one
+// launch, nothing through device memory, the same bits on every call.
+__device__ __forceinline__ void sg_reduce_store(const float* part, void* out, int N, int O,
+                                                int o0, int rank, int lg, int cs, int tid,
+                                                int bf16_out) {
+  const int quads = N * (SG_BO / 4);
+  const int q_end = ((rank + 1) * quads) >> lg;
+  const uint32_t part_u = smem_u32(part);
+  for (int q = ((rank * quads) >> lg) + tid; q < q_end; q += 128) {
+    const int n = q / (SG_BO / 4), c = 4 * (q % (SG_BO / 4)), o = o0 + c;
+    if (o >= O) continue;
+    const uint32_t off = part_u + 4 * (n * SG_PART_LD + c);
+    float4 v = cs > 1 ? sg_ld_rank(off, 0) : *reinterpret_cast<const float4*>(part + n * SG_PART_LD + c);
+    for (int r = 1; r < cs; ++r) {
+      const float4 u = sg_ld_rank(off, r);
+      v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+    }
+    if (bf16_out) {
+      uint2 h;
+      h.x = bf16_pair(v.x, v.y);
+      h.y = bf16_pair(v.z, v.w);
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + (size_t)n * O + o) = h;
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + (size_t)n * O + o) = v;
+    }
+  }
+}
+
+// What the producer warpgroup does once its warp 4 has issued every stage:
+// wait for the consumers to drain the ring, then pass the barriers of the
+// epilogue (two cluster barriers, or the block's one).
+__device__ __forceinline__ void sg_producer_tail(int cs) {
+  named_sync<SG_THREADS>(SG_BAR_DRAINED);
+  if (cs > 1) {
+    sg_cluster_sync();
+    sg_cluster_sync();
+  } else {
+    __syncthreads();
+  }
+}
+
 // Block (tile, rank) of a cluster of n_split ranks along x: output columns
 // tile·128 .., stages rank·T/n_split .. (rank + 1)·T/n_split − 1 of the T =
 // n_sal + n_grp stages.  Warps 0-3 consume; warp 4 loads.
@@ -569,7 +637,8 @@ stream_gmm_kernel(const SgArgs a, const __grid_constant__ SgMaps m) {
   const int tid = threadIdx.x, warp = tid >> 5;
   // n_split is a power of two: shifts, not a division (which compiles to I2F)
   const int cs = a.n_split, lg = __ffs(cs) - 1;
-  const int rank = blockIdx.x & (cs - 1), o0 = (blockIdx.x >> lg) * SG_BO;
+  int rank, o0;
+  sg_place(lg, rank, o0);
   const int T = a.n_sal + a.n_grp;
   const int t0 = (rank * T) >> lg, t1 = ((rank + 1) * T) >> lg;
   if (tid == 0) {
@@ -584,13 +653,7 @@ stream_gmm_kernel(const SgArgs a, const __grid_constant__ SgMaps m) {
   if (warp >= 4) {
     regs_dec<SG_PRODUCER_REGS>();
     if (warp == 4) sg_produce<NIB, GS, NT, S>(a, m, smem, t0, t1, o0, tid & 31);
-    named_sync<SG_THREADS>(SG_BAR_DRAINED);
-    if (cs > 1) {
-      sg_cluster_sync();
-      sg_cluster_sync();
-    } else {
-      __syncthreads();
-    }
+    sg_producer_tail(cs);
     return;
   }
   regs_inc<SG_CONSUMER_REGS>();
@@ -598,38 +661,526 @@ stream_gmm_kernel(const SgArgs a, const __grid_constant__ SgMaps m) {
   float acc[2][NT][4];
   sg_consume<NIB, GS, NT, S>(acc, a, smem, t0, t1, o0, l);
   named_sync<SG_THREADS>(SG_BAR_DRAINED);   // the ring is free: it takes the partial tile
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      *reinterpret_cast<float4*>(part + (8 * nt + 2 * l.tig + j) * SG_PART_LD + l.quad_b) =
-          make_float4(acc[0][nt][j], acc[0][nt][2 + j], acc[1][nt][j], acc[1][nt][2 + j]);
+  sg_store_partial<NT>(part, acc, l);
   if (cs > 1) sg_cluster_sync();
   else __syncthreads();
-  // this rank's share of the tile's quads (row n, columns 4q ..): the ranks'
-  // partials summed in rank order, stored in the output dtype
-  const int quads = a.N * (SG_BO / 4);
-  const int q_end = ((rank + 1) * quads) >> lg;
-  const uint32_t part_u = smem_u32(part);
-  for (int q = ((rank * quads) >> lg) + tid; q < q_end; q += 128) {
-    const int n = q / (SG_BO / 4), c = 4 * (q % (SG_BO / 4)), o = o0 + c;
-    if (o >= a.O) continue;
-    const uint32_t off = part_u + 4 * (n * SG_PART_LD + c);
-    float4 v = cs > 1 ? sg_ld_rank(off, 0) : *reinterpret_cast<const float4*>(part + n * SG_PART_LD + c);
-    for (int r = 1; r < cs; ++r) {
-      const float4 u = sg_ld_rank(off, r);
-      v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+  sg_reduce_store(part, a.out, a.N, a.O, o0, rank, lg, cs, tid, a.t_bf16);
+  if (cs > 1) sg_cluster_sync();   // no rank leaves while another reads its tile
+}
+
+// ---------------------------------------------------------------- bf16 weights (K13)
+// The body's third weight kind: a layer's (K, O) bf16 slab, x at 1-8 token
+// rows (one n8 tile).  A stage is KB weight rows (64, or 32 where a tile's
+// K splits over ranks or the tiles outnumber the SMs: finer stages measured
+// faster there, stream_gmm.k13_kb) as two TMA boxes of 64 columns × KB rows
+// (128-byte rows, SWIZZLE_128B) and the x tile of those k (8 rows of KB
+// bf16, zero past N and past K).  The weight's output
+// columns are the M side of mma m16n8k16 bf16 → f32: a 16-bit transpose is
+// what ldmatrix.trans does, so each A fragment (16 columns × 16 k) is one
+// ldmatrix.x4.trans of the rows as TMA wrote them (no byte permutes), the
+// tokens the n side by ldmatrix from the x tile.  No scaling: the f32 sums
+// run straight through the stage; the split over K is the cluster's, reduced
+// as the other kinds are.
+constexpr int SB_STAGES = 4;                    // ring slots
+
+// The slot geometry of stages of KB weight rows (64 or 32)
+template <int KB>
+struct SbGeo {
+  static constexpr int HALF = KB * 128;          // one 64-column half of a stage's weight
+  static constexpr int W_BYTES = 2 * HALF;
+  static constexpr int X_BYTES = 8 * 2 * KB;     // the x tile: 8 rows of KB bf16
+  static constexpr int SLOT = sg_align(W_BYTES + X_BYTES, 1024);
+  static constexpr int OFF_BAR = SB_STAGES * SLOT;
+  static constexpr int SMEM = OFF_BAR + 2 * 8 * SB_STAGES;
+  static_assert(8 * SG_PART_LD * 4 <= OFF_BAR, "the partial tile reuses the ring");
+};
+
+struct SbArgs {
+  void* out;            // (N, O) bf16
+  int N, O, n_stages, n_split;
+};
+struct SbMaps {         // the weight slab (K, O), x (N, K)
+  CUtensorMap w, x;
+};
+
+__device__ __forceinline__ void ldsm_x4_t(int (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Block (tile, rank) as stream_gmm_kernel's.  Consumer warp w takes the
+// tile's columns 32w .. 32w + 31 (half w / 2 of the stage's weight), m16
+// tile mt its columns 16mt ..; lane L gives ldmatrix.x4.trans the row of
+// matrix L / 8 (k rows 8·(L / 16) .., columns 8·(L / 8 % 2) .. of the m
+// tile), so its registers are the m16n8k16 A fragment as they come.
+template <int KB>
+__global__ void __launch_bounds__(SG_THREADS, 2)
+stream_bf16_kernel(const SbArgs a, const __grid_constant__ SbMaps m) {
+  using Geo = SbGeo<KB>;
+  extern __shared__ __align__(1024) char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cs = a.n_split, lg = __ffs(cs) - 1;
+  int rank, o0;
+  sg_place(lg, rank, o0);
+  const int T = a.n_stages;
+  const int t0 = (rank * T) >> lg, t1 = ((rank + 1) * T) >> lg;
+  if (tid == 0) {
+    for (int s = 0; s < SB_STAGES; ++s) {
+      mbar_init(smem_u32(smem + Geo::OFF_BAR + 8 * s), 1);
+      mbar_init(smem_u32(smem + Geo::OFF_BAR + 8 * (SB_STAGES + s)), 4);
     }
-    if (a.t_bf16) {
-      uint2 h;
-      h.x = bf16_pair(v.x, v.y);
-      h.y = bf16_pair(v.z, v.w);
-      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.out) + (size_t)n * a.O + o) = h;
-    } else {
-      *reinterpret_cast<float4*>(static_cast<float*>(a.out) + (size_t)n * a.O + o) = v;
+    mbar_init_fence();
+  }
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem);
+  if (warp >= 4) {
+    regs_dec<SG_PRODUCER_REGS>();
+    if (warp == 4 && lane == 0) {
+      tma_prefetch(m.w);
+      tma_prefetch(m.x);
+      for (int t = t0; t < t1; ++t) {
+        const int i = t - t0, slot = i % SB_STAGES;
+        const uint32_t su = smem_u32(smem + slot * Geo::SLOT);
+        const uint32_t full = smem_u32(smem + Geo::OFF_BAR + 8 * slot);
+        if (i >= SB_STAGES)
+          mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * (SB_STAGES + slot)), (i / SB_STAGES - 1) & 1);
+        mbar_expect_tx(full, Geo::W_BYTES + Geo::X_BYTES);
+        tma_2d(su, m.w, full, o0, t * KB);
+        tma_2d(su + Geo::HALF, m.w, full, o0 + 64, t * KB);
+        tma_2d(su + Geo::W_BYTES, m.x, full, t * KB, 0);
+      }
+    }
+    sg_producer_tail(cs);
+    return;
+  }
+  regs_inc<SG_CONSUMER_REGS>();
+  const int gid = lane >> 2, tig = lane & 3, mi = lane >> 3, ri = lane & 7;
+  uint32_t a_off[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int chunk = 4 * (warp & 1) + 2 * mt + (mi & 1);   // 16-byte column chunk of the half
+    a_off[mt] = (uint32_t)((warp >> 1) * Geo::HALF + (8 * (mi >> 1) + ri) * 128 + ((chunk ^ ri) << 4));
+  }
+  const SgXOff<2 * KB, 32> xo = sg_xoff<2 * KB, 32>(lane);
+  float acc[2][4] = {};
+  for (int t = t0; t < t1; ++t) {
+    const int i = t - t0, slot = i % SB_STAGES;
+    const uint32_t su = smem_u32(smem + slot * Geo::SLOT);
+    mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * slot), (i / SB_STAGES) & 1);
+#pragma unroll
+    for (int ks = 0; ks < KB / 16; ++ks) {
+      int a0[4], a1[4], b[1][2];
+      ldsm_x4_t(a0, su + a_off[0] + ks * 16 * 128);
+      ldsm_x4_t(a1, su + a_off[1] + ks * 16 * 128);
+      sg_load_b<2 * KB, 32, 1>(b, su + Geo::W_BYTES, xo, ks);
+      mma_bf16(acc[0], a0, b[0]);
+      mma_bf16(acc[1], a1, b[0]);
+    }
+    __syncwarp();
+    if (lane == 0) sg_arrive(smem_u32(smem + Geo::OFF_BAR + 8 * (SB_STAGES + slot)));
+  }
+  named_sync<SG_THREADS>(SG_BAR_DRAINED);
+  // D row gid + 8h of m tile mt is column 32w + 16mt + 8h + gid, its
+  // columns 2·tig + j the tokens
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      part[(2 * tig + (e & 1)) * SG_PART_LD + 32 * warp + 16 * mt + 8 * (e >> 1) + gid] =
+          acc[mt][e];
+  if (cs > 1) sg_cluster_sync();
+  else __syncthreads();
+  sg_reduce_store(part, a.out, a.N, a.O, o0, rank, lg, cs, tid, 1);
+  if (cs > 1) sg_cluster_sync();
+}
+
+// ---------------------------------------------------------------- raw x (K1)
+// The nibble kind with K1's pre-pass folded in: x arrives raw (N <= 32 bf16
+// rows, before the RMSNorm or mask, before the quantize).  A group stage
+// carries, beside the pair's GS packed rows and its two column-scale rows,
+// the raw activations of its two groups — x's lo and hi tiles (N_BOX rows
+// of GS bf16, zero past N and past C) and the norm row's (GS f32) — all by
+// TMA, so the producer warp streams from its first instruction and no
+// activation waits on a load of its own.  The producer warpgroup's other
+// three warps quantize each stage in its slot as it lands, one warp a
+// stage and three stages at once, ahead of the consumers (a per-slot
+// "codes ready" mbarrier), as the TPU
+// kernel quantizes each K tile at j == 0 into VMEM scratch
+// (int4_group_matmul.py:366-397): y = (x·r)·w_norm, x·mask or x in f32
+// steps, zero in tail mode from k_ns_raw on; scale = max(absmax, 1e-5) ·
+// (1/qmax); codes rint(y / scale) of the true division (sr_code), GS/8
+// lanes a (row, group), 8 channels a lane; the codes go to the slot as TMA
+// would write an x tile (N_BOX rows of GS bytes, the GS-byte swizzle) and
+// their scales beside them, so the consumers' mma and scaling read them as
+// the nibble kind's (16·(b − 8) nibbles, the 0x4B400000 accumulator).
+// (Quantizing in the consumer warps instead, stage by stage or all before
+// the first stage, left K1 consumer-bound: PERF.md §6.)  What a stage
+// cannot carry is made before the first stage: the rows' RMS factors (rms
+// mode; rms_factor's rule: Σx² in f64 rounded to f32 once, 1/√ by two
+// correctly rounded steps, a warp a row; the quantizers' copy, and the
+// consumers' own where a tail salient stage needs it) and, by the
+// consumers, the salient activations of the
+// rank's salient stages (the external x_sal, or the tail's channels times
+// r and the norm row, rounded to bf16) as 32-column tiles in the 64-byte
+// swizzle of a TMA'd x_sal.  The codes and scales are those of
+// rawx_quantize_plain, bit for bit; the cluster reduces in rank order: one
+// launch where the dp4a body takes three.
+constexpr int SR_BAR_PREP = 2;          // the consumers' named barrier (128 threads)
+constexpr int SR_BAR_QUANT = 3;         // the quantizers' (96 threads)
+constexpr int SR_QUANTIZERS = 96;       // warps 5-7
+// registers a consumer / producer-warpgroup thread holds after setmaxnreg
+// (the quantizers need more than the stream body's 56)
+constexpr int SR_CONSUMER_REGS = 176, SR_PRODUCER_REGS = 80;
+constexpr int SR_SMEM_MAX = 232448;     // a block's dynamic shared memory at most (227 KB)
+
+template <int GS, int NT>
+struct SrGeo {
+  static constexpr int N_BOX = 8 * NT;
+  static constexpr int STAGES = 6;                           // ring slots
+  // each slot's every use is one quantizer warp's (stage i is warp i % 3's),
+  // so that warp waits on the slot's phases in order
+  static_assert(STAGES % 3 == 0, "a slot's stages fall to one quantizer warp");
+  static constexpr int W_BYTES = 8192;                       // a pair's GS·128 nibbles or 32 w_sal rows
+  static constexpr int OFF_SW = W_BYTES;                     // the pair's column scales (f32 at most)
+  static constexpr int OFF_X = OFF_SW + 2 * SG_BO * 4;       // raw x: the lo, then the hi tile
+  static constexpr int XT = N_BOX * GS * 2;
+  static constexpr int OFF_NW = OFF_X + 2 * XT;              // the norm row's lo and hi GS f32
+  static constexpr int NWT = sg_max(GS * 4, 128);            // (each at a 128-byte boundary)
+  static constexpr int OFF_Q = OFF_NW + 2 * NWT;             // codes: lo, then hi
+  static constexpr int CT = N_BOX * GS;
+  static constexpr int OFF_SX = OFF_Q + 2 * CT;              // their scales: lo, then hi
+  static constexpr int SLOT = sg_align(OFF_SX + 2 * N_BOX * 4, 1024);
+  static constexpr int OFF_R = STAGES * SLOT;                // RMS factors: the consumers', the quantizers'
+  static constexpr int OFF_BAR = OFF_R + 2 * N_BOX * 4;      // full, empty, codes-ready mbarriers
+  static constexpr int OFF_SAL = sg_align(OFF_BAR + 3 * 8 * STAGES, 128);   // salient tiles
+  static constexpr int SAL_T = N_BOX * 64;
+  static_assert(N_BOX * SG_PART_LD * 4 <= OFF_R, "the partial tile reuses the ring");
+  static constexpr int smem(int sal_stages) { return OFF_SAL + sal_stages * SAL_T; }
+};
+
+struct SrArgs {
+  const __nv_bfloat16* x;      // (N, C) raw activations
+  const float* nw;             // (C,) RMSNorm row (mode 1) or 0/1 mask (mode 2); null in mode 0
+  const __nv_bfloat16* xsal;   // (N, k_s) external salient activations, or null (tail mode)
+  void* out;                   // (N, O) bf16
+  int N, C, O, G, k_ns_raw, num_salient, k_s;
+  int mode, need_mask;
+  float eps, inv_c, inv_qmax;
+  int n_sal, n_grp, n_split;   // stages (salient, group pair) and ranks
+};
+struct SrMaps {   // the nibble weight, its column scales, the salient block, x, the norm row
+  CUtensorMap w, ws, wsal, x, nw;
+};
+
+// Σ of the squares of eight bf16 values (a 16-byte word) in f64, in order
+__device__ __forceinline__ double sr_sq8(uint4 v, double ss) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const double lo = __uint_as_float(w[i] << 16), hi = __uint_as_float(w[i] & 0xFFFF0000u);
+    ss += lo * lo;
+    ss += hi * hi;
+  }
+  return ss;
+}
+
+// The rows' RMS factors into rr, a warp a row (WARPS warps, warp w): each
+// lane's 16-byte words in order, eight in flight, then the warp's tree (f64
+// sums of bf16 squares are exact, so any warp gives the same bits).
+template <int WARPS>
+__device__ __forceinline__ void sr_rms(const SrArgs& a, float* rr, int w, int lane) {
+  const int words = a.C >> 3;
+  for (int n = w; n < a.N; n += WARPS) {
+    const uint4* row = reinterpret_cast<const uint4*>(a.x + (size_t)n * a.C);
+    double ss = 0.0;
+    for (int w0 = 0; w0 < words; w0 += 32 * 8) {
+      uint4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int wi = w0 + lane + 32 * u;
+        v[u] = wi < words ? __ldg(row + wi) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) ss = sr_sq8(v[u], ss);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (lane == 0)
+      rr[n] = __frcp_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(__double2float_rn(ss), a.inv_c), a.eps)));
+  }
+}
+
+// rint(y / scale) as a byte, y / scale the true division rounded to f32:
+// d = y·(1/scale) lies within 3·2^-24 of it relatively (both roundings), so
+// where d is farther than |d|·2^-20 from the nearest half-integer both round
+// to the same integer and d serves; only near a tie (rare) does the lane
+// divide.  The quotient plus 1.5·2^23 rounds half to even and leaves the
+// code in the low byte (|q| < 2^22): no conversion instruction.
+__device__ __forceinline__ uint32_t sr_code(float y, float scale, float inv) {
+  const float d = __fmul_rn(y, inv);
+  const float m = __fadd_rn(d, WG_MAGIC);
+  const float frac = __fsub_rn(d, __fsub_rn(m, WG_MAGIC));   // exact: d less its nearest integer
+  if (fabsf(fabsf(frac) - 0.5f) <= fmaxf(fabsf(d), 1.0f) * 9.5367431640625e-7f)
+    return __float_as_uint(__fadd_rn(__fdiv_rn(y, scale), WG_MAGIC)) & 0xFFu;
+  return __float_as_uint(m) & 0xFFu;
+}
+
+// One lane's share of a (row, group) quantize: its eight channels of x (a
+// 16-byte word of bf16) through the norm, the group's absmax over the SUB
+// lanes of its group (xor shuffles within them), the scale, the eight codes
+// as a word pair; returns the scale.
+template <int SUB>
+__device__ __forceinline__ float sr_quantize8(uint4 xv, const float (&nw)[8], float r, int c0,
+                                              const SrArgs& a, uint2& codes) {
+  const uint32_t w[4] = {xv.x, xv.y, xv.z, xv.w};
+  float y[8];
+  float amax = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    float v = __uint_as_float(e & 1 ? w[e >> 1] & 0xFFFF0000u : w[e >> 1] << 16);
+    if (a.mode == 1) v = __fmul_rn(__fmul_rn(v, r), nw[e]);
+    else if (a.mode == 2) v = __fmul_rn(v, nw[e]);
+    if (a.need_mask && c0 + e >= a.k_ns_raw) v = 0.0f;
+    y[e] = v;
+    amax = fmaxf(amax, fabsf(v));
+  }
+#pragma unroll
+  for (int o = SUB / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float scale = __fmul_rn(fmaxf(amax, 1e-5f), a.inv_qmax);
+  const float inv = __frcp_rn(scale);
+  uint32_t q[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) q[e] = sr_code(y[e], scale, inv);
+  codes = make_uint2(
+      __byte_perm(__byte_perm(q[0], q[1], 0x0040), __byte_perm(q[2], q[3], 0x0040), 0x5410),
+      __byte_perm(__byte_perm(q[4], q[5], 0x0040), __byte_perm(q[6], q[7], 0x0040), 0x5410));
+  return scale;
+}
+
+// The consumers' work before the first stage (128 threads): their RMS
+// factors, then the salient tiles of the rank's salient stages t0 .. ns − 1
+// (a warp a row, a lane a bf16 pair, four pairs' loads in flight).
+template <int GS, int NT>
+__device__ __forceinline__ void sr_prepass(const SrArgs& a, char* smem, int t0, int t1, int tid) {
+  using Geo = SrGeo<GS, NT>;
+  float* rr = reinterpret_cast<float*>(smem + Geo::OFF_R);
+  char* sal = smem + Geo::OFF_SAL;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ns = (t1 < a.n_sal ? t1 : a.n_sal) - t0;
+  if (ns <= 0) return;
+  if (a.mode == 1 && a.xsal == nullptr) {
+    sr_rms<4>(a, rr, warp, lane);
+    named_sync<128>(SR_BAR_PREP);
+  }
+  for (int n = warp; n < a.N; n += 4) {
+    const float r = a.mode == 1 && a.xsal == nullptr ? rr[n] : 1.0f;
+    for (int p0 = 0; p0 < 16 * ns; p0 += 128) {
+      float v[4][2];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jj = 32 * t0 + 2 * (p0 + lane + 32 * u) + e;   // salient column
+          float x = 0.0f;
+          if (a.xsal != nullptr) {
+            if (jj < a.k_s) x = __bfloat162float(__ldg(a.xsal + (size_t)n * a.k_s + jj));
+          } else if (jj < a.num_salient) {
+            const int col = a.k_ns_raw + jj;
+            x = __bfloat162float(__ldg(a.x + (size_t)n * a.C + col));
+            if (a.mode == 1) x = __fmul_rn(__fmul_rn(x, r), __ldg(a.nw + col));
+          }
+          v[u][e] = x;
+        }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int p = p0 + lane + 32 * u;
+        if (p < 16 * ns)
+          *reinterpret_cast<uint32_t*>(sal + (p >> 4) * Geo::SAL_T +
+                                       sg_swz<64>(n, 4 * (p & 15))) = bf16_pair(v[u][0], v[u][1]);
+      }
     }
   }
-  if (cs > 1) sg_cluster_sync();   // no rank leaves while another reads its tile
+  named_sync<128>(SR_BAR_PREP);
+}
+
+// The codes and scales of group stage j (pair j: groups j and j + G/2) from
+// the raw tiles in its slot `s`, into the same slot, by one quantizer warp:
+// item (group h, row n) of the 2N takes the GS/8 lanes of one subgroup,
+// 32/SUB items a round (the rounds are the warp's, so every lane reaches
+// each shuffle).
+template <int GS, int NT>
+__device__ __forceinline__ void sr_quantize_stage(const SrArgs& a, char* s, int j, const float* rr,
+                                                  int lane) {
+  using Geo = SrGeo<GS, NT>;
+  constexpr int SUB = GS / 8, IPR = 32 / SUB;
+  const int sl = lane % SUB, first = lane / SUB;
+  for (int it0 = 0; it0 < 2 * a.N; it0 += IPR) {
+    const int it = it0 + first, h = it & 1, n = it >> 1;
+    const bool ok = it < 2 * a.N;
+    const uint4 xv = *reinterpret_cast<const uint4*>(s + Geo::OFF_X + h * Geo::XT +
+                                                     (ok ? n : 0) * 2 * GS + 16 * sl);
+    float nw[8] = {};
+    if (a.mode != 0) {
+      const float4 u0 = *reinterpret_cast<const float4*>(s + Geo::OFF_NW + h * Geo::NWT + 32 * sl);
+      const float4 u1 = *reinterpret_cast<const float4*>(s + Geo::OFF_NW + h * Geo::NWT + 32 * sl + 16);
+      nw[0] = u0.x, nw[1] = u0.y, nw[2] = u0.z, nw[3] = u0.w;
+      nw[4] = u1.x, nw[5] = u1.y, nw[6] = u1.z, nw[7] = u1.w;
+    }
+    const int c0 = (j + h * (a.G >> 1)) * GS + 8 * sl;
+    uint2 codes;
+    const float scale =
+        sr_quantize8<SUB>(xv, nw, a.mode == 1 && ok ? rr[n] : 1.0f, c0, a, codes);
+    if (ok) {
+      *reinterpret_cast<uint2*>(s + Geo::OFF_Q + h * Geo::CT + sg_swz<GS>(n, 8 * sl)) = codes;
+      if (sl == 0) reinterpret_cast<float*>(s + Geo::OFF_SX)[h * Geo::N_BOX + n] = scale;
+    }
+  }
+}
+
+// The quantizer warps (5-7): their RMS factors, then warp q takes the
+// rank's stages q, q + 3, ... in ring order — wait for the stage to land,
+// quantize it if it is a group stage, and report the slot's codes ready
+// (one arrival, after __syncwarp orders the warp's writes before it; the
+// consumers wait for it at every stage, so no slot is refilled before its
+// warp is done with it).  Three
+// stages are quantized at once: one warp a stage, where all three on one
+// stage left each stage's latency chain in turn (PERF.md §6).  The ring's
+// depth is a multiple of 3, so every use of a slot is the same warp's and
+// it waits on the slot's phases in order (a warp that waited on a later
+// use while an earlier one was pending would pass at once).
+template <int GS, int NT>
+__device__ __forceinline__ void sr_quantizer(const SrArgs& a, char* smem, int t0, int t1, int qtid) {
+  using Geo = SrGeo<GS, NT>;
+  constexpr int STAGES = Geo::STAGES;
+  float* rr = reinterpret_cast<float*>(smem + Geo::OFF_R) + Geo::N_BOX;
+  const int qw = qtid >> 5, lane = qtid & 31;
+  if (a.mode == 1) {
+    sr_rms<3>(a, rr, qw, lane);
+    named_sync<SR_QUANTIZERS>(SR_BAR_QUANT);
+  }
+  for (int t = t0 + qw; t < t1; t += 3) {
+    const int i = t - t0, slot = i % STAGES;
+    mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * slot), (i / STAGES) & 1);
+    if (t >= a.n_sal) sr_quantize_stage<GS, NT>(a, smem + slot * Geo::SLOT, t - a.n_sal, rr, lane);
+    __syncwarp();
+    if (lane == 0) sg_arrive(smem_u32(smem + Geo::OFF_BAR + 8 * (2 * STAGES + slot)));
+  }
+}
+
+// Block (tile, rank) as stream_gmm_kernel's: warps 0-3 consume, warp 4
+// loads from the first instruction on, warps 5-7 quantize.
+template <int GS, int NT, typename S>
+__global__ void __launch_bounds__(SG_THREADS, 2)
+stream_rawx_kernel(const SrArgs a, const __grid_constant__ SrMaps m) {
+  using Geo = SrGeo<GS, NT>;
+  constexpr int STAGES = Geo::STAGES;
+  extern __shared__ __align__(1024) char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cs = a.n_split, lg = __ffs(cs) - 1;
+  int rank, o0;
+  sg_place(lg, rank, o0);
+  const int T = a.n_sal + a.n_grp;
+  const int t0 = (rank * T) >> lg, t1 = ((rank + 1) * T) >> lg;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(smem + Geo::OFF_BAR + 8 * s), 1);
+      mbar_init(smem_u32(smem + Geo::OFF_BAR + 8 * (STAGES + s)), 4);
+      mbar_init(smem_u32(smem + Geo::OFF_BAR + 8 * (2 * STAGES + s)), 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem);
+  if (warp >= 4) {
+    regs_dec<SR_PRODUCER_REGS>();
+    if (warp > 4) {
+      sr_quantizer<GS, NT>(a, smem, t0, t1, tid - 160);
+    } else if (lane == 0) {
+      tma_prefetch(m.w);
+      tma_prefetch(m.ws);
+      tma_prefetch(m.x);
+      if (a.mode) tma_prefetch(m.nw);
+      if (a.n_sal) tma_prefetch(m.wsal);
+      const int nw_bytes = a.mode ? 2 * GS * 4 : 0;
+      for (int t = t0; t < t1; ++t) {
+        const int i = t - t0, slot = i % STAGES;
+        const uint32_t su = smem_u32(smem + slot * Geo::SLOT);
+        const uint32_t full = smem_u32(smem + Geo::OFF_BAR + 8 * slot);
+        if (i >= STAGES)
+          mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * (STAGES + slot)), (i / STAGES - 1) & 1);
+        if (t < a.n_sal) {
+          mbar_expect_tx(full, 2 * 32 * 128);
+          tma_2d(su, m.wsal, full, o0, 32 * t);
+          tma_2d(su + 32 * 128, m.wsal, full, o0 + 64, 32 * t);
+        } else {
+          const int j = t - a.n_sal, jh = j + (a.G >> 1);
+          mbar_expect_tx(full, GS * SG_BO + 2 * SG_BO * (int)sizeof(S) + 2 * Geo::XT + nw_bytes);
+          tma_2d(su, m.w, full, o0, j * GS);
+          tma_2d(su + Geo::OFF_SW, m.ws, full, o0, j);
+          tma_2d(su + Geo::OFF_SW + SG_BO * (int)sizeof(S), m.ws, full, o0, jh);
+          tma_2d(su + Geo::OFF_X, m.x, full, j * GS, 0);
+          tma_2d(su + Geo::OFF_X + Geo::XT, m.x, full, jh * GS, 0);
+          if (a.mode) {
+            tma_2d(su + Geo::OFF_NW, m.nw, full, j * GS, 0);
+            tma_2d(su + Geo::OFF_NW + Geo::NWT, m.nw, full, jh * GS, 0);
+          }
+        }
+      }
+    }
+    sg_producer_tail(cs);
+    return;
+  }
+  regs_inc<SR_CONSUMER_REGS>();
+  sr_prepass<GS, NT>(a, smem, t0, t1, tid);
+  const SgLane l = sg_lane(tid);
+  const SgXOff<GS, GS % 32 == 0 ? 32 : 16> xo = sg_xoff<GS, GS % 32 == 0 ? 32 : 16>(lane);
+  const SgXOff<64, 32> xso = sg_xoff<64, 32>(lane);
+  uint32_t sal_off[2];
+  {
+    const int b = 64 * (l.w & 1) + 8 * l.gid;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      sal_off[e] = (uint32_t)((l.w >> 1) * 32 * 128 + sg_swz<128>(2 * l.tig + e, b));
+  }
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  for (int t = t0; t < t1; ++t) {
+    const int i = t - t0, slot = i % STAGES;
+    const char* s = smem + slot * Geo::SLOT;
+    mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * slot), (i / STAGES) & 1);
+    // every stage's codes-ready phase, the salient stages' too (whose
+    // quantizer only reports): a consumer that freed a slot its quantizer
+    // had not yet reached would let the producer refill it, and that warp
+    // would then wait on a phase already past, and this wait pass early
+    mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * (2 * STAGES + slot)), (i / STAGES) & 1);
+    if (t < a.n_sal) {
+      sg_salient_bf16<NT, 32>(acc, s, smem_u32(smem + Geo::OFF_SAL + i * Geo::SAL_T), sal_off,
+                              xso);
+    } else {
+      const float* sx = reinterpret_cast<const float*>(s + Geo::OFF_SX);
+      const S* sw = reinterpret_cast<const S*>(s + Geo::OFF_SW);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int p[2][NT][4];
+        sg_group_mma<true, GS, NT, GS>(p, s, 0, h, smem_u32(s + Geo::OFF_Q + h * Geo::CT), xo, l);
+        sg_scale<NT, S>(acc, p, sx + h * Geo::N_BOX, sw + h * SG_BO, 0.0625f, l);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) sg_arrive(smem_u32(smem + Geo::OFF_BAR + 8 * (STAGES + slot)));
+  }
+  named_sync<SG_THREADS>(SG_BAR_DRAINED);
+  sg_store_partial<NT>(part, acc, l);
+  if (cs > 1) sg_cluster_sync();
+  else __syncthreads();
+  sg_reduce_store(part, a.out, a.N, a.O, o0, rank, lg, cs, tid, 1);
+  if (cs > 1) sg_cluster_sync();
 }
 
 // ---------------------------------------------------------------- host side
@@ -659,27 +1210,35 @@ inline bool sg_common_maps(SgMaps& m, const void* ws, const void* xsal, const vo
   return ok;
 }
 
+// A stream kernel's launch: a cluster of n_split blocks along x per
+// 128-column tile of O, `smem` bytes of dynamic shared memory.
+template <typename... P, typename... A>
+int sg_launch_tiles(void (*kernel)(P...), int O, int n_split, int smem, cudaStream_t st,
+                    const A&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((O + SG_BO - 1) / SG_BO * n_split);
+  cfg.blockDim = dim3(SG_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <bool NIB, int GS, int NT, typename S>
 int sg_launch(const SgArgs& a, const SgMaps& m, cudaStream_t st) {
   using Geo = SgGeo<NIB, GS, NT>;
   static const cudaError_t ready =
       wg_kernel_ready(stream_gmm_kernel<NIB, GS, NT, S>, Geo::SMEM, 65536 / (2 * SG_THREADS));
   if (ready != cudaSuccess) return (int)ready;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.O + SG_BO - 1) / SG_BO * a.n_split);
-  cfg.blockDim = dim3(SG_THREADS);
-  cfg.dynamicSmemBytes = Geo::SMEM;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.n_split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, stream_gmm_kernel<NIB, GS, NT, S>, a, m);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return sg_launch_tiles(stream_gmm_kernel<NIB, GS, NT, S>, a.O, a.n_split, Geo::SMEM, st, a, m);
 }
 
 // token tiles of the padded width 8·NT for N rows (N <= 64): 1, 2, 4 or 8
@@ -710,6 +1269,58 @@ inline bool sg_args_ok(int N, int O, int k_s, int xsal_rs, int n_split, int stag
   if (n_split != 1 && n_split != 2 && n_split != 4 && n_split != 8) return false;
   if (stages < n_split || k_s < 0 || xsal_rs < k_s) return false;
   return !(t_bf16 && k_s > 0 && xsal_rs % 8);
+}
+
+// K13's launch at stages of KB rows: x (N, K) and the layer's (K, O) slab in
+// bf16 (TMA's rules: 16-byte aligned, K and O multiples of 8), out (N, O)
+// bf16, N <= 8.  (A template, so only the source that launches it compiles
+// the kernel.)
+template <int KB>
+int sb_launch(const void* x, const void* w, void* out, int N, int K, int O, int n_split,
+              cudaStream_t st) {
+  using Geo = SbGeo<KB>;
+  static const cudaError_t ready =
+      wg_kernel_ready(stream_bf16_kernel<KB>, Geo::SMEM, 65536 / (2 * SG_THREADS));
+  if (ready != cudaSuccess) return (int)ready;
+  SbMaps m = {};
+  if (!wg_map(&m.w, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, O, K, O, 64, KB,
+              CU_TENSOR_MAP_SWIZZLE_128B, SG_W_PROMO) ||
+      !wg_map(&m.x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, N, K, KB, 8,
+              KB == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  const SbArgs a{out, N, O, (K + KB - 1) / KB, n_split};
+  return sg_launch_tiles(stream_bf16_kernel<KB>, O, n_split, Geo::SMEM, st, a, m);
+}
+
+// K1's launch at group size GS: the token tiles of N, the dynamic shared
+// memory of the ring and of the most salient stages a rank takes (refused
+// above a block's 227 KB).
+template <int GS, int NT, typename S>
+int sr_launch(const SrArgs& a, const SrMaps& m, cudaStream_t st) {
+  using Geo = SrGeo<GS, NT>;
+  static const cudaError_t ready =
+      wg_kernel_ready(stream_rawx_kernel<GS, NT, S>, SR_SMEM_MAX, 65536 / (2 * SG_THREADS));
+  if (ready != cudaSuccess) return (int)ready;
+  const int T = a.n_sal + a.n_grp, per_rank = (T + a.n_split - 1) / a.n_split;
+  const int smem = Geo::smem(a.n_sal < per_rank ? a.n_sal : per_rank);
+  if (smem > SR_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  return sg_launch_tiles(stream_rawx_kernel<GS, NT, S>, a.O, a.n_split, smem, st, a, m);
+}
+
+template <int GS, typename S>
+int sr_dispatch_nt(const SrArgs& a, const SrMaps& m, cudaStream_t st) {
+  switch (sg_tiles_for(a.N)) {
+    case 1: return sr_launch<GS, 1, S>(a, m, st);
+    case 2: return sr_launch<GS, 2, S>(a, m, st);
+    default: return sr_launch<GS, 4, S>(a, m, st);
+  }
+}
+
+template <typename S>
+int sr_dispatch(const SrArgs& a, const SrMaps& m, int gs, cudaStream_t st) {
+  return gs == 16 ? sr_dispatch_nt<16, S>(a, m, st)
+         : gs == 32 ? sr_dispatch_nt<32, S>(a, m, st)
+                    : sr_dispatch_nt<64, S>(a, m, st);
 }
 
 }  // namespace

@@ -8,7 +8,10 @@ K1  int4_group_matmul_stacked_rawx — port of smoothquant_tpu/kernels/
     channel mask ("mask"), salient split (permuted tail, or an external
     pre-gathered x_sal), per-(row, group) activation quantize
     max(absmax, 1e-5)/qmax with round half to even, biased-nibble unpack and
-    Σ_g s_x·s_w·(x_q·w_u − 8·Σx_q) + x_sal·w_sal.
+    Σ_g s_x·s_w·(x_q·w_u − 8·Σx_q) + x_sal·w_sal; in one of two bodies
+    picked by shape alone (rawx_body): one launch of the weight-streaming
+    body with the pre-pass folded in (csrc/stream_gmm.cuh
+    stream_rawx_kernel) or the __dp4a body's three launches.
 K5  int4_group_matmul_stacked — port of :679 (pallas_call :807).  Layer
     `layer_idx` of a stacked pack on activations already quantized, either
     row-major (N, K) codes with (N, G) scales or, pre_laid = N, K7a's
@@ -38,6 +41,11 @@ from smoothquant_tpu_torch.kernels import _build, stream_gmm
 from smoothquant_tpu_torch.quant.core import compute_scale, f32_reciprocal, rms_factor
 
 RAWX_MAX_N = 32         # token rows K1 takes (the JAX rawx branch's gate)
+RAWX_BODIES = ("stream", "dp4a")
+# the launch counter of each K1 body: the stream body counts under the
+# kernel's name, so a path that expects it proves the stream body served it
+RAWX_LAUNCH_KEYS = {"stream": "int4_group_matmul_stacked_rawx",
+                    "dp4a": "int4_group_matmul_stacked_rawx_dp4a"}
 
 
 @functools.lru_cache(maxsize=64)
@@ -135,6 +143,23 @@ def rawx_plain(layer_idx: int, x_raw, norm_w, w_packed, w_scales_t, w_sal_t,
     return acc.to(out_dtype or x_raw.dtype)
 
 
+def rawx_body(n: int, c: int, o: int, kk: int, group_size: int, k_s: int, dtype) -> str:
+    """The body a CUDA call of K1 runs, by shape alone: "stream" (one launch
+    of the weight-streaming body, its pre-pass folded in: bf16 x, 1 to 32
+    rows, group size 16, 32 or 64, C a multiple of 8 (16-byte row loads), O
+    a multiple of 16 (TMA's weight rows), and a split whose ranks' salient
+    tiles fit a block's shared memory — every bf16 decode linear of the
+    paths) or
+    "dp4a" (the pre-pass, __dp4a main and reduce launches: f32 x, group
+    sizes 4-128 others)."""
+    if (dtype == torch.bfloat16 and 1 <= n <= stream_gmm.K1_ROWS
+            and group_size in STREAM_GROUPS and c % 8 == 0 and o % 16 == 0
+            and stream_gmm.k1_split(o, stream_gmm.k5_stages(kk, group_size, k_s, True), n,
+                                    group_size, -(-k_s // 32)) is not None):
+        return "stream"
+    return "dp4a"
+
+
 def int4_group_matmul_stacked_rawx(
     layer_idx: int,
     x_raw: torch.Tensor,          # (N, C) pre-quant activations
@@ -150,8 +175,10 @@ def int4_group_matmul_stacked_rawx(
     eps: float = 0.0,
     norm_kind: Optional[str] = "rms",
     out_dtype=None,
+    body: Optional[str] = None,   # None: rawx_body's pick; "stream" / "dp4a" force one
 ) -> torch.Tensor:
-    """Fused decode linear for one layer of a stacked tree → (N, O_pad)."""
+    """Fused decode linear for one layer of a stacked tree → (N, O_pad).
+    A forced body raises on a shape it does not take."""
     if x_raw.device.type == "cpu":
         return rawx_plain(layer_idx, x_raw, norm_w, w_packed, w_scales_t,
                           w_sal_t, x_sal, group_size=group_size,
@@ -180,22 +207,41 @@ def int4_group_matmul_stacked_rawx(
             raise ValueError(f"x_sal {tuple(x_sal.shape)} != {(n, k_s)}")
     if w_packed.dtype != torch.int8 or w_scales_t.shape != (l_num, kk // group_size, o):
         raise TypeError("K1 takes int8 nibble bytes (L, K/2, O), scales (L, G, O)")
+    rule = rawx_body(n, c, o, kk, group_size, k_s, x_raw.dtype)
+    body = rule if body is None else body
+    if body not in RAWX_BODIES or (body == "stream" and rule != "stream"):
+        raise ValueError(f"K1's {body!r} body does not take N = {n}, C = {c}, O = {o}, "
+                         f"group size {group_size}, {x_raw.dtype}")
     dev = x_raw.device
     _build.check_operands(dev, norm_w=norm_w if nk else None, x_sal=x_sal,
                           w_packed=w_packed, w_scales_t=w_scales_t, w_sal_t=w_sal_t)
+    out = torch.empty((n, o), dtype=x_raw.dtype, device=dev)
+    qmax_inv = f32_reciprocal(2 ** (act_bits - 1) - 1)
+    need_mask = int(x_sal is None and kk > c - num_salient)
+    if body == "stream":
+        nw = None if nk is None else norm_w[layer_idx]
+        x, nw, xs, w, ws, w_sal = (None if t is None else _build.aligned(t) for t in (
+            x_raw, nw, x_sal, w_packed[layer_idx], w_scales_t[layer_idx], w_sal_t[layer_idx]))
+        n_split = stream_gmm.k1_split(o, stream_gmm.k5_stages(kk, group_size, k_s, True), n,
+                                      group_size, -(-k_s // 32))
+        _build.check(_build.lib().sq_rawx_stream(
+            x.data_ptr(), None if nw is None else nw.data_ptr(),
+            None if xs is None else xs.data_ptr(), w.data_ptr(), ws.data_ptr(),
+            w_sal.data_ptr(), out.data_ptr(), n, c, o, kk, group_size, c - num_salient,
+            num_salient, k_s, mode, need_mask, float(eps), f32_reciprocal(c), qmax_inv,
+            _build.dt_code(w_scales_t), n_split, _build.stream_ptr(x_raw)), "sq_rawx_stream")
+        _build.LAUNCHES[RAWX_LAUNCH_KEYS[body]] += 1
+        return out
     workspace = torch.empty(_rawx_workspace_bytes(n, o, kk, group_size, k_s),
                             dtype=torch.uint8, device=dev)
-    out = torch.empty((n, o), dtype=x_raw.dtype, device=dev)
     _build.check(_build.lib().sq_rawx(
         x_raw.data_ptr(), None if nk is None else norm_w[layer_idx].data_ptr(),
         None if x_sal is None else x_sal.data_ptr(), w_packed[layer_idx].data_ptr(),
         w_scales_t[layer_idx].data_ptr(), w_sal_t[layer_idx].data_ptr(),
         workspace.data_ptr(), out.data_ptr(), n, c, o, kk, group_size,
-        c - num_salient, num_salient, k_s, mode,
-        int(x_sal is None and kk > c - num_salient), float(eps),
-        f32_reciprocal(2 ** (act_bits - 1) - 1), _build.dt_code(w_scales_t),
-        _build.dt_code(x_raw), _build.stream_ptr(x_raw)), "sq_rawx")
-    _build.LAUNCHES["int4_group_matmul_stacked_rawx"] += 1
+        c - num_salient, num_salient, k_s, mode, need_mask, float(eps), qmax_inv,
+        _build.dt_code(w_scales_t), _build.dt_code(x_raw), _build.stream_ptr(x_raw)), "sq_rawx")
+    _build.LAUNCHES[RAWX_LAUNCH_KEYS[body]] += 1
     return out
 
 

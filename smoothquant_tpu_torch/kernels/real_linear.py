@@ -97,14 +97,15 @@ INT_PATH_MAX_TOKENS = 64
 # stacked decode linears: up to this many rows K1, above it K5 (its stream
 # body) on activations made as K1 makes them, up to RAWX_MAX_N rows.
 # Measured by chip_smoke.py's k1_vs_k5 (NVIDIA H100 80GB HBM3, 700 W; a
-# Llama-2-7B layer's four sites, activation prep included, cold): K1 0.129,
-# 0.160, 0.277, 0.368, 0.606 ms against K5's route 0.139, 0.146, 0.146,
-# 0.155, 0.180 at 1, 4, 8, 16, 32 rows.  At 4 rows the route's 9 % lies
-# within the spread of K1's readings between phases (0.150-0.160) and adds
-# launches to a step that is host-bound (87 % idle), and K1's 4-row
-# accumulators end there (its 8-row ones take 0.277 at 8 rows), so K1 keeps
-# 1-4 rows.  (Before the stream body this boundary was RAWX_MAX_N, the JAX
-# rawx branch's gate.)
+# Llama-2-7B layer's four sites, activation prep included, cold), with K1 on
+# its stream body (one launch, the pre-pass folded in): K1 0.092, 0.108,
+# 0.155, 0.294, 0.653 ms against K5's route 0.139, 0.146, 0.147, 0.155,
+# 0.182 at 1, 4, 8, 16, 32 rows.  K1's quantizer warps make every (row,
+# group) of a block's K range, so its cost grows with the rows where the
+# route quantizes once; the route wins from 8 rows, so K1 keeps 1-4.  (K1's
+# dp4a body in the same run: 0.128, 0.160, 0.280, 0.367, 0.604 ms, the same
+# boundary; before the stream body for K5 it was RAWX_MAX_N, the JAX rawx
+# branch's gate.)
 K1_MAX_TOKENS = 4
 COMPUTE_CHOICES = ("auto", "int", "dequant")
 

@@ -1,9 +1,12 @@
-"""Host-side rules of the weight-streaming body K8 and K5 share
-(csrc/stream_gmm.cuh): the stages a call streams, how a 128-column tile's
-stages split over the ranks of a thread-block cluster, and the body's
-int32 → f32 conversion and nibble operand written in PyTorch.  Plain Python on shapes, so the
-CPU tests hold them; the shape rules that pick the body live beside each
-wrapper (int_group_matmul.int_gmm_body, int4_group_matmul.stacked_body).
+"""Host-side rules of the weight-streaming body (csrc/stream_gmm.cuh) and
+its four weight kinds — K8's int8 containers, K5's nibbles, K13's bf16 slab
+and K1's nibbles on raw x: the stages a call streams, how a 128-column
+tile's stages split over the ranks of a thread-block cluster, K1's shared
+memory, and the body's int32 →
+f32 conversion and nibble operand written in PyTorch.  Plain Python on
+shapes, so the CPU tests hold them; the shape rules that pick the body live
+beside each wrapper (int_group_matmul.int_gmm_body,
+int4_group_matmul.stacked_body and rawx_body, fp_matmul.fp_body).
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ SPLITS = (1, 2, 4, 8)  # ranks of a cluster (8: the portable cluster size)
 MIN_STAGES = 2         # stages each rank streams at least
 MAGIC_BITS = 0x4B400000   # the f32 bits of 1.5·2^23
 MAGIC = 12582912.0
+K13_ROWS = 8           # token rows K13's kind takes (one n8 tile)
+K1_ROWS = 32           # token rows K1's kind takes (4 n8 tiles)
+SMEM_MAX = 232448      # a block's dynamic shared memory at most (227 KB)
 
 
 def k8_stages(kk: int, k_s: int, bf16: bool) -> int:
@@ -30,6 +36,51 @@ def k5_stages(kk: int, group_size: int, k_s: int, bf16: bool) -> int:
     """K5's stages: one group pair (group_size packed rows) a group stage,
     32 salient rows a bf16 salient stage."""
     return kk // group_size // 2 + (-(-k_s // 32) if bf16 else 0)
+
+
+def k13_kb(o: int, kk: int) -> int:
+    """Weight rows of a K13 stage: 64, or 32 where the 128-column tiles
+    outnumber the SMs or leave room for a split over K (finer stages
+    measured faster there: scripts/stream_variants.py k13_kb32)."""
+    tiles = -(-o // TILE_COLS)
+    return 64 if tiles <= MAX_BLOCKS < 2 * tiles else 32
+
+
+def k13_stages(kk: int, kb: int = 64) -> int:
+    """K13's stages: kb weight rows (and the x tile of those k) each."""
+    return -(-kk // kb)
+
+
+def tiles_for(n: int) -> int:
+    """n8 token tiles of the padded width 8·NT the body gives n rows."""
+    return 1 if n <= 8 else 2 if n <= 16 else 4 if n <= 32 else 8
+
+
+def k1_smem(n: int, group_size: int, sal_stages: int) -> int:
+    """K1's dynamic shared memory (SrGeo::smem): the ring (6 slots) — a
+    slot holds a pair's nibbles, its column scales, the
+    raw x tiles and norm rows of its two groups, their codes and scales —
+    two copies of the rows' RMS factors, three mbarriers a slot, then the
+    salient tiles (N_BOX rows of 32 bf16) of a rank's salient stages."""
+    n_box, stages = 8 * tiles_for(n), 6
+    x_tile, nw_tile, c_tile = 2 * n_box * group_size, max(4 * group_size, 128), n_box * group_size
+    slot = -(-(8192 + 1024 + 2 * x_tile + 2 * nw_tile + 2 * c_tile + 8 * n_box) // 1024) * 1024
+    off_bar = stages * slot + 8 * n_box
+    off_sal = -(-(off_bar + 24 * stages) // 128) * 128
+    return off_sal + sal_stages * 64 * n_box
+
+
+def k1_split(o: int, stages: int, n: int, group_size: int, sal_stages: int):
+    """K1's ranks: split's, or more where the salient tiles of a rank would
+    not fit a block's shared memory; None where no split of SPLITS makes
+    them fit."""
+    c = split(o, stages)
+    while k1_smem(n, group_size, min(sal_stages, -(-stages // c))) > SMEM_MAX:
+        more = [s for s in SPLITS if s > c and stages >= s * MIN_STAGES]
+        if not more:
+            return None
+        c = more[0]
+    return c
 
 
 def split(o: int, stages: int) -> int:

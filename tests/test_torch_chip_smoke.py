@@ -132,7 +132,9 @@ def test_slot_path_rehearsal_on_cpu(monkeypatch):
     assert kinds["quantize_acts_grouped_t"] == ["qkv", "gate_up", "down"]
     assert kinds["int4_group_matmul_stacked"] == ["qkv", "o", "gate_up", "down", "qkv@rows"]
     assert len(kinds["write_quant_cache_stacked"]) == 1
-    assert all("tiles_ms" in r for r in rows if r.get("body") == "stream")
+    assert all("tiles_ms" in r for r in rows if r.get("body") == "stream"
+               and r["kernel"] == "int4_group_matmul_stacked")
+    assert all("old_body_ms" in r for r in rows if r["kernel"] == "int4_group_matmul_stacked_rawx")
     routes = cs.k1_vs_k5(stacked, cpu, gen)
     assert routes["rows"] == [1, 4, 8, 16, 32] and set(routes["by_rows"][32]["ms"]) == {
         "qkv", "o", "gate_up", "down"}
@@ -485,9 +487,10 @@ def test_bloom_path_rehearsal_on_cpu(monkeypatch):
         "quantize_acts_grouped_t": 4 * n_l, "int4_group_matmul_stacked": 4 * n_l,
         "write_quant_cache_stacked": n_l, "decode_attention_stacked_alibi": n_l}
     # the first expectation recorded is float32's: K11's flash ALiBi body
+    # and K1's dp4a body
     assert expected["bloom reference check stacked_int8"] == {
-        "int4_group_matmul_stacked_rawx": 4 * n_l, "decode_attention_stacked_flash_alibi": n_l,
-        "write_quant_cache_stacked": n_l}
+        "int4_group_matmul_stacked_rawx_dp4a": 4 * n_l,
+        "decode_attention_stacked_flash_alibi": n_l, "write_quant_cache_stacked": n_l}
     phases = {p["phase"]: p for p in printed if "phase" in p}
     for dtype_name in ("float32", "bfloat16"):
         parts = phases["bloom_reference_check"][dtype_name]
@@ -643,3 +646,27 @@ def test_k3_k12_phases_rehearsal_on_cpu(monkeypatch):
                          (cs.check_k12_edges(cpu), 3 * 2 * 7 * 3 * 4)):
         assert edges["max_rel_err"] == 0.0 and edges["cases"] == cases
         assert edges["repeated_calls_identical"] == 2 * cases + 400
+
+
+def test_k13_k1_edge_checks_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's edge checks of K13's and K1's stream bodies on the CPU,
+    where the wrappers take their plain versions: k13_edges (1-8 rows,
+    ragged K and O, bf16 and f32) and k1_edges (1-32 rows, ragged O, every
+    mode, both scale dtypes, group sizes 64 / 32 / 16, bf16 and f32 x)
+    hold every case, repeat each stream call with identical bits, hold the
+    stream K1 bit for bit to K5's stream body on the plain codes, and name
+    the body each case's shape rule picks."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
+    cpu = torch.device("cpu")
+    k13 = cs.check_k13_edges(cpu)
+    assert k13 == {"max_rel_err": {"stream": 0.0, "ldg": 0.0}, "cases": 7 * 5 * 2,
+                   "repeated_calls_identical": 7 * 5 * 2}
+    k1 = cs.check_k1_edges(cpu)
+    stream = 8 * 3 * 2 * 3 * 2          # rows, shapes, O taking the stream body, modes, scales
+    assert k1["max_rel_err"] == {"stream": 0.0, "dp4a": 0.0}
+    assert k1["cases"] == 8 * 3 * 3 * 3 * 2 + 3 * 3 * 3 * 2   # and f32 x at 4 rows
+    assert k1["repeated_calls_identical"] == k1["held_to_k5_bitwise"] == stream

@@ -20,6 +20,7 @@ from smoothquant_tpu.models import ForwardContext as JCtx
 from smoothquant_tpu.models import llama as jllama
 from smoothquant_tpu.models.common import KVCache as JKVCache
 from smoothquant_tpu_torch.kernels import fp_matmul as k13
+from smoothquant_tpu_torch.kernels import stream_gmm
 from smoothquant_tpu_torch.models import common as tcommon
 from smoothquant_tpu_torch.models import llama as tllama
 from smoothquant_tpu_torch.utils.convert import params_from_numpy
@@ -214,3 +215,78 @@ def test_fp_lm_head_logits_accumulate_in_f32():
     _close(got, ref)
     rounded = got.to(torch.bfloat16).float()
     assert (got != rounded).float().mean() > 0.5     # f32 logits, not bf16 ones
+
+
+# ---------------------------------------------------------------- K13's stream body
+
+
+@pytest.mark.parametrize("n, kk, o, dtype, body", [
+    (4, 4096, 12288, torch.bfloat16, "stream"),   # Llama-2-7B's qkv at B = 4
+    (4, 11008, 4096, torch.bfloat16, "stream"),   # down_proj
+    (1, 72, 136, torch.bfloat16, "stream"),       # a ragged stage and column tile
+    (8, 4096, 4096, torch.bfloat16, "stream"),    # the most rows one n8 tile holds
+    (4, 4096, 12288, torch.float32, "ldg"),       # f32: the __ldg body
+    (4, 12, 64, torch.bfloat16, "ldg"),           # K % 8 != 0: no 16-byte TMA rows
+    (4, 4096, 12, torch.bfloat16, "ldg"),         # O % 8 != 0
+])
+def test_k13_body_rule(n, kk, o, dtype, body):
+    """K13's body on a CUDA tensor follows from the shape alone: the stream
+    body for every bf16 decode linear, the __ldg body for f32."""
+    assert k13.fp_body(n, kk, o, dtype) == body
+
+
+def test_k13_stream_stages_and_split():
+    """K13's stages: 64 weight rows where the 128-column tiles alone about
+    fill the card (Llama-2-7B's qkv, 96 tiles), 32 where a tile's K splits
+    over ranks (o and down, 32 tiles: 4 ranks) or the tiles outnumber the
+    SMs (gate_up, 172 tiles); the split over K as the stream body plans it."""
+    assert stream_gmm.k13_stages(4096) == 64 and stream_gmm.k13_stages(11008, 32) == 344
+    assert stream_gmm.k13_stages(72, 32) == 3
+    for kk, o, kb, ranks in ((4096, 12288, 64, 1), (4096, 4096, 32, 4), (4096, 22016, 32, 1),
+                             (11008, 4096, 32, 4)):
+        assert stream_gmm.k13_kb(o, kk) == kb
+        assert stream_gmm.split(o, stream_gmm.k13_stages(kk, kb)) == ranks
+
+
+def _k13_stream_emulation(x, w, n_split, kb):
+    """Torch emulation of K13's stream body (csrc/stream_gmm.cuh
+    stream_bf16_kernel): rank r of n_split sums its stages (kb weight rows
+    each, rows past K zero) one mma's k16 at a time into f32, and the ranks'
+    partials are added in rank order; the f32 result, before the bf16
+    rounding of the output."""
+    kk = x.shape[1]
+    stages = stream_gmm.k13_stages(kk, kb)
+    lg = n_split.bit_length() - 1
+    out = None
+    for rank in range(n_split):
+        acc = torch.zeros((x.shape[0], w.shape[1]))
+        for t in range((rank * stages) >> lg, ((rank + 1) * stages) >> lg):
+            for k0 in range(kb * t, min(kb * t + kb, kk), 16):
+                acc = acc + x[:, k0:k0 + 16].float() @ w[k0:k0 + 16].float()
+        out = acc if out is None else out + acc
+    return out
+
+
+@pytest.mark.parametrize("n, kk, o, n_split", [
+    (4, 1024, 256, 1), (4, 1024, 256, 2), (4, 1024, 256, 4), (4, 1024, 256, 8),
+    (1, 200, 256, 1), (1, 200, 256, 2), (1, 200, 256, 4),   # a ragged last stage
+    (8, 576, 384, 1), (8, 576, 384, 2), (8, 576, 384, 4), (8, 576, 384, 8)])
+def test_k13_stream_emulation_matches_jax(n, kk, o, n_split):
+    """K13's stream body sums each rank's k16 steps in f32 and the ranks in
+    rank order: emulated in torch over bf16 operands at the stage depth its
+    rule picks, held to the JAX fp_matmul_stacked (interpret mode, f32 out)
+    within f32 order (1e-5 relative and of the largest magnitude), and its
+    bf16 rounding to the JAX bf16 output within one bf16 ulp."""
+    kb = stream_gmm.k13_kb(o, kk)
+    assert stream_gmm.k13_stages(kk, kb) >= n_split
+    rng = np.random.default_rng(kk + n_split)
+    x = _t(rng.normal(size=(n, kk)).astype(np.float32)).to(torch.bfloat16)
+    w = _t(rng.normal(size=(2, kk, o)).astype(np.float32) * kk ** -0.5).to(torch.bfloat16)
+    got = _k13_stream_emulation(x, w[1], n_split, kb)
+    xj, wj = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (x, w))
+    ref = np.asarray(j_k13(jnp.asarray([1], jnp.int32), xj, wj, out_dtype=jnp.float32,
+                           interpret=True), np.float32)
+    _close(got, ref)
+    ref16 = np.asarray(j_k13(jnp.asarray([1], jnp.int32), xj, wj, interpret=True), np.float32)
+    np.testing.assert_allclose(got.to(torch.bfloat16).float().numpy(), ref16, rtol=2.0 ** -7,
+                               atol=1e-5 * np.abs(ref16).max())

@@ -31,6 +31,8 @@ from smoothquant_tpu_torch.kernels.int4_group_matmul import (
     int4_group_matmul,
     int4_group_matmul_stacked,
     int4_group_matmul_stacked_rawx,
+    rawx_body,
+    rawx_quantize_plain,
     stacked_body,
 )
 from smoothquant_tpu_torch.utils import roofline
@@ -343,3 +345,236 @@ def test_nibble_operand_and_exact_f32(gs):
         assert torch.equal(got * (sx * 0.0625), p.float() * sx)
         assert p.abs().max().item() <= 64 * gs
     assert (xt[2:3] @ (((wb[:, 2:3].to(torch.int32) & 0xF) - 8))).abs().item() == 56 * gs
+
+
+# ---------------------------------------------------------------- K1's stream body
+
+
+@pytest.mark.parametrize("n, c, o, kk, gs, k_s, dtype, body", [
+    (4, 4096, 12288, 3840, 64, 256, torch.bfloat16, "stream"),   # Llama-2-7B's qkv, B = 4
+    (4, 4096, 4096, 3840, 64, 256, torch.bfloat16, "stream"),    # o_proj (mask mode)
+    (4, 11008, 4096, 10368, 64, 640, torch.bfloat16, "stream"),  # down_proj
+    (32, 4096, 22016, 3840, 64, 256, torch.bfloat16, "stream"),  # gate_up at 32 rows
+    (1, 256, 336, 256, 16, 0, torch.bfloat16, "stream"),         # a ragged column tile
+    (4, 4096, 12288, 3840, 64, 256, torch.float32, "dp4a"),     # f32 activations
+    (4, 4096, 12288, 3840, 128, 256, torch.bfloat16, "dp4a"),   # a group size the ring lacks
+    (4, 4096, 200, 3840, 64, 256, torch.bfloat16, "dp4a"),      # O % 16 != 0
+    (4, 4100, 4096, 3840, 64, 256, torch.bfloat16, "dp4a"),     # C % 8 != 0
+    (33, 4096, 4096, 3840, 64, 256, torch.bfloat16, "dp4a"),    # more rows than four n8 tiles
+])
+def test_rawx_body_rule(n, c, o, kk, gs, k_s, dtype, body):
+    """K1's body on a CUDA tensor follows from the shape alone: the stream
+    body for every bf16 decode linear of the paths, the dp4a body else."""
+    assert rawx_body(n, c, o, kk, gs, k_s, dtype) == body
+
+
+def test_k1_stream_stages_and_split():
+    """K1's stream body streams K5's stages (one group pair or 32 salient
+    rows each) and splits them as K5 does while a rank's salient tiles fit
+    a block's shared memory, over more ranks where they would not."""
+    assert stream_gmm.k5_stages(3840, 64, 256, True) == 30 + 8
+    # Llama-2-7B's sites at 4 rows: qkv and gate_up fill the card with their
+    # tiles; o and down split over 4 ranks
+    for o, kk, k_s, ranks in ((12288, 3840, 256, 1), (4096, 3840, 256, 4),
+                              (22016, 3840, 256, 1), (4096, 10368, 640, 4)):
+        stages = stream_gmm.k5_stages(kk, 64, k_s, True)
+        assert stream_gmm.k1_split(o, stages, 4, 64, -(-k_s // 32)) == ranks
+        assert stream_gmm.split(o, stages) == ranks
+    # six slots of 13312 bytes (8192 of nibbles, 1024 of scales, two x tiles
+    # of 8 rows of 64 bf16, two norm rows, two code tiles and their scales),
+    # two copies of the RMS factors and three mbarriers a slot, then 8
+    # salient tiles of 8 × 64 bytes: two blocks an SM
+    assert stream_gmm.k1_smem(4, 64, 8) == 80128 + 8 * 512
+    assert stream_gmm.k1_smem(4, 64, 8) <= stream_gmm.SMEM_MAX // 2 - 1024
+    # at 32 rows a slot takes 22528 bytes; BLOOM-7b1's 20 salient stages fit
+    assert stream_gmm.k1_smem(32, 64, 20) == 135680 + 20 * 2048 <= stream_gmm.SMEM_MAX
+    # 100 salient stages fit neither one rank nor two or four (50 a rank):
+    # eight
+    assert stream_gmm.split(30000, 200) == 1
+    assert stream_gmm.k1_smem(32, 64, 50) > stream_gmm.SMEM_MAX
+    assert stream_gmm.k1_split(30000, 200, 32, 64, 100) == 8
+    # and no split where even eight ranks' salient tiles would not fit
+    assert stream_gmm.k1_split(30000, 600, 32, 64, 600) is None
+
+
+def _sr_code(y, scale):
+    """The code byte of K1's stream body (csrc/stream_gmm.cuh sr_code), in
+    f32 steps: d = y·(1/scale), its nearest integer by the add of 1.5·2^23;
+    where d lies within |d|·2^-20 of a half-integer, the true quotient
+    y / scale plus 1.5·2^23 instead."""
+    inv = torch.reciprocal(scale)
+    d = y * inv
+    m = d + stream_gmm.MAGIC
+    frac = d - (m - stream_gmm.MAGIC)
+    near = (frac.abs() - 0.5).abs() <= torch.clamp_min(d.abs(), 1.0) * 9.5367431640625e-7
+    slow = (y / scale) + stream_gmm.MAGIC
+    return torch.where(near, slow, m).view(torch.int32) & 0xFF
+
+
+@pytest.mark.parametrize("act_bits", [4, 8])
+def test_k1_code_rounding_matches_division(act_bits):
+    """sr_code's rule gives rint of the f32 quotient y / scale (half to
+    even) bit for bit: over random groups, and over values put at, next to
+    and a few ulp around every half-integer of the code range, where the
+    reciprocal's product and the quotient part."""
+    rng = np.random.default_rng(act_bits)
+    qmax = 2 ** (act_bits - 1) - 1
+    inv_qmax = np.float32(1.0) / np.float32(qmax)
+    y = torch.from_numpy(rng.normal(size=(4096, 64)).astype(np.float32)
+                         * rng.uniform(1e-3, 1e3, size=(4096, 1)).astype(np.float32))
+    scale = torch.clamp_min(y.abs().amax(1, keepdim=True), 1e-5) * inv_qmax
+    halves = torch.arange(-qmax - 1, qmax + 1, dtype=torch.float32) + 0.5
+    s2 = torch.from_numpy(rng.uniform(1e-4, 1e2, size=(512, 1)).astype(np.float32))
+    y2 = halves[None, :] * s2
+    steps = torch.arange(-8, 9, dtype=torch.int32)
+    y2 = (y2.view(torch.int32)[..., None] + steps).view(torch.float32).reshape(512, -1)
+    for yy, ss in ((y, scale), (y2, s2)):
+        ref = torch.round(yy / ss).to(torch.int32) & 0xFF
+        assert torch.equal(_sr_code(yy, ss), ref)
+
+
+def _stream_prepass(x, nw, x_sal, *, mode, kk, gs, k_s, num_salient, eps, act_bits, t0, t1):
+    """Torch emulation of what one rank of K1's stream body makes of the
+    raw rows over its stages t0 .. t1 − 1 (csrc/stream_gmm.cuh: the
+    consumers' sr_prepass before the first stage, the quantizer warps'
+    sr_quantize_stage at each group stage; salient stages first, then group
+    pairs): ({group: (codes (N, gs) int8, scales
+    (N,) f32)} of its pairs' lo and hi groups, {salient column: (N,) f32
+    rounded to bf16} of its salient stages), each value made as the kernel
+    makes it — the RMS factor by f64 squares rounded to f32 once; y =
+    (x·r)·w_norm in two f32 steps; zero past C and, in tail mode, from
+    k_ns_raw on; the scale max(absmax, 1e-5)·(1/qmax); the code by
+    _sr_code's rule."""
+    n, c = x.shape
+    n_sal, g_half = -(-k_s // 32), kk // gs // 2
+    k_ns_raw = c - num_salient
+    need_mask = x_sal is None and kk > k_ns_raw
+    xf = x.float()
+    r = None
+    if mode == "rms":
+        ss = (xf.double() * xf.double()).sum(1, keepdim=True).float()
+        r = torch.reciprocal(torch.sqrt(ss * np.float32(1.0 / np.float32(c)) + np.float32(eps)))
+    inv_qmax = np.float32(1.0) / np.float32(2 ** (act_bits - 1) - 1)
+    groups, salient = {}, {}
+    for t in range(t0, t1):
+        if t < n_sal:
+            for j in range(32 * t, 32 * t + 32):
+                if x_sal is not None:
+                    v = x_sal[:, j].float() if j < k_s else torch.zeros(n)
+                elif j < num_salient:
+                    v = xf[:, k_ns_raw + j]
+                    if mode == "rms":
+                        v = (v * r[:, 0]) * nw[k_ns_raw + j]
+                else:
+                    v = torch.zeros(n)
+                salient[j] = v.to(torch.bfloat16).float()
+            continue
+        j = t - n_sal
+        for g in (j, j + g_half):
+            cols = torch.arange(g * gs, (g + 1) * gs)
+            y = torch.zeros((n, gs))
+            inside = cols < c
+            y[:, inside] = xf[:, cols[inside]]
+            if mode == "rms":
+                y = (y * r) * torch.where(inside, nw[cols.clamp(max=c - 1)], 0.0)[None]
+            elif mode == "mask":
+                y = y * torch.where(inside, nw[cols.clamp(max=c - 1)], 0.0)[None]
+            if need_mask:
+                y = torch.where(cols[None] >= k_ns_raw, 0.0, y)
+            scale = torch.clamp_min(y.abs().amax(1), 1e-5) * inv_qmax
+            q = _sr_code(y, scale[:, None])
+            groups[g] = ((q - 256 * (q >> 7)).to(torch.int8), scale)
+    return groups, salient
+
+
+def _probe_weights(kk, o, k_s, salient: bool):
+    """Layers (2, ...) of a nibble pack that make a linear show its own
+    activations, in f32: group side — column k < kk takes channel k alone
+    (its nibble value 1, every other 0), group scales 1, no salient column —
+    so column k reads code·scale of channel k; salient side (salient=True)
+    — every nibble 0 and column j < k_s takes salient channel j at 1."""
+    half = kk // 2
+    lo, hi = np.full((half, o), 8), np.full((half, o), 8)
+    ws = np.zeros((k_s, o), np.float32)
+    if salient:
+        ws[np.arange(k_s), np.arange(k_s)] = 1.0
+    else:
+        for k in range(kk):
+            (lo if k < half else hi)[k % half, k] = 9
+    packed = (lo | (hi << 4)).astype(np.uint8).view(np.int8)
+    return (np.stack([packed] * 2), np.ones((2, kk // GS, o), np.float32),
+            np.stack([ws] * 2))
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+@pytest.mark.parametrize("mode", MODES)
+def test_k1_stream_prepass_matches_plain_and_jax(mode, n_split):
+    """K1's stream body makes each rank's activations in shared memory from
+    the raw rows, stage by stage (a rank's K range starts mid-row at
+    n_split > 1).  Emulated
+    rank by rank in torch (_stream_prepass) over bf16 rows, in every mode
+    (rms with the tail salient split and its masked channels, raw, mask with
+    an external x_sal), the codes, scales and salient activations are
+    bit-identical to rawx_quantize_plain's; and to the JAX rawx kernel's
+    (interpret mode, under jit), read through probe weights: its codes
+    identical, its code·scale products and salient activations identical
+    in raw and mask mode — in rms mode within 3 ulp, one bf16 ulp for the
+    salient values, as XLA's rsqrt gives the RMS factor a few ulp apart
+    from the port's rule (quant.core.rms_factor)."""
+    kk, k_s, o = 256, 16, 256
+    num_salient = 12
+    rng = np.random.default_rng(40 + n_split)
+    x = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32) * 2)
+    x[:, 7] *= 12.0
+    x = x.to(torch.bfloat16)
+    nw = x_sal = None
+    if mode == "rms":
+        nw = torch.from_numpy(rng.uniform(0.5, 1.5, size=(C,)).astype(np.float32))
+        nw = nw.to(torch.bfloat16).float()
+    elif mode == "mask":
+        nw = torch.from_numpy((rng.uniform(size=(C,)) > 0.1).astype(np.float32))
+        x_sal = torch.from_numpy(rng.normal(size=(N, k_s)).astype(np.float32)).to(torch.bfloat16)
+    kind = {"rms": "rms", "raw": None, "mask": "mask"}[mode]
+    common = dict(kk=kk, k_s=k_s, num_salient=num_salient, eps=EPS, act_bits=4)
+    stages = stream_gmm.k5_stages(kk, GS, k_s, True)
+    lg = n_split.bit_length() - 1
+    groups, salient = {}, {}
+    for rank in range(n_split):
+        t0, t1 = (rank * stages) >> lg, ((rank + 1) * stages) >> lg
+        g, s = _stream_prepass(x, nw, x_sal, mode=mode, gs=GS, t0=t0, t1=t1, **common)
+        assert not set(g) & set(groups) and not set(s) & set(salient)
+        groups.update(g)
+        salient.update(s)
+    n_groups = kk // GS
+    assert sorted(groups) == list(range(n_groups)) and sorted(salient) == list(range(32))
+    codes = torch.cat([groups[g][0] for g in range(n_groups)], dim=1)
+    scales = torch.stack([groups[g][1] for g in range(n_groups)], dim=1)
+    xs = torch.stack([salient[j] for j in range(k_s)], dim=1)
+    assert all(salient[j].abs().max() == 0 for j in range(k_s, 32))
+
+    p_q, p_s, p_xs = rawx_quantize_plain(x, nw, x_sal, group_size=GS, norm_kind=kind,
+                                         sal_dtype=torch.bfloat16, **common)
+    assert torch.equal(codes, p_q)
+    assert torch.equal(scales.view(torch.int32), p_s.view(torch.int32))
+    assert torch.equal(xs.view(torch.int32), p_xs.view(torch.int32))
+
+    xj = jnp.asarray(x.float().numpy())
+    norm_j = None if nw is None else jnp.asarray(np.stack([nw.numpy()] * L))
+    xsal_j = None if x_sal is None else jnp.asarray(x_sal.float().numpy())
+    reads = []
+    for sal in (False, True):
+        wp, wsc, wsal = _probe_weights(kk, o, k_s, sal)
+        reads.append(np.asarray(j_rawx(
+            jnp.ones((1,), jnp.int32), xj, norm_j, jnp.asarray(wp), jnp.asarray(wsc),
+            jnp.asarray(wsal, jnp.bfloat16), xsal_j, group_size=GS, act_bits=4,
+            num_salient=num_salient, eps=EPS, norm_kind=kind or "rms",
+            out_dtype=jnp.float32, interpret=True)))
+    prod = (codes.float() * scales.repeat_interleave(GS, dim=1)).numpy()
+    j_codes = np.rint(reads[0][:, :kk] / scales.repeat_interleave(GS, dim=1).numpy())
+    assert np.array_equal(j_codes, codes.numpy())
+    if mode == "rms":
+        np.testing.assert_allclose(reads[0][:, :kk], prod, rtol=3 * 2.0 ** -23, atol=0)
+        np.testing.assert_allclose(reads[1][:, :k_s], xs.numpy(), rtol=2.0 ** -8, atol=0)
+    else:
+        assert np.array_equal(reads[0][:, :kk], prod)
+        assert np.array_equal(reads[1][:, :k_s], xs.numpy())
