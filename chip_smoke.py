@@ -9,20 +9,25 @@
    to IGMMA / HGMMA, K6's, the stream body's (K5, K8, K13's bf16 kind,
    K1's raw-x kind), the split kernels' of K11, K3 and K12 and K15b's qk
    body's to no I2F, the stream body and K3's split kernels to TMA loads
-   and the other split kernels to bulk copies (cuobjdump); reads the SM
-   clock the per-group scaling floors take.
+   and the other split kernels to bulk copies, and the fourteen s8
+   kernels of K4 and K15a to IGMMA (K4's salient ones HGMMA too), TMA
+   loads, no I2F and no spills (cuobjdump); reads the SM clock the
+   per-group scaling floors take.
 The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
 2048, random bf16 weights from seed 0):
    a. the export pipeline of export_int8_model.py:48-76 on the card:
       calibration on 8 random 512-token sequences (the one cut: the CLI
       takes 512), smooth_lm (α = 0.5), static scales, opt_int8.from_float;
-   b. K15a at the six linears (2048 and 4 rows), K15b at QKᵀ and PV
+   b. K15a at the six linears (2048 rows on its s8 wgmma body, 4 on the
+      stream body's (O, K) int8 kind; PR 3's kernels timed beside), K15b at QKᵀ and PV
       (prefill S = 512, decode over a 1024-position cache; bit for bit, the
       body its shape takes and K15a's kernel timed beside) and K16 (2048
       and 4 rows) against their plain versions: f32 outputs within 1e-6 of
       the largest magnitude, int8 outputs identical or off by one code in
       under 1e-4 of the elements; K15b's bodies bit for bit at their edges
-      (k15b_edges);
+      (k15b_edges); K15a's two bodies bit for bit at their edges
+      (k15a_edges, sums past 2^24) and against each other at 1-64 rows
+      (k15a_row_crossover, which int8.STREAM_MAX_ROWS follows);
    c. the kernel path against the plain path (the CPU) on a small int8 OPT;
    d. the int8 logits against the smoothed fp model's on a 512-token
       prompt; the int8 prefill of 4 × 512 tokens beside the bf16 fp
@@ -51,7 +56,7 @@ Then the Llama-2-7B paths:
    over 8 of the 32 heads' worth of kv heads (Meta-Llama-3-8B's attention
    shape); K14 at the serving pack's gate_up + down, N = 4 and 8; after the
    promoted tree is built, K4 at its four prefill linears and the lm_head
-   (N = 1024); after the bf16 tree is built, K13 at the four decode linears
+   (N = 1024; its s8 wgmma body, PR 2's tiles timed beside); after the bf16 tree is built, K13 at the four decode linears
    (N = 4; its stream body, the __ldg body timed beside as old_body_ms).  Times come from CUDA events around launches queued behind a
    busy-wait, so they are device time.  K8 and K9 are also held to their
    plain versions over every group layout, dtype and ragged row count they
@@ -63,7 +68,9 @@ Then the Llama-2-7B paths:
    mode, both scale dtypes, group sizes 16 / 32 / 64, each stream call
    repeated for identical bits and held bit for bit to K5's stream body on
    the plain version's codes); K1 against K7b / K7a + K5 at 1-32 rows
-   (k1_vs_k5, which real_linear.K1_MAX_TOKENS follows).  K11 also over Llama's
+   (k1_vs_k5, which real_linear.K1_MAX_TOKENS follows); K4's wgmma body at
+   its edges (k4_edges: N = 256 / 333 / 800 / 1024, k_s 0 / 16 / 208 /
+   640, bf16 and f32 out, ragged K and O, each call repeated).  K11 also over Llama's
    per-slot int8 pool at B = 64 (positions 100-511), the flash body timed
    beside the split body at each K11 shape, and the split body at its
    edges (k11_edges: S, D, rep, both caches, ALiBi, masked slots, every
@@ -399,7 +406,7 @@ SOURCES = {
         "smoothquant_tpu_torch/kernels/csrc/attn_smajor.cu",
         "smoothquant_tpu/kernels/attn_smajor.py:213"),
     "int8_prefill_matmul": (
-        "smoothquant_tpu_torch/kernels/csrc/int8_prefill.cu",
+        "smoothquant_tpu_torch/kernels/csrc/int8_wg.cu",
         "smoothquant_tpu/kernels/int8_prefill.py:282"),
     "decode_attention_stacked": (
         "smoothquant_tpu_torch/kernels/csrc/decode_attention.cu",
@@ -408,7 +415,7 @@ SOURCES = {
         "smoothquant_tpu_torch/kernels/csrc/fp_matmul.cu",
         "smoothquant_tpu/kernels/fp_matmul.py:77"),
     "int8_linear": (
-        "smoothquant_tpu_torch/kernels/csrc/int8.cu",
+        "smoothquant_tpu_torch/kernels/csrc/int8_wg.cu",
         "smoothquant_tpu/kernels/int8.py:105"),
     "int8_bmm": (
         "smoothquant_tpu_torch/kernels/csrc/int8.cu",
@@ -694,7 +701,8 @@ def _prefill_sites(tree, cfg):
 
 def check_int8_prefill(promoted, cfg, dev, gen):
     """K4 vs plain at the promoted tree's four prefill linears and its
-    lm_head, N = 1024 rows of the identity prologue; the yardstick is
+    lm_head, N = 1024 rows of the identity prologue (the wgmma body, and
+    PR 2's mma.sync tiles beside it as old_body_ms); the yardstick is
     torch._int_mm plus the f32 epilogue (and a bf16 matmul for the salient
     part)."""
     import torch
@@ -728,9 +736,14 @@ def check_int8_prefill(promoted, cfg, dev, gen):
         o, k_s = lins[0].w_qt.shape[1], x_sal.shape[1]
         n_bytes, ops = roofline.int8_prefill_cost(PREFILL_N, m.in_features, o, k_s)
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        old = k4.int8_prefill_matmul(*args(0), body="tiles")
+        torch.cuda.synchronize()
+        _close(f"K4 {site} (tiles body)", old, ref, 1e-2)
         rows.append(dict(
             kernel="int8_prefill_matmul", site=site, shape=[PREFILL_N, m.in_features, o, k_s],
-            max_err=err, kernel_ms=device_ms(lambda i: k4.int8_prefill_matmul(*args(i)), 8),
+            body=k4.prefill_body(False, k_s, x_sal.dtype), max_err=err,
+            kernel_ms=device_ms(lambda i: k4.int8_prefill_matmul(*args(i)), 8),
+            old_body_ms=device_ms(lambda i: k4.int8_prefill_matmul(*args(i), body="tiles"), 8),
             plain_ms=device_ms(lambda i: k4.int8_prefill_matmul_plain(*args(i)), 2, reps=3),
             bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(library, 8),
             library="torch._int_mm + f32 epilogue (+ bf16 salient matmul), yardstick only"))
@@ -1314,8 +1327,10 @@ def _compare(name, got, ref):
 
 def check_int8_linear(int8_tree, dev, gen):
     """K15a vs plain at the six linears of the int8 OPT, prefill (4 × 512
-    rows) and decode (4 rows), each site cycling through every layer's
-    weight; the yardstick is torch._int_mm plus the f32 epilogue."""
+    rows: the wgmma body) and decode (4 rows: the stream body), each site
+    cycling through every layer's weight, bit for bit; PR 3's kernels
+    ("tiles", "gemv") timed beside as old_body_ms; the yardstick is
+    torch._int_mm plus the f32 epilogue."""
     import torch
 
     from smoothquant_tpu_torch.kernels import int8 as k15
@@ -1335,8 +1350,14 @@ def check_int8_linear(int8_tree, dev, gen):
             args = lambda i: (x, lins[i % n_l].w_q, lins[i % n_l].alpha, lins[i % n_l].bias)
             got = k15.int8_linear(*args(0), **kw)
             ref = k15.int8_linear_plain(*args(0), **kw)
+            old_body = "gemv" if n <= k15.MAX_GEMV_ROWS else "tiles"
+            old = k15.int8_linear(*args(0), **kw, body=old_body)
             torch.cuda.synchronize()
             err, n_diff = _compare(f"K15a {site} N={n}", got, ref)
+            _compare(f"K15a {site} N={n} ({old_body} body)", old, ref)
+            if n_diff:
+                raise AssertionError(f"K15a {site} N={n}: {n_diff} outputs differ from the "
+                                     "plain version's")
 
             def library(i):
                 a = args(i)
@@ -1349,8 +1370,12 @@ def check_int8_linear(int8_tree, dev, gen):
             b_ms, b_by = roofline.bound_ms(n_bytes, ops)
             rows.append(dict(
                 kernel="int8_linear", site=f"{site}@{n}", shape=[n, kk, o],
-                out=str(out_dtype).replace("torch.", ""), max_err=err, n_diff=n_diff,
+                out=str(out_dtype).replace("torch.", ""), body=k15.linear_body(n),
+                max_err=err, n_diff=n_diff,
                 kernel_ms=device_ms(lambda i: k15.int8_linear(*args(i), **kw), n_l),
+                old_body=old_body,
+                old_body_ms=device_ms(lambda i: k15.int8_linear(*args(i), **kw, body=old_body),
+                                      n_l),
                 plain_ms=device_ms(lambda i: k15.int8_linear_plain(*args(i), **kw), 2,
                                    reps=3),
                 bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(library, n_l),
@@ -2504,6 +2529,133 @@ def check_k15b_edges(dev):
     return bodies
 
 
+# K4's wgmma body at its edges: (N, K, O) at the prefill buckets (a whole
+# tile, ragged rows, several row tiles), ragged O (a part column tile), K
+# of one stage, ragged K (padded to 16) and Llama-2-7B's down (86 stages)
+K4_EDGE_SHAPES = ((256, 512, 264), (333, 200, 520), (800, 128, 1024), (1024, 1024, 136),
+                  (333, 11008, 384))
+K4_EDGE_KS = (0, 16, 208, 640)
+# K15a's bodies at their edges: (N, K, O) — the stream body at 1-64 rows over
+# each cluster size its split plans, the wgmma body above; K = 8192 at
+# |acc| > 2^24; ragged K and O
+K15A_EDGE_SHAPES = ((1, 2048, 2048), (3, 208, 77), (4, 8192, 2048), (5, 2048, 8192),
+                    (7, 1024, 130), (8, 2048, 1000), (16, 512, 256), (33, 2048, 384),
+                    (64, 8192, 256), (65, 200, 77), (333, 2048, 1000), (2048, 8192, 2048),
+                    (800, 1024, 130))
+
+
+def check_k4_edges(dev):
+    """K4's wgmma body against its plain version at K4_EDGE_SHAPES × k_s of
+    K4_EDGE_KS (bf16 salient operands; 0, one 16-wide stage, a ragged 208,
+    down's 640) in bf16 and f32 out: bf16 within 1e-2 of the largest output
+    (as the site checks), f32 within 1e-4 (the salient dot's f32 sums in
+    another order, rounded by the tensor cores); each call made twice for
+    identical bits.  Returns the
+    worst relative error per output dtype and the cases."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int8_prefill as k4
+    from smoothquant_tpu_torch.kernels.pack import k_major
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    worst, cases = {}, 0
+    for n, kk, o in K4_EDGE_SHAPES:
+        x = torch.randint(-127, 128, (n, kk), generator=gen, device=dev, dtype=torch.int8)
+        w = k_major(torch.randint(-127, 128, (kk, o), generator=gen, device=dev,
+                                  dtype=torch.int8))
+        sx = torch.rand((n, 1), generator=gen, device=dev) * 0.02 + 1e-3
+        sw = torch.rand((1, o), generator=gen, device=dev) * 0.02 + 1e-3
+        for k_s in K4_EDGE_KS:
+            x_sal = torch.randn((n, k_s), generator=gen, device=dev).to(torch.bfloat16)
+            w_sal = (torch.randn((k_s, o), generator=gen, device=dev) * 4).to(torch.bfloat16)
+            for out, rel in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+                args = (x, sx, w, sw, x_sal, w_sal)
+                got = _launched("int8_prefill_matmul",
+                                lambda: k4.int8_prefill_matmul(*args, out_dtype=out))
+                again = k4.int8_prefill_matmul(*args, out_dtype=out)
+                ref = k4.int8_prefill_matmul_plain(*args, out_dtype=out)
+                torch.cuda.synchronize()
+                name = f"K4 wg N={n} K={kk} O={o} k_s={k_s} {out}"
+                err = _close(name, got, ref, rel)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name}: two calls differ")
+                key = str(out).replace("torch.", "")
+                worst[key] = max(worst.get(key, 0.0), err / ref.float().abs().max().item())
+                cases += 1
+    return {"cases": cases, "max_rel_err": worst}
+
+
+def check_k15a_edges(dev):
+    """K15a's stream and wgmma bodies against the plain version, bit for
+    bit, at K15A_EDGE_SHAPES: f32 out with and without bias, int8 out with
+    bias and ReLU; the operands ±127 with x's signs repeated down w's rows,
+    so that |acc| reaches 127²·K (> 2^24 from K = 1041) where f32(acc)
+    rounds.  Returns the cases per body and the largest |acc|."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int8 as k15
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 59)
+    bodies, acc_max = {}, 0
+    for n, kk, o in K15A_EDGE_SHAPES:
+        sign = lambda *sh: torch.randint(0, 2, sh, generator=gen, device=dev) * 2 - 1
+        xs = sign(n, kk)
+        x = (xs * 127).to(torch.int8)
+        # row o of w: x's row o % n with its signs flipped on a random half
+        # of the k, or on none (|acc| = 127²·K)
+        keep = torch.rand((o, 1), generator=gen, device=dev) < 0.25
+        flips = torch.where(keep, torch.ones_like(xs[:1]), sign(o, kk))
+        w = (xs[torch.arange(o, device=dev) % n] * flips * 127).to(torch.int8)
+        acc = torch.matmul(x.double(), w.double().t())
+        acc_max = max(acc_max, int(acc.abs().max()))
+        alpha = 150.0 / float(acc.abs().max())
+        bias = torch.randn(o, generator=gen, device=dev) * 3
+        for b, relu, out in ((None, False, torch.float32), (bias, False, torch.float32),
+                             (bias, True, torch.int8)):
+            kw = dict(relu=relu, out_dtype=out)
+            got = _launched("int8_linear", lambda: k15.int8_linear(x, w, alpha, b, **kw))
+            ref = k15.int8_linear_plain(x, w, alpha, b, **kw)
+            torch.cuda.synchronize()
+            name = k15.linear_body(n)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K15a {name} N={n} K={kk} O={o} {out} relu={relu}: "
+                                     f"{int((got != ref).sum())} outputs differ")
+            bodies[name] = bodies.get(name, 0) + 1
+    return {"bit_exact_cases": bodies, "max_abs_acc": acc_max, "above_2_24": acc_max > 2 ** 24}
+
+
+K15A_CROSSOVER_N = (1, 4, 8, 16, 32, 64)
+
+
+def k15a_row_crossover(int8_tree, dev, gen):
+    """K15a's two bodies at the int8 OPT's six linears, each cycling through
+    every layer's weight (cold, as a step finds them), at K15A_CROSSOVER_N
+    rows: ms summed over the six sites, and the largest row count up to
+    which the stream body wins (int8.STREAM_MAX_ROWS follows it)."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import int8 as k15
+
+    layers = int8_tree["int8_layers"]
+    n_l = len(layers)
+    ms = {}
+    for n in K15A_CROSSOVER_N:
+        tot = {"stream": 0.0, "wg": 0.0}
+        for site, field, relu, to_int8 in OPT_LINEARS:
+            lins = [getattr(lp, field) for lp in layers]
+            x = _i8_like_acts((n, lins[0].w_q.shape[1]), gen, dev)
+            kw = dict(relu=relu, out_dtype=torch.int8 if to_int8 else torch.float32)
+            for body in tot:
+                tot[body] += device_ms(lambda i: k15.int8_linear(
+                    x, lins[i % n_l].w_q, lins[i % n_l].alpha, lins[i % n_l].bias, **kw,
+                    body=body), n_l)
+        ms[n] = tot
+    wins = [n for n in K15A_CROSSOVER_N if ms[n]["stream"] < ms[n]["wg"]]
+    below = [n for n in K15A_CROSSOVER_N if all(w in wins for w in K15A_CROSSOVER_N if w <= n)]
+    return dict(rows=list(K15A_CROSSOVER_N), ms=ms, stream_wins_at=wins,
+                stream_wins_up_to=below[-1] if below else None)
+
+
 def host_us(fn, calls: int = 200, reps: int = 3) -> float:
     """Least host µs one fn() call takes to return, over `reps` runs of
     `calls` calls queued back to back (no synchronize between them, so the
@@ -2567,6 +2719,7 @@ def k6_host_us(dev):
 
 # split_decode.cuh's modes (its MODE template), by the kernel each serves
 SPLIT_MODES = ("K11 split", "K3 split", "K12 stacked", "K12 flat", "K12 write")
+OUT_CODE = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8"}   # mangled output types
 
 
 def sass_check():
@@ -2584,7 +2737,10 @@ def sass_check():
     has no I2F (int8 bytes and ALiBi positions convert by the exact f32 add)
     and copies its rows by bulk copies (UBLKCP; K3's by TMA boxes, UTMALDG),
     and K15b's qk body has no I2F (its accumulators convert by the same
-    add)."""
+    add); and unless each s8 wgmma kernel of K4 and K15a issues IGMMA (K4's
+    HGMMA too, for its salient stages), loads by TMA and has no I2F, each
+    of K15a's stream kernels issues IMMA, loads by TMA and has no I2F, and
+    none of those fourteen spills."""
     import os
     import re
     import shutil
@@ -2595,7 +2751,7 @@ def sass_check():
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", _build.build()], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    out, stream, attn = {}, {}, {}
+    out, stream, attn, s8 = {}, {}, {}, {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
         m = re.search(r"split_decode_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)ELb\dELi(\d)E",
@@ -2631,6 +2787,25 @@ def sass_check():
                 raise AssertionError(f"stream {name}: SASS {ops}")
             stream[f"{'K5' if m.group(1) == '1' else 'K8'} gs={m.group(2)} nt={m.group(3)}"] = ops
             continue
+        m = re.search(r"s8_gemm_kernelILi(\d+)ELi(\d+)ELb(\d)ELi(\d)E(13__nv_bfloat16|f|a)E",
+                      name)
+        if m:
+            ops = {op: len(re.findall(r"\b" + op + r"\b", fn))
+                   for op in ("IGMMA", "HGMMA", "I2F", "UTMALDG")}
+            if (not ops["IGMMA"] or ops["I2F"] or not ops["UTMALDG"]
+                    or (m.group(3) == "1") != (ops["HGMMA"] > 0)):
+                raise AssertionError(f"s8 wgmma {name}: SASS {ops}")
+            s8[f"{'K4' if m.group(4) == '0' else 'K15a'} wg bn={m.group(1)} "
+               f"stages={m.group(2)} out={OUT_CODE[m.group(5)]}"] = ops
+            continue
+        m = re.search(r"stream_s8_kernelILi(\d+)E(f|a)E", name)
+        if m:
+            ops = {op: len(re.findall(r"\b" + op + r"\b", fn))
+                   for op in ("I2F", "UTMALDG", "IMMA")}
+            if ops["I2F"] or not ops["UTMALDG"] or not ops["IMMA"]:
+                raise AssertionError(f"stream {name}: SASS {ops}")
+            s8[f"K15a stream nt={m.group(1)} out={OUT_CODE[m.group(2)]}"] = ops
+            continue
         kind = ("K6" if "wg_gmm_kernel" in name else
                 "K9" if "dual_path_wg_kernel" in name else None)
         if kind is None:
@@ -2657,14 +2832,23 @@ def sass_check():
                             r"\w{0,40}", ln).group(0)] = [
                 int(regs.group(1)) if regs else None, int(spill.group(1)) if spill else None]
     serialized = sum(1 for ln in log if "serialized" in ln)
+    s8_spills = {}
+    for i, ln in enumerate(log):
+        m = re.search(r"(s8_gemm_kernel|stream_s8_kernel)\w*", ln)
+        if "Compiling entry" in ln and m:
+            spill = re.search(r"(\d+) bytes spill stores", " ".join(log[i:i + 4]))
+            s8_spills[m.group(0)[:60]] = int(spill.group(1)) if spill else None
+    if len(s8) != 14 or any(v != 0 for v in s8_spills.values()) or len(s8_spills) != 14:
+        raise AssertionError(f"the s8 bodies of K4 and K15a: {len(s8)} kernels in the SASS "
+                             f"(14 expected), spill stores {s8_spills}")
     n_k1 = sum(k.startswith("K1 ") for k in stream)
     if (not out or not stream or len(attn) != 43 or n_k1 != 18
             or not {"K13 kb=64", "K13 kb=32"} <= set(stream)):
         raise AssertionError("the build holds no wgmma body, no stream body, not K13's and "
                              "K1's 18 stream kernels or not the 42 split kernels (K11 16, K3 "
                              "8, K12 18) and K15b's qk body")
-    return {"sass": out, "stream_sass": stream, "attn_sass": attn, "registers_spills": notes,
-            "ptxas_serialized_notes": serialized}
+    return {"sass": out, "stream_sass": stream, "attn_sass": attn, "s8_sass": s8,
+            "registers_spills": notes, "ptxas_serialized_notes": serialized}
 
 
 def add_scaling_floors(rows, clock_mhz):
@@ -2796,6 +2980,20 @@ def check_no_fallback(dev):
                            TypeError),
         "K15a bf16 out": (lambda: k15.int8_linear(z8, z8, 1.0, out_dtype=torch.bfloat16),
                           TypeError),
+        "K4 wgmma body with f32 salient operands": (lambda: k4.int8_prefill_matmul(
+            z8, one, z8.t().contiguous().t(), one.t(), f32(64, 16), f32(16, 64), body="wg"),
+            ValueError),
+        "K4 wgmma body in the raw-x mode": (lambda: k4.int8_prefill_matmul(
+            bf(64, 64), one, z8.t().contiguous().t(), one.t(), bf(64, 0), bf(0, 64), one.t(),
+            body="wg"), ValueError),
+        "K15a stream body at 65 rows": (lambda: k15.int8_linear(
+            torch.zeros((65, 64), dtype=torch.int8, device=dev), z8, 1.0, body="stream"),
+            ValueError),
+        "K15a gemv body at 9 rows": (lambda: k15.int8_linear(z8[:9], z8, 1.0, body="gemv"),
+                                     ValueError),
+        "K15a tiles body at 4 rows": (lambda: k15.int8_linear(z8[:4], z8, 1.0, body="tiles"),
+                                      ValueError),
+        "K15a unknown body": (lambda: k15.int8_linear(z8, z8, 1.0, body="pv"), ValueError),
         "K15b K mismatch": (lambda: k15.int8_bmm(z8[None], z8[None, :, :32], 1.0),
                             ValueError),
         "K15b qk body with int8 out": (lambda: k15.int8_bmm(
@@ -3122,9 +3320,13 @@ def step_launches(cfg, batch, attn, fuse_mlp=False):
     and K5, above on K7a (qkv, gate_up, down) and K5; the cache write and
     attention by `attn`: "smajor" K2 + K3 over the S-major pool, "off" K10 +
     K11 over the head-major one, "auto" K12 + K10 and "fused" K12 alone over
-    the aligned head-major cache."""
+    the aligned head-major cache; and the int8 lm_head on K4 from
+    PREFILL_KERNEL_MIN_TOKENS rows (torch._int_mm below)."""
     from smoothquant_tpu_torch.kernels.int4_group_matmul import RAWX_MAX_N
-    from smoothquant_tpu_torch.kernels.real_linear import K1_MAX_TOKENS
+    from smoothquant_tpu_torch.kernels.real_linear import (
+        K1_MAX_TOKENS,
+        PREFILL_KERNEL_MIN_TOKENS,
+    )
 
     n_l = cfg.num_hidden_layers
     n_lin = 2 if fuse_mlp else 4
@@ -3147,6 +3349,8 @@ def step_launches(cfg, batch, attn, fuse_mlp=False):
         out["fused_attn"] = n_l
         if attn == "auto":
             out["write_quant_cache_stacked"] = n_l
+    if batch >= PREFILL_KERNEL_MIN_TOKENS:
+        out["int8_prefill_matmul"] = 1
     return out
 
 
@@ -3169,7 +3373,7 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool, batch=MAX_BATCH,
     batcher = ContinuousBatcher(llama, stacked, cfg, max_batch=batch,
                                 max_len=MAX_LEN, quant_kv=True,
                                 prefill_params=prefill_tree, smajor=smajor, device=dev)
-    prefill = {"rows": [], "tokens": 0, "s": 0.0}
+    prefill = {"rows": [], "seqs": [], "tokens": 0, "s": 0.0}
     inner = batcher._prefill
 
     def timed_prefill(ids, lens):
@@ -3178,6 +3382,7 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool, batch=MAX_BATCH,
         torch.cuda.synchronize()
         prefill["s"] += time.perf_counter() - t0
         prefill["rows"].append(ids.shape[0] * ids.shape[1])
+        prefill["seqs"].append(ids.shape[0])
         prefill["tokens"] += int(np.minimum(lens, ids.shape[1]).sum())
         return r
 
@@ -3197,7 +3402,7 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool, batch=MAX_BATCH,
     reqs = make(n_requests, 0, 32)
     for r in reqs:
         batcher.submit(r)
-    prefill.update(rows=[], tokens=0, s=0.0)
+    prefill.update(rows=[], seqs=[], tokens=0, s=0.0)
     steps0 = batcher._steps
     t0 = time.perf_counter()
     _, launches = _path_launches(lambda: batcher.run_to_completion(chunk=8))
@@ -3210,14 +3415,17 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool, batch=MAX_BATCH,
     n_l = cfg.num_hidden_layers
     per_step = step_launches(cfg, batch, "smajor" if smajor else "off")
     expect = {k: v * steps for k, v in per_step.items()}
+    # K4 runs the promoted prefill's linears of rows × bucket at or above
+    # PREFILL_KERNEL_MIN_TOKENS, and the int8 lm_head of a prefill (each
+    # row's last position only) or a decode step from that many rows
+    k4 = expect.get("int8_prefill_matmul", 0) + sum(
+        n >= PREFILL_KERNEL_MIN_TOKENS for n in prefill["seqs"])
     if promoted:
-        # K4 runs the prefill linears of rows × bucket >= 256; the lm_head
-        # sees each row's last position only
-        k4 = 4 * n_l * sum(n >= PREFILL_KERNEL_MIN_TOKENS for n in prefill["rows"])
-        if k4:
-            expect["int8_prefill_matmul"] = k4
+        k4 += 4 * n_l * sum(n >= PREFILL_KERNEL_MIN_TOKENS for n in prefill["rows"])
     else:
         expect["int4_group_matmul"] = 4 * n_l * len(prefill["rows"])
+    if k4:
+        expect["int8_prefill_matmul"] = k4
     _check_launches("serving", launches, expect)
     metrics = dict(
         prefill_tree="promoted int8" if promoted else "nibble",
@@ -3451,6 +3659,7 @@ def generator(packed, promoted, cfg, dev):
     import numpy as np
     import torch
 
+    from smoothquant_tpu_torch.kernels.real_linear import PREFILL_KERNEL_MIN_TOKENS
     from smoothquant_tpu_torch.models import llama
     from smoothquant_tpu_torch.serve.generate import GenerationConfig, Generator
 
@@ -3464,10 +3673,11 @@ def generator(packed, promoted, cfg, dev):
         lambda: gen.generate(prompts, GenerationConfig(max_new_tokens=GEN_NEW)))
     wall = time.perf_counter() - t0
     n_l, steps = cfg.num_hidden_layers, GEN_NEW - 1
-    # the prefill's lm_head runs on all 800 rows (K4); decode's on 4 (_int_mm)
+    # the prefill's lm_head runs on all 800 rows (K4), decode's on 4 (K4 from
+    # PREFILL_KERNEL_MIN_TOKENS rows)
     _check_launches("generator", launches, {
-        "int8_prefill_matmul": 4 * n_l + 1, "int4_group_matmul": 4 * n_l * steps,
-        "decode_attention_stacked": n_l * steps})
+        "int8_prefill_matmul": 4 * n_l + 1 + steps * (MAX_BATCH >= PREFILL_KERNEL_MIN_TOKENS),
+        "int4_group_matmul": 4 * n_l * steps, "decode_attention_stacked": n_l * steps})
     new = out[:, GEN_PROMPT:]
     if not (out.shape == (MAX_BATCH, GEN_PROMPT + GEN_NEW)
             and (out[:, :GEN_PROMPT] == prompts).all()
@@ -3741,6 +3951,7 @@ def run_opt(dev, cfg, card: str):
 
     import torch
 
+    from smoothquant_tpu_torch.kernels import int8 as k15
     from smoothquant_tpu_torch.utils import roofline
 
     t0 = time.perf_counter()
@@ -3754,6 +3965,9 @@ def run_opt(dev, cfg, card: str):
     rows = (check_int8_linear(int8, dev, gen) + check_int8_bmm(int8, cfg, dev, gen)
             + check_norm_quant(int8, cfg, dev, gen))
     emit({"phase": "k15b_edges", "bit_exact_cases": check_k15b_edges(dev)})
+    emit({"phase": "k15a_edges", **check_k15a_edges(dev)})
+    emit({"phase": "k15a_row_crossover", "card": card,
+          "stream_max_rows": k15.STREAM_MAX_ROWS, **k15a_row_crossover(int8, dev, gen)})
     emit({"phase": "opt_reference_check", **opt_reference_check(dev)})
     emit({"phase": "opt_accuracy", "card": card, **opt_accuracy(smoothed, int8, cfg, dev)})
 
@@ -4034,7 +4248,8 @@ def check_k7b_k5_vs_k1(stacked, cfg, dev, gen, n=BLOOM_BATCH):
 
 def check_int8_prefill_rawx(dev, gen):
     """K4's raw-x mode against its pre-quantized mode on the same bytes —
-    the codes quantize_raw_x gives (the torch prologue) — bit for bit, and
+    the codes quantize_raw_x gives (the torch prologue), through the same
+    mma.sync tiles — bit for bit, and
     against its plain version (1e-2 of the largest bf16 output): at
     (1024, 4096→11008), Llama-2-7B's promoted gate_proj shape, with 5 %
     salient channels masked out of the int8 part and carried in bf16, at a
@@ -4065,7 +4280,7 @@ def check_int8_prefill_rawx(dev, gen):
         rest = (sx, w, sw, x_sal, w_sal)
         raw = _launched("int8_prefill_matmul_rawx",
                         lambda: k4.int8_prefill_matmul(x, *rest, mask))
-        pre = k4.int8_prefill_matmul(k4.quantize_raw_x(x, mask, sx), *rest)
+        pre = k4.int8_prefill_matmul(k4.quantize_raw_x(x, mask, sx), *rest, body="tiles")
         ref = k4.int8_prefill_matmul_plain(x, *rest, mask)
         torch.cuda.synchronize()
         if not torch.equal(raw, pre):
@@ -4451,7 +4666,9 @@ BODY_COUNTERS = {"fp_matmul_stacked": {"ldg": "fp_matmul_stacked_ldg"},
                  "fused_attn": {"flash": "fused_attn_flash"},
                  "int8_bmm": {"qk": "int8_bmm_qk", "pv": "int8_bmm_pv",
                               "kn_gemv": "int8_bmm_kn", "nk_gemv": "int8_bmm_nk"},
-                 "int8_prefill_matmul": {"raw_x": "int8_prefill_matmul_rawx"}}
+                 "int8_prefill_matmul": {"raw_x": "int8_prefill_matmul_rawx",
+                                         "tiles": "int8_prefill_matmul_tiles"},
+                 "int8_linear": {"gemv": "int8_linear_gemv", "tiles": "int8_linear_tiles"}}
 
 
 def kernels_line(rows, launches):
@@ -4533,6 +4750,7 @@ def run(dev, cfg, card: str):
     emit({"phase": "no_fallback", "raised": check_no_fallback(dev)})
     emit({"phase": "kernel_variants", "max_rel_err": check_kernel_variants(dev)})
     emit({"phase": "wg_edges", "max_rel_err": check_wg_edges(dev)})
+    emit({"phase": "k4_edges", **check_k4_edges(dev)})
     emit({"phase": "stream_edges", **check_stream_edges(dev)})
     emit({"phase": "k13_edges", **check_k13_edges(dev)})
     emit({"phase": "k1_edges", **check_k1_edges(dev)})

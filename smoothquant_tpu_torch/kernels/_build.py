@@ -57,6 +57,9 @@ _SIGNATURES = {
     "sq_decode_attn_smajor_split": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
     "sq_int8_prefill": ([_P] * 7 + [_I] * 4 + [_I, _I, _P], _I),
     "sq_int8_prefill_rawx": ([_P] * 8 + [_I] * 4 + [_I, _I, _P], _I),
+    "sq_int8_prefill_wg": ([_P] * 7 + [_I] * 4 + [_I, _I, _P], _I),
+    "sq_int8_linear_wg": ([_P] * 4 + [_I] * 3 + [_F] + [_I] * 3 + [_P], _I),
+    "sq_int8_linear_stream": ([_P] * 4 + [_I] * 3 + [_F] + [_I] * 3 + [_P], _I),
     "sq_decode_attn": ([_P] * 8 + [_I] * 6 + [_F, _I, _I, _P], _I),
     "sq_decode_attn_split": ([_P] * 8 + [_I] * 7 + [_F, _I, _P], _I),
     "sq_fp_matmul_workspace_bytes": ([_I] * 3, ctypes.c_longlong),

@@ -1,9 +1,10 @@
 // The weight-streaming body of the decode row counts (N <= 64 token rows):
 // the group matmul K8 (int_group_matmul.cu, int8-container weights) and K5
 // (int4_group_matmul.cu, split-half nibble weights) share, and two more
-// weight kinds at the end of this file — K13's bf16 slab (fp_matmul.cu) and
-// K1's nibbles on raw, unquantized x (int4_group_matmul.cu) — on the same
-// ring, lane maps and cluster epilogue.
+// weight kinds at the end of this file — K13's bf16 slab (fp_matmul.cu),
+// K1's nibbles on raw, unquantized x (int4_group_matmul.cu) and K15a's
+// (O, K) int8 rows (int8_wg.cu) — on the same ring, lane maps and cluster
+// epilogue.
 //
 // What bounds these calls on the H100: the weight's bytes.  At N <= 64 each
 // weight byte takes at most 2·64 int8 operations (~230 a byte for nibbles),
@@ -1183,6 +1184,191 @@ stream_rawx_kernel(const SrArgs a, const __grid_constant__ SrMaps m) {
   if (cs > 1) sg_cluster_sync();
 }
 
+// ---------------------------------------------------------------- int8 (O, K) weights (K15a)
+// The body's fifth weight kind: K15a's static-scale linear at 1-64 token
+// rows (int8.cu's decode rows), the int8 weight in its (O, K) storage.  A
+// stage is one TMA box of 128 weight rows (the tile's output columns) × 128
+// bytes of K and the x tile of those k (N_BOX rows, zero past N and K), both
+// SWIZZLE_128B.  The (O, K) rows are already the row-major A operand of
+// mma.sync m16n8k32 s8, so each A fragment is one ldmatrix.x4 of the rows as
+// TMA wrote them — none of the (K, O) kinds' byte transpose — and the tokens
+// are the n side by ldmatrix from the x tile.  No scaling in the loop: the
+// int32 sums run through a rank's stages, the ranks' int32 partials are
+// added in rank order through distributed shared memory (exact), then the
+// K15a epilogue: f32(acc) rounded once (s32_f32_rn), fma(·, α, bias), ReLU,
+// f32 out or int8 as round-half-even clipped to ±127.
+constexpr int SK_STAGES = 4;                    // ring slots
+
+template <int NT>
+struct SkGeo {
+  static constexpr int N_BOX = 8 * NT;
+  static constexpr int W_BYTES = SG_BO * 128;    // 128 weight rows × 128 bytes of K
+  static constexpr int X_BYTES = N_BOX * 128;
+  static constexpr int SLOT = sg_align(W_BYTES + X_BYTES, 1024);
+  static constexpr int OFF_BAR = SK_STAGES * SLOT;
+  static constexpr int SMEM = OFF_BAR + 2 * 8 * SK_STAGES;
+  static_assert(N_BOX * SG_PART_LD * 4 <= OFF_BAR, "the partial tile reuses the ring");
+};
+
+struct SkArgs {
+  const float* bias;    // (O,) or null
+  void* out;            // (N, O) f32 or int8
+  float alpha;
+  int N, O, n_stages, n_split, relu;
+};
+struct SkMaps {         // the weight (O, K), x (N, K)
+  CUtensorMap w, x;
+};
+
+// This rank's share of the tile's quads (row n, columns 4q ..): the ranks'
+// int32 partials added in rank order, then the K15a epilogue, stored as one
+// 16- or 4-byte word where O % 4 == 0.
+template <typename TO>
+__device__ __forceinline__ void sk_reduce_store(const int* part, const SkArgs& a, int o0, int rank,
+                                                int lg, int cs, int tid) {
+  const int quads = a.N * (SG_BO / 4);
+  const int q_end = ((rank + 1) * quads) >> lg;
+  const uint32_t part_u = smem_u32(part);
+  for (int q = ((rank * quads) >> lg) + tid; q < q_end; q += 128) {
+    const int n = q / (SG_BO / 4), c = 4 * (q % (SG_BO / 4)), o = o0 + c;
+    if (o >= a.O) continue;
+    int s[4];
+    if (cs > 1) {
+      for (int r = 0; r < cs; ++r) {
+        const float4 u = sg_ld_rank(part_u + 4 * (n * SG_PART_LD + c), r);
+        const int v[4] = {__float_as_int(u.x), __float_as_int(u.y), __float_as_int(u.z),
+                          __float_as_int(u.w)};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[j] = r ? s[j] + v[j] : v[j];
+      }
+    } else {
+      const int4 v = *reinterpret_cast<const int4*>(part + n * SG_PART_LD + c);
+      s[0] = v.x, s[1] = v.y, s[2] = v.z, s[3] = v.w;
+    }
+    float y[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float f = s32_f32_rn(s[j]);
+      y[j] = a.bias ? __fmaf_rn(f, a.alpha, o + j < a.O ? a.bias[o + j] : 0.0f)
+                    : __fmul_rn(f, a.alpha);
+      if (a.relu) y[j] = fmaxf(y[j], 0.0f);
+    }
+    TO* p = static_cast<TO*>(a.out) + (size_t)n * a.O + o;
+    if constexpr (sizeof(TO) == 1) {
+      uint32_t w = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w |= ((uint32_t)(int)fminf(fmaxf(rintf(y[j]), -127.0f), 127.0f) & 0xFFu) << (8 * j);
+      if ((a.O & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(p) = w;
+      } else {
+        for (int j = 0; j < 4 && o + j < a.O; ++j) p[j] = (int8_t)(w >> (8 * j));
+      }
+    } else {
+      if ((a.O & 3) == 0) {
+        *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
+        for (int j = 0; j < 4 && o + j < a.O; ++j) p[j] = y[j];
+      }
+    }
+  }
+}
+
+// Block (tile, rank) as stream_gmm_kernel's.  Consumer warp w takes the
+// tile's columns 32w .. 32w + 31 (two m16 tiles); lane L gives ldmatrix.x4
+// the weight row of matrix L / 8 (rows 8·(L / 8 % 2) + L % 8 of the m tile,
+// the k step's 16-byte half L / 16), so its registers are the m16n8k32 A
+// fragment as they come.
+template <int NT, typename TO>
+__global__ void __launch_bounds__(SG_THREADS, 2)
+stream_s8_kernel(const SkArgs a, const __grid_constant__ SkMaps m) {
+  using Geo = SkGeo<NT>;
+  extern __shared__ __align__(1024) char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cs = a.n_split, lg = __ffs(cs) - 1;
+  int rank, o0;
+  sg_place(lg, rank, o0);
+  const int T = a.n_stages;
+  const int t0 = (rank * T) >> lg, t1 = ((rank + 1) * T) >> lg;
+  if (tid == 0) {
+    for (int s = 0; s < SK_STAGES; ++s) {
+      mbar_init(smem_u32(smem + Geo::OFF_BAR + 8 * s), 1);
+      mbar_init(smem_u32(smem + Geo::OFF_BAR + 8 * (SK_STAGES + s)), 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  int* part = reinterpret_cast<int*>(smem);   // (N_BOX, SG_PART_LD) int32, after the ring
+  if (warp >= 4) {
+    regs_dec<SG_PRODUCER_REGS>();
+    if (warp == 4 && lane == 0) {
+      tma_prefetch(m.w);
+      tma_prefetch(m.x);
+      for (int t = t0; t < t1; ++t) {
+        const int i = t - t0, slot = i % SK_STAGES;
+        const uint32_t su = smem_u32(smem + slot * Geo::SLOT);
+        const uint32_t full = smem_u32(smem + Geo::OFF_BAR + 8 * slot);
+        if (i >= SK_STAGES)
+          mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * (SK_STAGES + slot)), (i / SK_STAGES - 1) & 1);
+        mbar_expect_tx(full, Geo::W_BYTES + Geo::X_BYTES);
+        tma_2d(su, m.w, full, t * 128, o0);
+        tma_2d(su + Geo::W_BYTES, m.x, full, t * 128, 0);
+      }
+    }
+    sg_producer_tail(cs);
+    return;
+  }
+  regs_inc<SG_CONSUMER_REGS>();
+  const int gid = lane >> 2, tig = lane & 3, mi = lane >> 3, ri = lane & 7;
+  uint32_t a_row[2], a_chunk[4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) a_row[mt] = (uint32_t)((32 * warp + 16 * mt + 8 * (mi & 1) + ri) * 128);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) a_chunk[ks] = (uint32_t)(((2 * ks + (mi >> 1)) ^ ri) << 4);
+  const SgXOff<128, 32> xo = sg_xoff<128, 32>(lane);
+  int acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+  for (int t = t0; t < t1; ++t) {
+    const int i = t - t0, slot = i % SK_STAGES;
+    const uint32_t su = smem_u32(smem + slot * Geo::SLOT);
+    mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * slot), (i / SK_STAGES) & 1);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      int a0[4], a1[4], b[NT][2];
+      ldsm_x4(a0, su + a_row[0] + a_chunk[ks]);
+      ldsm_x4(a1, su + a_row[1] + a_chunk[ks]);
+      sg_load_b<128, 32, NT>(b, su + Geo::W_BYTES, xo, ks);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        sg_mma32(acc[0][nt], a0, b[nt][0], b[nt][1], acc[0][nt]);
+        sg_mma32(acc[1][nt], a1, b[nt][0], b[nt][1], acc[1][nt]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) sg_arrive(smem_u32(smem + Geo::OFF_BAR + 8 * (SK_STAGES + slot)));
+  }
+  named_sync<SG_THREADS>(SG_BAR_DRAINED);
+  // D row gid + 8h of m tile mt is column 32w + 16mt + 8h + gid, its column
+  // 2·tig + j of n tile nt the token 8nt + 2·tig + j
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[(8 * nt + 2 * tig + (e & 1)) * SG_PART_LD + 32 * warp + 16 * mt + 8 * (e >> 1) + gid] =
+            acc[mt][nt][e];
+  if (cs > 1) sg_cluster_sync();
+  else __syncthreads();
+  sk_reduce_store<TO>(part, a, o0, rank, lg, cs, tid);
+  if (cs > 1) sg_cluster_sync();
+}
+
 // ---------------------------------------------------------------- host side
 
 // The weight's map: (rows, O) bytes, boxes of 128 columns × box_rows rows,
@@ -1321,6 +1507,34 @@ int sr_dispatch(const SrArgs& a, const SrMaps& m, int gs, cudaStream_t st) {
   return gs == 16 ? sr_dispatch_nt<16, S>(a, m, st)
          : gs == 32 ? sr_dispatch_nt<32, S>(a, m, st)
                     : sr_dispatch_nt<64, S>(a, m, st);
+}
+
+// K15a's stream launch: x (N, K) and w (O, K) int8 (K a multiple of 16,
+// 16-byte aligned), N <= 64 rows in NT n8 tiles, the K range's 128-byte
+// stages split over n_split ranks.
+template <int NT, typename TO>
+int sk_launch(const void* x, const void* w, const SkArgs& a, int K, cudaStream_t st) {
+  using Geo = SkGeo<NT>;
+  static const cudaError_t ready =
+      wg_kernel_ready(stream_s8_kernel<NT, TO>, Geo::SMEM, 65536 / (2 * SG_THREADS));
+  if (ready != cudaSuccess) return (int)ready;
+  SkMaps m = {};
+  if (!wg_map(&m.w, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, a.O, K, 128, SG_BO,
+              CU_TENSOR_MAP_SWIZZLE_128B, SG_W_PROMO) ||
+      !wg_map(&m.x, x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, a.N, K, 128, Geo::N_BOX,
+              CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  return sg_launch_tiles(stream_s8_kernel<NT, TO>, a.O, a.n_split, Geo::SMEM, st, a, m);
+}
+
+template <typename TO>
+int sk_dispatch(const void* x, const void* w, const SkArgs& a, int K, cudaStream_t st) {
+  switch (sg_tiles_for(a.N)) {
+    case 1: return sk_launch<1, TO>(x, w, a, K, st);
+    case 2: return sk_launch<2, TO>(x, w, a, K, st);
+    case 4: return sk_launch<4, TO>(x, w, a, K, st);
+    default: return sk_launch<8, TO>(x, w, a, K, st);
+  }
 }
 
 }  // namespace

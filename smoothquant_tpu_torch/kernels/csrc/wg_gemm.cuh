@@ -208,6 +208,15 @@ __device__ __forceinline__ float s8_to_f(uint32_t word, int c) {
   return __fsub_rn(__uint_as_float(0x4B000000u | u), 8388736.0f);
 }
 
+// f32(v) rounded to nearest even, as cvt.rn.f32.s32 rounds it, with no I2F:
+// v = (v >> 16)·2^16 + (v & 0xFFFF), each part exact in f32 (under the
+// exponent of 1.5·2^23 and of 2^23), joined by one fma that rounds once
+__device__ __forceinline__ float s32_f32_rn(int v) {
+  const float hi = __fsub_rn(__int_as_float(0x4B400000 + (v >> 16)), WG_MAGIC);
+  const float lo = __fsub_rn(__int_as_float(0x4B000000 | (v & 0xFFFF)), 8388608.0f);
+  return __fmaf_rn(hi, 65536.0f, lo);
+}
+
 // (bf16(lo), bf16(hi)), each rounded to nearest even, in one cvt
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -14,15 +14,21 @@ K15b  int8_bmm — port of smoothquant_tpu/kernels/int8.py:145 (pallas_call
       of the cache).  The JAX wrapper's padding (M, N to 32, K to 128) adds
       only zeros; the kernels compute the same sums without it.
 
-Both run one CUDA source, csrc/int8.cu.  K15a: M ≤ 8 rows take a
-weight-streaming kernel (no padded row tiles), more rows the mma.sync s8
-tile kernel.  K15b picks a body by shape (bmm_body): the attention
+K15a picks a body by its rows (linear_body): up to STREAM_MAX_ROWS the
+weight-streaming body's (O, K) int8 kind (csrc/stream_gmm.cuh
+stream_s8_kernel: TMA stages of the weight rows straight into mma.sync's A
+fragments, K split over a cluster as stream_gmm.split plans it), above them
+the warp-specialized s8 wgmma body K4 shares (csrc/wg_s8_gemm.cuh, rules in
+wg_s8.py), both in csrc/int8_wg.cu and both under the launch key
+"int8_linear"; `body=` forces one of them, or one of PR 3's kernels K15b
+keeps (csrc/int8.cu: "gemv" at ≤ 8 rows, "tiles" above), which count under
+keys of their own (LINEAR_LAUNCH_KEYS).  K15b picks a body by shape (bmm_body): the attention
 products take bodies of their own — "qk" (QKᵀ at more than 8 rows, K ≤ 256,
 f32 out: a persistent tile body that writes the logits at the store
 bandwidth), "pv" (b_kn at more than 8 rows, K ≤ 1024: 128 × 64 tiles, as
 wide as the head dimension), "kn_gemv" (b_kn at ≤ 8 rows: K split over a
 thread-block cluster) and "nk_gemv" (QKᵀ at ≤ 8 rows, K ≤ 256: a b row a
-thread) — and the rest the kernels K15a runs ("gemv", "tiles").  Each
+thread) — and the rest K15a's old kernels ("gemv", "tiles").  Each
 body counts its launches under its own key (BMM_LAUNCH_KEYS).  A wrapper
 runs the plain version only for CPU tensors; for CUDA tensors it launches
 the kernel or raises.  K and (with b_kn) N are zero-padded to 16s where
@@ -39,12 +45,23 @@ from typing import Optional
 import numpy as np
 import torch
 
-from smoothquant_tpu_torch.kernels import _build
+from smoothquant_tpu_torch.kernels import _build, stream_gmm, wg_s8
 from smoothquant_tpu_torch.quant.core import fma_f32
 
 OUT_CODES = {torch.float32: 0, torch.int8: 2}
 
 MAX_GEMV_ROWS = 8          # rows the GEMVs take (csrc/int8.cu MAX_M)
+# K15a: up to this many rows the stream body's (O, K) int8 kind, above it the
+# s8 wgmma body.  Measured by chip_smoke.py's k15a_row_crossover (NVIDIA H100
+# 80GB HBM3, 700 W; the int8 OPT-1.3B's six linears, weights cold): the
+# stream kind wins at every row count it takes, 0.050 against 0.132 ms at 1
+# and 4 rows, 0.056 against 0.135 at 32, 0.067 against 0.136 at 64, so it
+# takes all of them (stream_gmm.MAX_ROWS).
+STREAM_MAX_ROWS = 64
+LINEAR_BODIES = ("stream", "wg", "gemv", "tiles")
+# launch counter of each K15a body: the main paths' two under the kernel's name
+LINEAR_LAUNCH_KEYS = {"stream": "int8_linear", "wg": "int8_linear",
+                      "gemv": "int8_linear_gemv", "tiles": "int8_linear_tiles"}
 QK_MAX_K = 256             # the qk body's K: |acc| ≤ 127²·K < 2^22 takes the exact f32 add
 PV_MAX_K = 1024            # the pv body's K: the block's (K, 64) slice of b lands whole
 KN_MAX_ROWS = 4096         # k rows a rank of the kn GEMV stages at most
@@ -124,13 +141,39 @@ def _pad_dim(t: torch.Tensor, dim: int, m: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, widths)
 
 
-def _gemm(a, b, bias, alpha, relu, b_kn, out_dtype, name, body="tiles", ranks=None):
-    """Launch on a (B, M, K) and b (B, N, K) / (B, K, N): the shared kernel
-    (body "tiles" / "gemv"), or one of K15b's (BMM_BODIES)."""
+def linear_body(n: int) -> str:
+    """K15a's body for n rows: "stream" up to STREAM_MAX_ROWS, else "wg"."""
+    return "stream" if n <= STREAM_MAX_ROWS else "wg"
+
+
+def linear_takes(body: str, n: int) -> bool:
+    """Whether a K15a body takes n rows."""
+    if body == "stream":
+        return n <= stream_gmm.MAX_ROWS
+    if body in ("gemv", "tiles"):
+        return (n <= MAX_GEMV_ROWS) == (body == "gemv")
+    return body == "wg"
+
+
+def linear_split(o: int, kk: int) -> int:
+    """Cluster ranks of the stream body over K = kk (a multiple of 16):
+    stream_gmm.split of its 128-byte stages."""
+    return stream_gmm.split(o, stream_gmm.k15_stages(kk))
+
+
+def _check_types(a, b, out_dtype, name):
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"{name} takes int8 operands, got {a.dtype} and {b.dtype}")
     if out_dtype not in OUT_CODES:
         raise TypeError(f"{name} writes float32 or int8, not {out_dtype}")
+
+
+def _gemm(a, b, bias, alpha, relu, b_kn, out_dtype, name, body="tiles", ranks=None,
+          key=None):
+    """Launch on a (B, M, K) and b (B, N, K) / (B, K, N): PR 3's kernel
+    (body "tiles" / "gemv"), or one of K15b's (BMM_BODIES); the launch
+    counts under `key` (K15b's body key by default)."""
+    _check_types(a, b, out_dtype, name)
     batch, m, kk = a.shape
     n = b.shape[2] if b_kn else b.shape[1]
     if b.shape[0] != batch or (b.shape[1] if b_kn else b.shape[2]) != kk:
@@ -165,8 +208,38 @@ def _gemm(a, b, bias, alpha, relu, b_kn, out_dtype, name, body="tiles", ranks=No
             a.data_ptr(), b.data_ptr(), 0 if bias is None else bias.data_ptr(),
             out.data_ptr(), batch, m, n_pad, a.shape[2], _alpha(alpha), int(relu),
             int(b_kn), OUT_CODES[out_dtype], _build.stream_ptr(a)), "sq_int8_gemm")
-    _build.LAUNCHES[BMM_LAUNCH_KEYS[body] if name == "int8_bmm" else name] += 1
+    _build.LAUNCHES[key or BMM_LAUNCH_KEYS[body]] += 1
     return out if n_pad == n else out[..., :n]
+
+
+def _linear(x, w, bias, alpha, relu, out_dtype, body):
+    """K15a on the stream or the wgmma body (csrc/int8_wg.cu)."""
+    n, o = x.shape[0], w.shape[0]
+    if x.shape[1] != w.shape[1]:
+        raise ValueError(f"int8_linear: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         "do not contract")
+    if bias is not None and (bias.shape != (o,) or bias.dtype != torch.float32):
+        raise TypeError(f"int8_linear: bias must be float32 ({o},)")
+    if min(n, o, x.shape[1]) == 0:
+        raise ValueError("int8_linear: empty operand")
+    # TMA: rows of a multiple of 16 bytes from 16-byte-aligned bases
+    x, w = (_build.aligned(_pad_dim(t.contiguous(), 1, 16)) for t in (x, w))
+    bias = None if bias is None else bias.contiguous()
+    _build.check_operands(x.device, x=x, w=w, bias=bias)
+    kk = x.shape[1]
+    out = torch.empty((n, o), dtype=out_dtype, device=x.device)
+    args = (x.data_ptr(), w.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            out.data_ptr(), n, kk, o, _alpha(alpha), int(relu), OUT_CODES[out_dtype])
+    if body == "stream":
+        _build.check(_build.lib().sq_int8_linear_stream(
+            *args, linear_split(o, kk), _build.stream_ptr(x)), "sq_int8_linear_stream")
+    else:
+        _build.check(_build.lib().sq_int8_linear_wg(
+            *args, wg_s8.blocks(n, o, wg_s8.sm_count(x.device), wg_s8.WIDE_BN),
+            _build.stream_ptr(x)),
+            "sq_int8_linear_wg")
+    _build.LAUNCHES[LINEAR_LAUNCH_KEYS[body]] += 1
+    return out
 
 
 def int8_linear(
@@ -177,15 +250,25 @@ def int8_linear(
     *,
     relu: bool = False,
     out_dtype=torch.float32,
+    body: Optional[str] = None,
 ) -> torch.Tensor:
-    """(N, O) static-scale int8 linear (K15a)."""
+    """(N, O) static-scale int8 linear (K15a).  `body` (LINEAR_BODIES)
+    overrides linear_body for measurements; a forced body raises on a row
+    count it does not take."""
     if x.device.type == "cpu":
         return int8_linear_plain(x, w, alpha, bias, relu=relu, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     if x.ndim != 2 or w.ndim != 2:
         raise ValueError("int8_linear takes x (N, K) and w (O, K)")
-    return _gemm(x[None], w[None], bias, alpha, relu, False, out_dtype, "int8_linear")[0]
+    _check_types(x, w, out_dtype, "int8_linear")
+    chosen = linear_body(x.shape[0]) if body is None else body
+    if not linear_takes(chosen, x.shape[0]):
+        raise ValueError(f"K15a's {chosen!r} body does not take {x.shape[0]} rows")
+    if chosen in ("gemv", "tiles"):
+        return _gemm(x[None], w[None], bias, alpha, relu, False, out_dtype, "int8_linear",
+                     key=LINEAR_LAUNCH_KEYS[chosen])[0]
+    return _linear(x, w, bias, alpha, relu, out_dtype, chosen)
 
 
 def int8_bmm(

@@ -21,8 +21,13 @@ The weight is read K-major: the wrapper takes the (K, O) weight the JAX
 package's signature names, but its storage must be (O, K) — `k_major(w)`
 makes such a tensor (kernels/pack.py); the port's identity-int8 packs
 hold their weights so.
-CUDA source: csrc/int8_prefill.cu.  A wrapper runs the plain version only
-for CPU tensors; for CUDA tensors it launches the kernel or raises.
+Two bodies, picked by prefill_body: pre-quantized codes with bf16 salient
+operands or none (every promoted Llama site and the lm_head) take the
+warp-specialized s8 wgmma body (csrc/int8_wg.cu + wg_s8_gemm.cuh, rules in
+wg_s8.py); f32 salient operands and the raw-x mode keep the mma.sync
+tiles (csrc/int8_prefill.cu), counted under keys of their own
+(LAUNCH_KEYS).  A wrapper runs the plain version only for CPU tensors; for
+CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -31,10 +36,27 @@ from typing import Optional
 
 import torch
 
-from smoothquant_tpu_torch.kernels import _build
+from smoothquant_tpu_torch.kernels import _build, wg_s8
 from smoothquant_tpu_torch.quant.core import fma_f32
 
 INT_MM_MIN_ROWS = 32   # torch._int_mm's CUDA path refuses M <= 16 rows
+# the launch counter of each body: the wgmma body's under the kernel's name,
+# the mma.sync tiles' apart (the raw-x mode always runs the tiles)
+LAUNCH_KEYS = {"wg": "int8_prefill_matmul", "tiles": "int8_prefill_matmul_tiles",
+               "raw_x": "int8_prefill_matmul_rawx"}
+
+
+def prefill_body(raw_x: bool, k_s: int, sal_dtype) -> str:
+    """K4's body: "wg" (the s8 wgmma body) for pre-quantized codes with
+    bf16 salient operands or none, else "tiles" (f32 salient operands, the
+    raw-x mode)."""
+    return "wg" if _takes("wg", raw_x, k_s, sal_dtype) else "tiles"
+
+
+def _takes(body: str, raw_x: bool, k_s: int, sal_dtype) -> bool:
+    if body == "wg":
+        return not raw_x and (k_s == 0 or sal_dtype == torch.bfloat16)
+    return body == "tiles"
 
 
 def int_mm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -88,8 +110,11 @@ def int8_prefill_matmul(
     ns_mask: Optional[torch.Tensor] = None,   # (1, K) 0/1: the raw-x mode
     *,
     out_dtype=torch.bfloat16,
+    body: Optional[str] = None,
 ) -> torch.Tensor:
-    """(N, O) prefill int8 matmul with the fused epilogue."""
+    """(N, O) prefill int8 matmul with the fused epilogue.  `body` ("wg" /
+    "tiles") overrides prefill_body for measurements; a forced body raises
+    on a call it does not take."""
     if (ns_mask is not None) != x_q.dtype.is_floating_point:
         raise TypeError("K4 takes int8 codes, or raw fp activations with an ns_mask "
                         f"(got {x_q.dtype}, ns_mask {'given' if ns_mask is not None else 'none'})")
@@ -133,9 +158,24 @@ def int8_prefill_matmul(
         w_ok = torch.nn.functional.pad(w_ok, (0, 0, 0, o_pad - o))
         sw = torch.nn.functional.pad(sw, (0, o_pad - o))
         w_sal_t = _pad_last(w_sal_t, 8)
+    chosen = prefill_body(raw_x, k_s, x_sal.dtype) if body is None else body
+    if not _takes(chosen, raw_x, k_s, x_sal.dtype):
+        raise ValueError(f"K4's {chosen!r} body does not take this call (raw x: {raw_x}, "
+                         f"k_s {k_s} in {x_sal.dtype})")
     _build.check_operands(x_q.device, sx=sx, w_ok=w_ok, sw=sw, x_sal=x_sal,
                           w_sal_t=w_sal_t, mask=mask)
     out = torch.empty((n, o_pad), dtype=out_dtype, device=x_q.device)
+    if chosen == "wg":
+        # TMA reads every operand from a 16-byte-aligned base
+        x_q, w_ok, x_sal, w_sal_t = (_build.aligned(t) for t in (x_q, w_ok, x_sal, w_sal_t))
+        _build.check(_build.lib().sq_int8_prefill_wg(
+            x_q.data_ptr(), sx.data_ptr(), w_ok.data_ptr(), sw.data_ptr(), x_sal.data_ptr(),
+            w_sal_t.data_ptr(), out.data_ptr(), n, x_q.shape[1], o_pad, x_sal.shape[1],
+            _build.dt_code(out),
+            wg_s8.blocks(n, o_pad, wg_s8.sm_count(x_q.device), wg_s8.tile_cols(k_s)),
+            _build.stream_ptr(x_q)), "sq_int8_prefill_wg")
+        _build.LAUNCHES[LAUNCH_KEYS["wg"]] += 1
+        return out if o_pad == o else out[:, :o]
     tail = (out.data_ptr(), n, x_q.shape[1], o_pad, x_sal.shape[1], _build.dt_code(w_sal_t),
             _build.dt_code(out), _build.stream_ptr(x_q))
     if raw_x:
@@ -146,5 +186,5 @@ def int8_prefill_matmul(
         _build.check(_build.lib().sq_int8_prefill(
             x_q.data_ptr(), sx.data_ptr(), w_ok.data_ptr(), sw.data_ptr(),
             x_sal.data_ptr(), w_sal_t.data_ptr(), *tail), "sq_int8_prefill")
-    _build.LAUNCHES["int8_prefill_matmul_rawx" if raw_x else "int8_prefill_matmul"] += 1
+    _build.LAUNCHES[LAUNCH_KEYS["raw_x" if raw_x else "tiles"]] += 1
     return out if o_pad == o else out[:, :o]

@@ -80,10 +80,12 @@ from smoothquant_tpu_torch.quant import core
 
 # identity-int8 forward: from this many rows K4, below them torch._int_mm
 # plus the epilogue.  Measured by chip_smoke.py's prefill_kernel_crossover
-# (NVIDIA H100 80GB HBM3, 700 W): at Llama-2-7B's promoted gate_up and down
-# together K4 wins from 256 rows (0.486 against 0.615 ms) and not at 128
-# (0.396 against 0.389); gate_up alone from 4 rows, down alone only at 1024.
-PREFILL_KERNEL_MIN_TOKENS = 256
+# (NVIDIA H100 80GB HBM3, 700 W), with K4 on its s8 wgmma body: at
+# Llama-2-7B's promoted gate_up and down K4 wins at every row count timed,
+# from 4 (0.093 against 0.128 ms and 0.083 against 0.113; at 128 rows 0.104
+# against 0.231 and 0.101 against 0.146).  (With K4's mma.sync tiles the two
+# together crossed at 256 rows, and this was 256.)
+PREFILL_KERNEL_MIN_TOKENS = 4
 # per-layer int8-container packs of a grouped recipe, compute="auto": up to
 # this many rows the int path (K8), above it the dequant path (K9).
 # Measured by chip_smoke.py's int_path_crossover (NVIDIA H100 80GB HBM3,

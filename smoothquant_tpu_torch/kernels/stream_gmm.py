@@ -1,12 +1,14 @@
 """Host-side rules of the weight-streaming body (csrc/stream_gmm.cuh) and
-its four weight kinds — K8's int8 containers, K5's nibbles, K13's bf16 slab
-and K1's nibbles on raw x: the stages a call streams, how a 128-column
+its five weight kinds — K8's int8 containers, K5's nibbles, K13's bf16 slab,
+K1's nibbles on raw x and K15a's (O, K) int8 rows: the stages a call
+streams, how a 128-column
 tile's stages split over the ranks of a thread-block cluster, K1's shared
 memory, and the body's int32 →
 f32 conversion and nibble operand written in PyTorch.  Plain Python on
 shapes, so the CPU tests hold them; the shape rules that pick the body live
 beside each wrapper (int_group_matmul.int_gmm_body,
-int4_group_matmul.stacked_body and rawx_body, fp_matmul.fp_body).
+int4_group_matmul.stacked_body and rawx_body, fp_matmul.fp_body,
+int8.linear_body).
 """
 
 from __future__ import annotations
@@ -49,6 +51,12 @@ def k13_kb(o: int, kk: int) -> int:
 def k13_stages(kk: int, kb: int = 64) -> int:
     """K13's stages: kb weight rows (and the x tile of those k) each."""
     return -(-kk // kb)
+
+
+def k15_stages(kk: int) -> int:
+    """K15a's stages: 128 bytes of K each (a box of 128 weight rows × 128
+    bytes and the x tile of those k)."""
+    return -(-kk // 128)
 
 
 def tiles_for(n: int) -> int:

@@ -44,8 +44,10 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
     from smoothquant_tpu_torch.models.opt import OPTConfig
 
     for name, value in dict(CALIB_SAMPLES=2, CALIB_LEN=32, OPT_BATCH=2, OPT_PROMPT=40,
-                            OPT_NEW=4, OPT_MAX_LEN=128).items():
+                            OPT_NEW=4, OPT_MAX_LEN=128,
+                            K15A_EDGE_SHAPES=((3, 208, 77), (130, 200, 77))).items():
         monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
@@ -79,7 +81,14 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
     assert [r["body"] for r in rows if r["kernel"] == "int8_bmm"] == [
         "qk", "pv", "nk_gemv", "kn_gemv"]
     assert all(r["old_body"] in ("tiles", "gemv") for r in rows if r["kernel"] == "int8_bmm")
+    # K15a: the stream kind at the decode rows, the wgmma body at the
+    # prefill's, PR 3's kernels timed beside
+    assert [(r["body"], r["old_body"]) for r in rows if r["kernel"] == "int8_linear"] == (
+        [("wg", "tiles")] * 6 + [("stream", "gemv")] * 6)
     phases = {p["phase"]: p for p in printed if "phase" in p}
+    assert phases["k15a_edges"]["bit_exact_cases"] == {"stream": 3, "wg": 3}
+    assert phases["k15a_row_crossover"]["rows"] == list(cs.K15A_CROSSOVER_N)
+    assert set(phases["k15a_row_crossover"]["ms"][64]) == {"stream", "wg"}
     assert phases["opt_reference_check"]["float32"]["rel_norm_err"] < 5e-2
     # prompt, two warm-up steps, the counted step, three windows of 8, the profile
     assert phases["opt_generator"]["position_after"] == 40 + 2 + 1 + 3 * 8 + 4
@@ -117,9 +126,22 @@ def test_slot_path_rehearsal_on_cpu(monkeypatch):
                               intermediate_size=1024, num_attention_heads=4,
                               num_key_value_heads=4, dtype="bfloat16")
     cpu = torch.device("cpu")
-    fp, _, stacked = cs.build_model(cfg, cpu, cs.SEED)
+    fp, packed, stacked = cs.build_model(cfg, cpu, cs.SEED)
     promoted = cs.build_promoted(fp, cfg, cs.SEED)
     gen = torch.Generator().manual_seed(1)
+    # K4 at the promoted tree's sites (its wgmma body, the tiles timed
+    # beside), and the Generator: prefill on the promoted tree, the int8
+    # lm_head of each 4-row decode step on K4 too
+    monkeypatch.setattr(cs, "PREFILL_N", 64)
+    k4_rows = cs.check_int8_prefill(promoted, cfg, cpu, gen)
+    assert [r["site"] for r in k4_rows] == ["qkv", "o", "gate_up", "down", "lm_head"]
+    assert all(r["body"] == "wg" and r["max_err"] == 0 for r in k4_rows)
+    for name, value in dict(GEN_PROMPT=24, GEN_NEW=3, GEN_MAX_LEN=32).items():
+        monkeypatch.setattr(cs, name, value)
+    cs.generator(packed, promoted, cfg, cpu)
+    assert expected["generator"] == {"int8_prefill_matmul": 4 * 2 + 1 + 2,
+                                     "int4_group_matmul": 4 * 2 * 2,
+                                     "decode_attention_stacked": 2 * 2}
     rows = (cs.check_rawx(stacked, cpu, gen, 16) + cs.check_rawx(stacked, cpu, gen, 32)
             + cs.check_act_prep(stacked, cpu, gen) + cs.check_gmm_stacked(stacked, cpu, gen)
             + cs.check_write_cache_hm(cpu, gen, cs.SLOT_BATCH, cfg.num_key_value_heads,
@@ -142,28 +164,32 @@ def test_slot_path_rehearsal_on_cpu(monkeypatch):
     metrics, launches = cs.serve(promoted, stacked, cfg, cpu, promoted=True, batch=40,
                                  smajor=False, n_requests=44, decode_window=True)
     assert sum(launches.values()) == 0
+    # the int8 lm_head on K4 from PREFILL_KERNEL_MIN_TOKENS rows
     per_step = {"quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8,
-                "write_quant_cache_stacked": 2, "decode_attention_stacked": 2}
+                "write_quant_cache_stacked": 2, "decode_attention_stacked": 2,
+                "int8_prefill_matmul": 1}
     assert metrics["launches_per_step"] == per_step and metrics["pool"] == "head-major"
     steps = metrics["decode_steps"]
     assert steps >= 64                        # 44 requests of 32 tokens through 40 slots
     assert {k: v for k, v in expected["serving"].items() if k != "int8_prefill_matmul"} == {
-        k: v * steps for k, v in per_step.items()}
+        k: v * steps for k, v in per_step.items() if k != "int8_prefill_matmul"}
+    assert expected["serving"]["int8_prefill_matmul"] >= steps
     assert metrics["generated_tokens"] == 44 * 32
 
     cs.slot_decode(stacked, cfg, cpu, "card")
     assert expected["head_major decode step B=40"] == per_step
     assert expected["s_major decode step B=40"] == {
         "quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8,
-        "write_quant_cache_smajor": 2, "decode_attention_smajor_stacked": 2}
+        "write_quant_cache_smajor": 2, "decode_attention_smajor_stacked": 2,
+        "int8_prefill_matmul": 1}
     assert expected["aligned_head_major decode step B=40"] == {
         "quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8, "fused_attn": 2,
-        "write_quant_cache_stacked": 2}
+        "write_quant_cache_stacked": 2, "int8_prefill_matmul": 1}
     # above K1_MAX_TOKENS rows: K7b at the fused-norm sites, K7a at down, K5
     assert expected["head-major decode step B=32"] == {
         "norm_quantize_acts_t": 4, "quantize_acts_grouped_t": 2,
         "int4_group_matmul_stacked": 8, "write_quant_cache_stacked": 2,
-        "decode_attention_stacked": 2}
+        "decode_attention_stacked": 2, "int8_prefill_matmul": 1}
     phases = {p["phase"]: p for p in printed if "phase" in p}
     # position 448, two warm-up steps and the counted one, three windows of 8, the profile
     assert phases["slot_head_major_decode"]["positions"] == [448, 448 + 3 + 24 + 4]
@@ -220,15 +246,16 @@ def test_aligned_path_rehearsal_on_cpu(monkeypatch):
     launches = cs.aligned_decode(stacked, step, cfg, cpu, "card")
     assert sum(launches.values()) == 0
     assert expected["aligned auto decode step"] == {
-        "int4_group_matmul_stacked_rawx": 8, "fused_attn": 2, "write_quant_cache_stacked": 2}
+        "int4_group_matmul_stacked_rawx": 8, "fused_attn": 2, "write_quant_cache_stacked": 2,
+        "int8_prefill_matmul": 1}
     assert expected["aligned fused decode step"] == {
-        "int4_group_matmul_stacked_rawx": 8, "fused_attn": 2}
+        "int4_group_matmul_stacked_rawx": 8, "fused_attn": 2, "int8_prefill_matmul": 1}
     assert expected["aligned off decode step"] == {
         "int4_group_matmul_stacked_rawx": 8, "write_quant_cache_stacked": 2,
-        "decode_attention_stacked": 2}
+        "decode_attention_stacked": 2, "int8_prefill_matmul": 1}
     assert expected["aligned auto_mlp decode step"] == {
         "int4_group_matmul_stacked_rawx": 4, "mlp_swiglu_fused_stacked": 2, "fused_attn": 2,
-        "write_quant_cache_stacked": 2}
+        "write_quant_cache_stacked": 2, "int8_prefill_matmul": 1}
     phases = {p["phase"]: p for p in printed if "phase" in p}
     for name in ("auto", "fused", "off", "auto_mlp"):
         assert phases[f"aligned_{name}_decode"]["positions"] == [448, 448 + 3 + 24 + 4]
@@ -559,6 +586,29 @@ def test_wgmma_edge_checks_rehearsal_on_cpu(monkeypatch):
     # the kernels line holds measured numbers and bound_ms only: the floors
     # stay on the scaling_floors line
     assert all("scaling_floor_ms" not in k and "before_ms" not in k for k in by.values())
+
+
+def test_k4_k15a_edge_checks_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's edge checks of K4's and K15a's bodies on the CPU at a
+    few of their shapes, where the wrappers take their plain versions:
+    k4_edges (every k_s of K4_EDGE_KS, bf16 and f32 out, each call
+    repeated) and k15a_edges (f32 with and without bias, int8 with ReLU,
+    sums past 2^24), each case named by the body its rule picks; and the
+    refusals check_no_fallback holds the new bodies to."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
+    monkeypatch.setattr(cs, "K4_EDGE_SHAPES", ((33, 200, 72), (130, 128, 264)))
+    monkeypatch.setattr(cs, "K15A_EDGE_SHAPES", ((1, 1088, 40), (64, 208, 77), (130, 64, 136)))
+    cpu = torch.device("cpu")
+    k4 = cs.check_k4_edges(cpu)
+    assert k4 == {"cases": 2 * len(cs.K4_EDGE_KS) * 2,
+                  "max_rel_err": {"bfloat16": 0.0, "float32": 0.0}}
+    k15a = cs.check_k15a_edges(cpu)
+    assert k15a["bit_exact_cases"] == {"stream": 6, "wg": 3}
+    assert k15a["above_2_24"] and k15a["max_abs_acc"] == 127 * 127 * 1088
 
 
 def test_attn_edge_checks_rehearsal_on_cpu(monkeypatch):

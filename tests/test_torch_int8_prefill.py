@@ -2,7 +2,7 @@
 (codes and scales bit-exact on the packs the JAX promotion handles, a
 refusal on the ones it gets wrong), K4's plain version against
 int8_prefill_matmul in interpret mode, and the identity-int8 forward on
-both sides of its 256-row switch.
+both sides of its row switch.
 
 Tolerances: the int32 sums are exact on both sides, so in f32 the outputs
 differ only by the order of the salient dot's f32 sums: 1e-5 relative,
@@ -260,11 +260,12 @@ def test_k4_raw_x_mode_raises():
         k4.int8_prefill_matmul(z.float(), *rest, torch.ones(1, 8))
 
 
-@pytest.mark.parametrize("n", [40, 260])
+@pytest.mark.parametrize("n", [2, 40, 260])
 def test_identity_int8_forward_matches_jax(n, monkeypatch):
     """real_quant_linear on a promoted pack with salient channels, below
-    and above the 256-row switch (the port takes K4 at 260 rows, the
-    torch._int_mm product at 40; JAX its kernel and its XLA dots)."""
+    and above the port's switch (PREFILL_KERNEL_MIN_TOKENS: K4 from it, the
+    torch._int_mm product below it) and JAX's at 256 rows (its kernel, and
+    its XLA dots below)."""
     calls = []
     plain = k4.int8_prefill_matmul
     monkeypatch.setattr(treal, "int8_prefill_matmul",
