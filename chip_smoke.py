@@ -11,8 +11,10 @@
    body's to no I2F, the stream body and K3's split kernels to TMA loads
    and the other split kernels to bulk copies, and the fourteen s8
    kernels of K4 and K15a to IGMMA (K4's salient ones HGMMA too), TMA
-   loads, no I2F and no spills (cuobjdump); reads the SM clock the
-   per-group scaling floors take.
+   loads, no I2F and no spills, K14's six gate_up kernels to TMA loads and
+   they and K16's sixteen row kernels to no I2F, no local memory and no
+   spills (cuobjdump); reads the SM clock the per-group scaling floors
+   take.
 The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
 2048, random bf16 weights from seed 0):
    a. the export pipeline of export_int8_model.py:48-76 on the card:
@@ -22,12 +24,15 @@ The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
       stream body's (O, K) int8 kind; PR 3's kernels timed beside), K15b at QKᵀ and PV
       (prefill S = 512, decode over a 1024-position cache; bit for bit, the
       body its shape takes and K15a's kernel timed beside) and K16 (2048
-      and 4 rows) against their plain versions: f32 outputs within 1e-6 of
+      and 4 rows; its row body, the one-block-a-row body timed beside) against
+      their plain versions: f32 outputs within 1e-6 of
       the largest magnitude, int8 outputs identical or off by one code in
       under 1e-4 of the elements; K15b's bodies bit for bit at their edges
       (k15b_edges); K15a's two bodies bit for bit at their edges
       (k15a_edges, sums past 2^24) and against each other at 1-64 rows
-      (k15a_row_crossover, which int8.STREAM_MAX_ROWS follows);
+      (k15a_row_crossover, which int8.STREAM_MAX_ROWS follows); K16's row
+      body at 1-2048 rows, C = 8 to 8192, both dtypes and norms, codes
+      identical or one off with n_diff counted (k16_edges);
    c. the kernel path against the plain path (the CPU) on a small int8 OPT;
    d. the int8 logits against the smoothed fp model's on a 512-token
       prompt; the int8 prefill of 4 × 512 tokens beside the bf16 fp
@@ -54,7 +59,9 @@ Then the Llama-2-7B paths:
    body at B = 4 and B = 64, its write body at
    B = 4 (rows and scales identical to K10's), its stacked body at B = 4
    over 8 of the 32 heads' worth of kv heads (Meta-Llama-3-8B's attention
-   shape); K14 at the serving pack's gate_up + down, N = 4 and 8; after the
+   shape); K14 at the serving pack's gate_up + down, N = 4 and 8 (its
+   stream body's two launches; the cooperative body timed beside as
+   old_body_ms); after the
    promoted tree is built, K4 at its four prefill linears and the lm_head
    (N = 1024; its s8 wgmma body, PR 2's tiles timed beside); after the bf16 tree is built, K13 at the four decode linears
    (N = 4; its stream body, the __ldg body timed beside as old_body_ms).  Times come from CUDA events around launches queued behind a
@@ -67,7 +74,10 @@ Then the Llama-2-7B paths:
    rows, ragged K and O, both dtypes; k1_edges: 1-32 rows, ragged O, every
    mode, both scale dtypes, group sizes 16 / 32 / 64, each stream call
    repeated for identical bits and held bit for bit to K5's stream body on
-   the plain version's codes); K1 against K7b / K7a + K5 at 1-32 rows
+   the plain version's codes); K14's two bodies at their edges (k14_edges:
+   1-8 rows, group sizes 16 / 32 / 64, salient blocks and none, the norm on
+   and off, both scale dtypes, the shapes that stay on the cooperative
+   body); K1 against K7b / K7a + K5 at 1-32 rows
    (k1_vs_k5, which real_linear.K1_MAX_TOKENS follows); K4's wgmma body at
    its edges (k4_edges: N = 256 / 333 / 800 / 1024, k_s 0 / 16 / 208 /
    640, bf16 and f32 out, ragged K and O, each call repeated).  K11 also over Llama's
@@ -90,7 +100,8 @@ Then the Llama-2-7B paths:
    aligned stacked head-major int8 decode at B = 4 from position 448 in
    its four compositions ("auto": K1 128, K12 32, K10 32 a step; "fused":
    K1 128, K12 32; "off": K1 128, K10 32, K11 32; "auto" + fuse_mlp: K1 64,
-   K14 32, K12 32, K10 32), window by window with the S-major W4A4 step:
+   K14 64 (32 gate_up and 32 down launches), K12 32, K10 32), window by
+   window with the S-major W4A4 step:
    ms/step, device busy, idle share, launches per step.
 6. Promotes a plain nibble pack of the same weights to int8
    (promote_model_int8): a 1024-token prompt through the 32-layer promoted
@@ -1233,10 +1244,12 @@ def check_fused_attn(cfg, dev, gen):
 def check_mlp_fused(stacked, dev, gen):
     """K14 vs plain at the serving pack's gate_up + down with the RMSNorm
     fused, N = MAX_BATCH and 8 rows (its largest): the bf16 output within
-    1e-2 of the largest magnitude (K1's bound; the same chain twice).
-    Yardsticks: the two bf16 torch.matmuls with SiLU·up between them
-    (library_ms), and the unfused path's K1 pair with SiLU·up between them
-    (unfused_ms); grid_blocks is the cooperative grid the card holds."""
+    1e-2 of the largest magnitude (K1's bound; the same chain twice), on the
+    body its rule picks (the stream body's two launches at these shapes),
+    with the cooperative body timed beside it (old_body_ms; coop_grid_blocks
+    is the grid the card holds for it).  Yardsticks: the two bf16 torch.matmuls with SiLU·up between
+    them (library_ms), and the unfused path's K1 pair with SiLU·up between
+    them (unfused_ms)."""
     import torch
 
     from smoothquant_tpu_torch.kernels import _build
@@ -1261,10 +1274,15 @@ def check_mlp_fused(stacked, dev, gen):
         x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
         args = lambda i: (i % n_l, x, norm[i % n_l], gu.w_qt, gu.w_scales_t, gu.w_sal_t,
                           dn.w_qt, dn.w_scales_t, dn.w_sal_t)
-        got = k14.mlp_swiglu_fused_stacked(*args(n_l - 1), **kw)
+        body = k14.mlp_body(n, c, o1, 2 * half1, gu.w_sal_t.shape[1], o2, inter, gs, x.dtype)
+        got = _launched(k14.LAUNCH_KEYS[body][0],
+                        lambda: k14.mlp_swiglu_fused_stacked(*args(n_l - 1), **kw))
         ref = k14.mlp_swiglu_fused_stacked_plain(*args(n_l - 1), **kw)
         torch.cuda.synchronize()
         err = _close(f"K14 N={n}", got, ref, 1e-2)
+        old = k14.mlp_swiglu_fused_stacked(*args(n_l - 1), **kw, body="coop")
+        torch.cuda.synchronize()
+        _close(f"K14 N={n} cooperative body", old, ref, 1e-2)
 
         def unfused(i):
             y = k1.int4_group_matmul_stacked_rawx(
@@ -1284,10 +1302,13 @@ def check_mlp_fused(stacked, dev, gen):
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         rows.append(dict(
             kernel="mlp_swiglu_fused_stacked", site="mlp" if n == MAX_BATCH else f"mlp@{n}",
-            shape=[n, c, o1, inter, o2], max_err=err, in_sum=n == MAX_BATCH,
-            grid_blocks=(_build.lib().sq_mlp_fused_grid_blocks(
+            shape=[n, c, o1, inter, o2], body=body, max_err=err, in_sum=n == MAX_BATCH,
+            check_launches=1,
+            coop_grid_blocks=(_build.lib().sq_mlp_fused_grid_blocks(
                 n, _build.dt_code(gu.w_scales_t), _build.dt_code(x)) if x.is_cuda else None),
             kernel_ms=device_ms(lambda i: k14.mlp_swiglu_fused_stacked(*args(i), **kw), n_l),
+            old_body_ms=device_ms(lambda i: k14.mlp_swiglu_fused_stacked(
+                *args(i), **kw, body="coop"), n_l),
             plain_ms=device_ms(lambda i: k14.mlp_swiglu_fused_stacked_plain(*args(i), **kw),
                                4, reps=3),
             unfused_ms=device_ms(unfused, n_l),
@@ -1448,7 +1469,8 @@ def check_int8_bmm(int8_tree, cfg, dev, gen):
 def check_norm_quant(int8_tree, cfg, dev, gen):
     """K16 vs plain: the f32 residual stream's LayerNorm → int8 at the
     prefill (4 × 512 rows) and decode (4 rows), C = hidden, each layer's
-    γ / β and static scale; the yardstick is F.layer_norm."""
+    γ / β and static scale, on the row body with the one-block-a-row body
+    timed beside it (old_body_ms); the yardstick is F.layer_norm."""
     import torch
     import torch.nn.functional as F
 
@@ -1462,17 +1484,21 @@ def check_norm_quant(int8_tree, cfg, dev, gen):
         xs = [torch.randn((n, c), generator=gen, device=dev) * 2 + 0.3 for _ in range(4)]
         args = lambda i: (xs[i % 4], layers[i % n_l].ln_attn_gamma, layers[i % n_l].ln_attn_beta,
                           layers[i % n_l].scales["attn_input_scale"])
-        got = k16.layer_norm_q(*args(0), eps=eps)
+        got = _launched("norm_quant", lambda: k16.layer_norm_q(*args(0), eps=eps))
         ref = k16.norm_quant_plain(*args(0), eps=eps)
+        old = k16.norm_quant(*args(0), eps=eps, body="block")
         torch.cuda.synchronize()
         err, n_diff = _compare(f"K16 N={n}", got, ref)
+        _compare(f"K16 N={n} block body", old, ref)
         g32 = [lp.ln_attn_gamma.float() for lp in layers]
         b32 = [lp.ln_attn_beta.float() for lp in layers]
         n_bytes, ops = roofline.norm_quant_cost(n, c, x_bytes=4)
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
         rows.append(dict(
             kernel="norm_quant", site=f"ln@{n}", shape=[n, c], max_err=err, n_diff=n_diff,
+            plan=list(k16.k16_plan(n, c)), check_launches=1,
             kernel_ms=device_ms(lambda i: k16.layer_norm_q(*args(i), eps=eps), n_l),
+            old_body_ms=device_ms(lambda i: k16.norm_quant(*args(i), eps=eps, body="block"), n_l),
             plain_ms=device_ms(lambda i: k16.norm_quant_plain(*args(i), eps=eps), 4, reps=3),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=device_ms(lambda i: F.layer_norm(xs[i % 4], (c,), g32[i % n_l],
@@ -2265,6 +2291,135 @@ def check_k1_edges(dev):
             "held_to_k5_bitwise": held}
 
 
+# K14's edges: (group size, C, inter, n_sal1, k_s1, kk1, n_sal2, k_s2, kk2, O1,
+# O2) — salient blocks on both linears (down's pad channels masked, its
+# last tile covering zero groups past inter), none, an intermediate width
+# that is no multiple of 64 (the last tile's gate half runs into up's
+# columns; kk2 past inter), O1 padded past 2·inter and a ragged O2
+K14_EDGE_SHAPES = ((64, 512, 704, 26, 32, 512, 35, 40, 768, 1536, 512),
+                   (64, 512, 704, 0, 0, 512, 0, 0, 768, 1408, 336),
+                   (32, 256, 208, 13, 16, 256, 10, 16, 256, 416, 256),
+                   (16, 256, 192, 0, 0, 256, 10, 16, 192, 384, 256))
+# shapes that stay on the cooperative body: group size 128, O2 % 16 != 0,
+# an intermediate width that is no multiple of 16
+K14_COOP_SHAPES = ((128, 512, 768, 0, 0, 512, 0, 0, 768, 1536, 512),
+                   (64, 512, 704, 0, 0, 512, 0, 0, 768, 1408, 200),
+                   (32, 256, 200, 13, 16, 256, 10, 16, 192, 400, 256))
+
+
+def _k14_operands(shape, n, s_dt, dt, norm, gen, dev):
+    """Random stacked packs (2 layers) of a K14_EDGE_SHAPES shape, x (N, C)
+    in dt, the norm row or None, and the wrapper's keywords."""
+    import torch
+
+    gs, c, inter, n_sal1, k_s1, kk1, n_sal2, k_s2, kk2, o1, o2 = shape
+    pack = lambda kk, k_s, o: (
+        torch.randint(-128, 128, (2, kk // 2, o), generator=gen, device=dev, dtype=torch.int8),
+        (torch.rand((2, kk // gs, o), generator=gen, device=dev) * 0.05 + 0.005).to(s_dt),
+        (torch.rand((2, k_s, o), generator=gen, device=dev) * 0.2 - 0.1).to(dt))
+    x = (torch.randn((n, c), generator=gen, device=dev) * 2).to(dt)
+    x[:, 3] *= 20.0
+    nw = (torch.rand(c, generator=gen, device=dev) + 0.5).to(torch.bfloat16).float() \
+        if norm else None
+    kw = dict(group_size=gs, act_bits=4, n_sal1=n_sal1, n_sal2=n_sal2, gu_out_true=2 * inter,
+              dn_out_true=o2, eps=1e-5 if norm else 0.0)
+    return (1, x, nw, *pack(kk1, k_s1, o1), *pack(kk2, k_s2, o2)), kw
+
+
+def check_k14_edges(dev):
+    """K14's bodies against the plain version at their edges: the stream
+    body over K14_EDGE_SHAPES at 1, 3, 4, 5 and 8 rows (one n8 tile, ragged),
+    the RMSNorm on and off, f32 and bf16 group scales, bf16 x; the
+    cooperative body at K14_COOP_SHAPES and on f32 x, which its rule keeps
+    there (an intermediate width of 200 among them: the stream body's up
+    boxes would start off a 16-byte boundary, which TMA does not take).  Every output within 1e-2 of the largest magnitude of the plain
+    version's (K1's bound: two int4 group matmuls whose per-token codes may
+    move at a rounding edge when f32 sums run in another order); every
+    stream call made twice for identical bits.  Returns the largest
+    relative error of each body and the cases."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import mlp_fused as k14
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    worst, cases, repeats = {}, {}, 0
+    plan = ([(shape, n, norm, s_dt, torch.bfloat16) for shape in K14_EDGE_SHAPES
+             for n in (1, 3, 4, 5, 8) for norm in (True, False)
+             for s_dt in (torch.float32, torch.bfloat16)]
+            + [(shape, 4, True, torch.bfloat16, torch.bfloat16) for shape in K14_COOP_SHAPES]
+            + [(K14_EDGE_SHAPES[0], 4, True, torch.float32, torch.float32),
+               (K14_EDGE_SHAPES[2], 8, False, torch.float32, torch.float32)])
+    for shape, n, norm, s_dt, dt in plan:
+        args, kw = _k14_operands(shape, n, s_dt, dt, norm, gen, dev)
+        gs, c, inter, _, k_s1, kk1, _, _, _, o1, o2 = shape
+        body = k14.mlp_body(n, c, o1, kk1, k_s1, o2, inter, gs, dt)
+        if (body == "stream") != (shape in K14_EDGE_SHAPES and dt == torch.bfloat16):
+            raise AssertionError(f"K14 {shape} N={n} {dt}: the rule picked {body}")
+        name = f"K14 {body} gs={gs} C={c} inter={inter} O2={o2} N={n} norm={norm} {s_dt} {dt}"
+        got = _launched(k14.LAUNCH_KEYS[body][0], lambda: k14.mlp_swiglu_fused_stacked(*args, **kw))
+        ref = k14.mlp_swiglu_fused_stacked_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = _close(name, got, ref, 1e-2)
+        worst[body] = max(worst.get(body, 0.0), err / ref.float().abs().max().item())
+        cases[body] = cases.get(body, 0) + 1
+        if body != "stream":
+            continue
+        again = k14.mlp_swiglu_fused_stacked(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two calls gave different bits")
+        repeats += 1
+    return {"max_rel_err": worst, "cases": cases, "repeated_calls_identical": repeats}
+
+
+K16_EDGE_ROWS = (1, 3, 4, 5, 64, 2048)
+K16_EDGE_C = (8, 1000, 2048, 4096, 8192)
+
+
+def check_k16_edges(dev):
+    """K16's row body against the plain version at K16_EDGE_ROWS ×
+    K16_EDGE_C (one warp a row up to eight, a single chunk, a ragged last
+    chunk), f32 and bf16 x (γ and β in x's dtype), LayerNorm and RMSNorm:
+    every code identical or one off in under 1e-4 of a case's codes (the
+    main path's limit, _codes_close: the sums run in another order than
+    torch's, so a value at a .5 edge may round the other way), the row body
+    and the block body each against the same plain version.  Returns the
+    cases, the codes that moved by one (row body, block body) and their
+    largest share in a case."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import norm_quant as k16
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 73)
+    cases, n_diff, n_diff_block, share, share_block, codes = 0, 0, 0, 0.0, 0.0, 0
+    for c in K16_EDGE_C:
+        gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+        beta = torch.randn(c, generator=gen, device=dev) * 0.1
+        for n in K16_EDGE_ROWS:
+            for dt in (torch.float32, torch.bfloat16):
+                x = (torch.randn((n, c), generator=gen, device=dev)
+                     * (torch.rand((n, 1), generator=gen, device=dev) * 2.5 + 0.5) + 0.3).to(dt)
+                g, b = gamma.to(dt), beta.to(dt)    # bf16 rows read as stored
+                for rms in (False, True):
+                    scale = 4.0 / 127
+                    got = _launched("norm_quant", lambda: k16.norm_quant(
+                        x, g, b, scale, eps=1e-5, rms=rms))
+                    old = k16.norm_quant(x, g, b, scale, eps=1e-5, rms=rms, body="block")
+                    ref = k16.norm_quant_plain(x, g, b, scale, eps=1e-5, rms=rms)
+                    torch.cuda.synchronize()
+                    name = f"K16 N={n} C={c} {dt} {'rms' if rms else 'ln'}"
+                    _, nd = _codes_close(name, got, ref)
+                    _, nd_old = _codes_close(f"{name} block body", old, ref)
+                    cases += 1
+                    n_diff += nd
+                    n_diff_block += nd_old
+                    share = max(share, nd / (n * c))
+                    share_block = max(share_block, nd_old / (n * c))
+                    codes += n * c
+    return {"cases": cases, "codes": codes, "n_diff": n_diff, "n_diff_block_body": n_diff_block,
+            "max_share": share, "max_share_block_body": share_block}
+
+
 def check_k11_edges(dev):
     """K11's split body against the plain version at its edges: S = 128, 640
     (five 128-wide softmax tiles) and 1024 (two of 512); D = 64 and 128; GQA
@@ -2740,7 +2895,10 @@ def sass_check():
     add); and unless each s8 wgmma kernel of K4 and K15a issues IGMMA (K4's
     HGMMA too, for its salient stages), loads by TMA and has no I2F, each
     of K15a's stream kernels issues IMMA, loads by TMA and has no I2F, and
-    none of those fourteen spills."""
+    none of those fourteen spills; and unless K14's six gate_up kernels
+    (stream_swiglu_kernel) load by TMA, and they and K16's sixteen row
+    kernels have no I2F, no local loads or stores (LDL / STL), no spill
+    and no stack frame."""
     import os
     import re
     import shutil
@@ -2751,7 +2909,7 @@ def sass_check():
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", _build.build()], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    out, stream, attn, s8 = {}, {}, {}, {}
+    out, stream, attn, s8, new = {}, {}, {}, {}, {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
         m = re.search(r"split_decode_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)ELb\dELi(\d)E",
@@ -2777,6 +2935,18 @@ def sass_check():
                 raise AssertionError(f"stream {name}: SASS {ops}")
             stream[f"K1 gs={m.group(1)} nt={m.group(2)} {'f32' if m.group(3) == 'f' else 'bf16'}"
                    f" scales" if "rawx" in name else f"K13 kb={m.group(1)}"] = ops
+            continue
+        m = (re.search(r"stream_swiglu_kernelILi(\d+)E(13__nv_bfloat16|f)E", name)
+             or re.search(r"norm_quant_rows_kernelI(13__nv_bfloat16|f)Li(\d)ELb(\d)E", name))
+        if m:   # K14's gate_up launch, K16's row body
+            ops = {op: len(re.findall(r"\b" + op + r"\b", fn))
+                   for op in ("I2F", "UTMALDG", "IMMA", "LDL", "STL")}
+            k14 = "swiglu" in name
+            if ops["I2F"] or ops["LDL"] or ops["STL"] or (k14 and not ops["UTMALDG"]):
+                raise AssertionError(f"{name}: SASS {ops}")
+            new[f"K14 gate_up gs={m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'} scales"
+                if k14 else f"K16 rows {'f32' if m.group(1) == 'f' else 'bf16'} "
+                            f"W={m.group(2)}{' early' if m.group(3) == '1' else ''}"] = ops
             continue
         m = re.search(r"stream_gmm_kernelILb(\d)ELi(\d+)ELi(\d+)", name)
         if m:
@@ -2841,6 +3011,20 @@ def sass_check():
     if len(s8) != 14 or any(v != 0 for v in s8_spills.values()) or len(s8_spills) != 14:
         raise AssertionError(f"the s8 bodies of K4 and K15a: {len(s8)} kernels in the SASS "
                              f"(14 expected), spill stores {s8_spills}")
+    new_spills = {}
+    for i, ln in enumerate(log):
+        m = re.search(r"(stream_swiglu_kernel|norm_quant_rows_kernel)\w*", ln)
+        if "Compiling entry" in ln and m:
+            block = " ".join(log[i:i + 4])
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            stack = re.search(r"(\d+) bytes stack frame", block)
+            new_spills[m.group(0)[:60]] = [int(spill.group(1)) if spill else None,
+                                           int(stack.group(1)) if stack else None]
+    if (len(new) != 22 or len(new_spills) != 22
+            or any(v != [0, 0] for v in new_spills.values())):
+        raise AssertionError(f"the new bodies of K14 and K16: {len(new)} kernels in the SASS "
+                             f"(22 expected: 6 K14, 16 K16), spill stores / stack frame "
+                             f"{new_spills}")
     n_k1 = sum(k.startswith("K1 ") for k in stream)
     if (not out or not stream or len(attn) != 43 or n_k1 != 18
             or not {"K13 kb=64", "K13 kb=32"} <= set(stream)):
@@ -2848,6 +3032,7 @@ def sass_check():
                              "K1's 18 stream kernels or not the 42 split kernels (K11 16, K3 "
                              "8, K12 18) and K15b's qk body")
     return {"sass": out, "stream_sass": stream, "attn_sass": attn, "s8_sass": s8,
+            "k14_k16_sass": new, "k14_k16_spills_stack": new_spills,
             "registers_spills": notes, "ptxas_serialized_notes": serialized}
 
 
@@ -2870,7 +3055,8 @@ def check_no_fallback(dev):
     version.  K11's ALiBi body and K4's raw-x mode run (their phases);
     what they still refuse, and int8_dots (K11, K12), raises here, as does
     each shape the split bodies of K11, K3 and K12 and the stream bodies of
-    K13 and K1 refuse when forced on them."""
+    K13, K1 and K14 refuse when forced on them, and what K16's row body
+    does not take (every shape the wrapper accepts is its)."""
     import torch
 
     from smoothquant_tpu_torch.kernels import act_prep as k7
@@ -2898,6 +3084,8 @@ def check_no_fallback(dev):
     sm_sc = lambda s: (f32(1, 1, 4, s),) * 2
     one = torch.ones((64, 1), device=dev)
     no_sal = (torch.zeros((64, 0), device=dev), torch.zeros((0, 64), device=dev))
+    k14_kw = dict(group_size=64, act_bits=4, n_sal1=0, n_sal2=0, gu_out_true=256,
+                  dn_out_true=256)
     cases = {  # name: (call, the exception it must raise)
         "K4 weight not K-major": (lambda: k4.int8_prefill_matmul(
             z8, one, z8, one.t(), *no_sal), ValueError),
@@ -3038,6 +3226,25 @@ def check_no_fallback(dev):
                                                   device=dev),
             torch.zeros((1, 2, 4, 100, 64), dtype=torch.int8, device=dev), f32(1, 2, 4, 100),
             f32(1, 2, 4, 100)), ValueError),
+        "K14 stream body for f32 x": (lambda: k14.mlp_swiglu_fused_stacked(
+            0, f32(4, 256), None, w4, f32(1, 4, 256), f32(1, 0, 256), w4, f32(1, 4, 256),
+            f32(1, 0, 256), **k14_kw, body="stream"), ValueError),
+        "K14 stream body at group size 128": (lambda: k14.mlp_swiglu_fused_stacked(
+            0, bf(4, 256), None, w4, bf(1, 2, 256), bf(1, 0, 256), w4, bf(1, 2, 256),
+            bf(1, 0, 256), **{**k14_kw, "group_size": 128}, body="stream"), ValueError),
+        "K14 stream body at O2 = 200": (lambda: k14.mlp_swiglu_fused_stacked(
+            0, bf(4, 256), None, w4, bf(1, 4, 256), bf(1, 0, 256),
+            torch.zeros((1, 128, 200), dtype=torch.int8, device=dev), bf(1, 4, 200),
+            bf(1, 0, 200), **{**k14_kw, "dn_out_true": 200}, body="stream"), ValueError),
+        "K14 unknown body": (lambda: k14.mlp_swiglu_fused_stacked(
+            0, bf(4, 256), None, w4, bf(1, 4, 256), bf(1, 0, 256), w4, bf(1, 4, 256),
+            bf(1, 0, 256), **k14_kw, body="tiles"), ValueError),
+        "K16 C = 8200": (lambda: k16.layer_norm_q(torch.zeros((4, 8200), device=dev),
+                                                  *(torch.ones(8200, device=dev),) * 2, 1.0),
+                         ValueError),
+        "K16 unknown body": (lambda: k16.norm_quant(
+            torch.zeros((4, 64), device=dev), *(torch.ones(64, device=dev),) * 2, 1.0,
+            body="tiles"), ValueError),
         "K14 nine rows": (lambda: k14.mlp_swiglu_fused_stacked(
             0, f32(9, 256), None, w4, f32(1, 4, 256), f32(1, 0, 256), w4, f32(1, 4, 256),
             f32(1, 0, 256), group_size=64, act_bits=4, n_sal1=0, n_sal2=0, gu_out_true=256,
@@ -3315,7 +3522,7 @@ def _check_launches(path, launches, expect):
 
 def step_launches(cfg, batch, attn, fuse_mlp=False):
     """Kernel launches of one stacked W4A4 decode step of `batch` rows: the
-    four linears a layer (two of them and K14 with fuse_mlp) on K1 up to
+    four linears a layer (two of them and K14's two launches with fuse_mlp) on K1 up to
     K1_MAX_TOKENS rows, up to RAWX_MAX_N on K7b (qkv, gate_up), K7a (down)
     and K5, above on K7a (qkv, gate_up, down) and K5; the cache write and
     attention by `attn`: "smajor" K2 + K3 over the S-major pool, "off" K10 +
@@ -3339,8 +3546,9 @@ def step_launches(cfg, batch, attn, fuse_mlp=False):
             out["quantize_acts_grouped_t"] = n_l
     else:
         out = {"quantize_acts_grouped_t": 3 * n_l, "int4_group_matmul_stacked": 4 * n_l}
-    if fuse_mlp:
+    if fuse_mlp:   # K14's stream body: its gate_up and its down launch
         out["mlp_swiglu_fused_stacked"] = n_l
+        out["mlp_swiglu_fused_stacked_down"] = n_l
     if attn == "smajor":
         out.update(write_quant_cache_smajor=n_l, decode_attention_smajor_stacked=n_l)
     elif attn == "off":
@@ -3455,8 +3663,11 @@ def serve(prefill_tree, stacked, cfg, dev, *, promoted: bool, batch=MAX_BATCH,
 
 def profile(fn, steps: int) -> dict:
     """Device time of fn (`steps` decode steps) under torch.profiler: busy
-    ms per step, the idle share of the wall time, and the kernels that take
-    the most device time."""
+    ms per step (the device events' durations summed), beside it the union
+    of their spans (busy_union_ms_per_step: a kernel launched as a
+    programmatic dependent starts before its primary ends, and the sum
+    counts that overlap twice), the idle share of the wall time (by the
+    sum), and the kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -3467,13 +3678,24 @@ def profile(fn, steps: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict = {}
+    spans = []
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            spans.append((ev.time_range.start, ev.time_range.end))
+    union_us, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            union_us += b - a
+            end = b
+        elif b > end:
+            union_us += b - end
+            end = b
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(steps=steps, wall_ms_per_step=1e3 * wall / steps,
-                busy_ms_per_step=busy_ms / steps, idle_share=1.0 - busy_ms / (1e3 * wall),
+                busy_ms_per_step=busy_ms / steps, busy_union_ms_per_step=union_us / 1e3 / steps,
+                idle_share=1.0 - busy_ms / (1e3 * wall),
                 top_ms_per_step=[[name[:60], us / 1e3 / steps] for name, us in top])
 
 
@@ -3966,6 +4188,7 @@ def run_opt(dev, cfg, card: str):
             + check_norm_quant(int8, cfg, dev, gen))
     emit({"phase": "k15b_edges", "bit_exact_cases": check_k15b_edges(dev)})
     emit({"phase": "k15a_edges", **check_k15a_edges(dev)})
+    emit({"phase": "k16_edges", **check_k16_edges(dev)})
     emit({"phase": "k15a_row_crossover", "card": card,
           "stream_max_rows": k15.STREAM_MAX_ROWS, **k15a_row_crossover(int8, dev, gen)})
     emit({"phase": "opt_reference_check", **opt_reference_check(dev)})
@@ -4657,6 +4880,9 @@ def rms_norm_rule_cost(h, cfg, dev):
 # the launch counters of a kernel's other bodies (each wrapper counts a
 # launch once, under the body it ran)
 BODY_COUNTERS = {"fp_matmul_stacked": {"ldg": "fp_matmul_stacked_ldg"},
+                 "mlp_swiglu_fused_stacked": {"down": "mlp_swiglu_fused_stacked_down",
+                                              "coop": "mlp_swiglu_fused_stacked_coop"},
+                 "norm_quant": {"block": "norm_quant_block"},
                  "int4_group_matmul_stacked_rawx": {"dp4a": "int4_group_matmul_stacked_rawx_dp4a"},
                  "decode_attention_stacked": {"alibi": "decode_attention_stacked_alibi",
                                               "flash": "decode_attention_stacked_flash",
@@ -4754,6 +4980,7 @@ def run(dev, cfg, card: str):
     emit({"phase": "stream_edges", **check_stream_edges(dev)})
     emit({"phase": "k13_edges", **check_k13_edges(dev)})
     emit({"phase": "k1_edges", **check_k1_edges(dev)})
+    emit({"phase": "k14_edges", **check_k14_edges(dev)})
     emit({"phase": "k11_edges", **check_k11_edges(dev)})
     emit({"phase": "k3_edges", **check_k3_edges(dev)})
     emit({"phase": "k12_edges", **check_k12_edges(dev)})

@@ -127,8 +127,10 @@ VARIANTS = {
     "k13_loads_only": [(_K13_MATH, _K13_MATH.replace("ks < KB / 16", "ks < 0"))],
     "k13_math_only": [
         ("    mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * slot), (i / SB_STAGES) & 1);\n", ""),
-        ("    if (warp == 4 && lane == 0) {\n      tma_prefetch(m.w);\n      tma_prefetch(m.x);",
-         "    if (warp == 99) {\n      tma_prefetch(m.w);\n      tma_prefetch(m.x);")],
+        ("    if (warp == 4 && lane == 0) {\n      tma_prefetch(m.w);\n      tma_prefetch(m.x);\n"
+         "      for (int t = t0; t < t1; ++t) {\n        const int i = t - t0, slot = i % SB_STAGES;",
+         "    if (warp == 99) {\n      tma_prefetch(m.w);\n      tma_prefetch(m.x);\n"
+         "      for (int t = t0; t < t1; ++t) {\n        const int i = t - t0, slot = i % SB_STAGES;")],
     "k13_stages6": [("constexpr int SB_STAGES = 4;", "constexpr int SB_STAGES = 6;")],
     "k13_stages8": [("constexpr int SB_STAGES = 4;", "constexpr int SB_STAGES = 8;")],
     # the weight's L2 fills for K13 (its map shares SG_W_PROMO)
@@ -158,13 +160,13 @@ VARIANTS = {
          "    if (t >= a.n_sal) sr_quantize_stage", "    if (t >= a.n_sal) sr_quantize_stage"),
         ("    if (lane == 0) sg_arrive(smem_u32(smem + Geo::OFF_BAR + 8 * (2 * STAGES + slot)));\n  }\n}",
          "  }\n}"),
-        ("    } else if (lane == 0) {\n      tma_prefetch(m.w);\n      tma_prefetch(m.ws);",
-         "    } else if (lane == 99) {\n      tma_prefetch(m.w);\n      tma_prefetch(m.ws);")],
+        ("    else if (lane == 0) sr_produce<GS, NT, S, false>",
+         "    else if (lane == 99) sr_produce<GS, NT, S, false>")],
     "k1_no_prepass": [(_K1_PREPASS, "")],
     "k1_no_quantize": [(_K1_QUANTIZE, "")],
-    "k1_no_math": [("        sg_group_mma<true, GS, NT, GS>(p, s, 0, h, smem_u32(s + Geo::OFF_Q + h * "
-                    "Geo::CT), xo, l);\n        sg_scale<NT, S>(acc, p, sx + h * Geo::N_BOX, sw + h "
-                    "* SG_BO, 0.0625f, l);", "")],
+    "k1_no_math": [("        sg_group_mma<true, GS, NT, GS, WROW>(p, s, 0, h, smem_u32(s + Geo::OFF_Q + h "
+                    "* Geo::CT),\n                                             xo, l);\n        "
+                    "sg_scale<NT, S>(acc, p, sx + h * Geo::N_BOX, sw + h * SG_BO, 0.0625f, l);", "")],
     "k1_no_div": [("__fdiv_rn(y, scale)", "__fmul_rn(y, scale)")],
     "k1_no_salient": [("  const int ns = (t1 < a.n_sal ? t1 : a.n_sal) - t0;",
                        "  const int ns = 0;")],

@@ -68,11 +68,13 @@ _SIGNATURES = {
     "sq_int8_gemm": ([_P] * 4 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
     "sq_int8_bmm_attn": ([_P] * 3 + [_I] * 4 + [_F] + [_I] * 3 + [_P], _I),
     "sq_norm_quant": ([_P] * 4 + [_I] * 2 + [_F] * 2 + [_I] * 2 + [_P], _I),
+    "sq_norm_quant_rows": ([_P] * 4 + [_I] * 5 + [_F] * 2 + [_I] * 3 + [_P], _I),
     "sq_fused_attn": ([_P] * 11 + [_I] * 10 + [_F, _I, _P], _I),
     "sq_fused_attn_split": ([_P] * 11 + [_I] * 11 + [_F, _P], _I),
     "sq_mlp_fused_workspace_bytes": ([_I] * 11, ctypes.c_longlong),
     "sq_mlp_fused_grid_blocks": ([_I] * 3, _I),
     "sq_mlp_fused": ([_P] * 10 + [_I] * 13 + [_F, _F, _I, _I, _P], _I),
+    "sq_mlp_stream": ([_P] * 12 + [_I] * 14 + [_F] * 3 + [_I] * 3 + [_P], _I),
 }
 
 _lib = None

@@ -1,4 +1,28 @@
-// K14: the fused SwiGLU MLP of one decode layer in one launch.
+// K14: the fused SwiGLU MLP of one decode layer, in one of two bodies.
+//
+// The stream body (sq_mlp_stream, every bf16 call of 1-8 rows at group size
+// 16 / 32 / 64 with O % 16 == 0: each fuse_mlp site of the paths) is two
+// launches of the weight-streaming body (stream_gmm.cuh) and no grid
+// barrier:
+//   1. gate_up on K1's raw-x kind with a paired column map
+//      (stream_swiglu_kernel: block tile t takes gate columns 64t .. and up
+//      columns inter + 64t ..), the RMSNorm and the per-group quantize
+//      folded in as K1's are; its epilogue sums gate and up over the
+//      cluster's ranks, takes SiLU(gate)·up in f32 and quantizes each of
+//      down's input groups of the tile into row-major codes, scales and the
+//      bf16 salient block — the f32 SwiGLU never reaches device memory;
+//   2. down on K5's stream kind over those codes (stream_gmm_kernel),
+//      launched as a programmatic dependent of launch 1: its
+//      producer issues its first weight stages, which launch 1 does not
+//      write, before griddepcontrol.wait, so the ring's first fill overlaps
+//      launch 1's tail.
+// Bound: both linears' nibbles, scales and salient blocks (the codes
+// between the launches are N·(K2 + 4·G2 + 2·k_s2) bytes, under 0.1 % of
+// them); the design spends two launches where the cooperative body spent
+// one launch, five grid barriers and K1's old __ldg / dp4a warp body.
+//
+// The cooperative body (sq_mlp_fused below: f32 x, group size 128, and any
+// call forced onto it) stays as it was:
 //
 // Replaces smoothquant_tpu/kernels/mlp_fused.py mlp_swiglu_fused_stacked
 // (pallas_call at :534): (RMSNorm) + gate_up int4 group matmul + SiLU(gate)
@@ -44,6 +68,7 @@
 #include <cooperative_groups.h>
 
 #include "rawx.cuh"
+#include "stream_gmm.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -317,4 +342,101 @@ SQ_EXPORT int sq_mlp_fused(const void* x, const void* nw, const void* w1, const 
                   n_sal2, k_s2, gs, mode, kk1 > k_ns1_raw ? 1 : 0, eps, inv_qmax};
   return x_dt == DT_BF16 ? by_scale<__nv_bfloat16>(s_dt, a, m, blocks, st)
                          : by_scale<float>(s_dt, a, m, blocks, st);
+}
+
+namespace {
+
+// launch 2: K5's stream kind over launch 1's codes (N <= 8: one n8 tile)
+template <int GS, typename S>
+int mlp_down(SgArgs& a, SgMaps& m, const void* xq, int kk, cudaStream_t st) {
+  if (!wg_map(&m.x, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, kk, a.N, kk, GS, 8, sg_swizzle<GS>()))
+    return (int)cudaErrorInvalidValue;
+  return sg_launch<true, GS, 1, S>(a, m, st);
+}
+
+template <typename S>
+int mlp_down_gs(SgArgs& a, SgMaps& m, const void* xq, int kk, int gs, cudaStream_t st) {
+  return gs == 16 ? mlp_down<16, S>(a, m, xq, kk, st)
+         : gs == 32 ? mlp_down<32, S>(a, m, xq, kk, st)
+                    : mlp_down<64, S>(a, m, xq, kk, st);
+}
+
+}  // namespace
+
+// K14, stream body.  x (N, C) bf16 (1-8 rows, C a multiple of 8), nw the
+// (C,) f32 RMSNorm row (mode 1) or null (mode 0); w1 / ws1 / wsal1
+// gate_up's layer: (kk1/2, O1) nibble bytes, (kk1/gs, O1) scales (s_dt),
+// (k_s1, O1) bf16 salient block; w2 / ws2 / wsal2 down's; xq2 (N, kk2) int8,
+// xs2 (N, kk2/gs) f32 and xsal2 (N, xsal_rs) bf16 the codes between the
+// launches (xsal2 null when k_s2 = 0); out (N, O2) bf16.  Group size 16, 32
+// or 64, O1, O2 and inter multiples of 16 (the up halves' boxes start at
+// column inter + 64t: 16-byte aligned), every pointer 16-byte aligned (TMA);
+// split1 / split2 the ranks of each launch's K split (stream_gmm.k1_split,
+// stream_gmm.split).  Down is launched as a programmatic dependent of
+// gate_up (scripts/mlp_variants.py times it unchained, and each launch
+// alone, by editing this entry).
+SQ_EXPORT int sq_mlp_stream(const void* x, const void* nw, const void* w1, const void* ws1,
+                            const void* wsal1, const void* w2, const void* ws2,
+                            const void* wsal2, void* xq2, void* xs2, void* xsal2, void* out,
+                            int N, int C, int O1, int kk1, int n_sal1, int k_s1, int inter,
+                            int O2, int kk2, int n_sal2, int k_s2, int xsal_rs, int gs, int mode,
+                            float eps, float inv_c, float inv_qmax, int s_dt, int split1,
+                            int split2, void* stream) {
+  const auto split_ok = [](int s, int stages) {
+    return (s == 1 || s == 2 || s == 4 || s == 8) && stages >= s;
+  };
+  const int G1 = kk1 / gs, G2 = kk2 / gs, k_ns2_raw = inter - n_sal2;
+  const int st1 = (k_s1 + 31) / 32 + G1 / 2, st2 = (k_s2 + 31) / 32 + G2 / 2;
+  if ((gs != 16 && gs != 32 && gs != 64) || N < 1 || N > 8 || C < 8 || C % 8 || O1 < 16 ||
+      O1 % 16 || O2 < 16 || O2 % 16 || kk1 < 2 * gs || kk1 % (2 * gs) || kk2 < 2 * gs ||
+      kk2 % (2 * gs) || inter < 16 || inter % 16 || 2 * inter > O1 || k_ns2_raw < 0 ||
+      kk2 < k_ns2_raw ||
+      n_sal2 > k_s2 || xsal_rs < k_s2 || xsal_rs % 8 || (mode != 0 && mode != 1) ||
+      (mode != 0) != (nw != nullptr) || (k_s2 > 0) != (xsal2 != nullptr) ||
+      !split_ok(split1, st1) || !split_ok(split2, st2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int s_bf16 = s_dt == DT_BF16;
+  const CUtensorMapDataType sdt =
+      s_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  {  // launch 1: gate_up, SiLU·up and down's codes
+    const int n_tiles = (inter + 63) / 64;
+    int c_end = 64 * n_tiles;
+    const int c_codes = (kk2 + 63) / 64 * 64, c_sal = (k_ns2_raw + xsal_rs + 63) / 64 * 64;
+    if (c_codes > c_end) c_end = c_codes;
+    if (k_s2 > 0 && c_sal > c_end) c_end = c_sal;
+    const int k_ns1_raw = C - n_sal1;
+    const SrArgs a{(const __nv_bfloat16*)x, (const float*)nw, nullptr, nullptr,
+                   N, C, SG_BO * n_tiles, G1, k_ns1_raw, n_sal1, k_s1, mode,
+                   kk1 > k_ns1_raw ? 1 : 0, eps, inv_c, inv_qmax, (k_s1 + 31) / 32, G1 / 2,
+                   split1};
+    const SwArgs w{(int8_t*)xq2, (float*)xs2, (__nv_bfloat16*)xsal2, inter, kk2, G2, k_ns2_raw,
+                   xsal_rs, n_tiles, c_end};
+    SrMaps m = {};
+    if (!wg_map(&m.w, w1, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O1, kk1 / 2, O1, 64, gs,
+                CU_TENSOR_MAP_SWIZZLE_64B, SG_W_PROMO) ||
+        !wg_map(&m.ws, ws1, sdt, s_bf16 ? 2 : 4, O1, G1, O1, 64, 1, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        (k_s1 > 0 && !wg_map(&m.wsal, wsal1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, O1, k_s1, O1,
+                             64, 32, CU_TENSOR_MAP_SWIZZLE_128B, SG_W_PROMO)) ||
+        !wg_map(&m.x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, C, N, C, gs, 8,
+                CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        (mode != 0 && !wg_map(&m.nw, nw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, C, 1, C, gs, 1,
+                              CU_TENSOR_MAP_SWIZZLE_NONE)))
+      return (int)cudaErrorInvalidValue;
+    const int e = s_bf16 ? sw_dispatch<__nv_bfloat16>(a, w, m, gs, st)
+                         : sw_dispatch<float>(a, w, m, gs, st);
+    if (e != 0) return e;
+  }
+  {  // launch 2: down over the codes, behind launch 1
+    SgArgs a{(const float*)xs2, xsal2, wsal2, out, N, O2, G2, k_s2, xsal_rs, G2, 1, gs, 0,
+             kk2 / 2, 0, (k_s2 + 31) / 32, G2 / 2, split2, s_bf16, 1, /*pdl=*/1};
+    SgMaps m = {};
+    if (!sg_weight_map(&m.w, w2, O2, kk2 / 2, gs) ||
+        !sg_common_maps(m, ws2, xsal2, wsal2, s_bf16, N, O2, G2, k_s2, xsal_rs, 8, 32, 1))
+      return (int)cudaErrorInvalidValue;
+    const int e = s_bf16 ? mlp_down_gs<__nv_bfloat16>(a, m, xq2, kk2, gs, st)
+                         : mlp_down_gs<float>(a, m, xq2, kk2, gs, st);
+    if (e != 0) return e;
+  }
+  return 0;
 }

@@ -115,6 +115,9 @@ struct SgArgs {
   int x_dx, x_dy, x_hx, x_hy;   // x box of group (stage) j at (j·x_dx, j·x_dy); K5's hi + (x_hx, x_hy)
   int n_sal, n_grp, n_split;    // stages (salient, group) and ranks a tile splits into
   int s_bf16, t_bf16;           // column scales / salient operands and output in bf16
+  int pdl;                      // launched behind a primary grid (programmatic dependent
+                                // launch): the first stages' weight copies go out before
+                                // griddepcontrol.wait, every activation copy after it
 };
 
 struct SgMaps {   // the weight, x codes, column scales, x_sal, w_sal
@@ -123,6 +126,15 @@ struct SgMaps {   // the weight, x codes, column scales, x_sal, w_sal
 
 __device__ __forceinline__ void sg_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// programmatic dependent launch: a secondary grid's wait for its primary to
+// finish and flush its writes (a no-op in a grid launched without the
+// attribute), and a primary block's signal that the secondary may start
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 // byte offset of (row r, byte b) in a tile TMA wrote with rows of ROW bytes
 // and the swizzle that row width takes (128 / 64 / 32 bytes: the 16-byte
@@ -187,26 +199,49 @@ struct SgLane {
   uint32_t q_off[4];
 };
 
-__device__ __forceinline__ SgLane sg_lane(int tid) {
+// The lane's place and its byte selectors where word j of its quad holds
+// row (j + rot) & 3 (q_off is the caller's)
+__device__ __forceinline__ SgLane sg_lane_at(int tid, int rot) {
   SgLane l;
   l.lane = tid & 31;
   l.w = tid >> 5;
   l.gid = l.lane >> 2;
   l.tig = l.lane & 3;
   l.quad_b = 32 * l.w + 4 * l.gid;
-  // row i of the quad sits in word j = (i − tig) & 3; after the first
+  // row i of the quad sits in word j = (i − rot) & 3; after the first
   // permute level its byte of column 0 is at index {0, 1, 4, 5}[j]
   uint32_t s = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const uint32_t j = (uint32_t)(i - l.tig) & 3u;
+    const uint32_t j = (uint32_t)(i - rot) & 3u;
     s |= ((j & 1u) | ((j & 2u) << 1)) << (4 * i);
   }
   l.sel0 = s;
   l.sel1 = s + 0x2222u;
+  return l;
+}
+
+__device__ __forceinline__ SgLane sg_lane(int tid) {
+  SgLane l = sg_lane_at(tid, tid & 3);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     l.q_off[j] = (uint32_t)sg_swz<128>(4 * l.tig + ((j + l.tig) & 3), l.quad_b);
+  return l;
+}
+
+// The lane map of a weight tile held as two 64-column halves of GS rows of
+// 64 bytes each (SWIZZLE_64B; warps 0-1 read the first half, 2-3 the
+// second): in 64-byte rows a row's parity picks the 16 banks and bit 1 of
+// tig the 16-byte chunk pair, so lanes tig and tig + 2 take rows of
+// opposite parity — word j of the quad holds row (j + tig / 2) & 3 — and a
+// warp's four loads of one instruction again hit 32 distinct banks.
+template <int GS>
+__device__ __forceinline__ SgLane sg_lane_halves(int tid) {
+  SgLane l = sg_lane_at(tid, (tid & 3) >> 1);
+  const int h = l.w >> 1, b = l.quad_b - 64 * h;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    l.q_off[j] = (uint32_t)(h * GS * 64 + sg_swz<64>(4 * l.tig + ((j + (l.tig >> 1)) & 3), b));
   return l;
 }
 
@@ -239,10 +274,11 @@ __device__ __forceinline__ SgXOff<ROW, KSTEP> sg_xoff(int lane) {
 
 // The four columns of the lane's quad over weight rows rb .. rb + 3 (rb a
 // multiple of 16 plus 4·tig: `blk` is the 16-row block's byte offset) of a
-// 128-byte-row SWIZZLE_128B tile, each as one K-packed word (byte i = row
-// rb + i).  Lane tig loads row rb + ((j + tig) & 3) as word j: a warp's four
-// loads of one instruction then fall on four distinct 32-byte pairs of
-// banks, whatever the row's swizzle phase.
+// 128-byte-row SWIZZLE_128B tile (or of sg_lane_halves' two halves), each
+// as one K-packed word (byte i = row rb + i).  Lane tig loads row rb +
+// ((j + tig) & 3) as word j (the halves: ((j + tig / 2) & 3)): a warp's four
+// loads of one instruction then fall on distinct banks, whatever the row's
+// swizzle phase.
 __device__ __forceinline__ void sg_quad(uint32_t (&c)[4], const char* tile, int blk,
                                         const SgLane& l) {
   uint32_t v[4];
@@ -308,11 +344,12 @@ __device__ __forceinline__ void sg_load_b(int (&b)[NT][2], uint32_t tile,
 }
 
 // p[mt][nt] = 0x4B400000 + one group's int8 product: weight rows r0 ..
-// r0 + GS − 1 of the slot's W tile (nibble half h) against the x tile `xt`
-// (ROW-byte rows) from row byte r0 % ROW, GS / KSTEP mma k steps.  r0 is a
-// multiple of 16 known once the loops are unrolled, so every shared
-// address is a lane offset plus a constant.
-template <bool NIB, int GS, int NT, int ROW>
+// r0 + GS − 1 of the slot's W tile (rows of WROW bytes: 128, or 64 in
+// sg_lane_halves' halves; nibble half h) against the x tile `xt` (ROW-byte
+// rows) from row byte r0 % ROW, GS / KSTEP mma k steps.  r0 is a multiple
+// of 16 known once the loops are unrolled, so every shared address is a
+// lane offset plus a constant.
+template <bool NIB, int GS, int NT, int ROW, int WROW = 128>
 __device__ __forceinline__ void sg_group_mma(int (&p)[2][NT][4], const char* wtile, int r0, int h,
                                              uint32_t xt, const SgXOff<ROW, GS % 32 ? 16 : 32>& xo,
                                              const SgLane& l) {
@@ -323,8 +360,8 @@ __device__ __forceinline__ void sg_group_mma(int (&p)[2][NT][4], const char* wti
   for (int ks = 0; ks < GS / KSTEP; ++ks) {
     const int rb = r0 + ks * KSTEP;
     uint32_t q0[4], q1[4];
-    sg_quad(q0, wtile, rb * 128, l);
-    if constexpr (KSTEP == 32) sg_quad(q1, wtile, (rb + 16) * 128, l);
+    sg_quad(q0, wtile, rb * WROW, l);
+    if constexpr (KSTEP == 32) sg_quad(q1, wtile, (rb + 16) * WROW, l);
     int b[NT][2];
     sg_load_b<ROW, KSTEP, NT>(b, xt, xo, (rb % ROW) / KSTEP);
 #pragma unroll
@@ -446,11 +483,38 @@ __device__ __forceinline__ void sg_salient_f32(float (&acc)[2][NT][4], const SgA
   }
 }
 
+// Stage t's weight side (the weight tile and its column scales, or w_sal),
+// against its slot's full barrier with every byte of the stage
+template <bool NIB, int GS, int NT, typename S>
+__device__ __forceinline__ void sg_produce_weights(const SgArgs& a, const SgMaps& m, int t,
+                                                   uint32_t su, uint32_t full, int o0) {
+  using Geo = SgGeo<NIB, GS, NT>;
+  if (t < a.n_sal) {
+    mbar_expect_tx(full, 2 * Geo::KSAL * 128 + Geo::N_BOX * Geo::SALROW);
+    tma_2d(su, m.wsal, full, o0, t * Geo::KSAL);
+    tma_2d(su + Geo::KSAL * 128, m.wsal, full, o0 + 64, t * Geo::KSAL);
+  } else {
+    const int j = t - a.n_sal;
+    mbar_expect_tx(full, Geo::KW * SG_BO + (NIB ? 2 : 1) * Geo::N_BOX * Geo::XROW +
+                             Geo::SG * SG_BO * (int)sizeof(S));
+    tma_2d(su, m.w, full, o0, j * Geo::KW);
+    if constexpr (NIB) {
+      tma_2d(su + Geo::OFF_SW, m.ws, full, o0, j);
+      tma_2d(su + Geo::OFF_SW + SG_BO * (int)sizeof(S), m.ws, full, o0, j + a.G / 2);
+    } else {
+      tma_2d(su + Geo::OFF_SW, m.ws, full, o0, j * Geo::SG);
+    }
+  }
+}
+
 // The producer warp: stage t of the block's range into slot t − t0 mod
 // SG_STAGES once the consumers have freed it.  Lane 0 issues the TMA copies
 // against the slot's full barrier with their byte count; every lane copies
 // its share of the activation scales by cp.async and reports them to the
-// same barrier.
+// same barrier.  Behind a primary grid (a.pdl) the weight side of the first
+// SG_STAGES stages (the weight tile, its column scales, w_sal) goes out
+// first, then the warp waits for the primary, whose output the activation
+// side (x tiles, x_sal, the scales) reads.
 template <bool NIB, int GS, int NT, typename S>
 __device__ __forceinline__ void sg_produce(const SgArgs& a, const SgMaps& m, char* smem, int t0,
                                            int t1, int o0, int lane) {
@@ -464,33 +528,29 @@ __device__ __forceinline__ void sg_produce(const SgArgs& a, const SgMaps& m, cha
       tma_prefetch(m.wsal);
     }
   }
+  const int pre = a.pdl ? (t1 - t0 < SG_STAGES ? t1 - t0 : SG_STAGES) : 0;
+  if (lane == 0)
+    for (int i = 0; i < pre; ++i)
+      sg_produce_weights<NIB, GS, NT, S>(a, m, t0 + i, smem_u32(smem + i * Geo::SLOT),
+                                         smem_u32(smem + Geo::OFF_BAR + 8 * i), o0);
+  if (a.pdl) griddep_wait();
   for (int t = t0; t < t1; ++t) {
     const int i = t - t0, slot = i % SG_STAGES;
     const uint32_t su = smem_u32(smem + slot * Geo::SLOT);
     const uint32_t full = smem_u32(smem + Geo::OFF_BAR + 8 * slot);
-    if (i >= SG_STAGES)
-      mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * (SG_STAGES + slot)), (i / SG_STAGES - 1) & 1);
+    if (i >= pre) {
+      if (i >= SG_STAGES)
+        mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * (SG_STAGES + slot)), (i / SG_STAGES - 1) & 1);
+      if (lane == 0) sg_produce_weights<NIB, GS, NT, S>(a, m, t, su, full, o0);
+    }
     if (t < a.n_sal) {
-      if (lane == 0) {
-        mbar_expect_tx(full, 2 * Geo::KSAL * 128 + Geo::N_BOX * Geo::SALROW);
-        tma_2d(su, m.wsal, full, o0, t * Geo::KSAL);
-        tma_2d(su + Geo::KSAL * 128, m.wsal, full, o0 + 64, t * Geo::KSAL);
-        tma_2d(su + Geo::OFF_X, m.xsal, full, t * Geo::KSAL, 0);
-      }
+      if (lane == 0) tma_2d(su + Geo::OFF_X, m.xsal, full, t * Geo::KSAL, 0);
     } else {
       const int j = t - a.n_sal;
       if (lane == 0) {
-        mbar_expect_tx(full, Geo::KW * SG_BO + (NIB ? 2 : 1) * Geo::N_BOX * Geo::XROW +
-                                 Geo::SG * SG_BO * (int)sizeof(S));
-        tma_2d(su, m.w, full, o0, j * Geo::KW);
         tma_2d(su + Geo::OFF_X, m.x, full, j * a.x_dx, j * a.x_dy);
-        if constexpr (NIB) {
+        if constexpr (NIB)
           tma_2d(su + Geo::OFF_X + Geo::XH, m.x, full, j * a.x_dx + a.x_hx, j * a.x_dy + a.x_hy);
-          tma_2d(su + Geo::OFF_SW, m.ws, full, o0, j);
-          tma_2d(su + Geo::OFF_SW + SG_BO * (int)sizeof(S), m.ws, full, o0, j + a.G / 2);
-        } else {
-          tma_2d(su + Geo::OFF_SW, m.ws, full, o0, j * Geo::SG);
-        }
       }
       // s_x of (group gi of the stage, token n) at sx[gi·N_BOX + n]
       for (int e = lane; e < Geo::SG * Geo::N_BOX; e += 32) {
@@ -927,6 +987,13 @@ __device__ __forceinline__ uint32_t sr_code(float y, float scale, float inv) {
   return __float_as_uint(m) & 0xFFu;
 }
 
+// Eight code bytes (the low byte of each q) as a word pair, in order
+__device__ __forceinline__ uint2 sr_pack8(const uint32_t (&q)[8]) {
+  return make_uint2(
+      __byte_perm(__byte_perm(q[0], q[1], 0x0040), __byte_perm(q[2], q[3], 0x0040), 0x5410),
+      __byte_perm(__byte_perm(q[4], q[5], 0x0040), __byte_perm(q[6], q[7], 0x0040), 0x5410));
+}
+
 // One lane's share of a (row, group) quantize: its eight channels of x (a
 // 16-byte word of bf16) through the norm, the group's absmax over the SUB
 // lanes of its group (xor shuffles within them), the scale, the eight codes
@@ -953,9 +1020,7 @@ __device__ __forceinline__ float sr_quantize8(uint4 xv, const float (&nw)[8], fl
   uint32_t q[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) q[e] = sr_code(y[e], scale, inv);
-  codes = make_uint2(
-      __byte_perm(__byte_perm(q[0], q[1], 0x0040), __byte_perm(q[2], q[3], 0x0040), 0x5410),
-      __byte_perm(__byte_perm(q[4], q[5], 0x0040), __byte_perm(q[6], q[7], 0x0040), 0x5410));
+  codes = sr_pack8(q);
   return scale;
 }
 
@@ -1069,74 +1134,71 @@ __device__ __forceinline__ void sr_quantizer(const SrArgs& a, char* smem, int t0
   }
 }
 
-// Block (tile, rank) as stream_gmm_kernel's: warps 0-3 consume, warp 4
-// loads from the first instruction on, warps 5-7 quantize.
-template <int GS, int NT, typename S>
-__global__ void __launch_bounds__(SG_THREADS, 2)
-stream_rawx_kernel(const SrArgs a, const __grid_constant__ SrMaps m) {
+// The producer (warp 4, lane 0): stage t of the rank's range into its slot
+// once the consumers have freed it — a salient stage's two 64-column boxes
+// of w_sal at columns c_gate and c_up; a group stage's pair of weight rows
+// and column scales at the same columns (one 128-column box at c_gate, or,
+// HALVES, two 64-column halves of 64-byte rows at c_gate and c_up), the raw
+// x tiles of its two groups and their norm rows.
+template <int GS, int NT, typename S, bool HALVES>
+__device__ __forceinline__ void sr_produce(const SrArgs& a, const SrMaps& m, char* smem, int t0,
+                                           int t1, int c_gate, int c_up) {
   using Geo = SrGeo<GS, NT>;
   constexpr int STAGES = Geo::STAGES;
-  extern __shared__ __align__(1024) char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int cs = a.n_split, lg = __ffs(cs) - 1;
-  int rank, o0;
-  sg_place(lg, rank, o0);
-  const int T = a.n_sal + a.n_grp;
-  const int t0 = (rank * T) >> lg, t1 = ((rank + 1) * T) >> lg;
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(smem_u32(smem + Geo::OFF_BAR + 8 * s), 1);
-      mbar_init(smem_u32(smem + Geo::OFF_BAR + 8 * (STAGES + s)), 4);
-      mbar_init(smem_u32(smem + Geo::OFF_BAR + 8 * (2 * STAGES + s)), 1);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-  float* part = reinterpret_cast<float*>(smem);
-  if (warp >= 4) {
-    regs_dec<SR_PRODUCER_REGS>();
-    if (warp > 4) {
-      sr_quantizer<GS, NT>(a, smem, t0, t1, tid - 160);
-    } else if (lane == 0) {
-      tma_prefetch(m.w);
-      tma_prefetch(m.ws);
-      tma_prefetch(m.x);
-      if (a.mode) tma_prefetch(m.nw);
-      if (a.n_sal) tma_prefetch(m.wsal);
-      const int nw_bytes = a.mode ? 2 * GS * 4 : 0;
-      for (int t = t0; t < t1; ++t) {
-        const int i = t - t0, slot = i % STAGES;
-        const uint32_t su = smem_u32(smem + slot * Geo::SLOT);
-        const uint32_t full = smem_u32(smem + Geo::OFF_BAR + 8 * slot);
-        if (i >= STAGES)
-          mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * (STAGES + slot)), (i / STAGES - 1) & 1);
-        if (t < a.n_sal) {
-          mbar_expect_tx(full, 2 * 32 * 128);
-          tma_2d(su, m.wsal, full, o0, 32 * t);
-          tma_2d(su + 32 * 128, m.wsal, full, o0 + 64, 32 * t);
-        } else {
-          const int j = t - a.n_sal, jh = j + (a.G >> 1);
-          mbar_expect_tx(full, GS * SG_BO + 2 * SG_BO * (int)sizeof(S) + 2 * Geo::XT + nw_bytes);
-          tma_2d(su, m.w, full, o0, j * GS);
-          tma_2d(su + Geo::OFF_SW, m.ws, full, o0, j);
-          tma_2d(su + Geo::OFF_SW + SG_BO * (int)sizeof(S), m.ws, full, o0, jh);
-          tma_2d(su + Geo::OFF_X, m.x, full, j * GS, 0);
-          tma_2d(su + Geo::OFF_X + Geo::XT, m.x, full, jh * GS, 0);
-          if (a.mode) {
-            tma_2d(su + Geo::OFF_NW, m.nw, full, j * GS, 0);
-            tma_2d(su + Geo::OFF_NW + Geo::NWT, m.nw, full, jh * GS, 0);
-          }
-        }
+  tma_prefetch(m.w);
+  tma_prefetch(m.ws);
+  tma_prefetch(m.x);
+  if (a.mode) tma_prefetch(m.nw);
+  if (a.n_sal) tma_prefetch(m.wsal);
+  const int nw_bytes = a.mode ? 2 * GS * 4 : 0;
+  for (int t = t0; t < t1; ++t) {
+    const int i = t - t0, slot = i % STAGES;
+    const uint32_t su = smem_u32(smem + slot * Geo::SLOT);
+    const uint32_t full = smem_u32(smem + Geo::OFF_BAR + 8 * slot);
+    if (i >= STAGES)
+      mbar_wait(smem_u32(smem + Geo::OFF_BAR + 8 * (STAGES + slot)), (i / STAGES - 1) & 1);
+    if (t < a.n_sal) {
+      mbar_expect_tx(full, 2 * 32 * 128);
+      tma_2d(su, m.wsal, full, c_gate, 32 * t);
+      tma_2d(su + 32 * 128, m.wsal, full, c_up, 32 * t);
+    } else {
+      const int j = t - a.n_sal, jh = j + (a.G >> 1);
+      mbar_expect_tx(full, GS * SG_BO + 2 * SG_BO * (int)sizeof(S) + 2 * Geo::XT + nw_bytes);
+      if constexpr (HALVES) {
+        constexpr int HS = 64 * (int)sizeof(S);   // a half's row of column scales
+        tma_2d(su, m.w, full, c_gate, j * GS);
+        tma_2d(su + GS * 64, m.w, full, c_up, j * GS);
+        tma_2d(su + Geo::OFF_SW, m.ws, full, c_gate, j);
+        tma_2d(su + Geo::OFF_SW + HS, m.ws, full, c_up, j);
+        tma_2d(su + Geo::OFF_SW + 2 * HS, m.ws, full, c_gate, jh);
+        tma_2d(su + Geo::OFF_SW + 3 * HS, m.ws, full, c_up, jh);
+      } else {
+        tma_2d(su, m.w, full, c_gate, j * GS);
+        tma_2d(su + Geo::OFF_SW, m.ws, full, c_gate, j);
+        tma_2d(su + Geo::OFF_SW + SG_BO * (int)sizeof(S), m.ws, full, c_gate, jh);
+      }
+      tma_2d(su + Geo::OFF_X, m.x, full, j * GS, 0);
+      tma_2d(su + Geo::OFF_X + Geo::XT, m.x, full, jh * GS, 0);
+      if (a.mode) {
+        tma_2d(su + Geo::OFF_NW, m.nw, full, j * GS, 0);
+        tma_2d(su + Geo::OFF_NW + Geo::NWT, m.nw, full, jh * GS, 0);
       }
     }
-    sg_producer_tail(cs);
-    return;
   }
-  regs_inc<SR_CONSUMER_REGS>();
-  sr_prepass<GS, NT>(a, smem, t0, t1, tid);
-  const SgLane l = sg_lane(tid);
-  const SgXOff<GS, GS % 32 == 0 ? 32 : 16> xo = sg_xoff<GS, GS % 32 == 0 ? 32 : 16>(lane);
-  const SgXOff<64, 32> xso = sg_xoff<64, 32>(lane);
+}
+
+// The consumers' main loop (after sr_prepass): stages t0 .. t1 − 1 into acc
+// — a salient stage by bf16 mma from its prepass tile, a group stage's two
+// groups as int8 products of the quantizers' codes (weight rows of WROW
+// bytes: 128, or 64 in sg_lane_halves' halves), each scaled in K order —
+// freeing each slot after it.
+template <int GS, int NT, typename S, int WROW>
+__device__ __forceinline__ void sr_consume(float (&acc)[2][NT][4], const SrArgs& a, char* smem,
+                                           int t0, int t1, const SgLane& l) {
+  using Geo = SrGeo<GS, NT>;
+  constexpr int STAGES = Geo::STAGES;
+  const SgXOff<GS, GS % 32 == 0 ? 32 : 16> xo = sg_xoff<GS, GS % 32 == 0 ? 32 : 16>(l.lane);
+  const SgXOff<64, 32> xso = sg_xoff<64, 32>(l.lane);
   uint32_t sal_off[2];
   {
     const int b = 64 * (l.w & 1) + 8 * l.gid;
@@ -1144,7 +1206,6 @@ stream_rawx_kernel(const SrArgs a, const __grid_constant__ SrMaps m) {
     for (int e = 0; e < 2; ++e)
       sal_off[e] = (uint32_t)((l.w >> 1) * 32 * 128 + sg_swz<128>(2 * l.tig + e, b));
   }
-  float acc[2][NT][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -1169,18 +1230,207 @@ stream_rawx_kernel(const SrArgs a, const __grid_constant__ SrMaps m) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         int p[2][NT][4];
-        sg_group_mma<true, GS, NT, GS>(p, s, 0, h, smem_u32(s + Geo::OFF_Q + h * Geo::CT), xo, l);
+        sg_group_mma<true, GS, NT, GS, WROW>(p, s, 0, h, smem_u32(s + Geo::OFF_Q + h * Geo::CT),
+                                             xo, l);
         sg_scale<NT, S>(acc, p, sx + h * Geo::N_BOX, sw + h * SG_BO, 0.0625f, l);
       }
     }
     __syncwarp();
-    if (lane == 0) sg_arrive(smem_u32(smem + Geo::OFF_BAR + 8 * (STAGES + slot)));
+    if (l.lane == 0) sg_arrive(smem_u32(smem + Geo::OFF_BAR + 8 * (STAGES + slot)));
   }
+}
+
+// The block's mbarriers: a slot's full (the producer's one arrival with its
+// bytes), empty (one a consumer warp) and codes-ready (its quantizer warp's)
+template <int STAGES>
+__device__ __forceinline__ void sr_init_bars(char* smem_bar) {
+  for (int s = 0; s < STAGES; ++s) {
+    mbar_init(smem_u32(smem_bar + 8 * s), 1);
+    mbar_init(smem_u32(smem_bar + 8 * (STAGES + s)), 4);
+    mbar_init(smem_u32(smem_bar + 8 * (2 * STAGES + s)), 1);
+  }
+  mbar_init_fence();
+}
+
+// Block (tile, rank) as stream_gmm_kernel's: warps 0-3 consume, warp 4
+// loads from the first instruction on, warps 5-7 quantize.
+template <int GS, int NT, typename S>
+__global__ void __launch_bounds__(SG_THREADS, 2)
+stream_rawx_kernel(const SrArgs a, const __grid_constant__ SrMaps m) {
+  using Geo = SrGeo<GS, NT>;
+  extern __shared__ __align__(1024) char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cs = a.n_split, lg = __ffs(cs) - 1;
+  int rank, o0;
+  sg_place(lg, rank, o0);
+  const int T = a.n_sal + a.n_grp;
+  const int t0 = (rank * T) >> lg, t1 = ((rank + 1) * T) >> lg;
+  if (tid == 0) sr_init_bars<Geo::STAGES>(smem + Geo::OFF_BAR);
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem);
+  if (warp >= 4) {
+    regs_dec<SR_PRODUCER_REGS>();
+    if (warp > 4) sr_quantizer<GS, NT>(a, smem, t0, t1, tid - 160);
+    else if (lane == 0) sr_produce<GS, NT, S, false>(a, m, smem, t0, t1, o0, o0 + 64);
+    sg_producer_tail(cs);
+    return;
+  }
+  regs_inc<SR_CONSUMER_REGS>();
+  sr_prepass<GS, NT>(a, smem, t0, t1, tid);
+  const SgLane l = sg_lane(tid);
+  float acc[2][NT][4];
+  sr_consume<GS, NT, S, 128>(acc, a, smem, t0, t1, l);
   named_sync<SG_THREADS>(SG_BAR_DRAINED);
   sg_store_partial<NT>(part, acc, l);
   if (cs > 1) sg_cluster_sync();
   else __syncthreads();
   sg_reduce_store(part, a.out, a.N, a.O, o0, rank, lg, cs, tid, 1);
+  if (cs > 1) sg_cluster_sync();
+}
+
+// ---------------------------------------------------------------- SwiGLU gate_up (K14)
+// The raw-x kind with a paired column map and an epilogue of its own: the
+// first of K14's two launches (mlp_fused.cu).  Block tile t takes gate_up's
+// gate columns 64t .. 64t + 63 and up columns inter + 64t .. (the fused
+// [gate | up] columns split at the true intermediate width), each stage's
+// weight rows as two 64-column TMA halves of 64-byte rows (sg_lane_halves:
+// warps 0-1 the gate half, 2-3 the up half) and the column scales as four
+// 64-column boxes, so after the cluster reduce every channel c of the tile
+// finds gate[c] and up[c] in one block.  The rest of the kind is K1's: the
+// norm folded in, the quantizer warps' codes in the ring slot, the TMA ring,
+// the cluster K-split.  The epilogue (sw_epilogue) replaces the cooperative
+// body's phases 3-4: gate and up summed over the ranks in rank order (the
+// order sg_reduce_store takes), SiLU(gate)·up in f32, then each of down's
+// input groups in the tile quantized (channels at or past down's
+// non-salient width masked), its codes and scale written row-major (the
+// layout K5's stream kind reads) and the salient channels written in bf16 —
+// the f32 SwiGLU never goes to device memory.  N <= 8 (one n8 tile).
+struct SwArgs {
+  int8_t* xq;               // down's codes (N, kk2), row-major
+  float* xs;                // their group scales (N, G2)
+  __nv_bfloat16* xsal;      // down's salient activations (N, xsal_rs), or null
+  int inter, kk2, G2, k_ns2_raw, xsal_rs;
+  int n_tiles, c_end;       // tiles of 64 channels; the last one covers up to c_end
+};
+
+// SiLU(g)·u of one channel, the cooperative body's expression (mlp_fused.cu
+// swiglu_at)
+__device__ __forceinline__ float sw_silu_mul(float g, float u) {
+  return __fmul_rn(__fdiv_rn(g, __fadd_rn(1.0f, expf(-g))), u);
+}
+
+// The epilogue of tile `tile` (the 128 consumer threads, after the cluster
+// barrier): this rank's share of the tile's items — (64-channel segment,
+// group of down's input, row) with the rows padded to 8, groups whole, so
+// no group is split over ranks; the last tile's segments past the first
+// (channels inter .. c_end, read from no partial) are zero — each taken by
+// GS/8 lanes of 8 channels.
+template <int GS>
+__device__ __forceinline__ void sw_epilogue(const float* part, const SrArgs& a, const SwArgs& w,
+                                            int tile, int rank, int lg, int cs, int tid) {
+  constexpr int SUB = GS / 8, GPS = 64 / GS;
+  const int c_lo = 64 * tile;
+  const int segs = tile == w.n_tiles - 1 ? (w.c_end - c_lo) >> 6 : 1;
+  const int items = segs * GPS * 8;
+  const int q0 = ((rank * items) >> lg) * SUB, q1 = (((rank + 1) * items) >> lg) * SUB;
+  const uint32_t part_u = smem_u32(part);
+  for (int b = q0; b < q1; b += 128) {   // rounds the whole block takes: every lane shuffles
+    const int q = b + tid, it = q / SUB, sl = q % SUB;
+    const int n = it & 7, cl = (it >> 3) * GS + 8 * sl, c = c_lo + cl;
+    const bool live = q < q1 && n < a.N;
+    float h[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) h[e] = 0.0f;
+    if (live && cl < 64) {
+      // gate lo, gate hi, up lo, up hi: rank 0, then each rank in order
+      constexpr int at[4] = {0, 4, 64, 68};
+      const int e0 = n * SG_PART_LD + cl;
+      float4 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = cs > 1 ? sg_ld_rank(part_u + 4 * (e0 + at[k]), 0)
+                      : *reinterpret_cast<const float4*>(part + e0 + at[k]);
+      for (int r = 1; r < cs; ++r)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float4 u = sg_ld_rank(part_u + 4 * (e0 + at[k]), r);
+          v[k].x += u.x, v[k].y += u.y, v[k].z += u.z, v[k].w += u.w;
+        }
+      const float g[8] = {v[0].x, v[0].y, v[0].z, v[0].w, v[1].x, v[1].y, v[1].z, v[1].w};
+      const float u[8] = {v[2].x, v[2].y, v[2].z, v[2].w, v[3].x, v[3].y, v[3].z, v[3].w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) h[e] = sw_silu_mul(g[e], u[e]);
+    }
+    float y[8], amax = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      y[e] = c + e < w.k_ns2_raw ? h[e] : 0.0f;
+      amax = fmaxf(amax, fabsf(y[e]));
+    }
+#pragma unroll
+    for (int o = SUB / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float scale = __fmul_rn(fmaxf(amax, 1e-5f), a.inv_qmax);
+    const float inv = __frcp_rn(scale);
+    uint32_t qc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) qc[e] = sr_code(y[e], scale, inv);
+    if (!live) continue;
+    if (c < w.kk2) {
+      *reinterpret_cast<uint2*>(w.xq + (size_t)n * w.kk2 + c) = sr_pack8(qc);
+      if (sl == 0) w.xs[(size_t)n * w.G2 + c / GS] = scale;
+    }
+    if (w.xsal != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int jj = c + e - w.k_ns2_raw;
+        if (jj >= 0 && jj < w.xsal_rs)
+          w.xsal[(size_t)n * w.xsal_rs + jj] = __float2bfloat16_rn(c + e < w.inter ? h[e] : 0.0f);
+      }
+    }
+  }
+}
+
+// Block (tile, rank) as stream_rawx_kernel's, with sr_produce's halves at
+// gate column 64·tile and up column inter + 64·tile, and sw_epilogue in
+// place of the store.  Each thread signals the dependent launch (K14's down
+// launch) once its part of the stream is done: the producer warp once it
+// has issued its last stage, the quantizers and consumers after their loops.
+template <int GS, typename S>
+__global__ void __launch_bounds__(SG_THREADS, 2)
+stream_swiglu_kernel(const SrArgs a, const SwArgs w, const __grid_constant__ SrMaps m) {
+  using Geo = SrGeo<GS, 1>;
+  extern __shared__ __align__(1024) char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cs = a.n_split, lg = __ffs(cs) - 1;
+  int rank, o0;
+  sg_place(lg, rank, o0);
+  const int tile = o0 / SG_BO;
+  const int T = a.n_sal + a.n_grp;
+  const int t0 = (rank * T) >> lg, t1 = ((rank + 1) * T) >> lg;
+  if (tid == 0) sr_init_bars<Geo::STAGES>(smem + Geo::OFF_BAR);
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem);
+  if (warp >= 4) {
+    regs_dec<SR_PRODUCER_REGS>();
+    if (warp > 4) sr_quantizer<GS, 1>(a, smem, t0, t1, tid - 160);
+    else if (lane == 0)
+      sr_produce<GS, 1, S, true>(a, m, smem, t0, t1, 64 * tile, w.inter + 64 * tile);
+    __syncwarp();
+    griddep_launch_dependents();
+    sg_producer_tail(cs);
+    return;
+  }
+  regs_inc<SR_CONSUMER_REGS>();
+  sr_prepass<GS, 1>(a, smem, t0, t1, tid);
+  const SgLane l = sg_lane_halves<GS>(tid);
+  float acc[2][1][4];
+  sr_consume<GS, 1, S, 64>(acc, a, smem, t0, t1, l);
+  griddep_launch_dependents();
+  named_sync<SG_THREADS>(SG_BAR_DRAINED);
+  sg_store_partial<1>(part, acc, l);
+  if (cs > 1) sg_cluster_sync();
+  else __syncthreads();
+  sw_epilogue<GS>(part, a, w, tile, rank, lg, cs, tid);
   if (cs > 1) sg_cluster_sync();
 }
 
@@ -1397,22 +1647,27 @@ inline bool sg_common_maps(SgMaps& m, const void* ws, const void* xsal, const vo
 }
 
 // A stream kernel's launch: a cluster of n_split blocks along x per
-// 128-column tile of O, `smem` bytes of dynamic shared memory.
+// 128-column tile of O, `smem` bytes of dynamic shared memory; with pdl,
+// as a programmatic dependent of the stream's previous kernel (it may start
+// once every block of that kernel has run griddepcontrol.launch_dependents,
+// and reads that kernel's output only after griddepcontrol.wait).
 template <typename... P, typename... A>
-int sg_launch_tiles(void (*kernel)(P...), int O, int n_split, int smem, cudaStream_t st,
+int sg_launch_tiles(void (*kernel)(P...), int O, int n_split, int smem, cudaStream_t st, int pdl,
                     const A&... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((O + SG_BO - 1) / SG_BO * n_split);
   cfg.blockDim = dim3(SG_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = n_split;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = pdl ? 2 : 1;
   cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -1424,7 +1679,8 @@ int sg_launch(const SgArgs& a, const SgMaps& m, cudaStream_t st) {
   static const cudaError_t ready =
       wg_kernel_ready(stream_gmm_kernel<NIB, GS, NT, S>, Geo::SMEM, 65536 / (2 * SG_THREADS));
   if (ready != cudaSuccess) return (int)ready;
-  return sg_launch_tiles(stream_gmm_kernel<NIB, GS, NT, S>, a.O, a.n_split, Geo::SMEM, st, a, m);
+  return sg_launch_tiles(stream_gmm_kernel<NIB, GS, NT, S>, a.O, a.n_split, Geo::SMEM, st, a.pdl,
+                         a, m);
 }
 
 // token tiles of the padded width 8·NT for N rows (N <= 64): 1, 2, 4 or 8
@@ -1475,7 +1731,7 @@ int sb_launch(const void* x, const void* w, void* out, int N, int K, int O, int 
               KB == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
   const SbArgs a{out, N, O, (K + KB - 1) / KB, n_split};
-  return sg_launch_tiles(stream_bf16_kernel<KB>, O, n_split, Geo::SMEM, st, a, m);
+  return sg_launch_tiles(stream_bf16_kernel<KB>, O, n_split, Geo::SMEM, st, 0, a, m);
 }
 
 // K1's launch at group size GS: the token tiles of N, the dynamic shared
@@ -1490,7 +1746,7 @@ int sr_launch(const SrArgs& a, const SrMaps& m, cudaStream_t st) {
   const int T = a.n_sal + a.n_grp, per_rank = (T + a.n_split - 1) / a.n_split;
   const int smem = Geo::smem(a.n_sal < per_rank ? a.n_sal : per_rank);
   if (smem > SR_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  return sg_launch_tiles(stream_rawx_kernel<GS, NT, S>, a.O, a.n_split, smem, st, a, m);
+  return sg_launch_tiles(stream_rawx_kernel<GS, NT, S>, a.O, a.n_split, smem, st, 0, a, m);
 }
 
 template <int GS, typename S>
@@ -1509,6 +1765,28 @@ int sr_dispatch(const SrArgs& a, const SrMaps& m, int gs, cudaStream_t st) {
                     : sr_dispatch_nt<64, S>(a, m, st);
 }
 
+// K14's gate_up launch at group size GS (stream_swiglu_kernel; N <= 8):
+// a.O is 128 per tile, the ring's and the salient tiles' shared memory as
+// K1's.
+template <int GS, typename S>
+int sw_launch(const SrArgs& a, const SwArgs& w, const SrMaps& m, cudaStream_t st) {
+  using Geo = SrGeo<GS, 1>;
+  static const cudaError_t ready =
+      wg_kernel_ready(stream_swiglu_kernel<GS, S>, SR_SMEM_MAX, 65536 / (2 * SG_THREADS));
+  if (ready != cudaSuccess) return (int)ready;
+  const int T = a.n_sal + a.n_grp, per_rank = (T + a.n_split - 1) / a.n_split;
+  const int smem = Geo::smem(a.n_sal < per_rank ? a.n_sal : per_rank);
+  if (smem > SR_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  return sg_launch_tiles(stream_swiglu_kernel<GS, S>, a.O, a.n_split, smem, st, 0, a, w, m);
+}
+
+template <typename S>
+int sw_dispatch(const SrArgs& a, const SwArgs& w, const SrMaps& m, int gs, cudaStream_t st) {
+  return gs == 16 ? sw_launch<16, S>(a, w, m, st)
+         : gs == 32 ? sw_launch<32, S>(a, w, m, st)
+                    : sw_launch<64, S>(a, w, m, st);
+}
+
 // K15a's stream launch: x (N, K) and w (O, K) int8 (K a multiple of 16,
 // 16-byte aligned), N <= 64 rows in NT n8 tiles, the K range's 128-byte
 // stages split over n_split ranks.
@@ -1524,7 +1802,7 @@ int sk_launch(const void* x, const void* w, const SkArgs& a, int K, cudaStream_t
       !wg_map(&m.x, x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, a.N, K, 128, Geo::N_BOX,
               CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
-  return sg_launch_tiles(stream_s8_kernel<NT, TO>, a.O, a.n_split, Geo::SMEM, st, a, m);
+  return sg_launch_tiles(stream_s8_kernel<NT, TO>, a.O, a.n_split, Geo::SMEM, st, 0, a, m);
 }
 
 template <typename TO>

@@ -3,7 +3,8 @@ its five weight kinds — K8's int8 containers, K5's nibbles, K13's bf16 slab,
 K1's nibbles on raw x and K15a's (O, K) int8 rows: the stages a call
 streams, how a 128-column
 tile's stages split over the ranks of a thread-block cluster, K1's shared
-memory, and the body's int32 →
+memory, the paired column map and epilogue shares of K14's gate_up launch
+(K1's kind with gate and up halves), and the body's int32 →
 f32 conversion and nibble operand written in PyTorch.  Plain Python on
 shapes, so the CPU tests hold them; the shape rules that pick the body live
 beside each wrapper (int_group_matmul.int_gmm_body,
@@ -57,6 +58,49 @@ def k15_stages(kk: int) -> int:
     """K15a's stages: 128 bytes of K each (a box of 128 weight rows × 128
     bytes and the x tile of those k)."""
     return -(-kk // 128)
+
+
+K14_HALF = 64          # gate (and up) columns a tile of K14's gate_up launch takes
+
+
+def k14_tiles(inter: int) -> int:
+    """Tiles of K14's gate_up launch (stream_swiglu_kernel): one for each 64
+    channels of down's input, i.e. each 64 gate columns."""
+    return -(-inter // K14_HALF)
+
+
+def k14_columns(tile: int, inter: int) -> tuple[range, range]:
+    """The paired column map: the gate_up columns tile `tile` streams as its
+    two 64-column halves — gate 64t .. 64t + 63 and up inter + 64t .. (the
+    [gate | up] columns split at the true intermediate width), so down's
+    input channel c = 64t + i finds gate[c] in column i of the block's
+    tile and up[c] in column 64 + i."""
+    c0 = K14_HALF * tile
+    return range(c0, c0 + K14_HALF), range(inter + c0, inter + c0 + K14_HALF)
+
+
+def k14_c_end(inter: int, kk2: int, k_ns2_raw: int, xsal_rs: int, k_s2: int) -> int:
+    """The channel the last tile's epilogue covers up to (a multiple of 64):
+    past inter it writes zero codes up to down's padded width kk2 and zero
+    salient columns up to k_ns2_raw + xsal_rs, reading no partial."""
+    end = max(K14_HALF * k14_tiles(inter), -(-kk2 // K14_HALF) * K14_HALF)
+    if k_s2:
+        end = max(end, -(-(k_ns2_raw + xsal_rs) // K14_HALF) * K14_HALF)
+    return end
+
+
+def k14_shares(tile: int, n_tiles: int, c_end: int, group_size: int,
+               n_split: int) -> list[list[tuple[int, int]]]:
+    """Each cluster rank's share of tile `tile`'s epilogue (sw_epilogue):
+    items (first channel of a group of down's input, row), the rows padded
+    to 8, items in (64-channel segment, group, row) order, split into
+    contiguous shares (rank · items) >> lg .. — whole groups, so no group's
+    absmax spans two ranks."""
+    segs = (c_end - K14_HALF * tile) // K14_HALF if tile == n_tiles - 1 else 1
+    items, lg = segs * (K14_HALF // group_size) * 8, n_split.bit_length() - 1
+    return [[(K14_HALF * tile + (it >> 3) * group_size, it & 7)
+             for it in range((r * items) >> lg, ((r + 1) * items) >> lg)]
+            for r in range(n_split)]
 
 
 def tiles_for(n: int) -> int:

@@ -70,6 +70,10 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
         assert r["max_err"] == 0 and r["n_diff"] == 0
     assert len(by_kernel["int8_linear"]) == 12 and len(by_kernel["int8_bmm"]) == 4
     assert len(by_kernel["norm_quant"]) == 2
+    # K16's row body, its plan per row count, the block body timed beside
+    k16 = [r for r in rows if r["kernel"] == "norm_quant"]
+    assert [r["plan"] for r in k16] == [[4, 1, True], [4, 1, True]]
+    assert all("old_body_ms" in r for r in k16)
     # K15b's launches by body: QKᵀ and PV of a prefill on the qk and pv
     # bodies, of one query over the cache on the nk and kn GEMVs
     prefill = {"norm_quant": 4, "int8_linear": 12, "int8_bmm_qk": 2, "int8_bmm_pv": 2}
@@ -238,6 +242,10 @@ def test_aligned_path_rehearsal_on_cpu(monkeypatch):
     assert rows[2]["cache_identical_to_k10"] and rows[3]["shape"][2] == 1
     assert all("flash_ms" in r and r["check_launches"] == 1 for r in rows[:4])
     assert [r["in_sum"] for r in rows] == [True, False, False, False, True, False]
+    # K14 on its stream body, the cooperative body and the unfused route timed
+    # beside
+    assert all(r["body"] == "stream" and {"old_body_ms", "unfused_ms"} <= set(r)
+               for r in rows[4:])
 
     cache = llama.stacked_caches(cfg, cs.MAX_BATCH, cs.MAX_LEN, pos=cs.DECODE_POS,
                                  quant_kv=True, smajor=True, device=cpu)
@@ -253,8 +261,10 @@ def test_aligned_path_rehearsal_on_cpu(monkeypatch):
     assert expected["aligned off decode step"] == {
         "int4_group_matmul_stacked_rawx": 8, "write_quant_cache_stacked": 2,
         "decode_attention_stacked": 2, "int8_prefill_matmul": 1}
+    # K14's stream body: its gate_up and its down launch a layer
     assert expected["aligned auto_mlp decode step"] == {
-        "int4_group_matmul_stacked_rawx": 4, "mlp_swiglu_fused_stacked": 2, "fused_attn": 2,
+        "int4_group_matmul_stacked_rawx": 4, "mlp_swiglu_fused_stacked": 2,
+        "mlp_swiglu_fused_stacked_down": 2, "fused_attn": 2,
         "write_quant_cache_stacked": 2, "int8_prefill_matmul": 1}
     phases = {p["phase"]: p for p in printed if "phase" in p}
     for name in ("auto", "fused", "off", "auto_mlp"):
@@ -720,3 +730,28 @@ def test_k13_k1_edge_checks_rehearsal_on_cpu(monkeypatch):
     assert k1["max_rel_err"] == {"stream": 0.0, "dp4a": 0.0}
     assert k1["cases"] == 8 * 3 * 3 * 3 * 2 + 3 * 3 * 3 * 2   # and f32 x at 4 rows
     assert k1["repeated_calls_identical"] == k1["held_to_k5_bitwise"] == stream
+
+
+def test_k14_k16_edge_checks_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's k14_edges and k16_edges phases on the CPU (the wrappers
+    take their plain versions here): every K14 edge shape goes to the body
+    its rule picks — the stream body on bf16 x at group sizes 16 / 32 / 64,
+    the cooperative body at group size 128, at O2 = 200, at an intermediate
+    width of 200 and on f32 x — and
+    the K16 cases run at every row count and width (rows cut to keep the
+    CPU run short)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
+    monkeypatch.setattr(cs, "K16_EDGE_ROWS", (1, 3, 5, 64))
+    cpu = torch.device("cpu")
+    k14 = cs.check_k14_edges(cpu)
+    assert k14["cases"] == {"stream": 80, "coop": 5}
+    assert k14["max_rel_err"] == {"stream": 0.0, "coop": 0.0}
+    assert k14["repeated_calls_identical"] == 80 and "unchained_identical" not in k14
+    k16 = cs.check_k16_edges(cpu)
+    assert k16["cases"] == 4 * len(cs.K16_EDGE_C) * 2 * 2
+    assert k16["n_diff"] == 0 and k16["n_diff_block_body"] == 0
+    assert k16["max_share"] == 0.0 and k16["max_share_block_body"] == 0.0
