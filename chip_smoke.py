@@ -50,7 +50,11 @@ Then the Llama-2-7B paths:
    linears (N = 1024), K2 at B = 4, S = 512, K3 at B = 4 over 512 ragged
    positions, at B = 64 from DECODE_POS and at B = 4 over 1024 positions
    (its flash body timed beside its split body), K11 over bf16 and int8
-   head-major caches at B = 4, S = 512, K7a at qkv / gate_up / down and K5
+   head-major caches at B = 4, S = 512, each permuted site's activation
+   prep at N = 64 (one launch of K7's row body: K7b "rms_round" at qkv /
+   gate_up, K7a with the salient split at down; the route before, torch's
+   RMSNorm and pads around the groups body, timed beside as old_route_ms)
+   and at 8 and 32 rows (K7b "rms", the groups body as old_body_ms), K5
    at the four decode linears (N = 64 and 33; K5 in both input modes, the
    tiles body timed beside the stream body), K10 at
    B = 64, S = 512 (per-slot positions, one past the end, then a scalar
@@ -77,7 +81,13 @@ Then the Llama-2-7B paths:
    the plain version's codes); K14's two bodies at their edges (k14_edges:
    1-8 rows, group sizes 16 / 32 / 64, salient blocks and none, the norm on
    and off, both scale dtypes, the shapes that stay on the cooperative
-   body); K1 against K7b / K7a + K5 at 1-32 rows
+   body); K7's row body at its edges (k7_edges: 1-2048 rows, C = 8 to
+   16384 and one not a multiple of 8, group sizes 16 / 32 / 64 / 128 and
+   256, no salient channels and 5 %, every norm mode, bf16 and f32 x and
+   x_sal, rows that start off 16 bytes, each call repeated for identical
+   bits, the groups body beside; K7a at rounding edges bit for bit); the
+   prep + K5 pair at qkv, 32 and 64 rows, against K5 alone (k7_k5_chain);
+   K1 against K7b / K7a + K5 at 1-32 rows
    (k1_vs_k5, which real_linear.K1_MAX_TOKENS follows); K4's wgmma body at
    its edges (k4_edges: N = 256 / 333 / 800 / 1024, k_s 0 / 16 / 208 /
    640, bf16 and f32 out, ragged K and O, each call repeated).  K11 also over Llama's
@@ -112,14 +122,15 @@ Then the Llama-2-7B paths:
    quant_kv=True) at its default head-major pool with the promoted twin, a
    warm wave, then 96 requests (100-240 prompt tokens, 32 new, chunk 8):
    tokens/s, decode ms/step and device busy share of a steady window,
-   launches per step (K7a 96, K5 128, K10 32, K11 32, K1 none); then B = 64
+   launches per step (K7b 64, K7a 32, K5 128, K10 32, K11 32, K1 none); then B = 64
    decode from position 448 over the head-major and the S-major pool with
    the same tree and over the aligned head-major cache in "auto", window
    by window (K10 + K11 and K12 + K10 against K2 + K3; the aligned step
-   launches K7a 96, K5 128, K12 32, K10 32), and a few steps at B = 32
-   over the head-major pool (K7b 64, K7a 32, K5 128 a step: above
-   K1_MAX_TOKENS rows the linears take K5 on activations made as K1 makes
-   them).
+   launches K7b 64, K7a 32, K5 128, K12 32, K10 32; the head-major step
+   profiled once more on the prep's route before), and B = 32 over the
+   head-major pool in windows, by host clock and device busy (K7b 64, K7a
+   32, K5 128 a step: above K1_MAX_TOKENS rows the linears take K5 on
+   activations made as K1 makes them; the route before profiled beside).
    The identity-int8 forward's switch (PREFILL_KERNEL_MIN_TOKENS) is timed
    on both sides, K4 against torch._int_mm, at 4 to 1024 rows.
 7. The README quick start on the same fp weights: calibration
@@ -890,51 +901,183 @@ def _scale_ulps(name, got, ref, max_ulps=1):
     return d
 
 
-def check_act_prep(stacked, dev, gen, n=None):
-    """K7a vs plain at the sites that quantize through it at N > 32 (Llama:
-    qkv and gate_up after their RMSNorm, down_proj; Bloom: all four, the
-    input gathered by the last layer's perm, out of the kernels line's
-    sums), N rows of bf16 with the k_ns tail zero as the path pads it: codes
-    identical or off by one in under 1e-4 of them, scales within one ulp.
-    No single PyTorch call computes it."""
+def _old_prep(lin, x, li, norm):
+    """The stacked path's activation prep before K7's row body, on the
+    groups body: at a fused-norm site above RAWX_MAX_N rows torch's RMSNorm
+    rounded to x's dtype (models.common.rms_norm), then the slice-and-pad
+    of the non-salient columns, K7a and the slice-and-pad of the salient
+    tail; at or below RAWX_MAX_N rows one launch of K7b; without a norm the
+    pads and K7a.  (x3, xs_t, x_sal (N, k_s))."""
     import torch
+    import torch.nn.functional as F
 
     from smoothquant_tpu_torch.kernels import act_prep as k7
+    from smoothquant_tpu_torch.kernels.int4_group_matmul import RAWX_MAX_N
+    from smoothquant_tpu_torch.models.common import rms_norm
+
+    m = lin.meta
+    n = x.shape[0]
+    if norm is not None and n <= RAWX_MAX_N:
+        x3, xs_t, x_sal = k7.norm_quantize_acts_t(
+            x, norm[0][li], group_size=m.group_size, act_bits=m.act_bits, k_ns=m.k_ns,
+            num_salient=m.num_salient, k_s=m.k_s, eps=norm[1], norm_kind="rms",
+            sal_dtype=x.dtype, body="groups")
+        return x3, xs_t, x_sal[:n]
+    if norm is not None:
+        x = rms_norm({"weight": norm[0][li]}, x, norm[1])
+    k_ns_raw = m.in_features - m.num_salient
+    x3, xs_t = k7.quantize_acts_grouped_t(F.pad(x[:, :k_ns_raw], (0, m.k_ns - k_ns_raw)),
+                                          group_size=m.group_size, act_bits=m.act_bits,
+                                          body="groups")
+    return x3, xs_t, F.pad(x[:, k_ns_raw:], (0, m.k_s - m.num_salient))
+
+
+def _old_route_profile(step, steps=4):
+    """profile() of `steps` decode steps with each stacked site's activation
+    prep on the route before K7's row body (_old_prep: the groups body, and
+    above RAWX_MAX_N rows torch's RMSNorm and the pads around K7a): the
+    steps' busy time and kernel count before, beside the path's own."""
+    from smoothquant_tpu_torch.kernels import real_linear as rl
+
+    saved = rl.k1_rows_operands, rl.many_rows_operands
+
+    def old(packed, x2d, layer_idx, norm=None):
+        if packed.meta.layout == "identity":
+            return saved[1](packed, x2d, layer_idx, norm)
+        return (*_old_prep(packed, x2d, layer_idx, norm), x2d.shape[0])
+
+    rl.k1_rows_operands = rl.many_rows_operands = old
+    try:
+        return profile(lambda: step(steps), steps)
+    finally:
+        rl.k1_rows_operands, rl.many_rows_operands = saved
+
+
+def check_act_prep(stacked, dev, gen, n=None, main=True):
+    """The activation prep of each permuted stacked site at N rows, from the
+    layer's rows to K5's operands, one launch of K7's row body
+    (real_linear.k1_rows_operands up to RAWX_MAX_N rows, many_rows_operands
+    above): Llama's qkv and gate_up on K7b with the RMSNorm fused ("rms",
+    "rms_round" above RAWX_MAX_N), its down and Bloom's four sites (input
+    gathered by the last layer's perm, out of the kernels line's sums) on
+    K7a with the salient split; bf16 rows, the norm rows bf16 values held
+    in f32.  Against the plain version: codes identical or off by one in
+    under 1e-4 of them, scales within one ulp, x_sal within a bf16
+    rounding; the route before (_old_prep, the groups body) held to the
+    same plain version and timed beside it (old_route_ms), and the groups
+    body alone (old_body_ms: K7b at or below RAWX_MAX_N rows, K7a on the
+    padded slice).  Each call on the next layer's norm row.  main=False
+    marks another row count (sites `site@rows`, out of the sums).  No single
+    PyTorch call computes it."""
+    import torch
+    import torch.nn.functional as F
+
+    from smoothquant_tpu_torch.kernels import act_prep as k7
+    from smoothquant_tpu_torch.kernels.int4_group_matmul import RAWX_MAX_N
+    from smoothquant_tpu_torch.kernels.real_linear import k1_rows_operands, many_rows_operands
     from smoothquant_tpu_torch.utils import roofline
 
     n = SLOT_BATCH if n is None else n
+    prep = k1_rows_operands if n <= RAWX_MAX_N else many_rows_operands
     rows = []
     for site, lin, mode in _sites(stacked["layers"]["stacked"]):
         if mode == "mask":
             continue
         m = lin.meta
-        k_ns_raw = m.in_features - m.num_salient
-
-        def ns_part(i):
-            if mode != "gather":
-                return torch.randn((n, k_ns_raw), generator=gen, device=dev) * (1 + 4 * i)
-            x = torch.randn((n, m.in_features), generator=gen, device=dev) * (1 + 4 * i)
-            return x.index_select(1, lin.perm[-1])[:, :k_ns_raw]
-
-        xs = [torch.nn.functional.pad(ns_part(i), (0, m.k_ns - k_ns_raw)).to(torch.bfloat16)
-              for i in range(4)]
-        kw = dict(group_size=m.group_size, act_bits=m.act_bits)
-        got = k7.quantize_acts_grouped_t(xs[0], **kw)
-        ref = k7.quantize_acts_grouped_t_plain(xs[0], **kw)
+        n_layers, c = lin.w_qt.shape[0], m.in_features
+        norm = None
+        if mode == "rms":
+            norm = ((torch.rand((n_layers, c), generator=gen, device=dev) + 0.5
+                     ).to(torch.bfloat16).float(), 1e-5, "rms")
+        xs = []
+        for i in range(4):
+            x = (torch.randn((n, c), generator=gen, device=dev) * (1 + 4 * i)).to(torch.bfloat16)
+            xs.append(x.index_select(1, lin.perm[-1]) if mode == "gather" else x)
+        kind = None if norm is None else ("rms" if n <= RAWX_MAX_N else "rms_round")
+        key = "quantize_acts_grouped_t" if norm is None else "norm_quantize_acts_t"
+        got = prep(lin, xs[0], n_layers - 1, norm)
+        old = _old_prep(lin, xs[0], n_layers - 1, norm)
+        ref = k7.norm_quantize_acts_t_plain(
+            xs[0], None if norm is None else norm[0][-1], group_size=m.group_size,
+            act_bits=m.act_bits, k_ns=m.k_ns, num_salient=m.num_salient, k_s=m.k_s, eps=1e-5,
+            norm_kind=kind, sal_dtype=torch.bfloat16)
         torch.cuda.synchronize()
-        err, n_diff = _codes_close(f"K7a {site}", got[0], ref[0])
-        ulps = _scale_ulps(f"K7a {site}", got[1], ref[1])
-        n_bytes, ops = roofline.act_quant_cost(n, m.k_ns, m.group_size)
+        name = f"K7 {site}@{n} {kind}"
+        err, n_diff = _codes_close(name, got[0], ref[0])
+        ulps = _scale_ulps(name, got[1], ref[1])
+        sal_d = (got[2].float() - ref[2][:n].float()).abs()
+        if got[3] != n or not bool((sal_d <= ref[2][:n].float().abs() * 2.0 ** -8).all()):
+            raise AssertionError(f"{name}: x_sal off by {sal_d.max().item()}")
+        _, n_diff_old = _codes_close(f"{name} old route", old[0], ref[0])
+        _scale_ulps(f"{name} old route", old[1], ref[1])
+        k_s = m.k_s
+        n_bytes, ops = roofline.norm_quant_acts_cost(n, c, m.k_ns, m.group_size, k_s,
+                                                     norm_row=norm is not None)
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
-        rows.append(dict(
-            kernel="quantize_acts_grouped_t", site=site, shape=[n, m.k_ns], max_err=err,
-            n_diff=n_diff, scale_ulps=ulps, in_sum=mode != "gather",
-            kernel_ms=device_ms(lambda i: k7.quantize_acts_grouped_t(xs[i % 4], **kw), 16),
-            plain_ms=device_ms(lambda i: k7.quantize_acts_grouped_t_plain(xs[i % 4], **kw), 4,
-                               reps=3),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None, library=None))
-        emit(rows[-1])
+        li = lambda i: i % n_layers
+        row = dict(
+            kernel=key, site=site if main else f"{site}@{n}",
+            norm_kind=kind, shape=[n, c, m.k_ns, k_s], max_err=err, n_diff=n_diff,
+            n_diff_old_route=n_diff_old, scale_ulps=ulps,
+            in_sum=main and mode != "gather",
+            kernel_ms=device_ms(lambda i: prep(lin, xs[i % 4], li(i), norm), 16),
+            old_route_ms=device_ms(lambda i: _old_prep(lin, xs[i % 4], li(i), norm), 16),
+            plain_ms=device_ms(lambda i: k7.norm_quantize_acts_t_plain(
+                xs[i % 4], None if norm is None else norm[0][li(i)], group_size=m.group_size,
+                act_bits=m.act_bits, k_ns=m.k_ns, num_salient=m.num_salient, k_s=k_s,
+                eps=1e-5, norm_kind=kind, sal_dtype=torch.bfloat16), 4, reps=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, library=None)
+        if norm is not None and n <= RAWX_MAX_N:
+            row["old_body_ms"] = row["old_route_ms"]   # the route was one launch of K7b
+        elif norm is None:
+            k_ns_raw = c - m.num_salient
+            x_ns = [F.pad(x[:, :k_ns_raw], (0, m.k_ns - k_ns_raw)) for x in xs]
+            qa = dict(group_size=m.group_size, act_bits=m.act_bits)
+            row["k7a_entry_ms"] = device_ms(
+                lambda i: k7.quantize_acts_grouped_t(x_ns[i % 4], **qa), 16)
+            row["old_body_ms"] = device_ms(
+                lambda i: k7.quantize_acts_grouped_t(x_ns[i % 4], **qa, body="groups"), 16)
+        rows.append(row)
+        emit(row)
     return rows
+
+
+def check_k7_k5_chain(stacked, dev, gen, rows=(MID_BATCH, SLOT_BATCH)):
+    """The prep + K5 pair at Llama-2-7B's qkv (K7b's row body, then K5's
+    stream kind as its programmatic dependent, as real_linear._stacked_linear
+    launches them) against K5 alone on the same operands, N rows, each call
+    on the next layer's weights (cold): pair_ms − k5_ms is what the prep
+    adds to the linear.  Off every kernel row's sums."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels.int4_group_matmul import (
+        RAWX_MAX_N,
+        int4_group_matmul_stacked,
+    )
+    from smoothquant_tpu_torch.kernels.real_linear import k1_rows_operands, many_rows_operands
+
+    site, lin, _ = _sites(stacked["layers"]["stacked"])[0]
+    m = lin.meta
+    n_layers, c = lin.w_qt.shape[0], m.in_features
+    norm = ((torch.rand((n_layers, c), generator=gen, device=dev) + 0.5
+             ).to(torch.bfloat16).float(), 1e-5, "rms")
+    out = {}
+    for n in rows:
+        prep = k1_rows_operands if n <= RAWX_MAX_N else many_rows_operands
+        x = torch.randn((n, c), generator=gen, device=dev).to(torch.bfloat16)
+        ops = prep(lin, x, 0, norm)
+        kw = dict(group_size=m.group_size, out_dtype=torch.bfloat16)
+
+        def k5(i, ops):
+            return int4_group_matmul_stacked(i % n_layers, *ops[:2], lin.w_qt, lin.w_scales_t,
+                                             ops[2], lin.w_sal_t, pre_laid=ops[3], **kw)
+
+        pair_ms = device_ms(lambda i: k5(i, prep(lin, x, i % n_layers, norm)), n_layers)
+        k5_ms = device_ms(lambda i: k5(i, ops), n_layers)
+        prep_ms = device_ms(lambda i: prep(lin, x, i % n_layers, norm), n_layers)
+        out[n] = dict(site=site, pair_ms=pair_ms, k5_ms=k5_ms, prep_ms=prep_ms,
+                      exposed_prep_us=1e3 * (pair_ms - k5_ms))
+    return out
 
 
 def check_gmm_stacked(stacked, dev, gen, n=None, main=True):
@@ -973,8 +1116,10 @@ def check_gmm_stacked(stacked, dev, gen, n=None, main=True):
             pre = None
         kw = dict(group_size=m.group_size, pre_laid=pre)
         one = lambda t: t[last:last + 1]
-        f32 = (x_q, x_s, one(lin.w_qt), one(lin.w_scales_t), x_sal.float(),
-               one(lin.w_sal_t).float())
+        # K5 reads its weights before it waits for the kernel launched just
+        # before it (its programmatic dependence): cast them first
+        w_sal32 = one(lin.w_sal_t).float()
+        f32 = (x_q, x_s, one(lin.w_qt), one(lin.w_scales_t), x_sal.float(), w_sal32)
         got = k5.int4_group_matmul_stacked(0, *f32, out_dtype=torch.float32, **kw)
         ref = k5.int4_group_matmul_stacked_plain(0, *f32, out_dtype=torch.float32, **kw)
         torch.cuda.synchronize()
@@ -2420,6 +2565,130 @@ def check_k16_edges(dev):
             "max_share": share, "max_share_block_body": share_block}
 
 
+# K7's edges: (C, group size, k_s of a 5 % salient tail: "pack" rounds it up
+# to 128 as the pack pads it, "odd" leaves it ragged) — one chunk, a C that
+# is no multiple of 8, the serving widths of qkv / gate_up (4096), down
+# (11008) and Bloom's dense_4h_to_h (16384), every group size
+K7_EDGE_SHAPES = ((8, 16, "pack"), (100, 32, "odd"), (1000, 64, "odd"), (4096, 64, "pack"),
+                  (4096, 128, "pack"), (4097, 16, "odd"), (11008, 64, "pack"),
+                  (16384, 64, "pack"))
+K7_EDGE_ROWS = (1, 5, 32, 64, 133, 2048)
+K7_MODES = ("rms", "rms_round", "none_w", "none")   # none_w: no norm, a norm row's weights
+
+
+def check_k7_edges(dev):
+    """K7's row body (K7b's "rms" / "rms_round" / no norm with its weights,
+    K7a's quantize with the salient split) against the plain version at
+    K7_EDGE_SHAPES × K7_EDGE_ROWS (2048 rows up to C = 4096), no salient
+    channels and 5 %, bf16 and f32 x and x_sal (the dtype pairs taken in
+    turn), and for C = 1000 rows 1002 elements apart from an odd start (no
+    16-byte loads): codes identical or one off in under 1e-4 of them
+    (_codes_close), scales within one ulp, x_sal within a bf16 rounding of
+    the plain version's value, every call repeated bit for bit; the groups
+    body beside it where it takes the case (a norm row, group size up to
+    128, not "rms_round"), held to the same plain version; then K7a at
+    rounding edges (values y with y / scale on or one f32 step off a tie),
+    both bodies bit for bit.  Returns the cases, the codes, the one-code
+    moves of each body and their largest share in a case."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import act_prep as k7
+    from smoothquant_tpu_torch.quant.core import f32_reciprocal, qmax
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 77)
+    pairs = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+    out = {"cases": 0, "codes": 0, "n_diff": 0, "n_diff_groups_body": 0, "max_share": 0.0,
+           "groups_body_cases": 0, "repeated_calls_identical": 0}
+    turn = 0
+    for c, gs, sal_pad in K7_EDGE_SHAPES:
+        w = torch.rand(c, generator=gen, device=dev) + 0.5
+        for sal in (0, max(1, c // 20)):
+            k_s = 0 if not sal else (-(-sal // 128) * 128 if sal_pad == "pack" else sal + 3)
+            k_ns = -(-(c - sal) // gs) * gs
+            for n in K7_EDGE_ROWS:
+                if n == 2048 and c > 4096:
+                    continue
+                for mode in K7_MODES:
+                    x_dt, s_dt = pairs[turn % 4]
+                    turn += 1
+                    full = (torch.randn((n, c + 2), generator=gen, device=dev)
+                            * (torch.rand((n, 1), generator=gen, device=dev) * 3 + 0.25)).to(x_dt)
+                    x = full[:, 1:c + 1] if c == 1000 else full[:, :c].contiguous()
+                    kw = dict(group_size=gs, act_bits=4, k_ns=k_ns, num_salient=sal, k_s=k_s,
+                              sal_dtype=s_dt)
+                    nw = None if mode == "none" else w
+                    norm = dict(eps=1e-5, norm_kind=mode if mode.startswith("rms") else None)
+                    if nw is None:
+                        key = "quantize_acts_grouped_t"
+                        call = lambda body="rows": k7.quantize_acts_split_t(x, **kw)
+                    else:
+                        key = "norm_quantize_acts_t"
+                        call = lambda body="rows": k7.norm_quantize_acts_t(x, nw, **kw, **norm,
+                                                                          body=body)
+                    got = _launched(key, call)
+                    again = call()
+                    ref = k7.norm_quantize_acts_t_plain(x, nw, **kw, **(norm if nw is not None
+                                                                         else {"norm_kind": None}))
+                    torch.cuda.synchronize()
+                    name = f"K7 N={n} C={c} gs={gs} sal={sal} {mode} {x_dt} {s_dt}"
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"{name}: two calls gave different bits")
+                    _, nd = _codes_close(name, got[0], ref[0])
+                    _scale_ulps(name, got[1], ref[1])
+                    sal_d = (got[2].float() - ref[2].float()).abs()
+                    if not bool((sal_d <= ref[2].float().abs() * 2.0 ** -8 + 1e-30).all()):
+                        raise AssertionError(f"{name}: x_sal off by {sal_d.max().item()}")
+                    out["cases"] += 1
+                    out["repeated_calls_identical"] += 1
+                    out["codes"] += got[0].numel()
+                    out["n_diff"] += nd
+                    out["max_share"] = max(out["max_share"], nd / got[0].numel())
+                    if mode == "none":   # K7a's own entry on x_ns, both bodies
+                        x_ns = torch.nn.functional.pad(x[:, :c - sal], (0, k_ns - c + sal))
+                        qa = dict(group_size=gs, act_bits=4)
+                        ref_a = k7.quantize_acts_grouped_t_plain(x_ns, **qa)
+                        bodies = ("rows", "groups") if gs <= 128 else ("rows",)
+                        for body in bodies:
+                            got_a = _launched(k7.LAUNCH_KEYS["quantize_acts_grouped_t"][body],
+                                              lambda: k7.quantize_acts_grouped_t(
+                                                  x_ns, **qa, body=body))
+                            torch.cuda.synchronize()
+                            _, nd_a = _codes_close(f"{name} K7a {body}", got_a[0], ref_a[0])
+                            _scale_ulps(f"{name} K7a {body}", got_a[1], ref_a[1])
+                            out["n_diff" if body == "rows" else "n_diff_groups_body"] += nd_a
+                        out["groups_body_cases"] += len(bodies) - 1
+                    if nw is not None and gs <= 128 and mode != "rms_round":
+                        old = _launched("norm_quantize_acts_t_groups", lambda: call("groups"))
+                        torch.cuda.synchronize()
+                        _, nd_old = _codes_close(f"{name} groups body", old[0], ref[0])
+                        _scale_ulps(f"{name} groups body", old[1], ref[1])
+                        out["n_diff_groups_body"] += nd_old
+                        out["groups_body_cases"] += 1
+    # rounding edges: f32 rows whose values are (k + 0.5)·scale of their
+    # group, or its f32 neighbours, so y / scale lands on or next to a tie:
+    # K7a's codes identical to the plain version's true division, both bodies
+    n, g, gs = 256, 64, 64
+    amax = torch.rand((n, g, 1), generator=gen, device=dev) * 10 + 0.01
+    scale = amax * f32_reciprocal(qmax(4))
+    k = torch.randint(-7, 7, (n, g, gs), generator=gen, device=dev).float() + 0.5
+    x = k * scale
+    for step in (-1, 1):
+        pick = torch.rand((n, g, gs), generator=gen, device=dev) < 0.3
+        x = torch.where(pick, torch.nextafter(x, x + step), x)
+    x[:, :, 0] = amax[:, :, 0]
+    x = x.reshape(n, g * gs)
+    ref = k7.quantize_acts_grouped_t_plain(x, group_size=gs, act_bits=4)
+    for body in ("rows", "groups"):
+        got = k7.quantize_acts_grouped_t(x, group_size=gs, act_bits=4, body=body)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"K7a {body} body at rounding edges: "
+                                 f"{int((got[0] != ref[0]).sum())} codes differ")
+    out["tie_codes_identical"] = x.numel()
+    return out
+
+
 def check_k11_edges(dev):
     """K11's split body against the plain version at its edges: S = 128, 640
     (five 128-wide softmax tiles) and 1024 (two of 512); D = 64 and 128; GQA
@@ -2898,7 +3167,10 @@ def sass_check():
     none of those fourteen spills; and unless K14's six gate_up kernels
     (stream_swiglu_kernel) load by TMA, and they and K16's sixteen row
     kernels have no I2F, no local loads or stores (LDL / STL), no spill
-    and no stack frame."""
+    and no stack frame; and unless K7's sixteen row kernels have no I2F, no
+    LDL / STL and no spill (their codes' division is IEEE's: MUFU.RCP, the
+    fix-up and the slow path's CALL are counted, and k7_edges holds the
+    codes to torch's true division)."""
     import os
     import re
     import shutil
@@ -2909,7 +3181,7 @@ def sass_check():
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", _build.build()], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    out, stream, attn, s8, new = {}, {}, {}, {}, {}
+    out, stream, attn, s8, new, k7 = {}, {}, {}, {}, {}, {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
         m = re.search(r"split_decode_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)ELb\dELi(\d)E",
@@ -2947,6 +3219,16 @@ def sass_check():
             new[f"K14 gate_up gs={m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'} scales"
                 if k14 else f"K16 rows {'f32' if m.group(1) == 'f' else 'bf16'} "
                             f"W={m.group(2)}{' early' if m.group(3) == '1' else ''}"] = ops
+            continue
+        m = re.search(r"act_rows_kernelI(\w+?)Li(\d)ELb(\d)E", name)
+        if m:   # K7's row body: no I2F, no local memory; its division the IEEE one
+            ops = {op: len(re.findall(r"\b" + op + r"\b", fn))
+                   for op in ("I2F", "LDL", "STL", "MUFU.RCP")}
+            ops["CALL"] = len(re.findall(r"\bCALL\.", fn))
+            ops["LDG.E.128"] = len(re.findall(r"LDG\.E\.(?:CONSTANT\.)?128\b", fn))
+            if ops["I2F"] or ops["LDL"] or ops["STL"]:
+                raise AssertionError(f"{name}: SASS {ops}")
+            k7[f"K7 rows {m.group(1)} ch={m.group(2)}{' early' if m.group(3) == '1' else ''}"] = ops
             continue
         m = re.search(r"stream_gmm_kernelILb(\d)ELi(\d+)ELi(\d+)", name)
         if m:
@@ -3025,6 +3307,20 @@ def sass_check():
         raise AssertionError(f"the new bodies of K14 and K16: {len(new)} kernels in the SASS "
                              f"(22 expected: 6 K14, 16 K16), spill stores / stack frame "
                              f"{new_spills}")
+    k7_spills = {}
+    for i, ln in enumerate(log):
+        m = re.search(r"act_rows_kernel\w*", ln)
+        if "Compiling entry" in ln and m:
+            block = " ".join(log[i:i + 4])
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            stack = re.search(r"(\d+) bytes stack frame", block)
+            k7_spills[m.group(0)[:70]] = [int(regs.group(1)) if regs else None,
+                                          int(spill.group(1)) if spill else None,
+                                          int(stack.group(1)) if stack else None]
+    if len(k7) != 16 or len(k7_spills) != 16 or any(v[1] != 0 for v in k7_spills.values()):
+        raise AssertionError(f"K7's row body: {len(k7)} kernels in the SASS (16 expected), "
+                             f"registers / spill stores / stack frame {k7_spills}")
     n_k1 = sum(k.startswith("K1 ") for k in stream)
     if (not out or not stream or len(attn) != 43 or n_k1 != 18
             or not {"K13 kb=64", "K13 kb=32"} <= set(stream)):
@@ -3033,6 +3329,7 @@ def sass_check():
                              "8, K12 18) and K15b's qk body")
     return {"sass": out, "stream_sass": stream, "attn_sass": attn, "s8_sass": s8,
             "k14_k16_sass": new, "k14_k16_spills_stack": new_spills,
+            "k7_sass": k7, "k7_registers_spills_stack": k7_spills,
             "registers_spills": notes, "ptxas_serialized_notes": serialized}
 
 
@@ -3055,11 +3352,16 @@ def check_no_fallback(dev):
     version.  K11's ALiBi body and K4's raw-x mode run (their phases);
     what they still refuse, and int8_dots (K11, K12), raises here, as does
     each shape the split bodies of K11, K3 and K12 and the stream bodies of
-    K13, K1 and K14 refuse when forced on them, and what K16's row body
-    does not take (every shape the wrapper accepts is its)."""
+    K13, K1 and K14 refuse when forced on them, what K16's row body
+    does not take (every shape the wrapper accepts is its), what K7's two
+    bodies do not take, and a salient block K5 would need cast between the
+    activation prep and its chained launch."""
+    import types
+
     import torch
 
     from smoothquant_tpu_torch.kernels import act_prep as k7
+    from smoothquant_tpu_torch.kernels import real_linear as rl
     from smoothquant_tpu_torch.kernels import attn_fused as k12
     from smoothquant_tpu_torch.kernels import attn_smajor as k3
     from smoothquant_tpu_torch.kernels import cache_write as k10
@@ -3142,9 +3444,18 @@ def check_no_fallback(dev):
             0, 5, f32(2, 4, 64), *kv, *(torch.zeros((1, 2, 4, 128, 64), dtype=torch.int8,
                                                    device=dev),) * 2,
             f32(1, 2, 4, 128), f32(1, 2, 4, 128), int8_dots=True), NotImplementedError),
-        "K7b group size 256": (lambda: k7.norm_quantize_acts_t(
-            f32(8, 512), torch.ones(512, device=dev), group_size=256, act_bits=4, k_ns=512,
+        "K7b group size 48": (lambda: k7.norm_quantize_acts_t(
+            f32(8, 480), torch.ones(480, device=dev), group_size=48, act_bits=4, k_ns=480,
             num_salient=0, k_s=0, eps=1e-5), ValueError),
+        "K7b groups body in rms_round": (lambda: k7.norm_quantize_acts_t(
+            f32(8, 512), torch.ones(512, device=dev), group_size=64, act_bits=4, k_ns=512,
+            num_salient=0, k_s=0, eps=1e-5, norm_kind="rms_round", body="groups"), ValueError),
+        "K7b groups body at group size 256": (lambda: k7.norm_quantize_acts_t(
+            f32(8, 512), torch.ones(512, device=dev), group_size=256, act_bits=4, k_ns=512,
+            num_salient=0, k_s=0, eps=1e-5, body="groups"), ValueError),
+        "K5 behind the prep on a salient block that needs a cast": (
+            lambda: rl.chained_w_sal(types.SimpleNamespace(w_sal_t=f32(1, 128, 256)),
+                                     bf(8, 512)), TypeError),
         "K13 nine rows": (lambda: k13.fp_matmul_stacked(
             0, torch.zeros((9, 64), device=dev), torch.zeros((1, 64, 64), device=dev)),
             ValueError),
@@ -3216,8 +3527,10 @@ def check_no_fallback(dev):
         "K5 float codes": (lambda: k1.int4_group_matmul_stacked(
             0, f32(4, 8, 64), f32(4, 8), w4, f32(1, 4, 256), f32(8, 0), f32(1, 0, 256),
             group_size=64, pre_laid=8), TypeError),
-        "K7a group size 256": (lambda: k7.quantize_acts_grouped_t(
-            f32(8, 512), group_size=256, act_bits=4), ValueError),
+        "K7a group size 512": (lambda: k7.quantize_acts_grouped_t(
+            f32(8, 512), group_size=512, act_bits=4), ValueError),
+        "K7a wider than the row body": (lambda: k7.quantize_acts_grouped_t(
+            f32(2, 300032), group_size=64, act_bits=4), ValueError),
         "K10 float cache": (lambda: k10.write_quant_cache_stacked(
             0, torch.zeros(2, dtype=torch.int32, device=dev), *kv, f32(1, 2, 4, 8, 64),
             f32(1, 2, 4, 8, 64), f32(1, 2, 4, 8), f32(1, 2, 4, 8)), TypeError),
@@ -3523,13 +3836,14 @@ def _check_launches(path, launches, expect):
 def step_launches(cfg, batch, attn, fuse_mlp=False):
     """Kernel launches of one stacked W4A4 decode step of `batch` rows: the
     four linears a layer (two of them and K14's two launches with fuse_mlp) on K1 up to
-    K1_MAX_TOKENS rows, up to RAWX_MAX_N on K7b (qkv, gate_up), K7a (down)
-    and K5, above on K7a (qkv, gate_up, down) and K5; the cache write and
+    K1_MAX_TOKENS rows, above on one launch of K7's row body a site — K7b
+    at qkv and gate_up ("rms" up to RAWX_MAX_N rows, "rms_round" above), K7a
+    at down — each followed by K5 (o_proj's codes come from torch ops, no
+    K7 launch); the cache write and
     attention by `attn`: "smajor" K2 + K3 over the S-major pool, "off" K10 +
     K11 over the head-major one, "auto" K12 + K10 and "fused" K12 alone over
     the aligned head-major cache; and the int8 lm_head on K4 from
     PREFILL_KERNEL_MIN_TOKENS rows (torch._int_mm below)."""
-    from smoothquant_tpu_torch.kernels.int4_group_matmul import RAWX_MAX_N
     from smoothquant_tpu_torch.kernels.real_linear import (
         K1_MAX_TOKENS,
         PREFILL_KERNEL_MIN_TOKENS,
@@ -3539,13 +3853,11 @@ def step_launches(cfg, batch, attn, fuse_mlp=False):
     n_lin = 2 if fuse_mlp else 4
     if batch <= K1_MAX_TOKENS:
         out = {"int4_group_matmul_stacked_rawx": n_lin * n_l}
-    elif batch <= RAWX_MAX_N:
+    else:
         out = {"norm_quantize_acts_t": (1 if fuse_mlp else 2) * n_l,
                "int4_group_matmul_stacked": n_lin * n_l}
         if not fuse_mlp:
             out["quantize_acts_grouped_t"] = n_l
-    else:
-        out = {"quantize_acts_grouped_t": 3 * n_l, "int4_group_matmul_stacked": 4 * n_l}
     if fuse_mlp:   # K14's stream body: its gate_up and its down launch
         out["mlp_swiglu_fused_stacked"] = n_l
         out["mlp_swiglu_fused_stacked_down"] = n_l
@@ -3666,8 +3978,9 @@ def profile(fn, steps: int) -> dict:
     ms per step (the device events' durations summed), beside it the union
     of their spans (busy_union_ms_per_step: a kernel launched as a
     programmatic dependent starts before its primary ends, and the sum
-    counts that overlap twice), the idle share of the wall time (by the
-    sum), and the kernels that take the most device time."""
+    counts that overlap twice), the device events per step (every kernel
+    the step launched, torch's included), the idle share of the wall time
+    (by the sum), and the kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -3695,6 +4008,7 @@ def profile(fn, steps: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(steps=steps, wall_ms_per_step=1e3 * wall / steps,
                 busy_ms_per_step=busy_ms / steps, busy_union_ms_per_step=union_us / 1e3 / steps,
+                kernels_per_step=len(spans) / steps,
                 idle_share=1.0 - busy_ms / (1e3 * wall),
                 top_ms_per_step=[[name[:60], us / 1e3 / steps] for name, us in top])
 
@@ -3755,7 +4069,11 @@ def slot_decode(stacked, cfg, dev, card):
     "auto": K12's flat body + K10), taking turns window by window; then a
     few steps of MID_BATCH rows over the head-major pool, whose linears take
     K7b / K7a + K5 (K1's codes).  The caches are freed before the next is
-    made.  Returns the launches of the counted steps."""
+    made; the MID_BATCH steps by host clock over windows and by device busy
+    (summed and as the union of spans), as the others.  The head-major
+    SLOT_BATCH step and the MID_BATCH one are profiled once more on the
+    activation prep's route before (_old_route_profile).  Returns the
+    launches of the counted steps."""
     from collections import Counter
 
     import torch
@@ -3785,6 +4103,9 @@ def slot_decode(stacked, cfg, dev, card):
               "host_clock": dec[name]["ms_per_step"] / dec["s_major"]["ms_per_step"],
               "device_busy": (dec[name]["busy_ms_per_step"]
                               / dec["s_major"]["busy_ms_per_step"])})
+    emit({"phase": "slot_head_major_old_route", "card": card, "batch": SLOT_BATCH,
+          "new_route": dec["head_major"]["trace"],
+          "old_route": _old_route_profile(steps["head_major"])})
     del steps, caches, dec
     torch.cuda.empty_cache()
     mid = llama.stacked_caches(cfg, MID_BATCH, MAX_LEN, pos=DECODE_POS, quant_kv=True,
@@ -3792,13 +4113,10 @@ def slot_decode(stacked, cfg, dev, card):
     step, used = aligned_decoder(stacked, mid, cfg, dev, f"head-major decode step "
                                  f"B={MID_BATCH}", step_launches(cfg, MID_BATCH, "off"))
     launches.update(used)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(4)
-    torch.cuda.synchronize()
+    dec = decode_windows({"mid": step}, batch=MID_BATCH)["mid"]
     emit({"phase": "mid_decode", "card": card, "batch": MID_BATCH, "cache": MAX_LEN,
-          "ms_per_step": 1e3 * (time.perf_counter() - t0) / 4, "launches_per_step": used,
-          "positions": [DECODE_POS, int(mid.pos.flatten()[0])]})
+          "launches_per_step": used, "positions": [DECODE_POS, int(mid.pos.flatten()[0])],
+          **dec, "old_route": _old_route_profile(step)})
     return launches
 
 
@@ -4281,8 +4599,9 @@ def build_bloom(cfg, dev, n_samples=BLOOM_SAMPLES, seq_len=BLOOM_LEN):
 def bloom_step_launches(cfg, batch):
     """Kernel launches of one stacked Bloom decode step of `batch` rows: the
     four linears a layer (their input gathered, no fused norm) on K1 up to
-    K1_MAX_TOKENS rows, above on K7a + K5; K10 (rotary off) and K11's ALiBi
-    body a layer."""
+    K1_MAX_TOKENS rows, above on K7a's row body (the salient split and the
+    quantize in one launch) + K5; K10 (rotary off) and K11's ALiBi body a
+    layer."""
     from smoothquant_tpu_torch.kernels.real_linear import K1_MAX_TOKENS
 
     n_l = cfg.num_hidden_layers
@@ -4386,8 +4705,10 @@ def check_norm_quantize_acts(cfg, dev, gen):
     g64, 5 % salient, k_ns and k_s as the pack pads them; 1, 4, 5 and 130
     rows of bf16; the RMSNorm and no norm.  Codes identical or off by one
     in under 1e-4 of them, scales within one ulp, the salient block within
-    a bf16 rounding.  Times at 4 rows (the sum) and 130; no single PyTorch
-    call computes it."""
+    a bf16 rounding.  Times at 4 and 130 rows, the groups body beside the
+    row body (old_body_ms); off the kernels line's sums (no path runs K7b
+    at Bloom's widths: check_act_prep times it at Llama's sites); no single
+    PyTorch call computes it."""
     import torch
 
     from smoothquant_tpu_torch.kernels import act_prep as k7
@@ -4412,17 +4733,18 @@ def check_norm_quantize_acts(cfg, dev, gen):
                 err, n_diff = _codes_close(name, got[0], ref[0])
                 ulps = _scale_ulps(name, got[1], ref[1])
                 sal_err = _close(name + " x_sal", got[2], ref[2], 1e-2)
-                in_sum = n == 4 and kind == "rms"
                 row = dict(kernel="norm_quantize_acts_t", site=f"{site}@{n}_{kind or 'none'}",
-                           in_sum=in_sum, shape=[n, c, kk, k_s], max_err=err, n_diff=n_diff,
+                           in_sum=False, shape=[n, c, kk, k_s], max_err=err, n_diff=n_diff,
                            scale_ulps=ulps, sal_err=sal_err,
                            sal_rel_err=sal_err / max(ref[2].float().abs().max().item(), 1e-30),
                            check_launches=1, library_ms=None, library=None)
-                if in_sum or n == 130:
+                if n in (4, 130):
                     n_bytes, ops = roofline.norm_quant_acts_cost(n, c, kk, 64, k_s)
                     row["bound_ms"], row["bound_by"] = roofline.bound_ms(n_bytes, ops)
                     row["kernel_ms"] = device_ms(
                         lambda i: k7.norm_quantize_acts_t(xs[i % 4], w, **kw), 16)
+                    row["old_body_ms"] = device_ms(
+                        lambda i: k7.norm_quantize_acts_t(xs[i % 4], w, **kw, body="groups"), 16)
                     row["plain_ms"] = device_ms(
                         lambda i: k7.norm_quantize_acts_t_plain(xs[i % 4], w, **kw), 4, reps=3)
                 rows.append(row)
@@ -4638,7 +4960,9 @@ def bloom_stacked_decode(stacked, cfg, dev, card):
     input, K10 with rotary off, K11's ALiBi body) and B = BLOOM_SLOT_BATCH
     (K7a + K5 in place of K1), each in three windows of 8 steps: ms/step by
     host clock and device busy time, launches per step, memory and the
-    decode byte bound.  Returns the launches of the counted steps."""
+    decode byte bound; at B = BLOOM_SLOT_BATCH also the steps' busy time and
+    kernel count on the activation prep's route before (old_route).
+    Returns the launches of the counted steps."""
     from collections import Counter
 
     import torch
@@ -4658,7 +4982,7 @@ def bloom_stacked_decode(stacked, cfg, dev, card):
               "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
               "decode_step_bytes": roofline.bloom_decode_step_bytes(cfg, batch=b,
                                                                     max_len=MAX_LEN),
-              **dec})
+              **dec, **({"old_route": _old_route_profile(step)} if b > BLOOM_BATCH else {})})
         del cache, step
         torch.cuda.empty_cache()
     return launches
@@ -4883,6 +5207,8 @@ BODY_COUNTERS = {"fp_matmul_stacked": {"ldg": "fp_matmul_stacked_ldg"},
                  "mlp_swiglu_fused_stacked": {"down": "mlp_swiglu_fused_stacked_down",
                                               "coop": "mlp_swiglu_fused_stacked_coop"},
                  "norm_quant": {"block": "norm_quant_block"},
+                 "quantize_acts_grouped_t": {"groups": "quantize_acts_grouped_t_groups"},
+                 "norm_quantize_acts_t": {"groups": "norm_quantize_acts_t_groups"},
                  "int4_group_matmul_stacked_rawx": {"dp4a": "int4_group_matmul_stacked_rawx_dp4a"},
                  "decode_attention_stacked": {"alibi": "decode_attention_stacked_alibi",
                                               "flash": "decode_attention_stacked_flash",
@@ -4899,17 +5225,18 @@ BODY_COUNTERS = {"fp_matmul_stacked": {"ldg": "fp_matmul_stacked_ldg"},
 
 def kernels_line(rows, launches):
     """One entry per kernel: the call sites of one layer's worth of work
-    summed (K1 at N = 4, K5, K6, K4 with the lm_head, K13, K7a's three
-    sites; K11 its bf16 and int8 bodies; K15a its six linears, K15b its two
+    summed (K1 at N = 4, K5, K6, K4 with the lm_head, K13; K7a at down
+    and K7b at qkv and gate_up, 64 rows; K11 its bf16 and int8 bodies; K15a its six linears, K15b its two
     products and K16 its LayerNorm, each at the prefill and at the decode
     size; K12 its flat body at B = 4, K14 at N = 4; K8 its q, gate and down
     sites with the salient block at N = 4, K9 its grouped body at gate_proj,
-    N = 2048; K7b at Bloom's two widths, 4 rows, with its RMSNorm; rows
+    N = 2048; rows
     marked in_sum=False — Bloom's rows of K1, K5, K6, K7a and K10 (its
     rotary-off body), K1 at 16 and 32 rows, K5's extra row-major qkv,
     K12's other bodies and B = 64, K14 at 8 rows, K8's and K9's other
-    bodies and row counts, K11's ALiBi body, K4's raw-x mode, K7b's other
-    row counts — are reported on their own lines only), the errors the
+    bodies and row counts, K11's ALiBi body, K4's raw-x mode, K7a's and
+    K7b's other row counts and Bloom's widths — are reported on their own
+    lines only), the errors the
     largest seen; launches are the main paths' runs summed over every body
     (launches_by_body splits them; check_launches counts the checks'
     launches, which the main paths' counts leave out)."""
@@ -4967,7 +5294,9 @@ def run(dev, cfg, card: str):
                 pos=torch.randint(100, MAX_LEN, (SLOT_BATCH,), generator=gen, device=dev)))
     for n in (16, MID_BATCH):
         rows += check_rawx(stacked, dev, gen, n)
-    rows += (check_act_prep(stacked, dev, gen) + check_gmm_stacked(stacked, dev, gen)
+    rows += (check_act_prep(stacked, dev, gen) + check_act_prep(stacked, dev, gen, 8, False)
+             + check_act_prep(stacked, dev, gen, MID_BATCH, False)
+             + check_gmm_stacked(stacked, dev, gen)
              + check_gmm_stacked(stacked, dev, gen, n=33, main=False)
              + check_write_cache_hm(dev, gen, SLOT_BATCH, cfg.num_key_value_heads, cfg.head_dim)
              + check_fused_attn(cfg, dev, gen)
@@ -4981,6 +5310,8 @@ def run(dev, cfg, card: str):
     emit({"phase": "k13_edges", **check_k13_edges(dev)})
     emit({"phase": "k1_edges", **check_k1_edges(dev)})
     emit({"phase": "k14_edges", **check_k14_edges(dev)})
+    emit({"phase": "k7_edges", **check_k7_edges(dev)})
+    emit({"phase": "k7_k5_chain", "card": card, **check_k7_k5_chain(stacked, dev, gen)})
     emit({"phase": "k11_edges", **check_k11_edges(dev)})
     emit({"phase": "k3_edges", **check_k3_edges(dev)})
     emit({"phase": "k12_edges", **check_k12_edges(dev)})

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "sq_int4_gmm_stacked_stream": ([_P] * 7 + [_I] * 10 + [_P], _I),
     "sq_quantize_grouped_t": ([_P] * 3 + [_I] * 4 + [_F, _I, _P], _I),
     "sq_norm_quantize_t": ([_P] * 5 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
+    "sq_act_rows": ([_P] * 5 + [_I] * 13 + [_F] * 3 + [_I, _I, _P], _I),
     "sq_write_cache_hm": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),
     "sq_write_cache_smajor": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),
     "sq_decode_attn_smajor": ([_P] * 7 + [_I] * 6 + [_F, _I, _P], _I),

@@ -622,8 +622,12 @@ SQ_EXPORT int sq_int4_gmm_stacked_stream(const void* xq, const void* xs, const v
   if ((gs != 16 && gs != 32 && gs != 64) || kk % (2 * gs) || (pre_laid && pre_laid < N) ||
       !sg_args_ok(N, O, k_s, xsal_rs, n_split, n_sal + n_grp, t_bf16))
     return (int)cudaErrorInvalidValue;
+  // a programmatic dependent of the stream's previous kernel, always: on the
+  // stacked path that is the activation prep (K7a / K7b's row body), whose
+  // launch_dependents lets the first weight stages stream while it runs;
+  // behind any other kernel the wait at griddepcontrol.wait is its end
   SgArgs a{(const float*)xs, xsal, wsal, out, N, O, G, k_s, xsal_rs, G, 1, gs, 0, kk / 2, 0,
-           n_sal, n_grp, n_split, s_bf16, t_bf16};
+           n_sal, n_grp, n_split, s_bf16, t_bf16, /*pdl=*/1};
   if (pre_laid) {
     a.s_rs = 1;
     a.s_gs = pre_laid;

@@ -19,7 +19,11 @@ K5  int4_group_matmul_stacked — port of :679 (pallas_call :807).  Layer
     salient dot, then ((p − 8·Σx)·s_x)·s_w for group g and g + G/2 in turn,
     cast to out_dtype; in one of two bodies picked by shape alone
     (stacked_body): the weight-streaming body K8 shares
-    (csrc/stream_gmm.cuh) or the mma.sync tiles (gmm_tiles.cuh).
+    (csrc/stream_gmm.cuh) or the mma.sync tiles (gmm_tiles.cuh).  The
+    stream body always runs as a programmatic dependent of the kernel
+    launched before it (on the stacked path K7's row body): it reads its
+    weight operands (w_packed, w_scales_t, w_sal_t) before it waits for
+    that kernel, so they must not be that kernel's output.
 K6  int4_group_matmul — port of :841 (pallas_call :950).  The same inner
     product on activations that are already quantized (prefill), in one of
     two bodies picked by shape alone (gmm_body): the wgmma ring

@@ -11,13 +11,18 @@ real_linear.py:70-133,200-479).
   the same call sites at 4 < N <= RAWX_MAX_N (32), activations made as K1
     makes them (k1_rows_operands; the JAX package takes its rawx branch):
     * fused RMSNorm (qkv, gate_up) in f32, salient split, into K5's
-      layout                                                     → K7b + K5
-    * pre-permuted or gathered input, no norm                    → K7a + K5
+      layout: one launch of K7's row body                       → K7b + K5
+    * pre-permuted or gathered input, no norm: the salient split and
+      the quantize in one launch of the row body                → K7a + K5
     * identity layout: _identity_nibble_quantize             → K5 row-major
   the same call sites at N > 32 (real_linear.py:320-331,351-386):
-    * pre-permuted or gathered input: RMSNorm rounded to x's dtype first
-      (qkv, gate_up), salient tail split, K7a into K5's layout  → K7a + K5
+    * pre-permuted input with a fused norm (qkv, gate_up): the RMSNorm
+      rounded to x's dtype ("rms_round"), salient split and quantize in
+      one launch of the row body                                → K7b + K5
+    * down, or gathered input: as at 5-32 rows                  → K7a + K5
     * identity layout: _identity_nibble_quantize             → K5 row-major
+  K5's stream kind follows each prep as a programmatic dependent
+  (chained_w_sal: nothing launches between them)
   the whole MLP of a stacked decode layer at N <= 8 (ForwardContext.fuse_mlp,
     real_linear.py:148-197)                                     → K14
   per-layer (real_linear.py:400-470):
@@ -57,7 +62,7 @@ from smoothquant_tpu_torch.kernels.int8_prefill import (
 )
 from smoothquant_tpu_torch.kernels.act_prep import (
     norm_quantize_acts_t,
-    quantize_acts_grouped_t,
+    quantize_acts_split_t,
 )
 from smoothquant_tpu_torch.kernels.mlp_fused import (
     mlp_fused_supported,
@@ -257,56 +262,72 @@ def _salient_gather(packed: PackedLinear, x2d: torch.Tensor, perm_row):
     return x_sal
 
 
+def _prep_operands(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
+                   norm: Optional[tuple], norm_kind: str):
+    """K5's operands of a permuted layout in one launch of K7's row body:
+    with a fused norm K7b in `norm_kind`, else K7a with the salient split.
+    Returns (x_q, x_scales, x_sal, pre_laid), x_sal in x's dtype."""
+    meta = packed.meta
+    kw = dict(group_size=meta.group_size, act_bits=meta.act_bits, k_ns=meta.k_ns,
+              num_salient=meta.num_salient, k_s=meta.k_s, sal_dtype=x2d.dtype)
+    if norm is None:
+        x3, xs_t, x_sal = quantize_acts_split_t(x2d, **kw)
+    else:
+        norm_rows, eps, kind = norm
+        if kind != "rms":
+            raise NotImplementedError(f"norm kind {kind!r}")
+        x3, xs_t, x_sal = norm_quantize_acts_t(x2d, norm_rows[layer_idx], eps=float(eps),
+                                               norm_kind=norm_kind, **kw)
+    n = x2d.shape[0]
+    return x3, xs_t, x_sal[:n], n
+
+
 def many_rows_operands(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
                        norm: Optional[tuple] = None):
     """K5's operands for the stacked decode linear at N > 32 rows
     (real_linear.py:320-331,351-386): (x_q, x_scales, x_sal, pre_laid).
     The identity layout quantizes in original channel order into row-major
-    codes (pre_laid None); a pre-permuted input takes the preceding RMSNorm
-    first — as models/common.rms_norm computes it, rounded to x's dtype,
-    not K1's in-kernel f32 — then the salient tail split and K7a; x2d is
-    in the pack's channel order (pre-permuted, or gathered by the caller)."""
+    codes (pre_laid None); a permuted one takes one launch of K7's row body
+    from x2d, in the pack's channel order (pre-permuted, or gathered by the
+    caller): the preceding RMSNorm as models/common.rms_norm computes it,
+    rounded to x's dtype ("rms_round", not K1's in-kernel f32), the salient
+    tail split and K7a's quantize."""
     meta = packed.meta
     if meta.layout == "identity":
         if norm is not None:
             raise NotImplementedError("identity layout call sites fuse no norm")
         return (*_identity_nibble_quantize(packed, x2d, packed.perm[layer_idx],
                                            packed.ns_mask[layer_idx]), None)
-    if norm is not None:
-        from smoothquant_tpu_torch.models.common import rms_norm
-
-        norm_rows, eps, kind = norm
-        if kind != "rms":
-            raise NotImplementedError(f"norm kind {kind!r}")
-        x2d = rms_norm({"weight": norm_rows[layer_idx]}, x2d, eps)
-    k_ns_raw = meta.in_features - meta.num_salient
-    x_ns = torch.nn.functional.pad(x2d[:, :k_ns_raw], (0, meta.k_ns - k_ns_raw))
-    x3, xs_t = quantize_acts_grouped_t(x_ns, group_size=meta.group_size,
-                                       act_bits=meta.act_bits)
-    x_sal = torch.nn.functional.pad(x2d[:, k_ns_raw:], (0, meta.k_s - meta.num_salient))
-    return x3, xs_t, x_sal, x2d.shape[0]
+    return _prep_operands(packed, x2d, layer_idx, norm, "rms_round")
 
 
 def k1_rows_operands(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
                      norm: Optional[tuple] = None):
     """K5's operands at K1's row counts (up to RAWX_MAX_N), made as K1 makes
-    its codes: a fused RMSNorm in f32 by K7b (the rule K1's pre-pass takes,
-    so the same codes, where many_rows_operands rounds the normed rows to
-    x's dtype first as the JAX many-rows branch does); the identity and
-    pre-permuted sites as many_rows_operands makes them (the same codes as
+    its codes: a fused RMSNorm in f32 by K7b's "rms" (the rule K1's pre-pass
+    takes, so the same codes, where many_rows_operands rounds the normed
+    rows to x's dtype first as the JAX many-rows branch does); the identity
+    and no-norm sites as many_rows_operands makes them (the same codes as
     K1's mask and raw modes).  Returns (x_q, x_scales, x_sal, pre_laid)."""
     if norm is None:
         return many_rows_operands(packed, x2d, layer_idx)
-    meta = packed.meta
-    norm_rows, eps, kind = norm
-    if kind != "rms":
-        raise NotImplementedError(f"norm kind {kind!r}")
-    x3, xs_t, x_sal = norm_quantize_acts_t(
-        x2d, norm_rows[layer_idx], group_size=meta.group_size, act_bits=meta.act_bits,
-        k_ns=meta.k_ns, num_salient=meta.num_salient, k_s=meta.k_s, eps=float(eps),
-        norm_kind="rms", sal_dtype=x2d.dtype)
-    n = x2d.shape[0]
-    return x3, xs_t, x_sal[:n], n
+    return _prep_operands(packed, x2d, layer_idx, norm, "rms")
+
+
+def chained_w_sal(packed: PackedLinear, x2d: torch.Tensor) -> torch.Tensor:
+    """K5's salient block for x2d's rows.  On the card K5 runs as a
+    programmatic dependent of the activation prep, its first weight stages
+    read before it waits for the prep: a cast launched between them would
+    cut the chain and could be read unfinished, so a block not stored in
+    x's dtype (the pack stores it in the compute dtype) raises there; the
+    CPU casts."""
+    w_sal = packed.w_sal_t
+    if w_sal.dtype == x2d.dtype:
+        return w_sal
+    if x2d.device.type != "cpu":
+        raise TypeError(f"the salient block is {w_sal.dtype}, the rows {x2d.dtype}: K5 "
+                        "chained behind the activation prep takes it as stored")
+    return w_sal.to(x2d.dtype)
 
 
 def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
@@ -323,11 +344,12 @@ def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
         x2d = x2d.index_select(1, packed.perm[layer_idx])
     if x2d.shape[0] > K1_MAX_TOKENS:
         prep = k1_rows_operands if x2d.shape[0] <= RAWX_MAX_N else many_rows_operands
+        w_sal = chained_w_sal(packed, x2d)
         x_q, x_scales, x_sal, pre_laid = prep(packed, x2d, layer_idx, norm)
+        # K5 next, with no launch between it and the prep that feeds it
         return int4_group_matmul_stacked(
             layer_idx, x_q, x_scales, packed.w_qt, packed.w_scales_t, x_sal,
-            packed.w_sal_t.to(x2d.dtype), group_size=meta.group_size,
-            out_dtype=out_dtype, pre_laid=pre_laid)
+            w_sal, group_size=meta.group_size, out_dtype=out_dtype, pre_laid=pre_laid)
     common = dict(group_size=meta.group_size, act_bits=meta.act_bits,
                   num_salient=meta.num_salient, out_dtype=out_dtype)
     w_sal = packed.w_sal_t.to(x2d.dtype)

@@ -110,14 +110,15 @@ def act_quant_cost(n, k_ns, gs, *, x_bytes=2):
             {"f32": 3 * n * k_ns})
 
 
-def norm_quant_acts_cost(n, c, k_ns, gs, k_s, *, x_bytes=2, sal_bytes=2):
-    """K7b: x (N, C), the f32 norm row (C,) in; x3 (G, N_pad, gs) int8,
-    xs_t (G, N_pad) f32 and x_sal (N_pad, k_s) out; about five f32
-    operations an element (the square and sum, two products, |y| and max,
-    divide, round — the rows' norm sums counted once)."""
+def norm_quant_acts_cost(n, c, k_ns, gs, k_s, *, x_bytes=2, sal_bytes=2, norm_row=True):
+    """K7b: x (N, C), the f32 norm row (C,) in (K7a with the salient split:
+    no norm row); x3 (G, N_pad, gs) int8, xs_t (G, N_pad) f32 and x_sal
+    (N_pad, k_s) out; about five f32 operations an element (the square and
+    sum, two products, |y| and max, divide, round — the rows' norm sums
+    counted once)."""
     n_pad = max(8, -(-n // 8) * 8)
-    return (n * c * x_bytes + c * 4 + n_pad * k_ns + k_ns // gs * n_pad * 4
-            + n_pad * k_s * sal_bytes, {"f32": 5 * n * c})
+    return (n * c * x_bytes + (c * 4 if norm_row else 0) + n_pad * k_ns
+            + k_ns // gs * n_pad * 4 + n_pad * k_s * sal_bytes, {"f32": 5 * n * c})
 
 
 def write_cache_cost(b, h, d, *, x_bytes=2, rotary=True):

@@ -155,7 +155,11 @@ def test_slot_path_rehearsal_on_cpu(monkeypatch):
         kinds.setdefault(r["kernel"], []).append(r.get("site"))
         assert r["max_err"] == 0
     assert len(kinds["int4_group_matmul_stacked_rawx"]) == 8
-    assert kinds["quantize_acts_grouped_t"] == ["qkv", "gate_up", "down"]
+    # each site's prep one launch of K7's row body: K7b at the fused-norm sites
+    assert kinds["norm_quantize_acts_t"] == ["qkv", "gate_up"]
+    assert kinds["quantize_acts_grouped_t"] == ["down"]
+    assert all("old_route_ms" in r for r in rows
+               if r["kernel"] in ("norm_quantize_acts_t", "quantize_acts_grouped_t"))
     assert kinds["int4_group_matmul_stacked"] == ["qkv", "o", "gate_up", "down", "qkv@rows"]
     assert len(kinds["write_quant_cache_stacked"]) == 1
     assert all("tiles_ms" in r for r in rows if r.get("body") == "stream"
@@ -169,9 +173,9 @@ def test_slot_path_rehearsal_on_cpu(monkeypatch):
                                  smajor=False, n_requests=44, decode_window=True)
     assert sum(launches.values()) == 0
     # the int8 lm_head on K4 from PREFILL_KERNEL_MIN_TOKENS rows
-    per_step = {"quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8,
-                "write_quant_cache_stacked": 2, "decode_attention_stacked": 2,
-                "int8_prefill_matmul": 1}
+    per_step = {"norm_quantize_acts_t": 4, "quantize_acts_grouped_t": 2,
+                "int4_group_matmul_stacked": 8, "write_quant_cache_stacked": 2,
+                "decode_attention_stacked": 2, "int8_prefill_matmul": 1}
     assert metrics["launches_per_step"] == per_step and metrics["pool"] == "head-major"
     steps = metrics["decode_steps"]
     assert steps >= 64                        # 44 requests of 32 tokens through 40 slots
@@ -183,12 +187,13 @@ def test_slot_path_rehearsal_on_cpu(monkeypatch):
     cs.slot_decode(stacked, cfg, cpu, "card")
     assert expected["head_major decode step B=40"] == per_step
     assert expected["s_major decode step B=40"] == {
-        "quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8,
-        "write_quant_cache_smajor": 2, "decode_attention_smajor_stacked": 2,
-        "int8_prefill_matmul": 1}
+        "norm_quantize_acts_t": 4, "quantize_acts_grouped_t": 2,
+        "int4_group_matmul_stacked": 8, "write_quant_cache_smajor": 2,
+        "decode_attention_smajor_stacked": 2, "int8_prefill_matmul": 1}
     assert expected["aligned_head_major decode step B=40"] == {
-        "quantize_acts_grouped_t": 6, "int4_group_matmul_stacked": 8, "fused_attn": 2,
-        "write_quant_cache_stacked": 2, "int8_prefill_matmul": 1}
+        "norm_quantize_acts_t": 4, "quantize_acts_grouped_t": 2,
+        "int4_group_matmul_stacked": 8, "fused_attn": 2, "write_quant_cache_stacked": 2,
+        "int8_prefill_matmul": 1}
     # above K1_MAX_TOKENS rows: K7b at the fused-norm sites, K7a at down, K5
     assert expected["head-major decode step B=32"] == {
         "norm_quantize_acts_t": 4, "quantize_acts_grouped_t": 2,
@@ -500,8 +505,9 @@ def test_bloom_path_rehearsal_on_cpu(monkeypatch):
                                             "raw_x_one_k_step"]
     assert all(r["identical_to_prequantized"] for r in rows if r["kernel"] == "int8_prefill_matmul")
     k7b = [r for r in rows if r["kernel"] == "norm_quantize_acts_t"]
-    assert [r["site"] for r in k7b if r["in_sum"]] == ["query_key_value@4_rms",
-                                                       "dense_4h_to_h@4_rms"]
+    # no path runs K7b at Bloom's widths: its rows stay out of the sums
+    assert not any(r["in_sum"] for r in k7b)
+    assert all("old_body_ms" in r for r in k7b if "kernel_ms" in r)
     assert all(r["n_diff"] == 0 and r["scale_ulps"] == 0 for r in k7b)
     linears = ["bloom_qkv", "bloom_dense", "bloom_h_to_4h", "bloom_4h_to_h"]
     assert sites["int4_group_matmul"] == [f"{s}@{n}" for n in (80, 2) for s in linears]

@@ -22,7 +22,7 @@ import stream_variants  # noqa: E402
 
 CSRC = os.path.join(ROOT, "smoothquant_tpu_torch", "kernels", "csrc")
 SCRIPTS = ("mlp_variants", "s8_variants", "stream_variants", "attn_variants", "wg_variants",
-           "stream_kinds_check")
+           "stream_kinds_check", "act_variants")
 
 
 def _port_modules():
