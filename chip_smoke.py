@@ -12,9 +12,9 @@
    and the other split kernels to bulk copies, and the fourteen s8
    kernels of K4 and K15a to IGMMA (K4's salient ones HGMMA too), TMA
    loads, no I2F and no spills, K14's six gate_up kernels to TMA loads and
-   they and K16's sixteen row kernels to no I2F, no local memory and no
-   spills (cuobjdump); reads the SM clock the per-group scaling floors
-   take.
+   they and K16's sixteen row kernels, K7's sixteen and the eight of K2 /
+   K10's row body to no I2F, no local memory and no spills (cuobjdump);
+   reads the SM clock the per-group scaling floors take.
 The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
 2048, random bf16 weights from seed 0):
    a. the export pipeline of export_int8_model.py:48-76 on the card:
@@ -47,7 +47,12 @@ Then the Llama-2-7B paths:
    shapes (one JSON line per kernel and shape): K1 in its three modes at
    the four decode linears (N = 4, and 16 and 32; its stream body, the
    dp4a body timed beside as old_body_ms), K6 at the four prefill
-   linears (N = 1024), K2 at B = 4, S = 512, K3 at B = 4 over 512 ragged
+   linears (N = 1024), K2's row body at B = 4, S = 512 (q / k / v read as
+   views into the qkv rows, q rotated in the same launch; q's bits, codes
+   and scales identical to the plain version's; timed beside it by block
+   size, without q, the first design alone and the route it replaces:
+   apply_rotary's torch ops on q, then the first design copying k / v),
+   K3 at B = 4 over 512 ragged
    positions, at B = 64 from DECODE_POS and at B = 4 over 1024 positions
    (its flash body timed beside its split body), K11 over bf16 and int8
    head-major caches at B = 4, S = 512, each permuted site's activation
@@ -56,9 +61,10 @@ Then the Llama-2-7B paths:
    RMSNorm and pads around the groups body, timed beside as old_route_ms)
    and at 8 and 32 rows (K7b "rms", the groups body as old_body_ms), K5
    at the four decode linears (N = 64 and 33; K5 in both input modes, the
-   tiles body timed beside the stream body), K10 at
-   B = 64, S = 512 (per-slot positions, one past the end, then a scalar
-   one); K12 over random head-major int8 caches of 512 positions from
+   tiles body timed beside the stream body), K10's row body at
+   B = 64, S = 512 as K2's (per-slot positions, one past the end, then an
+   aligned one with one shared table row); K12 over random head-major int8
+   caches of 512 positions from
    position 448 (its flash design timed beside its split body): its flat
    body at B = 4 and B = 64, its write body at
    B = 4 (rows and scales identical to K10's), its stacked body at B = 4
@@ -97,7 +103,15 @@ Then the Llama-2-7B paths:
    cluster size; one call repeated 400 times for identical bits), and the
    split bodies of K3 and K12 at theirs (k3_edges: S, D, rep, ragged and
    masked slots; k12_edges: the three bodies, pos 0, 9 and S − 1, the write
-   body's cache; every cluster size, repeated calls identical).
+   body's cache; every cluster size, repeated calls identical), and K2 /
+   K10's row body at its edges (kv_write_edges: both layouts and dtypes,
+   D = 64 / 128 / 256, n_kv 1 / 8 / 32 at 1 and 4 query heads a kv head,
+   1-130 slots, per-slot and aligned positions at 0, S − 1 and past S,
+   Llama's and Bloom's qkv rows, rows off 16 bytes on its scalar form;
+   bit for bit, every call repeated).  Beside no_fallback, the stacked
+   path over a salient block stored in another dtype than the rows, bit
+   for bit against the block in the rows' dtype, the prep and K5 the only
+   launches of a call (salient_block_in_another_dtype).
 4. Checks the kernel path against the plain path (the CPU) on a small
    model, f32 and bf16: the S-major prefill and one stacked decode step;
    a promoted prefill over head-major int8 caches and one Generator decode
@@ -184,6 +198,11 @@ Then the Llama-2-7B paths:
       windows of 8 steps each, beside the decode byte bound.
 Every path runs with the launch counts reset just before it and read just
 after, and fails unless each kernel launched as often as the path implies.
+The W4A4 S-major step at B = 4, the head-major steps at 64 and 32 rows and
+Bloom's two steps are profiled once more with each layer's cache write on
+the route before K2 / K10's row body (old_write_route: apply_rotary's torch
+ops on q in the layer loop, the first design copying k / v): busy time and
+kernels a step beside the path's own.
 10. Prints each K5, K6 and K8 row's per-group scaling floor beside its
    bound (scaling_floors), the `kernels` JSON line (all eighteen kernels,
    K4's raw-x and K11's ALiBi bodies named by their sites and counted
@@ -254,6 +273,10 @@ BLOOM_PACK = dict(nibble=True, align_k_groups=8, align_o=256)   # the stacked de
 # per-layer over the fp cache, the same over the int8 cache) — see
 # bloom_reference_check for the readings they were set from
 BLOOM_REF_TOL = {"float32": (1e-5, 2e-4, 1e-6), "bfloat16": (1e-5, 1.5e-1, 1e-6)}
+# kv_write_edges: head_dims, (kv heads, query heads a kv head), slots
+KV_EDGE_DIMS = (64, 128, 256)
+KV_EDGE_HEADS = ((1, 1), (1, 4), (8, 1), (8, 4), (32, 1), (32, 4))
+KV_EDGE_SLOTS = (1, 5, 64, 130)
 K4_RAWX_CASES = (("gate@1024", (PREFILL_N, 4096, 11008)), ("ragged@333", (333, 4096, 11008)),
                  ("one_k_step", (256, 64, 512)))
 def _die(msg: str) -> None:
@@ -611,37 +634,136 @@ def _random_cache(cfg, dev, gen, b=MAX_BATCH, s=MAX_LEN, n_layers=None):
     return c
 
 
+def _qkv_parts(b, n_q, n_kv, d, dtype, gen, dev, layout="llama", offset=0):
+    """One decode position's qkv rows as the qkv linear leaves them, (B, F)
+    in `dtype` starting `offset` elements into their buffer (1: rows that
+    start off 16 bytes), every head scaled apart: Llama's [q | k | v] heads
+    or Bloom's interleaved (nh, 3, D).  Returns (rows, (q, k, v)), q / k /
+    v (B, heads, D) views into the rows."""
+    import torch
+
+    n_heads = n_q + 2 * n_kv
+    heads = (torch.randn((b, n_heads, d), generator=gen, device=dev)
+             * (torch.rand((b, n_heads, 1), generator=gen, device=dev) * 8 + 0.1))
+    if layout == "bloom":
+        heads = torch.stack([heads[:, :n_q], heads[:, n_q:n_q + n_kv],
+                             heads[:, n_q + n_kv:]], dim=2)
+    buf = torch.zeros((offset + heads.numel(),), dtype=dtype, device=dev)
+    rows = buf[offset:].view(b, -1)
+    rows.copy_(heads.reshape(b, -1))
+    if layout == "bloom":
+        r = rows.view(b, n_q, 3, d)
+        return rows, (r[:, :, 0], r[:, :, 1], r[:, :, 2])
+    return rows, (rows[:, :n_q * d].view(b, n_q, d),
+                  rows[:, n_q * d:(n_q + n_kv) * d].view(b, n_kv, d),
+                  rows[:, (n_q + n_kv) * d:].view(b, n_kv, d))
+
+
+def _same_bits(name, got, ref):
+    """Raise unless two tensors (or cache tuples) hold the same bits."""
+    import torch
+
+    for g, r in zip(got, ref) if isinstance(got, (tuple, list)) else ((got, ref),):
+        if g.dtype != r.dtype or g.shape != r.shape:
+            raise AssertionError(f"{name}: {g.dtype} {tuple(g.shape)} != {r.dtype} "
+                                 f"{tuple(r.shape)}")
+        view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}.get(g.dtype)
+        if not torch.equal(g.view(view) if view else g, r.view(view) if view else r):
+            raise AssertionError(f"{name}: the bits differ")
+
+
+def _write_errs(name, got_q, ref_q, got, ref):
+    """A writer call against its plain version, after _same_bits has held
+    them equal: (the largest |difference| of the k / v codes and of q's
+    values, the scales' largest distance in ulps)."""
+    err = max(int((g.int() - r.int()).abs().max()) for g, r in zip(got[:2], ref[:2]))
+    if got_q is not None:
+        err = max(err, float((got_q.float() - ref_q.float()).abs().max()))
+    ulps = max(_scale_ulps(name, g, r) for g, r in zip(got[2:], ref[2:]))
+    return float(err), ulps
+
+
+def _old_write_route(write, q, k, v, cos_q, sin_q, cos, sin, bufs, i):
+    """The route the row body replaces: q's rotary by apply_rotary (tables
+    already in q's dtype, as the layer loop held them), then the first
+    design (body="warps", k / v copied contiguous first)."""
+    from smoothquant_tpu_torch.kernels.kv_write import apply_rotary
+
+    q_rot = apply_rotary(q[:, None], cos_q, sin_q)[:, 0]
+    write(i, *bufs[0], k, v, cos, sin, *bufs[1], body="warps")
+    return q_rot
+
+
+def _writer_timings(smajor, write, args, q, k, v, cos, sin, pos, bufs, n_l):
+    """Device ms of the fused launch by block size (threads_ms: the row
+    body's launch, kv_write.launch_rows, at 64-1024 threads), k / v alone
+    on the row body (kv_only_ms), the first design alone on contiguous k / v
+    (old_body_ms, the kernel as the old call launched it after its copies)
+    and the route the launch replaces (old_route_ms: apply_rotary's torch
+    ops on q, then the first design copying the strided k / v); each call on
+    the next of n_l layers."""
+    from smoothquant_tpu_torch.kernels.kv_write import launch_rows
+
+    cos_q, sin_q = (None, None) if q is None else (cos.to(q.dtype), sin.to(q.dtype))
+    rotary = cos is not None
+    kc, vc = k.contiguous(), v.contiguous()
+    out = dict(
+        threads_ms={t: device_ms(lambda i: launch_rows(smajor, i % n_l, *args, *bufs,
+                                                       rotary=rotary, body=None, threads=t), 16)
+                    for t in (64, 128, 256, 512, 1024)},
+        kv_only_ms=device_ms(lambda i: write(i % n_l, pos, k, v, cos, sin, *bufs,
+                                             rotary=rotary), 16),
+        old_body_ms=device_ms(lambda i: write(i % n_l, pos, kc, vc, cos, sin, *bufs,
+                                              rotary=rotary, body="warps"), 16))
+    if q is not None:
+        out["old_route_ms"] = device_ms(lambda i: _old_write_route(
+            write, q, k, v, cos_q, sin_q, cos, sin, ((pos,), bufs), i % n_l), 16)
+    return out
+
+
 def check_write_cache(cfg, dev, gen):
-    """K2 vs plain: bit-exact rows and scales, one position past S-1."""
+    """K2 at the S-major step's shape (B = 4, S = 512): one launch of the
+    row body (rope_q_write_cache_smajor) on q / k / v as views into bf16
+    qkv rows, per-slot positions (one past S − 1), against its plain
+    version (apply_rotary on q, then K2's plain write): q's bits, codes and
+    scales identical.  Timed beside the plain version, by block size
+    (threads_ms), without q (kv_only_ms), the first design alone
+    (old_body_ms) and the route the launch replaces (old_route_ms: the
+    rotary's torch ops on q, then the first design copying k / v)
+    (_writer_timings)."""
     import torch
 
     from smoothquant_tpu_torch.kernels import attn_smajor as ka
     from smoothquant_tpu_torch.models.common import rotary_cos_sin
     from smoothquant_tpu_torch.utils import roofline
 
-    h, d = cfg.num_key_value_heads, cfg.head_dim
+    nh, h, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     pos = torch.tensor([100, MAX_LEN - 1, MAX_LEN + 88, 0], device=dev, dtype=torch.int32)
-    k = torch.randn((MAX_BATCH, h, d), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((MAX_BATCH, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    _, (q, k, v) = _qkv_parts(MAX_BATCH, nh, h, d, torch.bfloat16, gen, dev)
     cos, sin = rotary_cos_sin(pos.long()[:, None], d)
     a = _random_cache(cfg, dev, gen)
     b = type(a)(a.k_q.clone(), a.v_q.clone(), a.k_scale.clone(), a.v_scale.clone(), a.pos)
     bufs = lambda c: (c.k_q, c.v_q, c.k_scale, c.v_scale)
     last = cfg.num_hidden_layers - 1
-    ka.write_quant_cache_smajor(last, pos, k, v, cos, sin, *bufs(a))
-    ka.write_quant_cache_smajor_plain(last, pos, k, v, cos, sin, *bufs(b))
+    got_q = ka.rope_q_write_cache_smajor(last, pos, q, k, v, cos, sin, *bufs(a))
+    ref_q = ka.rope_q_write_cache_smajor_plain(last, pos, q, k, v, cos, sin, *bufs(b))
     torch.cuda.synchronize()
-    err = max(_close(f"K2 {n}", x, y, 0.0) for n, x, y in zip(
-        ("k_q", "v_q", "k_scale", "v_scale"), bufs(a), bufs(b)))
+    _same_bits("K2 q", got_q, ref_q)
+    _same_bits("K2 cache", bufs(a), bufs(b))
+    err, ulps = _write_errs("K2", got_q, ref_q, bufs(a), bufs(b))
     n_layers = cfg.num_hidden_layers
-    n_bytes, ops = roofline.write_cache_cost(MAX_BATCH, h, d)
+    n_bytes, ops = roofline.write_cache_cost(MAX_BATCH, h, d, q_heads=nh)
     b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+    args = (pos, q, k, v, cos, sin)
     row = dict(
-        kernel="write_quant_cache_smajor", shape=[MAX_BATCH, h, d, MAX_LEN], max_err=err,
-        kernel_ms=device_ms(lambda i: ka.write_quant_cache_smajor(
-            i % n_layers, pos, k, v, cos, sin, *bufs(a)), n_layers),
-        plain_ms=device_ms(lambda i: ka.write_quant_cache_smajor_plain(
-            i % n_layers, pos, k, v, cos, sin, *bufs(b)), 8, reps=3),
+        kernel="write_quant_cache_smajor", shape=[MAX_BATCH, nh, h, d, MAX_LEN], max_err=err,
+        scale_ulps=ulps,
+        kernel_ms=device_ms(lambda i: ka.rope_q_write_cache_smajor(
+            i % n_layers, *args, *bufs(a)), n_layers),
+        plain_ms=device_ms(lambda i: ka.rope_q_write_cache_smajor_plain(
+            i % n_layers, *args, *bufs(b)), 8, reps=3),
+        **_writer_timings(True, ka.write_quant_cache_smajor, args,
+                          q, k, v, cos, sin, pos, bufs(a), n_layers),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library=None)
     emit(row)
     return [row]
@@ -953,6 +1075,40 @@ def _old_route_profile(step, steps=4):
         rl.k1_rows_operands, rl.many_rows_operands = saved
 
 
+def _old_write_profile(step, steps=4):
+    """profile() of `steps` decode steps with each layer's cache write on
+    the route before the row body: q's rotary by apply_rotary in the layer
+    loop (its tables cast to q's dtype once a step), then the first design
+    (body="warps"), which copies k / v contiguous first.  The steps' busy
+    time and kernel count before, beside the path's own."""
+    import functools
+
+    from smoothquant_tpu_torch.kernels.kv_write import apply_rotary
+    from smoothquant_tpu_torch.models import common, llama
+
+    saved = (llama.stacked_cache_append_fused, common.write_quant_cache_smajor,
+             common.write_quant_cache_stacked)
+    tabs = {}
+
+    def old_append(cache, i, k, v, cos, sin, rotate_k=True, q=None):
+        if q is None:
+            return saved[0](cache, i, k, v, cos, sin, rotate_k)
+        if tabs.get("src") is not cos:
+            tabs.update(src=cos, q=(cos.to(q.dtype), sin.to(q.dtype)))
+        q = apply_rotary(q, *tabs["q"])[:, 0]
+        saved[0](cache, i, k, v, cos, sin, rotate_k)
+        return q
+
+    llama.stacked_cache_append_fused = old_append
+    common.write_quant_cache_smajor = functools.partial(saved[1], body="warps")
+    common.write_quant_cache_stacked = functools.partial(saved[2], body="warps")
+    try:
+        return profile(lambda: step(steps), steps)
+    finally:
+        (llama.stacked_cache_append_fused, common.write_quant_cache_smajor,
+         common.write_quant_cache_stacked) = saved
+
+
 def check_act_prep(stacked, dev, gen, n=None, main=True):
     """The activation prep of each permuted stacked site at N rows, from the
     layer's rows to K5's operands, one launch of K7's row body
@@ -1220,12 +1376,18 @@ def k1_vs_k5(stacked, dev, gen, rows=(1, 4, 8, 16, MID_BATCH)):
             "k5_wins_at": [n for n in rows if out[n]["sum"]["k5"] < out[n]["sum"]["k1"]]}
 
 
-def check_write_cache_hm(dev, gen, b, h, d, rotary=True, site=None):
-    """K10 vs plain at B slots of H heads of D, S = MAX_LEN: per-slot
-    positions (one past the end, the last row, the first), then one scalar
-    position; codes identical or off by one in under 1e-4, scales within
-    one ulp, every other row untouched.  rotary=False (Bloom's body) takes
-    no tables; a named site stays out of the kernels line's sums."""
+def check_write_cache_hm(dev, gen, b, h, d, rotary=True, site=None, n_q=None):
+    """K10 at B slots of H kv heads of D, S = MAX_LEN: one launch of the row
+    body (rope_q_write_cache_stacked) on views into bf16 qkv rows — Llama's
+    with n_q query heads rotated in the same launch, or with rotary off
+    Bloom's interleaved (nh, 3, D) rows, no q and no tables — against its
+    plain version: per-slot positions (one past the end, the last row, the
+    first), then one aligned position with one shared table row; q's bits,
+    codes and scales identical, the other layer untouched.  Timed as
+    check_write_cache times K2.  A named site stays out of the kernels
+    line's sums."""
+    import functools
+
     import torch
 
     from smoothquant_tpu_torch.kernels import cache_write as k10
@@ -1233,7 +1395,8 @@ def check_write_cache_hm(dev, gen, b, h, d, rotary=True, site=None):
     from smoothquant_tpu_torch.utils import roofline
 
     n_l = 2
-    tables = lambda p: (rotary_cos_sin(p.long().reshape(-1, 1), d) if rotary
+    n_q = (n_q or h) if rotary else 0
+    tables = lambda p: (rotary_cos_sin(p.long().reshape(-1, 1)[:b], d) if rotary
                         else (None, None))
     c = QuantKVCache.create(b, MAX_LEN, h, d, device=dev, per_slot=True, n_layers=n_l)
     for t in (c.k_q, c.v_q):
@@ -1242,35 +1405,41 @@ def check_write_cache_hm(dev, gen, b, h, d, rotary=True, site=None):
         t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02 + 0.005)
     pos = torch.randint(0, MAX_LEN, (b,), generator=gen, device=dev, dtype=torch.int32)
     pos[:3] = torch.tensor([MAX_LEN + 88, MAX_LEN - 1, 0], device=dev)[:b]
-    k = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    _, (q, k, v) = _qkv_parts(b, n_q if rotary else h, h, d, torch.bfloat16, gen, dev,
+                              layout="llama" if rotary else "bloom")
+    q = q if rotary else None
     bufs = lambda x: (x.k_q, x.v_q, x.k_scale, x.v_scale)
-    errs, ulps = [], []
+    err, ulps = 0.0, 0
     for p in (pos, torch.tensor(200, device=dev, dtype=torch.int32)):
         cos, sin = tables(p)
         a = QuantKVCache(*(t.clone() for t in bufs(c)), c.pos)
         ref = QuantKVCache(*(t.clone() for t in bufs(c)), c.pos)
-        k10.write_quant_cache_stacked(n_l - 1, p, k, v, cos, sin, *bufs(a), rotary=rotary)
-        k10.write_quant_cache_stacked_plain(n_l - 1, p, k, v, cos, sin, *bufs(ref),
-                                            rotary=rotary)
+        got_q = k10.rope_q_write_cache_stacked(n_l - 1, p, q, k, v, cos, sin, *bufs(a),
+                                               rotary=rotary)
+        ref_q = k10.rope_q_write_cache_stacked_plain(n_l - 1, p, q, k, v, cos, sin,
+                                                     *bufs(ref), rotary=rotary)
         torch.cuda.synchronize()
-        for name, x, y in zip(("k_q", "v_q"), bufs(a)[:2], bufs(ref)[:2]):
-            errs.append(_codes_close(f"K10 {name}", x, y)[0])
-        for name, x, y in zip(("k_scale", "v_scale"), bufs(a)[2:], bufs(ref)[2:]):
-            ulps.append(_scale_ulps(f"K10 {name}", x, y))
+        if rotary:
+            _same_bits("K10 q", got_q, ref_q)
+        _same_bits("K10 cache", bufs(a), bufs(ref))
+        e, u = _write_errs("K10", got_q if rotary else None, ref_q, bufs(a), bufs(ref))
+        err, ulps = max(err, e), max(ulps, u)
         if not torch.equal(a.k_q[0], c.k_q[0]):
             raise AssertionError("K10 wrote outside its layer")
         del a, ref
     cos, sin = tables(pos)
-    n_bytes, ops = roofline.write_cache_cost(b, h, d, rotary=rotary)
+    n_bytes, ops = roofline.write_cache_cost(b, h, d, rotary=rotary, q_heads=n_q)
     b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+    args = (pos, q, k, v, cos, sin)
+    fused = functools.partial(k10.rope_q_write_cache_stacked, rotary=rotary)
     row = dict(
-        kernel="write_quant_cache_stacked", shape=[b, h, d, MAX_LEN], max_err=max(errs),
-        scale_ulps=max(ulps), rotary=rotary,
-        kernel_ms=device_ms(lambda i: k10.write_quant_cache_stacked(
-            i % n_l, pos, k, v, cos, sin, *bufs(c), rotary=rotary), 16),
-        plain_ms=device_ms(lambda i: k10.write_quant_cache_stacked_plain(
-            i % n_l, pos, k, v, cos, sin, *bufs(c), rotary=rotary), 8, reps=3),
+        kernel="write_quant_cache_stacked", shape=[b, n_q, h, d, MAX_LEN], max_err=err,
+        scale_ulps=ulps, rotary=rotary,
+        kernel_ms=device_ms(lambda i: fused(i % n_l, *args, *bufs(c)), 16),
+        plain_ms=device_ms(lambda i: k10.rope_q_write_cache_stacked_plain(
+            i % n_l, *args, *bufs(c), rotary=rotary), 8, reps=3),
+        **_writer_timings(False, k10.write_quant_cache_stacked, args, q, k, v, cos, sin,
+                          pos, bufs(c), n_l),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library=None)
     if site is not None:
         row.update(site=site, in_sum=False)
@@ -2905,6 +3074,159 @@ def check_k12_edges(dev):
     return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats}
 
 
+def check_kv_write_edges(dev):
+    """The row body of K2 and K10 against their plain versions at its edges:
+    both cache layouts, bf16 and f32 rows, D = 64 / 128 / 256, n_kv = 1 / 8
+    / 32 with 1 and 4 query heads a kv head, B = 1, 5, 64 and 130 slots;
+    per-slot positions (0, S − 1, past S, the rest random) with a table row a
+    slot, and one aligned position (0, S − 1 or past S) with one shared
+    row; Llama's [q | k | v] rows with q rotated, Bloom's interleaved rows
+    with rotary off (no q, no tables); rows that start 16-byte aligned (the
+    vector form) and one element off (the scalar form).  q's bits, codes and
+    scales identical to the plain version's, the other layer untouched, and
+    every call made twice for identical bits.  Returns the cases, the
+    repeated calls and the launches by body."""
+    import torch
+
+    from smoothquant_tpu_torch.kernels import _build
+    from smoothquant_tpu_torch.kernels import attn_smajor as ka
+    from smoothquant_tpu_torch.kernels import cache_write as k10
+    from smoothquant_tpu_torch.models.common import rotary_cos_sin
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    s, n_l = 40, 2
+    fns = {True: (ka.rope_q_write_cache_smajor, ka.rope_q_write_cache_smajor_plain),
+           False: (k10.rope_q_write_cache_stacked, k10.rope_q_write_cache_stacked_plain)}
+    before = dict(_build.LAUNCHES)
+    n_cases = repeats = 0
+    for smajor in (True, False):
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in KV_EDGE_DIMS:
+                for n_kv, rep in KV_EDGE_HEADS:
+                    for b in KV_EDGE_SLOTS:
+                        layouts = [("llama", 0, True), ("llama", 1, False)]
+                        if rep == 1:
+                            layouts.append(("bloom", 0, b % 2 == 0))
+                        for layout, offset, per_slot in layouts:
+                            rotary = layout == "llama"
+                            n_q = n_kv * rep if rotary else n_kv
+                            _, (q, k, v) = _qkv_parts(b, n_q, n_kv, d, dtype, gen, dev,
+                                                      layout, offset)
+                            if per_slot:
+                                pos = torch.randint(0, s + 9, (b,), generator=gen,
+                                                    device=dev, dtype=torch.int32)
+                                pos[:3] = torch.tensor([0, s - 1, s + 7], device=dev)[:b]
+                            else:
+                                pos = torch.tensor((0, s - 1, s + 7)[n_cases % 3],
+                                                   device=dev, dtype=torch.int32)
+                            cos, sin = ((None, None) if not rotary else rotary_cos_sin(
+                                pos.long().reshape(-1, 1), d))
+                            shape = ((n_l, b, s, n_kv * d) if smajor else
+                                     (n_l, b, n_kv, s, d))
+                            cache = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                                   dtype=torch.int8) for _ in range(2)]
+                            cache += [torch.rand((n_l, b, n_kv, s), generator=gen,
+                                                 device=dev) + 0.01 for _ in range(2)]
+                            got, again, ref = ([t.clone() for t in cache] for _ in range(3))
+                            qa = q if rotary else None
+                            fn, plain = fns[smajor]
+                            name = (f"kv_write_edges {'smajor' if smajor else 'head_major'} "
+                                    f"{dtype} D={d} n_kv={n_kv} rep={rep} B={b} {layout} "
+                                    f"offset={offset} per_slot={per_slot}")
+                            got_q = fn(1, pos, qa, k, v, cos, sin, *got, rotary=rotary)
+                            again_q = fn(1, pos, qa, k, v, cos, sin, *again, rotary=rotary)
+                            ref_q = plain(1, pos, qa, k, v, cos, sin, *ref, rotary=rotary)
+                            torch.cuda.synchronize()
+                            _same_bits(f"{name}: two calls", got, again)
+                            _same_bits(f"{name}: against the plain version", got, ref)
+                            if rotary:
+                                _same_bits(f"{name}: two calls q", got_q, again_q)
+                                _same_bits(f"{name}: q", got_q, ref_q)
+                            if not torch.equal(got[0][0], cache[0][0]):
+                                raise AssertionError(f"{name}: wrote outside its layer")
+                            n_cases += 1
+                            repeats += 2
+    launched = {key: n - before.get(key, 0) for key, n in _build.LAUNCHES.items()
+                if key.startswith("write_quant_cache") and n != before.get(key, 0)}
+    if dev.type == "cuda" and not (launched.get("write_quant_cache_smajor_scalar")
+                                   and launched.get("write_quant_cache_stacked_scalar")):
+        raise AssertionError(f"kv_write_edges: no scalar-form launch ({launched})")
+    return {"cases": n_cases, "repeated_calls_identical": repeats,
+            "launches_by_body": launched}
+
+
+# aten ops that launch no kernel: views, shapes, allocations
+_NO_KERNEL_OPS = ("empty", "view", "_unsafe_view", "reshape", "slice", "select", "t",
+                  "transpose", "alias", "as_strided", "expand", "detach", "unsqueeze",
+                  "squeeze", "is_contiguous", "stride", "size", "sym_size", "sym_stride",
+                  "sym_numel", "numel", "dim")
+
+
+def check_salient_dtype(stacked, dev, gen):
+    """The stacked path with the salient block stored in another dtype than
+    the rows, at 8 and 64 rows (K7's row body, then K5 as its programmatic
+    dependent): bf16 rows over qkv's block held in f32, and f32 rows over
+    its block in bf16.  Each call's output equals, bit for bit, the same
+    call over the block stored in the rows' dtype (the cast is exact
+    either way), both first made queued behind ~1 ms of torch.cuda._sleep
+    so K5 is launched while the prep waits and can start inside it (on an
+    idle card the prep ends before the host launches K5, and a read K5
+    made too early would not show: scripts/k5_pdl_race.py); and a second
+    call launches the prep and K5 once each
+    (their counters) and no torch op that runs a kernel (every aten op it
+    dispatches, logged by a TorchDispatchMode, is a view, a shape query or
+    an allocation) — the block was cast once, before the step."""
+    import dataclasses
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from smoothquant_tpu_torch.kernels import _build
+    from smoothquant_tpu_torch.kernels.real_linear import real_quant_linear
+
+    class AtenOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    lin = stacked["layers"]["stacked"]["self_attn"]["qkv_proj"]
+    n_layers, c = lin.w_qt.shape[0], lin.meta.in_features
+    norm_row = (torch.rand((n_layers, c), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+    out = {}
+    for rows_dt in (torch.bfloat16, torch.float32):
+        other = torch.float32 if rows_dt == torch.bfloat16 else torch.bfloat16
+        mixed = dataclasses.replace(lin, w_sal_t=lin.w_sal_t.to(other))
+        native = dataclasses.replace(lin, w_sal_t=lin.w_sal_t.to(rows_dt))
+        norm = (norm_row.to(rows_dt).float(), 1e-5, "rms")
+        for n in (8, SLOT_BATCH):
+            x = (torch.randn((n, c), generator=gen, device=dev) * 3).to(rows_dt)
+            call = lambda p: real_quant_linear(p, x, layer_idx=1, norm=norm)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(2_000_000)
+            got, ref = call(mixed), call(native)
+            torch.cuda.synchronize()
+            name = f"salient block {other} under {rows_dt} rows, {n} rows"
+            _same_bits(name, got, ref)
+            before = dict(_build.LAUNCHES)
+            with AtenOps() as mode:
+                call(mixed)
+            torch.cuda.synchronize()
+            launched = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                        if v != before.get(k, 0)}
+            kernel_ops = [op for op in mode.ops if op not in _NO_KERNEL_OPS]
+            if kernel_ops or sum(launched.values()) != 2 or not any(
+                    k.startswith("int4_group_matmul_stacked") for k in launched):
+                raise AssertionError(f"{name}: the call ran {kernel_ops} beside the "
+                                     f"launches {launched}")
+            out[f"{str(rows_dt)[6:]}_rows@{n}"] = {"launches": launched,
+                                                  "aten_ops": sorted(set(mode.ops))}
+    return out
+
+
 def check_k15b_edges(dev):
     """K15b's bodies against the plain version, bit for bit, at K = 64, 128,
     256 and 512 (and 1024 for PV): QKᵀ-shaped products (b (N, K)) at ragged
@@ -3170,7 +3492,9 @@ def sass_check():
     and no stack frame; and unless K7's sixteen row kernels have no I2F, no
     LDL / STL and no spill (their codes' division is IEEE's: MUFU.RCP, the
     fix-up and the slow path's CALL are counted, and k7_edges holds the
-    codes to torch's true division)."""
+    codes to torch's true division); and unless the eight kernels of K2 /
+    K10's row body (two layouts, two dtypes, the vector and the scalar form)
+    have no I2F, no LDL / STL, no spill and no stack frame."""
     import os
     import re
     import shutil
@@ -3181,7 +3505,7 @@ def sass_check():
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", _build.build()], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    out, stream, attn, s8, new, k7 = {}, {}, {}, {}, {}, {}
+    out, stream, attn, s8, new, k7, kv = {}, {}, {}, {}, {}, {}, {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
         m = re.search(r"split_decode_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)ELb\dELi(\d)E",
@@ -3229,6 +3553,18 @@ def sass_check():
             if ops["I2F"] or ops["LDL"] or ops["STL"]:
                 raise AssertionError(f"{name}: SASS {ops}")
             k7[f"K7 rows {m.group(1)} ch={m.group(2)}{' early' if m.group(3) == '1' else ''}"] = ops
+            continue
+        m = re.search(r"kv_rows_kernelI(13__nv_bfloat16|f)Lb(\d)ELb(\d)E", name)
+        if m:   # K2 / K10's row body: no I2F, no local memory
+            ops = {op: len(re.findall(r"\b" + op + r"\b", fn))
+                   for op in ("I2F", "LDL", "STL", "SHFL.BFLY", "MUFU.RCP")}
+            ops["LDG.E.128"] = len(re.findall(r"LDG\.E\.(?:CONSTANT\.)?128\b", fn))
+            ops["STG.E.128"] = len(re.findall(r"STG\.E\.128\b", fn))
+            if ops["I2F"] or ops["LDL"] or ops["STL"]:
+                raise AssertionError(f"{name}: SASS {ops}")
+            kv[f"kv rows {'smajor' if m.group(2) == '1' else 'head_major'} "
+               f"{'f32' if m.group(1) == 'f' else 'bf16'} "
+               f"{'vec' if m.group(3) == '1' else 'scalar'}"] = ops
             continue
         m = re.search(r"stream_gmm_kernelILb(\d)ELi(\d+)ELi(\d+)", name)
         if m:
@@ -3321,6 +3657,21 @@ def sass_check():
     if len(k7) != 16 or len(k7_spills) != 16 or any(v[1] != 0 for v in k7_spills.values()):
         raise AssertionError(f"K7's row body: {len(k7)} kernels in the SASS (16 expected), "
                              f"registers / spill stores / stack frame {k7_spills}")
+    kv_spills = {}
+    for i, ln in enumerate(log):
+        m = re.search(r"kv_rows_kernel\w*", ln)
+        if "Compiling entry" in ln and m:
+            block = " ".join(log[i:i + 4])
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            stack = re.search(r"(\d+) bytes stack frame", block)
+            kv_spills[m.group(0)[:70]] = [int(regs.group(1)) if regs else None,
+                                          int(spill.group(1)) if spill else None,
+                                          int(stack.group(1)) if stack else None]
+    if (len(kv) != 8 or len(kv_spills) != 8
+            or any(v[1] != 0 or v[2] != 0 for v in kv_spills.values())):
+        raise AssertionError(f"K2 / K10's row body: {len(kv)} kernels in the SASS (8 "
+                             f"expected), registers / spill stores / stack frame {kv_spills}")
     n_k1 = sum(k.startswith("K1 ") for k in stream)
     if (not out or not stream or len(attn) != 43 or n_k1 != 18
             or not {"K13 kb=64", "K13 kb=32"} <= set(stream)):
@@ -3330,6 +3681,7 @@ def sass_check():
     return {"sass": out, "stream_sass": stream, "attn_sass": attn, "s8_sass": s8,
             "k14_k16_sass": new, "k14_k16_spills_stack": new_spills,
             "k7_sass": k7, "k7_registers_spills_stack": k7_spills,
+            "kv_rows_sass": kv, "kv_rows_registers_spills_stack": kv_spills,
             "registers_spills": notes, "ptxas_serialized_notes": serialized}
 
 
@@ -3354,14 +3706,13 @@ def check_no_fallback(dev):
     each shape the split bodies of K11, K3 and K12 and the stream bodies of
     K13, K1 and K14 refuse when forced on them, what K16's row body
     does not take (every shape the wrapper accepts is its), what K7's two
-    bodies do not take, and a salient block K5 would need cast between the
-    activation prep and its chained launch."""
-    import types
-
+    bodies do not take, and the calls the KV writers' row body does not
+    take (a q it cannot rotate, a forced 16-byte form on rows off 16 bytes;
+    check_salient_dtype runs beside it the stacked path over a salient
+    block in another dtype, which K5 once refused)."""
     import torch
 
     from smoothquant_tpu_torch.kernels import act_prep as k7
-    from smoothquant_tpu_torch.kernels import real_linear as rl
     from smoothquant_tpu_torch.kernels import attn_fused as k12
     from smoothquant_tpu_torch.kernels import attn_smajor as k3
     from smoothquant_tpu_torch.kernels import cache_write as k10
@@ -3453,9 +3804,19 @@ def check_no_fallback(dev):
         "K7b groups body at group size 256": (lambda: k7.norm_quantize_acts_t(
             f32(8, 512), torch.ones(512, device=dev), group_size=256, act_bits=4, k_ns=512,
             num_salient=0, k_s=0, eps=1e-5, body="groups"), ValueError),
-        "K5 behind the prep on a salient block that needs a cast": (
-            lambda: rl.chained_w_sal(types.SimpleNamespace(w_sal_t=f32(1, 128, 256)),
-                                     bf(8, 512)), TypeError),
+        "K2 row body at head_dim 96 with q": (lambda: k3.rope_q_write_cache_smajor(
+            0, torch.zeros(2, dtype=torch.int32, device=dev), bf(2, 4, 96), bf(2, 1, 96),
+            bf(2, 1, 96), f32(2, 1, 96), f32(2, 1, 96), *(torch.zeros(
+                (1, 2, 8, 96), dtype=torch.int8, device=dev),) * 2,
+            f32(1, 2, 1, 8), f32(1, 2, 1, 8)), ValueError),
+        "K10 row body forced on rows off 16 bytes": (lambda: k10.write_quant_cache_stacked(
+            0, torch.zeros(2, dtype=torch.int32, device=dev), bf(2 * 4 * 64 + 1)[1:].view(
+                2, 4, 64), bf(2, 4, 64), f32(2, 1, 64), f32(2, 1, 64), *hm8,
+            f32(1, 2, 4, 128), f32(1, 2, 4, 128), body="rows"), ValueError),
+        "K10 q with rotary off": (lambda: k10.rope_q_write_cache_stacked(
+            0, torch.zeros(2, dtype=torch.int32, device=dev), bf(2, 4, 64), bf(2, 4, 64),
+            bf(2, 4, 64), None, None, *hm8, f32(1, 2, 4, 128), f32(1, 2, 4, 128),
+            rotary=False), ValueError),
         "K13 nine rows": (lambda: k13.fp_matmul_stacked(
             0, torch.zeros((9, 64), device=dev), torch.zeros((1, 64, 64), device=dev)),
             ValueError),
@@ -4058,7 +4419,8 @@ def decode_windows(steps: dict, n_windows=3, window=8, batch=MAX_BATCH) -> dict:
         ms = statistics.median(out[name]["windows_ms_per_step"])
         trace = profile(lambda: step(4), 4)
         out[name].update(ms_per_step=ms, tokens_per_s=batch * 1e3 / ms,
-                         busy_ms_per_step=trace["busy_ms_per_step"], trace=trace)
+                         busy_ms_per_step=trace["busy_ms_per_step"],
+                         kernels_per_step=trace.get("kernels_per_step"), trace=trace)
     return out
 
 
@@ -4072,8 +4434,9 @@ def slot_decode(stacked, cfg, dev, card):
     made; the MID_BATCH steps by host clock over windows and by device busy
     (summed and as the union of spans), as the others.  The head-major
     SLOT_BATCH step and the MID_BATCH one are profiled once more on the
-    activation prep's route before (_old_route_profile).  Returns the
-    launches of the counted steps."""
+    activation prep's route before (_old_route_profile), and on the cache
+    write's route before (_old_write_profile).  Returns the launches of the
+    counted steps."""
     from collections import Counter
 
     import torch
@@ -4105,7 +4468,8 @@ def slot_decode(stacked, cfg, dev, card):
                               / dec["s_major"]["busy_ms_per_step"])})
     emit({"phase": "slot_head_major_old_route", "card": card, "batch": SLOT_BATCH,
           "new_route": dec["head_major"]["trace"],
-          "old_route": _old_route_profile(steps["head_major"])})
+          "old_route": _old_route_profile(steps["head_major"]),
+          "old_write_route": _old_write_profile(steps["head_major"])})
     del steps, caches, dec
     torch.cuda.empty_cache()
     mid = llama.stacked_caches(cfg, MID_BATCH, MAX_LEN, pos=DECODE_POS, quant_kv=True,
@@ -4116,7 +4480,8 @@ def slot_decode(stacked, cfg, dev, card):
     dec = decode_windows({"mid": step}, batch=MID_BATCH)["mid"]
     emit({"phase": "mid_decode", "card": card, "batch": MID_BATCH, "cache": MAX_LEN,
           "launches_per_step": used, "positions": [DECODE_POS, int(mid.pos.flatten()[0])],
-          **dec, "old_route": _old_route_profile(step)})
+          **dec, "old_route": _old_route_profile(step),
+          "old_write_route": _old_write_profile(step)})
     return launches
 
 
@@ -4961,7 +5326,8 @@ def bloom_stacked_decode(stacked, cfg, dev, card):
     (K7a + K5 in place of K1), each in three windows of 8 steps: ms/step by
     host clock and device busy time, launches per step, memory and the
     decode byte bound; at B = BLOOM_SLOT_BATCH also the steps' busy time and
-    kernel count on the activation prep's route before (old_route).
+    kernel count on the activation prep's route before (old_route), and at
+    both the steps' on the cache write's route before (old_write_route).
     Returns the launches of the counted steps."""
     from collections import Counter
 
@@ -4982,7 +5348,8 @@ def bloom_stacked_decode(stacked, cfg, dev, card):
               "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
               "decode_step_bytes": roofline.bloom_decode_step_bytes(cfg, batch=b,
                                                                     max_len=MAX_LEN),
-              **dec, **({"old_route": _old_route_profile(step)} if b > BLOOM_BATCH else {})})
+              **dec, "old_write_route": _old_write_profile(step),
+              **({"old_route": _old_route_profile(step)} if b > BLOOM_BATCH else {})})
         del cache, step
         torch.cuda.empty_cache()
     return launches
@@ -5204,6 +5571,10 @@ def rms_norm_rule_cost(h, cfg, dev):
 # the launch counters of a kernel's other bodies (each wrapper counts a
 # launch once, under the body it ran)
 BODY_COUNTERS = {"fp_matmul_stacked": {"ldg": "fp_matmul_stacked_ldg"},
+                 "write_quant_cache_smajor": {"scalar": "write_quant_cache_smajor_scalar",
+                                              "warps": "write_quant_cache_smajor_warps"},
+                 "write_quant_cache_stacked": {"scalar": "write_quant_cache_stacked_scalar",
+                                               "warps": "write_quant_cache_stacked_warps"},
                  "mlp_swiglu_fused_stacked": {"down": "mlp_swiglu_fused_stacked_down",
                                               "coop": "mlp_swiglu_fused_stacked_coop"},
                  "norm_quant": {"block": "norm_quant_block"},
@@ -5302,7 +5673,8 @@ def run(dev, cfg, card: str):
              + check_fused_attn(cfg, dev, gen)
              + check_mlp_fused(stacked, dev, gen))
 
-    emit({"phase": "no_fallback", "raised": check_no_fallback(dev)})
+    emit({"phase": "no_fallback", "raised": check_no_fallback(dev),
+          "salient_block_in_another_dtype": check_salient_dtype(stacked, dev, gen)})
     emit({"phase": "kernel_variants", "max_rel_err": check_kernel_variants(dev)})
     emit({"phase": "wg_edges", "max_rel_err": check_wg_edges(dev)})
     emit({"phase": "k4_edges", **check_k4_edges(dev)})
@@ -5315,6 +5687,7 @@ def run(dev, cfg, card: str):
     emit({"phase": "k11_edges", **check_k11_edges(dev)})
     emit({"phase": "k3_edges", **check_k3_edges(dev)})
     emit({"phase": "k12_edges", **check_k12_edges(dev)})
+    emit({"phase": "kv_write_edges", **check_kv_write_edges(dev)})
     emit({"phase": "k1_vs_k5", "card": card, "rawx_max_n": RAWX_MAX_N,
           **k1_vs_k5(stacked, dev, gen)})
     emit({"phase": "k6_host_us", "card": card, "us_per_call": k6_host_us(dev)})
@@ -5403,6 +5776,7 @@ def run(dev, cfg, card: str):
         {"fp_matmul_stacked": 4 * n_l, "decode_attention_stacked": n_l})
     launches.update(used)
     dec = decode_windows({"w4a4": w4a4_step, "bf16": bf16_step})
+    dec["w4a4"]["old_write_route"] = _old_write_profile(w4a4_step)
     for name, cache in (("w4a4", w4a4_cache), ("bf16", bf16_cache)):
         emit({"phase": f"{name}_decode", "card": card, "batch": MAX_BATCH, "cache": MAX_LEN,
               "positions": [DECODE_POS, int(cache.pos.flatten()[0])], **dec[name]})

@@ -34,6 +34,7 @@ LAUNCHES: Counter = Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures (argtypes, restype) of the exported entry points; every
 # pointer and the stream go as c_void_p so ctypes never cuts them to 32 bits
 _SIGNATURES = {
@@ -54,6 +55,8 @@ _SIGNATURES = {
     "sq_act_rows": ([_P] * 5 + [_I] * 13 + [_F] * 3 + [_I, _I, _P], _I),
     "sq_write_cache_hm": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),
     "sq_write_cache_smajor": ([_P] * 9 + [_I] * 5 + [_I, _P], _I),
+    "sq_kv_rows_smajor": ([_P] * 11 + [_L] * 6 + [_I] * 11 + [_P], _I),
+    "sq_kv_rows_hm": ([_P] * 11 + [_L] * 6 + [_I] * 11 + [_P], _I),
     "sq_decode_attn_smajor": ([_P] * 7 + [_I] * 6 + [_F, _I, _P], _I),
     "sq_decode_attn_smajor_split": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
     "sq_int8_prefill": ([_P] * 7 + [_I] * 4 + [_I, _I, _P], _I),

@@ -7,7 +7,13 @@ K2  write_quant_cache_smajor — port of smoothquant_tpu/kernels/
     half to even, and a row write at each slot's position clamped to S−1.
     Unlike the JAX function (which returns new buffers through
     input_output_aliases) this one UPDATES THE CACHE TENSORS IN PLACE.
-K3  decode_attention_smajor_stacked — port of :169 (pallas_call :213).
+    rope_q_write_cache_smajor is the same write that also takes the
+    pre-rotary queries and returns them rotated as apply_rotary rotates
+    them, in the same launch: the stacked decode hands it q, k and v as
+    views into the qkv rows.  Both run on the row body K10 shares
+    (kv_write.py, csrc/kv_quant.cuh); the first design stays as
+    body="warps".
+K3 decode_attention_smajor_stacked — port of :169 (pallas_call :213).
     scores = q·k·(1/√D)·k_scale + bias, the TPU kernel's online softmax
     over tiles of _pick_tile_s(S) positions (p against the running max of
     its tile), p·v_scale rounded to bf16 there, PV, GQA; a fully masked row
@@ -35,27 +41,22 @@ from smoothquant_tpu_torch.kernels.decode_attention import (
     online_softmax_tiles,
     plan,
 )
-from smoothquant_tpu_torch.quant.core import f32_reciprocal
+from smoothquant_tpu_torch.kernels.kv_write import (
+    _check_tables,
+    _ptr,
+    _rot_half,
+    _tables,
+    launch_key,
+    launch_rows,
+    quantize_rows_int8,
+    rotate_q_plain,
+    write_body,
+)
 
 NEG_INF = -1e30
 # K3's launch counter of each body
 LAUNCH_KEYS = {"split": "decode_attention_smajor_stacked",
                "flash": "decode_attention_smajor_stacked_flash"}
-
-
-def quantize_rows_int8(x: torch.Tensor):
-    """Symmetric int8 over the last axis: (q int8, scale f32 (...,)) with
-    scale = max(absmax, 1e-8)/127 (models/common.py QuantKVCache._quantize;
-    the constant division as XLA compiles it, see quant/core.py)."""
-    xf = x.float()
-    scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) * f32_reciprocal(127.0)
-    q = torch.round(xf / scale[..., None]).to(torch.int8)
-    return q, scale
-
-
-def _rot_half(x: torch.Tensor) -> torch.Tensor:
-    d = x.shape[-1]
-    return torch.cat([-x[..., d // 2:], x[..., : d // 2]], dim=-1)
 
 
 def _check_cache(device, k_sm, v_sm, k_scale, v_scale):
@@ -65,24 +66,6 @@ def _check_cache(device, k_sm, v_sm, k_scale, v_scale):
             raise TypeError("S-major cache: int8 values and f32 scales")
     _build.check_operands(device, k_sm=k_sm, v_sm=v_sm, k_scale=k_scale,
                           v_scale=v_scale)
-
-
-def _check_tables(cos, sin, rotary: bool) -> None:
-    if rotary and (cos is None or sin is None):
-        raise ValueError("rotary=True needs the cos and sin tables")
-
-
-def _tables(cos, sin, b: int, d: int, rotary: bool):
-    """The kernel's (B, D) f32 rotary tables — one row per slot, an aligned
-    decode's one row broadcast — or (None, None) with rotary off."""
-    _check_tables(cos, sin, rotary)
-    if not rotary:
-        return None, None
-    return tuple(t.float().reshape(-1, d).expand(b, d).contiguous() for t in (cos, sin))
-
-
-def _ptr(t) -> int:
-    return 0 if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------- K2
@@ -95,7 +78,7 @@ def write_quant_cache_smajor_plain(layer_idx: int, pos, k_new, v_new, cos, sin,
     _check_tables(cos, sin, rotary)
     b, h, d = k_new.shape
     s = k_sm.shape[2]
-    rows = torch.clamp(pos.to(torch.int64), 0, s - 1)
+    rows = torch.clamp(torch.as_tensor(pos, device=k_new.device).to(torch.int64), 0, s - 1)
     bi = torch.arange(b, device=k_new.device)
     k = k_new.float()
     if rotary:
@@ -106,12 +89,24 @@ def write_quant_cache_smajor_plain(layer_idx: int, pos, k_new, v_new, cos, sin,
         s_buf[layer_idx][bi, :, rows] = sc
 
 
-def write_quant_cache_smajor(
+def rope_q_write_cache_smajor_plain(layer_idx: int, pos, q, k_new, v_new, cos, sin,
+                                    k_sm, v_sm, k_scale, v_scale, *,
+                                    rotary: bool = True) -> Optional[torch.Tensor]:
+    """Plain PyTorch version of the fused entry: apply_rotary on q (when
+    given), then K2's plain version on k / v as given."""
+    q_rot = None if q is None else rotate_q_plain(q, cos, sin)
+    write_quant_cache_smajor_plain(layer_idx, pos, k_new, v_new, cos, sin, k_sm, v_sm,
+                                   k_scale, v_scale, rotary=rotary)
+    return q_rot
+
+
+def rope_q_write_cache_smajor(
     layer_idx: int,
-    pos: torch.Tensor,        # (B,) int: each slot's write position
+    pos,                      # () or (B,) int: each slot's write position
+    q,                        # (B, H, D) PRE-rotary queries, or None
     k_new: torch.Tensor,      # (B, H_kv, D) PRE-rotary keys
     v_new: torch.Tensor,      # (B, H_kv, D)
-    cos,                      # (B, 1, D) f32; None with rotary=False
+    cos,                      # (B or 1, 1, D) f32; None with rotary=False
     sin,
     k_sm: torch.Tensor,       # (L, B, S, H_kv·D) int8, updated in place
     v_sm: torch.Tensor,
@@ -119,23 +114,36 @@ def write_quant_cache_smajor(
     v_scale: torch.Tensor,
     *,
     rotary: bool = True,
-) -> None:
-    """Write one decode row per slot of layer `layer_idx`, in place."""
+    body: Optional[str] = None,
+) -> Optional[torch.Tensor]:
+    """Write one decode row per slot of layer `layer_idx`, in place, and
+    return q rotated as apply_rotary rotates it ((B, H, D), q's dtype; None
+    without q).  q, k_new and v_new may be strided views into the qkv rows
+    (unit stride along D): the row body reads them where they lie.  `body`
+    ("rows" / "scalar" / "warps") overrides the shape rule for
+    measurements (kv_write.write_body)."""
     if k_new.device.type == "cpu":
-        write_quant_cache_smajor_plain(layer_idx, pos, k_new, v_new, cos, sin,
-                                       k_sm, v_sm, k_scale, v_scale,
-                                       rotary=rotary)
-        return
+        return rope_q_write_cache_smajor_plain(layer_idx, pos, q, k_new, v_new, cos, sin,
+                                               k_sm, v_sm, k_scale, v_scale, rotary=rotary)
     if k_new.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {k_new.device}")
     b, h, d = k_new.shape
     l_num, b2, s, hd = k_sm.shape
     if b2 != b or hd != h * d or d > 256 or d % 2:
         raise ValueError(f"cache {tuple(k_sm.shape)} does not fit k {tuple(k_new.shape)}")
+    if (k_scale.shape != (l_num, b, h, s) or v_sm.shape != k_sm.shape
+            or v_scale.shape != k_scale.shape):
+        raise ValueError("S-major cache values (L, B, S, H·D) and scales (L, B, H, S)")
     _check_cache(k_new.device, k_sm, v_sm, k_scale, v_scale)
+    if write_body(d, True, body, q) != "warps":
+        q_out, chosen = launch_rows(True, layer_idx, pos, q, k_new, v_new, cos, sin, k_sm,
+                                    v_sm, k_scale, v_scale, rotary=rotary, body=body)
+        _build.LAUNCHES[launch_key("write_quant_cache_smajor", chosen)] += 1
+        return q_out
     if v_new.dtype != k_new.dtype:
         raise TypeError("k_new and v_new must share a dtype")
-    pos32 = pos.to(torch.int32).reshape(b).contiguous()
+    pos32 = torch.as_tensor(pos, device=k_new.device).to(torch.int32).reshape(-1)
+    pos32 = pos32.expand(b).contiguous()
     cos, sin = _tables(cos, sin, b, d, rotary)
     k_new, v_new = k_new.contiguous(), v_new.contiguous()
     _build.check_operands(k_new.device, pos=pos32, cos=cos, sin=sin, v_new=v_new)
@@ -146,7 +154,17 @@ def write_quant_cache_smajor(
         v_scale[layer_idx].data_ptr(), b, s, h, d, int(rotary),
         _build.dt_code(k_new), _build.stream_ptr(k_new)),
         "sq_write_cache_smajor")
-    _build.LAUNCHES["write_quant_cache_smajor"] += 1
+    _build.LAUNCHES[launch_key("write_quant_cache_smajor", "warps")] += 1
+    return None
+
+
+def write_quant_cache_smajor(layer_idx: int, pos, k_new, v_new, cos, sin, k_sm, v_sm,
+                             k_scale, v_scale, *, rotary: bool = True,
+                             body: Optional[str] = None) -> None:
+    """K2 with the JAX signature: write one decode row per slot of layer
+    `layer_idx`, in place (rope_q_write_cache_smajor without q)."""
+    rope_q_write_cache_smajor(layer_idx, pos, None, k_new, v_new, cos, sin, k_sm, v_sm,
+                              k_scale, v_scale, rotary=rotary, body=body)
 
 
 # ---------------------------------------------------------------- K3

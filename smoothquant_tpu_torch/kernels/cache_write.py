@@ -11,23 +11,34 @@ K10 write_quant_cache_stacked — port of smoothquant_tpu/kernels/
     rotary=False (Bloom) skips the rotary and takes no tables (None).
     Unlike the JAX function (which returns new buffers through
     input_output_aliases) this one UPDATES THE CACHE TENSORS IN PLACE.
+    rope_q_write_cache_stacked is the same write that also takes the
+    pre-rotary queries and returns them rotated as apply_rotary rotates
+    them, in the same launch.
 
-CUDA source: csrc/cache_write.cu (its math shared with K2 through
-csrc/kv_quant.cuh).  The wrapper runs the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+CUDA source: csrc/cache_write.cu — the row body K2 shares (kv_write.py,
+csrc/kv_quant.cuh: q, k and v read where the qkv linear left them, any
+slot and head strides), and the first design as body="warps".  The
+wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from smoothquant_tpu_torch.kernels import _build
-from smoothquant_tpu_torch.kernels.attn_smajor import (
+from smoothquant_tpu_torch.kernels.kv_write import (
     _check_tables,
     _ptr,
     _rot_half,
     _tables,
+    launch_key,
+    launch_rows,
     quantize_rows_int8,
+    rotate_q_plain,
+    write_body,
 )
 from smoothquant_tpu_torch.quant.core import fma_f32
 
@@ -55,9 +66,21 @@ def write_quant_cache_stacked_plain(layer_idx: int, pos, k_new, v_new, cos, sin,
         s_buf[layer_idx][bi, :, rows] = sc
 
 
-def write_quant_cache_stacked(
+def rope_q_write_cache_stacked_plain(layer_idx: int, pos, q, k_new, v_new, cos, sin,
+                                     k_q, v_q, k_scale, v_scale, *,
+                                     rotary: bool = True) -> Optional[torch.Tensor]:
+    """Plain PyTorch version of the fused entry: apply_rotary on q (when
+    given), then K10's plain version on k / v as given."""
+    q_rot = None if q is None else rotate_q_plain(q, cos, sin)
+    write_quant_cache_stacked_plain(layer_idx, pos, k_new, v_new, cos, sin, k_q, v_q,
+                                    k_scale, v_scale, rotary=rotary)
+    return q_rot
+
+
+def rope_q_write_cache_stacked(
     layer_idx: int,
     pos,                      # () or (B,) int tensor: each slot's write position
+    q,                        # (B, H, D) PRE-rotary queries, or None
     k_new: torch.Tensor,      # (B, H_kv, D) PRE-rotary keys
     v_new: torch.Tensor,      # (B, H_kv, D)
     cos,                      # (B or 1, 1, D) f32 rotary tables at each slot's position;
@@ -68,18 +91,21 @@ def write_quant_cache_stacked(
     v_scale: torch.Tensor,
     *,
     rotary: bool = True,
-) -> None:
-    """Write one decode row per slot of layer `layer_idx`, in place."""
+    body: Optional[str] = None,
+) -> Optional[torch.Tensor]:
+    """Write one decode row per slot of layer `layer_idx`, in place, and
+    return q rotated as apply_rotary rotates it ((B, H, D), q's dtype; None
+    without q).  q, k_new and v_new may be strided views into the qkv rows
+    (unit stride along D).  `body` overrides the shape rule for
+    measurements (kv_write.write_body)."""
     if k_new.device.type == "cpu":
-        write_quant_cache_stacked_plain(layer_idx, pos, k_new, v_new, cos, sin, k_q,
-                                        v_q, k_scale, v_scale, rotary=rotary)
-        return
+        return rope_q_write_cache_stacked_plain(layer_idx, pos, q, k_new, v_new, cos, sin,
+                                                k_q, v_q, k_scale, v_scale, rotary=rotary)
     if k_new.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {k_new.device}")
     b, h, d = k_new.shape
     if k_q.ndim != 5 or k_q.shape[1:3] != (b, h) or k_q.shape[4] != d or d > 256 or d % 2:
         raise ValueError(f"cache {tuple(k_q.shape)} does not fit k {tuple(k_new.shape)}")
-    s = k_q.shape[3]
     for t, dt in ((k_q, torch.int8), (v_q, torch.int8),
                   (k_scale, torch.float32), (v_scale, torch.float32)):
         if t.dtype != dt:
@@ -88,6 +114,12 @@ def write_quant_cache_stacked(
         raise ValueError("cache values (L, B, H, S, D) and scales (L, B, H, S)")
     if v_new.dtype != k_new.dtype or v_new.shape != k_new.shape:
         raise TypeError("k_new and v_new must share a dtype and shape")
+    if write_body(d, True, body, q) != "warps":
+        q_out, chosen = launch_rows(False, layer_idx, pos, q, k_new, v_new, cos, sin, k_q,
+                                    v_q, k_scale, v_scale, rotary=rotary, body=body)
+        _build.LAUNCHES[launch_key("write_quant_cache_stacked", chosen)] += 1
+        return q_out
+    s = k_q.shape[3]
     pos32 = torch.as_tensor(pos, device=k_new.device).to(torch.int32).reshape(-1)
     pos32 = pos32.expand(b).contiguous()
     cos, sin = _tables(cos, sin, b, d, rotary)
@@ -100,4 +132,14 @@ def write_quant_cache_stacked(
         k_scale[layer_idx].data_ptr(), v_scale[layer_idx].data_ptr(), b, s, h, d,
         int(rotary), _build.dt_code(k_new), _build.stream_ptr(k_new)),
         "sq_write_cache_hm")
-    _build.LAUNCHES["write_quant_cache_stacked"] += 1
+    _build.LAUNCHES[launch_key("write_quant_cache_stacked", "warps")] += 1
+    return None
+
+
+def write_quant_cache_stacked(layer_idx: int, pos, k_new, v_new, cos, sin, k_q, v_q,
+                              k_scale, v_scale, *, rotary: bool = True,
+                              body: Optional[str] = None) -> None:
+    """K10 with the JAX signature: write one decode row per slot of layer
+    `layer_idx`, in place (rope_q_write_cache_stacked without q)."""
+    rope_q_write_cache_stacked(layer_idx, pos, None, k_new, v_new, cos, sin, k_q, v_q,
+                               k_scale, v_scale, rotary=rotary, body=body)

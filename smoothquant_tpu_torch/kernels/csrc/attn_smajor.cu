@@ -14,7 +14,11 @@
 // shared with K10) with the rounded rotary products kept apart, as the
 // Pallas body rounds them, and an IN-PLACE write of row min(pos[b], S-1) — the
 // position is read from a device tensor and clamped on the device, because
-// the batcher keeps advancing dead slots past the cache length.
+// the batcher keeps advancing dead slots past the cache length.  That
+// one-warp-a-head body stays as the wrapper's body="warps"; every call the
+// wrapper's shape rule takes goes to the row body K10 shares
+// (kv_quant.cuh kv_rows_kernel): q, k and v read where the qkv linear left
+// them, q's rotary in the same launch, a row in registers.
 //
 // K3 replaces decode_attention_smajor_stacked (pallas_call at :213).  At
 // decode it reads the k / v rows of the positions the bias leaves unmasked
@@ -81,6 +85,21 @@ SQ_EXPORT int sq_write_cache_smajor(const void* k_new, const void* v_new, const 
         (const float*)k_new, (const float*)v_new, (const float*)cos_t, (const float*)sin_t,
         (const int*)pos, (int8_t*)kq, (int8_t*)vq, (float*)ks, (float*)vs, S, H, D, rotary);
   return (int)cudaGetLastError();
+}
+
+// K2's row body (kv_quant.cuh, S-major rows, k's rotary products kept
+// apart): q / k / v read in place by their strides, q rotated into q_out
+// when Hq > 0, rows written at each slot's clamped position.
+SQ_EXPORT int sq_kv_rows_smajor(const void* q, const void* k, const void* v,
+                                const void* cos_t, const void* sin_t, const void* pos,
+                                void* q_out, void* kq, void* vq, void* ks, void* vs,
+                                long long q_sb, long long q_sh, long long k_sb,
+                                long long k_sh, long long v_sb, long long v_sh, int t_sb,
+                                int pos_sb, int B, int S, int Hq, int Hkv, int D,
+                                int rotary, int vec, int threads, int x_dt, void* stream) {
+  return kv_rows_entry<true>(q, k, v, cos_t, sin_t, pos, q_out, kq, vq, ks, vs, q_sb,
+                             q_sh, k_sb, k_sh, v_sb, v_sh, t_sb, pos_sb, B, S, Hq, Hkv, D,
+                             rotary, vec, threads, x_dt, (cudaStream_t)stream);
 }
 
 // K3's flash body: single-query decode attention over one layer of the

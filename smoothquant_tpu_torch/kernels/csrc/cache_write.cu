@@ -12,9 +12,12 @@
 // wrapper broadcasts), so the host never waits on it.
 //
 // What bounds it on the H100: nothing but launch latency.  It moves a few
-// KB a call (B·H_kv·D values in, as many int8 bytes out); K2's design,
-// with the math shared through kv_quant.cuh: a block per slot and 8 kv
-// heads, a warp per head, k then v.
+// KB a call (B·H_kv·D values in, as many int8 bytes out).  Two bodies: the
+// row body K2 shares (kv_quant.cuh kv_rows_kernel, head-major rows: q, k
+// and v read in place from the qkv rows, q's rotary in the same launch, a
+// row in registers), which takes every call the wrapper's shape rule
+// allows; and K2's first design as body="warps" (write_cache_hm_kernel: a
+// block per slot and 8 kv heads, a warp per head, k then v).
 #include "kv_quant.cuh"
 
 namespace {
@@ -62,4 +65,17 @@ SQ_EXPORT int sq_write_cache_hm(const void* k_new, const void* v_new, const void
         (const float*)k_new, (const float*)v_new, (const float*)cos_t, (const float*)sin_t,
         (const int*)pos, (int8_t*)kq, (int8_t*)vq, (float*)ks, (float*)vs, S, H, D, rotary);
   return (int)cudaGetLastError();
+}
+
+// K10's row body (kv_quant.cuh, head-major rows, k's rotary as one fma).
+SQ_EXPORT int sq_kv_rows_hm(const void* q, const void* k, const void* v,
+                            const void* cos_t, const void* sin_t, const void* pos,
+                            void* q_out, void* kq, void* vq, void* ks, void* vs,
+                            long long q_sb, long long q_sh, long long k_sb,
+                            long long k_sh, long long v_sb, long long v_sh, int t_sb,
+                            int pos_sb, int B, int S, int Hq, int Hkv, int D,
+                            int rotary, int vec, int threads, int x_dt, void* stream) {
+  return kv_rows_entry<false>(q, k, v, cos_t, sin_t, pos, q_out, kq, vq, ks, vs, q_sb,
+                              q_sh, k_sb, k_sh, v_sb, v_sh, t_sb, pos_sb, B, S, Hq, Hkv, D,
+                              rotary, vec, threads, x_dt, (cudaStream_t)stream);
 }

@@ -455,7 +455,8 @@ __device__ __forceinline__ void sg_salient_bf16(float (&acc)[2][NT][4], const ch
 }
 
 // acc = the f32 salient dot Σ_k x_sal[n, k]·w_sal[k, o] on the CUDA cores,
-// from global memory (the f32 instantiations; rank 0 before its stages)
+// from global memory (the f32 instantiations; rank 0 before its stages,
+// after griddepcontrol.wait behind a primary grid)
 template <int NT>
 __device__ __forceinline__ void sg_salient_f32(float (&acc)[2][NT][4], const SgArgs& a, int o0,
                                                const SgLane& l) {
@@ -579,7 +580,13 @@ __device__ __forceinline__ void sg_consume(float (&acc)[2][NT][4], const SgArgs&
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-  if (!a.t_bf16 && t0 == 0 && a.k_s > 0) sg_salient_f32<NT>(acc, a, o0, l);
+  if (!a.t_bf16 && t0 == 0 && a.k_s > 0) {
+    // x_sal is the primary grid's output, read here from global memory and
+    // not through the producer's stages: behind a primary (a.pdl) these
+    // warps wait for it too, or they read rows the prep has not written
+    if (a.pdl) griddep_wait();
+    sg_salient_f32<NT>(acc, a, o0, l);
+  }
   const SgXOff<Geo::XROW, KSTEP> xo = sg_xoff<Geo::XROW, KSTEP>(l.lane);
   const SgXOff<Geo::SALROW, 32> xso = sg_xoff<Geo::SALROW, 32>(l.lane);
   uint32_t sal_off[2];

@@ -67,6 +67,22 @@ class PackedLinear:
     perm: torch.Tensor          # (C,) int64
     meta: PackedMeta
     ns_mask: Optional[torch.Tensor] = None   # identity layout: (C,) 0/1 f32
+    # w_sal_t cast to another activation dtype, made once (salient_block)
+    _sal_cast: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                        compare=False)
+
+    def salient_block(self, dtype) -> torch.Tensor:
+        """w_sal_t in `dtype` (the rows' dtype): as stored, or a cast made
+        on the first call for that dtype and kept, so a decode step casts
+        nothing between K7's activation prep and K5, its programmatic
+        dependent.  The cast is launched before the prep on the same
+        stream, so it has finished when K5 starts.  A pack is not changed
+        after it is made, so the cast stays true."""
+        if self.w_sal_t.dtype == dtype:
+            return self.w_sal_t
+        if dtype not in self._sal_cast:
+            self._sal_cast[dtype] = self.w_sal_t.to(dtype)
+        return self._sal_cast[dtype]
 
     def to(self, device) -> "PackedLinear":
         def mv(t):

@@ -21,8 +21,9 @@ real_linear.py:70-133,200-479).
       one launch of the row body                                → K7b + K5
     * down, or gathered input: as at 5-32 rows                  → K7a + K5
     * identity layout: _identity_nibble_quantize             → K5 row-major
-  K5's stream kind follows each prep as a programmatic dependent
-  (chained_w_sal: nothing launches between them)
+  K5's stream kind follows each prep as a programmatic dependent, nothing
+  launched between them (the salient block in the rows' dtype comes from
+  PackedLinear.salient_block, cast once a pack, before the prep)
   the whole MLP of a stacked decode layer at N <= 8 (ForwardContext.fuse_mlp,
     real_linear.py:148-197)                                     → K14
   per-layer (real_linear.py:400-470):
@@ -175,8 +176,8 @@ def real_mlp_fused(gu: PackedLinear, dn: PackedLinear, x: torch.Tensor, *,
                    out_dtype=None) -> torch.Tensor:
     """down(silu(gate(x)) · up(x)) of layer `layer_idx` in one K14 call
     (real_linear.py:164-197); norm = (the layer's (C,) RMSNorm row, eps,
-    "rms").  The salient blocks are cast to x's dtype, as the JAX wrapper
-    casts them."""
+    "rms").  The salient blocks are taken in x's dtype, as the JAX wrapper
+    casts them (cast once a pack, PackedLinear.salient_block)."""
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
     norm_row, eps = None, 0.0
@@ -187,8 +188,8 @@ def real_mlp_fused(gu: PackedLinear, dn: PackedLinear, x: torch.Tensor, *,
         norm_row = norm_row.to(x.dtype)
         eps = float(n_eps)
     y = mlp_swiglu_fused_stacked(
-        layer_idx, x2d, norm_row, gu.w_qt, gu.w_scales_t, gu.w_sal_t.to(x.dtype),
-        dn.w_qt, dn.w_scales_t, dn.w_sal_t.to(x.dtype), group_size=gu.meta.group_size,
+        layer_idx, x2d, norm_row, gu.w_qt, gu.w_scales_t, gu.salient_block(x.dtype),
+        dn.w_qt, dn.w_scales_t, dn.salient_block(x.dtype), group_size=gu.meta.group_size,
         act_bits=gu.meta.act_bits, n_sal1=gu.meta.num_salient, n_sal2=dn.meta.num_salient,
         gu_out_true=gu.meta.out_features, dn_out_true=dn.meta.out_features, eps=eps,
         out_dtype=out_dtype or x.dtype)
@@ -314,22 +315,6 @@ def k1_rows_operands(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
     return _prep_operands(packed, x2d, layer_idx, norm, "rms")
 
 
-def chained_w_sal(packed: PackedLinear, x2d: torch.Tensor) -> torch.Tensor:
-    """K5's salient block for x2d's rows.  On the card K5 runs as a
-    programmatic dependent of the activation prep, its first weight stages
-    read before it waits for the prep: a cast launched between them would
-    cut the chain and could be read unfinished, so a block not stored in
-    x's dtype (the pack stores it in the compute dtype) raises there; the
-    CPU casts."""
-    w_sal = packed.w_sal_t
-    if w_sal.dtype == x2d.dtype:
-        return w_sal
-    if x2d.device.type != "cpu":
-        raise TypeError(f"the salient block is {w_sal.dtype}, the rows {x2d.dtype}: K5 "
-                        "chained behind the activation prep takes it as stored")
-    return w_sal.to(x2d.dtype)
-
-
 def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
                     norm: Optional[tuple], out_dtype) -> torch.Tensor:
     meta = packed.meta
@@ -342,9 +327,10 @@ def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
         if norm is not None:
             raise NotImplementedError("a fused norm needs pre-permuted input")
         x2d = x2d.index_select(1, packed.perm[layer_idx])
+    # the salient block in x's dtype, cast once a pack (PackedLinear.salient_block)
+    w_sal = packed.salient_block(x2d.dtype)
     if x2d.shape[0] > K1_MAX_TOKENS:
         prep = k1_rows_operands if x2d.shape[0] <= RAWX_MAX_N else many_rows_operands
-        w_sal = chained_w_sal(packed, x2d)
         x_q, x_scales, x_sal, pre_laid = prep(packed, x2d, layer_idx, norm)
         # K5 next, with no launch between it and the prep that feeds it
         return int4_group_matmul_stacked(
@@ -352,7 +338,6 @@ def _stacked_linear(packed: PackedLinear, x2d: torch.Tensor, layer_idx: int,
             w_sal, group_size=meta.group_size, out_dtype=out_dtype, pre_laid=pre_laid)
     common = dict(group_size=meta.group_size, act_bits=meta.act_bits,
                   num_salient=meta.num_salient, out_dtype=out_dtype)
-    w_sal = packed.w_sal_t.to(x2d.dtype)
     if meta.layout == "identity":
         if norm is not None:
             raise NotImplementedError("identity layout call sites fuse no norm")

@@ -13,7 +13,8 @@ Generator use).
   K11 for the int8 head-major cache), prefetch_tree_capable (:672-732),
   stacked_cache_append (:735-775), stacked_cache_append_fused (:778-817:
   K2 for the S-major cache, K10 for the head-major int8 one, k rotated or,
-  for a non-rotary architecture, not), decode_bias (:820-838),
+  for a non-rotary architecture, not; given q, q's rotary in the same
+  launch), decode_bias (:820-838),
   stacked_smajor_attention (:841-854) and stacked_flash_attention
   (:857-875, with Bloom's ALiBi slopes).
 
@@ -32,16 +33,21 @@ from smoothquant_tpu_torch.kernels.attn_smajor import (
     NEG_INF as ATTN_NEG_INF,
     decode_attention_smajor_stacked,
     quantize_rows_int8,
+    rope_q_write_cache_smajor,
     write_quant_cache_smajor,
 )
 from smoothquant_tpu_torch._device import resolve_device
 from smoothquant_tpu_torch.kernels import decode_attention as k11
-from smoothquant_tpu_torch.kernels.cache_write import write_quant_cache_stacked
+from smoothquant_tpu_torch.kernels.cache_write import (
+    rope_q_write_cache_stacked,
+    write_quant_cache_stacked,
+)
+from smoothquant_tpu_torch.kernels.kv_write import apply_rotary
 from smoothquant_tpu_torch.kernels.fp_matmul import fp_matmul_stacked
 from smoothquant_tpu_torch.kernels.pack import PackedLinear, stack_packed
 from smoothquant_tpu_torch.kernels.real_linear import COMPUTE_CHOICES, real_quant_linear
 from smoothquant_tpu_torch.quant.config import QuantConfig
-from smoothquant_tpu_torch.quant.core import fma_f32, rms_factor
+from smoothquant_tpu_torch.quant.core import rms_factor
 
 NEG_INF = -1e9   # einsum attention mask value (common.py:29)
 
@@ -189,18 +195,6 @@ def rotary_cos_sin(positions: torch.Tensor, head_dim: int,
     freqs = positions.float()[..., None] * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
-
-
-def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    """x: (B, S, H, D); cos/sin: (B or 1, S, D)."""
-    half = x.shape[-1] // 2
-    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-    cos = cos[:, :, None, :].to(x.dtype)
-    sin = sin[:, :, None, :].to(x.dtype)
-    if x.dtype == torch.float32:
-        # jitted XLA fuses the f32 form into fma(x, cos, rotated·sin)
-        return fma_f32(x, cos, rotated * sin)
-    return x * cos + rotated * sin
 
 
 def _write_rows(buf: torch.Tensor, new: torch.Tensor, pos: int) -> None:
@@ -517,21 +511,34 @@ def stacked_cache_append(cache: KVCache, i: int, k_new: torch.Tensor,
 
 
 def stacked_cache_append_fused(cache, i: int, k_new: torch.Tensor,
-                               v_new: torch.Tensor, cos, sin, rotate_k: bool = True):
+                               v_new: torch.Tensor, cos, sin, rotate_k: bool = True,
+                               q: Optional[torch.Tensor] = None):
     """Layer i's cache write in the stacked decode (common.py:778-817).
     k_new/v_new (B, 1, H_kv, D), k PRE-rotary when rotate_k.  The S-major
     int8 cache runs K2 and the head-major int8 cache K10 (rotary-k, int8
     quantize, in-place row write at each slot's position, or the aligned
     one); an fp cache takes apply_rotary and stacked_cache_append.  A
     non-rotary architecture (Bloom) passes rotate_k=False and no tables
-    (JAX passes dummy ones): the writers run with rotary off and read none."""
+    (JAX passes dummy ones): the writers run with rotary off and read none.
+    Returns the cache; or, given q (B, 1, H, D) PRE-rotary (the "smajor"
+    and "off" steps over an int8 cache), the writer's row body
+    (rope_q_write_cache_smajor / rope_q_write_cache_stacked) rotates q in
+    the same launch and this returns q rotated as apply_rotary rotates it,
+    (B, H, D).  q, k_new and v_new may be strided views into the qkv rows:
+    the row body reads them where they lie."""
     b, _, h, d = k_new.shape
     if isinstance(cache, (SMajorQuantKVCache, QuantKVCache)):
-        write = (write_quant_cache_smajor if isinstance(cache, SMajorQuantKVCache)
-                 else write_quant_cache_stacked)
-        write(i, cache.pos[i], k_new.reshape(b, h, d), v_new.reshape(b, h, d), cos,
-              sin, cache.k_q, cache.v_q, cache.k_scale, cache.v_scale, rotary=rotate_k)
+        smajor = isinstance(cache, SMajorQuantKVCache)
+        args = (k_new.reshape(b, h, d), v_new.reshape(b, h, d), cos, sin, cache.k_q,
+                cache.v_q, cache.k_scale, cache.v_scale)
+        if q is not None:
+            write = rope_q_write_cache_smajor if smajor else rope_q_write_cache_stacked
+            return write(i, cache.pos[i], q.reshape(b, -1, d), *args, rotary=rotate_k)
+        write = write_quant_cache_smajor if smajor else write_quant_cache_stacked
+        write(i, cache.pos[i], *args, rotary=rotate_k)
         return cache
+    if q is not None:
+        raise NotImplementedError("q is rotated in the write only over an int8 cache")
     if isinstance(cache, KVCache):
         if rotate_k:
             k_new = apply_rotary(k_new, cos, sin)

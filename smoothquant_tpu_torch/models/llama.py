@@ -200,16 +200,18 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: LlamaConfig, layer_name: str,
 def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
                     ctx: Optional[ForwardContext]):
     """Single-token decode over a stacked tree (llama.py:288-490), per layer:
-      packed tree, S-major int8 cache: K1 (qkv, RMSNorm fused) → q-rotary →
-        K2 (k-rotary, quantize, row write) → K3 → K1 (o_proj) → K1 (gate_up,
-        RMSNorm fused) → SiLU·up → K1 (down_proj);
+      packed tree, S-major int8 cache: K1 (qkv, RMSNorm fused) → K2 (q- and
+        k-rotary, quantize, row write, q / k / v read in place from the qkv
+        rows) → K3 → K1 (o_proj) → K1 (gate_up, RMSNorm fused) → SiLU·up →
+        K1 (down_proj);
       packed tree, head-major int8 cache with aligned (L,) positions and no
         mask, the attention ctx.fuse_attn names (llama.py:346-366,407-448):
         "auto" K12's flat body on pre-rotary q for MHA, or q-rotary and K12's
         stacked body for GQA, then K10; "fused" q-rotary and K12's write
         body; "off" as the next case;
       packed tree, head-major int8 cache with per-slot positions or a mask
-        ("off"): K10 and K11 in place of K2 and K3;
+        ("off"): K10 (q rotated in its launch too) and K11 in place of K2
+        and K3;
       pack_fp_decode tree, head-major fp cache: RMSNorm → K13 (qkv) →
         rotary → fp row write → K11 → K13 (o) → RMSNorm → K13 (gate_up) →
         SiLU·up → K13 (down).
@@ -243,8 +245,6 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
     norms = ("input_layernorm", "post_attention_layernorm")
     # fused: the JAX kernel casts the norm rows to the activation dtype, then f32
     rows = {n: st[n]["weight"].to(x.dtype).float() for n in norms} if fuse_norm else {}
-    # q-rotary tables in the activation dtype (apply_rotary's cast, once)
-    cos_q, sin_q = cos.to(x.dtype), sin.to(x.dtype)
     bias = None
     if mode in ("smajor", "off"):
         # every layer's bias from its own position, in one pass: the positions
@@ -253,6 +253,11 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
         bias = decode_bias(pos, b, s_max, attn_mask)          # (L, B, S_max)
     attend = stacked_smajor_attention if mode == "smajor" else stacked_flash_attention
     flat = mode == "auto" and nh == n_kv
+    # "smajor" and "off" over an int8 cache: the writer rotates q in its launch
+    fused_write = mode in ("smajor", "off") and not isinstance(caches, KVCache)
+    if not fused_write:
+        # q-rotary tables in the activation dtype (apply_rotary's cast, once)
+        cos_q, sin_q = cos.to(x.dtype), sin.to(x.dtype)
 
     def normed_linear(lin, inp, i, norm):
         if fuse_norm:
@@ -265,7 +270,10 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
         qkv = normed_linear(sa["qkv_proj"], x, i, norms[0])
         q, k, v = torch.split(qkv, [nh * d, n_kv * d, n_kv * d], dim=-1)
         k, v = k.reshape(b, s, n_kv, d), v.reshape(b, s, n_kv, d)
-        if not flat:
+        if fused_write:
+            # one launch: q rotated, k / v written, all read in place from qkv
+            q = stacked_cache_append_fused(caches, i, k, v, cos, sin, q=q.reshape(b, s, nh, d))
+        elif not flat:
             q = apply_rotary(q.reshape(b, s, nh, d), cos_q, sin_q)[:, 0]   # (B, H, D)
         if mode in ("auto", "fused"):
             # K12 reads the OLD cache at this layer's aligned position
@@ -277,7 +285,8 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
             if mode == "auto":
                 stacked_cache_append_fused(caches, i, k, v, cos, sin)
         else:
-            caches = stacked_cache_append_fused(caches, i, k, v, cos, sin)
+            if not fused_write:
+                caches = stacked_cache_append_fused(caches, i, k, v, cos, sin)
             a = attend(caches, i, q, bias[i])
         x = residual + call_linear(sa["o_proj"], a.reshape(b, s, nh * d), layer_idx=i)
         residual = x

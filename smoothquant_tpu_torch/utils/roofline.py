@@ -121,13 +121,18 @@ def norm_quant_acts_cost(n, c, k_ns, gs, k_s, *, x_bytes=2, sal_bytes=2, norm_ro
             + k_ns // gs * n_pad * 4 + n_pad * k_s * sal_bytes, {"f32": 5 * n * c})
 
 
-def write_cache_cost(b, h, d, *, x_bytes=2, rotary=True):
-    """K2 and K10: k, v (B, H, D), cos/sin (B, D) f32 (with rotary),
-    positions; one int8 row and one f32 scale per (b, head) for k and for
-    v.  The rotary's two f32 operations an element of k go with its tables."""
-    tables = 2 * b * d * 4 if rotary else 0
-    n_bytes = 2 * b * h * d * x_bytes + tables + b * 4 + 2 * (b * h * d + b * h * 4)
-    return n_bytes, {"f32": (6 if rotary else 4) * b * h * d}
+def write_cache_cost(b, h, d, *, x_bytes=2, rotary=True, q_heads=0, table_rows=None,
+                     aligned=False):
+    """K2 and K10: k, v (B, H, D), cos/sin (table_rows, D) f32 (with rotary;
+    B rows by default), the positions (one with aligned); one int8 row and
+    one f32 scale per (b, head) for k and for v; with q_heads, the queries
+    (B, q_heads, D) read and written rotated.  The rotary's three f32
+    operations an element (two products and a sum) go with its tables."""
+    table_rows = b if table_rows is None else table_rows
+    tables = 2 * table_rows * d * 4 if rotary else 0
+    n_bytes = (2 * b * h * d * x_bytes + tables + (4 if aligned else b * 4)
+               + 2 * (b * h * d + b * h * 4) + 2 * b * q_heads * d * x_bytes)
+    return n_bytes, {"f32": (6 if rotary else 4) * b * h * d + 3 * b * q_heads * d}
 
 
 def decode_attn_cost(b, h, n_kv, s, d, *, n_valid=None, x_bytes=2,

@@ -240,27 +240,34 @@ def test_stacked_operands_unchanged(n, fused, dt):
 
 
 def test_chained_w_sal():
-    """K5 behind the prep takes the salient block as stored: on the CPU a
-    block in another dtype is cast, off it the call raises (no launch may
-    sit between the prep and K5)."""
-    x = torch.zeros((4, 8), dtype=torch.bfloat16)
-    same = types.SimpleNamespace(w_sal_t=torch.zeros((1, 8, 16), dtype=torch.bfloat16))
-    other = types.SimpleNamespace(w_sal_t=torch.zeros((1, 8, 16)))
-    assert rl.chained_w_sal(same, x) is same.w_sal_t
-    assert rl.chained_w_sal(other, x).dtype == torch.bfloat16
-    with pytest.raises(TypeError, match="as stored"):
-        rl.chained_w_sal(types.SimpleNamespace(w_sal_t=other.w_sal_t.to("meta")),
-                         x.to("meta"))
-    assert rl.chained_w_sal(types.SimpleNamespace(w_sal_t=same.w_sal_t.to("meta")),
-                            x.to("meta")).device.type == "meta"
+    """K5 behind the prep takes the salient block in the rows' dtype, cast
+    once a pack (PackedLinear.salient_block): as stored when the dtypes
+    agree, else a cast made on the first call and kept, on any device (off
+    the CPU too: nothing is cast between the prep and K5)."""
+    from smoothquant_tpu_torch.kernels.pack import PackedLinear
+
+    def pack(w_sal):
+        return PackedLinear(w_qt=None, w_scales_t=None, w_sal_t=w_sal, bias=None,
+                            perm=None, meta=None)
+
+    same = pack(torch.zeros((1, 8, 16), dtype=torch.bfloat16))
+    other = pack(torch.arange(128, dtype=torch.float32).reshape(1, 8, 16))
+    assert same.salient_block(torch.bfloat16) is same.w_sal_t
+    block = other.salient_block(torch.bfloat16)
+    assert block.dtype == torch.bfloat16 and torch.equal(block, other.w_sal_t.bfloat16())
+    assert other.salient_block(torch.bfloat16) is block
+    assert other.salient_block(torch.float32) is other.w_sal_t
+    on_meta = pack(other.w_sal_t.to("meta"))
+    assert on_meta.salient_block(torch.bfloat16).device.type == "meta"
+    # a moved pack casts anew (its own cache)
+    assert other.to("cpu").salient_block(torch.bfloat16) is not block
     # the K5 route: the block taken before the prep, nothing called between
     # the prep and K5
     src = inspect.getsource(rl._stacked_linear)
     head, _, tail = src.partition("x_q, x_scales, x_sal, pre_laid = prep(")
-    assert "w_sal = chained_w_sal(packed, x2d)" in head.splitlines()[-1] + head
+    assert "w_sal = packed.salient_block(x2d.dtype)" in head
     between = tail.split("return int4_group_matmul_stacked(")[0]
-    assert "(" not in "".join(ln for ln in between.splitlines()[1:]
-                              if not ln.strip().startswith("#"))
+    assert "(" not in between.replace("packed, x2d, layer_idx, norm)", "")
 
 
 # ---------------------------------------------------------------- the lane map

@@ -111,10 +111,13 @@ def test_slot_path_rehearsal_on_cpu(monkeypatch):
 
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    from smoothquant_tpu_torch.kernels import kv_write
     from smoothquant_tpu_torch.models.llama import LlamaConfig
 
     monkeypatch.setattr(cs, "SLOT_BATCH", 40)
     monkeypatch.setattr(cs, "SLOT_REQUESTS", 44)
+    # K10's block-size sweep launches the row body itself, which the CPU has not
+    monkeypatch.setattr(kv_write, "launch_rows", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
     monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
@@ -470,8 +473,11 @@ def test_bloom_path_rehearsal_on_cpu(monkeypatch):
     path expects recorded."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    from smoothquant_tpu_torch.kernels import kv_write
     from smoothquant_tpu_torch.models.bloom import BloomConfig
 
+    # K10's block-size sweep launches the row body itself, which the CPU has not
+    monkeypatch.setattr(kv_write, "launch_rows", lambda *a, **k: None)
     for name, value in dict(BLOOM_SAMPLES=2, BLOOM_LEN=32, BLOOM_BATCH=2, BLOOM_PROMPT=40,
                             BLOOM_NEW=4, BLOOM_MAX_LEN=256, BLOOM_SLOT_BATCH=40,
                             K4_RAWX_CASES=(("gate@64", (64, 512, 384)), ("ragged@33", (33, 512, 384)),
@@ -761,3 +767,53 @@ def test_k14_k16_edge_checks_rehearsal_on_cpu(monkeypatch):
     assert k16["cases"] == 4 * len(cs.K16_EDGE_C) * 2 * 2
     assert k16["n_diff"] == 0 and k16["n_diff_block_body"] == 0
     assert k16["max_share"] == 0.0 and k16["max_share_block_body"] == 0.0
+
+
+def test_kv_write_phases_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's phases of K2 / K10's row body on the CPU at a small
+    size, where the wrappers take their plain versions: K2 at B = 4 and K10
+    at B = 8 (Llama's rows, q rotated) and with rotary off (Bloom's
+    interleaved rows, no q), each row with its timings beside (block sizes,
+    k / v alone, the first design, the route it replaces); and
+    kv_write_edges over both layouts, both dtypes, both qkv layouts, rows
+    off 16 bytes, per-slot and aligned positions, every call repeated."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.kernels import kv_write
+    from smoothquant_tpu_torch.models.llama import LlamaConfig
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
+    monkeypatch.setattr(cs, "emit", lambda obj: None)
+    # the block-size sweep launches the row body itself, which the CPU has not
+    swept = []
+    monkeypatch.setattr(kv_write, "launch_rows",
+                        lambda *a, threads=None, **k: swept.append(threads))
+    for name, value in dict(MAX_LEN=128, KV_EDGE_DIMS=(64, 128), KV_EDGE_SLOTS=(1, 5),
+                            KV_EDGE_HEADS=((1, 4), (8, 1))).items():
+        monkeypatch.setattr(cs, name, value)
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=512), hidden_size=512,
+                              num_attention_heads=8, num_key_value_heads=2,
+                              num_hidden_layers=2)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(5)
+    rows = (cs.check_write_cache(cfg, cpu, gen)
+            + cs.check_write_cache_hm(cpu, gen, 8, 2, 64, n_q=8)
+            + cs.check_write_cache_hm(cpu, gen, 4, 4, 64, rotary=False, site="bloom"))
+    assert [(r["kernel"], r["shape"][:2]) for r in rows] == [
+        ("write_quant_cache_smajor", [4, 8]), ("write_quant_cache_stacked", [8, 8]),
+        ("write_quant_cache_stacked", [4, 0])]
+    assert swept == [64, 128, 256, 512, 1024] * 3
+    for r in rows:
+        assert r["max_err"] == 0 and r["scale_ulps"] == 0
+        assert set(r["threads_ms"]) == {64, 128, 256, 512, 1024}
+        assert {"kv_only_ms", "old_body_ms"} <= set(r)
+        assert ("old_route_ms" in r) == (r["shape"][1] > 0)
+    assert rows[2]["in_sum"] is False and rows[2]["bound_ms"] < rows[1]["bound_ms"]
+    edges = cs.check_kv_write_edges(cpu)
+    # two layouts, two dtypes, 2 head_dims, 2 head shapes, 2 slot counts;
+    # Llama's rows aligned and off 16 bytes, Bloom's where a kv head takes one q head
+    assert edges["cases"] == 2 * 2 * 2 * 2 * (2 + 2 + 1)
+    assert edges["repeated_calls_identical"] == 2 * edges["cases"]

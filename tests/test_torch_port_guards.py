@@ -17,12 +17,13 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
+import k5_pdl_race  # noqa: E402
 import mlp_variants  # noqa: E402
 import stream_variants  # noqa: E402
 
 CSRC = os.path.join(ROOT, "smoothquant_tpu_torch", "kernels", "csrc")
 SCRIPTS = ("mlp_variants", "s8_variants", "stream_variants", "attn_variants", "wg_variants",
-           "stream_kinds_check", "act_variants")
+           "stream_kinds_check", "act_variants", "k5_pdl_race")
 
 
 def _port_modules():
@@ -122,6 +123,16 @@ def test_stream_variant_edits_apply(name):
     with open(os.path.join(CSRC, stream_variants.HEADER)) as f:
         text = f.read()
     assert stream_variants.apply_edits(text, stream_variants.VARIANTS[name]) != text
+
+
+def test_k5_pdl_race_edit_applies():
+    """The race script's one variant takes out exactly the consumers' wait
+    before K5's f32 salient dot, and the committed source has that wait."""
+    with open(os.path.join(CSRC, k5_pdl_race.HEADER)) as f:
+        text = f.read()
+    out = k5_pdl_race.apply_edits(text, k5_pdl_race.VARIANTS["no_consumer_wait"])
+    assert out.count("griddep_wait();") == text.count("griddep_wait();") - 1
+    assert "sg_salient_f32<NT>(acc, a, o0, l);" in out
 
 
 def test_mlp_variants_host_options_are_the_wrappers():
