@@ -162,6 +162,22 @@ Then the Llama-2-7B paths:
    device busy), launches (K8 7·L and K11 L a decode step, the prefill's
    7·L on K9 above the crossover, else a second prefill forced to
    "dequant"), and the packed logits against the fp model's.
+   Then the simulated (fake-quant) path, on the quick start's smoothed
+   weights and calibration vectors (run_sim): every weight and activation
+   quantizer (sim_cases: per-channel / per-token, per-tensor, per-group
+   unsorted and sorted by "max", "mean_std" and "argmax"; groups of 64 and
+   128; 4 and 8 bits; f32 and bf16) at the 7B's weight and prefill
+   activation shapes, and quantize_linear_params with 5 % salient
+   channels, on the card bit for bit against the same call on a CPU copy
+   (sim_quantizers); a 2-layer simulated Llama and OPT (BMM inputs
+   quantized) on the card against the CPU (sim_reference);
+   quantize_model("llama") for W8A8_SMOOTHQUANT and W4A4 g64 with 5 %
+   salient channels (sim_model: seconds, GiB); the W8A8 per-channel /
+   per-token simulated forward against the forward of pack_model's default
+   W8A8 pack (K4 7·L launches) over 1 × 512 tokens (sim_vs_packed:
+   relative norm error, top-1 agreement); perplexity of fp, W8A8 and W4A4
+   through Evaluator over 4 random windows of 2048 tokens, seconds a
+   window (sim_ppl; random weights: no measure of quality).
 8. The bf16 baseline: pack_fp_decode + stack_layers of the same weights,
    decoded at B = 4, cache 512, from position 448 over a bf16 head-major
    cache, and the W4A4 stacked tree over the S-major cache at the same
@@ -279,6 +295,17 @@ KV_EDGE_HEADS = ((1, 1), (1, 4), (8, 1), (8, 4), (32, 1), (32, 4))
 KV_EDGE_SLOTS = (1, 5, 64, 130)
 K4_RAWX_CASES = (("gate@1024", (PREFILL_N, 4096, 11008)), ("ragged@333", (333, 4096, 11008)),
                  ("one_k_step", (256, 64, 512)))
+# the simulated (fake-quant) path on the quick start's smoothed 7B: the
+# quantizers at Llama-2-7B's weight (O, K) and prefill activation (N, C)
+# shapes, the W8A8 simulated forward against its pack over 1 × 512 tokens,
+# perplexity over 4 windows of 2048 tokens (the reference evaluates
+# WikiText-2 in windows of 2048, ppl_eval.py:32-62)
+SIM_WEIGHT_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008))
+SIM_ACT_SHAPES = ((2048, 4096), (2048, 11008))
+SIM_PACKED_TOKENS = 512
+SIM_PPL_WINDOWS, SIM_PPL_WINDOW = 4, 2048
+
+
 def _die(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -1837,7 +1864,9 @@ def build_quickstart(fp, cfg, dev, n_samples=QS_SAMPLES, seq_len=QS_LEN):
     (get_act_scales, get_calib_feat over the tapped per-layer forward, on
     n_samples random sequences of seq_len tokens), smooth_lm (α = QS_ALPHA),
     pack_model with its defaults (per-layer int8-container packs).  Returns
-    (packed tree, seconds of each step)."""
+    (packed tree, seconds of each step, {"smoothed": the smoothed fp tree,
+    "feat": the calibration vectors}) — the simulated path's phases reuse
+    the last two."""
     import numpy as np
     import torch
 
@@ -1868,7 +1897,7 @@ def build_quickstart(fp, cfg, dev, n_samples=QS_SAMPLES, seq_len=QS_LEN):
     smoothed = timed("smooth_lm", lambda: smooth_lm("llama", fp, cfg, scales, alpha=QS_ALPHA))
     packed = timed("pack_model", lambda: pack_model("llama", smoothed, cfg, quickstart_recipe(),
                                                     input_feat=feat, act_scales=scales))
-    return packed, seconds
+    return packed, seconds, {"smoothed": smoothed, "feat": feat}
 
 
 def single_group_packs(fp):
@@ -2262,6 +2291,333 @@ def quickstart(fp, packed, cfg, dev, card):
         top1_agree=float((q_logits.argmax(-1) == f_logits.argmax(-1)).float().mean()),
         rel_norm_err=float((q_logits - f_logits).norm() / f_logits.norm()))
     return res, launches
+
+
+# ---------------------------------------------------------------- simulated path
+
+
+def sim_cases(act: bool):
+    """The quantizer grid: (granularity, sort key or None, group size or
+    None, bits, dtype name) — every granularity ("per_group" sorted by each
+    key), group sizes 64 and 128, 4 and 8 bits, f32 and bf16."""
+    kinds = [("per_token" if act else "per_channel", None), ("per_tensor", None),
+             ("per_group_unsorted", None), ("per_group", "max"), ("per_group", "mean_std"),
+             ("per_group", "argmax")]
+    return [(name, strat, gs, bits, dt) for name, strat in kinds
+            for gs in ((64, 128) if name.startswith("per_group") else (None,))
+            for bits in (4, 8) for dt in ("float32", "bfloat16")]
+
+
+def _outlier_rows(shape, gen, dev, dtype):
+    """Rows of mixed magnitude, 16 outlier columns and a dead one (a tie
+    under every sort key)."""
+    import torch
+
+    n, c = shape
+    x = torch.randn(shape, generator=gen, device=dev)
+    x *= torch.rand((n, 1), generator=gen, device=dev) * 2.8 + 0.2
+    x[:, torch.randperm(c, generator=gen, device=dev)[:16]] *= 20.0
+    x[:, 5] = 0.0
+    return x.to(dtype)
+
+
+def check_sim_quantizers(dev, gen):
+    """Every weight and activation quantizer of the grid (sim_cases) on the
+    card against the same function on a CPU copy of its input, bit for
+    bit: the weight cases cycle through SIM_WEIGHT_SHAPES, the activation
+    cases through SIM_ACT_SHAPES, so each granularity meets every shape;
+    then quantize_linear_params with 5 % salient channels (W4A4 g64 sorted
+    at gate_proj's shape, W8A8 per-channel at down_proj's): the weight, the
+    salient permutations.  The quantizers are written device-independent
+    (the mean_std key's sums in f64, stable sorts, the exact division by a
+    tensor), so any differing bit fails — after every case has run, the
+    failures listed.  Returns the phase's record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.quant import core
+    from smoothquant_tpu_torch.quant.config import W8A8_SMOOTHQUANT, w4a4_group
+    from smoothquant_tpu_torch.quant.linear import quantize_linear_params
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    card_s = cpu_s = 0.0
+    names, failed = [], []
+    for act, shapes in ((False, SIM_WEIGHT_SHAPES), (True, SIM_ACT_SHAPES)):
+        get = core.get_act_quantizer if act else core.get_weight_quantizer
+        for i, (name, strat, gs, bits, dt) in enumerate(sim_cases(act)):
+            shape = shapes[i % len(shapes)]
+            fn = get(name, bits, group_size=gs or 128, sort_strategy=strat or "max")
+            x = _outlier_rows(shape, gen, dev, dtypes[dt])
+            x_cpu = x.cpu()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref = fn(x_cpu)
+            t2 = time.perf_counter()
+            card_s, cpu_s = card_s + t1 - t0, cpu_s + t2 - t1
+            case = "-".join(str(v) for v in ("act" if act else "weight", name, strat, gs,
+                                             f"{bits}b", dt, "x".join(map(str, shape)))
+                            if v is not None)
+            try:
+                _same_bits(case, got.cpu(), ref)
+            except AssertionError as e:
+                failed.append(str(e))
+            names.append(case)
+    salient = []
+    for qcfg, (o, c) in ((w4a4_group(64, 0.05), SIM_WEIGHT_SHAPES[1]),
+                         (dataclasses.replace(W8A8_SMOOTHQUANT, salient_prop=0.05),
+                          SIM_WEIGHT_SHAPES[2])):
+        w = _outlier_rows((o, c), gen, dev, torch.bfloat16)
+        imp = np.random.default_rng(SEED + c).uniform(0.1, 1.0, size=(c,))
+        bias = torch.randn((o,), generator=gen, device=dev).to(torch.bfloat16)
+        got = quantize_linear_params({"weight": w, "bias": bias}, qcfg, imp)
+        ref = quantize_linear_params({"weight": w.cpu(), "bias": bias.cpu()}, qcfg, imp)
+        case = f"quantize_linear_params-{qcfg.weight_quant}-{qcfg.quant_bits}b-{o}x{c}"
+        if set(got) != set(ref) or "sal_perm" not in got:
+            raise AssertionError(f"sim_quantizers {case}: leaves {sorted(got)}")
+        for k in ref:
+            if ref[k] is not None:
+                try:
+                    _same_bits(f"{case} {k}", got[k].cpu(), ref[k])
+                except AssertionError as e:
+                    failed.append(str(e))
+        salient.append(dict(case=case, num_salient=int(got["salient_indices"].numel())))
+    if failed:
+        raise AssertionError(f"sim_quantizers: {len(failed)} cases differ: {failed}")
+    return dict(cases=len(names), bit_exact=True, grid=names, quantize_linear_params=salient,
+                card_seconds=card_s, cpu_seconds=cpu_s)
+
+
+def _sim_logits(tree, ids, cfg, mod, qcfg):
+    """Logits of a simulated (or fp, qcfg None) forward."""
+    import torch
+
+    from smoothquant_tpu_torch.models.common import ForwardContext
+
+    with torch.no_grad():
+        return mod.forward(tree, ids, cfg, ctx=ForwardContext(quant=qcfg))[0]
+
+
+def sim_reference_check(dev):
+    """The simulated path on the card against the same code on the CPU, on a
+    2-layer Llama (hidden 512, 4 heads of 128) and a 2-layer OPT (hidden
+    512, 8 heads of 64), f32, quantize_bmm_input on: W8A8_SMOOTHQUANT and
+    W4A4 g64 with 5 % salient channels (importance from a seed).  Each
+    device quantizes its own copy of the weights — the leaves must agree
+    bit for bit — then runs a 2 × 64-token forward.  The card's f32 sums
+    run in another order, and a per-token or per-group code at a rounding
+    edge then moves and spreads through the later rows and layer, so the
+    logits are held to 1e-5 of their norm or, where a code moved, to half
+    the quantization's own effect on the CPU (its quantized logits less
+    its fp ones: 2e-2 to 5e-1 on the test models) — a wrong path misses by
+    the effect itself or more."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import llama, opt
+    from smoothquant_tpu_torch.models.registry import quantize_model
+    from smoothquant_tpu_torch.quant.config import W8A8_SMOOTHQUANT, w4a4_group
+    from smoothquant_tpu_torch.quant.smooth import _get_path
+
+    models = {
+        "llama": (llama, dataclasses.replace(
+            llama.LlamaConfig.tiny(vocab_size=512), hidden_size=512, intermediate_size=1024,
+            num_attention_heads=4, num_key_value_heads=4)),
+        "opt": (opt, dataclasses.replace(opt.OPTConfig.tiny(vocab_size=512), hidden_size=512,
+                                         ffn_dim=1024, num_attention_heads=8)),
+    }
+    recipes = {"w8a8_smoothquant": W8A8_SMOOTHQUANT,
+               "w4a4_g64_5pct": w4a4_group(64, 0.05, quantize_bmm_input=True)}
+    out = {}
+    for arch, (mod, cfg) in models.items():
+        fp = mod.init_params(torch.Generator().manual_seed(SEED + 43), cfg, "cpu")
+        rng = np.random.default_rng(SEED + 43)
+        feat = {key: rng.uniform(0.1, 1.0, size=(_get_path(fp, path)["weight"].shape[1],))
+                for path, key, _ in mod.quantizable_linears(cfg)}
+        ids = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(
+            SEED + 44))
+        fp_logits = _sim_logits(fp, ids, cfg, mod, None)
+        for rname, qcfg in recipes.items():
+            ref_tree = quantize_model(arch, fp, cfg, qcfg, feat)
+            got_tree = quantize_model(arch, tree_to(fp, dev), cfg, qcfg, feat)
+            for path, _, _ in mod.quantizable_linears(cfg):
+                r, g = _get_path(ref_tree, path), _get_path(got_tree, path)
+                for k in r:
+                    if r[k] is not None:
+                        _same_bits(f"sim_reference {arch} {rname} {path} {k}", g[k].cpu(), r[k])
+            ref = _sim_logits(ref_tree, ids, cfg, mod, qcfg)
+            got = _sim_logits(got_tree, ids.to(dev), cfg, mod, qcfg).cpu()
+            if not (torch.isfinite(got).all() and got.shape == ref.shape):
+                raise AssertionError(f"sim_reference {arch} {rname}: non-finite or misshapen")
+            rel = float((got - ref).norm() / ref.norm())
+            effect = float((ref - fp_logits).norm() / fp_logits.norm())
+            tol = max(1e-5, 0.5 * effect)
+            if not rel <= tol:
+                raise AssertionError(f"sim_reference {arch} {rname}: relative norm error {rel} "
+                                     f"> {tol} (quantization effect {effect})")
+            out[f"{arch}_{rname}"] = dict(
+                rel_norm_err=rel, quant_effect=effect, tolerance_rel_norm=tol,
+                argmax_agree=float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
+    return out
+
+
+def sim_model(smoothed, feat, cfg, recipe_name, qcfg):
+    """quantize_model("llama", ...) on the card: (the simulated tree, its
+    phase record: seconds, GiB allocated after, linears with salient
+    channels)."""
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.registry import quantize_model
+    from smoothquant_tpu_torch.quant.smooth import _get_path
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = quantize_model("llama", smoothed, cfg, qcfg, feat if qcfg.salient_prop else None)
+    torch.cuda.synchronize()
+    n_sal = sum("sal_perm" in _get_path(tree, path)
+                for path, _, _ in llama.quantizable_linears(cfg))
+    return tree, dict(recipe=recipe_name, seconds=time.perf_counter() - t0,
+                      gib_allocated=torch.cuda.memory_allocated() / 2 ** 30,
+                      salient_linears=n_sal)
+
+
+def sim_vs_packed(smoothed, sim_w8a8, cfg, dev):
+    """The JAX package's own cross-check (tests/test_packed_model.py:34-49)
+    at full size: the W8A8 per-channel / per-token simulated forward
+    against the forward of pack_model's default W8A8 pack (per-layer
+    identity-int8 linears: K4 from PREFILL_KERNEL_MIN_TOKENS rows) of the
+    same smoothed weights, over 1 × SIM_PACKED_TOKENS tokens, BMM inputs
+    unquantized on both.  The simulated path rounds each dequantized
+    activation and weight to bf16 (qdq casts back to x's dtype, as JAX's
+    does) where K4 multiplies the int8 codes exactly, and the two divide
+    the weight scales by other rules: codes at rounding edges move and
+    spread through 32 layers, so the logits are held to the quantization's
+    own effect (the simulated logits' distance from the fp model's) — a
+    wrong kernel misses by the whole norm.  Returns (record, the packed
+    forward's launches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.models.registry import pack_model
+    from smoothquant_tpu_torch.quant.config import W8A8_SMOOTHQUANT
+
+    qcfg = dataclasses.replace(W8A8_SMOOTHQUANT, quantize_bmm_input=False)
+    t0 = time.perf_counter()
+    packed = pack_model("llama", smoothed, cfg, qcfg)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    ids = torch.as_tensor(np.random.default_rng(SEED + 47).integers(
+        0, cfg.vocab_size, size=(1, SIM_PACKED_TOKENS)), device=dev)
+    fp = _sim_logits(smoothed, ids, cfg, llama, None)
+    sim = _sim_logits(sim_w8a8, ids, cfg, llama, qcfg)
+    effect = float((sim - fp).norm() / fp.norm())
+    real, used = _path_launches(lambda: _sim_logits(packed, ids, cfg, llama, qcfg))
+    packed_effect = float((real - fp).norm() / fp.norm())
+    del fp
+    _check_launches("sim_vs_packed", used, {"int8_prefill_matmul": 7 * cfg.num_hidden_layers})
+    ms = {}
+    for name, tree in (("sim", sim_w8a8), ("packed", packed)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _sim_logits(tree, ids, cfg, llama, qcfg)
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t1)
+    del packed
+    if not (torch.isfinite(real).all() and real.shape == sim.shape):
+        raise AssertionError("sim_vs_packed: non-finite or misshapen logits")
+    rel = float((real - sim).norm() / sim.norm())
+    if not rel <= effect:
+        raise AssertionError(f"sim_vs_packed: relative norm error {rel} > the quantization's "
+                             f"effect {effect}")
+    return dict(tokens=SIM_PACKED_TOKENS, recipe="W8A8 per-channel / per-token",
+                rel_norm_err=rel, quant_effect=effect, packed_effect=packed_effect,
+                tolerance_rel_norm=effect,
+                top1_agree=float((real.argmax(-1) == sim.argmax(-1)).float().mean()),
+                pack_seconds=pack_s, forward_ms=ms, packed_launches=used,
+                kernel="K4 (int8_prefill_matmul, s8 wgmma body)"), used
+
+
+def sim_ppl(trees, cfg, dev):
+    """Perplexity through Evaluator over SIM_PPL_WINDOWS windows of
+    SIM_PPL_WINDOW random tokens (numpy seed) for each (name, tree, recipe)
+    of `trees`, with each window's seconds.  On random weights these
+    numbers say nothing of quality: they show the pipeline runs end to end
+    at full size, and what a window costs."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.eval import Evaluator
+    from smoothquant_tpu_torch.models import llama
+
+    tokens = np.random.default_rng(SEED + 53).integers(
+        0, cfg.vocab_size, size=(SIM_PPL_WINDOWS * SIM_PPL_WINDOW,))
+    ev = Evaluator(tokens, SIM_PPL_WINDOWS, SIM_PPL_WINDOW, device=dev)
+    out = {}
+    for name, tree, qcfg in trees:
+        seconds = []
+
+        def logits_fn(ids):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = _sim_logits(tree, ids, cfg, llama, qcfg)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return y
+
+        ppl = ev.evaluate(logits_fn)
+        if not (np.isfinite(ppl) and ppl > 1.0):
+            raise AssertionError(f"sim_ppl {name}: perplexity {ppl}")
+        out[name] = dict(ppl=ppl, seconds_per_window=seconds)
+    return out
+
+
+def run_sim(fp, calib, cfg, dev, card):
+    """The simulated-path phases on the quick start's smoothed 7B and its
+    calibration vectors (calib: build_quickstart's "smoothed" / "feat"):
+    sim_quantizers, sim_reference, sim_model (W8A8_SMOOTHQUANT, then W4A4
+    g64 with 5 % salient channels), sim_vs_packed, sim_ppl.  Returns the
+    launches of the path that ran a kernel (the W8A8 pack's forward)."""
+    import torch
+
+    from smoothquant_tpu_torch.quant.config import W8A8_SMOOTHQUANT, w4a4_group
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 59)
+    t0 = time.perf_counter()
+    emit({"phase": "sim_quantizers", "card": card, **check_sim_quantizers(dev, gen),
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "sim_reference", **sim_reference_check(dev),
+          "seconds": time.perf_counter() - t0})
+    smoothed, feat = calib["smoothed"], calib["feat"]
+    w4a4 = w4a4_group(64, 0.05)
+    sim8, rec = sim_model(smoothed, feat, cfg, "W8A8_SMOOTHQUANT", W8A8_SMOOTHQUANT)
+    emit({"phase": "sim_model", "card": card, **rec})
+    t0 = time.perf_counter()
+    res, used = sim_vs_packed(smoothed, sim8, cfg, dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "sim_vs_packed", "card": card, **res, "seconds": time.perf_counter() - t0})
+    sim4, rec = sim_model(smoothed, feat, cfg, "w4a4_group(64, 0.05)", w4a4)
+    emit({"phase": "sim_model", "card": card, **rec})
+    t0 = time.perf_counter()
+    ppl = sim_ppl((("fp", fp, None), ("w8a8_smoothquant", sim8, W8A8_SMOOTHQUANT),
+                   ("w4a4_g64_5pct", sim4, w4a4)), cfg, dev)
+    emit({"phase": "sim_ppl", "card": card, "windows": [SIM_PPL_WINDOWS, SIM_PPL_WINDOW],
+          "random_weights": "perplexity of random weights on random tokens: no measure of "
+                            "quality", **ppl, "seconds": time.perf_counter() - t0})
+    del sim8, sim4
+    torch.cuda.empty_cache()
+    return used
 
 
 # ---------------------------------------------------------------- end to end
@@ -5739,7 +6095,7 @@ def run(dev, cfg, card: str):
     launches.update(slot_decode(stacked, cfg, dev, card))
 
     t0 = time.perf_counter()
-    qs_packed, seconds = build_quickstart(fp, cfg, dev)
+    qs_packed, seconds, calib = build_quickstart(fp, cfg, dev)
     torch.cuda.synchronize()
     emit({"phase": "quickstart_model", "seconds": time.perf_counter() - t0, **seconds,
           "calibration": [QS_SAMPLES, QS_LEN], "alpha": QS_ALPHA,
@@ -5758,6 +6114,9 @@ def run(dev, cfg, card: str):
     launches.update(used)
     emit({"phase": "quickstart", "card": card, "seconds": time.perf_counter() - t0, **metrics})
     del qs_packed
+    torch.cuda.empty_cache()
+    launches.update(run_sim(fp, calib, cfg, dev, card))
+    del calib
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     bf16 = build_bf16(fp, cfg)

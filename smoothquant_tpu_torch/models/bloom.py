@@ -51,6 +51,8 @@ from smoothquant_tpu_torch.models.common import (
     stacked_flash_attention,
     unembed,
 )
+from smoothquant_tpu_torch.quant.config import QuantConfig
+from smoothquant_tpu_torch.quant.linear import quantize_linears
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -303,3 +305,14 @@ def quantizable_linears(cfg: BloomConfig):
         out.append((li + ("mlp", "dense_h_to_4h"), f"{pre}.mlp.dense_h_to_4h", False))
         out.append((li + ("mlp", "dense_4h_to_h"), f"{pre}.mlp.dense_4h_to_h", False))
     return out
+
+
+def quantize_params(params: dict, cfg: BloomConfig, qcfg: QuantConfig,
+                    input_feat: Optional[dict] = None) -> dict:
+    """The simulated path's offline weight quantization (bloom.py:357-380;
+    the reference quantizes no Bloom): query_key_value, dense,
+    dense_h_to_4h and dense_4h_to_h of every layer through
+    quant.linear.quantize_linear_params; input_feat (summed mean-|x|
+    calibration vectors) is keyed by the HF-style names of
+    quantizable_linears."""
+    return quantize_linears(params, quantizable_linears(cfg), qcfg, input_feat)

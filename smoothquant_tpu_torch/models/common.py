@@ -1,10 +1,11 @@
 """Shared model building blocks (port of smoothquant_tpu/models/common.py,
-the parts the W4A4 serving path, the bf16 decode baseline and the
-Generator use).
+the parts the W4A4 serving path, the simulated (fake-quant) path, the bf16
+decode baseline and the Generator use).
 
   ForwardContext (its calibration taps, quant and compute, :32-47),
-  call_linear (packed, transposed-fp "weight_t" and plain fp linears, with
-  the taps, :109-223), maybe_quantize_output (:226-239), rms_norm,
+  call_linear (packed, transposed-fp "weight_t", simulated quantized and
+  plain fp linears, with the taps, :109-223), maybe_quantize_output
+  (:226-239), rms_norm,
   layer_norm (:242-251), to_head_major (:578-580), unembed (:658-662),
   rotary_cos_sin, apply_rotary, the head-major KVCache / QuantKVCache
   (:281-387) and SMajorQuantKVCache (create / update / read), the einsum
@@ -47,7 +48,8 @@ from smoothquant_tpu_torch.kernels.fp_matmul import fp_matmul_stacked
 from smoothquant_tpu_torch.kernels.pack import PackedLinear, stack_packed
 from smoothquant_tpu_torch.kernels.real_linear import COMPUTE_CHOICES, real_quant_linear
 from smoothquant_tpu_torch.quant.config import QuantConfig
-from smoothquant_tpu_torch.quant.core import rms_factor
+from smoothquant_tpu_torch.quant.core import get_act_quantizer, rms_factor
+from smoothquant_tpu_torch.quant.linear import quant_linear
 
 NEG_INF = -1e9   # einsum attention mask value (common.py:29)
 
@@ -61,9 +63,11 @@ class ForwardContext:
     compute picks the kernel of a per-layer int8-container pack
     (real_linear.real_quant_linear): "int" (K8), "dequant" (K9) or "auto"
     (by recipe and token count).  quant is the recipe of the simulated
-    path, which is not ported: with it set, a plain fp linear raises, and so
-    does a q/k/v projection when its quantize_bmm_input asks to quantize the
-    output; packed linears carry their recipe in their meta and ignore it.
+    path: with it set, a plain {"weight", "bias"} linear (quantize_model's
+    output) runs quant.linear.quant_linear; packed linears carry their
+    recipe in their meta and take from quant only quantize_bmm_input,
+    which quantizes the q / k / v projections' outputs with its activation
+    quantizer on either path.
 
     fuse_attn chooses the attention of the stacked decode over an aligned
     head-major int8 cache ((L,) positions, no mask; common.py:85-98):
@@ -101,31 +105,39 @@ def call_linear(params, x: torch.Tensor, name: Optional[str] = None,
     A transposed-fp {"weight_t", "bias"} dict (llama.pack_fp_decode) runs
     K13 on layer layer_idx of its (L, K, O) stack, or one matmul when it is
     not stacked; a PackedLinear runs real_quant_linear with ctx.compute; a
-    plain {"weight", "bias"} dict x @ W.T + b in x's dtype.  quantize_output
-    marks the q/k/v projections, whose outputs ctx.quant's
-    quantize_bmm_input would quantize (maybe_quantize_output)."""
+    plain {"weight", "bias"} dict runs quant_linear under ctx.quant, else
+    x @ W.T + b in x's dtype.  quantize_output marks the q/k/v projections,
+    whose outputs ctx.quant's quantize_bmm_input quantizes on the packed
+    and the simulated path (a transposed-fp linear ignores the recipe, as
+    in the JAX package)."""
     taps = None if ctx is None else ctx.taps
+    quant = None if ctx is None else ctx.quant
     if taps is not None:
         taps.tap_input(name, x)
-    if (ctx is not None and ctx.quant is not None and not isinstance(params, PackedLinear)
-            and not (isinstance(params, dict) and "weight_t" in params)):
-        raise NotImplementedError("ForwardContext.quant on an fp linear is the simulated "
-                                  "(fake-quant) path, which is not ported")
-    y = _linear(params, x, layer_idx, norm, "auto" if ctx is None else ctx.compute)
-    if quantize_output:
-        y = maybe_quantize_output(y, ctx)
+    weight_t = isinstance(params, dict) and "weight_t" in params
+    if quant is not None and not weight_t and not isinstance(params, PackedLinear):
+        if layer_idx is not None or norm is not None:
+            raise NotImplementedError("simulated linears take no layer index or norm")
+        y = quant_linear(params, x, quant, quantize_output and quant.quantize_bmm_input)
+    else:
+        y = _linear(params, x, layer_idx, norm, "auto" if ctx is None else ctx.compute)
+        if quantize_output and not weight_t:
+            y = maybe_quantize_output(y, ctx)
     if taps is not None:
         taps.tap_output(name, y)
     return y
 
 
 def maybe_quantize_output(y: torch.Tensor, ctx: Optional[ForwardContext]) -> torch.Tensor:
-    """A projection output under ctx.quant.quantize_bmm_input (common.py:
-    226-239): the simulated BMM-input quantization is not ported, so that
-    recipe raises; every other context leaves y as it is."""
-    if ctx is not None and ctx.quant is not None and ctx.quant.quantize_bmm_input:
-        raise NotImplementedError("quantize_bmm_input (quantized BMM inputs) is not ported")
-    return y
+    """A projection output through the recipe's activation quantizer when
+    ctx.quant.quantize_bmm_input is on (common.py:226-239): the fused q / k
+    / v projections call it on each split, as the reference quantizes
+    each projection's output; any other context leaves y as it is."""
+    if ctx is None or ctx.quant is None or not ctx.quant.quantize_bmm_input:
+        return y
+    q = ctx.quant
+    return get_act_quantizer(q.act_quant, q.effective_act_bits, q.group_size,
+                             q.sort_strategy)(y)
 
 
 def _linear(params, x, layer_idx, norm, compute):

@@ -60,6 +60,8 @@ from smoothquant_tpu_torch.models.common import (
     stacked_smajor_attention,
     unembed,
 )
+from smoothquant_tpu_torch.quant.config import QuantConfig
+from smoothquant_tpu_torch.quant.linear import quantize_linears
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -535,3 +537,13 @@ def quantizable_linears_fused(cfg: LlamaConfig):
         out.append((li + ("mlp", "gate_up_proj"), f"{pre}.mlp.gate_proj", False))
         out.append((li + ("mlp", "down_proj"), f"{pre}.mlp.down_proj", False))
     return out
+
+
+def quantize_params(params: dict, cfg: LlamaConfig, qcfg: QuantConfig,
+                    input_feat: Optional[dict] = None) -> dict:
+    """The simulated path's offline weight quantization (llama.py:737-771):
+    all seven projections of every layer through
+    quant.linear.quantize_linear_params; input_feat (summed mean-|x|
+    calibration vectors) is keyed by the HF-style names of
+    quantizable_linears."""
+    return quantize_linears(params, quantizable_linears(cfg), qcfg, input_feat)

@@ -30,6 +30,8 @@ from smoothquant_tpu_torch.models.common import (
     to_head_major,
     unembed,
 )
+from smoothquant_tpu_torch.quant.config import QuantConfig
+from smoothquant_tpu_torch.quant.linear import quantize_linears
 
 POS_OFFSET = 2  # OPTLearnedPositionalEmbedding offset
 ATTN_PROJS = ("q_proj", "k_proj", "v_proj", "out_proj")
@@ -229,3 +231,13 @@ def quantizable_linears(cfg: OPTConfig):
         out.append((li + ("fc1",), f"{pre}.fc1", False))
         out.append((li + ("fc2",), f"{pre}.fc2", False))
     return out
+
+
+def quantize_params(params: dict, cfg: OPTConfig, qcfg: QuantConfig,
+                    input_feat: Optional[dict] = None) -> dict:
+    """The simulated path's offline weight quantization (opt.py:386-412):
+    q / k / v / out_proj, fc1 and fc2 of every layer through
+    quant.linear.quantize_linear_params; input_feat (summed mean-|x|
+    calibration vectors) is keyed by the HF-style names of
+    quantizable_linears."""
+    return quantize_linears(params, quantizable_linears(cfg), qcfg, input_feat)

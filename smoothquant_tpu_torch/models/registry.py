@@ -1,6 +1,7 @@
 """Architecture dispatch (port of smoothquant_tpu/models/registry.py):
-smooth_lm for any registered architecture (:51-55; llama, opt, bloom) and
-pack_model (:57-197) — the default per-layer tree (fuse=False: every
+register_arch and get_arch (:19-38; llama, opt, bloom), quantize_model
+(the simulated path's weight quantization, :41-48), smooth_lm (:51-55)
+and pack_model (:57-197) — the default per-layer tree (fuse=False: every
 projection its own pack, the README quick start's path and Bloom's) or,
 for Llama, the fused qkv / gate_up tree with the shared residual basis,
 folded permutations and identity layouts of the serving pack."""
@@ -18,7 +19,18 @@ from smoothquant_tpu_torch.models import bloom, llama, opt
 from smoothquant_tpu_torch.quant.config import QuantConfig
 from smoothquant_tpu_torch.quant.smooth import _get_path, _set_path, smooth_model
 
-_ARCHES = {"llama": llama, "opt": opt, "bloom": bloom}
+_ARCHES = {}
+
+
+def register_arch(name: str, module) -> None:
+    """Make `module` (quantize_params, smoothing_map, quantizable_linears,
+    ...) the architecture `name`."""
+    _ARCHES[name] = module
+
+
+register_arch("llama", llama)
+register_arch("opt", opt)
+register_arch("bloom", bloom)
 
 
 def get_arch(name: str):
@@ -28,6 +40,13 @@ def get_arch(name: str):
         raise NotImplementedError(
             f"architecture {name!r} is not ported (ported: {sorted(_ARCHES)})"
         ) from None
+
+
+def quantize_model(arch: str, params: dict, cfg, qcfg: QuantConfig,
+                   input_feat: Optional[dict] = None) -> dict:
+    """Offline weight quantization of the simulated path for any registered
+    architecture: a tree that forward runs under ForwardContext(quant=qcfg)."""
+    return get_arch(arch).quantize_params(params, cfg, qcfg, input_feat)
 
 
 def smooth_lm(arch: str, params: dict, cfg, act_scales: dict,

@@ -1,7 +1,9 @@
-"""Quantization configuration (port of smoothquant_tpu/quant/config.py:19-130).
+"""Quantization configuration (port of smoothquant_tpu/quant/config.py).
 
-A frozen, hashable dataclass carrying the recipe; the packed layers record
-the activation part of it in their meta so recipes can mix per layer.
+A frozen, hashable dataclass carrying the recipe, its named presets
+(W8A8_SMOOTHQUANT, W4A4_PER_CHANNEL) and recipe functions (w4a4_group, w4a8_group);
+the packed layers record the activation part of it in their meta so
+recipes can mix per layer.
 """
 
 from __future__ import annotations
@@ -67,6 +69,17 @@ class QuantConfig:
         if self.salient_prop <= 0:
             return 0
         return max(1, int(self.salient_prop * in_features))
+
+
+# Named presets of the reference's experiments (config.py:113-121).
+W8A8_SMOOTHQUANT = QuantConfig(
+    weight_quant="per_channel", act_quant="per_token",
+    quantize_bmm_input=True, quant_bits=8, alpha=0.5,
+)
+W4A4_PER_CHANNEL = QuantConfig(
+    weight_quant="per_channel", act_quant="per_token",
+    quantize_bmm_input=True, quant_bits=4,
+)
 
 
 def w4a4_group(group_size: int = 128, salient_prop: float = 0.0,

@@ -8,7 +8,10 @@ its PackedMeta as a plain dict under "meta"; an identity-int8 pack
 (promote_int8's, or the per-channel lm_head) gets its weight stored
 K-major (kernels/pack.k_major), as the port's own packs hold it.  Plain
 and transposed-fp ("weight_t", llama.pack_fp_decode) linears are dicts of
-arrays and convert leaf by leaf — the fp OPT tree among them.  The real-INT8
+arrays and convert leaf by leaf — the fp OPT tree among them, and the
+simulated trees of quantize_model, whose int32 "sal_perm", "sal_inv_perm"
+and "salient_indices" leaves become int64, the index dtype the port's
+quantize_linear_params stores them in.  The real-INT8
 OPT tree (opt_int8.from_float's) converts by int8_opt_from_numpy.  bfloat16
 arrays may arrive as any numpy dtype named "bfloat16".
 """
@@ -25,6 +28,7 @@ from smoothquant_tpu_torch.kernels.pack import PackedLinear, PackedMeta, k_major
 from smoothquant_tpu_torch.models.opt_int8 import Int8Linear, Int8OPTLayerParams
 
 _FIELDS = ("w_qt", "w_scales_t", "w_sal_t", "bias", "perm", "ns_mask")
+_INDEX_LEAVES = ("sal_perm", "sal_inv_perm", "salient_indices")
 _META_FIELDS = {f.name for f in dataclasses.fields(PackedMeta)}
 
 
@@ -57,14 +61,15 @@ def params_from_numpy(tree, device="cuda"):
     """Convert a flattened JAX params tree; see the module docstring."""
     dev = resolve_device(device)
 
-    def walk(node):
+    def walk(node, key=None):
         if node is None:
             return None
         if isinstance(node, dict):
             if "meta" in node and "w_qt" in node:
                 return packed_from_numpy(node, dev)
-            return {k: walk(v) for k, v in node.items()}
-        return tensor_from_numpy(node, dev)
+            return {k: walk(v, k) for k, v in node.items()}
+        t = tensor_from_numpy(node, dev)
+        return t.to(torch.int64) if key in _INDEX_LEAVES else t
 
     return walk(tree)
 

@@ -315,8 +315,9 @@ def test_quickstart_path_rehearsal_on_cpu(monkeypatch):
                               num_key_value_heads=4, dtype="bfloat16")
     cpu = torch.device("cpu")
     fp = llama.init_params(torch.Generator().manual_seed(0), cfg, cpu)
-    packed, seconds = cs.build_quickstart(fp, cfg, cpu, n_samples=2, seq_len=32)
+    packed, seconds, calib = cs.build_quickstart(fp, cfg, cpu, n_samples=2, seq_len=32)
     assert set(seconds) == {"act_scales", "calib_feat", "smooth_lm", "pack_model"}
+    assert set(calib) == {"smoothed", "feat"}
     q = packed["layers"]["0"]["self_attn"]["q_proj"]
     assert not q.meta.nibble and q.meta.group_size == 64 and q.meta.num_salient == 25
     # smoothing moved the q/k/v inputs' norm; o_proj stayed an unsmoothed pack
@@ -358,6 +359,66 @@ def test_quickstart_path_rehearsal_on_cpu(monkeypatch):
     assert 0.0 <= metrics["vs_fp"]["top1_agree"] <= 1.0
     assert metrics["launches_per_decode_step"] == {"int_group_matmul": 7 * n_l,
                                                    "decode_attention_stacked": n_l}
+
+
+def test_sim_path_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's simulated-path phases on the CPU at a small size (2
+    layers of hidden 512, bf16; the quick start's calibration on 2
+    sequences of 32; the quantizer grid at 256-1024 wide shapes, the
+    packed check over 32 tokens, perplexity over 4 windows of 32): every
+    quantizer "on the card" against itself on the CPU, the small-model
+    reference check, quantize_model for both recipes, the W8A8 pack against
+    the simulated forward and the perplexities; the launch check stubbed,
+    its expectation recorded."""
+    import dataclasses
+    import math
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.models import llama
+
+    for name, value in dict(SIM_WEIGHT_SHAPES=((256, 512), (1024, 512), (512, 1024)),
+                            SIM_ACT_SHAPES=((64, 512), (64, 1024)), SIM_PACKED_TOKENS=32,
+                            SIM_PPL_WINDOWS=4, SIM_PPL_WINDOW=32).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    expected = {}
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda path, launches, expect: expected.setdefault(path, expect))
+    printed = []
+    monkeypatch.setattr(cs, "emit", printed.append)
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=512), hidden_size=512,
+                              intermediate_size=1024, num_attention_heads=4,
+                              num_key_value_heads=4, dtype="bfloat16")
+    cpu = torch.device("cpu")
+    fp = llama.init_params(torch.Generator().manual_seed(0), cfg, cpu)
+    _, _, calib = cs.build_quickstart(fp, cfg, cpu, n_samples=2, seq_len=32)
+    used = cs.run_sim(fp, calib, cfg, cpu, "card")
+    n_l = cfg.num_hidden_layers
+    assert used == {} and expected == {"sim_vs_packed": {"int8_prefill_matmul": 7 * n_l}}
+    phases = {}
+    for line in printed:
+        phases.setdefault(line["phase"], []).append(line)
+    assert list(phases) == ["sim_quantizers", "sim_reference", "sim_model", "sim_vs_packed",
+                            "sim_ppl"]
+    q = phases["sim_quantizers"][0]
+    assert q["cases"] == 80 == len(set(q["grid"])) and q["bit_exact"]
+    assert {c.split("-")[-1] for c in q["grid"]} == {"256x512", "1024x512", "512x1024",
+                                                     "64x512", "64x1024"}
+    assert [s["num_salient"] for s in q["quantize_linear_params"]] == [25, 51]
+    ref = phases["sim_reference"][0]
+    assert {k for k in ref if k not in ("phase", "seconds")} == {
+        f"{a}_{r}" for a in ("llama", "opt") for r in ("w8a8_smoothquant", "w4a4_g64_5pct")}
+    assert all(v["rel_norm_err"] == 0.0 for k, v in ref.items() if isinstance(v, dict))
+    assert [m["salient_linears"] for m in phases["sim_model"]] == [0, 7 * n_l]
+    svp = phases["sim_vs_packed"][0]
+    assert svp["rel_norm_err"] <= svp["quant_effect"] and 0.0 <= svp["top1_agree"] <= 1.0
+    ppl = phases["sim_ppl"][0]
+    for name in ("fp", "w8a8_smoothquant", "w4a4_g64_5pct"):
+        assert math.isfinite(ppl[name]["ppl"]) and len(ppl[name]["seconds_per_window"]) == 4
 
 
 def test_reference_check_rehearsal_on_cpu(monkeypatch):

@@ -213,20 +213,34 @@ def test_generator_tokens_identical_to_jax(quickstart, same_crossover):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_forward_context_rules(quickstart):
-    """compute is validated; quant on an fp linear (the simulated path) and
-    quantize_bmm_input raise rather than being skipped; a packed tree
-    ignores a quant recipe that does not quantize BMM inputs."""
+def test_forward_context_rules(quickstart, same_crossover):
+    """compute is validated; quant on an fp linear runs the simulated path
+    (the activation Q-DQ moves the fp logits); on a packed tree
+    quantize_bmm_input quantizes the q / k / v outputs with the recipe's
+    activation quantizer, held to JAX's packed forward as
+    test_forward_logits_match_jax is (its prompts; an int8 per-token BMM
+    quantizer: with the int4 sorted-group one a code at a rounding edge
+    moves, and its effect spreads through the pack's own int4 activation
+    codes to 0.17 of the norm), and a recipe that does not quantize BMM
+    inputs changes nothing."""
     q = quickstart
-    ids = torch.zeros((1, 4), dtype=torch.int64)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, q["jcfg"].vocab_size,
+                                                             size=(2, 12)))
     with pytest.raises(ValueError):
         ForwardContext(compute="fast")
-    with pytest.raises(NotImplementedError):
-        tllama.forward(q["tparams"], ids, q["tcfg"], ctx=ForwardContext(quant=w4a4_group()))
-    bmm = dataclasses.replace(w4a4_group(64, 0.05), quantize_bmm_input=True)
-    with pytest.raises(NotImplementedError):
-        tllama.forward(q["t_packed"], ids, q["tcfg"], ctx=ForwardContext(quant=bmm))
+    fp, _ = tllama.forward(q["tparams"], ids, q["tcfg"])
+    sim, _ = tllama.forward(q["tparams"], ids, q["tcfg"], ctx=ForwardContext(quant=w4a4_group()))
+    assert torch.isfinite(sim).all() and not torch.equal(sim, fp)
+    kw = dict(quantize_bmm_input=True, act_quant="per_token", act_bits=8)
+    bmm = dataclasses.replace(w4a4_group(64, 0.05), **kw)
+    got, _ = tllama.forward(q["t_packed"], ids, q["tcfg"], ctx=ForwardContext(quant=bmm))
+    jbmm = dataclasses.replace(jw4a4_group(64, 0.05), **kw)
+    ref = np.asarray(jax.jit(lambda p, i: jllama.forward(
+        p, i, q["jcfg"], ctx=JCtx(quant=jbmm, interpret=True))[0])(
+        q["j_packed"], jnp.asarray(ids.numpy())))
+    assert np.linalg.norm(got.numpy() - ref) <= 1e-3 * np.linalg.norm(ref)
     a, _ = tllama.forward(q["t_packed"], ids, q["tcfg"],
                           ctx=ForwardContext(quant=w4a4_group(64, 0.05)))
     b, _ = tllama.forward(q["t_packed"], ids, q["tcfg"])
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(got, b)
