@@ -219,6 +219,38 @@ Bloom's two steps are profiled once more with each layer's cache write on
 the route before K2 / K10's row body (old_write_route: apply_rotary's torch
 ops on q in the layer loop, the first design copying k / v): busy time and
 kernels a step beside the path's own.
+The serving layer on every tree and pool (each request's tokens held to
+its own greedy Generator run, its prompt alone at the pool's width, up to
+the first step whose top-2 logit gap falls below SERVE_GAP_TOL of
+|logits|∞, SMAJOR_EINSUM_GAP_TOL over the S-major pool; the launches
+checked):
+   - tied_and_unfused (after the reference check): a tied twin of the fp
+     7B gives the untied twin's 1 × 512 logits bit for bit; the unfused
+     pack_model(shared_residual_basis, fold_perms) within half the
+     quantization's own effect of the fused serving pack;
+   - serve_per_layer (after the promoted tree is built): the serving pack
+     kept per-layer through ContinuousBatcher over per-slot per-layer
+     pools — int8 head-major (K6, K11, K4's lm_head) prefilled on the pack
+     and on its promoted twin (K4), S-major (the einsum); after the quick
+     start, its pack through the Generator under compute "int" (K8) and
+     "dequant" (K9);
+   - serve_fp_pool (after the bf16 phases): the JAX batcher's default fp
+     pool, the bf16 stacked tree (K13, K11) and the per-layer bf16 tree
+     under attn="kernel" (K11, no einsum in a step);
+   - serve_families: OPT-1.3B's fp per-layer tree (after its prefill) and
+     BLOOM-7b1's fp stacked tree through the per-layer body over the stack
+     (after its Generator), no kernel launched;
+   - Mistral-7B (run_mistral, after the Llama trees are freed: the JAX
+     package's mistral_7b preset, random bf16 weights from seed 0,
+     calibration on 4 random 512-token sequences, the serving pack): K1,
+     K7 + K5, K14 and K10 against their plain versions at its GQA widths
+     (out of the kernels line's sums), then the stacked decode at B = 4
+     from position 4600 in caches of 5120 (keys 0-504 outside the 4096
+     window) over the S-major pool (K2, K3) and the head-major one with
+     per-slot positions ("off": K10, K11): each layer's attention against
+     the einsum over the same dequantized cache with and without the
+     window, the step's logits against the einsum step and the windowless
+     step, three windows of 8 steps.
 10. Prints each K5, K6 and K8 row's per-group scaling floor beside its
    bound (scaling_floors), the `kernels` JSON line (all eighteen kernels,
    K4's raw-x and K11's ALiBi bodies named by their sites and counted
@@ -5237,6 +5269,9 @@ def run_opt(dev, cfg, card: str):
     pf, used = opt_prefill(smoothed, int8, cfg, dev)
     launches.update(used)
     emit({"phase": "opt_prefill", "card": card, **pf, "launches": used})
+    from smoothquant_tpu_torch.models import opt
+
+    serve_family("opt", opt, smoothed, smoothed, cfg, dev, card, max_len=OPT_SERVE_LEN)
     del smoothed
     torch.cuda.empty_cache()
     g, used = opt_generator(int8, cfg, dev)
@@ -5879,7 +5914,9 @@ def run_bloom(dev, cfg, card: str):
     metrics, used = bloom_generator(packed, fp, cfg, dev, card)
     launches.update(used)
     emit({"phase": "bloom_generator", "card": card, **metrics})
-    del fp
+    fp_stacked = bloom.stack_layers(fp, cfg)
+    serve_family("bloom", bloom, fp_stacked, fp, cfg, dev, card, max_len=MAX_LEN)
+    del fp, fp_stacked
     torch.cuda.empty_cache()
     for n in (BLOOM_BATCH * BLOOM_PROMPT, BLOOM_BATCH):
         rows += check_gmm(packed, cfg, dev, gen, n)
@@ -5989,6 +6026,626 @@ def kernels_line(rows, launches):
     return {"kernels": out}
 
 
+# ---------------------------------------------------------------- serving layer
+
+# the serving phases' requests: prompts of 100-240 tokens, 32 new, chunks of 8
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 8, 32, (100, 240)
+GEN_COMPUTE_NEW = 16        # the Generator's compute modes: new tokens a prompt
+OPT_SERVE_LEN = 1024
+# a request's tokens are held to its per-request greedy Generator run up to
+# the first step at which that run's top-2 logit gap falls below this share
+# of its |logits|∞ (a near-tie, where another shape's sum order may pick the
+# other token); over the S-major pool the batcher's einsum reads the cache
+# in another layout than its reference's, the bits differ, and W4A4 codes at
+# rounding edges move and spread, so its near-ties reach further
+SERVE_GAP_TOL, SMAJOR_EINSUM_GAP_TOL = 1e-2, 5e-2
+# Mistral-7B's windowed decode: B = 4 from position 4600 in a cache of 5120,
+# so keys 0-504 lie outside the 4096 window.  Each layer's attention is held
+# to the einsum over the same dequantized cache and bias (a share of the
+# largest output: bf16 outputs, p rounded to bf16 before PV), and must sit
+# farther than that from the windowless einsum; the bf16 tree's step
+# logits to the same step with the einsum as its attention (relative norm:
+# bf16 roundings of the attention's last-bit differences carried through
+# 32 layers), which the windowless step must exceed
+MISTRAL_BATCH, MISTRAL_POS, MISTRAL_LEN = 4, 4600, 5120
+MISTRAL_SAMPLES, MISTRAL_CALIB_LEN = 4, 512
+MISTRAL_ATTN_TOL, MISTRAL_LOGIT_TOL = 1e-2, 0.1
+
+
+def serve_prompts(cfg, n, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=(int(rng.integers(*SERVE_PROMPT)),))
+            for _ in range(n)]
+
+
+def greedy_reference(mod, tree, cfg, prompt, new, dev, *, max_len, prefill_tree=None,
+                     quant_kv=False, copies=None, **ctx):
+    """One request through a Generator of its own (greedy), run step by step
+    so each step's logits are read: its tokens, and each step's top-2 logit
+    gap over |logits|∞.  The request runs alone, its prompt replicated to
+    `copies` rows (default MAX_BATCH, the pool's slots; the rows never
+    mix), so every decode kernel takes the shape the batcher gives it: the
+    same K11 split, the lm_head on K4."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.serve.generate import Generator
+
+    copies = copies or MAX_BATCH
+    g = Generator(mod, tree, cfg, max_len=max_len, quant_kv=quant_kv,
+                  prefill_params=prefill_tree, device=dev, **ctx)
+    caches = g._new_caches(copies)
+    ids = torch.as_tensor(np.asarray(prompt)[None], device=dev).repeat(copies, 1)
+    params, toks, gaps = g.prefill_params, [], []
+    with torch.no_grad():
+        for _ in range(new):
+            logits, caches = mod.forward(params, ids, cfg, ctx=g.ctx, caches=caches)
+            last = logits[0, -1].float()
+            top = torch.topk(last, 2).values
+            toks.append(int(torch.argmax(last)))
+            gaps.append(float((top[0] - top[1]) / last.abs().max()))
+            ids = torch.full((copies, 1), toks[-1], device=dev)
+            params = g.params
+    return {"tokens": toks, "gaps": gaps}
+
+
+def hold_tokens(path, got, refs, tol):
+    """Each request's tokens identical to its reference's up to the first
+    step whose reference gap is below `tol`; raises otherwise.  Returns the
+    counts, the smallest gap held, and where each request first differs
+    (step, the reference's gap there, its smallest gap up to there)."""
+    near = compared = identical = 0
+    first_diff, bad = [], []
+    held_gaps = []
+    for g, r in zip(got, refs):
+        diff = next((t for t, (a, b) in enumerate(zip(g, r["tokens"])) if a != b), None)
+        first_diff.append(None if diff is None else
+                          [diff, r["gaps"][diff], min(r["gaps"][:diff + 1])])
+        identical += diff is None and len(g) == len(r["tokens"])
+        for t, (a, b, gap) in enumerate(zip(g, r["tokens"], r["gaps"])):
+            if gap < tol:
+                near += 1
+                break
+            if a != b:
+                bad.append((t, gap))
+                break
+            compared += 1
+            held_gaps.append(gap)
+    out = dict(requests=len(got), identical_requests=identical, near_tie_requests=near,
+               steps_held=compared, gap_tol=tol, first_diff=first_diff,
+               min_gap_held=min(held_gaps, default=None))
+    if bad:
+        raise AssertionError(f"{path}: tokens differ from the per-request Generator before any "
+                             f"near-tie (step, gap): {bad}; {out}")
+    return out
+
+
+def serve_batch(mod, tree, cfg, dev, prompts, *, batch=MAX_BATCH, max_len=MAX_LEN,
+                new=None, chunk=8, **kw):
+    """prompts through ContinuousBatcher(mod, tree, cfg, max_batch=batch,
+    max_len, **kw), chunks of `chunk`: (tokens per request, launches,
+    metrics: decode steps, prefill rows and sequences, wall seconds,
+    tokens/s; einsum calls, the einsum attention's calls counted)."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import common
+    from smoothquant_tpu_torch.serve.batching import ContinuousBatcher, Request
+
+    new = new or SERVE_NEW
+    b = ContinuousBatcher(mod, tree, cfg, max_batch=batch, max_len=max_len, device=dev, **kw)
+    pre = {"rows": [], "seqs": []}
+    inner = b._prefill
+
+    def counted_prefill(ids, lens):
+        pre["rows"].append(ids.shape[0] * ids.shape[1])
+        pre["seqs"].append(ids.shape[0])
+        return inner(ids, lens)
+
+    b._prefill = counted_prefill
+    einsum = {"calls": 0}
+    real = common.attention
+
+    def counted(*a, **k):
+        einsum["calls"] += 1
+        return real(*a, **k)
+
+    reqs = [Request(uid=i, prompt=np.asarray(p), max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        b.submit(r)
+    common.attention = counted
+    try:
+        t0 = time.perf_counter()
+        _, launches = _path_launches(lambda: b.run_to_completion(chunk=chunk))
+        wall = time.perf_counter() - t0
+    finally:
+        common.attention = real
+    toks = [r.generated for r in reqs]
+    if not (all(r.done and len(r.generated) == new for r in reqs)
+            and all(0 <= t < cfg.vocab_size for g in toks for t in g)):
+        raise AssertionError("serving: unfinished request or token out of range")
+    return toks, launches, dict(decode_steps=b._steps, prefill_rows=pre["rows"],
+                                prefill_seqs=pre["seqs"], wall_s=wall,
+                                tokens_per_s=len(reqs) * new / wall,
+                                einsum_attention_calls=einsum["calls"])
+
+
+def _prefill_k4(rows, seqs, n_l, promoted):
+    """K4's launches of a batcher's prefills: the int8 lm_head on each row's
+    last position from PREFILL_KERNEL_MIN_TOKENS rows, and with a promoted
+    prefill tree its four linears a layer over rows × bucket."""
+    from smoothquant_tpu_torch.kernels.real_linear import PREFILL_KERNEL_MIN_TOKENS
+
+    k4 = sum(n >= PREFILL_KERNEL_MIN_TOKENS for n in seqs)
+    if promoted:
+        k4 += 4 * n_l * sum(n >= PREFILL_KERNEL_MIN_TOKENS for n in rows)
+    return k4
+
+
+def serve_fp_pool(fp, bf16, cfg, dev, card):
+    """The JAX batcher's default pool (quant_kv=False) at Llama-2-7B: the
+    bf16 stacked tree (K13 4·L + K11 L a step, the stacked fp pool) and then
+    the per-layer bf16 tree over per-layer per-slot fp caches under
+    attn="kernel" (K11 L a step, its linears torch matmuls; no einsum
+    attention in a decode step), both prefilled on the per-layer tree,
+    SERVE_REQUESTS requests at MAX_BATCH slots; tokens held to each
+    request's per-layer greedy Generator (attn="kernel").  Returns the
+    launches."""
+    from collections import Counter
+
+    from smoothquant_tpu_torch.models import llama
+
+    n_l = cfg.num_hidden_layers
+    prompts = serve_prompts(cfg, SERVE_REQUESTS, SEED + 71)
+    refs = [greedy_reference(llama, fp, cfg, p, SERVE_NEW, dev, max_len=MAX_LEN, attn="kernel")
+            for p in prompts]
+    launches = Counter()
+    for tree_name, tree, kw, per_step in (
+            ("stacked", bf16, {}, {"fp_matmul_stacked": 4 * n_l,
+                                   "decode_attention_stacked": n_l}),
+            ("per_layer", fp, {"attn": "kernel"}, {"decode_attention_stacked": n_l})):
+        toks, used, m = serve_batch(llama, tree, cfg, dev, prompts, prefill_params=fp, **kw)
+        _check_launches(f"serve_fp_pool {tree_name}", used,
+                        {k: v * m["decode_steps"] for k, v in per_step.items()})
+        if m["einsum_attention_calls"] != n_l * len(m["prefill_rows"]):
+            raise AssertionError(f"serve_fp_pool {tree_name}: {m['einsum_attention_calls']} "
+                                 "einsum attentions, only the prefills' expected")
+        launches.update(used)
+        emit({"phase": "serve_fp_pool", "card": card, "tree": tree_name, "pool": "fp",
+              "max_batch": MAX_BATCH, "cache": MAX_LEN, **m, "launches_per_step": per_step,
+              "launches": used, "tokens": hold_tokens(f"serve_fp_pool {tree_name}", toks, refs,
+                                                      SERVE_GAP_TOL)})
+    return launches
+
+
+def serve_per_layer(packed, promoted, cfg, dev, card):
+    """The serving pack kept per-layer, through the batcher over per-layer
+    per-slot pools at MAX_BATCH slots: the int8 head-major pool (K6 4·L,
+    K11 L and the int8 lm_head's K4 a step), prefilled on the pack (K6) and
+    then on its promoted twin (K4); the S-major pool (the einsum attention
+    over its dequantized view, as in JAX).  Tokens held to each request's
+    greedy Generator over int8 caches with the same prefill tree and the
+    pool's attention (K11, or the einsum under attn="einsum").  Returns the
+    launches."""
+    from collections import Counter
+
+    from smoothquant_tpu_torch.kernels.real_linear import PREFILL_KERNEL_MIN_TOKENS
+    from smoothquant_tpu_torch.models import llama
+
+    n_l = cfg.num_hidden_layers
+    prompts = serve_prompts(cfg, SERVE_REQUESTS, SEED + 73)
+    launches = Counter()
+    lm = int(MAX_BATCH >= PREFILL_KERNEL_MIN_TOKENS)
+    for pool, pre, smajor in (("int8 head-major", "nibble", False),
+                              ("int8 head-major", "promoted", False),
+                              ("int8 S-major", "nibble", True)):
+        tree = promoted if pre == "promoted" else packed
+        # the reference's attention is the pool's: K11 over int8 caches, or
+        # the einsum over their dequantized view, as the S-major pool's
+        refs = [greedy_reference(llama, packed, cfg, p, SERVE_NEW, dev, max_len=MAX_LEN,
+                                 quant_kv=True, prefill_tree=tree,
+                                 attn="einsum" if smajor else "auto") for p in prompts]
+        toks, used, m = serve_batch(llama, packed, cfg, dev, prompts, quant_kv=True,
+                                    smajor=smajor, prefill_params=tree)
+        per_step = {"int4_group_matmul": 4 * n_l, "int8_prefill_matmul": lm}
+        if not smajor:
+            per_step["decode_attention_stacked"] = n_l
+        expect = {k: v * m["decode_steps"] for k, v in per_step.items()}
+        expect["int8_prefill_matmul"] += _prefill_k4(m["prefill_rows"], m["prefill_seqs"], n_l,
+                                                     pre == "promoted")
+        if pre == "nibble":
+            expect["int4_group_matmul"] += 4 * n_l * len(m["prefill_rows"])
+        _check_launches(f"serve_per_layer {pool} {pre}", used, expect)
+        calls = n_l * (len(m["prefill_rows"]) + (m["decode_steps"] if smajor else 0))
+        if m["einsum_attention_calls"] != calls:
+            raise AssertionError(f"serve_per_layer {pool}: {m['einsum_attention_calls']} einsum "
+                                 f"attentions, {calls} expected")
+        launches.update(used)
+        emit({"phase": "serve_per_layer", "card": card, "tree": "W4A4 serving pack, per-layer",
+              "pool": pool, "prefill_tree": pre, "max_batch": MAX_BATCH, "cache": MAX_LEN, **m,
+              "launches_per_step": per_step, "launches": used,
+              "tokens": hold_tokens(f"serve_per_layer {pool} {pre}", toks, refs,
+                                    SMAJOR_EINSUM_GAP_TOL if smajor else SERVE_GAP_TOL)})
+    return launches
+
+
+def serve_generator_compute(packed, cfg, dev, card):
+    """The quick start's per-layer int8-container pack through the Generator
+    under compute="int" (K8 only) and "dequant" (K9 only): QS_BATCH prompts
+    of 200 tokens, GEN_COMPUTE_NEW new, int8 caches (K11); each prompt's tokens held to
+    its own greedy Generator in the same mode.  Returns the launches."""
+    from collections import Counter
+
+    import numpy as np
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.serve.generate import GenerationConfig, Generator
+
+    n_l = cfg.num_hidden_layers
+    prompts = np.random.default_rng(SEED + 75).integers(0, cfg.vocab_size,
+                                                        size=(QS_BATCH, GEN_PROMPT))
+    launches = Counter()
+    for compute, kernel in (("int", "int_group_matmul"), ("dequant", "dual_path_matmul")):
+        refs = [greedy_reference(llama, packed, cfg, p, GEN_COMPUTE_NEW, dev, max_len=QS_MAX_LEN,
+                                 quant_kv=True, compute=compute, copies=QS_BATCH)
+                for p in prompts]
+        g = Generator(llama, packed, cfg, max_len=QS_MAX_LEN, quant_kv=True, compute=compute,
+                      device=dev)
+        t0 = time.perf_counter()
+        out, used = _path_launches(
+            lambda: g.generate(prompts, GenerationConfig(max_new_tokens=GEN_COMPUTE_NEW)))
+        wall = time.perf_counter() - t0
+        steps = GEN_COMPUTE_NEW - 1
+        _check_launches(f"generator compute={compute}", used, {
+            kernel: 7 * n_l * (1 + steps), "decode_attention_stacked": n_l * steps})
+        launches.update(used)
+        emit({"phase": "serve_per_layer", "card": card, "tree": "quick start pack",
+              "generator": True, "compute": compute, "batch": QS_BATCH, "prompt": GEN_PROMPT,
+              "new_tokens": GEN_COMPUTE_NEW, "wall_s": wall,
+              "tokens_per_s": QS_BATCH * GEN_COMPUTE_NEW / wall,
+              "launches_per_step": {kernel: 7 * n_l, "decode_attention_stacked": n_l},
+              "launches": used,
+              "tokens": hold_tokens(f"generator compute={compute}",
+                                    [list(r[GEN_PROMPT:]) for r in out], refs,
+                                    SERVE_GAP_TOL)})
+    return launches
+
+
+def serve_family(name, mod, tree, ref_tree, cfg, dev, card, *, max_len, batch=MAX_BATCH):
+    """An fp tree of another family through the batcher over the fp pool,
+    prefilled and decoded on that tree (OPT: the per-layer tree, learned
+    positions from each slot's sequence position; Bloom: the stacked tree,
+    which the stacked decode declines, so the per-layer body runs over its
+    layers for the prefill and every step), held to the per-request greedy
+    Generator on the per-layer tree `ref_tree`.  The fp path runs no
+    kernel: the launches must be none."""
+    prompts = serve_prompts(cfg, SERVE_REQUESTS, SEED + 77)
+    refs = [greedy_reference(mod, ref_tree, cfg, p, SERVE_NEW, dev, max_len=max_len,
+                             copies=batch) for p in prompts]
+    toks, used, m = serve_batch(mod, tree, cfg, dev, prompts, batch=batch, max_len=max_len)
+    _check_launches(f"serve_families {name}", used, {})
+    emit({"phase": "serve_families", "card": card, "family": name,
+          "tree": "stacked fp" if "stacked" in tree["layers"] else "per-layer fp",
+          "pool": "fp", "max_batch": batch, "cache": max_len, **m,
+          "tokens": hold_tokens(f"serve_families {name}", toks, refs, SERVE_GAP_TOL)})
+
+
+def tied_and_unfused(fp, packed, cfg, dev, card):
+    """At Llama-2-7B width: a tied twin (no lm_head, tie_word_embeddings,
+    embed_tokens the untied tree's lm_head weight, which the untied twin
+    also embeds with) gives the untied twin's 1 × 512 prefill logits bit for
+    bit; and the unfused pack_model(shared_residual_basis=True,
+    fold_perms=True) of the serving recipe, given the statistics the fused
+    pack keys by q_proj and gate_proj (each normed activation once in the
+    shared key), gives per-layer 1 × 512 logits within half the
+    quantization's own effect (the fused serving pack's logits less the fp
+    model's, by relative norm) of the fused pack's; perms_as_fused reports
+    whether its perms are the fused pack's."""
+    import dataclasses
+
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.registry import pack_model
+
+    ids = torch.randint(0, cfg.vocab_size, (1, MAX_LEN), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 79))
+    lm_w = fp["lm_head"]["weight"]
+    untied = dict(fp, embed_tokens={"weight": lm_w})
+    tied = {k: v for k, v in untied.items() if k != "lm_head"}
+    with torch.no_grad():
+        a = llama.forward(untied, ids, cfg)[0]
+        b = llama.forward(tied, ids, dataclasses.replace(cfg, tie_word_embeddings=True))[0]
+    if not (torch.isfinite(a).all() and torch.equal(a, b)):
+        raise AssertionError("tied_and_unfused: the tied twin's logits differ from the untied")
+    del a, b
+    qcfg, head, feat = _recipe(cfg, SEED, 64)
+    # the fused listing keys a fusion by its first part (q_proj, gate_proj),
+    # so each normed activation enters the shared key once: the unfused pack
+    # gets the same statistics, the other parts' summing to nothing
+    feat = {k: 0.0 * v if k.endswith(("k_proj", "v_proj", "up_proj")) else v
+            for k, v in feat.items()}
+    t0 = time.perf_counter()
+    unfused = pack_model("llama", fp, cfg, qcfg, input_feat=feat, nibble=True,
+                         lm_head_qcfg=head, align_k_groups=8, align_o=2048, fold_perms=True,
+                         shared_residual_basis=True, identity_keys=("o_proj",))
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    with torch.no_grad():
+        lf = llama.forward(fp, ids, cfg)[0].float()
+        lq = llama.forward(packed, ids, cfg)[0].float()
+        _, used = _path_launches(lambda: llama.forward(unfused, ids, cfg))
+        lu = llama.forward(unfused, ids, cfg)[0].float()
+    n_l = cfg.num_hidden_layers
+    _check_launches("unfused shared-basis prefill", used,
+                    {"int4_group_matmul": 7 * n_l, "int8_prefill_matmul": 1})
+    effect = float((lq - lf).norm() / lf.norm())
+    rel = float((lu - lq).norm() / lq.norm())
+    tol = 0.5 * effect
+    if not (torch.isfinite(lu).all() and rel <= tol):
+        raise AssertionError(f"tied_and_unfused: unfused pack {rel} from the fused one > {tol}")
+    same_perms = all(
+        torch.equal(unfused["layers"][str(i)][blk][a].perm, packed["layers"][str(i)][blk][b].perm)
+        for i in range(n_l) for blk, a, b in (("self_attn", "q_proj", "qkv_proj"),
+                                              ("self_attn", "v_proj", "qkv_proj"),
+                                              ("mlp", "up_proj", "gate_up_proj"),
+                                              ("mlp", "down_proj", "down_proj")))
+    del unfused
+    torch.cuda.empty_cache()
+    return dict(tied_bit_exact=True, unfused_pack_s=pack_s, perms_as_fused=same_perms,
+                rel_norm_vs_fused=rel,
+                fused_quant_effect=effect, tolerance_rel_norm=tol,
+                unfused_quant_effect=float((lu - lf).norm() / lf.norm()),
+                top1_vs_fused=float((lu.argmax(-1) == lq.argmax(-1)).float().mean()),
+                launches=used)
+
+
+def build_mistral(cfg, dev):
+    """Mistral-7B (the JAX package's mistral_7b preset) from seed SEED:
+    random bf16 weights, calibration (get_act_scales, get_calib_feat) on
+    MISTRAL_SAMPLES random sequences of MISTRAL_CALIB_LEN tokens, the serving
+    pack (W4A4 g64, 5 % salient, bf16 scales, fused qkv / gate_up over the
+    shared residual basis, identity o_proj, folded down_proj input, int8
+    lm_head) and its stack, and the bf16 tree (pack_fp_decode +
+    stack_layers); the fp tree is freed.  Returns (stacked W4A4 tree, bf16
+    tree, seconds of each step)."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.models.registry import pack_model
+    from smoothquant_tpu_torch.quant.calibrate import get_act_scales, get_calib_feat
+
+    seconds = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return r
+
+    fp = timed("init", lambda: llama.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, dev))
+    rng = np.random.default_rng(SEED + 81)
+    batches = [rng.integers(0, cfg.vocab_size, size=(1, MISTRAL_CALIB_LEN))
+               for _ in range(MISTRAL_SAMPLES)]
+
+    def fwd(p, ids, col):
+        return llama.forward(p, torch.as_tensor(ids, device=dev), cfg,
+                             ctx=ForwardContext(taps=col))
+
+    scales = timed("act_scales", lambda: get_act_scales(fwd, fp, batches))
+    feat = timed("calib_feat", lambda: get_calib_feat(fwd, fp, batches))
+    qcfg, head, _ = _recipe(cfg, SEED, 64)
+    packed = timed("pack_model", lambda: pack_model(
+        "mistral", fp, cfg, qcfg, input_feat=feat, act_scales=scales, nibble=True,
+        lm_head_qcfg=head, align_k_groups=8, align_o=2048, fuse=True, fold_perms=True,
+        shared_residual_basis=True, identity_keys=("o_proj",)))
+    bf16 = timed("bf16_tree", lambda: build_bf16(fp, cfg))
+    del fp
+    stacked = timed("stack_layers", lambda: llama.stack_layers(packed, cfg))
+    return stacked, bf16, seconds
+
+
+def _einsum_decode_attention(cache, i, q, bias):
+    """Layer i's single-query attention over a stacked int8 cache (S-major
+    or head-major) as the plain einsum: the cache dequantized in f32, the
+    (B, S) bias (the window in it) added to the f32 scores, softmax, PV."""
+    import torch
+
+    from smoothquant_tpu_torch.models.common import SMajorQuantKVCache
+
+    b, h, d = q.shape
+    if isinstance(cache, SMajorQuantKVCache):
+        n_kv = cache.k_scale.shape[2]
+        k = cache.k_q[i].view(b, -1, n_kv, d).transpose(1, 2)
+        v = cache.v_q[i].view(b, -1, n_kv, d).transpose(1, 2)
+    else:
+        k, v = cache.k_q[i], cache.v_q[i]
+        n_kv = k.shape[1]
+    k = (k.float() * cache.k_scale[i][..., None]).repeat_interleave(h // n_kv, dim=1)
+    v = (v.float() * cache.v_scale[i][..., None]).repeat_interleave(h // n_kv, dim=1)
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), k) / d ** 0.5 + bias[:, None, :]
+    return torch.einsum("bhs,bhsd->bhd", torch.softmax(s, dim=-1), v).to(q.dtype)
+
+
+def mistral_window(stacked, bf16, cfg, dev, card):
+    """The stacked W4A4 decode of Mistral-7B at B = MISTRAL_BATCH from
+    position MISTRAL_POS in caches of MISTRAL_LEN (random codes and scales
+    in [0, MISTRAL_POS)), so keys 0-504 lie outside the 4096 window: over
+    the S-major pool (K1, K2, K3, the window in K3's bias) and the
+    head-major pool with per-slot positions ("off": K10 + K11, which the
+    window forces).  Per pool, from one copy of the cache, one step of the
+    W4A4 tree and of the bf16 tree (K13, the same attention kernels): each
+    layer's attention held to the einsum over the same dequantized cache
+    with the window mask (max error over the largest output, within
+    MISTRAL_ATTN_TOL) and off by more than that from the windowless einsum
+    at every layer; the bf16 step's logits against the same step with that
+    einsum as its attention (relative norm within MISTRAL_LOGIT_TOL) and
+    the same step with sliding_window=None off by more than that (the W4A4
+    step's logits move with every last-bit difference: a code at a rounding
+    edge flips and spreads through 32 layers, so its logits are not held
+    to another attention's); then 3 windows of 8 W4A4 steps (ms/step by
+    host clock, device busy).  Returns the launches of the counted steps."""
+    import dataclasses
+    from collections import Counter
+
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.common import decode_bias
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 83)
+    launches = Counter()
+    steps, out = {}, {}
+    tok = torch.randint(0, cfg.vocab_size, (MISTRAL_BATCH, 1), generator=gen, device=dev)
+    for name, smajor, attn in (("s_major", True, "smajor"), ("head_major", False, "off")):
+        cache = llama.stacked_caches(cfg, MISTRAL_BATCH, MISTRAL_LEN, pos=MISTRAL_POS,
+                                     quant_kv=True, smajor=smajor, per_slot=True, device=dev)
+        for f in ("k_q", "v_q"):
+            getattr(cache, f).copy_(torch.randint(-127, 128, getattr(cache, f).shape,
+                                                  generator=gen, device=dev, dtype=torch.int8))
+        for f in ("k_scale", "v_scale"):
+            t = getattr(cache, f)
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.015 + 0.005)
+        pristine = {f: getattr(cache, f).clone() for f in ("k_q", "v_q", "k_scale", "v_scale",
+                                                           "pos")}
+        attend = "stacked_smajor_attention" if smajor else "stacked_flash_attention"
+        real = getattr(llama, attend)
+        errs = {"w4a4": ([], []), "bf16": ([], [])}
+
+        def checked(tree_errs):
+            def attention(c, i, q, bias, *a, **k):
+                o = real(c, i, q, bias, *a, **k).float()
+                for out_errs, b in zip(tree_errs, (bias, decode_bias(
+                        c.pos[i], q.shape[0], MISTRAL_LEN, None))):
+                    ref = _einsum_decode_attention(c, i, q, b).float()
+                    out_errs.append(float((o - ref).abs().max() / ref.abs().max()))
+                return o.to(q.dtype)
+            return attention
+
+        def step_logits(tree, attention=None, window=True):
+            for f, t in pristine.items():
+                getattr(cache, f).copy_(t)
+            step_cfg = cfg if window else dataclasses.replace(cfg, sliding_window=None)
+            if attention is not None:
+                setattr(llama, attend, attention)
+            try:
+                with torch.no_grad():
+                    h, _ = llama.forward_hidden(tree, tok, step_cfg, caches=cache)
+                    return llama.lm_head_logits(tree, h, step_cfg).float()
+            finally:
+                setattr(llama, attend, real)
+
+        w4a4 = step_logits(stacked, checked(errs["w4a4"]))
+        kernel = step_logits(bf16, checked(errs["bf16"]))
+        einsum = step_logits(bf16, lambda c, i, q, bias, *a, **k:
+                             _einsum_decode_attention(c, i, q, bias))
+        no_window = step_logits(bf16, window=False)
+        for f, t in pristine.items():
+            getattr(cache, f).copy_(t)
+        rel = float((kernel - einsum).norm() / einsum.norm())
+        rel_nw = float((no_window - kernel).norm() / kernel.norm())
+        attn_err = max(max(e[0]) for e in errs.values())
+        attn_nw = min(min(e[1]) for e in errs.values())
+        if not (torch.isfinite(w4a4).all() and torch.isfinite(kernel).all()
+                and attn_err <= MISTRAL_ATTN_TOL < attn_nw
+                and rel <= MISTRAL_LOGIT_TOL < rel_nw):
+            raise AssertionError(
+                f"mistral_window {name}: attention {attn_err} (bound {MISTRAL_ATTN_TOL}), "
+                f"{attn_nw} from the windowless one; bf16 logits {rel} against the einsum "
+                f"(bound {MISTRAL_LOGIT_TOL}), without the window {rel_nw}")
+        out[name] = dict(attention_max_err=attn_err, attention_tol=MISTRAL_ATTN_TOL,
+                         attention_min_err_without_window=attn_nw,
+                         attention_errs={k: v[0] for k, v in errs.items()},
+                         attention_errs_without_window={k: v[1] for k, v in errs.items()},
+                         bf16_rel_norm_vs_einsum=rel, bf16_rel_norm_without_window=rel_nw,
+                         tolerance_rel_norm=MISTRAL_LOGIT_TOL,
+                         bf16_top1_vs_einsum=float((kernel.argmax(-1) == einsum.argmax(-1))
+                                                   .float().mean()),
+                         w4a4_rel_norm_vs_bf16=float((w4a4 - kernel).norm() / kernel.norm()))
+        del w4a4, kernel, einsum, no_window
+        steps[name], used = aligned_decoder(stacked, cache, cfg, dev,
+                                            f"mistral {name} decode step",
+                                            step_launches(cfg, MISTRAL_BATCH, attn))
+        launches.update(used)
+        out[name]["cache"] = cache
+    dec = decode_windows(steps, batch=MISTRAL_BATCH)
+    for name, res in out.items():
+        cache = res.pop("cache")
+        emit({"phase": "mistral_window", "card": card, "pool": name, "batch": MISTRAL_BATCH,
+              "cache": MISTRAL_LEN, "window": cfg.sliding_window,
+              "positions": [MISTRAL_POS, int(cache.pos.flatten()[0])], **res,
+              "launches_per_step": step_launches(cfg, MISTRAL_BATCH,
+                                                 "smajor" if name == "s_major" else "off"),
+              **dec[name]})
+    return launches
+
+
+def _off_the_sums(rows, prefix):
+    """Kernel rows of another model's shapes: sites prefixed (once), out of
+    the kernels line's sums."""
+    for r in rows:
+        site = r.get("site", "all")
+        r["site"] = site if site.startswith(f"{prefix}_") else f"{prefix}_{site}"
+        r["in_sum"] = False
+    return rows
+
+
+def _emitted_off_the_sums(prefix, fn):
+    """fn() with every kernel row it emits passed through _off_the_sums."""
+    global emit
+    real = emit
+    emit = lambda obj: real(_off_the_sums([obj], prefix)[0] if "kernel" in obj else obj)
+    try:
+        return fn()
+    finally:
+        emit = real
+
+
+def run_mistral(dev, card: str, cfg=None):
+    """Mistral-7B (mistral_7b(): hidden 4096, 32 layers, 32 heads over 8 kv
+    heads, intermediate 14336, vocab 32000, window 4096; random bf16 weights
+    from seed 0; calibration on MISTRAL_SAMPLES random sequences of
+    MISTRAL_CALIB_LEN tokens, the one cut), after every Llama tree is freed:
+    K1 (N = 4), K7 + K5 (N = 64), K14 (N = 4 and 8) and K10 (B = 4, 8 kv
+    heads, q rotated) against their plain versions at its widths (out of the
+    kernels line's sums), then the windowed decode.  Returns (kernel rows,
+    launches)."""
+    import torch
+
+    from smoothquant_tpu_torch.models.llama import LlamaConfig
+    from smoothquant_tpu_torch.utils import roofline
+
+    cfg = cfg or LlamaConfig.mistral_7b()
+    t0 = time.perf_counter()
+    stacked, bf16, seconds = build_mistral(cfg, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "mistral_model", "seconds": time.perf_counter() - t0, **seconds,
+          "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+          "kv_heads": cfg.num_key_value_heads, "intermediate": cfg.intermediate_size,
+          "window": cfg.sliding_window, "rope_theta": cfg.rope_theta,
+          "calibration": [MISTRAL_SAMPLES, MISTRAL_CALIB_LEN],
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
+          "decode_step_bytes": roofline.llama_decode_step_bytes(
+              cfg, batch=MISTRAL_BATCH, max_len=MISTRAL_LEN)})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 85)
+    rows = _off_the_sums(_emitted_off_the_sums("mistral", lambda: (
+        check_rawx(stacked, dev, gen)
+        + check_gmm_stacked(stacked, dev, gen, n=SLOT_BATCH, main=False)
+        + check_mlp_fused(stacked, dev, gen)
+        + check_write_cache_hm(dev, gen, MISTRAL_BATCH, cfg.num_key_value_heads, cfg.head_dim,
+                               site="gqa8", n_q=cfg.num_attention_heads))), "mistral")
+    launches = mistral_window(stacked, bf16, cfg, dev, card)
+    return rows, launches
+
+
 def run(dev, cfg, card: str):
     """Every Llama phase on `dev` at the size of `cfg`; returns (kernel rows,
     the main paths' launches)."""
@@ -6048,6 +6705,8 @@ def run(dev, cfg, card: str):
           **k1_vs_k5(stacked, dev, gen)})
     emit({"phase": "k6_host_us", "card": card, "us_per_call": k6_host_us(dev)})
     emit({"phase": "reference_check", **reference_check(dev)})
+    emit({"phase": "tied_and_unfused", "card": card, **tied_and_unfused(fp, packed, cfg, dev,
+                                                                        card)})
 
     launches = Counter()
     metrics, used = serve(packed, stacked, cfg, dev, promoted=False)
@@ -6082,6 +6741,7 @@ def run(dev, cfg, card: str):
     metrics, used = serve(promoted, stacked, cfg, dev, promoted=True)
     launches.update(used)
     emit({"phase": "serving", "card": card, **metrics, "launches": used})
+    launches.update(serve_per_layer(packed, promoted, cfg, dev, card))
 
     del packed
     torch.cuda.empty_cache()
@@ -6113,6 +6773,7 @@ def run(dev, cfg, card: str):
     metrics, used = quickstart(fp, qs_packed, cfg, dev, card)
     launches.update(used)
     emit({"phase": "quickstart", "card": card, "seconds": time.perf_counter() - t0, **metrics})
+    launches.update(serve_generator_compute(qs_packed, cfg, dev, card))
     del qs_packed
     torch.cuda.empty_cache()
     launches.update(run_sim(fp, calib, cfg, dev, card))
@@ -6120,7 +6781,6 @@ def run(dev, cfg, card: str):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     bf16 = build_bf16(fp, cfg)
-    del fp
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     emit({"phase": "bf16_model", "seconds": time.perf_counter() - t0,
@@ -6157,7 +6817,7 @@ def run(dev, cfg, card: str):
           "device_busy": b["busy_ms_per_step"] / w["busy_ms_per_step"],
           "bound": (roofline.llama_bf16_decode_step_bytes(cfg)["bound_ms"]
                     / roofline.llama_decode_step_bytes(cfg)["bound_ms"])})
-
+    launches.update(serve_fp_pool(fp, bf16, cfg, dev, card))
     return rows, launches
 
 
@@ -6192,11 +6852,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     more_rows, more = run(dev, llama.LlamaConfig.llama2_7b(), card)
     torch.cuda.empty_cache()
+    mistral_rows, mistral = run_mistral(dev, card)
+    torch.cuda.empty_cache()
     bloom_rows, bloom_launches = run_bloom(dev, bloom_7b1(), card)
-    rows = rows + more_rows + bloom_rows
+    rows = rows + more_rows + mistral_rows + bloom_rows
     emit({"phase": "scaling_floors", "card": card, "sm_clock_mhz": clock,
           "rows": add_scaling_floors(rows, clock)})
-    emit(kernels_line(rows, launches + more + bloom_launches))
+    emit(kernels_line(rows, launches + more + mistral + bloom_launches))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

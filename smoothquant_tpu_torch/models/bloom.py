@@ -1,6 +1,6 @@
 """Bloom decoder (port of smoothquant_tpu/models/bloom.py, the parts the
-serving path uses: calibration, smoothing, the nibble pack, the Generator
-and the stacked decode).
+serving path uses: calibration, smoothing, the nibble pack, the Generator,
+the batcher and the stacked decode).
 
 HF Bloom's facts, as the JAX module mirrors them: ALiBi attention (no
 positions; score += slope_h · key position), the fused per-head qkv
@@ -11,19 +11,25 @@ post_attention_layernorm → dense_h_to_4h); the JAX package also packs its
 four projections, and so does this port.
 
 The per-layer forward runs with no cache (the full-model prefill and the
-calibration taps) or over per-layer KVCache / QuantKVCache lists: a single
-query over the int8 cache runs K11 with the slopes (the role the TPU kernel
-has in _cached_alibi_attention), everything else the einsum.  A stacked tree
-(stack_layers) decodes one token through a Python loop over the layers
-that hands the layer index to the kernels — the counterpart of the JAX
-lax.scan (_prefetch_scan_decode, :237-295): the packs' input is gathered
-into their channel order (real_linear; Bloom's LayerNorm fuses into no
-kernel), K1 up to 32 rows or K7a + K5 above, K10 with rotary off, K11 with
-the slopes.  A stacked tree that is not prefetch-capable raises, as the
-port's Llama does (the JAX package scans _decoder_layer there).
+calibration taps) or over per-layer KVCache / QuantKVCache lists (an int
+or (B,) per-slot positions): a single query runs K11 with the slopes as
+ForwardContext.attn picks it (the role the TPU kernel has in
+_cached_alibi_attention: "auto" over the int8 cache, "kernel" over the fp
+one too), everything else the einsum.  A stacked tree (stack_layers)
+decodes one token through a Python loop over the layers that hands the
+layer index to the kernels — the counterpart of the JAX lax.scan
+(_prefetch_scan_decode, :237-295): the packs' input is gathered into their
+channel order (real_linear; Bloom's LayerNorm fuses into no kernel), K1 up
+to 32 rows or K7a + K5 above, K10 with rotary off, K11 with the slopes.  A
+stacked tree that _prefetch_capable declines (an fp tree, a multi-token
+call, no cache, (L, B) per-slot positions, taps, attn "einsum") runs
+_decoder_layer over layer views of the stack and of its cache, as the JAX
+package's scan over _decoder_layer does (:332-342).  forward is
+forward_hidden (embedding → layers → ln_f) then lm_head_logits (the tied
+unembedding), so the batcher unembeds only the rows it needs.
 
-Not ported: quantize_params (the simulated path), config_from_hf and
-params_from_hf_state_dict (no checkpoint in the repository).
+Not ported: config_from_hf and params_from_hf_state_dict (no checkpoint in
+the repository).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from smoothquant_tpu_torch.models.common import (
     stack_layer_trees,
     stacked_cache_append_fused,
     stacked_flash_attention,
+    stacked_layers,
     unembed,
 )
 from smoothquant_tpu_torch.quant.config import QuantConfig
@@ -96,7 +103,7 @@ def alibi_slopes(n_heads: int) -> np.ndarray:
 def init_params(gen: torch.Generator, cfg: BloomConfig, device="cuda") -> dict:
     """Random Bloom params from `gen`, at the shapes of bloom.py:65-96
     (linear weights N(0, 1/in), zero biases, unit LayerNorms, embeddings
-    N(0, 0.02²); the numbers differ from jax.random's)."""
+    N(0, 0.02²); the numbers are torch's, not jax.random's)."""
     dev = resolve_device(device)
     dt = cfg.torch_dtype
     h = cfg.hidden_size
@@ -129,22 +136,27 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cached_alibi_attention(q: torch.Tensor, cache, slopes: torch.Tensor, offset,
-                            attn_mask: Optional[torch.Tensor]):
+                            ctx: Optional[ForwardContext], attn_mask: Optional[torch.Tensor]):
     """Attention over an already-updated per-layer cache (bloom.py:130-168):
-    a single query over the int8 head-major cache runs K11 with the slopes
-    and validity folded into a (B, S) bias; the fp cache and the prefill
-    take the einsum over the cache's (dequantized) view."""
+    a single query runs K11 with the slopes and validity folded into a
+    (B, S) bias where ctx.attn picks it ("auto": the int8 cache; "kernel":
+    the fp cache too; "einsum": never); the rest and the prefill take the
+    einsum over the cache's (dequantized) view."""
     if not isinstance(cache, (KVCache, QuantKVCache)):
         raise NotImplementedError(f"cache type {type(cache).__name__}")
     b, sq, nh, d = q.shape
-    if isinstance(cache, QuantKVCache) and sq == 1:
-        s = cache.k_q.shape[2]
-        if k11.supported(s, nh, nh, d):
-            last = torch.as_tensor(cache.pos - 1, device=q.device)
-            bias = decode_bias(last, b, s, attn_mask)          # keys < pos
-            out = k11.decode_attention(q[:, 0], cache.k_q, cache.v_q, bias,
-                                       cache.k_scale, cache.v_scale, slopes)
-            return out[:, None]
+    mode = "auto" if ctx is None else ctx.attn
+    quant = isinstance(cache, QuantKVCache)
+    kbuf = cache.k_q if quant else cache.k
+    s = kbuf.shape[2]
+    if (sq == 1 and mode != "einsum" and (mode == "kernel" or quant)
+            and k11.supported(s, nh, nh, d)):
+        last = torch.as_tensor(cache.pos, device=q.device) - 1
+        bias = decode_bias(last, b, s, attn_mask)          # keys < pos
+        scales = (cache.k_scale, cache.v_scale) if quant else (None, None)
+        out = k11.decode_attention(q[:, 0], kbuf, cache.v_q if quant else cache.v, bias,
+                                   *scales, slopes)
+        return out[:, None]
     return attention(q, *cache.read(), causal_offset=offset, valid_len=cache.pos,
                      attn_mask=attn_mask, alibi_slopes=slopes)
 
@@ -166,7 +178,7 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: BloomConfig, name: str, slope
     if cache is not None:
         offset = cache.pos
         cache = cache.update(k, v)
-        a = _cached_alibi_attention(q, cache, slopes, offset, attn_mask)
+        a = _cached_alibi_attention(q, cache, slopes, offset, ctx, attn_mask)
     else:
         a = attention(q, k.transpose(1, 2), v.transpose(1, 2), attn_mask=attn_mask,
                       alibi_slopes=slopes)
@@ -232,50 +244,68 @@ def _prefetch_scan_decode(params: dict, x: torch.Tensor, cfg: BloomConfig, cache
 def _prefetch_capable(params: dict, cfg: BloomConfig, ctx: Optional[ForwardContext],
                       caches, s: int) -> bool:
     """The stacked decode's gate (bloom.py:298-310): prefetch_tree_capable
-    (one token, every projection tile-aligned), a head-major cache (the
-    S-major one takes no slopes) with the (L,) aligned positions
-    stacked_caches builds, no taps, and shapes K11 tiles."""
-    if ctx is not None and ctx.taps is not None:
-        return False
+    (one token, no taps, attn not "einsum", every projection tile-aligned),
+    a head-major cache (the S-major one takes no slopes) with the (L,)
+    aligned positions stacked_caches builds, and shapes K11 tiles."""
     if not isinstance(caches, (KVCache, QuantKVCache)) or caches.pos.ndim != 1:
         return False
-    if not prefetch_tree_capable(params["layers"].get("stacked"), caches, s):
+    if not prefetch_tree_capable(params["layers"].get("stacked"), caches, s, ctx):
         return False
     kbuf = caches.k_q if isinstance(caches, QuantKVCache) else caches.k
     return k11.supported(kbuf.shape[3], cfg.num_attention_heads,
                          cfg.num_attention_heads, cfg.head_dim)
 
 
-def forward(params: dict, input_ids: torch.Tensor, cfg: BloomConfig,
-            ctx: Optional[ForwardContext] = None, caches=None,
-            positions: Optional[torch.Tensor] = None,
-            attn_mask: Optional[torch.Tensor] = None):
-    """(f32 logits (B, S, V), updated caches) (bloom.py:313-354).  caches:
-    None, a list of per-layer caches, or one stacked cache (single-token
-    decode over a stacked tree).  positions is accepted for the Generator's
-    signature and unused: ALiBi reads the key positions."""
+def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: BloomConfig,
+                   ctx: Optional[ForwardContext] = None, caches=None,
+                   positions: Optional[torch.Tensor] = None,
+                   attn_mask: Optional[torch.Tensor] = None):
+    """Hidden states after ln_f (B, S, H) and the updated caches
+    (bloom.py:313-354 without the unembedding).  caches: None, a list of
+    per-layer caches, or, over a stacked tree, one stacked cache or None.
+    positions is accepted for the model-module contract and unused: ALiBi
+    reads the key positions."""
     del positions
     b, s = input_ids.shape
     x = params["word_embeddings"]["weight"][input_ids]
     x = layer_norm(params["word_embeddings_layernorm"], x, cfg.layer_norm_epsilon)
     slopes = torch.as_tensor(alibi_slopes(cfg.num_attention_heads), device=x.device)
-    if "stacked" in params["layers"]:
-        if not _prefetch_capable(params, cfg, ctx, caches, s):
-            raise NotImplementedError(
-                "stacked Bloom trees decode one token over a stacked head-major "
-                "cache K11 tiles, every projection tile-aligned (_prefetch_capable)")
+    stacked = "stacked" in params["layers"]
+
+    def layer(lp, x, i, cache):
+        name = "transformer.h.scan" if stacked else f"transformer.h.{i}"
+        return _decoder_layer(lp, x, cfg, name, slopes, ctx, cache, attn_mask)
+
+    if stacked and _prefetch_capable(params, cfg, ctx, caches, s):
         x, caches = _prefetch_scan_decode(params, x, cfg, caches, slopes, attn_mask)
+    elif stacked:
+        x, caches = stacked_layers(layer, params["layers"]["stacked"], x,
+                                   cfg.num_hidden_layers, caches, ctx)
     else:
         new_caches = None if caches is None else []
         for i in range(cfg.num_hidden_layers):
-            x, c = _decoder_layer(params["layers"][str(i)], x, cfg, f"transformer.h.{i}",
-                                  slopes, ctx, None if caches is None else caches[i],
-                                  attn_mask)
+            x, c = layer(params["layers"][str(i)], x, i,
+                         None if caches is None else caches[i])
             if new_caches is not None:
                 new_caches.append(c)
         caches = new_caches
-    x = layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
-    return unembed(x, params["word_embeddings"]["weight"]), caches
+    return layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon), caches
+
+
+def lm_head_logits(params: dict, h: torch.Tensor, cfg: BloomConfig,
+                   ctx: Optional[ForwardContext] = None) -> torch.Tensor:
+    """f32 logits through the tied unembedding (bloom.py:353)."""
+    del ctx
+    return unembed(h, params["word_embeddings"]["weight"])
+
+
+def forward(params: dict, input_ids: torch.Tensor, cfg: BloomConfig,
+            ctx: Optional[ForwardContext] = None, caches=None,
+            positions: Optional[torch.Tensor] = None,
+            attn_mask: Optional[torch.Tensor] = None):
+    """(f32 logits (B, S, V), updated caches) (bloom.py:313-354)."""
+    h, caches = forward_hidden(params, input_ids, cfg, ctx, caches, positions, attn_mask)
+    return lm_head_logits(params, h, cfg, ctx), caches
 
 
 def smoothing_map(cfg: BloomConfig):

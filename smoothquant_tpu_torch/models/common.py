@@ -1,21 +1,23 @@
 """Shared model building blocks (port of smoothquant_tpu/models/common.py,
 the parts the W4A4 serving path, the simulated (fake-quant) path, the bf16
-decode baseline and the Generator use).
+decode baseline, the Generator and the ContinuousBatcher use).
 
-  ForwardContext (its calibration taps, quant and compute, :32-47),
+  ForwardContext (its calibration taps, quant, compute and attn, :32-83),
   call_linear (packed, transposed-fp "weight_t", simulated quantized and
   plain fp linears, with the taps, :109-223), maybe_quantize_output
   (:226-239), rms_norm,
   layer_norm (:242-251), to_head_major (:578-580), unembed (:658-662),
   rotary_cos_sin, apply_rotary, the head-major KVCache / QuantKVCache
-  (:281-387) and SMajorQuantKVCache (create / update / read), the einsum
-  attention (:550-575; with ALiBi slopes, also Bloom's _alibi_attention,
+  (:281-387) and SMajorQuantKVCache (:390-467), each per-layer with an int
+  or (B,) per-slot positions or stacked, the einsum attention (:550-575;
+  with the sliding window and ALiBi slopes, also Bloom's _alibi_attention,
   models/bloom.py:99-127), cached_attention (:583-655; the decode kernel
-  K11 for the int8 head-major cache), prefetch_tree_capable (:672-732),
+  K11 over a head-major cache as ForwardContext.attn picks it),
+  prefetch_tree_capable (:672-732), layer_tree (a stacked tree's layer i),
   stacked_cache_append (:735-775), stacked_cache_append_fused (:778-817:
   K2 for the S-major cache, K10 for the head-major int8 one, k rotated or,
   for a non-rotary architecture, not; given q, q's rotary in the same
-  launch), decode_bias (:820-838),
+  launch), decode_bias (:820-838, with the sliding window),
   stacked_smajor_attention (:841-854) and stacked_flash_attention
   (:857-875, with Bloom's ALiBi slopes).
 
@@ -78,17 +80,27 @@ class ForwardContext:
       "off"    K10, then K11 over the (B, S) bias (the new position inside
                its S-tile, where K12 folds it in last: an f32 reordering).
     fuse_mlp (opt-in, common.py:99-106) runs gate_up, SiLU·up and down_proj
-    of that decode as one K14 launch where can_fuse_mlp holds (N <= 8)."""
+    of that decode as one K14 launch where can_fuse_mlp holds (N <= 8).
+
+    attn picks the single-query attention over a per-layer head-major
+    cache (common.py:80-84,616-628): "auto" runs K11 over an int8 cache and
+    the einsum over an fp one, "kernel" K11 over either (its split body for
+    bf16 queries, its flash body for f32), "einsum" never K11; a stacked
+    tree under "einsum" declines the stacked decode (prefetch_tree_capable)
+    and runs the per-layer body over its layers."""
 
     quant: Optional[QuantConfig] = None
     taps: Optional[object] = None
     compute: str = "auto"
+    attn: str = "auto"
     fuse_attn: str = "auto"
     fuse_mlp: bool = False
 
     def __post_init__(self):
         if self.compute not in COMPUTE_CHOICES:
             raise ValueError(f"compute {self.compute!r}: one of {COMPUTE_CHOICES}")
+        if self.attn not in ("auto", "kernel", "einsum"):
+            raise ValueError(f"attn {self.attn!r}: 'auto', 'kernel' or 'einsum'")
         if self.fuse_attn not in ("auto", "fused", "off"):
             raise ValueError(f"fuse_attn {self.fuse_attn!r}: 'auto', 'fused' or 'off'")
 
@@ -209,22 +221,33 @@ def rotary_cos_sin(positions: torch.Tensor, head_dim: int,
     return torch.cos(emb), torch.sin(emb)
 
 
-def _write_rows(buf: torch.Tensor, new: torch.Tensor, pos: int) -> None:
-    """buf[:, :, pos:pos+Sq] = new for a per-layer head-major buffer, in
-    place; like jax.lax.dynamic_update_slice, a start past the end is
-    clamped so the rows fit."""
-    if not isinstance(pos, int):
-        raise NotImplementedError("per-layer caches hold one int position")
-    sq = new.shape[2]
-    buf.narrow(2, min(max(pos, 0), buf.shape[2] - sq), sq).copy_(new)
+def _write_rows(buf: torch.Tensor, new: torch.Tensor, pos, s_axis: int = 2) -> None:
+    """Write `new` into a per-layer buffer at position `pos` along its S axis
+    (axis 2 of the head-major (B, H, S[, D]) buffers, axis 1 of the S-major
+    (B, S, H·D) values), in place.  pos is an int, a 0-d tensor (one
+    position for every row) or (B,) per-slot positions, each row written at
+    its own; as jax.lax.dynamic_update_slice (vmap'd over the rows for
+    per-slot positions) a start past the end is clamped so the rows fit."""
+    sq, s = new.shape[s_axis], buf.shape[s_axis]
+    if isinstance(pos, int):
+        buf.narrow(s_axis, min(max(pos, 0), s - sq), sq).copy_(new)
+        return
+    start = torch.clamp(torch.as_tensor(pos, device=buf.device).to(torch.int64), 0, s - sq)
+    rows = start.expand(buf.shape[0])[:, None] + torch.arange(sq, device=buf.device)
+    slot = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    if s_axis == 1:
+        buf[slot, rows] = new
+    else:   # the indexed view is (B, Sq, H[, D])
+        buf[slot, :, rows] = new.movedim(2, 1)
 
 
 @dataclasses.dataclass
 class KVCache:
     """fp decode cache k/v (B, H_kv, S, D), head-major (common.py:281-322),
-    with an int fill position; the stacked form (n_layers given) carries a
-    leading L axis and (L,) aligned or, per_slot, (L, B) positions.
-    Updated IN PLACE."""
+    with an int fill position or, per_slot, (B,) int32 positions (each slot
+    its own, the batcher's per-layer pool); the stacked form (n_layers
+    given) carries a leading L axis and (L,) aligned or, per_slot, (L, B)
+    positions.  Updated IN PLACE."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -240,8 +263,13 @@ class KVCache:
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    pos=_initial_pos(batch, n_layers, per_slot, pos, device))
 
+    def layer(self, i: int, pos=None) -> "KVCache":
+        """Layer i of a stacked cache as a per-layer view (shared storage),
+        at `pos` (default: the layer's own, a 0-d or (B,) view)."""
+        return KVCache(self.k[i], self.v[i], self.pos[i] if pos is None else pos)
+
     def update(self, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
-        """Append k/v (B, Sq, H_kv, D) at pos."""
+        """Append k/v (B, Sq, H_kv, D) at pos (each slot at its own)."""
         _write_rows(self.k, k_new.transpose(1, 2).to(self.k.dtype), self.pos)
         _write_rows(self.v, v_new.transpose(1, 2).to(self.v.dtype), self.pos)
         return dataclasses.replace(self, pos=self.pos + k_new.shape[1])
@@ -255,8 +283,8 @@ class KVCache:
 class QuantKVCache:
     """int8 decode cache (common.py:325-387): k_q/v_q (B, H_kv, S, D) int8
     with per-(slot, head, position) f32 scales (B, H_kv, S), max(absmax,
-    1e-8)/127 as jitted JAX computes it.  pos and the stacked form as
-    KVCache.  Updated IN PLACE."""
+    1e-8)/127 as jitted JAX computes it.  pos, per_slot and the stacked
+    form as KVCache.  Updated IN PLACE."""
 
     k_q: torch.Tensor
     v_q: torch.Tensor
@@ -278,8 +306,14 @@ class QuantKVCache:
                    v_scale=z(shape[:-1], torch.float32),
                    pos=_initial_pos(batch, n_layers, per_slot, pos, device))
 
+    def layer(self, i: int, pos=None) -> "QuantKVCache":
+        """Layer i of a stacked cache as a per-layer view, as KVCache.layer."""
+        return QuantKVCache(self.k_q[i], self.v_q[i], self.k_scale[i], self.v_scale[i],
+                            self.pos[i] if pos is None else pos)
+
     def update(self, k_new: torch.Tensor, v_new: torch.Tensor) -> "QuantKVCache":
-        """Quantize and append k/v (B, Sq, H_kv, D) at pos."""
+        """Quantize and append k/v (B, Sq, H_kv, D) at pos (each slot at its
+        own)."""
         for new, q_buf, s_buf in ((k_new, self.k_q, self.k_scale),
                                   (v_new, self.v_q, self.v_scale)):
             q, sc = quantize_rows_int8(new.transpose(1, 2))   # (B,H,Sq,D), (B,H,Sq)
@@ -296,20 +330,20 @@ class QuantKVCache:
 
 
 def _initial_pos(batch, n_layers, per_slot, pos, device):
-    if n_layers is None:
-        if per_slot:
-            raise ValueError("per-slot positions are a stacked-cache form")
+    """An int (per-layer, aligned), or int32 positions: (B,) per-layer per
+    slot, (L,) stacked aligned, (L, B) stacked per slot."""
+    if n_layers is None and not per_slot:
         return pos
-    shape = (n_layers, batch) if per_slot else (n_layers,)
+    shape = ((n_layers,) if n_layers is not None else ()) + ((batch,) if per_slot else ())
     return torch.full(shape, pos, dtype=torch.int32, device=device)
 
 
 @dataclasses.dataclass
 class SMajorQuantKVCache:
     """INT8 KV cache in S-major value layout: k_q/v_q (B, S, H_kv·D),
-    head-major scales (B, H_kv, S).  The stacked form carries a leading L
-    axis on every tensor and (L, B) per-slot positions; a per-layer cache
-    (prefill) holds an int position."""
+    head-major scales (B, H_kv, S) (common.py:390-467).  The stacked form
+    carries a leading L axis on every tensor and (L, B) per-slot positions;
+    a per-layer cache holds an int position or, per_slot, (B,) ones."""
 
     k_q: torch.Tensor
     v_q: torch.Tensor
@@ -319,41 +353,37 @@ class SMajorQuantKVCache:
 
     @classmethod
     def create(cls, batch: int, max_len: int, n_kv_heads: int, head_dim: int,
-               device, n_layers: Optional[int] = None, pos=0):
+               device, n_layers: Optional[int] = None, pos=0, per_slot: bool = False):
         """Zeroed cache; with n_layers, stacked (L, ...) with (L, B) pos."""
         lead = () if n_layers is None else (n_layers,)
         hd = n_kv_heads * head_dim
         z = lambda shape, dt: torch.zeros(lead + shape, dtype=dt, device=device)
-        if n_layers is not None:
-            pos = torch.full((n_layers, batch), pos, dtype=torch.int32,
-                             device=device)
+        pos = _initial_pos(batch, n_layers, per_slot or n_layers is not None, pos, device)
         return cls(k_q=z((batch, max_len, hd), torch.int8),
                    v_q=z((batch, max_len, hd), torch.int8),
                    k_scale=z((batch, n_kv_heads, max_len), torch.float32),
                    v_scale=z((batch, n_kv_heads, max_len), torch.float32),
                    pos=pos)
 
-    def layer(self, i: int) -> "SMajorQuantKVCache":
-        """Layer i of a stacked cache as a per-layer view (shared storage)."""
+    def layer(self, i: int, pos=None) -> "SMajorQuantKVCache":
+        """Layer i of a stacked cache as a per-layer view (shared storage),
+        at `pos` (default: the layer's own (B,) positions)."""
         return SMajorQuantKVCache(self.k_q[i], self.v_q[i], self.k_scale[i],
-                                  self.v_scale[i], pos=0)
+                                  self.v_scale[i], self.pos[i] if pos is None else pos)
 
     @property
     def n_kv_heads(self) -> int:
         return self.k_scale.shape[-2]
 
     def update(self, k_new: torch.Tensor, v_new: torch.Tensor):
-        """Write k/v (B, Sq, H, D) at the int position, in place."""
-        if not isinstance(self.pos, int):
-            raise NotImplementedError("per-slot per-layer caches")
+        """Write k/v (B, Sq, H, D) at pos (each slot at its own), in place."""
         b, sq, h, d = k_new.shape
-        p = self.pos
         for new, q_buf, s_buf in ((k_new, self.k_q, self.k_scale),
                                   (v_new, self.v_q, self.v_scale)):
             q, sc = quantize_rows_int8(new)          # (B,Sq,H,D), (B,Sq,H)
-            q_buf[:, p:p + sq] = q.reshape(b, sq, h * d)
-            s_buf[:, :, p:p + sq] = sc.transpose(1, 2)
-        return dataclasses.replace(self, pos=p + sq)
+            _write_rows(q_buf, q.reshape(b, sq, h * d), self.pos, s_axis=1)
+            _write_rows(s_buf, sc.transpose(1, 2), self.pos)
+        return dataclasses.replace(self, pos=self.pos + sq)
 
     def read(self):
         """(B, H, S, D) dequantized bf16 views (the einsum path)."""
@@ -377,7 +407,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal_offset=0, valid_len=None,
               attn_mask: Optional[torch.Tensor] = None,
               scale: Optional[float] = None,
-              alibi_slopes: Optional[torch.Tensor] = None):
+              alibi_slopes: Optional[torch.Tensor] = None,
+              sliding_window: Optional[int] = None):
     """Einsum attention with causal masking and GQA (common.py:550-575).
 
     q: (B, Sq, H, D); k/v: (B, H_kv, Sk, D).  Scores and softmax in f32,
@@ -385,7 +416,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (OPT scales q itself and passes 1.0).  alibi_slopes (H,): Bloom's
     score += slope_h · j at key position j, before the mask
     (bloom.py:99-127: slope·j equals HF's slope·(j − i) up to a per-row
-    constant that the softmax cancels)."""
+    constant that the softmax cancels).  sliding_window W (Mistral): the
+    query at absolute position p sees the keys in (p − W, p]."""
     b, sq, nh, d = q.shape
     n_kv, sk = k.shape[1], k.shape[2]
     if n_kv != nh:
@@ -398,7 +430,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kj = torch.arange(sk, device=q.device).reshape(1, 1, 1, sk)
     if alibi_slopes is not None:
         scores = scores + alibi_slopes.float().reshape(1, nh, 1, 1) * kj.float()
-    mask = kj <= qi + _per_batch(causal_offset).to(q.device)
+    qpos = qi + _per_batch(causal_offset).to(q.device)
+    mask = kj <= qpos
+    if sliding_window is not None:
+        mask = mask & (kj > qpos - sliding_window)
     if valid_len is not None:
         mask = mask & (kj < _per_batch(valid_len).to(q.device))
     if attn_mask is not None:
@@ -412,54 +447,75 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def cached_attention(q: torch.Tensor, cache, *, causal_offset,
+                     ctx: Optional[ForwardContext] = None,
                      attn_mask: Optional[torch.Tensor] = None,
-                     scale: Optional[float] = None):
-    """Attention over an already-updated per-layer cache (common.py:583-655):
-    a single query over the int8 head-major cache runs K11 with validity
-    folded into a (B, S) bias; everything else (prefill, the fp cache, the
-    S-major cache) is the einsum over the cache's (dequantized) view, as the
-    JAX package's default mode chooses.  K11's `sm_scale` option is not
-    ported, so a query with another scale than 1/√D takes the einsum too."""
-    quant = isinstance(cache, QuantKVCache)
+                     scale: Optional[float] = None,
+                     sliding_window: Optional[int] = None):
+    """Attention over an already-updated per-layer cache (common.py:583-655).
+    A single query over a head-major cache runs K11 where ctx.attn picks it
+    ("auto": the int8 cache; "kernel": the fp cache too; "einsum": never)
+    and K11 tiles the shape, with validity, the window and the key mask
+    folded into a (B, S) bias; everything else (prefill, the S-major cache)
+    is the einsum over the cache's (dequantized) view.  K11's `sm_scale`
+    option is not ported, so a query with another scale than 1/√D takes the
+    einsum too."""
     if not isinstance(cache, (SMajorQuantKVCache, KVCache, QuantKVCache)):
         raise NotImplementedError(f"cache type {type(cache).__name__}")
-    if quant and q.shape[1] == 1 and scale is None:
+    mode = "auto" if ctx is None else ctx.attn
+    if not isinstance(cache, SMajorQuantKVCache) and q.shape[1] == 1 and scale is None:
+        quant = isinstance(cache, QuantKVCache)
         b, _, nh, d = q.shape
-        n_kv, s = cache.k_q.shape[1], cache.k_q.shape[2]
-        if k11.supported(s, nh, n_kv, d):
-            valid = torch.as_tensor(cache.pos, device=q.device).expand(b)
-            ok = torch.arange(s, device=q.device)[None, :] < valid[:, None]
+        kbuf = cache.k_q if quant else cache.k
+        n_kv, s = kbuf.shape[1], kbuf.shape[2]
+        if (mode != "einsum" and (mode == "kernel" or quant)
+                and k11.supported(s, nh, n_kv, d)):
+            col = torch.arange(s, device=q.device)[None, :]
+            ok = col < torch.as_tensor(cache.pos, device=q.device).expand(b)[:, None]
+            if sliding_window is not None:
+                qpos = torch.as_tensor(causal_offset, device=q.device).expand(b)
+                ok = ok & (col > qpos[:, None] - sliding_window)
             if attn_mask is not None:
                 ok = ok & attn_mask.bool()
             bias = torch.where(ok, 0.0, k11.NEG_INF).to(torch.float32)
-            out = k11.decode_attention(q[:, 0], cache.k_q, cache.v_q, bias,
-                                       cache.k_scale, cache.v_scale)
+            scales = (cache.k_scale, cache.v_scale) if quant else ()
+            out = k11.decode_attention(q[:, 0], kbuf, cache.v_q if quant else cache.v,
+                                       bias, *scales)
             return out[:, None]
     return attention(q, *cache.read(), causal_offset=causal_offset,
-                     valid_len=cache.pos, attn_mask=attn_mask, scale=scale)
+                     valid_len=cache.pos, attn_mask=attn_mask, scale=scale,
+                     sliding_window=sliding_window)
 
 
 def decode_bias(pos_i: torch.Tensor, b: int, s_max: int,
-                attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                attn_mask: Optional[torch.Tensor],
+                sliding_window: Optional[int] = None) -> torch.Tensor:
     """(..., B, S_max) additive f32 bias for single-token decode: 0 where
-    the key position is < pos_i + 1 (and attn_mask allows it), -1e30
-    elsewhere.  pos_i is a scalar, (B,) per slot, or (L, B) per layer."""
+    the key position is < pos_i + 1 (and attn_mask allows it, and, with a
+    sliding window W, > pos_i − W), -1e30 elsewhere (common.py:820-838).
+    pos_i is a scalar, (B,) per slot, or (L, B) per layer."""
     pos_i = torch.as_tensor(pos_i)[..., None]
     col = torch.arange(s_max, device=pos_i.device)[None, :].expand(b, s_max)
     ok = col < pos_i + 1
+    if sliding_window is not None:
+        ok = ok & (col > pos_i - sliding_window)
     if attn_mask is not None:
         ok = ok & attn_mask.bool()
     return torch.where(ok, 0.0, ATTN_NEG_INF).to(torch.float32)
 
 
-def prefetch_tree_capable(stacked, caches, s: int) -> bool:
+def prefetch_tree_capable(stacked, caches, s: int,
+                          ctx: Optional[ForwardContext] = None) -> bool:
     """The gate of the stacked single-token decode (common.py:672-732):
-    one token, a stacked cache with (L,) or (L, B) positions, and every
-    projection a transposed-fp "weight_t" dict whose K is a multiple of 8
-    and O of 128, or a tile-aligned nibble PackedLinear.  The fused qkv is
-    Llama's self_attn.qkv_proj or Bloom's self_attention.query_key_value."""
+    one token, a stacked cache with (L,) or (L, B) positions, no taps, attn
+    not "einsum", and every projection a transposed-fp "weight_t" dict whose
+    K is a multiple of 8 and O of 128, or a tile-aligned nibble PackedLinear
+    under compute "auto" or "int".  The fused qkv is Llama's
+    self_attn.qkv_proj or Bloom's self_attention.query_key_value.  A tree it
+    declines runs the per-layer body over its layers (layer_tree)."""
     if s != 1 or caches is None or not isinstance(getattr(caches, "pos", None),
                                                    torch.Tensor):
+        return False
+    if ctx is not None and (ctx.taps is not None or ctx.attn == "einsum"):
         return False
     if caches.pos.ndim not in (1, 2) or not isinstance(stacked, dict):
         return False
@@ -478,10 +534,47 @@ def prefetch_tree_capable(stacked, caches, s: int) -> bool:
         return all(isinstance(lin, dict) and lin["weight_t"].shape[1] % 8 == 0
                    and lin["weight_t"].shape[2] % 128 == 0 for lin in leaves(stacked))
     if isinstance(qp, PackedLinear) and qp.meta.nibble:
+        if ctx is not None and ctx.compute not in ("auto", "int"):
+            return False
         return all(isinstance(lin, PackedLinear) and lin.meta.nibble
                    and (lin.meta.k_ns // (2 * lin.meta.group_size)) % 8 == 0
                    and lin.w_qt.shape[-1] % 256 == 0 for lin in leaves(stacked))
     return False
+
+
+_PACKED_TENSORS = ("w_qt", "w_scales_t", "w_sal_t", "bias", "perm", "ns_mask")
+
+
+def layer_tree(node, i: int):
+    """Layer i of a stacked tree (views, nothing copied): every tensor and
+    every PackedLinear field indexed on its leading L axis — what the JAX
+    lax.scan over _decoder_layer hands each layer (llama.py:551-572)."""
+    if isinstance(node, PackedLinear):
+        return dataclasses.replace(node, **{
+            f: None if getattr(node, f) is None else getattr(node, f)[i]
+            for f in _PACKED_TENSORS})
+    if isinstance(node, dict):
+        return {k: layer_tree(v, i) for k, v in node.items()}
+    return None if node is None else node[i]
+
+
+def stacked_layers(layer_fn, stacked: dict, x: torch.Tensor, n_layers: int, caches,
+                   ctx: Optional[ForwardContext]):
+    """The per-layer body over a stacked tree that the stacked decode
+    declines (JAX's lax.scan over _decoder_layer, llama.py:551-572,
+    bloom.py:332-342): layer i runs `layer_fn(layer_tree(stacked, i), x, i,
+    cache)` over layer i's view of a stacked cache (its (L,) or (L, B)
+    positions) or with no cache, and the stacked cache comes back stacked,
+    its positions advanced by the tokens of the call."""
+    if ctx is not None and ctx.taps is not None:
+        raise NotImplementedError("calibration taps name per-layer trees (JAX: "
+                                  "taps unsupported with scan)")
+    for i in range(n_layers):
+        x, _ = layer_fn(layer_tree(stacked, i), x, i,
+                        None if caches is None else caches.layer(i))
+    if caches is not None:
+        caches.pos += x.shape[1]
+    return x, caches
 
 
 def stack_layer_trees(params: dict, n_layers: int) -> dict:

@@ -1,5 +1,6 @@
-"""Llama-family decoder (port of smoothquant_tpu/models/llama.py, the parts
-the W4A4 serving path, the bf16 decode baseline and the Generator use).
+"""Llama-family decoder, Mistral included (port of
+smoothquant_tpu/models/llama.py, the parts the W4A4 serving path, the bf16
+decode baseline, the Generator and the batcher use).
 
 Params are nested dicts of tensors with PackedLinear leaves after packing,
 as in the JAX package.  The per-layer forward hands a ForwardContext to
@@ -21,7 +22,18 @@ int8 cache with per-slot positions or a key mask (the "off" branch,
 positions and no mask (the virtual-tile attention K12 in the composition
 ForwardContext.fuse_attn names, :346-366,407-442, and the fused MLP K14
 with fuse_mlp), or a pack_fp_decode tree over a stacked head-major fp
-cache (the "off" branch).
+cache (the "off" branch).  A stacked tree that the stacked decode declines
+(taps, attn "einsum", compute "dequant", a multi-token call, no cache, a
+tree prefetch_tree_capable does not take) runs _decoder_layer layer by
+layer over layer views of the stack and of a stacked cache, which comes
+back stacked (the JAX lax.scan over _decoder_layer, llama.py:551-572).
+
+Mistral is this architecture with LlamaConfig.sliding_window set
+(mistral_7b, llama.py:78-84): every attention path masks the keys older
+than the window (the prefill and cached einsum, K11's bias, the stacked
+decode's bias, which takes the "off" composition over a head-major int8
+cache as JAX does, llama.py:362-366).  A tied tree (tie_word_embeddings,
+or no lm_head) unembeds through embed_tokens (llama.py:589-590).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import numpy as np
 import torch
 
 from smoothquant_tpu_torch._device import resolve_device
+from smoothquant_tpu_torch.kernels import decode_attention as k11
 from smoothquant_tpu_torch.kernels.pack import PackedLinear, permute_output_columns
 from smoothquant_tpu_torch.kernels.attn_fused import (
     fused_rope_write_attn_stacked,
@@ -56,6 +69,7 @@ from smoothquant_tpu_torch.models.common import (
     rotary_cos_sin,
     stack_layer_trees,
     stacked_cache_append_fused,
+    stacked_layers,
     stacked_flash_attention,
     stacked_smajor_attention,
     unembed,
@@ -80,6 +94,7 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     attention_bias: bool = False
     mlp_bias: bool = False
+    sliding_window: Optional[int] = None  # Mistral: 4096
     dtype: str = "bfloat16"
 
     @property
@@ -93,6 +108,15 @@ class LlamaConfig:
     @classmethod
     def llama2_7b(cls) -> "LlamaConfig":
         return cls()
+
+    @classmethod
+    def mistral_7b(cls) -> "LlamaConfig":
+        """The JAX package's preset (llama.py:78-84), copied as it stands:
+        Mistral-7B v0.1's 4096 window beside v0.2's rope_theta of 1e6."""
+        return cls(hidden_size=4096, intermediate_size=14336,
+                   num_hidden_layers=32, num_attention_heads=32,
+                   num_key_value_heads=8, rope_theta=1e6,
+                   sliding_window=4096, vocab_size=32000)
 
     @classmethod
     def tiny(cls, vocab_size: int = 256) -> "LlamaConfig":
@@ -161,7 +185,8 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: LlamaConfig, layer_name: str,
                    ctx: Optional[ForwardContext], cache, attn_mask):
     """One layer (llama.py:164-228); fused or separate projections, each
     call site named by its HF module path for the calibration taps; with no
-    cache the attention is the causal einsum over this call's k / v."""
+    cache the attention is the causal einsum over this call's k / v, with a
+    cache cached_attention as ctx.attn picks it; both under the window."""
     b, s, _ = x.shape
     nh, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     residual = x
@@ -180,9 +205,11 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: LlamaConfig, layer_name: str,
     if cache is not None:
         offset = cache.pos
         cache = cache.update(k, v)
-        attn = cached_attention(q, cache, causal_offset=offset, attn_mask=attn_mask)
+        attn = cached_attention(q, cache, causal_offset=offset, ctx=ctx,
+                                attn_mask=attn_mask, sliding_window=cfg.sliding_window)
     else:
-        attn = attention(q, k.transpose(1, 2), v.transpose(1, 2), attn_mask=attn_mask)
+        attn = attention(q, k.transpose(1, 2), v.transpose(1, 2), attn_mask=attn_mask,
+                         sliding_window=cfg.sliding_window)
     x = residual + call_linear(sa["o_proj"], attn.reshape(b, s, nh * d),
                                f"{layer_name}.self_attn.o_proj", ctx)
     residual = x
@@ -211,9 +238,9 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
         "auto" K12's flat body on pre-rotary q for MHA, or q-rotary and K12's
         stacked body for GQA, then K10; "fused" q-rotary and K12's write
         body; "off" as the next case;
-      packed tree, head-major int8 cache with per-slot positions or a mask
-        ("off"): K10 (q rotated in its launch too) and K11 in place of K2
-        and K3;
+      packed tree, head-major int8 cache with per-slot positions, a mask or
+        a sliding window ("off"): K10 (q rotated in its launch too) and K11
+        in place of K2 and K3;
       pack_fp_decode tree, head-major fp cache: RMSNorm → K13 (qkv) →
         rotary → fp row write → K11 → K13 (o) → RMSNorm → K13 (gate_up) →
         SiLU·up → K13 (down).
@@ -232,7 +259,10 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
         s_max, mode = caches.k.shape[3], "off"
     elif isinstance(caches, QuantKVCache):
         s_max = caches.k_q.shape[3]
-        aligned = caches.pos.ndim == 1 and attn_mask is None
+        # the virtual-tile kernels take one aligned position, no mask and no
+        # window (llama.py:351-366)
+        aligned = (caches.pos.ndim == 1 and attn_mask is None
+                   and cfg.sliding_window is None)
         mode = (ctx.fuse_attn if ctx is not None else "auto") if aligned else "off"
     else:
         raise NotImplementedError(f"cache type {type(caches).__name__}")
@@ -252,7 +282,7 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
         # every layer's bias from its own position, in one pass: the positions
         # advance only after the layer loop; aligned (L,) positions serve every row
         pos = caches.pos if caches.pos.ndim == 2 else caches.pos[:, None].expand(-1, b)
-        bias = decode_bias(pos, b, s_max, attn_mask)          # (L, B, S_max)
+        bias = decode_bias(pos, b, s_max, attn_mask, cfg.sliding_window)   # (L, B, S_max)
     attend = stacked_smajor_attention if mode == "smajor" else stacked_flash_attention
     flat = mode == "auto" and nh == n_kv
     # "smajor" and "off" over an int8 cache: the writer rotates q in its launch
@@ -305,6 +335,21 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
     return x, caches
 
 
+def _prefetch_capable(params: dict, cfg: LlamaConfig, ctx: Optional[ForwardContext],
+                      caches, s: int) -> bool:
+    """The stacked decode's gate (llama.py:493-512): prefetch_tree_capable
+    and shapes the cache's attention kernel tiles.  K3 over the S-major
+    cache takes every shape K11 takes (split_decode.cuh's bodies; the TPU
+    kernel's rule of 8 query rows a dot does not apply), so one rule
+    serves both layouts."""
+    if not prefetch_tree_capable(params["layers"].get("stacked"), caches, s, ctx):
+        return False
+    s_max = (caches.k_q.shape[2] if isinstance(caches, SMajorQuantKVCache)
+             else (caches.k_q if isinstance(caches, QuantKVCache) else caches.k).shape[3])
+    return k11.supported(s_max, cfg.num_attention_heads, cfg.num_key_value_heads,
+                         cfg.head_dim)
+
+
 def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
                    caches=None, positions: Optional[torch.Tensor] = None,
                    attn_mask: Optional[torch.Tensor] = None, *,
@@ -312,10 +357,11 @@ def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
     """Final-normed hidden states (B, S, H) and the updated caches.
 
     caches: None (no cache: the full-model prefill), a list of per-layer
-    caches, or one stacked cache (single-token decode over a stacked tree).
-    positions default to each cache's fill position + arange(S).  ctx's
-    fuse_attn / fuse_mlp choose the stacked decode's composition; on the
-    per-layer path its taps, compute and quant reach every call site."""
+    caches (int or (B,) per-slot positions), or, over a stacked tree, one
+    stacked cache or None.  positions default to each cache's fill
+    position + arange(S).  ctx's fuse_attn / fuse_mlp choose the stacked
+    decode's composition; its taps, compute, quant and attn reach every
+    call site of the per-layer body."""
     b, s = input_ids.shape
     stacked = "stacked" in params["layers"]
     x = params["embed_tokens"]["weight"][input_ids]
@@ -330,18 +376,21 @@ def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
         positions = start + torch.arange(s, device=x.device)[None, :]
     cos, sin = rotary_cos_sin(positions.reshape(-1, s), cfg.head_dim,
                               cfg.rope_theta)
-    if stacked:
-        if not prefetch_tree_capable(params["layers"]["stacked"], caches, s):
-            raise NotImplementedError(
-                "stacked trees decode one token over a stacked cache, every "
-                "projection tile-aligned (prefetch_tree_capable)")
+
+    def layer(lp, x, i, cache):
+        name = "model.layers.scan" if stacked else f"model.layers.{i}"
+        return _decoder_layer(lp, x, cfg, name, cos, sin, ctx, cache, attn_mask)
+
+    if stacked and _prefetch_capable(params, cfg, ctx, caches, s):
         x, caches = _stacked_decode(params, x, cfg, caches, cos, sin, attn_mask, ctx)
+    elif stacked:
+        x, caches = stacked_layers(layer, params["layers"]["stacked"], x,
+                                   cfg.num_hidden_layers, caches, ctx)
     else:
         new_caches = None if caches is None else []
         for i in range(cfg.num_hidden_layers):
-            x, c = _decoder_layer(params["layers"][str(i)], x, cfg, f"model.layers.{i}",
-                                  cos, sin, ctx, None if caches is None else caches[i],
-                                  attn_mask)
+            x, c = layer(params["layers"][str(i)], x, i,
+                         None if caches is None else caches[i])
             if new_caches is not None:
                 new_caches.append(c)
         caches = new_caches
@@ -350,12 +399,14 @@ def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
 
 def lm_head_logits(params: dict, h: torch.Tensor, cfg: LlamaConfig,
                    ctx: Optional[ForwardContext] = None) -> torch.Tensor:
-    """f32 logits of final-normed hidden states (llama.py:589-599): the
-    packed lm_head (call site "lm_head"), or an fp {"weight"} one through
-    unembed, whose products accumulate in f32 as the JAX einsum's do."""
+    """f32 logits of final-normed hidden states (llama.py:589-599): a tied
+    tree (tie_word_embeddings, or no lm_head) unembeds through
+    embed_tokens; else the packed lm_head (call site "lm_head"), or an fp
+    {"weight"} one through unembed, whose products accumulate in f32 as
+    the JAX einsum's do."""
     lm = params.get("lm_head")
     if cfg.tie_word_embeddings or lm is None:
-        raise NotImplementedError("tied embeddings are not ported")
+        return unembed(h, params["embed_tokens"]["weight"])
     if isinstance(lm, PackedLinear):
         return call_linear(lm, h, "lm_head", ctx).float()
     return unembed(h, lm["weight"])
@@ -450,14 +501,20 @@ def pack_fp_decode(params: dict, cfg: LlamaConfig) -> dict:
     return out
 
 
-def residual_consumers(cfg: LlamaConfig):
-    """(param_path, stats key) of every fused linear reading the normed
-    residual stream."""
+def residual_consumers(cfg: LlamaConfig, fused: bool):
+    """(param_path, stats key) of every linear reading the normed residual
+    stream (llama.py:642-660): the fused qkv / gate_up, or each of q / k / v
+    and gate / up."""
     out = []
     for i in range(cfg.num_hidden_layers):
         li, pre = ("layers", str(i)), f"model.layers.{i}"
-        out.append((li + ("self_attn", "qkv_proj"), f"{pre}.self_attn.q_proj"))
-        out.append((li + ("mlp", "gate_up_proj"), f"{pre}.mlp.gate_proj"))
+        if fused:
+            out.append((li + ("self_attn", "qkv_proj"), f"{pre}.self_attn.q_proj"))
+            out.append((li + ("mlp", "gate_up_proj"), f"{pre}.mlp.gate_proj"))
+        else:
+            out += [(li + ("self_attn", p), f"{pre}.self_attn.{p}")
+                    for p in ("q_proj", "k_proj", "v_proj")]
+            out += [(li + ("mlp", p), f"{pre}.mlp.{p}") for p in ("gate_proj", "up_proj")]
     return out
 
 
@@ -488,12 +545,17 @@ def apply_shared_residual_basis(params: dict, cfg: LlamaConfig, perm) -> dict:
     return out
 
 
-def perm_fold_pairs(cfg: LlamaConfig):
-    """(consumer_path, [(producer_path, n_splits)]): down_proj's input perm
-    folds into the fused gate_up output rows."""
-    return [(("layers", str(i), "mlp", "down_proj"),
-             [(("layers", str(i), "mlp", "gate_up_proj"), 2)])
-            for i in range(cfg.num_hidden_layers)]
+def perm_fold_pairs(cfg: LlamaConfig, fused: bool):
+    """(consumer_path, [(producer_path, n_splits)]) (llama.py:852-866):
+    down_proj's input perm folds into the fused gate_up output rows, or into
+    gate_proj's and up_proj's each."""
+    out = []
+    for i in range(cfg.num_hidden_layers):
+        li = ("layers", str(i), "mlp")
+        prods = ([(li + ("gate_up_proj",), 2)] if fused
+                 else [(li + ("gate_proj",), 1), (li + ("up_proj",), 1)])
+        out.append((li + ("down_proj",), prods))
+    return out
 
 
 def smoothing_map(cfg: LlamaConfig):

@@ -1,6 +1,8 @@
 """OPT decoder (port of smoothquant_tpu/models/opt.py, the parts the real-
-INT8 export path uses: the fp per-layer forward with and without caches,
-its calibration taps, and the smoothing pairs).
+INT8 export path, the simulated path and serving use: the per-layer
+forward of fp, simulated (quantize_params) and packed trees with and
+without caches (an int or (B,) per-slot positions), its calibration taps,
+the smoothing pairs and perm_fold_pairs).
 
 HF OPT's facts, as the JAX module mirrors them: learned positions with an
 offset of 2, pre-LayerNorm blocks (do_layer_norm_before), q scaled by
@@ -8,9 +10,12 @@ offset of 2, pre-LayerNorm blocks (do_layer_norm_before), q scaled by
 MLP, the decoder-level final LayerNorm, the tied unembedding, and
 project_in / project_out where word_embed_proj_dim differs from hidden.
 
-Not ported: stack_layers and the prefetch-scan decode, fuse_projections,
-packed trees (quantize_params) and the HF checkpoint import; the first two
-raise NotImplementedError.
+forward is forward_hidden (embedding → layers → final LayerNorm →
+project_out) then lm_head_logits (the tied unembedding), so the batcher
+unembeds only each row's last true position.
+
+Not ported: stack_layers and the prefetch-scan decode, fuse_projections
+(both raise NotImplementedError) and the HF checkpoint import.
 """
 
 from __future__ import annotations
@@ -82,7 +87,7 @@ class OPTConfig:
 
 def init_params(gen: torch.Generator, cfg: OPTConfig, device="cuda") -> dict:
     """Random OPT params from `gen`, at the shapes of opt.py:80-111 (the
-    numbers differ from jax.random's)."""
+    numbers are torch's, not jax.random's)."""
     dev = resolve_device(device)
     dt = cfg.torch_dtype
     h, ffn = cfg.hidden_size, cfg.ffn_dim
@@ -137,8 +142,8 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: OPTConfig, layer_name: str,
     if cache is not None:
         offset = cache.pos
         cache = cache.update(k, v)
-        attn = cached_attention(q, cache, causal_offset=offset, attn_mask=attn_mask,
-                                scale=1.0)
+        attn = cached_attention(q, cache, causal_offset=offset, ctx=ctx,
+                                attn_mask=attn_mask, scale=1.0)
     else:
         attn = attention(q, to_head_major(k), to_head_major(v), attn_mask=attn_mask,
                          scale=1.0)
@@ -166,12 +171,13 @@ def positions_from(caches, b: int, s: int, device) -> torch.Tensor:
     return (start + torch.arange(s, device=device)[None, :]).expand(b, s)
 
 
-def forward(params: dict, input_ids: torch.Tensor, cfg: OPTConfig,
-            ctx: Optional[ForwardContext] = None, caches: Optional[list] = None,
-            positions: Optional[torch.Tensor] = None,
-            attn_mask: Optional[torch.Tensor] = None):
-    """(logits f32 (B, S, V), updated per-layer caches or None)
-    (opt.py:322-383, the per-layer branch)."""
+def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: OPTConfig,
+                   ctx: Optional[ForwardContext] = None, caches: Optional[list] = None,
+                   positions: Optional[torch.Tensor] = None,
+                   attn_mask: Optional[torch.Tensor] = None):
+    """Hidden states before the unembedding (B, S, embed_dim) and the
+    updated per-layer caches or None (opt.py:322-383, the per-layer
+    branch, up to its unembed)."""
     if "stacked" in params["layers"]:
         raise NotImplementedError("stacked OPT trees (the prefetch-scan decode) "
                                   "are not ported")
@@ -194,7 +200,24 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: OPTConfig,
         x = layer_norm(params["final_layer_norm"], x, cfg.layer_norm_eps)
     if "project_out" in params:
         x = x @ params["project_out"]["weight"].t().to(x.dtype)
-    return unembed(x, params["embed_tokens"]["weight"]), new_caches
+    return x, new_caches
+
+
+def lm_head_logits(params: dict, h: torch.Tensor, cfg: OPTConfig,
+                   ctx: Optional[ForwardContext] = None) -> torch.Tensor:
+    """f32 logits through the tied unembedding (opt.py:382)."""
+    del ctx
+    return unembed(h, params["embed_tokens"]["weight"])
+
+
+def forward(params: dict, input_ids: torch.Tensor, cfg: OPTConfig,
+            ctx: Optional[ForwardContext] = None, caches: Optional[list] = None,
+            positions: Optional[torch.Tensor] = None,
+            attn_mask: Optional[torch.Tensor] = None):
+    """(logits f32 (B, S, V), updated per-layer caches or None)
+    (opt.py:322-383, the per-layer branch)."""
+    h, caches = forward_hidden(params, input_ids, cfg, ctx, caches, positions, attn_mask)
+    return lm_head_logits(params, h, cfg, ctx), caches
 
 
 def stack_layers(params: dict, cfg: OPTConfig) -> dict:
@@ -203,6 +226,16 @@ def stack_layers(params: dict, cfg: OPTConfig) -> dict:
 
 def fuse_projections(params: dict, cfg: OPTConfig) -> dict:
     raise NotImplementedError("fused OPT projections are not ported")
+
+
+def perm_fold_pairs(cfg: OPTConfig, fused: bool):
+    """(consumer_path, [(producer_path, n_splits)]) (opt.py:226-231): fc2's
+    input is relu(fc1's output), elementwise, so fc2's packed channel perm
+    folds into fc1's output rows; fc1 / fc2 never fuse, so `fused` changes
+    nothing."""
+    del fused
+    return [(("layers", str(i), "fc2"), [(("layers", str(i), "fc1"), 1)])
+            for i in range(cfg.num_hidden_layers)]
 
 
 def smoothing_map(cfg: OPTConfig):

@@ -1,10 +1,13 @@
 """Architecture dispatch (port of smoothquant_tpu/models/registry.py):
-register_arch and get_arch (:19-38; llama, opt, bloom), quantize_model
-(the simulated path's weight quantization, :41-48), smooth_lm (:51-55)
-and pack_model (:57-197) — the default per-layer tree (fuse=False: every
-projection its own pack, the README quick start's path and Bloom's) or,
-for Llama, the fused qkv / gate_up tree with the shared residual basis,
-folded permutations and identity layouts of the serving pack."""
+register_arch and get_arch (:19-38; llama, mistral (llama-like), opt,
+bloom), quantize_model (the simulated path's weight quantization, :41-48),
+smooth_lm (:51-55) and pack_model (:57-197) — the default per-layer tree
+(fuse=False: every projection its own pack, the README quick start's path
+and Bloom's) or, for Llama, the fused qkv / gate_up tree; the shared
+residual basis (Llama, fused or not), folded permutations (Llama fused or
+not, OPT) and identity layouts of the serving pack.  An architecture
+without residual_consumers / perm_fold_pairs / fuse_projections refuses
+the option that needs it, as the JAX package does."""
 
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ def register_arch(name: str, module) -> None:
 
 
 register_arch("llama", llama)
+register_arch("mistral", llama)   # llama-like (registry.py:24)
 register_arch("opt", opt)
 register_arch("bloom", bloom)
 
@@ -83,18 +87,18 @@ def pack_model(
     mod = get_arch(arch)
     compute_dtype = compute_dtype or cfg.torch_dtype
     if fuse:
+        if not hasattr(mod, "fuse_projections"):
+            raise NotImplementedError(f"{arch} has no fused-projection support")
         params = mod.fuse_projections(params, cfg)
         listing = mod.quantizable_linears_fused(cfg)
     else:
-        if shared_residual_basis or fold_perms:
-            raise NotImplementedError(
-                "shared_residual_basis and fold_perms are ported for fused trees only "
-                "(the unfused residual_consumers / perm_fold_pairs are not)")
         listing = mod.quantizable_linears(cfg)
     rs_paths: dict = {}
     shared_imp = shared_absmax = None
     if shared_residual_basis:
-        rs_paths = {tuple(p): key for p, key in mod.residual_consumers(cfg)}
+        if not hasattr(mod, "residual_consumers"):
+            raise NotImplementedError(f"{arch} has no shared-residual-basis support")
+        rs_paths = {tuple(p): key for p, key in mod.residual_consumers(cfg, fuse)}
         keys = set(rs_paths.values())
         if input_feat is not None:
             shared_imp = np.sum([np.asarray(input_feat[k]) for k in keys], axis=0)
@@ -107,7 +111,9 @@ def pack_model(
                              "act_scales to define the shared layout")
     fold_map = {}
     if fold_perms:
-        fold_map = {tuple(c): prods for c, prods in mod.perm_fold_pairs(cfg)}
+        if not hasattr(mod, "perm_fold_pairs"):
+            raise NotImplementedError(f"{arch} has no perm-fold support")
+        fold_map = {tuple(c): prods for c, prods in mod.perm_fold_pairs(cfg, fuse)}
         listing = sorted(listing, key=lambda t: 0 if tuple(t[0]) in fold_map else 1)
 
     shared_perm = None

@@ -1,26 +1,41 @@
-"""Continuous batching over a stacked int8 KV pool (port of
-smoothquant_tpu/serve/batching.py:31-411, the per-slot stacked path).
+"""Continuous batching over a pool of per-slot KV caches (port of
+smoothquant_tpu/serve/batching.py:31-411).
 
-  * a fixed pool of `max_batch` slots with (L, B) per-slot cache positions:
-    the head-major QuantKVCache (quant_kv=True, the default smajor=False,
-    batching.py:91-97), whose decode runs K10 + K11, or the S-major one
-    (smajor=True), K2 + K3; the fp pool (quant_kv=False) is not ported;
-  * same-bucket admissions share one batched prefill on the per-layer
-    prefill tree — the nibble tree, or its int8 twin (promote_model_int8 of
-    a plain pack of the same weights, batching.py:52-56,124-140), whose
-    linears run K4 at >= 256 rows × bucket — and the prefill's cache rows
-    are scattered into the pool (cropped at max_len);
-  * rotary uses each slot's TRUE sequence position (seq_pos), the cache row
-    its POOL position (pool_pos / the device pos) — they differ after a
-    bucketed prefill;
+It takes every tree, pool and option the JAX batcher takes, for every
+registered family (Llama and Mistral, OPT, Bloom):
+
+  * a fixed pool of `max_batch` slots with per-slot cache positions
+    (batching.py:57-108).  A stacked decode tree (stack_layers) serves over
+    ONE stacked pool, leading L axis, (L, B) positions: the fp head-major
+    KVCache (quant_kv=False, the JAX default), the int8 head-major
+    QuantKVCache (quant_kv=True) or the int8 S-major one (smajor=True).  A
+    per-layer tree serves over a list of per-layer caches of the same three
+    kinds, each with (B,) positions.  Llama's stacked decode runs K13 (fp
+    trees) or K1 / K7 + K5 (packs) and K10 + K11 or K2 + K3; a stacked tree
+    it declines, and every per-layer tree, runs the per-layer body (K6, K8
+    / K9 by `compute`, K11 by `attn`, or the simulated linears under
+    `quant`);
+  * same-bucket admissions share one batched prefill on the prefill tree
+    (`prefill_params`, per-layer or stacked; for example the int8 twin of
+    promote_model_int8, whose linears run K4), written into one stacked
+    batch cache (per-layer views of it for a per-layer tree), whose rows
+    are scattered into the pool, cropped at max_len (batching.py:125-205);
+  * rotary and learned positions use each slot's TRUE sequence position
+    (seq_pos), the cache row its POOL position (pool_pos / the device pos)
+    — they differ after a bucketed prefill;
   * padded and dead cache positions stay masked by the key-validity mask;
   * step() decodes one token, step_chunk(k) k tokens with the argmax on
     the device and one host fetch per chunk.
 
-Prefill runs the lm_head on each row's last true position only: per-token
-activation quantization makes every row's logits independent of the
-others, so the first tokens equal those of the JAX batcher, which gathers
-them from the full (rows, S, V) logits.
+One ForwardContext(quant, compute, attn) reaches every forward; `attn` is
+the port's addition (the JAX batcher takes its default, "auto").  JAX's
+`interpret` has no counterpart: on CPU tensors every kernel wrapper runs its
+plain version.
+
+Prefill runs the lm_head on each row's last true position only
+(forward_hidden, then lm_head_logits): every row's logits are independent
+of the others, so the first tokens equal those of the JAX batcher, which
+gathers them from the full (rows, S, V) logits.
 
 Deliberate divergence: step() asserts that an active slot's pool position
 lies inside the cache before marking it valid (the JAX batcher indexes the
@@ -36,7 +51,12 @@ import numpy as np
 import torch
 
 from smoothquant_tpu_torch._device import resolve_device
-from smoothquant_tpu_torch.models.common import QuantKVCache, SMajorQuantKVCache
+from smoothquant_tpu_torch.models.common import (
+    ForwardContext,
+    KVCache,
+    QuantKVCache,
+    SMajorQuantKVCache,
+)
 
 
 @dataclasses.dataclass
@@ -56,24 +76,41 @@ def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
     raise ValueError(f"prompt length {n} exceeds largest bucket")
 
 
+def _fields(cache) -> tuple:
+    """The tensors of a cache, positions excluded."""
+    return ("k", "v") if isinstance(cache, KVCache) else ("k_q", "v_q", "k_scale", "v_scale")
+
+
+def _s_axis(cache, name: str) -> int:
+    """The S axis of a per-layer, per-slot field (slot axis removed): axis 0
+    of the S-major values (S, H·D), axis 1 of the head-major (H, S, D)
+    values and of every (H, S) scale tensor."""
+    return 0 if isinstance(cache, SMajorQuantKVCache) and name in ("k_q", "v_q") else 1
+
+
 class ContinuousBatcher:
-    def __init__(self, model_mod, params, cfg, *, max_batch: int = 4,
-                 max_len: int = 512, quant_kv: bool = False,
-                 prefill_params=None, smajor: bool = False, device="cuda"):
-        if not quant_kv:
-            raise NotImplementedError("the fp pool (quant_kv=False) is not ported")
-        if "stacked" not in params.get("layers", {}):
-            raise NotImplementedError("decode serves a stacked tree")
+    def __init__(self, model_mod, params, cfg, quant=None, *, max_batch: int = 4,
+                 max_len: int = 512, kv_dtype=None, quant_kv: bool = False,
+                 compute: str = "auto", attn: str = "auto", prefill_params=None,
+                 smajor: bool = False, device="cuda"):
+        if smajor and not quant_kv:
+            raise ValueError("the S-major layout is int8-only (quant_kv=True)")
         self.mod, self.params, self.cfg = model_mod, params, cfg
         self.prefill_params = params if prefill_params is None else prefill_params
-        if "stacked" in self.prefill_params.get("layers", {}):
-            raise NotImplementedError("prefill runs on a per-layer tree")
+        self.ctx = ForwardContext(quant=quant, compute=compute, attn=attn)
         self.device = resolve_device(device)
         self.max_batch, self.max_len = max_batch, max_len
-        self.smajor = smajor
-        self.caches = model_mod.stacked_caches(cfg, max_batch, max_len, quant_kv=True,
-                                               smajor=smajor, per_slot=True,
-                                               device=self.device)
+        self.kv_dtype = kv_dtype or cfg.torch_dtype
+        self._cache_cls = (SMajorQuantKVCache if smajor
+                           else QuantKVCache if quant_kv else KVCache)
+        self._stacked = "stacked" in params.get("layers", {})
+        self._prefill_stacked = "stacked" in self.prefill_params.get("layers", {})
+        n_l = cfg.num_hidden_layers
+        if self._stacked:
+            self.caches = self._new_cache(max_batch, max_len, n_layers=n_l, per_slot=True)
+        else:
+            self.caches = [self._new_cache(max_batch, max_len, per_slot=True)
+                           for _ in range(n_l)]
         self.key_valid = np.zeros((max_batch, max_len), bool)
         self.seq_pos = np.zeros(max_batch, np.int64)   # true sequence lengths
         # host mirror of the per-slot device cache positions: every decode
@@ -83,55 +120,68 @@ class ContinuousBatcher:
         self.queue: list[Request] = []
         self._steps = 0
 
+    def _new_cache(self, batch: int, length: int, n_layers=None, per_slot=False):
+        cfg = self.cfg
+        n_kv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+        if self._cache_cls is SMajorQuantKVCache:
+            return SMajorQuantKVCache.create(batch, length, n_kv, cfg.head_dim, self.device,
+                                             n_layers=n_layers, per_slot=per_slot)
+        return self._cache_cls.create(batch, length, n_kv, cfg.head_dim, self.kv_dtype,
+                                      self.device, per_slot=per_slot, n_layers=n_layers)
+
     def _to_dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
+
+    def _pool_positions(self) -> torch.Tensor:
+        """(B,) device positions of the pool (every layer holds the same)."""
+        return self.caches.pos[0] if self._stacked else self.caches[0].pos
 
     # ------------------------------------------------------------ device
 
     @torch.no_grad()
     def _prefill(self, ids: np.ndarray, lens: np.ndarray):
-        """First generated token of each row and the rows' stacked cache:
-        the prefill writes per-layer caches that are views of one stacked
-        cache (batching.py:133-137 creates per-layer caches and stacks
-        them; here the stack exists first and needs no copy)."""
+        """First generated token of each row and the rows' stacked batch
+        cache (positions aligned at 0): a stacked prefill tree fills it
+        whole, a per-layer one through per-layer views of it (batching.py:
+        125-149 creates per-layer caches and stacks them; here the stack
+        exists first and needs no copy)."""
         cfg = self.cfg
         rows, bucket = ids.shape
-        n_l, n_kv, d = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
-        if self.smajor:
-            batch = SMajorQuantKVCache.create(rows, bucket, n_kv, d, self.device,
-                                              n_layers=n_l)
-            layer_caches = [batch.layer(i) for i in range(n_l)]
-        else:
-            batch = QuantKVCache.create(rows, bucket, n_kv, d, device=self.device,
-                                        n_layers=n_l)
-            layer_caches = [QuantKVCache(batch.k_q[i], batch.v_q[i], batch.k_scale[i],
-                                         batch.v_scale[i], 0) for i in range(n_l)]
-        h, _ = self.mod.forward_hidden(self.prefill_params, self._to_dev(ids),
-                                       cfg, caches=layer_caches)
+        batch = self._new_cache(rows, bucket, n_layers=cfg.num_hidden_layers)
+        caches = (batch if self._prefill_stacked else
+                  [batch.layer(i, 0) for i in range(cfg.num_hidden_layers)])
+        h, _ = self.mod.forward_hidden(self.prefill_params, self._to_dev(ids), cfg,
+                                       caches=caches, ctx=self.ctx)
         idx = self._to_dev(np.clip(lens - 1, 0, bucket - 1))
         last = h[torch.arange(rows, device=self.device), idx]
-        logits = self.mod.lm_head_logits(self.prefill_params, last[:, None], cfg)
+        logits = self.mod.lm_head_logits(self.prefill_params, last[:, None], cfg, self.ctx)
         first = torch.argmax(logits[:, 0], dim=-1)
         return first.cpu().numpy(), batch
 
     def _scatter(self, batch, row: int, slot: int, new_pos: int) -> None:
-        """Copy prefill row `row` into pool slot `slot`, cropped at max_len on
-        the S axis of each field (batching.py:156-179): axis 2 of the S-major
-        values, axis 3 of the head-major values and of every scale tensor."""
-        pool = self.caches
-        for name in ("k_q", "v_q", "k_scale", "v_scale"):
-            src, dst = getattr(batch, name)[:, row], getattr(pool, name)[:, slot]
-            s_axis = 1 if (self.smajor and name in ("k_q", "v_q")) else 2
-            n = min(src.shape[s_axis], self.max_len)
-            dst.narrow(s_axis, 0, n).copy_(src.narrow(s_axis, 0, n))
-        pool.pos[:, slot] = new_pos
+        """Copy prefill row `row` of the stacked batch cache into pool slot
+        `slot`, cropped at max_len on each field's S axis (batching.py:
+        152-205), into the stacked pool or each layer's cache."""
+        pools = [self.caches] if self._stacked else self.caches
+        for i, pool in enumerate(pools):
+            for name in _fields(pool):
+                src, dst = getattr(batch, name), getattr(pool, name)
+                src, dst = (src[:, row], dst[:, slot]) if self._stacked else (src[i, row],
+                                                                               dst[slot])
+                ax = _s_axis(pool, name) + self._stacked
+                n = min(src.shape[ax], self.max_len)
+                dst.narrow(ax, 0, n).copy_(src.narrow(ax, 0, n))
+            if self._stacked:
+                pool.pos[:, slot] = new_pos
+            else:
+                pool.pos[slot] = new_pos
 
     def _decode(self, tok: torch.Tensor, positions: torch.Tensor,
                 key_valid: torch.Tensor) -> torch.Tensor:
         h, self.caches = self.mod.forward_hidden(
             self.params, tok[:, None], self.cfg, caches=self.caches,
-            positions=positions[:, None], attn_mask=key_valid)
-        logits = self.mod.lm_head_logits(self.params, h, self.cfg)
+            positions=positions[:, None], attn_mask=key_valid, ctx=self.ctx)
+        logits = self.mod.lm_head_logits(self.params, h, self.cfg, self.ctx)
         return torch.argmax(logits[:, -1], dim=-1)
 
     # ------------------------------------------------------------ API
@@ -233,7 +283,7 @@ class ContinuousBatcher:
         for _ in range(k):
             # the incoming token's pool row becomes valid for every slot; a
             # dead slot's row past the cache simply matches no column
-            key_valid |= cols == self.caches.pos[0][:, None]
+            key_valid |= cols == self._pool_positions()[:, None]
             tok_d = self._decode(tok_d, positions, key_valid)
             toks.append(tok_d)
             positions = positions + 1

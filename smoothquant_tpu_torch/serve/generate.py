@@ -1,13 +1,20 @@
 """Generation: prefill, then one decode step per token, over per-layer
 head-major KV caches (port of smoothquant_tpu/serve/generate.py:22-130).
 
-The prompt is prefilled on `prefill_params` (for example
-promote_model_int8 of a plain nibble pack, whose int8 layout runs K4) and
-every later token is decoded on `params` (the nibble tree, K6), over one
-KVCache or QuantKVCache per layer (the int8 cache's single-token attention
-runs K11), or, with kv_dtype=torch.int8, over int8 KVCaches for the
-real-INT8 OPT (models.opt_int8).  Sampling happens on the device; only the
-(B,) token ids reach the host each step.
+The Generator serves every per-layer tree of a registered family (Llama,
+Mistral, OPT, Bloom): fp, simulated (quantize_model's, under `quant`),
+packed (K6, or K8 / K9 for int8-container packs as `compute` picks) and the
+real-INT8 OPT (models.opt_int8, with kv_dtype=torch.int8).  One
+ForwardContext(quant, compute, attn) reaches every forward
+(generate.py:44-64).  The prompt is prefilled on `prefill_params` (for
+example promote_model_int8 of a plain nibble pack, whose int8 layout runs
+K4) and every later token is decoded on `params`, over one KVCache or
+QuantKVCache per layer (K11 as `attn` picks it: the int8 cache under
+"auto", the fp one too under "kernel").  Stacked trees are refused, as the
+JAX Generator cannot serve them either (its per-layer caches do not fit
+the scan over a stacked tree): the ContinuousBatcher serves those.
+Sampling happens on the device; only the (B,) token ids reach the host
+each step.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import numpy as np
 import torch
 
 from smoothquant_tpu_torch._device import resolve_device
-from smoothquant_tpu_torch.models.common import KVCache, QuantKVCache
+from smoothquant_tpu_torch.models.common import ForwardContext, KVCache, QuantKVCache
 
 
 @dataclasses.dataclass
@@ -47,14 +54,19 @@ class Generator:
     with num_hidden_layers, num_attention_heads (num_key_value_heads where
     it differs), head_dim, dtype)."""
 
-    def __init__(self, model_mod, params, cfg, *, kv_dtype=None, max_len: int = 2048,
-                 quant_kv: bool = False, prefill_params=None, device="cuda"):
-        """prefill_params: an optional second per-layer tree used ONLY for
-        the prompt prefill — e.g. promote_model_int8 of a plain nibble pack
-        of the same weights — while decode keeps `params`.  kv_dtype: the
-        KVCache dtype, cfg's by default; torch.int8 holds the raw static-
-        scale int8 k / v of models.opt_int8 (generate.py:45,66-68)."""
+    def __init__(self, model_mod, params, cfg, quant=None, *, kv_dtype=None,
+                 max_len: int = 2048, quant_kv: bool = False, compute: str = "auto",
+                 attn: str = "auto", prefill_params=None, device="cuda"):
+        """quant: the simulated path's recipe (a quantize_model tree).
+        compute / attn: ForwardContext's (K8 / K9 for int8-container packs;
+        K11 or the einsum).  prefill_params: an optional second per-layer
+        tree used ONLY for the prompt prefill — e.g. promote_model_int8 of a
+        plain nibble pack of the same weights — while decode keeps `params`.
+        kv_dtype: the KVCache dtype, cfg's by default; torch.int8 holds the
+        raw static-scale int8 k / v of models.opt_int8
+        (generate.py:45,66-68)."""
         self.mod, self.params, self.cfg = model_mod, params, cfg
+        self.ctx = ForwardContext(quant=quant, compute=compute, attn=attn)
         self.prefill_params = params if prefill_params is None else prefill_params
         for tree in (self.params, self.prefill_params):
             if "stacked" in tree.get("layers", {}):
@@ -73,7 +85,7 @@ class Generator:
 
     @torch.no_grad()
     def _step(self, params, ids: torch.Tensor, caches, temperature, rng):
-        logits, caches = self.mod.forward(params, ids, self.cfg, caches=caches)
+        logits, caches = self.mod.forward(params, ids, self.cfg, ctx=self.ctx, caches=caches)
         return sample_token(logits[:, -1, :], temperature, rng), caches
 
     def generate(self, prompt_ids: np.ndarray, gen: GenerationConfig) -> np.ndarray:

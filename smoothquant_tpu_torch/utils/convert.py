@@ -13,7 +13,12 @@ simulated trees of quantize_model, whose int32 "sal_perm", "sal_inv_perm"
 and "salient_indices" leaves become int64, the index dtype the port's
 quantize_linear_params stores them in.  The real-INT8
 OPT tree (opt_int8.from_float's) converts by int8_opt_from_numpy.  bfloat16
-arrays may arrive as any numpy dtype named "bfloat16".
+arrays may arrive as any numpy dtype named "bfloat16".  A tree carries
+whatever leaves it has: a tied tree without an lm_head converts to a tied
+tree.  config_from builds the port's config of a family from the JAX
+package's (or any object or dict with the same field names), every field
+the port's class declares carried across unchanged (Mistral's
+sliding_window and tie_word_embeddings among them).
 """
 
 from __future__ import annotations
@@ -55,6 +60,16 @@ def packed_from_numpy(d: dict, device) -> PackedLinear:
     if meta.layout == "identity" and not meta.nibble:
         t["w_qt"] = k_major(t["w_qt"])
     return PackedLinear(meta=meta, **t)
+
+
+def config_from(cls, src):
+    """An instance of the port's config dataclass `cls` with each of its
+    fields read from `src` (an object with those attributes, or a dict); a
+    field `src` lacks keeps cls's default."""
+    get = src.get if isinstance(src, dict) else (lambda k, d: getattr(src, k, d))
+    missing = object()
+    vals = {f.name: get(f.name, missing) for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in vals.items() if v is not missing})
 
 
 def params_from_numpy(tree, device="cuda"):

@@ -266,8 +266,8 @@ def test_packed_decode_per_layer_and_stacked_match_jax(bloom, quant_kv):
 
 def test_stacked_gate_respects_unsupported_shapes(bloom):
     """head_dim 16 (< 64) cannot ride K11: the gate declines the stacked
-    tree, and the port's forward raises where the JAX package scans its
-    per-layer body (finite logits)."""
+    tree, and the forward runs the per-layer body over its layers, as the
+    JAX package scans it (logits to 2e-4)."""
     jcfg = jbloom.BloomConfig.tiny()
     tcfg = tbloom.BloomConfig(**{f.name: getattr(jcfg, f.name)
                                  for f in dataclasses.fields(tbloom.BloomConfig)})
@@ -286,14 +286,17 @@ def test_stacked_gate_respects_unsupported_shapes(bloom):
                                         w4a4_group(GS, 0.05), **kw), tcfg)
     caches = tbloom.stacked_caches(tcfg, 1, CACHE_LEN, device="cpu")
     assert not tbloom._prefetch_capable(tp, tcfg, None, caches, 1)
-    with pytest.raises(NotImplementedError, match="_prefetch_capable"):
-        tbloom.forward(tp, torch.tensor([[3]]), tcfg, caches=caches)
+    got, got_c = tbloom.forward(tp, torch.tensor([[3]]), tcfg, caches=caches)
+    np.testing.assert_allclose(got.numpy(), np.asarray(logits), **TOL)
+    np.testing.assert_array_equal(got_c.pos.numpy(), [1] * tcfg.num_hidden_layers)
 
 
 def test_stacked_gate_declines_per_slot_positions(bloom):
     """The stacked decode takes the (L,) aligned positions stacked_caches
     builds (as the JAX bloom.stacked_caches does); a cache with (L, B)
-    per-slot positions is declined and the forward raises."""
+    per-slot positions is declined and the forward runs the per-layer body
+    over the stack: logits to 2e-4 of the JAX stacked decode's over the
+    same per-slot cache, the written int8 rows identical."""
     b = bloom
     tcfg = b["tcfg"]
     stacked = tbloom.stack_layers(b["t_packed"], tcfg)
@@ -304,8 +307,16 @@ def test_stacked_gate_declines_per_slot_positions(bloom):
                                    device="cpu", per_slot=True, n_layers=2, pos=5)
     assert per_slot.pos.shape == (2, 2)
     assert not tbloom._prefetch_capable(stacked, tcfg, None, per_slot, 1)
-    with pytest.raises(NotImplementedError, match="_prefetch_capable"):
-        tbloom.forward(stacked, torch.tensor([[3], [4]]), tcfg, caches=per_slot)
+    jcfg = b["jcfg"]
+    jst = jbloom.stacked_caches(jcfg, 2, CACHE_LEN, jnp.float32, pos=5, quant_kv=True)
+    jst = jst._replace(pos=jnp.full((2, 2), 5, jnp.int32))
+    ref, ref_c = jax.jit(lambda p, t, c: jbloom.forward(
+        p, t, jcfg, ctx=JCtx(compute="int", interpret=True), caches=c))(
+        jbloom.stack_layers(b["j_packed"], jcfg), jnp.asarray([[3], [4]]), jst)
+    got, got_c = tbloom.forward(stacked, torch.tensor([[3], [4]]), tcfg, caches=per_slot)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_array_equal(got_c.k_q.numpy(), np.asarray(ref_c.k_q))
+    np.testing.assert_array_equal(got_c.pos.numpy(), np.asarray(ref_c.pos))
 
 
 def test_generator_tokens_identical_to_jax(bloom):

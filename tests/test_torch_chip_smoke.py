@@ -44,7 +44,8 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
     from smoothquant_tpu_torch.models.opt import OPTConfig
 
     for name, value in dict(CALIB_SAMPLES=2, CALIB_LEN=32, OPT_BATCH=2, OPT_PROMPT=40,
-                            OPT_NEW=4, OPT_MAX_LEN=128,
+                            OPT_NEW=4, OPT_MAX_LEN=128, OPT_SERVE_LEN=128, SERVE_REQUESTS=3,
+                            SERVE_NEW=4, SERVE_PROMPT=(10, 40),
                             K15A_EDGE_SHAPES=((3, 208, 77), (130, 200, 77))).items():
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
@@ -98,6 +99,11 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
     assert phases["opt_generator"]["position_after"] == 40 + 2 + 1 + 3 * 8 + 4
     for s in ("tokens_40", "tokens_32"):
         assert 0.0 <= phases["opt_accuracy"][s]["top1_agree"] <= 1.0
+    # the fp per-layer OPT through the batcher: no kernel, tokens held
+    assert expected["serve_families opt"] == {}
+    fam = phases["serve_families"]
+    assert fam["family"] == "opt" and fam["tree"] == "per-layer fp"
+    assert fam["tokens"]["requests"] == 3
 
 
 def test_slot_path_rehearsal_on_cpu(monkeypatch):
@@ -541,6 +547,7 @@ def test_bloom_path_rehearsal_on_cpu(monkeypatch):
     monkeypatch.setattr(kv_write, "launch_rows", lambda *a, **k: None)
     for name, value in dict(BLOOM_SAMPLES=2, BLOOM_LEN=32, BLOOM_BATCH=2, BLOOM_PROMPT=40,
                             BLOOM_NEW=4, BLOOM_MAX_LEN=256, BLOOM_SLOT_BATCH=40,
+                            SERVE_REQUESTS=3, SERVE_NEW=4, SERVE_PROMPT=(10, 40),
                             K4_RAWX_CASES=(("gate@64", (64, 512, 384)), ("ragged@33", (33, 512, 384)),
                                            ("one_k_step", (16, 64, 128)))).items():
         monkeypatch.setattr(cs, name, value)
@@ -626,6 +633,12 @@ def test_bloom_path_rehearsal_on_cpu(monkeypatch):
     for b in (2, 40):
         # position 448, two warm-up steps and the counted one, three windows of 8, the profile
         assert phases[f"bloom_decode_b{b}"]["positions"] == [448, 448 + 3 + 24 + 4]
+    # Bloom's fp stacked tree through the batcher: the per-layer body over
+    # the stack for the prefill and each step, no kernel, tokens held
+    assert expected["serve_families bloom"] == {}
+    fam = phases["serve_families"]
+    assert fam["family"] == "bloom" and fam["tree"] == "stacked fp"
+    assert fam["tokens"]["requests"] == 3
 
 
 def test_wgmma_edge_checks_rehearsal_on_cpu(monkeypatch):
@@ -878,3 +891,111 @@ def test_kv_write_phases_rehearsal_on_cpu(monkeypatch):
     # Llama's rows aligned and off 16 bytes, Bloom's where a kv head takes one q head
     assert edges["cases"] == 2 * 2 * 2 * 2 * (2 + 2 + 1)
     assert edges["repeated_calls_identical"] == 2 * edges["cases"]
+
+
+def test_serving_layer_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's serving-layer phases on the CPU at a small size (2 layers
+    of hidden 512, 4 heads of 128, vocab 512, bf16; 3 requests of 10-40
+    prompt tokens, 4 new): tied_and_unfused, serve_per_layer (the int8
+    head-major pool on the nibble and the promoted prefill, the S-major
+    pool), the Generator's compute modes on the quick start's pack,
+    serve_fp_pool (the stacked bf16 tree, the per-layer one under
+    attn="kernel"), and the Mistral phases on a 2-layer twin (window 64,
+    from position 200 in caches of 256: the window binds); timing and the
+    launch checks are stubbed, the launch counts each path expects
+    recorded, the token checks strict."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.kernels import kv_write
+    from smoothquant_tpu_torch.models import llama
+
+    monkeypatch.setattr(kv_write, "launch_rows", lambda *a, **k: None)
+    for name, value in dict(SERVE_REQUESTS=3, SERVE_NEW=4, SERVE_PROMPT=(10, 40),
+                            GEN_COMPUTE_NEW=3, GEN_PROMPT=24, QS_BATCH=2, QS_MAX_LEN=128,
+                            MISTRAL_POS=200, MISTRAL_LEN=256, MISTRAL_SAMPLES=2,
+                            MISTRAL_CALIB_LEN=32, SLOT_BATCH=40).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
+    monkeypatch.setattr(cs, "profile", lambda fn, steps: (
+        fn(), {"idle_share": 0.5, "busy_ms_per_step": 1.0})[1])
+    monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
+    expected = {}
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda path, launches, expect: expected.setdefault(path, expect))
+    printed = []
+    monkeypatch.setattr(cs, "emit", printed.append)
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=512), hidden_size=512,
+                              intermediate_size=1024, num_attention_heads=4,
+                              num_key_value_heads=4, dtype="bfloat16")
+    cpu = torch.device("cpu")
+    n_l = cfg.num_hidden_layers
+    fp, packed, _ = cs.build_model(cfg, cpu, cs.SEED, align_o=256)
+    tu = cs.tied_and_unfused(fp, packed, cfg, cpu, "card")
+    assert tu["tied_bit_exact"] and tu["rel_norm_vs_fused"] <= tu["tolerance_rel_norm"]
+    assert expected["unfused shared-basis prefill"] == {"int4_group_matmul": 7 * n_l,
+                                                        "int8_prefill_matmul": 1}
+    promoted = cs.build_promoted(fp, cfg, cs.SEED)
+    assert sum(cs.serve_per_layer(packed, promoted, cfg, cpu, "card").values()) == 0
+    qs_packed, _, _ = cs.build_quickstart(fp, cfg, cpu, n_samples=2, seq_len=32)
+    cs.serve_generator_compute(qs_packed, cfg, cpu, "card")
+    cs.serve_fp_pool(fp, cs.build_bf16(fp, cfg), cfg, cpu, "card")
+    mcfg = dataclasses.replace(llama.LlamaConfig.mistral_7b(), vocab_size=512,
+                               hidden_size=512, intermediate_size=1792,
+                               num_hidden_layers=2, num_attention_heads=4,
+                               num_key_value_heads=2, sliding_window=64)
+    rows, launches = cs.run_mistral(cpu, "card", mcfg)
+    assert sum(launches.values()) == 0
+
+    by_phase = {}
+    for p in printed:
+        by_phase.setdefault(p.get("phase"), []).append(p)
+    for p in by_phase["serve_per_layer"] + by_phase["serve_fp_pool"]:
+        t = p["tokens"]
+        assert t["requests"] in (2, 3), p
+    assert [(p["pool"], p["prefill_tree"]) for p in by_phase["serve_per_layer"][:3]] == [
+        ("int8 head-major", "nibble"), ("int8 head-major", "promoted"),
+        ("int8 S-major", "nibble")]
+    assert [p["compute"] for p in by_phase["serve_per_layer"][3:]] == ["int", "dequant"]
+    assert [p["tree"] for p in by_phase["serve_fp_pool"]] == ["stacked", "per_layer"]
+    steps = {p["tree"]: p["decode_steps"] for p in by_phase["serve_fp_pool"]}
+    assert expected["serve_fp_pool stacked"] == {"fp_matmul_stacked": 4 * n_l * steps["stacked"],
+                                                 "decode_attention_stacked": n_l * steps["stacked"]}
+    assert expected["serve_fp_pool per_layer"] == {
+        "decode_attention_stacked": n_l * steps["per_layer"]}
+    hm = by_phase["serve_per_layer"][0]
+    want = {"int4_group_matmul": 4 * n_l * (hm["decode_steps"] + len(hm["prefill_rows"])),
+            "decode_attention_stacked": n_l * hm["decode_steps"],
+            "int8_prefill_matmul": hm["decode_steps"] + sum(n >= 4 for n in hm["prefill_seqs"])}
+    assert expected["serve_per_layer int8 head-major nibble"] == want
+    assert expected["generator compute=int"] == {"int_group_matmul": 7 * n_l * 3,
+                                                 "decode_attention_stacked": n_l * 2}
+    assert expected["generator compute=dequant"] == {"dual_path_matmul": 7 * n_l * 3,
+                                                     "decode_attention_stacked": n_l * 2}
+    # Mistral: K1, K7 + K5, K14 and K10 at its widths, out of the kernels
+    # line's sums (so printed too); the window binds; the decode over both pools
+    assert rows and all(not r["in_sum"] and r["site"].startswith("mistral_") for r in rows)
+    printed_rows = [p for p in printed if p.get("site", "").startswith("mistral_")]
+    assert len(printed_rows) >= len(rows) and not any(p["in_sum"] for p in printed_rows)
+    assert {r["kernel"] for r in rows} >= {"int4_group_matmul_stacked_rawx",
+                                           "int4_group_matmul_stacked",
+                                           "mlp_swiglu_fused_stacked",
+                                           "write_quant_cache_stacked"}
+    win = {p["pool"]: p for p in by_phase["mistral_window"]}
+    assert set(win) == {"s_major", "head_major"}
+    for p in win.values():
+        assert (p["bf16_rel_norm_vs_einsum"] <= p["tolerance_rel_norm"]
+                < p["bf16_rel_norm_without_window"])
+        assert p["attention_max_err"] <= p["attention_tol"] < p["attention_min_err_without_window"]
+        assert p["positions"] == [200, 200 + 3 + 24 + 4]
+    assert expected["mistral s_major decode step"] == {
+        "int4_group_matmul_stacked_rawx": 4 * n_l, "write_quant_cache_smajor": n_l,
+        "decode_attention_smajor_stacked": n_l, "int8_prefill_matmul": 1}
+    assert expected["mistral head_major decode step"] == {
+        "int4_group_matmul_stacked_rawx": 4 * n_l, "write_quant_cache_stacked": n_l,
+        "decode_attention_stacked": n_l, "int8_prefill_matmul": 1}

@@ -147,10 +147,12 @@ def test_no_cache_forward_matches_jax(model):
 
 
 def test_stacked_gate(model):
-    """A stacked tree decodes only one token over a stacked cache whose
-    projections tile (prefetch_tree_capable); otherwise it raises.  Over a
-    head-major int8 cache at aligned positions it decodes as the JAX
-    package does."""
+    """A stacked tree takes the stacked decode for one token over a stacked
+    cache whose projections tile (prefetch_tree_capable); otherwise it runs
+    the per-layer body over its layers, as the JAX package's scan over
+    _decoder_layer does (3 tokens into the stacked fp cache: logits, the
+    written rows and the positions against JAX).  Over a head-major int8
+    cache at aligned positions it decodes as the JAX package does."""
     m = model
     tst = tllama.stacked_caches(m["tcfg"], 2, MAX_LEN, torch.float32, quant_kv=False,
                                 smajor=False, device="cpu")
@@ -160,9 +162,15 @@ def test_stacked_gate(model):
     odd = dict(st, mlp=dict(st["mlp"], down_proj={
         "weight_t": st["mlp"]["down_proj"]["weight_t"][:, :, :100], "bias": None}))
     assert not tcommon.prefetch_tree_capable(odd, tst, 1)
-    with pytest.raises(NotImplementedError, match="stacked"):
-        tllama.forward(m["tstacked"], torch.zeros((2, 3), dtype=torch.int64), m["tcfg"],
-                       caches=tst)
+    ids = np.random.default_rng(13).integers(0, m["jcfg"].vocab_size, size=(2, 3))
+    jst = jllama.stacked_caches(m["jcfg"], 2, MAX_LEN, jnp.float32)
+    ref, ref_c = jax.jit(lambda p, t, c: jllama.forward(p, t, m["jcfg"], caches=c))(
+        m["jstacked"], jnp.asarray(ids), jst)
+    got, got_c = tllama.forward(m["tstacked"], torch.from_numpy(ids), m["tcfg"], caches=tst)
+    _close(got, ref)
+    _close(got_c.k, ref_c.k)
+    _close(got_c.v, ref_c.v)
+    np.testing.assert_array_equal(got_c.pos.numpy(), np.asarray(ref_c.pos))
     # aligned positions over a head-major int8 cache: the virtual-tile
     # attention (K12's stacked body for this GQA model) then K10, as the JAX
     # package runs it; K12 rounds each probability to bf16 before PV, and a

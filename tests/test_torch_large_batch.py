@@ -18,7 +18,7 @@ from smoothquant_tpu.models import llama as jllama
 from smoothquant_tpu.serve.batching import ContinuousBatcher as JBatcher
 from smoothquant_tpu.serve.batching import Request as JRequest
 from smoothquant_tpu_torch.models import llama as tllama
-from smoothquant_tpu_torch.models.common import QuantKVCache
+from smoothquant_tpu_torch.models.common import KVCache, QuantKVCache
 from smoothquant_tpu_torch.serve.batching import ContinuousBatcher, Request
 from test_torch_generate import MAX_LEN, models  # noqa: F401  (fixture)
 
@@ -166,6 +166,8 @@ def test_quant_cache_and_batcher_ask_for_the_card(models):  # noqa: F811
     with pytest.raises(RuntimeError, match="CUDA"):
         ContinuousBatcher(tllama, models["t_stacked"], models["tcfg"], max_batch=2,
                           max_len=MAX_LEN, quant_kv=True, prefill_params=models["t_promoted"])
-    with pytest.raises(NotImplementedError, match="fp pool"):
-        ContinuousBatcher(tllama, models["t_stacked"], models["tcfg"], max_batch=2,
-                          max_len=MAX_LEN, prefill_params=models["t_promoted"], device="cpu")
+    # the fp pool (quant_kv=False, the JAX default) is served now: a stacked
+    # head-major KVCache with (L, B) positions
+    fp = ContinuousBatcher(tllama, models["t_stacked"], models["tcfg"], max_batch=2,
+                           max_len=MAX_LEN, prefill_params=models["t_promoted"], device="cpu")
+    assert isinstance(fp.caches, KVCache) and fp.caches.pos.shape == (2, 2)

@@ -125,15 +125,33 @@ def test_unfused_pack_model_bit_exact():
 
 
 def test_unfused_pack_model_refuses_the_fused_options():
-    jcfg, tcfg = _cfgs()
-    params = params_from_numpy(jax.tree.map(np.asarray, jllama.init_params(
-        jax.random.PRNGKey(0), jcfg)), "cpu")
-    feat = {k: np.ones(256 if "down" in k else 128) for _, k, _ in
-            tllama.quantizable_linears(tcfg)}
-    for kw in ({"shared_residual_basis": True}, {"fold_perms": True}):
-        with pytest.raises(NotImplementedError):
-            pack_model("llama", params, tcfg, tconfig.w4a4_group(16, 0.05),
-                       input_feat=feat, **kw)
+    """The unfused pack takes the shared residual basis and the folded perms
+    for Llama now (tests/test_torch_unfused_basis.py holds it to JAX); an
+    architecture without residual_consumers / perm_fold_pairs refuses the
+    option, as the JAX pack_model does: Bloom both, OPT the shared basis."""
+    from smoothquant_tpu.models import bloom as jbloom
+    from smoothquant_tpu.models import opt as jopt
+    from smoothquant_tpu.quant.config import w4a4_group as jw4a4_group
+    from smoothquant_tpu_torch.models import bloom as tbloom
+    from smoothquant_tpu_torch.models import opt as topt
+
+    cases = (("bloom", jbloom, tbloom, jbloom.BloomConfig.tiny(), tbloom.BloomConfig,
+              ({"shared_residual_basis": True}, {"fold_perms": True})),
+             ("opt", jopt, topt, jopt.OPTConfig.tiny(), topt.OPTConfig,
+              ({"shared_residual_basis": True},)))
+    for arch, jmod, tmod, jcfg, tcls, refused in cases:
+        tcfg = tcls(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tcls)})
+        jparams = jmod.init_params(jax.random.PRNGKey(0), jcfg)
+        params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+        wide = {"dense_4h_to_h": 4 * jcfg.hidden_size, "fc2": getattr(jcfg, "ffn_dim", 0)}
+        feat = {k: np.ones(wide.get(k.rsplit(".", 1)[-1], jcfg.hidden_size))
+                for _, k, _ in jmod.quantizable_linears(jcfg)}
+        for kw in refused:
+            with pytest.raises(NotImplementedError):
+                jpack_model(arch, jparams, jcfg, jw4a4_group(16, 0.05), input_feat=feat, **kw)
+            with pytest.raises(NotImplementedError):
+                pack_model(arch, params, tcfg, tconfig.w4a4_group(16, 0.05),
+                           input_feat=feat, **kw)
 
 
 @pytest.mark.parametrize("name", ["w4a4_g64", "w4a8_g64", "w4a8_per_channel",
