@@ -13,8 +13,9 @@
    kernels of K4 and K15a to IGMMA (K4's salient ones HGMMA too), TMA
    loads, no I2F and no spills, K14's six gate_up kernels to TMA loads and
    they and K16's sixteen row kernels, K7's sixteen and the eight of K2 /
-   K10's row body to no I2F, no local memory and no spills (cuobjdump);
-   reads the SM clock the per-group scaling floors take.
+   K10's row body to no I2F, no local memory and no spills (cuobjdump,
+   run in the background while the OPT path runs: the `sass` line follows
+   the OPT path's); reads the SM clock the per-group scaling floors take.
 The real-INT8 OPT path, at OPT-1.3B width and depth (24 layers, hidden
 2048, random bf16 weights from seed 0):
    a. the export pipeline of export_int8_model.py:48-76 on the card:
@@ -223,7 +224,8 @@ The serving layer on every tree and pool (each request's tokens held to
 its own greedy Generator run, its prompt alone at the pool's width, up to
 the first step whose top-2 logit gap falls below SERVE_GAP_TOL of
 |logits|∞, SMAJOR_EINSUM_GAP_TOL over the S-major pool; the launches
-checked):
+checked; each on the first SERVE_LAYERS = 8 layers of its trees, the
+cut that keeps the run inside its limit):
    - tied_and_unfused (after the reference check): a tied twin of the fp
      7B gives the untied twin's 1 × 512 logits bit for bit; the unfused
      pack_model(shared_residual_basis, fold_perms) within half the
@@ -241,8 +243,9 @@ checked):
      BLOOM-7b1's fp stacked tree through the per-layer body over the stack
      (after its Generator), no kernel launched;
    - Mistral-7B (run_mistral, after the Llama trees are freed: the JAX
-     package's mistral_7b preset, random bf16 weights from seed 0,
-     calibration on 4 random 512-token sequences, the serving pack): K1,
+     package's mistral_7b preset at 8 of its 32 layers, random bf16
+     weights from seed 0, calibration on 4 random 512-token sequences, the
+     serving pack): K1,
      K7 + K5, K14 and K10 against their plain versions at its GQA widths
      (out of the kernels line's sums), then the stacked decode at B = 4
      from position 4600 in caches of 5120 (keys 0-504 outside the 4096
@@ -251,6 +254,34 @@ checked):
      the einsum over the same dequantized cache with and without the
      window, the step's logits against the einsum step and the windowless
      step, three windows of 8 steps.
+I/O and the CLI (files under a temporary directory, removed at the end
+of their phase; file reads warm, just written):
+   - cli_opt (at the end of the OPT path): the weights export_opt draws
+     written as an HF directory (facebook/opt-1.3b's config.json, two
+     bf16 safetensors shards) beside the export's random token stream;
+     generate_act_scales as `python -m` in a child process (its scales
+     those of get_act_scales here, bit for bit), export_int8_model
+     --act_scales_path, load_int8_opt: the int8 model bit for bit
+     export_opt's; the Generator over it gives opt_generator's tokens with
+     its launches; ppl_eval --smooth --quantize over one window of 2048
+     and run_experiments over 2 group sizes × 2 salient shares; each CLI's
+     seconds and JSON;
+   - hf_import (after the kernel checks of the Llama path): the fp 7B as
+     an HF directory (Llama-2-7b-hf's config.json, two bf16 safetensors
+     shards, 13.5 GB) and load_model back, bit for bit; bytes, seconds,
+     GB/s, the disk's free space;
+   - cli_llama_ppl: ppl_eval on that directory (W4A4 g64, 5 % salient,
+     calibration 4 × 512, one window of 2048), its perplexity equal to the
+     same calls in this process bit for bit; seconds by stage;
+   - host_pack: pack_model(host_pack=True) with the serving recipe on 4 of
+     the 32 layers and the lm_head (the cut), bit for bit the device pack
+     of the same tree, leaf by leaf; the seconds of each;
+   - packed_checkpoint: the stacked decode tree and the per-layer prefill
+     tree saved and loaded (bytes, seconds), then 8 requests through
+     ContinuousBatcher (4 slots, S-major int8 pool, cache 512) on the
+     loaded trees: tokens identical to the trees' in memory, the same
+     launches (K1, K2, K3, K4 a step, K6 a prefill); a decode step timed
+     on both by utils.benchtools.time_steps.
 10. Prints each K5, K6 and K8 row's per-group scaling floor beside its
    bound (scaling_floors), the `kernels` JSON line (all eighteen kernels,
    K4's raw-x and K11's ALiBi bodies named by their sites and counted
@@ -3856,7 +3887,26 @@ SPLIT_MODES = ("K11 split", "K3 split", "K12 stacked", "K12 flat", "K12 write")
 OUT_CODE = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8"}   # mangled output types
 
 
-def sass_check():
+def sass_dump_start():
+    """`cuobjdump -sass` of the built library, started in the background
+    into a temporary file, so the dump overlaps the phases after the build:
+    (the process, the file's path) for sass_check."""
+    import os
+    import shutil
+    import tempfile
+
+    from smoothquant_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_sass_", suffix=".txt")
+    with os.fdopen(fd, "w") as f:
+        proc = subprocess.Popen([tool, "-sass", _build.build()], stdout=f,
+                                stderr=subprocess.PIPE, text=True)
+    return proc, path
+
+
+def sass_check(dump=None):
     """What the build made of the wgmma bodies and of the stream body K8 and
     K5 share: per kernel, the IGMMA / HGMMA instructions of its main loop
     and any I2F (int → float through the conversion unit, which the
@@ -3885,14 +3935,18 @@ def sass_check():
     have no I2F, no LDL / STL, no spill and no stack frame."""
     import os
     import re
-    import shutil
 
     from smoothquant_tpu_torch.kernels import _build
 
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", _build.build()], check=True, capture_output=True,
-                          text=True, timeout=300).stdout
+    proc, path = dump or sass_dump_start()
+    try:
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"cuobjdump -sass failed ({proc.returncode}): {err}")
+        with open(path) as f:
+            sass = f.read()
+    finally:
+        os.remove(path)
     out, stream, attn, s8, new, k7, kv = {}, {}, {}, {}, {}, {}, {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
@@ -5225,7 +5279,7 @@ def opt_generator(int8, cfg, dev):
     trace = profile(lambda: step(4), 4)
     ms = statistics.median(windows)
     bound = roofline.opt_int8_decode_step_bytes(cfg, OPT_BATCH, OPT_MAX_LEN)
-    return dict(batch=OPT_BATCH, prompt=OPT_PROMPT, new_tokens=OPT_NEW,
+    return dict(batch=OPT_BATCH, prompt=OPT_PROMPT, new_tokens=OPT_NEW, tokens=out,
                 max_len=OPT_MAX_LEN, generate_wall_s=wall,
                 generate_tokens_per_s=OPT_BATCH * OPT_NEW / wall,
                 decode_ms_per_step=ms, decode_windows_ms_per_step=windows,
@@ -5271,12 +5325,16 @@ def run_opt(dev, cfg, card: str):
     emit({"phase": "opt_prefill", "card": card, **pf, "launches": used})
     from smoothquant_tpu_torch.models import opt
 
-    serve_family("opt", opt, smoothed, smoothed, cfg, dev, card, max_len=OPT_SERVE_LEN)
+    sp_tree, sp_cfg = first_layers(smoothed, cfg)
+    serve_family("opt", opt, sp_tree, sp_tree, sp_cfg, dev, card, max_len=OPT_SERVE_LEN)
+    del sp_tree
     del smoothed
     torch.cuda.empty_cache()
     g, used = opt_generator(int8, cfg, dev)
+    gen_tokens = g.pop("tokens")
     launches.update(used)
     emit({"phase": "opt_generator", "card": card, **g, "launches": used})
+    launches.update(cli_opt(int8, gen_tokens, cfg, dev, card))
     return rows, launches
 
 
@@ -5914,9 +5972,10 @@ def run_bloom(dev, cfg, card: str):
     metrics, used = bloom_generator(packed, fp, cfg, dev, card)
     launches.update(used)
     emit({"phase": "bloom_generator", "card": card, **metrics})
-    fp_stacked = bloom.stack_layers(fp, cfg)
-    serve_family("bloom", bloom, fp_stacked, fp, cfg, dev, card, max_len=MAX_LEN)
-    del fp, fp_stacked
+    sp_fp, sp_cfg = first_layers(fp, cfg)
+    serve_family("bloom", bloom, bloom.stack_layers(sp_fp, sp_cfg), sp_fp, sp_cfg, dev, card,
+                 max_len=MAX_LEN)
+    del fp, sp_fp
     torch.cuda.empty_cache()
     for n in (BLOOM_BATCH * BLOOM_PROMPT, BLOOM_BATCH):
         rows += check_gmm(packed, cfg, dev, gen, n)
@@ -6039,6 +6098,11 @@ OPT_SERVE_LEN = 1024
 # in another layout than its reference's, the bits differ, and W4A4 codes at
 # rounding edges move and spread, so its near-ties reach further
 SERVE_GAP_TOL, SMAJOR_EINSUM_GAP_TOL = 1e-2, 5e-2
+# the serving-layer phases (serve_per_layer, serve_fp_pool, serve_families)
+# and the Mistral path run the first SERVE_LAYERS layers of their trees (the
+# cut: each checks the serving logic or the window, not the depth, and at
+# full depth they took ~280 s of the run's 1200 s limit)
+SERVE_LAYERS = 8
 # Mistral-7B's windowed decode: B = 4 from position 4600 in a cache of 5120,
 # so keys 0-504 lie outside the 4096 window.  Each layer's attention is held
 # to the einsum over the same dequantized cache and bias (a share of the
@@ -6050,6 +6114,31 @@ SERVE_GAP_TOL, SMAJOR_EINSUM_GAP_TOL = 1e-2, 5e-2
 MISTRAL_BATCH, MISTRAL_POS, MISTRAL_LEN = 4, 4600, 5120
 MISTRAL_SAMPLES, MISTRAL_CALIB_LEN = 4, 512
 MISTRAL_ATTN_TOL, MISTRAL_LOGIT_TOL = 1e-2, 0.1
+
+
+def first_layers(tree, cfg, n=None):
+    """(tree, cfg) cut to the first n (default SERVE_LAYERS) layers: a
+    per-layer tree keeps layers "0" .. n − 1, a stacked tree the first n
+    along its layer axis (views); the rest of the tree as it is."""
+    import dataclasses
+
+    from smoothquant_tpu_torch.kernels.pack import PackedLinear
+
+    n = min(n or SERVE_LAYERS, cfg.num_hidden_layers)
+
+    def cut(node):
+        if isinstance(node, PackedLinear):
+            return dataclasses.replace(node, **{
+                f: None if getattr(node, f) is None else getattr(node, f)[:n]
+                for f in ("w_qt", "w_scales_t", "w_sal_t", "bias", "perm", "ns_mask")})
+        if isinstance(node, dict):
+            return {k: cut(v) for k, v in node.items()}
+        return None if node is None else node[:n]
+
+    layers = tree["layers"]
+    layers = ({"stacked": cut(layers["stacked"])} if "stacked" in layers
+              else {str(i): layers[str(i)] for i in range(n)})
+    return {**tree, "layers": layers}, dataclasses.replace(cfg, num_hidden_layers=n)
 
 
 def serve_prompts(cfg, n, seed):
@@ -6215,6 +6304,7 @@ def serve_fp_pool(fp, bf16, cfg, dev, card):
                                  "einsum attentions, only the prefills' expected")
         launches.update(used)
         emit({"phase": "serve_fp_pool", "card": card, "tree": tree_name, "pool": "fp",
+              "layers": n_l,
               "max_batch": MAX_BATCH, "cache": MAX_LEN, **m, "launches_per_step": per_step,
               "launches": used, "tokens": hold_tokens(f"serve_fp_pool {tree_name}", toks, refs,
                                                       SERVE_GAP_TOL)})
@@ -6264,7 +6354,8 @@ def serve_per_layer(packed, promoted, cfg, dev, card):
             raise AssertionError(f"serve_per_layer {pool}: {m['einsum_attention_calls']} einsum "
                                  f"attentions, {calls} expected")
         launches.update(used)
-        emit({"phase": "serve_per_layer", "card": card, "tree": "W4A4 serving pack, per-layer",
+        emit({"phase": "serve_per_layer", "card": card, "layers": cfg.num_hidden_layers,
+              "tree": "W4A4 serving pack, per-layer",
               "pool": pool, "prefill_tree": pre, "max_batch": MAX_BATCH, "cache": MAX_LEN, **m,
               "launches_per_step": per_step, "launches": used,
               "tokens": hold_tokens(f"serve_per_layer {pool} {pre}", toks, refs,
@@ -6302,7 +6393,8 @@ def serve_generator_compute(packed, cfg, dev, card):
         _check_launches(f"generator compute={compute}", used, {
             kernel: 7 * n_l * (1 + steps), "decode_attention_stacked": n_l * steps})
         launches.update(used)
-        emit({"phase": "serve_per_layer", "card": card, "tree": "quick start pack",
+        emit({"phase": "serve_per_layer", "card": card, "layers": cfg.num_hidden_layers,
+              "tree": "quick start pack",
               "generator": True, "compute": compute, "batch": QS_BATCH, "prompt": GEN_PROMPT,
               "new_tokens": GEN_COMPUTE_NEW, "wall_s": wall,
               "tokens_per_s": QS_BATCH * GEN_COMPUTE_NEW / wall,
@@ -6328,6 +6420,7 @@ def serve_family(name, mod, tree, ref_tree, cfg, dev, card, *, max_len, batch=MA
     toks, used, m = serve_batch(mod, tree, cfg, dev, prompts, batch=batch, max_len=max_len)
     _check_launches(f"serve_families {name}", used, {})
     emit({"phase": "serve_families", "card": card, "family": name,
+          "layers": cfg.num_hidden_layers,
           "tree": "stacked fp" if "stacked" in tree["layers"] else "per-layer fp",
           "pool": "fp", "max_batch": batch, "cache": max_len, **m,
           "tokens": hold_tokens(f"serve_families {name}", toks, refs, SERVE_GAP_TOL)})
@@ -6609,21 +6702,565 @@ def _emitted_off_the_sums(prefix, fn):
         emit = real
 
 
+# ---------------------------------------------------------------- I/O and the CLI
+
+# meta-llama/Llama-2-7b-hf and facebook/opt-1.3b config.json, field for
+# field but torch_dtype (the shards hold the tree's own bf16); the size
+# fields are taken from the config the phase runs (the published values at
+# full size, llama_hf_config / opt_hf_config check it)
+LLAMA_HF_CONFIG = {
+    "_name_or_path": "meta-llama/Llama-2-7b-hf", "architectures": ["LlamaForCausalLM"],
+    "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 11008, "max_position_embeddings": 4096,
+    "model_type": "llama", "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 32, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "transformers_version": "4.31.0.dev0", "use_cache": True, "vocab_size": 32000}
+OPT_HF_CONFIG = {
+    "_name_or_path": "facebook/opt-1.3b", "activation_dropout": 0.0,
+    "activation_function": "relu", "architectures": ["OPTForCausalLM"],
+    "attention_dropout": 0.0, "bos_token_id": 2, "do_layer_norm_before": True,
+    "dropout": 0.1, "eos_token_id": 2, "ffn_dim": 8192, "hidden_size": 2048,
+    "init_std": 0.02, "layerdrop": 0.0, "max_position_embeddings": 2048,
+    "model_type": "opt", "num_attention_heads": 32, "num_hidden_layers": 24,
+    "pad_token_id": 1, "prefix": "</s>", "torch_dtype": "bfloat16",
+    "transformers_version": "4.21.0.dev0", "use_cache": True, "vocab_size": 50272,
+    "word_embed_proj_dim": 2048}
+# the host pack at Llama-2-7B width: HOST_PACK_LAYERS of the 32 layers and
+# the lm_head (the cut: the host library packs ~1.2 s a layer on the
+# card's 8 host cores, ~40 s for all 32)
+HOST_PACK_LAYERS = 4
+# cli_llama_ppl: ppl_eval on the HF directory, W4A4 g64 with 5 % salient
+# channels calibrated on 4 sequences of 512, one window of 2048
+LLAMA_PPL = dict(group_size=64, salient_prop=0.05, calib_samples=4, calib_seq_len=512,
+                 window=2048)
+# cli_opt: ppl_eval --smooth --quantize over one window of OPT_IO_WINDOW,
+# and the run_experiments sweep (group sizes 64 and 128 × 0 and 5 % salient
+# channels, one window, calibration on the export's sequences)
+OPT_IO_WINDOW = 2048
+OPT_SWEEP = (("64", "128"), ("0", "0.05"))
+
+
+def _hf_config(base, cfg, fields):
+    out = dict(base)
+    out.update({hf: getattr(cfg, ours) for hf, ours in fields})
+    return out
+
+
+def llama_hf_config(cfg) -> dict:
+    return _hf_config(LLAMA_HF_CONFIG, cfg, [(k, k) for k in (
+        "hidden_size", "intermediate_size", "max_position_embeddings", "num_attention_heads",
+        "num_hidden_layers", "num_key_value_heads", "rms_norm_eps", "vocab_size")])
+
+
+def opt_hf_config(cfg) -> dict:
+    return _hf_config(OPT_HF_CONFIG, cfg, [(k, k) for k in (
+        "ffn_dim", "hidden_size", "max_position_embeddings", "num_attention_heads",
+        "num_hidden_layers", "vocab_size")] + [("word_embed_proj_dim", "embed_dim")])
+
+
+def hf_state_dict(arch, params, cfg) -> dict:
+    """The port's fp tree under the HF module names its family's
+    params_from_hf_state_dict reads (the tensors themselves, not copies)."""
+    out = {}
+
+    def put(prefix, node):
+        for k, v in node.items():
+            if v is not None:
+                out[f"{prefix}.{k}"] = v
+
+    layers = params["layers"]
+    if arch == "llama":
+        put("model.embed_tokens", params["embed_tokens"])
+        for i in range(cfg.num_hidden_layers):
+            lp, p = layers[str(i)], f"model.layers.{i}"
+            for n in ("input_layernorm", "post_attention_layernorm"):
+                put(f"{p}.{n}", lp[n])
+            for blk in ("self_attn", "mlp"):
+                for n, lin in lp[blk].items():
+                    put(f"{p}.{blk}.{n}", lin)
+        put("model.norm", params["norm"])
+        if "lm_head" in params:
+            put("lm_head", params["lm_head"])
+    elif arch == "opt":
+        d = "model.decoder"
+        for n in ("embed_tokens", "embed_positions", "final_layer_norm", "project_in",
+                  "project_out"):
+            if n in params:
+                put(f"{d}.{n}", params[n])
+        for i in range(cfg.num_hidden_layers):
+            lp, p = layers[str(i)], f"{d}.layers.{i}"
+            for n in ("self_attn_layer_norm", "final_layer_norm", "fc1", "fc2"):
+                put(f"{p}.{n}", lp[n])
+            for n, lin in lp["self_attn"].items():
+                put(f"{p}.self_attn.{n}", lin)
+    else:
+        raise ValueError(f"no HF names for {arch}")
+    return out
+
+
+def write_hf_dir(path, arch, params, cfg, config: dict, n_shards: int = 2) -> int:
+    """An HF checkpoint directory of `params`: config.json, n_shards
+    safetensors shards (model-0000i-of-0000n.safetensors, the tensors in
+    order, split by bytes) and model.safetensors.index.json.  Returns the
+    bytes of the shards."""
+    import os
+
+    from smoothquant_tpu_torch.utils.hf_import import write_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    state = hf_state_dict(arch, params, cfg)
+    total = sum(t.numel() * t.element_size() for t in state.values())
+    shards, cur, acc = [], {}, 0
+    for name, t in state.items():
+        cur[name] = t
+        acc += t.numel() * t.element_size()
+        if acc >= total * (len(shards) + 1) / n_shards and len(shards) < n_shards - 1:
+            shards.append(cur)
+            cur = {}
+    shards.append(cur)
+    weight_map, written = {}, 0
+    for i, shard in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        written += write_safetensors(shard, os.path.join(path, fname), {"format": "pt"})
+        weight_map.update({k: fname for k in shard})
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return written
+
+
+def _assert_trees_equal(path, got, ref) -> int:
+    """The same keys, and every tensor (PackedLinear fields too) of the
+    same dtype, shape and bits; returns the tensors compared."""
+    import dataclasses
+
+    import torch
+
+    from smoothquant_tpu_torch.kernels.pack import PackedLinear
+
+    if isinstance(ref, PackedLinear):
+        if not isinstance(got, PackedLinear) or got.meta != ref.meta:
+            raise AssertionError(f"{path}: packed meta differs")
+        return sum(_assert_trees_equal(f"{path}/{f.name}", getattr(got, f.name),
+                                       getattr(ref, f.name))
+                   for f in dataclasses.fields(ref) if f.name not in ("meta", "_sal_cast"))
+    if isinstance(ref, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(ref):
+            raise AssertionError(f"{path}: keys {sorted(got) if isinstance(got, dict) else got}"
+                                 f" != {sorted(ref)}")
+        return sum(_assert_trees_equal(f"{path}/{k}", got[k], ref[k]) for k in ref)
+    if ref is None:
+        if got is not None:
+            raise AssertionError(f"{path}: expected None")
+        return 0
+    if not (isinstance(got, torch.Tensor) and got.dtype == ref.dtype
+            and got.shape == ref.shape and torch.equal(got, ref)):
+        raise AssertionError(f"{path}: differs ({getattr(got, 'dtype', got)} vs {ref.dtype})")
+    return 1
+
+
+def _sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _disk(path) -> dict:
+    import shutil
+
+    u = shutil.disk_usage(path)
+    return {"disk_free_gb": u.free / 1e9, "disk_total_gb": u.total / 1e9}
+
+
+def run_cli(name, argv, dev, subprocess_run=False):
+    """A CLI of the port on `dev` (its --device), in this process through
+    main(argv) with its standard output captured, or as `python -m
+    smoothquant_tpu_torch.cli.<name>` in a child process from this
+    checkout: (wall seconds, its output lines, the last line's JSON or
+    None)."""
+    import contextlib
+    import importlib
+    import io
+    import os
+
+    argv = [*argv, "--device", dev.type]
+    t0 = time.perf_counter()
+    if subprocess_run:
+        out = subprocess.run([sys.executable, "-m", f"smoothquant_tpu_torch.cli.{name}", *argv],
+                             cwd=os.path.dirname(os.path.abspath(__file__)), check=True,
+                             capture_output=True, text=True, timeout=600).stdout
+    else:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module(f"smoothquant_tpu_torch.cli.{name}").main(argv)
+        _sync()
+        out = buf.getvalue()
+    lines = out.strip().splitlines()
+    last = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else None
+    return time.perf_counter() - t0, lines, last
+
+
+def hf_import_phase(fp, cfg, dev, card, root):
+    """The fp Llama tree as an HF directory (config.json of Llama-2-7b-hf,
+    two safetensors shards under HF names, bf16 as drawn) and back through
+    load_model: the tree bit for bit.  Returns the directory."""
+    import os
+
+    import torch
+
+    from smoothquant_tpu_torch.utils.hf_import import load_model
+
+    path = os.path.join(root, "Llama-2-7b-hf")
+    disk = _disk(root)
+    _sync()
+    t0 = time.perf_counter()
+    nbytes = write_hf_dir(path, "llama", fp, cfg, llama_hf_config(cfg))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch, got_cfg, got = load_model(path, device=dev)
+    _sync()
+    load_s = time.perf_counter() - t0
+    if arch != "llama" or got_cfg != cfg:
+        raise AssertionError(f"hf_import: read back {arch} {got_cfg}, not {cfg}")
+    n = _assert_trees_equal("hf_import", got, fp)
+    del got
+    torch.cuda.empty_cache()
+    emit({"phase": "hf_import", "card": card, "model": "Llama-2-7b-hf", "layers":
+          cfg.num_hidden_layers, "published_config": cfg == type(cfg).llama2_7b(),
+          "tensors": n, "shards": 2, "bytes": nbytes, "write_s": write_s, "load_s": load_s,
+          "load_gb_per_s": nbytes / load_s / 1e9, "write_gb_per_s": nbytes / write_s / 1e9,
+          "read_warm": True, **disk})
+    return path
+
+
+def cli_llama_ppl(fp, cfg, dev, card, model_dir, root):
+    """ppl_eval on the Llama HF directory (W4A4 g64, 5 % salient,
+    calibration on 4 × 512, one window of 2048): its perplexity equals the
+    same calls in this process on the fp tree (get_calib_feat,
+    quantize_model, Evaluator) bit for bit."""
+    import functools
+    import os
+
+    import numpy as np
+
+    from smoothquant_tpu_torch.cli.common import calib_batches, forward_fn
+    from smoothquant_tpu_torch.eval import Evaluator
+    from smoothquant_tpu_torch.models.registry import quantize_model
+    from smoothquant_tpu_torch.quant import QuantConfig
+    from smoothquant_tpu_torch.quant.calibrate import get_calib_feat
+
+    a = LLAMA_PPL
+    tokens = np.random.default_rng(SEED + 61).integers(
+        0, cfg.vocab_size, size=(max(a["window"], a["calib_samples"] * a["calib_seq_len"]),))
+    tok_path = os.path.join(root, "llama_tokens.npy")
+    np.save(tok_path, tokens.astype(np.int32))
+    args = ["--quantize", "--weight_quant", "per_group", "--act_quant", "per_group",
+            "--group_size", str(a["group_size"]), "--salient_prop", str(a["salient_prop"]),
+            "--calib_samples", str(a["calib_samples"]), "--calib_seq_len",
+            str(a["calib_seq_len"]), "--n_samples", "1", "--window", str(a["window"])]
+    seconds, _, out = run_cli("ppl_eval", ["--model_path", model_dir, "--tokens_path",
+                                           tok_path, "--json", *args], dev)
+    t0 = time.perf_counter()
+    qcfg = QuantConfig(weight_quant="per_group", act_quant="per_group", quantize_bmm_input=False,
+                       salient_prop=a["salient_prop"], quant_bits=4, group_size=a["group_size"])
+    _, tapped = forward_fn("llama", cfg)
+    feat = get_calib_feat(tapped, fp, calib_batches(tokens.astype(np.int32), a["calib_samples"],
+                                                    a["calib_seq_len"], dev))
+    tree = quantize_model("llama", fp, cfg, qcfg, input_feat=feat)
+    logits_fn, _ = forward_fn("llama", cfg, quant=qcfg)
+    ppl = Evaluator(tokens, n_samples=1, window=a["window"], device=dev).evaluate(
+        functools.partial(logits_fn, tree))
+    in_process_s = time.perf_counter() - t0
+    del tree
+    if not (np.isfinite(ppl) and out["ppl"] == ppl):
+        raise AssertionError(f"cli_llama_ppl: the CLI's perplexity {out['ppl']} != "
+                             f"in-process {ppl}")
+    emit({"phase": "cli_llama_ppl", "card": card, "cli_s": seconds, "in_process_s": in_process_s,
+          "args": args, "ppl": ppl, "bit_equal": True, "cli_json": out})
+
+
+def host_pack_phase(fp, cfg, dev, card):
+    """pack_model(..., host_pack=True) with the serving recipe on the first
+    HOST_PACK_LAYERS layers of the fp 7B and its lm_head, against the
+    device pack of the same tree: bit for bit, leaf by leaf; the seconds of
+    each."""
+    import dataclasses
+
+    import torch
+
+    from smoothquant_tpu_torch.models.registry import pack_model
+    from smoothquant_tpu_torch.utils import native
+
+    n = min(HOST_PACK_LAYERS, cfg.num_hidden_layers)
+    cut = dataclasses.replace(cfg, num_hidden_layers=n)
+    tree = {**fp, "layers": {str(i): fp["layers"][str(i)] for i in range(n)}}
+    qcfg, head, feat = _recipe(cut, SEED, 64)
+    kw = dict(input_feat=feat, nibble=True, lm_head_qcfg=head, align_k_groups=8,
+              align_o=2048, fuse=True, fold_perms=True, shared_residual_basis=True,
+              identity_keys=("o_proj",))
+    t0 = time.perf_counter()
+    native.lib()
+    build_s = time.perf_counter() - t0
+    out = {}
+    for name, host in (("device", False), ("host", True), ("device", False)):
+        _sync()
+        t0 = time.perf_counter()
+        packed = pack_model("llama", tree, cut, qcfg, host_pack=host, **kw)
+        _sync()
+        out[f"{name}_s"] = time.perf_counter() - t0       # the device pack's second run
+        out[name] = packed
+    leaves = _assert_trees_equal("host_pack", out.pop("host"), out.pop("device"))
+    torch.cuda.empty_cache()
+    emit({"phase": "host_pack", "card": card, "layers": n, "of_layers": cfg.num_hidden_layers,
+          "lm_head": True, "tensors_bit_equal": leaves, "build_s": build_s,
+          "threads": torch.get_num_threads(), **out,
+          "cut": f"{n} of {cfg.num_hidden_layers} layers and the lm_head"})
+
+
+def packed_checkpoint(packed, stacked, cfg, dev, card, root):
+    """save_packed_model / load_packed_model of the serving pack's stacked
+    decode tree and its per-layer prefill tree, then SERVE_REQUESTS
+    requests through ContinuousBatcher(MAX_BATCH slots, S-major int8 pool,
+    cache MAX_LEN) on the loaded trees: tokens identical to the trees in
+    memory, the same launches (K1, K2, K3 and K4 a step, K6 in each
+    prefill); a decode step timed on both by utils.benchtools.time_steps.
+    Returns the launches of the loaded trees' run."""
+    import os
+
+    import torch
+
+    from smoothquant_tpu_torch.kernels.real_linear import PREFILL_KERNEL_MIN_TOKENS
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.utils.benchtools import time_steps
+    from smoothquant_tpu_torch.utils.checkpoint import load_packed_model, save_packed_model
+
+    n_l = cfg.num_hidden_layers
+    files, sizes, save_s, load_s, loaded = {}, {}, {}, {}, {}
+    for name, tree in (("stacked", stacked), ("per_layer", packed)):
+        files[name] = os.path.join(root, f"{name}.npz")
+        _sync()
+        t0 = time.perf_counter()
+        save_packed_model(tree, files[name])
+        save_s[name] = time.perf_counter() - t0
+        sizes[name] = os.path.getsize(files[name])
+        t0 = time.perf_counter()
+        loaded[name] = load_packed_model(files[name], device=dev)
+        _sync()
+        load_s[name] = time.perf_counter() - t0
+        os.remove(files[name])
+        _assert_trees_equal(f"packed_checkpoint {name}", loaded[name], tree)
+    prompts = serve_prompts(cfg, SERVE_REQUESTS, SEED + 79)
+    runs = {}
+    for name, (st, pl) in (("memory", (stacked, packed)),
+                           ("loaded", (loaded["stacked"], loaded["per_layer"]))):
+        runs[name] = serve_batch(llama, st, cfg, dev, prompts, quant_kv=True, smajor=True,
+                                 prefill_params=pl)
+    (toks, used, m), (ref_toks, ref_used, ref_m) = runs["loaded"], runs["memory"]
+    per_step = step_launches(cfg, MAX_BATCH, "smajor")
+    expect = {k: v * m["decode_steps"] for k, v in per_step.items()}
+    expect["int4_group_matmul"] = 4 * n_l * len(m["prefill_rows"])
+    expect["int8_prefill_matmul"] = (expect.get("int8_prefill_matmul", 0) + sum(
+        s >= PREFILL_KERNEL_MIN_TOKENS for s in m["prefill_seqs"]))
+    _check_launches("packed_checkpoint memory", ref_used, expect)
+    _check_launches("packed_checkpoint loaded", used, expect)
+    if toks != ref_toks:
+        raise AssertionError("packed_checkpoint: the loaded trees' tokens differ from the "
+                             "trees' in memory")
+
+    def decode_s(tree):
+        cache = llama.stacked_caches(cfg, MAX_BATCH, MAX_LEN, pos=DECODE_POS, quant_kv=True,
+                                     smajor=True, device=dev)
+        tok = torch.randint(0, cfg.vocab_size, (MAX_BATCH, 1), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 83))
+        with torch.no_grad():
+            return time_steps(lambda t, c: llama.forward(tree, t, cfg, caches=c), (tok, cache),
+                              iters=8, baseline_iters=2, repeats=3, stateful=True)
+
+    ms = {name: 1e3 * decode_s(st) for name, st in (("memory", stacked),
+                                                    ("loaded", loaded["stacked"]))}
+    del loaded
+    torch.cuda.empty_cache()
+    emit({"phase": "packed_checkpoint", "card": card, "file_bytes": sizes, "save_s": save_s,
+          "load_s": load_s, "load_gb_per_s": {k: sizes[k] / load_s[k] / 1e9 for k in sizes},
+          "read_warm": True, "requests": len(prompts), "decode_steps": m["decode_steps"],
+          "prefill_rows": m["prefill_rows"],
+          "tokens_identical": True, "launches_per_step": per_step, "launches": used,
+          "serve_wall_s": {"memory": ref_m["wall_s"], "loaded": m["wall_s"]},
+          "decode_ms_per_step_time_steps": ms})
+    return used
+
+
+def cli_opt(int8, ref_tokens, cfg, dev, card):
+    """The four CLIs on OPT-1.3B: the weights export_opt draws written as an
+    HF directory (config.json of facebook/opt-1.3b) beside the export's
+    random token stream; generate_act_scales (as `python -m`, a child
+    process) → export_int8_model --act_scales_path --dtype bfloat16 →
+    load_int8_opt: the int8 model bit for bit export_opt's; the Generator
+    over it (OPT_BATCH prompts of OPT_PROMPT, OPT_NEW new, caches of
+    OPT_MAX_LEN) gives opt_generator's tokens with its launches; then
+    ppl_eval --smooth --quantize over one window and run_experiments over a
+    2 × 2 sweep (the weights in the tree's dtype throughout).  Returns the
+    Generator's launches."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import opt, opt_int8
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.quant import calibrate as cal
+    from smoothquant_tpu_torch.serve.generate import GenerationConfig, Generator
+    from smoothquant_tpu_torch.utils.checkpoint import load_int8_opt
+    from smoothquant_tpu_torch.utils.hf_import import load_act_scales
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_opt_")
+    try:
+        fp = opt.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+        stream = np.random.default_rng(SEED + 21).integers(0, cfg.vocab_size,
+                                                           size=CALIB_SAMPLES * CALIB_LEN)
+        model_dir, tok_path = os.path.join(root, "opt-1.3b"), os.path.join(root, "tokens.npy")
+        np.save(tok_path, stream.astype(np.int32))
+        _sync()
+        t0 = time.perf_counter()
+        nbytes = write_hf_dir(model_dir, "opt", fp, cfg, opt_hf_config(cfg))
+        write_s = time.perf_counter() - t0
+        src = ["--model_path", model_dir, "--tokens_path", tok_path]
+        calib = ["--num_samples", str(CALIB_SAMPLES), "--seq_len", str(CALIB_LEN),
+                 "--dtype", cfg.dtype]
+        scales_path, int8_path = os.path.join(root, "act_scales.npz"), os.path.join(root,
+                                                                                    "int8.npz")
+        clis = {}
+        clis["generate_act_scales"] = run_cli("generate_act_scales", src + calib + [
+            "--output_path", scales_path], dev, subprocess_run=True)
+        batches = [torch.as_tensor(b.astype(np.int64), device=dev)
+                   for b in cal.make_calib_batches(stream, CALIB_SAMPLES, CALIB_LEN)]
+
+        def fwd(p, ids, col):
+            opt.forward(p, ids, cfg, ctx=ForwardContext(taps=col))
+
+        ref_scales = cal.get_act_scales(fwd, fp, batches)
+        got_scales = load_act_scales(scales_path)
+        if sorted(got_scales) != sorted(ref_scales) or not all(
+                np.array_equal(got_scales[k], ref_scales[k]) for k in ref_scales):
+            raise AssertionError("cli_opt: generate_act_scales' scales differ from "
+                                 "get_act_scales in this process")
+        del fp
+        clis["export_int8_model"] = run_cli("export_int8_model", src + calib + [
+            "--act_scales_path", scales_path, "--output_path", int8_path], dev)
+        t0 = time.perf_counter()
+        got_cfg, got = load_int8_opt(int8_path, device=dev)
+        _sync()
+        load_s = time.perf_counter() - t0
+        if dataclasses.replace(got_cfg, dtype=cfg.dtype) != cfg:
+            raise AssertionError(f"cli_opt: exported config {got_cfg} != {cfg}")
+        _assert_int8_equal(got, int8)
+        g = Generator(opt_int8, got, cfg, kv_dtype=torch.int8, max_len=OPT_MAX_LEN, device=dev)
+        prompts = np.random.default_rng(SEED + 19).integers(0, cfg.vocab_size,
+                                                            size=(OPT_BATCH, OPT_PROMPT))
+        out, launches = _path_launches(
+            lambda: g.generate(prompts, GenerationConfig(max_new_tokens=OPT_NEW)))
+        expect = Counter(_opt_per_forward(cfg, OPT_PROMPT, OPT_MAX_LEN))
+        for k, v in _opt_per_forward(cfg, 1, OPT_MAX_LEN).items():
+            expect[k] += v * (OPT_NEW - 1)
+        _check_launches("cli_opt generator", launches, dict(expect))
+        if not np.array_equal(np.asarray(out), np.asarray(ref_tokens)):
+            raise AssertionError("cli_opt: the Generator over the exported file gives other "
+                                 "tokens than over export_opt's model")
+        del g, got
+        torch.cuda.empty_cache()
+        window = ["--n_samples", "1", "--window", str(OPT_IO_WINDOW), "--dtype", cfg.dtype]
+        clis["ppl_eval"] = run_cli("ppl_eval", src + window + [
+            "--smooth", "--act_scales_path", scales_path, "--quantize", "--json"], dev)
+        sweep_dir = os.path.join(root, "sweep")
+        clis["run_experiments"] = run_cli("run_experiments", src + window + [
+            "--group_sizes", *OPT_SWEEP[0], "--salient_props", *OPT_SWEEP[1],
+            "--calib_samples", str(CALIB_SAMPLES), "--calib_seq_len", str(CALIB_LEN),
+            "--output_dir", sweep_dir], dev)
+        with open(os.path.join(sweep_dir, "results.json")) as f:
+            results = json.load(f)
+        cells = len(OPT_SWEEP[0]) * len(OPT_SWEEP[1])
+        if len(results["results"]) != cells or not all(np.isfinite(r["ppl"])
+                                                       for r in results["results"]):
+            raise AssertionError(f"cli_opt: run_experiments rows {results}")
+        if not np.isfinite(clis["ppl_eval"][2]["ppl"]):
+            raise AssertionError("cli_opt: ppl_eval's perplexity is not finite")
+        emit({"phase": "cli_opt", "card": card, "model": "facebook/opt-1.3b",
+              "hf_dir_bytes": nbytes, "write_s": write_s, "load_int8_s": load_s,
+              "int8_bit_equal": True, "generator_tokens_identical": True,
+              "launches": launches, "cli_s": {k: v[0] for k, v in clis.items()},
+              "cli_out": {k: v[1][-1] for k, v in clis.items() if v[2] is None},
+              "cli_json": {k: v[2] for k, v in clis.items() if v[2] is not None},
+              "results": results["results"]})
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _assert_int8_equal(got, ref):
+    """An int8 OPT tree bit for bit another: every layer's int8 weights,
+    biases, α and static scales, its norms, and the fp entries."""
+    import torch
+
+    if len(got["int8_layers"]) != len(ref["int8_layers"]):
+        raise AssertionError("cli_opt: layer count differs")
+    for i, (a, b) in enumerate(zip(got["int8_layers"], ref["int8_layers"])):
+        if a.scales != b.scales:
+            raise AssertionError(f"cli_opt: layer {i} static scales differ")
+        for f in ("ln_attn_gamma", "ln_attn_beta", "ln_fc_gamma", "ln_fc_beta"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"cli_opt: layer {i} {f} differs")
+        for p in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
+            la, lb = getattr(a, p), getattr(b, p)
+            if not (torch.equal(la.w_q, lb.w_q) and torch.equal(la.bias, lb.bias)
+                    and la.alpha == lb.alpha):
+                raise AssertionError(f"cli_opt: layer {i} {p} differs")
+    _assert_trees_equal("cli_opt", {k: v for k, v in got.items() if k != "int8_layers"},
+                        {k: v for k, v in ref.items() if k != "int8_layers"})
+
+
+def run_io(fp, packed, stacked, cfg, dev, card):
+    """The Llama I/O phases: hf_import, cli_llama_ppl on its directory,
+    host_pack, packed_checkpoint; every file under one temporary directory,
+    removed at the end.  Returns the launches of packed_checkpoint's run."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        model_dir = hf_import_phase(fp, cfg, dev, card, root)
+        cli_llama_ppl(fp, cfg, dev, card, model_dir, root)
+        shutil.rmtree(model_dir)
+        host_pack_phase(fp, cfg, dev, card)
+        return packed_checkpoint(packed, stacked, cfg, dev, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def run_mistral(dev, card: str, cfg=None):
-    """Mistral-7B (mistral_7b(): hidden 4096, 32 layers, 32 heads over 8 kv
-    heads, intermediate 14336, vocab 32000, window 4096; random bf16 weights
-    from seed 0; calibration on MISTRAL_SAMPLES random sequences of
-    MISTRAL_CALIB_LEN tokens, the one cut), after every Llama tree is freed:
+    """Mistral-7B (mistral_7b(): hidden 4096, 32 heads over 8 kv heads,
+    intermediate 14336, vocab 32000, window 4096; random bf16 weights from
+    seed 0; the cuts: SERVE_LAYERS of its 32 layers, calibration on
+    MISTRAL_SAMPLES random sequences of MISTRAL_CALIB_LEN tokens), after
+    every Llama tree is freed:
     K1 (N = 4), K7 + K5 (N = 64), K14 (N = 4 and 8) and K10 (B = 4, 8 kv
     heads, q rotated) against their plain versions at its widths (out of the
     kernels line's sums), then the windowed decode.  Returns (kernel rows,
     launches)."""
+    import dataclasses
+
     import torch
 
     from smoothquant_tpu_torch.models.llama import LlamaConfig
     from smoothquant_tpu_torch.utils import roofline
 
-    cfg = cfg or LlamaConfig.mistral_7b()
+    cfg = cfg or dataclasses.replace(LlamaConfig.mistral_7b(), num_hidden_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     stacked, bf16, seconds = build_mistral(cfg, dev)
     torch.cuda.synchronize()
@@ -6709,6 +7346,7 @@ def run(dev, cfg, card: str):
                                                                         card)})
 
     launches = Counter()
+    launches.update(run_io(fp, packed, stacked, cfg, dev, card))
     metrics, used = serve(packed, stacked, cfg, dev, promoted=False)
     launches.update(used)
     emit({"phase": "serving", "card": card, **metrics, "launches": used})
@@ -6741,7 +7379,10 @@ def run(dev, cfg, card: str):
     metrics, used = serve(promoted, stacked, cfg, dev, promoted=True)
     launches.update(used)
     emit({"phase": "serving", "card": card, **metrics, "launches": used})
-    launches.update(serve_per_layer(packed, promoted, cfg, dev, card))
+    sp_packed, sp_cfg = first_layers(packed, cfg)
+    launches.update(serve_per_layer(sp_packed, first_layers(promoted, cfg)[0], sp_cfg, dev,
+                                    card))
+    del sp_packed
 
     del packed
     torch.cuda.empty_cache()
@@ -6773,7 +7414,7 @@ def run(dev, cfg, card: str):
     metrics, used = quickstart(fp, qs_packed, cfg, dev, card)
     launches.update(used)
     emit({"phase": "quickstart", "card": card, "seconds": time.perf_counter() - t0, **metrics})
-    launches.update(serve_generator_compute(qs_packed, cfg, dev, card))
+    launches.update(serve_generator_compute(*first_layers(qs_packed, cfg), dev, card))
     del qs_packed
     torch.cuda.empty_cache()
     launches.update(run_sim(fp, calib, cfg, dev, card))
@@ -6817,7 +7458,8 @@ def run(dev, cfg, card: str):
           "device_busy": b["busy_ms_per_step"] / w["busy_ms_per_step"],
           "bound": (roofline.llama_bf16_decode_step_bytes(cfg)["bound_ms"]
                     / roofline.llama_decode_step_bytes(cfg)["bound_ms"])})
-    launches.update(serve_fp_pool(fp, bf16, cfg, dev, card))
+    sp_fp, sp_cfg = first_layers(fp, cfg)
+    launches.update(serve_fp_pool(sp_fp, first_layers(bf16, cfg)[0], sp_cfg, dev, card))
     return rows, launches
 
 
@@ -6845,10 +7487,13 @@ def main() -> int:
     ptx = [ln.strip() for ln in _build.build_log.splitlines()
            if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptx})
-    emit({"phase": "sass", **sass_check()})
+    dump = sass_dump_start()          # checked after the OPT path, which it overlaps
+    try:
+        rows, launches = run_opt(dev, opt.OPTConfig.opt_1_3b(), card)
+        emit({"phase": "sass", **sass_check(dump)})
+    finally:
+        dump[0].kill()
     clock = sm_clock_mhz()
-
-    rows, launches = run_opt(dev, opt.OPTConfig.opt_1_3b(), card)
     torch.cuda.empty_cache()
     more_rows, more = run(dev, llama.LlamaConfig.llama2_7b(), card)
     torch.cuda.empty_cache()

@@ -137,8 +137,9 @@ def unpack_nibbles_to_int8(w_qt: torch.Tensor) -> torch.Tensor:
 def k_major(w: torch.Tensor) -> torch.Tensor:
     """The (K, O) matrix w as a view of (O, K) contiguous storage: the
     layout the prefill int8 kernel (K4) reads.  Identity-int8 packs hold
-    their weights so; shape and values stay those of the JAX package."""
-    return w.t().contiguous().t()
+    their weights so; shape and values stay those of the JAX package.  A
+    leading layer axis, if any, stays outermost."""
+    return w.transpose(-2, -1).contiguous().transpose(-2, -1)
 
 
 def _pad_o(t: torch.Tensor, o_pad: int) -> torch.Tensor:
@@ -153,6 +154,7 @@ def pack_linear(
     act_absmax: Optional[np.ndarray] = None,
     compute_dtype=torch.bfloat16,
     nibble: bool = False,
+    host_pack: bool = False,
     align_k_groups: int = 1,
     align_o: int = 1,
     identity: bool = False,
@@ -162,6 +164,13 @@ def pack_linear(
     align_k_groups / align_o: round the packed K-groups (per nibble half)
     and the output axis up to these multiples with zeros (zero scales
     nullify the padding); real_quant_linear slices the output back.
+
+    host_pack=True permutes, quantizes, transposes and nibble-packs on the
+    host through the native library (utils/native.py, which raises
+    where it cannot be built) and moves only the packed leaves to the
+    weight's device: bit for bit the device pack (_pack_host).  The
+    identity nibble layout always packs on the device, as in the JAX
+    package.
     """
     w = params["weight"]
     o, c = w.shape
@@ -194,27 +203,11 @@ def pack_linear(
     k_s = _ceil_to(k, LANE) if k else 0
 
     perm_t = torch.as_tensor(perm, device=dev)
-    w_perm = w.float().index_select(1, perm_t)
-    w_ns = w_perm[:, :k_ns_raw]
-    if k_ns != k_ns_raw:
-        w_ns = torch.nn.functional.pad(w_ns, (0, k_ns - k_ns_raw))
-    w_sal = torch.zeros((o, k_s), dtype=torch.float32, device=dev)
-    if k:
-        w_sal[:, :k] = w_perm[:, k_ns_raw:]
-    del w_perm
-    if cfg.weight_quant == "per_tensor":
-        scale = core.compute_scale(w_ns.abs().amax(), cfg.quant_bits)
-        scales = scale.expand(o, k_ns // g).float()
-        q = torch.round(w_ns / scale).to(torch.int8)
-    else:
-        q3, s3 = core.group_quant_params(w_ns, cfg.quant_bits, g)
-        q = q3.reshape(o, k_ns)
-        scales = s3.reshape(o, k_ns // g)
-    w_qt = q.t().contiguous()
-    scales_t = scales.t().contiguous()
-    w_sal_t = w_sal.t().to(compute_dtype).contiguous()
-    if nibble:
-        w_qt = nibble_pack(w_qt)
+    pack = _pack_host if host_pack else _pack_device
+    w_qt, scales_t, w_sal_t = pack(
+        w, perm_t, k_ns_raw=k_ns_raw, k_ns=k_ns, k_s=k_s, g=g,
+        weight_quant=cfg.weight_quant, quant_bits=cfg.quant_bits,
+        compute_dtype=compute_dtype, nibble=nibble)
 
     if align_o > 1:
         o_pad = _ceil_to(o, align_o)
@@ -245,6 +238,71 @@ def pack_linear(
             act_quant=cfg.act_quant, act_bits=cfg.effective_act_bits,
             act_group_size=cfg.group_size, layout=layout),
     )
+
+
+def _pack_device(w, perm_t, *, k_ns_raw, k_ns, k_s, g, weight_quant, quant_bits,
+                 compute_dtype, nibble):
+    """(w_qt, scales_t, w_sal_t) of pack_linear on the weight's device
+    (pack.py:602-621, then the nibble pack)."""
+    o = w.shape[0]
+    w_perm = w.float().index_select(1, perm_t)
+    w_ns = w_perm[:, :k_ns_raw]
+    if k_ns != k_ns_raw:
+        w_ns = torch.nn.functional.pad(w_ns, (0, k_ns - k_ns_raw))
+    w_sal = torch.zeros((o, k_s), dtype=torch.float32, device=w.device)
+    if k_s:
+        w_sal[:, :w.shape[1] - k_ns_raw] = w_perm[:, k_ns_raw:]
+    del w_perm
+    if weight_quant == "per_tensor":
+        scale = core.compute_scale(w_ns.abs().amax(), quant_bits)
+        scales = scale.expand(o, k_ns // g).float()
+        q = torch.round(w_ns / scale).to(torch.int8)
+    else:
+        q3, s3 = core.group_quant_params(w_ns, quant_bits, g)
+        q = q3.reshape(o, k_ns)
+        scales = s3.reshape(o, k_ns // g)
+    w_qt = q.t().contiguous()
+    if nibble:
+        w_qt = nibble_pack(w_qt)
+    return w_qt, scales.t().contiguous(), w_sal.t().to(compute_dtype).contiguous()
+
+
+def _pack_host(w, perm_t, *, k_ns_raw, k_ns, k_s, g, weight_quant, quant_bits,
+               compute_dtype, nibble):
+    """The host twin of _pack_device (pack.py:540-580) on the native
+    library: the weight comes to the host in its own dtype, is widened to
+    float32 there, and only the packed leaves go back.  Bit for bit the
+    device pack: the same float32 steps (the group scale a multiply by
+    q_max's float32 reciprocal, the codes an exact division rounded half to
+    even: native.group_quant_rcp), bf16 written by the same rounding."""
+    from smoothquant_tpu_torch.utils import native
+
+    dev = w.device
+    wh = w.detach().to("cpu").float().numpy()
+    o, c = wh.shape
+    w_perm = native.permute_cols(wh, perm_t.cpu().numpy())
+    del wh
+    w_ns = w_perm[:, :k_ns_raw]
+    if k_ns != k_ns_raw:
+        w_ns = np.pad(w_ns, ((0, 0), (0, k_ns - k_ns_raw)))
+    w_sal = np.zeros((o, k_s), np.float32)
+    if k_s:
+        w_sal[:, :c - k_ns_raw] = w_perm[:, k_ns_raw:]
+    del w_perm
+    if weight_quant == "per_tensor":
+        scale = (np.maximum(np.abs(w_ns).max(), np.float32(core.SCALE_FLOOR))
+                 * np.float32(core.f32_reciprocal(core.qmax(quant_bits))))
+        q = np.rint(w_ns / scale).astype(np.int8)
+        scales = np.full((o, k_ns // g), scale, np.float32)
+    else:
+        q, scales = native.group_quant_rcp(w_ns, g, quant_bits)
+    del w_ns
+    w_qt = native.transpose(q)
+    if nibble:
+        w_qt = native.pack_nibbles_split(w_qt)
+    w_sal_t = torch.from_numpy(native.transpose(w_sal)).to(compute_dtype)
+    return (torch.from_numpy(w_qt).to(dev), torch.from_numpy(native.transpose(scales)).to(dev),
+            w_sal_t.to(dev))
 
 
 def _pack_linear_identity(params: dict, cfg: QuantConfig,

@@ -45,6 +45,7 @@ from smoothquant_tpu_torch._device import resolve_device
 from smoothquant_tpu_torch.kernels import decode_attention as k11
 from smoothquant_tpu_torch.models.common import (
     ForwardContext,
+    as_torch_dtype,
     KVCache,
     QuantKVCache,
     attention,
@@ -346,3 +347,55 @@ def quantize_params(params: dict, cfg: BloomConfig, qcfg: QuantConfig,
     calibration vectors) is keyed by the HF-style names of
     quantizable_linears."""
     return quantize_linears(params, quantizable_linears(cfg), qcfg, input_feat)
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint import (bloom.py:402-441)
+# ---------------------------------------------------------------------------
+
+def config_from_hf(hf_cfg) -> BloomConfig:
+    """BloomConfig from an HF Bloom config (a transformers config or
+    utils.hf_import.read_hf_config's namespace)."""
+    return BloomConfig(
+        vocab_size=hf_cfg.vocab_size,
+        hidden_size=hf_cfg.hidden_size,
+        num_hidden_layers=hf_cfg.n_layer,
+        num_attention_heads=hf_cfg.n_head,
+        layer_norm_epsilon=hf_cfg.layer_norm_epsilon,
+    )
+
+
+def params_from_hf_state_dict(state: dict, cfg: BloomConfig, dtype=None,
+                              device="cuda") -> dict:
+    """An HF Bloom state dict as the port's tree on `device`, each tensor
+    cast to `dtype` (default cfg.dtype) as it moves."""
+    dt = as_torch_dtype(dtype or cfg.dtype)
+    dev = resolve_device(device)
+
+    def arr(name):
+        return state[name].to(device=dev, dtype=dt, copy=True)
+
+    def lin(name):
+        return {"weight": arr(name + ".weight"), "bias": arr(name + ".bias")}
+
+    layers = {}
+    for i in range(cfg.num_hidden_layers):
+        p = f"transformer.h.{i}"
+        layers[str(i)] = {
+            "input_layernorm": lin(f"{p}.input_layernorm"),
+            "post_attention_layernorm": lin(f"{p}.post_attention_layernorm"),
+            "self_attention": {
+                "query_key_value": lin(f"{p}.self_attention.query_key_value"),
+                "dense": lin(f"{p}.self_attention.dense"),
+            },
+            "mlp": {
+                "dense_h_to_4h": lin(f"{p}.mlp.dense_h_to_4h"),
+                "dense_4h_to_h": lin(f"{p}.mlp.dense_4h_to_h"),
+            },
+        }
+    return {
+        "word_embeddings": {"weight": arr("transformer.word_embeddings.weight")},
+        "word_embeddings_layernorm": lin("transformer.word_embeddings_layernorm"),
+        "layers": layers,
+        "ln_f": lin("transformer.ln_f"),
+    }

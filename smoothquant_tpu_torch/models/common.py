@@ -55,6 +55,20 @@ from smoothquant_tpu_torch.quant.linear import quant_linear
 
 NEG_INF = -1e9   # einsum attention mask value (common.py:29)
 
+_DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
+
+
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from its name ("float32", "bfloat16", "float16", the
+    names the JAX package passes to jnp.dtype) or a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        return _DTYPE_NAMES[str(dtype)]
+    except KeyError:
+        raise ValueError(f"unknown dtype {dtype!r} (known: {sorted(_DTYPE_NAMES)})") from None
+
 
 @dataclasses.dataclass
 class ForwardContext:

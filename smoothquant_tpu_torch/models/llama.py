@@ -55,6 +55,7 @@ from smoothquant_tpu_torch.kernels.attn_fused import (
 from smoothquant_tpu_torch.kernels.real_linear import can_fuse_mlp, can_fuse_norm, real_mlp_fused
 from smoothquant_tpu_torch.models.common import (
     ForwardContext,
+    as_torch_dtype,
     KVCache,
     QuantKVCache,
     SMajorQuantKVCache,
@@ -609,3 +610,63 @@ def quantize_params(params: dict, cfg: LlamaConfig, qcfg: QuantConfig,
     calibration vectors) is keyed by the HF-style names of
     quantizable_linears."""
     return quantize_linears(params, quantizable_linears(cfg), qcfg, input_feat)
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint import (llama.py:800-849)
+# ---------------------------------------------------------------------------
+
+def config_from_hf(hf_cfg) -> LlamaConfig:
+    """LlamaConfig from an HF Llama / Mistral config (a transformers config
+    or utils.hf_import.read_hf_config's namespace)."""
+    return LlamaConfig(
+        vocab_size=hf_cfg.vocab_size,
+        hidden_size=hf_cfg.hidden_size,
+        intermediate_size=hf_cfg.intermediate_size,
+        num_hidden_layers=hf_cfg.num_hidden_layers,
+        num_attention_heads=hf_cfg.num_attention_heads,
+        num_key_value_heads=getattr(hf_cfg, "num_key_value_heads", hf_cfg.num_attention_heads),
+        max_position_embeddings=hf_cfg.max_position_embeddings,
+        rms_norm_eps=hf_cfg.rms_norm_eps,
+        rope_theta=getattr(hf_cfg, "rope_theta", 10000.0),
+        tie_word_embeddings=getattr(hf_cfg, "tie_word_embeddings", False),
+        attention_bias=getattr(hf_cfg, "attention_bias", False),
+        mlp_bias=getattr(hf_cfg, "mlp_bias", False),
+        sliding_window=getattr(hf_cfg, "sliding_window", None),
+    )
+
+
+def params_from_hf_state_dict(state: dict, cfg: LlamaConfig, dtype=None,
+                              device="cuda") -> dict:
+    """An HF Llama / Mistral state dict (tensors, host or device) as the
+    port's tree on `device`, each tensor cast to `dtype` (default
+    cfg.dtype) as it moves, one at a time."""
+    dt = as_torch_dtype(dtype or cfg.dtype)
+    dev = resolve_device(device)
+
+    def arr(name):
+        return state[name].to(device=dev, dtype=dt, copy=True)
+
+    def lin(name, bias):
+        return {"weight": arr(name + ".weight"),
+                "bias": arr(name + ".bias") if bias and name + ".bias" in state else None}
+
+    layers = {}
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        layers[str(i)] = {
+            "input_layernorm": {"weight": arr(f"{p}.input_layernorm.weight")},
+            "post_attention_layernorm": {"weight": arr(f"{p}.post_attention_layernorm.weight")},
+            "self_attn": {k: lin(f"{p}.self_attn.{k}", cfg.attention_bias)
+                          for k in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "mlp": {k: lin(f"{p}.mlp.{k}", cfg.mlp_bias)
+                    for k in ("gate_proj", "up_proj", "down_proj")},
+        }
+    params = {
+        "embed_tokens": {"weight": arr("model.embed_tokens.weight")},
+        "layers": layers,
+        "norm": {"weight": arr("model.norm.weight")},
+    }
+    if not cfg.tie_word_embeddings and "lm_head.weight" in state:
+        params["lm_head"] = {"weight": arr("lm_head.weight"), "bias": None}
+    return params

@@ -28,6 +28,7 @@ import torch
 from smoothquant_tpu_torch._device import resolve_device
 from smoothquant_tpu_torch.models.common import (
     ForwardContext,
+    as_torch_dtype,
     attention,
     cached_attention,
     call_linear,
@@ -274,3 +275,66 @@ def quantize_params(params: dict, cfg: OPTConfig, qcfg: QuantConfig,
     calibration vectors) is keyed by the HF-style names of
     quantizable_linears."""
     return quantize_linears(params, quantizable_linears(cfg), qcfg, input_feat)
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint import (opt.py:435-486)
+# ---------------------------------------------------------------------------
+
+def config_from_hf(hf_cfg) -> OPTConfig:
+    """OPTConfig from an HF OPT config (a transformers config or
+    utils.hf_import.read_hf_config's namespace)."""
+    return OPTConfig(
+        vocab_size=hf_cfg.vocab_size,
+        hidden_size=hf_cfg.hidden_size,
+        ffn_dim=hf_cfg.ffn_dim,
+        num_hidden_layers=hf_cfg.num_hidden_layers,
+        num_attention_heads=hf_cfg.num_attention_heads,
+        max_position_embeddings=hf_cfg.max_position_embeddings,
+        word_embed_proj_dim=(hf_cfg.word_embed_proj_dim
+                             if hf_cfg.word_embed_proj_dim != hf_cfg.hidden_size else None),
+        do_layer_norm_before=hf_cfg.do_layer_norm_before,
+    )
+
+
+def params_from_hf_state_dict(state: dict, cfg: OPTConfig, dtype=None,
+                              device="cuda") -> dict:
+    """An HF OPT state dict as the port's tree on `device`, each tensor cast
+    to `dtype` (default cfg.dtype) as it moves: project_in / project_out
+    where the checkpoint has them (word_embed_proj_dim ≠ hidden), the
+    decoder's final LayerNorm where it has one."""
+    dt = as_torch_dtype(dtype or cfg.dtype)
+    dev = resolve_device(device)
+
+    def arr(name):
+        return state[name].to(device=dev, dtype=dt, copy=True)
+
+    def lin(name, bias=True):
+        return {"weight": arr(name + ".weight"),
+                "bias": arr(name + ".bias") if bias and name + ".bias" in state else None}
+
+    def ln(name):
+        return {"weight": arr(name + ".weight"), "bias": arr(name + ".bias")}
+
+    d = "model.decoder"
+    layers = {}
+    for i in range(cfg.num_hidden_layers):
+        p = f"{d}.layers.{i}"
+        layers[str(i)] = {
+            "self_attn_layer_norm": ln(f"{p}.self_attn_layer_norm"),
+            "self_attn": {k: lin(f"{p}.self_attn.{k}") for k in ATTN_PROJS},
+            "final_layer_norm": ln(f"{p}.final_layer_norm"),
+            "fc1": lin(f"{p}.fc1"),
+            "fc2": lin(f"{p}.fc2"),
+        }
+    params = {
+        "embed_tokens": {"weight": arr(f"{d}.embed_tokens.weight")},
+        "embed_positions": {"weight": arr(f"{d}.embed_positions.weight")},
+        "layers": layers,
+    }
+    if f"{d}.final_layer_norm.weight" in state:
+        params["final_layer_norm"] = ln(f"{d}.final_layer_norm")
+    if f"{d}.project_in.weight" in state:
+        params["project_in"] = lin(f"{d}.project_in", bias=False)
+        params["project_out"] = lin(f"{d}.project_out", bias=False)
+    return params

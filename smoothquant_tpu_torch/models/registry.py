@@ -1,11 +1,12 @@
 """Architecture dispatch (port of smoothquant_tpu/models/registry.py):
 register_arch and get_arch (:19-38; llama, mistral (llama-like), opt,
 bloom), quantize_model (the simulated path's weight quantization, :41-48),
-smooth_lm (:51-55) and pack_model (:57-197) — the default per-layer tree
-(fuse=False: every projection its own pack, the README quick start's path
-and Bloom's) or, for Llama, the fused qkv / gate_up tree; the shared
-residual basis (Llama, fused or not), folded permutations (Llama fused or
-not, OPT) and identity layouts of the serving pack.  An architecture
+smooth_lm (:51-55) and pack_model (:57-197, host_pack included) — the
+default per-layer tree (fuse=False: every projection its own pack, the
+README quick start's path and Bloom's) or, for Llama, the fused qkv /
+gate_up tree; the shared residual basis (Llama, fused or not), folded
+permutations (Llama fused or not, OPT) and identity layouts of the
+serving pack.  An architecture
 without residual_consumers / perm_fold_pairs / fuse_projections refuses
 the option that needs it, as the JAX package does."""
 
@@ -69,6 +70,7 @@ def pack_model(
     compute_dtype=None,
     nibble: bool = False,
     lm_head_qcfg: Optional[QuantConfig] = None,
+    host_pack: bool = False,
     align_k_groups: int = 1,
     align_o: int = 1,
     fuse: bool = False,
@@ -82,7 +84,10 @@ def pack_model(
     absmax (the static sort key).  Both keyed by HF module names.  The
     options mean what they mean in the JAX package's pack_model (its
     defaults: per-layer int8-container packs, which real_quant_linear runs
-    on K8 or K9); packing runs on the device the weights live on.
+    on K8 or K9); packing runs on the device the weights live on, or with
+    host_pack=True on the host's native library, each packed linear then
+    moved to the weights' device (bit for bit the device pack; raises where
+    the library cannot be built).
     """
     mod = get_arch(arch)
     compute_dtype = compute_dtype or cfg.torch_dtype
@@ -127,7 +132,8 @@ def pack_model(
         identity = nibble and any(sub in key for sub in identity_keys)
         packed = pack_linear(lin, qcfg, importance=imp, act_absmax=absmax,
                              compute_dtype=compute_dtype, nibble=nibble,
-                             identity=identity, align_k_groups=align_k_groups,
+                             host_pack=host_pack, identity=identity,
+                             align_k_groups=align_k_groups,
                              align_o=align_o)
         if tuple(path) in rs_paths:
             packed = dataclasses.replace(
@@ -149,8 +155,8 @@ def pack_model(
             take = torch.as_tensor(shared_perm, device=lm["weight"].device)
             lm = {"weight": lm["weight"].index_select(1, take),
                   "bias": lm.get("bias")}
-        params["lm_head"] = pack_linear(lm, lm_head_qcfg,
-                                        compute_dtype=compute_dtype)
+        params["lm_head"] = pack_linear(lm, lm_head_qcfg, compute_dtype=compute_dtype,
+                                        host_pack=host_pack)
     if shared_perm is not None:
         params = mod.apply_shared_residual_basis(params, cfg, shared_perm)
     return params

@@ -38,10 +38,17 @@ _META_FIELDS = {f.name for f in dataclasses.fields(PackedMeta)}
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    a = np.array(a, copy=True, order="C")
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
+    """A numpy array as a tensor on `device`.  bfloat16 arrives as any
+    dtype named "bfloat16", or as the raw 2-byte void ("|V2") that np.savez
+    writes for one: fp16 is saved as "<f2", so a "|V2" leaf is bf16."""
+    a = np.ascontiguousarray(a)
+    bf16 = a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2")
+    if bf16:
+        a = a.view(np.int16)
+    if not a.flags.writeable:
+        a = a.copy()
+    t = torch.from_numpy(a)
+    return (t.view(torch.bfloat16) if bf16 else t).to(device, copy=True)
 
 
 def packed_from_numpy(d: dict, device) -> PackedLinear:

@@ -45,7 +45,7 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
 
     for name, value in dict(CALIB_SAMPLES=2, CALIB_LEN=32, OPT_BATCH=2, OPT_PROMPT=40,
                             OPT_NEW=4, OPT_MAX_LEN=128, OPT_SERVE_LEN=128, SERVE_REQUESTS=3,
-                            SERVE_NEW=4, SERVE_PROMPT=(10, 40),
+                            SERVE_NEW=4, SERVE_PROMPT=(10, 40), OPT_IO_WINDOW=64,
                             K15A_EDGE_SHAPES=((3, 208, 77), (130, 200, 77))).items():
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
@@ -104,6 +104,19 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
     fam = phases["serve_families"]
     assert fam["family"] == "opt" and fam["tree"] == "per-layer fp"
     assert fam["tokens"]["requests"] == 3
+    # cli_opt: the four CLIs on the export's weights as an HF directory, the
+    # exported file bit for bit export_opt's, its Generator's tokens and
+    # launches opt_generator's
+    cli = phases["cli_opt"]
+    assert cli["int8_bit_equal"] and cli["generator_tokens_identical"]
+    assert expected["cli_opt generator"] == expected["int8 OPT generator"]
+    assert set(cli["cli_s"]) == {"generate_act_scales", "export_int8_model", "ppl_eval",
+                                 "run_experiments"}
+    assert cli["cli_out"]["generate_act_scales"].startswith("saved ")
+    assert cli["cli_out"]["export_int8_model"].startswith("saved INT8 OPT model")
+    assert cli["cli_json"]["ppl_eval"]["smooth"] and cli["cli_json"]["ppl_eval"]["quantize"]
+    assert [(r["group_size"], r["salient_prop"]) for r in cli["results"]] == [
+        (64, 0.0), (128, 0.0), (64, 0.05), (128, 0.05)]
 
 
 def test_slot_path_rehearsal_on_cpu(monkeypatch):
@@ -999,3 +1012,110 @@ def test_serving_layer_rehearsal_on_cpu(monkeypatch):
     assert expected["mistral head_major decode step"] == {
         "int4_group_matmul_stacked_rawx": 4 * n_l, "write_quant_cache_stacked": n_l,
         "decode_attention_stacked": n_l, "int8_prefill_matmul": 1}
+
+
+def test_io_phases_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's Llama I/O phases on the CPU at a small size (2 layers of
+    hidden 512, 4 heads of 128, vocab 512, bf16): hf_import (the tree
+    through two safetensors shards and load_model bit for bit),
+    cli_llama_ppl (ppl_eval on that directory equal to the same calls in
+    process; a window of 64), host_pack (one layer and the lm_head, bit for
+    bit the device pack), packed_checkpoint (both trees saved and loaded,
+    3 requests of 10-40 tokens, 4 new: tokens identical, the launches the
+    in-memory run expects); timing and the launch checks stubbed, the temp
+    directory removed."""
+    import dataclasses
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.kernels import kv_write
+    from smoothquant_tpu_torch.models import llama
+
+    monkeypatch.setattr(kv_write, "launch_rows", lambda *a, **k: None)
+    for name, value in dict(SERVE_REQUESTS=3, SERVE_NEW=4, SERVE_PROMPT=(10, 40),
+                            HOST_PACK_LAYERS=1, DECODE_POS=100, LLAMA_PPL=dict(
+                                group_size=64, salient_prop=0.05, calib_samples=2,
+                                calib_seq_len=32, window=64)).items():
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    expected = {}
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda path, launches, expect: expected.setdefault(path, expect))
+    printed = []
+    monkeypatch.setattr(cs, "emit", printed.append)
+    made = []
+    real_mkdtemp = tempfile.mkdtemp
+    monkeypatch.setattr(tempfile, "mkdtemp", lambda **k: made.append(real_mkdtemp(**k)) or made[-1])
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=512), hidden_size=512,
+                              intermediate_size=1024, num_attention_heads=4,
+                              num_key_value_heads=4, dtype="bfloat16")
+    cpu = torch.device("cpu")
+    fp, packed, stacked = cs.build_model(cfg, cpu, cs.SEED, align_o=256)
+    launches = cs.run_io(fp, packed, stacked, cfg, cpu, "card")
+    assert sum(launches.values()) == 0
+    assert made and not any(os.path.exists(d) for d in made)
+    phases = {p["phase"]: p for p in printed if "phase" in p}
+    hf = phases["hf_import"]
+    assert hf["tensors"] == 2 + 9 * cfg.num_hidden_layers + 1 and hf["shards"] == 2
+    assert not hf["published_config"]
+    assert phases["cli_llama_ppl"]["bit_equal"]
+    assert set(phases["cli_llama_ppl"]["cli_json"]["seconds"]) == {
+        "load", "smooth", "calibrate", "quantize", "evaluate"}
+    hp = phases["host_pack"]
+    assert hp["layers"] == 1 and hp["tensors_bit_equal"] > 10
+    pc = phases["packed_checkpoint"]
+    assert pc["tokens_identical"] and set(pc["file_bytes"]) == {"stacked", "per_layer"}
+    n_l = cfg.num_hidden_layers
+    steps = pc["decode_steps"]
+    assert expected["packed_checkpoint memory"] == expected["packed_checkpoint loaded"]
+    got = expected["packed_checkpoint loaded"]
+    assert got["int4_group_matmul_stacked_rawx"] == 4 * n_l * steps
+    assert got["write_quant_cache_smajor"] == got["decode_attention_smajor_stacked"] == n_l * steps
+    assert got["int4_group_matmul"] == 4 * n_l * len(pc["prefill_rows"])
+    assert got["int8_prefill_matmul"] >= steps
+    assert set(pc["decode_ms_per_step_time_steps"]) == {"memory", "loaded"}
+
+
+def test_hf_state_dict_names_are_the_importers():
+    """chip_smoke's HF names are the ones each family's importer reads:
+    params_from_hf_state_dict of hf_state_dict gives the tree back."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.models import llama, opt
+
+    for mod, cfg, arch in ((llama, llama.LlamaConfig.tiny(), "llama"),
+                           (opt, opt.OPTConfig.tiny(), "opt")):
+        params = mod.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        state = cs.hf_state_dict(arch, params, cfg)
+        back = mod.params_from_hf_state_dict(state, cfg, device="cpu")
+        assert cs._assert_trees_equal(arch, back, params) == len(state)
+    assert cs.llama_hf_config(llama.LlamaConfig.llama2_7b()) == cs.LLAMA_HF_CONFIG
+    assert cs.opt_hf_config(opt.OPTConfig.opt_1_3b()) == cs.OPT_HF_CONFIG
+
+
+def test_first_layers_cuts_per_layer_and_stacked_trees():
+    """chip_smoke.first_layers: a per-layer tree keeps its first n layers, a
+    stacked tree (PackedLinear and fp leaves) the first n along its layer
+    axis as views, the config n layers; the rest of the tree untouched."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), num_hidden_layers=3)
+    fp, packed, stacked = cs.build_model(cfg, torch.device("cpu"), cs.SEED, align_o=128)
+    cut, cut_cfg = cs.first_layers(packed, cfg, 2)
+    assert cut_cfg.num_hidden_layers == 2 and sorted(cut["layers"]) == ["0", "1"]
+    assert cut["lm_head"] is packed["lm_head"] and cut["layers"]["1"] is packed["layers"]["1"]
+    st, _ = cs.first_layers(stacked, cfg, 2)
+    q, ref = st["layers"]["stacked"]["self_attn"]["qkv_proj"], \
+        stacked["layers"]["stacked"]["self_attn"]["qkv_proj"]
+    assert q.meta == ref.meta and q.w_qt.shape[0] == 2
+    assert q.w_qt.data_ptr() == ref.w_qt.data_ptr() and torch.equal(q.perm, ref.perm[:2])
+    norm = st["layers"]["stacked"]["input_layernorm"]["weight"]
+    assert norm.shape[0] == 2
+    assert cs.first_layers(fp, cfg, 8)[1].num_hidden_layers == 3
