@@ -402,11 +402,19 @@ def sm_clock_mhz() -> float:
 # ---------------------------------------------------------------- timing
 
 
+# caps device_ms's repetitions while set (the rows of the Mistral, Falcon,
+# Mixtral and Bloom paths at those models' own shapes, off the kernels line's
+# sums: the run's 1200 s limit)
+_MAX_REPS = None
+
+
 def device_ms(fn, n_iter: int, reps: int = 5) -> float:
     """Median device ms of one fn(i) call: the launches are queued behind a
     busy-wait kernel, so host enqueue gaps do not enter the events."""
     import torch
 
+    if _MAX_REPS is not None:
+        reps = min(reps, _MAX_REPS)
     for i in range(2):
         fn(i)
     out = []
@@ -574,14 +582,28 @@ SOURCES = {
 
 
 def _sites(layer):
-    """(site, linear, mode) of one layer's four linears, per-layer or
-    stacked: Llama's (mode "rms", the RMSNorm fused in; "mask", the identity
-    layout; None, a pre-permuted input) or Bloom's, named bloom_* (mode
-    "gather": the input in the original channel order, gathered by the
-    layer's perm first, as the path does; no norm fuses)."""
+    """(site, linear, mode) of one layer's linears, per-layer or stacked:
+    Llama's four (mode "rms", the RMSNorm fused in; "mask", the identity
+    layout; None, a pre-permuted input); Bloom's and Falcon-7B's four,
+    named bloom_* / falcon_*, and Mixtral's q and k (v and o repeat their
+    shapes), router and expert w1 / w3 / w2, named mixtral_* — a stacked
+    tree's experts viewed
+    as the (L·E, ...) stacks the stacked decode indexes, a per-layer one's
+    expert 0 (mode "gather": the input in the original channel order,
+    gathered by the layer's perm first, as the path does; no norm fuses)."""
+    if "block_sparse_moe" in layer:
+        from smoothquant_tpu_torch.models.mixtral import _flatten_le
+
+        sa, moe = layer["self_attn"], layer["block_sparse_moe"]
+        ex = moe["experts"]
+        ex = _flatten_le(ex["stacked"]) if "stacked" in ex else ex["0"]
+        return tuple((f"mixtral_{name}", lin, "gather") for name, lin in (
+            ("q", sa["q_proj"]), ("k", sa["k_proj"]), ("router", moe["gate"]),
+            ("w1", ex["w1"]), ("w3", ex["w3"]), ("w2", ex["w2"])))
     if "self_attention" in layer:
         sa, mlp = layer["self_attention"], layer["mlp"]
-        return tuple((f"bloom_{name}", lin, "gather") for name, lin in (
+        fam = "bloom" if "post_attention_layernorm" in layer else "falcon"
+        return tuple((f"{fam}_{name}", lin, "gather") for name, lin in (
             ("qkv", sa["query_key_value"]), ("dense", sa["dense"]),
             ("h_to_4h", mlp["dense_h_to_4h"]), ("4h_to_h", mlp["dense_4h_to_h"])))
     sa, mlp = layer["self_attn"], layer["mlp"]
@@ -1024,13 +1046,15 @@ def check_fp_matmul(bf16, dev, gen):
 
 
 def check_decode_attention_hm(cfg, dev, gen, b=MAX_BATCH, pos=None, bodies=("bf16", "int8"),
-                               main=True):
+                               main=True, sm_scale=None, site=None):
     """K11 vs plain over random stacked head-major caches, bf16 and int8,
     with ragged valid lengths (as K3's phase); the flash body timed beside
     the split body the rule picks (kernel_ms / flash_ms); SDPA over the
-    (dequantized) bf16 cache as the yardstick.  With main=False (Llama's
-    per-slot int8 pool at B = 64, positions as the pool leaves them) the
-    rows stay out of the kernels line's sums."""
+    (dequantized) bf16 cache, its kv heads expanded to the query heads, as
+    the yardstick.  With main=False (Llama's per-slot int8 pool at B = 64,
+    positions as the pool leaves them; Falcon-7B's rep 71, OPT's sm_scale
+    1.0, sites `site_body@B`) the rows stay out of the kernels line's sums.
+    sm_scale: K11's score scale (default 1/√D)."""
     import torch
     import torch.nn.functional as F
 
@@ -1041,6 +1065,8 @@ def check_decode_attention_hm(cfg, dev, gen, b=MAX_BATCH, pos=None, bodies=("bf1
     h, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     n_layers = cfg.num_hidden_layers if main else min(4, cfg.num_hidden_layers)
     pos = torch.tensor([100, 300, MAX_LEN - 1, 50], device=dev) if pos is None else pos
+    rep = h // n_kv
+    scale = {} if sm_scale is None else {"sm_scale": sm_scale}
     bias = decode_bias(pos, b, MAX_LEN, None)
     valid = (bias == 0)[:, None, None, :]
     q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -1071,9 +1097,9 @@ def check_decode_attention_hm(cfg, dev, gen, b=MAX_BATCH, pos=None, bodies=("bf1
         scales = bufs[2:]
         args = lambda i: (i, q, k_, v_, bias, *scales)
         got = _launched("decode_attention_stacked",
-                        lambda: k11.decode_attention_stacked(*args(n_layers - 1)))
-        ref = k11.decode_attention_stacked_plain(*args(n_layers - 1))
-        flash = k11.decode_attention_stacked(*args(n_layers - 1), body="flash")
+                        lambda: k11.decode_attention_stacked(*args(n_layers - 1), **scale))
+        ref = k11.decode_attention_stacked_plain(*args(n_layers - 1), **scale)
+        flash = k11.decode_attention_stacked(*args(n_layers - 1), body="flash", **scale)
         torch.cuda.synchronize()
         err = _close(f"K11 {body} B={b}", got, ref, 1e-2)
         _close(f"K11 flash body {body} B={b}", flash, ref, 1e-2)
@@ -1081,24 +1107,31 @@ def check_decode_attention_hm(cfg, dev, gen, b=MAX_BATCH, pos=None, bodies=("bf1
             b, h, n_kv, MAX_LEN, d, n_valid=int(valid.sum()),
             value_bytes=2 if body == "bf16" else 1, scale_bytes=0 if body == "bf16" else 4)
         b_ms, b_by = roofline.bound_ms(n_bytes, ops)
+        lib_in = ([lib_kv(i) for i in range(n_layers)] if rep == 1 else
+                  [tuple(t.repeat_interleave(rep, dim=1) for t in lib_kv(i))
+                   for i in range(min(4, n_layers))])
+        name = body if main else f"{body}@B{b}"
         rows.append(dict(
-            kernel="decode_attention_stacked", site=body if main else f"{body}@B{b}",
-            in_sum=main, shape=[b, h, n_kv, MAX_LEN, d], max_err=err, check_launches=1,
-            max_rel_err=err / ref.float().abs().max().item(),
-            split=k11.split_ranks(b * n_kv, MAX_LEN),
-            kernel_ms=device_ms(lambda i: k11.decode_attention_stacked(*args(i % n_layers)),
-                                n_layers),
+            kernel="decode_attention_stacked",
+            site=name if site is None else f"{site}_{name}", in_sum=main,
+            shape=[b, h, n_kv, MAX_LEN, d], rep=rep, sm_scale=sm_scale, max_err=err,
+            check_launches=1, max_rel_err=err / ref.float().abs().max().item(),
+            split=k11.plan("K11", q.dtype, b * n_kv, MAX_LEN, d, rep, any_rep=True)[1],
+            groups=k11.rep_groups(rep),
+            kernel_ms=device_ms(lambda i: k11.decode_attention_stacked(
+                *args(i % n_layers), **scale), n_layers),
             flash_ms=device_ms(lambda i: k11.decode_attention_stacked(
-                *args(i % n_layers), body="flash"), n_layers),
+                *args(i % n_layers), body="flash", **scale), n_layers),
             plain_ms=device_ms(lambda i: k11.decode_attention_stacked_plain(
-                *args(i % n_layers)), 4, reps=3),
+                *args(i % n_layers), **scale), 4, reps=3),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=device_ms(lambda i: F.scaled_dot_product_attention(
-                q[:, :, None], *lib_kv(i % n_layers), attn_mask=valid), 16),
-            library="scaled_dot_product_attention over the (dequantized) bf16 cache, "
-                    "yardstick only"))
+                q[:, :, None], *lib_in[i % len(lib_in)], attn_mask=valid, **(
+                    {} if sm_scale is None else {"scale": sm_scale})), 16),
+            library="scaled_dot_product_attention over the (dequantized) bf16 cache, kv "
+                    "heads expanded to the query heads, yardstick only"))
         emit(rows[-1])
-        del c, bufs
+        del c, bufs, lib_in
     return rows
 
 
@@ -3286,8 +3319,13 @@ def check_k11_edges(dev):
     last tile; every cluster size the planner can pick (1, 2, 4, 8 ranks
     where S chunks into them).  Tolerance 1e-2 of the largest output (as
     the K11 phases).  Every call is made twice for identical bits, and one
-    (Llama's shape, int8, 8 ranks) 400 times.  Returns the largest relative
-    error, the cases and the repeated calls."""
+    (Llama's shape, int8, 8 ranks) 400 times.  Then the query rows above 8
+    a kv head (rep 9, 16 and Falcon-7B's 71: groups of 8 rows) and OPT's
+    sm_scale 1.0 beside the default, over S = 640: the split body in every
+    cluster size and the flash body (bf16 queries forced onto it, and f32
+    queries, D = 256 at rep 12).  Returns the largest relative error, the
+    cases and the repeated calls (rep 1-8), and the same of the any-rep
+    cases."""
     import torch
 
     from smoothquant_tpu_torch.kernels import decode_attention as k11
@@ -3347,7 +3385,47 @@ def check_k11_edges(dev):
         if not torch.equal(k11.decode_attention_stacked(*args, split=8), first):
             raise AssertionError("K11 split body: 400 calls did not give identical bits")
     repeats += 400
-    return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats}
+    s = 640
+    bias = decode_bias(torch.tensor([s - 1, 0, 0, s - 1], device=dev), 4, s, None)
+    bias[1] = -1e30
+    bias[3, : s - 20] = -1e30
+    any_worst, any_cases = 0.0, 0
+    for rep, n_kv, d in ((9, 2, 64), (16, 1, 128), (71, 1, 64), (12, 1, 256)):
+        for kind in ("bf16", "int8"):
+            shape = (1, 4, n_kv, s, d)
+            if kind == "int8":
+                kv = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                    dtype=torch.int8) for _ in range(2)]
+                kv += [torch.rand(shape[:4], generator=gen, device=dev) * 0.02 + 0.005
+                       for _ in range(2)]
+            else:
+                kv = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(2)] + [None, None]
+            for q_dt in (torch.bfloat16, torch.float32):
+                q = torch.randn((4, n_kv * rep, d), generator=gen, device=dev).to(q_dt)
+                if kind == "bf16" and q_dt == torch.float32:
+                    continue                         # an fp cache holds q's dtype
+                for scale in (None, 1.0):
+                    args = (0, q, *kv[:2], bias, *kv[2:])
+                    ref = k11.decode_attention_stacked_plain(*args, sm_scale=scale)
+                    forced = [dict(body="flash")]
+                    if q_dt == torch.bfloat16 and d in k11.SPLIT_DIMS:
+                        forced += [dict(split=c) for c in k11.SPLITS if k11._split_fits(s, c)]
+                    for kw in forced:
+                        name = (f"K11 edge rep={rep} D={d} {kind} q={q_dt} scale={scale} "
+                                f"{kw}")
+                        got = k11.decode_attention_stacked(*args, sm_scale=scale, **kw)
+                        again = k11.decode_attention_stacked(*args, sm_scale=scale, **kw)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{name}: two calls gave different bits")
+                        if got[1].abs().max().item() != 0:
+                            raise AssertionError(f"{name}: a fully masked slot is not 0")
+                        err = _close(name, got, ref, 1e-2)
+                        any_worst = max(any_worst, err / ref.float().abs().max().item())
+                        any_cases += 1
+    return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats,
+            "any_rep_max_rel_err": any_worst, "any_rep_cases": any_cases}
 
 
 def check_k3_edges(dev):
@@ -5292,7 +5370,9 @@ def opt_generator(int8, cfg, dev):
 
 def run_opt(dev, cfg, card: str):
     """The real-INT8 OPT path at the size of `cfg`: export, the kernel
-    phases at its shapes, the accuracy check, the int8 prefill and the
+    phases at its shapes, the accuracy check, the int8 prefill, the
+    smoothed tree's serving (the fp batcher; the W4A4 serving pack's
+    stacked decode and per-layer Generator, opt_stacked) and the int8
     Generator.  Returns (kernel rows, the main path's launches)."""
     from collections import Counter
 
@@ -5328,6 +5408,9 @@ def run_opt(dev, cfg, card: str):
     sp_tree, sp_cfg = first_layers(smoothed, cfg)
     serve_family("opt", opt, sp_tree, sp_tree, sp_cfg, dev, card, max_len=OPT_SERVE_LEN)
     del sp_tree
+    more_rows, used = opt_stacked(smoothed, cfg, dev, card)
+    rows += more_rows
+    launches.update(used)
     del smoothed
     torch.cuda.empty_cache()
     g, used = opt_generator(int8, cfg, dev)
@@ -5741,33 +5824,6 @@ def bloom_generator(packed, fp, cfg, dev, card):
     return res, launches
 
 
-def bloom_decoder(tree, cache, cfg, dev, path: str, expect_per_step: dict):
-    """A stacked Bloom decode step of the cache's B rows (greedy, its own
-    tokens fed back): warmed up, its launches checked; returns (step(n),
-    the launches of one step)."""
-    import torch
-
-    from smoothquant_tpu_torch.models import bloom
-
-    b = cache.k_q.shape[1]
-    tok = torch.randint(0, cfg.vocab_size, (b, 1), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(SEED + 5))
-
-    @torch.no_grad()
-    def step(n=1):
-        nonlocal tok
-        for _ in range(n):
-            logits, _ = bloom.forward(tree, tok, cfg, caches=cache)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        if not (0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size):
-            raise AssertionError(f"{path}: token out of range")
-
-    step(2)                                        # warm-up
-    _, launches = _path_launches(step)
-    _check_launches(path, launches, expect_per_step)
-    return step, launches
-
-
 def bloom_stacked_decode(stacked, cfg, dev, card):
     """stack_layers' Bloom tree over a stacked head-major int8 cache of
     MAX_LEN positions from DECODE_POS: B = BLOOM_BATCH (K1 over the gathered
@@ -5788,8 +5844,8 @@ def bloom_stacked_decode(stacked, cfg, dev, card):
     launches = Counter()
     for b in (BLOOM_BATCH, BLOOM_SLOT_BATCH):
         cache = bloom.stacked_caches(cfg, b, MAX_LEN, pos=DECODE_POS, quant_kv=True, device=dev)
-        step, used = bloom_decoder(stacked, cache, cfg, dev, f"bloom decode step B={b}",
-                                   bloom_step_launches(cfg, b))
+        step, used = family_decoder(bloom, stacked, cache, cfg, dev,
+                                    f"bloom decode step B={b}", bloom_step_launches(cfg, b))
         launches.update(used)
         dec = decode_windows({"step": step}, batch=b)["step"]
         emit({"phase": f"bloom_decode_b{b}", "card": card, "batch": b, "cache": MAX_LEN,
@@ -5977,17 +6033,19 @@ def run_bloom(dev, cfg, card: str):
                  max_len=MAX_LEN)
     del fp, sp_fp
     torch.cuda.empty_cache()
-    for n in (BLOOM_BATCH * BLOOM_PROMPT, BLOOM_BATCH):
-        rows += check_gmm(packed, cfg, dev, gen, n)
+    # the Bloom linears' and K10's rows (off the kernels line's sums) time
+    # with 2 repetitions since PR 20: the run's 1200 s limit
+    rows += _few_reps(lambda: check_gmm(packed, cfg, dev, gen, BLOOM_BATCH * BLOOM_PROMPT)
+                      + check_gmm(packed, cfg, dev, gen, BLOOM_BATCH))
     stacked = bloom.stack_layers(packed, cfg)
     del packed
     torch.cuda.empty_cache()
-    rows += (check_rawx(stacked, dev, gen, BLOOM_BATCH)
-             + check_act_prep(stacked, dev, gen, BLOOM_SLOT_BATCH)
-             + check_gmm_stacked(stacked, dev, gen, BLOOM_SLOT_BATCH))
-    for b in (BLOOM_BATCH, BLOOM_SLOT_BATCH):
-        rows += check_write_cache_hm(dev, gen, b, cfg.num_attention_heads, cfg.head_dim,
-                                     rotary=False, site=f"bloom_rotary_off@B{b}")
+    rows += _few_reps(lambda: check_rawx(stacked, dev, gen, BLOOM_BATCH)
+                      + check_act_prep(stacked, dev, gen, BLOOM_SLOT_BATCH)
+                      + check_gmm_stacked(stacked, dev, gen, BLOOM_SLOT_BATCH)
+                      + [r for b in (BLOOM_BATCH, BLOOM_SLOT_BATCH) for r in check_write_cache_hm(
+                          dev, gen, b, cfg.num_attention_heads, cfg.head_dim, rotary=False,
+                          site=f"bloom_rotary_off@B{b}")])
     torch.cuda.empty_cache()
     emit({"phase": "k7b_k5_vs_k1", **check_k7b_k5_vs_k1(stacked, cfg, dev, gen)})
     launches.update(bloom_stacked_decode(stacked, cfg, dev, card))
@@ -6116,28 +6174,29 @@ MISTRAL_SAMPLES, MISTRAL_CALIB_LEN = 4, 512
 MISTRAL_ATTN_TOL, MISTRAL_LOGIT_TOL = 1e-2, 0.1
 
 
-def first_layers(tree, cfg, n=None):
-    """(tree, cfg) cut to the first n (default SERVE_LAYERS) layers: a
-    per-layer tree keeps layers "0" .. n − 1, a stacked tree the first n
-    along its layer axis (views); the rest of the tree as it is."""
+def first_layers(tree, cfg, n=None, start=0):
+    """(tree, cfg) cut to the first n (default SERVE_LAYERS) layers from
+    layer `start`: a per-layer tree keeps layers start .. start + n − 1 as
+    "0" .. n − 1, a stacked tree those along its layer axis (views); the
+    rest of the tree as it is."""
     import dataclasses
 
     from smoothquant_tpu_torch.kernels.pack import PackedLinear
 
-    n = min(n or SERVE_LAYERS, cfg.num_hidden_layers)
+    n = min(n or SERVE_LAYERS, cfg.num_hidden_layers - start)
 
     def cut(node):
         if isinstance(node, PackedLinear):
             return dataclasses.replace(node, **{
-                f: None if getattr(node, f) is None else getattr(node, f)[:n]
+                f: None if getattr(node, f) is None else getattr(node, f)[start:start + n]
                 for f in ("w_qt", "w_scales_t", "w_sal_t", "bias", "perm", "ns_mask")})
         if isinstance(node, dict):
             return {k: cut(v) for k, v in node.items()}
-        return None if node is None else node[:n]
+        return None if node is None else node[start:start + n]
 
     layers = tree["layers"]
     layers = ({"stacked": cut(layers["stacked"])} if "stacked" in layers
-              else {str(i): layers[str(i)] for i in range(n)})
+              else {str(i): layers[str(start + i)] for i in range(n)})
     return {**tree, "layers": layers}, dataclasses.replace(cfg, num_hidden_layers=n)
 
 
@@ -6679,6 +6738,16 @@ def mistral_window(stacked, bf16, cfg, dev, card):
                                                  "smajor" if name == "s_major" else "off"),
               **dec[name]})
     return launches
+
+
+def _few_reps(fn, reps=2):
+    """fn() with device_ms taking at most `reps` repetitions."""
+    global _MAX_REPS
+    _MAX_REPS = reps
+    try:
+        return fn()
+    finally:
+        _MAX_REPS = None
 
 
 def _off_the_sums(rows, prefix):
@@ -7243,6 +7312,596 @@ def run_io(fp, packed, stacked, cfg, dev, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- Falcon, Mixtral, OPT stacked
+
+# Falcon-7B (tiiuae/falcon-7b config.json: hidden 4544, 71 heads of 64 over
+# one kv head, 32 layers, vocab 65024, parallel attention, tied
+# embeddings) and Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1: hidden 4096,
+# 32 heads over 8 kv heads, 8 experts of 14336, top-2, vocab 32000) at full
+# width, random bf16 weights from SEED; the cuts: SERVE_LAYERS of Falcon's
+# 32 layers and MIXTRAL_LAYERS of Mixtral's 32 (its bf16 weights ~12 GB),
+# calibration on FAMILY_SAMPLES random sequences of FAMILY_CALIB_LEN tokens
+FAMILY_SAMPLES, FAMILY_CALIB_LEN, FAMILY_ALPHA = 4, 512, 0.5
+FAMILY_PACK = dict(nibble=True, align_k_groups=8, align_o=256)   # the stacked decode's layout
+FAMILY_PROMPT, FAMILY_NEW, FAMILY_MAX_LEN = 512, 32, 640
+MIXTRAL_LAYERS, MIXTRAL_NEW = 4, 8
+FAMILY_SERVE_REQUESTS, FAMILY_SERVE_NEW = 4, 16
+# OPT-1.3B's stacked decode: calibration for the serving pack, the per-layer
+# Generator's prompts (K11 at sm_scale 1.0 each step)
+OPT_STACKED_SAMPLES, OPT_GEN_PROMPT, OPT_GEN_NEW = 2, 128, 8
+# the stacked step against the per-layer step from the same cache, the whole
+# model and each layer alone: held in f32 on a small twin of each family
+# (2 layers, heads of 64) to the JAX package's own bound for these stacked
+# decodes (tests/test_prefetch_scan_archs.py, _mixtral.py,
+# test_opt_prefetch.py); at full width in bf16 reported only — K1 beside K6
+# sums in another order and K10 rotates k in f32 where the per-layer path
+# rounds it to bf16 first (as in JAX), so int4 activation codes at rounding
+# edges move, and each W4A4 linear multiplies the difference (a 0.05 %
+# difference of o_proj's input reads 1.3 % at its output and ~13 % after
+# Mixtral's experts, on the CPU's plain versions too)
+STACKED_VS_PER_LAYER_TOL = 2e-4
+
+
+def _timed(seconds, name, fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    seconds[name] = time.perf_counter() - t0
+    return r
+
+
+def build_family(arch, mod, cfg, dev, seed):
+    """A family's serving model on `dev`: random bf16 weights (seed), the
+    calibration taps on FAMILY_SAMPLES random sequences of FAMILY_CALIB_LEN
+    tokens, smooth_lm(arch, α = FAMILY_ALPHA) and pack_model(arch, W4A4 g64,
+    5 % salient, nibble, k groups aligned to 8, O to 256); the fp tree
+    freed.  Returns (per-layer packed tree, seconds of each step)."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.models.registry import pack_model, smooth_lm
+    from smoothquant_tpu_torch.quant.calibrate import get_act_scales, get_calib_feat
+
+    seconds = {}
+    fp = _timed(seconds, "init", lambda: mod.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, dev))
+    rng = np.random.default_rng(seed)
+    batches = [rng.integers(0, cfg.vocab_size, size=(1, FAMILY_CALIB_LEN))
+               for _ in range(FAMILY_SAMPLES)]
+
+    def fwd(p, ids, col):
+        return mod.forward(p, torch.as_tensor(ids, device=dev), cfg,
+                           ctx=ForwardContext(taps=col))
+
+    scales = _timed(seconds, "act_scales", lambda: get_act_scales(fwd, fp, batches))
+    feat = _timed(seconds, "calib_feat", lambda: get_calib_feat(fwd, fp, batches))
+    smoothed = _timed(seconds, "smooth_lm", lambda: smooth_lm(arch, fp, cfg, scales,
+                                                              alpha=FAMILY_ALPHA))
+    del fp
+    packed = _timed(seconds, "pack_model", lambda: pack_model(
+        arch, smoothed, cfg, bloom_recipe(), input_feat=feat, act_scales=scales,
+        **FAMILY_PACK))
+    return packed, seconds
+
+
+def _packed_bytes(node) -> int:
+    """Bytes of every tensor of a tree (PackedLinear fields included)."""
+    import dataclasses
+
+    import torch
+
+    from smoothquant_tpu_torch.kernels.pack import PackedLinear
+
+    if isinstance(node, PackedLinear):
+        return sum(_packed_bytes(getattr(node, f.name)) for f in dataclasses.fields(node)
+                   if f.name != "meta")
+    if isinstance(node, dict):
+        return sum(_packed_bytes(v) for v in node.values())
+    return node.numel() * node.element_size() if isinstance(node, torch.Tensor) else 0
+
+
+def tree_step_bytes(stacked, cache, unembed_bytes: int) -> dict:
+    """The bytes a stacked decode step must stream, from the tree and cache
+    as stored: every layer tensor of the stack (padded packs as padded;
+    every expert's, which dense and sparse dispatch both run), the whole
+    int8 cache with its scales, and the unembedding's matrix."""
+    from smoothquant_tpu_torch.utils import roofline
+
+    layers = _packed_bytes(stacked["layers"]["stacked"])
+    kv = sum(t.numel() * t.element_size()
+             for t in (cache.k_q, cache.v_q, cache.k_scale, cache.v_scale))
+    total = layers + kv + unembed_bytes
+    return {"layers": layers, "kv": kv, "unembed": unembed_bytes, "total": total,
+            "bound_ms": roofline.bound_ms(total, {})[0]}
+
+
+def family_step_launches(cfg, batch, n_lin):
+    """Kernel launches of one stacked decode step of a Falcon, Mixtral or
+    OPT tree at `batch` rows: its n_lin linears a layer (the input gathered,
+    no fused norm) on K1 up to K1_MAX_TOKENS rows, above on K7a's row body +
+    K5 (Mixtral's sparse buffers take the rule at their capacity's rows);
+    K10 (rotary off for OPT; over the int8 cache q rotated in the same
+    launch for the rotary families) and K11 a layer."""
+    from smoothquant_tpu_torch.kernels.real_linear import K1_MAX_TOKENS
+
+    n_l = cfg.num_hidden_layers
+    if batch <= K1_MAX_TOKENS:
+        out = {"int4_group_matmul_stacked_rawx": n_lin * n_l}
+    else:
+        out = {"quantize_acts_grouped_t": n_lin * n_l, "int4_group_matmul_stacked": n_lin * n_l}
+    out.update(write_quant_cache_stacked=n_l, decode_attention_stacked=n_l)
+    return out
+
+
+def family_decoder(mod, tree, cache, cfg, dev, path: str, expect_per_step: dict, ctx=None):
+    """A stacked decode step of the cache's B rows (greedy, its own tokens fed
+    back) of a family module (Bloom, Falcon, Mixtral, OPT): warmed up, its
+    launches checked; returns (step(n), the launches of one step)."""
+    import torch
+
+    b = cache.k_q.shape[1]
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+
+    @torch.no_grad()
+    def step(n=1):
+        nonlocal tok
+        for _ in range(n):
+            logits, _ = mod.forward(tree, tok, cfg, ctx=ctx, caches=cache)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        if not (0 <= int(tok.min()) and int(tok.max()) < cfg.vocab_size):
+            raise AssertionError(f"{path}: token out of range")
+
+    step(2)                                        # warm-up
+    _, launches = _path_launches(step)
+    _check_launches(path, launches, expect_per_step)
+    return step, launches
+
+
+def family_stacked_decode(name, mod, stacked, cfg, dev, card, batch, n_lin, unembed_bytes,
+                          ctx=None, tag=""):
+    """stack_layers' tree over a stacked head-major int8 cache of MAX_LEN
+    positions from DECODE_POS at `batch` rows: three windows of 8 steps,
+    ms/step by host clock and device busy time, launches per step (checked),
+    the step's byte bound.  Returns the launches of the counted step."""
+    import torch
+
+    cache = mod.stacked_caches(cfg, batch, MAX_LEN, pos=DECODE_POS, quant_kv=True, device=dev)
+    step, used = family_decoder(mod, stacked, cache, cfg, dev, f"{name}{tag} decode B={batch}",
+                                family_step_launches(cfg, batch, n_lin), ctx)
+    dec = decode_windows({"step": step}, batch=batch)["step"]
+    emit({"phase": f"{name}{tag}_decode_b{batch}", "card": card, "batch": batch,
+          "cache": MAX_LEN, "positions": [DECODE_POS, int(cache.pos[0])],
+          "launches_per_step": used,
+          "launches_per_layer": {k: v / cfg.num_hidden_layers for k, v in used.items()},
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
+          "decode_step_bytes": tree_step_bytes(stacked, cache, unembed_bytes), **dec})
+    del cache, step
+    torch.cuda.empty_cache()
+    return used
+
+
+def stacked_vs_per_layer(mod, packed, stacked, cfg, dev, gen, batch, n_lin, ctx=None,
+                         seen=None):
+    """One decode step from DECODE_POS over a random int8 cache through the
+    stacked tree (the stacked decode) and through the per-layer tree (K6,
+    K11 per layer) over per-layer views of a copy of the same cache, the
+    same tokens — the whole model, then each layer alone as a one-layer
+    model (first_layers from that layer) over its layer of the cache:
+    ([(stacked run), (per-layer run)] of the whole model, the same of each
+    layer), a run being (last-position logits, what a recorder filled into
+    `seen` during it).  The whole model's stacked run must launch K1 (either
+    body) n_lin times a layer and K11 (either body) once: it took the
+    stacked decode, not the per-layer body over the stack."""
+    import dataclasses
+
+    import torch
+
+    from smoothquant_tpu_torch.serve.generate import cache_kv_heads
+
+    base = _random_hm_cache(batch, cache_kv_heads(cfg), cfg.head_dim, cfg.num_hidden_layers,
+                            dev, gen)
+    tok = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen, device=dev)
+    fields = ("k_q", "v_q", "k_scale", "v_scale")
+
+    def copy(lo, n):
+        return dataclasses.replace(base, pos=base.pos[lo:lo + n].clone(), **{
+            f: getattr(base, f)[lo:lo + n].clone() for f in fields})
+
+    def run(tree, caches, c):
+        if seen is not None:
+            seen.clear()
+        logits = mod.forward(tree, tok, c, ctx=ctx, caches=caches)[0][:, -1].float()
+        return logits, [] if seen is None else list(seen)
+
+    def pair(lo, n):
+        """([stacked run, per-layer run], the stacked run's launches)."""
+        st, c = first_layers(stacked, cfg, n, lo)
+        pl, _ = first_layers(packed, cfg, n, lo)
+        twin, st_cache = copy(lo, n), copy(lo, n)
+        got, used = _path_launches(lambda: run(st, st_cache, c))
+        return [got, run(pl, [twin.layer(i, DECODE_POS) for i in range(n)], c)], used
+
+    with torch.no_grad():
+        whole, used = pair(0, cfg.num_hidden_layers)
+        n_l = cfg.num_hidden_layers
+        by_kernel = {k: sum(v for key, v in used.items() if key.startswith(k))
+                     for k in ("int4_group_matmul_stacked_rawx", "decode_attention_stacked")}
+        _check_launches(f"{mod.__name__.rsplit('.', 1)[-1]} stacked against per-layer", by_kernel,
+                        {"int4_group_matmul_stacked_rawx": n_lin * n_l,
+                         "decode_attention_stacked": n_l})
+        parts = [pair(i, 1)[0] for i in range(cfg.num_hidden_layers)]
+    del base
+    torch.cuda.empty_cache()
+    return whole, parts
+
+
+def _logit_agreement(path, got, ref, rows=None, tol=None):
+    """Relative norm error and argmax agreement of two logit sets (over
+    `rows`, all by default); raises on non-finite logits or, given `tol`,
+    an error above it."""
+    import torch
+
+    if rows is not None:
+        got, ref = got[rows], ref[rows]
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError(f"{path}: non-finite logits")
+    out = dict(rows=int(got.shape[0]),
+               rel_norm_err=float((got - ref).norm() / ref.norm()) if got.numel() else 0.0,
+               top1_agree=float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+               if got.numel() else None, tol=tol)
+    if tol is not None and out["rel_norm_err"] > tol:
+        raise AssertionError(f"{path}: stacked against per-layer logits {out}")
+    return out
+
+
+def stacked_vs_per_layer_phase(name, runs, card, route_k=None, tol=None):
+    """The emitted comparison of stacked_vs_per_layer's runs: the whole model
+    and each layer's part, held to `tol` when given (else reported); with
+    route_k (Mixtral) the experts each path chose compared first and only
+    the rows where every layer chose the same compared by their logits."""
+    whole, parts = runs
+
+    def agree(tag, pair, tol):
+        (g, g_seen), (r, r_seen) = pair
+        out = {}
+        rows = None
+        if route_k is not None:
+            if len(g_seen) != len(r_seen) or not g_seen:
+                raise AssertionError(f"{name} {tag}: {len(g_seen)} against {len(r_seen)} "
+                                     "routings")
+            rows, parted = mixtral_route_compare(g_seen, r_seen, route_k)
+            out.update(route_parted=parted, rows_all_same=int(rows.sum()))
+        return {**out, **_logit_agreement(f"{name} {tag}", g, r, rows, tol)}
+
+    parts_out = [agree(f"layer {i}", p, tol) for i, p in enumerate(parts)]
+    emit({"phase": f"{name}_stacked_vs_per_layer", "card": card,
+          "whole_model": agree("whole model", whole, tol),
+          "layer_parts": parts_out,
+          "max_layer_rel_norm_err": max(p["rel_norm_err"] for p in parts_out), "tol": tol})
+
+
+def small_f32_twin(name, arch, mod, cfg, dev, card, n_lin, route_k=None, ctxs=(None,)):
+    """A small f32 twin of a family (cfg: 2 layers, heads of 64) built as the
+    path builds its model (build_family), its stacked step held to its
+    per-layer step, whole and layer by layer, within
+    STACKED_VS_PER_LAYER_TOL (in each context of `ctxs`: Mixtral's two
+    dispatches)."""
+    import torch
+
+    packed, _ = build_family(arch, mod, cfg, dev, SEED + 107)
+    stacked = mod.stack_layers(packed, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 109)
+    for ctx in ctxs:
+        tag = "" if ctx is None else f"_{ctx.moe_dispatch}"
+        seen, restore = (_route_recorder() if route_k is not None else ([], lambda: None))
+        try:
+            runs = stacked_vs_per_layer(mod, packed, stacked, cfg, dev, gen, MAX_BATCH, n_lin,
+                                        ctx, seen if route_k is not None else None)
+        finally:
+            restore()
+        stacked_vs_per_layer_phase(f"{name}{tag}_f32_small", runs, card, route_k,
+                                   STACKED_VS_PER_LAYER_TOL)
+    del packed, stacked
+    torch.cuda.empty_cache()
+
+
+def family_generator(name, mod, packed, cfg, dev, card, n_lin, prompt, new, ctx_kw=None):
+    """Generator(quant_kv=True) over a family's packed per-layer tree,
+    4 prompts of `prompt` random tokens and `new` new ones over per-layer
+    int8 caches of FAMILY_MAX_LEN (or the smallest multiple of 128 above the
+    run): prefill tokens/s (a prefill-only run), decode ms/step, launches
+    checked (K6 n_lin·L at the prefill; K6 n_lin·L and K11 L a decode
+    step).  Returns (metrics, launches)."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.serve.generate import GenerationConfig, Generator
+
+    n_l, steps, b = cfg.num_hidden_layers, new - 1, MAX_BATCH
+    max_len = max(FAMILY_MAX_LEN, -(-(prompt + new) // 128) * 128)
+    prompts = np.random.default_rng(SEED + 91).integers(0, cfg.vocab_size, size=(b, prompt))
+    gen = Generator(mod, packed, cfg, max_len=max_len, quant_kv=True, device=dev)
+    if ctx_kw:
+        gen.ctx = ForwardContext(**ctx_kw)
+    gen.generate(prompts[:, :16], GenerationConfig(max_new_tokens=2))      # warm-up
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.generate(prompts, GenerationConfig(max_new_tokens=n))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    prefill_s = statistics.median(run(1)[1] for _ in range(2))
+    (out, wall), launches = _path_launches(lambda: run(new))
+    _check_launches(f"{name} generator", launches, {
+        "int4_group_matmul": n_lin * n_l * (1 + steps), "decode_attention_stacked": n_l * steps})
+    toks = out[:, prompt:]
+    if not (out.shape == (b, prompt + new) and (out[:, :prompt] == prompts).all()
+            and ((0 <= toks) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{name} generator: misshapen output or token out of range")
+    emit({"phase": f"{name}_generator", "card": card, "batch": b, "prompt": prompt,
+          "new_tokens": new, "max_len": max_len, "prefill_ms": 1e3 * prefill_s,
+          "prefill_tokens_per_s": b * prompt / prefill_s,
+          "decode_ms_per_step": 1e3 * (wall - prefill_s) / steps, "wall_s": wall,
+          "launches": launches,
+          "launches_per_decode_step": {"int4_group_matmul": n_lin * n_l,
+                                       "decode_attention_stacked": n_l}})
+    return launches
+
+
+def run_falcon(dev, card: str, cfg=None):
+    """Falcon-7B (FalconConfig(): 71 query heads of 64 over one kv head,
+    hidden 4544, qkv 4672, MLP 18176, vocab 65024) at SERVE_LAYERS of its 32
+    layers, after every Llama tree is freed: the build (calibration,
+    smooth_lm, the aligned nibble pack), K11 at rep 71 against its plain
+    version (bf16 and int8 caches, B = 4 and 64, S = 512, ragged), K10 with
+    one kv head and 71 query heads rotated in its launch (bit for bit), K6
+    at the prefill's rows, K1 (B = 4) and K7a + K5 (B = 64) at its widths,
+    the Generator over per-layer int8 caches, the stacked decode at B = 4
+    from DECODE_POS, the stacked step against the per-layer step, and a
+    few requests through the batcher (the per-layer tree over per-slot
+    per-layer int8 caches of one kv head: K6, K11 at rep 71) held to their
+    own Generator runs.  (The stacked tree's tokens part from the
+    per-layer tree's within a few steps on these random weights: each
+    layer's 0.2 % difference spreads to ~0.2 of the logits' norm through 8
+    layers, far past the near-ties SERVE_GAP_TOL names.)  Returns (kernel
+    rows, launches)."""
+    import dataclasses
+    import types
+    from collections import Counter
+
+    import torch
+
+    from smoothquant_tpu_torch.models import falcon
+
+    cfg = cfg or dataclasses.replace(falcon.FalconConfig.falcon_7b(),
+                                     num_hidden_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    packed, seconds = build_family("falcon", falcon, cfg, dev, SEED + 93)
+    emit({"phase": "falcon_model", "seconds": time.perf_counter() - t0, **seconds,
+          "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+          "heads": cfg.num_attention_heads, "kv_heads": cfg.effective_kv_heads,
+          "calibration": [FAMILY_SAMPLES, FAMILY_CALIB_LEN], "alpha": FAMILY_ALPHA,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 95)
+    ns = types.SimpleNamespace(num_attention_heads=cfg.num_attention_heads,
+                               num_key_value_heads=cfg.effective_kv_heads,
+                               head_dim=cfg.head_dim, num_hidden_layers=cfg.num_hidden_layers)
+    slot_pos = torch.randint(100, MAX_LEN, (SLOT_BATCH,), generator=gen, device=dev)
+    stacked = falcon.stack_layers(packed, cfg)
+    rows = _off_the_sums(_emitted_off_the_sums("falcon", lambda: _few_reps(lambda: (
+        check_decode_attention_hm(ns, dev, gen, main=False, site="rep71")
+        + check_decode_attention_hm(ns, dev, gen, b=SLOT_BATCH, pos=slot_pos, main=False,
+                                    site="rep71")
+        + check_write_cache_hm(dev, gen, MAX_BATCH, cfg.effective_kv_heads, cfg.head_dim,
+                               site="mqa71", n_q=cfg.num_attention_heads)
+        + check_gmm(packed, cfg, dev, gen, MAX_BATCH * FAMILY_PROMPT)
+        + check_rawx(stacked, dev, gen, MAX_BATCH)
+        + check_act_prep(stacked, dev, gen, SLOT_BATCH, False)
+        + check_gmm_stacked(stacked, dev, gen, SLOT_BATCH, main=False)))), "falcon")
+    launches = Counter()
+    launches.update(family_generator("falcon", falcon, packed, cfg, dev, card, 4,
+                                     FAMILY_PROMPT, FAMILY_NEW))
+    emb_bytes = packed["word_embeddings"]["weight"].numel() * 2
+    launches.update(family_stacked_decode("falcon", falcon, stacked, cfg, dev, card, MAX_BATCH,
+                                          4, emb_bytes))
+    stacked_vs_per_layer_phase("falcon", stacked_vs_per_layer(
+        falcon, packed, stacked, cfg, dev, gen, MAX_BATCH, 4), card)
+    small_f32_twin("falcon", "falcon", falcon, falcon.FalconConfig(
+        vocab_size=512, hidden_size=576, num_hidden_layers=2, num_attention_heads=9,
+        dtype="float32"), dev, card, 4)
+    prompts = serve_prompts(cfg, FAMILY_SERVE_REQUESTS, SEED + 97)
+    refs = [greedy_reference(falcon, packed, cfg, p, FAMILY_SERVE_NEW, dev, max_len=MAX_LEN,
+                             quant_kv=True) for p in prompts]
+    toks, used, m = serve_batch(falcon, packed, cfg, dev, prompts, new=FAMILY_SERVE_NEW,
+                                quant_kv=True)
+    n_l, steps = cfg.num_hidden_layers, m["decode_steps"]
+    _check_launches("falcon serving", used, {
+        "int4_group_matmul": 4 * n_l * (len(m["prefill_seqs"]) + steps),
+        "decode_attention_stacked": n_l * steps})
+    launches.update(used)
+    emit({"phase": "falcon_serving", "card": card, "layers": n_l, "tree": "per-layer W4A4",
+          "pool": "per-layer head-major int8 (effective_kv_heads)", "max_batch": MAX_BATCH,
+          "cache": MAX_LEN, **m, "launches": used,
+          "tokens": hold_tokens("falcon serving", toks, refs, SERVE_GAP_TOL)})
+    del packed, stacked
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _route_recorder():
+    """Patch models.mixtral.top_k (the router's choice) to record each
+    layer's routing probabilities (B·S, E) and experts (B·S, k) in call
+    order; returns (the list it fills, a function that restores it)."""
+    from smoothquant_tpu_torch.models import mixtral
+
+    real, seen = mixtral.top_k, []
+
+    def recording(x, k):
+        vals, idx = real(x, k)
+        seen.append((x.reshape(-1, x.shape[-1]), idx.reshape(-1, k)))
+        return vals, idx
+
+    mixtral.top_k = recording
+    return seen, lambda: setattr(mixtral, "top_k", real)
+
+
+def mixtral_route_compare(stacked_run, per_layer_run, k):
+    """The experts each path chose, layer by layer and row by row: (a mask of
+    the rows where every layer chose the same k experts, whose logits are
+    then compared; [layer, row, gap] where the two parted, the gap the
+    per-layer path's k-th routing probability less its (k+1)-th there — a
+    near-tie, where the two paths' last-bit differences reorder near-equal
+    probabilities)."""
+    import torch
+
+    parted, same = [], None
+    for layer, ((_, gi), (pr, ri)) in enumerate(zip(stacked_run, per_layer_run)):
+        agree = (gi.sort(-1).values == ri.sort(-1).values).all(-1)
+        same = agree if same is None else same & agree
+        top = pr.sort(-1, descending=True).values
+        for r in torch.nonzero(~agree).flatten().tolist():
+            parted.append([layer, r, float(top[r, k - 1] - top[r, k])])
+    if len(stacked_run) != len(per_layer_run):
+        raise AssertionError("mixtral: the two paths routed a different number of layers")
+    return same, parted
+
+
+def run_mixtral(dev, card: str, cfg=None):
+    """Mixtral-8x7B (MixtralConfig(): hidden 4096, 32 heads of 128 over 8 kv
+    heads, 8 experts of 14336, top-2, vocab 32000) at MIXTRAL_LAYERS of its
+    32 layers, after every Llama tree is freed: the build (calibration,
+    smooth_lm, the aligned nibble pack: 29 linears a layer, the router's 8
+    outputs padded to 256), K6 at the Generator's prefill rows (expert 0
+    standing for the experts), K1 (B = 4) and K7a + K5 (32 rows, a sparse
+    expert buffer at B = 64) on its linears with the experts as the (L·E,
+    ...) stacks the stacked decode indexes, K11 at rep 4, the stacked decode
+    in "dense" and "sparse" dispatch at B = 4 and 64 from DECODE_POS, the
+    stacked step against the per-layer step (the experts each chose, then
+    the logits of the rows where they chose the same), and the Generator
+    over per-layer int8 caches.  Returns (kernel rows, launches)."""
+    import dataclasses
+    from collections import Counter
+
+    import torch
+
+    from smoothquant_tpu_torch.models import mixtral
+    from smoothquant_tpu_torch.models.common import ForwardContext
+
+    cfg = cfg or dataclasses.replace(mixtral.MixtralConfig(), num_hidden_layers=MIXTRAL_LAYERS)
+    n_lin = 5 + 3 * cfg.num_local_experts
+    t0 = time.perf_counter()
+    packed, seconds = build_family("mixtral", mixtral, cfg, dev, SEED + 99)
+    emit({"phase": "mixtral_model", "seconds": time.perf_counter() - t0, **seconds,
+          "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+          "experts": cfg.num_local_experts, "intermediate": cfg.intermediate_size,
+          "linears_per_layer": n_lin, "calibration": [FAMILY_SAMPLES, FAMILY_CALIB_LEN],
+          "alpha": FAMILY_ALPHA, "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 101)
+    stacked = mixtral.stack_layers(packed, cfg)
+    cap = mixtral.moe_capacity(SLOT_BATCH, cfg, ForwardContext().moe_capacity_factor)
+    rows = _off_the_sums(_emitted_off_the_sums("mixtral", lambda: _few_reps(lambda: (
+        check_decode_attention_hm(cfg, dev, gen, main=False, site="rep4")
+        + check_gmm(packed, cfg, dev, gen, MAX_BATCH * FAMILY_PROMPT)
+        + check_rawx(stacked, dev, gen, MAX_BATCH)
+        + check_act_prep(stacked, dev, gen, cap, False)
+        + check_gmm_stacked(stacked, dev, gen, cap, main=False)))), "mixtral")
+    launches = Counter()
+    lm_bytes = packed["lm_head"]["weight"].numel() * 2
+    for dispatch in ("dense", "sparse"):
+        ctx = ForwardContext(moe_dispatch=dispatch)
+        for b in (MAX_BATCH, SLOT_BATCH):
+            launches.update(family_stacked_decode("mixtral", mixtral, stacked, cfg, dev, card,
+                                                  b, n_lin, lm_bytes, ctx, f"_{dispatch}"))
+        seen, restore = _route_recorder()
+        try:
+            runs = stacked_vs_per_layer(mixtral, packed, stacked, cfg, dev, gen, MAX_BATCH,
+                                        n_lin, ctx, seen)
+        finally:
+            restore()
+        stacked_vs_per_layer_phase(f"mixtral_{dispatch}", runs, card, cfg.num_experts_per_tok)
+    small_f32_twin("mixtral", "mixtral", mixtral, dataclasses.replace(
+        cfg, vocab_size=512, hidden_size=256, intermediate_size=256, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, num_local_experts=4, dtype="float32"),
+        dev, card, 5 + 3 * 4, cfg.num_experts_per_tok,
+        tuple(ForwardContext(moe_dispatch=d) for d in ("dense", "sparse")))
+    launches.update(family_generator("mixtral", mixtral, packed, cfg, dev, card, n_lin,
+                                     FAMILY_PROMPT, MIXTRAL_NEW))
+    del packed, stacked
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def opt_stacked(smoothed, cfg, dev, card):
+    """OPT's stacked decode on the OPT path's smoothed OPT-1.3B weights, all
+    24 layers: calibration statistics on OPT_STACKED_SAMPLES random
+    sequences of CALIB_LEN, pack_model("opt", W4A4 g64, 5 % salient,
+    nibble, fuse=True, fold_perms=True, aligned) and its stack; K11 at
+    sm_scale 1.0 against its plain version (bf16 and int8 caches, B = 4);
+    the stacked decode at B = 4 from DECODE_POS (per layer K1 ×4, K10
+    rotary off, K11 at sm_scale 1.0); its step against the per-layer
+    step's from the same cache; the per-layer Generator over int8 caches
+    (K6 and K11 at sm_scale 1.0 each step, no einsum).  Returns (kernel
+    rows, launches)."""
+    import types
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models import opt
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.models.registry import pack_model
+    from smoothquant_tpu_torch.quant.calibrate import get_act_scales, get_calib_feat
+
+    seconds = {}
+    rng = np.random.default_rng(SEED + 103)
+    batches = [rng.integers(0, cfg.vocab_size, size=(1, CALIB_LEN))
+               for _ in range(OPT_STACKED_SAMPLES)]
+
+    def fwd(p, ids, col):
+        return opt.forward(p, torch.as_tensor(ids, device=dev), cfg,
+                           ctx=ForwardContext(taps=col))
+
+    scales = _timed(seconds, "act_scales", lambda: get_act_scales(fwd, smoothed, batches))
+    feat = _timed(seconds, "calib_feat", lambda: get_calib_feat(fwd, smoothed, batches))
+    packed = _timed(seconds, "pack_model", lambda: pack_model(
+        "opt", smoothed, cfg, bloom_recipe(), input_feat=feat, act_scales=scales, fuse=True,
+        fold_perms=True, **FAMILY_PACK))
+    stacked = _timed(seconds, "stack_layers", lambda: opt.stack_layers(packed, cfg))
+    emit({"phase": "opt_stacked_model", "seconds": seconds, "layers": cfg.num_hidden_layers,
+          "calibration": [OPT_STACKED_SAMPLES, CALIB_LEN],
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    gen = torch.Generator(device=dev).manual_seed(SEED + 105)
+    ns = types.SimpleNamespace(num_attention_heads=cfg.num_attention_heads,
+                               num_key_value_heads=cfg.num_attention_heads,
+                               head_dim=cfg.head_dim, num_hidden_layers=cfg.num_hidden_layers)
+    rows = _off_the_sums(_emitted_off_the_sums("opt", lambda: _few_reps(
+        lambda: check_decode_attention_hm(ns, dev, gen, main=False, sm_scale=1.0,
+                                          site="scale1"))), "opt")
+    launches = Counter()
+    emb_bytes = packed["embed_tokens"]["weight"].numel() * 2
+    launches.update(family_stacked_decode("opt", opt, stacked, cfg, dev, card, MAX_BATCH, 4,
+                                          emb_bytes, tag="_stacked"))
+    stacked_vs_per_layer_phase("opt", stacked_vs_per_layer(
+        opt, packed, stacked, cfg, dev, gen, MAX_BATCH, 4), card)
+    small_f32_twin("opt", "opt", opt, opt.OPTConfig(
+        vocab_size=512, hidden_size=256, ffn_dim=512, num_hidden_layers=2,
+        num_attention_heads=4, dtype="float32"), dev, card, 6)
+    launches.update(family_generator("opt_per_layer_int8", opt, packed, cfg, dev, card, 4,
+                                     OPT_GEN_PROMPT, OPT_GEN_NEW))
+    del packed, stacked
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
 def run_mistral(dev, card: str, cfg=None):
     """Mistral-7B (mistral_7b(): hidden 4096, 32 heads over 8 kv heads,
     intermediate 14336, vocab 32000, window 4096; random bf16 weights from
@@ -7273,12 +7932,12 @@ def run_mistral(dev, card: str, cfg=None):
           "decode_step_bytes": roofline.llama_decode_step_bytes(
               cfg, batch=MISTRAL_BATCH, max_len=MISTRAL_LEN)})
     gen = torch.Generator(device=dev).manual_seed(SEED + 85)
-    rows = _off_the_sums(_emitted_off_the_sums("mistral", lambda: (
+    rows = _off_the_sums(_emitted_off_the_sums("mistral", lambda: _few_reps(lambda: (
         check_rawx(stacked, dev, gen)
         + check_gmm_stacked(stacked, dev, gen, n=SLOT_BATCH, main=False)
         + check_mlp_fused(stacked, dev, gen)
         + check_write_cache_hm(dev, gen, MISTRAL_BATCH, cfg.num_key_value_heads, cfg.head_dim,
-                               site="gqa8", n_q=cfg.num_attention_heads))), "mistral")
+                               site="gqa8", n_q=cfg.num_attention_heads)))), "mistral")
     launches = mistral_window(stacked, bf16, cfg, dev, card)
     return rows, launches
 
@@ -7499,11 +8158,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     mistral_rows, mistral = run_mistral(dev, card)
     torch.cuda.empty_cache()
+    falcon_rows, falcon_launches = run_falcon(dev, card)
+    torch.cuda.empty_cache()
+    mixtral_rows, mixtral_launches = run_mixtral(dev, card)
+    torch.cuda.empty_cache()
     bloom_rows, bloom_launches = run_bloom(dev, bloom_7b1(), card)
-    rows = rows + more_rows + mistral_rows + bloom_rows
+    rows = rows + more_rows + mistral_rows + falcon_rows + mixtral_rows + bloom_rows
     emit({"phase": "scaling_floors", "card": card, "sm_clock_mhz": clock,
           "rows": add_scaling_floors(rows, clock)})
-    emit(kernels_line(rows, launches + more + mistral + bloom_launches))
+    emit(kernels_line(rows, launches + more + mistral + falcon_launches + mixtral_launches
+                      + bloom_launches))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

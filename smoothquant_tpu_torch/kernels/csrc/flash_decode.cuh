@@ -2,7 +2,10 @@
 // code K11 (decode_attention.cu), K12 (attn_fused.cu) and K3 (attn_smajor.cu)
 // share, for the shapes their split-S bodies (split_decode.cuh) do not take.
 // One block of WARPS warps serves the rep = H / H_kv query heads of its kv
-// head, so every cache byte is read once; a lane holds DPL consecutive
+// head, so every cache byte is read once; above FLASH_MAX_REP query heads a
+// kv head (K11 only: Falcon-7B's 71 over one) the rows split into groups
+// of FLASH_MAX_REP, a block each (grid z), so registers and shared memory
+// stay those of rep 8 and the groups re-read the rows; a lane holds DPL consecutive
 // elements of a row (a warp reads a row whole).  A head's rows lie `stride`
 // elements apart: D in a head-major cache (B, H_kv, S, D), H_kv·D in the
 // S-major one (B, S, H_kv·D).  A position
@@ -215,8 +218,8 @@ inline size_t flash_smem_bytes(int rep, int S, int D, int ts) {
          sizeof(float);
 }
 
-inline bool flash_shape_ok(int H, int Hkv, int S, int ts) {
-  return !(H % Hkv || H / Hkv > FLASH_MAX_REP || ts < FLASH_WARPS * FLASH_UNROLL ||
+inline bool flash_shape_ok(int H, int Hkv, int S, int ts, bool any_rep = false) {
+  return !(H % Hkv || (!any_rep && H / Hkv > FLASH_MAX_REP) || ts < FLASH_WARPS * FLASH_UNROLL ||
            ts % (FLASH_WARPS * FLASH_UNROLL) || S % ts || S / ts > FLASH_MAX_TILES);
 }
 
@@ -225,7 +228,9 @@ inline bool flash_shape_ok(int H, int Hkv, int S, int ts) {
 // l == 0: a fully masked row gives 0).  TQ: query / output dtype; TC: cache
 // dtype (int8 when QUANT); TV: the dtype p is rounded to before PV; head_dim
 // = 32·DPL; SMAJOR: the S-major layout (rows H_kv·D apart), else head-major.
-// slopes, when not null, the (H,) ALiBi slopes (H == H_kv).
+// slopes, when not null, the (H,) ALiBi slopes (H == H_kv).  Grid (B, H_kv,
+// ⌈rep / FLASH_MAX_REP⌉): block z serves the kv head's query rows
+// [z·FLASH_MAX_REP, min(rep, (z + 1)·FLASH_MAX_REP)).
 template <typename TQ, typename TC, typename TV, bool QUANT, int DPL, bool SMAJOR>
 __global__ void __launch_bounds__(FLASH_THREADS)
 flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC* __restrict__ v,
@@ -234,7 +239,9 @@ flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC
                     TQ* __restrict__ out, int H, int Hkv, int S, int ts, float sm_scale) {
   constexpr int D = 32 * DPL;
   extern __shared__ float smem[];
-  const int rep = H / Hkv;
+  const int rep_all = H / Hkv;
+  const int r0 = blockIdx.z * FLASH_MAX_REP;      // the group's first query row
+  const int rep = min(rep_all - r0, FLASH_MAX_REP);
   float* sc = smem;                              // (rep, S) scores, then rounded p
   float* part = sc + rep * S;                    // (WARPS, rep, D) PV partials
   float* alpha = part + FLASH_WARPS * rep * D;   // (rep, n_tiles) tile rescale factors
@@ -256,7 +263,7 @@ flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC
   for (int r = 0; r < FLASH_MAX_REP; ++r)
 #pragma unroll
     for (int t = 0; t < DPL; ++t)
-      qv[r][t] = r < rep ? to_f<TQ>(q[((size_t)b * H + kvh * rep + r) * D + lane * DPL + t])
+      qv[r][t] = r < rep ? to_f<TQ>(q[((size_t)b * H + kvh * rep_all + r0 + r) * D + lane * DPL + t])
                          : 0.0f;
 
   flash_scores<TC, QUANT, DPL>(qv, k + row0, stride, ks_row, bias_at, sc, rep, S, sm_scale,
@@ -271,7 +278,7 @@ flash_decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k, const TC
     float sum = 0.0f;
     for (int w = 0; w < FLASH_WARPS; ++w) sum += part[(w * rep + r) * D + d];
     const float denom = l_run[r] > 0.0f ? l_run[r] : 1.0f;
-    out[((size_t)b * H + kvh * rep + r) * D + d] = from_f<TQ>(sum / denom);
+    out[((size_t)b * H + kvh * rep_all + r0 + r) * D + d] = from_f<TQ>(sum / denom);
   }
 }
 
@@ -279,14 +286,15 @@ template <typename TQ, typename TC, typename TV, bool QUANT, int DPL, bool SMAJO
 int flash_decode_launch(const void* q, const void* k, const void* v, const void* ks,
                         const void* vs, const void* bias, const void* slopes, void* out, int B,
                         int H, int Hkv, int S, int ts, float sm_scale, cudaStream_t st) {
-  const size_t smem = flash_smem_bytes(H / Hkv, S, 32 * DPL, ts);
+  const int rep = H / Hkv, groups = (rep + FLASH_MAX_REP - 1) / FLASH_MAX_REP;
+  const size_t smem = flash_smem_bytes(rep < FLASH_MAX_REP ? rep : FLASH_MAX_REP, S, 32 * DPL, ts);
   auto kern = flash_decode_kernel<TQ, TC, TV, QUANT, DPL, SMAJOR>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<dim3(B, Hkv), FLASH_THREADS, smem, st>>>((const TQ*)q, (const TC*)k, (const TC*)v,
+  kern<<<dim3(B, Hkv, groups), FLASH_THREADS, smem, st>>>((const TQ*)q, (const TC*)k, (const TC*)v,
                                            (const float*)ks, (const float*)vs, (const float*)bias,
                                            (const float*)slopes, (TQ*)out, H, Hkv, S, ts,
                                            sm_scale);

@@ -49,7 +49,13 @@
 //     (8 for int8 at D = 128, 16 for bf16), so a position's dot costs
 //     log2(LPR) = 3-4 shuffles, shared by the 32 / LPR rows a warp holds.
 //     The register arrays are sized by the REP template (1, 2, 4, 8 query
-//     rows a kv head), not by the flash body's largest rep.
+//     rows a kv head), not by the flash body's largest rep.  K11 takes any
+//     rep (Falcon-7B: 71 query heads over one kv head): the rep query rows
+//     of a kv head split into groups of up to SD_MAX_REP (grid z), each
+//     group a cluster of its own that reads the same k / v rows — a
+//     (slot, kv head)'s rows are read ⌈rep / 8⌉ times, from the L2 after
+//     the first (one layer's cache is at most a few MB at the paths'
+//     shapes), and the registers and shared memory stay those of rep 8.
 //   * Converts int8 with no I2F: the bytes with their sign bits flipped are
 //     permuted into 0x4B0000xx (2^23 + b + 128) and one FADD takes 2^23 + 128
 //     off — exact, as the TPU kernel's int8 → bf16 cast is.  The ALiBi
@@ -132,7 +138,7 @@ struct SdArgs {
   const float* cos;         // K12: f32 rotary tables, rows tab_stride apart (0: one row
   const float* sin;         // for every slot), or null with rotary off
   __nv_bfloat16* out;       // (B, H, D)
-  int H, Hkv, S, rep, tab_stride;
+  int H, Hkv, S, rep, tab_stride;  // rep: query rows a kv head (all groups)
   int chunk, lsplit, lts, n_tiles;   // positions a rank, log2 ranks, log2 tile width, tiles
   float sm_scale;
 };
@@ -208,9 +214,10 @@ __device__ __forceinline__ void sd_vals(const void* p, float (&f)[16 / sizeof(TC
 }
 
 // TC: cache element (int8 with QUANT, else bf16); D head_dim; REP query rows
-// a kv head the registers hold (rep <= REP at run time); MODE the kernel (see
-// above).  Grid (H_kv << lsplit, B), cluster (1 << lsplit, 1, 1), SD_THREADS
-// threads.
+// a kv head the registers hold (a group's rows <= REP at run time); MODE the
+// kernel (see above).  Grid (H_kv << lsplit, B, ⌈rep / SD_MAX_REP⌉), cluster
+// (1 << lsplit, 1, 1), SD_THREADS threads; block z serves query rows
+// [z·SD_MAX_REP, min(rep, (z + 1)·SD_MAX_REP)) of its kv head.
 template <typename TC, int D, int REP, bool QUANT, int MODE>
 __global__ void __launch_bounds__(SD_THREADS)
 split_decode_kernel(const SdArgs a, const __grid_constant__ SdMaps maps) {
@@ -251,7 +258,9 @@ split_decode_kernel(const SdArgs a, const __grid_constant__ SdMaps maps) {
   const int sub = lane & (LPR - 1);               // the lane's 16 bytes of a row
   const int C = 1 << a.lsplit;
   const int rank = blockIdx.x & (C - 1), kvh = blockIdx.x >> a.lsplit, b = blockIdx.y;
-  const int rep = a.rep;
+  const int r0 = blockIdx.z * SD_MAX_REP;        // the group's first query row
+  const int rep = min(a.rep - r0, SD_MAX_REP);    // its rows
+  const size_t q_row0 = (size_t)b * a.H + (size_t)kvh * a.rep + r0;   // (B, H) row of row 0
   const size_t head = (size_t)b * a.Hkv + kvh;
   const int c0 = rank * n;                        // the chunk's first position
   const TC* kc = static_cast<const TC*>(a.k) + (head * a.S + c0) * D;   // head-major rows
@@ -285,7 +294,7 @@ split_decode_kernel(const SdArgs a, const __grid_constant__ SdMaps maps) {
   auto load_q = [&]() {
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
-      const __nv_bfloat16* qr = a.q + ((size_t)b * a.H + kvh * rep + r) * D;
+      const __nv_bfloat16* qr = a.q + (q_row0 + r) * D;
 #pragma unroll
       for (int h = 0; h < EPL / 8; ++h) {
         const int d0 = sub * EPL + 8 * h;
@@ -649,7 +658,7 @@ split_decode_kernel(const SdArgs a, const __grid_constant__ SdMaps maps) {
       s.z = __fadd_rn(__fmul_rn(s.z, alpha), __fmul_rn(pw, vn[2]));
       s.w = __fadd_rn(__fmul_rn(s.w, alpha), __fmul_rn(pw, vn[3]));
     }
-    __nv_bfloat16* o = a.out + ((size_t)b * a.H + kvh * rep + r) * D + d;
+    __nv_bfloat16* o = a.out + (q_row0 + r) * D + d;
     *reinterpret_cast<uint2*>(o) = make_uint2(bf16_pair(s.x / den, s.y / den),
                                               bf16_pair(s.z / den, s.w / den));
   }
@@ -683,7 +692,7 @@ int sd_launch(const SdArgs& a, const SdMaps& maps, int B, cudaStream_t st) {
   const int smem = sd_layout<D, sizeof(TC), REP, QUANT, MODE>(a.chunk).total;
   if (smem > SD_SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.Hkv << a.lsplit, B);
+  cfg.gridDim = dim3(a.Hkv << a.lsplit, B, (a.rep + SD_MAX_REP - 1) / SD_MAX_REP);
   cfg.blockDim = dim3(SD_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -699,7 +708,8 @@ int sd_launch(const SdArgs& a, const SdMaps& maps, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// the kernel for a's rep (the flat body is MHA: REP 1 only) and D
+// the kernel for a's rep (the flat body is MHA: REP 1 only; above
+// SD_MAX_REP rows, groups of SD_MAX_REP) and D
 template <typename TC, bool QUANT, int MODE, int D>
 int sd_by_rep(const SdArgs& a, const SdMaps& m, int B, cudaStream_t st) {
   if (a.rep <= 1) return sd_launch<TC, D, 1, QUANT, MODE>(a, m, B, st);
@@ -722,12 +732,14 @@ int sd_by_dim(int D, const SdArgs& a, const SdMaps& m, int B, cudaStream_t st) {
 // The shape checks every mode shares, and the planned split into a's
 // chunk / lsplit / lts / n_tiles: S split over (1 << lsplit) ranks of chunks
 // that are multiples of 16 positions (at most SD_MAX_CHUNK), softmax tiles
-// of ts (a power of two) positions; rep <= SD_MAX_REP
-inline bool sd_plan(SdArgs& a, int B, int H, int Hkv, int S, int ts, int lsplit) {
+// of ts (a power of two) positions; rep <= SD_MAX_REP unless any_rep (K11,
+// whose groups of SD_MAX_REP rows run as grid z)
+inline bool sd_plan(SdArgs& a, int B, int H, int Hkv, int S, int ts, int lsplit,
+                    bool any_rep = false) {
   int lts = 0;
   while ((1 << lts) < ts) ++lts;
   const int chunk = lsplit >= 0 && lsplit <= 3 ? S >> lsplit : 0;
-  if (B < 1 || Hkv < 1 || H % Hkv || H / Hkv > SD_MAX_REP || chunk < 16 ||
+  if (B < 1 || Hkv < 1 || H % Hkv || (!any_rep && H / Hkv > SD_MAX_REP) || chunk < 16 ||
       (1 << lts) != ts || S % ts || S / ts > SD_MAX_TILES || (chunk << lsplit) != S ||
       chunk % 16 || chunk > SD_MAX_CHUNK)
     return false;

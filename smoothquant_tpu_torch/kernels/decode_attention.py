@@ -8,7 +8,8 @@ K11 decode_attention_stacked — port of smoothquant_tpu/kernels/
     body), or int8 with (L, B, H_kv, S) f32 scales (the int8 body); a
     (B, S) additive f32 bias carries validity; q and out (B, H, D) in q's
     dtype.  Numerics (decode_attention.py:44-130): scores = q·k in f32 ×
-    1/√D [× k_scale] [+ slope_h · key_pos] + bias; the TPU kernel's online
+    sm_scale (default 1/√D; OPT passes 1.0, its q scaled at projection)
+    [× k_scale] [+ slope_h · key_pos] + bias; the TPU kernel's online
     softmax over tiles of _pick_tile_s(S) positions, the running max
     guarded at NEG_INF/2; p [× v_scale] rounded to the value dtype (bf16 for
     the int8 cache) before PV; the denominator guarded at 0, so a fully
@@ -18,8 +19,11 @@ The ALiBi body (Bloom; _alibi_row :133-139, added at :85-86): (H,) f32
 slopes, MHA only (the JAX kernel asserts rep == 1, :276), the term
 slope_h · f32(key position) with the ABSOLUTE position of the key, added
 after the k_scale product and before the bias, in both bodies.
-int8_dots (the opt-in int8 BMMs) has no caller in the port and raises; no
-caller sets another softmax scale than 1/√D.  CUDA source:
+int8_dots (the opt-in int8 BMMs) has no caller in the port and raises.  Any
+GQA / MQA rep the JAX kernel takes (H % H_kv == 0; Falcon-7B's 71 query
+heads over one kv head): above 8 query rows a kv head both bodies run the
+rows in groups of 8 (grid z), each group a block (flash) or cluster
+(split) that reads the kv head's rows again.  CUDA source:
 csrc/decode_attention.cu, two bodies picked by a shape rule (attn_body):
 bf16 queries at D = 64 / 128 take the split-S cluster body
 (csrc/split_decode.cuh: the positions split over split_ranks(B·H_kv, S)
@@ -41,7 +45,7 @@ from smoothquant_tpu_torch.kernels import _build
 
 NEG_INF = -1e30
 _WARPS = 16            # warps per block (csrc/decode_attention.cu WARPS)
-_MAX_REP = 8
+MAX_GROUP_REP = 8      # query rows a block / cluster holds (FLASH_MAX_REP, SD_MAX_REP)
 _SMEM_LIMIT = 227 * 1024
 
 # the split body (csrc/split_decode.cuh)
@@ -71,11 +75,18 @@ def supported(s: int, n_heads: int, n_kv: int, head_dim: int) -> bool:
             and head_dim % 64 == 0)
 
 
+def rep_groups(rep: int) -> int:
+    """Groups of up to MAX_GROUP_REP query rows a kv head's rep splits into
+    (a block or cluster each)."""
+    return -(-rep // MAX_GROUP_REP)
+
+
 def attn_body(q_dtype, d: int, s: int, rep: int) -> str:
     """K11's body for a call: "split" (the cluster body) for bf16 queries at
-    D = 64 / 128 over an S it can chunk, else "flash"."""
+    D = 64 / 128 over an S it can chunk, else "flash"; any rep."""
+    del rep
     ts = _pick_tile_s(s)
-    if (q_dtype == torch.bfloat16 and d in SPLIT_DIMS and rep <= _MAX_REP
+    if (q_dtype == torch.bfloat16 and d in SPLIT_DIMS
             and ts is not None and s // ts <= MAX_TILES and _split_fits(s)):
         return "split"
     return "flash"
@@ -103,27 +114,31 @@ def split_ranks(heads: int, s: int) -> int:
 
 
 def plan(kernel: str, q_dtype, heads: int, s: int, d: int, rep: int,
-         body: Optional[str] = None, split: Optional[int] = None) -> tuple[str, int]:
+         body: Optional[str] = None, split: Optional[int] = None,
+         any_rep: bool = False) -> tuple[str, int]:
     """(body, cluster ranks) of a call of `kernel` (K11, K3, K12: each runs
     the split body of split_decode.cuh or the flash body of flash_decode.cuh)
     over `heads` = B·H_kv (slot, kv head) pairs of S positions at head_dim d,
     rep query rows a kv head: the shape rules' (attn_body, split_ranks)
-    unless `body` / `split` force them (measurements).  The flash body takes
-    no ranks (0).  Raises ValueError on a shape the body does not take."""
+    unless `body` / `split` force them (measurements).  K3 and K12 take rep
+    <= 8; K11 (any_rep) any rep, in rep_groups(rep) groups that count as
+    heads for the split planner.  The flash body takes no ranks (0).
+    Raises ValueError on a shape the body does not take."""
     ts = _pick_tile_s(s)
     chosen = attn_body(q_dtype, d, s, rep) if body is None else body
-    if ts is None or rep > _MAX_REP or d not in (64, 128, 256):
+    if ts is None or (rep > MAX_GROUP_REP and not any_rep) or d not in (64, 128, 256):
         raise ValueError(f"{kernel} does not take S = {s}, D = {d}, rep = {rep} (S "
                          "tileable by 128, GQA rep <= 8, D in 64/128/256)")
+    rg = min(rep, MAX_GROUP_REP)
     if chosen == "split":
-        c = split_ranks(heads, s) if split is None else split
+        c = split_ranks(heads * rep_groups(rep), s) if split is None else split
         if (q_dtype != torch.bfloat16 or d not in SPLIT_DIMS or s // ts > MAX_TILES
                 or not _split_fits(s, c)):
             raise ValueError(f"{kernel}'s split body does not take {q_dtype} queries at "
                              f"D = {d} over S = {s} in {c} ranks")
         return chosen, c
     if chosen == "flash":
-        smem = (rep * s + _WARPS * rep * d + rep * (s // ts)) * 4
+        smem = (rg * s + _WARPS * rg * d + rg * (s // ts)) * 4
         if smem > _SMEM_LIMIT or s // ts > MAX_TILES:
             raise ValueError(f"{kernel}'s score rows and partials need {smem} B of shared "
                              "memory")
@@ -142,18 +157,21 @@ def _check_options(h: int, n_kv: int, alibi_slopes, int8_dots):
             raise ValueError(f"ALiBi slopes {tuple(alibi_slopes.shape)} != ({h},)")
 
 
-def online_softmax_tiles(qf, kl, vl, bias, ks=None, vs=None, slopes=None):
+def online_softmax_tiles(qf, kl, vl, bias, ks=None, vs=None, slopes=None,
+                         sm_scale: Optional[float] = None):
     """The TPU kernel's tile-by-tile online softmax of single queries over
     one layer's head-major cache: qf (B, H_kv, rep, D) f32, kl / vl
     (B, H_kv, S, D), bias (B, S), ks / vs (B, H_kv, S) scales of an int8
-    cache, slopes (H_kv,) the ALiBi slopes (rep = 1).  Returns the running
-    max m, sum l (B, H_kv, rep, 1) and numerator acc (B, H_kv, rep, D)
-    after the last tile (K11 and K12)."""
+    cache, slopes (H_kv,) the ALiBi slopes (rep = 1), sm_scale the score
+    scale (default 1/√D).  Returns the running max m, sum l (B, H_kv, rep,
+    1) and numerator acc (B, H_kv, rep, D) after the last tile (K11 and
+    K12)."""
     s, d = kl.shape[2], kl.shape[3]
     ts = _pick_tile_s(s)
     if ts is None:
         raise ValueError(f"cache length {s} not tileable")
-    sm_scale = 1.0 / math.sqrt(d)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
     quant = ks is not None
     v_dt = torch.bfloat16 if quant else vl.dtype
     key_pos = torch.arange(s, device=qf.device).float()
@@ -182,7 +200,7 @@ def online_softmax_tiles(qf, kl, vl, bias, ks=None, vs=None, slopes=None):
 
 
 def decode_attention_stacked_plain(layer_idx: int, q, k, v, bias, k_scale=None,
-                                   v_scale=None, alibi_slopes=None):
+                                   v_scale=None, alibi_slopes=None, sm_scale=None):
     """Plain PyTorch K11 (same arguments as the wrapper): the TPU kernel's
     tile-by-tile online softmax."""
     b, h, d = q.shape
@@ -190,7 +208,7 @@ def decode_attention_stacked_plain(layer_idx: int, q, k, v, bias, k_scale=None,
     qf = q.float().reshape(b, n_kv, h // n_kv, d)
     scales = ((None, None) if k_scale is None else (k_scale[layer_idx], v_scale[layer_idx]))
     _, l_sum, acc = online_softmax_tiles(qf, k[layer_idx], v[layer_idx], bias, *scales,
-                                         slopes=alibi_slopes)
+                                         slopes=alibi_slopes, sm_scale=sm_scale)
     denom = torch.where(l_sum > 0.0, l_sum, torch.ones_like(l_sum))
     return (acc / denom).reshape(b, h, d).to(q.dtype)
 
@@ -205,25 +223,29 @@ def decode_attention_stacked(
     v_scale: Optional[torch.Tensor] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
     *,
+    sm_scale: Optional[float] = None,
     int8_dots: bool = False,
     body: Optional[str] = None,
     split: Optional[int] = None,
 ) -> torch.Tensor:
-    """(B, H, D) attention of layer `layer_idx` in q's dtype.  `body`
-    ("split" / "flash") and `split` (the split body's ranks) override the
-    shape rules (attn_body, split_ranks) for measurements; a forced body or
-    split raises on a shape it does not take."""
+    """(B, H, D) attention of layer `layer_idx` in q's dtype; sm_scale the
+    score scale (default 1/√D, as the JAX kernel's).  `body` ("split" /
+    "flash") and `split` (the split body's ranks, over B·H_kv·rep_groups
+    clusters) override the shape rules (attn_body, split_ranks) for
+    measurements; a forced body or split raises on a shape it does not
+    take."""
     _check_options(q.shape[1], k.shape[2], alibi_slopes, int8_dots)
     if q.device.type == "cpu":
         return decode_attention_stacked_plain(layer_idx, q, k, v, bias, k_scale, v_scale,
-                                              alibi_slopes)
+                                              alibi_slopes, sm_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     b, h, d = q.shape
     _, b2, n_kv, s, d2 = k.shape
     if b2 != b or d2 != d or v.shape != k.shape or h % n_kv:
         raise ValueError(f"K11 does not take q {tuple(q.shape)} over cache {tuple(k.shape)}")
-    chosen, c = plan("K11", q.dtype, b * n_kv, s, d, h // n_kv, body, split)
+    chosen, c = plan("K11", q.dtype, b * n_kv, s, d, h // n_kv, body, split, any_rep=True)
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
     ts = _pick_tile_s(s)
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or v.dtype != k.dtype:
@@ -249,11 +271,11 @@ def decode_attention_stacked(
             None if alibi_slopes is None else alibi_slopes.data_ptr(), out.data_ptr())
     if chosen == "split":
         _build.check(_build.lib().sq_decode_attn_split(
-            *ptrs, b, h, n_kv, s, d, ts, c.bit_length() - 1, 1.0 / math.sqrt(d), int(quant),
+            *ptrs, b, h, n_kv, s, d, ts, c.bit_length() - 1, scale, int(quant),
             _build.stream_ptr(q)), "sq_decode_attn_split")
     else:
         _build.check(_build.lib().sq_decode_attn(
-            *ptrs, b, h, n_kv, s, d, ts, 1.0 / math.sqrt(d), _build.dt_code(q), int(quant),
+            *ptrs, b, h, n_kv, s, d, ts, scale, _build.dt_code(q), int(quant),
             _build.stream_ptr(q)), "sq_decode_attn")
     _build.LAUNCHES[LAUNCH_KEYS[chosen, alibi_slopes is not None]] += 1
     return out
@@ -268,6 +290,7 @@ def decode_attention(
     v_scale: Optional[torch.Tensor] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
     *,
+    sm_scale: Optional[float] = None,
     int8_dots: bool = False,
 ) -> torch.Tensor:
     """(B, H, D) attention over one layer's cache: the stacked kernel on a
@@ -279,4 +302,4 @@ def decode_attention(
         0, q, k[None], v[None], bias,
         None if k_scale is None else k_scale[None],
         None if v_scale is None else v_scale[None],
-        alibi_slopes, int8_dots=int8_dots)
+        alibi_slopes, sm_scale=sm_scale, int8_dots=int8_dots)

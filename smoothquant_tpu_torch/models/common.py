@@ -101,7 +101,13 @@ class ForwardContext:
     the einsum over an fp one, "kernel" K11 over either (its split body for
     bf16 queries, its flash body for f32), "einsum" never K11; a stacked
     tree under "einsum" declines the stacked decode (prefetch_tree_capable)
-    and runs the per-layer body over its layers."""
+    and runs the per-layer body over its layers.
+
+    moe_dispatch (Mixtral, common.py:52-59): "dense" runs every expert on
+    every token, weighted by its routing probability; "sparse" gathers
+    each expert's routed tokens into buffers of moe_capacity(n,
+    moe_capacity_factor) rows (overflow dropped).  ep_axis (expert
+    parallelism) is not ported: a context that sets it raises."""
 
     quant: Optional[QuantConfig] = None
     taps: Optional[object] = None
@@ -109,8 +115,15 @@ class ForwardContext:
     attn: str = "auto"
     fuse_attn: str = "auto"
     fuse_mlp: bool = False
+    moe_dispatch: str = "dense"
+    moe_capacity_factor: float = 2.0
+    ep_axis: Optional[str] = None
 
     def __post_init__(self):
+        if self.moe_dispatch not in ("dense", "sparse"):
+            raise ValueError(f"moe_dispatch {self.moe_dispatch!r}: 'dense' or 'sparse'")
+        if self.ep_axis is not None:
+            raise NotImplementedError("expert parallelism (ep_axis) is not ported")
         if self.compute not in COMPUTE_CHOICES:
             raise ValueError(f"compute {self.compute!r}: one of {COMPUTE_CHOICES}")
         if self.attn not in ("auto", "kernel", "einsum"):
@@ -470,13 +483,12 @@ def cached_attention(q: torch.Tensor, cache, *, causal_offset,
     ("auto": the int8 cache; "kernel": the fp cache too; "einsum": never)
     and K11 tiles the shape, with validity, the window and the key mask
     folded into a (B, S) bias; everything else (prefill, the S-major cache)
-    is the einsum over the cache's (dequantized) view.  K11's `sm_scale`
-    option is not ported, so a query with another scale than 1/√D takes the
-    einsum too."""
+    is the einsum over the cache's (dequantized) view.  `scale` (default
+    1/√D; OPT's 1.0) reaches K11 as its sm_scale, as in JAX (:640-650)."""
     if not isinstance(cache, (SMajorQuantKVCache, KVCache, QuantKVCache)):
         raise NotImplementedError(f"cache type {type(cache).__name__}")
     mode = "auto" if ctx is None else ctx.attn
-    if not isinstance(cache, SMajorQuantKVCache) and q.shape[1] == 1 and scale is None:
+    if not isinstance(cache, SMajorQuantKVCache) and q.shape[1] == 1:
         quant = isinstance(cache, QuantKVCache)
         b, _, nh, d = q.shape
         kbuf = cache.k_q if quant else cache.k
@@ -493,7 +505,7 @@ def cached_attention(q: torch.Tensor, cache, *, causal_offset,
             bias = torch.where(ok, 0.0, k11.NEG_INF).to(torch.float32)
             scales = (cache.k_scale, cache.v_scale) if quant else ()
             out = k11.decode_attention(q[:, 0], kbuf, cache.v_q if quant else cache.v,
-                                       bias, *scales)
+                                       bias, *scales, sm_scale=scale)
             return out[:, None]
     return attention(q, *cache.read(), causal_offset=causal_offset,
                      valid_len=cache.pos, attn_mask=attn_mask, scale=scale,
@@ -523,9 +535,11 @@ def prefetch_tree_capable(stacked, caches, s: int,
     one token, a stacked cache with (L,) or (L, B) positions, no taps, attn
     not "einsum", and every projection a transposed-fp "weight_t" dict whose
     K is a multiple of 8 and O of 128, or a tile-aligned nibble PackedLinear
-    under compute "auto" or "int".  The fused qkv is Llama's
-    self_attn.qkv_proj or Bloom's self_attention.query_key_value.  A tree it
-    declines runs the per-layer body over its layers (layer_tree)."""
+    under compute "auto" or "int".  The attention's first projection is
+    Llama's / OPT's fused self_attn.qkv_proj, Bloom's / Falcon's
+    self_attention.query_key_value or an unfused q_proj (Mixtral, an unfused
+    OPT tree).  A tree it declines runs the per-layer body over its layers
+    (layer_tree)."""
     if s != 1 or caches is None or not isinstance(getattr(caches, "pos", None),
                                                    torch.Tensor):
         return False
@@ -534,7 +548,7 @@ def prefetch_tree_capable(stacked, caches, s: int,
     if caches.pos.ndim not in (1, 2) or not isinstance(stacked, dict):
         return False
     sa = stacked.get("self_attn", stacked.get("self_attention", {}))
-    qp = sa.get("qkv_proj", sa.get("query_key_value"))
+    qp = sa.get("qkv_proj", sa.get("query_key_value", sa.get("q_proj")))
 
     def leaves(node):
         if isinstance(node, PackedLinear) or (isinstance(node, dict)
@@ -591,23 +605,25 @@ def stacked_layers(layer_fn, stacked: dict, x: torch.Tensor, n_layers: int, cach
     return x, caches
 
 
+def stack_trees(nodes: list):
+    """Trees of one structure stacked along a new leading axis (one copy;
+    PackedLinear leaves by stack_packed, None stays None)."""
+    if isinstance(nodes[0], PackedLinear):
+        return stack_packed(list(nodes))
+    if isinstance(nodes[0], dict):
+        return {k: stack_trees([n[k] for n in nodes]) for k in nodes[0]}
+    if nodes[0] is None:
+        return None
+    return torch.stack(nodes)
+
+
 def stack_layer_trees(params: dict, n_layers: int) -> dict:
     """params with its per-layer trees "0" .. n_layers − 1 stacked along a
-    leading L axis under layers["stacked"] (one copy; PackedLinear leaves by
-    stack_packed) — the stack_layers of every family."""
-    layer_list = [params["layers"][str(i)] for i in range(n_layers)]
-
-    def st(*nodes):
-        if isinstance(nodes[0], PackedLinear):
-            return stack_packed(list(nodes))
-        if isinstance(nodes[0], dict):
-            return {k: st(*(n[k] for n in nodes)) for k in nodes[0]}
-        if nodes[0] is None:
-            return None
-        return torch.stack(nodes)
-
+    leading L axis under layers["stacked"] (stack_trees) — the stack_layers
+    of every family."""
     out = {k: v for k, v in params.items() if k != "layers"}
-    out["layers"] = {"stacked": st(*layer_list)}
+    out["layers"] = {"stacked": stack_trees([params["layers"][str(i)]
+                                             for i in range(n_layers)])}
     return out
 
 
@@ -674,12 +690,15 @@ def stacked_smajor_attention(cache: SMajorQuantKVCache, i: int,
 
 
 def stacked_flash_attention(cache, i: int, q_bhd: torch.Tensor,
-                            bias: torch.Tensor, alibi_slopes: Optional[torch.Tensor] = None):
+                            bias: torch.Tensor, alibi_slopes: Optional[torch.Tensor] = None,
+                            sm_scale: Optional[float] = None):
     """K11: layer-i decode attention over a stacked head-major cache, fp or
     int8 (common.py:857-875).  q_bhd (B, H, D) post-rotary → (B, H, D);
-    alibi_slopes (H,): Bloom's per-head ALiBi term, added in the kernel."""
+    alibi_slopes (H,): Bloom's per-head ALiBi term, added in the kernel;
+    sm_scale: 1.0 for OPT, whose q is scaled at projection (default 1/√D)."""
     if isinstance(cache, QuantKVCache):
         return k11.decode_attention_stacked(i, q_bhd, cache.k_q, cache.v_q, bias,
-                                            cache.k_scale, cache.v_scale, alibi_slopes)
+                                            cache.k_scale, cache.v_scale, alibi_slopes,
+                                            sm_scale=sm_scale)
     return k11.decode_attention_stacked(i, q_bhd, cache.k, cache.v, bias,
-                                        alibi_slopes=alibi_slopes)
+                                        alibi_slopes=alibi_slopes, sm_scale=sm_scale)

@@ -1,8 +1,8 @@
-"""OPT decoder (port of smoothquant_tpu/models/opt.py, the parts the real-
-INT8 export path, the simulated path and serving use: the per-layer
-forward of fp, simulated (quantize_params) and packed trees with and
-without caches (an int or (B,) per-slot positions), its calibration taps,
-the smoothing pairs and perm_fold_pairs).
+"""OPT decoder (port of smoothquant_tpu/models/opt.py: the per-layer
+forward of fp, simulated (quantize_params) and packed trees, fused or not,
+with and without caches (an int or (B,) per-slot positions), its
+calibration taps, the smoothing pairs and perm_fold_pairs, fuse_projections,
+stack_layers and the stacked decode, the HF checkpoint import).
 
 HF OPT's facts, as the JAX module mirrors them: learned positions with an
 offset of 2, pre-LayerNorm blocks (do_layer_norm_before), q scaled by
@@ -12,10 +12,20 @@ project_in / project_out where word_embed_proj_dim differs from hidden.
 
 forward is forward_hidden (embedding → layers → final LayerNorm →
 project_out) then lm_head_logits (the tied unembedding), so the batcher
-unembeds only each row's last true position.
+unembeds only each row's last true position.  A single query over an int8
+per-layer cache runs K11 with sm_scale 1.0 (cached_attention, as ctx.attn
+picks it).
 
-Not ported: stack_layers and the prefetch-scan decode, fuse_projections
-(both raise NotImplementedError) and the HF checkpoint import.
+A stacked tree (stack_layers) of nibble packs decodes one token through a
+Python loop over the layers that hands the layer index to the kernels, the
+counterpart of the JAX lax.scan (_prefetch_scan_decode, opt.py:234-298):
+LayerNorm → qkv (fused or q / k / v; the input gathered into the pack's
+channel order, K1 up to 4 rows, K7 + K5 above; biases added) → q scaled by
+1/√D → K10 (rotary off) → K11 with sm_scale 1.0 → out_proj → LayerNorm →
+fc1 → ReLU → fc2.  A post-LN tree (do_layer_norm_before False), an fp
+tree, a multi-token call, taps or attn "einsum" run _decoder_layer over
+layer views of the stack and its cache (stacked_layers), as the JAX scan
+over _decoder_layer does.
 """
 
 from __future__ import annotations
@@ -26,13 +36,23 @@ from typing import Optional
 import torch
 
 from smoothquant_tpu_torch._device import resolve_device
+from smoothquant_tpu_torch.kernels import decode_attention as k11
 from smoothquant_tpu_torch.models.common import (
     ForwardContext,
+    KVCache,
+    QuantKVCache,
     as_torch_dtype,
     attention,
     cached_attention,
     call_linear,
+    decode_bias,
     layer_norm,
+    maybe_quantize_output,
+    prefetch_tree_capable,
+    stack_layer_trees,
+    stacked_cache_append_fused,
+    stacked_flash_attention,
+    stacked_layers,
     to_head_major,
     unembed,
 )
@@ -126,7 +146,8 @@ def init_params(gen: torch.Generator, cfg: OPTConfig, device="cuda") -> dict:
 
 def _decoder_layer(lp: dict, x: torch.Tensor, cfg: OPTConfig, layer_name: str,
                    ctx: Optional[ForwardContext], cache, attn_mask):
-    """One layer (opt.py:114-160), separate q/k/v projections."""
+    """One layer (opt.py:112-160), fused (fuse_projections) or separate
+    q / k / v projections."""
     b, s, h = x.shape
     nh, d = cfg.num_attention_heads, cfg.head_dim
     eps = cfg.layer_norm_eps
@@ -135,8 +156,7 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: OPTConfig, layer_name: str,
     residual = x
     hidden = layer_norm(lp["self_attn_layer_norm"], x, eps) if pre else x
     sa = lp["self_attn"]
-    q, k, v = (call_linear(sa[p], hidden, f"{layer_name}.self_attn.{p}", ctx, True)
-               for p in ("q_proj", "k_proj", "v_proj"))
+    q, k, v = _qkv(sa, hidden, f"{layer_name}.self_attn", ctx)
     q = (q * (d ** -0.5)).reshape(b, s, nh, d)
     k = k.reshape(b, s, nh, d)
     v = v.reshape(b, s, nh, d)
@@ -162,11 +182,25 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: OPTConfig, layer_name: str,
     return x, cache
 
 
-def positions_from(caches, b: int, s: int, device) -> torch.Tensor:
-    """(B, S) positions: each cache's fill position + arange(S), or arange."""
+def _qkv(sa: dict, hidden: torch.Tensor, name: str, ctx, layer_idx: Optional[int] = None):
+    """q, k, v (B, S, H) of a layer: the fused qkv_proj split in three, each
+    through maybe_quantize_output (opt.py:123-127), or the three
+    projections, each marked quantize_output."""
+    if "qkv_proj" in sa:
+        h = hidden.shape[-1]
+        qkv = call_linear(sa["qkv_proj"], hidden, f"{name}.qkv_proj", ctx, layer_idx=layer_idx)
+        return tuple(maybe_quantize_output(t, ctx) for t in torch.split(qkv, h, dim=-1))
+    return tuple(call_linear(sa[p], hidden, f"{name}.{p}", ctx, True, layer_idx=layer_idx)
+                 for p in ("q_proj", "k_proj", "v_proj"))
+
+
+def positions_from(caches, b: int, s: int, device, stacked: bool = False) -> torch.Tensor:
+    """(B, S) positions: each cache's fill position + arange(S), or arange
+    (a stacked cache: layer 0's, (L,) or (L, B))."""
     start = torch.zeros((), dtype=torch.int64, device=device)
     if caches is not None:
-        start = torch.as_tensor(caches[0].pos).to(device=device, dtype=torch.int64)
+        pos = caches.pos[0] if stacked else caches[0].pos
+        start = torch.as_tensor(pos).to(device=device, dtype=torch.int64)
         if start.ndim == 1:   # per-slot positions
             start = start[:, None]
     return (start + torch.arange(s, device=device)[None, :]).expand(b, s)
@@ -177,26 +211,34 @@ def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: OPTConfig,
                    positions: Optional[torch.Tensor] = None,
                    attn_mask: Optional[torch.Tensor] = None):
     """Hidden states before the unembedding (B, S, embed_dim) and the
-    updated per-layer caches or None (opt.py:322-383, the per-layer
-    branch, up to its unembed)."""
-    if "stacked" in params["layers"]:
-        raise NotImplementedError("stacked OPT trees (the prefetch-scan decode) "
-                                  "are not ported")
+    updated caches (opt.py:322-383 up to its unembed): per-layer caches
+    over a per-layer tree; over a stacked tree one stacked cache or None
+    (the stacked decode where _prefetch_capable takes it, else the
+    per-layer body over the stack)."""
     b, s = input_ids.shape
+    stacked = "stacked" in params["layers"]
     x = params["embed_tokens"]["weight"][input_ids]
     if "project_in" in params:
         x = x @ params["project_in"]["weight"].t().to(x.dtype)
     if positions is None:
-        positions = positions_from(caches, b, s, x.device)
+        positions = positions_from(caches, b, s, x.device, stacked)
     x = x + params["embed_positions"]["weight"][positions + POS_OFFSET].to(x.dtype)
 
-    new_caches = None if caches is None else []
-    for i in range(cfg.num_hidden_layers):
-        x, c = _decoder_layer(params["layers"][str(i)], x, cfg,
-                              f"model.decoder.layers.{i}", ctx,
-                              None if caches is None else caches[i], attn_mask)
-        if new_caches is not None:
-            new_caches.append(c)
+    def layer(lp, x, i, cache):
+        name = "model.decoder.layers.scan" if stacked else f"model.decoder.layers.{i}"
+        return _decoder_layer(lp, x, cfg, name, ctx, cache, attn_mask)
+
+    if stacked and _prefetch_capable(params, cfg, ctx, caches, s):
+        x, new_caches = _prefetch_scan_decode(params, x, cfg, ctx, caches, attn_mask)
+    elif stacked:
+        x, new_caches = stacked_layers(layer, params["layers"]["stacked"], x,
+                                       cfg.num_hidden_layers, caches, ctx)
+    else:
+        new_caches = None if caches is None else []
+        for i in range(cfg.num_hidden_layers):
+            x, c = layer(params["layers"][str(i)], x, i, None if caches is None else caches[i])
+            if new_caches is not None:
+                new_caches.append(c)
     if "final_layer_norm" in params:
         x = layer_norm(params["final_layer_norm"], x, cfg.layer_norm_eps)
     if "project_out" in params:
@@ -222,11 +264,92 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: OPTConfig,
 
 
 def stack_layers(params: dict, cfg: OPTConfig) -> dict:
-    raise NotImplementedError("stacked OPT trees are not ported")
+    """Stack the per-layer trees along a leading L axis (one copy)."""
+    return stack_layer_trees(params, cfg.num_hidden_layers)
+
+
+def stacked_caches(cfg: OPTConfig, batch: int, max_len: int, dtype=None, *,
+                   pos: int = 0, quant_kv: bool = False, device="cuda"):
+    """A stacked head-major decode cache, leading L axis on every field
+    (opt.py:175-194): the int8 QuantKVCache, or an fp KVCache in `dtype`
+    (default cfg's), with (L,) aligned positions."""
+    cls = QuantKVCache if quant_kv else KVCache
+    return cls.create(batch, max_len, cfg.num_attention_heads, cfg.head_dim,
+                      dtype or cfg.torch_dtype, resolve_device(device),
+                      n_layers=cfg.num_hidden_layers, pos=pos)
 
 
 def fuse_projections(params: dict, cfg: OPTConfig) -> dict:
-    raise NotImplementedError("fused OPT projections are not ported")
+    """q / k / v concatenated into self_attn.qkv_proj of every layer (an fp
+    tree; opt.py:197-223): weights row-concatenated, biases too (a missing
+    one as zeros), so the fused pack shares q_proj's calibration key."""
+    layers = {}
+    for i in range(cfg.num_hidden_layers):
+        lp = dict(params["layers"][str(i)])
+        sa = dict(lp["self_attn"])
+        if "q_proj" in sa:
+            parts = [sa.pop(p) for p in ("q_proj", "k_proj", "v_proj")]
+            w = torch.cat([p["weight"] for p in parts], dim=0)
+            bias = None
+            if any(p.get("bias") is not None for p in parts):
+                bias = torch.cat([p["bias"] if p.get("bias") is not None
+                                  else torch.zeros(p["weight"].shape[0], dtype=w.dtype,
+                                                   device=w.device) for p in parts])
+            sa["qkv_proj"] = {"weight": w, "bias": bias}
+        lp["self_attn"] = sa
+        layers[str(i)] = lp
+    return {**params, "layers": layers}
+
+
+def _norm_at(node: dict, i: int) -> dict:
+    return {"weight": node["weight"][i], "bias": node["bias"][i]}
+
+
+def _prefetch_scan_decode(params: dict, x: torch.Tensor, cfg: OPTConfig,
+                          ctx: Optional[ForwardContext], caches, attn_mask):
+    """Single-token decode over a stacked tree (opt.py:234-298), per layer:
+    LayerNorm → qkv → q·1/√D → K10 (rotary off) → K11 (sm_scale 1.0) →
+    out_proj → LayerNorm → fc1 → ReLU → fc2, each linear with its bias.
+    Every layer's bias comes from its own position in one pass; the
+    positions advance after the layer loop."""
+    st = params["layers"]["stacked"]
+    sa = st["self_attn"]
+    b, s, h = x.shape
+    nh, d = cfg.num_attention_heads, cfg.head_dim
+    eps = cfg.layer_norm_eps
+    s_max = (caches.k_q if isinstance(caches, QuantKVCache) else caches.k).shape[3]
+    pos = caches.pos if caches.pos.ndim == 2 else caches.pos[:, None].expand(-1, b)
+    bias = decode_bias(pos, b, s_max, attn_mask)               # (L, B, S_max)
+    for i in range(cfg.num_hidden_layers):
+        residual = x
+        hidden = layer_norm(_norm_at(st["self_attn_layer_norm"], i), x, eps)
+        q, k, v = _qkv(sa, hidden, "model.decoder.layers.scan.self_attn", ctx, i)
+        q = (q * (d ** -0.5)).reshape(b, nh, d)
+        stacked_cache_append_fused(caches, i, k.reshape(b, s, nh, d), v.reshape(b, s, nh, d),
+                                   None, None, rotate_k=False)
+        a = stacked_flash_attention(caches, i, q, bias[i], sm_scale=1.0)
+        x = residual + call_linear(sa["out_proj"], a.reshape(b, s, h), layer_idx=i)
+        residual = x
+        hidden = layer_norm(_norm_at(st["final_layer_norm"], i), x, eps)
+        hidden = torch.relu(call_linear(st["fc1"], hidden, layer_idx=i))
+        x = residual + call_linear(st["fc2"], hidden, layer_idx=i)
+    caches.pos += s
+    return x, caches
+
+
+def _prefetch_capable(params: dict, cfg: OPTConfig, ctx: Optional[ForwardContext],
+                      caches, s: int) -> bool:
+    """The stacked decode's gate (opt.py:301-316): a pre-LN tree,
+    prefetch_tree_capable (one token, a head-major stacked cache with (L,) or
+    (L, B) positions, no taps, attn not "einsum", every projection a
+    tile-aligned nibble pack), and shapes K11 tiles."""
+    if not cfg.do_layer_norm_before or not isinstance(caches, (KVCache, QuantKVCache)):
+        return False
+    if not prefetch_tree_capable(params["layers"].get("stacked"), caches, s, ctx):
+        return False
+    kbuf = caches.k_q if isinstance(caches, QuantKVCache) else caches.k
+    return k11.supported(kbuf.shape[3], cfg.num_attention_heads, cfg.num_attention_heads,
+                         cfg.head_dim)
 
 
 def perm_fold_pairs(cfg: OPTConfig, fused: bool):
@@ -261,6 +384,19 @@ def quantizable_linears(cfg: OPTConfig):
         li, pre = ("layers", str(i)), f"model.decoder.layers.{i}"
         for p in ("q_proj", "k_proj", "v_proj"):
             out.append((li + ("self_attn", p), f"{pre}.self_attn.{p}", True))
+        out.append((li + ("self_attn", "out_proj"), f"{pre}.self_attn.out_proj", False))
+        out.append((li + ("fc1",), f"{pre}.fc1", False))
+        out.append((li + ("fc2",), f"{pre}.fc2", False))
+    return out
+
+
+def quantizable_linears_fused(cfg: OPTConfig):
+    """quantizable_linears of a fuse_projections tree (opt.py:503-516): the
+    fused qkv shares q_proj's calibration key (the same input)."""
+    out = []
+    for i in range(cfg.num_hidden_layers):
+        li, pre = ("layers", str(i)), f"model.decoder.layers.{i}"
+        out.append((li + ("self_attn", "qkv_proj"), f"{pre}.self_attn.q_proj", True))
         out.append((li + ("self_attn", "out_proj"), f"{pre}.self_attn.out_proj", False))
         out.append((li + ("fc1",), f"{pre}.fc1", False))
         out.append((li + ("fc2",), f"{pre}.fc2", False))

@@ -1,6 +1,6 @@
 """Architecture dispatch (port of smoothquant_tpu/models/registry.py):
 register_arch and get_arch (:19-38; llama, mistral (llama-like), opt,
-bloom), quantize_model (the simulated path's weight quantization, :41-48),
+mixtral, falcon, bloom), quantize_model (the simulated path's weight quantization, :41-48),
 smooth_lm (:51-55) and pack_model (:57-197, host_pack included) — the
 default per-layer tree (fuse=False: every projection its own pack, the
 README quick start's path and Bloom's) or, for Llama, the fused qkv /
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from smoothquant_tpu_torch.kernels.pack import fold_input_perm, pack_linear
-from smoothquant_tpu_torch.models import bloom, llama, opt
+from smoothquant_tpu_torch.models import bloom, falcon, llama, mixtral, opt
 from smoothquant_tpu_torch.quant.config import QuantConfig
 from smoothquant_tpu_torch.quant.smooth import _get_path, _set_path, smooth_model
 
@@ -35,6 +35,8 @@ def register_arch(name: str, module) -> None:
 register_arch("llama", llama)
 register_arch("mistral", llama)   # llama-like (registry.py:24)
 register_arch("opt", opt)
+register_arch("mixtral", mixtral)
+register_arch("falcon", falcon)
 register_arch("bloom", bloom)
 
 

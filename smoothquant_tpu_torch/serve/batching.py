@@ -2,7 +2,9 @@
 smoothquant_tpu/serve/batching.py:31-411).
 
 It takes every tree, pool and option the JAX batcher takes, for every
-registered family (Llama and Mistral, OPT, Bloom):
+registered family (Llama and Mistral, OPT, Bloom, Falcon, Mixtral; a
+cache holds generate.cache_kv_heads(cfg) heads, one for a multi-query
+Falcon, where the JAX batcher builds a head a query head):
 
   * a fixed pool of `max_batch` slots with per-slot cache positions
     (batching.py:57-108).  A stacked decode tree (stack_layers) serves over
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from smoothquant_tpu_torch._device import resolve_device
+from smoothquant_tpu_torch.serve.generate import cache_kv_heads
 from smoothquant_tpu_torch.models.common import (
     ForwardContext,
     KVCache,
@@ -122,7 +125,7 @@ class ContinuousBatcher:
 
     def _new_cache(self, batch: int, length: int, n_layers=None, per_slot=False):
         cfg = self.cfg
-        n_kv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+        n_kv = cache_kv_heads(cfg)
         if self._cache_cls is SMajorQuantKVCache:
             return SMajorQuantKVCache.create(batch, length, n_kv, cfg.head_dim, self.device,
                                              n_layers=n_layers, per_slot=per_slot)

@@ -2,7 +2,7 @@
 head-major KV caches (port of smoothquant_tpu/serve/generate.py:22-130).
 
 The Generator serves every per-layer tree of a registered family (Llama,
-Mistral, OPT, Bloom): fp, simulated (quantize_model's, under `quant`),
+Mistral, OPT, Bloom, Falcon, Mixtral): fp, simulated (quantize_model's, under `quant`),
 packed (K6, or K8 / K9 for int8-container packs as `compute` picks) and the
 real-INT8 OPT (models.opt_int8, with kv_dtype=torch.int8).  One
 ForwardContext(quant, compute, attn) reaches every forward
@@ -14,7 +14,12 @@ QuantKVCache per layer (K11 as `attn` picks it: the int8 cache under
 JAX Generator cannot serve them either (its per-layer caches do not fit
 the scan over a stacked tree): the ContinuousBatcher serves those.
 Sampling happens on the device; only the (B,) token ids reach the host
-each step.
+each step.  A cache holds cache_kv_heads(cfg) heads: Falcon's
+effective_kv_heads (one for multi-query), else num_key_value_heads or one
+a query head.  The JAX Generator (generate.py:68) and batcher
+(batching.py:61) read only num_key_value_heads, so they build a
+multi-query Falcon's caches with a head a query head, write head 0 alone,
+and attend to zeros: their Falcon tokens are not the model's.
 """
 
 from __future__ import annotations
@@ -27,6 +32,14 @@ import torch
 
 from smoothquant_tpu_torch._device import resolve_device
 from smoothquant_tpu_torch.models.common import ForwardContext, KVCache, QuantKVCache
+
+
+def cache_kv_heads(cfg) -> int:
+    """The kv heads of a family's cache: effective_kv_heads where the
+    config has it (Falcon), else num_key_value_heads, else the heads."""
+    n = getattr(cfg, "effective_kv_heads", None)
+    return n if n is not None else getattr(cfg, "num_key_value_heads",
+                                            cfg.num_attention_heads)
 
 
 @dataclasses.dataclass
@@ -51,8 +64,8 @@ def sample_token(logits: torch.Tensor, temperature: float,
 
 class Generator:
     """Batch generation on top of a model module (needs forward, and a cfg
-    with num_hidden_layers, num_attention_heads (num_key_value_heads where
-    it differs), head_dim, dtype)."""
+    with num_hidden_layers, num_attention_heads (num_key_value_heads or
+    effective_kv_heads where the cache's differ), head_dim, dtype)."""
 
     def __init__(self, model_mod, params, cfg, quant=None, *, kv_dtype=None,
                  max_len: int = 2048, quant_kv: bool = False, compute: str = "auto",
@@ -75,7 +88,7 @@ class Generator:
         self.max_len = max_len
         self._cache_cls = QuantKVCache if quant_kv else KVCache
         self.kv_dtype = kv_dtype or cfg.torch_dtype
-        self._n_kv = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+        self._n_kv = cache_kv_heads(cfg)
 
     def _new_caches(self, batch: int) -> list:
         cfg = self.cfg

@@ -8,12 +8,13 @@ shards with safetensors.numpy; the port needs neither:
   * config.json is read with json and completed per model_type from
     _HF_DEFAULTS, the defaults AutoConfig supplies for the keys each
     family's config_from_hf reads (transformers 4.57's LlamaConfig,
-    MistralConfig, OPTConfig and BloomConfig: Mistral's sliding_window is
-    4096 when the key is absent and None when it is null; Llama's and
-    Mistral's num_key_value_heads falls back to the head count when null;
-    OPT's word_embed_proj_dim to hidden_size; Bloom's aliases n_layer /
-    n_head / n_embed), returned as a namespace that config_from_hf reads
-    as it reads an HF config;
+    MistralConfig, OPTConfig, BloomConfig, FalconConfig and MixtralConfig:
+    Mistral's sliding_window is 4096 when the key is absent and None when
+    it is null; Llama's, Mistral's and Mixtral's num_key_value_heads falls
+    back to the head count when null, Falcon's num_kv_heads when absent or
+    null; OPT's word_embed_proj_dim to hidden_size; Bloom's aliases n_layer
+    / n_head / n_embed; Falcon's n_embed), returned as a namespace that
+    config_from_hf reads as it reads an HF config;
   * a safetensors shard is its 8-byte little-endian header length, the
     JSON header (its "__metadata__" skipped) and the raw bytes; each tensor
     is a view over a copy-on-write memory map of the shard, so a state
@@ -64,6 +65,16 @@ _HF_DEFAULTS = {
                 word_embed_proj_dim=None, num_attention_heads=12),
     "bloom": dict(vocab_size=250880, hidden_size=64, n_layer=2, n_head=8,
                   layer_norm_epsilon=1e-5),
+    "falcon": dict(vocab_size=65024, hidden_size=4544, num_hidden_layers=32,
+                   num_attention_heads=71, num_kv_heads=None, multi_query=True,
+                   parallel_attn=True, new_decoder_architecture=False, bias=False,
+                   alibi=False, layer_norm_epsilon=1e-5, rope_theta=10000.0,
+                   tie_word_embeddings=True),
+    "mixtral": dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+                    num_local_experts=8, num_experts_per_tok=2,
+                    max_position_embeddings=4096 * 32, rms_norm_eps=1e-5,
+                    rope_theta=1e6, tie_word_embeddings=False, sliding_window=None),
 }
 # BloomConfig.attribute_map (a key set through its alias wins) and the
 # n_embed keyword it pops into hidden_size
@@ -102,10 +113,12 @@ def read_hf_config(model_path: str, arch: Optional[str] = None) -> types.SimpleN
     vals = dict(_HF_DEFAULTS[kind])
     vals.update({k: v for k, v in raw.items() if k not in aliases and k != "n_embed"})
     vals.update({aliases[k]: v for k, v in raw.items() if k in aliases})
-    if kind == "bloom" and raw.get("n_embed") is not None:
+    if kind in ("bloom", "falcon") and raw.get("n_embed") is not None:
         vals["hidden_size"] = raw["n_embed"]
-    if kind in ("llama", "mistral") and vals["num_key_value_heads"] is None:
+    if kind in ("llama", "mistral", "mixtral") and vals["num_key_value_heads"] is None:
         vals["num_key_value_heads"] = vals["num_attention_heads"]
+    if kind == "falcon" and vals["num_kv_heads"] is None:
+        vals["num_kv_heads"] = vals["num_attention_heads"]
     if kind == "opt" and vals["word_embed_proj_dim"] is None:
         vals["word_embed_proj_dim"] = vals["hidden_size"]
     for alias, name in aliases.items():

@@ -34,9 +34,11 @@ def test_chip_smoke_fails_without_cuda(alone, tmp_path):
 def test_opt_path_rehearsal_on_cpu(monkeypatch):
     """chip_smoke's OPT phases end to end on the CPU at a small size: the
     export, the K15a / K15b / K16 phases (the wrappers take their plain
-    versions here), the reference check, the accuracy check, the prefill
-    and the Generator; timing and the launch checks are stubbed (nothing
-    launches on the CPU), the launch counts each phase expects recorded."""
+    versions here), the reference check, the accuracy check, the prefill,
+    the W4A4 serving pack's stacked decode (from position 64 in caches of
+    128: the tiny OPT has 128 positions) and per-layer Generator, and the
+    Generator; timing and the launch checks are stubbed (nothing launches
+    on the CPU), the launch counts each phase expects recorded."""
     import dataclasses
 
     sys.path.insert(0, ROOT)
@@ -46,7 +48,9 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
     for name, value in dict(CALIB_SAMPLES=2, CALIB_LEN=32, OPT_BATCH=2, OPT_PROMPT=40,
                             OPT_NEW=4, OPT_MAX_LEN=128, OPT_SERVE_LEN=128, SERVE_REQUESTS=3,
                             SERVE_NEW=4, SERVE_PROMPT=(10, 40), OPT_IO_WINDOW=64,
-                            K15A_EDGE_SHAPES=((3, 208, 77), (130, 200, 77))).items():
+                            K15A_EDGE_SHAPES=((3, 208, 77), (130, 200, 77)),
+                            DECODE_POS=64, MAX_LEN=128, OPT_GEN_PROMPT=40,
+                            OPT_GEN_NEW=4).items():
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -65,6 +69,20 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
                               num_attention_heads=2)
     rows, launches = cs.run_opt(torch.device("cpu"), cfg, "card")
     assert sum(launches.values()) == 0
+    # opt_stacked: K11 at sm_scale 1.0, out of the sums
+    k11 = [r for r in rows if r["kernel"] == "decode_attention_stacked"]
+    assert [r["site"] for r in k11] == ["opt_scale1_bf16@B4", "opt_scale1_int8@B4"]
+    assert all(r["sm_scale"] == 1.0 and r["max_err"] == 0 and not r["in_sum"] for r in k11)
+    rows = [r for r in rows if r["kernel"] != "decode_attention_stacked"]
+    n_l = cfg.num_hidden_layers
+    assert expected["opt_stacked decode B=4"] == {
+        "int4_group_matmul_stacked_rawx": 4 * n_l, "write_quant_cache_stacked": n_l,
+        "decode_attention_stacked": n_l}
+    assert expected["opt_per_layer_int8 generator"] == {"int4_group_matmul": 4 * n_l * 4,
+                                                        "decode_attention_stacked": n_l * 3}
+    # the stacked run took the stacked decode: K1 a linear, K11 a layer
+    assert expected["opt stacked against per-layer"] == {
+        "int4_group_matmul_stacked_rawx": 4 * n_l, "decode_attention_stacked": n_l}
     by_kernel = {}
     for r in rows:
         by_kernel.setdefault(r["kernel"], []).append(r["site"])
@@ -91,6 +109,13 @@ def test_opt_path_rehearsal_on_cpu(monkeypatch):
     assert [(r["body"], r["old_body"]) for r in rows if r["kernel"] == "int8_linear"] == (
         [("wg", "tiles")] * 6 + [("stream", "gemv")] * 6)
     phases = {p["phase"]: p for p in printed if "phase" in p}
+    cmp = phases["opt_stacked_vs_per_layer"]
+    assert len(cmp["layer_parts"]) == n_l and cmp["whole_model"]["rows"] == 4
+    assert cmp["tol"] is None                       # bf16 at full width: reported
+    small = phases["opt_f32_small_stacked_vs_per_layer"]
+    assert small["tol"] == cs.STACKED_VS_PER_LAYER_TOL and len(small["layer_parts"]) == 2
+    assert small["whole_model"]["rel_norm_err"] <= small["tol"]
+    assert phases["opt_stacked_decode_b4"]["positions"] == [64, 64 + 3 + 24 + 4]
     assert phases["k15a_edges"]["bit_exact_cases"] == {"stream": 3, "wg": 3}
     assert phases["k15a_row_crossover"]["rows"] == list(cs.K15A_CROSSOVER_N)
     assert set(phases["k15a_row_crossover"]["ms"][64]) == {"stream", "wg"}
@@ -736,6 +761,10 @@ def test_attn_edge_checks_rehearsal_on_cpu(monkeypatch):
     assert edges["max_rel_err"] == 0.0
     assert edges["cases"] == 3 * 2 * 5 * 2 * 4
     assert edges["repeated_calls_identical"] == 2 * edges["cases"] + 400
+    # rep 9 / 16 / 71 (split: 4 cluster sizes + flash) and rep 12 at D = 256
+    # (flash), bf16 and int8 caches (f32 queries over the int8 one), two scales
+    assert edges["any_rep_max_rel_err"] == 0.0
+    assert edges["any_rep_cases"] == 2 * (3 * (5 + 5 + 1) + (1 + 1 + 1))
     bodies = cs.check_k15b_edges(torch.device("cpu"))
     assert set(bodies) == {"qk", "tiles", "pv", "kn_gemv", "nk_gemv", "gemv"}
     assert bodies["qk"] == 3 * 4 and bodies["tiles"] == 4 * 4 + 4
@@ -1119,3 +1148,117 @@ def test_first_layers_cuts_per_layer_and_stacked_trees():
     norm = st["layers"]["stacked"]["input_layernorm"]["weight"]
     assert norm.shape[0] == 2
     assert cs.first_layers(fp, cfg, 8)[1].num_hidden_layers == 3
+
+
+def _stub_card(monkeypatch, cs):
+    """The card's timing, memory and launch checks stubbed on the CPU: the
+    launch counts each path expects recorded, the emitted lines kept."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "device_ms", lambda fn, n_iter, reps=5: (fn(0), 0.0)[1])
+    monkeypatch.setattr(cs, "profile", lambda fn, steps: (
+        fn(), {"idle_share": 0.5, "busy_ms_per_step": 1.0})[1])
+    monkeypatch.setattr(cs, "_launched", lambda key, fn: fn())   # plain versions count nothing
+    expected, printed = {}, []
+    monkeypatch.setattr(cs, "_check_launches",
+                        lambda path, launches, expect: expected.setdefault(path, expect))
+    monkeypatch.setattr(cs, "emit", printed.append)
+    return expected, printed
+
+
+def test_falcon_mixtral_phases_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's Falcon and Mixtral phases on the CPU at a small size: a
+    2-layer multi-query Falcon of 9 heads of 64 over one kv head (rep 9: K11
+    in two groups of query rows) and a 2-layer Mixtral (hidden 256, 4 heads
+    of 64 over 2 kv heads, 4 experts of 256, top-2), vocab 512, bf16;
+    calibration on 2 sequences of 32; prompts of 40, B = 40 in place of 64.
+    The build, K11 at the family's rep, K10 with 9 query heads, K6, K1, K7a
+    and K5 on the families' own linears (Mixtral's experts as (L·E, ...)
+    stacks), the Generator, the stacked decode (Mixtral in both
+    dispatches), the stacked step against the per-layer step and the
+    batched requests held to their Generator runs; timing and the launch
+    checks stubbed, the launch counts each path expects recorded."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.kernels import kv_write
+    from smoothquant_tpu_torch.models import falcon, mixtral
+
+    monkeypatch.setattr(kv_write, "launch_rows", lambda *a, **k: None)
+    for name, value in dict(FAMILY_SAMPLES=2, FAMILY_CALIB_LEN=32, FAMILY_PROMPT=40,
+                            FAMILY_NEW=4, MIXTRAL_NEW=3, FAMILY_MAX_LEN=256, SLOT_BATCH=40,
+                            FAMILY_SERVE_REQUESTS=2, FAMILY_SERVE_NEW=4,
+                            SERVE_PROMPT=(10, 40)).items():
+        monkeypatch.setattr(cs, name, value)
+    expected, printed = _stub_card(monkeypatch, cs)
+    cpu = torch.device("cpu")
+    fcfg = falcon.FalconConfig(vocab_size=512, hidden_size=576, num_hidden_layers=2,
+                               num_attention_heads=9)
+    rows, launches = cs.run_falcon(cpu, "card", fcfg)
+    assert sum(launches.values()) == 0 and rows
+    assert all(not r["in_sum"] and r["site"].startswith("falcon_") for r in rows)
+    k11 = [r for r in rows if r["kernel"] == "decode_attention_stacked"]
+    assert [r["site"] for r in k11] == ["falcon_rep71_bf16@B4", "falcon_rep71_int8@B4",
+                                        "falcon_rep71_bf16@B40", "falcon_rep71_int8@B40"]
+    assert all(r["rep"] == 9 and r["groups"] == 2 and r["max_err"] == 0 for r in k11)
+    k10 = [r for r in rows if r["kernel"] == "write_quant_cache_stacked"]
+    assert [r["shape"][:3] for r in k10] == [[4, 9, 1]]
+    assert {r["kernel"] for r in rows} >= {"int4_group_matmul", "int4_group_matmul_stacked_rawx",
+                                           "quantize_acts_grouped_t",
+                                           "int4_group_matmul_stacked"}
+    n_l = 2
+    assert expected["falcon generator"] == {"int4_group_matmul": 4 * n_l * 4,
+                                            "decode_attention_stacked": n_l * 3}
+    step = {"int4_group_matmul_stacked_rawx": 4 * n_l, "write_quant_cache_stacked": n_l,
+            "decode_attention_stacked": n_l}
+    assert expected["falcon decode B=4"] == step
+    assert expected["falcon stacked against per-layer"] == {
+        "int4_group_matmul_stacked_rawx": 4 * n_l, "decode_attention_stacked": n_l}
+    phases = {p["phase"]: p for p in printed if "phase" in p}
+    srv = phases["falcon_serving"]
+    assert expected["falcon serving"] == {
+        "int4_group_matmul": 4 * n_l * (len(srv["prefill_seqs"]) + srv["decode_steps"]),
+        "decode_attention_stacked": n_l * srv["decode_steps"]}
+    assert srv["tokens"]["requests"] == 2 and srv["tokens"]["identical_requests"] == 2
+    cmp = phases["falcon_stacked_vs_per_layer"]
+    assert len(cmp["layer_parts"]) == n_l and cmp["whole_model"]["rows"] == 4
+    small = phases["falcon_f32_small_stacked_vs_per_layer"]
+    assert small["max_layer_rel_norm_err"] <= small["tol"] == cs.STACKED_VS_PER_LAYER_TOL
+    assert small["whole_model"]["rel_norm_err"] <= small["tol"]
+    assert phases["falcon_decode_b4"]["positions"] == [448, 448 + 3 + 24 + 4]
+    assert phases["falcon_decode_b4"]["decode_step_bytes"]["kv"] > 0
+
+    printed.clear()
+    mcfg = dataclasses.replace(mixtral.MixtralConfig(), vocab_size=512, hidden_size=256,
+                               intermediate_size=256, num_hidden_layers=2,
+                               num_attention_heads=4, num_key_value_heads=2,
+                               num_local_experts=4)
+    rows, launches = cs.run_mixtral(cpu, "card", mcfg)
+    assert sum(launches.values()) == 0
+    assert all(not r["in_sum"] and r["site"].startswith("mixtral_") for r in rows)
+    rawx = [r["site"] for r in rows if r["kernel"] == "int4_group_matmul_stacked_rawx"]
+    assert rawx == [f"mixtral_{s}" for s in ("q", "k", "router", "w1", "w3", "w2")]
+    n_lin = 5 + 3 * 4
+    for d in ("dense", "sparse"):
+        assert expected[f"mixtral_{d} decode B=4"] == {
+            "int4_group_matmul_stacked_rawx": n_lin * n_l, "write_quant_cache_stacked": n_l,
+            "decode_attention_stacked": n_l}
+        assert expected[f"mixtral_{d} decode B=40"] == {
+            "quantize_acts_grouped_t": n_lin * n_l, "int4_group_matmul_stacked": n_lin * n_l,
+            "write_quant_cache_stacked": n_l, "decode_attention_stacked": n_l}
+    assert expected["mixtral stacked against per-layer"] == {
+        "int4_group_matmul_stacked_rawx": n_lin * n_l, "decode_attention_stacked": n_l}
+    assert expected["mixtral generator"] == {"int4_group_matmul": n_lin * n_l * 3,
+                                             "decode_attention_stacked": n_l * 2}
+    phases = {p["phase"]: p for p in printed if "phase" in p}
+    for d in ("dense", "sparse"):
+        for tag in ("", "_f32_small"):
+            cmp = phases[f"mixtral_{d}{tag}_stacked_vs_per_layer"]
+            for part in [cmp["whole_model"]] + cmp["layer_parts"]:
+                assert part["rows_all_same"] + len({r for _, r, _ in part["route_parted"]}) == 4
+            assert len(cmp["layer_parts"]) == n_l
+        assert cmp["tol"] == cs.STACKED_VS_PER_LAYER_TOL
+        assert cmp["whole_model"]["rel_norm_err"] <= cmp["tol"]
+    assert phases["mixtral_model"]["linears_per_layer"] == n_lin

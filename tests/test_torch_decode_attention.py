@@ -299,3 +299,64 @@ def test_split_decomposition_matches_plain(ranks, s, alibi, kind):
     assert got[3].abs().max() == 0
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 1e-2 * ref.float().abs().max().item() + 1e-6
+
+
+REP_CASES = [  # (rep, n_kv, s, cache kind, dtype, sm_scale)
+    (1, 4, 256, "int8", "bfloat16", 1.0),   # OPT: q scaled at projection
+    (4, 2, 256, "f32", "float32", None),
+    (8, 1, 384, "int8", "float32", 1.0),
+    (9, 2, 256, "bf16", "bfloat16", None),  # two groups of query rows a kv head
+    (71, 1, 512, "int8", "bfloat16", None),  # Falcon-7B: 71 heads over one kv head
+    (71, 1, 256, "f32", "float32", 1.0),
+]
+
+
+@pytest.mark.parametrize("rep,n_kv,s,kind,dt,scale", REP_CASES)
+def test_decode_attention_any_rep_and_scale_matches_jax(rep, n_kv, s, kind, dt, scale):
+    """K11 at any rep the JAX kernel takes (H % H_kv == 0, rows padded to 8
+    there, in groups of 8 on the card) and at a caller's sm_scale, stacked
+    (layer 1 of 2), against the JAX kernel; sm_scale changes the output."""
+    b, d = 3, 64
+    h = rep * n_kv
+    rng = np.random.default_rng(rep + s)
+    q = (rng.normal(size=(b, h, d)) * 0.2).astype(np.float32)
+    (k, v), (ks, vs) = _cache(rng, (2, b, n_kv, s, d), kind)
+    bias = _bias(rng, b, s, np.array([s - 1, s // 2, 5]))
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dt]
+    cast_j = (lambda a: jnp.asarray(a, jnp.bfloat16)) if kind == "bf16" else jnp.asarray
+    cast_t = (lambda a: _t(a).to(torch.bfloat16)) if kind == "bf16" else _t
+    sc_j = {} if ks is None else dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    sc_t = {} if ks is None else dict(k_scale=_t(ks), v_scale=_t(vs))
+    ref = jda.decode_attention_stacked(
+        jnp.ones((1,), jnp.int32), jnp.asarray(q, jdt), cast_j(k), cast_j(v),
+        jnp.asarray(bias.numpy()), sm_scale=scale, interpret=True, **sc_j)
+    got = k11.decode_attention_stacked(1, _t(q).to(tdt), cast_t(k), cast_t(v), bias,
+                                       sm_scale=scale, **sc_t)
+    assert got.dtype == tdt and got.shape == (b, h, d)
+    ref = np.asarray(ref, np.float32)
+    rtol = 1e-5 if dt == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(_np(got), ref, rtol=rtol, atol=1e-5 * np.abs(ref).max())
+    assert not got[-1].any()
+    other = k11.decode_attention_stacked(1, _t(q).to(tdt), cast_t(k), cast_t(v), bias,
+                                         sm_scale=0.5 if scale is None else None, **sc_t)
+    assert (other.float() - got.float()).abs().max() > 1e-3 * np.abs(ref).max()
+
+
+def test_any_rep_plan():
+    """K11's plan at rep above 8: the split body for bf16 queries at D = 64,
+    its ranks planned over B·H_kv·⌈rep / 8⌉ clusters (Falcon-7B at B = 4
+    over 512: 36 clusters of 8 ranks; at B = 64: 576 of one); the flash
+    body's shared memory that of rep 8 whatever the rep; K3 and K12 (no
+    groups) still refuse rep > 8."""
+    bf = torch.bfloat16
+    assert k11.rep_groups(71) == 9 and k11.rep_groups(8) == 1 and k11.rep_groups(9) == 2
+    assert k11.plan("K11", bf, 4, 512, 64, 71, any_rep=True) == ("split", 8)
+    assert k11.plan("K11", bf, 64, 512, 64, 71, any_rep=True) == ("split", 1)
+    assert k11.plan("K11", bf, 4, 512, 64, 71, any_rep=True) == \
+        ("split", k11.split_ranks(4 * 9, 512))
+    assert k11.plan("K11", torch.float32, 4, 512, 256, 71, any_rep=True) == ("flash", 0)
+    with pytest.raises(ValueError, match="shared"):
+        k11.plan("K11", torch.float32, 4, 4096, 256, 71, any_rep=True)
+    with pytest.raises(ValueError, match="rep = 9"):
+        k11.plan("K3", bf, 4, 512, 64, 9)

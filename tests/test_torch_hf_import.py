@@ -19,7 +19,7 @@ pytest.importorskip("safetensors")
 import jax  # noqa: E402,F401  (registers bfloat16 with numpy for safetensors.numpy)
 
 from smoothquant_tpu.utils import hf_import as jhf  # noqa: E402
-from smoothquant_tpu_torch.models import bloom, llama, opt  # noqa: E402
+from smoothquant_tpu_torch.models import bloom, falcon, llama, mixtral, opt  # noqa: E402
 from smoothquant_tpu_torch.utils import hf_import as thf  # noqa: E402
 from torch_io_helpers import (  # noqa: E402
     VOCAB,
@@ -33,7 +33,9 @@ DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
 CASES = [("llama", "F32", "one"), ("llama", "BF16", "two"), ("llama", "F16", "bin"),
          ("mistral", "BF16", "one"), ("mistral", "F32", "two"),
          ("opt", "F16", "one"), ("opt", "BF16", "bin"), ("opt_proj", "F32", "two"),
-         ("bloom", "F32", "one"), ("bloom", "BF16", "two")]
+         ("bloom", "F32", "one"), ("bloom", "BF16", "two"),
+         ("falcon", "F32", "one"), ("falcon", "BF16", "two"), ("falcon_new", "F16", "bin"),
+         ("mixtral", "F32", "one"), ("mixtral", "BF16", "two")]
 
 
 @pytest.fixture(scope="module")
@@ -66,7 +68,7 @@ def _tensors(tree):
         yield tree
 
 
-FORWARD = ["llama", "mistral", "opt", "opt_proj", "bloom"]
+FORWARD = ["llama", "mistral", "opt", "opt_proj", "bloom", "falcon", "falcon_new", "mixtral"]
 
 
 @pytest.mark.parametrize("family", FORWARD)
@@ -76,7 +78,7 @@ def test_forward_matches_hf_model(tmp_path, family):
     d = write_hf_dir(str(tmp_path / family), family)
     arch, cfg, params = thf.load_model(d, dtype="float32", device="cpu")
     mod = {"llama": llama, "mistral": llama, "opt": opt, "opt_proj": opt,
-           "bloom": bloom}[family]
+           "bloom": bloom, "falcon": falcon, "falcon_new": falcon, "mixtral": mixtral}[family]
     if family == "mistral":
         assert cfg.sliding_window == 8
     ids = torch.as_tensor(np.random.default_rng(1).integers(0, VOCAB, size=(2, 12)))
@@ -109,6 +111,16 @@ MINIMAL = {
                       "hidden_size": 256, "num_hidden_layers": 3, "n_head": 4,
                       "layer_norm_epsilon": 1e-6},
     "bloom_bare": {"model_type": "bloom"},
+    "falcon_bare": {"architectures": ["FalconForCausalLM"], "model_type": "falcon"},
+    "falcon_n_embed": {"architectures": ["FalconForCausalLM"], "model_type": "falcon",
+                       "n_embed": 8192, "num_attention_heads": 128, "num_kv_heads": 8,
+                       "new_decoder_architecture": True, "num_hidden_layers": 60},
+    "falcon_kv_null": {"model_type": "falcon", "num_kv_heads": None,
+                       "multi_query": False, "parallel_attn": False, "bias": True},
+    "mixtral_bare": {"architectures": ["MixtralForCausalLM"], "model_type": "mixtral"},
+    "mixtral_kv_null": {"architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+                        "num_key_value_heads": None, "num_attention_heads": 16,
+                        "rope_theta": 1e4},
 }
 
 
@@ -124,6 +136,13 @@ READ_KEYS = {
             "do_layer_norm_before"),
     "bloom": ("vocab_size", "hidden_size", "n_layer", "n_head", "layer_norm_epsilon",
               "num_hidden_layers", "num_attention_heads"),
+    "falcon": ("vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
+               "num_kv_heads", "multi_query", "parallel_attn", "new_decoder_architecture",
+               "bias", "alibi", "layer_norm_epsilon", "rope_theta", "tie_word_embeddings"),
+    "mixtral": ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+                "num_attention_heads", "num_key_value_heads", "num_local_experts",
+                "num_experts_per_tok", "max_position_embeddings", "rms_norm_eps",
+                "rope_theta", "tie_word_embeddings", "sliding_window"),
 }
 
 
@@ -132,7 +151,8 @@ def test_minimal_config_json_gives_autoconfig_values(tmp_path, name):
     """A config.json with the optional keys dropped: the port's reader gives
     what AutoConfig gives — Mistral's window 4096 when absent, None when
     null; the head count for a null kv-head count; Bloom's n_embed and
-    aliases; OPT's projection width."""
+    aliases; OPT's projection width; Falcon's n_embed and its kv-head count
+    when null; Mixtral's defaults."""
     from transformers import AutoConfig
 
     from smoothquant_tpu.models.registry import get_arch as jget_arch
@@ -226,11 +246,34 @@ def test_state_dict_shards_in_sorted_order(tmp_path):
 
 @pytest.mark.parametrize("arch", ["FalconForCausalLM", "MixtralForCausalLM"])
 def test_unported_families_are_named_and_refused(tmp_path, arch):
+    """Falcon and Mixtral, the families the JAX package registers beside the
+    others, are named as JAX names them and ported: the registry resolves
+    them and load_model reads the config; what it refuses is a Falcon with
+    ALiBi positions (alibi: true), which the JAX module would run with
+    rotary ones."""
+    from smoothquant_tpu_torch.models.registry import get_arch
+
     d = write_config(str(tmp_path / arch), {"architectures": [arch],
                                             "model_type": arch[:-len("ForCausalLM")].lower()})
     assert thf.detect_arch(d) == jhf.detect_arch(d) == thf.ARCH_MAP[arch]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        thf.load_model(d, device="cpu")
+    mod = get_arch(thf.ARCH_MAP[arch])
+    assert mod.config_from_hf(thf.read_hf_config(d)).num_hidden_layers == 32
+    if arch == "FalconForCausalLM":
+        d = write_config(str(tmp_path / "alibi"), {"architectures": [arch],
+                                                   "model_type": "falcon", "alibi": True})
+        with pytest.raises(NotImplementedError, match="ALiBi"):
+            thf.load_model(d, device="cpu")
+
+
+@pytest.mark.parametrize("family", ["falcon", "falcon_new", "mixtral"])
+def test_load_model_is_params_from_hf_state_dict(tmp_path, family):
+    """load_model of a written tiny directory is, bit for bit, the tree
+    params_from_hf_state_dict builds from the model's own tensors."""
+    d = write_hf_dir(str(tmp_path / family), family, torch.bfloat16, "two")
+    arch, cfg, params = thf.load_model(d, device="cpu")
+    mod = {"falcon": falcon, "mixtral": mixtral}[arch]
+    state = {k: v.detach() for k, v in hf_model(family).to(torch.bfloat16).state_dict().items()}
+    assert_trees_bit_equal(params, mod.params_from_hf_state_dict(state, cfg, device="cpu"))
 
 
 def test_unknown_architecture_raises(tmp_path):

@@ -170,7 +170,23 @@ def test_make_calib_batches():
 
 
 def test_unported_trees_raise(model):
+    """stack_layers and fuse_projections build their trees now (a leading L
+    axis; q / k / v fused into qkv_proj); what the port still refuses
+    raises: a stacked tree under calibration taps (JAX: taps unsupported
+    with scan) and OPT's shared residual basis (no residual_consumers)."""
+    from smoothquant_tpu_torch.models.common import ForwardContext
+    from smoothquant_tpu_torch.models.registry import pack_model
+    from smoothquant_tpu_torch.quant.config import w4a4_group
+
+    tcfg = model["tcfg"]
+    stacked = topt.stack_layers(model["tparams"], tcfg)
+    w = stacked["layers"]["stacked"]["fc1"]["weight"]
+    assert w.shape[0] == tcfg.num_hidden_layers
+    fused = topt.fuse_projections(model["tparams"], tcfg)
+    assert "qkv_proj" in fused["layers"]["0"]["self_attn"]
     with pytest.raises(NotImplementedError):
-        topt.stack_layers(model["tparams"], model["tcfg"])
+        topt.forward(stacked, torch.zeros((1, 4), dtype=torch.int64), tcfg,
+                     ctx=ForwardContext(taps=object()))
     with pytest.raises(NotImplementedError):
-        topt.fuse_projections(model["tparams"], model["tcfg"])
+        pack_model("opt", model["tparams"], tcfg, w4a4_group(16, 0.0),
+                   shared_residual_basis=True)

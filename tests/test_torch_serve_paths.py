@@ -21,9 +21,8 @@ Tolerances: tokens, positions, masks, cache codes and positions exact;
 f32 logits within 2e-4 (relative and absolute: f32 sums in another order,
 K11's tile-by-tile softmax against the TPU kernel's in interpret mode).
 The JAX batcher and Generator run Pallas in interpret mode (interpret=True)
-so their decode takes the kernels the port's plain versions mirror; the
-OPT cases run JAX without it, so both sides take the einsum (the port's K11
-has no softmax-scale option, and OPT scales q itself)."""
+so their decode takes the kernels the port's plain versions mirror (OPT's
+int8 pool: K11 with sm_scale 1.0 on both sides, OPT scaling q itself)."""
 
 import dataclasses
 
@@ -250,12 +249,13 @@ def _family(name):
 @pytest.mark.parametrize("quant_kv", [False, True])
 @pytest.mark.parametrize("family", ["opt", "bloom"])
 def test_family_batcher_tokens_identical_to_jax(family, quant_kv):
-    """OPT (learned positions from seq_pos) and Bloom (ALiBi; K11's ALiBi
-    body over the int8 pool) per-layer fp trees through the batcher over
-    the fp and the int8 head-major pools: identical tokens."""
+    """OPT (learned positions from seq_pos; K11 with sm_scale 1.0 over the
+    int8 pool) and Bloom (ALiBi; K11's ALiBi body over the int8 pool)
+    per-layer fp trees through the batcher over the fp and the int8
+    head-major pools: identical tokens."""
     jmod, tmod, jcfg, tcfg, params = _family(family)
     jb = JBatcher(jmod, params, jcfg, max_batch=2, max_len=MAX_LEN, quant_kv=quant_kv,
-                  interpret=family == "bloom")
+                  interpret=True)
     tb = ContinuousBatcher(tmod, _t(params), tcfg, max_batch=2, max_len=MAX_LEN,
                            quant_kv=quant_kv, device="cpu")
     _same_serving(jb, tb, _prompts(jcfg.vocab_size, [5, 33, 9, 14]), 5, 2)

@@ -32,6 +32,19 @@ HF_FAMILIES = {
                       word_embed_proj_dim=32)),
     "bloom": ("BloomConfig", "BloomForCausalLM",
               dict(vocab_size=VOCAB, hidden_size=64, n_layer=2, n_head=4)),
+    "falcon": ("FalconConfig", "FalconForCausalLM",
+               dict(vocab_size=VOCAB, hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, multi_query=True, parallel_attn=True,
+                    new_decoder_architecture=False, bias=False)),
+    "falcon_new": ("FalconConfig", "FalconForCausalLM",
+                   dict(vocab_size=VOCAB, hidden_size=64, num_hidden_layers=2,
+                        num_attention_heads=4, num_kv_heads=2,
+                        new_decoder_architecture=True, bias=False)),
+    "mixtral": ("MixtralConfig", "MixtralForCausalLM",
+                dict(vocab_size=VOCAB, hidden_size=64, intermediate_size=96,
+                     num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                     num_local_experts=4, num_experts_per_tok=2,
+                     max_position_embeddings=64)),
 }
 
 
