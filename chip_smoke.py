@@ -254,6 +254,34 @@ cut that keeps the run inside its limit):
      the einsum over the same dequantized cache with and without the
      window, the step's logits against the einsum step and the windowless
      step, three windows of 8 steps.
+The serving tier and the repairs of PR 21:
+   - k3_edges and k12_edges also run K3 and K12 past 8 query rows a kv head
+     (groups of 8 rows, grid z) and at a caller's softmax scale
+     (ATTN_ANY_REP_CASES: rep 16 and 12 over 2 kv heads at D = 128, S = 512,
+     B = 4 and 64; rep 16 at D = 256 on the flash body; sm_scale 1.0; K12's
+     stacked and write bodies, the write's cache bit for bit), every call's
+     bits repeated; rep 16 and 12 at B = 4 timed beside SDPA over the kv
+     heads expanded (rows out of the kernels line's sums);
+   - llama_rep16_decode (after the edges): Llama-2-7B's width at 32 query
+     heads over 2 kv heads, 2 layers, and its small f32 twin: the stacked
+     decode through Llama's gate over the S-major cache and the aligned
+     head-major one ("auto", "fused") from DECODE_POS, each step's launches
+     checked, against the per-layer step layer by layer (the twin's S-major
+     layers held to STACKED_VS_PER_LAYER_TOL, the rest reported);
+   - cluster (after serve_per_layer): ClusterFrontend over 1 and 2
+     replicas of the serving pack's first SERVE_LAYERS layers on the card,
+     12 requests, tokens identical across the two runs, per-host and
+     cluster tokens/s; cluster_sim: scaling_efficiency on
+     skewed_trace(48, seed=3) at 2 and 4 hosts under the cost model the
+     1-host run measured (simulated, labeled so);
+   - falcon_serving: Falcon-7B's stacked tree through the batcher's
+     per-slot stacked pool, and serve_bloom_slots (the end of run_bloom):
+     BLOOM-7b1's stacked tree at SERVE_LAYERS layers, 8 requests, 16 new;
+     each request held to the stacked tree's own greedy decode
+     (stacked_reference) up to the first near-tie, every decode step the
+     stacked decode's launches (no K6);
+   - examples (after the Bloom path): the three examples' main in this
+     process on the card.
 I/O and the CLI (files under a temporary directory, removed at the end
 of their phase; file reads warm, just written):
    - cli_opt (at the end of the OPT path): the weights export_opt draws
@@ -344,6 +372,9 @@ CROSSOVER_N = (4, 16, 64, 128, 256, 512, 1024, 2048)
 BLOOM_SAMPLES, BLOOM_LEN, BLOOM_ALPHA = 4, 512, 0.5
 BLOOM_BATCH, BLOOM_PROMPT, BLOOM_NEW, BLOOM_MAX_LEN = 4, 512, 32, 640
 BLOOM_SLOT_BATCH = 64
+# serve_bloom_slots: the stacked tree's first SERVE_LAYERS layers through the
+# batcher's per-slot stacked pool, SERVE_REQUESTS prompts, this many new tokens
+BLOOM_SERVE_NEW = 16
 BLOOM_PACK = dict(nibble=True, align_k_groups=8, align_o=256)   # the stacked decode's layout
 # K4's raw-x mode against its pre-quantized mode: (site, (N, K, O)) — Llama-2-7B's
 # promoted gate_proj at the prefill's rows (timed), a ragged N, one K step
@@ -352,6 +383,12 @@ BLOOM_PACK = dict(nibble=True, align_k_groups=8, align_o=256)   # the stacked de
 # per-layer over the fp cache, the same over the int8 cache) — see
 # bloom_reference_check for the readings they were set from
 BLOOM_REF_TOL = {"float32": (1e-5, 2e-4, 1e-6), "bfloat16": (1e-5, 1.5e-1, 1e-6)}
+# K3's and K12's query rows above 8 a kv head (groups of 8, grid z) and a
+# caller's softmax scale, over S = 512 with 2 kv heads: (rep, B, head_dim,
+# sm_scale); the B = 4 cases at D = 128 and the rule's scale are timed
+ATTN_ANY_REP_CASES = ((16, 4, 128, None), (12, 4, 128, None), (16, 64, 128, None),
+                      (12, 64, 128, None), (16, 4, 256, None), (16, 4, 128, 1.0))
+ATTN_ANY_REP_KV, ATTN_ANY_REP_S = 2, 512
 # kv_write_edges: head_dims, (kv heads, query heads a kv head), slots
 KV_EDGE_DIMS = (64, 128, 256)
 KV_EDGE_HEADS = ((1, 1), (1, 4), (8, 1), (8, 4), (32, 1), (32, 4))
@@ -1116,7 +1153,7 @@ def check_decode_attention_hm(cfg, dev, gen, b=MAX_BATCH, pos=None, bodies=("bf1
             site=name if site is None else f"{site}_{name}", in_sum=main,
             shape=[b, h, n_kv, MAX_LEN, d], rep=rep, sm_scale=sm_scale, max_err=err,
             check_launches=1, max_rel_err=err / ref.float().abs().max().item(),
-            split=k11.plan("K11", q.dtype, b * n_kv, MAX_LEN, d, rep, any_rep=True)[1],
+            split=k11.plan("K11", q.dtype, b * n_kv, MAX_LEN, d, rep)[1],
             groups=k11.rep_groups(rep),
             kernel_ms=device_ms(lambda i: k11.decode_attention_stacked(
                 *args(i % n_layers), **scale), n_layers),
@@ -3491,7 +3528,95 @@ def check_k3_edges(dev):
         if not torch.equal(ka.decode_attention_smajor_stacked(*args, split=4), first):
             raise AssertionError("K3 split body: 400 calls did not give identical bits")
     repeats += 400
-    return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats}
+    return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats,
+            **_k3_any_rep(dev, gen, cache)}
+
+
+def _any_rep_forced(q_dtype, d, rep):
+    """The bodies an any-rep edge case holds: every cluster size of the split
+    body that chunks S and the flash body forced, where the split body takes
+    the shape; else the flash body the rule picks."""
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+
+    s = ATTN_ANY_REP_S
+    if k11.attn_body(q_dtype, d, s, rep) != "split":
+        return [{}]
+    return [dict(split=c) for c in k11.SPLITS if k11._split_fits(s, c)] + [dict(body="flash")]
+
+
+def _any_rep_row(kernel, site, shape, err, ref, kernel_fn, plain_fn, lib_fn, cost):
+    """A timed row of an any-rep case at B = 4 (out of the kernels line's
+    sums): the kernel, its plain version and SDPA over the dequantized cache
+    with its kv heads expanded to the query heads, 2 repetitions each."""
+    from smoothquant_tpu_torch.utils import roofline
+
+    b_ms, b_by = roofline.bound_ms(*cost)
+    row = dict(kernel=kernel, site=site, in_sum=False, shape=shape, max_err=err,
+               max_rel_err=err / ref.float().abs().max().item(), check_launches=1,
+               kernel_ms=device_ms(kernel_fn, 8, reps=2),
+               plain_ms=device_ms(plain_fn, 2, reps=2),
+               bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(lib_fn, 8, reps=2),
+               library="scaled_dot_product_attention over the dequantized bf16 cache, kv "
+                       "heads expanded to the query heads, yardstick only")
+    emit(row)
+    return row
+
+
+def _k3_any_rep(dev, gen, cache):
+    """K3 at the ATTN_ANY_REP_CASES (2 kv heads, S = 512): B = 4 with the
+    edges' four slots (holes, fully masked, one position, the last tile
+    only), B = 64 at random positions; every body of _any_rep_forced, each
+    call twice for identical bits, within 1e-2 of the largest output; the
+    B = 4 cases at D = 128 and the default scale timed (_any_rep_row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from smoothquant_tpu_torch.kernels import attn_smajor as ka
+    from smoothquant_tpu_torch.models.common import decode_bias
+    from smoothquant_tpu_torch.utils import roofline
+
+    s, n_kv = ATTN_ANY_REP_S, ATTN_ANY_REP_KV
+    worst, n_cases, repeats, rows = 0.0, 0, 0, []
+    for rep, b, d, scale in ATTN_ANY_REP_CASES:
+        if b == 4:
+            bias = decode_bias(torch.tensor([s - 1, 0, 0, s - 1], device=dev), 4, s, None)
+            bias[0, torch.rand(s, generator=gen, device=dev) < 0.2] = -1e30
+            bias[1] = -1e30
+            bias[3, : s - 20] = -1e30
+        else:
+            bias = decode_bias(torch.randint(0, s, (b,), generator=gen, device=dev), b, s, None)
+        q = torch.randn((b, n_kv * rep, d), generator=gen, device=dev).to(torch.bfloat16)
+        kq, vq, ks, vs = cache(b, s, n_kv, d)
+        args = (0, q, kq, vq, bias, ks, vs)
+        ref = ka.decode_attention_smajor_plain(*args, sm_scale=scale)
+        for kw in _any_rep_forced(q.dtype, d, rep):
+            name = f"K3 any-rep edge rep={rep} B={b} D={d} scale={scale} {kw}"
+            got = ka.decode_attention_smajor_stacked(*args, sm_scale=scale, **kw)
+            again = ka.decode_attention_smajor_stacked(*args, sm_scale=scale, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two calls gave different bits")
+            err = _close(name, got, ref, 1e-2)
+            worst = max(worst, err / ref.float().abs().max().item())
+            n_cases += 1
+            repeats += 2
+        if b == 4 and d == 128 and scale is None:
+            h = n_kv * rep
+            deq = [(t[0].reshape(b, s, n_kv, d).transpose(1, 2).float() * sc[0][..., None])
+                   .to(torch.bfloat16).repeat_interleave(rep, dim=1)
+                   for t, sc in ((kq, ks), (vq, vs))]
+            valid = (bias == 0)[:, None, None, :]
+            err = _close(f"K3 rep={rep} B=4", ka.decode_attention_smajor_stacked(*args), ref,
+                         1e-2)
+            rows.append(_any_rep_row(
+                "decode_attention_smajor_stacked", f"rep{rep}@B4", [b, h, n_kv, s, d], err,
+                ref, lambda i: ka.decode_attention_smajor_stacked(*args),
+                lambda i: ka.decode_attention_smajor_plain(*args),
+                lambda i: F.scaled_dot_product_attention(q[:, :, None], *deq,
+                                                         attn_mask=valid),
+                roofline.decode_attn_cost(b, h, n_kv, s, d, n_valid=int(valid.sum()))))
+    return {"any_rep_max_rel_err": worst, "any_rep_cases": n_cases,
+            "any_rep_repeated_calls_identical": repeats, "any_rep_rows": rows}
 
 
 def check_k12_edges(dev):
@@ -3568,7 +3693,69 @@ def check_k12_edges(dev):
         if not torch.equal(k12.fused_virtual_attn_flat(*head, *cache, split=4), first):
             raise AssertionError("K12 split body: 400 calls did not give identical bits")
     repeats += 400
-    return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats}
+    return {"max_rel_err": worst, "cases": n_cases, "repeated_calls_identical": repeats,
+            **_k12_any_rep(dev, case, fns)}
+
+
+def _k12_any_rep(dev, case, fns):
+    """K12's stacked and write bodies at the ATTN_ANY_REP_CASES (2 kv
+    heads, S = 512): B = 4 at pos 0, DECODE_POS and S − 1, B = 64 at
+    DECODE_POS; every body of _any_rep_forced, each call twice for
+    identical bits (attention and cache), within 1e-2 of the largest
+    output; the write body's cache identical to the plain version's (one
+    group writes the row, every group folds it in).  The stacked body at
+    B = 4, DECODE_POS, D = 128 and the default scale is timed
+    (_any_rep_row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from smoothquant_tpu_torch.kernels import attn_fused as k12
+    from smoothquant_tpu_torch.utils import roofline
+
+    s, n_kv = ATTN_ANY_REP_S, ATTN_ANY_REP_KV
+    worst, n_cases, repeats, rows = 0.0, 0, 0, []
+    for rep, b, d, scale in ATTN_ANY_REP_CASES:
+        for pos in ((0, DECODE_POS, s - 1) if b == 4 else (DECODE_POS,)):
+            head, cache = case(b, n_kv * rep, n_kv, s, d, pos, False)
+            for body in ("stacked", "write"):
+                ref_c = [t.clone() for t in cache]
+                ref = k12.fused_attn_plain(*head, *ref_c, write_cache=body == "write",
+                                           sm_scale=scale)
+                for kw in _any_rep_forced(head[2].dtype, d, rep):
+                    name = (f"K12 any-rep edge {body} rep={rep} B={b} D={d} pos={pos} "
+                            f"scale={scale} {kw}")
+                    got_c, again_c = [t.clone() for t in cache], [t.clone() for t in cache]
+                    got = fns[body](*head, *got_c, sm_scale=scale, **kw)
+                    again = fns[body](*head, *again_c, sm_scale=scale, **kw)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got, again) and all(
+                            torch.equal(x, y) for x, y in zip(got_c, again_c))):
+                        raise AssertionError(f"{name}: two calls gave different bits")
+                    if not all(torch.equal(x, y) for x, y in zip(got_c, ref_c)):
+                        raise AssertionError(f"{name}: the cache differs from the plain "
+                                             "version's")
+                    err = _close(name, got, ref, 1e-2)
+                    worst = max(worst, err / ref.float().abs().max().item())
+                    n_cases += 1
+                    repeats += 2
+            if b == 4 and d == 128 and scale is None and pos == DECODE_POS:
+                h = n_kv * rep
+                q = head[2]
+                deq = [(qv[0].float() * sc[0][..., None]).to(torch.bfloat16)
+                       .repeat_interleave(rep, dim=1)
+                       for qv, sc in ((cache[0], cache[2]), (cache[1], cache[3]))]
+                valid = (torch.arange(s, device=dev) < pos)[None, None, None, :]
+                ref = k12.fused_attn_plain(*head, *cache)
+                err = _close(f"K12 rep={rep} B=4", fns["stacked"](*head, *cache), ref, 1e-2)
+                rows.append(_any_rep_row(
+                    "fused_attn", f"stacked_rep{rep}@B4", [b, h, n_kv, s, d], err, ref,
+                    lambda i: fns["stacked"](*head, *cache),
+                    lambda i: k12.fused_attn_plain(*head, *cache),
+                    lambda i: F.scaled_dot_product_attention(q[:, :, None], *deq,
+                                                             attn_mask=valid),
+                    roofline.fused_attn_cost(b, h, n_kv, s, d, pos)))
+    return {"any_rep_max_rel_err": worst, "any_rep_cases": n_cases,
+            "any_rep_repeated_calls_identical": repeats, "any_rep_rows": rows}
 
 
 def check_kv_write_edges(dev):
@@ -6001,7 +6188,10 @@ def run_bloom(dev, cfg, card: str):
     decode rows on the per-layer pack; K1 at BLOOM_BATCH rows and K7a + K5
     at BLOOM_SLOT_BATCH on the stacked layer, the input gathered; K10 with
     rotary off at both batches), K7b + K5 against K1 on the stacked layer,
-    and the stacked decode at B = 4 and 64.  Returns (kernel rows, the main
+    the stacked decode at B = 4 and 64, and the stacked tree's first
+    SERVE_LAYERS layers served through the batcher's per-slot stacked pool
+    (serve_bloom_slots: K1, K10 with rotary off and K11's ALiBi body a layer
+    a step, no K6 in a decode step).  Returns (kernel rows, the main
     paths' launches)."""
     from collections import Counter
 
@@ -6049,6 +6239,10 @@ def run_bloom(dev, cfg, card: str):
     torch.cuda.empty_cache()
     emit({"phase": "k7b_k5_vs_k1", **check_k7b_k5_vs_k1(stacked, cfg, dev, gen)})
     launches.update(bloom_stacked_decode(stacked, cfg, dev, card))
+    sp_st, sp_cfg = first_layers(stacked, cfg)
+    launches.update(serve_stacked("serve_bloom_slots", bloom, sp_st, sp_cfg, dev, card,
+                                  SERVE_REQUESTS, BLOOM_SERVE_NEW, SEED + 113,
+                                  bloom_step_launches(sp_cfg, MAX_BATCH)))
     return rows, launches
 
 
@@ -6102,6 +6296,16 @@ BODY_COUNTERS = {"fp_matmul_stacked": {"ldg": "fp_matmul_stacked_ldg"},
                  "int8_prefill_matmul": {"raw_x": "int8_prefill_matmul_rawx",
                                          "tiles": "int8_prefill_matmul_tiles"},
                  "int8_linear": {"gemv": "int8_linear_gemv", "tiles": "int8_linear_tiles"}}
+
+
+def _by_kernel(launches):
+    """Launch counts with each body's key (BODY_COUNTERS) folded into its
+    kernel's."""
+    base = {key: name for name, bodies in BODY_COUNTERS.items() for key in bodies.values()}
+    out = {}
+    for key, n in launches.items():
+        out[base.get(key, key)] = out.get(base.get(key, key), 0) + n
+    return out
 
 
 def kernels_line(rows, launches):
@@ -6236,6 +6440,64 @@ def greedy_reference(mod, tree, cfg, prompt, new, dev, *, max_len, prefill_tree=
             gaps.append(float((top[0] - top[1]) / last.abs().max()))
             ids = torch.full((copies, 1), toks[-1], device=dev)
             params = g.params
+    return {"tokens": toks, "gaps": gaps}
+
+
+def stacked_reference(mod, stacked, cfg, prompt, new, dev, *, max_len, copies=None,
+                      quant_kv=True):
+    """One request through a stacked tree's own greedy decode at the pool's
+    width, step by step, with no batcher: the prompt, padded to its bucket
+    as the batcher pads it and copied to every row (the other rows dummies
+    of the request), prefilled on the stacked tree into a stacked batch
+    cache; its rows copied into a stacked per-slot pool of `copies` rows
+    (default MAX_BATCH; (L, B) positions, head-major, int8 with quant_kv);
+    then each step one token through the stacked decode at each row's true
+    position under the key-validity mask the batcher keeps.  So every
+    kernel takes the shape and the route the batcher's step gives it.  Its
+    tokens, and each step's top-2 logit gap over |logits|∞."""
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.models.common import ForwardContext, KVCache, QuantKVCache
+    from smoothquant_tpu_torch.serve.batching import _bucket, _fields
+    from smoothquant_tpu_torch.serve.generate import cache_kv_heads
+
+    copies = copies or MAX_BATCH
+    n_l, n_kv, d = cfg.num_hidden_layers, cache_kv_heads(cfg), cfg.head_dim
+    cls = QuantKVCache if quant_kv else KVCache
+    s = len(prompt)
+    bucket = _bucket(s)
+    ids = np.zeros((copies, bucket), np.int64)
+    ids[:, :s] = np.asarray(prompt)
+    ctx = ForwardContext()
+    toks, gaps = [], []
+    with torch.no_grad():
+        batch = cls.create(copies, bucket, n_kv, d, cfg.torch_dtype, dev, n_layers=n_l)
+        h, _ = mod.forward_hidden(stacked, torch.as_tensor(ids, device=dev), cfg,
+                                  caches=batch, ctx=ctx)
+        logits = mod.lm_head_logits(stacked, h[:, s - 1:s], cfg, ctx)
+        pool = cls.create(copies, max_len, n_kv, d, cfg.torch_dtype, dev, per_slot=True,
+                          n_layers=n_l)
+        n = min(bucket, max_len)
+        for name in _fields(pool):       # every field's S axis is 3 (head-major, stacked)
+            getattr(pool, name).narrow(3, 0, n).copy_(getattr(batch, name).narrow(3, 0, n))
+        pool.pos.fill_(s)
+        del batch
+        key_valid = torch.zeros((copies, max_len), dtype=torch.bool, device=dev)
+        key_valid[:, :s] = True
+        for t in range(new):
+            last = logits[0, -1].float()
+            top = torch.topk(last, 2).values
+            toks.append(int(torch.argmax(last)))
+            gaps.append(float((top[0] - top[1]) / last.abs().max()))
+            if t == new - 1:
+                break
+            key_valid[:, s + t] = True
+            tok = torch.full((copies, 1), toks[-1], device=dev)
+            pos = torch.full((copies, 1), s + t, device=dev)
+            h, pool = mod.forward_hidden(stacked, tok, cfg, caches=pool, positions=pos,
+                                         attn_mask=key_valid, ctx=ctx)
+            logits = mod.lm_head_logits(stacked, h, cfg, ctx)
     return {"tokens": toks, "gaps": gaps}
 
 
@@ -6463,6 +6725,32 @@ def serve_generator_compute(packed, cfg, dev, card):
                                     [list(r[GEN_PROMPT:]) for r in out], refs,
                                     SERVE_GAP_TOL)})
     return launches
+
+
+def serve_stacked(phase, mod, stacked, cfg, dev, card, n_requests, new, seed, per_step):
+    """A family's stacked W4A4 tree through the batcher over its per-slot
+    stacked int8 pool ((L, B) positions) at MAX_BATCH slots, cache MAX_LEN:
+    n_requests prompts of SERVE_PROMPT tokens, `new` new ones, prefilled on
+    the stacked tree (its per-layer body over the stack: K6 four linears a
+    layer) and decoded by the stacked decode (per_step: the launches of one
+    step, so a decode that fell back to the per-layer body, K6 and all,
+    fails the count).  Each request's tokens held to the stacked tree's own
+    greedy decode (stacked_reference) up to the first near-tie.  Returns
+    the launches.  The phase line is named `phase`."""
+    n_l = cfg.num_hidden_layers
+    prompts = serve_prompts(cfg, n_requests, seed)
+    refs = [stacked_reference(mod, stacked, cfg, p, new, dev, max_len=MAX_LEN)
+            for p in prompts]
+    toks, used, m = serve_batch(mod, stacked, cfg, dev, prompts, new=new, quant_kv=True)
+    expect = {k: v * m["decode_steps"] for k, v in per_step.items()}
+    expect["int4_group_matmul"] = 4 * n_l * len(m["prefill_seqs"])
+    _check_launches(phase.replace("_", " "), used, expect)
+    emit({"phase": phase, "card": card, "layers": n_l, "tree": "stacked W4A4",
+          "pool": "per-slot stacked head-major int8", "reference": "stacked_reference",
+          "max_batch": MAX_BATCH, "cache": MAX_LEN, **m, "launches_per_step": per_step,
+          "launches": used,
+          "tokens": hold_tokens(phase, toks, refs, SERVE_GAP_TOL)})
+    return used
 
 
 def serve_family(name, mod, tree, ref_tree, cfg, dev, card, *, max_len, batch=MAX_BATCH):
@@ -7486,7 +7774,7 @@ def family_stacked_decode(name, mod, stacked, cfg, dev, card, batch, n_lin, unem
 
 
 def stacked_vs_per_layer(mod, packed, stacked, cfg, dev, gen, batch, n_lin, ctx=None,
-                         seen=None):
+                         seen=None, base=None, expect=None, per_layer_base=None):
     """One decode step from DECODE_POS over a random int8 cache through the
     stacked tree (the stacked decode) and through the per-layer tree (K6,
     K11 per layer) over per-layer views of a copy of the same cache, the
@@ -7496,21 +7784,27 @@ def stacked_vs_per_layer(mod, packed, stacked, cfg, dev, gen, batch, n_lin, ctx=
     layer), a run being (last-position logits, what a recorder filled into
     `seen` during it).  The whole model's stacked run must launch K1 (either
     body) n_lin times a layer and K11 (either body) once: it took the
-    stacked decode, not the per-layer body over the stack."""
+    stacked decode, not the per-layer body over the stack; given `expect`
+    (one step's launches), exactly those, each body's count under its
+    kernel's key (_by_kernel: an f32 twin's K1 takes its dp4a body, K3 and
+    K12 their flash bodies).  `base`: the cache (default a
+    random head-major int8 one from DECODE_POS); `per_layer_base`: the same
+    contents in the per-layer side's layout (default `base`)."""
     import dataclasses
 
     import torch
 
     from smoothquant_tpu_torch.serve.generate import cache_kv_heads
 
-    base = _random_hm_cache(batch, cache_kv_heads(cfg), cfg.head_dim, cfg.num_hidden_layers,
-                            dev, gen)
+    if base is None:
+        base = _random_hm_cache(batch, cache_kv_heads(cfg), cfg.head_dim,
+                                cfg.num_hidden_layers, dev, gen)
     tok = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen, device=dev)
     fields = ("k_q", "v_q", "k_scale", "v_scale")
 
-    def copy(lo, n):
-        return dataclasses.replace(base, pos=base.pos[lo:lo + n].clone(), **{
-            f: getattr(base, f)[lo:lo + n].clone() for f in fields})
+    def copy(lo, n, src=base):
+        return dataclasses.replace(src, pos=src.pos[lo:lo + n].clone(), **{
+            f: getattr(src, f)[lo:lo + n].clone() for f in fields})
 
     def run(tree, caches, c):
         if seen is not None:
@@ -7522,18 +7816,21 @@ def stacked_vs_per_layer(mod, packed, stacked, cfg, dev, gen, batch, n_lin, ctx=
         """([stacked run, per-layer run], the stacked run's launches)."""
         st, c = first_layers(stacked, cfg, n, lo)
         pl, _ = first_layers(packed, cfg, n, lo)
-        twin, st_cache = copy(lo, n), copy(lo, n)
+        twin, st_cache = copy(lo, n, per_layer_base or base), copy(lo, n)
         got, used = _path_launches(lambda: run(st, st_cache, c))
         return [got, run(pl, [twin.layer(i, DECODE_POS) for i in range(n)], c)], used
 
     with torch.no_grad():
         whole, used = pair(0, cfg.num_hidden_layers)
         n_l = cfg.num_hidden_layers
-        by_kernel = {k: sum(v for key, v in used.items() if key.startswith(k))
-                     for k in ("int4_group_matmul_stacked_rawx", "decode_attention_stacked")}
-        _check_launches(f"{mod.__name__.rsplit('.', 1)[-1]} stacked against per-layer", by_kernel,
-                        {"int4_group_matmul_stacked_rawx": n_lin * n_l,
-                         "decode_attention_stacked": n_l})
+        path = f"{mod.__name__.rsplit('.', 1)[-1]} stacked against per-layer"
+        if expect is not None:
+            _check_launches(path, _by_kernel(used), expect)
+        else:
+            by_kernel = {k: sum(v for key, v in used.items() if key.startswith(k))
+                         for k in ("int4_group_matmul_stacked_rawx", "decode_attention_stacked")}
+            _check_launches(path, by_kernel, {"int4_group_matmul_stacked_rawx": n_lin * n_l,
+                                              "decode_attention_stacked": n_l})
         parts = [pair(i, 1)[0] for i in range(cfg.num_hidden_layers)]
     del base
     torch.cuda.empty_cache()
@@ -7559,9 +7856,12 @@ def _logit_agreement(path, got, ref, rows=None, tol=None):
     return out
 
 
-def stacked_vs_per_layer_phase(name, runs, card, route_k=None, tol=None):
+def stacked_vs_per_layer_phase(name, runs, card, route_k=None, tol=None, whole_tol=...,
+                               **extra):
     """The emitted comparison of stacked_vs_per_layer's runs: the whole model
-    and each layer's part, held to `tol` when given (else reported); with
+    and each layer's part, held to `tol` when given (else reported; the
+    whole model to `whole_tol`, by default `tol`; `extra` joins the line);
+    with
     route_k (Mixtral) the experts each path chose compared first and only
     the rows where every layer chose the same compared by their logits."""
     whole, parts = runs
@@ -7579,8 +7879,8 @@ def stacked_vs_per_layer_phase(name, runs, card, route_k=None, tol=None):
         return {**out, **_logit_agreement(f"{name} {tag}", g, r, rows, tol)}
 
     parts_out = [agree(f"layer {i}", p, tol) for i, p in enumerate(parts)]
-    emit({"phase": f"{name}_stacked_vs_per_layer", "card": card,
-          "whole_model": agree("whole model", whole, tol),
+    emit({"phase": f"{name}_stacked_vs_per_layer", "card": card, **extra,
+          "whole_model": agree("whole model", whole, tol if whole_tol is ... else whole_tol),
           "layer_parts": parts_out,
           "max_layer_rel_norm_err": max(p["rel_norm_err"] for p in parts_out), "tol": tol})
 
@@ -7666,13 +7966,13 @@ def run_falcon(dev, card: str, cfg=None):
     at the prefill's rows, K1 (B = 4) and K7a + K5 (B = 64) at its widths,
     the Generator over per-layer int8 caches, the stacked decode at B = 4
     from DECODE_POS, the stacked step against the per-layer step, and a
-    few requests through the batcher (the per-layer tree over per-slot
-    per-layer int8 caches of one kv head: K6, K11 at rep 71) held to their
-    own Generator runs.  (The stacked tree's tokens part from the
-    per-layer tree's within a few steps on these random weights: each
-    layer's 0.2 % difference spreads to ~0.2 of the logits' norm through 8
-    layers, far past the near-ties SERVE_GAP_TOL names.)  Returns (kernel
-    rows, launches)."""
+    few requests through the batcher on the stacked tree (its stacked
+    decode over the per-slot stacked int8 pool of one kv head: K1, K10, K11
+    at rep 71; the prefill on K6) held to the stacked tree's own greedy
+    decode (serve_stacked).  (A per-layer tree is no reference for it: on
+    these random weights each layer's 0.2 % difference between the two
+    paths spreads to ~0.2 of the logits' norm through 8 layers, far past
+    the near-ties SERVE_GAP_TOL names.)  Returns (kernel rows, launches)."""
     import dataclasses
     import types
     from collections import Counter
@@ -7717,20 +8017,9 @@ def run_falcon(dev, card: str, cfg=None):
     small_f32_twin("falcon", "falcon", falcon, falcon.FalconConfig(
         vocab_size=512, hidden_size=576, num_hidden_layers=2, num_attention_heads=9,
         dtype="float32"), dev, card, 4)
-    prompts = serve_prompts(cfg, FAMILY_SERVE_REQUESTS, SEED + 97)
-    refs = [greedy_reference(falcon, packed, cfg, p, FAMILY_SERVE_NEW, dev, max_len=MAX_LEN,
-                             quant_kv=True) for p in prompts]
-    toks, used, m = serve_batch(falcon, packed, cfg, dev, prompts, new=FAMILY_SERVE_NEW,
-                                quant_kv=True)
-    n_l, steps = cfg.num_hidden_layers, m["decode_steps"]
-    _check_launches("falcon serving", used, {
-        "int4_group_matmul": 4 * n_l * (len(m["prefill_seqs"]) + steps),
-        "decode_attention_stacked": n_l * steps})
-    launches.update(used)
-    emit({"phase": "falcon_serving", "card": card, "layers": n_l, "tree": "per-layer W4A4",
-          "pool": "per-layer head-major int8 (effective_kv_heads)", "max_batch": MAX_BATCH,
-          "cache": MAX_LEN, **m, "launches": used,
-          "tokens": hold_tokens("falcon serving", toks, refs, SERVE_GAP_TOL)})
+    launches.update(serve_stacked("falcon_serving", falcon, stacked, cfg, dev, card,
+                                  FAMILY_SERVE_REQUESTS, FAMILY_SERVE_NEW, SEED + 97,
+                                  family_step_launches(cfg, MAX_BATCH, 4)))
     del packed, stacked
     torch.cuda.empty_cache()
     return rows, launches
@@ -7942,6 +8231,275 @@ def run_mistral(dev, card: str, cfg=None):
     return rows, launches
 
 
+# the rep-16 Llama stacked decode: Llama-2-7B's width with its 32 query heads
+# over 2 kv heads (rep 16, past the 8 rows a kv head K3 and K12 once took),
+# REP16_LAYERS layers of the serving pack, B = MAX_BATCH from DECODE_POS; its
+# small f32 twin (16 query heads of 64 over one kv head, hidden 1024), its
+# S-major step held layer by layer
+REP16_KV_HEADS, REP16_LAYERS = 2, 2
+
+
+def rep16_twin_config():
+    """The rep-16 phase's small f32 twin: rep 16 at head_dim 64 (f32
+    queries: K3's and K12's flash bodies, in two groups of 8 rows).  At
+    head_dim 128 the f32 roundings of K12 beside K11 moved an int4 code of
+    o_proj's input on the CPU's plain versions (0.034 of the logits' norm),
+    as W4A4 over random weights does at rounding edges."""
+    import dataclasses
+
+    from smoothquant_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.llama2_7b(), vocab_size=512,
+                               hidden_size=1024, intermediate_size=1024,
+                               num_attention_heads=16, num_key_value_heads=1,
+                               num_hidden_layers=REP16_LAYERS, dtype="float32")
+
+
+def llama_rep16_decode(dev, card, cfg=None, twin_cfg=None):
+    """A Llama of Llama-2-7B's width at 32 query heads over REP16_KV_HEADS
+    kv heads and REP16_LAYERS layers (cfg; bf16), and its small f32 twin
+    (twin_cfg, rep16_twin_config), each packed as the serving pack
+    (build_model): the stacked decode through Llama's gate at B = MAX_BATCH
+    from DECODE_POS over a random S-major int8 cache (K2 + K3) and over the
+    same codes and scales head-major, aligned, in fuse_attn "auto" (K12's
+    stacked body + K10) and "fused" (K12's write body), each step's
+    launches exactly step_launches' (so the gate admitted the shape and no
+    kernel raised), against the same tree's per-layer step (K6, K11 over
+    the head-major codes: the per-layer body's einsum over an S-major cache
+    reads it dequantized to bf16, other numerics than K3's), the whole
+    model and each layer alone (stacked_vs_per_layer): the twin's S-major
+    layers each held to STACKED_VS_PER_LAYER_TOL, the rest reported: the
+    twin's whole model, its "auto" / "fused" steps (K12 folds the new row in
+    last, and that f32 reorder's last bits move int4 codes at rounding
+    edges, which W4A4 spreads: on the card the twin's S-major layers read
+    1-3e-7 and its two layers 3.7e-4, its "auto" layer 0 4.4e-4 in one run
+    and its "fused" layer 0 0.084 in another), and the bf16 model (layers
+    0.27-0.31, as the CPU's plain versions read them)."""
+    import dataclasses
+
+    import torch
+
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.models.common import ForwardContext
+
+    cfg = cfg or dataclasses.replace(llama.LlamaConfig.llama2_7b(),
+                                     num_key_value_heads=REP16_KV_HEADS,
+                                     num_hidden_layers=REP16_LAYERS)
+    for tag, c in (("", cfg), ("_f32_small", twin_cfg or rep16_twin_config())):
+        t0 = time.perf_counter()
+        _, packed, stacked = build_model(c, dev, SEED + 115)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(SEED + 117)
+        n_kv, d, n_l = c.num_key_value_heads, c.head_dim, c.num_hidden_layers
+        for mode in ("smajor", "auto", "fused"):
+            base = _random_hm_cache(MAX_BATCH, n_kv, d, n_l, dev, gen)
+            per_layer, ctx = base, None if mode == "smajor" else ForwardContext(fuse_attn=mode)
+            if mode == "smajor":
+                base = dataclasses.replace(
+                    _random_cache(c, dev, gen, MAX_BATCH, MAX_LEN, n_l),
+                    k_scale=per_layer.k_scale.clone(), v_scale=per_layer.v_scale.clone(),
+                    pos=torch.full((n_l, MAX_BATCH), DECODE_POS, device=dev))
+                for f in ("k_q", "v_q"):
+                    t = getattr(per_layer, f)                       # (L, B, H_kv, S, D)
+                    getattr(base, f).copy_(t.transpose(2, 3).reshape(getattr(base, f).shape))
+            if not llama._prefetch_capable(stacked, c, ctx, base, 1):
+                raise AssertionError(f"llama rep16{tag} {mode}: the stacked decode's gate "
+                                     "declines")
+            expect = step_launches(c, MAX_BATCH, mode)
+            # the twin's layers over the S-major cache: K2 + K3 against K10 +
+            # K11 is one function, held to STACKED_VS_PER_LAYER_TOL.  K12 folds
+            # the new row in last, an f32 reorder whose last bits move int4
+            # codes of random weights, which W4A4 spreads: JAX pins its own
+            # parity test to fuse_attn "off" for it (tests/test_prefetch_scan.py:
+            # 41-45), so "auto" and "fused" are reported (k12_edges holds K12
+            # at rep 16 against its plain version)
+            tol = STACKED_VS_PER_LAYER_TOL if tag and mode == "smajor" else None
+            runs = stacked_vs_per_layer(llama, packed, stacked, c, dev, gen, MAX_BATCH, 4, ctx,
+                                        base=base, expect=expect, per_layer_base=per_layer)
+            stacked_vs_per_layer_phase(
+                f"llama_rep16_{mode}{tag}", runs, card, tol=tol, whole_tol=None, dtype=c.dtype,
+                heads=[c.num_attention_heads, n_kv, d], rep=c.num_attention_heads // n_kv,
+                layers=n_l, batch=MAX_BATCH, position=DECODE_POS, build_s=build_s,
+                launches_per_step=expect)
+            del base, per_layer, runs
+        del packed, stacked
+        torch.cuda.empty_cache()
+
+
+# the cluster phase: ClusterFrontend over CLUSTER_HOSTS replicas of the
+# serving pack's first SERVE_LAYERS layers on the one card (MAX_BATCH slots
+# each, S-major int8 pools), CLUSTER_REQUESTS prompts of SERVE_PROMPT tokens
+# and CLUSTER_NEW new ones, against the same requests on one host; then the
+# simulator (serve/sim.py) on skewed_trace(CLUSTER_SIM_TRACE, seed=
+# CLUSTER_SIM_SEED) at CLUSTER_SIM_HOSTS hosts under the measured costs
+CLUSTER_HOSTS, CLUSTER_REQUESTS, CLUSTER_NEW = 2, 12, 16
+CLUSTER_SIM_TRACE, CLUSTER_SIM_SEED, CLUSTER_SIM_HOSTS = 48, 3, (2, 4)
+
+
+def cluster_phase(prefill_tree, stacked, cfg, dev, card):
+    """The multi-host serving tier on the card: ClusterFrontend over 1 and
+    then CLUSTER_HOSTS replicas of ContinuousBatcher(stacked, prefill on
+    prefill_tree, MAX_BATCH slots, S-major int8 pool), the same requests on
+    each; every request's tokens identical across the two runs, each run's
+    launches those of its prefills and decode steps (K1, K2, K3 and the
+    int8 lm_head's K4 a step; K6 and K4 a prefill).  The replicas share the
+    card and step in turn, each one's busy time kept apart: cluster
+    tokens/s is total tokens over the busiest replica's busy time (what
+    hosts stepping concurrently would give).  A CostModel from the 1-host
+    run's measured decode-step and prefill-per-token seconds then drives
+    scaling_efficiency on the skewed trace at CLUSTER_SIM_HOSTS hosts:
+    simulated numbers, labeled so.  Returns the launches of both runs."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.kernels.real_linear import PREFILL_KERNEL_MIN_TOKENS
+    from smoothquant_tpu_torch.models import llama
+    from smoothquant_tpu_torch.serve import (
+        ClusterFrontend,
+        ContinuousBatcher,
+        CostModel,
+        Request,
+        scaling_efficiency,
+        skewed_trace,
+    )
+
+    n_l = cfg.num_hidden_layers
+    prompts = serve_prompts(cfg, CLUSTER_REQUESTS, SEED + 119)
+    launches, runs = Counter(), {}
+    for n_hosts in (1, CLUSTER_HOSTS):
+        cost = {"prefill_s": 0.0, "prefill_rows": 0, "prefill_seqs": [], "decode_s": 0.0,
+                "decode_steps": 0}
+
+        def make_batcher(host_id, cost=cost):
+            b = ContinuousBatcher(llama, stacked, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                                  quant_kv=True, smajor=True, prefill_params=prefill_tree,
+                                  device=dev)
+            prefill, decode = b._prefill, b._decode
+
+            def timed_prefill(ids, lens):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = prefill(ids, lens)          # its first tokens come back to the host
+                cost["prefill_s"] += time.perf_counter() - t0
+                cost["prefill_rows"] += ids.shape[0] * ids.shape[1]
+                cost["prefill_seqs"].append(ids.shape[0])
+                return r
+
+            def timed_decode(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = decode(*a)
+                torch.cuda.synchronize()
+                cost["decode_s"] += time.perf_counter() - t0
+                cost["decode_steps"] += 1
+                return r
+
+            b._prefill, b._decode = timed_prefill, timed_decode
+            return b
+
+        front = ClusterFrontend(make_batcher, n_hosts)
+        reqs = [Request(uid=i, prompt=np.asarray(p), max_new_tokens=CLUSTER_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            front.submit(r)
+        routed = [len(rep.requests) for rep in front.replicas]
+        t0 = time.perf_counter()
+        done, used = _path_launches(front.run_to_completion)
+        wall = time.perf_counter() - t0
+        if not (len(done) == len(reqs) and all(r.done and len(r.generated) == CLUSTER_NEW
+                                               and all(0 <= t < cfg.vocab_size
+                                                       for t in r.generated) for r in reqs)):
+            raise AssertionError(f"cluster {n_hosts} hosts: unfinished request or token "
+                                 "out of range")
+        steps = cost["decode_steps"]
+        expect = {k: v * steps for k, v in step_launches(cfg, MAX_BATCH, "smajor").items()}
+        expect["int4_group_matmul"] = 4 * n_l * len(cost["prefill_seqs"])
+        expect["int8_prefill_matmul"] = expect.get("int8_prefill_matmul", 0) + sum(
+            n >= PREFILL_KERNEL_MIN_TOKENS for n in cost["prefill_seqs"])
+        _check_launches(f"cluster {n_hosts} hosts", used, expect)
+        launches.update(used)
+        runs[n_hosts] = dict(front=front, reqs=reqs, cost=cost, wall=wall, routed=routed,
+                             launches=used)
+    one, many = runs[1], runs[CLUSTER_HOSTS]
+    differ = [r1.uid for r1, r2 in zip(one["reqs"], many["reqs"]) if r1.generated != r2.generated]
+    if differ:
+        raise AssertionError(f"cluster: requests {differ} gave other tokens on "
+                             f"{CLUSTER_HOSTS} hosts than on one")
+    base = one["front"].stats()
+    c = one["cost"]
+    model = CostModel(decode_step_s=c["decode_s"] / c["decode_steps"],
+                      prefill_s_per_token=c["prefill_s"] / c["prefill_rows"])
+    emit({"phase": "cluster", "card": card, "layers": n_l, "tree": "W4A4 serving pack, stacked",
+          "pool": "S-major int8", "max_batch": MAX_BATCH, "cache": MAX_LEN,
+          "requests": CLUSTER_REQUESTS, "new_tokens": CLUSTER_NEW,
+          "tokens_identical_to_one_host": True,
+          "replicas": "one card, stepped in turn; each replica's busy time its own",
+          **{f"hosts_{n}": dict(r["front"].stats(
+              baseline_tokens_per_s=None if n == 1 else base["cluster_tokens_per_s"]),
+              routed=r["routed"], wall_s=r["wall"], decode_steps=r["cost"]["decode_steps"],
+              prefill_seqs=r["cost"]["prefill_seqs"], launches=r["launches"])
+             for n, r in runs.items()},
+          "cost_model": dict(decode_step_s=model.decode_step_s,
+                             prefill_s_per_token=model.prefill_s_per_token,
+                             prefill_base_s=model.prefill_base_s,
+                             measured="the 1-host run's decode steps and prefills, host "
+                                      "clock after synchronize")})
+    trace = skewed_trace(CLUSTER_SIM_TRACE, seed=CLUSTER_SIM_SEED)
+    sims = {}
+    for n in CLUSTER_SIM_HOSTS:
+        r = scaling_efficiency(trace, model, n)
+        sims[f"hosts_{n}"] = dict(
+            scaling_efficiency=r["scaling_efficiency"],
+            routing_imbalance=r["routing_imbalance"],
+            admission_occupancy=r["admission_occupancy"],
+            tokens_per_s=r["n_host"]["tokens_per_s"],
+            one_host_tokens_per_s=r["one_host"]["tokens_per_s"],
+            makespan_s=r["n_host"]["makespan_s"])
+    emit({"phase": "cluster_sim", "simulated": True, "card": card,
+          "trace": f"skewed_trace({CLUSTER_SIM_TRACE}, seed={CLUSTER_SIM_SEED})",
+          "cost_model_from": "the cluster phase's 1-host run", **sims})
+    return launches
+
+
+def run_examples(dev, card):
+    """The port's three examples in this process at their tiny sizes on
+    `dev` (serving_demo, opt_demo --random, cluster_demo; `--device cuda` on
+    the card),
+    their printed lines kept out of this script's output: every request
+    finished with its tokens in range, the perplexities finite."""
+    import contextlib
+    import io
+    import math
+
+    from smoothquant_tpu_torch.examples import cluster_demo, opt_demo, serving_demo
+
+    out, seconds = {}, {}
+    where = ["--device", dev.type]
+    for name, fn in (("serving_demo", lambda: serving_demo.main(where)),
+                     ("opt_demo", lambda: opt_demo.main(["--random", *where])),
+                     ("cluster_demo", lambda: cluster_demo.main(where))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        seconds[f"{name}_lines"] = len(buf.getvalue().splitlines())
+    served = out["serving_demo"] + out["cluster_demo"]["requests"]
+    if not (len(out["serving_demo"]) == 4 and len(out["cluster_demo"]["requests"]) == 8
+            and all(r.done and len(r.generated) == 6 and all(0 <= t < 256 for t in r.generated)
+                    for r in served)
+            and out["cluster_demo"]["stats"]["requests_done"] == 8
+            and all(math.isfinite(v) and v > 1 for v in out["opt_demo"].values())):
+        raise AssertionError(f"examples: unexpected results {out}")
+    emit({"phase": "examples", "card": card, "seconds": seconds,
+          "serving_demo_tokens": [r.generated for r in out["serving_demo"]],
+          "opt_demo_ppl": out["opt_demo"],
+          "cluster_demo_tokens_per_s": out["cluster_demo"]["stats"]["cluster_tokens_per_s"]})
+
+
 def run(dev, cfg, card: str):
     """Every Llama phase on `dev` at the size of `cfg`; returns (kernel rows,
     the main paths' launches)."""
@@ -7968,16 +8526,18 @@ def run(dev, cfg, card: str):
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     rows = (check_rawx(stacked, dev, gen) + check_gmm(packed, cfg, dev, gen)
             + check_write_cache(cfg, dev, gen) + check_decode_attention(cfg, dev, gen)
-            + check_decode_attention_hm(cfg, dev, gen)
-            + check_decode_attention_hm(
-                cfg, dev, gen, b=SLOT_BATCH, bodies=("int8",), main=False,
-                pos=torch.randint(100, MAX_LEN, (SLOT_BATCH,), generator=gen, device=dev)))
-    for n in (16, MID_BATCH):
-        rows += check_rawx(stacked, dev, gen, n)
-    rows += (check_act_prep(stacked, dev, gen) + check_act_prep(stacked, dev, gen, 8, False)
-             + check_act_prep(stacked, dev, gen, MID_BATCH, False)
-             + check_gmm_stacked(stacked, dev, gen)
-             + check_gmm_stacked(stacked, dev, gen, n=33, main=False)
+            + check_decode_attention_hm(cfg, dev, gen))
+    # the rows out of the kernels line's sums time with 2 repetitions since
+    # PR 21 (_few_reps): the run's 1200 s limit
+    rows += _few_reps(lambda: check_decode_attention_hm(
+        cfg, dev, gen, b=SLOT_BATCH, bodies=("int8",), main=False,
+        pos=torch.randint(100, MAX_LEN, (SLOT_BATCH,), generator=gen, device=dev))
+        + [r for n in (16, MID_BATCH) for r in check_rawx(stacked, dev, gen, n)])
+    rows += check_act_prep(stacked, dev, gen)
+    rows += _few_reps(lambda: check_act_prep(stacked, dev, gen, 8, False)
+                      + check_act_prep(stacked, dev, gen, MID_BATCH, False))
+    rows += (check_gmm_stacked(stacked, dev, gen)
+             + _few_reps(lambda: check_gmm_stacked(stacked, dev, gen, n=33, main=False))
              + check_write_cache_hm(dev, gen, SLOT_BATCH, cfg.num_key_value_heads, cfg.head_dim)
              + check_fused_attn(cfg, dev, gen)
              + check_mlp_fused(stacked, dev, gen))
@@ -7994,8 +8554,11 @@ def run(dev, cfg, card: str):
     emit({"phase": "k7_edges", **check_k7_edges(dev)})
     emit({"phase": "k7_k5_chain", "card": card, **check_k7_k5_chain(stacked, dev, gen)})
     emit({"phase": "k11_edges", **check_k11_edges(dev)})
-    emit({"phase": "k3_edges", **check_k3_edges(dev)})
-    emit({"phase": "k12_edges", **check_k12_edges(dev)})
+    for name, check in (("k3_edges", check_k3_edges), ("k12_edges", check_k12_edges)):
+        edges = check(dev)
+        rows += edges.pop("any_rep_rows")
+        emit({"phase": name, **edges})
+    llama_rep16_decode(dev, card)
     emit({"phase": "kv_write_edges", **check_kv_write_edges(dev)})
     emit({"phase": "k1_vs_k5", "card": card, "rawx_max_n": RAWX_MAX_N,
           **k1_vs_k5(stacked, dev, gen)})
@@ -8041,6 +8604,7 @@ def run(dev, cfg, card: str):
     sp_packed, sp_cfg = first_layers(packed, cfg)
     launches.update(serve_per_layer(sp_packed, first_layers(promoted, cfg)[0], sp_cfg, dev,
                                     card))
+    launches.update(cluster_phase(sp_packed, first_layers(stacked, cfg)[0], sp_cfg, dev, card))
     del sp_packed
 
     del packed
@@ -8163,6 +8727,8 @@ def main() -> int:
     mixtral_rows, mixtral_launches = run_mixtral(dev, card)
     torch.cuda.empty_cache()
     bloom_rows, bloom_launches = run_bloom(dev, bloom_7b1(), card)
+    torch.cuda.empty_cache()
+    run_examples(dev, card)
     rows = rows + more_rows + mistral_rows + falcon_rows + mixtral_rows + bloom_rows
     emit({"phase": "scaling_floors", "card": card, "sm_clock_mhz": clock,
           "rows": add_scaling_floors(rows, clock)})

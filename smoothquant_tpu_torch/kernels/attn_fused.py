@@ -23,8 +23,12 @@ K12 — port of smoothquant_tpu/kernels/attn_fused.py _fused_attn_call
     write body writes the row at pos (clamped to S − 1, as K10) IN PLACE;
     the JAX function returns new buffers.
 
-int8_dots (the opt-in int8 BMMs) is on no path of the port and raises; no
-caller sets another softmax scale than 1/√D.  CUDA source:
+int8_dots (the opt-in int8 BMMs) is on no path of the port and raises.
+The softmax scale is the caller's (default 1/√D, as the JAX kernel's), and
+GQA takes any rep (the JAX kernel pads rep to a multiple of 8): above 8
+query rows a kv head both designs run groups of 8 (grid z, as K11's), each
+folding the new position in itself; only group 0 writes the row.  CUDA
+source:
 csrc/attn_fused.cu, two designs picked as K11's are (decode_attention.plan):
 bf16 queries at D = 64 / 128 take the split-S cluster body
 (csrc/split_decode.cuh: each rank's row range known from the scalar
@@ -82,7 +86,8 @@ def new_row_codes(k_new, v_new, cos, sin, *, rotary: bool = True):
 
 def fused_attn_plain(layer_idx: int, pos, q, k_new, v_new, cos, sin, k_q, v_q, k_scale,
                      v_scale, *, rotary: bool = True, flat: bool = False,
-                     write_cache: bool = False) -> torch.Tensor:
+                     write_cache: bool = False,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch K12 (the wrapper's arguments): the old cache's tiles,
     then the new position folded in last; the write body writes the row in
     place.  Returns attention in q's dtype and shape."""
@@ -97,10 +102,12 @@ def fused_attn_plain(layer_idx: int, pos, q, k_new, v_new, cos, sin, k_q, v_q, k
     p = int(torch.as_tensor(pos).reshape(()))
     bias = torch.where(torch.arange(s, device=q.device) < p, 0.0, NEG_INF)
     bias = bias.to(torch.float32)[None].expand(b, s)
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
     m, l_sum, acc = online_softmax_tiles(qf, k_q[layer_idx], v_q[layer_idx], bias,
-                                         k_scale[layer_idx], v_scale[layer_idx])
+                                         k_scale[layer_idx], v_scale[layer_idx],
+                                         sm_scale=scale)
     s_v = torch.einsum("bgrd,bgd->bgr", qf, k8.float())[..., None]
-    s_v = s_v * (1.0 / math.sqrt(d)) * ksc[..., None, None]
+    s_v = s_v * scale * ksc[..., None, None]
     m_safe = torch.clamp_min(torch.maximum(m, s_v), NEG_INF / 2)
     alpha = torch.exp(m - m_safe)
     p_v = torch.exp(s_v - m_safe)
@@ -122,12 +129,10 @@ def _fused_attn(layer_idx, pos, q, k_new, v_new, cos, sin, k_q, v_q, k_scale, v_
                 rotary, flat, write_cache, sm_scale, int8_dots, body, split):
     if int8_dots:
         raise NotImplementedError("K12's int8_dots mode is not ported")
-    if sm_scale is not None and sm_scale != 1.0 / math.sqrt(k_q.shape[-1]):
-        raise NotImplementedError("K12 takes the softmax scale 1/sqrt(D) only")
     if q.device.type == "cpu":
         return fused_attn_plain(layer_idx, pos, q, k_new, v_new, cos, sin, k_q, v_q,
                                 k_scale, v_scale, rotary=rotary, flat=flat,
-                                write_cache=write_cache)
+                                write_cache=write_cache, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     if k_q.ndim != 5:
@@ -140,6 +145,7 @@ def _fused_attn(layer_idx, pos, q, k_new, v_new, cos, sin, k_q, v_q, k_scale, v_
         raise ValueError(f"K12 does not take q {tuple(q.shape)}, k {tuple(k_new.shape)} over "
                          f"cache {tuple(k_q.shape)} (the flat body MHA only)")
     chosen, c = plan("K12", q.dtype, b * n_kv, s, d, h // n_kv, body, split)
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
     ts = _pick_tile_s(s)
     for t, dt in ((k_q, torch.int8), (v_q, torch.int8),
                   (k_scale, torch.float32), (v_scale, torch.float32)):
@@ -171,11 +177,11 @@ def _fused_attn(layer_idx, pos, q, k_new, v_new, cos, sin, k_q, v_q, k_scale, v_
     if chosen == "split":
         _build.check(_build.lib().sq_fused_attn_split(
             *ptrs, b, h, n_kv, s, d, ts, c.bit_length() - 1, int(rotary), tab_stride, int(flat),
-            int(write_cache), 1.0 / math.sqrt(d), _build.stream_ptr(q)), "sq_fused_attn_split")
+            int(write_cache), scale, _build.stream_ptr(q)), "sq_fused_attn_split")
     else:
         _build.check(_build.lib().sq_fused_attn(
             *ptrs, b, h, n_kv, s, d, ts, int(rotary), tab_stride, int(flat), int(write_cache),
-            1.0 / math.sqrt(d), _build.dt_code(q), _build.stream_ptr(q)), "sq_fused_attn")
+            scale, _build.dt_code(q), _build.stream_ptr(q)), "sq_fused_attn")
     _build.LAUNCHES[LAUNCH_KEYS[chosen]] += 1
     return out
 

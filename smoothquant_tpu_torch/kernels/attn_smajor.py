@@ -14,9 +14,11 @@ K2  write_quant_cache_smajor — port of smoothquant_tpu/kernels/
     (kv_write.py, csrc/kv_quant.cuh); the first design stays as
     body="warps".
 K3 decode_attention_smajor_stacked — port of :169 (pallas_call :213).
-    scores = q·k·(1/√D)·k_scale + bias, the TPU kernel's online softmax
-    over tiles of _pick_tile_s(S) positions (p against the running max of
-    its tile), p·v_scale rounded to bf16 there, PV, GQA; a fully masked row
+    scores = q·k·sm_scale·k_scale + bias (sm_scale default 1/√D, as the
+    JAX kernel's), the TPU kernel's online softmax over tiles of
+    _pick_tile_s(S) positions (p against the running max of its tile),
+    p·v_scale rounded to bf16 there, PV, GQA at any rep (above 8 query rows
+    a kv head the bodies run groups of 8, as K11's); a fully masked row
     outputs 0.  Two bodies, picked as K11's are (decode_attention.plan):
     bf16 queries at D = 64 / 128 take the split-S cluster body
     (csrc/split_decode.cuh, its rows by 2-D TMA boxes), f32 queries and
@@ -31,6 +33,7 @@ kernel or raises.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -171,7 +174,7 @@ def write_quant_cache_smajor(layer_idx: int, pos, k_new, v_new, cos, sin, k_sm, 
 
 
 def decode_attention_smajor_plain(layer_idx: int, q, k_sm, v_sm, bias,
-                                  k_scale, v_scale):
+                                  k_scale, v_scale, sm_scale=None):
     """Plain PyTorch K3 (same arguments as the wrapper): the TPU kernel's
     online softmax over tiles of _pick_tile_s(S) positions, on the S-major
     layer viewed head-major ((B, S, H_kv, D) → (B, H_kv, S, D))."""
@@ -181,7 +184,8 @@ def decode_attention_smajor_plain(layer_idx: int, q, k_sm, v_sm, bias,
     head_major = lambda t: t[layer_idx].reshape(b, s, n_kv, d).transpose(1, 2)
     qf = q.float().reshape(b, n_kv, h // n_kv, d)
     _, l_sum, acc = online_softmax_tiles(qf, head_major(k_sm), head_major(v_sm), bias,
-                                         k_scale[layer_idx], v_scale[layer_idx])
+                                         k_scale[layer_idx], v_scale[layer_idx],
+                                         sm_scale=sm_scale)
     denom = torch.where(l_sum > 0.0, l_sum, torch.ones_like(l_sum))
     return (acc / denom).reshape(b, h, d).to(q.dtype)
 
@@ -195,16 +199,18 @@ def decode_attention_smajor_stacked(
     k_scale: torch.Tensor,    # (L, B, H_kv, S) f32
     v_scale: torch.Tensor,
     *,
+    sm_scale: Optional[float] = None,
     body: Optional[str] = None,
     split: Optional[int] = None,
 ) -> torch.Tensor:
-    """(B, H, D) attention of layer `layer_idx` over the S-major cache,
-    softmax scale 1/sqrt(D).  `body` ("split" / "flash") and `split` (the
-    split body's ranks) override the shape rules for measurements; a forced
-    body or split raises on a shape it does not take."""
+    """(B, H, D) attention of layer `layer_idx` over the S-major cache;
+    sm_scale the score scale (default 1/√D).  `body` ("split" / "flash")
+    and `split` (the split body's ranks, over B·H_kv·rep_groups clusters)
+    override the shape rules for measurements; a forced body or split
+    raises on a shape it does not take."""
     if q.device.type == "cpu":
         return decode_attention_smajor_plain(layer_idx, q, k_sm, v_sm, bias,
-                                             k_scale, v_scale)
+                                             k_scale, v_scale, sm_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
     b, h, d = q.shape
@@ -213,6 +219,7 @@ def decode_attention_smajor_stacked(
     if b2 != b or hd % d or h % n_kv or v_sm.shape != k_sm.shape:
         raise ValueError(f"K3 does not take q {tuple(q.shape)} over cache {tuple(k_sm.shape)}")
     chosen, c = plan("K3", q.dtype, b * n_kv, s, d, h // n_kv, body, split)
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
     _check_cache(q.device, k_sm, v_sm, k_scale, v_scale)
     q = q.contiguous()
     bias = bias.float().contiguous()
@@ -226,11 +233,11 @@ def decode_attention_smajor_stacked(
     ts = _pick_tile_s(s)
     if chosen == "split":
         _build.check(_build.lib().sq_decode_attn_smajor_split(
-            *ptrs, b, h, n_kv, s, d, ts, c.bit_length() - 1, 1.0 / (d ** 0.5),
+            *ptrs, b, h, n_kv, s, d, ts, c.bit_length() - 1, scale,
             _build.stream_ptr(q)), "sq_decode_attn_smajor_split")
     else:
         _build.check(_build.lib().sq_decode_attn_smajor(
-            *ptrs, b, h, n_kv, s, d, ts, 1.0 / (d ** 0.5), _build.dt_code(q),
+            *ptrs, b, h, n_kv, s, d, ts, scale, _build.dt_code(q),
             _build.stream_ptr(q)), "sq_decode_attn_smajor")
     _build.LAUNCHES[LAUNCH_KEYS[chosen]] += 1
     return out

@@ -39,9 +39,22 @@
 //   m_safe = max(m', NEG_INF/2),  α = exp(m − m_safe),  p = exp(s_v − m_safe),
 //   l' = l·α + p,  acc' = acc·α + bf16(p·v_scale_new)·v_new,
 // and out = acc' / l'.  The flash write body writes its row after every read
-// of the block: no other block reads (slot, kv head)'s rows, and the row at
-// pos is masked for attention in any case (its probability would be exactly
-// 0).
+// of the block: no other block of its group reads (slot, kv head)'s rows,
+// and the row at pos is masked for attention in any case (its probability
+// would be exactly 0).
+//
+// Any GQA rep (the JAX kernel pads rep to a multiple of 8): above 8 query
+// rows a kv head both designs run the rows in groups of 8 as grid z, a
+// block (flash, its shared memory sized by the group) or a cluster (split)
+// each, every group reading the kv head's old rows again (from the L2 after
+// the first).  Each group quantizes the new k / v itself and folds the new
+// position in from registers and shared memory, never from the cache; only
+// group 0 stores the row and its scales, after its own last read.  The row
+// lies at pos, which no group reads while pos < S; at a clamped position
+// (pos >= S, the cache full, which the Generator and the batcher refuse
+// before it happens) another group may read row S - 1 after group 0 stored
+// it.  A rep of 8 or less is one group: the bodies and bits of before.  The
+// softmax scale is the caller's (default 1/√D).
 #include "flash_decode.cuh"
 #include "kv_quant.cuh"
 #include "split_decode.cuh"
@@ -58,7 +71,9 @@ fused_attn_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
                   int rotary, int tab_stride, float sm_scale) {
   constexpr int D = 32 * DPL;
   extern __shared__ float smem[];
-  const int rep = H / Hkv;
+  const int rep_all = H / Hkv;
+  const int r0 = blockIdx.z * FLASH_MAX_REP;      // the group's first query row
+  const int rep = min(rep_all - r0, FLASH_MAX_REP);
   float* sc = smem;                              // (rep, S) scores, then rounded p
   float* part = sc + rep * S;                    // (WARPS, rep, D) PV partials
   float* alpha = part + FLASH_WARPS * rep * D;   // (rep, n_tiles) tile rescale factors
@@ -87,7 +102,7 @@ fused_attn_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
 #pragma unroll
     for (int t = 0; t < DPL; ++t) {
       const int d = lane * DPL + t;
-      const TQ* qr = q + ((size_t)b * H + kvh * rep + r) * D;
+      const TQ* qr = q + ((size_t)b * H + kvh * rep_all + r0 + r) * D;
       float x = 0.0f;
       if (r < rep) {
         x = to_f<TQ>(qr[d]);
@@ -138,9 +153,9 @@ fused_attn_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
     float sum = 0.0f;
     for (int w = 0; w < FLASH_WARPS; ++w) sum += part[(w * rep + r) * D + d];
     sum = fmaf(p_v[r], (float)v8[d], sum);
-    out[((size_t)b * H + kvh * rep + r) * D + d] = from_f<TQ>(sum / denom[r]);
+    out[((size_t)b * H + kvh * rep_all + r0 + r) * D + d] = from_f<TQ>(sum / denom[r]);
   }
-  if (WRITE) {  // after the block's last read of the cache
+  if (WRITE && blockIdx.z == 0) {  // group 0 only, after its last read of the cache
     const int row = pos < 0 ? 0 : (pos > S - 1 ? S - 1 : pos);
     const size_t at = head * S + row;
     for (int d = threadIdx.x; d < D; d += blockDim.x) {
@@ -163,14 +178,16 @@ struct FusedAttnArgs {
 
 template <typename TQ, bool FLAT, bool WRITE, int DPL>
 int launch_fused(const FusedAttnArgs& a, cudaStream_t st) {
-  const size_t smem = flash_smem_bytes(a.H / a.Hkv, a.S, 32 * DPL, a.ts);
+  const int rep = a.H / a.Hkv, groups = (rep + FLASH_MAX_REP - 1) / FLASH_MAX_REP;
+  const size_t smem =
+      flash_smem_bytes(rep < FLASH_MAX_REP ? rep : FLASH_MAX_REP, a.S, 32 * DPL, a.ts);
   auto kern = fused_attn_kernel<TQ, FLAT, WRITE, DPL>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<dim3(a.B, a.Hkv), FLASH_THREADS, smem, st>>>(
+  kern<<<dim3(a.B, a.Hkv, groups), FLASH_THREADS, smem, st>>>(
       (const TQ*)a.q, (const TQ*)a.k_new, (const TQ*)a.v_new, (const float*)a.cos_t,
       (const float*)a.sin_t, (const int*)a.pos, (int8_t*)a.kq, (int8_t*)a.vq, (float*)a.ks,
       (float*)a.vs, (TQ*)a.out, a.H, a.Hkv, a.S, a.ts, a.rotary, a.tab_stride, a.sm_scale);
@@ -212,7 +229,8 @@ SQ_EXPORT int sq_fused_attn(const void* q, const void* k_new, const void* v_new,
                             int S, int D, int ts, int rotary, int tab_stride, int flat,
                             int write, float sm_scale, int q_dt, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!flash_shape_ok(H, Hkv, S, ts) || D > 32 * KVQ_MAX_D_PER_LANE || (flat && (write || H != Hkv)))
+  if (!flash_shape_ok(H, Hkv, S, ts) || D > 32 * KVQ_MAX_D_PER_LANE ||
+      (flat && (write || H != Hkv)))
     return (int)cudaErrorInvalidValue;
   const FusedAttnArgs a{q, k_new, v_new, cos_t, sin_t, pos, kq, vq, ks, vs, out,
                         B, H, Hkv, S, ts, rotary, tab_stride, sm_scale};

@@ -37,6 +37,12 @@
 //          encoded per call on the host (the layer's base moves);
 //   flash  f32 queries and head_dim 256: flash_decode.cuh's block a (slot,
 //          kv head) with rows H_kv·D apart, masked rows never loaded.
+// Any GQA rep (the JAX kernel takes multiples of 8 above 8): above 8 query
+// rows a kv head both bodies run the rows in groups of 8 as grid z (a
+// cluster or block each), each group reading the kv head's rows again
+// (from the L2 after the first), as K11 does; a rep of 8 or less is one
+// group, the bodies and bits of before.  The softmax scale is the
+// caller's (default 1/√D).
 #include "flash_decode.cuh"
 #include "split_decode.cuh"   // (includes kv_quant.cuh)
 

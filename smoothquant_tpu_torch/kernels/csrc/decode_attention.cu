@@ -34,7 +34,7 @@ SQ_EXPORT int sq_decode_attn(const void* q, const void* k, const void* v, const 
                              int B, int H, int Hkv, int S, int D, int ts, float sm_scale, int q_dt,
                              int quant, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!flash_shape_ok(H, Hkv, S, ts, true) || (slopes != nullptr && H != Hkv))
+  if (!flash_shape_ok(H, Hkv, S, ts) || (slopes != nullptr && H != Hkv))
     return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   if (quant && q_dt == DT_BF16)
@@ -63,7 +63,7 @@ SQ_EXPORT int sq_decode_attn_split(const void* q, const void* k, const void* v, 
                                    void* out, int B, int H, int Hkv, int S, int D, int ts,
                                    int lsplit, float sm_scale, int quant, void* stream) {
   SdArgs a = {};
-  if (!sd_plan(a, B, H, Hkv, S, ts, lsplit, true) || (slopes != nullptr && H != Hkv))
+  if (!sd_plan(a, B, H, Hkv, S, ts, lsplit) || (slopes != nullptr && H != Hkv))
     return (int)cudaErrorInvalidValue;
   a.q = (const __nv_bfloat16*)q;
   a.k = k;

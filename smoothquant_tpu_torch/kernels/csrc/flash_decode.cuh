@@ -3,7 +3,7 @@
 // share, for the shapes their split-S bodies (split_decode.cuh) do not take.
 // One block of WARPS warps serves the rep = H / H_kv query heads of its kv
 // head, so every cache byte is read once; above FLASH_MAX_REP query heads a
-// kv head (K11 only: Falcon-7B's 71 over one) the rows split into groups
+// kv head (Falcon-7B's 71 over one; K11, K3 and K12) the rows split into groups
 // of FLASH_MAX_REP, a block each (grid z), so registers and shared memory
 // stay those of rep 8 and the groups re-read the rows; a lane holds DPL consecutive
 // elements of a row (a warp reads a row whole).  A head's rows lie `stride`
@@ -218,8 +218,8 @@ inline size_t flash_smem_bytes(int rep, int S, int D, int ts) {
          sizeof(float);
 }
 
-inline bool flash_shape_ok(int H, int Hkv, int S, int ts, bool any_rep = false) {
-  return !(H % Hkv || (!any_rep && H / Hkv > FLASH_MAX_REP) || ts < FLASH_WARPS * FLASH_UNROLL ||
+inline bool flash_shape_ok(int H, int Hkv, int S, int ts) {
+  return !(H % Hkv || ts < FLASH_WARPS * FLASH_UNROLL ||
            ts % (FLASH_WARPS * FLASH_UNROLL) || S % ts || S / ts > FLASH_MAX_TILES);
 }
 

@@ -49,8 +49,9 @@
 //     (8 for int8 at D = 128, 16 for bf16), so a position's dot costs
 //     log2(LPR) = 3-4 shuffles, shared by the 32 / LPR rows a warp holds.
 //     The register arrays are sized by the REP template (1, 2, 4, 8 query
-//     rows a kv head), not by the flash body's largest rep.  K11 takes any
-//     rep (Falcon-7B: 71 query heads over one kv head): the rep query rows
+//     rows a kv head), not by the flash body's largest rep.  K11, K3 and
+//     K12 take any rep (Falcon-7B: 71 query heads over one kv head; a
+//     Llama of 32 query heads over 2 kv heads: 16): the rep query rows
 //     of a kv head split into groups of up to SD_MAX_REP (grid z), each
 //     group a cluster of its own that reads the same k / v rows — a
 //     (slot, kv head)'s rows are read ⌈rep / 8⌉ times, from the L2 after
@@ -87,8 +88,11 @@
 // last tile, which every rank scans anyway.  Folding on every rank costs two
 // warps a D-vector each and keeps the rank-sliced output stores; one rank
 // folding would first gather every slice.  The write body's row belongs to
-// one rank's chunk: that rank writes it after its last read of the cache (no
-// other CTA reads the rows of its chunk).
+// one rank's chunk: that rank of group 0 writes it after its last read of
+// the cache (no other CTA of the group reads the rows of its chunk, and
+// every group folds the row in from its own registers; at a clamped
+// position, pos >= S, another group may read row S − 1 after it is written).
+// Above SD_MAX_REP query rows a kv head, K3 and K12 run groups as K11 does.
 // No runtime integer division anywhere (it compiles to I2F): the split and
 // the tile width are powers of two, taken by shifts.
 #pragma once
@@ -663,11 +667,11 @@ split_decode_kernel(const SdArgs a, const __grid_constant__ SdMaps maps) {
                                               bf16_pair(s.z / den, s.w / den));
   }
 
-  // K12's write body: the new row at min(pos, S − 1), by the rank whose
-  // chunk holds it, after its last read of the cache
+  // K12's write body: the new row at min(pos, S − 1), by the rank of group 0
+  // whose chunk holds it, after its last read of the cache
   if constexpr (M::write) {
     const int w = min(max(pos, 0), a.S - 1) - c0;
-    if (w >= 0 && w < n) {
+    if (blockIdx.z == 0 && w >= 0 && w < n) {   // group 0 only (every group folds it in)
       const size_t at = head * a.S + c0 + w;
       if (tid < D / 16) {
         reinterpret_cast<uint4*>(const_cast<void*>(a.k))[at * (D / 16) + tid] =
@@ -732,14 +736,13 @@ int sd_by_dim(int D, const SdArgs& a, const SdMaps& m, int B, cudaStream_t st) {
 // The shape checks every mode shares, and the planned split into a's
 // chunk / lsplit / lts / n_tiles: S split over (1 << lsplit) ranks of chunks
 // that are multiples of 16 positions (at most SD_MAX_CHUNK), softmax tiles
-// of ts (a power of two) positions; rep <= SD_MAX_REP unless any_rep (K11,
-// whose groups of SD_MAX_REP rows run as grid z)
-inline bool sd_plan(SdArgs& a, int B, int H, int Hkv, int S, int ts, int lsplit,
-                    bool any_rep = false) {
+// of ts (a power of two) positions; any rep (groups of SD_MAX_REP rows run
+// as grid z)
+inline bool sd_plan(SdArgs& a, int B, int H, int Hkv, int S, int ts, int lsplit) {
   int lts = 0;
   while ((1 << lts) < ts) ++lts;
   const int chunk = lsplit >= 0 && lsplit <= 3 ? S >> lsplit : 0;
-  if (B < 1 || Hkv < 1 || H % Hkv || (!any_rep && H / Hkv > SD_MAX_REP) || chunk < 16 ||
+  if (B < 1 || Hkv < 1 || H % Hkv || chunk < 16 ||
       (1 << lts) != ts || S % ts || S / ts > SD_MAX_TILES || (chunk << lsplit) != S ||
       chunk % 16 || chunk > SD_MAX_CHUNK)
     return false;

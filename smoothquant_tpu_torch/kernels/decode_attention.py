@@ -23,7 +23,8 @@ int8_dots (the opt-in int8 BMMs) has no caller in the port and raises.  Any
 GQA / MQA rep the JAX kernel takes (H % H_kv == 0; Falcon-7B's 71 query
 heads over one kv head): above 8 query rows a kv head both bodies run the
 rows in groups of 8 (grid z), each group a block (flash) or cluster
-(split) that reads the kv head's rows again.  CUDA source:
+(split) that reads the kv head's rows again; K3 and K12 run the same
+groups (plan).  CUDA source:
 csrc/decode_attention.cu, two bodies picked by a shape rule (attn_body):
 bf16 queries at D = 64 / 128 take the split-S cluster body
 (csrc/split_decode.cuh: the positions split over split_ranks(B·H_kv, S)
@@ -114,21 +115,21 @@ def split_ranks(heads: int, s: int) -> int:
 
 
 def plan(kernel: str, q_dtype, heads: int, s: int, d: int, rep: int,
-         body: Optional[str] = None, split: Optional[int] = None,
-         any_rep: bool = False) -> tuple[str, int]:
+         body: Optional[str] = None, split: Optional[int] = None) -> tuple[str, int]:
     """(body, cluster ranks) of a call of `kernel` (K11, K3, K12: each runs
     the split body of split_decode.cuh or the flash body of flash_decode.cuh)
     over `heads` = B·H_kv (slot, kv head) pairs of S positions at head_dim d,
     rep query rows a kv head: the shape rules' (attn_body, split_ranks)
-    unless `body` / `split` force them (measurements).  K3 and K12 take rep
-    <= 8; K11 (any_rep) any rep, in rep_groups(rep) groups that count as
-    heads for the split planner.  The flash body takes no ranks (0).
-    Raises ValueError on a shape the body does not take."""
+    unless `body` / `split` force them (measurements).  Any GQA rep: above
+    MAX_GROUP_REP query rows a kv head both bodies run rep_groups(rep)
+    groups (grid z) that count as heads for the split planner, and the
+    flash body's shared memory is one group's.  The flash body takes no
+    ranks (0).  Raises ValueError on a shape the body does not take."""
     ts = _pick_tile_s(s)
     chosen = attn_body(q_dtype, d, s, rep) if body is None else body
-    if ts is None or (rep > MAX_GROUP_REP and not any_rep) or d not in (64, 128, 256):
-        raise ValueError(f"{kernel} does not take S = {s}, D = {d}, rep = {rep} (S "
-                         "tileable by 128, GQA rep <= 8, D in 64/128/256)")
+    if ts is None or d not in (64, 128, 256):
+        raise ValueError(f"{kernel} does not take S = {s}, D = {d} (S tileable by 128, "
+                         "D in 64/128/256)")
     rg = min(rep, MAX_GROUP_REP)
     if chosen == "split":
         c = split_ranks(heads * rep_groups(rep), s) if split is None else split
@@ -244,7 +245,7 @@ def decode_attention_stacked(
     _, b2, n_kv, s, d2 = k.shape
     if b2 != b or d2 != d or v.shape != k.shape or h % n_kv:
         raise ValueError(f"K11 does not take q {tuple(q.shape)} over cache {tuple(k.shape)}")
-    chosen, c = plan("K11", q.dtype, b * n_kv, s, d, h // n_kv, body, split, any_rep=True)
+    chosen, c = plan("K11", q.dtype, b * n_kv, s, d, h // n_kv, body, split)
     scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
     ts = _pick_tile_s(s)
     quant = k.dtype == torch.int8

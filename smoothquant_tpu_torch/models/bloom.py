@@ -20,9 +20,10 @@ decodes one token through a Python loop over the layers that hands the
 layer index to the kernels — the counterpart of the JAX lax.scan
 (_prefetch_scan_decode, :237-295): the packs' input is gathered into their
 channel order (real_linear; Bloom's LayerNorm fuses into no kernel), K1 up
-to 32 rows or K7a + K5 above, K10 with rotary off, K11 with the slopes.  A
+to 32 rows or K7a + K5 above, K10 with rotary off, K11 with the slopes,
+over (L,) aligned positions or the batcher's (L, B) per-slot ones.  A
 stacked tree that _prefetch_capable declines (an fp tree, a multi-token
-call, no cache, (L, B) per-slot positions, taps, attn "einsum") runs
+call, no cache, taps, attn "einsum") runs
 _decoder_layer over layer views of the stack and of its cache, as the JAX
 package's scan over _decoder_layer does (:332-342).  forward is
 forward_hidden (embedding → layers → ln_f) then lm_head_logits (the tied
@@ -217,15 +218,19 @@ def _prefetch_scan_decode(params: dict, x: torch.Tensor, cfg: BloomConfig, cache
     """Single-token decode over a stacked tree (bloom.py:237-295), per
     layer: LayerNorm → qkv (input gathered, K1 or K7a + K5) → K10 (rotary
     off) → K11 with the slopes → dense → LayerNorm → dense_h_to_4h → exact
-    GELU → dense_4h_to_h.  Every layer's bias comes from its own position in
-    one pass; the positions advance after the layer loop."""
+    GELU → dense_4h_to_h.  Every layer's bias comes from its own positions
+    in one pass ((L,) aligned positions serve every row; the batcher's
+    per-slot pool gives each layer (B,) positions, as JAX's scan reads
+    pos[i], bloom.py:272-274), and K10 writes each slot at its own; the
+    positions advance after the layer loop."""
     st = params["layers"]["stacked"]
     sa, mlp = st["self_attention"], st["mlp"]
     b, s, _ = x.shape
     nh, d = cfg.num_attention_heads, cfg.head_dim
     eps = cfg.layer_norm_epsilon
     s_max = (caches.k_q if isinstance(caches, QuantKVCache) else caches.k).shape[3]
-    bias = decode_bias(caches.pos[:, None].expand(-1, b), b, s_max, attn_mask)  # (L, B, S_max)
+    pos = caches.pos if caches.pos.ndim == 2 else caches.pos[:, None].expand(-1, b)
+    bias = decode_bias(pos, b, s_max, attn_mask)              # (L, B, S_max)
     for i in range(cfg.num_hidden_layers):
         residual = x
         hidden = layer_norm(_norm_at(st["input_layernorm"], i), x, eps)
@@ -245,10 +250,11 @@ def _prefetch_scan_decode(params: dict, x: torch.Tensor, cfg: BloomConfig, cache
 def _prefetch_capable(params: dict, cfg: BloomConfig, ctx: Optional[ForwardContext],
                       caches, s: int) -> bool:
     """The stacked decode's gate (bloom.py:298-310): prefetch_tree_capable
-    (one token, no taps, attn not "einsum", every projection tile-aligned),
-    a head-major cache (the S-major one takes no slopes) with the (L,)
-    aligned positions stacked_caches builds, and shapes K11 tiles."""
-    if not isinstance(caches, (KVCache, QuantKVCache)) or caches.pos.ndim != 1:
+    (one token, a stacked cache with (L,) aligned or (L, B) per-slot
+    positions, no taps, attn not "einsum", every projection tile-aligned),
+    a head-major cache (the S-major one takes no slopes), and shapes K11
+    tiles."""
+    if not isinstance(caches, (KVCache, QuantKVCache)):
         return False
     if not prefetch_tree_capable(params["layers"].get("stacked"), caches, s, ctx):
         return False

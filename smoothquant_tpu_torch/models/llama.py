@@ -338,17 +338,34 @@ def _stacked_decode(params, x, cfg: LlamaConfig, caches, cos, sin, attn_mask,
 
 def _prefetch_capable(params: dict, cfg: LlamaConfig, ctx: Optional[ForwardContext],
                       caches, s: int) -> bool:
-    """The stacked decode's gate (llama.py:493-512): prefetch_tree_capable
-    and shapes the cache's attention kernel tiles.  K3 over the S-major
-    cache takes every shape K11 takes (split_decode.cuh's bodies; the TPU
-    kernel's rule of 8 query rows a dot does not apply), so one rule
-    serves both layouts."""
+    """The stacked decode's gate (llama.py:493-512): prefetch_tree_capable,
+    shapes the JAX kernels tile (k11.supported), and a plan of the
+    layout's attention kernel (decode_attention.plan at the queries' dtype
+    and the cache's B·H_kv heads): K3 over the S-major cache, K12 over an
+    aligned head-major int8 cache in fuse_attn "auto" / "fused", else K11.
+    All three take any GQA rep, above 8 query rows a kv head in groups of
+    8 (the TPU kernels' rule of 8 query rows a dot does not apply, so the
+    S-major rule is wider than JAX's attn_smajor.supported); a shape the
+    kernel's plan refuses (a head_dim outside 64 / 128 / 256, a flash body
+    past its shared memory) runs the per-layer body, as JAX's gate
+    declines."""
     if not prefetch_tree_capable(params["layers"].get("stacked"), caches, s, ctx):
         return False
-    s_max = (caches.k_q.shape[2] if isinstance(caches, SMajorQuantKVCache)
-             else (caches.k_q if isinstance(caches, QuantKVCache) else caches.k).shape[3])
-    return k11.supported(s_max, cfg.num_attention_heads, cfg.num_key_value_heads,
-                         cfg.head_dim)
+    nh, n_kv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    smajor = isinstance(caches, SMajorQuantKVCache)
+    kbuf = caches.k_q if isinstance(caches, QuantKVCache) or smajor else caches.k
+    s_max = kbuf.shape[2] if smajor else kbuf.shape[3]
+    if not k11.supported(s_max, nh, n_kv, d):
+        return False
+    aligned_int8 = (isinstance(caches, QuantKVCache) and caches.pos.ndim == 1
+                    and (ctx.fuse_attn if ctx is not None else "auto") in ("auto", "fused"))
+    kernel = "K3" if smajor else "K12" if aligned_int8 else "K11"
+    try:
+        k11.plan(kernel, params["embed_tokens"]["weight"].dtype, kbuf.shape[1] * n_kv,
+                 s_max, d, nh // n_kv)
+    except ValueError:
+        return False
+    return True
 
 
 def forward_hidden(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,

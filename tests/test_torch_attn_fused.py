@@ -128,8 +128,8 @@ def test_virtual_row_is_k10s_row():
 
 
 def test_layer_selection_and_options():
-    """Each layer index reads its own layer; the options the port leaves
-    out raise."""
+    """Each layer index reads its own layer; a caller's softmax scale is the
+    JAX kernel's; the option the port leaves out raises."""
     inp = _inputs(2, 4, 4, seed=3)
     j, t = _both(inp, "float32")
     for i in range(L):
@@ -137,8 +137,8 @@ def test_layer_selection_and_options():
         _check_attn(taf.fused_virtual_attn_stacked(i, 50, *t), ref, "float32")
     with pytest.raises(NotImplementedError, match="int8_dots"):
         taf.fused_virtual_attn_stacked(0, 5, *t, int8_dots=True)
-    with pytest.raises(NotImplementedError, match="scale"):
-        taf.fused_virtual_attn_stacked(0, 5, *t, sm_scale=0.5)
+    ref = jaf.fused_virtual_attn_stacked(0, 5, *j, sm_scale=0.5, interpret=True)
+    _check_attn(taf.fused_virtual_attn_stacked(0, 5, *t, sm_scale=0.5), ref, "float32")
     assert not taf.fused_attn_supported(100, 4, 4, D)
     assert not taf.fused_attn_supported(S, 6, 4, D)
 

@@ -30,6 +30,8 @@ from smoothquant_tpu.models.registry import pack_model as jpack_model
 from smoothquant_tpu.models.registry import smooth_lm as j_smooth_lm
 from smoothquant_tpu.quant import calibrate as jcal
 from smoothquant_tpu.quant.config import w4a4_group as jw4a4_group
+from smoothquant_tpu.serve.batching import ContinuousBatcher as JBatcher
+from smoothquant_tpu.serve.batching import Request as JRequest
 from smoothquant_tpu.serve.generate import GenerationConfig as JGenConfig
 from smoothquant_tpu.serve.generate import Generator as JGenerator
 from smoothquant_tpu_torch.models import bloom as tbloom
@@ -37,6 +39,7 @@ from smoothquant_tpu_torch.models.common import ForwardContext, KVCache, QuantKV
 from smoothquant_tpu_torch.models.registry import pack_model, smooth_lm
 from smoothquant_tpu_torch.quant import calibrate as tcal
 from smoothquant_tpu_torch.quant.config import w4a4_group
+from smoothquant_tpu_torch.serve.batching import ContinuousBatcher, Request
 from smoothquant_tpu_torch.serve.generate import GenerationConfig, Generator
 from smoothquant_tpu_torch.utils.convert import params_from_numpy
 
@@ -293,10 +296,12 @@ def test_stacked_gate_respects_unsupported_shapes(bloom):
 
 def test_stacked_gate_declines_per_slot_positions(bloom):
     """The stacked decode takes the (L,) aligned positions stacked_caches
-    builds (as the JAX bloom.stacked_caches does); a cache with (L, B)
-    per-slot positions is declined and the forward runs the per-layer body
-    over the stack: logits to 2e-4 of the JAX stacked decode's over the
-    same per-slot cache, the written int8 rows identical."""
+    builds and, as JAX's generic gate does (common.py:695-699), the (L, B)
+    per-slot positions of the batcher's pool (the name is the gate's
+    earlier rule, which declined them): each layer's bias and K10's row
+    write from each slot's own position, as JAX's scan reads pos[i].
+    Logits to 2e-4 of the JAX stacked decode's over the same per-slot
+    cache (slots at positions 5 and 9), the written int8 rows identical."""
     b = bloom
     tcfg = b["tcfg"]
     stacked = tbloom.stack_layers(b["t_packed"], tcfg)
@@ -305,18 +310,62 @@ def test_stacked_gate_declines_per_slot_positions(bloom):
     assert tbloom._prefetch_capable(stacked, tcfg, None, aligned, 1)
     per_slot = QuantKVCache.create(2, CACHE_LEN, tcfg.num_attention_heads, tcfg.head_dim,
                                    device="cpu", per_slot=True, n_layers=2, pos=5)
+    per_slot.pos[:, 1] = 9
     assert per_slot.pos.shape == (2, 2)
-    assert not tbloom._prefetch_capable(stacked, tcfg, None, per_slot, 1)
+    assert tbloom._prefetch_capable(stacked, tcfg, None, per_slot, 1)
     jcfg = b["jcfg"]
     jst = jbloom.stacked_caches(jcfg, 2, CACHE_LEN, jnp.float32, pos=5, quant_kv=True)
-    jst = jst._replace(pos=jnp.full((2, 2), 5, jnp.int32))
+    jst = jst._replace(pos=jnp.asarray([[5, 9], [5, 9]], jnp.int32))
     ref, ref_c = jax.jit(lambda p, t, c: jbloom.forward(
         p, t, jcfg, ctx=JCtx(compute="int", interpret=True), caches=c))(
         jbloom.stack_layers(b["j_packed"], jcfg), jnp.asarray([[3], [4]]), jst)
-    got, got_c = tbloom.forward(stacked, torch.tensor([[3], [4]]), tcfg, caches=per_slot)
+    calls, scan = [], tbloom._prefetch_scan_decode
+    tbloom._prefetch_scan_decode = lambda *a, **k: calls.append(1) or scan(*a, **k)
+    try:
+        got, got_c = tbloom.forward(stacked, torch.tensor([[3], [4]]), tcfg, caches=per_slot)
+    finally:
+        tbloom._prefetch_scan_decode = scan
+    assert calls == [1]                       # the stacked decode, not the per-layer body
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
     np.testing.assert_array_equal(got_c.k_q.numpy(), np.asarray(ref_c.k_q))
     np.testing.assert_array_equal(got_c.pos.numpy(), np.asarray(ref_c.pos))
+
+
+def test_stacked_batcher_over_per_slot_pool_tokens_identical_to_jax(bloom):
+    """The packed stacked tree through the batcher over its per-slot stacked
+    int8 pool ((L, B) positions), prefilled on the stacked tree (the
+    per-layer body over the stack on both sides): every decode step the
+    port's stacked decode (K1, K10 with rotary off, K11's ALiBi body at each
+    slot's positions; plain versions here), JAX's its per-slot stacked scan
+    (interpret mode).  Mixed prompt lengths and buckets, chunks of 2: the
+    same tokens, pool positions, masks and sequence positions."""
+    b = bloom
+    jst = jbloom.stack_layers(b["j_packed"], b["jcfg"])
+    tst = tbloom.stack_layers(b["t_packed"], b["tcfg"])
+    jb = JBatcher(jbloom, jst, b["jcfg"], max_batch=2, max_len=CACHE_LEN, quant_kv=True,
+                  compute="int", interpret=True)
+    tb = ContinuousBatcher(tbloom, tst, b["tcfg"], max_batch=2, max_len=CACHE_LEN,
+                           quant_kv=True, device="cpu")
+    assert tb.caches.pos.shape == (b["tcfg"].num_hidden_layers, 2)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 256, size=(n,)) for n in (5, 40, 9)]
+    out = []
+    calls, scan = [], tbloom._prefetch_scan_decode
+    tbloom._prefetch_scan_decode = lambda *a, **k: calls.append(1) or scan(*a, **k)
+    try:
+        for batcher, cls in ((jb, JRequest), (tb, Request)):
+            reqs = [cls(uid=i, prompt=p, max_new_tokens=3) for i, p in enumerate(prompts)]
+            for r in reqs:
+                batcher.submit(r)
+            batcher.run_to_completion(chunk=2)
+            out.append([r.generated for r in reqs])
+    finally:
+        tbloom._prefetch_scan_decode = scan
+    assert out[1] == out[0]
+    assert len(calls) == tb._steps > 0          # every decode step took the stacked decode
+    np.testing.assert_array_equal(tb.pool_pos, jb.pool_pos)
+    np.testing.assert_array_equal(tb.key_valid, jb.key_valid)
+    np.testing.assert_array_equal(tb.seq_pos, jb.seq_pos)
 
 
 def test_generator_tokens_identical_to_jax(bloom):

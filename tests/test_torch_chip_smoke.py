@@ -573,9 +573,10 @@ def test_bloom_path_rehearsal_on_cpu(monkeypatch):
     plain versions here), the reference check (both paths on the CPU: every
     kernel-against-plain part reads 0, the one-code control reads above its
     bound), the build, the Generator, K6, K1, K7a, K5 and K10 (rotary off)
-    on the Bloom trees' own linears, K7b + K5 against K1 and the stacked
-    decode; timing and the launch checks are stubbed, the launch counts each
-    path expects recorded."""
+    on the Bloom trees' own linears, K7b + K5 against K1, the stacked
+    decode and the stacked tree through the batcher's per-slot stacked pool
+    (serve_bloom_slots); timing and the launch checks are stubbed, the launch
+    counts each path expects recorded."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from smoothquant_tpu_torch.kernels import kv_write
@@ -586,7 +587,7 @@ def test_bloom_path_rehearsal_on_cpu(monkeypatch):
     for name, value in dict(BLOOM_SAMPLES=2, BLOOM_LEN=32, BLOOM_BATCH=2, BLOOM_PROMPT=40,
                             BLOOM_NEW=4, BLOOM_MAX_LEN=256, BLOOM_SLOT_BATCH=40,
                             SERVE_REQUESTS=3, SERVE_NEW=4, SERVE_PROMPT=(10, 40),
-                            K4_RAWX_CASES=(("gate@64", (64, 512, 384)), ("ragged@33", (33, 512, 384)),
+                            BLOOM_SERVE_NEW=4, K4_RAWX_CASES=(("gate@64", (64, 512, 384)), ("ragged@33", (33, 512, 384)),
                                            ("one_k_step", (16, 64, 128)))).items():
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -677,6 +678,18 @@ def test_bloom_path_rehearsal_on_cpu(monkeypatch):
     fam = phases["serve_families"]
     assert fam["family"] == "bloom" and fam["tree"] == "stacked fp"
     assert fam["tokens"]["requests"] == 3
+    # the packed stacked tree through the batcher's per-slot stacked pool:
+    # K6 only at the prefills, each decode step the stacked decode's launches
+    # (K1, K10 with rotary off, K11's ALiBi body a layer), held to the stacked
+    # tree's own greedy decode
+    slots = phases["serve_bloom_slots"]
+    step = {"int4_group_matmul_stacked_rawx": 4 * n_l, "write_quant_cache_stacked": n_l,
+            "decode_attention_stacked_alibi": n_l}
+    assert expected["serve bloom slots"] == {
+        "int4_group_matmul": 4 * n_l * len(slots["prefill_seqs"]),
+        **{k: v * slots["decode_steps"] for k, v in step.items()}}
+    assert slots["tree"] == "stacked W4A4" and slots["max_batch"] == cs.MAX_BATCH
+    assert slots["tokens"]["requests"] == slots["tokens"]["identical_requests"] == 3
 
 
 def test_wgmma_edge_checks_rehearsal_on_cpu(monkeypatch):
@@ -807,7 +820,8 @@ def test_k3_k12_phases_rehearsal_on_cpu(monkeypatch):
     checks of K3's and K12's split bodies (check_k3_edges: S = 128 / 640 /
     1024, D = 64 / 128, rep 1-8, holes, masked, one-position and last-tile
     slots, every cluster size; check_k12_edges: the three bodies at pos 0,
-    9 and S − 1, the write body's cache against the plain version's) on the
+    9 and S − 1, the write body's cache against the plain version's; both
+    at rep 16 and 12 and at a caller's sm_scale, their timed rows) on the
     CPU at a small size, where the wrappers take their plain versions:
     every case holds and every call repeats with identical bits."""
     import dataclasses
@@ -830,10 +844,24 @@ def test_k3_k12_phases_rehearsal_on_cpu(monkeypatch):
     assert [(r["site"], r["in_sum"], r["split"], r["shape"][3]) for r in rows] == [
         ("ragged", True, 2, 128), ("new_row@B8", False, 2, 128), ("ragged@S256", False, 4, 256)]
     assert all(r["max_err"] == 0 and "flash_ms" in r for r in rows)
-    for edges, cases in ((cs.check_k3_edges(cpu), 3 * 2 * 4 * 4),
-                         (cs.check_k12_edges(cpu), 3 * 2 * 7 * 3 * 4)):
+    # the any-rep cases (ATTN_ANY_REP_CASES: rep 16 and 12 at B = 4 and 64, rep
+    # 16 at D = 256, sm_scale 1.0): four cluster sizes and the flash body at
+    # D = 128, the flash body alone at D = 256; K12 both bodies, B = 4 at three
+    # positions; each at B = 4, D = 128, the default scale a timed row
+    for edges, cases, any_cases, kernel, sites in (
+            (cs.check_k3_edges(cpu), 3 * 2 * 4 * 4, 5 * 5 + 1,
+             "decode_attention_smajor_stacked", ["rep16@B4", "rep12@B4"]),
+            (cs.check_k12_edges(cpu), 3 * 2 * 7 * 3 * 4, 2 * (3 * 5 * 3 + 5 * 2 + 3),
+             "fused_attn", ["stacked_rep16@B4", "stacked_rep12@B4"])):
         assert edges["max_rel_err"] == 0.0 and edges["cases"] == cases
         assert edges["repeated_calls_identical"] == 2 * cases + 400
+        assert edges["any_rep_max_rel_err"] == 0.0 and edges["any_rep_cases"] == any_cases
+        assert edges["any_rep_repeated_calls_identical"] == 2 * any_cases
+        rows = edges["any_rep_rows"]
+        assert [(r["kernel"], r["site"], r["in_sum"]) for r in rows] == [
+            (kernel, site, False) for site in sites]
+        assert [r["shape"][1:3] for r in rows] == [[32, 2], [24, 2]]
+        assert all(r["max_err"] == 0 and r["library_ms"] is not None for r in rows)
 
 
 def test_k13_k1_edge_checks_rehearsal_on_cpu(monkeypatch):
@@ -1043,6 +1071,77 @@ def test_serving_layer_rehearsal_on_cpu(monkeypatch):
         "decode_attention_stacked": n_l, "int8_prefill_matmul": 1}
 
 
+def test_serving_tier_phases_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's phases of the serving tier on the CPU at a small size:
+    the rep-16 Llama stacked decode (llama_rep16_decode: a 2-layer bf16
+    Llama of 16 heads of 64 over one kv head beside its f32 twin, over the
+    S-major cache and the aligned head-major one in "auto" and "fused",
+    each step's launches those of the stacked decode, the twin's S-major
+    layers held to STACKED_VS_PER_LAYER_TOL), the cluster (cluster_phase: 1 and 2
+    replicas of a 2-layer serving pack, 6 requests, tokens identical, the
+    cost model and the simulated efficiency) and the examples
+    (run_examples on the CPU); timing and the launch checks stubbed, the
+    launch counts each path expects recorded."""
+    import dataclasses
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from smoothquant_tpu_torch.kernels import kv_write
+    from smoothquant_tpu_torch.models import llama
+
+    monkeypatch.setattr(kv_write, "launch_rows", lambda *a, **k: None)
+    for name, value in dict(MAX_LEN=128, DECODE_POS=100, CLUSTER_REQUESTS=6, CLUSTER_NEW=3,
+                            SERVE_PROMPT=(10, 40)).items():
+        monkeypatch.setattr(cs, name, value)
+    expected, printed = _stub_card(monkeypatch, cs)
+    cpu = torch.device("cpu")
+    base = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=512), hidden_size=1024,
+                               intermediate_size=1024, num_attention_heads=16,
+                               num_key_value_heads=1, num_hidden_layers=2)
+    cs.llama_rep16_decode(cpu, "card", dataclasses.replace(base, dtype="bfloat16"))
+    phases = {p["phase"]: p for p in printed if "phase" in p}
+    for mode in ("smajor", "auto", "fused"):
+        for tag in ("", "_f32_small"):
+            p = phases[f"llama_rep16_{mode}{tag}_stacked_vs_per_layer"]
+            assert p["rep"] == 16 and len(p["layer_parts"]) == 2
+            assert p["launches_per_step"] == cs.step_launches(base, cs.MAX_BATCH, mode)
+            assert p["tol"] == (cs.STACKED_VS_PER_LAYER_TOL if tag and mode == "smajor"
+                                else None)
+            assert p["whole_model"]["tol"] is None
+        assert phases[f"llama_rep16_{mode}_f32_small_stacked_vs_per_layer"]["dtype"] == "float32"
+    assert expected["llama stacked against per-layer"] == cs.step_launches(
+        base, cs.MAX_BATCH, "smajor")
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(vocab_size=512), hidden_size=512,
+                              intermediate_size=1024, num_attention_heads=4,
+                              num_key_value_heads=4, dtype="bfloat16")
+    n_l = cfg.num_hidden_layers
+    _, packed, stacked = cs.build_model(cfg, cpu, cs.SEED, align_o=256)
+    assert sum(cs.cluster_phase(packed, stacked, cfg, cpu, "card").values()) == 0
+    phases = {p["phase"]: p for p in printed if "phase" in p}
+    cl = phases["cluster"]
+    assert cl["tokens_identical_to_one_host"] and cl["requests"] == 6
+    assert cl["hosts_1"]["routed"] == [6] and sum(cl["hosts_2"]["routed"]) == 6
+    assert min(cl["hosts_2"]["routed"]) >= 2
+    for n in (1, 2):
+        h = cl[f"hosts_{n}"]
+        assert h["requests_done"] == 6 and h["total_tokens"] == 6 * 3
+        step = cs.step_launches(cfg, cs.MAX_BATCH, "smajor")
+        want = {k: v * h["decode_steps"] for k, v in step.items()}
+        want["int4_group_matmul"] = 4 * n_l * len(h["prefill_seqs"])
+        want["int8_prefill_matmul"] += sum(s >= 4 for s in h["prefill_seqs"])
+        assert expected[f"cluster {n} hosts"] == want
+    assert cl["cost_model"]["decode_step_s"] > 0 and cl["cost_model"]["prefill_s_per_token"] > 0
+    sim = phases["cluster_sim"]
+    assert sim["simulated"] is True
+    assert all(0.0 < sim[f"hosts_{n}"]["scaling_efficiency"] <= 1.0 + 1e-9 for n in (2, 4))
+
+    cs.run_examples(cpu, "card")
+    ex = {p["phase"]: p for p in printed if "phase" in p}["examples"]
+    assert len(ex["serving_demo_tokens"]) == 4 and set(ex["opt_demo_ppl"]) == {
+        "fp", "naive_w4a4", "mitigated_w4a4"}
+
+
 def test_io_phases_rehearsal_on_cpu(monkeypatch):
     """chip_smoke's Llama I/O phases on the CPU at a small size (2 layers of
     hidden 512, 4 heads of 128, vocab 512, bf16): hf_import (the tree
@@ -1177,8 +1276,9 @@ def test_falcon_mixtral_phases_rehearsal_on_cpu(monkeypatch):
     and K5 on the families' own linears (Mixtral's experts as (L·E, ...)
     stacks), the Generator, the stacked decode (Mixtral in both
     dispatches), the stacked step against the per-layer step and the
-    batched requests held to their Generator runs; timing and the launch
-    checks stubbed, the launch counts each path expects recorded."""
+    batched requests (Falcon's stacked tree over the per-slot stacked pool)
+    held to their references; timing and the launch checks stubbed, the
+    launch counts each path expects recorded."""
     import dataclasses
 
     sys.path.insert(0, ROOT)
@@ -1217,10 +1317,13 @@ def test_falcon_mixtral_phases_rehearsal_on_cpu(monkeypatch):
     assert expected["falcon stacked against per-layer"] == {
         "int4_group_matmul_stacked_rawx": 4 * n_l, "decode_attention_stacked": n_l}
     phases = {p["phase"]: p for p in printed if "phase" in p}
+    # the batcher serves the stacked tree (its stacked decode over the per-slot
+    # stacked pool; the prefill on K6), held to the stacked tree's own decode
     srv = phases["falcon_serving"]
     assert expected["falcon serving"] == {
-        "int4_group_matmul": 4 * n_l * (len(srv["prefill_seqs"]) + srv["decode_steps"]),
-        "decode_attention_stacked": n_l * srv["decode_steps"]}
+        "int4_group_matmul": 4 * n_l * len(srv["prefill_seqs"]),
+        **{k: v * srv["decode_steps"] for k, v in step.items()}}
+    assert srv["tree"] == "stacked W4A4" and srv["reference"] == "stacked_reference"
     assert srv["tokens"]["requests"] == 2 and srv["tokens"]["identical_requests"] == 2
     cmp = phases["falcon_stacked_vs_per_layer"]
     assert len(cmp["layer_parts"]) == n_l and cmp["whole_model"]["rows"] == 4

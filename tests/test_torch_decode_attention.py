@@ -347,16 +347,19 @@ def test_any_rep_plan():
     """K11's plan at rep above 8: the split body for bf16 queries at D = 64,
     its ranks planned over B·H_kv·⌈rep / 8⌉ clusters (Falcon-7B at B = 4
     over 512: 36 clusters of 8 ranks; at B = 64: 576 of one); the flash
-    body's shared memory that of rep 8 whatever the rep; K3 and K12 (no
-    groups) still refuse rep > 8."""
+    body's shared memory that of rep 8 whatever the rep; K3 and K12 plan
+    the same groups (a Llama of 32 query heads over 2 kv heads, rep 16, at
+    B = 4: 16 clusters of 8 ranks)."""
     bf = torch.bfloat16
     assert k11.rep_groups(71) == 9 and k11.rep_groups(8) == 1 and k11.rep_groups(9) == 2
-    assert k11.plan("K11", bf, 4, 512, 64, 71, any_rep=True) == ("split", 8)
-    assert k11.plan("K11", bf, 64, 512, 64, 71, any_rep=True) == ("split", 1)
-    assert k11.plan("K11", bf, 4, 512, 64, 71, any_rep=True) == \
+    assert k11.plan("K11", bf, 4, 512, 64, 71) == ("split", 8)
+    assert k11.plan("K11", bf, 64, 512, 64, 71) == ("split", 1)
+    assert k11.plan("K11", bf, 4, 512, 64, 71) == \
         ("split", k11.split_ranks(4 * 9, 512))
-    assert k11.plan("K11", torch.float32, 4, 512, 256, 71, any_rep=True) == ("flash", 0)
+    assert k11.plan("K11", torch.float32, 4, 512, 256, 71) == ("flash", 0)
     with pytest.raises(ValueError, match="shared"):
-        k11.plan("K11", torch.float32, 4, 4096, 256, 71, any_rep=True)
-    with pytest.raises(ValueError, match="rep = 9"):
-        k11.plan("K3", bf, 4, 512, 64, 9)
+        k11.plan("K11", torch.float32, 4, 4096, 256, 71)
+    for kernel in ("K3", "K12"):
+        assert k11.plan(kernel, bf, 4 * 2, 512, 128, 16) == ("split", 8)
+        assert k11.plan(kernel, bf, 4, 512, 64, 9) == k11.plan("K11", bf, 4, 512, 64, 9)
+        assert k11.plan(kernel, torch.float32, 4, 512, 256, 71) == ("flash", 0)

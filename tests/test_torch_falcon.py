@@ -366,6 +366,29 @@ def test_serving_kv_heads_from_the_model():
                                atol=1e-5 * np.abs(np.asarray(jl)).max())
 
 
+_GREEDY = {}
+
+
+def _jax_greedy(b, prompt, new):
+    """A JAX greedy loop over per-layer int8 caches of effective_kv_heads on
+    the packed tree (compute "int", interpret mode): the prompt and its new
+    tokens, once per (variant, prompt, new)."""
+    key = (b["jcfg"], prompt.tobytes(), new)
+    if key not in _GREEDY:
+        jcfg = b["jcfg"]
+        jctx = JCtx(quant=b["qj"], compute="int", interpret=True)
+        jstep = jax.jit(lambda i, c: jfalcon.forward(b["j_packed"], i, jcfg, ctx=jctx,
+                                                     caches=c))
+        jc = _jax_caches(JQuantKVCache, jcfg, prompt.shape[0])
+        ids, ref = prompt, [prompt]
+        for _ in range(new):
+            logits, jc = jstep(jnp.asarray(ids), jc)
+            ids = np.asarray(logits)[:, -1].argmax(-1)[:, None]
+            ref.append(ids)
+        _GREEDY[key] = np.concatenate(ref, axis=1)
+    return _GREEDY[key]
+
+
 @pytest.mark.parametrize("variant", ["mqa9"])
 def test_packed_serving_stacked_and_per_layer(variant):
     """The packed tree served over per-layer int8 caches (the Generator: K6,
@@ -376,15 +399,7 @@ def test_packed_serving_stacked_and_per_layer(variant):
     jcfg, tcfg = b["jcfg"], b["tcfg"]
     prompt = np.random.default_rng(4).integers(0, 256, size=(2, 8))
     new = 5
-    jctx = JCtx(quant=b["qj"], compute="int", interpret=True)
-    jstep = jax.jit(lambda i, c: jfalcon.forward(b["j_packed"], i, jcfg, ctx=jctx, caches=c))
-    jc = _jax_caches(JQuantKVCache, jcfg, 2)
-    ids, ref = prompt, [prompt]
-    for _ in range(new):
-        logits, jc = jstep(jnp.asarray(ids), jc)
-        ids = np.asarray(logits)[:, -1].argmax(-1)[:, None]
-        ref.append(ids)
-    ref = np.concatenate(ref, axis=1)
+    ref = _jax_greedy(b, prompt, new)
     got = Generator(tfalcon, b["t_packed"], tcfg, max_len=CACHE_LEN, quant_kv=True,
                     device="cpu").generate(prompt, GenerationConfig(max_new_tokens=new))
     np.testing.assert_array_equal(got, ref)
@@ -397,6 +412,40 @@ def test_packed_serving_stacked_and_per_layer(variant):
         tb.submit(r)
     tb.run_to_completion()
     assert [r.generated for r in reqs] == ref[:, 8:].tolist()
+
+
+def test_stacked_reference_helper_gives_jaxs_tokens():
+    """chip_smoke.stacked_reference, the reference the card's Falcon and
+    Bloom serving phases hold the batcher to (the stacked tree's own greedy
+    decode at the pool's width, prefilled on the stacked tree, the request
+    in every row, no batcher), on the f32 mqa9 Falcon (rep 9: K11 in two
+    groups of query rows): each request's tokens those of the JAX greedy
+    loop and of the batcher serving the same stacked tree; its gaps
+    positive."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    b = build("mqa9")
+    tcfg = b["tcfg"]
+    prompt = np.random.default_rng(4).integers(0, 256, size=(2, 8))
+    new = 5
+    ref = _jax_greedy(b, prompt, new)
+    stacked = tfalcon.stack_layers(b["t_packed"], tcfg)
+    cpu = torch.device("cpu")
+    tb = ContinuousBatcher(tfalcon, stacked, tcfg, max_batch=2, max_len=CACHE_LEN,
+                           quant_kv=True, device="cpu")
+    reqs = [Request(uid=i, prompt=prompt[i], max_new_tokens=new) for i in range(2)]
+    for r in reqs:
+        tb.submit(r)
+    tb.run_to_completion()
+    for i in range(2):
+        got = cs.stacked_reference(tfalcon, stacked, tcfg, prompt[i], new, cpu,
+                                   max_len=CACHE_LEN, copies=2)
+        assert got["tokens"] == ref[i, 8:].tolist() == reqs[i].generated
+        assert len(got["gaps"]) == new and min(got["gaps"]) > 0
 
 
 @pytest.mark.parametrize("variant", ["mqa", "classic"])
