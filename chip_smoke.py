@@ -310,6 +310,28 @@ of their phase; file reads warm, just written):
      loaded trees: tokens identical to the trees' in memory, the same
      launches (K1, K2, K3, K4 a step, K6 a prefill); a decode step timed
      on both by utils.benchtools.time_steps.
+The parallel modes (run_parallel, after the examples; Llama-2-7B's width
+at 2 layers, f32 activations, and Mixtral-8x7B's at one layer, bf16):
+   - shard_kernels: K6 (the flagship nibble packs, 128 rows), K8 (the
+     serving packs, 2 rows) and K9 (128 rows) at rank 0's shards of q and
+     gate (O 2048 and 5504) and o_proj and down (K 2048 and 5504, k_s 128
+     and 384), K11 over 16 of 32 heads, bf16, against their plain versions;
+   - nccl_world1: a world-1 NCCL group in this process through
+     make_tp_forward_v2, make_tp_decode_v2, make_pp_forward and
+     make_ep_forward, bit for bit the single card's forward, and
+     make_cp_prefill (the fp tree within CP_LOGIT_TOL, the nibble tree
+     within half the quantization's own effect); every collective counted;
+   - ranks2: two processes on the one card joined by gloo (CUDA tensors
+     through the host), one spawn: TP v2's psum alone (layer 0's o_proj
+     and down at 2 and 128 rows) within PSUM_TOL of the single card's
+     product; TP v2 serving (the Generator over make_tp_decode_v2's step,
+     an int8 cache of 16 heads a rank, the W8A8 lm_head's vocabulary
+     shards on K4, 2 requests of 64 + 8 tokens) against the single card
+     within twice the single card's own K8-against-K9 noise; TP v1 bit for bit; the
+     flagship recipe at tp = 2 by correlation (JAX's bounds); PP (2
+     stages, 2 microbatches) and EP (4 of 8 experts a rank) bit for bit;
+     CP over 2 × 512 tokens as in nccl_world1; each kernel of each path
+     launched (the ranks' counters).
 10. Prints each K5, K6 and K8 row's per-group scaling floor beside its
    bound (scaling_floors), the `kernels` JSON line (all eighteen kernels,
    K4's raw-x and K11's ALiBi bodies named by their sites and counted
@@ -8686,7 +8708,645 @@ def run(dev, cfg, card: str):
     return rows, launches
 
 
+# ---------------------------------------------------------------- parallel modes
+
+# Llama-2-7B's width, 2 layers (the depth cut), f32 activations; at tp = 2
+# a rank holds 16 of the 32 heads.  2 requests of 64 prompt tokens and 8
+# greedy ones; K11 tiles the cache in 128-position tiles
+PAR_LAYERS, PAR_PROMPT, PAR_NEW, PAR_REQUESTS, PAR_MAX_LEN = 2, 64, 8, 2, 128
+PAR_TP = 2
+CP_TOKENS = 1024              # one sequence, 2 × 512 tokens
+PAR_SEED = 22
+# TP v2 against the single card: the psum adds the two K-halves' f32
+# partial products where the single card's kernel sums every group in
+# order, a reorder of ~1e-7 of |y| at o_proj / down_proj; downstream a
+# per-group activation code at a rounding edge can move one step, which
+# the layers after spread.  The single card's own noise of that kind is
+# measured in the run: its first-step logits through K8 against K9 (the
+# same pack; another f32 order).  The ranks' first-step logits are held
+# to PAR_NOISE_FACTOR times it (of max |logits|, at least
+# PAR_LOGIT_FLOOR), the tokens wherever the reference's top-2 gap is wider
+PAR_NOISE_FACTOR, PAR_LOGIT_FLOOR = 2.0, 1e-5
+# a row-parallel linear alone, the ranks' psum against the single card's
+# product: the serving recipe packs each K-shard to the single card's groups
+# and codes, so only the order of the f32 sums differs: K8's G group
+# partials (two halves added where one kernel adds G in order), K9's f32
+# dot over every product (of order √K · 2^-24 of |y|, 6e-6 at K = 11008)
+PSUM_TOL = 1e-5
+# the fp tree's ring softmax against the einsum's (the order of the f32
+# exp sums), of max |logits|
+CP_LOGIT_TOL = 1e-4
+# the shard shapes of Llama-2-7B at tp = 2: (site, O, C, row-parallel)
+SHARD_SITES = (("q", 4096, 4096, False), ("o_proj", 4096, 4096, True),
+               ("gate", 11008, 4096, False), ("down", 4096, 11008, True))
+
+
+def parallel_config(layers=PAR_LAYERS):
+    """Llama-2-7B's width, `layers` layers, f32 (the ranks' psums and ring
+    hops in f32)."""
+    import dataclasses
+
+    from smoothquant_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_hidden_layers=layers,
+                               dtype="float32")
+
+
+def mixtral_ep_config():
+    """Mixtral-8x7B's width, one layer, bf16."""
+    import dataclasses
+
+    from smoothquant_tpu_torch.models import mixtral
+
+    return dataclasses.replace(mixtral.MixtralConfig(), num_hidden_layers=1)
+
+
+def par_recipes():
+    """(flagship: W4A4 g64, 5 % salient; serve: per_group_unsorted g64, no
+    salient, which JAX documents as packing K-shards to the single card's
+    groups; lm_head: W8A8 per-channel, the identity-int8 pack K4 runs)."""
+    from smoothquant_tpu_torch.quant.config import QuantConfig, w4a4_group
+
+    return (w4a4_group(group_size=64, salient_prop=0.05),
+            QuantConfig(weight_quant="per_group_unsorted", act_quant="per_group_unsorted",
+                        quant_bits=4, group_size=64),
+            QuantConfig(weight_quant="per_channel", act_quant="per_token", quant_bits=8))
+
+
+def _feat(cfg, seed):
+    """Seeded calibration importance for every linear of a Llama tree."""
+    import numpy as np
+
+    from smoothquant_tpu_torch.models import llama
+
+    rng = np.random.default_rng(seed)
+    return {key: rng.uniform(0.1, 1.0, size=(cfg.intermediate_size if "down_proj" in key
+                                              else cfg.hidden_size,))
+            for _, key, _ in llama.quantizable_linears(cfg)}
+
+
+def _shard_pack(w, qcfg, row, nibble, imp):
+    """Rank 0's pack of a linear at tp = 2 (bf16 compute): a row-parallel
+    K-shard, or a column-parallel O-shard."""
+    import dataclasses
+
+    import torch
+
+    from smoothquant_tpu_torch.kernels.pack import pack_linear, pack_linear_row_sharded
+    from smoothquant_tpu_torch.parallel.tp_packed import local_shard
+
+    kw = dict(importance=imp, compute_dtype=torch.bfloat16, nibble=nibble)
+    if row:
+        p = pack_linear_row_sharded({"weight": w, "bias": None}, qcfg, PAR_TP, **kw)
+    else:
+        p = pack_linear({"weight": w, "bias": None}, qcfg, **kw)
+        p = dataclasses.replace(p, meta=dataclasses.replace(p.meta, tp_reduce="none"))
+    return local_shard({"l": p}, 0, PAR_TP)["l"]
+
+
+def check_shard_kernels(dev, gen, sites=SHARD_SITES, n_prefill=PAR_REQUESTS * PAR_PROMPT,
+                        n_decode=PAR_REQUESTS, heads=16, head_dim=128, vocab=32000,
+                        c_model=4096):
+    """K6, K8, K9 and K11 against their plain versions at the shard shapes
+    of Llama-2-7B at tp = 2, bf16, one launch each (the counters): K6 over
+    the flagship nibble packs at the prefill's rows, K8 over the serving
+    packs at the decode's rows, K9 over them at the prefill's rows, at q /
+    gate (O-shards: O 2048 and 5504) and o_proj / down (K-shards: K 2048
+    and 5504, k_s 128 and 384 under the flagship recipe); K4 at the W8A8
+    lm_head's vocabulary O-shard (16000) at the prefill's rows; K11 over an
+    int8 head-major cache of 16 heads.  Rows off the kernels line's sums."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from smoothquant_tpu_torch.kernels import decode_attention as k11
+    from smoothquant_tpu_torch.kernels import int4_group_matmul as k6
+    from smoothquant_tpu_torch.kernels import int8_prefill as k4
+    from smoothquant_tpu_torch.kernels import int_group_matmul as k8
+    from smoothquant_tpu_torch.kernels import quant_matmul as k9
+    from smoothquant_tpu_torch.kernels.pack import (
+        pack_linear,
+        quantize_activations_packed,
+        quantize_activations_packed_int,
+    )
+    from smoothquant_tpu_torch.kernels.real_linear import identity_int8_quantize
+    from smoothquant_tpu_torch.parallel.tp_packed import local_shard
+    from smoothquant_tpu_torch.models.common import QuantKVCache, decode_bias
+    from smoothquant_tpu_torch.utils import roofline
+
+    flag, serve, lm_q = par_recipes()
+    bf = torch.bfloat16
+    rows = []
+
+    def row(kernel, key, site, shape, call, plain, lib, cost):
+        got = _launched(key, call)
+        ref = plain()
+        torch.cuda.synchronize()
+        err = _close(f"{kernel} {site}", got, ref, 1e-2)
+        b_ms, b_by = roofline.bound_ms(*cost)
+        rows.append(dict(kernel=kernel, site=site, shape=shape, max_err=err, in_sum=False,
+                         check_launches=1, kernel_ms=device_ms(lambda i: call(), 4, reps=3),
+                         plain_ms=device_ms(lambda i: plain(), 1, reps=3),
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=device_ms(lambda i: lib(), 4, reps=3)))
+        emit(rows[-1])
+
+    for site, o, c, is_row in sites:
+        w = (torch.randn((o, c), generator=gen, device=dev) * c ** -0.5).to(bf)
+        imp = np.random.default_rng(o + c).uniform(0.1, 1.0, c)
+        for nibble, n in ((True, n_prefill), (False, n_decode), (False, n_prefill)):
+            lin = _shard_pack(w, flag if nibble else serve, is_row, nibble, imp)
+            m = lin.meta
+            c_in, o_loc = m.in_features, lin.w_qt.shape[-1]
+            x = torch.randn((n, c_in), generator=gen, device=dev).to(bf)
+            x_perm = x if m.pre_permuted else x.index_select(1, lin.perm)
+            w_sal = lin.w_sal_t.to(bf)
+            w_lib = torch.randn((c_in, o_loc), generator=gen, device=dev).to(bf)
+            lib = lambda: x @ w_lib
+            k_ns, k_s = _true_widths(m, m.num_salient > 0)
+            name = f"tp{PAR_TP}_{site}@{n}"
+            if nibble:
+                x_q, x_s, x_sal = quantize_activations_packed_int(x_perm, m)
+                args = (x_q, x_s, lin.w_qt, lin.w_scales_t, x_sal, w_sal)
+                kw = dict(group_size=m.group_size)
+                row("int4_group_matmul", "int4_group_matmul", name, [n, c_in, o_loc, m.k_s],
+                    lambda: k6.int4_group_matmul(*args, **kw),
+                    lambda: k6.int4_group_matmul_plain(*args, **kw), lib,
+                    roofline.gmm_cost(n, o_loc, lin.w_qt.shape[0] * 2, m.group_size,
+                                      lin.w_sal_t.shape[0]))
+            elif n == n_decode:
+                x_q, x_s, x_sal = quantize_activations_packed_int(x_perm, m)
+                args = (x_q, x_s, lin.w_qt, lin.w_scales_t, x_sal[:, :w_sal.shape[0]], w_sal)
+                kw = dict(group_size=m.group_size, out_dtype=bf)
+                row("int_group_matmul", "int_group_matmul", name, [n, c_in, o_loc],
+                    lambda: k8.int_group_matmul(*args, **kw),
+                    lambda: k8.int_group_matmul_plain(*args, **kw), lib,
+                    roofline.int_group_matmul_cost(n, o_loc, k_ns, m.group_size, k_s))
+            else:
+                x_ns, x_sal = quantize_activations_packed(x_perm, m)
+                args = (x_ns, x_sal[:, :w_sal.shape[0]], lin.w_qt, lin.w_scales_t, w_sal)
+                kw = dict(group_size=m.group_size, out_dtype=bf)
+                row("dual_path_matmul", "dual_path_matmul", name, [n, c_in, o_loc],
+                    lambda: k9.dual_path_matmul(*args, **kw),
+                    lambda: k9.dual_path_matmul_plain(*args, **kw), lib,
+                    roofline.dual_path_matmul_cost(n, o_loc, k_ns, m.group_size, k_s))
+        del w, w_lib
+
+    # K4 at the vocabulary O-shard of the W8A8 lm_head (TP's "gather" pack)
+    w = (torch.randn((vocab, c_model), generator=gen, device=dev) * c_model ** -0.5).to(bf)
+    p = pack_linear({"weight": w, "bias": None}, lm_q, compute_dtype=bf)
+    lin = local_shard({"l": p}, 0, PAR_TP)["l"]
+    x = torch.randn((n_prefill, c_model), generator=gen, device=dev).to(bf)
+    x_q, sx, x_sal, w_sal = identity_int8_quantize(lin, x)
+    args = (x_q, sx, lin.w_qt, lin.w_scales_t.float().reshape(1, -1), x_sal, w_sal)
+    o_loc = lin.w_qt.shape[1]
+    w_lib = torch.randn((c_model, o_loc), generator=gen, device=dev).to(bf)
+    row("int8_prefill_matmul", "int8_prefill_matmul", f"tp{PAR_TP}_lm_head@{n_prefill}",
+        [n_prefill, c_model, o_loc, 0], lambda: k4.int8_prefill_matmul(*args),
+        lambda: k4.int8_prefill_matmul_plain(*args), lambda: x @ w_lib,
+        roofline.int8_prefill_cost(n_prefill, c_model, o_loc, 0))
+    del w, p, lin, w_lib
+
+    b, s, d = n_decode, PAR_MAX_LEN, head_dim
+    cache = QuantKVCache.create(b, s, heads, d, device=dev)
+    for t in (cache.k_q, cache.v_q):
+        t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev, dtype=torch.int8))
+    for t in (cache.k_scale, cache.v_scale):
+        t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02 + 0.005)
+    pos = torch.tensor([PAR_PROMPT + PAR_NEW - 1, PAR_PROMPT], device=dev)[:b]
+    bias = decode_bias(pos, b, s, None)
+    q = torch.randn((b, heads, d), generator=gen, device=dev).to(bf)
+    bufs = (cache.k_q, cache.v_q, bias, cache.k_scale, cache.v_scale)
+    deq = [(t.float() * sc[..., None]).to(bf) for t, sc in ((cache.k_q, cache.k_scale),
+                                                            (cache.v_q, cache.v_scale))]
+    valid = (bias == 0)[:, None, None, :]
+    row("decode_attention_stacked", "decode_attention_stacked", f"tp{PAR_TP}_int8@B{b}",
+        [b, heads, heads, s, d], lambda: k11.decode_attention(q, *bufs),
+        lambda: k11.decode_attention_stacked_plain(0, q, bufs[0][None], bufs[1][None],
+                                                   bias, bufs[3][None], bufs[4][None]),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], *deq, attn_mask=valid),
+        roofline.decode_attn_cost(b, heads, heads, s, d, n_valid=int(valid.sum()),
+                                  value_bytes=1, scale_bytes=4))
+    return rows
+
+
+def _equal(name, got, ref):
+    """got and ref bit for bit (a sum over one rank is the identity)."""
+    import torch
+
+    if not torch.equal(got, ref):
+        d = (got.float() - ref.float()).abs().max().item()
+        raise AssertionError(f"{name}: not bit for bit the single card's (max |diff| {d})")
+    return 0.0
+
+
+def _rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _held(name, got, ref, tol):
+    err = _rel_err(got, ref)
+    if not err <= tol:
+        raise AssertionError(f"{name}: max |diff| {err} of max |ref| > {tol}")
+    return err
+
+
+def _w4a4_agreement(name, got, ref, fp_ref, share=0.5):
+    """A W4A4 tree's logits over many rows against the single card's, where
+    an f32 reorder (the ring's softmax) moves activation codes at rounding
+    edges and the layers after spread the moves (random weights): held to
+    `share` of the quantization's own effect, ‖got − ref‖ ≤ share ·
+    ‖ref − fp_ref‖ (fp_ref: the fp tree's logits), as the simulated path's
+    tests hold a whole model; the max |diff| of max |ref| and the argmax
+    agreement reported."""
+    g, r, f = (t.float() for t in (got, ref, fp_ref))
+    ratio = ((g - r).norm() / (r - f).norm()).item()
+    if not ratio <= share:
+        raise AssertionError(f"{name}: ‖got − ref‖ is {ratio} of the quantization's own "
+                             f"effect > {share}")
+    agree = (g.argmax(-1) == r.argmax(-1)).float().mean().item()
+    return {"max_rel_err": _rel_err(got, ref), "of_quantization_effect": ratio,
+            "argmax_agreement": agree}
+
+
+def _par_ids(cfg, b, s, seed):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(b, s))
+
+
+def nccl_world1(dev, card, cfg=None, mcfg=None, backend="nccl"):
+    """A world-1 NCCL group in this process through make_tp_forward_v2,
+    make_tp_decode_v2 (prefill and one step over an int8 cache), make_ep_
+    forward, make_cp_prefill and make_pp_forward: each result against the
+    single-card forward of the same tree, bit for bit except CP (the
+    ring's streaming softmax is another f32 order than the einsum's:
+    CP_LOGIT_TOL); the collectives counted, every one issued."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from smoothquant_tpu_torch.models import llama, mixtral
+    from smoothquant_tpu_torch.models.common import ForwardContext, QuantKVCache
+    from smoothquant_tpu_torch.models.registry import pack_model
+    from smoothquant_tpu_torch.parallel import comm, cp, ep, mesh, pp, tp_packed
+
+    cfg = cfg or parallel_config()
+    mcfg = mcfg or mixtral_ep_config()
+    flag, serve, _ = par_recipes()
+    store = tempfile.mkdtemp(prefix="sq_nccl_")
+    mesh.init_rank(0, 1, backend, os.path.join(store, "store"), 120)
+    out = {"phase": "nccl_world1", "card": card, "backend": dist.get_backend()}
+    try:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
+        fp = llama.init_params(gen, cfg, dev)
+        tree = tp_packed.pack_model_tp("llama", fp, cfg, serve, 1, compute_dtype=torch.float32)
+        nib = pack_model("llama", fp, cfg, serve, compute_dtype=torch.float32, nibble=True)
+        ids = torch.as_tensor(_par_ids(cfg, PAR_REQUESTS, PAR_PROMPT, PAR_SEED), device=dev)
+        world = dist.group.WORLD
+        single = lambda t, i, **kw: llama.forward(t, i, cfg, ctx=ForwardContext(), **kw)[0]
+
+        def run(name, fn, ref_fn, check=_equal):
+            torch.cuda.synchronize()
+            comm.reset_counts()
+            got, launches = _path_launches(fn)
+            collectives = dict(comm.COUNTS)
+            err = check(name, got, ref_fn())
+            out[name] = {**(err if isinstance(err, dict) else {"max_rel_err": err}),
+                         "collectives": collectives, "launches": launches}
+            return got
+
+        run("tp_v2", lambda: tp_packed.make_tp_forward_v2(llama, cfg, world)(tree)(tree, ids),
+            lambda: single(tree, ids))
+
+        def caches():
+            return [QuantKVCache.create(PAR_REQUESTS, PAR_MAX_LEN, cfg.num_key_value_heads,
+                                        cfg.head_dim, device=dev)
+                    for _ in range(cfg.num_hidden_layers)]
+
+        step = tp_packed.make_tp_decode_v2(llama, cfg, world)(tree)
+        tok = ids[:, -1:]
+
+        def decode(fwd):
+            c = caches()
+            _, c = fwd(ids, c)
+            return fwd(tok, c)[0]
+
+        run("tp_decode_v2", lambda: decode(lambda i, c: step(tree, i, c)),
+            lambda: decode(lambda i, c: llama.forward(tree, i, cfg, ctx=ForwardContext(),
+                                                      caches=c)))
+        pmesh = pp.make_pp_mesh()
+        staged = pp.pp_local(pp.stack_pp_stages(nib, cfg, 1), pmesh)
+        run("pp", lambda: pp.make_pp_forward(llama, cfg, pmesh, microbatches=1)(staged)(
+            staged, ids), lambda: single(nib, ids))
+        del staged
+        cids = torch.as_tensor(_par_ids(cfg, 1, CP_TOKENS, PAR_SEED + 1), device=dev)
+        cmesh = cp.make_cp_mesh()
+        run("cp", lambda: cp.make_cp_prefill(llama, cfg, cmesh)(fp)(fp, cids),
+            lambda: single(fp, cids),
+            check=lambda name, got, ref: _held(name, got, ref, CP_LOGIT_TOL))
+        fp_cp = single(fp, cids)
+        run("cp_packed", lambda: cp.make_cp_prefill(llama, cfg, cmesh)(nib)(nib, cids),
+            lambda: single(nib, cids),
+            check=lambda name, got, ref: _w4a4_agreement(name, got, ref, fp_cp))
+        del tree, nib, fp
+        torch.cuda.empty_cache()
+        mfp = mixtral.init_params(torch.Generator(device=dev).manual_seed(PAR_SEED + 2), mcfg,
+                                  dev)
+        mpk = pack_model("mixtral", mfp, mcfg, dataclasses.replace(flag, salient_prop=0.0),
+                         nibble=True)
+        del mfp
+        emesh = ep.make_ep_mesh()
+        stacked = ep.ep_local(mixtral.stack_experts(mpk, mcfg), emesh)
+        mids = torch.as_tensor(_par_ids(mcfg, PAR_REQUESTS, PAR_PROMPT, PAR_SEED + 3),
+                               device=dev)
+        sparse = ForwardContext(moe_dispatch="sparse")
+        run("ep", lambda: ep.make_ep_forward(mixtral, mcfg, emesh)(stacked)(stacked, mids),
+            lambda: mixtral.forward(mpk, mids, mcfg, ctx=sparse)[0])
+        del mpk, stacked
+        out["seconds"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+        torch.cuda.empty_cache()
+    expect = {"tp_v2": ("all_reduce", 2 * cfg.num_hidden_layers),
+              "tp_decode_v2": ("all_reduce", 4 * cfg.num_hidden_layers),
+              "pp": ("ring_hop", 1), "cp": ("ring_hop", 2 * cfg.num_hidden_layers),
+              "cp_packed": ("ring_hop", 2 * cfg.num_hidden_layers),
+              "ep": ("all_reduce", mcfg.num_hidden_layers)}
+    for name, (coll, n) in expect.items():
+        if out[name]["collectives"].get(coll, 0) != n:
+            raise AssertionError(f"nccl_world1 {name}: {out[name]['collectives']} "
+                                 f"lacks {n} {coll}")
+    emit(out)
+    return out
+
+
+def _first_gap(got, ref, gaps, tol):
+    """Each request's tokens held to the reference's wherever its top-2 gap
+    exceeds tol: per request, the first differing new token (or None) and
+    the reference's top-2 gap there (of |logits|∞)."""
+    firsts = []
+    for r in range(ref.shape[0]):
+        diff = [j - PAR_PROMPT for j in range(ref.shape[1]) if got[r, j] != ref[r, j]]
+        first = diff[0] if diff else None
+        gap = None if first is None else gaps[r][first]
+        if gap is not None and gap > tol:
+            raise AssertionError(f"ranks2 tp_v2: request {r} new token {first} differs where "
+                                 f"the top-2 gap {gap} > {tol}")
+        firsts.append([first, gap])
+    return firsts
+
+
+def ranks2_body(rank, world, dev, cfg_d=None, mcfg_d=None):
+    """One rank of the ranks2 phase (parallel.mesh.launch, gloo, the card):
+    TP v2 serving, TP v1, the flagship recipe at tp = 2, PP, CP and EP, each
+    timed with its launches and collectives; rank 0 also runs the single
+    card's reference of each and holds the ranks' results to it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from smoothquant_tpu_torch.kernels import _build
+    from smoothquant_tpu_torch.models import llama, mixtral
+    from smoothquant_tpu_torch.models.common import ForwardContext, call_linear
+    from smoothquant_tpu_torch.models.registry import pack_model
+    from smoothquant_tpu_torch.parallel import comm, cp, ep, mesh, pp, tp_packed
+    from smoothquant_tpu_torch.serve.generate import GenerationConfig, Generator
+
+    if dev.type == "cuda":
+        _build.lib()
+    cfg = llama.LlamaConfig(**cfg_d) if cfg_d else parallel_config()
+    mcfg = mixtral.MixtralConfig(**mcfg_d) if mcfg_d else mixtral_ep_config()
+    flag, serve, lm_q = par_recipes()
+    f32 = torch.float32
+    group = mesh.axis_group(mesh.make_mesh(tp=world), mesh.TP_AXIS)
+    fp = llama.init_params(torch.Generator(device=dev).manual_seed(PAR_SEED), cfg, dev)
+    prompts = _par_ids(cfg, PAR_REQUESTS, PAR_PROMPT, PAR_SEED)
+    ids = torch.as_tensor(prompts, device=dev)
+    out = {}
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def timed(name, fn):
+        sync()
+        comm.reset_counts()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        out[name] = {"seconds": time.perf_counter() - t0, "launches": dict(_build.LAUNCHES),
+                     "collectives": dict(comm.COUNTS)}
+        return r
+
+    def single_card(fn):
+        return fn() if rank == 0 else None
+
+    # TP v2 serving: the Generator over make_tp_decode_v2's step, int8 cache of
+    # 16 heads, the W8A8 lm_head's vocabulary O-shards all-gathered (K4)
+    local = tp_packed.local_shard(tp_packed.pack_model_tp(
+        "llama", fp, cfg, serve, world, compute_dtype=f32, lm_head_qcfg=lm_q), rank, world)
+    step = tp_packed.make_tp_decode_v2(llama, cfg, group)(local)
+    g = Generator(llama, local, cfg, max_len=PAR_MAX_LEN, quant_kv=True, device=dev,
+                  forward_fn=step)
+    first = timed("tp_v2_prefill", lambda: step(local, ids, g._new_caches(PAR_REQUESTS))[0])
+    toks = timed("tp_v2_generate", lambda: g.generate(prompts, GenerationConfig(
+        max_new_tokens=PAR_NEW)))
+    out["tp_v2_cache_heads"] = int(g._new_caches(1)[0].k_q.shape[1])
+    ref = single_card(lambda: pack_model("llama", fp, cfg, serve, compute_dtype=f32,
+                                         lm_head_qcfg=lm_q))
+    # the psum alone: layer 0's row-parallel linears on one seeded input, the
+    # ranks' K-shard products all-reduced against the single card's product
+    psum = {}
+    tp_ctx = ForwardContext(tp_group=group)
+    xg = torch.Generator(device=dev).manual_seed(PAR_SEED + 4)
+    for site, path in (("o_proj", ("self_attn", "o_proj")), ("down", ("mlp", "down_proj"))):
+        lin = local["layers"]["0"][path[0]][path[1]]
+        k = lin.meta.in_features
+        for n in (PAR_REQUESTS, PAR_REQUESTS * PAR_PROMPT):      # K8, K9
+            x = torch.randn((n, world * k), generator=xg, device=dev)
+            with torch.no_grad():
+                y = call_linear(lin, x[:, rank * k:(rank + 1) * k], ctx=tp_ctx)
+                if rank == 0:
+                    y1 = call_linear(ref["layers"]["0"][path[0]][path[1]], x)
+                    psum[f"{site}@{n}"] = _held(f"ranks2 psum {site}@{n}", y, y1, PSUM_TOL)
+    del local, step, g
+    tol = None
+    if rank == 0:
+        out["tp_v2_psum_max_rel_err"] = psum
+        g1 = Generator(llama, ref, cfg, max_len=PAR_MAX_LEN, quant_kv=True, device=dev)
+
+        def first_step(compute):
+            with torch.no_grad():
+                return llama.forward(ref, ids, cfg, ctx=ForwardContext(compute=compute),
+                                     caches=g1._new_caches(PAR_REQUESTS))[0][:, -1]
+
+        ref_first = first_step("auto")           # 128 rows: K9, as the ranks' prefill
+        # the single card's own f32 reorder noise: the same pack through K8
+        noise = _rel_err(first_step("int"), ref_first)
+        tol = max(PAR_NOISE_FACTOR * noise, PAR_LOGIT_FLOOR)
+        ref_toks = g1.generate(prompts, GenerationConfig(max_new_tokens=PAR_NEW))
+        gaps = [greedy_reference(llama, ref, cfg, p, PAR_NEW, dev, max_len=PAR_MAX_LEN,
+                                 quant_kv=True, copies=1)["gaps"] for p in prompts]
+        out["tp_v2"] = {"first_step_max_rel_err": _held("ranks2 tp_v2 first step",
+                                                        first[:, -1], ref_first, tol),
+                        "tol": tol, "noise_int_vs_dequant": noise,
+                        "tokens_equal": bool(np.array_equal(toks, ref_toks)),
+                        "first_diff_and_gap": _first_gap(toks, ref_toks, gaps, tol),
+                        "min_gap": float(min(min(x) for x in gaps))}
+        del ref, g1
+
+    # TP v1: the nibble serving pack's O-shards all-gathered; bit for bit
+    nib = pack_model("llama", fp, cfg, serve, compute_dtype=f32, nibble=True)
+    local = tp_packed.local_shard(nib, rank, world)
+    got = timed("tp_v1", lambda: tp_packed.make_tp_forward(llama, cfg, serve, group)(local)(
+        local, ids))
+    del local
+    single = lambda t, i: llama.forward(t, i, cfg, ctx=ForwardContext())[0]
+    nib_ref = single_card(lambda: single(nib, ids))
+    if rank == 0:
+        out["tp_v1"].update({"max_rel_err": _equal("ranks2 tp_v1", got, nib_ref)})
+
+    # PP: 2 stages of one layer, 2 microbatches, over the same nibble tree
+    pmesh = pp.make_pp_mesh()
+    staged = pp.pp_local(pp.stack_pp_stages(nib, cfg, world), pmesh)
+    got = timed("pp", lambda: pp.make_pp_forward(llama, cfg, pmesh, microbatches=2)(staged)(
+        staged, ids))
+    del staged
+    if rank == 0:
+        out["pp"].update({"max_rel_err": _held("ranks2 pp", got, nib_ref, tol),
+                          "bit_equal": bool(torch.equal(got, nib_ref))})
+
+    # CP: 2 × 512 tokens of one sequence, ring attention, over the fp tree
+    # (held to CP_LOGIT_TOL) and the nibble tree (held statistically)
+    cids = torch.as_tensor(_par_ids(cfg, 1, CP_TOKENS, PAR_SEED + 1), device=dev)
+    cmesh = cp.make_cp_mesh()
+    got = timed("cp", lambda: cp.make_cp_prefill(llama, cfg, cmesh)(fp)(fp, cids))
+    if rank == 0:
+        fp_cp = single(fp, cids)
+        out["cp"].update({"max_rel_err": _held("ranks2 cp", got, fp_cp, CP_LOGIT_TOL)})
+    got = timed("cp_packed", lambda: cp.make_cp_prefill(llama, cfg, cmesh)(nib)(nib, cids))
+    if rank == 0:
+        out["cp_packed"].update(_w4a4_agreement("ranks2 cp_packed", got, single(nib, cids),
+                                                fp_cp))
+        del fp_cp
+    del nib, nib_ref, got
+    torch.cuda.empty_cache()
+
+    # the flagship recipe at tp = 2: K-shards packed on their own (another
+    # layout than the whole layer's), held as JAX's test_flagship_recipe_tracks_v1
+    feat = _feat(cfg, PAR_SEED)
+    local = tp_packed.local_shard(tp_packed.pack_model_tp(
+        "llama", fp, cfg, flag, world, input_feat=feat, compute_dtype=f32, nibble=True),
+        rank, world)
+    got = timed("flagship", lambda: tp_packed.make_tp_forward_v2(llama, cfg, group)(local)(
+        local, ids))
+    del local
+    if rank == 0:
+        v1 = single(pack_model("llama", fp, cfg, flag, input_feat=feat, compute_dtype=f32,
+                               nibble=True), ids)
+        fpl = single(fp, ids)
+        r = lambda a, b: float(np.corrcoef(a.flatten().cpu().numpy(),
+                                           b.flatten().cpu().numpy())[0, 1])
+        out["flagship"].update({"r_tp2_fp": r(got, fpl), "r_v1_fp": r(v1, fpl),
+                                "r_tp2_v1": r(got, v1)})
+        # JAX's bounds (0.02 below v1's fp correlation; 0.95 to v1), the
+        # second no tighter than v1's own correlation with fp: the per-shard
+        # layout may differ from v1's by no more than quantizing differs from fp
+        f = out["flagship"]
+        if not (f["r_tp2_fp"] > f["r_v1_fp"] - 0.02
+                and f["r_tp2_v1"] > min(0.95, f["r_v1_fp"])):
+            raise AssertionError(f"ranks2 flagship: {out['flagship']}")
+        del v1, fpl
+    del fp, got
+    torch.cuda.empty_cache()
+
+    # EP: Mixtral-8x7B's width, one layer, 4 of the 8 experts a rank
+    mfp = mixtral.init_params(torch.Generator(device=dev).manual_seed(PAR_SEED + 2), mcfg, dev)
+    mpk = pack_model("mixtral", mfp, mcfg, dataclasses.replace(flag, salient_prop=0.0),
+                     nibble=True)
+    del mfp
+    emesh = ep.make_ep_mesh()
+    local = ep.ep_local(mixtral.stack_experts(mpk, mcfg), emesh)
+    mids = torch.as_tensor(_par_ids(mcfg, PAR_REQUESTS, PAR_PROMPT, PAR_SEED + 3), device=dev)
+    got = timed("ep", lambda: ep.make_ep_forward(mixtral, mcfg, emesh)(local)(local, mids))
+    out["ep_local_experts"] = int(local["layers"]["0"]["block_sparse_moe"]["experts"]
+                                  ["stacked"]["w1"].w_qt.shape[0])
+    del local
+    if rank == 0:
+        ref = mixtral.forward(mpk, mids, mcfg, ctx=ForwardContext(moe_dispatch="sparse"))[0]
+        out["ep"].update({"max_rel_err": _equal("ranks2 ep", got, ref)})
+    return out
+
+
+def ranks2(card, device="cuda", cfg=None, mcfg=None, expect_launches=True):
+    """Two ranks spawned on the one card (cuda:0), joined by gloo (CUDA
+    tensors through the host: parallel.comm.HOST_TRANSPORT), one spawn for
+    every case of ranks2_body; the kernel library is the parent's build.
+    Returns the phase line and the main paths' launches (rank 0's and rank
+    1's summed)."""
+    from collections import Counter
+
+    from smoothquant_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    import dataclasses
+
+    cfgs = tuple(None if c is None else dataclasses.asdict(c) for c in (cfg, mcfg))
+    res = mesh.launch(ranks2_body, PAR_TP, backend="gloo", device=device, args=cfgs,
+                      timeout_s=600, collective_timeout_s=300)
+    out = {"phase": "ranks2", "card": card, "backend": "gloo (host transport)",
+           "seconds": time.perf_counter() - t0, "rank0": res[0],
+           "rank1": {k: v for k, v in res[1].items() if isinstance(v, dict) and "launches" in v}}
+    need = {"tp_v2_prefill": ("dual_path_matmul", "int8_prefill_matmul"),
+            "tp_v2_generate": ("int_group_matmul", "dual_path_matmul",
+                               "decode_attention_stacked_flash"),
+            "tp_v1": ("int4_group_matmul",), "flagship": ("int4_group_matmul",),
+            "pp": ("int4_group_matmul",), "cp_packed": ("int4_group_matmul",),
+            "ep": ("int4_group_matmul",)}
+    launches = Counter()
+    for r in res:
+        for name, keys in need.items():
+            got = r[name]["launches"]
+            for key in keys:
+                if expect_launches and not got.get(key):
+                    raise AssertionError(f"ranks2 {name}: {key} was not launched ({got})")
+            launches.update(got)
+    cfg, mcfg = cfg or parallel_config(), mcfg or mixtral_ep_config()
+    if (res[0]["tp_v2_cache_heads"] != cfg.num_key_value_heads // PAR_TP
+            or res[0]["ep_local_experts"] != mcfg.num_local_experts // PAR_TP):
+        raise AssertionError("ranks2: a rank does not hold its half of the kv heads / "
+                             "experts")
+    emit(out)
+    return dict(launches)
+
+
+def run_parallel(dev, card):
+    """The parallel modes' phases: shard_kernels, nccl_world1, ranks2.
+    Returns (kernel rows, the main paths' launches)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    rows = check_shard_kernels(dev, gen)
+    world1 = nccl_world1(dev, card)
+    launches = {}
+    for name in ("tp_v2", "tp_decode_v2", "pp", "cp_packed", "ep"):
+        for k, v in world1[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for k, v in ranks2(card).items():
+        launches[k] = launches.get(k, 0) + v
+    return rows, launches
+
+
 def main() -> int:
+    from collections import Counter
+
     try:
         import torch
     except ImportError:
@@ -8729,11 +9389,14 @@ def main() -> int:
     bloom_rows, bloom_launches = run_bloom(dev, bloom_7b1(), card)
     torch.cuda.empty_cache()
     run_examples(dev, card)
-    rows = rows + more_rows + mistral_rows + falcon_rows + mixtral_rows + bloom_rows
+    torch.cuda.empty_cache()
+    par_rows, par_launches = run_parallel(dev, card)
+    rows = (rows + more_rows + mistral_rows + falcon_rows + mixtral_rows + bloom_rows
+            + par_rows)
     emit({"phase": "scaling_floors", "card": card, "sm_clock_mhz": clock,
           "rows": add_scaling_floors(rows, clock)})
     emit(kernels_line(rows, launches + more + mistral + falcon_launches + mixtral_launches
-                      + bloom_launches))
+                      + bloom_launches + Counter(par_launches)))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,13 @@ class PackedMeta:
     act_quant: str = "per_token"
     act_bits: int = 8
     act_group_size: int = 128
+    # how a tensor-parallel forward combines the ranks' outputs
+    # (pack.py:79-84): "gather" column-parallel, the O-shards all-gathered
+    # (TP v1); "none" column-parallel, the output left head / neuron-sharded
+    # (Megatron q / k / v / gate / up); "psum" row-parallel, the K-shards'
+    # partial products all-reduced (pack_linear_row_sharded); "rep" whole
+    # on every rank (pack_model_tp's replicated layers)
+    tp_reduce: str = "gather"
     # "permuted": [sorted non-salient | salient] via perm; "identity":
     # original channel order with salient rows zeroed (ns_mask masks them
     # out of the activation quantize; they ride the salient side path)
@@ -238,6 +245,49 @@ def pack_linear(
             act_quant=cfg.act_quant, act_bits=cfg.effective_act_bits,
             act_group_size=cfg.group_size, layout=layout),
     )
+
+
+def pack_linear_row_sharded(params: dict, cfg: QuantConfig, tp: int,
+                            importance: Optional[np.ndarray] = None,
+                            act_absmax: Optional[np.ndarray] = None,
+                            compute_dtype=torch.bfloat16,
+                            nibble: bool = False) -> PackedLinear:
+    """A ROW-parallel (input-sharded) linear packed for Megatron-style TP
+    (pack.py:400-454): the input axis split into `tp` contiguous K-shards,
+    each packed on its own by pack_linear (its own sort, salient choice,
+    group scales and permutation, all local to the shard), the fields
+    concatenated along their leading axis so that rank r's slice is its
+    shard's pack.  meta carries one shard's (local) dimensions and
+    tp_reduce="psum"; the bias is stored divided by tp, so the all-reduce
+    after the local products adds it once.  A per_group_unsorted recipe
+    with group_size | C/tp and no salient channels gives each shard the
+    groups the whole-layer pack has."""
+    w = params["weight"]
+    o, c = w.shape
+    if c % tp:
+        raise ValueError(f"in_features {c} not divisible by tp={tp}")
+    ksz = c // tp
+    shards = []
+    for r in range(tp):
+        sl = slice(r * ksz, (r + 1) * ksz)
+        shards.append(pack_linear(
+            {"weight": w[:, sl], "bias": None}, cfg,
+            importance=None if importance is None else np.asarray(importance)[sl],
+            act_absmax=None if act_absmax is None else np.asarray(act_absmax)[sl],
+            compute_dtype=compute_dtype, nibble=nibble))
+    m0 = shards[0].meta
+    if any(p.meta != m0 for p in shards):
+        raise ValueError("the K-shards packed to different layouts")
+    cat = lambda f: torch.cat([getattr(p, f) for p in shards], dim=0)
+    w_qt = cat("w_qt")
+    if m0.layout == "identity" and not m0.nibble:
+        w_qt = k_major(w_qt)      # identity-int8 weights stay K-major (K4's read)
+    bias = params.get("bias")
+    return PackedLinear(
+        w_qt=w_qt, w_scales_t=cat("w_scales_t"),
+        w_sal_t=cat("w_sal_t") if m0.k_s else shards[0].w_sal_t,
+        bias=None if bias is None else bias.to(w.device) / tp,
+        perm=cat("perm"), meta=dataclasses.replace(m0, tp_reduce="psum"))
 
 
 def _pack_device(w, perm_t, *, k_ns_raw, k_ns, k_s, g, weight_quant, quant_bits,

@@ -106,8 +106,24 @@ class ForwardContext:
     moe_dispatch (Mixtral, common.py:52-59): "dense" runs every expert on
     every token, weighted by its routing probability; "sparse" gathers
     each expert's routed tokens into buffers of moe_capacity(n,
-    moe_capacity_factor) rows (overflow dropped).  ep_axis (expert
-    parallelism) is not ported: a context that sets it raises."""
+    moe_capacity_factor) rows (overflow dropped).
+
+    The parallel modes (common.py:48-79) name torch.distributed process
+    groups where JAX names shard_map mesh axes (parallel/):
+      tp_group  packed linears combine the ranks' outputs by their
+                meta.tp_reduce ("gather": the O-shards all-gathered;
+                "psum": the K-shards' partial products all-reduced; "none"
+                and "rep": left as they are), and the plain / simulated
+                linears of parallel.sharding's trees (ShardedLinear) by
+                their style;
+      tp_overlap_chunks > 1  a "psum" linear over 3-d input with at least
+                8 tokens a chunk splits the tokens into that many
+                (product, all-reduce) pairs, chunk c's reduce in flight
+                while chunk c+1 computes (bitwise the one reduce);
+      ep_group  Mixtral's sparse MoE block runs the rank's block of
+                experts and all-reduces the combined output;
+      cp_group  the no-cache attention is parallel.cp.ring_attention over
+                the rank's sequence chunk."""
 
     quant: Optional[QuantConfig] = None
     taps: Optional[object] = None
@@ -117,13 +133,14 @@ class ForwardContext:
     fuse_mlp: bool = False
     moe_dispatch: str = "dense"
     moe_capacity_factor: float = 2.0
-    ep_axis: Optional[str] = None
+    tp_group: Optional[object] = None
+    tp_overlap_chunks: int = 0
+    ep_group: Optional[object] = None
+    cp_group: Optional[object] = None
 
     def __post_init__(self):
         if self.moe_dispatch not in ("dense", "sparse"):
             raise ValueError(f"moe_dispatch {self.moe_dispatch!r}: 'dense' or 'sparse'")
-        if self.ep_axis is not None:
-            raise NotImplementedError("expert parallelism (ep_axis) is not ported")
         if self.compute not in COMPUTE_CHOICES:
             raise ValueError(f"compute {self.compute!r}: one of {COMPUTE_CHOICES}")
         if self.attn not in ("auto", "kernel", "einsum"):
@@ -151,20 +168,94 @@ def call_linear(params, x: torch.Tensor, name: Optional[str] = None,
     in the JAX package)."""
     taps = None if ctx is None else ctx.taps
     quant = None if ctx is None else ctx.quant
+    tp = None if ctx is None else ctx.tp_group
     if taps is not None:
         taps.tap_input(name, x)
     weight_t = isinstance(params, dict) and "weight_t" in params
-    if quant is not None and not weight_t and not isinstance(params, PackedLinear):
+    compute = "auto" if ctx is None else ctx.compute
+    if isinstance(params, ShardedLinear):
+        y = _sharded_linear(params, x, ctx)
+        if quantize_output:
+            y = maybe_quantize_output(y, ctx)     # the whole output row
+    elif quant is not None and not weight_t and not isinstance(params, PackedLinear):
         if layer_idx is not None or norm is not None:
             raise NotImplementedError("simulated linears take no layer index or norm")
         y = quant_linear(params, x, quant, quantize_output and quant.quantize_bmm_input)
     else:
-        y = _linear(params, x, layer_idx, norm, "auto" if ctx is None else ctx.compute)
+        reduce = params.meta.tp_reduce if tp is not None and isinstance(
+            params, PackedLinear) else None
+        if reduce == "psum":
+            y = _row_parallel(params, x, layer_idx, norm, compute, tp, ctx.tp_overlap_chunks)
+        else:
+            y = _linear(params, x, layer_idx, norm, compute)
+            if reduce == "gather":
+                from smoothquant_tpu_torch.parallel import comm
+
+                y = comm.all_gather(y, tp, axis=-1)     # v1: the ranks' O-shards
         if quantize_output and not weight_t:
             y = maybe_quantize_output(y, ctx)
     if taps is not None:
         taps.tap_output(name, y)
     return y
+
+
+@dataclasses.dataclass
+class ShardedLinear:
+    """A plain or simulated-quantized linear's slice on one rank of a
+    tensor-parallel group (parallel.sharding.shard_params): style "col"
+    holds rows [r·O/tp, (r+1)·O/tp) of the weight and of the bias, "row"
+    columns [r·C/tp, (r+1)·C/tp) of the weight and the whole bias.  The
+    salient metadata of a simulated linear indexes the whole layer's input
+    channels and stays whole."""
+
+    params: dict
+    style: str
+
+
+def _sharded_linear(lin: ShardedLinear, x: torch.Tensor, ctx: ForwardContext):
+    """A ShardedLinear under ctx.tp_group, to the single-device result up
+    to the order of the row-parallel sum.  Column-parallel: the local
+    output columns, all-gathered (the activation quantizer saw the whole
+    input row, which every rank holds).  Row-parallel: the activation
+    quantizer runs on the WHOLE input row (per-token scales, groups and
+    salient channels of the whole layer), then the rank's K-slice of the
+    quantized row meets its weight columns, the partial products are
+    all-reduced and the bias added once."""
+    from smoothquant_tpu_torch.parallel import comm
+    from smoothquant_tpu_torch.quant.linear import linear, quantize_input
+
+    if ctx is None or ctx.tp_group is None:
+        raise ValueError("a ShardedLinear runs under ForwardContext.tp_group")
+    p, quant, group = lin.params, ctx.quant, ctx.tp_group
+    if lin.style == "col":
+        y = linear(p, x) if quant is None else quant_linear(p, x, quant)
+        return comm.all_gather(y, group, axis=-1)
+    xq = x if quant is None else quantize_input(p, x, quant)
+    k = p["weight"].shape[1]
+    r = torch.distributed.get_rank(group)
+    y = torch.matmul(xq[..., r * k:(r + 1) * k], p["weight"].t().to(xq.dtype))
+    y = comm.all_reduce(y, group)
+    if p.get("bias") is not None:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
+def _row_parallel(params: PackedLinear, x, layer_idx, norm, compute, group, chunks: int):
+    """A row-parallel ("psum") pack (common.py:160-204): the local K-shard's
+    product, all-reduced (the bias, stored divided by tp, comes back once).
+    chunks > 1 over 3-d input of at least 8 tokens a chunk splits the
+    token axis: each chunk's all-reduce is issued asynchronously as soon as
+    its product is done, so it is in flight while the next chunk computes;
+    each row's product and sum are the synchronous ones, bit for bit."""
+    from smoothquant_tpu_torch.parallel import comm
+
+    if chunks > 1 and x.ndim == 3 and x.shape[1] >= chunks * 8 and x.shape[1] % chunks == 0:
+        step = x.shape[1] // chunks
+        pending = [comm.all_reduce_async(
+            _linear(params, x[:, c * step:(c + 1) * step], layer_idx, norm, compute), group)
+            for c in range(chunks)]
+        return torch.cat([p.wait() for p in pending], dim=1)
+    return comm.all_reduce(_linear(params, x, layer_idx, norm, compute), group)
 
 
 def maybe_quantize_output(y: torch.Tensor, ctx: Optional[ForwardContext]) -> torch.Tensor:
@@ -435,7 +526,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               attn_mask: Optional[torch.Tensor] = None,
               scale: Optional[float] = None,
               alibi_slopes: Optional[torch.Tensor] = None,
-              sliding_window: Optional[int] = None):
+              sliding_window: Optional[int] = None,
+              ctx: Optional[ForwardContext] = None):
     """Einsum attention with causal masking and GQA (common.py:550-575).
 
     q: (B, Sq, H, D); k/v: (B, H_kv, Sk, D).  Scores and softmax in f32,
@@ -444,7 +536,22 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     score += slope_h · j at key position j, before the mask
     (bloom.py:99-127: slope·j equals HF's slope·(j − i) up to a per-row
     constant that the softmax cancels).  sliding_window W (Mistral): the
-    query at absolute position p sees the keys in (p − W, p]."""
+    query at absolute position p sees the keys in (p − W, p].
+
+    Under ctx.cp_group (context-parallel prefill, common.py:494-507) q / k
+    / v are the rank's chunk of the sequence and the attention is
+    parallel.cp.ring_attention, causal from the ring's global offsets:
+    no valid_len, window, ALiBi or causal offset (a key mask rides
+    attn_mask)."""
+    if ctx is not None and ctx.cp_group is not None:
+        from smoothquant_tpu_torch.parallel.cp import ring_attention
+
+        assert valid_len is None, "cp prefill uses attn_mask, not valid_len"
+        assert sliding_window is None and alibi_slopes is None, (
+            "ring attention implements no sliding window or ALiBi")
+        assert isinstance(causal_offset, int) and causal_offset == 0, (
+            "cp prefill masks causally from the ring's global offsets")
+        return ring_attention(q, k, v, ctx.cp_group, scale=scale, attn_mask=attn_mask)
     b, sq, nh, d = q.shape
     n_kv, sk = k.shape[1], k.shape[2]
     if n_kv != nh:
@@ -532,9 +639,10 @@ def decode_bias(pos_i: torch.Tensor, b: int, s_max: int,
 def prefetch_tree_capable(stacked, caches, s: int,
                           ctx: Optional[ForwardContext] = None) -> bool:
     """The gate of the stacked single-token decode (common.py:672-732):
-    one token, a stacked cache with (L,) or (L, B) positions, no taps, attn
-    not "einsum", and every projection a transposed-fp "weight_t" dict whose
-    K is a multiple of 8 and O of 128, or a tile-aligned nibble PackedLinear
+    one token, a stacked cache with (L,) or (L, B) positions, no taps, no
+    tp or ep group (common.py:689-690), attn not "einsum", and every
+    projection a transposed-fp "weight_t" dict whose K is a multiple of 8
+    and O of 128, or a tile-aligned nibble PackedLinear
     under compute "auto" or "int".  The attention's first projection is
     Llama's / OPT's fused self_attn.qkv_proj, Bloom's / Falcon's
     self_attention.query_key_value or an unfused q_proj (Mixtral, an unfused
@@ -543,7 +651,8 @@ def prefetch_tree_capable(stacked, caches, s: int,
     if s != 1 or caches is None or not isinstance(getattr(caches, "pos", None),
                                                    torch.Tensor):
         return False
-    if ctx is not None and (ctx.taps is not None or ctx.attn == "einsum"):
+    if ctx is not None and (ctx.taps is not None or ctx.attn == "einsum"
+                            or ctx.tp_group is not None or ctx.ep_group is not None):
         return False
     if caches.pos.ndim not in (1, 2) or not isinstance(stacked, dict):
         return False

@@ -97,9 +97,14 @@ class LlamaConfig:
     mlp_bias: bool = False
     sliding_window: Optional[int] = None  # Mistral: 4096
     dtype: str = "bfloat16"
+    # the head width where it is not hidden_size / heads: a tensor-parallel
+    # rank's config of its local heads (parallel.tp_packed, llama.py:61-67)
+    head_dim_value: Optional[int] = None
 
     @property
     def head_dim(self) -> int:
+        if self.head_dim_value is not None:
+            return self.head_dim_value
         return self.hidden_size // self.num_attention_heads
 
     @property
@@ -210,7 +215,7 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: LlamaConfig, layer_name: str,
                                 attn_mask=attn_mask, sliding_window=cfg.sliding_window)
     else:
         attn = attention(q, k.transpose(1, 2), v.transpose(1, 2), attn_mask=attn_mask,
-                         sliding_window=cfg.sliding_window)
+                         sliding_window=cfg.sliding_window, ctx=ctx)
     x = residual + call_linear(sa["o_proj"], attn.reshape(b, s, nh * d),
                                f"{layer_name}.self_attn.o_proj", ctx)
     residual = x

@@ -25,8 +25,13 @@ K10 (k rotated and written; over the int8 cache q rotated in the same
 launch) → K11 at rep H / H_kv → o_proj → RMSNorm → the MoE block, whose
 expert leaves are viewed as (L·E, ...) stacks: expert e of layer i is
 stacked index i·E + e.  A stacked tree the gate declines runs
-_decoder_layer over layer views of the stack and its cache.  Expert
-parallelism (ForwardContext.ep_axis) is not ported.
+_decoder_layer over layer views of the stack and its cache.
+
+Expert parallelism (ForwardContext.ep_group, parallel/ep.py): a rank holds
+a block of E / ep experts (stack_experts' leaves split on E); the sparse
+block routes every token on every rank from the global assignment order,
+runs the assignments to its own experts (offset rank · E / ep) and
+all-reduces the combined f32 output: one all-reduce a MoE block.
 """
 
 from __future__ import annotations
@@ -202,9 +207,13 @@ def _expert_runner(bp: dict, cfg: MixtralConfig, layer_name: str, ctx, layer_idx
         return lambda e, rows: _expert_mlp(experts_flat, rows, f"{layer_name}.experts.{e}",
                                            ctx, layer_idx=layer_idx * e_total + e)
     experts, e_local = _experts_view(bp)
-    if e_local != cfg.num_local_experts:
-        raise NotImplementedError("expert parallelism (a block of local experts) is not ported")
-    return lambda e, rows: _expert_mlp(experts[e], rows, f"{layer_name}.experts.{e}", ctx)
+    if e_local != cfg.num_local_experts and (ctx is None or ctx.ep_group is None):
+        raise ValueError(f"{e_local} of {cfg.num_local_experts} experts outside expert "
+                         "parallelism (ForwardContext.ep_group)")
+    # under EP a rank's expert e is a local index: tap names say so (mixtral.py:262-264)
+    local = "local" if ctx is not None and ctx.ep_group is not None else ""
+    return lambda e, rows: _expert_mlp(experts[e], rows,
+                                       f"{layer_name}.experts.{local}{e}", ctx)
 
 
 def _moe_block_dense(bp: dict, x: torch.Tensor, cfg: MixtralConfig, layer_name: str,
@@ -229,7 +238,10 @@ def _moe_block_sparse(bp: dict, x: torch.Tensor, cfg: MixtralConfig, layer_name:
     assignments sorted stably by expert, each expert's first `capacity`
     tokens gathered into its (capacity, H) buffer (the rest into a trash
     row), each buffer through its expert, and each token's kept outputs,
-    weighted in f32, added by index."""
+    weighted in f32, added by index.  Under ctx.ep_group (mixtral.py:239-275)
+    the buffers are the rank's e_local experts' (offset rank · e_local),
+    the other ranks' assignments go to the trash row, and the f32 output
+    is all-reduced over the group."""
     b, s, h = x.shape
     n, topk, e_total = b * s, cfg.num_experts_per_tok, cfg.num_local_experts
     xf = x.reshape(n, h)
@@ -245,23 +257,34 @@ def _moe_block_sparse(bp: dict, x: torch.Tensor, cfg: MixtralConfig, layer_name:
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n * topk, device=dev) - starts[se]
     keep = pos < capacity
-    dest = torch.where(keep, se * capacity + pos, e_total * capacity)
-    disp = torch.zeros((e_total * capacity + 1, h), dtype=x.dtype, device=dev)
+    group = None if ctx is None else ctx.ep_group
+    e_local, offset = e_total, 0
+    if group is not None and experts_flat is None:
+        e_local = _experts_view(bp)[1]
+        offset = torch.distributed.get_rank(group) * e_local
+    le = se - offset
+    mine = keep & (le >= 0) & (le < e_local)
+    dest = torch.where(mine, le * capacity + pos, e_local * capacity)
+    disp = torch.zeros((e_local * capacity + 1, h), dtype=x.dtype, device=dev)
     disp[dest] = xf[st]
-    disp = disp[:-1].reshape(e_total, capacity, h)
+    disp = disp[:-1].reshape(e_local, capacity, h)
     run = _expert_runner(bp, cfg, layer_name, ctx, layer_idx, experts_flat)
-    ys = torch.cat([run(e, disp[e]) for e in range(e_total)] +
+    ys = torch.cat([run(e, disp[e]) for e in range(e_local)] +
                    [torch.zeros((1, h), dtype=x.dtype, device=dev)])
     y_a = ys[dest].float() * sw[:, None]
-    y_a = torch.where(keep[:, None], y_a, 0.0)
+    y_a = torch.where(mine[:, None], y_a, 0.0)
     out = torch.zeros((n, h), dtype=torch.float32, device=dev).index_add_(0, st, y_a)
+    if group is not None:
+        from smoothquant_tpu_torch.parallel import comm
+
+        out = comm.all_reduce(out, group)
     return out.reshape(b, s, h).to(x.dtype)
 
 
 def _moe_block(bp: dict, x: torch.Tensor, cfg: MixtralConfig, layer_name: str,
                ctx: Optional[ForwardContext], layer_idx=None, experts_flat=None):
-    block = (_moe_block_sparse if ctx is not None and ctx.moe_dispatch == "sparse"
-             else _moe_block_dense)
+    sparse = ctx is not None and (ctx.moe_dispatch == "sparse" or ctx.ep_group is not None)
+    block = _moe_block_sparse if sparse else _moe_block_dense
     return block(bp, x, cfg, layer_name, ctx, layer_idx, experts_flat)
 
 
@@ -284,7 +307,7 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: MixtralConfig, name: str, cos
         cache = cache.update(k, v)
         a = cached_attention(q, cache, causal_offset=offset, ctx=ctx, attn_mask=attn_mask)
     else:
-        a = attention(q, k.transpose(1, 2), v.transpose(1, 2), attn_mask=attn_mask)
+        a = attention(q, k.transpose(1, 2), v.transpose(1, 2), attn_mask=attn_mask, ctx=ctx)
     x = residual + call_linear(sa["o_proj"], a.reshape(b, s, nh * d),
                                f"{name}.self_attn.o_proj", ctx)
     residual = x

@@ -167,7 +167,7 @@ def _decoder_layer(lp: dict, x: torch.Tensor, cfg: OPTConfig, layer_name: str,
                                 attn_mask=attn_mask, scale=1.0)
     else:
         attn = attention(q, to_head_major(k), to_head_major(v), attn_mask=attn_mask,
-                         scale=1.0)
+                         scale=1.0, ctx=ctx)
     x = residual + call_linear(sa["out_proj"], attn.reshape(b, s, h),
                                f"{layer_name}.self_attn.out_proj", ctx)
     if not pre:

@@ -104,6 +104,13 @@ def _act_qdq(x2d: torch.Tensor, params: LinearParams, cfg: QuantConfig) -> torch
     return torch.cat([q_ns, x_p[:, c - k:]], dim=-1).index_select(-1, params["sal_inv_perm"])
 
 
+def quantize_input(params: LinearParams, x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """quant_linear's activation Q-DQ of x (..., in_features) alone, in its
+    shape: a row-parallel shard (parallel.sharding) quantizes the whole
+    row with it before taking its slice."""
+    return _act_qdq(x.reshape(-1, x.shape[-1]), params, cfg).reshape(x.shape)
+
+
 def quant_linear(params: LinearParams, x: torch.Tensor, cfg: QuantConfig,
                  quantize_output: bool = False) -> torch.Tensor:
     """The simulated quantized linear's forward (linear.py:104-125).

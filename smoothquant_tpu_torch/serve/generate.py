@@ -69,7 +69,8 @@ class Generator:
 
     def __init__(self, model_mod, params, cfg, quant=None, *, kv_dtype=None,
                  max_len: int = 2048, quant_kv: bool = False, compute: str = "auto",
-                 attn: str = "auto", prefill_params=None, device="cuda"):
+                 attn: str = "auto", prefill_params=None, device="cuda",
+                 forward_fn=None):
         """quant: the simulated path's recipe (a quantize_model tree).
         compute / attn: ForwardContext's (K8 / K9 for int8-container packs;
         K11 or the einsum).  prefill_params: an optional second per-layer
@@ -77,7 +78,12 @@ class Generator:
         plain nibble pack of the same weights — while decode keeps `params`.
         kv_dtype: the KVCache dtype, cfg's by default; torch.int8 holds the
         raw static-scale int8 k / v of models.opt_int8
-        (generate.py:45,66-68)."""
+        (generate.py:45,66-68).  forward_fn: (params, ids, caches) →
+        (logits, caches) in place of mod.forward (generate.py:47-78), for
+        example parallel.tp_packed.make_tp_decode_v2's step, which serves a
+        tensor-parallel model over a head-sharded cache; where it carries
+        `kv_heads` (that step does: the rank's heads) the caches hold that
+        many heads."""
         self.mod, self.params, self.cfg = model_mod, params, cfg
         self.ctx = ForwardContext(quant=quant, compute=compute, attn=attn)
         self.prefill_params = params if prefill_params is None else prefill_params
@@ -88,7 +94,9 @@ class Generator:
         self.max_len = max_len
         self._cache_cls = QuantKVCache if quant_kv else KVCache
         self.kv_dtype = kv_dtype or cfg.torch_dtype
-        self._n_kv = cache_kv_heads(cfg)
+        self._n_kv = getattr(forward_fn, "kv_heads", None) or cache_kv_heads(cfg)
+        self._forward = forward_fn or (lambda p, ids, caches: self.mod.forward(
+            p, ids, self.cfg, ctx=self.ctx, caches=caches))
 
     def _new_caches(self, batch: int) -> list:
         cfg = self.cfg
@@ -98,7 +106,7 @@ class Generator:
 
     @torch.no_grad()
     def _step(self, params, ids: torch.Tensor, caches, temperature, rng):
-        logits, caches = self.mod.forward(params, ids, self.cfg, ctx=self.ctx, caches=caches)
+        logits, caches = self._forward(params, ids, caches)
         return sample_token(logits[:, -1, :], temperature, rng), caches
 
     def generate(self, prompt_ids: np.ndarray, gen: GenerationConfig) -> np.ndarray:

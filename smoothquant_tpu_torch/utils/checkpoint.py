@@ -13,27 +13,31 @@ for the same tree, and reads what it writes:
     such a leaf (jnp.asarray of "|V2"), so a JAX bf16 pack loads in the
     port but not in the JAX package;
   * a PackedLinear goes out in JAX's layout: its fields, then its meta
-    field by field (as _flatten walks the JAX dataclass, "tp_reduce"
-    included), the identity-int8 weight row-major (K, O) where the port
-    holds it K-major, perm int32; it comes back through
-    convert.packed_from_numpy, which refuses tensor-parallel and
-    block_decode_tree ("sal_select") packs;
+    field by field (as _flatten walks the JAX dataclass), the
+    identity-int8 weight row-major (K, O) where the port holds it K-major,
+    perm int32; it comes back through convert.packed_from_numpy, which
+    takes every tp_reduce and refuses block_decode_tree ("sal_select")
+    packs;
   * index leaves of the simulated trees (sal_perm, sal_inv_perm,
     salient_indices) go out int32, JAX's dtype, and come back int64;
   * an int8 OPT's alpha goes out float32 (JAX's 0-d leaf), its scales as
     float64 scalars (np.asarray of a Python float), and comes back
     through convert.int8_opt_from_numpy.
 
-The per-host sharded pair (save_packed_model_sharded, :149-285) needs
-tensor-parallel packs, which the port does not have.
+The per-host sharded pair (save_packed_model_sharded /
+load_packed_model_sharded, :149-285) writes and reads JAX's directory:
+manifest.json and one shard-XXXXX-of-XXXXX.npz a rank, each PackedLinear
+leaf split along the axis parallel.tp_packed.packed_model_specs names.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import struct
 import zipfile
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,18 +55,6 @@ from smoothquant_tpu_torch.utils.convert import (
 
 _INDEX_LEAVES = ("sal_perm", "sal_inv_perm", "salient_indices", "perm")
 _PACKED_FIELDS = ("w_qt", "w_scales_t", "w_sal_t", "bias", "perm")
-
-
-def _meta_dict(meta: PackedMeta) -> dict:
-    """The meta as the JAX package's PackedMeta dataclass lists it: the
-    port's fields with tp_reduce ("gather", the only one the port runs)
-    after act_group_size."""
-    out = {}
-    for k, v in dataclasses.asdict(meta).items():
-        out[k] = v
-        if k == "act_group_size":
-            out["tp_reduce"] = "gather"
-    return out
 
 
 def to_numpy(t, key: str = "") -> np.ndarray:
@@ -85,7 +77,7 @@ def _flatten(tree, prefix="", out=None):
     if isinstance(tree, PackedLinear):
         for f in _PACKED_FIELDS:
             _flatten(getattr(tree, f), f"{prefix}{f}/", out)
-        _flatten(_meta_dict(tree.meta), f"{prefix}meta/", out)
+        _flatten(dataclasses.asdict(tree.meta), f"{prefix}meta/", out)
         _flatten(tree.ns_mask, f"{prefix}ns_mask/", out)
     elif isinstance(tree, Int8Linear):
         out[f"{prefix}w_q"] = to_numpy(tree.w_q)
@@ -205,7 +197,7 @@ def save_packed_model(params: dict, path: str) -> None:
 
     def walk(node, prefix=""):
         if isinstance(node, PackedLinear):
-            metas[prefix[:-1]] = _meta_dict(node.meta)
+            metas[prefix[:-1]] = dataclasses.asdict(node.meta)
         elif isinstance(node, dict):
             for k, v in node.items():
                 walk(v, f"{prefix}{k}/")
@@ -233,6 +225,94 @@ def load_packed_model(path: str, device="cuda") -> dict:
         return _leaf(node, prefix[:-1].rsplit("/", 1)[-1], dev, None)
 
     return rebuild(nested)
+
+
+# ---------------------------------------------------------------------------
+# Sharded packed checkpoints (checkpoint.py:149-285): one file a rank
+# ---------------------------------------------------------------------------
+
+
+def _shard_file(dir_path: str, i: int, n: int) -> str:
+    return os.path.join(dir_path, f"shard-{i:05d}-of-{n:05d}.npz")
+
+
+def save_packed_model_sharded(params: dict, dir_path: str, n_shards: int) -> None:
+    """A pack_model / pack_model_tp tree as JAX's sharded directory:
+    manifest.json ({"n_shards", "metas", "axes"}) and n_shards
+    shard-XXXXX-of-XXXXX.npz files.  Each PackedLinear leaf is split along
+    the axis parallel.tp_packed.packed_model_specs gives it (a column
+    pack's O axis, a row pack's K-concatenated leading axis, so n_shards
+    must be the tp it was packed for); every leaf kept whole (norms,
+    embeddings, a row pack's bias, a column pack's perm, the metas' own
+    entries) goes into shard 0 alone, which every rank reads."""
+    from smoothquant_tpu_torch.parallel.tp_packed import packed_model_specs
+
+    os.makedirs(dir_path, exist_ok=True)
+    flat_p = _flatten(params)
+    flat_s: dict = {}
+    metas: dict = {}
+
+    def walk(node, spec, prefix=""):
+        if isinstance(node, PackedLinear):
+            metas[prefix[:-1]] = dataclasses.asdict(node.meta)
+            for f, ax in spec.items():
+                flat_s[f"{prefix}{f}"] = ax
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, spec[k], f"{prefix}{k}/")
+
+    walk(params, packed_model_specs(params))
+    shards: list = [{} for _ in range(n_shards)]
+    axes: dict = {}
+    for key, arr in flat_p.items():
+        ax = flat_s.get(key)
+        if ax is None:
+            shards[0][key] = arr
+            continue
+        if arr.shape[ax] % n_shards:
+            raise ValueError(f"{key}: axis {ax} size {arr.shape[ax]} not divisible by "
+                             f"n_shards={n_shards}")
+        axes[key] = ax
+        step = arr.shape[ax] // n_shards
+        for i in range(n_shards):
+            shards[i][key] = np.take(arr, np.arange(i * step, (i + 1) * step), axis=ax)
+    with open(os.path.join(dir_path, "manifest.json"), "w") as f:
+        json.dump({"n_shards": n_shards, "metas": metas, "axes": axes}, f)
+    for i, flat in enumerate(shards):
+        np.savez(_shard_file(dir_path, i, n_shards), **flat)
+
+
+def load_packed_model_sharded(dir_path: str, shard: Optional[int] = None,
+                              device="cuda") -> dict:
+    """A sharded checkpoint (either package's) on `device`: shard=i → rank
+    i's local params (its slice of each split leaf, the metas global as
+    under shard_map: parallel.tp_packed.local_shard of the whole tree, bit
+    for bit); shard=None → the whole tree, the shards concatenated."""
+    dev = resolve_device(device)
+    with open(os.path.join(dir_path, "manifest.json")) as f:
+        manifest = json.load(f)
+    n, axes, metas = manifest["n_shards"], manifest["axes"], manifest["metas"]
+    if shard is not None:
+        flat = load_flat(_shard_file(dir_path, 0, n))
+        if shard != 0:
+            flat = {k: v for k, v in flat.items() if k not in axes}
+            flat.update(load_flat(_shard_file(dir_path, shard, n)))
+    else:
+        parts = [load_flat(_shard_file(dir_path, i, n)) for i in range(n)]
+        flat = dict(parts[0])
+        for key, ax in axes.items():
+            flat[key] = np.concatenate([p[key] for p in parts], axis=ax)
+
+    def rebuild(node, prefix=""):
+        key = prefix[:-1]
+        if key in metas:
+            d = {k: v for k, v in node.items() if k != "meta"}
+            return packed_from_numpy({**d, "meta": metas[key]}, dev)
+        if isinstance(node, dict):
+            return {k: rebuild(v, f"{prefix}{k}/") for k, v in node.items()}
+        return _leaf(node, prefix[:-1].rsplit("/", 1)[-1], dev, None)
+
+    return rebuild(unflatten(flat))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,11 @@ PackedLinear leaves).
 The input is a nested dict of numpy arrays (the JAX tree flattened by the
 caller, so the port never sees a JAX type).  A packed linear is a dict
 holding its fields (w_qt, w_scales_t, w_sal_t, bias, perm, ns_mask) and
-its PackedMeta as a plain dict under "meta"; an identity-int8 pack
+its PackedMeta as a plain dict under "meta" (a tensor-parallel pack of any
+tp_reduce too: a row-parallel "psum" pack arrives K-concatenated, as
+pack_linear_row_sharded builds it, a column-parallel one whole, and a
+rank takes its slice with parallel.tp_packed.local_shard); an
+identity-int8 pack
 (promote_int8's, or the per-channel lm_head) gets its weight stored
 K-major (kernels/pack.k_major), as the port's own packs hold it.  Plain
 and transposed-fp ("weight_t", llama.pack_fp_decode) linears are dicts of
@@ -35,6 +39,7 @@ from smoothquant_tpu_torch.models.opt_int8 import Int8Linear, Int8OPTLayerParams
 _FIELDS = ("w_qt", "w_scales_t", "w_sal_t", "bias", "perm", "ns_mask")
 _INDEX_LEAVES = ("sal_perm", "sal_inv_perm", "salient_indices")
 _META_FIELDS = {f.name for f in dataclasses.fields(PackedMeta)}
+TP_REDUCES = ("gather", "none", "psum", "rep")
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -53,8 +58,8 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 def packed_from_numpy(d: dict, device) -> PackedLinear:
     meta = dict(d["meta"])
-    if meta.pop("tp_reduce", "gather") != "gather":
-        raise NotImplementedError("tensor-parallel packs are not ported")
+    if meta.get("tp_reduce", "gather") not in TP_REDUCES:
+        raise ValueError(f"tp_reduce {meta['tp_reduce']!r}: one of {TP_REDUCES}")
     if d.get("sal_select") is not None:
         raise NotImplementedError("block_decode_tree packs are TPU-only")
     unknown = set(meta) - _META_FIELDS

@@ -11,8 +11,9 @@ test_torch_opt_int8 (1e-5 of the norm).  For f32 trees the port's own
 file holds JAX's keys, dtypes and bytes and the same metas JSON, and JAX
 loads it to the same logits.  A bf16 JAX pack loads in the port bit for
 bit; the JAX loader refuses that same file ("|V2" leaves) — the
-divergence of the reference this pins.  block_decode_tree and
-tensor-parallel packs are refused.  Act-scales files cross both ways."""
+divergence of the reference this pins.  block_decode_tree packs and a
+tp_reduce no reduce has are refused (tensor-parallel packs load:
+test_torch_sharded_checkpoint).  Act-scales files cross both ways."""
 
 import dataclasses
 import json
@@ -220,13 +221,13 @@ def test_tpu_only_and_tensor_parallel_packs_raise(packs, tmp_path, field):
     lin = packed["layers"]["0"]["mlp"]["down_proj"]
     if field == "sal_select":
         lin = dataclasses.replace(lin, sal_select=jnp.zeros((lin.meta.in_features, 8)))
-    else:
-        lin = dataclasses.replace(lin, meta=dataclasses.replace(lin.meta, tp_reduce="psum"))
+    else:   # no tensor-parallel reduce of that name
+        lin = dataclasses.replace(lin, meta=dataclasses.replace(lin.meta, tp_reduce="scatter"))
     tree = {**packed, "layers": {**packed["layers"], "0": {
         **packed["layers"]["0"], "mlp": {**packed["layers"]["0"]["mlp"], "down_proj": lin}}}}
     path = str(tmp_path / "bad.npz")
     jck.save_packed_model(tree, path)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError if field == "sal_select" else ValueError):
         tck.load_packed_model(path, device="cpu")
 
 

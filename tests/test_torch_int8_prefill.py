@@ -90,7 +90,6 @@ def test_promote_int8_bit_exact(nibble, salient):
         w4a4_group(group_size=16, salient_prop=salient), importance=imp,
         nibble=nibble, compute_dtype=torch.float32))
     jm = dataclasses.asdict(ref.meta)
-    jm.pop("tp_reduce")
     for t in (got, own):
         assert dataclasses.asdict(t.meta) == jm
         np.testing.assert_array_equal(t.w_qt.numpy(), np.asarray(ref.w_qt))

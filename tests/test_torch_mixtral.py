@@ -86,8 +86,9 @@ def mix():
 
 def test_config_capacity_and_registry():
     """Mixtral-8x7B's defaults equal the JAX config's; moe_capacity is
-    JAX's rule; the registry resolves "mixtral"; a context that asks for
-    expert parallelism or an unknown dispatch raises."""
+    JAX's rule; the registry resolves "mixtral"; a context names no expert
+    parallel group unless asked (ep_group, parallel/ep.py) and an unknown
+    dispatch raises."""
     assert dataclasses.asdict(tmix.MixtralConfig()) == dataclasses.asdict(jmix.MixtralConfig())
     cfg, jcfg = tmix.MixtralConfig.tiny(), jmix.MixtralConfig.tiny()
     for n in (1, 3, 4, 12, 64, 100):
@@ -95,8 +96,7 @@ def test_config_capacity_and_registry():
             assert tmix.moe_capacity(n, cfg, cf) == jmix.moe_capacity(n, jcfg, cf)
     assert tmix.moe_capacity(64, tmix.MixtralConfig(), 2.0) == 32
     assert get_arch("mixtral") is tmix
-    with pytest.raises(NotImplementedError, match="ep_axis"):
-        ForwardContext(ep_axis="ep")
+    assert ForwardContext().ep_group is None
     with pytest.raises(ValueError, match="moe_dispatch"):
         ForwardContext(moe_dispatch="ragged")
 

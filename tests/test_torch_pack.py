@@ -48,7 +48,6 @@ def _decoded(p, nibble):
 
 def assert_pack_equal(jp, tp):
     jm = dataclasses.asdict(jp.meta)
-    jm.pop("tp_reduce")
     assert jm == dataclasses.asdict(tp.meta)
     for a, b in zip(_decoded(jp, jp.meta.nibble), _decoded(tp, tp.meta.nibble)):
         if a is None:

@@ -114,8 +114,7 @@ def test_unfused_pack_model_bit_exact():
         for k in path:
             r, g = r[k], g[k]
         assert isinstance(g, tpack.PackedLinear) and not g.meta.nibble
-        assert dataclasses.asdict(g.meta) == {k: v for k, v in dataclasses.asdict(r.meta).items()
-                                              if k != "tp_reduce"}
+        assert dataclasses.asdict(g.meta) == dataclasses.asdict(r.meta)
         for f in ("w_qt", "w_scales_t", "w_sal_t", "perm"):
             np.testing.assert_array_equal(getattr(g, f).numpy(), np.asarray(getattr(r, f)))
         assert g.w_qt.dtype == torch.int8 and g.w_qt.shape == (g.meta.k_ns, g.meta.out_features)
